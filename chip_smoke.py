@@ -1,0 +1,548 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass or the script exits nonzero:
+
+  1. card and build: print the card's name and power limit (nvidia-smi),
+     build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
+     with nvcc for sm_90a (one nvcc per source, in parallel) and print the
+     build time and ptxas's register/spill report;
+  2. kernels: hold each kernel against its plain PyTorch version, on the
+     card, at the serving path's shapes and on edge cases (ragged fringes,
+     batch, accumulate forms, every epilogue, GQA, window, q_offset, valid,
+     fully-masked rows); print each case's worst error and tolerance, and
+     time each kernel (CUDA events, L2 flushed between launches) beside its
+     plain version, one PyTorch library call as a yardstick, and the bound
+     from bytes and flops at the card's published peaks;
+  3. serve: deepseek-7b at full width through
+     ``repro_torch.launch.serve.serve_loop`` with random bf16 weights from a
+     seed, with every kernel's launch count reset just before and read just
+     after (each must be > 0); then the served model's prefill and decode
+     logits on the kernel backend against the eager torch backend.
+
+The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
+the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and
+nothing of the JAX package.  Exits nonzero, printing no result, where CUDA
+is absent or where ``src/repro_torch`` is not beside this file.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Published H100 SXM peaks (dense, no sparsity) at the full 700 W limit.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
+
+# The serving run: deepseek-7b at full width and full depth.
+ARCH = "deepseek-7b"
+SERVE = dict(batch=4, prompt_len=256, gen_len=32, n_requests=8)
+NUM_LAYERS = None        # None = the config's full depth; an int cuts depth
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------------
+# Timing
+# ----------------------------------------------------------------------
+
+class Timer:
+    """Mean device time of a callable over ``iters`` launches, each timed
+    with its own CUDA event pair after a write of ``flush_bytes`` (larger
+    than the 50 MB L2), so every launch starts from a cold cache."""
+
+    def __init__(self, torch, flush_bytes: int = 256 << 20):
+        self.torch = torch
+        self.flush = torch.empty(flush_bytes, dtype=torch.uint8,
+                                 device="cuda")
+
+    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def bound_ms(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def bf16_ulp(torch, v):
+    """Spacing of bf16 numbers at |v| (8 significant bits)."""
+    mag = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+# ----------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ----------------------------------------------------------------------
+
+def check_gemm(torch, timer, failures):
+    from repro_torch.core import precision
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = precision.Ger
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    p = SERVE["prompt_len"]
+    cases = []
+    # The serving path's products: (name, M, K, N, epilogue, out dtype).
+    for m in (4, p):
+        cases += [
+            (f"qkvo M={m}", m, 4096, 4096, None, torch.bfloat16),
+            (f"wo+res M={m}", m, 4096, 4096, "residual", torch.bfloat16),
+            (f"w1+silu M={m}", m, 4096, 11008, "silu", torch.bfloat16),
+            (f"w3 M={m}", m, 4096, 11008, None, torch.bfloat16),
+            (f"w2+res M={m}", m, 11008, 4096, "residual", torch.bfloat16),
+            (f"logits M={m}", m, 4096, 102400, None, torch.float32),
+        ]
+    worst = 0.0
+    for name, m, k, n, epi, od in cases:
+        x = randn(m, k)
+        y = randn(k, n, scale=k ** -0.5)
+        res = randn(m, n) if epi == "residual" else None
+        ep = E.Epilogue(activation="silu") if epi == "silu" else (
+            E.Epilogue(residual=True) if epi == "residual" else None)
+        kw = dict(kind=Ger.BF16GER2, ep=ep, residual=res, out_dtype=od)
+        got = G.mma_gemm(x, y, **kw).float()
+        want = G.mma_gemm_plain(x, y, **kw).float()
+        worst = max(worst, _report_close(
+            torch, f"gemm {name}", got, want, od, failures))
+
+    # Edge cases: ragged fringes, batch, accumulate forms, epilogues, tiles,
+    # F32GER and F16GER2.
+    edge = []
+    x = randn(5, 999)
+    edge.append(("ragged M/K, N%8!=0", x, randn(999, 1001, scale=0.03),
+                 None, dict(kind=Ger.BF16GER2, out_dtype=torch.float32)))
+    edge.append(("batched B=3 77x200x130", randn(3, 77, 200),
+                 randn(3, 200, 130, scale=0.07), None,
+                 dict(kind=Ger.BF16GER2, out_dtype=torch.float32)))
+    edge.append(("seed neg/neg alpha/beta", randn(70, 256),
+                 randn(256, 90, scale=0.06),
+                 randn(70, 90, dtype=torch.float32),
+                 dict(kind=Ger.BF16GER2, neg_product=True, neg_acc=True,
+                      alpha=0.5, beta=-2.0, out_dtype=torch.float32)))
+    edge.append(("bias+gelu+res tile 128", randn(300, 512),
+                 randn(512, 260, scale=0.04), None,
+                 dict(kind=Ger.BF16GER2, block=(128, 128, 32),
+                      ep=E.Epilogue(bias=True, activation="gelu",
+                                    residual=True),
+                      bias=randn(260, dtype=torch.float32),
+                      residual=randn(300, 260), out_dtype=torch.bfloat16)))
+    edge.append(("relu tile 64 f16", randn(130, 384, dtype=torch.float16),
+                 randn(384, 200, dtype=torch.float16, scale=0.05), None,
+                 dict(kind=Ger.F16GER2, block=(64, 64, 64),
+                      ep=E.Epilogue(activation="relu"),
+                      out_dtype=torch.float16)))
+    edge.append(("F32GER 256x1024x1000", randn(256, 1024,
+                                               dtype=torch.float32),
+                 randn(1024, 1000, dtype=torch.float32, scale=0.03),
+                 randn(256, 1000, dtype=torch.float32),
+                 dict(kind=Ger.F32GER, beta=0.5, out_dtype=torch.float32)))
+    for name, xe, ye, ce, kw in edge:
+        got = G.mma_gemm(xe, ye, ce, **kw).float()
+        plain_kw = {k: v for k, v in kw.items() if k != "block"}
+        want = G.mma_gemm_plain(xe, ye, ce, **plain_kw).float()
+        worst = max(worst, _report_close(
+            torch, f"gemm {name}", got, want, kw["out_dtype"], failures))
+
+    # Timing at the decode MLP's product (M = batch, 4096 -> 11008).
+    m, k, n = SERVE["batch"], 4096, 11008
+    x, y = randn(m, k), randn(k, n, scale=k ** -0.5)
+    kw = dict(kind=Ger.BF16GER2, out_dtype=torch.bfloat16)
+    times = {name: timer(fn) for name, fn in (
+        ("ms", lambda: G.mma_gemm(x, y, **kw)),
+        ("plain_ms", lambda: G.mma_gemm_plain(x, y, **kw)),
+        ("library_ms", lambda: torch.matmul(x, y)))}
+    b_ms, b_by = bound_ms((m * k + k * n + m * n) * 2, 2 * m * n * k, "bf16")
+    extra = {}
+    for m2, k2, n2, od in ((p, 4096, 11008, torch.bfloat16),
+                           (m, 4096, 102400, torch.float32),
+                           (p, 4096, 102400, torch.float32)):
+        x2, y2 = randn(m2, k2), randn(k2, n2, scale=k2 ** -0.5)
+        t = timer(lambda: G.mma_gemm(x2, y2, kind=Ger.BF16GER2,
+                                     out_dtype=od), iters=5)
+        tl = timer(lambda: torch.matmul(x2, y2), iters=5)
+        bb, by = bound_ms((m2 * k2 + k2 * n2) * 2 + m2 * n2 * od.itemsize,
+                          2 * m2 * n2 * k2, "bf16")
+        extra[f"{m2}x{k2}x{n2}"] = dict(ms=t, library_ms=tl, bound_ms=bb,
+                                        bound_by=by)
+        print(f"  time gemm {m2}x{k2}x{n2}: kernel {t:.4f} ms, "
+              f"torch.matmul {tl:.4f} ms, bound {bb:.4f} ms ({by})")
+    print(f"  time gemm {m}x{k}x{n}: kernel {times['ms']:.4f} ms, plain "
+          f"{times['plain_ms']:.4f} ms, torch.matmul "
+          f"{times['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "mma_gemm", "route": "cuda",
+            "source": "src/repro_torch/csrc/mma_gemm.cu",
+            "replaces": "src/repro/kernels/mma_gemm.py:197",
+            "max_abs_err": worst, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"M={m} K={k} N={n} bf16", **times,
+            "other_shapes": extra}
+
+
+def _report_close(torch, name, got, want, out_dtype, failures) -> float:
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    if out_dtype == torch.float32:
+        # fp32 sums in another order: rtol 2e-5, atol 2e-5 * max|ref|
+        tol = 2e-5 * want.abs() + 2e-5 * scale
+        how = "rtol 2e-5 + 2e-5*max|ref|"
+    else:
+        # one ulp of the 16-bit output, plus fp32 sum-order noise
+        ulp = (bf16_ulp(torch, want) if out_dtype == torch.bfloat16
+               else bf16_ulp(torch, want) / 8)
+        tol = ulp + 1e-4 * scale
+        how = "1 ulp + 1e-4*max|ref|"
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    e = err.max().item()
+    print(f"  [{'ok' if ok else 'FAIL'}] {name}: max|err| {e:.3e} "
+          f"(tol {how}, max|ref| {scale:.3e})")
+    if not ok:
+        failures.append(name)
+    return e
+
+
+def check_attention(torch, timer, failures):
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    p = SERVE["prompt_len"]
+    cases = [
+        (f"prefill causal (1,{p},32,128)", (1, p, 32, 128), (1, p, 32, 128),
+         dict(causal=True)),
+        ("GQA 32/4 ragged S=200 B=2", (2, 200, 32, 128), (2, 200, 4, 128),
+         dict(causal=True)),
+        ("window 100 S=300", (1, 300, 8, 128), (1, 300, 8, 128),
+         dict(causal=True, window=100)),
+        ("q_offset 256 (64 on 320)", (1, 64, 8, 128), (1, 320, 8, 128),
+         dict(causal=True, q_offset=256)),
+        ("full, no mask, D=64", (2, 96, 4, 64), (2, 130, 4, 64),
+         dict(causal=False)),
+    ]
+    worst = 0.0
+    for name, qs, ks, kw in cases:
+        q, k, v = randn(*qs), randn(*ks), randn(*ks)
+        got = A.mma_flash_attention(q, k, v, **kw).float()
+        want = A.flash_attention_plain(q, k, v, **kw).float()
+        worst = max(worst, _report_attn(torch, f"attn {name}", got, want,
+                                        v, failures))
+    # valid slots, with fully-masked rows (rows 0-2 see only invalid keys)
+    q, k, v = randn(2, 70, 8, 128), randn(2, 70, 2, 128), randn(2, 70, 2, 128)
+    valid = torch.ones((2, 70), dtype=torch.bool, device="cuda")
+    valid[:, :3] = False
+    valid[1, 40:] = False
+    got = A.mma_flash_attention(q, k, v, causal=True, valid=valid).float()
+    want = A.flash_attention_plain(q, k, v, causal=True,
+                                   valid=valid).float()
+    worst = max(worst, _report_attn(torch, "attn valid + masked rows", got,
+                                    want, v, failures))
+    zero_ok = bool((got[:, :3] == 0).all())
+    print(f"  [{'ok' if zero_ok else 'FAIL'}] attn fully-masked rows are "
+          f"exact zeros")
+    if not zero_ok:
+        failures.append("attn masked rows")
+    # the epilogue on the normalised output, f32 store
+    ep = E.Epilogue(bias=True, activation="silu", residual=True)
+    bias = randn(128, dtype=torch.float32)
+    res = randn(1, 130, 8, 128)
+    q, k, v = randn(1, 130, 8, 128), randn(1, 130, 8, 128), randn(1, 130, 8, 128)
+    kw = dict(causal=True, ep=ep, bias=bias, residual=res,
+              out_dtype=torch.float32)
+    got = A.mma_flash_attention(q, k, v, **kw)
+    want = A.flash_attention_plain(q, k, v, **kw)
+    worst = max(worst, _report_attn(torch, "attn bias+silu+res f32", got,
+                                    want, v, failures))
+
+    # Timing at the prefill shape.
+    q, k, v = randn(1, p, 32, 128), randn(1, p, 32, 128), randn(1, p, 32, 128)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {name: timer(fn) for name, fn in (
+        ("ms", lambda: A.mma_flash_attention(q, k, v, causal=True)),
+        ("plain_ms", lambda: A.flash_attention_plain(q, k, v, causal=True)),
+        ("library_ms", lambda: sdpa(qt, kt, vt, is_causal=True)))}
+    pairs = A.attn_live_pairs(p, p, causal=True)
+    b_ms, b_by = bound_ms(4 * p * 32 * 128 * 2, 4 * 128 * pairs * 32, "bf16")
+    extra = {}
+    for s in (1024, 4096):
+        q2, k2, v2 = (randn(1, s, 32, 128) for _ in range(3))
+        qt2, kt2, vt2 = (t.transpose(1, 2) for t in (q2, k2, v2))
+        t = timer(lambda: A.mma_flash_attention(q2, k2, v2, causal=True),
+                  iters=5)
+        tl = timer(lambda: sdpa(qt2, kt2, vt2, is_causal=True), iters=5)
+        bb, by = bound_ms(4 * s * 32 * 128 * 2,
+                          4 * 128 * A.attn_live_pairs(s, s, causal=True) * 32,
+                          "bf16")
+        extra[f"S={s}"] = dict(ms=t, library_ms=tl, bound_ms=bb, bound_by=by)
+        print(f"  time attn causal (1,{s},32,128): kernel {t:.4f} ms, "
+              f"sdpa {tl:.4f} ms, bound {bb:.4f} ms ({by})")
+    print(f"  time attn causal (1,{p},32,128): kernel {times['ms']:.4f} ms, "
+          f"plain {times['plain_ms']:.4f} ms, sdpa "
+          f"{times['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "mma_flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/mma_attention.cu",
+            "replaces": "src/repro/kernels/mma_attention.py:193",
+            "max_abs_err": worst, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"(1,{p},32,128) causal bf16", **times,
+            "other_shapes": extra}
+
+
+def _report_attn(torch, name, got, want, v, failures) -> float:
+    # The kernel rounds the unnormalised P to bf16 block by block, the
+    # plain version the normalised P once: each weight differs by up to a
+    # bf16 half-ulp either way, so |err| <= 2^-7 * max|v| per output, plus
+    # one ulp of a 16-bit store.
+    err = (got - want).abs()
+    tol = 2.0 ** -7 * v.float().abs().max() + bf16_ulp(torch, want)
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    e = err.max().item()
+    print(f"  [{'ok' if ok else 'FAIL'}] {name}: max|err| {e:.3e} "
+          f"(tol 2^-7*max|v| + 1 bf16 ulp)")
+    if not ok:
+        failures.append(name)
+    return e
+
+
+# ----------------------------------------------------------------------
+# Phase 3: serve
+# ----------------------------------------------------------------------
+
+def serve(torch, failures):
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import facility
+    from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_gemm as G
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+
+    cfg = get_arch(ARCH)
+    if NUM_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, num_layers=NUM_LAYERS)
+        print(f"  depth cut: num_layers {NUM_LAYERS} (of "
+              f"{get_arch(ARCH).num_layers}); widths unchanged")
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    nparam = sum(t.numel() for t in model.parameters())
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.num_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}: {nparam / 1e9:.3f} B params in bf16, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    kernels = {"mma_gemm": G.mma_gemm,
+               "mma_flash_attention": A.mma_flash_attention}
+    torch.cuda.reset_peak_memory_stats()
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for fn in kernels.values():
+            fn.launches = 0
+        stats = S.serve_loop(cfg, model, **SERVE)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"  serve {SERVE}: {json.dumps(stats)}")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; launches in the serving run: {launches}")
+    per_call = 7 * cfg.num_layers + 1
+    print(f"  expected per prefill: {per_call} mma_gemm + {cfg.num_layers} "
+          f"mma_flash_attention; per decode step: {per_call} mma_gemm")
+    for name, n in launches.items():
+        if n <= 0:
+            failures.append(f"{name} never launched while serving")
+    if stats["completed"] != SERVE["n_requests"]:
+        failures.append(f"served {stats['completed']} of "
+                        f"{SERVE['n_requests']} requests")
+
+    # The served model's output against the eager torch backend: a prompt
+    # through prefill, then one decode step.
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 64), generator=g,
+                           device="cuda", dtype=torch.int32)
+    outs = {}
+    for backend in ("kernel", "torch"):
+        with facility.configure(facility.FacilityConfig(device="cuda",
+                                                        backend=backend)):
+            last, _ = M.prefill(model, {"tokens": prompt}, cfg)
+            cache = M.init_cache(cfg, 2, 64, device="cuda")
+            step, _ = M.decode_step(model, cache, prompt[:, :1].expand(2, 1),
+                                    cfg)
+        outs[backend] = (last.float(), step[:, -1].float())
+    for what, i in (("prefill logits", 0), ("decode logits", 1)):
+        got, want = outs["kernel"][i], outs["torch"][i]
+        rel = ((got - want).norm() / want.norm()).item()
+        # bf16 activations between 30 layers: rounding flips compound;
+        # 2e-2 relative L2 is far below what a wrong kernel gives (~1).
+        ok = (bool(torch.isfinite(got).all())
+              and got.shape == (want.shape[0], cfg.vocab_size)
+              and rel < 2e-2)
+        print(f"  [{'ok' if ok else 'FAIL'}] {what} {tuple(got.shape)}: "
+              f"kernel vs torch backend rel L2 {rel:.3e} (tol 2e-2)")
+        if not ok:
+            failures.append(what)
+    return stats, launches, (model, cfg)
+
+
+def step_breakdown(torch, model_and_cfg):
+    """Where one prefill and one decode step of the serving run spend their
+    time: host-clock step times (synchronised), and a torch.profiler trace
+    of one decode step for device time by kernel and the device's idle
+    share of the step."""
+    from repro_torch.core import facility
+    from repro_torch.models import model as M
+
+    model, cfg = model_and_cfg
+    b, p = SERVE["batch"], SERVE["prompt_len"]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=g,
+                           device="cuda", dtype=torch.int32)
+
+    def host_ms(fn, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        cache = M.init_cache(cfg, b, p * 4, device="cuda")
+        state = {"cache": cache}
+
+        def decode():
+            _, state["cache"] = M.decode_step(model, state["cache"], tokens,
+                                              cfg)
+
+        prefill_ms = host_ms(lambda: M.prefill(model, {"tokens": prompt},
+                                               cfg), 3)
+        decode_ms = host_ms(decode, 5)
+        print(f"  prefill (1 x {p}) {prefill_ms:.2f} ms, decode step "
+              f"(batch {b}) {decode_ms:.2f} ms (host clock, median)")
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernel rows only: an operator row (aten::copy_, ...) repeats the
+    # device time of the kernels it launched.
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = max(getattr(ev, "device_time_total", 0),
+                     getattr(ev, "self_device_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        print("  profiler: no device time recorded (not measured)")
+        return
+    # The profiler slows the host, so the idle share is taken against the
+    # unprofiled step time as well.
+    print(f"  profiled decode step: wall {wall_ms:.2f} ms, device busy "
+          f"{busy:.2f} ms; device idle share {max(0.0, 1 - busy / decode_ms):.3f}"
+          f" of the unprofiled step ({max(0.0, 1 - busy / wall_ms):.3f} of "
+          f"the profiled one)")
+    for ms, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} "
+              f"{key[:90]}")
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this smoke test runs on the card only")
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False   # F32GER is true fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    failures: list[str] = []
+
+    print("== phase 1: card and build", flush=True)
+    card = card_line()
+    print(f"  card: {card} ({torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda})")
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"  built {sorted(logs) or 'nothing (cached)'} in "
+          f"{time.perf_counter() - t0:.1f} s with {_build.nvcc()}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {name}: {line.strip()}")
+
+    print("== phase 2: kernels against their plain versions", flush=True)
+    timer = Timer(torch)
+    entries = [check_gemm(torch, timer, failures),
+               check_attention(torch, timer, failures)]
+
+    print("== phase 3: serve", flush=True)
+    stats, launches, served = serve(torch, failures)
+    step_breakdown(torch, served)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+
+    print(f"== done in {time.perf_counter() - t_start:.1f} s", flush=True)
+    if failures:
+        fail(f"{len(failures)} check(s) failed: {failures}")
+    print(card)
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,157 @@
+"""The port's attention (repro_torch.kernels.mma_attention and contract's
+attn op-class) against the JAX reference, on the CPU.
+
+The same numpy inputs go through the reference's Pallas flash kernel in
+interpret mode and through the port, whose kernel wrapper runs its plain
+version (the two-product softmax) on a CPU tensor.  Tolerance on the f32
+output: ``rtol=atol=1e-5`` (online vs one-shot softmax in fp32); rows whose
+every slot is masked must be exact zeros in both.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import facility as jfac
+from repro.core import precision as jprec
+from repro.kernels import epilogue as jep
+from repro.kernels import mma_attention as jattn
+from repro_torch.core import facility as tfac
+from repro_torch.core import precision as tprec
+from repro_torch.kernels import epilogue as tep
+from repro_torch.kernels import mma_attention as tattn
+
+
+def _qkv(seed, b, sq, sk, h, kvh, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    return q, k, v
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+@pytest.mark.parametrize("name,shape,kw", [
+    ("causal", (2, 32, 32, 4, 4, 16), dict(causal=True)),
+    ("full", (1, 32, 48, 4, 4, 16), dict(causal=False)),
+    ("gqa", (2, 32, 32, 8, 2, 16), dict(causal=True)),
+    ("window", (1, 64, 64, 4, 2, 16), dict(causal=True, window=20)),
+    ("q_offset", (1, 16, 64, 4, 4, 16), dict(causal=True, q_offset=48)),
+    ("window+q_offset", (1, 16, 64, 4, 1, 16),
+     dict(causal=True, q_offset=48, window=24)),
+])
+def test_plain_matches_pallas(name, shape, kw):
+    b, sq, sk, h, kvh, d = shape
+    q, k, v = _qkv(sum(map(ord, name)), b, sq, sk, h, kvh, d)
+    want = jattn.mma_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=16,
+        block_k=16, out_dtype=jnp.float32, interpret=True, **kw)
+    got = tattn.mma_flash_attention(_t(q), _t(k), _t(v),
+                                    out_dtype=torch.float32, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_plain_matches_pallas_valid_and_masked_rows():
+    q, k, v = _qkv(4, 2, 32, 32, 4, 2, 16)
+    valid = np.ones((2, 32), bool)
+    valid[:, :3] = False          # causal rows 0-2 see only invalid slots
+    valid[1, 20:] = False
+    want = np.asarray(jattn.mma_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        valid=jnp.asarray(valid), block_q=16, block_k=16,
+        out_dtype=jnp.float32, interpret=True))
+    got = tattn.mma_flash_attention(
+        _t(q), _t(k), _t(v), causal=True, valid=torch.from_numpy(valid),
+        out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.all(got[:, :3] == 0.0) and np.all(want[:, :3] == 0.0)
+
+
+def test_plain_matches_pallas_epilogue():
+    q, k, v = _qkv(5, 1, 32, 32, 4, 4, 16)
+    rng = np.random.default_rng(6)
+    bias = rng.standard_normal((16,)).astype(np.float32)
+    res = rng.standard_normal(q.shape).astype(np.float32)
+    want = jattn.mma_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        ep=jep.Epilogue(bias=True, activation="gelu", residual=True),
+        bias=jnp.asarray(bias), residual=jnp.asarray(res), block_q=16,
+        block_k=16, out_dtype=jnp.float32, interpret=True)
+    got = tattn.mma_flash_attention(
+        _t(q), _t(k), _t(v), causal=True,
+        ep=tep.Epilogue(bias=True, activation="gelu", residual=True),
+        bias=_t(bias), residual=_t(res), out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_bf16_plain_matches_pallas():
+    """bf16 operands: the kernel rounds the unnormalised P per block, the
+    plain version the normalised P once; both are within a bf16 half-ulp
+    of each weight, so 2^-7 * max|v| bounds the difference."""
+    q, k, v = _qkv(7, 1, 32, 32, 4, 4, 16)
+    want = np.asarray(jattn.mma_flash_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), causal=True, block_q=16, block_k=16,
+        out_dtype=jnp.float32, interpret=True))
+    got = tattn.mma_flash_attention(
+        _t(q).bfloat16(), _t(k).bfloat16(), _t(v).bfloat16(), causal=True,
+        out_dtype=torch.float32).numpy()
+    assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(v).max()
+
+
+@pytest.mark.parametrize("sq,sk,bq,bk,kw", [
+    (256, 256, 64, 64, dict(causal=True)),
+    (256, 256, 64, 64, dict(causal=False)),
+    (200, 200, 64, 64, dict(causal=True)),
+    (64, 320, 64, 64, dict(causal=True, q_offset=256)),
+    (300, 300, 64, 64, dict(causal=True, window=100)),
+    (128, 512, 32, 128, dict(causal=True, q_offset=384, window=50)),
+    (96, 96, 32, 32, dict(causal=True, bound=False)),
+])
+def test_grid_plan_matches_reference(sq, sk, bq, bk, kw):
+    want = jattn.attn_grid_plan(sq, sk, bq, bk, **kw)
+    got = tattn.attn_grid_plan(sq, sk, bq, bk, **kw)
+    np.testing.assert_array_equal(got, want)
+    kw.pop("bound", None)
+    assert (tattn.attn_live_steps(sq, sk, bq, bk, **kw)
+            == jattn.attn_live_steps(sq, sk, bq, bk, **kw))
+    assert (tattn.attn_live_pairs(sq, sk, **kw)
+            == jattn.attn_live_pairs(sq, sk, **kw))
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch", "ref"])
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=12, q_chunk=8),
+                                dict(causal=False)])
+def test_contract_attn_matches_reference(backend, kw):
+    q, k, v = _qkv(8, 2, 24, 24, 4, 2, 16)
+    valid = np.ones((2, 24), bool)
+    valid[0, 5] = False
+    want = jfac.contract(
+        jfac.ATTN, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        plan=jfac.Plan(ger=jprec.Ger.F32GER, out_dtype=jnp.float32,
+                       backend="xla", **kw), masks=(jnp.asarray(valid),))
+    with tfac.configure(tfac.FacilityConfig(device="cpu")):
+        got = tfac.contract(
+            tfac.ATTN, _t(q), _t(k), _t(v),
+            plan=tfac.Plan(ger=tprec.Ger.F32GER, out_dtype=torch.float32,
+                           backend=backend, **kw),
+            masks=(torch.from_numpy(valid),))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_kernel_tile_is_fixed():
+    q, k, v = (_t(a) for a in _qkv(9, 1, 8, 8, 2, 2, 16))
+    with tfac.configure(tfac.FacilityConfig(device="cpu")):
+        with pytest.raises(ValueError, match="tile"):
+            tfac.contract(tfac.ATTN, q, k, v,
+                          plan=tfac.Plan(causal=True, block=(128, 128)))
