@@ -10,19 +10,26 @@ Phases, each of which must pass or the script exits nonzero:
      with nvcc for sm_90a (one nvcc per source, in parallel) and print the
      build time and ptxas's register/spill report;
   2. kernels: hold each kernel against its plain PyTorch version, on the
-     card, at the serving path's shapes and on edge cases (ragged fringes,
+     card, at the serving paths' shapes (the SSD's batched products and
+     mamba2's causal conv included) and on edge cases (ragged fringes,
      batch, accumulate forms, every epilogue, GQA, window, q_offset, valid,
-     fully-masked rows); print each case's worst error and tolerance, and
+     fully-masked rows, conv strides and ragged channels, bf16/f16 conv
+     inputs); print each case's worst error and tolerance, and
      time each kernel (CUDA events, L2 flushed between launches) beside its
      plain version, one PyTorch library call as a yardstick, and the bound
      from bytes and flops at the card's published peaks;
-  3. serve: deepseek-7b at full width through
-     ``repro_torch.launch.serve.serve_loop`` with random bf16 weights from a
-     seed, with every kernel's launch count reset just before and read just
-     after (each must be > 0); then the served model's prefill and decode
-     logits on the kernel backend against the eager torch backend.
+  3. serve, through ``repro_torch.launch.serve.serve_loop`` with random
+     bf16 weights from a seed: deepseek-7b at full width (the GEMM and
+     flash-attention kernels), zamba2-1.2b at full width and depth (all
+     three kernels) and mamba2-130m at full width (GEMM and depthwise conv);
+     every kernel's launch count is reset just before each run and read
+     just after (each kernel of that path must be > 0); then each served
+     model's prefill and decode logits on the kernel backend against the
+     eager torch backend, mamba2-130m's exact per-slot prefill handoff, and
+     a profile of one deepseek-7b and one zamba2 decode step.
 
-The line before the last is ``{"kernels": [...]}`` (one entry per kernel);
+The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
+``launches`` summed over the serving runs and ``launches_by_run``);
 the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and
 nothing of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
@@ -43,10 +50,16 @@ SRC = ROOT / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
 
-# The serving run: deepseek-7b at full width and full depth.
+# The serving runs, each at full width: deepseek-7b (slice 1: the GEMM and
+# flash-attention kernels), zamba2-1.2b at full depth (slice 2: all three
+# kernels, mamba2 layers with a shared attention block) and mamba2-130m
+# (slice 2: the pure-SSM kind and its exact per-slot prefill handoff).
 ARCH = "deepseek-7b"
 SERVE = dict(batch=4, prompt_len=256, gen_len=32, n_requests=8)
 NUM_LAYERS = None        # None = the config's full depth; an int cuts depth
+SSM_RUNS = (("zamba2-1.2b", SERVE),
+            ("mamba2-130m", dict(batch=4, prompt_len=256, gen_len=16,
+                                 n_requests=4)))
 
 
 def fail(msg: str) -> None:
@@ -146,6 +159,26 @@ def check_gemm(torch, timer, failures):
         want = G.mma_gemm_plain(x, y, **kw).float()
         worst = max(worst, _report_close(
             torch, f"gemm {name}", got, want, od, failures))
+    # The SSD's batched products (models/mamba2.py) at zamba2's widths
+    # (H = 64 heads of P = 64, N = 64) and mamba2-130m's (H = 24, N = 128),
+    # prefill chunk L = 256, decode batch B = 4: (batch, M, K, N, out).
+    b = SERVE["batch"]
+    for arch, h, n_st in (("zamba2", 64, 64), ("mamba2", 24, 128)):
+        hp = h * 64
+        for name, bb, m, k, n, od in (
+                ("scores", 1, p, n_st, p, torch.float32),
+                ("y_intra", h, p, p, 64, torch.bfloat16),
+                ("states", 1, n_st, p, hp, torch.float32),
+                ("y_inter", 1, p, n_st, hp, torch.bfloat16),
+                ("decode outer K=1", b, n_st, 1, hp, torch.float32),
+                ("decode y M=1", b, 1, n_st, hp, torch.bfloat16)):
+            x, y = randn(bb, m, k), randn(bb, k, n, scale=k ** -0.5)
+            kw = dict(kind=Ger.BF16GER2, out_dtype=od)
+            got = G.mma_gemm(x, y, **kw).float()
+            want = G.mma_gemm_plain(x, y, **kw).float()
+            worst = max(worst, _report_close(
+                torch, f"gemm {arch} ssd {name} ({bb},{m},{k})x({bb},{k},{n})",
+                got, want, od, failures))
 
     # Edge cases: ragged fringes, batch, accumulate forms, epilogues, tiles,
     # F32GER and F16GER2.
@@ -195,18 +228,28 @@ def check_gemm(torch, timer, failures):
         ("library_ms", lambda: torch.matmul(x, y)))}
     b_ms, b_by = bound_ms((m * k + k * n + m * n) * 2, 2 * m * n * k, "bf16")
     extra = {}
-    for m2, k2, n2, od in ((p, 4096, 11008, torch.bfloat16),
-                           (m, 4096, 102400, torch.float32),
-                           (p, 4096, 102400, torch.float32)):
-        x2, y2 = randn(m2, k2), randn(k2, n2, scale=k2 ** -0.5)
+    # (batch, M, K, N, out): the dense path's prefill and logits products,
+    # then zamba2's SSD products in prefill and decode.
+    for b2, m2, k2, n2, od in ((1, p, 4096, 11008, torch.bfloat16),
+                               (1, m, 4096, 102400, torch.float32),
+                               (1, p, 4096, 102400, torch.float32),
+                               (64, p, p, 64, torch.bfloat16),
+                               (1, 64, p, 4096, torch.float32),
+                               (m, 64, 1, 4096, torch.float32),
+                               (m, 1, 64, 4096, torch.bfloat16)):
+        shape = (b2, m2, k2) if b2 > 1 or m2 == 64 else (m2, k2)
+        x2 = randn(*shape)
+        y2 = randn(*shape[:-2], k2, n2, scale=k2 ** -0.5)
         t = timer(lambda: G.mma_gemm(x2, y2, kind=Ger.BF16GER2,
                                      out_dtype=od), iters=5)
         tl = timer(lambda: torch.matmul(x2, y2), iters=5)
-        bb, by = bound_ms((m2 * k2 + k2 * n2) * 2 + m2 * n2 * od.itemsize,
-                          2 * m2 * n2 * k2, "bf16")
-        extra[f"{m2}x{k2}x{n2}"] = dict(ms=t, library_ms=tl, bound_ms=bb,
-                                        bound_by=by)
-        print(f"  time gemm {m2}x{k2}x{n2}: kernel {t:.4f} ms, "
+        bb, by = bound_ms(b2 * ((m2 * k2 + k2 * n2) * 2
+                                + m2 * n2 * od.itemsize),
+                          2 * b2 * m2 * n2 * k2, "bf16")
+        key = f"{b2}x{m2}x{k2}x{n2}" if len(shape) == 3 else \
+            f"{m2}x{k2}x{n2}"
+        extra[key] = dict(ms=t, library_ms=tl, bound_ms=bb, bound_by=by)
+        print(f"  time gemm {key}: kernel {t:.4f} ms, "
               f"torch.matmul {tl:.4f} ms, bound {bb:.4f} ms ({by})")
     print(f"  time gemm {m}x{k}x{n}: kernel {times['ms']:.4f} ms, plain "
           f"{times['plain_ms']:.4f} ms, torch.matmul "
@@ -262,6 +305,8 @@ def check_attention(torch, timer, failures):
          dict(causal=True, q_offset=256)),
         ("full, no mask, D=64", (2, 96, 4, 64), (2, 130, 4, 64),
          dict(causal=False)),
+        (f"zamba2 shared block causal (1,{p},32,64)", (1, p, 32, 64),
+         (1, p, 32, 64), dict(causal=True)),
     ]
     worst = 0.0
     for name, qs, ks, kw in cases:
@@ -308,17 +353,18 @@ def check_attention(torch, timer, failures):
     pairs = A.attn_live_pairs(p, p, causal=True)
     b_ms, b_by = bound_ms(4 * p * 32 * 128 * 2, 4 * 128 * pairs * 32, "bf16")
     extra = {}
-    for s in (1024, 4096):
-        q2, k2, v2 = (randn(1, s, 32, 128) for _ in range(3))
+    for s, d in ((1024, 128), (4096, 128), (p, 64)):
+        q2, k2, v2 = (randn(1, s, 32, d) for _ in range(3))
         qt2, kt2, vt2 = (t.transpose(1, 2) for t in (q2, k2, v2))
         t = timer(lambda: A.mma_flash_attention(q2, k2, v2, causal=True),
                   iters=5)
         tl = timer(lambda: sdpa(qt2, kt2, vt2, is_causal=True), iters=5)
-        bb, by = bound_ms(4 * s * 32 * 128 * 2,
-                          4 * 128 * A.attn_live_pairs(s, s, causal=True) * 32,
+        bb, by = bound_ms(4 * s * 32 * d * 2,
+                          4 * d * A.attn_live_pairs(s, s, causal=True) * 32,
                           "bf16")
-        extra[f"S={s}"] = dict(ms=t, library_ms=tl, bound_ms=bb, bound_by=by)
-        print(f"  time attn causal (1,{s},32,128): kernel {t:.4f} ms, "
+        extra[f"S={s} D={d}"] = dict(ms=t, library_ms=tl, bound_ms=bb,
+                                     bound_by=by)
+        print(f"  time attn causal (1,{s},32,{d}): kernel {t:.4f} ms, "
               f"sdpa {tl:.4f} ms, bound {bb:.4f} ms ({by})")
     print(f"  time attn causal (1,{p},32,128): kernel {times['ms']:.4f} ms, "
           f"plain {times['plain_ms']:.4f} ms, sdpa "
@@ -347,84 +393,278 @@ def _report_attn(torch, name, got, want, v, failures) -> float:
     return e
 
 
+def check_depthwise_conv(torch, timer, failures):
+    """K4 against its plain version: mamba2's causal conv at zamba2's and
+    mamba2-130m's widths (conv_dim 4224 and 1792; prefill over the 256 + 3
+    padded frames, decode over the 3-frame history + 1), then edge cases:
+    strides, 2-D taps, a C that no vector width divides, bf16/f16 inputs
+    and every epilogue."""
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_conv as K
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    p, b = SERVE["prompt_len"], SERVE["batch"]
+    silu = E.Epilogue(bias=True, activation="silu")
+    # (name, image NHWC, KH, KW, stride, in dtype, epilogue, out dtype)
+    cases = []
+    for arch, c in (("zamba2", 4224), ("mamba2-130m", 1792)):
+        cases += [(f"{arch} prefill", (1, 1, p + 3, c), 1, 4, (1, 1),
+                   torch.float32, silu, torch.bfloat16),
+                  (f"{arch} decode", (b, 1, 4, c), 1, 4, (1, 1),
+                   torch.float32, silu, torch.bfloat16)]
+    cases += [
+        ("stride (2,3) 3x5 C=130 none f32", (2, 9, 37, 130), 3, 5, (2, 3),
+         torch.float32, None, torch.float32),
+        ("stride (1,2) C=77 bias bf16-in", (3, 1, 50, 77), 1, 4, (1, 2),
+         torch.bfloat16, E.Epilogue(bias=True), torch.float32),
+        ("2x3 C=33 bias+gelu f16", (2, 5, 20, 33), 2, 3, (1, 1),
+         torch.float16, E.Epilogue(bias=True, activation="gelu"),
+         torch.float16),
+        ("C=4227 residual f32", (2, 1, 30, 4227), 1, 4, (1, 1),
+         torch.float32, E.Epilogue(residual=True), torch.float32),
+        ("C=131 bias+relu+res bf16", (2, 3, 11, 131), 2, 2, (1, 1),
+         torch.bfloat16, E.Epilogue(bias=True, activation="relu",
+                                    residual=True), torch.bfloat16),
+    ]
+    worst = 0.0
+    for name, shape, kh, kw, stride, idt, ep, od in cases:
+        n, h, w, c = shape
+        oh, ow = (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
+        x = randn(*shape, dtype=idt)
+        taps = randn(kh, kw, c, dtype=idt, scale=0.3)
+        bias = randn(c) if ep is not None and ep.bias else None
+        res = randn(n, oh, ow, c) if ep is not None and ep.residual else None
+        kw_ = dict(stride=stride, out_dtype=od, ep=ep, bias=bias,
+                   residual=res)
+        got = K.mma_depthwise_conv2d(x, taps, **kw_).float()
+        want = K.mma_depthwise_conv2d_plain(x, taps, **kw_).float()
+        worst = max(worst, _report_close(
+            torch, f"depthwise {name}", got, want, od, failures))
+
+    # Timing at zamba2's prefill conv: f32 frames (the F32GER policy cast)
+    # in, bias + silu, bf16 out.  The library yardstick is cuDNN's
+    # depthwise conv1d with bias (one call; silu is not part of it).
+    c = 4224
+    x = randn(1, 1, p + 3, c)
+    taps, bias = randn(1, 4, c, scale=0.3), randn(c)
+    kw_ = dict(out_dtype=torch.bfloat16, ep=silu, bias=bias)
+    xc = x[:, 0].transpose(1, 2).contiguous()              # (N, C, L + 3)
+    wc = taps[0].t().contiguous()[:, None]                  # (C, 1, 4)
+    conv1d = torch.nn.functional.conv1d
+    times = {name: timer(fn) for name, fn in (
+        ("ms", lambda: K.mma_depthwise_conv2d(x, taps, **kw_)),
+        ("plain_ms", lambda: K.mma_depthwise_conv2d_plain(x, taps, **kw_)),
+        ("library_ms", lambda: conv1d(xc, wc, bias, groups=c)))}
+    nbytes = x.numel() * 4 + taps.numel() * 4 + c * 4 + p * c * 2
+    b_ms, b_by = bound_ms(nbytes, 2 * p * c * 4 + 4 * p * c, "f32")
+    extra = {}
+    for name, shape in (("zamba2 decode", (b, 1, 4, c)),
+                        ("mamba2-130m prefill", (1, 1, p + 3, 1792)),
+                        ("mamba2-130m decode", (b, 1, 4, 1792))):
+        cc = shape[-1]
+        x2, t2, b2 = randn(*shape), randn(1, 4, cc, scale=0.3), randn(cc)
+        xc2 = x2[:, 0].transpose(1, 2).contiguous()
+        wc2 = t2[0].t().contiguous()[:, None]
+        kw2 = dict(out_dtype=torch.bfloat16, ep=silu, bias=b2)
+        t = timer(lambda: K.mma_depthwise_conv2d(x2, t2, **kw2))
+        tp = timer(lambda: K.mma_depthwise_conv2d_plain(x2, t2, **kw2))
+        tl = timer(lambda: conv1d(xc2, wc2, b2, groups=cc))
+        lo = shape[2] - 3
+        bb, by = bound_ms(x2.numel() * 4 + t2.numel() * 4 + cc * 4
+                          + shape[0] * lo * cc * 2,
+                          shape[0] * lo * cc * 12, "f32")
+        extra[name] = dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=bb,
+                           bound_by=by)
+        print(f"  time depthwise {name} {shape}: kernel {t:.4f} ms, plain "
+              f"{tp:.4f} ms, cuDNN conv1d {tl:.4f} ms, bound {bb:.4f} ms "
+              f"({by})")
+    print(f"  time depthwise zamba2 prefill (1,1,{p + 3},{c}): kernel "
+          f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, cuDNN "
+          f"conv1d {times['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return {"name": "mma_depthwise_conv2d", "route": "cuda",
+            "source": "src/repro_torch/csrc/mma_conv.cu",
+            "replaces": "src/repro/kernels/mma_conv.py:242",
+            "max_abs_err": worst, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"(1,1,{p + 3},{c}) x (1,4,{c}) f32 bias+silu -> bf16",
+            **times, "other_shapes": extra}
+
+
 # ----------------------------------------------------------------------
 # Phase 3: serve
 # ----------------------------------------------------------------------
 
-def serve(torch, failures):
+def expected_launches(cfg) -> dict:
+    """Kernel launches per prefill and per decode step, from the code:
+    dense layers run 7 GEMMs (q, k, v, o, w1, w3, w2) and one flash
+    attention in prefill; mamba2 layers run in_proj, the four SSD products
+    and out_proj in prefill, in_proj, the two decode products and out_proj
+    in a decode step, and one depthwise conv in each; zamba2's shared
+    block runs 8 GEMMs (in_proj, q, k, v, o, w1, w3, w2; in decode the new
+    k/v projections take the place of apply_attention's) after each group
+    of ``shared_attn_every`` layers, and one flash attention in prefill
+    only (decode attends over the ring on the eager path); plus the
+    logits GEMM."""
+    n = cfg.num_layers
+    if cfg.family == "dense":
+        return {"prefill": {"mma_gemm": 7 * n + 1, "mma_flash_attention": n},
+                "decode": {"mma_gemm": 7 * n + 1}}
+    groups = -(-n // cfg.shared_attn_every) if cfg.shared_attn_every else 0
+    prefill = {"mma_gemm": 6 * n + 8 * groups + 1,
+               "mma_depthwise_conv2d": n}
+    if groups:
+        prefill["mma_flash_attention"] = groups
+    return {"prefill": prefill,
+            "decode": {"mma_gemm": 4 * n + 8 * groups + 1,
+                       "mma_depthwise_conv2d": n}}
+
+
+def serve(torch, failures, arch, settings, num_layers=None):
+    """Serve ``arch`` with random bf16 weights from seed 0 through
+    ``serve_loop``, every kernel's launch count reset just before and read
+    just after; then the served model's prefill and decode logits on the
+    kernel backend against the eager torch backend."""
     import dataclasses
 
     from repro_torch.configs import get as get_arch
     from repro_torch.core import facility
     from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_conv as K
     from repro_torch.kernels import mma_gemm as G
     from repro_torch.launch import serve as S
     from repro_torch.models import model as M
 
-    cfg = get_arch(ARCH)
-    if NUM_LAYERS is not None:
-        cfg = dataclasses.replace(cfg, num_layers=NUM_LAYERS)
-        print(f"  depth cut: num_layers {NUM_LAYERS} (of "
-              f"{get_arch(ARCH).num_layers}); widths unchanged")
+    cfg = get_arch(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+        print(f"  depth cut: num_layers {num_layers} (of "
+              f"{get_arch(arch).num_layers}); widths unchanged")
     t0 = time.perf_counter()
     model = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     nparam = sum(t.numel() for t in model.parameters())
     print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"heads {cfg.num_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}: {nparam / 1e9:.3f} B params in bf16, init "
+          f"heads {cfg.num_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, ssm "
+          f"state {cfg.ssm_state}, vocab {cfg.vocab_size}: "
+          f"{nparam / 1e9:.3f} B params (projections bf16), init "
           f"{time.perf_counter() - t0:.1f} s")
+    want = expected_launches(cfg)
     kernels = {"mma_gemm": G.mma_gemm,
-               "mma_flash_attention": A.mma_flash_attention}
+               "mma_flash_attention": A.mma_flash_attention,
+               "mma_depthwise_conv2d": K.mma_depthwise_conv2d}
     torch.cuda.reset_peak_memory_stats()
     with facility.configure(facility.FacilityConfig(device="cuda")):
         for fn in kernels.values():
             fn.launches = 0
-        stats = S.serve_loop(cfg, model, **SERVE)
+        stats = S.serve_loop(cfg, model, **settings)
         launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"  serve {SERVE}: {json.dumps(stats)}")
+    print(f"  serve {settings}: {json.dumps(stats)}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; launches in the serving run: {launches}")
-    per_call = 7 * cfg.num_layers + 1
-    print(f"  expected per prefill: {per_call} mma_gemm + {cfg.num_layers} "
-          f"mma_flash_attention; per decode step: {per_call} mma_gemm")
-    for name, n in launches.items():
-        if n <= 0:
-            failures.append(f"{name} never launched while serving")
-    if stats["completed"] != SERVE["n_requests"]:
+    print(f"  expected per prefill: {want['prefill']}; per decode step: "
+          f"{want['decode']}")
+    # The counts follow from the calls: every request is one prefill, and
+    # the GEMM count then gives the number of decode steps, which must
+    # explain the other kernels' counts too.
+    pre = stats["completed"]
+    steps = (launches["mma_gemm"] - pre * want["prefill"]["mma_gemm"]) / \
+        want["decode"]["mma_gemm"]
+    model_counts = {k: pre * want["prefill"].get(k, 0)
+                    + steps * want["decode"].get(k, 0) for k in kernels}
+    print(f"  {pre} prefills + {steps:g} decode steps give {model_counts}: "
+          f"{'matches' if model_counts == launches else 'DIFFERS FROM'} the "
+          f"counts")
+    if model_counts != launches:
+        failures.append(f"{arch} launch counts {launches} differ from the "
+                        f"per-call model {model_counts}")
+    for name in want["prefill"]:
+        if launches[name] <= 0:
+            failures.append(f"{name} never launched while serving {arch}")
+    if stats["completed"] != settings["n_requests"]:
         failures.append(f"served {stats['completed']} of "
-                        f"{SERVE['n_requests']} requests")
+                        f"{settings['n_requests']} {arch} requests")
 
     # The served model's output against the eager torch backend: a prompt
-    # through prefill, then one decode step.
+    # through prefill, then one decode step.  The bound is the larger of
+    # 2e-2 and twice the model's own bf16 noise (the torch backend's bf16
+    # logits against its F32GER/f32 ones): rounding flips compound over
+    # the layers, and a wrong kernel gives a relative L2 of ~1.
     g = torch.Generator(device="cuda").manual_seed(3)
     prompt = torch.randint(0, cfg.vocab_size, (1, 64), generator=g,
                            device="cuda", dtype=torch.int32)
+    modes = {"kernel": dict(backend="kernel"), "torch": dict(backend="torch"),
+             "f32": dict(backend="torch", ger=facility.Ger.F32GER,
+                         out_dtype=torch.float32)}
     outs = {}
-    for backend in ("kernel", "torch"):
-        with facility.configure(facility.FacilityConfig(device="cuda",
-                                                        backend=backend)):
+    for mode, kw in modes.items():
+        with facility.configure(facility.FacilityConfig(device="cuda", **kw)):
             last, _ = M.prefill(model, {"tokens": prompt}, cfg)
-            cache = M.init_cache(cfg, 2, 64, device="cuda")
+            cache = M.init_cache(cfg, 2, 64, device="cuda",
+                                 dtype=kw.get("out_dtype", torch.bfloat16))
             step, _ = M.decode_step(model, cache, prompt[:, :1].expand(2, 1),
                                     cfg)
-        outs[backend] = (last.float(), step[:, -1].float())
+        outs[mode] = (last.float(), step[:, -1].float())
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
     for what, i in (("prefill logits", 0), ("decode logits", 1)):
-        got, want = outs["kernel"][i], outs["torch"][i]
-        rel = ((got - want).norm() / want.norm()).item()
-        # bf16 activations between 30 layers: rounding flips compound;
-        # 2e-2 relative L2 is far below what a wrong kernel gives (~1).
+        got, want_ = outs["kernel"][i], outs["torch"][i]
+        noise = rel(want_, outs["f32"][i])
+        tol = max(2e-2, 2 * noise)
+        r = rel(got, want_)
         ok = (bool(torch.isfinite(got).all())
-              and got.shape == (want.shape[0], cfg.vocab_size)
-              and rel < 2e-2)
-        print(f"  [{'ok' if ok else 'FAIL'}] {what} {tuple(got.shape)}: "
-              f"kernel vs torch backend rel L2 {rel:.3e} (tol 2e-2)")
+              and got.shape == (want_.shape[0], cfg.vocab_size) and r < tol)
+        print(f"  [{'ok' if ok else 'FAIL'}] {arch} {what} "
+              f"{tuple(got.shape)}: kernel vs torch backend rel L2 {r:.3e} "
+              f"(tol {tol:.3e}; torch bf16 vs f32 {noise:.3e})")
         if not ok:
-            failures.append(what)
+            failures.append(f"{arch} {what}")
+    if cfg.family == "ssm":
+        check_handoff(torch, failures, model, cfg, prompt)
     return stats, launches, (model, cfg)
 
 
-def step_breakdown(torch, model_and_cfg):
+def check_handoff(torch, failures, model, cfg, prompt):
+    """The ssm kind's exact per-slot handoff: a slot's first decode logits
+    after ``_scatter_prefill`` into a batch of 4 equal a batch-1 decode
+    from the same prefill state (within 2^-8 of max|logit|, one bf16 ulp:
+    each row's products are the same, only the batch around it differs)."""
+    from repro_torch.core import facility
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    b, slot = SERVE["batch"], 2
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        _, pre = M.prefill(model, {"tokens": prompt}, cfg)
+        tok = prompt[:, -1:]
+        many = torch.randint(0, cfg.vocab_size, (b, 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        many[slot] = tok[0]
+        cache = S._scatter_prefill(M.init_cache(cfg, b, 64, device="cuda"),
+                                   pre, slot)
+        got, _ = M.decode_step(model, cache, many, cfg)
+        one = S._scatter_prefill(M.init_cache(cfg, 1, 64, device="cuda"),
+                                 pre, 0)
+        want, _ = M.decode_step(model, one, tok, cfg)
+    got, want = got[slot, -1].float(), want[0, -1].float()
+    err = (got - want).abs().max().item()
+    tol = 2.0 ** -8 * want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    print(f"  [{'ok' if ok else 'FAIL'}] {cfg.name} handoff: slot {slot} of "
+          f"{b} after _scatter_prefill vs batch-1 decode: max|err| "
+          f"{err:.3e} (tol 2^-8*max|ref| = {tol:.3e})")
+    if not ok:
+        failures.append(f"{cfg.name} prefill handoff")
+
+
+def step_breakdown(torch, model_and_cfg, settings):
     """Where one prefill and one decode step of the serving run spend their
     time: host-clock step times (synchronised), and a torch.profiler trace
     of one decode step for device time by kernel and the device's idle
@@ -433,7 +673,7 @@ def step_breakdown(torch, model_and_cfg):
     from repro_torch.models import model as M
 
     model, cfg = model_and_cfg
-    b, p = SERVE["batch"], SERVE["prompt_len"]
+    b, p = settings["batch"], settings["prompt_len"]
     g = torch.Generator(device="cuda").manual_seed(4)
     prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=g,
                            device="cuda", dtype=torch.int32)
@@ -461,8 +701,8 @@ def step_breakdown(torch, model_and_cfg):
         prefill_ms = host_ms(lambda: M.prefill(model, {"tokens": prompt},
                                                cfg), 3)
         decode_ms = host_ms(decode, 5)
-        print(f"  prefill (1 x {p}) {prefill_ms:.2f} ms, decode step "
-              f"(batch {b}) {decode_ms:.2f} ms (host clock, median)")
+        print(f"  {cfg.name}: prefill (1 x {p}) {prefill_ms:.2f} ms, decode "
+              f"step (batch {b}) {decode_ms:.2f} ms (host clock, median)")
         act = torch.profiler.ProfilerActivity
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -526,13 +766,24 @@ def main() -> None:
     print("== phase 2: kernels against their plain versions", flush=True)
     timer = Timer(torch)
     entries = [check_gemm(torch, timer, failures),
-               check_attention(torch, timer, failures)]
+               check_attention(torch, timer, failures),
+               check_depthwise_conv(torch, timer, failures)]
+    del timer
 
     print("== phase 3: serve", flush=True)
-    stats, launches, served = serve(torch, failures)
-    step_breakdown(torch, served)
+    by_run = {}
+    for arch, settings, layers, profile in (
+            (ARCH, SERVE, NUM_LAYERS, True),
+            *((a, st, None, a == "zamba2-1.2b") for a, st in SSM_RUNS)):
+        _, by_run[arch], served = serve(torch, failures, arch, settings,
+                                        layers)
+        if profile:
+            step_breakdown(torch, served, settings)
+        del served
+        torch.cuda.empty_cache()
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches_by_run"] = {a: n[e["name"]] for a, n in by_run.items()}
+        e["launches"] = sum(e["launches_by_run"].values())
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:

@@ -2,7 +2,8 @@
 (port of ``repro.core.facility``).
 
 Every matrix contraction of the port's models — attention projections,
-MLP GEMMs, attention itself, logits — routes through :func:`contract`:
+MLP GEMMs, attention itself, the SSD products, mamba2's causal conv,
+logits — routes through :func:`contract`:
 
     contract(spec, x, y, plan=Plan(...))
 
@@ -39,6 +40,13 @@ repeat_kv = lowering.repeat_kv
 
 # The workhorse spec: contract the last axis of x with the first of w.
 DOT = "...k,kn->...n"
+
+# Convolutions (NHWC image, HWIO filters; stride and valid/same/causal
+# padding ride in the Plan): dense 2-D, dense 1-D over the L axis, and
+# depthwise 1-D with per-channel taps (L, C).
+CONV2D = lowering.CONV2D
+CONV1D = lowering.CONV1D
+CONV1D_DEPTHWISE = lowering.CONV1D_DEPTHWISE
 
 # Fused attention: q (B, Sq, H, D); k, v (B, Sk, KVH, D); causal/window/
 # q_offset ride in the Plan, the (B, Sk) valid-slot predicate as

@@ -1,5 +1,5 @@
 """The lowering registry beneath ``facility.contract`` (port of
-``repro.core.lowering``: the gemm, attn and einsum halves).
+``repro.core.lowering``: the gemm, conv, attn and einsum parts).
 
 ``facility.contract(spec, x, y, plan=...)`` parses an einsum-like
 contraction spec, resolves a :class:`Plan` against the ambient
@@ -15,11 +15,12 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
     architected oracles — ground truth).
   * ``op_class``: ``"gemm"`` (any spec that normalizes to a — possibly
     batched — 2-D GEMM; batch rides the kernel's ``blockIdx.z``),
-    ``"attn"`` (the canonical three-operand ATTN spec), ``"einsum"``
-    (general contraction fallback, eager on every backend, as the
-    reference's einsum fell to xla).  ``gemm.masked``, ``gemm.saturating``,
-    ``conv`` and ``complex`` are later slices and raise
-    ``NotImplementedError`` naming theirs.
+    ``"conv"`` (the canonical NHWC conv specs, stride and valid/same/causal
+    padding in the Plan), ``"attn"`` (the canonical three-operand ATTN
+    spec), ``"einsum"`` (general contraction fallback, eager on every
+    backend, as the reference's einsum fell to xla).  ``gemm.masked``,
+    ``gemm.saturating``, ``complex`` and the dense conv kernel (K3) are
+    later slices and raise ``NotImplementedError`` naming theirs.
   * ``ger``/``fused``: optional specializations; lookup falls back from the
     most specific key to ``(backend, op_class, None, None)``.
 
@@ -43,6 +44,7 @@ fp32 pass into three chained bf16 passes over one accumulator.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -51,6 +53,7 @@ import torch
 from repro_torch.core import precision
 from repro_torch.kernels import epilogue as _epilogue_mod
 from repro_torch.kernels import mma_attention as _attn
+from repro_torch.kernels import mma_conv as _conv
 from repro_torch.kernels import mma_gemm as _gemm
 from repro_torch.kernels import ref as _ref
 
@@ -84,9 +87,9 @@ class Plan:
     alpha: float = 1.0
     beta: float = 1.0
     saturating: bool = False          # gemm.saturating: slice C2
-    # Conv op-class only (slice B2):
-    stride: object = 1
-    padding: str = "valid"
+    # Conv op-class only (spec is one of the canonical conv specs below):
+    stride: object = 1                # int, or one value per spatial dim
+    padding: str = "valid"            # valid | same | causal
     # Attn op-class only (spec is the canonical ATTN spec below):
     causal: bool = False              # q attends k with k_pos <= q_pos
     window: int | None = None         # sliding window: q_pos - k_pos < window
@@ -94,11 +97,16 @@ class Plan:
     q_chunk: int = 0                  # torch lowering's q-chunk (0 = default)
 
 
-# Conv specs: named so that they raise with their slice, not as einsums.
-CONV2D = "nhwc,hwio->nhwo"
-CONV1D = "nlc,lio->nlo"
-CONV1D_DEPTHWISE = "nlc,lc->nlc"
-_CONV_SPECS = (CONV2D, CONV1D, CONV1D_DEPTHWISE)
+# Conv specs: convolutions are not two-operand einsums (the sliding window
+# reuses input elements), so the facility names them with canonical specs
+# (NHWC / HWIO layouts) and ``execute`` routes them to the conv op-class.
+CONV2D = "nhwc,hwio->nhwo"            # dense 2-D conv
+CONV1D = "nlc,lio->nlo"               # dense 1-D conv over the L axis
+CONV1D_DEPTHWISE = "nlc,lc->nlc"      # per-channel taps (groups == C)
+
+# spec -> (spatial ndim, depthwise)
+_CONV_SPECS = {CONV2D: (2, False), CONV1D: (1, False),
+               CONV1D_DEPTHWISE: (1, True)}
 
 # Fused scaled-dot-product attention: q (B, Sq, H, D); k, v (B, Sk, KVH, D)
 # with H % KVH == 0 (GQA head groups).
@@ -115,7 +123,7 @@ _ATTN_GERS = (Ger.F32GER, Ger.BF16GER2, Ger.F16GER2)
 _LATER = {
     "gemm.masked": "the pm* masked forms (ROADMAP queue 2, K1b)",
     "gemm.saturating": "saturating accumulation (ROADMAP slice C2)",
-    "conv": "the conv op-class (ROADMAP slice B2; kernels K3/K4)",
+    "conv.dense": "the dense conv kernel (ROADMAP queue 2, K3; slice B2)",
     "complex": "complex contractions (ROADMAP slice C1)",
     "integer": "the integer families (ROADMAP queue 2, K1c/K1f; slice C3)",
 }
@@ -399,6 +407,9 @@ class Op:
     window: int | None = None
     q_offset: int = 0
     q_chunk: int = 0
+    # conv op-class: per-spatial-dim stride and the padding mode.
+    stride: tuple = ()
+    padding: str = "valid"
 
     @property
     def fused(self) -> bool:
@@ -575,6 +586,165 @@ def _lower_ref_gemm(op: Op):
     for xi, yi, kind in passes:
         prod = chain(xi, yi, kind, prod)
     return assemble(_combine_expanded(op, prod, acc2, res2))
+
+
+# ----------------------------------------------------------------------
+# conv lowerings
+# ----------------------------------------------------------------------
+# One shared geometry normalizer (the padding math is identical across
+# backends), three lowerings: the depthwise kernel (dense: K3, later),
+# eager torch convolutions, and the oracles of kernels/ref.py.
+
+def _conv_norm(op: Op):
+    """Normalize a conv invocation to padded NHWC x HWIO form.
+
+    Returns ``(x4, w4, (sh, sw), depthwise, squeeze)``: 1-D specs gain a
+    size-1 H axis (``squeeze`` strips it from the output), and the
+    ``same``/``causal`` paddings become one explicit pad here so every
+    backend sees identical VALID geometry.
+    """
+    nd, depthwise = _CONV_SPECS[op.spec]
+    x, w = op.x, op.y
+    if x.ndim != nd + 2 or w.ndim != nd + (1 if depthwise else 2):
+        raise ValueError(f"conv spec {op.spec!r} got operands of shapes "
+                         f"{tuple(x.shape)} x {tuple(w.shape)}")
+    if nd == 1:
+        x = x[:, None]                           # (N, 1, L, C)
+        w = w[None]                              # (1, KW, C[, F])
+        strides = (1,) + op.stride
+    else:
+        strides = op.stride
+    kh, kw, c = w.shape[0], w.shape[1], w.shape[2]
+    if x.shape[-1] != c:
+        raise ValueError(f"conv channel mismatch: image {tuple(op.x.shape)} "
+                         f"vs filter {tuple(op.y.shape)}")
+    pads = []
+    for k, st, size in zip((kh, kw), strides, x.shape[1:3]):
+        if op.padding == "valid":
+            lo = hi = 0
+        elif op.padding == "same":
+            out = -(-size // st)
+            total = max((out - 1) * st + k - size, 0)
+            lo, hi = total // 2, total - total // 2
+        elif op.padding == "causal":       # left pad: output t sees <= t
+            if nd != 1:
+                raise ValueError(
+                    "causal padding is 1-D (time-axis) vocabulary; "
+                    f"spec {op.spec!r} is 2-D")
+            lo, hi = k - 1, 0
+        else:
+            raise ValueError(f"unknown conv padding {op.padding!r}; "
+                             f"want valid | same | causal")
+        pads.append((lo, hi))
+    if any(p != (0, 0) for p in pads):
+        # F.pad lists the last dim first: C, then W, then H
+        x = torch.nn.functional.pad(x, (0, 0) + pads[1] + pads[0])
+    return x, w, strides, depthwise, nd == 1
+
+
+@contextlib.contextmanager
+def _cudnn_fp32():
+    """cuDNN runs fp32 convolutions in TF32 by default; F32GER is true
+    fp32, so the torch conv lowering turns TF32 off for its own calls."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@register("kernel", "conv")
+def _lower_kernel_conv(op: Op):
+    """The Hopper depthwise kernel (kernels/mma_conv.py), expansion chain
+    included: depthwise conv is bilinear, so the F32GER_3XBF16 hi/lo
+    passes sum over one accumulator and the epilogue applies once on the
+    chained product.  The dense specs wait for K3."""
+    x4, w4, strides, depthwise, squeeze = _conv_norm(op)
+    if not depthwise:
+        raise _later("conv.dense")
+    if op.block is not None:
+        raise ValueError("the depthwise kernel has no tile to choose; "
+                         f"got block {op.block!r}")
+    res = op.residual
+    if res is not None and squeeze:
+        res = res[:, None]
+    passes = _passes(op.ger, x4, w4)
+    if len(passes) == 1:
+        xi, wi, kind = passes[0]
+        pk = precision.policy(kind)
+        out = _conv.mma_depthwise_conv2d(
+            xi.to(pk.x_dtype), wi.to(pk.y_dtype), stride=strides,
+            out_dtype=op.out_dtype, ep=op.epilogue, bias=op.bias,
+            residual=res)
+        return out[:, 0] if squeeze else out
+    prod = None
+    for xi, wi, kind in passes:
+        pk = precision.policy(kind)
+        o = _conv.mma_depthwise_conv2d(
+            xi.to(pk.x_dtype), wi.to(pk.y_dtype), stride=strides,
+            out_dtype=op.pol.acc_dtype)
+        prod = o if prod is None else prod + o
+    prod = _epilogue_mod.apply(prod, op.epilogue, bias=op.bias, residual=res)
+    if squeeze:
+        prod = prod[:, 0]
+    return prod.to(op.out_dtype)
+
+
+@register("torch", "conv")
+def _lower_torch_conv(op: Op):
+    """One eager torch convolution per architected pass, then the epilogue
+    at deprime.  Per pass, the inputs are rounded to that pass family's
+    operand dtype and up-cast to the accumulator dtype for the conv
+    itself, as a reduced-precision pass into a wide accumulator."""
+    x4, w4, strides, depthwise, squeeze = _conv_norm(op)
+    acc_dtype = op.pol.acc_dtype
+    out = None
+    with _cudnn_fp32():
+        for xi, wi, kind in _passes(op.ger, x4, w4):
+            pk = precision.policy(kind)
+            xi = xi.to(pk.x_dtype).to(acc_dtype).permute(0, 3, 1, 2)
+            wi = wi.to(pk.y_dtype).to(acc_dtype)
+            if depthwise:                 # (KH, KW, C) -> (C, 1, KH, KW)
+                o = torch.nn.functional.conv2d(
+                    xi, wi.permute(2, 0, 1)[:, None], stride=strides,
+                    groups=wi.shape[2])
+            else:                         # (KH, KW, C, F) -> (F, C, KH, KW)
+                o = torch.nn.functional.conv2d(
+                    xi, wi.permute(3, 2, 0, 1), stride=strides)
+            o = o.permute(0, 2, 3, 1)     # NCHW -> NHWC
+            out = o if out is None else out + o
+    if squeeze:
+        out = out[:, 0]
+    out = _epilogue_mod.apply(out, op.epilogue, bias=op.bias,
+                              residual=op.residual)
+    return out.to(op.out_dtype)
+
+
+@register("ref", "conv")
+def _lower_ref_conv(op: Op):
+    """The oracles: the materialized-Abar ``ref.conv2d`` (exactly the
+    patch matrix a kernel avoids building) and the eager shift-and-sum
+    ``ref.depthwise_conv``.  Expansion hooks chain per pass like the gemm
+    oracle."""
+    x4, w4, strides, depthwise, squeeze = _conv_norm(op)
+    acc_dtype = op.pol.acc_dtype
+    out = None
+    for xi, wi, kind in _passes(op.ger, x4, w4):
+        pk = precision.policy(kind)
+        xi, wi = xi.to(pk.x_dtype), wi.to(pk.y_dtype)
+        if depthwise:
+            o = _ref.depthwise_conv(xi, wi, stride=strides,
+                                    acc_dtype=acc_dtype)
+        else:
+            o = _ref.conv2d(xi, wi, stride=strides)
+        o = o.to(acc_dtype)
+        out = o if out is None else out + o
+    if squeeze:
+        out = out[:, 0]
+    out = _epilogue_mod.apply(out, op.epilogue, bias=op.bias,
+                              residual=op.residual)
+    return out.to(op.out_dtype)
 
 
 # ----------------------------------------------------------------------
@@ -772,6 +942,7 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
     spec = spec.replace(" ", "")
     parsed = None
     valid = None
+    stride: tuple = ()
     if z is not None and spec != ATTN:
         raise ValueError(f"a third operand is attn-spec vocabulary "
                          f"(facility.ATTN), not {spec!r}")
@@ -780,7 +951,19 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
         valid = _check_attn(x, y, z, ger, plan, acc, masks)
         masks = None
     elif spec in _CONV_SPECS:
-        raise _later("conv")
+        nd, _ = _CONV_SPECS[spec]
+        op_class = "conv"
+        s = plan.stride
+        stride = (s,) * nd if isinstance(s, int) else tuple(s)
+        if len(stride) != nd or any(st < 1 for st in stride):
+            raise ValueError(f"conv spec {spec!r} wants {nd} stride "
+                             f"value(s) >= 1, got {plan.stride!r}")
+        if (acc is not None or plan.saturating or plan.neg_product
+                or plan.neg_acc or plan.alpha != 1.0 or plan.beta != 1.0):
+            raise ValueError(
+                "conv contractions take no accumulator seed, saturating, "
+                "or alpha/beta/neg accumulate forms — only a fused "
+                "epilogue")
     elif x.is_complex() or y.is_complex():
         raise _later("complex")
     elif plan.saturating:
@@ -792,7 +975,7 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
         op_class = "gemm" if parsed is not None else "einsum"
     if masks is not None:
         raise _later("gemm.masked")
-    if plan.stride != 1 or plan.padding != "valid":
+    if op_class != "conv" and (plan.stride != 1 or plan.padding != "valid"):
         raise ValueError(
             f"stride/padding apply to the conv specs only, not {spec!r}")
     if op_class != "attn" and (plan.causal or plan.window is not None
@@ -806,6 +989,13 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
             f"spec {spec!r} permutes the natural output order; accumulator "
             f"inputs and fused epilogues require the natural "
             f"(batch..., m..., n...) output")
+
+    if (op_class == "conv" and backend == "kernel"
+            and pol.acc_dtype != torch.float32):
+        # The conv kernels accumulate in f32 only: a family with another
+        # accumulator goes to the torch lowering by its Ger, statically
+        # (as the reference sends it to xla), not as a failure fallback.
+        backend = "torch"
 
     fn = lookup(backend, op_class, ger, not ep.is_identity)
     if fn is None and backend == "kernel":
@@ -823,5 +1013,5 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
             neg_acc=plan.neg_acc, alpha=plan.alpha, beta=plan.beta,
             z=z, valid=valid, causal=plan.causal,
             window=plan.window, q_offset=plan.q_offset,
-            q_chunk=plan.q_chunk)
+            q_chunk=plan.q_chunk, stride=stride, padding=plan.padding)
     return fn(op)

@@ -3,6 +3,8 @@ base loop).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
         --batch 4 --prompt-len 256 --gen 32 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --batch 4 --prompt-len 256 --gen 32
 
 Runs on the card (``--device cuda``, the default; it raises where CUDA is
 absent) with random bf16 weights drawn from ``--seed``.  Continuous
@@ -14,11 +16,12 @@ batching at step granularity:
     footprint exceeds the whole pool are rejected up front.  Pages are
     reclaimed exactly once, and every run ends with ``assert_quiescent()``.
   * **Prefill**: admission runs the prompt through a batch=1 prefill; the
-    first generated token is the argmax of its logits.  Dense ring caches
-    share ``pos``/``cur`` across slots, so (as in the reference) the
-    prefill state is not scattered into the batched decode cache: the
-    prefill's logits seed the slot and decode continues from the shared
-    cache.
+    first generated token is the argmax of its logits.  For ssm-kind archs
+    (per-slot ``ssm``/``conv`` state) the prefill state is scattered into
+    the admitted slot of the batched decode cache, exactly.  Dense and
+    hybrid ring caches share ``pos``/``cur`` across slots, so (as in the
+    reference) their scatter is skipped: the prefill's logits seed the
+    slot and decode continues from the shared cache.
   * **Decode**: one greedy batched ``decode_step`` per tick over all slots.
 
 Deadlines, preemption, fault injection, ``--abft``, ``--prepack`` and
@@ -76,6 +79,17 @@ def _make_requests(cfg, n_requests, prompt_len, gen_len, seed):
         g = int(rng.integers(max(1, gen_len // 2), gen_len + 1))
         reqs.append(Request(rid=i, prompt=prompt, gen_len=g))
     return reqs
+
+
+def _scatter_prefill(cache, pre, slot):
+    """Copy a batch=1 prefill cache into ``slot`` of the batched decode
+    cache, in place.  Exact for ssm-kind archs (fully per-slot state);
+    other kinds keep their cold cache (a shared ring ``pos``/``cur`` makes
+    a per-slot scatter unsound, as in the reference)."""
+    if "ssm" in pre and "ssm" in cache and "k" not in cache:
+        cache["ssm"][:, slot] = pre["ssm"][:, 0]
+        cache["conv"][:, slot] = pre["conv"][:, 0].to(cache["conv"].dtype)
+    return cache
 
 
 def serve_loop(cfg, model, *, batch: int, prompt_len: int, gen_len: int,
@@ -148,8 +162,9 @@ def serve_loop(cfg, model, *, batch: int, prompt_len: int, gen_len: int,
                 break                  # FIFO: wait for reclaims
             queue.popleft()
             prompt = torch.from_numpy(req.prompt).to(device)
-            logits_last, _ = prefill(model, {"tokens": prompt})
+            logits_last, pre = prefill(model, {"tokens": prompt})
             prefill_tokens += req.prompt.shape[1]
+            cache = _scatter_prefill(cache, pre, s)
             tokens[s, 0] = torch.argmax(logits_last[0]).to(torch.int32)
             req.generated = 1          # prefill emitted the first token
             slot_req[s] = req
@@ -204,7 +219,9 @@ def main(argv=None):
 
     device = facility.resolve_device(args.device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False   # true-fp32 F32GER
+        # true-fp32 F32GER: no TF32 in cuBLAS or cuDNN
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)

@@ -11,7 +11,9 @@ cache.)  Each kernel is held against its plain version on the same inputs;
 tolerances as in chip_smoke.py: f32 outputs within ``rtol=2e-5,
 atol=2e-5 * max|ref|``, attention within ``2^-7 * max|v|`` plus one bf16 ulp
 (the kernel rounds the unnormalised P per block, the plain version the
-normalised P once).
+normalised P once); the depthwise conv within ``rtol=1e-5, atol=1e-6 *
+max|ref|`` for an f32 store (the same products summed in the same order;
+only silu/gelu's exp/erf differ) and one ulp plus that for a 16-bit store.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from repro_torch.core import facility
 from repro_torch.core import precision
 from repro_torch.kernels import epilogue as E
 from repro_torch.kernels import mma_attention as A
+from repro_torch.kernels import mma_conv as K
 from repro_torch.kernels import mma_gemm as G
 from repro_torch.launch import serve
 from repro_torch.models import model as M
@@ -105,6 +108,64 @@ def test_attention_kernel_matches_plain(gen, kw):
                  + ulp).all())
     if kw == dict(causal=True):
         assert bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("case", [
+    # (image NHWC, KH, KW, stride, dtype, epilogue, out dtype)
+    ((1, 1, 259, 4224), 1, 4, (1, 1), torch.float32, "bias+silu",
+     torch.bfloat16),                                  # zamba2 prefill
+    ((4, 1, 4, 1792), 1, 4, (1, 1), torch.float32, "bias+silu",
+     torch.bfloat16),                                  # mamba2 decode
+    ((2, 9, 37, 130), 3, 5, (2, 3), torch.float32, None, torch.float32),
+    ((3, 1, 50, 77), 1, 4, (1, 2), torch.bfloat16, "bias", torch.float32),
+    ((2, 5, 20, 33), 2, 3, (1, 1), torch.float16, "bias+gelu",
+     torch.float16),
+    ((2, 1, 30, 96), 1, 4, (1, 1), torch.float32, "residual",
+     torch.float32),
+])
+def test_depthwise_kernel_matches_plain(gen, case):
+    shape, kh, kw, stride, dtype, epi, od = case
+    n, h, w, c = shape
+    x = _randn(gen, *shape, dtype=dtype)
+    taps = _randn(gen, kh, kw, c, dtype=dtype, scale=0.3)
+    oh, ow = (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
+    ep = bias = res = None
+    if epi is not None:
+        act = epi.split("+")[1] if "+" in epi else None
+        ep = E.Epilogue(bias=epi.startswith("bias"), activation=act,
+                        residual=epi == "residual")
+        if ep.bias:
+            bias = _randn(gen, c, dtype=torch.float32)
+        if ep.residual:
+            res = _randn(gen, n, oh, ow, c, dtype=torch.float32)
+    kw_ = dict(stride=stride, out_dtype=od, ep=ep, bias=bias, residual=res)
+    before = K.mma_depthwise_conv2d.launches
+    got = K.mma_depthwise_conv2d(x, taps, **kw_)
+    torch.cuda.synchronize()
+    assert K.mma_depthwise_conv2d.launches == before + 1
+    want = K.mma_depthwise_conv2d_plain(x, taps, **kw_)
+    assert got.shape == want.shape == (n, oh, ow, c) and got.dtype == od
+    scale = want.float().abs().max().item()
+    tol = 1e-5 * want.float().abs() + 1e-6 * scale
+    if od != torch.float32:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp_min(1e-30))) - (7 if od ==
+                                                      torch.bfloat16 else 10))
+        tol = tol + ulp
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_reduced_ssm_serve_goes_through_all_three_kernels(gen):
+    cfg = reduced(get("zamba2-1.2b"))
+    model = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        G.mma_gemm.launches = A.mma_flash_attention.launches = 0
+        K.mma_depthwise_conv2d.launches = 0
+        out = serve.serve_loop(cfg, model, batch=2, prompt_len=16, gen_len=4,
+                               n_requests=3)
+        assert G.mma_gemm.launches > 0 and A.mma_flash_attention.launches > 0
+        assert K.mma_depthwise_conv2d.launches > 0
+    assert out["completed"] == 3
 
 
 def test_reduced_serve_goes_through_both_kernels(gen):
