@@ -10,26 +10,35 @@ Phases, each of which must pass or the script exits nonzero:
      with nvcc for sm_90a (one nvcc per source, in parallel) and print the
      build time and ptxas's register/spill report;
   2. kernels: hold each kernel against its plain PyTorch version, on the
-     card, at the serving paths' shapes (the SSD's batched products and
-     mamba2's causal conv included) and on edge cases (ragged fringes,
-     batch, accumulate forms, every epilogue, GQA, window, q_offset, valid,
-     fully-masked rows, conv strides and ragged channels, bf16/f16 conv
-     inputs); print each case's worst error and tolerance, and
-     time each kernel (CUDA events, L2 flushed between launches) beside its
-     plain version, one PyTorch library call as a yardstick, and the bound
-     from bytes and flops at the card's published peaks;
+     card, at the main paths' shapes (the SSD's batched products, mamba2's
+     causal conv, whisper's conv stem and encoder and cross attention,
+     qwen2-vl's patch embed and GQA prefill included) and on edge cases
+     (ragged fringes, batch, accumulate forms, every epilogue, GQA, window,
+     q_offset, valid, fully-masked rows, conv strides, ragged channels, F
+     and K fringes, f16/f32 conv inputs); print each case's worst error
+     and tolerance, and time each kernel (CUDA events, L2 flushed between
+     launches) beside its plain version, one PyTorch library call as a
+     yardstick, and the bound from bytes and flops at the card's published
+     peaks;
   3. serve, through ``repro_torch.launch.serve.serve_loop`` with random
      bf16 weights from a seed: deepseek-7b at full width (the GEMM and
-     flash-attention kernels), zamba2-1.2b at full width and depth (all
-     three kernels) and mamba2-130m at full width (GEMM and depthwise conv);
-     every kernel's launch count is reset just before each run and read
-     just after (each kernel of that path must be > 0); then each served
-     model's prefill and decode logits on the kernel backend against the
-     eager torch backend, mamba2-130m's exact per-slot prefill handoff, and
-     a profile of one deepseek-7b and one zamba2 decode step.
+     flash-attention kernels), zamba2-1.2b at full width and depth (GEMM,
+     attention, depthwise conv) and mamba2-130m at full width (GEMM and
+     depthwise conv); then generate, through ``models.model.prefill`` and
+     ``decode_step`` (the serving loop admits token-only prompts), with
+     whisper-small (4 clips of 3000 mel frames, a 4-token decoder prompt)
+     and qwen2-vl-7b (4 requests of one 448 x 448 image and 64 text
+     tokens) at full width and depth: a batch-4 prefill, the cache
+     handoff, 32 greedy decode steps (GEMM, attention and the dense conv).
+     Every kernel's launch count is reset just before each run and read
+     just after, and must match the per-call model (each kernel of that
+     path > 0); then each model's prefill and decode logits on the kernel
+     backend against the eager torch backend, mamba2-130m's exact per-slot
+     prefill handoff, and a profile of one prefill and one decode step of
+     deepseek-7b, zamba2, whisper-small and qwen2-vl-7b.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
-``launches`` summed over the serving runs and ``launches_by_run``);
+``launches`` summed over the runs and ``launches_by_run``);
 the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and
 nothing of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +70,14 @@ NUM_LAYERS = None        # None = the config's full depth; an int cuts depth
 SSM_RUNS = (("zamba2-1.2b", SERVE),
             ("mamba2-130m", dict(batch=4, prompt_len=256, gen_len=16,
                                  n_requests=4)))
+# The generation runs of the multimodal kinds (slice 3), at full width and
+# depth: whisper-small over 30 s clips (3000 mel frames, its fixed input
+# window) with a 4-token decoder prompt; qwen2-vl-7b with one 448 x 448
+# image (its 32 x 32 patch grid feeds the 1024 vision positions) and 64
+# text tokens a request, a 1088-token prompt.
+MM_RUNS = {"whisper-small": dict(batch=4, frames=3000, prompt_len=4,
+                                 gen_len=32),
+           "qwen2-vl-7b": dict(batch=4, text_len=64, gen_len=32)}
 
 
 def fail(msg: str) -> None:
@@ -307,7 +325,7 @@ def check_attention(torch, timer, failures):
          dict(causal=False)),
         (f"zamba2 shared block causal (1,{p},32,64)", (1, p, 32, 64),
          (1, p, 32, 64), dict(causal=True)),
-    ]
+    ] + [(name, qs, ks, kw) for name, qs, ks, kw in MM_ATTENTION]
     worst = 0.0
     for name, qs, ks, kw in cases:
         q, k, v = randn(*qs), randn(*ks), randn(*ks)
@@ -366,6 +384,24 @@ def check_attention(torch, timer, failures):
                                      bound_by=by)
         print(f"  time attn causal (1,{s},32,{d}): kernel {t:.4f} ms, "
               f"sdpa {tl:.4f} ms, bound {bb:.4f} ms ({by})")
+    # the multimodal paths' shapes; SDPA gets the k/v heads repeated over
+    # their GQA groups (outside the timed call)
+    for name, qs, ks, kw in MM_ATTENTION:
+        q2, k2, v2 = randn(*qs), randn(*ks), randn(*ks)
+        rep = qs[2] // ks[2]
+        qt2, kt2, vt2 = (t.transpose(1, 2) for t in (
+            q2, k2.repeat_interleave(rep, 2), v2.repeat_interleave(rep, 2)))
+        t = timer(lambda: A.mma_flash_attention(q2, k2, v2, **kw), iters=5)
+        tl = timer(lambda: sdpa(qt2, kt2, vt2, is_causal=kw["causal"]),
+                   iters=5)
+        b2, sq, h2, d = qs
+        sk = ks[1]
+        bb, by = bound_ms(2 * (2 * b2 * sq * h2 * d + 2 * b2 * sk * ks[2] * d),
+                          4 * d * b2 * h2 * A.attn_live_pairs(
+                              sq, sk, causal=kw["causal"]), "bf16")
+        extra[name] = dict(ms=t, library_ms=tl, bound_ms=bb, bound_by=by)
+        print(f"  time attn {name}: kernel {t:.4f} ms, sdpa {tl:.4f} ms, "
+              f"bound {bb:.4f} ms ({by})")
     print(f"  time attn causal (1,{p},32,128): kernel {times['ms']:.4f} ms, "
           f"plain {times['plain_ms']:.4f} ms, sdpa "
           f"{times['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -375,6 +411,29 @@ def check_attention(torch, timer, failures):
             "max_abs_err": worst, "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"(1,{p},32,128) causal bf16", **times,
             "other_shapes": extra}
+
+
+def _mm_attention():
+    """(name, q shape, k/v shape, flags) at the generation runs' shapes:
+    whisper's encoder self attention (non-causal over the frames / 2
+    encoder positions, 12 x 64 heads) and its decode cross attention (one
+    query over those positions), and qwen2-vl's causal GQA prefill (28
+    query heads over 4 kv heads of 128, 1024 vision + text positions)."""
+    wb = MM_RUNS["whisper-small"]["batch"]
+    enc = MM_RUNS["whisper-small"]["frames"] // 2
+    qb = MM_RUNS["qwen2-vl-7b"]["batch"]
+    qs = 1024 + MM_RUNS["qwen2-vl-7b"]["text_len"]
+    return (
+        (f"whisper encoder ({wb},{enc},12,64)", (wb, enc, 12, 64),
+         (wb, enc, 12, 64), dict(causal=False)),
+        (f"whisper decode cross Sq 1 x Sk {enc}", (wb, 1, 12, 64),
+         (wb, enc, 12, 64), dict(causal=False)),
+        (f"qwen2-vl prefill GQA 28/4 ({qb},{qs},28,128)", (qb, qs, 28, 128),
+         (qb, qs, 4, 128), dict(causal=True)),
+    )
+
+
+MM_ATTENTION = _mm_attention()
 
 
 def _report_attn(torch, name, got, want, v, failures) -> float:
@@ -495,25 +554,173 @@ def check_depthwise_conv(torch, timer, failures):
             **times, "other_shapes": extra}
 
 
+def _report_conv(torch, name, got, want, out_dtype, failures) -> float:
+    # The kernel sums its fp32 products in another order than the plain
+    # version's single fp32 matmul: a 16-bit store is within one ulp of the
+    # output dtype at |ref|, plus 1e-5*max|ref| where that sum-order noise
+    # exceeds the tiny ulp of an output near zero; an f32 store within
+    # 1e-4*max|ref|.
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    if out_dtype == torch.float32:
+        tol = torch.full_like(want, 1e-4 * scale)
+        how = "1e-4*max|ref|"
+    else:
+        bits = 7 if out_dtype == torch.bfloat16 else 10
+        mag = want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+        tol = torch.exp2(torch.floor(torch.log2(mag)) - bits) + 1e-5 * scale
+        how = "1 ulp of the output dtype + 1e-5*max|ref|"
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    e = err.max().item()
+    print(f"  [{'ok' if ok else 'FAIL'}] {name}: max|err| {e:.3e} "
+          f"(tol {how}, max|ref| {scale:.3e})")
+    if not ok:
+        failures.append(name)
+    return e
+
+
+def check_conv2d(torch, timer, failures):
+    """K3 against its plain version: the main path's three stems at their
+    full shapes (whisper's conv1 and conv2 over 4 clips of 3000 mel
+    frames, SAME-padded, bias + gelu; qwen2-vl's 14 x 14 stride-14 patch
+    embed over 4 images of 448 x 448, bias), then edge cases: ragged F and
+    OW, K fringes, a 3 x 3 stride-1 2-D conv, a residual epilogue, f16
+    inputs, f32 (F32GER) inputs and a filter bank narrower than the
+    tile; and times the three stems beside the plain version, one cuDNN
+    conv2d on the same operands (channels-last, TF32 off) and the bound."""
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_conv as K
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    gelu = E.Epilogue(bias=True, activation="gelu")
+    bias_only = E.Epilogue(bias=True)
+    b, fr = MM_RUNS["whisper-small"]["batch"], MM_RUNS["whisper-small"][
+        "frames"]
+    qb = MM_RUNS["qwen2-vl-7b"]["batch"]
+    # (name, image NHWC, filters HWIO, stride, in dtype, epilogue, out
+    # dtype)
+    path = [
+        ("whisper conv1", (b, 1, fr + 2, 80), (1, 3, 80, 768), (1, 1), bf16,
+         gelu, bf16),
+        ("whisper conv2", (b, 1, fr + 1, 768), (1, 3, 768, 768), (1, 2),
+         bf16, gelu, bf16),
+        ("qwen2-vl patch embed", (qb, 448, 448, 3), (14, 14, 3, 3584),
+         (14, 14), bf16, bias_only, bf16),
+    ]
+    edge = [
+        ("ragged F=200 OW=37", (2, 1, 39, 64), (1, 3, 64, 200), (1, 1),
+         bf16, gelu, bf16),
+        ("K fringe C=3 5x5 stride 3, f32 out", (2, 31, 29, 3),
+         (5, 5, 3, 100), (3, 3), bf16, bias_only, f32),
+        ("3x3 stride 1 2-D + residual", (2, 20, 17, 32), (3, 3, 32, 96),
+         (1, 1), bf16, E.Epilogue(residual=True), bf16),
+        ("f16 inputs 2x2 stride 2 bias+relu", (2, 12, 12, 24),
+         (2, 2, 24, 130), (2, 2), f16,
+         E.Epilogue(bias=True, activation="relu"), f16),
+        ("F32GER f32 inputs stride (1,2) bias+gelu+res", (2, 1, 300, 80),
+         (1, 3, 80, 144), (1, 2), f32,
+         E.Epilogue(bias=True, activation="gelu", residual=True), f32),
+        ("F=64 C=5 scalar gather", (3, 1, 50, 5), (1, 4, 5, 64),
+         (1, 1), bf16, None, bf16),
+    ]
+    worst = 0.0
+    operands = {}
+    for name, shape, fshape, stride, idt, ep, od in path + edge:
+        n, h, w, c = shape
+        kh, kw, _, f = fshape
+        oh, ow = (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
+        x = randn(*shape, dtype=idt)
+        filt = randn(*fshape, dtype=idt, scale=(kh * kw * c) ** -0.5)
+        bias = randn(f, dtype=f32) if ep is not None and ep.bias else None
+        res = (randn(n, oh, ow, f, dtype=od)
+               if ep is not None and ep.residual else None)
+        kw_ = dict(stride=stride, out_dtype=od, ep=ep, bias=bias,
+                   residual=res)
+        got = K.mma_conv2d(x, filt, **kw_).float()
+        want = K.mma_conv2d_plain(x, filt, **kw_).float()
+        worst = max(worst, _report_conv(
+            torch, f"conv2d {name} {shape}x{fshape} s{stride}", got, want,
+            od, failures))
+        operands[name] = (x, filt, bias, kw_, od)
+
+    def stem_times(name):
+        x, filt, bias, kw_, od = operands[name]
+        xc = x.permute(0, 3, 1, 2)                 # NCHW, channels-last
+        wc = filt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = bias.to(x.dtype)
+        conv2d = torch.nn.functional.conv2d
+        times = {key: timer(fn, iters=5) for key, fn in (
+            ("ms", lambda: K.mma_conv2d(x, filt, **kw_)),
+            ("plain_ms", lambda: K.mma_conv2d_plain(x, filt, **kw_)),
+            ("library_ms", lambda: conv2d(xc, wc, bc, stride=kw_["stride"])))}
+        n, h, w, c = x.shape
+        kh, kw, _, f = filt.shape
+        m = n * ((h - kh) // kw_["stride"][0] + 1) * (
+            (w - kw) // kw_["stride"][1] + 1)
+        nbytes = (x.numel() * x.element_size() + filt.numel()
+                  * filt.element_size() + f * 4 + m * f * od.itemsize)
+        bb, by = bound_ms(nbytes, 2 * m * kh * kw * c * f, "bf16")
+        print(f"  time conv2d {name} {tuple(x.shape)}x{tuple(filt.shape)}: "
+              f"kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} "
+              f"ms, cuDNN conv2d {times['library_ms']:.4f} ms, bound "
+              f"{bb:.4f} ms ({by})")
+        return dict(times, bound_ms=bb, bound_by=by)
+
+    main = stem_times("whisper conv2")
+    extra = {name: stem_times(name) for name in ("whisper conv1",
+                                                 "qwen2-vl patch embed")}
+    return {"name": "mma_conv2d", "route": "cuda",
+            "source": "src/repro_torch/csrc/mma_conv.cu",
+            "replaces": "src/repro/kernels/mma_conv.py:110",
+            "max_abs_err": worst, **main,
+            "shape": f"({b},1,{fr + 1},768) x (1,3,768,768) stride (1,2) "
+                     f"bf16, bias+gelu -> bf16",
+            "other_shapes": extra}
+
+
 # ----------------------------------------------------------------------
 # Phase 3: serve
 # ----------------------------------------------------------------------
 
 def expected_launches(cfg) -> dict:
     """Kernel launches per prefill and per decode step, from the code:
-    dense layers run 7 GEMMs (q, k, v, o, w1, w3, w2) and one flash
-    attention in prefill; mamba2 layers run in_proj, the four SSD products
-    and out_proj in prefill, in_proj, the two decode products and out_proj
-    in a decode step, and one depthwise conv in each; zamba2's shared
-    block runs 8 GEMMs (in_proj, q, k, v, o, w1, w3, w2; in decode the new
-    k/v projections take the place of apply_attention's) after each group
-    of ``shared_attn_every`` layers, and one flash attention in prefill
-    only (decode attends over the ring on the eager path); plus the
-    logits GEMM."""
+    dense layers run 4 attention GEMMs (q, k, v, o; in decode the new k/v
+    projections take the place of apply_attention's) and 3 MLP GEMMs (2
+    for whisper's plain MLP), and one flash attention in prefill only
+    (decode attends over the ring on the eager path); qwen2-vl adds the
+    vision projection GEMM and one dense conv (the patch embed) per
+    prefill; whisper's 12 encoder layers add 6 GEMMs and one attention
+    each and its stem two dense convs per prefill, and each decoder layer
+    adds cross-attention's q and o GEMMs (its k and v in prefill) and one
+    flash attention over the encoder positions, in prefill and in every
+    decode step; mamba2 layers run in_proj, the four SSD products and
+    out_proj in prefill, in_proj, the two decode products and out_proj in
+    a decode step, and one depthwise conv in each; zamba2's shared block
+    runs 8 GEMMs (in_proj, q, k, v, o, w1, w3, w2) after each group of
+    ``shared_attn_every`` layers, and one flash attention in prefill only;
+    plus the logits GEMM."""
     n = cfg.num_layers
-    if cfg.family == "dense":
-        return {"prefill": {"mma_gemm": 7 * n + 1, "mma_flash_attention": n},
-                "decode": {"mma_gemm": 7 * n + 1}}
+    block = 4 + (3 if cfg.gated_mlp else 2)
+    if cfg.family in ("dense", "vlm"):
+        prefill = {"mma_gemm": block * n + 1, "mma_flash_attention": n}
+        if cfg.vision_prefix:
+            prefill["mma_gemm"] += 1
+            prefill["mma_conv2d"] = 1
+        return {"prefill": prefill, "decode": {"mma_gemm": block * n + 1}}
+    if cfg.family == "audio":
+        e = cfg.encoder_layers
+        return {"prefill": {"mma_gemm": block * e + (block + 4) * n + 1,
+                            "mma_flash_attention": e + 2 * n,
+                            "mma_conv2d": 2},
+                "decode": {"mma_gemm": (block + 2) * n + 1,
+                           "mma_flash_attention": n}}
     groups = -(-n // cfg.shared_attn_every) if cfg.shared_attn_every else 0
     prefill = {"mma_gemm": 6 * n + 8 * groups + 1,
                "mma_depthwise_conv2d": n}
@@ -522,6 +729,17 @@ def expected_launches(cfg) -> dict:
     return {"prefill": prefill,
             "decode": {"mma_gemm": 4 * n + 8 * groups + 1,
                        "mma_depthwise_conv2d": n}}
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+    return {"mma_gemm": G.mma_gemm,
+            "mma_flash_attention": A.mma_flash_attention,
+            "mma_depthwise_conv2d": K.mma_depthwise_conv2d,
+            "mma_conv2d": K.mma_conv2d}
 
 
 def serve(torch, failures, arch, settings, num_layers=None):
@@ -533,9 +751,6 @@ def serve(torch, failures, arch, settings, num_layers=None):
 
     from repro_torch.configs import get as get_arch
     from repro_torch.core import facility
-    from repro_torch.kernels import mma_attention as A
-    from repro_torch.kernels import mma_conv as K
-    from repro_torch.kernels import mma_gemm as G
     from repro_torch.launch import serve as S
     from repro_torch.models import model as M
 
@@ -554,9 +769,7 @@ def serve(torch, failures, arch, settings, num_layers=None):
           f"{nparam / 1e9:.3f} B params (projections bf16), init "
           f"{time.perf_counter() - t0:.1f} s")
     want = expected_launches(cfg)
-    kernels = {"mma_gemm": G.mma_gemm,
-               "mma_flash_attention": A.mma_flash_attention,
-               "mma_depthwise_conv2d": K.mma_depthwise_conv2d}
+    kernels = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
     with facility.configure(facility.FacilityConfig(device="cuda")):
         for fn in kernels.values():
@@ -610,24 +823,33 @@ def serve(torch, failures, arch, settings, num_layers=None):
                                     cfg)
         outs[mode] = (last.float(), step[:, -1].float())
 
+    check_logits(torch, failures, arch, cfg, outs)
+    if cfg.family == "ssm":
+        check_handoff(torch, failures, model, cfg, prompt)
+    return stats, launches, (model, cfg)
+
+
+def check_logits(torch, failures, arch, cfg, outs):
+    """``outs[mode]`` = (prefill logits, decode logits) for the modes
+    kernel, torch (bf16) and f32: the kernel backend's against the torch
+    backend's, relative L2 below the larger of 2e-2 and twice the model's
+    own bf16 noise (the torch backend's bf16 logits against its f32
+    ones)."""
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
     for what, i in (("prefill logits", 0), ("decode logits", 1)):
-        got, want_ = outs["kernel"][i], outs["torch"][i]
-        noise = rel(want_, outs["f32"][i])
+        got, want = outs["kernel"][i], outs["torch"][i]
+        noise = rel(want, outs["f32"][i])
         tol = max(2e-2, 2 * noise)
-        r = rel(got, want_)
+        r = rel(got, want)
         ok = (bool(torch.isfinite(got).all())
-              and got.shape == (want_.shape[0], cfg.vocab_size) and r < tol)
+              and got.shape == (want.shape[0], cfg.vocab_size) and r < tol)
         print(f"  [{'ok' if ok else 'FAIL'}] {arch} {what} "
               f"{tuple(got.shape)}: kernel vs torch backend rel L2 {r:.3e} "
               f"(tol {tol:.3e}; torch bf16 vs f32 {noise:.3e})")
         if not ok:
             failures.append(f"{arch} {what}")
-    if cfg.family == "ssm":
-        check_handoff(torch, failures, model, cfg, prompt)
-    return stats, launches, (model, cfg)
 
 
 def check_handoff(torch, failures, model, cfg, prompt):
@@ -664,21 +886,31 @@ def check_handoff(torch, failures, model, cfg, prompt):
         failures.append(f"{cfg.name} prefill handoff")
 
 
-def step_breakdown(torch, model_and_cfg, settings):
-    """Where one prefill and one decode step of the serving run spend their
-    time: host-clock step times (synchronised), and a torch.profiler trace
-    of one decode step for device time by kernel and the device's idle
-    share of the step."""
-    from repro_torch.core import facility
+def serve_steps(torch, model, cfg, settings):
+    """A serving run's step closures: a batch-1 prefill of ``prompt_len``
+    random tokens and a batch-``batch`` decode step on a fresh cache."""
     from repro_torch.models import model as M
 
-    model, cfg = model_and_cfg
     b, p = settings["batch"], settings["prompt_len"]
     g = torch.Generator(device="cuda").manual_seed(4)
     prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=g,
                            device="cuda", dtype=torch.int32)
     tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=g,
                            device="cuda", dtype=torch.int32)
+    state = {"cache": M.init_cache(cfg, b, p * 4, device="cuda")}
+
+    def decode():
+        _, state["cache"] = M.decode_step(model, state["cache"], tokens, cfg)
+
+    return (lambda: M.prefill(model, {"tokens": prompt}, cfg), decode,
+            f"prefill (1 x {p}), decode step (batch {b})")
+
+
+def step_breakdown(torch, cfg, prefill, decode, what):
+    """Where one prefill and one decode step spend their time: host-clock
+    step times (synchronised, median), and a torch.profiler trace of each
+    for device time by kernel and the device's idle share of the step."""
+    from repro_torch.core import facility
 
     def host_ms(fn, n):
         times = []
@@ -691,24 +923,32 @@ def step_breakdown(torch, model_and_cfg, settings):
         return sorted(times)[len(times) // 2]
 
     with facility.configure(facility.FacilityConfig(device="cuda")):
-        cache = M.init_cache(cfg, b, p * 4, device="cuda")
-        state = {"cache": cache}
-
-        def decode():
-            _, state["cache"] = M.decode_step(model, state["cache"], tokens,
-                                              cfg)
-
-        prefill_ms = host_ms(lambda: M.prefill(model, {"tokens": prompt},
-                                               cfg), 3)
+        prefill_ms = host_ms(prefill, 3)
         decode_ms = host_ms(decode, 5)
-        print(f"  {cfg.name}: prefill (1 x {p}) {prefill_ms:.2f} ms, decode "
-              f"step (batch {b}) {decode_ms:.2f} ms (host clock, median)")
-        act = torch.profiler.ProfilerActivity
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            t0 = time.perf_counter()
-            decode()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  {cfg.name} {what}: {prefill_ms:.2f} ms, {decode_ms:.2f} ms "
+              f"(host clock, median)")
+        for step, fn, step_ms in (("prefill", prefill, prefill_ms),
+                                  ("decode step", decode, decode_ms)):
+            profile_step(torch, step, fn, step_ms)
+
+
+# The __global__ functions of src/repro_torch/csrc, as the profiler names
+# them.
+PORT_KERNELS = ("gemm_wmma_kernel", "gemm_f32_kernel", "flash_attn_kernel",
+                "depthwise_conv_kernel", "conv_wmma_kernel",
+                "conv_f32_kernel")
+
+
+def profile_step(torch, step, fn, step_ms):
+    """One call of ``fn`` under torch.profiler: device busy time by kernel
+    and the device's idle share, against the unprofiled ``step_ms`` too
+    (the profiler slows the host)."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     # Kernel rows only: an operator row (aten::copy_, ...) repeats the
     # device time of the kernels it launched.
     rows = []
@@ -721,17 +961,171 @@ def step_breakdown(torch, model_and_cfg, settings):
             rows.append((dev_us / 1e3, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        print("  profiler: no device time recorded (not measured)")
+        print(f"  profiler: no device time recorded for the {step} (not "
+              f"measured)")
         return
-    # The profiler slows the host, so the idle share is taken against the
-    # unprofiled step time as well.
-    print(f"  profiled decode step: wall {wall_ms:.2f} ms, device busy "
-          f"{busy:.2f} ms; device idle share {max(0.0, 1 - busy / decode_ms):.3f}"
-          f" of the unprofiled step ({max(0.0, 1 - busy / wall_ms):.3f} of "
+    print(f"  profiled {step}: wall {wall_ms:.2f} ms, device busy "
+          f"{busy:.2f} ms; device idle share {max(0.0, 1 - busy / step_ms):.3f}"
+          f" of the unprofiled {step} ({max(0.0, 1 - busy / wall_ms):.3f} of "
           f"the profiled one)")
-    for ms, count, key in sorted(rows, reverse=True)[:10]:
+    # the ten largest rows, then every other row of the port's own kernels
+    rows.sort(reverse=True)
+    shown = rows[:10] + [r for r in rows[10:] if re.split(r"[<(]", r[2])[
+        0].split()[-1] in PORT_KERNELS]
+    for ms, count, key in shown:
         print(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} "
               f"{key[:90]}")
+
+
+def mm_batch(cfg, settings, batch):
+    """A generation run's prefill batch from the port's synthetic_batch:
+    whisper, ``batch`` clips of ``frames`` mel frames and the first
+    ``prompt_len`` decoder tokens; qwen2-vl, ``batch`` images of its patch
+    grid and ``text_len`` text tokens after the vision prefix, with their
+    M-RoPE positions.  Returns (device batch, the decode cache's
+    seq_len)."""
+    from repro_torch.data import pipeline
+
+    if cfg.is_enc_dec:
+        host = pipeline.synthetic_batch(cfg, batch=batch,
+                                        seq=settings["frames"], step=0)
+        host["tokens"] = host["tokens"][:, :settings["prompt_len"]]
+        seq_len = settings["frames"]
+    else:
+        seq = cfg.vision_prefix + settings["text_len"]
+        host = pipeline.synthetic_batch(cfg, batch=batch, seq=seq, step=0)
+        # room for the generated tokens and the profiled steps after them
+        seq_len = seq + settings["gen_len"] + 16
+    del host["labels"]
+    return pipeline.device_batch(host, "cuda"), seq_len
+
+
+def handoff(torch, cfg, pre, batch, seq_len, dtype):
+    """The decode cache after a P-token prefill, on the reference's cache
+    layout: prefill's k/v in ring slots [0, P), ``pos[:P] = arange(P)``,
+    ``cur = P``; whisper's ``cross_kv`` in ``cross_k``/``cross_v``."""
+    from repro_torch.models import model as M
+
+    cache = M.init_cache(cfg, batch, seq_len, device="cuda", dtype=dtype)
+    k, v = pre["kv"]
+    p = k.shape[2]
+    cache["k"][:, :, :p] = k
+    cache["v"][:, :, :p] = v
+    cache["pos"][:p] = torch.arange(p, dtype=torch.int32, device="cuda")
+    cache["cur"] = p
+    if "cross_kv" in pre:
+        cache["cross_k"].copy_(pre["cross_kv"][0])
+        cache["cross_v"].copy_(pre["cross_kv"][1])
+    return cache
+
+
+def generate(torch, failures, arch, settings):
+    """Generate with ``arch`` (random bf16 weights from seed 0) through
+    ``prefill`` and ``decode_step``: a batch prefill, the cache handoff and
+    ``gen_len`` greedy decode steps, every kernel's launch count reset just
+    before and read just after and held to the per-call model; then the
+    prefill and decode logits of the first request on the kernel backend
+    against the eager torch backend.  Returns the counts and the step
+    closures for ``step_breakdown``."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import facility
+    from repro_torch.models import model as M
+
+    cfg = get_arch(arch)
+    b, gen = settings["batch"], settings["gen_len"]
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    nparam = sum(t.numel() for t in model.parameters())
+    print(f"  {cfg.name}: {cfg.num_layers} layers (+{cfg.encoder_layers} "
+          f"encoder), d_model {cfg.d_model}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}: {nparam / 1e9:.3f} B params (projections "
+          f"bf16, stems fp32), init {time.perf_counter() - t0:.1f} s")
+    batch, seq_len = mm_batch(cfg, settings, b)
+    print(f"  batch: {({k: tuple(v.shape) for k, v in batch.items()})}")
+    want = expected_launches(cfg)
+    kernels = kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, pre = M.prefill(model, batch, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache = handoff(torch, cfg, pre, b, seq_len, torch.bfloat16)
+        del pre
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        out = [tok]
+        finite = torch.isfinite(last).all()       # read once, after the run
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for _ in range(gen):
+            logits, cache = M.decode_step(model, cache, tok, cfg)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        finite = bool(finite)
+    tokens = torch.cat(out, dim=1)
+    print(f"  generated {tuple(tokens.shape)} tokens: prefill "
+          f"{(t1 - t0) * 1e3:.2f} ms, {gen} decode steps "
+          f"{(t3 - t2) * 1e3:.2f} ms ({(t3 - t2) * 1e3 / gen:.2f} ms a step, "
+          f"{b * gen / (t3 - t2):.1f} tok/s), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first "
+          f"request's tokens {tokens[0, :8].tolist()}...")
+    model_counts = {k: want["prefill"].get(k, 0) + gen * want["decode"].get(
+        k, 0) for k in kernels}
+    print(f"  launches in the run: {launches}; 1 prefill + {gen} decode "
+          f"steps give {model_counts}: "
+          f"{'matches' if model_counts == launches else 'DIFFERS FROM'} the "
+          f"counts")
+    if model_counts != launches:
+        failures.append(f"{arch} launch counts {launches} differ from the "
+                        f"per-call model {model_counts}")
+    for name in set(want["prefill"]) | set(want["decode"]):
+        if launches[name] <= 0:
+            failures.append(f"{name} never launched while generating {arch}")
+    ok = (finite and tokens.shape == (b, gen + 1)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()))
+    print(f"  [{'ok' if ok else 'FAIL'}] {arch}: every logit finite, "
+          f"tokens in range")
+    if not ok:
+        failures.append(f"{arch} generation output")
+
+    # The first request through the three modes: prefill, the handoff and
+    # one decode step of the prompt's last token.
+    one = {k: (v[:, :1] if k == "positions" else v[:1])
+           for k, v in batch.items()}
+    modes = {"kernel": dict(backend="kernel"), "torch": dict(backend="torch"),
+             "f32": dict(backend="torch", ger=facility.Ger.F32GER,
+                         out_dtype=torch.float32)}
+    outs = {}
+    for mode, kw in modes.items():
+        with facility.configure(facility.FacilityConfig(device="cuda", **kw)):
+            first, pre = M.prefill(model, one, cfg)
+            c1 = handoff(torch, cfg, pre, 1, seq_len,
+                         kw.get("out_dtype", torch.bfloat16))
+            del pre
+            step, _ = M.decode_step(model, c1, one["tokens"][:, -1:], cfg)
+        outs[mode] = (first.float(), step[:, -1].float())
+        del c1
+    check_logits(torch, failures, arch, cfg, outs)
+    del outs
+
+    state = {"cache": cache, "tok": tok}
+
+    def decode():
+        _, state["cache"] = M.decode_step(model, state["cache"],
+                                          state["tok"], cfg)
+
+    steps = (lambda: M.prefill(model, batch, cfg), decode,
+             f"prefill (batch {b}), decode step (batch {b})")
+    return launches, (cfg, *steps)
 
 
 def main() -> None:
@@ -767,19 +1161,26 @@ def main() -> None:
     timer = Timer(torch)
     entries = [check_gemm(torch, timer, failures),
                check_attention(torch, timer, failures),
-               check_depthwise_conv(torch, timer, failures)]
+               check_depthwise_conv(torch, timer, failures),
+               check_conv2d(torch, timer, failures)]
     del timer
 
-    print("== phase 3: serve", flush=True)
+    print("== phase 3: serve and generate", flush=True)
     by_run = {}
     for arch, settings, layers, profile in (
             (ARCH, SERVE, NUM_LAYERS, True),
             *((a, st, None, a == "zamba2-1.2b") for a, st in SSM_RUNS)):
-        _, by_run[arch], served = serve(torch, failures, arch, settings,
-                                        layers)
+        _, by_run[arch], (model, cfg) = serve(torch, failures, arch,
+                                              settings, layers)
         if profile:
-            step_breakdown(torch, served, settings)
-        del served
+            step_breakdown(torch, cfg, *serve_steps(torch, model, cfg,
+                                                    settings))
+        del model
+        torch.cuda.empty_cache()
+    for arch, settings in MM_RUNS.items():
+        by_run[arch], steps = generate(torch, failures, arch, settings)
+        step_breakdown(torch, *steps)
+        del steps
         torch.cuda.empty_cache()
     for e in entries:
         e["launches_by_run"] = {a: n[e["name"]] for a, n in by_run.items()}

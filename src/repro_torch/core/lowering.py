@@ -19,8 +19,8 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
     padding in the Plan), ``"attn"`` (the canonical three-operand ATTN
     spec), ``"einsum"`` (general contraction fallback, eager on every
     backend, as the reference's einsum fell to xla).  ``gemm.masked``,
-    ``gemm.saturating``, ``complex`` and the dense conv kernel (K3) are
-    later slices and raise ``NotImplementedError`` naming theirs.
+    ``gemm.saturating`` and ``complex`` are later slices and raise
+    ``NotImplementedError`` naming theirs.
   * ``ger``/``fused``: optional specializations; lookup falls back from the
     most specific key to ``(backend, op_class, None, None)``.
 
@@ -123,7 +123,6 @@ _ATTN_GERS = (Ger.F32GER, Ger.BF16GER2, Ger.F16GER2)
 _LATER = {
     "gemm.masked": "the pm* masked forms (ROADMAP queue 2, K1b)",
     "gemm.saturating": "saturating accumulation (ROADMAP slice C2)",
-    "conv.dense": "the dense conv kernel (ROADMAP queue 2, K3; slice B2)",
     "complex": "complex contractions (ROADMAP slice C1)",
     "integer": "the integer families (ROADMAP queue 2, K1c/K1f; slice C3)",
 }
@@ -592,7 +591,7 @@ def _lower_ref_gemm(op: Op):
 # conv lowerings
 # ----------------------------------------------------------------------
 # One shared geometry normalizer (the padding math is identical across
-# backends), three lowerings: the depthwise kernel (dense: K3, later),
+# backends), three lowerings: the conv kernels (K3 dense, K4 depthwise),
 # eager torch convolutions, and the oracles of kernels/ref.py.
 
 def _conv_norm(op: Op):
@@ -656,16 +655,25 @@ def _cudnn_fp32():
 
 @register("kernel", "conv")
 def _lower_kernel_conv(op: Op):
-    """The Hopper depthwise kernel (kernels/mma_conv.py), expansion chain
-    included: depthwise conv is bilinear, so the F32GER_3XBF16 hi/lo
-    passes sum over one accumulator and the epilogue applies once on the
-    chained product.  The dense specs wait for K3."""
+    """The Hopper conv kernels (kernels/mma_conv.py): the dense specs run
+    K3's implicit GEMM, the depthwise spec K4, expansion chain included:
+    conv is bilinear, so the F32GER_3XBF16 hi/lo passes sum over one
+    accumulator and the epilogue applies once on the chained product.  An
+    explicit ``Plan.block`` names K3's filter tile (its N tile, as the
+    reference takes ``block[1]``) and changes no result; K4 has none."""
     x4, w4, strides, depthwise, squeeze = _conv_norm(op)
-    if not depthwise:
-        raise _later("conv.dense")
-    if op.block is not None:
-        raise ValueError("the depthwise kernel has no tile to choose; "
-                         f"got block {op.block!r}")
+    if depthwise:
+        if op.block is not None:
+            raise ValueError("the depthwise kernel has no tile to choose; "
+                             f"got block {op.block!r}")
+        conv = _conv.mma_depthwise_conv2d
+    else:
+        if op.block is not None and len(op.block) != 3:
+            raise ValueError(f"conv blocks are (bm, bf, bk) like the gemm's; "
+                             f"got {op.block!r}")
+        conv = functools.partial(
+            _conv.mma_conv2d,
+            bf=op.block[1] if op.block is not None else None)
     res = op.residual
     if res is not None and squeeze:
         res = res[:, None]
@@ -673,17 +681,15 @@ def _lower_kernel_conv(op: Op):
     if len(passes) == 1:
         xi, wi, kind = passes[0]
         pk = precision.policy(kind)
-        out = _conv.mma_depthwise_conv2d(
-            xi.to(pk.x_dtype), wi.to(pk.y_dtype), stride=strides,
-            out_dtype=op.out_dtype, ep=op.epilogue, bias=op.bias,
-            residual=res)
+        out = conv(xi.to(pk.x_dtype), wi.to(pk.y_dtype), stride=strides,
+                   out_dtype=op.out_dtype, ep=op.epilogue, bias=op.bias,
+                   residual=res)
         return out[:, 0] if squeeze else out
     prod = None
     for xi, wi, kind in passes:
         pk = precision.policy(kind)
-        o = _conv.mma_depthwise_conv2d(
-            xi.to(pk.x_dtype), wi.to(pk.y_dtype), stride=strides,
-            out_dtype=op.pol.acc_dtype)
+        o = conv(xi.to(pk.x_dtype), wi.to(pk.y_dtype), stride=strides,
+                 out_dtype=op.pol.acc_dtype)
         prod = o if prod is None else prod + o
     prod = _epilogue_mod.apply(prod, op.epilogue, bias=op.bias, residual=res)
     if squeeze:

@@ -29,15 +29,12 @@
 //   * deprime: the fragments go back through the shared tile, and one
 //     masked pass applies alpha and the epilogue and stores each output
 //     element exactly once, in the requested dtype.
+// The update loop is tile_gemm.cuh's, shared with K3's implicit GEMM.
 // This is the simple, correct first kernel: loads are synchronous 16-byte
 // vectors with no cp.async/TMA pipeline and no wgmma, so neither bound is
 // reached yet (PERF.md has its times).
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "tile_gemm.cuh"
 
 struct GemmArgs {
   const void* x;
@@ -77,205 +74,47 @@ __device__ void prime_tile(float* cs, const GemmArgs& a, int bz, int m0,
 template <int BM, int BN>
 __device__ void store_tile(const float* cs, const GemmArgs& a, int bz, int m0,
                            int n0) {
-  constexpr int LDC = BN + 4;
   const float fin = a.neg_product ? -1.f : 1.f;
   const long long rbase = (long long)bz * a.srb;
   const long long obase = (long long)bz * a.sob;
-  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-    const int r = i / BN, cc = i % BN;
-    const int gr = m0 + r, gc = n0 + cc;
-    if (gr >= a.M || gc >= a.N) continue;
-    float v = fin * cs[r * LDC + cc];
+  for_each_in_tile<BM, BN>(cs, a.M, a.N, m0, n0, [&](int gr, int gc, float v) {
+    v *= fin;
     if (a.alpha != 1.f) v *= a.alpha;
     const long long idx = (long long)gr * a.N + gc;
     v = epilogue_apply(v, a.act, a.bias, a.bias_dt, gc, a.res, a.res_dt,
                        rbase + idx);
     store_f(a.out, a.out_dt, obase + idx, v);
-  }
+  });
 }
 
-// A (ROWS, COLS) window of a row-major (g_rows, g_cols) matrix into shared
-// memory with row pitch LD, in 8-element (16-byte) chunks; zero past the
-// fringe so partial products beyond M, N or K are exact zeros.
-template <typename T, int ROWS, int COLS, int LD>
-__device__ void load_panel(T* s, const T* g, int g_rows, int g_cols, int r0,
-                           int c0, bool vec) {
-  constexpr int CH = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
-    const int r = i / CH, c8 = (i % CH) * 8;
-    const int gr = r0 + r, gc = c0 + c8;
-    T* dst = s + r * LD + c8;
-    const T* src = g + (long long)gr * g_cols + gc;
-    if (vec && gr < g_rows && gc + 8 <= g_cols) {
-      *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        if (gr < g_rows && gc + e < g_cols)
-          dst[e] = src[e];
-        else
-          dst[e] = zero_of<T>();
-      }
-    }
-  }
-}
-
-template <typename T, int BM, int BN, int BK>
-constexpr size_t wmma_smem_bytes() {
-  constexpr size_t panels =
-      ((size_t)BM * (BK + 8) + (size_t)BK * (BN + 8)) * sizeof(T);
-  constexpr size_t ctile = (size_t)BM * (BN + 4) * sizeof(float);
-  return panels > ctile ? panels : ctile;
-}
-
-// bf16 / f16 tensor-core path: WM x WN warps, each owning a
-// (BM/WM, BN/WN) slice of the accumulator as 16x16 fp32 fragments.
+// bf16 / f16 on the tensor cores (tile_gemm.cuh's wmma_tile).
 template <typename T, int BM, int BN, int BK, int WM, int WN>
 __global__ void __launch_bounds__(WM* WN * 32)
     gemm_wmma_kernel(GemmArgs a) {
-  constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
-  constexpr int TM = BM / WM, TN = BN / WN;
-  constexpr int FM = TM / 16, FN = TN / 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* as = reinterpret_cast<T*>(smem);
-  T* bs = as + BM * LDA;
-  float* cs = reinterpret_cast<float*>(smem);  // aliases the panels
-
+  float* cs = reinterpret_cast<float*>(smem);
   const int bz = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const T* X = reinterpret_cast<const T*>(a.x) + (long long)bz * a.sxb;
-  const T* Y = reinterpret_cast<const T*>(a.y) + (long long)bz * a.syb;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WN, wn = warp % WN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-  if (a.c) {
-    prime_tile<BM, BN>(cs, a, bz, m0, n0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(acc[i][j],
-                               cs + (wm * TM + i * 16) * LDC + wn * TN + j * 16,
-                               LDC, wmma::mem_row_major);
-    __syncthreads();  // the panels overwrite the seed tile next
-  } else {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  for (int k0 = 0; k0 < a.K; k0 += BK) {
-    load_panel<T, BM, BK, LDA>(as, X, a.M, a.K, m0, k0, a.vec_x);
-    load_panel<T, BK, BN, LDB>(bs, Y, a.K, a.N, k0, n0, a.vec_y);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * TM + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * TN + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(cs + (wm * TM + i * 16) * LDC + wn * TN + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
+  if (a.c) prime_tile<BM, BN>(cs, a, bz, m0, n0);
+  const RowMajorA<T> ld{reinterpret_cast<const T*>(a.x) + (long long)bz * a.sxb,
+                        a.M, a.K, m0, a.vec_x != 0};
+  wmma_tile<T, BM, BN, BK, WM, WN>(
+      smem, ld, reinterpret_cast<const T*>(a.y) + (long long)bz * a.syb, a.K,
+      a.N, n0, a.vec_y != 0, a.c != nullptr);
   store_tile<BM, BN>(cs, a, bz, m0, n0);
 }
 
-// F32GER: true fp32 FMAs on the CUDA cores (no TF32).  256 threads, each
-// holding a 4x4 register accumulator strided over the (BM, BN) tile.
-constexpr int F32_BM = 64, F32_BN = 64, F32_BK = 16;
-
-constexpr size_t f32_smem_bytes() {
-  constexpr size_t panels =
-      ((size_t)F32_BK * (F32_BM + 4) + (size_t)F32_BK * (F32_BN + 4)) * 4;
-  constexpr size_t ctile = (size_t)F32_BM * (F32_BN + 4) * 4;
-  return panels > ctile ? panels : ctile;
-}
-
+// F32GER: true fp32 FMAs (tile_gemm.cuh's f32_tile).
 __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs a) {
-  constexpr int BM = F32_BM, BN = F32_BN, BK = F32_BK;
-  constexpr int LDT = BM + 4, LDB = BN + 4, LDC = BN + 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* as = reinterpret_cast<float*>(smem);  // k-major: as[kk][row]
-  float* bs = as + BK * LDT;
-  float* cs = reinterpret_cast<float*>(smem);  // aliases the panels
-
-  const int bz = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const float* X = reinterpret_cast<const float*>(a.x) + (long long)bz * a.sxb;
-  const float* Y = reinterpret_cast<const float*>(a.y) + (long long)bz * a.syb;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  float acc[4][4];
-  if (a.c) {
-    prime_tile<BM, BN>(cs, a, bz, m0, n0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = cs[(ty + 16 * i) * LDC + tx + 16 * j];
-    __syncthreads();
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < a.K; k0 += BK) {
-    for (int i = threadIdx.x; i < BM * BK; i += blockDim.x) {
-      const int r = i / BK, kk = i % BK;
-      const int gr = m0 + r, gk = k0 + kk;
-      as[kk * LDT + r] =
-          (gr < a.M && gk < a.K) ? X[(long long)gr * a.K + gk] : 0.f;
-    }
-    for (int i = threadIdx.x; i < BK * BN; i += blockDim.x) {
-      const int kk = i / BN, cc = i % BN;
-      const int gk = k0 + kk, gc = n0 + cc;
-      bs[kk * LDB + cc] =
-          (gk < a.K && gc < a.N) ? Y[(long long)gk * a.N + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk * LDT + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kk * LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  __syncthreads();
-  store_tile<BM, BN>(cs, a, bz, m0, n0);
+  float* cs = reinterpret_cast<float*>(smem);
+  const int bz = blockIdx.z, m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * F32_BN;
+  if (a.c) prime_tile<F32_BM, F32_BN>(cs, a, bz, m0, n0);
+  const RowMajorA<float> ld{
+      reinterpret_cast<const float*>(a.x) + (long long)bz * a.sxb, a.M, a.K,
+      m0, false};
+  f32_tile(smem, ld, reinterpret_cast<const float*>(a.y) + (long long)bz * a.syb,
+           a.K, a.N, n0, a.c != nullptr);
+  store_tile<F32_BM, F32_BN>(cs, a, bz, m0, n0);
 }
 
 template <typename T, int BM, int BN, int BK, int WM, int WN>

@@ -1,0 +1,221 @@
+// One (BM, BN) output tile of a GEMM-shaped product and its whole K loop,
+// shared by K1a (mma_gemm.cu) and K3's implicit GEMM (mma_conv.cu).  The
+// two differ only in where the A panel comes from, so the tile loops take
+// an A loader with two members, each called by every thread of the block:
+//
+//   ld.template panel<BM, BK, LDA>(T* as, int k0)
+//       the (BM, BK) A panel of the K step at k0, row-major, row pitch LDA;
+//   ld.template panel_kmajor<BM, BK, LDT>(float* as, int k0)
+//       the same panel for F32GER, k-major: as[kk * LDT + r];
+//
+// each zero past the M and K fringes.  B is always a row-major (K, N)
+// matrix.  Both loops leave the fp32 tile in shared memory (row pitch
+// BN + 4, aliasing the panels) for the caller's store; with `seeded` that
+// tile holds the fp32 seed on entry.
+#pragma once
+
+#include <mma.h>
+
+#include "common.cuh"
+
+// A (ROWS, COLS) window of a row-major (g_rows, g_cols) matrix into shared
+// memory with row pitch LD, in 8-element (16-byte) chunks; zero past the
+// fringe so partial products beyond M, N or K are exact zeros.
+template <typename T, int ROWS, int COLS, int LD>
+__device__ void load_panel(T* s, const T* g, int g_rows, int g_cols, int r0,
+                           int c0, bool vec) {
+  constexpr int CH = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
+    const int r = i / CH, c8 = (i % CH) * 8;
+    const int gr = r0 + r, gc = c0 + c8;
+    T* dst = s + r * LD + c8;
+    const T* src = g + (long long)gr * g_cols + gc;
+    if (vec && gr < g_rows && gc + 8 <= g_cols) {
+      *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (gr < g_rows && gc + e < g_cols)
+          dst[e] = src[e];
+        else
+          dst[e] = zero_of<T>();
+      }
+    }
+  }
+}
+
+// The GEMM's A: rows m0.. of a row-major (M, K) matrix.
+template <typename T>
+struct RowMajorA {
+  const T* x;
+  int M, K, m0;
+  bool vec;
+
+  template <int BM, int BK, int LDA>
+  __device__ void panel(T* as, int k0) const {
+    load_panel<T, BM, BK, LDA>(as, x, M, K, m0, k0, vec);
+  }
+
+  template <int BM, int BK, int LDT>
+  __device__ void panel_kmajor(float* as, int k0) const {
+    for (int i = threadIdx.x; i < BM * BK; i += blockDim.x) {
+      const int r = i / BK, kk = i % BK;
+      const int gr = m0 + r, gk = k0 + kk;
+      as[kk * LDT + r] = (gr < M && gk < K) ? x[(long long)gr * K + gk] : 0.f;
+    }
+  }
+};
+
+template <typename T, int BM, int BN, int BK>
+__host__ __device__ constexpr size_t wmma_smem_bytes() {
+  constexpr size_t panels =
+      ((size_t)BM * (BK + 8) + (size_t)BK * (BN + 8)) * sizeof(T);
+  constexpr size_t ctile = (size_t)BM * (BN + 4) * sizeof(float);
+  return panels > ctile ? panels : ctile;
+}
+
+// bf16 / f16 tensor-core tile: WM x WN warps, each owning a
+// (BM/WM, BN/WN) slice of the accumulator as 16x16 fp32 fragments.
+template <typename T, int BM, int BN, int BK, int WM, int WN, typename ALoader>
+__device__ void wmma_tile(unsigned char* smem, const ALoader& ld, const T* y,
+                          int K, int N, int n0, bool vec_y, bool seeded) {
+  namespace wmma = nvcuda::wmma;
+  constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
+  constexpr int TM = BM / WM, TN = BN / WN;
+  constexpr int FM = TM / 16, FN = TN / 16;
+  T* as = reinterpret_cast<T*>(smem);
+  T* bs = as + BM * LDA;
+  float* cs = reinterpret_cast<float*>(smem);  // aliases the panels
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / WN, wn = warp % WN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+  if (seeded) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(acc[i][j],
+                               cs + (wm * TM + i * 16) * LDC + wn * TN + j * 16,
+                               LDC, wmma::mem_row_major);
+    __syncthreads();  // the panels overwrite the seed tile next
+  } else {
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  }
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    ld.template panel<BM, BK, LDA>(as, k0);
+    load_panel<T, BK, BN, LDB>(bs, y, K, N, k0, n0, vec_y);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[FN];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(fa[i], as + (wm * TM + i * 16) * LDA + kk, LDA);
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * TN + j * 16, LDB);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+      wmma::store_matrix_sync(cs + (wm * TM + i * 16) * LDC + wn * TN + j * 16,
+                              acc[i][j], LDC, wmma::mem_row_major);
+  __syncthreads();
+}
+
+// F32GER: true fp32 FMAs on the CUDA cores (no TF32).  256 threads, each
+// holding a 4x4 register accumulator strided over the (BM, BN) tile.
+constexpr int F32_BM = 64, F32_BN = 64, F32_BK = 16;
+
+__host__ __device__ constexpr size_t f32_smem_bytes() {
+  constexpr size_t panels =
+      ((size_t)F32_BK * (F32_BM + 4) + (size_t)F32_BK * (F32_BN + 4)) * 4;
+  constexpr size_t ctile = (size_t)F32_BM * (F32_BN + 4) * 4;
+  return panels > ctile ? panels : ctile;
+}
+
+template <typename ALoader>
+__device__ void f32_tile(unsigned char* smem, const ALoader& ld,
+                         const float* y, int K, int N, int n0, bool seeded) {
+  constexpr int BM = F32_BM, BN = F32_BN, BK = F32_BK;
+  constexpr int LDT = BM + 4, LDB = BN + 4, LDC = BN + 4;
+  float* as = reinterpret_cast<float*>(smem);  // k-major: as[kk][row]
+  float* bs = as + BK * LDT;
+  float* cs = reinterpret_cast<float*>(smem);  // aliases the panels
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float acc[4][4];
+  if (seeded) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[i][j] = cs[(ty + 16 * i) * LDC + tx + 16 * j];
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    ld.template panel_kmajor<BM, BK, LDT>(as, k0);
+    for (int i = threadIdx.x; i < BK * BN; i += blockDim.x) {
+      const int kk = i / BN, cc = i % BN;
+      const int gk = k0 + kk, gc = n0 + cc;
+      bs[kk * LDB + cc] = (gk < K && gc < N) ? y[(long long)gk * N + gc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = as[kk * LDT + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk * LDB + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
+  __syncthreads();
+}
+
+// Each in-bounds element of the fp32 (BM, BN) shared tile, once:
+// put(global row, global column, value).
+template <int BM, int BN, typename Put>
+__device__ void for_each_in_tile(const float* cs, int M, int N, int m0,
+                                 int n0, const Put& put) {
+  constexpr int LDC = BN + 4;
+  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
+    const int r = i / BN, cc = i % BN;
+    const int gr = m0 + r, gc = n0 + cc;
+    if (gr < M && gc < N) put(gr, gc, cs[r * LDC + cc]);
+  }
+}

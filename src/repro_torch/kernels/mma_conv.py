@@ -1,23 +1,31 @@
-"""Depthwise convolution: the wrapper of the Hopper kernel and its plain
-version (port of ``repro.kernels.mma_conv``, TPU kernel K4).
+"""Convolutions: the wrappers of the Hopper kernels and their plain
+versions (port of ``repro.kernels.mma_conv``, TPU kernels K3 and K4).
 
-The kernel is ``csrc/mma_conv.cu``; its head comment says which TPU kernel
-it replaces (``repro/kernels/mma_conv.py``, ``mma_depthwise_conv2d``), what
-bounds it on an H100 (device memory, and the launch at decode's L = 1) and
-what its design does about that.  The dense ``mma_conv2d`` (K3) is not
-ported yet (ROADMAP queue 2, K3; slice B2).
+Both kernels are in ``csrc/mma_conv.cu``; its head comments say which TPU
+kernel each replaces (``repro/kernels/mma_conv.py``: ``mma_conv2d`` and
+``mma_depthwise_conv2d``), what bounds it on an H100 and what its design
+does about that.
 
-``mma_depthwise_conv2d`` computes the VALID depthwise (groups == C)
+``mma_conv2d`` (K3) computes the VALID dense convolution
+
+    out[n, oh, ow, f] = cast(epilogue(sum_{i, j, c} x[n, oh*sh + i, ow*sw + j, c]
+                                                    * w[i, j, c, f]))
+
+for image (N, H, W, C) and filters (KH, KW, C, F) as an implicit GEMM with
+an fp32 accumulator; its plain version is ``ref.conv2d`` (the materialised
+patch matrix times the (KH*KW*C, F) filter view) plus ``epilogue.apply``.
+``mma_depthwise_conv2d`` (K4) computes the VALID depthwise (groups == C)
 convolution
 
     out[n, oh, ow, c] = cast(epilogue(sum_{i, j} x[n, oh*sh + i, ow*sw + j, c]
                                                  * taps[i, j, c]))
 
-for image (N, H, W, C) and taps (KH, KW, C), with an fp32 accumulator.  A
-CPU tensor goes to :func:`mma_depthwise_conv2d_plain`, the eager
-shift-and-sum of ``ref.depthwise_conv`` plus ``epilogue.apply``.  A CUDA
-tensor launches the kernel or raises: there is no fallback.
-``mma_depthwise_conv2d.launches`` counts kernel launches, and nothing else.
+for image (N, H, W, C) and taps (KH, KW, C); its plain version is the eager
+shift-and-sum of ``ref.depthwise_conv`` plus ``epilogue.apply``.
+
+A CPU tensor goes to the plain version.  A CUDA tensor launches the kernel
+or raises: there is no fallback.  Each wrapper's ``launches`` counts its
+kernel's launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -35,6 +43,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_int] + [ctypes.c_void_p])
+_CONV2D_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                    + [ctypes.c_int] * 9 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
+
+# The filter tile (bf, K3's N tile) csrc/mma_conv.cu is compiled for, by
+# input dtype; the F fringe of a narrower or ragged filter bank is masked.
+CONV_TILE = {torch.bfloat16: 128, torch.float16: 128, torch.float32: 64}
 
 
 def _geometry(image, taps, stride):
@@ -69,10 +84,11 @@ def mma_depthwise_conv2d_plain(image, taps, *, stride=(1, 1),
 
 def _lib():
     lib = _build.load("mma_conv")
-    fn = lib.mma_depthwise_conv_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for fn, argtypes in ((lib.mma_depthwise_conv_launch, _ARGTYPES),
+                         (lib.mma_conv2d_launch, _CONV2D_ARGTYPES)):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -81,9 +97,23 @@ def _code(t):
         return 0
     if t.dtype not in DTYPE_CODES:
         raise NotImplementedError(
-            f"the depthwise kernel's epilogue operands are f32/bf16/f16, "
+            f"the conv kernels' epilogue operands are f32/bf16/f16, "
             f"not {t.dtype}")
     return DTYPE_CODES[t.dtype]
+
+
+def _check_epilogue(ep, bias, residual, out_shape, f):
+    """The effective epilogue (None for identity), its operands checked."""
+    ep = ep if ep is not None and not ep.is_identity else None
+    if ep is not None:
+        ep.validate(torch.float32, bias=bias, residual=residual)
+    elif bias is not None or residual is not None:
+        raise ValueError("bias/residual operands need an Epilogue")
+    for name, t, want in (("residual", residual, out_shape),
+                          ("bias", bias, (f,))):
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}; want {want}")
+    return ep
 
 
 def mma_depthwise_conv2d(image: torch.Tensor, taps: torch.Tensor, *,
@@ -101,16 +131,8 @@ def mma_depthwise_conv2d(image: torch.Tensor, taps: torch.Tensor, *,
     """
     stride = tuple(int(s) for s in stride)
     n, oh, ow, c = _geometry(image, taps, stride)
-    ep = ep if ep is not None and not ep.is_identity else None
-    if ep is not None:
-        ep.validate(torch.float32, bias=bias, residual=residual)
-    elif bias is not None or residual is not None:
-        raise ValueError("bias/residual operands need an Epilogue")
     out_shape = (n, oh, ow, c)
-    for name, t, want in (("residual", residual, out_shape),
-                          ("bias", bias, (c,))):
-        if t is not None and tuple(t.shape) != want:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}; want {want}")
+    ep = _check_epilogue(ep, bias, residual, out_shape, c)
     if image.device.type == "cpu":
         return mma_depthwise_conv2d_plain(
             image, taps, stride=stride, out_dtype=out_dtype, ep=ep,
@@ -150,3 +172,109 @@ def mma_depthwise_conv2d(image: torch.Tensor, taps: torch.Tensor, *,
 
 
 mma_depthwise_conv2d.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K3: the dense convolution
+# ----------------------------------------------------------------------
+
+def _dense_geometry(image, kernels, stride):
+    if kernels.ndim == 5:
+        raise NotImplementedError(
+            "a prepacked (gf, KH, KW, C, bf) filter stream is a packed "
+            "layout: prepacked filters come with ROADMAP slice C4")
+    if image.ndim != 4 or kernels.ndim != 4:
+        raise ValueError(f"conv2d wants image (N, H, W, C) and filters "
+                         f"(KH, KW, C, F); got {tuple(image.shape)} x "
+                         f"{tuple(kernels.shape)}")
+    n, h, w, c = image.shape
+    kh, kw, c2, f = kernels.shape
+    if c != c2:
+        raise ValueError(f"channel mismatch {tuple(image.shape)} vs "
+                         f"{tuple(kernels.shape)}")
+    sh, sw = stride
+    if sh < 1 or sw < 1:
+        raise ValueError(f"strides must be >= 1, got {stride!r}")
+    if h < kh or w < kw:
+        raise ValueError(f"image {tuple(image.shape)} is smaller than the "
+                         f"filters {tuple(kernels.shape)} (VALID padding)")
+    return n, (h - kh) // sh + 1, (w - kw) // sw + 1, f
+
+
+def mma_conv2d_plain(image, kernels, *, stride=(1, 1),
+                     out_dtype=torch.float32,
+                     ep: _epilogue.Epilogue | None = None,
+                     bias=None, residual=None):
+    """The plain version: the materialised patch matrix times the filter
+    view in fp32 (``ref.conv2d``), epilogue, cast."""
+    out = _ref.conv2d(image, kernels, stride=tuple(stride))
+    out = _epilogue.apply(out, ep, bias=bias, residual=residual)
+    return out.to(out_dtype)
+
+
+def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
+               bf: int | None = None, stride: tuple[int, int] = (1, 1),
+               out_dtype: torch.dtype = torch.float32,
+               ep: _epilogue.Epilogue | None = None,
+               bias: torch.Tensor | None = None,
+               residual: torch.Tensor | None = None) -> torch.Tensor:
+    """VALID 2-D convolution, stride (sh, sw) (the paper's h * A).
+
+    image (N, H, W, C) and filters (KH, KW, C, F) of one dtype (f32, bf16
+    or f16) -> (N, OH, OW, F) in ``out_dtype``; ``ep`` fuses bias (F,),
+    activation and residual (N, OH, OW, F) into the single store.  ``bf``
+    names the filter tile, which must be ``CONV_TILE`` of the input dtype
+    (None takes it); it changes no result.
+    """
+    stride = tuple(int(s) for s in stride)
+    n, oh, ow, f = _dense_geometry(image, kernels, stride)
+    if image.dtype not in CONV_TILE or kernels.dtype != image.dtype:
+        raise TypeError(f"the conv kernel takes image and filters of one "
+                        f"dtype among f32/bf16/f16, got {image.dtype} x "
+                        f"{kernels.dtype}")
+    tile = CONV_TILE[image.dtype]
+    if bf is None:
+        bf = tile
+    elif bf != tile:
+        raise ValueError(f"the conv kernel is compiled for the filter tile "
+                         f"{tile} in {image.dtype}, not bf={bf}")
+    out_shape = (n, oh, ow, f)
+    ep = _check_epilogue(ep, bias, residual, out_shape, f)
+    if image.device.type == "cpu":
+        return mma_conv2d_plain(image, kernels, stride=stride,
+                                out_dtype=out_dtype, ep=ep, bias=bias,
+                                residual=residual)
+    if image.device.type != "cuda":
+        raise ValueError(f"mma_conv2d runs on cuda (or its plain version on "
+                         f"cpu), not {image.device}")
+    if out_dtype not in DTYPE_CODES:
+        raise NotImplementedError(f"the conv kernel stores f32/bf16/f16, "
+                                  f"not {out_dtype}")
+    for name, t in (("filters", kernels), ("bias", bias),
+                    ("residual", residual)):
+        if t is not None and t.device != image.device:
+            raise ValueError(f"{name} on {t.device}, image on {image.device}")
+    for name, t in (("image", image), ("filters", kernels), ("bias", bias),
+                    ("residual", residual)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"the conv kernel takes contiguous operands; "
+                             f"{name} has strides {t.stride()}")
+    out = torch.empty(out_shape, dtype=out_dtype, device=image.device)
+    if out.numel() == 0:
+        return out                  # an empty grid is not a launch
+    lib = _lib()
+    rc = lib.mma_conv2d_launch(
+        image.data_ptr(), kernels.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(),
+        DTYPE_CODES[image.dtype], _code(bias), _code(residual),
+        DTYPE_CODES[out_dtype], *image.shape, kernels.shape[0],
+        kernels.shape[1], f, stride[0], stride[1],
+        _epilogue.ACT_CODES[ep.activation if ep is not None else None], bf,
+        torch.cuda.current_stream(image.device).cuda_stream)
+    _build.check(lib, rc, "mma_conv2d")
+    mma_conv2d.launches += 1
+    return out
+
+
+mma_conv2d.launches = 0

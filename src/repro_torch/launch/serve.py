@@ -100,7 +100,19 @@ def serve_loop(cfg, model, *, batch: int, prompt_len: int, gen_len: int,
     continuous-batching decode loop, on the device that holds ``model``.
     Returns a stats dict.  Every request ends either ``completed`` or
     ``rejected``; a duplicate raises :class:`ServeError` and the page
-    ledger is proven quiescent before returning."""
+    ledger is proven quiescent before returning.
+
+    The loop admits token-only prompts, as the reference's does: an
+    encoder-decoder config (whisper, whose prefill needs ``frames``) or a
+    vision-prefix config (qwen2-vl, whose prefill needs ``images`` and
+    M-RoPE ``positions``) raises ``ValueError`` up front; drive those with
+    ``models.model.prefill`` and ``decode_step``."""
+    if cfg.is_enc_dec or cfg.vision_prefix:
+        raise ValueError(
+            f"{cfg.name}: serve_loop admits token-only prompts, and this "
+            f"config's prefill needs "
+            f"{'mel frames' if cfg.is_enc_dec else 'images and positions'}"
+            f"; drive it with models.model.prefill and decode_step")
     device = next(model.parameters()).device
     decode = S.make_serve_step(cfg)
     prefill = S.make_prefill_step(cfg)

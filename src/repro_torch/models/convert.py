@@ -20,17 +20,19 @@ from repro_torch.models import model as M
 def params_from_numpy(tree, cfg, *, device, dtype: torch.dtype | None = None
                       ) -> M.Model:
     """Build a :class:`~repro_torch.models.model.Model` from the
-    reference's parameter pytree (dense, ssm or hybrid family) with numpy
-    leaves, unstacking the leading layer axis of ``tree["layers"]``.
+    reference's parameter pytree (dense, ssm, hybrid, audio or vlm family)
+    with numpy leaves, unstacking the leading layer axis of
+    ``tree["layers"]`` and ``tree["encoder"]["layers"]``.
 
     With ``dtype`` (e.g. ``torch.bfloat16``), the projection weights are
-    stored in it once, at load; 1-D parameters and mamba2's conv taps
-    ``conv_w`` stay fp32 (the conv runs F32GER, which reads its taps as
-    fp32, and the reference keeps them fp32).  The reference casts each
-    weight to the compute dtype on every call, and casting once gives the
-    same values.
+    stored in it once, at load; 1-D parameters, mamba2's conv taps
+    ``conv_w`` and the conv stems' filters (whisper's ``conv1_w``/
+    ``conv2_w``, qwen2-vl's ``patch_w``) stay fp32, as the reference keeps
+    them; the lowering casts them by policy on every call.  The reference
+    casts each weight to the compute dtype on every call, and casting once
+    gives the same values.
     """
-    M.check_family(cfg)
+    kind = M.check_family(cfg)
     device = facility.resolve_device(device)
 
     def t(a, cast=True):
@@ -56,15 +58,20 @@ def params_from_numpy(tree, cfg, *, device, dtype: torch.dtype | None = None
         return L.MLP(t(p["w1"]), t(p["w2"]),
                      t(p["w3"]) if "w3" in p else None)
 
+    def dense(lt, i):
+        cross = (norm(lt["cross_norm"], i), attention(lt["cross"], i)
+                 ) if "cross" in lt else ()
+        return M.DenseBlock(norm(lt["attn_norm"], i), attention(lt["attn"], i),
+                            norm(lt["mlp_norm"], i), mlp(lt["mlp"], i),
+                            *cross)
+
     e = tree["embed"]
     embed = L.Embed(t(e["tok"]), t(e["unembed"]) if "unembed" in e else None)
     lt = tree["layers"]
     layers = []
     for i in range(cfg.num_layers):
-        if cfg.family == "dense":
-            layers.append(M.DenseBlock(
-                norm(lt["attn_norm"], i), attention(lt["attn"], i),
-                norm(lt["mlp_norm"], i), mlp(lt["mlp"], i)))
+        if kind in ("dense", "cross"):
+            layers.append(dense(lt, i))
             continue
         mb = at(lt["mamba"], i)
         layers.append(M.SSMBlock(norm(lt["norm"], i), M2.Mamba2(
@@ -77,4 +84,24 @@ def params_from_numpy(tree, cfg, *, device, dtype: torch.dtype | None = None
         shared = M.SharedAttn(t(sa["in_proj"]), norm(sa["attn_norm"]),
                               attention(sa["attn"]), norm(sa["mlp_norm"]),
                               mlp(sa["mlp"]))
-    return M.Model(embed, layers, norm(tree["final_norm"]), shared)
+    encoder = None
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        frontend = None
+        if "frontend" in enc:
+            fe = enc["frontend"]
+            frontend = M.Frontend(t(fe["conv1_w"], cast=False),
+                                  t(fe["conv1_b"]),
+                                  t(fe["conv2_w"], cast=False),
+                                  t(fe["conv2_b"]))
+        encoder = M.Encoder([dense(enc["layers"], i)
+                             for i in range(cfg.encoder_layers)],
+                            norm(enc["norm"]), frontend)
+    vision_patch = None
+    if "vision_patch" in tree:
+        vp = tree["vision_patch"]
+        vision_patch = M.VisionPatch(t(vp["patch_w"], cast=False),
+                                     t(vp["patch_b"]))
+    return M.Model(embed, layers, norm(tree["final_norm"]), shared, encoder,
+                   t(tree["vision_proj"]) if "vision_proj" in tree else None,
+                   vision_patch)

@@ -119,12 +119,34 @@ def apply_norm(p: Norm, x: torch.Tensor, cfg) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     """positions (..., S) -> cos/sin (..., S, head_dim//2)."""
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                            device=positions.device) / head_dim
-    inv = 1.0 / (theta ** exponent)
+    inv = _inv_freq(head_dim, theta, positions.device)
     ang = positions[..., None].to(torch.float32) * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions3: torch.Tensor, head_dim: int, theta: float,
+                  sections):
+    """M-RoPE: positions3 (3, B, S); ``sections`` partition head_dim//2
+    into temporal/height/width frequency bands (arXiv:2409.12191), each
+    band rotated by its own position row.  -> cos/sin (B, S, head_dim//2)."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {head_dim // 2}")
+    inv = _inv_freq(head_dim, theta, positions3.device)
+    ang = positions3[..., None].to(torch.float32) * inv   # (3, B, S, hd/2)
+    parts, start = [], 0
+    for i, s in enumerate(sections):
+        parts.append(ang[i, ..., start:start + s])
+        start += s
+    ang = torch.cat(parts, dim=-1)                         # (B, S, hd/2)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -140,7 +162,7 @@ def apply_rope(x, cos, sin):
 
 
 # ----------------------------------------------------------------------
-# Attention (GQA, optional sliding window)
+# Attention (GQA, optional sliding window, optional cross-attention)
 # ----------------------------------------------------------------------
 
 def _attend(q, k, v, q_pos, kv_pos, *, causal, window, valid):
@@ -187,16 +209,21 @@ def sdpa(q, k, v, *, causal, window=None, q_offset=0, kv_positions=None,
 
 def apply_attention(p: Attention, x, cfg, *, cos_sin=None, kv=None,
                     causal=None, window=None, q_offset=0,
-                    kv_positions=None, valid=None, residual=None):
+                    kv_positions=None, valid=None, cross_x=None,
+                    residual=None):
     """Full attention block: projections + RoPE + SDPA + output proj.
-    ``residual`` is fused into the output projection's store.  Returns
-    (out, (k, v)) so callers can build KV caches."""
+    ``cross_x``: keys and values are projected from the encoder stream
+    (whisper's decoder).  ``residual`` is fused into the output
+    projection's store.  Returns (out, (k, v)) so callers can build KV
+    caches."""
     b, s, d = x.shape
     h, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = facility.contract(DOT, x, p.wq).reshape(b, s, h, hd)
     if kv is None:
-        k = facility.contract(DOT, x, p.wk).reshape(b, s, nkv, hd)
-        v = facility.contract(DOT, x, p.wv).reshape(b, s, nkv, hd)
+        src = cross_x if cross_x is not None else x
+        sk = src.shape[1]
+        k = facility.contract(DOT, src, p.wk).reshape(b, sk, nkv, hd)
+        v = facility.contract(DOT, src, p.wv).reshape(b, sk, nkv, hd)
     else:
         k, v = kv
     if cos_sin is not None:

@@ -1,10 +1,11 @@
 """The port's conv op-class (``contract`` on CONV2D, CONV1D and
-CONV1D_DEPTHWISE) and the plain version of its depthwise kernel (K4)
-against the JAX reference, on the CPU.
+CONV1D_DEPTHWISE) and the plain versions of its conv kernels (K3, dense;
+K4, depthwise) against the JAX reference, on the CPU.
 
-The same numpy inputs go through the reference (its xla and ref lowerings,
-its Pallas depthwise kernel in interpret mode, its oracles) and through
-the port, whose kernel wrapper runs its plain version on a CPU tensor.
+The same numpy inputs go through the reference (its xla, Pallas and ref
+lowerings, its Pallas conv kernels in interpret mode, its oracles) and
+through the port, whose kernel wrappers run their plain versions on a CPU
+tensor.
 
 Tolerances: every case here accumulates in fp32, and the two sides sum
 the same products in another order (XLA's convolution against torch's
@@ -230,15 +231,163 @@ def test_conv2d_oracle_matches_reference(stride):
 
 @pytest.mark.parametrize("spec", ["CONV2D", "CONV1D"])
 def test_dense_conv_on_the_kernel_backend_raises_naming_k3(spec):
-    """No silent route to torch for a missing kernel: the dense specs on
-    the kernel backend raise until K3 is ported."""
-    x = torch.zeros((1, 6, 6, 2)) if spec == "CONV2D" else torch.zeros(
-        (1, 6, 2))
-    w = torch.zeros((2, 2, 2, 3)) if spec == "CONV2D" else torch.zeros(
-        (2, 2, 3))
+    """The dense specs on the kernel backend no longer raise naming K3:
+    they run K3's wrapper (its plain version on the CPU) and match the
+    reference's xla lowering, in f32, with no silent route to torch."""
+    rng = np.random.default_rng(5)
+    xs, ws = ((1, 6, 6, 2), (2, 2, 2, 3)) if spec == "CONV2D" else (
+        (1, 6, 2), (2, 2, 3))
+    x = rng.standard_normal(xs).astype(np.float32)
+    w = rng.standard_normal(ws).astype(np.float32)
+    jcfg = jfac.FacilityConfig(ger=jprec.Ger.F32GER, out_dtype=jnp.float32)
+    with jfac.configure(jcfg):
+        want = jfac.contract(getattr(jfac, spec), jnp.asarray(x),
+                             jnp.asarray(w))
+    before = tconv.mma_conv2d.launches
     with tfac.configure(tfac.FacilityConfig(**CPU_F32)):
-        with pytest.raises(NotImplementedError, match="K3"):
-            tfac.contract(getattr(tfac, spec), x, w)
+        got = tfac.contract(getattr(tfac, spec), _t(x), _t(w))
+    assert tconv.mma_conv2d.launches == before   # the plain version ran
+    _close_f32(_np(got), want)
+
+
+_DENSE_CASES = [c for c in CONV_CASES if c[0] != "CONV1D_DEPTHWISE"]
+
+
+@pytest.mark.parametrize("ger", ["BF16GER2", "F32GER", "F32GER_3XBF16"])
+@pytest.mark.parametrize("case", _DENSE_CASES,
+                         ids=lambda c: f"{c[0]}-{c[4]}-s{c[3]}")
+def test_dense_kernel_backend_matches_reference_pallas(case, ger):
+    """CONV1D/CONV2D on the kernel backend (K3's plain version on the CPU)
+    against the reference's Pallas backend (its K3 in interpret mode),
+    with the stems' fused bias + gelu: a bf16 store for BF16GER2, an f32
+    one for F32GER and for F32GER_3XBF16's three chained bf16 passes."""
+    rng = np.random.default_rng(6)
+    x, w, bias, _ = _operands(rng, case, "bias")
+    spec, _, _, stride, padding = case
+    f32_out = ger != "BF16GER2"
+    with jfac.configure(jfac.FacilityConfig(use_pallas=True)):
+        want = jfac.contract(
+            getattr(jfac, spec), jnp.asarray(x), jnp.asarray(w),
+            bias=jnp.asarray(bias),
+            plan=jfac.Plan(ger=getattr(jprec.Ger, ger), stride=stride,
+                           padding=padding,
+                           epilogue=jep.Epilogue(bias=True,
+                                                 activation="gelu"),
+                           out_dtype=jnp.float32 if f32_out
+                           else jnp.bfloat16))
+    with tfac.configure(tfac.FacilityConfig(device="cpu")):
+        got = tfac.contract(
+            getattr(tfac, spec), _t(x), _t(w), bias=_t(bias),
+            plan=tfac.Plan(ger=getattr(tprec.Ger, ger), stride=stride,
+                           padding=padding,
+                           epilogue=tep.Epilogue(bias=True,
+                                                 activation="gelu"),
+                           out_dtype=torch.float32 if f32_out
+                           else torch.bfloat16))
+    assert got.dtype == (torch.float32 if f32_out else torch.bfloat16)
+    check = _close_f32 if f32_out else _close_bf16
+    check(_np(got), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("case", [
+    # (image NHWC, filters HWIO, stride, input dtype, epilogue, out dtype)
+    ((2, 1, 26, 80), (1, 3, 80, 128), (1, 1), "bf16", "bias+gelu",
+     "bf16"),                                     # whisper conv1, reduced
+    ((2, 1, 25, 128), (1, 3, 128, 128), (1, 2), "bf16", "bias+gelu",
+     "bf16"),                                     # whisper conv2, reduced
+    ((2, 8, 16, 3), (4, 4, 3, 128), (4, 4), "bf16", "bias", "bf16"),
+    # ^ qwen2-vl's patch embed, reduced: kernel = stride = patch
+    ((2, 7, 9, 5), (3, 3, 5, 6), (1, 1), "f32", "residual", "f32"),
+    ((2, 6, 11, 4), (2, 3, 4, 7), (2, 3), "f32", "bias+relu+residual",
+     "f32"),
+    ((1, 5, 9, 8), (2, 2, 8, 10), (1, 1), "f16", "bias+silu", "f32"),
+], ids=["whisper-conv1", "whisper-conv2", "patch-embed", "3x3-residual",
+        "strided-f32", "f16"])
+def test_conv2d_plain_matches_reference_kernel(case):
+    """K3's plain version against the reference's ``mma_conv2d`` in
+    interpret mode at the reduced stems' geometries (1-D convs as H = 1,
+    strides 2 and 4, C = 3), and at 2-D, strided, residual, f32 and f16
+    edge cases."""
+    shape, fshape, stride, idt, epi, odt = case
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal(fshape) * 0.3).astype(np.float32)
+    n, h, wd, _ = shape
+    kh, kw, _, f = fshape
+    oh, ow = (h - kh) // stride[0] + 1, (wd - kw) // stride[1] + 1
+    jepi, tepi = _epilogue(epi)
+    bias = (rng.standard_normal(f).astype(np.float32)
+            if tepi is not None and tepi.bias else None)
+    res = (rng.standard_normal((n, oh, ow, f)).astype(np.float32)
+           if tepi is not None and tepi.residual else None)
+    jd = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}
+    td = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    want = jconv.mma_conv2d(
+        jnp.asarray(x).astype(jd[idt]), jnp.asarray(w).astype(jd[idt]),
+        stride=stride, out_dtype=jd[odt], ep=jepi,
+        bias=None if bias is None else jnp.asarray(bias),
+        residual=None if res is None else jnp.asarray(res), interpret=True)
+    got = tconv.mma_conv2d(
+        _t(x, td[idt]), _t(w, td[idt]), stride=stride, out_dtype=td[odt],
+        ep=tepi, bias=None if bias is None else _t(bias),
+        residual=None if res is None else _t(res))
+    assert got.shape == (n, oh, ow, f) and got.dtype == td[odt]
+    check = _close_f32 if odt == "f32" else _close_bf16
+    check(_np(got), np.asarray(want, np.float32))
+
+
+def test_conv_plan_block_names_the_filter_tile():
+    """An explicit Plan.block takes K3's filter (N) tile where the kernel
+    is compiled for it, with the same result, and raises otherwise."""
+    rng = np.random.default_rng(8)
+    x = _t(rng.standard_normal((2, 10, 8)))
+    w = _t(rng.standard_normal((3, 8, 130)) * 0.3)
+    with tfac.configure(tfac.FacilityConfig(device="cpu")):
+        base = tfac.contract(tfac.CONV1D, x, w)
+        assert torch.equal(tfac.contract(
+            tfac.CONV1D, x, w, plan=tfac.Plan(block=(64, 128, 32))), base)
+        for bf in (64, 96):
+            with pytest.raises(ValueError, match="filter tile"):
+                tfac.contract(tfac.CONV1D, x, w,
+                              plan=tfac.Plan(block=(64, bf, 32)))
+        with pytest.raises(ValueError, match="bm, bf, bk"):
+            tfac.contract(tfac.CONV1D, x, w, plan=tfac.Plan(block=(64, 64)))
+    with tfac.configure(tfac.FacilityConfig(**CPU_F32)):
+        assert torch.equal(tfac.contract(
+            tfac.CONV1D, x, w, plan=tfac.Plan(block=(64, 64, 16))),
+            tfac.contract(tfac.CONV1D, x, w))
+        with pytest.raises(ValueError, match="filter tile"):
+            tfac.contract(tfac.CONV1D, x, w,
+                          plan=tfac.Plan(block=(64, 128, 32)))
+
+
+def test_conv2d_wrapper_checks_its_operands():
+    x, w = torch.zeros((1, 6, 6, 4)), torch.zeros((3, 3, 4, 5))
+    with pytest.raises(ValueError, match="bias has shape"):
+        tconv.mma_conv2d(x, w, ep=tep.Epilogue(bias=True),
+                         bias=torch.zeros(4))
+    with pytest.raises(ValueError, match="need an Epilogue"):
+        tconv.mma_conv2d(x, w, bias=torch.zeros(5))
+    with pytest.raises(ValueError, match="residual has shape"):
+        tconv.mma_conv2d(x, w, ep=tep.Epilogue(residual=True),
+                         residual=torch.zeros((1, 6, 6, 5)))
+    with pytest.raises(ValueError, match="smaller than the filters"):
+        tconv.mma_conv2d(torch.zeros((1, 2, 6, 4)), w)
+    with pytest.raises(ValueError, match="channel mismatch"):
+        tconv.mma_conv2d(x, torch.zeros((3, 3, 3, 5)))
+    with pytest.raises(ValueError, match="filters"):
+        tconv.mma_conv2d(x, torch.zeros((3, 4, 5)))
+    with pytest.raises(ValueError, match="strides"):
+        tconv.mma_conv2d(x, w, stride=(0, 1))
+    with pytest.raises(TypeError, match="one dtype"):
+        tconv.mma_conv2d(x, w.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="one dtype"):
+        tconv.mma_conv2d(x.double(), w.double())
+    with pytest.raises(NotImplementedError, match="C4"):
+        tconv.mma_conv2d(x, torch.zeros((1, 3, 3, 4, 64)))
+    with pytest.raises(ValueError, match="runs on cuda"):
+        tconv.mma_conv2d(x.to("meta"), w.to("meta"))
+    assert tconv.mma_conv2d(x, w).shape == (1, 4, 4, 5)
 
 
 def test_non_f32_accumulator_goes_to_torch_by_its_family(monkeypatch):

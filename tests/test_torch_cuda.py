@@ -13,7 +13,11 @@ atol=2e-5 * max|ref|``, attention within ``2^-7 * max|v|`` plus one bf16 ulp
 (the kernel rounds the unnormalised P per block, the plain version the
 normalised P once); the depthwise conv within ``rtol=1e-5, atol=1e-6 *
 max|ref|`` for an f32 store (the same products summed in the same order;
-only silu/gelu's exp/erf differ) and one ulp plus that for a 16-bit store.
+only silu/gelu's exp/erf differ) and one ulp plus that for a 16-bit store;
+the dense conv (K3) within one ulp of a 16-bit store at |ref| plus
+``1e-5 * max|ref|`` (its fp32 sum runs in another order than the plain
+version's single fp32 matmul, which can move an output near zero by more
+than its own tiny ulp) and within ``1e-4 * max|ref|`` for an f32 store.
 """
 
 from __future__ import annotations
@@ -153,6 +157,105 @@ def test_depthwise_kernel_matches_plain(gen, case):
                                                       torch.bfloat16 else 10))
         tol = tol + ulp
     assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("case", [
+    # (image NHWC, filters HWIO, stride, dtype, epilogue, out dtype, bf)
+    ((2, 1, 302, 80), (1, 3, 80, 768), (1, 1), torch.bfloat16, "bias+gelu",
+     torch.bfloat16, None),                        # whisper conv1
+    ((2, 1, 301, 768), (1, 3, 768, 768), (1, 2), torch.bfloat16,
+     "bias+gelu", torch.bfloat16, 128),            # whisper conv2, bf named
+    ((1, 112, 84, 3), (14, 14, 3, 3584), (14, 14), torch.bfloat16, "bias",
+     torch.bfloat16, None),                        # qwen2-vl patch embed
+    ((2, 9, 13, 24), (3, 3, 24, 70), (1, 1), torch.float16, "residual",
+     torch.float16, None),                         # ragged F and OW
+    ((2, 8, 17, 5), (2, 3, 5, 33), (2, 3), torch.float32, "bias+relu",
+     torch.float32, None),                         # F32GER, K fringe
+])
+def test_conv2d_kernel_matches_plain(gen, case):
+    shape, fshape, stride, dtype, epi, od, bf = case
+    n, h, w, c = shape
+    kh, kw, _, f = fshape
+    oh, ow = (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
+    x = _randn(gen, *shape, dtype=dtype)
+    filt = _randn(gen, *fshape, dtype=dtype, scale=(kh * kw * c) ** -0.5)
+    ep = E.Epilogue(bias="bias" in epi, residual=epi == "residual",
+                    activation=next((a for a in ("gelu", "relu")
+                                     if a in epi), None))
+    bias = _randn(gen, f, dtype=torch.float32) if ep.bias else None
+    res = _randn(gen, n, oh, ow, f, dtype=od) if ep.residual else None
+    kw_ = dict(stride=stride, out_dtype=od, ep=ep, bias=bias, residual=res)
+    before = K.mma_conv2d.launches
+    got = K.mma_conv2d(x, filt, bf=bf, **kw_)
+    torch.cuda.synchronize()
+    assert K.mma_conv2d.launches == before + 1
+    want = K.mma_conv2d_plain(x, filt, **kw_)
+    assert got.shape == want.shape == (n, oh, ow, f) and got.dtype == od
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    if od == torch.float32:
+        tol = 1e-4 * scale
+    else:
+        bits = 7 if od == torch.bfloat16 else 10
+        tol = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - bits) + 1e-5 * scale
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_conv2d_kernel_refuses_strided_operands(gen):
+    x = _randn(gen, 1, 8, 8, 16)
+    w = _randn(gen, 3, 3, 16, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.mma_conv2d(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.mma_conv2d(x, w.transpose(0, 1))
+    with pytest.raises(ValueError, match="filter tile"):
+        K.mma_conv2d(x.float(), w.float(), bf=128)
+
+
+@pytest.mark.parametrize("name", ["whisper-small", "qwen2-vl-7b"])
+def test_reduced_multimodal_prefill_and_decode_go_through_k3(gen, name):
+    """A reduced whisper or qwen2-vl prefill and decode step on the kernel
+    backend: the conv stem launches K3 (2 per whisper prefill, 1 per
+    qwen2-vl prefill), and the prefill logits sit within 2e-2 (relative
+    L2) of the eager torch backend's."""
+    from repro_torch.data import pipeline
+    cfg = reduced(get(name))
+    model = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    seq = 24 if cfg.is_enc_dec else 12
+    batch = pipeline.device_batch(
+        pipeline.synthetic_batch(cfg, batch=2, seq=seq, step=0), "cuda")
+    if cfg.is_enc_dec:
+        batch["tokens"] = batch["tokens"][:, :4]
+    p = batch["tokens"].shape[1]
+    logits = {}
+    for backend in ("kernel", "torch"):
+        with facility.configure(facility.FacilityConfig(device="cuda",
+                                                        backend=backend)):
+            K.mma_conv2d.launches = 0
+            logits[backend], pre = M.prefill(model, batch, cfg)
+            if backend == "kernel":
+                assert K.mma_conv2d.launches == (2 if cfg.is_enc_dec else 1)
+            cache = M.init_cache(cfg, 2, seq if cfg.is_enc_dec else seq + 4,
+                                 device="cuda")
+            cache["k"][:, :, :p] = pre["kv"][0]
+            cache["v"][:, :, :p] = pre["kv"][1]
+            cache["pos"][:p] = torch.arange(p, device="cuda")
+            cache["cur"] = p
+            if cfg.is_enc_dec:
+                cache["cross_k"].copy_(pre["cross_kv"][0])
+                cache["cross_v"].copy_(pre["cross_kv"][1])
+            A.mma_flash_attention.launches = 0
+            step, _ = M.decode_step(model, cache, batch["tokens"][:, -1:],
+                                    cfg)
+            if backend == "kernel" and cfg.is_enc_dec:
+                # cross-attention over the encoder k/v, one per layer
+                assert A.mma_flash_attention.launches == cfg.num_layers
+            assert bool(torch.isfinite(step).all())
+    rel = ((logits["kernel"] - logits["torch"]).norm()
+           / logits["torch"].norm()).item()
+    assert rel < 2e-2
 
 
 def test_reduced_ssm_serve_goes_through_all_three_kernels(gen):

@@ -48,6 +48,7 @@ def test_serve_imports_with_jax_and_reference_blocked():
             "import repro_torch.kernels.mma_attention\n"
             "import repro_torch.kernels.mma_conv\n"
             "import repro_torch.models.mamba2\n"
+            "import repro_torch.data.pipeline\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

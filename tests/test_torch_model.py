@@ -127,8 +127,7 @@ def test_bf16_at_rest_matches_per_call_cast(models):
 
 
 def test_other_families_raise_with_their_slice():
-    for name, slice_ in (("mixtral-8x22b", "B1"), ("whisper-small", "B2"),
-                         ("qwen2-vl-7b", "B2")):
+    for name, slice_ in (("mixtral-8x22b", "B1"),):
         with pytest.raises(NotImplementedError, match=slice_):
             TM.init_params(treduced(tget(name)), device="cpu")
 

@@ -57,6 +57,20 @@ def test_serve_loop_matches_reference(served, kw):
     assert got["completed"] + got["rejected"] == kw["n_requests"]
 
 
+@pytest.mark.parametrize("name", ["whisper-small", "qwen2-vl-7b"])
+def test_serve_loop_refuses_multimodal_configs(name):
+    """The loop admits token-only prompts, as the reference's does (where
+    these configs fail on the missing frames or positions): an
+    encoder-decoder or vision-prefix config is refused up front, before
+    any model call."""
+    cfg = treduced(tget(name))
+    model = TM.init_params(cfg, device="cpu", dtype=torch.bfloat16)
+    with tfac.configure(tfac.FacilityConfig(device="cpu")):
+        with pytest.raises(ValueError, match="token-only prompts"):
+            tserve.serve_loop(cfg, model, batch=2, prompt_len=8, gen_len=2,
+                              n_requests=1)
+
+
 def test_requests_match_reference():
     cfg = treduced(tget("deepseek-7b"))
     mine = tserve._make_requests(cfg, 5, 7, 9, seed=3)
