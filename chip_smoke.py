@@ -9,10 +9,12 @@ Phases, each of which must pass or the script exits nonzero:
      build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
      with nvcc for sm_90a (one nvcc per source, in parallel) and print the
      build time and ptxas's register/spill report;
-  2. kernels: hold each kernel against its plain PyTorch version, on the
-     card, at the main paths' shapes (the SSD's batched products, mamba2's
-     causal conv, whisper's conv stem and encoder and cross attention,
-     qwen2-vl's patch embed and GQA prefill included) and on edge cases
+  2. kernels: hold each kernel (each of the GEMM's three paths, the
+     attention tile and its split-KV form) against its plain PyTorch
+     version, on the card, at the main paths' shapes (the SSD's batched
+     products, mamba2's causal conv, whisper's conv stem and encoder and
+     cross attention, qwen2-vl's patch embed and GQA prefill included)
+     and on edge cases
      (ragged fringes, batch, accumulate forms, every epilogue, GQA, window,
      q_offset, valid, fully-masked rows, conv strides, ragged channels, F
      and K fringes, f16/f32 conv inputs); print each case's worst error
@@ -35,10 +37,18 @@ Phases, each of which must pass or the script exits nonzero:
      path > 0); then each model's prefill and decode logits on the kernel
      backend against the eager torch backend, mamba2-130m's exact per-slot
      prefill handoff, and a profile of one prefill and one decode step of
-     deepseek-7b, zamba2, whisper-small and qwen2-vl-7b.
+     deepseek-7b, zamba2, whisper-small and qwen2-vl-7b.  Each run also
+     records the GEMM's launches by path and the shapes it gave the GEMM
+     and the attention kernel; every decode product must have taken the
+     weight stream, every deepseek-7b and qwen2-vl-7b prefill product the
+     wgmma tile, and every one-query attention split-KV;
+  4. the runs' shapes: each distinct GEMM and attention shape of the runs
+     timed (kernel, path, torch.matmul or SDPA, bound).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
-``launches`` summed over the runs and ``launches_by_run``);
+``launches`` summed over the runs and ``launches_by_run``; the GEMM's
+``launches_by_path``, ``host_us`` per call and, with the attention
+kernel's, ``run_shapes``);
 the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and
 nothing of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
@@ -98,22 +108,31 @@ def card_line() -> str:
 # ----------------------------------------------------------------------
 
 class Timer:
-    """Mean device time of a callable over ``iters`` launches, each timed
-    with its own CUDA event pair after a write of ``flush_bytes`` (larger
-    than the 50 MB L2), so every launch starts from a cold cache."""
+    """Median device time of a callable over ``iters`` launches (after
+    ``warmup`` untimed ones), each timed with its own CUDA event pair after
+    a write of ``flush_bytes`` (larger than the 50 MB L2), so every launch
+    starts from a cold cache, and a spin of ``hold_us`` on the card, so
+    that the callable's host work is done before its first kernel may
+    start and its launches are timed back to back: the time is the
+    device's, not the wrapper's."""
 
-    def __init__(self, torch, flush_bytes: int = 256 << 20):
+    def __init__(self, torch, flush_bytes: int = 256 << 20,
+                 hold_us: float = 300.0):
         self.torch = torch
         self.flush = torch.empty(flush_bytes, dtype=torch.uint8,
                                  device="cuda")
+        # cycles at the H100's 1.98 GHz boost clock (a slower clock only
+        # holds longer)
+        self.hold_cycles = int(hold_us * 1e-6 * 1.98e9)
 
-    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
+    def __call__(self, fn, iters: int = 10, warmup: int = 3) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.hold_cycles)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -121,7 +140,8 @@ class Timer:
             e1.record()
             pairs.append((e0, e1))
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in pairs) / iters
+        times = sorted(a.elapsed_time(b) for a, b in pairs)
+        return times[len(times) // 2]
 
 
 def bound_ms(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
@@ -229,12 +249,50 @@ def check_gemm(torch, timer, failures):
                  randn(1024, 1000, dtype=torch.float32, scale=0.03),
                  randn(256, 1000, dtype=torch.float32),
                  dict(kind=Ger.F32GER, beta=0.5, out_dtype=torch.float32)))
+    # the weight stream and the wgmma tile at their own fringes and forms
+    edge.append(("seed neg/neg alpha/beta M=40 (stream)", randn(40, 768),
+                 randn(768, 520, scale=0.04),
+                 randn(40, 520, dtype=torch.float32),
+                 dict(kind=Ger.BF16GER2, neg_product=True, neg_acc=True,
+                      alpha=0.5, beta=-2.0, out_dtype=torch.float32)))
+    edge.append(("bias+gelu+res M=16 (stream)", randn(16, 768),
+                 randn(768, 1000, scale=0.04), None,
+                 dict(kind=Ger.BF16GER2,
+                      ep=E.Epilogue(bias=True, activation="gelu",
+                                    residual=True),
+                      bias=randn(1000, dtype=torch.float32),
+                      residual=randn(16, 1000), out_dtype=torch.bfloat16)))
+    edge.append(("f16 silu M=7 (stream)", randn(7, 512, dtype=torch.float16),
+                 randn(512, 300, dtype=torch.float16, scale=0.05), None,
+                 dict(kind=Ger.F16GER2, ep=E.Epilogue(activation="silu"),
+                      out_dtype=torch.float16)))
+    edge.append(("seed neg alpha/beta 130x96x72 (wgmma)", randn(130, 96),
+                 randn(96, 72, scale=0.1),
+                 randn(130, 72, dtype=torch.float32),
+                 dict(kind=Ger.BF16GER2, neg_product=True, alpha=-1.5,
+                      beta=0.25, out_dtype=torch.float32)))
+    edge.append(("batched B=3 77x200x136 (wgmma)", randn(3, 77, 200),
+                 randn(3, 200, 136, scale=0.07), None,
+                 dict(kind=Ger.BF16GER2, out_dtype=torch.float32)))
+    edge.append(("bias+relu+res 257x384x200 f16 (wgmma)",
+                 randn(257, 384, dtype=torch.float16),
+                 randn(384, 200, dtype=torch.float16, scale=0.05), None,
+                 dict(kind=Ger.F16GER2,
+                      ep=E.Epilogue(bias=True, activation="relu",
+                                    residual=True),
+                      bias=randn(200, dtype=torch.float32),
+                      residual=randn(257, 200, dtype=torch.float16),
+                      out_dtype=torch.float16)))
     for name, xe, ye, ce, kw in edge:
+        before = dict(G.mma_gemm.launches_by_path)
         got = G.mma_gemm(xe, ye, ce, **kw).float()
+        path = [p for p, n in G.mma_gemm.launches_by_path.items()
+                if n != before[p]]
         plain_kw = {k: v for k, v in kw.items() if k != "block"}
         want = G.mma_gemm_plain(xe, ye, ce, **plain_kw).float()
         worst = max(worst, _report_close(
-            torch, f"gemm {name}", got, want, kw["out_dtype"], failures))
+            torch, f"gemm {name} -> {path}", got, want, kw["out_dtype"],
+            failures))
 
     # Timing at the decode MLP's product (M = batch, 4096 -> 11008).
     m, k, n = SERVE["batch"], 4096, 11008
@@ -245,39 +303,40 @@ def check_gemm(torch, timer, failures):
         ("plain_ms", lambda: G.mma_gemm_plain(x, y, **kw)),
         ("library_ms", lambda: torch.matmul(x, y)))}
     b_ms, b_by = bound_ms((m * k + k * n + m * n) * 2, 2 * m * n * k, "bf16")
-    extra = {}
-    # (batch, M, K, N, out): the dense path's prefill and logits products,
-    # then zamba2's SSD products in prefill and decode.
-    for b2, m2, k2, n2, od in ((1, p, 4096, 11008, torch.bfloat16),
-                               (1, m, 4096, 102400, torch.float32),
-                               (1, p, 4096, 102400, torch.float32),
-                               (64, p, p, 64, torch.bfloat16),
-                               (1, 64, p, 4096, torch.float32),
-                               (m, 64, 1, 4096, torch.float32),
-                               (m, 1, 64, 4096, torch.bfloat16)):
-        shape = (b2, m2, k2) if b2 > 1 or m2 == 64 else (m2, k2)
-        x2 = randn(*shape)
-        y2 = randn(*shape[:-2], k2, n2, scale=k2 ** -0.5)
-        t = timer(lambda: G.mma_gemm(x2, y2, kind=Ger.BF16GER2,
-                                     out_dtype=od), iters=5)
-        tl = timer(lambda: torch.matmul(x2, y2), iters=5)
-        bb, by = bound_ms(b2 * ((m2 * k2 + k2 * n2) * 2
-                                + m2 * n2 * od.itemsize),
-                          2 * b2 * m2 * n2 * k2, "bf16")
-        key = f"{b2}x{m2}x{k2}x{n2}" if len(shape) == 3 else \
-            f"{m2}x{k2}x{n2}"
-        extra[key] = dict(ms=t, library_ms=tl, bound_ms=bb, bound_by=by)
-        print(f"  time gemm {key}: kernel {t:.4f} ms, "
-              f"torch.matmul {tl:.4f} ms, bound {bb:.4f} ms ({by})")
     print(f"  time gemm {m}x{k}x{n}: kernel {times['ms']:.4f} ms, plain "
           f"{times['plain_ms']:.4f} ms, torch.matmul "
           f"{times['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # Host time of one call at decode M (the weight stream), beside
+    # torch.matmul's, and of one at prefill M (the wgmma tile, whose
+    # tensor maps are encoded on every call).
+    xw, yw = randn(p, 4096), randn(4096, 4096, scale=4096 ** -0.5)
+    host = {"mma_gemm decode (stream)": host_us(
+                torch, lambda: G.mma_gemm(x, y, **kw)),
+            "torch.matmul decode": host_us(torch, lambda: torch.matmul(x, y)),
+            "mma_gemm prefill (wgmma)": host_us(
+                torch, lambda: G.mma_gemm(xw, yw))}
+    print("  host us per call: " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in host.items()))
     return {"name": "mma_gemm", "route": "cuda",
-            "source": "src/repro_torch/csrc/mma_gemm.cu",
+            "source": "src/repro_torch/csrc/gemm_stream.cu, "
+                      "src/repro_torch/csrc/gemm_wgmma.cu, "
+                      "src/repro_torch/csrc/mma_gemm.cu",
             "replaces": "src/repro/kernels/mma_gemm.py:197",
             "max_abs_err": worst, "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"M={m} K={k} N={n} bf16", **times,
-            "other_shapes": extra}
+            "shape": f"M={m} K={k} N={n} bf16 (stream)", **times,
+            "host_us": host}
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host time of one call (enqueue only), over ``n`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def _report_close(torch, name, got, want, out_dtype, failures) -> float:
@@ -329,20 +388,16 @@ def check_attention(torch, timer, failures):
     worst = 0.0
     for name, qs, ks, kw in cases:
         q, k, v = randn(*qs), randn(*ks), randn(*ks)
-        got = A.mma_flash_attention(q, k, v, **kw).float()
-        want = A.flash_attention_plain(q, k, v, **kw).float()
-        worst = max(worst, _report_attn(torch, f"attn {name}", got, want,
-                                        v, failures))
+        e, _ = check_attn_case(torch, f"attn {name}", q, k, v, kw, failures)
+        worst = max(worst, e)
     # valid slots, with fully-masked rows (rows 0-2 see only invalid keys)
     q, k, v = randn(2, 70, 8, 128), randn(2, 70, 2, 128), randn(2, 70, 2, 128)
     valid = torch.ones((2, 70), dtype=torch.bool, device="cuda")
     valid[:, :3] = False
     valid[1, 40:] = False
-    got = A.mma_flash_attention(q, k, v, causal=True, valid=valid).float()
-    want = A.flash_attention_plain(q, k, v, causal=True,
-                                   valid=valid).float()
-    worst = max(worst, _report_attn(torch, "attn valid + masked rows", got,
-                                    want, v, failures))
+    e, got = check_attn_case(torch, "attn valid + masked rows", q, k, v,
+                             dict(causal=True, valid=valid), failures)
+    worst = max(worst, e)
     zero_ok = bool((got[:, :3] == 0).all())
     print(f"  [{'ok' if zero_ok else 'FAIL'}] attn fully-masked rows are "
           f"exact zeros")
@@ -355,10 +410,9 @@ def check_attention(torch, timer, failures):
     q, k, v = randn(1, 130, 8, 128), randn(1, 130, 8, 128), randn(1, 130, 8, 128)
     kw = dict(causal=True, ep=ep, bias=bias, residual=res,
               out_dtype=torch.float32)
-    got = A.mma_flash_attention(q, k, v, **kw)
-    want = A.flash_attention_plain(q, k, v, **kw)
-    worst = max(worst, _report_attn(torch, "attn bias+silu+res f32", got,
-                                    want, v, failures))
+    e, _ = check_attn_case(torch, "attn bias+silu+res f32", q, k, v, kw,
+                           failures)
+    worst = max(worst, e)
 
     # Timing at the prefill shape.
     q, k, v = randn(1, p, 32, 128), randn(1, p, 32, 128), randn(1, p, 32, 128)
@@ -370,8 +424,8 @@ def check_attention(torch, timer, failures):
         ("library_ms", lambda: sdpa(qt, kt, vt, is_causal=True)))}
     pairs = A.attn_live_pairs(p, p, causal=True)
     b_ms, b_by = bound_ms(4 * p * 32 * 128 * 2, 4 * 128 * pairs * 32, "bf16")
-    extra = {}
-    for s, d in ((1024, 128), (4096, 128), (p, 64)):
+    extra = {}   # causal prefill at lengths the runs do not reach
+    for s, d in ((1024, 128), (4096, 128)):
         q2, k2, v2 = (randn(1, s, 32, d) for _ in range(3))
         qt2, kt2, vt2 = (t.transpose(1, 2) for t in (q2, k2, v2))
         t = timer(lambda: A.mma_flash_attention(q2, k2, v2, causal=True),
@@ -384,24 +438,6 @@ def check_attention(torch, timer, failures):
                                      bound_by=by)
         print(f"  time attn causal (1,{s},32,{d}): kernel {t:.4f} ms, "
               f"sdpa {tl:.4f} ms, bound {bb:.4f} ms ({by})")
-    # the multimodal paths' shapes; SDPA gets the k/v heads repeated over
-    # their GQA groups (outside the timed call)
-    for name, qs, ks, kw in MM_ATTENTION:
-        q2, k2, v2 = randn(*qs), randn(*ks), randn(*ks)
-        rep = qs[2] // ks[2]
-        qt2, kt2, vt2 = (t.transpose(1, 2) for t in (
-            q2, k2.repeat_interleave(rep, 2), v2.repeat_interleave(rep, 2)))
-        t = timer(lambda: A.mma_flash_attention(q2, k2, v2, **kw), iters=5)
-        tl = timer(lambda: sdpa(qt2, kt2, vt2, is_causal=kw["causal"]),
-                   iters=5)
-        b2, sq, h2, d = qs
-        sk = ks[1]
-        bb, by = bound_ms(2 * (2 * b2 * sq * h2 * d + 2 * b2 * sk * ks[2] * d),
-                          4 * d * b2 * h2 * A.attn_live_pairs(
-                              sq, sk, causal=kw["causal"]), "bf16")
-        extra[name] = dict(ms=t, library_ms=tl, bound_ms=bb, bound_by=by)
-        print(f"  time attn {name}: kernel {t:.4f} ms, sdpa {tl:.4f} ms, "
-              f"bound {bb:.4f} ms ({by})")
     print(f"  time attn causal (1,{p},32,128): kernel {times['ms']:.4f} ms, "
           f"plain {times['plain_ms']:.4f} ms, sdpa "
           f"{times['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -436,17 +472,56 @@ def _mm_attention():
 MM_ATTENTION = _mm_attention()
 
 
-def _report_attn(torch, name, got, want, v, failures) -> float:
-    # The kernel rounds the unnormalised P to bf16 block by block, the
-    # plain version the normalised P once: each weight differs by up to a
-    # bf16 half-ulp either way, so |err| <= 2^-7 * max|v| per output, plus
-    # one ulp of a 16-bit store.
+def check_attn_case(torch, name, q, k, v, kw, failures):
+    """One attention call against flash_attention_plain and, where it
+    splits KV, against flash_attention_splitkv_plain too, each output
+    within 2^-7 * max|v| and within its rounding budget (_report_attn);
+    (max|err|, the kernel's output)."""
+    from repro_torch.kernels import mma_attention as A
+
+    got = A.mma_flash_attention(q, k, v, **kw)
+    out_dtype = kw.get("out_dtype") or q.dtype
+    budget = A.rounding_budget(q, k, v, **{
+        f: kw[f] for f in ("causal", "q_offset", "window", "valid", "ep")
+        if f in kw})
+    want = A.flash_attention_plain(q, k, v, **kw)
+    e = _report_attn(torch, name, got, want, v, budget, out_dtype,
+                     failures)
+    n_split, per = A.split_kv_plan(q.shape[0], q.shape[2], q.shape[1],
+                                   k.shape[1])
+    if n_split > 1:
+        want = A.flash_attention_splitkv_plain(q, k, v, n_split=n_split,
+                                               per=per, **kw)
+        e = max(e, _report_attn(
+            torch, f"{name} vs split-KV plain ({n_split} x {per} blocks)",
+            got, want, v, budget, out_dtype, failures))
+    return e, got
+
+
+def _report_attn(torch, name, got, want, v, budget, out_dtype, failures):
+    # Two bounds, both must hold.  The kernel rounds the unnormalised P to
+    # bf16 block by block, the plain version the normalised P once: each
+    # weight differs by up to a bf16 half-ulp either way, so |err| <=
+    # 2^-7 * max|v| per output, plus one ulp of a 16-bit store.  Tighter,
+    # per output: its own rounding budget (mma_attention.rounding_budget:
+    # 2u * sum p|v| and fp32 slack), plus one ulp of a 16-bit store at
+    # |ref| and 2^-20 * max|ref| for the epilogue's fp32 arithmetic in
+    # another order.
+    got, want = got.float(), want.float()
     err = (got - want).abs()
-    tol = 2.0 ** -7 * v.float().abs().max() + bf16_ulp(torch, want)
-    ok = bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+    old = 2.0 ** -7 * v.float().abs().max() + bf16_ulp(torch, want)
+    tol = budget + 2.0 ** -20 * want.abs().max()
+    if out_dtype != torch.float32:
+        tol = tol + (bf16_ulp(torch, want) if out_dtype == torch.bfloat16
+                     else bf16_ulp(torch, want) / 8)
+    ok = (bool(torch.isfinite(got).all()) and bool((err <= tol).all())
+          and bool((err <= old).all()))
     e = err.max().item()
-    print(f"  [{'ok' if ok else 'FAIL'}] {name}: max|err| {e:.3e} "
-          f"(tol 2^-7*max|v| + 1 bf16 ulp)")
+    print(f"  [{'ok' if ok else 'FAIL'}] {name}: max|err| {e:.3e}, "
+          f"max err/tol {(err / tol).max().item():.3f} (tol rounding "
+          f"budget + 1 ulp, max budget {budget.max().item():.3e}); max "
+          f"err/tol {(err / old).max().item():.3f} (tol 2^-7*max|v| + 1 "
+          f"bf16 ulp)")
     if not ok:
         failures.append(name)
     return e
@@ -742,6 +817,148 @@ def kernel_wrappers():
             "mma_conv2d": K.mma_conv2d}
 
 
+# Per run: the GEMM's launches by path, and the distinct shapes the run
+# gave the GEMM and the attention kernel (their wrappers' traces).
+RECORDS: dict[str, dict] = {}
+
+
+def reset_counts(kernels):
+    """Zero every launch count, and start the GEMM's and attention's
+    traces, just before a run."""
+    for fn in kernels.values():
+        fn.launches = 0
+    kernels["mma_gemm"].launches_by_path = dict.fromkeys(
+        kernels["mma_gemm"].launches_by_path, 0)
+    kernels["mma_gemm"].trace = []
+    kernels["mma_flash_attention"].trace = []
+
+
+def take_records(arch, kernels):
+    """Read the run's launches by path and shapes, just after it, and stop
+    tracing."""
+    g, a = kernels["mma_gemm"], kernels["mma_flash_attention"]
+    RECORDS[arch] = {"by_path": dict(g.launches_by_path),
+                     "gemm": sorted(set(g.trace), key=str),
+                     "attn": sorted(set(a.trace), key=str)}
+    g.trace = a.trace = None
+
+
+def check_main_paths(failures):
+    """Every decode product (M = batch) with K >= 768 on the weight stream,
+    every prefill product of deepseek-7b and qwen2-vl-7b on the wgmma
+    tile, and every one-query attention (whisper's decode
+    cross-attention) on split-KV."""
+    for arch, rec in RECORDS.items():
+        bad = []
+        for b, m, k, n, _, _, path in rec["gemm"]:
+            if b == 1 and m <= 16 and k >= 768 and path != "stream":
+                bad.append((m, k, n, path))
+            if (arch in ("deepseek-7b", "qwen2-vl-7b") and m > 64
+                    and path != "wgmma"):
+                bad.append((m, k, n, path))
+        for shape in rec["attn"]:
+            if shape[1] == 1 and shape[-1] < 2:
+                bad.append(("attention", shape))
+        print(f"  [{'ok' if not bad else 'FAIL'}] {arch}: GEMM launches by "
+              f"path {rec['by_path']}; {len(rec['gemm'])} GEMM and "
+              f"{len(rec['attn'])} attention shapes on the expected paths"
+              + (f"; off path: {bad}" if bad else ""))
+        if bad:
+            failures.append(f"{arch} products off their path: {bad}")
+
+
+def time_run_shapes(torch, entries, failures):
+    """Each distinct GEMM and attention shape of the runs: the kernel held
+    against its plain version at that shape (the GEMM at _report_close's
+    tolerance, attention within its rounding budget, split-KV also against
+    its own plain version), then its time, its path, the library call's
+    time and the bound."""
+    from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_gemm as G
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kind = {torch.bfloat16: "bf16", torch.float16: "f16"}
+    gemm_shapes, attn_shapes = {}, {}
+    for arch, rec in RECORDS.items():
+        for s in rec["gemm"]:
+            gemm_shapes.setdefault(s, []).append(arch)
+        for s in rec["attn"]:
+            attn_shapes.setdefault(s, []).append(arch)
+    gemm_out = {}
+    errs = {"mma_gemm": 0.0, "mma_flash_attention": 0.0}
+    for (b, m, k, n, dt, od, path), archs in sorted(gemm_shapes.items(),
+                                                    key=str):
+        lead = (b,) if b > 1 else ()
+        x = torch.randn(lead + (m, k), generator=g, device="cuda").to(dt)
+        y = (torch.randn(lead + (k, n), generator=g, device="cuda")
+             * k ** -0.5).to(dt)
+        kw = dict(kind=G.Ger.F16GER2 if dt == torch.float16 else
+                  G.Ger.BF16GER2, out_dtype=od)
+        key = f"{b}x{m}x{k}x{n} {str(od)[6:]}"
+        errs["mma_gemm"] = max(errs["mma_gemm"], _report_close(
+            torch, f"gemm {key} [{path}]", G.mma_gemm(x, y, **kw).float(),
+            G.mma_gemm_plain(x, y, **kw).float(), od, failures))
+        t = timer(lambda: G.mma_gemm(x, y, **kw), iters=5)
+        tl = timer(lambda: torch.matmul(x, y), iters=5)
+        bb, by = bound_ms(b * ((m * k + k * n) * 2 + m * n * od.itemsize),
+                          2 * b * m * n * k, kind[dt])
+        gemm_out[key] = dict(path=path, ms=t, library_ms=tl, bound_ms=bb,
+                             bound_by=by, runs=archs)
+        print(f"  time gemm {key} [{path}] ({', '.join(archs)}): kernel "
+              f"{t:.4f} ms, torch.matmul {tl:.4f} ms, bound {bb:.4f} ms "
+              f"({by}), {bb / t:.2f} of bound")
+    attn_out = {}
+    for shape, archs in sorted(attn_shapes.items(), key=str):
+        b, sq, sk, h, kvh, d, dt, causal, q_off, window, has_valid, ns = shape
+        q = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dt)
+        k = torch.randn((b, sk, kvh, d), generator=g, device="cuda").to(dt)
+        v = torch.randn((b, sk, kvh, d), generator=g, device="cuda").to(dt)
+        valid = (torch.ones((b, sk), dtype=torch.bool, device="cuda")
+                 if has_valid else None)
+        kw = dict(causal=causal, q_offset=q_off, window=window, valid=valid)
+        key = (f"({b},{sq},{h},{d}) over ({sk},{kvh}) causal={causal} "
+               f"q_offset={q_off} window={window} valid={has_valid}")
+        e, _ = check_attn_case(torch, f"attn {key}", q, k, v, kw, failures)
+        errs["mma_flash_attention"] = max(errs["mma_flash_attention"], e)
+        t = timer(lambda: A.mma_flash_attention(q, k, v, **kw), iters=5)
+        qt, kt, vt = (z.transpose(1, 2) for z in (
+            q, k.repeat_interleave(h // kvh, 2),
+            v.repeat_interleave(h // kvh, 2)))
+        # SDPA's flash path where is_causal says it all, else its mask
+        mask, is_causal = None, causal and q_off == 0 and sq == sk \
+            and window is None
+        if (causal or window is not None) and not is_causal:
+            qp = torch.arange(sq, device="cuda")[:, None] + q_off
+            kp = torch.arange(sk, device="cuda")[None, :]
+            mask = torch.ones((sq, sk), dtype=torch.bool, device="cuda")
+            if causal:
+                mask &= qp >= kp
+            if window is not None:
+                mask &= qp - kp < window
+        tl = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                is_causal=is_causal), iters=5)
+        pairs = A.attn_live_pairs(sq, sk, causal=causal, q_offset=q_off,
+                                  window=window)
+        bb, by = bound_ms(2 * (2 * b * sq * h * d + 2 * b * sk * kvh * d),
+                          4 * d * b * h * pairs, kind[dt])
+        attn_out[key] = dict(path="split-kv" if ns > 1 else "tile", ms=t,
+                             library_ms=tl, bound_ms=bb, bound_by=by,
+                             runs=archs)
+        print(f"  time attn {key} [{attn_out[key]['path']}] "
+              f"({', '.join(archs)}): kernel {t:.4f} ms, sdpa {tl:.4f} ms, "
+              f"bound {bb:.4f} ms ({by}), {bb / t:.2f} of bound")
+    for e in entries:
+        if e["name"] in errs:
+            e["max_abs_err"] = max(e["max_abs_err"], errs[e["name"]])
+        if e["name"] == "mma_gemm":
+            e["run_shapes"] = gemm_out
+        if e["name"] == "mma_flash_attention":
+            e["run_shapes"] = attn_out
+    del timer
+
+
 def serve(torch, failures, arch, settings, num_layers=None):
     """Serve ``arch`` with random bf16 weights from seed 0 through
     ``serve_loop``, every kernel's launch count reset just before and read
@@ -772,10 +989,10 @@ def serve(torch, failures, arch, settings, num_layers=None):
     kernels = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
     with facility.configure(facility.FacilityConfig(device="cuda")):
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         stats = S.serve_loop(cfg, model, **settings)
         launches = {name: fn.launches for name, fn in kernels.items()}
+        take_records(arch, kernels)
     print(f"  serve {settings}: {json.dumps(stats)}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB; launches in the serving run: {launches}")
@@ -934,9 +1151,10 @@ def step_breakdown(torch, cfg, prefill, decode, what):
 
 # The __global__ functions of src/repro_torch/csrc, as the profiler names
 # them.
-PORT_KERNELS = ("gemm_wmma_kernel", "gemm_f32_kernel", "flash_attn_kernel",
-                "depthwise_conv_kernel", "conv_wmma_kernel",
-                "conv_f32_kernel")
+PORT_KERNELS = ("gemm_stream_kernel", "gemm_wgmma_kernel",
+                "gemm_wmma_kernel", "gemm_f32_kernel", "flash_wgmma_kernel",
+                "flash_combine_kernel", "depthwise_conv_kernel",
+                "conv_wmma_kernel", "conv_f32_kernel")
 
 
 def profile_step(torch, step, fn, step_ms):
@@ -1048,8 +1266,7 @@ def generate(torch, failures, arch, settings):
     kernels = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
     with facility.configure(facility.FacilityConfig(device="cuda")):
-        for fn in kernels.values():
-            fn.launches = 0
+        reset_counts(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         last, pre = M.prefill(model, batch, cfg)
@@ -1070,6 +1287,7 @@ def generate(torch, failures, arch, settings):
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         launches = {name: fn.launches for name, fn in kernels.items()}
+        take_records(arch, kernels)
         finite = bool(finite)
     tokens = torch.cat(out, dim=1)
     print(f"  generated {tuple(tokens.shape)} tokens: prefill "
@@ -1185,6 +1403,15 @@ def main() -> None:
     for e in entries:
         e["launches_by_run"] = {a: n[e["name"]] for a, n in by_run.items()}
         e["launches"] = sum(e["launches_by_run"].values())
+        if e["name"] == "mma_gemm":
+            e["launches_by_path"] = {
+                p: sum(r["by_path"][p] for r in RECORDS.values())
+                for p in next(iter(RECORDS.values()))["by_path"]}
+    check_main_paths(failures)
+
+    print("== phase 4: the runs' GEMM and attention shapes, checked and "
+          "timed", flush=True)
+    time_run_shapes(torch, entries, failures)
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:

@@ -763,9 +763,9 @@ def _lower_ref_conv(op: Op):
 @register("kernel", "attn")
 def _lower_kernel_attn(op: Op):
     """The Hopper flash kernel (kernels/mma_attention.py): one block per
-    (b, h, 64-row q block), GQA by index, the causal/window bounds
-    computed per block.  Its tile is fixed; a Plan.block names it or
-    nothing."""
+    (b, h, q tile), GQA by index, the causal/window bounds computed per
+    block, short queries split over KV.  The wrapper picks the tile; a
+    Plan.block names the prefill tile or nothing."""
     if op.block is not None and tuple(op.block) != (_attn.BLOCK_Q,
                                                     _attn.BLOCK_K):
         raise ValueError(f"the attention kernel's tile is "

@@ -15,6 +15,12 @@ enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
 
 #define REPRO_NEG_INF (-1e30f)
 
+// A generic pointer into shared memory as the 32-bit shared address that
+// cp.async, ldmatrix, mbarrier, TMA and wgmma take.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ float load_f(const void* p, int dt, long long i) {
   if (dt == DT_BF16)
     return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
@@ -31,6 +37,17 @@ __device__ __forceinline__ void store_f(void* p, int dt, long long i, float v) {
     reinterpret_cast<float*>(p)[i] = v;
 }
 
+__device__ __forceinline__ float act_apply(float v, int act) {
+  if (act == ACT_RELU) {
+    v = fmaxf(v, 0.f);
+  } else if (act == ACT_SILU) {
+    v = v / (1.f + expf(-v));
+  } else if (act == ACT_GELU) {
+    v = v * (0.5f * (1.f + erff(v * 0.7071067811865476f)));  // exact erf
+  }
+  return v;
+}
+
 // store(cast(residual + act(bias + v))), in fp32: kernels/epilogue.py's
 // contract, evaluated per element of the resident accumulator tile.
 __device__ __forceinline__ float epilogue_apply(float v, int act,
@@ -39,13 +56,7 @@ __device__ __forceinline__ float epilogue_apply(float v, int act,
                                                 const void* res, int res_dt,
                                                 long long res_idx) {
   if (bias) v += load_f(bias, bias_dt, bias_idx);
-  if (act == ACT_RELU) {
-    v = fmaxf(v, 0.f);
-  } else if (act == ACT_SILU) {
-    v = v / (1.f + expf(-v));
-  } else if (act == ACT_GELU) {
-    v = v * (0.5f * (1.f + erff(v * 0.7071067811865476f)));  // exact erf
-  }
+  v = act_apply(v, act);
   if (res) v += load_f(res, res_dt, res_idx);
   return v;
 }

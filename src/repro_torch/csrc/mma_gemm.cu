@@ -1,4 +1,4 @@
-// Accumulator-resident blocked GEMM for Hopper (sm_90a).
+// Accumulator-resident blocked GEMM for Hopper (sm_90a): the WMMA tiles.
 //
 // Replaces the TPU kernel K1a: repro/kernels/mma_gemm.py, mma_gemm
 // (kernel body _make_kernel), restricted to the F32GER / BF16GER2 / F16GER2
@@ -10,29 +10,32 @@
 // with s = -1 for the neg_acc form.  The pm* masks, int8/int4/int16/f64
 // families, prepacked panels and the ABFT sidecar (K1b-f) are not here.
 //
-// What bounds it on an H100.  The main path's products are of two kinds.
-// Decode (M = batch, 2-8 rows) streams the whole (K, N) weight once per
-// call and does ~M flops per weight byte: it is bound by device memory
-// (3.35 TB/s).  Prefill (M = prompt length) and large-batch products are
-// bound by the bf16 tensor cores (989 TFLOP/s dense).
+// Which products run here.  core/tiling.py's choose_gemm_path sends M <=
+// 64 to the weight stream (gemm_stream.cu) and larger M with 16-byte
+// pitches to the TMA + wgmma tile (gemm_wgmma.cu).  This kernel takes the
+// rest: pitches TMA cannot describe at large M (whisper's 51865-column
+// logits over a prompt), K below one MMA step (the SSD's K = 1 outer
+// product), F32GER, which stays true fp32 (never TF32), and an explicit
+// Plan.block naming one of core/tiling.py's GEMM_TILES.
 //
-// Design.  The TPU grid walked (i, j, k) in order and carried the
-// accumulator in VMEM scratch across the k steps.  Here blocks run in
-// parallel and in no order, so one thread block owns one (bm, bn) output
-// tile and runs the whole k-loop itself; batch comes from blockIdx.z.
+// What bounds it on an H100: device memory (3.35 TB/s) for skinny
+// products, the tensor cores (989 TFLOP/s bf16; 67 TFLOP/s fp32 FMAs for
+// F32GER) for large ones.
+//
+// Design.  One thread block owns one (bm, bn) output tile and runs the
+// whole k-loop itself; batch comes from blockIdx.z.
 //   * prime: the seed C (neg/beta forms) is read once into a shared fp32
 //     tile and loaded into the warps' accumulator fragments;
 //   * update: (bm, bk) and (bk, bn) panels are staged in shared memory,
-//     zero-filled past the M, N and K fringes (decode's M fringe is the
-//     common case), and multiplied with WMMA bf16/f16 tensor-core
-//     fragments into fp32 registers; F32GER runs fp32 FMAs (never TF32);
+//     zero-filled past the M, N and K fringes, and multiplied with WMMA
+//     bf16/f16 tensor-core fragments into fp32 registers; F32GER runs fp32
+//     FMAs;
 //   * deprime: the fragments go back through the shared tile, and one
 //     masked pass applies alpha and the epilogue and stores each output
 //     element exactly once, in the requested dtype.
 // The update loop is tile_gemm.cuh's, shared with K3's implicit GEMM.
-// This is the simple, correct first kernel: loads are synchronous 16-byte
-// vectors with no cp.async/TMA pipeline and no wgmma, so neither bound is
-// reached yet (PERF.md has its times).
+// Loads are synchronous 16-byte vectors (no cp.async/TMA pipeline, no
+// wgmma): the two other kernels carry the main path's products.
 
 #include "tile_gemm.cuh"
 

@@ -5,14 +5,22 @@ host-side block schedule and the oracle (port of
 The kernel is ``csrc/mma_attention.cu``; its head comment says which TPU
 kernel it replaces (``repro/kernels/mma_attention.py``,
 ``mma_flash_attention``), what bounds it on an H100 (the bf16 tensor cores
-for prefill past a few hundred tokens) and what its design does about that:
-one block per (b, h, 64-row q block) loops over its own live KV blocks,
-with the bounds of :func:`attn_k_bounds` computed in the kernel.
+for prefill past a few hundred tokens, bytes for one query over a long
+cache) and what its design does about that: one block per (b, h, 128-row
+q tile; 64 rows where the grid would not fill the card) loops over its own
+live KV blocks, with the bounds of :func:`attn_k_bounds` computed in the
+kernel, on TMA loads and wgmma; short queries split their KV blocks over
+several blocks (:func:`split_kv_plan`) and merge the partials by
+log-sum-exp.
 
-A CPU tensor goes to :func:`flash_attention_plain`: the two-product
-softmax of :func:`ref_attention` plus the epilogue.  A CUDA tensor launches
-the kernel or raises.  ``mma_flash_attention.launches`` counts kernel
-launches, and nothing else.
+A CPU tensor goes to the plain version of what the card would run:
+:func:`flash_attention_splitkv_plain` (per-split partials and their
+merge) where :func:`split_kv_plan` splits, else
+:func:`flash_attention_plain` (the two-product softmax of
+:func:`ref_attention` plus the epilogue).  A CUDA tensor launches the
+kernel or raises.  ``mma_flash_attention.launches`` counts attention
+calls run on the card (the split-KV merge is part of its call), and
+nothing else.
 """
 
 from __future__ import annotations
@@ -22,20 +30,22 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core.tiling import NUM_SMS
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as _epilogue
 
 NEG_INF = -1e30
 
-# The kernel's tile (csrc/mma_attention.cu: BQ, BKV).
-BLOCK_Q = BLOCK_K = 64
+# The kernel's tiles (csrc/mma_attention.cu): 128 query rows (two consumer
+# warpgroups; 64 where the grid would not fill the card) by 64 KV rows.
+BLOCK_Q, BLOCK_Q_SHORT, BLOCK_K = 128, 64, 64
 KERNEL_DTYPES = {torch.bfloat16: 1, torch.float16: 2}
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_int] * 6
-             + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 # ----------------------------------------------------------------------
@@ -104,8 +114,26 @@ def attn_grid_plan(sq: int, sk: int, bq: int, bk: int, *, causal: bool,
     return np.asarray(rows, np.int32).T
 
 
+def attn_block_q(b: int, h: int, sq: int) -> int:
+    """The q tile: 128 rows, or 64 where 128-row tiles leave SMs idle."""
+    return BLOCK_Q if -(-sq // BLOCK_Q) * b * h >= NUM_SMS else BLOCK_Q_SHORT
+
+
+def split_kv_plan(b: int, h: int, sq: int, sk: int) -> tuple[int, int]:
+    """(n_split, KV blocks per split) of a launch.  Queries of at most 64
+    rows (one q tile) whose (b, h) pairs leave SMs idle split their KV
+    blocks so that the grid fills the card in one wave of two blocks per
+    SM; each split walks ``per`` consecutive blocks of the tile's live
+    range.  Otherwise (1, all blocks)."""
+    nk = -(-sk // BLOCK_K)
+    if sq > BLOCK_Q_SHORT or b * h >= NUM_SMS or nk < 2:
+        return 1, nk
+    per = -(-nk // min(nk, 2 * NUM_SMS // (b * h)))
+    return -(-nk // per), per
+
+
 # ----------------------------------------------------------------------
-# The oracle and the plain version
+# The oracle and the plain versions
 # ----------------------------------------------------------------------
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -158,6 +186,92 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return out.to(out_dtype or q.dtype)
 
 
+def rounding_budget(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    window: int | None = None, valid=None,
+                    ep: _epilogue.Epilogue | None = None):
+    """Per-output bound, in fp32, on |kernel - plain version| before the
+    final cast.  Both round each softmax weight p_i to v's dtype once --
+    the kernel unnormalised against its running max, the plain versions
+    normalised or against a split's max -- so each rounded weight is
+    within u * p_i of the exact one (u = 2^-8 for bf16, 2^-11 for f16)
+    and an output moves by at most 2u * sum_i p_i |v_i|: 2u times the
+    oracle on |v|, plus 2^-12 of it for the fp32 exponentials and sums,
+    times 1.13 (the largest slope of gelu and silu) under an activation.
+    A fully masked row has a budget of 0."""
+    u = 2.0 ** -8 if v.dtype == torch.bfloat16 else 2.0 ** -11
+    slope = 1.13 if ep is not None and ep.activation is not None else 1.0
+    mean_abs = ref_attention(q, k, v.abs(), causal=causal, window=window,
+                             q_offset=q_offset, valid=valid)
+    return (2 * u + 2.0 ** -12) * slope * mean_abs
+
+
+def _live_mask(sq, sk, k0, k1, *, causal, window, q_offset, valid, device):
+    """(1|B, Sq, k1 - k0) predicate of slots k0..k1-1, as ref_attention's."""
+    q_pos = (torch.arange(sq, device=device) + q_offset)[:, None]
+    k_pos = torch.arange(k0, k1, device=device)[None, :]
+    mask = torch.ones((1, sq, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (q_pos >= k_pos)[None]
+    if window is not None:
+        mask = mask & (q_pos - k_pos < window)[None]
+    if valid is not None:
+        mask = mask & valid.to(torch.bool).reshape(-1, 1, sk)[..., k0:k1]
+    return mask
+
+
+def flash_attention_splitkv_plain(q, k, v, *, n_split: int, per: int,
+                                  causal: bool = True, q_offset: int = 0,
+                                  window: int | None = None, valid=None,
+                                  ep: _epilogue.Epilogue | None = None,
+                                  bias=None, residual=None, out_dtype=None):
+    """The split-KV arithmetic of the kernel: split s covers ``per`` KV
+    blocks of 64 from the q tile's first live block; each split keeps its
+    own fp32 partial (unnormalised O with P = exp(S - m_s) rounded to v's
+    dtype, its max m_s and sum l_s; a split with no live slot has
+    m_s = -inf and zeros); the partials merge in split order by
+    log-sum-exp, a row with l = 0 gives 0, then the epilogue and the
+    cast."""
+    b, sq, h, d = q.shape
+    kvh, sk = k.shape[2], k.shape[1]
+    kr, vr = repeat_kv(k, h // kvh).float(), repeat_kv(v, h // kvh)
+    lo, hi = attn_k_bounds(0, -(-sk // BLOCK_K), bq=BLOCK_Q_SHORT,
+                           bk=BLOCK_K, causal=causal, q_offset=q_offset,
+                           window=window)
+    qf = q.float()
+    parts = []
+    for s in range(n_split):
+        b0 = lo + s * per
+        k0, k1 = min(sk, b0 * BLOCK_K), min(sk, min(hi, b0 + per) * BLOCK_K)
+        if k1 <= k0:
+            parts.append((torch.full((b, h, sq, 1), NEG_INF, device=q.device),
+                          torch.zeros((b, h, sq, 1), device=q.device),
+                          torch.zeros((b, h, sq, d), device=q.device)))
+            continue
+        sc = torch.einsum("bqhd,bkhd->bhqk", qf, kr[:, k0:k1]) * (d ** -0.5)
+        live = _live_mask(sq, sk, k0, k1, causal=causal, window=window,
+                          q_offset=q_offset, valid=valid,
+                          device=q.device)[:, None]
+        sc = torch.where(live, sc, torch.full_like(sc, NEG_INF))
+        m_s = sc.amax(-1, keepdim=True)
+        p = torch.where(live & (m_s > NEG_INF), torch.exp(sc - m_s),
+                        torch.zeros_like(sc))
+        o_s = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                           vr[:, k0:k1].float())
+        parts.append((m_s, p.sum(-1, keepdim=True), o_s))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_all = torch.zeros_like(m_all)
+    o_all = torch.zeros((b, h, sq, d), device=q.device)
+    for m_s, l_s, o_s in parts:              # split order
+        w = torch.where(m_all > NEG_INF, torch.exp(m_s - m_all),
+                        torch.zeros_like(m_s))
+        l_all = l_all + w * l_s
+        o_all = o_all + w * o_s
+    out = o_all / torch.where(l_all == 0, torch.ones_like(l_all), l_all)
+    out = _epilogue.apply(out.permute(0, 2, 1, 3), ep, bias=bias,
+                          residual=residual)
+    return out.to(out_dtype or q.dtype)
+
+
 # ----------------------------------------------------------------------
 # The kernel wrapper
 # ----------------------------------------------------------------------
@@ -206,11 +320,15 @@ def mma_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif bias is not None or residual is not None:
         raise ValueError("bias/residual operands need an Epilogue")
     out_dtype = out_dtype or q.dtype
+    n_split, per = split_kv_plan(b, h, sq, sk)
+    flags = dict(causal=causal, q_offset=q_offset, window=window,
+                 valid=valid, ep=ep, bias=bias, residual=residual,
+                 out_dtype=out_dtype)
     if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, causal=causal, q_offset=q_offset, window=window,
-            valid=valid, ep=ep, bias=bias, residual=residual,
-            out_dtype=out_dtype)
+        if n_split > 1:
+            return flash_attention_splitkv_plain(q, k, v, n_split=n_split,
+                                                 per=per, **flags)
+        return flash_attention_plain(q, k, v, **flags)
     if q.device.type != "cuda":
         raise ValueError(f"mma_flash_attention runs on cuda (or its plain "
                          f"version on cpu), not {q.device}")
@@ -244,22 +362,39 @@ def mma_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, h, d), dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out                  # an empty grid is not a launch
+    ws_o = ws_ml = None
+    if n_split > 1:
+        ws_o = torch.empty((b, h, sq, n_split, d), dtype=torch.float32,
+                           device=q.device)
+        ws_ml = torch.empty((b, h, sq, n_split, 2), dtype=torch.float32,
+                            device=q.device)
+    bq = BLOCK_Q_SHORT if n_split > 1 else attn_block_q(b, h, sq)
     lib = _lib()
     rc = lib.mma_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         valid.data_ptr() if valid is not None else None,
         bias.data_ptr() if bias is not None else None,
         residual.data_ptr() if residual is not None else None,
-        out.data_ptr(), KERNEL_DTYPES[q.dtype],
+        out.data_ptr(),
+        ws_o.data_ptr() if ws_o is not None else None,
+        ws_ml.data_ptr() if ws_ml is not None else None,
+        KERNEL_DTYPES[q.dtype],
         _OUT_CODES[bias.dtype] if bias is not None else 0,
         _OUT_CODES[residual.dtype] if residual is not None else 0,
         _OUT_CODES[out_dtype], b, sq, sk, h, kvh, d, int(causal),
         int(q_offset), int(window or 0), float(d ** -0.5),
         _epilogue.ACT_CODES[ep.activation if ep is not None else None],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        bq, n_split, per, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "mma_flash_attention")
     mma_flash_attention.launches += 1
+    if mma_flash_attention.trace is not None:
+        mma_flash_attention.trace.append(
+            (b, sq, sk, h, kvh, d, q.dtype, bool(causal), int(q_offset),
+             window, valid is not None, n_split))
     return out
 
 
 mma_flash_attention.launches = 0
+# A list to record (B, Sq, Sk, H, KVH, D, dtype, causal, q_offset, window,
+# valid given, n_split) of each launch into, or None (chip_smoke.py).
+mma_flash_attention.trace = None

@@ -11,7 +11,9 @@ cache.)  Each kernel is held against its plain version on the same inputs;
 tolerances as in chip_smoke.py: f32 outputs within ``rtol=2e-5,
 atol=2e-5 * max|ref|``, attention within ``2^-7 * max|v|`` plus one bf16 ulp
 (the kernel rounds the unnormalised P per block, the plain version the
-normalised P once); the depthwise conv within ``rtol=1e-5, atol=1e-6 *
+normalised P once) and, tighter, within each output's own rounding budget
+(``mma_attention.rounding_budget``: at most ``2u * sum p|v|``) plus
+``2^-20 * max|ref|``; the depthwise conv within ``rtol=1e-5, atol=1e-6 *
 max|ref|`` for an f32 store (the same products summed in the same order;
 only silu/gelu's exp/erf differ) and one ulp plus that for a 16-bit store;
 the dense conv (K3) within one ulp of a 16-bit store at |ref| plus
@@ -29,6 +31,7 @@ from repro_torch.configs import get
 from repro_torch.configs.base import reduced
 from repro_torch.core import facility
 from repro_torch.core import precision
+from repro_torch.core import tiling
 from repro_torch.kernels import epilogue as E
 from repro_torch.kernels import mma_attention as A
 from repro_torch.kernels import mma_conv as K
@@ -110,8 +113,196 @@ def test_attention_kernel_matches_plain(gen, kw):
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
     assert bool(((got - want).abs() <= 2.0 ** -7 * v.float().abs().max()
                  + ulp).all())
+    _assert_attn_close(got, want, A.rounding_budget(q, k, v, valid=valid,
+                                                    **kw))
     if kw == dict(causal=True):
         assert bool((got[1] == 0).all())
+
+
+def _assert_attn_close(got, want, budget):
+    """f32 attention outputs within their rounding budget, plus 2^-20 *
+    max|ref| for fp32 arithmetic in another order."""
+    err = (got.float() - want.float()).abs()
+    tol = budget + 2.0 ** -20 * want.float().abs().max()
+    assert bool((err <= tol).all()), (err / tol).max()
+
+
+def _assert_store_close(got, want, out_dtype):
+    """f32 stores as _assert_f32_close; a 16-bit store within one ulp of
+    its dtype at |ref| plus 1e-4 * max|ref| (fp32 sums in another order)."""
+    if out_dtype == torch.float32:
+        _assert_f32_close(got, want)
+        return
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - (7 if out_dtype == torch.bfloat16 else 10))
+    err = (got.float() - want).abs()
+    assert bool((err <= ulp + 1e-4 * want.abs().max()).all()), err.max()
+
+
+# (path, x shape, y shape, seed?, kwargs): each GEMM path at ragged M/N/K,
+# batch, the accumulate forms, every epilogue and f16
+_PATH_CASES = {
+    "stream ragged unaligned": ("stream", (5, 999), (999, 1001), False,
+                                dict(out_dtype=torch.float32)),
+    "stream M=64 aligned": ("stream", (64, 1024), (1024, 776), False,
+                            dict(out_dtype=torch.bfloat16)),
+    "stream one split": ("stream", (3, 256), (256, 40000), False,
+                         dict(out_dtype=torch.float32)),
+    "stream batched M=1": ("stream", (4, 1, 64), (4, 64, 4096), False,
+                           dict(out_dtype=torch.bfloat16)),
+    "stream forms": ("stream", (40, 768), (768, 520), True,
+                     dict(neg_product=True, neg_acc=True, alpha=0.5,
+                          beta=-2.0, out_dtype=torch.float32)),
+    "stream bias+gelu+res": ("stream", (16, 768), (768, 1000), False,
+                             dict(ep=E.Epilogue(bias=True, activation="gelu",
+                                                residual=True),
+                                  out_dtype=torch.bfloat16)),
+    "stream f16 silu": ("stream", (7, 512), (512, 300), False,
+                        dict(kind=Ger.F16GER2, out_dtype=torch.float16,
+                             ep=E.Epilogue(activation="silu"))),
+    "wgmma ragged": ("wgmma", (300, 520), (520, 264), False,
+                     dict(out_dtype=torch.float32)),
+    "wgmma wide tiles": ("wgmma", (2100, 256), (256, 4096), False,
+                         dict(out_dtype=torch.bfloat16)),
+    "wgmma batched": ("wgmma", (3, 77, 200), (3, 200, 136), False,
+                      dict(out_dtype=torch.float32)),
+    "wgmma forms": ("wgmma", (130, 96), (96, 72), True,
+                    dict(neg_product=True, alpha=-1.5, beta=0.25,
+                         out_dtype=torch.float32)),
+    "wgmma bias+relu+res": ("wgmma", (257, 384), (384, 200), False,
+                            dict(ep=E.Epilogue(bias=True, activation="relu",
+                                               residual=True),
+                                 out_dtype=torch.bfloat16)),
+    "wgmma f16 gelu": ("wgmma", (200, 128), (128, 96), False,
+                       dict(kind=Ger.F16GER2, out_dtype=torch.float16,
+                            ep=E.Epilogue(activation="gelu"))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PATH_CASES))
+def test_gemm_path_matches_plain(gen, name):
+    path, xs, ys, seeded, kw = _PATH_CASES[name]
+    kw = dict(kw)
+    kind = kw.setdefault("kind", Ger.BF16GER2)
+    dt = torch.float16 if kind == Ger.F16GER2 else torch.bfloat16
+    x = _randn(gen, *xs, dtype=dt)
+    y = _randn(gen, *ys, dtype=dt, scale=ys[-2] ** -0.5)
+    out_shape = xs[:-1] + ys[-1:]
+    c = _randn(gen, *out_shape, dtype=torch.float32) if seeded else None
+    ep = kw.get("ep")
+    if ep is not None and ep.bias:
+        kw["bias"] = _randn(gen, ys[-1], dtype=torch.float32)
+    if ep is not None and ep.residual:
+        kw["residual"] = _randn(gen, *out_shape)
+    before = dict(G.mma_gemm.launches_by_path)
+    launches = G.mma_gemm.launches
+    got = G.mma_gemm(x, y, c, **kw)
+    assert G.mma_gemm.launches == launches + 1
+    assert G.mma_gemm.launches_by_path[path] == before[path] + 1
+    _assert_store_close(got, G.mma_gemm_plain(x, y, c, **kw),
+                        kw["out_dtype"])
+    # the same call again gives the same bits (no float atomics)
+    assert torch.equal(G.mma_gemm(x, y, c, **kw), got)
+
+
+@pytest.mark.parametrize("n,k", [(3352, 768), (768, 1536), (4096, 4096)])
+def test_stream_rows_do_not_depend_on_the_batch(gen, n, k):
+    """A row of the weight stream's product is the same bits at 1 and 4
+    rows, and a product of a batch the same at batch 1 and batch 4 (the
+    plan depends on neither): the per-slot decode handoff relies on it."""
+    x, y = _randn(gen, 4, k), _randn(gen, k, n, scale=k ** -0.5)
+    four = G.mma_gemm(x, y, out_dtype=torch.bfloat16)
+    one = G.mma_gemm(x[2:3], y, out_dtype=torch.bfloat16)
+    assert torch.equal(four[2:3], one)
+    xb, yb = _randn(gen, 4, 1, 128), _randn(gen, 4, 128, n, scale=0.1)
+    batch = G.mma_gemm(xb, yb, out_dtype=torch.bfloat16)
+    single = G.mma_gemm(xb[1:2], yb[1:2], out_dtype=torch.bfloat16)
+    assert torch.equal(batch[1:2], single)
+
+
+def test_split_k_products_on_two_streams(gen):
+    """Split-K products enqueued on two streams at once each get their
+    own partials and tickets: both equal the same products run alone."""
+    x1, x2 = _randn(gen, 4, 4096), _randn(gen, 4, 11008)
+    y1 = _randn(gen, 4096, 4096, scale=4096 ** -0.5)
+    y2 = _randn(gen, 11008, 4096, scale=11008 ** -0.5)
+    assert tiling.choose_gemm_path(4, 4096, 4096, Ger.BF16GER2)[1].split > 1
+    alone = [G.mma_gemm(x1, y1), G.mma_gemm(x2, y2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, (x, y) in enumerate(((x1, y1), (x2, y2))):
+            with torch.cuda.stream(streams[i]):
+                outs[i].append(G.mma_gemm(x, y))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, alone[i]) for o in outs[i])
+
+
+# (q shape, k/v shape, dtype, flags): GQA, window, q_offset, valid, f16,
+# D 32/64/128 on the prefill tile; Sq = 1 over 1500 slots on split-KV
+_ATTN_CASES = {
+    "gqa causal ragged": ((2, 200, 32, 128), (2, 200, 4, 128),
+                          torch.bfloat16, dict(causal=True)),
+    "window q tile 128": ((2, 700, 16, 64), (2, 700, 16, 64), torch.bfloat16,
+                          dict(causal=True, window=150)),
+    "q_offset": ((1, 100, 8, 128), (1, 356, 8, 128), torch.bfloat16,
+                 dict(causal=True, q_offset=256)),
+    "f16 D=32 full": ((3, 90, 4, 32), (3, 130, 4, 32), torch.float16,
+                      dict(causal=False)),
+    "cross Sq=1 Sk=1500": ((4, 1, 12, 64), (4, 1500, 12, 64),
+                           torch.bfloat16, dict(causal=False)),
+    "decode-like Sq=1 causal": ((2, 1, 8, 128), (2, 700, 2, 128),
+                                torch.bfloat16,
+                                dict(causal=True, q_offset=699)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ATTN_CASES))
+def test_attention_variants_match_plain(gen, name):
+    qs, ks, dt, kw = _ATTN_CASES[name]
+    q, k, v = (_randn(gen, *qs, dtype=dt), _randn(gen, *ks, dtype=dt),
+               _randn(gen, *ks, dtype=dt))
+    n_split, per = A.split_kv_plan(qs[0], qs[2], qs[1], ks[1])
+    assert (n_split > 1) == name.startswith(("cross", "decode"))
+    got = A.mma_flash_attention(q, k, v, out_dtype=torch.float32, **kw)
+    want = A.flash_attention_plain(q, k, v, out_dtype=torch.float32, **kw)
+    assert bool(((got - want).abs() <= 2.0 ** -7 * v.float().abs().max()
+                 + 1e-6).all())
+    budget = A.rounding_budget(q, k, v, **kw)
+    _assert_attn_close(got, want, budget)
+    if n_split > 1:
+        _assert_attn_close(got, A.flash_attention_splitkv_plain(
+            q, k, v, n_split=n_split, per=per, out_dtype=torch.float32, **kw),
+            budget)
+
+
+@pytest.mark.parametrize("sq", [1, 70])
+def test_attention_valid_epilogue_and_masked_rows(gen, sq):
+    """Split-KV (Sq = 1) and the prefill tile (Sq = 70): batch 0 has no
+    valid slot (its rows store exactly the epilogue of 0), batch 1 whole
+    invalid KV blocks; bias + silu + residual fused into the store."""
+    q = _randn(gen, 2, sq, 8, 64)
+    k, v = _randn(gen, 2, 900, 4, 64), _randn(gen, 2, 900, 4, 64)
+    valid = torch.ones((2, 900), dtype=torch.bool, device="cuda")
+    valid[0] = False
+    valid[1, 64:320] = False
+    ep = E.Epilogue(bias=True, activation="silu", residual=True)
+    bias = _randn(gen, 64, dtype=torch.float32)
+    res = _randn(gen, 2, sq, 8, 64)
+    kw = dict(causal=False, valid=valid, ep=ep, bias=bias, residual=res,
+              out_dtype=torch.float32)
+    got = A.mma_flash_attention(q, k, v, **kw)
+    want = A.flash_attention_plain(q, k, v, **kw)
+    assert bool(((got - want).abs() <= 2.0 ** -7 * v.float().abs().max()
+                 + 1e-5).all())
+    _assert_attn_close(got, want, A.rounding_budget(
+        q, k, v, causal=False, valid=valid, ep=ep))
+    zero = A.mma_flash_attention(q, k, v, causal=False, valid=valid,
+                                 out_dtype=torch.float32)
+    assert bool((zero[0] == 0).all())
 
 
 @pytest.mark.parametrize("case", [
