@@ -10,15 +10,18 @@ Phases, each of which must pass or the script exits nonzero:
      with nvcc for sm_90a (one nvcc per source, in parallel) and print the
      build time and ptxas's register/spill report;
   2. kernels: hold each kernel (each of the GEMM's three paths, the
-     attention tile and its split-KV form) against its plain PyTorch
-     version, on the card, at the main paths' shapes (the SSD's batched
+     attention tile and its split-KV form, K3's wgmma and WMMA kernels,
+     K4's vector and scalar paths) against its plain PyTorch version, on
+     the card, at the main paths' shapes (the SSD's batched
      products, mamba2's causal conv, whisper's conv stem and encoder and
      cross attention, qwen2-vl's patch embed and GQA prefill included)
      and on edge cases
      (ragged fringes, batch, accumulate forms, every epilogue, GQA, window,
      q_offset, valid, fully-masked rows, conv strides, ragged channels, F
      and K fringes, f16/f32 conv inputs); print each case's worst error
-     and tolerance, and time each kernel (CUDA events, L2 flushed between
+     and tolerance (K4 also bit for bit at mamba2's four shapes with no
+     epilogue; K3's stems launched three times for the same bits), and
+     time each kernel (CUDA events, L2 flushed between
      launches) beside its plain version, one PyTorch library call as a
      yardstick, and the bound from bytes and flops at the card's published
      peaks;
@@ -38,17 +41,19 @@ Phases, each of which must pass or the script exits nonzero:
      backend against the eager torch backend, mamba2-130m's exact per-slot
      prefill handoff, and a profile of one prefill and one decode step of
      deepseek-7b, zamba2, whisper-small and qwen2-vl-7b.  Each run also
-     records the GEMM's launches by path and the shapes it gave the GEMM
-     and the attention kernel; every decode product must have taken the
-     weight stream, every deepseek-7b and qwen2-vl-7b prefill product the
-     wgmma tile, and every one-query attention split-KV;
+     records the GEMM's and the two convs' launches by path and the shapes
+     it gave the GEMM and the attention kernel; every decode product must
+     have taken the weight stream, every deepseek-7b and qwen2-vl-7b
+     prefill product the wgmma tile, every one-query attention split-KV,
+     every dense conv K3's wgmma kernel and every depthwise conv K4's
+     vector path;
   4. the runs' shapes: each distinct GEMM and attention shape of the runs
      timed (kernel, path, torch.matmul or SDPA, bound).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
-``launches_by_path``, ``host_us`` per call and, with the attention
-kernel's, ``run_shapes``);
+and the convs' ``launches_by_path``; the GEMM's ``host_us`` per call and,
+with the attention kernel's, ``run_shapes``);
 the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and
 nothing of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
@@ -527,6 +532,13 @@ def _report_attn(torch, name, got, want, v, budget, out_dtype, failures):
     return e
 
 
+def _path_taken(wrapper, before) -> str:
+    """The path(s) a wrapper's launches took since ``before`` (a copy of
+    its ``launches_by_path``)."""
+    return ",".join(p for p, n in wrapper.launches_by_path.items()
+                    if n > before[p])
+
+
 def check_depthwise_conv(torch, timer, failures):
     """K4 against its plain version: mamba2's causal conv at zamba2's and
     mamba2-130m's widths (conv_dim 4224 and 1792; prefill over the 256 + 3
@@ -575,10 +587,26 @@ def check_depthwise_conv(torch, timer, failures):
         res = randn(n, oh, ow, c) if ep is not None and ep.residual else None
         kw_ = dict(stride=stride, out_dtype=od, ep=ep, bias=bias,
                    residual=res)
+        before = dict(K.mma_depthwise_conv2d.launches_by_path)
         got = K.mma_depthwise_conv2d(x, taps, **kw_).float()
         want = K.mma_depthwise_conv2d_plain(x, taps, **kw_).float()
+        taken = _path_taken(K.mma_depthwise_conv2d, before)
         worst = max(worst, _report_close(
-            torch, f"depthwise {name}", got, want, od, failures))
+            torch, f"depthwise {name} [{taken}]", got, want, od, failures))
+    # Bit for bit at the main path's four shapes with no epilogue and an
+    # f32 store: the same products and sums, each rounded on its own, in
+    # the plain version's order.
+    for name, shape, kh, kw, *_ in cases[:4]:
+        x = randn(*shape)
+        taps = randn(kh, kw, shape[-1], scale=0.3)
+        before = dict(K.mma_depthwise_conv2d.launches_by_path)
+        same = torch.equal(K.mma_depthwise_conv2d(x, taps),
+                           K.mma_depthwise_conv2d_plain(x, taps))
+        print(f"  [{'ok' if same else 'FAIL'}] depthwise {name} {shape} "
+              f"[{_path_taken(K.mma_depthwise_conv2d, before)}], no "
+              f"epilogue, f32 store: bit for bit equal to the plain version")
+        if not same:
+            failures.append(f"depthwise {name} not bit for bit")
 
     # Timing at zamba2's prefill conv: f32 frames (the F32GER policy cast)
     # in, bias + silu, bf16 out.  The library yardstick is cuDNN's
@@ -706,7 +734,8 @@ def check_conv2d(torch, timer, failures):
     ]
     worst = 0.0
     operands = {}
-    for name, shape, fshape, stride, idt, ep, od in path + edge:
+    for i, (name, shape, fshape, stride, idt, ep, od) in enumerate(
+            path + edge):
         n, h, w, c = shape
         kh, kw, _, f = fshape
         oh, ow = (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
@@ -717,11 +746,22 @@ def check_conv2d(torch, timer, failures):
                if ep is not None and ep.residual else None)
         kw_ = dict(stride=stride, out_dtype=od, ep=ep, bias=bias,
                    residual=res)
-        got = K.mma_conv2d(x, filt, **kw_).float()
+        before = dict(K.mma_conv2d.launches_by_path)
+        got = K.mma_conv2d(x, filt, **kw_)
+        taken = _path_taken(K.mma_conv2d, before)
         want = K.mma_conv2d_plain(x, filt, **kw_).float()
         worst = max(worst, _report_conv(
-            torch, f"conv2d {name} {shape}x{fshape} s{stride}", got, want,
-            od, failures))
+            torch, f"conv2d {name} {shape}x{fshape} s{stride} [{taken}]",
+            got.float(), want, od, failures))
+        if i < len(path):
+            # A gathered panel read before it landed shows as a difference
+            # between launches.
+            same = all(torch.equal(K.mma_conv2d(x, filt, **kw_), got)
+                       for _ in range(2))
+            print(f"  [{'ok' if same else 'FAIL'}] conv2d {name}: three "
+                  f"launches give the same bits")
+            if not same:
+                failures.append(f"conv2d {name} differs between launches")
         operands[name] = (x, filt, bias, kw_, od)
 
     def stem_times(name):
@@ -822,13 +862,18 @@ def kernel_wrappers():
 RECORDS: dict[str, dict] = {}
 
 
+# The kernels whose wrappers count their launches by path.
+BY_PATH = ("mma_gemm", "mma_conv2d", "mma_depthwise_conv2d")
+
+
 def reset_counts(kernels):
     """Zero every launch count, and start the GEMM's and attention's
     traces, just before a run."""
     for fn in kernels.values():
         fn.launches = 0
-    kernels["mma_gemm"].launches_by_path = dict.fromkeys(
-        kernels["mma_gemm"].launches_by_path, 0)
+    for name in BY_PATH:
+        kernels[name].launches_by_path = dict.fromkeys(
+            kernels[name].launches_by_path, 0)
     kernels["mma_gemm"].trace = []
     kernels["mma_flash_attention"].trace = []
 
@@ -837,7 +882,8 @@ def take_records(arch, kernels):
     """Read the run's launches by path and shapes, just after it, and stop
     tracing."""
     g, a = kernels["mma_gemm"], kernels["mma_flash_attention"]
-    RECORDS[arch] = {"by_path": dict(g.launches_by_path),
+    RECORDS[arch] = {"by_path": {name: dict(kernels[name].launches_by_path)
+                                 for name in BY_PATH},
                      "gemm": sorted(set(g.trace), key=str),
                      "attn": sorted(set(a.trace), key=str)}
     g.trace = a.trace = None
@@ -846,10 +892,18 @@ def take_records(arch, kernels):
 def check_main_paths(failures):
     """Every decode product (M = batch) with K >= 768 on the weight stream,
     every prefill product of deepseek-7b and qwen2-vl-7b on the wgmma
-    tile, and every one-query attention (whisper's decode
-    cross-attention) on split-KV."""
+    tile, every one-query attention (whisper's decode cross-attention) on
+    split-KV, every dense conv (whisper's and qwen2-vl's stems) on K3's
+    wgmma kernel and every depthwise conv (mamba2's) on K4's vector
+    path."""
     for arch, rec in RECORDS.items():
         bad = []
+        for name, path in (("mma_conv2d", "wgmma"),
+                           ("mma_depthwise_conv2d", "vector")):
+            off = {p: v for p, v in rec["by_path"][name].items()
+                   if p != path and v}
+            if off:
+                bad.append((name, off))
         for b, m, k, n, _, _, path in rec["gemm"]:
             if b == 1 and m <= 16 and k >= 768 and path != "stream":
                 bad.append((m, k, n, path))
@@ -859,7 +913,7 @@ def check_main_paths(failures):
         for shape in rec["attn"]:
             if shape[1] == 1 and shape[-1] < 2:
                 bad.append(("attention", shape))
-        print(f"  [{'ok' if not bad else 'FAIL'}] {arch}: GEMM launches by "
+        print(f"  [{'ok' if not bad else 'FAIL'}] {arch}: launches by "
               f"path {rec['by_path']}; {len(rec['gemm'])} GEMM and "
               f"{len(rec['attn'])} attention shapes on the expected paths"
               + (f"; off path: {bad}" if bad else ""))
@@ -1153,7 +1207,8 @@ def step_breakdown(torch, cfg, prefill, decode, what):
 # them.
 PORT_KERNELS = ("gemm_stream_kernel", "gemm_wgmma_kernel",
                 "gemm_wmma_kernel", "gemm_f32_kernel", "flash_wgmma_kernel",
-                "flash_combine_kernel", "depthwise_conv_kernel",
+                "flash_combine_kernel", "depthwise_vec_kernel",
+                "depthwise_conv_kernel", "conv_wgmma_kernel",
                 "conv_wmma_kernel", "conv_f32_kernel")
 
 
@@ -1403,10 +1458,10 @@ def main() -> None:
     for e in entries:
         e["launches_by_run"] = {a: n[e["name"]] for a, n in by_run.items()}
         e["launches"] = sum(e["launches_by_run"].values())
-        if e["name"] == "mma_gemm":
+        if e["name"] in BY_PATH:
             e["launches_by_path"] = {
-                p: sum(r["by_path"][p] for r in RECORDS.values())
-                for p in next(iter(RECORDS.values()))["by_path"]}
+                p: sum(r["by_path"][e["name"]][p] for r in RECORDS.values())
+                for p in next(iter(RECORDS.values()))["by_path"][e["name"]]}
     check_main_paths(failures)
 
     print("== phase 4: the runs' GEMM and attention shapes, checked and "

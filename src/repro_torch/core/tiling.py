@@ -206,3 +206,71 @@ def check_block(block: tuple[int, int, int], ger: Ger) -> BlockConfig:
             f"block {tuple(block)} is not a compiled {ger.value} tile; "
             f"have {GEMM_TILES[ger]}")
     return cfg
+
+
+# ----------------------------------------------------------------------
+# The convolutions (csrc/mma_conv.cu): K3's path, K4's launch plan
+# ----------------------------------------------------------------------
+
+# The tiles K3's WMMA and F32GER kernels are compiled for, (bm, bf, bk);
+# an explicit Plan.block names one by its filter tile bf.
+CONV_TILES: dict[Ger, BlockConfig] = {
+    Ger.BF16GER2: BlockConfig(64, 128, 32),
+    Ger.F16GER2: BlockConfig(64, 128, 32),
+    Ger.F32GER: BlockConfig(64, 64, 16),
+}
+
+
+def conv_gather_bytes(c: int, kw: int, w: int, sw: int, base: int) -> int:
+    """The widest copy that gathers K3's image panel, as csrc/mma_conv.cu
+    picks it: 16 bytes where the channel vector of 8 divides C at a
+    16-byte ``base`` (every 8-column chunk of a patch row then lies in one
+    pixel), 4-byte pairs where every (j, c) run, row pitch and pixel step
+    is even at a 4-byte base (qwen2-vl's C = 3), else 0: no copy the wgmma
+    producer makes."""
+    if c % 8 == 0 and base % 16 == 0:
+        return 16
+    if (kw * c) % 2 == 0 and (w * c) % 2 == 0 and (sw * c) % 2 == 0 \
+            and base % 4 == 0:
+        return 4
+    return 0
+
+
+@functools.lru_cache(maxsize=1024)
+def choose_conv_path(m: int, f: int, ger: Ger, aligned: bool = True,
+                     gathered: bool = True, bf: int | None = None):
+    """("wgmma" | "wmma" | "f32", config) for one dense conv, the implicit
+    GEMM of M = N*OH*OW output pixels by F filters.
+
+    F32GER stays on true fp32 FMAs (never TF32).  bf16/f16 take the
+    wgmma kernel where TMA can read the (K, F) filter view (``aligned``:
+    F % 8 == 0 and a 16-byte filter base) and its producer can gather the
+    image panel in 16- or 4-byte copies (``gathered``: see
+    ``conv_gather_bytes``); its tile follows ``wgmma_plan``.  K does not
+    choose: every kernel runs the whole K loop in the block.  An explicit
+    filter tile ``bf`` names the WMMA tile, as an explicit block does for
+    the GEMM; it must be the compiled one (ValueError otherwise)."""
+    if ger not in CONV_TILES:
+        raise NotImplementedError(f"the conv kernel has no {ger.value} "
+                                  f"instantiation")
+    tile = CONV_TILES[ger]
+    if bf is not None and bf != tile.bn:
+        raise ValueError(f"the conv kernel is compiled for the filter tile "
+                         f"{tile.bn} in {ger.value}, not bf={bf}")
+    if ger == Ger.F32GER:
+        return "f32", tile
+    if bf is None and aligned and gathered:
+        return "wgmma", wgmma_plan(m, f)
+    return "wmma", tile
+
+
+@functools.lru_cache(maxsize=1024)
+def depthwise_plan(c: int, dtype, aligned: bool = True) -> int:
+    """K4's path as the channels a thread owns: 16 bytes of them (4 f32,
+    8 bf16/f16; the vector path, whose warp reads 512 contiguous bytes)
+    where that vector divides C and the image and taps have 16-byte bases
+    (``aligned``), else 0 (the scalar path, one output element a
+    thread).  Either way a thread owns one output pixel, and
+    csrc/mma_conv.cu fixes the block at 64 threads."""
+    vec = 16 // dtype.itemsize
+    return vec if aligned and c % vec == 0 else 0

@@ -67,13 +67,6 @@ struct StreamArgs {
   int vec;       // 16-byte aligned rows of X and W: cp.async
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
 template <typename T, int BN, int MT>
 __device__ __forceinline__ void stream_load_stage(T* ws_, T* xs_,
                                                   const T* x, const T* w,

@@ -35,21 +35,11 @@
 //     ring as an fp32 tile: the seed C is added at the store (not primed),
 //     then alpha, bias, activation, residual and the cast, eight columns
 //     a thread with 16-byte loads and stores, each element once.
+//   * The ring's layout, the tile order, the consumers and the epilogue
+//     are wgmma_tile.cuh's, shared with K3's wgmma conv (mma_conv.cu);
+//     only the producer is this file's.
 
-#include "gemm_common.cuh"
-#include "hopper.cuh"
-
-constexpr int WG_BM = 128, WG_BK = 64, WG_THREADS = 384, WG_GROUP_M = 8;
-
-template <int BN>
-struct WgCfg {
-  static constexpr int STAGES = BN == 256 ? 4 : 6;
-  static constexpr int A_BYTES = WG_BM * WG_BK * 2;  // 16 KB
-  static constexpr int B_BYTES = WG_BK * BN * 2;     // 16 or 32 KB
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static_assert(STAGES * STAGE >= WG_BM * (BN + 8) * 4, "epilogue tile");
-  static constexpr size_t smem = (size_t)STAGES * STAGE + 1024 + 2 * STAGES * 8;
-};
+#include "wgmma_tile.cuh"
 
 template <typename T, int BN, bool BATCHED>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -64,16 +54,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * C::STAGE);
   uint64_t* empty = full + STAGES;
 
-  const int M = e.M, N = e.N;
-  const int num_m = (M + WG_BM - 1) / WG_BM, num_n = (N + BN - 1) / BN;
-  const int id = blockIdx.x, per_group = WG_GROUP_M * num_n;
-  const int first_m = (id / per_group) * WG_GROUP_M;
-  const int gsize = min(num_m - first_m, WG_GROUP_M);
-  const int m0 = (first_m + (id % per_group) % gsize) * WG_BM;
-  const int n0 = ((id % per_group) / gsize) * BN;
+  int m0, n0;
+  wg_tile_origin<BN>(blockIdx.x, e.M, e.N, m0, n0);
   const int bz = blockIdx.y;
   const int kiters = (K + WG_BK - 1) / WG_BK;
-  const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -84,7 +68,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
   __syncthreads();
 
-  if (wg == 0) {
+  if (threadIdx.x < 128) {
     // ---- producer: one thread keeps the ring full ----
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
@@ -111,55 +95,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   } else {
     // ---- consumers: 64 rows each, accumulator in registers ----
     setmaxnreg_inc<232>();
-    const int c = wg - 1;
-    float acc[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    for (int it = 0; it < kiters; ++it) {
-      const int s = it % STAGES;
-      mbar_wait(&full[s], (it / STAGES) & 1);
-      const unsigned char* as = smem + s * C::STAGE + c * 64 * 128;
-      const unsigned char* bs = smem + s * C::STAGE + C::A_BYTES;
-      reg_fence(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < WG_BK / 16; ++kk) {
-        const uint64_t da = wgmma_desc(as + kk * 32, 16, 1024, 128);
-        const uint64_t db = wgmma_desc(bs + kk * 16 * 128, 64 * 128, 1024, 128);
-        Wgmma<BN, T>::template ss<1>(acc, da, db);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      reg_fence(acc);
-      if (it > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-    }
-    wgmma_wait<0>();
-    reg_fence(acc);
-
-    // Through shared memory (the ring, once both consumers are done with
-    // it) as an fp32 tile: coalesced, paired stores from one loop.
-    named_bar_sync(1, 256);
-    constexpr int LDC = BN + 8;
-    float* ct = reinterpret_cast<float*>(smem) + c * 64 * LDC;
-    const int wl = threadIdx.x % 128, lane = wl % 32;
-    const int r = (wl / 32) * 16 + lane / 4;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = 8 * j + 2 * (lane % 4);
-      *reinterpret_cast<float2*>(ct + r * LDC + col) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(ct + (r + 8) * LDC + col) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-    named_bar_sync(2 + c, 128);
-    for (int i = wl; i < 64 * (BN / 8); i += 128) {
-      const int rr = i / (BN / 8), col = 8 * (i % (BN / 8));
-      const float4 lo = *reinterpret_cast<const float4*>(ct + rr * LDC + col);
-      const float4 hi =
-          *reinterpret_cast<const float4*>(ct + rr * LDC + col + 4);
-      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      gemm_store8(e, bz, m0 + c * 64 + rr, n0 + col, v);
-    }
+    wg_consume<T, BN>(smem, full, empty, kiters, e, bz, m0, n0);
   }
 }
 

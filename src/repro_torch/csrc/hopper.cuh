@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the TMA + wgmma
-// GEMM (gemm_wgmma.cu) and the flash attention (mma_attention.cu):
+// GEMM (gemm_wgmma.cu), the flash attention (mma_attention.cu) and K3's
+// wgmma conv (mma_conv.cu):
 // mbarriers, TMA tensor loads, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, and the host-side tensor-map encoder
 // (cuTensorMapEncodeTiled through the runtime's driver entry point, so no
@@ -61,6 +62,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Order this thread's generic-proxy writes to shared memory (st.shared,
+// landed cp.async) before later async-proxy reads of it (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------

@@ -23,18 +23,28 @@
 //
 // Design.  The TPU grid (N*OH, C/bc, KH) walked KH in order and carried an
 // (OW, bc) accumulator in VMEM scratch across it.  Blocks on the card run
-// in no order, so nothing carries over: each thread owns output elements
-// (n, oh, ow, c), with c fastest so that neighbouring threads read
-// neighbouring addresses, and loops over all KH x KW taps in a register.
-// The products and sums are rounded one by one, in the order of the plain
-// version (ref.depthwise_conv: for i, for j, acc += x * w), never
-// contracted into FMAs.  The epilogue applies once, in fp32, and each
-// output element is stored exactly once in the output dtype.  Strides and
-// ragged C / OW need no masking beyond the element-count bound, since no
-// tile is padded.  This is the simple, correct first kernel: scalar loads,
-// the KW-fold reuse of an input row left to L1 (PERF.md has its times).
+// in no order, so nothing carries over: each thread owns whole sums in
+// registers for one output pixel.  core/tiling.py's depthwise_plan picks
+// one of two paths up front and passes it in as vec:
+//   * vector (depthwise_vec_kernel): a thread owns 16 bytes of channels
+//     (VEC = 4 f32 or 8 bf16/f16; channel vectors fastest across the
+//     warp, so a warp reads 512 contiguous bytes).  Per tap it loads its
+//     tap vector and input vector with 16-byte loads; L2 serves the
+//     KW-fold re-reads of an input vector by the neighbouring pixels'
+//     threads.  The bias is loaded beside the taps.  Index math is 32-bit
+//     and runs once per thread (the launcher guards the range); outputs
+//     go out as 16-byte (f32) or 8/16-byte (16-bit) vector stores.
+//   * scalar (depthwise_conv_kernel): one output element a thread, for a
+//     C that VEC does not divide or a base that is not 16-byte aligned.
+// Blocks are small (DW_BLOCK = 64 threads), so that a decode conv's 4224
+// threads span 66 SMs.  Both paths round every product and every sum on
+// its own, in the plain version's order (ref.depthwise_conv: for i, for
+// j, acc += x * w), never contracted into an FMA, so the two paths and the
+// plain version agree bit for bit.  The epilogue applies once, in fp32,
+// and each output element is stored exactly once in the output dtype.
 
 #include "tile_gemm.cuh"
+#include "wgmma_tile.cuh"
 
 struct DwArgs {
   const void* x;
@@ -45,6 +55,7 @@ struct DwArgs {
   int bias_dt, res_dt, out_dt;
   int N, H, W, C, KH, KW, SH, SW, OH, OW;
   int act;
+  int threads;  // threads with work; the last block's others return
 };
 
 template <typename T>
@@ -62,40 +73,147 @@ __device__ __forceinline__ float to_f<__half>(__half v) {
   return __half2float(v);
 }
 
+// 16 bytes at p (16-byte aligned) as fp32: 4 f32 or 8 bf16/f16 values.
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
 template <typename T>
-__global__ void depthwise_conv_kernel(DwArgs a) {
-  const T* __restrict__ x = reinterpret_cast<const T*>(a.x);
-  const T* __restrict__ w = reinterpret_cast<const T*>(a.w);
-  const long long total = (long long)a.N * a.OH * a.OW * a.C;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(e % a.C);
-    long long r = e / a.C;
-    const int ow = (int)(r % a.OW);
-    r /= a.OW;
-    const int oh = (int)(r % a.OH);
-    const int n = (int)(r / a.OH);
-    float acc = 0.f;
-    for (int i = 0; i < a.KH; ++i) {
-      const long long row =
-          ((long long)n * a.H + (long long)oh * a.SH + i) * a.W;
-      for (int j = 0; j < a.KW; ++j) {
-        const float xv =
-            to_f<T>(x[(row + (long long)ow * a.SW + j) * a.C + c]);
-        const float wv = to_f<T>(w[((long long)i * a.KW + j) * a.C + c]);
-        acc = __fadd_rn(acc, __fmul_rn(xv, wv));
-      }
-    }
-    const float v = epilogue_apply(acc, a.act, a.bias, a.bias_dt, c, a.res,
-                                   a.res_dt, e);
-    store_f(a.out, a.out_dt, e, v);
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const T* h = reinterpret_cast<const T*>(&w[i]);
+    v[2 * i] = to_f<T>(h[0]);
+    v[2 * i + 1] = to_f<T>(h[1]);
   }
+}
+
+// V consecutive outputs at element idx (V-aligned, 16-byte base) in the
+// output dtype: 16-byte stores for f32, 8 (V = 4) or 16 (V = 8) for 16-bit.
+template <int V>
+__device__ __forceinline__ void store_vec(void* p, int dt, int idx,
+                                          const float (&v)[V]) {
+  if (dt == DT_F32) {
+    float* q = reinterpret_cast<float*>(p) + idx;
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(q + i) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    return;
+  }
+  uint32_t w[V / 2];
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i)
+    w[i] = dt == DT_BF16 ? pack2<__nv_bfloat16>(v[2 * i], v[2 * i + 1])
+                         : pack2<__half>(v[2 * i], v[2 * i + 1]);
+  uint16_t* q = reinterpret_cast<uint16_t*>(p) + idx;
+  if constexpr (V == 4)
+    *reinterpret_cast<uint2*>(q) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint4*>(q) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+constexpr int DW_BLOCK = 64;  // threads a block, both paths
+
+template <typename T>
+__global__ void __launch_bounds__(DW_BLOCK) depthwise_vec_kernel(DwArgs a) {
+  constexpr int V = 16 / sizeof(T);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.threads) return;
+  const int cvs = a.C / V;
+  const int u = t / cvs, c0 = (t - u * cvs) * V;  // u: (n * OH + oh) * OW + ow
+  const int row = u / a.OW, ow = u - row * a.OW;
+  const int n = row / a.OH, oh = row - n * a.OH;
+  const T* x = reinterpret_cast<const T*>(a.x) + c0;
+  const T* w = reinterpret_cast<const T*>(a.w) + c0;
+  float bias[V];  // loaded here, off the epilogue's critical path
+#pragma unroll
+  for (int q = 0; q < V; ++q)
+    bias[q] = a.bias ? load_f(a.bias, a.bias_dt, c0 + q) : 0.f;
+
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) acc[v] = 0.f;
+  for (int i = 0; i < a.KH; ++i) {
+    const T* xr = x + ((n * a.H + oh * a.SH + i) * a.W + ow * a.SW) * a.C;
+    const T* wr = w + i * a.KW * a.C;
+    for (int j = 0; j < a.KW; ++j) {
+      float tap[V], xv[V];
+      load_vec(wr + j * a.C, tap);
+      load_vec(xr + j * a.C, xv);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        acc[v] = __fadd_rn(acc[v], __fmul_rn(xv[v], tap[v]));
+    }
+  }
+  const int idx = u * a.C + c0;
+  float v[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) {  // epilogue_apply's order
+    v[q] = act_apply(a.bias ? acc[q] + bias[q] : acc[q], a.act);
+    if (a.res) v[q] += load_f(a.res, a.res_dt, idx + q);
+  }
+  store_vec<V>(a.out, a.out_dt, idx, v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DW_BLOCK) depthwise_conv_kernel(DwArgs a) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= a.threads) return;
+  int r = e / a.C;
+  const int c = e - r * a.C;
+  const int ow = r % a.OW;
+  r /= a.OW;
+  const int oh = r % a.OH, n = r / a.OH;
+  const T* x = reinterpret_cast<const T*>(a.x) + c;
+  const T* w = reinterpret_cast<const T*>(a.w) + c;
+  float acc = 0.f;
+  for (int i = 0; i < a.KH; ++i) {
+    const T* xr = x + ((n * a.H + oh * a.SH + i) * a.W + ow * a.SW) * a.C;
+    const T* wr = w + i * a.KW * a.C;
+    for (int j = 0; j < a.KW; ++j)
+      acc = __fadd_rn(acc, __fmul_rn(to_f<T>(xr[j * a.C]),
+                                     to_f<T>(wr[j * a.C])));
+  }
+  store_f(a.out, a.out_dt, e,
+          epilogue_apply(acc, a.act, a.bias, a.bias_dt, c, a.res, a.res_dt,
+                         e));
+}
+
+static bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// vec 0: the scalar path; else vec must be 16 / sizeof(T).
+template <typename T>
+static int launch_depthwise(DwArgs a, int vec, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  long long threads = (long long)a.N * a.OH * a.OW * a.C;
+  if (vec != 0) {
+    if (vec != V || a.C % V || !aligned16(a.x) || !aligned16(a.w) ||
+        !aligned16(a.out))
+      return (int)cudaErrorInvalidValue;
+    threads /= V;
+  }
+  a.threads = (int)threads;
+  const int blocks = (int)((threads + DW_BLOCK - 1) / DW_BLOCK);
+  if (vec == 0)
+    depthwise_conv_kernel<T><<<blocks, DW_BLOCK, 0, s>>>(a);
+  else
+    depthwise_vec_kernel<T><<<blocks, DW_BLOCK, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int mma_depthwise_conv_launch(
     const void* x, const void* w, const void* bias, const void* res,
     void* out, int in_dt, int bias_dt, int res_dt, int out_dt, int N, int H,
-    int W, int C, int KH, int KW, int SH, int SW, int act, void* stream) {
+    int W, int C, int KH, int KW, int SH, int SW, int act, int vec,
+    void* stream) {
+  if (N < 1 || C < 1 || KH < 1 || KW < 1 || SH < 1 || SW < 1 || H < KH ||
+      W < KW)
+    return (int)cudaErrorInvalidValue;
   DwArgs a;
   a.x = x; a.w = w; a.bias = bias; a.res = res; a.out = out;
   a.bias_dt = bias_dt; a.res_dt = res_dt; a.out_dt = out_dt;
@@ -104,25 +222,16 @@ extern "C" int mma_depthwise_conv_launch(
   a.OH = (H - KH) / SH + 1;
   a.OW = (W - KW) / SW + 1;
   a.act = act;
-  if (N < 1 || C < 1 || KH < 1 || KW < 1 || SH < 1 || SW < 1 || H < KH ||
-      W < KW)
+  // 32-bit index math: every element offset of the image and the output
+  if ((long long)N * H * W * C > 0x7fffffffLL ||
+      (long long)KH * KW * C > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const long long total = (long long)N * a.OH * a.OW * C;
-  const int threads = 256;
-  // One element per thread up to 132 SMs x 16 blocks; beyond that the
-  // grid-stride loop takes the rest.
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (in_dt == DT_F32)
-    depthwise_conv_kernel<float><<<blocks, threads, 0, s>>>(a);
-  else if (in_dt == DT_BF16)
-    depthwise_conv_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(a);
-  else if (in_dt == DT_F16)
-    depthwise_conv_kernel<__half><<<blocks, threads, 0, s>>>(a);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (in_dt == DT_F32) return launch_depthwise<float>(a, vec, s);
+  if (in_dt == DT_BF16)
+    return launch_depthwise<__nv_bfloat16>(a, vec, s);
+  if (in_dt == DT_F16) return launch_depthwise<__half>(a, vec, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ======================================================================
@@ -144,9 +253,10 @@ extern "C" int mma_depthwise_conv_launch(
 // What bounds it on an H100.  As a GEMM it is (M, K) x (K, F) with
 // M = N*OH*OW output pixels and K = KH*KW*C.  whisper's conv2 at batch 4
 // (M 6000, K 2304, F 768: 21 GFLOP, 31 MB) is bound by the bf16 tensor
-// cores (0.021 ms at 989 TFLOP/s); conv1 (K 240) and the patch embed
-// (K 588) do ~10-350 flops a byte and sit near the knee, bound by device
-// memory or operations by a few per cent either way.
+// cores (0.021 ms at 989 TFLOP/s), which only wgmma reaches; conv1 (K 240)
+// and the patch embed (K 588) do ~10-350 flops a byte and sit near the
+// knee, bound by device memory or operations by a few per cent either
+// way.
 //
 // Design.  The TPU kernel walked KH as an in-order grid axis with an
 // (OW, bf) accumulator resident in VMEM, and folded KW*C per step into one
@@ -154,20 +264,44 @@ extern "C" int mma_depthwise_conv_launch(
 // one thread block owns one (BM pixels, BN filters) output tile and runs
 // the whole flattened K loop itself, with K in the filter's own order
 // (i, j, c), so the B panel is a plain (BK, BN) window of the (K, F) view
-// of the filter bank.  The A panel is gathered from the image on the fly
-// and the patch matrix never exists in memory: each tile row's pixel
-// offset ((n*H + oh*SH)*W + ow*SW)*C is computed once into shared memory,
-// and each K step computes its BK column offsets i*W*C + (j*C + c) once,
-// so element (m, k) is x[row[m] + col[k]].  For a fixed i the (j, c) run
-// is contiguous in the image, so where C % 8 == 0 (whisper: 80 and 768)
-// the gather is 16-byte vectors; qwen2-vl's C = 3 gathers by element.
-// The K, M and F fringes are zero-filled on load (K = 588 and 240 are no
-// multiple of the 32-deep step).  Only that A loader is K3's own: the tile
-// loop (WMMA bf16/f16 fragments into fp32 registers, or fp32 FMAs for
-// F32GER) is tile_gemm.cuh's, shared with K1a.  The epilogue applies once
-// in fp32 and each output element is stored once, in the output dtype.
-// The simple, correct first kernel: synchronous loads, no cp.async/TMA
-// pipeline and no wgmma (PERF.md has its times).
+// of the filter bank.  The A panel is read from the image on the fly and
+// the patch matrix never exists in memory: each tile row's pixel
+// offset ((n*H + oh*SH)*W + ow*SW)*C is computed once per tile into shared
+// memory, and a K column's offset is i*W*C + (j*C + c), so element (m, k)
+// is x[row[m] + col[k]].  For a fixed i the (j, c) run is contiguous in
+// the image.  core/tiling.py's choose_conv_path picks one of three kernels:
+//   * conv_wgmma_kernel (bf16/f16, F % 8 == 0, 16-byte filter base, an
+//     image gathered in 16- or 4-byte copies: every stem of the main
+//     path).  wgmma_tile.cuh's (128, BN) tile, BN = 128
+//     or 256, with its consumers and staged epilogue; only the producer
+//     warpgroup is K3's own.  Its 4 warps take the K steps in turn.  For
+//     its step a warp loads the B panel as TMA boxes of the (K, F) filter
+//     view (zero past K and F).  The A panel comes one of two ways, in
+//     the 128-byte swizzled K-major layout wgmma reads (chunk c of row r
+//     at c ^ r % 8), zero past M and K (K = 588 and 240 are no multiple
+//     of 64):
+//       - by TMA, where the tile's rows are pixels of one image of a 1-D
+//         conv (H = KH = 1, whisper's stems) whose pixel pitch is 16-byte:
+//         its patch rows are a (K, OW, N) tensor whose row pitch SW*C is
+//         below K (rows overlap), which a tensor map describes as is;
+//       - gathered by the warp with cp.async everywhere else (tiles across
+//         an image boundary, 2-D convs): 16 bytes a copy where C % 8 == 0,
+//         4-byte pairs where the (j, c) runs and offsets are even
+//         (qwen2-vl's C = 3: runs of 42).  An image neither copy can
+//         gather goes to the WMMA kernel (choose_conv_path).
+//         cp.async writes through the generic proxy and wgmma reads
+//         through the async one, so a warp releases its stage only after
+//         its copies have landed (cp.async.wait_group) and each lane has
+//         run fence.proxy.async.
+//     The gather is the slower way: whisper's conv2 takes 0.069 ms with
+//     TMA and 0.125 ms recast as a 2-D conv that gathers (H100 80GB HBM3,
+//     700 W; PERF.md).
+//   * conv_wmma_kernel (what wgmma does not take, or an explicit filter
+//     tile): a (64, 128) WMMA tile on tile_gemm.cuh's synchronous K loop,
+//     shared with K1's mma_gemm.cu, fed by ConvGatherA.
+//   * conv_f32_kernel (F32GER): tile_gemm.cuh's fp32 FMA tile.
+// Each applies the epilogue once in fp32 and stores each output element
+// once, in the output dtype.
 
 struct ConvArgs {
   const void* x;
@@ -180,7 +314,19 @@ struct ConvArgs {
   int M, K;  // the implicit GEMM: M = N*OH*OW, K = KH*KW*C
   int act;
   int vec_a, vec_b;  // 16-byte gathers (C % 8 == 0) / rows (F % 8 == 0)
+  int gather;        // bytes per copy of the wgmma producer's A gather (16
+                     // or 4; 0: it cannot gather this image)
+  int a_tma;         // a 1-D conv whose A rows TMA can read
 };
+
+// Image offset of K column k = (i*KW + j)*C + c: i*W*C + (j*C + c); -1
+// past K.
+__device__ __forceinline__ long long conv_col(int k, int K, int kwc,
+                                              long long wc) {
+  if (k >= K) return -1;
+  const int i = k / kwc;
+  return i * wc + (k - i * kwc);
+}
 
 // Image offset of each tile row's pixel (n, oh, ow) at (i, j, c) = 0; -1
 // past M.
@@ -217,15 +363,8 @@ struct ConvGatherA {
 
   template <int BK>
   __device__ void col_offsets(int k0) const {
-    for (int kk = threadIdx.x; kk < BK; kk += blockDim.x) {
-      const int k = k0 + kk;
-      long long off = -1;
-      if (k < K) {
-        const int i = k / kwc;
-        off = (long long)i * wc + (k - i * kwc);
-      }
-      cols[kk] = off;
-    }
+    for (int kk = threadIdx.x; kk < BK; kk += blockDim.x)
+      cols[kk] = conv_col(k0 + kk, K, kwc, wc);
     __syncthreads();
   }
 
@@ -323,6 +462,177 @@ __global__ void __launch_bounds__(256) conv_f32_kernel(ConvArgs a) {
   conv_store_tile<F32_BM, F32_BN>(reinterpret_cast<float*>(smem), a, m0, n0);
 }
 
+// ---- the wgmma kernel ----
+
+
+// Byte b (< 128) of tile row r's K slice in the 128-byte swizzled K-major
+// layout (TMA's SWIZZLE_128B; wgmma_desc(..., 128) reads it): 16-byte
+// chunk c of row r sits at chunk c ^ (r % 8).
+__device__ __forceinline__ int swz128(int r, int b) {
+  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+// A warp gathers a K step's A panel (rows[] holds each tile row's pixel
+// offset, -1 past M), zero-filled past M and K:
+//   16 bytes: 8 lanes a row, each an 8-column chunk, 4 rows a pass;
+//   4 bytes:  a warp a row, each lane a column pair.
+template <typename T>
+__device__ __forceinline__ void conv_gather_panel(unsigned char* as,
+                                                  const long long* rows,
+                                                  const ConvArgs& a, int k0,
+                                                  int lane) {
+  const int kwc = a.KW * a.C;
+  const long long wc = (long long)a.W * a.C;
+  const T* x = reinterpret_cast<const T*>(a.x);
+  if (a.gather == 16) {
+    const int part = lane % 8;
+    const long long col = conv_col(k0 + 8 * part, a.K, kwc, wc);
+#pragma unroll 8
+    for (int r = lane / 8; r < WG_BM; r += 4) {
+      const long long row = rows[r];
+      const bool in = row >= 0 && col >= 0;
+      cp_async16(as + swz128(r, 16 * part), in ? x + row + col : x, in);
+    }
+  } else {
+    const long long col = conv_col(k0 + 2 * lane, a.K, kwc, wc);
+#pragma unroll 8
+    for (int r = 0; r < WG_BM; ++r) {
+      const long long row = rows[r];
+      const bool in = row >= 0 && col >= 0;
+      cp_async4(as + swz128(r, 4 * lane), in ? x + row + col : x, in);
+    }
+  }
+}
+
+// The producer warpgroup (threads 0-127).  Its 4 warps take the K steps
+// in turn: warp w fills stages it = w, w + 4, ..., each whole.  Lane 0
+// expects and issues the step's B boxes, and the A box too where the tile
+// is image img's pixels ow0.. of a 1-D conv (img >= 0: the launcher's map
+// of its patch rows); else the
+// warp gathers the A panel.  Once the step's copies have landed
+// (cp.async.wait_group 0) and every lane has run its fence, so that the
+// gathered bytes are visible to wgmma's async proxy, lane 0 arrives on
+// full[s]: each warp keeps one step in flight, the four warps four.
+template <typename T, int BN>
+__device__ __forceinline__ void conv_produce(unsigned char* smem,
+                                             uint64_t* full, uint64_t* empty,
+                                             const long long* rows,
+                                             const CUtensorMap* tma,
+                                             const CUtensorMap* tmb,
+                                             const ConvArgs& a, int img,
+                                             int ow0, int n0, int kiters) {
+  using Cfg = WgCfg<BN>;
+  constexpr int STAGES = Cfg::STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int it = warp; it < kiters; it += 4) {
+    const int s = it % STAGES, k0 = it * WG_BK;
+    if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+    unsigned char* as = smem + s * Cfg::STAGE;
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], Cfg::B_BYTES + (img >= 0 ? Cfg::A_BYTES : 0));
+      if (img >= 0) tma_load_3d(as, tma, &full[s], k0, ow0, img);
+#pragma unroll
+      for (int p = 0; p < BN / 64; ++p)
+        tma_load_2d(as + Cfg::A_BYTES + p * 64 * 128, tmb, &full[s],
+                    n0 + 64 * p, k0);
+    }
+    if (img < 0) conv_gather_panel<T>(as, rows, a, k0, lane);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&full[s]);
+  }
+}
+
+template <int BN>
+__host__ __device__ constexpr size_t conv_wgmma_smem_bytes() {
+  return WgCfg<BN>::smem + WG_BM * sizeof(long long);
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    conv_wgmma_kernel(const __grid_constant__ CUtensorMap tma,
+                      const __grid_constant__ CUtensorMap tmb, ConvArgs a,
+                      GemmEpi e) {
+  using Cfg = WgCfg<BN>;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Cfg::STAGE);
+  uint64_t* empty = full + STAGES;
+  long long* rows = reinterpret_cast<long long*>(empty + STAGES);
+
+  int m0, n0;
+  wg_tile_origin<BN>(blockIdx.x, a.M, a.F, m0, n0);
+  const int kiters = (a.K + WG_BK - 1) / WG_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 2);  // the warp's arrival and the TMA's
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  conv_row_offsets<WG_BM>(rows, a, m0);
+  // A by TMA where the tile's rows are pixels of one image
+  const int img = m0 / a.OW, ow0 = m0 - img * a.OW;
+  const bool one_image = (min(m0 + WG_BM, a.M) - 1) / a.OW == img;
+  __syncthreads();
+
+  // 48 registers for the producer (its gather spills at 40), 224 for the
+  // consumers: 128 * 48 + 256 * 224 fits the 384 * 168 the block holds.
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<48>();
+    conv_produce<T, BN>(smem, full, empty, rows, &tma, &tmb, a,
+                        a.a_tma && one_image ? img : -1, ow0, n0, kiters);
+  } else {
+    setmaxnreg_inc<224>();
+    wg_consume<T, BN>(smem, full, empty, kiters, e, 0, m0, n0);
+  }
+}
+
+template <typename T, int BN>
+static int launch_conv_wgmma(const ConvArgs& a, const GemmEpi& e,
+                             cudaStream_t s) {
+  CUtensorMap tb;  // the (K, F) row-major view of the filter bank
+  const uint64_t dims[2] = {(uint64_t)a.F, (uint64_t)a.K};
+  const uint64_t pitch[1] = {(uint64_t)a.F * 2};
+  const uint32_t box[2] = {64, 64};
+  int rc = tmap_16bit(&tb, a.w, 2, dims, pitch, box, 128);
+  if (rc) return rc;
+  // A 1-D conv's patch rows, (K, OW, N): row ow of image n starts at
+  // pixel ow * SW and runs K = KW * C elements on; rows overlap where
+  // KW > SW.
+  CUtensorMap ta = {};
+  if (a.a_tma) {
+    const uint64_t adims[3] = {(uint64_t)a.K, (uint64_t)a.OW, (uint64_t)a.N};
+    const uint64_t astr[2] = {(uint64_t)a.SW * a.C * 2,
+                              (uint64_t)a.W * a.C * 2};
+    const uint32_t abox[3] = {64, WG_BM, 1};
+    rc = tmap_16bit(&ta, a.x, 3, adims, astr, abox, 128);
+    if (rc) return rc;
+  }
+  constexpr size_t smem = conv_wgmma_smem_bytes<BN>();
+  static bool ok = false;
+  auto kernel = conv_wgmma_kernel<T, BN>;
+  cudaError_t err = allow_smem(kernel, smem, &ok);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((a.M + WG_BM - 1) / WG_BM) *
+                          ((a.F + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)tiles, WG_THREADS, smem, s>>>(ta, tb, a, e);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_conv_wgmma_t(const ConvArgs& a, const GemmEpi& e, int bn,
+                               cudaStream_t s) {
+  if (bn == 128) return launch_conv_wgmma<T, 128>(a, e, s);
+  if (bn == 256) return launch_conv_wgmma<T, 256>(a, e, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename Kernel>
 static int launch_conv(Kernel kernel, size_t smem, bool* smem_ok, int bm,
                        int bn, int threads, const ConvArgs& a,
@@ -334,11 +644,15 @@ static int launch_conv(Kernel kernel, size_t smem, bool* smem_ok, int bm,
   return (int)cudaGetLastError();
 }
 
+// path: CONV_PATH_* (core/tiling.py, choose_conv_path); bn: the filter
+// tile, which must be one the path is compiled for.
+enum { CONV_PATH_WMMA = 0, CONV_PATH_F32 = 1, CONV_PATH_WGMMA = 2 };
+
 extern "C" int mma_conv2d_launch(
     const void* x, const void* w, const void* bias, const void* res,
     void* out, int in_dt, int bias_dt, int res_dt, int out_dt, int N, int H,
-    int W, int C, int KH, int KW, int F, int SH, int SW, int act, int bf,
-    void* stream) {
+    int W, int C, int KH, int KW, int F, int SH, int SW, int act, int path,
+    int bn, void* stream) {
   if (N < 1 || C < 1 || F < 1 || KH < 1 || KW < 1 || SH < 1 || SW < 1 ||
       H < KH || W < KW)
     return (int)cudaErrorInvalidValue;
@@ -355,22 +669,49 @@ extern "C" int mma_conv2d_launch(
   a.M = (int)m;
   a.K = (int)k;
   a.act = act;
-  a.vec_a = (C % 8 == 0) && ((reinterpret_cast<uintptr_t>(x) & 15) == 0);
+  const uintptr_t xb = reinterpret_cast<uintptr_t>(x);
+  a.vec_a = (C % 8 == 0) && ((xb & 15) == 0);
   a.vec_b = (F % 8 == 0) && ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
+  // 4-byte pairs need every (j, c) run, row pitch and pixel step even
+  // (core/tiling.py, conv_gather_bytes)
+  a.gather = a.vec_a ? 16
+             : ((KW * C) % 2 == 0 && ((long long)W * C) % 2 == 0 &&
+                (SW * C) % 2 == 0 && (xb & 3) == 0)
+                 ? 4
+                 : 0;
+  // TMA reads a 1-D conv's patch rows where its pitches are 16-byte
+  a.a_tma = H == 1 && KH == 1 && (xb & 15) == 0 && (SW * C) % 8 == 0 &&
+            ((long long)W * C) % 8 == 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (path == CONV_PATH_WGMMA) {
+    if (!a.vec_b || !a.gather || (in_dt != DT_BF16 && in_dt != DT_F16))
+      return (int)cudaErrorInvalidValue;  // TMA: 16-byte base and pitch
+    GemmEpi e;
+    e.c = nullptr; e.bias = bias; e.res = res; e.out = out;
+    e.c_dt = 0; e.bias_dt = bias_dt; e.res_dt = res_dt; e.out_dt = out_dt;
+    e.M = a.M; e.N = F;
+    e.alpha = 1.f; e.beta = 0.f;
+    e.neg_product = 0; e.neg_acc = 0; e.act = act;
+    e.vec8 = 1;
+    for (const void* p : {bias, res, (const void*)out})
+      if (reinterpret_cast<uintptr_t>(p) & 15) e.vec8 = 0;
+    if (in_dt == DT_BF16)
+      return launch_conv_wgmma_t<__nv_bfloat16>(a, e, bn, s);
+    return launch_conv_wgmma_t<__half>(a, e, bn, s);
+  }
   const int wmma_threads = CONV_WM * CONV_WN * 32;
-  if (in_dt == DT_BF16 && bf == CONV_BN) {
+  if (path == CONV_PATH_WMMA && in_dt == DT_BF16 && bn == CONV_BN) {
     static bool ok = false;
     return launch_conv(conv_wmma_kernel<__nv_bfloat16>,
                        conv_wmma_smem_bytes<__nv_bfloat16>(), &ok, CONV_BM,
                        CONV_BN, wmma_threads, a, s);
   }
-  if (in_dt == DT_F16 && bf == CONV_BN) {
+  if (path == CONV_PATH_WMMA && in_dt == DT_F16 && bn == CONV_BN) {
     static bool ok = false;
     return launch_conv(conv_wmma_kernel<__half>, conv_wmma_smem_bytes<__half>(),
                        &ok, CONV_BM, CONV_BN, wmma_threads, a, s);
   }
-  if (in_dt == DT_F32 && bf == F32_BN) {
+  if (path == CONV_PATH_F32 && in_dt == DT_F32 && bn == F32_BN) {
     static bool ok = false;
     return launch_conv(conv_f32_kernel, conv_f32_smem_bytes(), &ok, F32_BM,
                        F32_BN, 256, a, s);

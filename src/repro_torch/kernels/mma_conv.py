@@ -23,9 +23,16 @@ convolution
 for image (N, H, W, C) and taps (KH, KW, C); its plain version is the eager
 shift-and-sum of ``ref.depthwise_conv`` plus ``epilogue.apply``.
 
-A CPU tensor goes to the plain version.  A CUDA tensor launches the kernel
-or raises: there is no fallback.  Each wrapper's ``launches`` counts its
-kernel's launches, and nothing else.
+Each wrapper takes its kernel's path up front from ``core.tiling``: K3's
+``choose_conv_path`` ("wgmma" for bf16/f16 filter banks TMA can read over
+images gathered in 16- or 4-byte copies, "wmma" for the rest or an explicit
+filter tile, "f32" for F32GER), K4's
+``depthwise_plan`` (the vector path where 16 bytes of channels divide C at
+16-byte bases, else the scalar one).  A CPU tensor goes to the plain
+version, whatever the path.  A CUDA tensor launches the chosen kernel or
+raises: there is no fallback.  Each wrapper's ``launches`` counts its
+kernel's launches, ``launches_by_path`` the same by path, and nothing
+else.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import precision, tiling
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as _epilogue
 from repro_torch.kernels import ref as _ref
@@ -42,14 +50,23 @@ from repro_torch.kernels import ref as _ref
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int] * 8
-             + [ctypes.c_int] + [ctypes.c_void_p])
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _CONV2D_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                    + [ctypes.c_int] * 9 + [ctypes.c_int] * 2
+                    + [ctypes.c_int] * 9 + [ctypes.c_int] * 3
                     + [ctypes.c_void_p])
 
-# The filter tile (bf, K3's N tile) csrc/mma_conv.cu is compiled for, by
-# input dtype; the F fringe of a narrower or ragged filter bank is masked.
-CONV_TILE = {torch.bfloat16: 128, torch.float16: 128, torch.float32: 64}
+# The Ger family of each input dtype, and K3's paths as csrc/mma_conv.cu
+# numbers them (CONV_PATH_*).
+_GER = {torch.bfloat16: precision.Ger.BF16GER2,
+        torch.float16: precision.Ger.F16GER2,
+        torch.float32: precision.Ger.F32GER}
+CONV_PATHS = {"wmma": 0, "f32": 1, "wgmma": 2}
+DEPTHWISE_PATHS = ("vector", "scalar")
+
+# The filter tile (bf, K3's N tile) an explicit Plan.block may name, by
+# input dtype: the WMMA (F32GER) tile; the F fringe of a narrower or
+# ragged filter bank is masked.
+CONV_TILE = {dt: tiling.CONV_TILES[g].bn for dt, g in _GER.items()}
 
 
 def _geometry(image, taps, stride):
@@ -156,6 +173,9 @@ def mma_depthwise_conv2d(image: torch.Tensor, taps: torch.Tensor, *,
     out = torch.empty(out_shape, dtype=out_dtype, device=image.device)
     if out.numel() == 0:
         return out                  # an empty grid is not a launch
+    vec = tiling.depthwise_plan(
+        c, image.dtype,
+        image.data_ptr() % 16 == 0 and taps.data_ptr() % 16 == 0)
     lib = _lib()
     rc = lib.mma_depthwise_conv_launch(
         image.data_ptr(), taps.data_ptr(),
@@ -165,13 +185,16 @@ def mma_depthwise_conv2d(image: torch.Tensor, taps: torch.Tensor, *,
         DTYPE_CODES[out_dtype],
         *image.shape, taps.shape[0], taps.shape[1], stride[0], stride[1],
         _epilogue.ACT_CODES[ep.activation if ep is not None else None],
-        torch.cuda.current_stream(image.device).cuda_stream)
+        vec, torch.cuda.current_stream(image.device).cuda_stream)
     _build.check(lib, rc, "mma_depthwise_conv2d")
     mma_depthwise_conv2d.launches += 1
+    mma_depthwise_conv2d.launches_by_path[
+        "vector" if vec else "scalar"] += 1
     return out
 
 
 mma_depthwise_conv2d.launches = 0
+mma_depthwise_conv2d.launches_by_path = dict.fromkeys(DEPTHWISE_PATHS, 0)
 
 
 # ----------------------------------------------------------------------
@@ -223,21 +246,22 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
     image (N, H, W, C) and filters (KH, KW, C, F) of one dtype (f32, bf16
     or f16) -> (N, OH, OW, F) in ``out_dtype``; ``ep`` fuses bias (F,),
     activation and residual (N, OH, OW, F) into the single store.  ``bf``
-    names the filter tile, which must be ``CONV_TILE`` of the input dtype
-    (None takes it); it changes no result.
+    names the WMMA filter tile, which must be ``CONV_TILE`` of the input
+    dtype; None lets ``core.tiling.choose_conv_path`` pick the kernel.  It
+    changes no result beyond the order of the fp32 sums.
     """
     stride = tuple(int(s) for s in stride)
     n, oh, ow, f = _dense_geometry(image, kernels, stride)
-    if image.dtype not in CONV_TILE or kernels.dtype != image.dtype:
+    if image.dtype not in _GER or kernels.dtype != image.dtype:
         raise TypeError(f"the conv kernel takes image and filters of one "
                         f"dtype among f32/bf16/f16, got {image.dtype} x "
                         f"{kernels.dtype}")
-    tile = CONV_TILE[image.dtype]
-    if bf is None:
-        bf = tile
-    elif bf != tile:
-        raise ValueError(f"the conv kernel is compiled for the filter tile "
-                         f"{tile} in {image.dtype}, not bf={bf}")
+    kh, kw, c, _ = kernels.shape
+    path, cfg = tiling.choose_conv_path(
+        n * oh * ow, f, _GER[image.dtype],
+        f % 8 == 0 and kernels.data_ptr() % 16 == 0,
+        tiling.conv_gather_bytes(c, kw, image.shape[2], stride[1],
+                                 image.data_ptr()) > 0, bf)
     out_shape = (n, oh, ow, f)
     ep = _check_epilogue(ep, bias, residual, out_shape, f)
     if image.device.type == "cpu":
@@ -268,13 +292,15 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         DTYPE_CODES[image.dtype], _code(bias), _code(residual),
-        DTYPE_CODES[out_dtype], *image.shape, kernels.shape[0],
-        kernels.shape[1], f, stride[0], stride[1],
-        _epilogue.ACT_CODES[ep.activation if ep is not None else None], bf,
+        DTYPE_CODES[out_dtype], *image.shape, kh, kw, f, stride[0], stride[1],
+        _epilogue.ACT_CODES[ep.activation if ep is not None else None],
+        CONV_PATHS[path], cfg.bn,
         torch.cuda.current_stream(image.device).cuda_stream)
-    _build.check(lib, rc, "mma_conv2d")
+    _build.check(lib, rc, f"mma_conv2d ({path})")
     mma_conv2d.launches += 1
+    mma_conv2d.launches_by_path[path] += 1
     return out
 
 
 mma_conv2d.launches = 0
+mma_conv2d.launches_by_path = dict.fromkeys(CONV_PATHS, 0)

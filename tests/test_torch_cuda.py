@@ -405,6 +405,123 @@ def test_conv2d_kernel_refuses_strided_operands(gen):
         K.mma_conv2d(x.float(), w.float(), bf=128)
 
 
+# (image NHWC, filters HWIO, stride, dtype, epilogue, out dtype, path):
+# K3's wgmma path at the main path's three stems (whisper's: the image
+# panel by TMA, gathered in 16-byte copies on tiles across a clip boundary,
+# the K = 240 fringe and the M = 6000 fringe; qwen2-vl's: 4-byte pairs with
+# the K = 588 fringe on 256-wide tiles), a 1-D conv whose tiles all lie in
+# one image, a 2-D conv gathered in 16-byte copies and an M fringe of one
+# row in an F = 256 bank; and an f16 image with odd (j, c) runs, which
+# neither copy gathers, on the WMMA tile
+_CONV_PATH_CASES = {
+    "whisper conv1": ((4, 1, 3002, 80), (1, 3, 80, 768), (1, 1),
+                      torch.bfloat16, "bias+gelu", torch.bfloat16, "wgmma"),
+    "whisper conv2": ((4, 1, 3001, 768), (1, 3, 768, 768), (1, 2),
+                      torch.bfloat16, "bias+gelu", torch.bfloat16, "wgmma"),
+    "qwen2-vl patch embed": ((4, 448, 448, 3), (14, 14, 3, 3584), (14, 14),
+                             torch.bfloat16, "bias", torch.bfloat16,
+                             "wgmma"),
+    "M fringe F=256": ((3, 1, 45, 64), (1, 3, 64, 256), (1, 1),
+                       torch.bfloat16, "residual", torch.float32, "wgmma"),
+    "1-D tiles in one image": ((2, 1, 258, 64), (1, 3, 64, 128), (1, 1),
+                               torch.bfloat16, "bias+gelu", torch.bfloat16,
+                               "wgmma"),
+    "2-D 16-byte gather": ((2, 12, 17, 32), (3, 3, 32, 96), (1, 1),
+                           torch.bfloat16, "bias+gelu", torch.bfloat16,
+                           "wgmma"),
+    "odd runs f16": ((2, 9, 11, 5), (3, 3, 5, 72), (1, 2), torch.float16,
+                     "bias+relu", torch.float16, "wmma"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CONV_PATH_CASES))
+def test_conv2d_chosen_path_matches_plain(gen, name):
+    """Within one ulp of the output dtype (plus 1e-5 * max|ref|; 1e-4 *
+    max|ref| for f32), and three launches give the same bits: a gathered
+    panel that wgmma read before it landed would show as a difference."""
+    shape, fshape, stride, dtype, epi, od, path = _CONV_PATH_CASES[name]
+    n, h, w, c = shape
+    kh, kw, _, f = fshape
+    oh, ow = (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
+    x = _randn(gen, *shape, dtype=dtype)
+    filt = _randn(gen, *fshape, dtype=dtype, scale=(kh * kw * c) ** -0.5)
+    ep = E.Epilogue(bias="bias" in epi, residual=epi == "residual",
+                    activation=next((a for a in ("gelu", "relu")
+                                     if a in epi), None))
+    bias = _randn(gen, f, dtype=torch.float32) if ep.bias else None
+    res = _randn(gen, n, oh, ow, f, dtype=od) if ep.residual else None
+    kw_ = dict(stride=stride, out_dtype=od, ep=ep, bias=bias, residual=res)
+    before = K.mma_conv2d.launches_by_path[path]
+    outs = [K.mma_conv2d(x, filt, **kw_) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert K.mma_conv2d.launches_by_path[path] == before + 3
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    want = K.mma_conv2d_plain(x, filt, **kw_).float()
+    got = outs[0].float()
+    scale = want.abs().max().item()
+    if od == torch.float32:
+        tol = 1e-4 * scale
+    else:
+        bits = 7 if od == torch.bfloat16 else 10
+        tol = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - bits) + 1e-5 * scale
+    assert got.shape == (n, oh, ow, f) and bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= tol).all())
+
+
+# (image NHWC, KH, KW, stride, dtype, path): K4 at the main path's four
+# shapes, the vector path at a ragged OW, with 2-D taps at stride 2 and
+# with KW = 6, and the scalar path at channel counts no vector divides
+_DW_PATH_CASES = {
+    "zamba2 prefill": ((1, 1, 259, 4224), 1, 4, (1, 1), torch.float32,
+                       "vector"),
+    "zamba2 decode": ((4, 1, 4, 4224), 1, 4, (1, 1), torch.float32,
+                      "vector"),
+    "mamba2-130m prefill": ((1, 1, 259, 1792), 1, 4, (1, 1), torch.float32,
+                            "vector"),
+    "mamba2-130m decode": ((4, 1, 4, 1792), 1, 4, (1, 1), torch.float32,
+                           "vector"),
+    "bf16 ragged OW": ((2, 1, 30, 96), 1, 4, (1, 1), torch.bfloat16,
+                       "vector"),
+    "f16 2-D stride 2": ((2, 7, 19, 64), 2, 3, (2, 2), torch.float16,
+                         "vector"),
+    "f32 KW=6": ((1, 1, 40, 128), 1, 6, (1, 1), torch.float32, "vector"),
+    "C=4227": ((2, 1, 30, 4227), 1, 4, (1, 1), torch.float32, "scalar"),
+    "C=131 2-D bf16": ((2, 3, 11, 131), 2, 2, (1, 1), torch.bfloat16,
+                       "scalar"),
+    "C=77 stride 2": ((3, 1, 50, 77), 1, 4, (1, 2), torch.bfloat16,
+                      "scalar"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DW_PATH_CASES))
+def test_depthwise_paths_match_plain(gen, name):
+    """Bit for bit with no epilogue and an f32 store (the same products
+    and sums, each rounded on its own, in the same order); with bias +
+    silu and a bf16 store within the existing depthwise tolerance (the
+    exp of silu may differ)."""
+    shape, kh, kw, stride, dtype, path = _DW_PATH_CASES[name]
+    n, h, w, c = shape
+    x = _randn(gen, *shape, dtype=dtype)
+    taps = _randn(gen, kh, kw, c, dtype=dtype, scale=0.3)
+    before = K.mma_depthwise_conv2d.launches_by_path[path]
+    got = K.mma_depthwise_conv2d(x, taps, stride=stride)
+    torch.cuda.synchronize()
+    assert K.mma_depthwise_conv2d.launches_by_path[path] == before + 1
+    assert torch.equal(got, K.mma_depthwise_conv2d_plain(x, taps,
+                                                         stride=stride))
+    ep = E.Epilogue(bias=True, activation="silu")
+    bias = _randn(gen, c, dtype=torch.float32)
+    kw_ = dict(stride=stride, out_dtype=torch.bfloat16, ep=ep, bias=bias)
+    got = K.mma_depthwise_conv2d(x, taps, **kw_).float()
+    want = K.mma_depthwise_conv2d_plain(x, taps, **kw_).float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    tol = 1e-5 * want.abs() + 1e-6 * want.abs().max() + ulp
+    assert bool(((got - want).abs() <= tol).all())
+    assert K.mma_depthwise_conv2d.launches_by_path[path] == before + 2
+
+
 @pytest.mark.parametrize("name", ["whisper-small", "qwen2-vl-7b"])
 def test_reduced_multimodal_prefill_and_decode_go_through_k3(gen, name):
     """A reduced whisper or qwen2-vl prefill and decode step on the kernel

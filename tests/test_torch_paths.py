@@ -1,10 +1,13 @@
-"""The GEMM's and attention's choice of kernel on the card, and the plain
-versions of the split arithmetic those kernels run, on the CPU.
+"""The GEMM's, attention's and convolutions' choice of kernel on the card,
+and the plain versions of the split arithmetic those kernels run, on the
+CPU.
 
 ``core.tiling.choose_gemm_path`` is pinned on the shapes of the five
 full-width runs (their weights' shapes are read from the port's own
 ``init_params`` with the allocations stubbed out); ``split_kv_plan`` on
-whisper-small's decode cross-attention.  The split-K plain version is held
+whisper-small's decode cross-attention; ``choose_conv_path`` on the main
+path's three dense convs and ``depthwise_plan`` on mamba2's causal conv.
+The split-K plain version is held
 against the unsplit product (within fp32 rounding: ``rtol=1e-5,
 atol=1e-5 * max|ref|``, since bf16 products are exact in fp32 and only the
 order of the fp32 sums differs) and against the reference's Pallas kernel
@@ -35,6 +38,7 @@ from repro_torch.core import precision as tprec
 from repro_torch.core import tiling
 from repro_torch.kernels import epilogue as tep
 from repro_torch.kernels import mma_attention as tattn
+from repro_torch.kernels import mma_conv as tconv
 from repro_torch.kernels import mma_gemm as tgemm
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -133,6 +137,112 @@ def test_split_kv_plan_fills_the_card_at_whisper_cross_attention():
     assert tattn.split_kv_plan(1, 32, 256, 256) == (1, 4)
     assert tattn.split_kv_plan(4, 12, 1500, 1500)[0] == 1
     assert tattn.split_kv_plan(4, 33, 1, 1500)[0] == 1
+
+
+# ----------------------------------------------------------------------
+# The convolutions' paths (csrc/mma_conv.cu): K3's kernel, K4's plan
+# ----------------------------------------------------------------------
+
+# (M = N*OH*OW, F) of the main path's dense convs at batch 4
+_STEMS = {"whisper conv1": (4 * 3000, 768),
+          "whisper conv2": (4 * 1500, 768),
+          "qwen2-vl patch embed": (4 * 32 * 32, 3584)}
+
+
+@pytest.mark.parametrize("stem", sorted(_STEMS))
+def test_conv_stems_take_the_wgmma_kernel(stem):
+    m, f = _STEMS[stem]
+    path, cfg = tiling.choose_conv_path(m, f, BF, True)
+    assert path == "wgmma" and cfg == tiling.wgmma_plan(m, f)
+    # 256-wide tiles only where the grid runs three waves: the patch embed
+    assert cfg.bn == (256 if stem == "qwen2-vl patch embed" else 128)
+    assert tiling.choose_conv_path(m, f, tprec.Ger.F16GER2, True)[0] == \
+        "wgmma"
+
+
+def test_conv_paths_the_wgmma_kernel_does_not_take():
+    m, f = _STEMS["whisper conv2"]
+    # F32GER stays true fp32, on its own kernel, whatever the alignment
+    for aligned in (True, False):
+        assert tiling.choose_conv_path(m, f, tprec.Ger.F32GER,
+                                       aligned) == \
+            ("f32", tiling.CONV_TILES[tprec.Ger.F32GER])
+    # an explicit filter tile names the WMMA tile, as a block does the GEMM's
+    assert tiling.choose_conv_path(m, f, BF, True, True, 128) == \
+        ("wmma", tiling.CONV_TILES[BF])
+    # a bank TMA cannot read (F % 8 != 0, or an unaligned base)
+    assert tiling.choose_conv_path(m, 100, BF, False)[0] == "wmma"
+    # an image the producer gathers in neither 16- nor 4-byte copies
+    assert tiling.choose_conv_path(m, f, BF, True, False)[0] == "wmma"
+    with pytest.raises(ValueError, match="filter tile"):
+        tiling.choose_conv_path(m, f, BF, True, True, 64)
+
+
+# (C, KW, W, SW, image base) -> the widest copy that gathers K3's image
+# panel: the main path's stems, then the cases around each rule
+_GATHERS = [
+    ((80, 3, 3002, 1, 0), 16),       # whisper conv1
+    ((768, 3, 3001, 2, 0), 16),      # whisper conv2
+    ((3, 14, 448, 14, 0), 4),        # qwen2-vl patch embed: runs of 42
+    ((8, 3, 10, 1, 8), 4),           # C % 8 == 0 at an 8-byte base: pairs
+    ((5, 3, 11, 2, 0), 0),           # odd (j, c) runs
+    ((6, 3, 11, 1, 2), 0),           # even runs at a 2-byte base
+    ((3, 2, 7, 2, 0), 0),            # odd row pitch W*C
+    ((4, 3, 9, 1, 4), 4),            # C = 4 at a 4-byte base
+    ((3, 14, 448, 14, 2), 0),        # the patch embed at a 2-byte base
+    ((16, 1, 5, 3, 32), 16),         # stride above the width: 16 bytes
+]
+
+
+@pytest.mark.parametrize("geometry,want", _GATHERS)
+def test_conv_gather_bytes_picks_the_producers_copy(geometry, want):
+    """``conv_gather_bytes`` mirrors mma_conv2d_launch's rule, and an image
+    it cannot gather (0) keeps the bank off the wgmma kernel."""
+    assert tiling.conv_gather_bytes(*geometry) == want
+    path = tiling.choose_conv_path(4 * 1500, 768, BF, True, want > 0)[0]
+    assert path == ("wgmma" if want else "wmma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [4224, 1792])
+def test_depthwise_plan_takes_the_vector_path_on_mamba2(dtype, c):
+    """mamba2's causal conv at zamba2's and mamba2-130m's widths (prefill
+    and decode alike: the plan does not depend on the pixels)."""
+    vec = tiling.depthwise_plan(c, dtype, True)
+    assert vec == 16 // dtype.itemsize and c % vec == 0
+    # an unaligned base takes the scalar path
+    assert tiling.depthwise_plan(c, dtype, False) == 0
+
+
+@pytest.mark.parametrize("c", [4227, 131, 77])
+def test_depthwise_plan_takes_the_scalar_path_where_no_vector_divides(c):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert tiling.depthwise_plan(c, dtype, True) == 0
+
+
+def test_conv_wrappers_run_their_plain_versions_on_the_cpu():
+    """On the CPU both wrappers run their plain versions, whatever path
+    the card would take, and count no launch."""
+    rng = np.random.default_rng(9)
+    counts = (tconv.mma_conv2d.launches,
+              dict(tconv.mma_conv2d.launches_by_path),
+              tconv.mma_depthwise_conv2d.launches,
+              dict(tconv.mma_depthwise_conv2d.launches_by_path))
+    x = torch.from_numpy(rng.standard_normal((2, 1, 20, 16),
+                                             dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, 3, 16, 24),
+                                             dtype=np.float32) * 0.2)
+    for dt in (torch.bfloat16, torch.float32):
+        assert torch.equal(tconv.mma_conv2d(x.to(dt), w.to(dt)),
+                           tconv.mma_conv2d_plain(x.to(dt), w.to(dt)))
+    taps = torch.from_numpy(rng.standard_normal((1, 4, 16),
+                                                dtype=np.float32))
+    assert torch.equal(tconv.mma_depthwise_conv2d(x, taps),
+                       tconv.mma_depthwise_conv2d_plain(x, taps))
+    assert counts == (tconv.mma_conv2d.launches,
+                      dict(tconv.mma_conv2d.launches_by_path),
+                      tconv.mma_depthwise_conv2d.launches,
+                      dict(tconv.mma_depthwise_conv2d.launches_by_path))
 
 
 # ----------------------------------------------------------------------
