@@ -42,20 +42,44 @@ Phases, each of which must pass or the script exits nonzero:
      prefill handoff, and a profile of one prefill and one decode step of
      deepseek-7b, zamba2, whisper-small and qwen2-vl-7b.  Each run also
      records the GEMM's and the two convs' launches by path and the shapes
-     it gave the GEMM and the attention kernel; every decode product must
-     have taken the weight stream, every deepseek-7b and qwen2-vl-7b
-     prefill product the wgmma tile, every one-query attention split-KV,
-     every dense conv K3's wgmma kernel and every depthwise conv K4's
-     vector path;
-  4. the runs' shapes: each distinct GEMM and attention shape of the runs
-     timed (kernel, path, torch.matmul or SDPA, bound).
+     it gave the GEMM, the attention kernel and the depthwise conv; every
+     decode product must have taken the weight stream, every deepseek-7b
+     and qwen2-vl-7b prefill product the wgmma tile, every one-query
+     attention split-KV, every dense conv K3's wgmma kernel and every
+     depthwise conv K4's vector path;
+  4. the runs' shapes: each distinct GEMM, attention and depthwise conv
+     shape of the runs held against its plain version and timed (kernel,
+     path, torch.matmul, SDPA or cuDNN, bound);
+  5. train, through ``repro_torch.launch.train.build`` with random fp32
+     weights from seed 0 and the default BF16GER2 facility: deepseek-7b at
+     full width with its depth cut to 4 layers (fp32 parameters, gradients
+     and both moments of all 30 layers, ~110 GB, do not fit the card) and
+     zamba2-1.2b at full width and depth, each 6 steps of AdamW (lr 3e-5,
+     no weight decay) on one repeated batch of 4 x 512 tokens.  Step 1's
+     loss and every parameter's gradient on the kernel backend are held
+     against the eager torch backend (the same rule as the logits); the
+     loss must be finite, fall at every step after the first update (at
+     full width it rises after Adam's first update) and by 20% or more
+     from step 1 to step 6; each kernel's launches must match the
+     per-call model (the forward's, two more GEMMs per GEMM in the
+     backward and one recompute per GEMM with a fused activation;
+     attention and the depthwise conv launch in the forward only); the
+     same steps on the eager torch backend must give each step's loss
+     within 2e-2 relative; step time, a profiled step's device busy time
+     and idle share, tokens/s, model TFLOP/s and peak memory are printed;
+     the state goes through a ``Checkpointer`` save and restore and must
+     come back bit for bit.  Then, as in phase 4, each distinct shape the
+     train steps gave the GEMM (forward, dX, dW, the recompute of Z),
+     attention and the depthwise conv is held against its plain version
+     and timed.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
 and the convs' ``launches_by_path``; the GEMM's ``host_us`` per call and,
-with the attention kernel's, ``run_shapes``);
-the last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and
-nothing of the JAX package.  Exits nonzero, printing no result, where CUDA
+with the attention kernel's and the depthwise conv's, ``run_shapes``;
+``max_abs_err`` covers the runs' shapes, training's included); the last
+is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
+of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
 """
 
@@ -93,6 +117,19 @@ SSM_RUNS = (("zamba2-1.2b", SERVE),
 MM_RUNS = {"whisper-small": dict(batch=4, frames=3000, prompt_len=4,
                                  gen_len=32),
            "qwen2-vl-7b": dict(batch=4, text_len=64, gen_len=32)}
+# The training runs (slice 6): (arch, depth cut or None), each at full
+# width; deepseek-7b at 4 of its 30 layers (1.65 B parameters: ~26 GB of
+# fp32 parameters, gradients and moments, where full depth needs ~110 GB).
+# The launcher's schedule takes its first update at the peak rate, and
+# Adam's first update moves every weight by about lr: at full width the
+# loss rises after it at every rate from 1e-5 to 1e-3 for deepseek-7b, as
+# the reference's does at d_model 2048 at 1e-4 and 1e-3
+# (scripts/train_lr_witness.py; PERF.md, section 6).  At 3e-5 both
+# losses fall at every step after that, by 36% (deepseek-7b) and 72%
+# (zamba2) over 6 steps; ``fall`` is the least fall from step 1 to the
+# last that the check accepts.
+TRAIN_RUNS = (("deepseek-7b", 4), ("zamba2-1.2b", None))
+TRAIN = dict(batch=4, seq=512, steps=6, lr=3e-5, fall=0.2)
 
 
 def fail(msg: str) -> None:
@@ -492,8 +529,7 @@ def check_attn_case(torch, name, q, k, v, kw, failures):
     want = A.flash_attention_plain(q, k, v, **kw)
     e = _report_attn(torch, name, got, want, v, budget, out_dtype,
                      failures)
-    n_split, per = A.split_kv_plan(q.shape[0], q.shape[2], q.shape[1],
-                                   k.shape[1])
+    n_split, per = A.split_kv_plan(q.shape[2], q.shape[1], k.shape[1])
     if n_split > 1:
         want = A.flash_attention_splitkv_plain(q, k, v, n_split=n_split,
                                                per=per, **kw)
@@ -858,7 +894,8 @@ def kernel_wrappers():
 
 
 # Per run: the GEMM's launches by path, and the distinct shapes the run
-# gave the GEMM and the attention kernel (their wrappers' traces).
+# gave the GEMM, the attention kernel and the depthwise conv (their
+# wrappers' traces).
 RECORDS: dict[str, dict] = {}
 
 
@@ -867,26 +904,29 @@ BY_PATH = ("mma_gemm", "mma_conv2d", "mma_depthwise_conv2d")
 
 
 def reset_counts(kernels):
-    """Zero every launch count, and start the GEMM's and attention's
-    traces, just before a run."""
+    """Zero every launch count, and start the GEMM's, attention's and
+    depthwise conv's traces, just before a run."""
     for fn in kernels.values():
         fn.launches = 0
     for name in BY_PATH:
         kernels[name].launches_by_path = dict.fromkeys(
             kernels[name].launches_by_path, 0)
-    kernels["mma_gemm"].trace = []
-    kernels["mma_flash_attention"].trace = []
+    for name in TRACED:
+        kernels[name].trace = []
+
+
+# The kernels whose wrappers record the shapes they launch at.
+TRACED = ("mma_gemm", "mma_flash_attention", "mma_depthwise_conv2d")
 
 
 def take_records(arch, kernels):
     """Read the run's launches by path and shapes, just after it, and stop
     tracing."""
-    g, a = kernels["mma_gemm"], kernels["mma_flash_attention"]
     RECORDS[arch] = {"by_path": {name: dict(kernels[name].launches_by_path)
-                                 for name in BY_PATH},
-                     "gemm": sorted(set(g.trace), key=str),
-                     "attn": sorted(set(a.trace), key=str)}
-    g.trace = a.trace = None
+                                 for name in BY_PATH}}
+    for key, name in zip(("gemm", "attn", "dw"), TRACED):
+        RECORDS[arch][key] = sorted(set(kernels[name].trace), key=str)
+        kernels[name].trace = None
 
 
 def check_main_paths(failures):
@@ -921,59 +961,82 @@ def check_main_paths(failures):
             failures.append(f"{arch} products off their path: {bad}")
 
 
-def time_run_shapes(torch, entries, failures):
-    """Each distinct GEMM and attention shape of the runs: the kernel held
-    against its plain version at that shape (the GEMM at _report_close's
-    tolerance, attention within its rounding budget, split-KV also against
-    its own plain version), then its time, its path, the library call's
-    time and the bound."""
+def time_run_shapes(torch, entries, failures, runs):
+    """Each distinct GEMM, attention and depthwise conv shape that the runs
+    ``runs`` (keys of RECORDS) gave the kernels: the kernel held against
+    its plain version at that shape (the GEMM and the depthwise conv at
+    _report_close's tolerance, attention within its rounding budget,
+    split-KV also against its own plain version), then its time, its
+    path, the library call's time and the bound.  A shape an earlier call
+    held and timed only gains the runs' names."""
+    from repro_torch.core import precision
+    from repro_torch.kernels import epilogue as E
     from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_conv as K
     from repro_torch.kernels import mma_gemm as G
 
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(4)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    kind = {torch.bfloat16: "bf16", torch.float16: "f16"}
-    gemm_shapes, attn_shapes = {}, {}
-    for arch, rec in RECORDS.items():
-        for s in rec["gemm"]:
-            gemm_shapes.setdefault(s, []).append(arch)
-        for s in rec["attn"]:
-            attn_shapes.setdefault(s, []).append(arch)
-    gemm_out = {}
-    errs = {"mma_gemm": 0.0, "mma_flash_attention": 0.0}
-    for (b, m, k, n, dt, od, path), archs in sorted(gemm_shapes.items(),
+    kind = {torch.bfloat16: "bf16", torch.float16: "f16",
+            torch.float32: "f32"}
+    ger = {torch.bfloat16: precision.Ger.BF16GER2,
+           torch.float16: precision.Ger.F16GER2,
+           torch.float32: precision.Ger.F32GER}
+    shapes = {"gemm": {}, "attn": {}, "dw": {}}
+    for arch in runs:
+        for what, found in shapes.items():
+            for s in RECORDS[arch][what]:
+                found.setdefault(s, []).append(arch)
+    by_name = {e["name"]: e for e in entries}
+    done = {name: by_name[name].setdefault("run_shapes", {}) for name in
+            ("mma_gemm", "mma_flash_attention", "mma_depthwise_conv2d")}
+    errs = dict.fromkeys(done, 0.0)
+
+    def seen(name, key, archs):
+        if key in done[name]:
+            done[name][key]["runs"] += archs
+            return True
+        return False
+
+    gemm_out = done["mma_gemm"]
+    for (b, m, k, n, dt, od, path), archs in sorted(shapes["gemm"].items(),
                                                     key=str):
+        key = f"{b}x{m}x{k}x{n} {str(dt)[6:]} -> {str(od)[6:]}"
+        if seen("mma_gemm", key, archs):
+            continue
         lead = (b,) if b > 1 else ()
         x = torch.randn(lead + (m, k), generator=g, device="cuda").to(dt)
         y = (torch.randn(lead + (k, n), generator=g, device="cuda")
              * k ** -0.5).to(dt)
-        kw = dict(kind=G.Ger.F16GER2 if dt == torch.float16 else
-                  G.Ger.BF16GER2, out_dtype=od)
-        key = f"{b}x{m}x{k}x{n} {str(od)[6:]}"
+        kw = dict(kind=ger[dt], out_dtype=od)
         errs["mma_gemm"] = max(errs["mma_gemm"], _report_close(
             torch, f"gemm {key} [{path}]", G.mma_gemm(x, y, **kw).float(),
             G.mma_gemm_plain(x, y, **kw).float(), od, failures))
         t = timer(lambda: G.mma_gemm(x, y, **kw), iters=5)
         tl = timer(lambda: torch.matmul(x, y), iters=5)
-        bb, by = bound_ms(b * ((m * k + k * n) * 2 + m * n * od.itemsize),
+        bb, by = bound_ms(b * ((m * k + k * n) * dt.itemsize
+                               + m * n * od.itemsize),
                           2 * b * m * n * k, kind[dt])
         gemm_out[key] = dict(path=path, ms=t, library_ms=tl, bound_ms=bb,
                              bound_by=by, runs=archs)
         print(f"  time gemm {key} [{path}] ({', '.join(archs)}): kernel "
               f"{t:.4f} ms, torch.matmul {tl:.4f} ms, bound {bb:.4f} ms "
               f"({by}), {bb / t:.2f} of bound")
-    attn_out = {}
-    for shape, archs in sorted(attn_shapes.items(), key=str):
+        del x, y
+    attn_out = done["mma_flash_attention"]
+    for shape, archs in sorted(shapes["attn"].items(), key=str):
         b, sq, sk, h, kvh, d, dt, causal, q_off, window, has_valid, ns = shape
+        key = (f"({b},{sq},{h},{d}) over ({sk},{kvh}) causal={causal} "
+               f"q_offset={q_off} window={window} valid={has_valid}")
+        if seen("mma_flash_attention", key, archs):
+            continue
         q = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dt)
         k = torch.randn((b, sk, kvh, d), generator=g, device="cuda").to(dt)
         v = torch.randn((b, sk, kvh, d), generator=g, device="cuda").to(dt)
         valid = (torch.ones((b, sk), dtype=torch.bool, device="cuda")
                  if has_valid else None)
         kw = dict(causal=causal, q_offset=q_off, window=window, valid=valid)
-        key = (f"({b},{sq},{h},{d}) over ({sk},{kvh}) causal={causal} "
-               f"q_offset={q_off} window={window} valid={has_valid}")
         e, _ = check_attn_case(torch, f"attn {key}", q, k, v, kw, failures)
         errs["mma_flash_attention"] = max(errs["mma_flash_attention"], e)
         t = timer(lambda: A.mma_flash_attention(q, k, v, **kw), iters=5)
@@ -1003,13 +1066,57 @@ def time_run_shapes(torch, entries, failures):
         print(f"  time attn {key} [{attn_out[key]['path']}] "
               f"({', '.join(archs)}): kernel {t:.4f} ms, sdpa {tl:.4f} ms, "
               f"bound {bb:.4f} ms ({by}), {bb / t:.2f} of bound")
-    for e in entries:
-        if e["name"] in errs:
-            e["max_abs_err"] = max(e["max_abs_err"], errs[e["name"]])
-        if e["name"] == "mma_gemm":
-            e["run_shapes"] = gemm_out
-        if e["name"] == "mma_flash_attention":
-            e["run_shapes"] = attn_out
+    dw_out = done["mma_depthwise_conv2d"]
+    for shape, archs in sorted(shapes["dw"].items(), key=str):
+        (n, h, w, c), (kh, kw_), stride, dt, od, act, has_b, has_r, path = \
+            shape
+        oh, ow = (h - kh) // stride[0] + 1, (w - kw_) // stride[1] + 1
+        key = (f"({n},{h},{w},{c}) x ({kh},{kw_}) stride {stride} "
+               f"{str(dt)[6:]} -> {str(od)[6:]} bias={has_b} act={act} "
+               f"residual={has_r}")
+        if seen("mma_depthwise_conv2d", key, archs):
+            continue
+        x = torch.randn((n, h, w, c), generator=g, device="cuda").to(dt)
+        taps = (torch.randn((kh, kw_, c), generator=g, device="cuda")
+                * 0.3).to(dt)
+        bias = (torch.randn((c,), generator=g, device="cuda")
+                if has_b else None)
+        res = (torch.randn((n, oh, ow, c), generator=g, device="cuda")
+               if has_r else None)
+        ep = (E.Epilogue(bias=has_b, activation=act, residual=has_r)
+              if has_b or act or has_r else None)
+        kw = dict(stride=stride, out_dtype=od, ep=ep, bias=bias,
+                  residual=res)
+        errs["mma_depthwise_conv2d"] = max(
+            errs["mma_depthwise_conv2d"], _report_close(
+                torch, f"depthwise {key} [{path}]",
+                K.mma_depthwise_conv2d(x, taps, **kw).float(),
+                K.mma_depthwise_conv2d_plain(x, taps, **kw).float(), od,
+                failures))
+        t = timer(lambda: K.mma_depthwise_conv2d(x, taps, **kw), iters=5)
+        tp = timer(lambda: K.mma_depthwise_conv2d_plain(x, taps, **kw),
+                   iters=5)
+        # cuDNN's grouped conv2d with bias (the activation and residual
+        # are not part of it)
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        wc = taps.permute(2, 0, 1)[:, None].contiguous()
+        tl = timer(lambda: torch.nn.functional.conv2d(
+            xc, wc, None if bias is None else bias.to(dt), stride=stride,
+            groups=c), iters=5)
+        outs = n * oh * ow * c
+        bb, by = bound_ms(x.numel() * dt.itemsize + taps.numel()
+                          * dt.itemsize + (c * 4 if has_b else 0)
+                          + (outs * 4 if has_r else 0) + outs * od.itemsize,
+                          2 * outs * kh * kw_ + (4 * outs if act else 0),
+                          "f32")
+        dw_out[key] = dict(path=path, ms=t, plain_ms=tp, library_ms=tl,
+                           bound_ms=bb, bound_by=by, runs=archs)
+        print(f"  time depthwise {key} [{path}] ({', '.join(archs)}): "
+              f"kernel {t:.4f} ms, plain {tp:.4f} ms, cuDNN conv2d "
+              f"{tl:.4f} ms, bound {bb:.4f} ms ({by}), {bb / t:.2f} of "
+              f"bound")
+    for name, e in errs.items():
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], e)
     del timer
 
 
@@ -1236,7 +1343,7 @@ def profile_step(torch, step, fn, step_ms):
     if busy == 0:
         print(f"  profiler: no device time recorded for the {step} (not "
               f"measured)")
-        return
+        return None
     print(f"  profiled {step}: wall {wall_ms:.2f} ms, device busy "
           f"{busy:.2f} ms; device idle share {max(0.0, 1 - busy / step_ms):.3f}"
           f" of the unprofiled {step} ({max(0.0, 1 - busy / wall_ms):.3f} of "
@@ -1248,6 +1355,7 @@ def profile_step(torch, step, fn, step_ms):
     for ms, count, key in shown:
         print(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} "
               f"{key[:90]}")
+    return busy, max(0.0, 1 - busy / step_ms)
 
 
 def mm_batch(cfg, settings, batch):
@@ -1401,6 +1509,250 @@ def generate(torch, failures, arch, settings):
     return launches, (cfg, *steps)
 
 
+# ----------------------------------------------------------------------
+# Phase 5: train
+# ----------------------------------------------------------------------
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches per train step, from the code: the forward's, which
+    are a prefill's over the batch (``expected_launches``); then the
+    backward: two GEMMs (dX, dY) per forward GEMM and one recompute of Z
+    per GEMM with a fused activation (the w1 of each dense layer's MLP, or
+    of the hybrid shared block's at each group); attention and the
+    depthwise conv launch in the forward only (their backward recomputes
+    through the torch lowering)."""
+    fwd = dict(expected_launches(cfg)["prefill"])
+    n = cfg.num_layers
+    activated = n if cfg.family in ("dense", "vlm") else (
+        -(-n // cfg.shared_attn_every) if cfg.shared_attn_every else 0)
+    return {"forward_gemm": fwd["mma_gemm"],
+            **fwd, "mma_gemm": 3 * fwd["mma_gemm"] + activated}
+
+
+def check_train_grads(torch, failures, arch, cfg, model, batch):
+    """Step 1's loss and every parameter's gradient on the kernel backend
+    against the eager torch backend: the loss within 2e-2 relative, each
+    gradient's relative L2 below the larger of 5e-2 and twice that
+    parameter's own bf16 noise (the torch backend's BF16GER2 gradient
+    against its F32GER/f32 one), as the logits are held."""
+    from repro_torch.core import facility
+    from repro_torch.train import steps as S
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item()
+
+    def run(**kw):
+        with facility.configure(facility.FacilityConfig(device="cuda",
+                                                        **kw)):
+            loss, _, grads = S.loss_and_grads(cfg, model, batch)
+        return loss.item(), grads
+
+    t0 = time.perf_counter()
+    loss_t, want = run(backend="torch")
+    loss_f, f32 = run(backend="torch", ger=facility.Ger.F32GER,
+                      out_dtype=torch.float32)
+    noise = {k: rel(want[k], f32[k]) for k in want}
+    del f32
+    loss_k, got = run(backend="kernel")
+    worst = sorted(((rel(got[k], want[k]) / max(5e-2, 2 * noise[k]),
+                     rel(got[k], want[k]), noise[k], k) for k in got),
+                   reverse=True)
+    del got, want
+    ok_loss = (abs(loss_k - loss_t) <= 2e-2 * abs(loss_t)
+               and bool(torch.isfinite(torch.tensor(loss_k))))
+    ok = ok_loss and worst[0][0] < 1
+    print(f"  [{'ok' if ok else 'FAIL'}] {arch} step-1 loss kernel "
+          f"{loss_k:.6f}, torch {loss_t:.6f} (f32 {loss_f:.6f}); "
+          f"{len(worst)} gradients within max(5e-2, 2 x bf16 noise) of the "
+          f"torch backend; worst rel L2 / tol {worst[0][0]:.3f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for q, r, nz, k in worst[:3]:
+        print(f"    {k}: rel L2 {r:.3e} (bf16 noise {nz:.3e})")
+    if not ok:
+        failures.append(f"{arch} step-1 loss or gradients")
+
+
+def host_like(torch, tree):
+    """Empty CPU tensors in ``tree``'s structure (a module's parameters
+    in a CPU copy of the module), for a checkpoint to restore into."""
+    import copy
+    if isinstance(tree, torch.nn.Module):
+        memo = {id(p): torch.nn.Parameter(torch.empty(p.shape,
+                                                      dtype=p.dtype),
+                                          requires_grad=False)
+                for p in tree.parameters()}
+        return copy.deepcopy(tree, memo)
+    if isinstance(tree, dict):
+        return {k: host_like(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_like(torch, v) for v in tree)
+    return torch.empty(tree.shape, dtype=tree.dtype)
+
+
+def check_checkpoint(torch, failures, arch, state, step):
+    """A Checkpointer save of the train state and a restore into host
+    tensors of its structure: every leaf back bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as C
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = C.Checkpointer(d)
+        t0 = time.perf_counter()
+        ck.save(step, state)
+        t1 = time.perf_counter()
+        like = ck.restore(step, host_like(torch, state))
+        t2 = time.perf_counter()
+        flat, back = C._flatten(state), C._flatten(like)
+        nbytes = sum(t.numel() * t.element_size() for _, t in flat)
+        same = ([p for p, _ in flat] == [p for p, _ in back] and all(
+            a.dtype == b.dtype and torch.equal(a.detach().cpu(), b)
+            for (_, a), (_, b) in zip(flat, back)))
+        del like, back
+    print(f"  [{'ok' if same else 'FAIL'}] {arch} checkpoint of "
+          f"{len(flat)} leaves, {nbytes / 2**30:.2f} GiB: save "
+          f"{t1 - t0:.1f} s, restore {t2 - t1:.1f} s, bit for bit")
+    if not same:
+        failures.append(f"{arch} checkpoint round trip")
+
+
+def train(torch, failures, arch, num_layers):
+    """Train ``arch`` through ``launch.train.build`` (fp32 weights from
+    seed 0, the default kernel backend) for ``TRAIN["steps"]`` steps on one
+    repeated batch, every kernel's launch count reset just before the
+    steps and read just after and held to ``expected_train_launches``;
+    returns the counts."""
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import facility
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+
+    cfg = get_arch(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+        print(f"  depth cut: num_layers {num_layers} (of "
+              f"{get_arch(arch).num_layers}); widths unchanged")
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    make_state, make_step = T.build(cfg, lr=TRAIN["lr"], total_steps=steps,
+                                    weight_decay=0.0, seed=0, device="cuda")
+    state, step = make_state(), make_step()
+    model = state["params"]
+    nparam = sum(t.numel() for t in model.parameters())
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {nparam / 1e9:.3f} B "
+          f"fp32 parameters, init {time.perf_counter() - t0:.1f} s; batch "
+          f"{b} x {s} tokens, lr {TRAIN['lr']}, {steps} steps")
+    batch = pipeline.device_batch(pipeline.synthetic_batch(
+        cfg, batch=b, seq=s, step=0), "cuda")
+    check_train_grads(torch, failures, arch, cfg, model, batch)
+
+    want = expected_train_launches(cfg)
+    kernels = kernel_wrappers()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    trace = list(kernels["mma_gemm"].trace)
+    attn_trace = list(kernels["mma_flash_attention"].trace)
+    take_records(f"{arch} train", kernels)
+    losses = torch.stack(losses).tolist()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = {k: v for k, v in want.items() if k != "forward_gemm"}
+    model_counts = {k: steps * per_step.get(k, 0) for k in kernels}
+    print(f"  losses {[round(x, 4) for x in losses]}; launches {launches}; "
+          f"{steps} steps x {per_step} give {model_counts}: "
+          f"{'matches' if model_counts == launches else 'DIFFERS FROM'} the "
+          f"counts; GEMM by path "
+          f"{RECORDS[f'{arch} train']['by_path']['mma_gemm']}")
+    if model_counts != launches:
+        failures.append(f"{arch} train launch counts {launches} differ from "
+                        f"the per-call model {model_counts}")
+    for name, n in per_step.items():
+        if n and launches[name] <= 0:
+            failures.append(f"{name} never launched while training {arch}")
+    ok = (all(x == x and abs(x) != float("inf") for x in losses)
+          and all(b < a for a, b in zip(losses[1:], losses[2:]))
+          and losses[-1] <= (1 - TRAIN["fall"]) * losses[0])
+    print(f"  [{'ok' if ok else 'FAIL'}] {arch}: loss finite, falling at "
+          f"every step after the first update and by {TRAIN['fall']:.0%} "
+          f"or more over the run ({losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{1 - losses[-1] / losses[0]:.1%})")
+    if not ok:
+        failures.append(f"{arch} training loss")
+    # No backward product may leave the weight stream and the wgmma tile
+    # where they take its shape (16-byte pitches, K >= 16): the WMMA and
+    # fp32 tiles are for what they refuse.
+    from repro_torch.core import tiling
+    off = sorted({(bb, m, k, n) for bb, m, k, n, dt, _, path in trace
+                  if path == "wmma" and k >= tiling.MIN_K
+                  and (k * dt.itemsize) % 16 == 0
+                  and (n * dt.itemsize) % 16 == 0})
+    print(f"  [{'ok' if not off else 'FAIL'}] {arch}: every aligned "
+          f"product on the weight stream or the wgmma tile"
+          + (f"; on wmma: {off[:8]}" if off else ""))
+    if off:
+        failures.append(f"{arch} train products on the wmma tile: {off}")
+
+    # Model FLOPs: 3x the forward's (the backward does twice its work):
+    # its GEMMs (the first launches of the step) and its attention.
+    from repro_torch.kernels import mma_attention as A
+    fwd_gemm = sum(2 * bb * m * k * n for bb, m, k, n, *_ in
+                   trace[:want["forward_gemm"]])
+    fwd_attn = sum(4 * d * h * bb * A.attn_live_pairs(
+        sq, sk, causal=causal, q_offset=qo, window=win)
+        for bb, sq, sk, h, _, d, _, causal, qo, win, _, _ in
+        attn_trace[:want.get("mma_flash_attention", 0)])
+    step_ms = sorted(times)[len(times) // 2]
+    flops = 3 * (fwd_gemm + fwd_attn)
+    print(f"  {arch} train step: {step_ms:.2f} ms (host clock, median of "
+          f"{steps}; {[round(t, 1) for t in times]}), {b * s / step_ms * 1e3:.0f}"
+          f" tokens/s, model {flops / 1e12:.2f} TFLOP a step = "
+          f"{flops / step_ms / 1e9:.1f} TFLOP/s ({flops / step_ms / 1e9 / 989:.3f}"
+          f" of the 989 bf16 peak), peak device memory {peak:.2f} GiB")
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        prof = profile_step(torch, "train step",
+                            lambda: step(state, batch), step_ms)
+    check_checkpoint(torch, failures, arch, state, steps)
+    del state, model, step, make_state, make_step
+    torch.cuda.empty_cache()
+    # The same steps from the same weights on the eager torch backend: each
+    # step's loss within 2e-2 relative, as step 1's is held.
+    make_state, make_step = T.build(cfg, lr=TRAIN["lr"], total_steps=steps,
+                                    weight_decay=0.0, seed=0, device="cuda",
+                                    backend="torch")
+    state, step = make_state(), make_step()
+    eager = []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        eager.append(metrics["loss"])
+    eager = torch.stack(eager).tolist()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, eager))
+    ok = worst <= 2e-2
+    print(f"  [{'ok' if ok else 'FAIL'}] {arch} the same steps on the eager "
+          f"torch backend: losses {[round(x, 4) for x in eager]}; kernel "
+          f"backend within {worst:.2e} relative (tol 2e-2)")
+    if not ok:
+        failures.append(f"{arch} loss curve against the torch backend")
+    del state, step, make_state, make_step, batch
+    return launches, dict(step_ms=step_ms, tokens_per_s=b * s / step_ms * 1e3,
+                          tflops=flops / step_ms / 1e9, peak_gib=peak,
+                          losses=losses,
+                          busy_ms=prof[0] if prof else None,
+                          idle=prof[1] if prof else None)
+
+
 def main() -> None:
     try:
         import torch
@@ -1455,6 +1807,21 @@ def main() -> None:
         step_breakdown(torch, *steps)
         del steps
         torch.cuda.empty_cache()
+    check_main_paths(failures)
+
+    print("== phase 4: the runs' GEMM, attention and depthwise conv "
+          "shapes, checked and timed", flush=True)
+    time_run_shapes(torch, entries, failures, list(RECORDS))
+
+    print("== phase 5: train", flush=True)
+    for arch, layers in TRAIN_RUNS:
+        by_run[f"{arch} train"], _ = train(torch, failures, arch, layers)
+        torch.cuda.empty_cache()
+    print("== phase 5: the train runs' GEMM (forward, dX, dW, recompute), "
+          "attention and depthwise conv shapes, checked and timed",
+          flush=True)
+    time_run_shapes(torch, entries, failures,
+                    [f"{arch} train" for arch, _ in TRAIN_RUNS])
     for e in entries:
         e["launches_by_run"] = {a: n[e["name"]] for a, n in by_run.items()}
         e["launches"] = sum(e["launches_by_run"].values())
@@ -1462,11 +1829,6 @@ def main() -> None:
             e["launches_by_path"] = {
                 p: sum(r["by_path"][e["name"]][p] for r in RECORDS.values())
                 for p in next(iter(RECORDS.values()))["by_path"][e["name"]]}
-    check_main_paths(failures)
-
-    print("== phase 4: the runs' GEMM and attention shapes, checked and "
-          "timed", flush=True)
-    time_run_shapes(torch, entries, failures)
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:

@@ -27,6 +27,18 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
 There is no guarded ladder yet (ROADMAP slice D1): a kernel that fails to
 build or launch raises, it never demotes silently to another backend.
 
+Gradients
+---------
+Every lowering is differentiable.  The ``torch`` and ``ref`` lowerings are
+eager torch ops under plain autograd.  The ``kernel`` routes reach the
+kernel wrappers, each a ``torch.autograd.Function`` where an operand
+requires a gradient: the GEMM's backward is more GEMM products on its
+kernels; the backward of attention and of both convolutions is, statically,
+this module's torch lowering (``torch_attention``, ``torch_conv``)
+differentiated on a recomputation, because no TPU backward kernel exists
+to port (the reference's Pallas kernels have no gradient).  That is a
+static route like the einsum one, not a failure fallback.
+
 ACC lifecycle
 -------------
 Every gemm-class lowering implements the same three-phase accumulator
@@ -697,29 +709,39 @@ def _lower_kernel_conv(op: Op):
     return prod.to(op.out_dtype)
 
 
+def torch_conv(x4, w4, strides, depthwise: bool, acc_dtype):
+    """One eager torch convolution of a padded NHWC image and HWIO (or
+    depthwise HWC) filters, both up-cast to the accumulator dtype, with
+    cuDNN's TF32 off: the accumulator-dtype NHWC result.  One pass of the
+    torch conv lowering, and the backward of the conv kernels' Functions,
+    which differentiate this recomputation."""
+    xi = x4.to(acc_dtype).permute(0, 3, 1, 2)
+    wi = w4.to(acc_dtype)
+    with _cudnn_fp32():
+        if depthwise:                     # (KH, KW, C) -> (C, 1, KH, KW)
+            o = torch.nn.functional.conv2d(
+                xi, wi.permute(2, 0, 1)[:, None], stride=strides,
+                groups=wi.shape[2])
+        else:                             # (KH, KW, C, F) -> (F, C, KH, KW)
+            o = torch.nn.functional.conv2d(xi, wi.permute(3, 2, 0, 1),
+                                           stride=strides)
+    return o.permute(0, 2, 3, 1)          # NCHW -> NHWC
+
+
 @register("torch", "conv")
 def _lower_torch_conv(op: Op):
-    """One eager torch convolution per architected pass, then the epilogue
-    at deprime.  Per pass, the inputs are rounded to that pass family's
-    operand dtype and up-cast to the accumulator dtype for the conv
-    itself, as a reduced-precision pass into a wide accumulator."""
+    """One eager torch convolution per architected pass
+    (:func:`torch_conv`), then the epilogue at deprime.  Per pass, the
+    inputs are rounded to that pass family's operand dtype and up-cast to
+    the accumulator dtype for the conv itself, as a reduced-precision pass
+    into a wide accumulator."""
     x4, w4, strides, depthwise, squeeze = _conv_norm(op)
-    acc_dtype = op.pol.acc_dtype
     out = None
-    with _cudnn_fp32():
-        for xi, wi, kind in _passes(op.ger, x4, w4):
-            pk = precision.policy(kind)
-            xi = xi.to(pk.x_dtype).to(acc_dtype).permute(0, 3, 1, 2)
-            wi = wi.to(pk.y_dtype).to(acc_dtype)
-            if depthwise:                 # (KH, KW, C) -> (C, 1, KH, KW)
-                o = torch.nn.functional.conv2d(
-                    xi, wi.permute(2, 0, 1)[:, None], stride=strides,
-                    groups=wi.shape[2])
-            else:                         # (KH, KW, C, F) -> (F, C, KH, KW)
-                o = torch.nn.functional.conv2d(
-                    xi, wi.permute(3, 2, 0, 1), stride=strides)
-            o = o.permute(0, 2, 3, 1)     # NCHW -> NHWC
-            out = o if out is None else out + o
+    for xi, wi, kind in _passes(op.ger, x4, w4):
+        pk = precision.policy(kind)
+        o = torch_conv(xi.to(pk.x_dtype), wi.to(pk.y_dtype), strides,
+                       depthwise, op.pol.acc_dtype)
+        out = o if out is None else out + o
     if squeeze:
         out = out[:, 0]
     out = _epilogue_mod.apply(out, op.epilogue, bias=op.bias,
@@ -807,31 +829,42 @@ def attend_chunk(q, k, v, *, q_pos, kv_pos, causal, window, valid):
     return torch.einsum("bhck,bkhd->bchd", p.to(v.dtype).float(), v.float())
 
 
-@register("torch", "attn")
-def _lower_torch_attn(op: Op):
-    """Chunked two-product attention: a loop over query chunks bounds live
-    scores to (B, H, chunk, Sk), ragged tail chunk included."""
-    pol = op.pol
-    q = op.x.to(pol.x_dtype)
-    k = op.y.to(pol.x_dtype)
-    v = op.z.to(pol.y_dtype)
+def torch_attention(q, k, v, *, causal, window, q_offset, valid,
+                    q_chunk=0, ep=None, bias=None, residual=None,
+                    out_dtype=None):
+    """Chunked two-product attention in eager torch ops on q (B, Sq, H, D)
+    and k, v (B, Sk, KVH, D) of the family's input dtypes: a loop over
+    query chunks bounds live scores to (B, H, chunk, Sk), ragged tail
+    chunk included; then the epilogue and the cast.  The torch attn
+    lowering, and the backward of the attention kernel's Function, which
+    differentiates this recomputation."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     k = repeat_kv(k, h // k.shape[2])
     v = repeat_kv(v, h // v.shape[2])
-    valid = (op.valid.to(torch.bool).reshape(-1, sk)
-             if op.valid is not None else None)
-    pos = (torch.arange(sq, device=q.device) + op.q_offset)[None]
+    valid = (valid.to(torch.bool).reshape(-1, sk)
+             if valid is not None else None)
+    pos = (torch.arange(sq, device=q.device) + q_offset)[None]
     kv_pos = torch.arange(sk, device=q.device)[None]
-    chunk = min(op.q_chunk or ATTN_Q_CHUNK, sq)
+    chunk = min(q_chunk or ATTN_Q_CHUNK, sq)
     out = torch.cat([
         attend_chunk(q[:, s:s + chunk], k, v, q_pos=pos[:, s:s + chunk],
-                     kv_pos=kv_pos, causal=op.causal, window=op.window,
+                     kv_pos=kv_pos, causal=causal, window=window,
                      valid=valid)
         for s in range(0, sq, chunk)], dim=1)
-    out = _epilogue_mod.apply(out, op.epilogue, bias=op.bias,
-                              residual=op.residual)
-    return out.to(op.out_dtype)
+    out = _epilogue_mod.apply(out, ep, bias=bias, residual=residual)
+    return out.to(out_dtype or q.dtype)
+
+
+@register("torch", "attn")
+def _lower_torch_attn(op: Op):
+    """Eager chunked attention (:func:`torch_attention`)."""
+    pol = op.pol
+    return torch_attention(
+        op.x.to(pol.x_dtype), op.y.to(pol.x_dtype), op.z.to(pol.y_dtype),
+        causal=op.causal, window=op.window, q_offset=op.q_offset,
+        valid=op.valid, q_chunk=op.q_chunk, ep=op.epilogue, bias=op.bias,
+        residual=op.residual, out_dtype=op.out_dtype)
 
 
 @register("ref", "attn")

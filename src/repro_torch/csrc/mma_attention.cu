@@ -40,10 +40,11 @@
 //     while the tensor cores finish the latter.
 //   * The masked-block guard stays: p = 0 where the running max is still
 //     -inf, and a row with l = 0 stores 0 before the epilogue.
-//   * Split-KV (n_split > 1, chosen by the wrapper for Sq <= 64 when the
-//     (b, h) pairs do not fill the card): block (.., split) walks its
-//     share of the KV blocks and writes an fp32 partial -- unnormalised O,
-//     its running max m (log2 domain) and sum l -- to a workspace; a
+//   * Split-KV (n_split > 1, chosen by the wrapper for Sq <= 64 from H
+//     and Sk alone, so that a row sums in one order at any batch): block
+//     (.., split) walks its share of the KV blocks and writes an fp32
+//     partial -- unnormalised O, its running max m (log2 domain) and sum
+//     l -- to a workspace; a
 //     second kernel merges the partials of each row in split order by
 //     log-sum-exp, then applies the guard, the normalisation and the
 //     epilogue once.

@@ -7,11 +7,15 @@ the same way, drawn in the same order.  Beside the tokens it makes each
 family's model inputs: mel ``frames`` and the fixed-length decoder
 ``tokens``/``labels`` for the encoder-decoder (audio) kind, raw ``images``
 (or precomputed ``vision_embeds`` for stub configs) and the M-RoPE
-``positions`` for the vision-language kind.  The reference's host-sharded
-``Prefetcher`` comes with the train launcher (ROADMAP slice A10).
+``positions`` for the vision-language kind.  ``Prefetcher`` makes the
+batches of consecutive steps on a background thread and puts each on the
+model's device as it is taken.
 """
 
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -54,3 +58,56 @@ def device_batch(host_batch: dict, device) -> dict:
     """Put a host batch on ``device`` (one copy per array, dtypes kept)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host_batch.items()}
+
+
+class Prefetcher:
+    """Background-thread prefetch of step-addressable batches: iterating
+    yields ``(step, device batch)`` for ``start_step``, ``start_step + 1``,
+    ... with ``depth`` host batches made ahead.  An error in the worker is
+    raised by the ``next()`` that reaches it; ``close()`` stops and joins
+    the worker."""
+
+    def __init__(self, cfg, *, batch: int, seq: int, device,
+                 start_step: int = 0, seed: int = 0, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._device = device
+        self._err: BaseException | None = None
+
+        def put(item) -> bool:
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def work():
+            step = start_step
+            try:
+                while put((step, synthetic_batch(cfg, batch=batch, seq=seq,
+                                                 step=step, seed=seed))):
+                    step += 1
+            except BaseException as e:  # repro: allow(overbroad-except)
+                # the producer thread: the consumer's next() re-raises it
+                put((None, e))
+
+        self._t = threading.Thread(target=work, daemon=True)
+        self._t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._err is not None:
+            raise self._err
+        step, b = self._q.get()
+        if step is None:
+            self._err = b
+            raise b
+        return step, device_batch(b, self._device)
+
+    def close(self):
+        self._stop.set()
+        self._t.join()

@@ -21,6 +21,12 @@ merge) where :func:`split_kv_plan` splits, else
 kernel or raises.  ``mma_flash_attention.launches`` counts attention
 calls run on the card (the split-KV merge is part of its call), and
 nothing else.
+
+Gradients: where q, k, v, bias or the residual requires one, the call
+runs as a ``torch.autograd.Function``: the forward is the kernel (or the
+plain version on the CPU), the backward differentiates a recomputation
+through the torch lowering (``core.lowering.torch_attention``; no TPU
+backward kernel exists, see ``kernels._autograd``) and launches nothing.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tiling import NUM_SMS
-from repro_torch.kernels import _build
+from repro_torch.kernels import _autograd, _build
 from repro_torch.kernels import epilogue as _epilogue
 
 NEG_INF = -1e30
@@ -119,16 +125,19 @@ def attn_block_q(b: int, h: int, sq: int) -> int:
     return BLOCK_Q if -(-sq // BLOCK_Q) * b * h >= NUM_SMS else BLOCK_Q_SHORT
 
 
-def split_kv_plan(b: int, h: int, sq: int, sk: int) -> tuple[int, int]:
+def split_kv_plan(h: int, sq: int, sk: int) -> tuple[int, int]:
     """(n_split, KV blocks per split) of a launch.  Queries of at most 64
-    rows (one q tile) whose (b, h) pairs leave SMs idle split their KV
-    blocks so that the grid fills the card in one wave of two blocks per
-    SM; each split walks ``per`` consecutive blocks of the tile's live
-    range.  Otherwise (1, all blocks)."""
+    rows (one q tile) split their KV blocks so that one batch element's
+    (h, split) blocks fill the card in one wave of two blocks per SM; each
+    split walks ``per`` consecutive blocks of the tile's live range.
+    Otherwise (1, all blocks).  The plan does not read the batch: a query
+    row is summed in the same order at any B (a larger batch runs more
+    waves), as the reference's kernel schedules each (b, h, q-block)
+    alike."""
     nk = -(-sk // BLOCK_K)
-    if sq > BLOCK_Q_SHORT or b * h >= NUM_SMS or nk < 2:
+    if sq > BLOCK_Q_SHORT or nk < 2:
         return 1, nk
-    per = -(-nk // min(nk, 2 * NUM_SMS // (b * h)))
+    per = -(-nk // max(1, min(nk, 2 * NUM_SMS // h)))
     return -(-nk // per), per
 
 
@@ -230,8 +239,28 @@ def flash_attention_splitkv_plain(q, k, v, *, n_split: int, per: int,
     dtype, its max m_s and sum l_s; a split with no live slot has
     m_s = -inf and zeros); the partials merge in split order by
     log-sum-exp, a row with l = 0 gives 0, then the epilogue and the
-    cast."""
+    cast.  Each batch element is computed on its own, as the kernel's
+    blocks are, so a row's result does not depend on the batch around
+    it."""
     b, sq, h, d = q.shape
+    sk = k.shape[1]
+    rows = None
+    if valid is not None:
+        rows = valid.to(torch.bool).reshape(-1, sk)
+    out = torch.cat([_splitkv_one(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], n_split=n_split, per=per,
+        causal=causal, q_offset=q_offset, window=window,
+        valid=None if rows is None else rows[i % rows.shape[0]][None])
+        for i in range(b)])
+    out = _epilogue.apply(out, ep, bias=bias, residual=residual)
+    return out.to(out_dtype or q.dtype)
+
+
+def _splitkv_one(q, k, v, *, n_split, per, causal, q_offset, window,
+                 valid):
+    """One batch element's split-KV partials and their merge: the fp32
+    (1, Sq, H, D) output before the epilogue."""
+    _, sq, h, d = q.shape
     kvh, sk = k.shape[2], k.shape[1]
     kr, vr = repeat_kv(k, h // kvh).float(), repeat_kv(v, h // kvh)
     lo, hi = attn_k_bounds(0, -(-sk // BLOCK_K), bq=BLOCK_Q_SHORT,
@@ -243,9 +272,9 @@ def flash_attention_splitkv_plain(q, k, v, *, n_split: int, per: int,
         b0 = lo + s * per
         k0, k1 = min(sk, b0 * BLOCK_K), min(sk, min(hi, b0 + per) * BLOCK_K)
         if k1 <= k0:
-            parts.append((torch.full((b, h, sq, 1), NEG_INF, device=q.device),
-                          torch.zeros((b, h, sq, 1), device=q.device),
-                          torch.zeros((b, h, sq, d), device=q.device)))
+            parts.append((torch.full((1, h, sq, 1), NEG_INF, device=q.device),
+                          torch.zeros((1, h, sq, 1), device=q.device),
+                          torch.zeros((1, h, sq, d), device=q.device)))
             continue
         sc = torch.einsum("bqhd,bkhd->bhqk", qf, kr[:, k0:k1]) * (d ** -0.5)
         live = _live_mask(sq, sk, k0, k1, causal=causal, window=window,
@@ -260,16 +289,14 @@ def flash_attention_splitkv_plain(q, k, v, *, n_split: int, per: int,
         parts.append((m_s, p.sum(-1, keepdim=True), o_s))
     m_all = torch.stack([m for m, _, _ in parts]).amax(0)
     l_all = torch.zeros_like(m_all)
-    o_all = torch.zeros((b, h, sq, d), device=q.device)
+    o_all = torch.zeros((1, h, sq, d), device=q.device)
     for m_s, l_s, o_s in parts:              # split order
         w = torch.where(m_all > NEG_INF, torch.exp(m_s - m_all),
                         torch.zeros_like(m_s))
         l_all = l_all + w * l_s
         o_all = o_all + w * o_s
     out = o_all / torch.where(l_all == 0, torch.ones_like(l_all), l_all)
-    out = _epilogue.apply(out.permute(0, 2, 1, 3), ep, bias=bias,
-                          residual=residual)
-    return out.to(out_dtype or q.dtype)
+    return out.permute(0, 2, 1, 3)
 
 
 # ----------------------------------------------------------------------
@@ -303,7 +330,54 @@ def mma_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window`` the sliding-window width (q attends k with
     ``q_pos - k_pos < window``); ``valid`` an optional (Sk,), (1, Sk) or
     (B, Sk) filled-slot predicate.  ``ep`` fuses bias (D,) / activation /
-    residual (B, Sq, H, D) into the normalised store."""
+    residual (B, Sq, H, D) into the normalised store.  Differentiable
+    where an operand requires a gradient (the module docstring says
+    how)."""
+    opts = dict(causal=causal, q_offset=q_offset, window=window, ep=ep,
+                out_dtype=out_dtype)
+    if _autograd.wants_grad(q, k, v, bias, residual):
+        return _FlashAttentionFn.apply(q, k, v, valid, bias, residual, opts)
+    return _mma_flash_attention(q, k, v, valid=valid, bias=bias,
+                                residual=residual, **opts)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Attention under autograd: the kernel forward; the backward
+    differentiates the torch lowering's recomputation."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, bias, residual, opts):
+        ctx.opts = opts
+        ctx.res_dtype = residual.dtype if residual is not None else None
+        ctx.save_for_backward(q, k, v, valid, bias)
+        return _mma_flash_attention(q, k, v, valid=valid, bias=bias,
+                                    residual=residual, **opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.core import lowering   # imports this module
+        q, k, v, valid, bias = ctx.saved_tensors
+        o = ctx.opts
+        need = ctx.needs_input_grad
+
+        def recomputed(q, k, v, bias):
+            return lowering.torch_attention(
+                q, k, v, causal=o["causal"], window=o["window"],
+                q_offset=o["q_offset"], valid=valid,
+                ep=_autograd.without_residual(o["ep"]), bias=bias,
+                out_dtype=dout.dtype)
+
+        dq, dk, dv, dbias = _autograd.recompute(
+            recomputed, (q, k, v, bias), (need[0], need[1], need[2], need[4]),
+            dout)
+        return (dq, dk, dv, None, dbias,
+                (dout.to(ctx.res_dtype) if need[5] else None), None)
+
+
+def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
+                         bias, residual, out_dtype) -> torch.Tensor:
+    """The dispatch of one attention call: the plain version on a CPU
+    tensor, the kernel on a CUDA tensor."""
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -320,7 +394,7 @@ def mma_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif bias is not None or residual is not None:
         raise ValueError("bias/residual operands need an Epilogue")
     out_dtype = out_dtype or q.dtype
-    n_split, per = split_kv_plan(b, h, sq, sk)
+    n_split, per = split_kv_plan(h, sq, sk)
     flags = dict(causal=causal, q_offset=q_offset, window=window,
                  valid=valid, ep=ep, bias=bias, residual=residual,
                  out_dtype=out_dtype)
@@ -356,6 +430,9 @@ def mma_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if valid is not None:
         valid = torch.broadcast_to(valid.to(torch.bool).reshape(-1, sk),
                                    (b, sk)).to(torch.uint8).contiguous()
+    if b * n_split > 65535:
+        raise ValueError(f"grid too large for one launch: b={b} x "
+                         f"{n_split} splits")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     bias = bias.contiguous() if bias is not None else None
     residual = residual.contiguous() if residual is not None else None

@@ -33,6 +33,13 @@ version, whatever the path.  A CUDA tensor launches the chosen kernel or
 raises: there is no fallback.  Each wrapper's ``launches`` counts its
 kernel's launches, ``launches_by_path`` the same by path, and nothing
 else.
+
+Gradients: where the image, the filters, the bias or the residual
+requires one, each wrapper runs as a ``torch.autograd.Function``: the
+forward is its kernel (or the plain version on the CPU), the backward
+differentiates a recomputation through the torch conv lowering
+(``core.lowering.torch_conv``; no TPU backward kernel exists, see
+``kernels._autograd``) and launches nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import ctypes
 import torch
 
 from repro_torch.core import precision, tiling
-from repro_torch.kernels import _build
+from repro_torch.kernels import _autograd, _build
 from repro_torch.kernels import epilogue as _epilogue
 from repro_torch.kernels import ref as _ref
 
@@ -133,6 +140,40 @@ def _check_epilogue(ep, bias, residual, out_shape, f):
     return ep
 
 
+class _ConvFn(torch.autograd.Function):
+    """A conv kernel under autograd: the kernel forward (``dispatch``);
+    the backward differentiates the torch conv lowering's
+    recomputation."""
+
+    @staticmethod
+    def forward(ctx, image, filters, bias, residual, dispatch, opts):
+        ctx.opts = opts
+        ctx.res_dtype = residual.dtype if residual is not None else None
+        ctx.save_for_backward(image, filters, bias)
+        return dispatch(image, filters, bias=bias, residual=residual, **opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.core import lowering   # imports this module
+        image, filters, bias = ctx.saved_tensors
+        o = ctx.opts
+        need = ctx.needs_input_grad
+
+        def recomputed(image, filters, bias):
+            out = lowering.torch_conv(image, filters, o["stride"],
+                                      filters.ndim == 3, torch.float32)
+            out = _epilogue.apply(out, _autograd.without_residual(o["ep"]),
+                                  bias=bias)
+            return out.to(dout.dtype)
+
+        di, df, db = _autograd.recompute(
+            recomputed, (image, filters, bias), (need[0], need[1], need[2]),
+            dout)
+        return (di, df, db,
+                (dout.to(ctx.res_dtype) if need[3] else None), None,
+                None)
+
+
 def mma_depthwise_conv2d(image: torch.Tensor, taps: torch.Tensor, *,
                          stride: tuple[int, int] = (1, 1),
                          out_dtype: torch.dtype = torch.float32,
@@ -145,8 +186,22 @@ def mma_depthwise_conv2d(image: torch.Tensor, taps: torch.Tensor, *,
     image (N, H, W, C) and taps (KH, KW, C) of one dtype (f32, bf16 or
     f16) -> (N, OH, OW, C) in ``out_dtype``; ``ep`` fuses bias (C,),
     activation and residual (N, OH, OW, C) into the single store.
+    Differentiable where an operand requires a gradient (the module
+    docstring says how).
     """
-    stride = tuple(int(s) for s in stride)
+    opts = dict(stride=tuple(int(s) for s in stride), out_dtype=out_dtype,
+                ep=ep)
+    if _autograd.wants_grad(image, taps, bias, residual):
+        return _ConvFn.apply(image, taps, bias, residual,
+                             _mma_depthwise_conv2d, opts)
+    return _mma_depthwise_conv2d(image, taps, bias=bias, residual=residual,
+                                 **opts)
+
+
+def _mma_depthwise_conv2d(image, taps, *, stride, out_dtype, ep, bias,
+                          residual) -> torch.Tensor:
+    """K4's dispatch: the plain version on a CPU tensor, the kernel on a
+    CUDA tensor."""
     n, oh, ow, c = _geometry(image, taps, stride)
     out_shape = (n, oh, ow, c)
     ep = _check_epilogue(ep, bias, residual, out_shape, c)
@@ -187,14 +242,24 @@ def mma_depthwise_conv2d(image: torch.Tensor, taps: torch.Tensor, *,
         _epilogue.ACT_CODES[ep.activation if ep is not None else None],
         vec, torch.cuda.current_stream(image.device).cuda_stream)
     _build.check(lib, rc, "mma_depthwise_conv2d")
+    path = "vector" if vec else "scalar"
     mma_depthwise_conv2d.launches += 1
-    mma_depthwise_conv2d.launches_by_path[
-        "vector" if vec else "scalar"] += 1
+    mma_depthwise_conv2d.launches_by_path[path] += 1
+    if mma_depthwise_conv2d.trace is not None:
+        mma_depthwise_conv2d.trace.append(
+            (tuple(image.shape), tuple(taps.shape[:2]), tuple(stride),
+             image.dtype, out_dtype,
+             ep.activation if ep is not None else None, bias is not None,
+             residual is not None, path))
     return out
 
 
 mma_depthwise_conv2d.launches = 0
 mma_depthwise_conv2d.launches_by_path = dict.fromkeys(DEPTHWISE_PATHS, 0)
+# A list to record (image shape, (KH, KW), stride, dtype, out dtype,
+# activation, bias given, residual given, path) of each launch into, or
+# None (chip_smoke.py).
+mma_depthwise_conv2d.trace = None
 
 
 # ----------------------------------------------------------------------
@@ -248,9 +313,21 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
     activation and residual (N, OH, OW, F) into the single store.  ``bf``
     names the WMMA filter tile, which must be ``CONV_TILE`` of the input
     dtype; None lets ``core.tiling.choose_conv_path`` pick the kernel.  It
-    changes no result beyond the order of the fp32 sums.
+    changes no result beyond the order of the fp32 sums.  Differentiable
+    where an operand requires a gradient (the module docstring says how).
     """
-    stride = tuple(int(s) for s in stride)
+    opts = dict(bf=bf, stride=tuple(int(s) for s in stride),
+                out_dtype=out_dtype, ep=ep)
+    if _autograd.wants_grad(image, kernels, bias, residual):
+        return _ConvFn.apply(image, kernels, bias, residual, _mma_conv2d,
+                             opts)
+    return _mma_conv2d(image, kernels, bias=bias, residual=residual, **opts)
+
+
+def _mma_conv2d(image, kernels, *, bf, stride, out_dtype, ep, bias,
+                residual) -> torch.Tensor:
+    """K3's dispatch: the plain version on a CPU tensor, the kernel on a
+    CUDA tensor."""
     n, oh, ow, f = _dense_geometry(image, kernels, stride)
     if image.dtype not in _GER or kernels.dtype != image.dtype:
         raise TypeError(f"the conv kernel takes image and filters of one "

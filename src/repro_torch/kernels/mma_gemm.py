@@ -23,6 +23,18 @@ tensor launches a kernel or raises: there is no fallback.
 ``mma_gemm.launches`` counts products computed on the card (one per call,
 whatever the path or split), ``mma_gemm.launches_by_path`` the same by
 path, and nothing else.
+
+Gradients: where an operand requires one, ``mma_gemm`` runs as a
+``torch.autograd.Function`` whose forward is the same dispatch and whose
+backward is more products through this wrapper (the reference has no
+backward kernel: its Pallas GEMM cannot be differentiated, and it trains
+on XLA's products): dX = alpha (+/-) dZ Y^T and dY = alpha (+/-) X^T dZ
+in the forward's family (dZ cast to its input dtype, fp32 accumulation),
+dC = alpha beta (+/-) dZ for the seed, dbias the row sum of dZ and
+dresidual = dOut.  Under a fused activation Z is not stored: one more
+product with the bias epilogue only and an fp32 store recomputes it, and
+dZ = dOut act'(Z).  The backward's operands X^T and Y^T are contiguous
+copies (the kernels read row-major operands).
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.core import precision, tiling
-from repro_torch.kernels import _build
+from repro_torch.kernels import _autograd, _build
 from repro_torch.kernels import epilogue as _epilogue
 
 Ger = precision.Ger
@@ -166,8 +178,86 @@ def mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     ``c`` is the optional ((B,) M, N) accumulator seed (the pp/np/pn/nn
     forms); ``ep`` fuses bias (N,), activation and residual ((B,) M, N)
     into the single store; ``block`` picks one of the compiled tiles
-    (``core.tiling.GEMM_TILES``) instead of ``choose_blocks``.
+    (``core.tiling.GEMM_TILES``) instead of ``choose_blocks``.  Where an
+    operand requires a gradient the call is differentiable (the module
+    docstring says how).
     """
+    opts = dict(kind=kind, block=block, neg_product=neg_product,
+                neg_acc=neg_acc, alpha=alpha, beta=beta, ep=ep,
+                out_dtype=out_dtype)
+    if _autograd.wants_grad(x, y, c, bias, residual):
+        if precision.policy(kind).is_integer:
+            raise TypeError(f"{kind.value} is an integer family: its "
+                            f"products have no gradient")
+        return _MmaGemmFn.apply(x, y, c, bias, residual, opts)
+    return _mma_gemm(x, y, c, bias=bias, residual=residual, **opts)
+
+
+class _MmaGemmFn(torch.autograd.Function):
+    """The GEMM under autograd: the forward is the wrapper's dispatch, the
+    backward more products through the wrapper (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, y, c, bias, residual, opts):
+        ep = opts["ep"]
+        act = ep.activation if ep is not None else None
+        ctx.opts, ctx.act = opts, act
+        ctx.dtypes = tuple(t.dtype if t is not None else None
+                           for t in (x, y, c, bias, residual))
+        # the seed and bias are needed again only to recompute Z
+        ctx.save_for_backward(x, y, c if act else None,
+                              bias if act else None)
+        return _mma_gemm(x, y, c, bias=bias, residual=residual, **opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, y, c, bias = ctx.saved_tensors
+        o = ctx.opts
+        pol = precision.policy(o["kind"])
+        need = ctx.needs_input_grad
+        if ctx.act is not None:
+            z = _mma_gemm(x, y, c, kind=o["kind"], block=o["block"],
+                          neg_product=o["neg_product"], neg_acc=o["neg_acc"],
+                          alpha=o["alpha"], beta=o["beta"],
+                          ep=_epilogue.Epilogue(bias=bias is not None),
+                          bias=bias, out_dtype=torch.float32)
+            with torch.enable_grad():
+                z.requires_grad_(True)
+                a = _epilogue.ACTIVATIONS[ctx.act](z)
+            dz, = torch.autograd.grad(a, z, dout.to(torch.float32))
+        else:
+            dz = dout
+        grads = [None] * 5
+        prod = dict(kind=o["kind"], neg_product=o["neg_product"],
+                    alpha=o["alpha"])
+        if need[0]:
+            grads[0] = _mma_gemm(dz.to(pol.x_dtype), y.transpose(-1, -2),
+                                 out_dtype=ctx.dtypes[0], **prod)
+        if need[1]:
+            grads[1] = _mma_gemm(x.transpose(-1, -2), dz.to(pol.y_dtype),
+                                 out_dtype=ctx.dtypes[1], **prod)
+        if need[2]:
+            s = o["alpha"] * o["beta"] * (-1.0 if o["neg_acc"] else 1.0)
+            grads[2] = (dz.to(torch.float32) * s).to(ctx.dtypes[2])
+        if need[3]:
+            rows = tuple(range(dz.ndim - 1))
+            grads[3] = dz.to(torch.float32).sum(rows).to(ctx.dtypes[3])
+        if need[4]:
+            grads[4] = dout.to(ctx.dtypes[4])
+        return (*grads, None)
+
+
+def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
+              *, kind: Ger = Ger.BF16GER2,
+             block: tuple[int, int, int] | None = None,
+             neg_product: bool = False, neg_acc: bool = False,
+             alpha: float = 1.0, beta: float = 1.0,
+             ep: _epilogue.Epilogue | None = None,
+             bias: torch.Tensor | None = None,
+             residual: torch.Tensor | None = None,
+             out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The dispatch of one product: the plain version on a CPU tensor, a
+    kernel on a CUDA tensor."""
     pol = precision.policy(kind)
     if kind == Ger.F32GER_3XBF16:
         raise ValueError(

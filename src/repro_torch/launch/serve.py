@@ -92,6 +92,7 @@ def _scatter_prefill(cache, pre, slot):
     return cache
 
 
+@torch.inference_mode()
 def serve_loop(cfg, model, *, batch: int, prompt_len: int, gen_len: int,
                n_requests: int, seed: int = 0, page_size: int = 16,
                total_pages: int | None = None,
@@ -106,7 +107,11 @@ def serve_loop(cfg, model, *, batch: int, prompt_len: int, gen_len: int,
     encoder-decoder config (whisper, whose prefill needs ``frames``) or a
     vision-prefix config (qwen2-vl, whose prefill needs ``images`` and
     M-RoPE ``positions``) raises ``ValueError`` up front; drive those with
-    ``models.model.prefill`` and ``decode_step``."""
+    ``models.model.prefill`` and ``decode_step``.
+
+    It runs under ``torch.inference_mode()``: a trained model, whose
+    parameters require gradients, is served without building an autograd
+    graph."""
     if cfg.is_enc_dec or cfg.vision_prefix:
         raise ValueError(
             f"{cfg.name}: serve_loop admits token-only prompts, and this "

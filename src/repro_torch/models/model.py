@@ -11,6 +11,11 @@ cross-attention over its output) and vlm (qwen2-vl: dense blocks with
 M-RoPE, the leading ``vision_prefix`` positions fed by a patch-embed conv
 stem).  moe raises ``NotImplementedError`` naming its ROADMAP slice.
 
+``loss_fn`` is the training objective; gradients flow through every
+kernel wrapper (each is a ``torch.autograd.Function`` where an operand
+requires one), and the parameters ``init_params`` builds are frozen
+until ``train.steps.init_train_state`` makes them trainable.
+
 Attention routing: forward / prefill (dense positions) dispatch through
 the facility's ``attn`` op-class via ``layers.sdpa``, which the kernel
 backend runs on the flash kernel; the ring-buffer decode step passes
@@ -391,6 +396,21 @@ def forward(model: Model, batch, cfg, *, collect_cache: bool = False):
     logits = L.logits(model.embed, h, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return logits, aux, (cache if collect_cache else None)
+
+
+def loss_fn(model: Model, batch, cfg):
+    """Teacher-forced loss: the masked mean NLL of ``batch["labels"]``
+    (a label < 0 is masked) under the log-softmax of the fp32 logits, plus
+    the forward's aux loss.  Returns (loss + aux, {"nll", "aux"})."""
+    logits, aux, _ = forward(model, batch, cfg)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    mask = labels >= 0
+    nll = -torch.gather(logp, -1, torch.where(mask, labels, 0).to(
+        torch.int64)[..., None])[..., 0]
+    maskf = mask.to(torch.float32)
+    loss = (nll * maskf).sum() / torch.clip(maskf.sum(), min=1.0)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 def prefill(model: Model, batch, cfg):

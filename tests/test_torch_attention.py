@@ -155,3 +155,38 @@ def test_kernel_tile_is_fixed():
         with pytest.raises(ValueError, match="tile"):
             tfac.contract(tfac.ATTN, q, k, v,
                           plan=tfac.Plan(causal=True, block=(128, 128)))
+
+
+# ----------------------------------------------------------------------
+# Split-KV reads no batch: one query row sums in the same order at any B
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch", [4, 8])
+def test_one_query_row_does_not_depend_on_the_batch(batch):
+    """At Sq = 1, H = 2 over 2560 positions the plan splits KV (40 splits
+    of one block).  Row 0's output from ``mma_flash_attention`` on the CPU
+    (the split-KV plain version, the card's arithmetic) at batch 1 equals
+    the same row inside a batch of 4 and of 8, bit for bit: the plan, and
+    so the order of each row's sums, does not depend on B."""
+    h, sk, d = 2, 2560, 64
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(13, batch, 1, sk, h, h, d))
+    one = tattn.mma_flash_attention(q[:1], k[:1], v[:1], causal=False,
+                                    out_dtype=torch.float32)
+    many = tattn.mma_flash_attention(q, k, v, causal=False,
+                                     out_dtype=torch.float32)
+    assert torch.equal(one[0], many[0])
+    assert tattn.split_kv_plan(h, 1, sk)[0] > 1
+
+
+def test_split_kv_plan_reads_no_batch():
+    """The plan is a function of (h, sq, sk): whisper's cross-attention
+    heads over 1500 encoder positions split the same way for any batch,
+    and prefill (sq > 64) or a single KV block never splits."""
+    import inspect
+    assert list(inspect.signature(tattn.split_kv_plan).parameters) == \
+        ["h", "sq", "sk"]
+    assert tattn.split_kv_plan(12, 1, 1500) == (12, 2)
+    assert tattn.split_kv_plan(2, 1, 2560) == (40, 1)
+    assert tattn.split_kv_plan(12, 65, 1500)[0] == 1
+    assert tattn.split_kv_plan(12, 1, 64) == (1, 1)

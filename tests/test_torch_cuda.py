@@ -265,7 +265,7 @@ def test_attention_variants_match_plain(gen, name):
     qs, ks, dt, kw = _ATTN_CASES[name]
     q, k, v = (_randn(gen, *qs, dtype=dt), _randn(gen, *ks, dtype=dt),
                _randn(gen, *ks, dtype=dt))
-    n_split, per = A.split_kv_plan(qs[0], qs[2], qs[1], ks[1])
+    n_split, per = A.split_kv_plan(qs[2], qs[1], ks[1])
     assert (n_split > 1) == name.startswith(("cross", "decode"))
     got = A.mma_flash_attention(q, k, v, out_dtype=torch.float32, **kw)
     want = A.flash_attention_plain(q, k, v, out_dtype=torch.float32, **kw)
@@ -598,3 +598,154 @@ def test_reduced_serve_goes_through_both_kernels(gen):
     rel = ((logits["kernel"] - logits["torch"]).norm()
            / logits["torch"].norm()).item()
     assert rel < 2e-2
+
+
+# ----------------------------------------------------------------------
+# Gradients: each wrapper's autograd.Function on the card
+# ----------------------------------------------------------------------
+
+# (path, x shape, y shape, kwargs): the forward's path; the backward's
+# products take the paths their own shapes choose
+_GRAD_CASES = {
+    "stream seed alpha": ("stream", (8, 512), (512, 768),
+                          dict(alpha=0.5, beta=-1.0, neg_acc=True,
+                               seeded=True)),
+    "wgmma bias silu residual": ("wgmma", (256, 384), (384, 512),
+                                 dict(ep=E.Epilogue(bias=True,
+                                                    activation="silu",
+                                                    residual=True))),
+    "wgmma batched gelu": ("wgmma", (2, 128, 256), (2, 256, 192),
+                           dict(ep=E.Epilogue(activation="gelu"))),
+    "wmma f32ger bias": ("wmma", (96, 160), (160, 80),
+                         dict(kind=Ger.F32GER, ep=E.Epilogue(bias=True))),
+}
+
+
+def _flip_budget(dz):
+    """Per element of an fp32 dZ, one bf16 ulp where dZ lies within
+    2^-8 ulp of a bf16 rounding midpoint, else 0: where the card's and the
+    CPU's Z, summed in other orders, may round dZ to bf16 apart."""
+    r = dz.to(torch.bfloat16).float()
+    ulp = torch.exp2(torch.floor(torch.log2(dz.abs().clamp_min(1e-30))) - 7)
+    return ulp * ((dz - r).abs() >= ulp / 2 * (1 - 2.0 ** -8))
+
+
+@pytest.mark.parametrize("name", sorted(_GRAD_CASES))
+def test_gemm_function_grads_match_cpu(gen, name):
+    """dX, dY, dbias and the seed's gradient through the K1 Function on
+    the card against the same Function on CPU copies (the plain versions),
+    at the forward store's tolerance (_assert_store_close).  Under a fused
+    activation dZ = dOut act'(Z) is cast to bf16 for the products, and Z
+    comes from each device's own product: where dZ lies at a bf16
+    midpoint the two may round it apart, so dX and dY also get that
+    budget carried through the product (|flips| Y^T and X^T |flips|)."""
+    path, xs, ys, kw = _GRAD_CASES[name]
+    kw = dict(kw)
+    kind = kw.setdefault("kind", Ger.BF16GER2)
+    dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+    out_shape = xs[:-1] + ys[-1:]
+    ops = {"x": _randn(gen, *xs, dtype=dt),
+           "y": _randn(gen, *ys, dtype=dt, scale=ys[-2] ** -0.5)}
+    if kw.pop("seeded", False):
+        ops["c"] = _randn(gen, *out_shape, dtype=torch.float32)
+    ep = kw.get("ep")
+    if ep is not None and ep.bias:
+        ops["bias"] = _randn(gen, ys[-1], dtype=torch.float32)
+    if ep is not None and ep.residual:
+        ops["residual"] = _randn(gen, *out_shape, dtype=dt)
+    dout = _randn(gen, *out_shape, dtype=torch.float32)
+    grads = []
+    for device in ("cuda", "cpu"):
+        leaves = {k: v.detach().to(device).requires_grad_(True)
+                  for k, v in ops.items()}
+        before = dict(G.mma_gemm.launches_by_path)
+        out = G.mma_gemm(leaves["x"], leaves["y"], leaves.get("c"),
+                         bias=leaves.get("bias"),
+                         residual=leaves.get("residual"),
+                         out_dtype=torch.float32, **kw)
+        if device == "cuda":
+            assert G.mma_gemm.launches_by_path[path] == before[path] + 1
+        out.backward(dout.to(device))
+        grads.append({k: v.grad for k, v in leaves.items()})
+    budget = {}
+    if ep is not None and ep.activation is not None and dt != torch.float32:
+        x, y = (ops[k].cpu().float() for k in ("x", "y"))
+        b = ops.get("bias")
+        z = torch.matmul(x, y) + (b.cpu() if b is not None else 0)
+        z.requires_grad_(True)
+        dz, = torch.autograd.grad(E.ACTIVATIONS[ep.activation](z), z,
+                                  dout.cpu())
+        flips = _flip_budget(dz)
+        budget = {"x": torch.matmul(flips, y.abs().transpose(-1, -2)),
+                  "y": torch.matmul(x.abs().transpose(-1, -2), flips)}
+    bad = []
+    for k, g in grads[0].items():
+        assert g.dtype == ops[k].dtype
+        want = grads[1][k].float()
+        err = (g.cpu().float() - want).abs()
+        if g.dtype == torch.float32:
+            tol = 2e-5 * want.abs() + 2e-5 * want.abs().max()
+        else:
+            tol = (torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp_min(1e-30))) - 7)
+                + 1e-4 * want.abs().max())
+        tol = tol + budget.get(k, 0)
+        if not bool((err <= tol).all()):
+            bad.append((k, float(err.max()), float((err / tol).max())))
+    assert not bad, bad
+
+
+def test_attention_and_depthwise_backward_match_torch_lowering(gen):
+    """K2's and K4's Functions: the kernel forward, the backward through
+    the torch lowering's recomputation, against autograd through the
+    torch lowering itself on the card."""
+    from repro_torch.core import lowering
+    q = _randn(gen, 2, 80, 8, 64).requires_grad_(True)
+    k = _randn(gen, 2, 80, 2, 64).requires_grad_(True)
+    v = _randn(gen, 2, 80, 2, 64).requires_grad_(True)
+    launches = A.mma_flash_attention.launches
+    out = A.mma_flash_attention(q, k, v, causal=True, window=50,
+                                out_dtype=torch.float32)
+    assert A.mma_flash_attention.launches == launches + 1
+    dout = _randn(gen, *out.shape, dtype=torch.float32)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = torch.autograd.grad(lowering.torch_attention(
+        q, k, v, causal=True, window=50, q_offset=0, valid=None,
+        out_dtype=torch.float32), (q, k, v), dout)
+    assert A.mma_flash_attention.launches == launches + 1   # backward: none
+    for g, w in zip(got, want):
+        _assert_f32_close(g, w)
+
+    image = _randn(gen, 2, 1, 259, 4224, dtype=torch.float32)
+    taps = _randn(gen, 1, 4, 4224, dtype=torch.float32, scale=0.1)
+    bias = _randn(gen, 4224, dtype=torch.float32)
+    ep = E.Epilogue(bias=True, activation="silu")
+    leaves = [t.requires_grad_(True) for t in (image, taps, bias)]
+    launches = K.mma_depthwise_conv2d.launches
+    out = K.mma_depthwise_conv2d(*leaves[:2], ep=ep, bias=leaves[2])
+    assert K.mma_depthwise_conv2d.launches == launches + 1
+    dout = _randn(gen, *out.shape, dtype=torch.float32)
+    got = torch.autograd.grad(out, leaves, dout)
+    want = torch.autograd.grad(E.apply(lowering.torch_conv(
+        leaves[0], leaves[1], (1, 1), True, torch.float32), ep,
+        bias=leaves[2]), leaves, dout)
+    for g, w in zip(got, want):
+        _assert_f32_close(g, w)
+
+
+def test_attention_row_does_not_depend_on_the_batch(gen):
+    """One query row of split-KV attention (whisper's cross-attention
+    shape) at batch 1 against the same row inside batches of 4 and 8:
+    within its rounding budget (the plan reads no batch, so the row is
+    summed in the same order; the kernel may differ from the plain
+    version only by its rounding)."""
+    q = _randn(gen, 8, 1, 12, 64)
+    k, v = _randn(gen, 8, 1500, 12, 64), _randn(gen, 8, 1500, 12, 64)
+    assert A.split_kv_plan(12, 1, 1500)[0] > 1
+    one = A.mma_flash_attention(q[:1], k[:1], v[:1], causal=False,
+                                out_dtype=torch.float32)
+    budget = A.rounding_budget(q[:1], k[:1], v[:1], causal=False)
+    for b in (4, 8):
+        many = A.mma_flash_attention(q[:b], k[:b], v[:b], causal=False,
+                                     out_dtype=torch.float32)
+        _assert_attn_close(many[:1], one, budget)

@@ -128,15 +128,18 @@ def test_what_the_new_paths_do_not_take_stays_on_wmma():
 
 
 def test_split_kv_plan_fills_the_card_at_whisper_cross_attention():
-    b, h, sk = 4, 12, 1500                  # q (4, 1, 12, 64) over 1500
-    n_split, per = tattn.split_kv_plan(b, h, 1, sk)
+    h, sk = 12, 1500                        # q (4, 1, 12, 64) over 1500
+    n_split, per = tattn.split_kv_plan(h, 1, sk)
     nk = -(-sk // tattn.BLOCK_K)
     assert n_split * per >= nk and (n_split - 1) * per < nk
-    assert tiling.NUM_SMS <= b * h * n_split <= FULL_GRID
-    # prefill shapes and full grids do not split
-    assert tattn.split_kv_plan(1, 32, 256, 256) == (1, 4)
-    assert tattn.split_kv_plan(4, 12, 1500, 1500)[0] == 1
-    assert tattn.split_kv_plan(4, 33, 1, 1500)[0] == 1
+    # one batch element's (h, split) blocks fill the card in one wave
+    assert tiling.NUM_SMS <= h * n_split <= FULL_GRID
+    # prefill shapes do not split
+    assert tattn.split_kv_plan(32, 256, 256) == (1, 4)
+    assert tattn.split_kv_plan(12, 1500, 1500)[0] == 1
+    # the plan reads no batch: more heads than SMs still split, over as
+    # many blocks as one batch element's grid needs (two blocks an SM)
+    assert tattn.split_kv_plan(33, 1, 1500) == (8, 3)
 
 
 # ----------------------------------------------------------------------
@@ -372,7 +375,7 @@ def _attn_inputs(seed, b, sq, sk, h, kvh, d):
 def test_splitkv_plain_matches_reference(name, shape, kw, dtype):
     b, sq, sk, h, kvh, d = shape
     q, k, v = _attn_inputs(sum(map(ord, name)), b, sq, sk, h, kvh, d)
-    n_split, per = tattn.split_kv_plan(b, h, sq, sk)
+    n_split, per = tattn.split_kv_plan(h, sq, sk)
     assert n_split > 1
     jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
     want = np.asarray(jattn.ref_attention(
@@ -398,7 +401,7 @@ def test_splitkv_plain_masked_splits_and_rows_are_exact_zeros():
     valid = np.ones((b, sk), bool)
     valid[0] = False
     valid[1, :128] = False
-    n_split, per = tattn.split_kv_plan(b, h, sq, sk)
+    n_split, per = tattn.split_kv_plan(h, sq, sk)
     assert n_split > 1 and per * tattn.BLOCK_K <= 128
     want = np.asarray(jattn.ref_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
@@ -417,7 +420,7 @@ def test_splitkv_plain_epilogue_matches_pallas():
     rng = np.random.default_rng(9)
     bias = rng.standard_normal((d,)).astype(np.float32)
     res = rng.standard_normal((b, sq, h, d)).astype(np.float32)
-    n_split, per = tattn.split_kv_plan(b, h, sq, sk)
+    n_split, per = tattn.split_kv_plan(h, sq, sk)
     assert n_split > 1
     want = jattn.mma_flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
@@ -448,7 +451,7 @@ def test_rounding_budget_holds_split_kv_and_catches_a_skipped_block(
     b, sq, sk, h, d = 4, 1, 1500, 12, 64
     q, k, v = (torch.from_numpy(a).to(dtype)
                for a in _attn_inputs(11 + skip, b, sq, sk, h, h, d))
-    n_split, per = tattn.split_kv_plan(b, h, sq, sk)
+    n_split, per = tattn.split_kv_plan(h, sq, sk)
     assert n_split > 1
     want = tattn.flash_attention_plain(q, k, v, causal=False,
                                        out_dtype=torch.float32)
