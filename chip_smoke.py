@@ -28,8 +28,10 @@ Phases, each of which must pass or the script exits nonzero:
   3. serve, through ``repro_torch.launch.serve.serve_loop`` with random
      bf16 weights from a seed: deepseek-7b at full width (the GEMM and
      flash-attention kernels), zamba2-1.2b at full width and depth (GEMM,
-     attention, depthwise conv) and mamba2-130m at full width (GEMM and
-     depthwise conv); then generate, through ``models.model.prefill`` and
+     attention, depthwise conv), mamba2-130m at full width (GEMM and
+     depthwise conv) and deepseek-moe-16b at full width and depth (GEMM,
+     its expert banks batched products on the weight stream, and
+     attention); then generate, through ``models.model.prefill`` and
      ``decode_step`` (the serving loop admits token-only prompts), with
      whisper-small (4 clips of 3000 mel frames, a 4-token decoder prompt)
      and qwen2-vl-7b (4 requests of one 448 x 448 image and 64 text
@@ -38,13 +40,16 @@ Phases, each of which must pass or the script exits nonzero:
      Every kernel's launch count is reset just before each run and read
      just after, and must match the per-call model (each kernel of that
      path > 0); then each model's prefill and decode logits on the kernel
-     backend against the eager torch backend, mamba2-130m's exact per-slot
-     prefill handoff, and a profile of one prefill and one decode step of
-     deepseek-7b, zamba2, whisper-small and qwen2-vl-7b.  Each run also
+     backend against the eager torch backend (for deepseek-moe-16b also
+     the share of (token, choice) pairs the two backends routed alike),
+     mamba2-130m's exact per-slot prefill handoff, and a profile of one
+     prefill and one decode step of deepseek-7b, zamba2, deepseek-moe-16b,
+     whisper-small and qwen2-vl-7b.  Each run also
      records the GEMM's and the two convs' launches by path and the shapes
      it gave the GEMM, the attention kernel and the depthwise conv; every
-     decode product must have taken the weight stream, every deepseek-7b
-     and qwen2-vl-7b prefill product the wgmma tile, every one-query
+     decode product and every expert-bank product must have taken the
+     weight stream, every other deepseek-7b, qwen2-vl-7b and
+     deepseek-moe-16b prefill product the wgmma tile, every one-query
      attention split-KV, every dense conv K3's wgmma kernel and every
      depthwise conv K4's vector path;
   4. the runs' shapes: each distinct GEMM, attention and depthwise conv
@@ -53,9 +58,12 @@ Phases, each of which must pass or the script exits nonzero:
   5. train, through ``repro_torch.launch.train.build`` with random fp32
      weights from seed 0 and the default BF16GER2 facility: deepseek-7b at
      full width with its depth cut to 4 layers (fp32 parameters, gradients
-     and both moments of all 30 layers, ~110 GB, do not fit the card) and
-     zamba2-1.2b at full width and depth, each 6 steps of AdamW (lr 3e-5,
-     no weight decay) on one repeated batch of 4 x 512 tokens.  Step 1's
+     and both moments of all 30 layers, ~110 GB, do not fit the card),
+     zamba2-1.2b at full width and depth, deepseek-moe-16b at full width
+     cut to 3 layers (one dense, two MoE) and whisper-small at full width
+     and depth (4 clips of 3000 mel frames, 448 decoder tokens), each 6
+     steps of AdamW (lr 3e-5, whisper-small 1e-3; no weight decay) on one
+     repeated batch of 4 x 512 tokens.  Step 1's
      loss and every parameter's gradient on the kernel backend are held
      against the eager torch backend (the same rule as the logits); the
      loss must be finite, fall at every step after the first update (at
@@ -85,6 +93,7 @@ is absent or where ``src/repro_torch`` is not beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import re
@@ -109,6 +118,11 @@ NUM_LAYERS = None        # None = the config's full depth; an int cuts depth
 SSM_RUNS = (("zamba2-1.2b", SERVE),
             ("mamba2-130m", dict(batch=4, prompt_len=256, gen_len=16,
                                  n_requests=4)))
+# The MoE serving run (ROADMAP B1): deepseek-moe-16b at full width and depth
+# (28 layers: one dense, 27 of 64 routed top-6 experts and 2 shared; 16.4
+# B parameters, 32.8 GB in bf16), its expert banks batched products on the
+# GEMM's batch axis.
+MOE_RUN = ("deepseek-moe-16b", SERVE)
 # The generation runs of the multimodal kinds (slice 3), at full width and
 # depth: whisper-small over 30 s clips (3000 mel frames, its fixed input
 # window) with a 4-token decoder prompt; qwen2-vl-7b with one 448 x 448
@@ -128,8 +142,20 @@ MM_RUNS = {"whisper-small": dict(batch=4, frames=3000, prompt_len=4,
 # losses fall at every step after that, by 36% (deepseek-7b) and 72%
 # (zamba2) over 6 steps; ``fall`` is the least fall from step 1 to the
 # last that the check accepts.
-TRAIN_RUNS = (("deepseek-7b", 4), ("zamba2-1.2b", None))
+# deepseek-moe-16b at 3 of its 28 layers (the dense layer and 2 MoE layers,
+# 1.68 B parameters; full depth needs ~260 GB of fp32 state) and
+# whisper-small at full depth over 4 clips of 3000 mel frames, its fixed
+# 30 s input window (``seq`` is the frame count for the audio kind; its
+# decoder takes its fixed 448 tokens).
+TRAIN_RUNS = (("deepseek-7b", 4), ("zamba2-1.2b", None),
+              ("deepseek-moe-16b", 3), ("whisper-small", None))
 TRAIN = dict(batch=4, seq=512, steps=6, lr=3e-5, fall=0.2)
+TRAIN_SEQ = {"whisper-small": 3000}
+# whisper-small's decoder labels are uniformly random tokens, with no
+# unigram statistics to learn: over 6 steps its loss falls at every rate
+# from 1e-5 to 1e-3, but by 20% only at 1e-3 (26%; 12% at 3e-4, 5.6% at
+# 3e-5: scripts/train_lr_witness.py --card, PERF.md section 6).
+TRAIN_LR = {"whisper-small": 1e-3}
 
 
 def fail(msg: str) -> None:
@@ -856,9 +882,19 @@ def expected_launches(cfg) -> dict:
     a decode step, and one depthwise conv in each; zamba2's shared block
     runs 8 GEMMs (in_proj, q, k, v, o, w1, w3, w2) after each group of
     ``shared_attn_every`` layers, and one flash attention in prefill only;
+    the moe kind's leading dense layers run a dense layer's GEMMs, and
+    each MoE layer 4 attention GEMMs, the router, the expert banks (w1,
+    w3, w2: one batched product each) and the shared experts' MLP;
     plus the logits GEMM."""
     n = cfg.num_layers
     block = 4 + (3 if cfg.gated_mlp else 2)
+    if cfg.family == "moe":
+        fd = cfg.first_dense_layers
+        mlp = 3 if cfg.gated_mlp else 2
+        per_moe = 4 + 1 + mlp + (mlp if cfg.num_shared_experts else 0)
+        gemm = block * fd + per_moe * (n - fd) + 1
+        return {"prefill": {"mma_gemm": gemm, "mma_flash_attention": n},
+                "decode": {"mma_gemm": gemm}}
     if cfg.family in ("dense", "vlm"):
         prefill = {"mma_gemm": block * n + 1, "mma_flash_attention": n}
         if cfg.vision_prefix:
@@ -931,11 +967,13 @@ def take_records(arch, kernels):
 
 def check_main_paths(failures):
     """Every decode product (M = batch) with K >= 768 on the weight stream,
-    every prefill product of deepseek-7b and qwen2-vl-7b on the wgmma
-    tile, every one-query attention (whisper's decode cross-attention) on
-    split-KV, every dense conv (whisper's and qwen2-vl's stems) on K3's
-    wgmma kernel and every depthwise conv (mamba2's) on K4's vector
-    path."""
+    every expert-bank product of deepseek-moe-16b (b = E experts of M <=
+    64 capacity slots, in prefill and in decode) on the weight stream,
+    every other prefill product of deepseek-7b, qwen2-vl-7b and
+    deepseek-moe-16b on the wgmma tile, every one-query attention
+    (whisper's decode cross-attention) on split-KV, every dense conv
+    (whisper's and qwen2-vl's stems) on K3's wgmma kernel and every
+    depthwise conv (mamba2's) on K4's vector path."""
     for arch, rec in RECORDS.items():
         bad = []
         for name, path in (("mma_conv2d", "wgmma"),
@@ -944,12 +982,17 @@ def check_main_paths(failures):
                    if p != path and v}
             if off:
                 bad.append((name, off))
+        banks = arch == MOE_RUN[0]
         for b, m, k, n, _, _, path in rec["gemm"]:
             if b == 1 and m <= 16 and k >= 768 and path != "stream":
                 bad.append((m, k, n, path))
-            if (arch in ("deepseek-7b", "qwen2-vl-7b") and m > 64
-                    and path != "wgmma"):
+            if banks and b > 1 and path != "stream":
+                bad.append((b, m, k, n, path))
+            if (arch in ("deepseek-7b", "qwen2-vl-7b", MOE_RUN[0])
+                    and b == 1 and m > 64 and path != "wgmma"):
                 bad.append((m, k, n, path))
+        if banks and not any(b > 1 for b, *_ in rec["gemm"]):
+            bad.append("no expert-bank product")
         for shape in rec["attn"]:
             if shape[1] == 1 and shape[-1] < 2:
                 bad.append(("attention", shape))
@@ -1191,9 +1234,10 @@ def serve(torch, failures, arch, settings, num_layers=None):
     modes = {"kernel": dict(backend="kernel"), "torch": dict(backend="torch"),
              "f32": dict(backend="torch", ger=facility.Ger.F32GER,
                          out_dtype=torch.float32)}
-    outs = {}
+    outs, routes = {}, {}
     for mode, kw in modes.items():
-        with facility.configure(facility.FacilityConfig(device="cuda", **kw)):
+        with facility.configure(facility.FacilityConfig(device="cuda", **kw)), \
+                recording_routes(routes.setdefault(mode, [])):
             last, _ = M.prefill(model, {"tokens": prompt}, cfg)
             cache = M.init_cache(cfg, 2, 64, device="cuda",
                                  dtype=kw.get("out_dtype", torch.bfloat16))
@@ -1202,9 +1246,57 @@ def serve(torch, failures, arch, settings, num_layers=None):
         outs[mode] = (last.float(), step[:, -1].float())
 
     check_logits(torch, failures, arch, cfg, outs)
+    if routes["kernel"]:
+        print_routing(arch, routes)
     if cfg.family == "ssm":
         check_handoff(torch, failures, model, cfg, prompt)
     return stats, launches, (model, cfg)
+
+
+@contextlib.contextmanager
+def recording_routes(into):
+    """Append each MoE layer's top-k expert ids (``models.moe.route``'s
+    third output, (T, k)) to the list ``into`` while the block runs."""
+    from repro_torch.models import moe as MOE
+
+    real = MOE.route
+
+    def route(p, xf, cfg):
+        out = real(p, xf, cfg)
+        into.append(out[2])
+        return out
+
+    MOE.route = route
+    try:
+        yield
+    finally:
+        MOE.route = real
+
+
+def print_routing(arch, routes):
+    """The share of (token, choice) pairs of the logits check's prefill
+    and decode step that the kernel backend routed to an expert the torch
+    backend also chose for that token (and the torch backend's bf16 to
+    one its f32 chose), over every MoE layer, and in the first and the
+    last MoE layer of the prefill.  The router's output is discontinuous:
+    a near tie that two sums in another order break differently swaps an
+    expert, and the layers' inputs drift apart with depth."""
+    def alike(x, y):
+        return (x[..., :, None] == y[..., None, :]).any(-1)
+
+    def share(a, b, layers=None):
+        pairs = list(zip(routes[a], routes[b]))
+        pairs = pairs if layers is None else [pairs[i] for i in layers]
+        return (sum(int(alike(x, y).sum()) for x, y in pairs)
+                / sum(x.numel() for x, _ in pairs))
+
+    total = sum(x.numel() for x in routes["kernel"])
+    n_moe = len(routes["kernel"]) // 2       # the prefill's, then decode's
+    print(f"  {arch} routing: kernel vs torch backend "
+          f"{share('kernel', 'torch'):.6f} of {total} (token, choice) pairs "
+          f"alike; first MoE layer {share('kernel', 'torch', [0]):.6f}, "
+          f"last {share('kernel', 'torch', [n_moe - 1]):.6f}; torch bf16 vs "
+          f"f32 {share('torch', 'f32'):.6f}")
 
 
 def check_logits(torch, failures, arch, cfg, outs):
@@ -1517,14 +1609,23 @@ def expected_train_launches(cfg) -> dict:
     """Kernel launches per train step, from the code: the forward's, which
     are a prefill's over the batch (``expected_launches``); then the
     backward: two GEMMs (dX, dY) per forward GEMM and one recompute of Z
-    per GEMM with a fused activation (the w1 of each dense layer's MLP, or
-    of the hybrid shared block's at each group); attention and the
-    depthwise conv launch in the forward only (their backward recomputes
-    through the torch lowering)."""
+    per GEMM with a fused activation (the w1 of each dense layer's MLP,
+    of whisper's encoder and decoder MLPs, of each MoE layer's expert bank
+    and shared MLP, or of the hybrid shared block's at each group);
+    attention and both convs launch in the forward only (their backward
+    recomputes through the torch lowering)."""
     fwd = dict(expected_launches(cfg)["prefill"])
     n = cfg.num_layers
-    activated = n if cfg.family in ("dense", "vlm") else (
-        -(-n // cfg.shared_attn_every) if cfg.shared_attn_every else 0)
+    if cfg.family in ("dense", "vlm"):
+        activated = n
+    elif cfg.family == "audio":          # every encoder and decoder MLP
+        activated = cfg.encoder_layers + n
+    elif cfg.family == "moe":            # w1 of each MLP and expert bank
+        fd = cfg.first_dense_layers
+        activated = fd + (n - fd) * (2 if cfg.num_shared_experts else 1)
+    else:
+        activated = (-(-n // cfg.shared_attn_every)
+                     if cfg.shared_attn_every else 0)
     return {"forward_gemm": fwd["mma_gemm"],
             **fwd, "mma_gemm": 3 * fwd["mma_gemm"] + activated}
 
@@ -1636,20 +1737,24 @@ def train(torch, failures, arch, num_layers):
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
         print(f"  depth cut: num_layers {num_layers} (of "
               f"{get_arch(arch).num_layers}); widths unchanged")
-    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    b, steps = TRAIN["batch"], TRAIN["steps"]
+    s = TRAIN_SEQ.get(arch, TRAIN["seq"])
+    lr = TRAIN_LR.get(arch, TRAIN["lr"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    make_state, make_step = T.build(cfg, lr=TRAIN["lr"], total_steps=steps,
+    make_state, make_step = T.build(cfg, lr=lr, total_steps=steps,
                                     weight_decay=0.0, seed=0, device="cuda")
     state, step = make_state(), make_step()
     model = state["params"]
     nparam = sum(t.numel() for t in model.parameters())
+    batch = pipeline.device_batch(pipeline.synthetic_batch(
+        cfg, batch=b, seq=s, step=0), "cuda")
+    ntok = batch["tokens"].numel()
     print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {nparam / 1e9:.3f} B "
           f"fp32 parameters, init {time.perf_counter() - t0:.1f} s; batch "
-          f"{b} x {s} tokens, lr {TRAIN['lr']}, {steps} steps")
-    batch = pipeline.device_batch(pipeline.synthetic_batch(
-        cfg, batch=b, seq=s, step=0), "cuda")
+          f"{({k: tuple(v.shape) for k, v in batch.items()})}, lr "
+          f"{lr}, {steps} steps")
     check_train_grads(torch, failures, arch, cfg, model, batch)
 
     want = expected_train_launches(cfg)
@@ -1717,7 +1822,7 @@ def train(torch, failures, arch, num_layers):
     step_ms = sorted(times)[len(times) // 2]
     flops = 3 * (fwd_gemm + fwd_attn)
     print(f"  {arch} train step: {step_ms:.2f} ms (host clock, median of "
-          f"{steps}; {[round(t, 1) for t in times]}), {b * s / step_ms * 1e3:.0f}"
+          f"{steps}; {[round(t, 1) for t in times]}), {ntok / step_ms * 1e3:.0f}"
           f" tokens/s, model {flops / 1e12:.2f} TFLOP a step = "
           f"{flops / step_ms / 1e9:.1f} TFLOP/s ({flops / step_ms / 1e9 / 989:.3f}"
           f" of the 989 bf16 peak), peak device memory {peak:.2f} GiB")
@@ -1729,7 +1834,7 @@ def train(torch, failures, arch, num_layers):
     torch.cuda.empty_cache()
     # The same steps from the same weights on the eager torch backend: each
     # step's loss within 2e-2 relative, as step 1's is held.
-    make_state, make_step = T.build(cfg, lr=TRAIN["lr"], total_steps=steps,
+    make_state, make_step = T.build(cfg, lr=lr, total_steps=steps,
                                     weight_decay=0.0, seed=0, device="cuda",
                                     backend="torch")
     state, step = make_state(), make_step()
@@ -1746,7 +1851,7 @@ def train(torch, failures, arch, num_layers):
     if not ok:
         failures.append(f"{arch} loss curve against the torch backend")
     del state, step, make_state, make_step, batch
-    return launches, dict(step_ms=step_ms, tokens_per_s=b * s / step_ms * 1e3,
+    return launches, dict(step_ms=step_ms, tokens_per_s=ntok / step_ms * 1e3,
                           tflops=flops / step_ms / 1e9, peak_gib=peak,
                           losses=losses,
                           busy_ms=prof[0] if prof else None,
@@ -1794,7 +1899,8 @@ def main() -> None:
     by_run = {}
     for arch, settings, layers, profile in (
             (ARCH, SERVE, NUM_LAYERS, True),
-            *((a, st, None, a == "zamba2-1.2b") for a, st in SSM_RUNS)):
+            *((a, st, None, a == "zamba2-1.2b") for a, st in SSM_RUNS),
+            (*MOE_RUN, None, True)):
         _, by_run[arch], (model, cfg) = serve(torch, failures, arch,
                                               settings, layers)
         if profile:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Per-step losses of a short training run at several peak learning rates.
 
-    PYTHONPATH=src python scripts/train_lr_witness.py --card
+    PYTHONPATH=src python scripts/train_lr_witness.py --card \
+        [--arch deepseek-moe-16b --arch whisper-small]
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/train_lr_witness.py \
         --reference
 
@@ -10,10 +11,13 @@ the launcher's schedule (``warmup_cosine(lr, 1, steps)``: the first update
 already at the peak rate), no weight decay, 6 steps on one repeated
 synthetic batch.
 
-``--card``: the port alone, on the card, at the runs of phase 5 (full-width
-deepseek-7b cut to 4 layers, zamba2-1.2b at full depth; fp32 weights from
-seed 0, batch 4 x 512) through ``repro_torch.launch.train.build`` and the
-kernel backend, at each rate of ``CARD_LRS``.  Exits nonzero without CUDA.
+``--card``: the port alone, on the card, at the runs of phase 5
+(``CARD_RUNS``: full-width deepseek-7b cut to 4 layers, zamba2-1.2b at
+full depth, deepseek-moe-16b cut to 3 layers, whisper-small at full depth
+over 3000-frame clips; fp32 weights from seed 0, batch 4 x 512 tokens)
+through ``repro_torch.launch.train.build`` and the kernel backend, at each
+rate of ``CARD_LRS``; ``--arch`` picks runs (default: deepseek-7b and
+zamba2-1.2b).  Exits nonzero without CUDA.
 
 ``--reference``: the JAX reference beside the port, on the CPU, from the
 same weights (the reference's ``init_params``, carried over by
@@ -39,6 +43,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 STEPS = 6
 CARD_LRS = (1e-3, 3e-4, 1e-4, 3e-5, 1e-5)
+# arch -> (depth cut or None, seq: tokens, or mel frames for whisper)
+CARD_RUNS = {"deepseek-7b": (4, 512), "zamba2-1.2b": (None, 512),
+             "deepseek-moe-16b": (3, 512), "whisper-small": (None, 3000)}
 REF_WIDTHS = (256, 512, 1024, 2048)
 REF_LRS = (1e-3, 1e-4)
 
@@ -47,7 +54,7 @@ def _fmt(losses) -> str:
     return "[" + ", ".join(f"{x:.4f}" for x in losses) + "]"
 
 
-def card(lrs) -> None:
+def card(lrs, archs) -> None:
     import torch
 
     from repro_torch.configs import get
@@ -59,12 +66,13 @@ def card(lrs) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    for arch, layers in (("deepseek-7b", 4), ("zamba2-1.2b", None)):
+    for arch in archs:
+        layers, seq = CARD_RUNS[arch]
         cfg = get(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
         batch = pipeline.device_batch(pipeline.synthetic_batch(
-            cfg, batch=4, seq=512, step=0), "cuda")
+            cfg, batch=4, seq=seq, step=0), "cuda")
         for lr in lrs:
             make_state, make_step = T.build(cfg, lr=lr, total_steps=STEPS,
                                             weight_decay=0.0, seed=0,
@@ -145,8 +153,11 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--card", action="store_true")
     mode.add_argument("--reference", action="store_true")
-    if ap.parse_args().card:
-        card(CARD_LRS)
+    ap.add_argument("--arch", action="append", choices=sorted(CARD_RUNS),
+                    help="a --card run (repeatable)")
+    args = ap.parse_args()
+    if args.card:
+        card(CARD_LRS, args.arch or ["deepseek-7b", "zamba2-1.2b"])
     else:
         reference(REF_WIDTHS, REF_LRS)
 

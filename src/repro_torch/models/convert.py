@@ -15,14 +15,15 @@ from repro_torch.core import facility
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 
 
 def params_from_numpy(tree, cfg, *, device, dtype: torch.dtype | None = None
                       ) -> M.Model:
     """Build a :class:`~repro_torch.models.model.Model` from the
-    reference's parameter pytree (dense, ssm, hybrid, audio or vlm family)
-    with numpy leaves, unstacking the leading layer axis of
-    ``tree["layers"]`` and ``tree["encoder"]["layers"]``.
+    reference's parameter pytree (any family) with numpy leaves,
+    unstacking the leading layer axis of ``tree["layers"]``,
+    ``tree["first_dense"]`` and ``tree["encoder"]["layers"]``.
 
     With ``dtype`` (e.g. ``torch.bfloat16``), the projection weights are
     stored in it once, at load; 1-D parameters, mamba2's conv taps
@@ -58,6 +59,12 @@ def params_from_numpy(tree, cfg, *, device, dtype: torch.dtype | None = None
         return L.MLP(t(p["w1"]), t(p["w2"]),
                      t(p["w3"]) if "w3" in p else None)
 
+    def moe(p, i):
+        shared = mlp(p["shared"], i) if "shared" in p else None
+        p = at({k: v for k, v in p.items() if k != "shared"}, i)
+        return MOE.MoE(t(p["router"]), t(p["w1"]), t(p["w3"]), t(p["w2"]),
+                       shared)
+
     def dense(lt, i):
         cross = (norm(lt["cross_norm"], i), attention(lt["cross"], i)
                  ) if "cross" in lt else ()
@@ -67,11 +74,18 @@ def params_from_numpy(tree, cfg, *, device, dtype: torch.dtype | None = None
 
     e = tree["embed"]
     embed = L.Embed(t(e["tok"]), t(e["unembed"]) if "unembed" in e else None)
+    first_dense = [dense(tree["first_dense"], i)
+                   for i in range(cfg.first_dense_layers)]
     lt = tree["layers"]
     layers = []
-    for i in range(cfg.num_layers):
+    for i in range(cfg.num_layers - cfg.first_dense_layers):
         if kind in ("dense", "cross"):
             layers.append(dense(lt, i))
+            continue
+        if kind == "moe":
+            layers.append(M.MoEBlock(
+                norm(lt["attn_norm"], i), attention(lt["attn"], i),
+                norm(lt["mlp_norm"], i), moe(lt["moe"], i)))
             continue
         mb = at(lt["mamba"], i)
         layers.append(M.SSMBlock(norm(lt["norm"], i), M2.Mamba2(
@@ -104,4 +118,4 @@ def params_from_numpy(tree, cfg, *, device, dtype: torch.dtype | None = None
                                      t(vp["patch_b"]))
     return M.Model(embed, layers, norm(tree["final_norm"]), shared, encoder,
                    t(tree["vision_proj"]) if "vision_proj" in tree else None,
-                   vision_patch)
+                   vision_patch, first_dense)

@@ -27,10 +27,11 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _dense_init(gen, shape, *, device, dtype):
-    """Normal(0, 1/fan_in) weights, drawn in fp32 from ``gen``."""
+def _dense_init(gen, shape, *, device, dtype, in_axis: int = 0):
+    """Normal(0, 1/fan_in) weights, fan_in = ``shape[in_axis]``, drawn in
+    fp32 from ``gen``."""
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (w * shape[0] ** -0.5).to(dtype)
+    return (w * shape[in_axis] ** -0.5).to(dtype)
 
 
 # ----------------------------------------------------------------------
@@ -84,8 +85,8 @@ def init_attention(gen, cfg, *, device, dtype) -> Attention:
                      _dense_init(gen, (h * hd, d), **kw))
 
 
-def init_mlp(gen, cfg, *, device, dtype) -> MLP:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg, *, device, dtype, d_ff: int | None = None) -> MLP:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     kw = dict(device=device, dtype=dtype)
     w1 = _dense_init(gen, (d, f), **kw)
     w2 = _dense_init(gen, (f, d), **kw)

@@ -7,9 +7,11 @@ The reference scans over stacked layer pytrees; here the layers are an
 (mamba2), hybrid (zamba2: mamba2 groups with one shared attention block
 applied after every ``shared_attn_every`` layers, on concat(h, embedding)),
 audio (whisper: an encoder behind a two-conv stem, decoder blocks with
-cross-attention over its output) and vlm (qwen2-vl: dense blocks with
+cross-attention over its output), vlm (qwen2-vl: dense blocks with
 M-RoPE, the leading ``vision_prefix`` positions fed by a patch-embed conv
-stem).  moe raises ``NotImplementedError`` naming its ROADMAP slice.
+stem) and moe (mixtral, deepseek-moe: ``MoEBlock``s, whose MLP slot holds
+a ``models.moe.MoE``, after deepseek-moe's ``first_dense_layers`` leading
+``DenseBlock``s).  Every family of the registry is ported.
 
 ``loss_fn`` is the training objective; gradients flow through every
 kernel wrapper (each is a ``torch.autograd.Function`` where an operand
@@ -30,20 +32,21 @@ from torch import nn
 from repro_torch.core import facility
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
 
-_LATER_FAMILIES = {"moe": "ROADMAP slice B1 (models/moe.py)"}
 # family -> the kind of its main layer stack, as the reference's _main_kind
-_KINDS = {"dense": "dense", "ssm": "ssm", "hybrid": "hybrid",
+_KINDS = {"dense": "dense", "moe": "moe", "ssm": "ssm", "hybrid": "hybrid",
           "audio": "cross", "vlm": "dense"}
+# the kinds whose layers are attention blocks with a ring k/v cache
+_ATTN_KINDS = ("dense", "moe", "cross")
 
 
 def check_family(cfg) -> str:
-    """The kind of ``cfg``'s main layer stack; raises for a family that is
-    not ported yet."""
+    """The kind of ``cfg``'s main layer stack; raises ``ValueError`` for a
+    family the registry does not know."""
     if cfg.family not in _KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet — "
-            f"{_LATER_FAMILIES.get(cfg.family, 'no slice planned')}")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                         f"have {sorted(_KINDS)}")
     return _KINDS[cfg.family]
 
 
@@ -59,6 +62,16 @@ class DenseBlock(nn.Module):
         self.attn_norm, self.attn = attn_norm, attn
         self.mlp_norm, self.mlp = mlp_norm, mlp
         self.cross_norm, self.cross = cross_norm, cross
+
+
+class MoEBlock(nn.Module):
+    """Self attention and the mixture of experts in the MLP slot."""
+
+    def __init__(self, attn_norm: L.Norm, attn: L.Attention,
+                 mlp_norm: L.Norm, moe: MOE.MoE):
+        super().__init__()
+        self.attn_norm, self.attn = attn_norm, attn
+        self.mlp_norm, self.moe = mlp_norm, moe
 
 
 class SSMBlock(nn.Module):
@@ -111,17 +124,19 @@ class VisionPatch(nn.Module):
 
 
 class Model(nn.Module):
-    """Embedding, the layer stack (``DenseBlock``s or ``SSMBlock``s), the
-    hybrid family's shared attention block, the final norm, and the
-    modality inputs: the audio kind's ``encoder``, the vision kind's
-    ``vision_proj`` (d, d) and ``vision_patch`` stem."""
+    """Embedding, the moe kind's ``first_dense`` leading ``DenseBlock``s
+    (empty elsewhere), the layer stack (``DenseBlock``s, ``MoEBlock``s or
+    ``SSMBlock``s), the hybrid family's shared attention block, the final
+    norm, and the modality inputs: the audio kind's ``encoder``, the
+    vision kind's ``vision_proj`` (d, d) and ``vision_patch`` stem."""
 
     def __init__(self, embed: L.Embed, layers, final_norm: L.Norm,
                  shared_attn: SharedAttn | None = None,
                  encoder: Encoder | None = None, vision_proj=None,
-                 vision_patch: VisionPatch | None = None):
+                 vision_patch: VisionPatch | None = None, first_dense=()):
         super().__init__()
         self.embed = embed
+        self.first_dense = nn.ModuleList(first_dense)
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
         self.shared_attn = shared_attn
@@ -170,8 +185,16 @@ def init_params(cfg, *, seed: int = 0, device=None,
     def zeros(d):
         return torch.zeros((d,), dtype=torch.float32, device=device)
 
+    n_main = cfg.num_layers - cfg.first_dense_layers
+    first_dense = [dense_block() for _ in range(cfg.first_dense_layers)]
     if kind in ("dense", "cross"):
-        layers = [dense_block(kind == "cross") for _ in range(cfg.num_layers)]
+        layers = [dense_block(kind == "cross") for _ in range(n_main)]
+    elif kind == "moe":
+        layers = [MoEBlock(L.init_norm(cfg, device=device),
+                           L.init_attention(gen, cfg, **kw),
+                           L.init_norm(cfg, device=device),
+                           MOE.init_moe(gen, cfg, **kw))
+                  for _ in range(n_main)]
     else:
         layers = [SSMBlock(L.init_norm(cfg, device=device),
                            M2.init_mamba2(gen, cfg, **kw))
@@ -197,19 +220,20 @@ def init_params(cfg, *, seed: int = 0, device=None,
             ps, c = cfg.patch_size, cfg.image_channels
             vision_patch = VisionPatch(conv_init((ps, ps, c, d)), zeros(d))
     return Model(embed, layers, L.init_norm(cfg, device=device), shared,
-                 encoder, vision_proj, vision_patch)
+                 encoder, vision_proj, vision_patch, first_dense)
 
 
 # ======================================================================
 # Blocks
 # ======================================================================
 
-def _apply_dense_block(bp: DenseBlock, h, cfg, *, cos_sin, causal=None,
-                       cross_x=None, kv=None, window=None, q_offset=0,
-                       kv_positions=None, valid=None):
+def _apply_dense_block(bp: DenseBlock | MoEBlock, h, cfg, *, cos_sin,
+                       causal=None, cross_x=None, kv=None, window=None,
+                       q_offset=0, kv_positions=None, valid=None):
     """Self attention, then (with ``cross_x`` and a cross block)
-    cross-attention over the encoder stream, then the MLP.  Returns (h,
-    self (k, v), cross (k, v) or None)."""
+    cross-attention over the encoder stream, then the MLP or, in a
+    ``MoEBlock``, the mixture of experts.  Returns (h, the MoE's aux loss
+    or None, self (k, v), cross (k, v) or None)."""
     hn = L.apply_norm(bp.attn_norm, h, cfg)
     # Residual adds ride the output-projection / w2 GEMM epilogues.
     h, kv_out = L.apply_attention(
@@ -217,13 +241,17 @@ def _apply_dense_block(bp: DenseBlock, h, cfg, *, cos_sin, causal=None,
         window=window, q_offset=q_offset, kv_positions=kv_positions,
         valid=valid, residual=h)
     cross_kv = None
-    if cross_x is not None and bp.cross is not None:
+    if cross_x is not None and getattr(bp, "cross", None) is not None:
         hn = L.apply_norm(bp.cross_norm, h, cfg)
         h, cross_kv = L.apply_attention(bp.cross, hn, cfg, causal=False,
                                         cross_x=cross_x, residual=h)
     hn = L.apply_norm(bp.mlp_norm, h, cfg)
+    if isinstance(bp, MoEBlock):
+        # the MoE output is added eagerly, as in the reference
+        m, aux = MOE.apply_moe(bp.moe, hn, cfg)
+        return h + m, aux, kv_out, cross_kv
     h = L.apply_mlp(bp.mlp, hn, cfg, residual=h)
-    return h, kv_out, cross_kv
+    return h, None, kv_out, cross_kv
 
 
 def _apply_ssm_block(bp: SSMBlock, h, cfg, state=None):
@@ -344,17 +372,20 @@ def _run_encoder(model: Model, frames, cfg):
     pos = torch.arange(s, device=h.device)[None].expand(b, s)
     cos_sin = _cos_sin_for(cfg, pos)
     for layer in enc.layers:
-        h, _, _ = _apply_dense_block(layer, h, cfg, cos_sin=cos_sin,
-                                     causal=False)
+        h, _, _, _ = _apply_dense_block(layer, h, cfg, cos_sin=cos_sin,
+                                        causal=False)
     return L.apply_norm(enc.norm, h, cfg)
 
 
 def forward(model: Model, batch, cfg, *, collect_cache: bool = False):
-    """Teacher-forced forward pass.  Returns (logits, aux, cache|None).
-    The cache, as the reference's: dense, vlm and audio, ``cache["kv"]``,
-    the (k, v) pair stacked over layers, (L, B, S, KVH, D) each, and for
-    audio also ``"cross_kv"``, the decoder's cross-attention (k, v) over
-    the encoder's positions; ssm, ``"ssm"`` (L, B, H, N, P) fp32 and
+    """Teacher-forced forward pass.  Returns (logits, aux, cache|None):
+    ``aux`` is the sum of the MoE layers' load-balancing losses (fp32 zero
+    for the other kinds).  The cache, as the reference's: dense, moe, vlm
+    and audio, ``cache["kv"]``, the (k, v) pair stacked over the main
+    stack's layers, (L, B, S, KVH, D) each, and for the moe kind's leading
+    dense layers ``"first_dense_kv"`` likewise; audio also
+    ``"cross_kv"``, the decoder's cross-attention (k, v) over the
+    encoder's positions; ssm, ``"ssm"`` (L, B, H, N, P) fp32 and
     ``"conv"`` (L, B, W-1, conv_dim); hybrid, nothing (its shared block's
     cache is not collected)."""
     kind = check_family(cfg)
@@ -363,21 +394,26 @@ def forward(model: Model, batch, cfg, *, collect_cache: bool = False):
     cross_x = (_run_encoder(model, batch["frames"], cfg) if cfg.is_enc_dec
                else None)
     cos_sin = None if kind == "ssm" else _cos_sin_for(cfg, positions)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = {}
-    if kind in ("dense", "cross"):
+    # the moe kind's leading dense layers, then the main attention stack
+    for layers, key in ((model.first_dense, "first_dense_kv"),
+                        (model.layers if kind in _ATTN_KINDS else (), "kv")):
         kvs, ckvs = [], []
-        for layer in model.layers:
-            h, kv, ckv = _apply_dense_block(
+        for layer in layers:
+            h, aux, kv, ckv = _apply_dense_block(
                 layer, h, cfg, cos_sin=cos_sin, cross_x=cross_x,
                 window=cfg.sliding_window)
+            if aux is not None:
+                aux_total = aux_total + aux
             if collect_cache:
                 kvs.append(kv)
                 ckvs.append(ckv)
-        if collect_cache:
-            cache["kv"] = tuple(torch.stack(t) for t in zip(*kvs))
+        if kvs:
+            cache[key] = tuple(torch.stack(t) for t in zip(*kvs))
             if cfg.is_enc_dec:
                 cache["cross_kv"] = tuple(torch.stack(t) for t in zip(*ckvs))
-    elif kind == "ssm":
+    if kind == "ssm":
         states = []
         for layer in model.layers:
             h, st = _apply_ssm_block(layer, h, cfg)
@@ -386,7 +422,7 @@ def forward(model: Model, batch, cfg, *, collect_cache: bool = False):
         if collect_cache:
             cache["ssm"] = torch.stack([st["ssm"] for st in states])
             cache["conv"] = torch.stack([st["conv"] for st in states])
-    else:
+    elif kind == "hybrid":
         for group in _groups(cfg):
             for i in group:
                 h, _ = _apply_ssm_block(model.layers[i], h, cfg)
@@ -394,8 +430,7 @@ def forward(model: Model, batch, cfg, *, collect_cache: bool = False):
                                    cos_sin=cos_sin)
     h = L.apply_norm(model.final_norm, h, cfg)
     logits = L.logits(model.embed, h, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-    return logits, aux, (cache if collect_cache else None)
+    return logits, aux_total, (cache if collect_cache else None)
 
 
 def loss_fn(model: Model, batch, cfg):
@@ -433,9 +468,11 @@ def cache_len(cfg, seq_len: int) -> int:
 def init_cache(cfg, batch: int, seq_len: int, *, device=None,
                dtype: torch.dtype = torch.bfloat16):
     """Zero decode cache at context length ``seq_len`` and the host-side
-    step counter ``cur``.  dense, vlm and audio: the ring k and v
-    (L, B, clen, KVH, D) and the slot positions ``pos`` (clen,) (-1 =
-    empty); audio caps its decoder ring at ``decoder_len`` and adds the
+    step counter ``cur``.  dense, moe, vlm and audio: the ring k and v
+    (L, B, clen, KVH, D) of the main stack's L layers and the slot
+    positions ``pos`` (clen,) (-1 = empty); the moe kind's leading dense
+    layers add their rings ``fd_k``/``fd_v`` (first_dense_layers, B,
+    clen, KVH, D); audio caps its decoder ring at ``decoder_len`` and adds the
     cross-attention ``cross_k``/``cross_v`` (L, B, encoder_len(seq_len),
     KVH, D), which the caller fills from prefill's ``cross_kv``; ssm: the
     SSM states ``ssm`` (L, B, H, N, P) fp32 and the conv histories
@@ -449,13 +486,18 @@ def init_cache(cfg, batch: int, seq_len: int, *, device=None,
         # encoder's (cross) k/v carries the long seq_len context.
         clen = min(clen, cfg.decoder_len)
     c = {"cur": 0}
-    if kind in ("dense", "cross", "hybrid"):
-        kv_shape = (batch, clen, cfg.num_kv_heads, cfg.head_dim)
+    ring = (batch, clen, cfg.num_kv_heads, cfg.head_dim)
+    if kind in _ATTN_KINDS + ("hybrid",):
+        kv_shape = ring
         if kind != "hybrid":
-            kv_shape = (cfg.num_layers,) + kv_shape
+            kv_shape = (cfg.num_layers - cfg.first_dense_layers,) + ring
         c["k"] = torch.zeros(kv_shape, dtype=dtype, device=device)
         c["v"] = torch.zeros(kv_shape, dtype=dtype, device=device)
         c["pos"] = torch.full((clen,), -1, dtype=torch.int32, device=device)
+    if cfg.first_dense_layers:
+        fd = (cfg.first_dense_layers,) + ring
+        c["fd_k"] = torch.zeros(fd, dtype=dtype, device=device)
+        c["fd_v"] = torch.zeros(fd, dtype=dtype, device=device)
     if cfg.is_enc_dec:
         xs = (cfg.num_layers, batch, cfg.encoder_len(seq_len),
               cfg.num_kv_heads, cfg.head_dim)
@@ -506,7 +548,9 @@ def decode_step(model: Model, cache, tokens, cfg):
     Returns (logits (B, 1, V), new_cache).  The cache is updated IN PLACE
     (it is the largest state of a serving run, and copying it per token
     would double its traffic): the new token's k/v go into the ring slot
-    ``cur % clen`` of ``cache["k"]``/``cache["v"]``, and each mamba2
+    ``cur % clen`` of ``cache["k"]``/``cache["v"]`` (and of the moe kind's
+    ``fd_k``/``fd_v``, whose leading dense layers run first), and each
+    mamba2
     layer's new state and conv history overwrite ``cache["ssm"]`` and
     ``cache["conv"]``.  The returned dict shares those tensors and carries
     the advanced ``pos``/``cur``.
@@ -540,21 +584,24 @@ def decode_step(model: Model, cache, tokens, cfg):
         new_cache["pos"] = kv_positions[0]
         attn_kw = dict(cos_sin=cos_sin, q_offset=cur,
                        kv_positions=kv_positions, valid=valid)
-    if kind in ("dense", "cross"):
-        for i, layer in enumerate(model.layers):
-            hn = L.apply_norm(layer.attn_norm, h, cfg)
-            k_c, v_c = cache["k"][i], cache["v"][i]
-            _ring_insert(layer.attn, hn, k_c, v_c, slot, cos_sin, cfg,
-                         cast_weights=True)
-            h, _, _ = _apply_dense_block(layer, h, cfg, kv=(k_c, v_c),
-                                         window=cfg.sliding_window,
-                                         **attn_kw)
-            if kind == "cross":
-                hn = L.apply_norm(layer.cross_norm, h, cfg)
-                ca, _ = L.apply_attention(
-                    layer.cross, hn, cfg, causal=False,
-                    kv=(cache["cross_k"][i], cache["cross_v"][i]))
-                h = h + ca
+    if kind in _ATTN_KINDS:
+        stacks = ((model.first_dense, "fd_k", "fd_v"),
+                  (model.layers, "k", "v"))
+        for layers, kk, vk in stacks:
+            for i, layer in enumerate(layers):
+                hn = L.apply_norm(layer.attn_norm, h, cfg)
+                k_c, v_c = cache[kk][i], cache[vk][i]
+                _ring_insert(layer.attn, hn, k_c, v_c, slot, cos_sin, cfg,
+                             cast_weights=True)
+                h, _, _, _ = _apply_dense_block(
+                    layer, h, cfg, kv=(k_c, v_c), window=cfg.sliding_window,
+                    **attn_kw)
+                if kind == "cross":
+                    hn = L.apply_norm(layer.cross_norm, h, cfg)
+                    ca, _ = L.apply_attention(
+                        layer.cross, hn, cfg, causal=False,
+                        kv=(cache["cross_k"][i], cache["cross_v"][i]))
+                    h = h + ca
     elif kind == "hybrid":
         for group in _groups(cfg):
             for i in group:

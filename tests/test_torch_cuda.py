@@ -177,6 +177,20 @@ _PATH_CASES = {
     "wgmma f16 gelu": ("wgmma", (200, 128), (128, 96), False,
                        dict(kind=Ger.F16GER2, out_dtype=torch.float16,
                             ep=E.Epilogue(activation="gelu"))),
+    # deepseek-moe-16b's expert banks, the 64 experts on the batch axis:
+    # decode w1 (cap 1), a 256-token prefill's w2 (cap 30) and training's
+    # w1 (4 x 512 tokens, cap 240) with the fused silu
+    "stream expert bank decode w1": ("stream", (64, 1, 2048),
+                                     (64, 2048, 1408), False,
+                                     dict(out_dtype=torch.bfloat16,
+                                          ep=E.Epilogue(activation="silu"))),
+    "stream expert bank prefill w2": ("stream", (64, 30, 1408),
+                                      (64, 1408, 2048), False,
+                                      dict(out_dtype=torch.bfloat16)),
+    "wgmma expert bank train w1": ("wgmma", (64, 240, 2048),
+                                   (64, 2048, 1408), False,
+                                   dict(out_dtype=torch.bfloat16,
+                                        ep=E.Epilogue(activation="silu"))),
 }
 
 
@@ -749,3 +763,72 @@ def test_attention_row_does_not_depend_on_the_batch(gen):
         many = A.mma_flash_attention(q[:b], k[:b], v[:b], causal=False,
                                      out_dtype=torch.float32)
         _assert_attn_close(many[:1], one, budget)
+
+
+# ----------------------------------------------------------------------
+# Mixture of experts
+# ----------------------------------------------------------------------
+
+def _moe_layer(gen):
+    """Reduced deepseek-moe-16b's MoE layer (bf16 weights drawn on the
+    CPU) and an input (4, 64, d): T = 256 tokens, cap 80, one choice
+    drops."""
+    from repro_torch.models import moe as MOE
+    cfg = reduced(get("deepseek-moe-16b"))
+    layer = MOE.init_moe(torch.Generator().manual_seed(0), cfg,
+                         device="cpu", dtype=torch.bfloat16)
+    x = _randn(gen, 4, 64, cfg.d_model)
+    return cfg, layer, x
+
+
+def test_moe_layer_on_the_card_is_deterministic_and_matches_cpu(gen):
+    """apply_moe on the card: the same bits twice, forward and backward
+    (no gradient sums in the order of atomics), and within 2e-2 relative
+    L2 of the same layer's CPU run (the kernels' plain versions)."""
+    import copy
+
+    from repro_torch.models import moe as MOE
+    cfg, layer, x = _moe_layer(gen)
+    card = copy.deepcopy(layer).to("cuda")
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        G.mma_gemm.launches = 0
+        a, aux_a = MOE.apply_moe(card, x, cfg)
+        b, aux_b = MOE.apply_moe(card, x, cfg)
+        # router, the three banks and the shared MLP's three, per call
+        assert G.mma_gemm.launches == 2 * 7
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    for p in card.parameters():
+        p.requires_grad_(True)
+    xg = x.detach().requires_grad_(True)
+    leaves = [xg] + list(card.parameters())
+    grads = []
+    for _ in range(2):
+        with facility.configure(facility.FacilityConfig(device="cuda")):
+            out, aux = MOE.apply_moe(card, xg, cfg)
+            loss = out.float().square().mean() + aux
+            grads.append(torch.autograd.grad(loss, leaves))
+    assert all(torch.equal(g, h) for g, h in zip(*grads))
+    with facility.configure(facility.FacilityConfig(device="cpu")):
+        want, aux_w = MOE.apply_moe(layer, x.cpu(), cfg)
+    rel = ((a.cpu().float() - want.float()).norm()
+           / want.float().norm()).item()
+    assert rel < 2e-2
+    assert abs(aux_a.item() - aux_w.item()) <= 1e-5
+
+
+def test_moe_layer_forward_makes_no_host_sync(gen):
+    """One forward apply_moe under CUDA's sync debug mode "error": no
+    step of the routing, dispatch, banks or combine reads a value back to
+    the host."""
+    from repro_torch.models import moe as MOE
+    cfg, layer, x = _moe_layer(gen)
+    layer = layer.to("cuda")
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        MOE.apply_moe(layer, x, cfg)          # builds and loads the kernels
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, aux = MOE.apply_moe(layer, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(out).all()) and aux.item() > 0

@@ -35,6 +35,7 @@ from repro.configs.base import reduced as jreduced
 from repro.core import facility as jfac
 from repro.core import precision as jprec
 from repro.models import model as JM
+from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.configs import get as tget
 from repro_torch.configs.base import reduced as treduced
 from repro_torch.core import facility as tfac
@@ -126,10 +127,19 @@ def test_bf16_at_rest_matches_per_call_cast(models):
     assert torch.equal(a, b)
 
 
-def test_other_families_raise_with_their_slice():
-    for name, slice_ in (("mixtral-8x22b", "B1"),):
-        with pytest.raises(NotImplementedError, match=slice_):
-            TM.init_params(treduced(tget(name)), device="cpu")
+@pytest.mark.parametrize("name", TARCHS)
+def test_every_registry_arch_builds_at_its_reduced_size(name):
+    """Every family of the port's registry is ported: ``check_family``
+    accepts it and ``init_params`` builds its reduced model with the
+    reference's parameter count."""
+    cfg = treduced(tget(name))
+    assert TM.check_family(cfg) in ("dense", "moe", "ssm", "hybrid",
+                                    "cross")
+    model = TM.init_params(cfg, device="cpu")
+    want = jax.eval_shape(lambda k: JM.init_params(jreduced(jget(name)), k),
+                          jax.random.key(0))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        a.size for a in jax.tree.leaves(want))
 
 
 def test_sliding_window_matches_reference():
