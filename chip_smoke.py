@@ -79,12 +79,31 @@ Phases, each of which must pass or the script exits nonzero:
      come back bit for bit.  Then, as in phase 4, each distinct shape the
      train steps gave the GEMM (forward, dX, dW, the recompute of Z),
      attention and the depthwise conv is held against its plain version
-     and timed.
+     and timed;
+  6. the family table and its paths: the IMMA kernel (I8GER4, I4GER8,
+     I16GER2) and the DMMA kernel (F64GER) against their plain versions
+     at edge cases (ragged fringes, batch, every accumulate form with a
+     full-range int32 seed, bias/relu/residual, gelu/silu for F64GER, out
+     dtypes, I16GER2's wrap), integers bit for bit and F64GER within
+     1e-15 * K * max|x| * max|y|; then, each run's launches reset just
+     before and read just after and held to its path, DGEMM (F64GER,
+     8192^2) and the integer families (8192^2, 4096^2) through
+     ``facility.contract``, ``quant.qdot`` at deepseek-7b's MLP shapes
+     (M = 4 and 1024, 4096 -> 11008; the two operand copies its spec
+     makes counted and timed), ``blas3.complex_gemm`` at 4096^2 in
+     complex64 and complex128 and a batched ``blas3.dft`` (N = 1024, 64 x
+     128 columns) in f32 and f64 (four GEMM launches a call), against
+     complex ``torch.matmul`` and a float64 fft, ``blas3.trsm`` (N = 4096,
+     1024 right-hand sides, relative residual) and the saturating forms
+     bit for bit against the ref lowering; each timed beside its plain
+     version, a library yardstick and its bound.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
 and the convs' ``launches_by_path``; the GEMM's ``host_us`` per call and,
 with the attention kernel's and the depthwise conv's, ``run_shapes``;
+phase 6's IMMA and DMMA entries their ``shapes``, the GEMM's entry
+``phase6_shapes``, its runs on the WMMA tile or on no kernel;
 ``max_abs_err`` covers the runs' shapes, training's included); the last
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
@@ -106,7 +125,9 @@ SRC = ROOT / "src"
 
 # Published H100 SXM peaks (dense, no sparsity) at the full 700 W limit.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12,
+              "f64": 67e12,            # the fp64 tensor cores (DMMA)
+              "int8": 1979e12}         # the int8 tensor cores (IMMA), TOP/s
 
 # The serving runs, each at full width: deepseek-7b (slice 1: the GEMM and
 # flash-attention kernels), zamba2-1.2b at full depth (slice 2: all three
@@ -1858,6 +1879,425 @@ def train(torch, failures, arch, num_layers):
                           idle=prof[1] if prof else None)
 
 
+# ----------------------------------------------------------------------
+# Phase 6: the family table and its paths (the IMMA and DMMA kernels,
+# quant.qdot, the complex op-class, blas3's dft and trsm, the saturating
+# forms)
+# ----------------------------------------------------------------------
+
+# The phase's main-path runs: (run name, the kernel path each must launch,
+# its launches a call).  dft and complex_gemm are four K1 launches a call
+# (F32GER on the WMMA tile, F64GER on the DMMA kernel); trsm's panel
+# updates and the saturating forms run the torch lowering, no kernel.
+FAMILY_RUNS = {
+    "dgemm F64GER 8192": ("dmma", 1),
+    "I8GER4 8192": ("imma", 1),
+    "I4GER8 8192": ("imma", 1), "I4GER8 4096": ("imma", 1),
+    "I16GER2 8192": ("imma", 1), "I16GER2 4096": ("imma", 1),
+    "qdot M=4": ("imma", 1), "qdot M=1024": ("imma", 1),
+    "complex_gemm c64 4096": ("wmma", 4),
+    "complex_gemm c128 4096": ("dmma", 4),
+    "dft f32 N=1024 64x128": ("wmma", 4),
+    "dft f64 N=1024 64x128": ("dmma", 4),
+    "trsm f32 N=4096 R=1024": (None, 0),
+    "saturating": (None, 0),
+}
+# The phase's kernel entries, by the GEMM path each reads its launches from.
+PATH_ENTRIES = {"mma_gemm.imma": "imma", "mma_gemm.dmma": "dmma"}
+# I16GER2's four int8 products a 16-bit product (its bound counts them).
+_PRODUCTS = {"I8GER4": 1, "I4GER8": 1, "I16GER2": 4}
+
+
+def _int_operands(torch, g, kind, lead, m, k, n):
+    """Full-range operands of an integer family; K is logical (I4GER8
+    packs it two nibbles a byte)."""
+    name = kind.name
+    xr, yr = {"I8GER4": ((-128, 128, torch.int8), (0, 256, torch.uint8)),
+              "I4GER8": ((-128, 128, torch.int8), (-128, 128, torch.int8)),
+              "I16GER2": ((-32768, 32768, torch.int16),
+                          (-32768, 32768, torch.int16))}[name]
+    kp = k // 2 if name == "I4GER8" else k
+
+    def ri(lo, hi, dt, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             device="cuda").to(dt)
+    return ri(*xr, *lead, m, kp), ri(*yr, *lead, kp, n)
+
+
+def check_families(torch, failures) -> dict:
+    """Each new path against its plain version at edge cases: ragged
+    fringes, batch, every accumulate form with a full-range int32 seed,
+    the epilogues an integer accumulator admits, out dtypes and I16GER2's
+    wrap, bit for bit; F64GER within 1e-15 * K * max|x| * max|y| (fp64
+    sums in another order), its activations included.  Returns the worst
+    error by path."""
+    from repro_torch.core import precision
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = precision.Ger
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = {"imma": 0.0, "dmma": 0.0}
+
+    def ri(lo, hi, *shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g,
+                             device="cuda").to(dtype)
+
+    cases = [("ragged", (), (37, 100, 45), {}),
+             ("batched B=3", (3,), (77, 200, 130), {}),
+             ("aligned", (), (256, 4096, 512), {})]
+    for neg_p in (False, True):
+        for neg_a in (False, True):
+            form = {(False, False): "pp", (True, False): "np",
+                    (False, True): "pn", (True, True): "nn"}[neg_p, neg_a]
+            cases.append((f"{form} seed alpha 3.7 beta -2.5", (),
+                          (70, 256, 90),
+                          dict(seed=True, neg_product=neg_p, neg_acc=neg_a,
+                               alpha=3.7, beta=-2.5)))
+    cases += [("bias+relu+res batched B=2", (2,), (33, 96, 40),
+               dict(seed=True, epi=True)),
+              ("out f32", (), (64, 512, 72), dict(out=torch.float32)),
+              ("out bf16", (), (64, 512, 72), dict(out=torch.bfloat16)),
+              ("out f64", (), (64, 512, 72), dict(out=torch.float64))]
+    for kind in (Ger.I8GER4, Ger.I4GER8, Ger.I16GER2):
+        for name, lead, (m, k, n), opts in cases:
+            opts = dict(opts)
+            x, y = _int_operands(torch, g, kind, lead, m, k, n)
+            c = (ri(-2 ** 31, 2 ** 31 - 1, *lead, m, n)
+                 if opts.pop("seed", False) else None)
+            kw = dict(kind=kind, out_dtype=opts.pop("out", None), **{
+                f: opts[f] for f in ("neg_product", "neg_acc", "alpha",
+                                     "beta") if f in opts})
+            if opts.get("epi"):
+                kw.update(ep=E.Epilogue(bias=True, activation="relu",
+                                        residual=True),
+                          bias=ri(-1000, 1000, n),
+                          residual=ri(-1000, 1000, *lead, m, n))
+            got = G.mma_gemm(x, y, c, **kw)
+            want = G.mma_gemm_plain(x, y, c, **kw)
+            err = (got.double() - want.double()).abs().max().item()
+            ok = torch.equal(got, want) and got.dtype == want.dtype
+            worst["imma"] = max(worst["imma"], err)
+            print(f"  [{'ok' if ok else 'FAIL'}] imma {kind.name} {name} "
+                  f"{lead}{(m, k, n)}: max|err| {err:.3e} (bit for bit)")
+            if not ok:
+                failures.append(f"imma {kind.name} {name}")
+    # I16GER2 at full range wraps: the exact sum leaves int32 and the
+    # kernel keeps the wrapped bits of the reference's int32 dot
+    x, y = _int_operands(torch, g, Ger.I16GER2, (), 128, 4096, 128)
+    exact = torch.matmul(x.double(), y.double())
+    wraps = bool((exact.abs() > 2 ** 31 - 1).any())
+    ok = wraps and torch.equal(G.mma_gemm(x, y, kind=Ger.I16GER2),
+                               exact.to(torch.int64).to(torch.int32))
+    print(f"  [{'ok' if ok else 'FAIL'}] imma I16GER2 wrap 128x4096x128: "
+          f"the exact sum leaves int32 ({wraps}); kernel == wrapped exact "
+          f"sum bit for bit")
+    if not ok:
+        failures.append("imma I16GER2 wrap")
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.float64)
+
+    f64_cases = [("ragged", (), (37, 301, 45), {}),
+                 ("batched B=3", (3,), (77, 200, 130), {}),
+                 ("np/nn seed alpha 0.5 beta -2", (), (70, 256, 90),
+                  dict(seed=True, neg_product=True, neg_acc=True, alpha=0.5,
+                       beta=-2.0)),
+                 ("bias+gelu+res batched B=2", (2,), (65, 128, 66),
+                  dict(act="gelu")),
+                 ("bias+silu+res", (), (129, 256, 200), dict(act="silu")),
+                 ("out f32", (), (64, 512, 72), dict(out=torch.float32))]
+    for name, lead, (m, k, n), opts in f64_cases:
+        x, y = rn(*lead, m, k), rn(*lead, k, n)
+        c = rn(*lead, m, n) if opts.get("seed") else None
+        kw = dict(kind=Ger.F64GER, out_dtype=opts.get("out"), **{
+            f: opts[f] for f in ("neg_product", "neg_acc", "alpha", "beta")
+            if f in opts})
+        if "act" in opts:
+            kw.update(ep=E.Epilogue(bias=True, activation=opts["act"],
+                                    residual=True),
+                      bias=rn(n), residual=rn(*lead, m, n))
+        got = G.mma_gemm(x, y, c, **kw).double()
+        want = G.mma_gemm_plain(x, y, c, **kw).double()
+        err = (got - want).abs().max().item()
+        tol = 1e-15 * k * x.abs().max().item() * y.abs().max().item()
+        if opts.get("out") == torch.float32:
+            tol += 2 ** -24 * want.abs().max().item()     # one f32 rounding
+        ok = err <= tol
+        worst["dmma"] = max(worst["dmma"], err)
+        print(f"  [{'ok' if ok else 'FAIL'}] dmma F64GER {name} "
+              f"{lead}{(m, k, n)}: max|err| {err:.3e} (tol {tol:.3e})")
+        if not ok:
+            failures.append(f"dmma F64GER {name}")
+    return worst
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def family_runs(torch, timer, failures, by_run, worst):
+    """The phase's main-path runs through the entry points a user calls
+    (``facility.contract``, ``quant.qdot``, ``blas3.complex_gemm``,
+    ``blas3.dft``, ``blas3.trsm``), every launch count reset just before
+    each and read just after, each held to its expected path and count,
+    its result checked; then each timed (CUDA events, L2 flushed) beside
+    its plain version, a library yardstick and its bound.  Returns the
+    ``kernels`` entries of the IMMA and DMMA kernels, and the timed rows
+    of the runs on the WMMA tile or on no kernel."""
+    from repro_torch.core import facility as F
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import blas3 as B3
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = F.Ger
+    kernels = kernel_wrappers()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows: dict[str, dict] = {}
+
+    def run(name, fn):
+        reset_counts(kernels)
+        with F.configure(F.FacilityConfig(device="cuda")):
+            out = fn()
+        torch.cuda.synchronize()
+        by_run[name] = {k: f.launches for k, f in kernels.items()}
+        take_records(name, kernels)
+        path, want = FAMILY_RUNS[name]
+        got = RECORDS[name]["by_path"]["mma_gemm"]
+        ok = (sum(got.values()) == want
+              and (path is None or got[path] == want))
+        print(f"  [{'ok' if ok else 'FAIL'}] {name}: GEMM launches by path "
+              f"{ {p: v for p, v in got.items() if v} } (want {want} on "
+              f"{path})")
+        if not ok:
+            failures.append(f"{name}: launches {got}, want {want} on {path}")
+        return out
+
+    def timed(name, kernel, plain, library, nbytes, ops, peak, lib_name,
+              **extra):
+        row = {"ms": timer(kernel), "plain_ms": timer(plain),
+               "library_ms": timer(library) if library else None,
+               "library": lib_name, **extra}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, peak)
+        rows[name] = row
+        print(f"  time {name}: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, {lib_name} "
+              f"{row['library_ms'] if library else 'n/a'} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + "".join(f", {k} {v}" for k, v in extra.items()))
+
+    def check(name, ok, what):
+        print(f"  [{'ok' if ok else 'FAIL'}] {name}: {what}")
+        if not ok:
+            failures.append(f"{name}: {what}")
+
+    # DGEMM on F64GER (the paper's first case study), 8192^2
+    n = 8192
+    a = torch.randn(n, n, generator=g, device="cuda", dtype=torch.float64)
+    b = torch.randn(n, n, generator=g, device="cuda", dtype=torch.float64)
+    plan = F.Plan(ger=Ger.F64GER, out_dtype=F.ACC)
+    out = run("dgemm F64GER 8192",
+              lambda: F.contract("mk,kn->mn", a, b, plan=plan))
+    want = G.mma_gemm_plain(a, b, kind=Ger.F64GER)
+    err = (out - want).abs().max().item()
+    tol = 1e-15 * n * a.abs().max().item() * b.abs().max().item()
+    worst["dmma"] = max(worst["dmma"], err)
+    check("dgemm F64GER 8192", err <= tol,
+          f"max|err| {err:.3e} vs plain (tol {tol:.3e})")
+    timed("dgemm F64GER 8192", lambda: G.mma_gemm(a, b, kind=Ger.F64GER),
+          lambda: G.mma_gemm_plain(a, b, kind=Ger.F64GER),
+          lambda: torch.matmul(a, b), 3 * n * n * 8, 2 * n ** 3, "f64",
+          "torch.matmul f64")
+    del a, b, out, want
+
+    # the integer families through contract at 8192^2 (and 4096^2)
+    for kind, n in ((Ger.I8GER4, 8192), (Ger.I4GER8, 8192),
+                    (Ger.I4GER8, 4096), (Ger.I16GER2, 8192),
+                    (Ger.I16GER2, 4096)):
+        name = f"{kind.name} {n}"
+        x, y = _int_operands(torch, g, kind, (), n, n, n)
+        plan = F.Plan(ger=kind, out_dtype=F.ACC)
+        out = run(name, lambda: F.contract("mk,kn->mn", x, y, plan=plan))
+        check(name, torch.equal(out, G.mma_gemm_plain(x, y, kind=kind)),
+              "bit for bit with the plain version")
+        s8 = torch.randint(-128, 128, (n, n), generator=g, device="cuda",
+                           dtype=torch.int8)
+        x8 = s8 if kind != Ger.I8GER4 else x
+        in_bytes = (x.numel() * x.element_size()
+                    + y.numel() * y.element_size())
+        timed(name, lambda: G.mma_gemm(x, y, kind=kind),
+              lambda: G.mma_gemm_plain(x, y, kind=kind),
+              lambda: torch._int_mm(x8, s8), in_bytes + 4 * n * n,
+              2 * n ** 3 * _PRODUCTS[kind.name], "int8",
+              "torch._int_mm s8 x s8 of the unpacked shape (not the same "
+              "function)")
+        del x, y, out, s8, x8
+
+    # qdot at deepseek-7b's MLP up-projection (4096 -> 11008)
+    k, n = 4096, 11008
+    w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+    wq, ws = Q.quantize_weight(w)
+    for m in (4, 1024):
+        name = f"qdot M={m}"
+        x = torch.randn(m, k, generator=g, device="cuda")
+        out = run(name, lambda: Q.qdot(x, wq, ws))
+        with F.configure(F.FacilityConfig(device="cuda")):
+            plain = Q.qdot(x, wq, ws, backend="torch")
+        check(name, torch.equal(out, plain) and bool(
+            torch.isfinite(out).all()), "bit for bit with the torch "
+              "backend's qdot")
+        rel = _rel(out, torch.matmul(x, w))
+        check(name, rel < 2e-2, f"relative L2 to the f32 product {rel:.3e} "
+              f"(int8 quantization; < 2e-2)")
+        xq, _, _ = Q.quantize_act_u8(x)
+        # the spec "kn,mk->mn" hands the kernel W^T and Xq^T: two copies
+        copies = [nm for nm, t in (("W^T", wq.t()), ("Xq^T", xq.t()))
+                  if not t.is_contiguous()]
+        wt, xt = wq.t().contiguous(), xq.t().contiguous()
+        xb, wb = x.bfloat16(), w.bfloat16()
+
+        def qdot_call():
+            with F.configure(F.FacilityConfig(device="cuda")):
+                Q.qdot(x, wq, ws)
+
+        def qdot_plain():
+            with F.configure(F.FacilityConfig(device="cuda")):
+                Q.qdot(x, wq, ws, backend="torch")
+
+        timed(name, lambda: G.mma_gemm(wt, xt, kind=Ger.I8GER4),
+              qdot_plain, lambda: torch.matmul(xb, wb),
+              m * k + k * n + 4 * m * n, 2 * m * n * k, "int8",
+              "torch.matmul bf16 of the unquantized product (not the same "
+              "function)", copies=copies,
+              qdot_ms=timer(qdot_call),
+              copy_w_ms=timer(lambda: wq.t().contiguous()),
+              copy_x_ms=timer(lambda: xq.t().contiguous()))
+    del w, wq, wt, xt, xb, wb
+
+    # complex_gemm at 4096^2: complex64 on F32GER, complex128 on F64GER
+    n = 4096
+    for kind, dt, cdt, tol in ((Ger.F32GER, torch.float32, torch.complex64,
+                                1e-5),
+                               (Ger.F64GER, torch.float64, torch.complex128,
+                                1e-12)):
+        name = f"complex_gemm c{64 if dt == torch.float32 else 128} {n}"
+        ar, ai, br, bi = (torch.randn(n, n, generator=g, device="cuda",
+                                      dtype=dt) for _ in range(4))
+        re, im = run(name, lambda: B3.complex_gemm(ar, ai, br, bi,
+                                                   kind=kind))
+        ca, cb = torch.complex(ar, ai), torch.complex(br, bi)
+        lib = torch.matmul(ca, cb)
+        rel = _rel(torch.complex(re, im), lib)
+        if kind == Ger.F64GER:
+            worst["dmma"] = max(worst["dmma"], (torch.complex(re, im) - lib)
+                                .abs().max().item())
+        check(name, rel < tol, f"relative L2 to complex torch.matmul "
+              f"{rel:.3e} (< {tol:g})")
+
+        def cg(backend=None):
+            with F.configure(F.FacilityConfig(device="cuda")):
+                B3.complex_gemm(ar, ai, br, bi, kind=kind, backend=backend)
+
+        timed(name, cg, lambda: cg("torch"), lambda: torch.matmul(ca, cb),
+              6 * n * n * dt.itemsize, 8 * n ** 3,
+              "f64" if dt == torch.float64 else "f32",
+              f"torch.matmul {cdt}")
+        del ar, ai, br, bi, re, im, ca, cb, lib
+
+    # batched dft: N = 1024, 64 stacks of 128 columns
+    bsz, n, m = 64, 1024, 128
+    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        name = f"dft {'f32' if dt == torch.float32 else 'f64'} N={n} " \
+               f"{bsz}x{m}"
+        x = torch.randn(bsz, n, m, generator=g, device="cuda", dtype=dt)
+        re, im = run(name, lambda: B3.dft(x))
+        ref64 = torch.fft.fft(x.double(), dim=-2)
+        got = torch.complex(re.double(), im.double())
+        rel = _rel(got, ref64)
+        rel_fft = _rel(torch.fft.fft(x, dim=-2).to(torch.complex128), ref64)
+        check(name, rel < tol, f"relative L2 to a float64 fft {rel:.3e} (< "
+              f"{tol:g}; torch.fft.fft in {dt}: {rel_fft:.3e})")
+
+        def dft_call(backend=None):
+            with F.configure(F.FacilityConfig(device="cuda")):
+                B3.dft(x, backend=backend)
+
+        xc = x.to(torch.complex64 if dt == torch.float32
+                  else torch.complex128)
+        timed(name, dft_call, lambda: dft_call("torch"),
+              lambda: torch.fft.fft(xc, dim=-2),
+              (2 * n * n + 3 * bsz * n * m) * dt.itemsize,
+              8 * n * n * bsz * m, "f64" if dt == torch.float64 else "f32",
+              "torch.fft.fft (not the same algorithm)")
+        del x, re, im, ref64, got, xc
+
+    # trsm: N = 4096, 1024 right-hand sides (panel updates on the torch
+    # lowering, as the reference pins xla: no kernel launch)
+    n, r = 4096, 1024
+    l = (torch.tril(torch.randn(n, n, generator=g, device="cuda"))
+         + n * torch.eye(n, device="cuda"))
+    rhs = torch.randn(n, r, generator=g, device="cuda")
+    xs = run("trsm f32 N=4096 R=1024", lambda: B3.trsm(l, rhs, block=64))
+    res = ((torch.matmul(l, xs) - rhs).norm()
+           / (l.norm() * xs.norm() + rhs.norm())).item()
+    check("trsm f32 N=4096 R=1024", res < 1e-6,
+          f"relative residual {res:.3e} (< 1e-6)")
+    t_trsm = timer(lambda: B3.trsm(l, rhs, block=64), iters=3, warmup=1)
+    t_lib = timer(lambda: torch.linalg.solve_triangular(l, rhs,
+                                                        upper=False))
+    print(f"  time trsm f32 N={n} R={r}: {t_trsm:.4f} ms, "
+          f"torch.linalg.solve_triangular {t_lib:.4f} ms")
+    rows["trsm f32 N=4096 R=1024"] = {"ms": t_trsm, "library_ms": t_lib}
+    del l, rhs, xs
+
+    # the saturating forms on the card: the kernel backend's route (the
+    # torch lowering) against the ref oracle, seeded near both int32 ends
+    def saturating():
+        outs = []
+        for kind in (Ger.I16GER2, Ger.I8GER4):
+            x, y = _int_operands(torch, g, kind, (), 256, 512, 256)
+            c = torch.where(torch.arange(256, device="cuda")[:, None] % 2
+                            == 0, 2 ** 31 - 1000, -2 ** 31 + 1000).to(
+                                torch.int32).expand(256, 256).contiguous()
+            got, want = (F.contract("mk,kn->mn", x, y, acc=c,
+                                    plan=F.Plan(ger=kind, saturating=True,
+                                                backend=bk,
+                                                out_dtype=F.ACC))
+                         for bk in ("kernel", "ref"))
+            outs.append((kind, got, want))
+        return outs
+
+    for kind, got, want in run("saturating", saturating):
+        clamps = int((want.abs() >= 2 ** 31 - 1).sum())
+        check(f"saturating {kind.name} 256x512x256",
+              torch.equal(got, want) and clamps > 0,
+              f"bit for bit with the ref lowering, {clamps} clamped "
+              f"outputs")
+
+    entries = []
+    for ename, path, head in (("mma_gemm.imma", "imma", "I8GER4 8192"),
+                              ("mma_gemm.dmma", "dmma",
+                               "dgemm F64GER 8192")):
+        row = rows[head]
+        entries.append({
+            "name": ename, "route": "cuda",
+            "source": f"src/repro_torch/csrc/gemm_{path}.cu",
+            "replaces": "src/repro/kernels/mma_gemm.py:197",
+            "max_abs_err": worst[path], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": row["library"], "shape": head,
+            "shapes": {k: v for k, v in rows.items()
+                       if FAMILY_RUNS[k][0] == path}})
+    # the runs on the WMMA tile (F32GER) and on no kernel, for the GEMM's
+    # entry
+    others = {k: v for k, v in rows.items()
+              if FAMILY_RUNS[k][0] in (None, "wmma")}
+    return entries, others
+
+
+
 def main() -> None:
     try:
         import torch
@@ -1928,13 +2368,28 @@ def main() -> None:
           flush=True)
     time_run_shapes(torch, entries, failures,
                     [f"{arch} train" for arch, _ in TRAIN_RUNS])
+
+    print("== phase 6: the family table and its paths", flush=True)
+    timer = Timer(torch)
+    worst = check_families(torch, failures)
+    new, others = family_runs(torch, timer, failures, by_run, worst)
+    entries += new
+    entries[0]["phase6_shapes"] = others
+    del timer
     for e in entries:
-        e["launches_by_run"] = {a: n[e["name"]] for a, n in by_run.items()}
+        e["launches_by_run"] = {
+            a: (RECORDS[a]["by_path"]["mma_gemm"][PATH_ENTRIES[e["name"]]]
+                if e["name"] in PATH_ENTRIES else n[e["name"]])
+            for a, n in by_run.items()}
         e["launches"] = sum(e["launches_by_run"].values())
         if e["name"] in BY_PATH:
             e["launches_by_path"] = {
                 p: sum(r["by_path"][e["name"]][p] for r in RECORDS.values())
                 for p in next(iter(RECORDS.values()))["by_path"][e["name"]]}
+    for e in new:
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched on phase 6's "
+                            f"paths")
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:

@@ -35,6 +35,7 @@ Ger = precision.Ger
 Plan = lowering.Plan
 ACC = lowering.ACC
 Epilogue = lowering.Epilogue
+Dequant = lowering.Dequant
 attend_chunk = lowering.attend_chunk
 repeat_kv = lowering.repeat_kv
 
@@ -113,6 +114,7 @@ def contract(spec: str, x: torch.Tensor, y: torch.Tensor,
              acc: torch.Tensor | None = None,
              bias: torch.Tensor | None = None,
              residual: torch.Tensor | None = None,
+             dequant: Dequant | None = None,
              masks: tuple | None = None) -> torch.Tensor:
     """The facility's single architected builtin.
 
@@ -120,11 +122,14 @@ def contract(spec: str, x: torch.Tensor, y: torch.Tensor,
     accumulate form, epilogue, out dtype, backend and tile — unset fields
     resolve against the ambient :class:`FacilityConfig`.  ``acc`` seeds
     the accumulator (the pp/np/pn/nn forms, scaled by ``plan.beta``);
-    ``bias``/``residual`` are the fused-epilogue operands.  ``z`` is the
-    value operand of :data:`ATTN`, where ``masks`` is the 1-tuple
-    ``(valid,)``.  The pm* ``(xmask, ymask, pmask)`` masks of the
-    reference come with ROADMAP queue 2, K1b.
+    ``bias``/``residual`` are the fused-epilogue operands.  ``dequant`` is
+    the quant path's deprime rescale (:class:`Dequant`; not with attn,
+    conv, complex operands, masks, a fused epilogue or saturating forms).
+    Complex operands run the ``complex`` op-class, ``plan.saturating`` the
+    clamped integer forms.  ``z`` is the value operand of :data:`ATTN`,
+    where ``masks`` is the 1-tuple ``(valid,)``.  The pm* ``(xmask,
+    ymask, pmask)`` masks of the reference come with ROADMAP queue 2, K1b.
     """
     return lowering.execute(spec, x, y, z, cfg=current(), plan=plan,
                             acc=acc, bias=bias, residual=residual,
-                            masks=masks)
+                            dequant=dequant, masks=masks)

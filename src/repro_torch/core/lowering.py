@@ -1,5 +1,6 @@
 """The lowering registry beneath ``facility.contract`` (port of
-``repro.core.lowering``: the gemm, conv, attn and einsum parts).
+``repro.core.lowering``: the gemm, gemm.saturating, complex, conv, attn and
+einsum parts, and the quant path's :class:`Dequant`).
 
 ``facility.contract(spec, x, y, plan=...)`` parses an einsum-like
 contraction spec, resolves a :class:`Plan` against the ambient
@@ -18,9 +19,15 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
     ``"conv"`` (the canonical NHWC conv specs, stride and valid/same/causal
     padding in the Plan), ``"attn"`` (the canonical three-operand ATTN
     spec), ``"einsum"`` (general contraction fallback, eager on every
-    backend, as the reference's einsum fell to xla).  ``gemm.masked``,
-    ``gemm.saturating`` and ``complex`` are later slices and raise
-    ``NotImplementedError`` naming theirs.
+    backend, as the reference's einsum fell to xla), ``"gemm.saturating"``
+    (the xvi16ger2s / xvi8ger4spp forms: each rank-r update clamped to
+    int32; ``torch`` and ``ref`` lowerings only, so the kernel backend
+    routes it to ``torch`` by its op-class, statically, as the reference
+    routes pallas to xla: a fixed route, not a fallback after a failure)
+    and ``"complex"`` (complex operands: four real accumulate-form gers
+    through whichever backend's gemm lowering the op resolves to, the
+    kernel's included).  ``gemm.masked`` is a later slice and raises
+    ``NotImplementedError`` naming it.
   * ``ger``/``fused``: optional specializations; lookup falls back from the
     most specific key to ``(backend, op_class, None, None)``.
 
@@ -48,6 +55,11 @@ lifecycle (paper fig. 4 — prime, rank-k updates, deprime):
     update   acc <- acc [-] X_i @ Y_i         (one per rank-k pass)
     deprime  out <- cast(epilogue(alpha * acc))
 
+An integer accumulator is int32 and wraps modulo 2**32, with alpha and
+beta truncated to integers, as in the reference.  ``execute`` applies a
+:class:`Dequant` (the quant path's rescale) after the lowering, on the
+accumulator-dtype matrix in output orientation.
+
 The CUDA kernel realizes it in registers and shared memory
 (csrc/mma_gemm.cu); the torch and ref lowerings with the explicit
 :class:`Accumulator`.  The ``F32GER_3XBF16`` expansion hook rewrites one
@@ -70,6 +82,7 @@ from repro_torch.kernels import mma_gemm as _gemm
 from repro_torch.kernels import ref as _ref
 
 Ger = precision.Ger
+_acc_scalar = _gemm.acc_scalar
 
 Epilogue = _epilogue_mod.Epilogue
 make_epilogue = _epilogue_mod.make
@@ -98,7 +111,7 @@ class Plan:
     neg_acc: bool = False
     alpha: float = 1.0
     beta: float = 1.0
-    saturating: bool = False          # gemm.saturating: slice C2
+    saturating: bool = False          # xvi16ger2s-style clamped updates
     # Conv op-class only (spec is one of the canonical conv specs below):
     stride: object = 1                # int, or one value per spatial dim
     padding: str = "valid"            # valid | same | causal
@@ -131,12 +144,9 @@ ATTN_Q_CHUNK = 1024
 # Families the attention lowerings accept: float operands, f32 accumulator.
 _ATTN_GERS = (Ger.F32GER, Ger.BF16GER2, Ger.F16GER2)
 
-# The ROADMAP slice that brings each op-class or family this slice lacks.
+# The ROADMAP slice that brings each op-class this port lacks.
 _LATER = {
     "gemm.masked": "the pm* masked forms (ROADMAP queue 2, K1b)",
-    "gemm.saturating": "saturating accumulation (ROADMAP slice C2)",
-    "complex": "complex contractions (ROADMAP slice C1)",
-    "integer": "the integer families (ROADMAP queue 2, K1c/K1f; slice C3)",
 }
 
 
@@ -291,14 +301,14 @@ class Accumulator:
             return self
         v = c.to(self.pol.acc_dtype)
         if beta != 1.0:
-            v = v * beta
+            v = v * _acc_scalar(beta, self.pol)
         self.value = -v if neg_acc else v
         return self
 
     def update(self, x, y, *, neg_product: bool = False):
-        """acc <- acc [-] X @ Y, accumulating in the family's acc dtype."""
-        prod = torch.matmul(x.to(self.pol.acc_dtype),
-                            y.to(self.pol.acc_dtype))
+        """acc <- acc [-] X @ Y, accumulating in the family's acc dtype
+        (``ref.product``: int4 unpacked, integer products wrapped)."""
+        prod = _ref.product(x, y, self.pol)
         if neg_product:
             prod = -prod
         self.value = prod if self.value is None else prod + self.value
@@ -308,10 +318,34 @@ class Accumulator:
                 residual=None, out_dtype=None):
         out = self.value
         if alpha != 1.0:
-            out = out * alpha
+            out = out * _acc_scalar(alpha, self.pol)
         out = _epilogue_mod.apply(out, epilogue, bias=bias,
                                   residual=residual)
         return out.to(out_dtype) if out_dtype is not None else out
+
+
+@dataclasses.dataclass
+class Dequant:
+    """Deprime-stage rescale turning an int32 ``I8GER4`` accumulator into
+    floating point -- the W8A8 zero-point form of ``quant.qdot``:
+
+        out = row_scale * (acc - row_zp * col_sum) * col_scale
+
+    Applied by ``execute`` on the accumulator-dtype matrix in output
+    orientation, the same on every backend, so the backends of the quant
+    path agree as far as the int32 ger itself does (bit for bit).
+    """
+
+    row_scale: torch.Tensor   # (M, 1) activation scales
+    row_zp: torch.Tensor      # (M, 1) activation zero points
+    col_sum: torch.Tensor     # (N,)  weight column sums (int32 -> fp32)
+    col_scale: torch.Tensor   # (1, N) or (N,) weight scales
+
+    def apply(self, acc):
+        out = acc.to(torch.float32)
+        out = self.row_scale * out \
+            - (self.row_scale * self.row_zp) * self.col_sum[None, :]
+        return out * self.col_scale
 
 
 # ----------------------------------------------------------------------
@@ -421,6 +455,8 @@ class Op:
     # conv op-class: per-spatial-dim stride and the padding mode.
     stride: tuple = ()
     padding: str = "valid"
+    # the resolved backend (the complex lowering runs its gemm lowering)
+    backend: str = "kernel"
 
     @property
     def fused(self) -> bool:
@@ -475,7 +511,7 @@ def _combine_expanded(op: Op, prod, acc_seed, residual):
     if acc_seed is not None:
         seed = acc_seed.to(prod.dtype)
         if op.beta != 1.0:
-            seed = seed * op.beta
+            seed = seed * _acc_scalar(op.beta, op.pol)
         acc.value = acc.value + (-seed if op.neg_acc else seed)
     return acc.deprime(alpha=op.alpha, epilogue=op.epilogue, bias=op.bias,
                        residual=residual, out_dtype=op.out_dtype)
@@ -597,6 +633,134 @@ def _lower_ref_gemm(op: Op):
     for xi, yi, kind in passes:
         prod = chain(xi, yi, kind, prod)
     return assemble(_combine_expanded(op, prod, acc2, res2))
+
+
+# ---- saturating accumulate forms (xvi16ger2s / xvi8ger4spp) ----------
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _saturating_operands(op: Op):
+    """The unpacked (M, K) x (K, N) operands of a saturating contraction
+    and its rank r, after the refusals both lowerings share."""
+    pol = op.pol
+    if not pol.is_integer:
+        raise ValueError("saturating forms are integer-only")
+    x2, y2, (b, m, n, k), assemble = op.to_batched_2d()
+    if b is not None:
+        raise ValueError("saturating forms are 2-D only")
+    x2, y2 = x2.to(pol.x_dtype), y2.to(pol.y_dtype)
+    if pol.packed_int4:
+        x2 = _ref.unpack_int4(x2)
+        y2 = _ref.unpack_int4(y2.transpose(0, 1)).transpose(0, 1)
+    r = pol.arch_rank
+    if x2.shape[1] % r:
+        raise ValueError(f"saturating {pol.ger.value} updates are rank {r}: "
+                         f"K = {x2.shape[1]} is not a multiple")
+    return x2, y2, (m, n), r, assemble
+
+
+# Elements of the rank-r group products the torch lowering holds at once.
+_SATURATING_CHUNK = 1 << 24
+
+
+@register("torch", "gemm.saturating")
+def _lower_torch_saturating(op: Op):
+    """Clamped rank-r accumulation in eager torch: the rank-r group
+    products a chunk of groups at a time, exact in float64 (|sum| <
+    2**33), then a clamping scan over the groups in int64 -- each update's
+    sum clamped to int32, as the instruction saturates."""
+    x2, y2, (m, n), r, assemble = _saturating_operands(op)
+    g = x2.shape[1] // r
+    xg = x2.reshape(m, g, r).to(torch.float64)
+    yg = y2.reshape(g, r, n).to(torch.float64)
+    acc = (torch.zeros((m, n), dtype=torch.int64, device=x2.device)
+           if op.acc is None else op.acc.reshape(m, n).to(torch.int32).to(
+               torch.int64))
+    step = max(1, _SATURATING_CHUNK // max(1, m * n))
+    for g0 in range(0, g, step):
+        prods = torch.einsum("mgr,grn->gmn", xg[:, g0:g0 + step],
+                             yg[g0:g0 + step]).to(torch.int64)
+        for p in prods:
+            acc = (acc + p).clamp_(_I32_MIN, _I32_MAX)
+    return assemble(acc.to(torch.int32).to(op.out_dtype))
+
+
+@register("ref", "gemm.saturating")
+def _lower_ref_saturating(op: Op):
+    """Independent oracle: exact int64 group sums on the host, one group
+    at a time, clamped per update."""
+    x2, y2, (m, n), r, assemble = _saturating_operands(op)
+    x64 = x2.cpu().to(torch.int64)
+    y64 = y2.cpu().to(torch.int64)
+    acc = (torch.zeros((m, n), dtype=torch.int64) if op.acc is None
+           else op.acc.reshape(m, n).to(torch.int32).cpu().to(torch.int64))
+    for g in range(x64.shape[1] // r):
+        p = torch.matmul(x64[:, g * r:(g + 1) * r],
+                         y64[g * r:(g + 1) * r, :])
+        acc = (acc + p).clamp(_I32_MIN, _I32_MAX)
+    return assemble(acc.to(torch.int32).to(x2.device).to(op.out_dtype))
+
+
+# ---- complex op-class (complex matmul / DFT, paper section III) ------
+
+def _parts(t):
+    """(real, imag) of an operand as contiguous tensors: the strided
+    ``.real``/``.imag`` views are copied once each, so the kernels read
+    row-major panels; a real operand has zero imaginary part."""
+    if t.is_complex():
+        return t.real.contiguous(), t.imag.contiguous()
+    return t, torch.zeros_like(t)
+
+
+def _lower_complex(op: Op):
+    """Complex contraction as the four real accumulate-form gers the paper
+    composes (re <- re@re - im@im via the np form, im <- re@im + im@re via
+    pp), run on whichever backend's gemm lowering this op resolved to, the
+    kernel's included, batched specs too (the batched DFT)."""
+    fn = lookup(op.backend, "gemm", op.ger, False)
+    identity_ep = Epilogue()
+    acc_dtype = op.pol.acc_dtype
+    xr, xi = _parts(op.x)
+    yr, yi = _parts(op.y)
+
+    def ger(a, b, acc=None, neg=False):
+        sub = dataclasses.replace(
+            op, x=a, y=b, acc=acc, bias=None, residual=None,
+            out_dtype=acc_dtype, epilogue=identity_ep, neg_product=neg,
+            neg_acc=False, alpha=1.0, beta=1.0)
+        return fn(sub)
+
+    re = ger(xr, yr)
+    re = ger(xi, yi, acc=re, neg=True)           # np accumulate form
+    im = ger(xr, yi)
+    im = ger(xi, yr, acc=im)                     # pp accumulate form
+
+    # External accumulate forms, per component (as the Accumulator:
+    # out = alpha * ([-]prod + beta * [-]C)).
+    if op.neg_product:
+        re, im = -re, -im
+    if op.acc is not None:
+        cr, ci = _parts(op.acc)
+        cr, ci = cr.to(re.dtype), ci.to(im.dtype)
+        if op.beta != 1.0:
+            cr, ci = cr * op.beta, ci * op.beta
+        if op.neg_acc:
+            cr, ci = -cr, -ci
+        re, im = re + cr, im + ci
+    if op.alpha != 1.0:
+        re, im = re * op.alpha, im * op.alpha
+    od = op.out_dtype
+    if od.is_complex:
+        return torch.complex(re, im).to(od)
+    # Real out_dtype: round each component to it, then re-embed (bf16/f16
+    # have no complex pairing, so the container stays complex64).
+    f = torch.float64 if od == torch.float64 else torch.float32
+    return torch.complex(re.to(od).to(f), im.to(od).to(f))
+
+
+for _b in BACKENDS:
+    _REGISTRY[(_b, "complex", None, None)] = _lower_complex
 
 
 # ----------------------------------------------------------------------
@@ -902,7 +1066,7 @@ def _lower_einsum(op: Op):
 # Dispatch
 # ----------------------------------------------------------------------
 
-def _check_attn(x, y, z, ger, plan, acc, masks):
+def _check_attn(x, y, z, ger, plan, acc, dequant, masks):
     """Validate an ATTN contraction; returns the valid-slot predicate."""
     if z is None:
         raise ValueError(
@@ -922,12 +1086,13 @@ def _check_attn(x, y, z, ger, plan, acc, masks):
         raise ValueError(
             f"attn lowers float families with f32 accumulators only "
             f"({[g.value for g in _ATTN_GERS]}), not {ger.value}")
-    if (acc is not None or plan.saturating or plan.neg_product
-            or plan.neg_acc or plan.alpha != 1.0 or plan.beta != 1.0):
+    if (acc is not None or dequant is not None or plan.saturating
+            or plan.neg_product or plan.neg_acc or plan.alpha != 1.0
+            or plan.beta != 1.0):
         raise ValueError(
-            "attn contractions take no accumulator seed, saturating, or "
-            "alpha/beta/neg accumulate forms — only a fused epilogue and "
-            "the causal/window/q_offset/valid predicates")
+            "attn contractions take no accumulator seed, dequant, "
+            "saturating, or alpha/beta/neg accumulate forms — only a fused "
+            "epilogue and the causal/window/q_offset/valid predicates")
     if plan.block is not None and len(plan.block) != 2:
         raise ValueError(f"attn blocks are (bq, bk); got {plan.block!r}")
     if plan.window is not None and plan.window < 1:
@@ -947,19 +1112,20 @@ def _check_attn(x, y, z, ger, plan, acc, masks):
 
 
 def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
-            acc=None, bias=None, residual=None, masks=None):
+            acc=None, bias=None, residual=None,
+            dequant: Dequant | None = None, masks=None):
     """Resolve ``plan`` against ``cfg``, pick a lowering, run it.
 
     This is the body of ``facility.contract``.  ``z`` is the value operand
     of the canonical ``ATTN`` spec; for attn, ``masks`` is the 1-tuple
-    ``(valid,)`` KV-slot predicate.  Every operand must lie on the
-    facility's device: a CPU tensor never runs a CUDA-configured facility.
+    ``(valid,)`` KV-slot predicate.  ``dequant`` rescales the
+    accumulator-dtype result after the lowering (the quant path), then the
+    cast to the out dtype.  Every operand must lie on the facility's
+    device: a CPU tensor never runs a CUDA-configured facility.
     """
     plan = plan or Plan()
     ger = plan.ger or cfg.ger
     pol = precision.policy(ger)
-    if pol.is_integer:
-        raise _later("integer")
     if isinstance(plan.out_dtype, str) and plan.out_dtype == ACC:
         out_dtype = pol.acc_dtype
     else:
@@ -987,7 +1153,7 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
                          f"(facility.ATTN), not {spec!r}")
     if spec == ATTN:
         op_class = "attn"
-        valid = _check_attn(x, y, z, ger, plan, acc, masks)
+        valid = _check_attn(x, y, z, ger, plan, acc, dequant, masks)
         masks = None
     elif spec in _CONV_SPECS:
         nd, _ = _CONV_SPECS[spec]
@@ -997,22 +1163,36 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
         if len(stride) != nd or any(st < 1 for st in stride):
             raise ValueError(f"conv spec {spec!r} wants {nd} stride "
                              f"value(s) >= 1, got {plan.stride!r}")
-        if (acc is not None or plan.saturating or plan.neg_product
-                or plan.neg_acc or plan.alpha != 1.0 or plan.beta != 1.0):
+        if (acc is not None or dequant is not None or plan.saturating
+                or plan.neg_product or plan.neg_acc or plan.alpha != 1.0
+                or plan.beta != 1.0):
             raise ValueError(
-                "conv contractions take no accumulator seed, saturating, "
-                "or alpha/beta/neg accumulate forms — only a fused "
-                "epilogue")
+                "conv contractions take no accumulator seed, dequant, "
+                "saturating, or alpha/beta/neg accumulate forms — only a "
+                "fused epilogue")
     elif x.is_complex() or y.is_complex():
-        raise _later("complex")
-    elif plan.saturating:
-        raise _later("gemm.saturating")
+        op_class = "complex"
+        parsed = parse_spec(spec, x.ndim, y.ndim)
+        if parsed is None or parsed.out_perm is not None:
+            raise ValueError(
+                f"complex contraction {spec!r} must normalize to a "
+                f"(batched) GEMM in natural output order")
+        if dequant is not None or plan.saturating or not ep.is_identity:
+            raise ValueError(
+                "complex contractions take accumulate forms only — no "
+                "fused epilogue, dequant, or saturating updates")
     else:
         parsed = parse_spec(spec, x.ndim, y.ndim)
         if parsed is not None and _ellipsis_broadcasts(parsed, x, y):
             parsed = None
-        op_class = "gemm" if parsed is not None else "einsum"
+        if plan.saturating and parsed is None:
+            raise ValueError(f"saturating forms need a GEMM-shaped spec, "
+                             f"not {spec!r}")
+        op_class = "gemm.saturating" if plan.saturating else (
+            "gemm" if parsed is not None else "einsum")
     if masks is not None:
+        if dequant is not None:
+            raise ValueError("masks and dequant are exclusive")
         raise _later("gemm.masked")
     if op_class != "conv" and (plan.stride != 1 or plan.padding != "valid"):
         raise ValueError(
@@ -1022,12 +1202,21 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
         raise ValueError(
             f"causal/window/q_offset/q_chunk apply to the attn spec only, "
             f"not {spec!r}")
+    if dequant is not None and not ep.is_identity:
+        raise ValueError("dequant and a fused epilogue are exclusive")
     if (parsed is not None and parsed.out_perm is not None
             and (acc is not None or not ep.is_identity)):
         raise ValueError(
             f"spec {spec!r} permutes the natural output order; accumulator "
             f"inputs and fused epilogues require the natural "
             f"(batch..., m..., n...) output")
+    if plan.saturating and (not ep.is_identity or plan.neg_product
+                            or plan.neg_acc or plan.alpha != 1.0
+                            or plan.beta != 1.0 or dequant is not None):
+        raise ValueError(
+            "saturating forms take an accumulator seed only — no fused "
+            "epilogue, dequant, or alpha/beta/neg accumulate forms "
+            "(xvi16ger2s-class instructions have no such variants)")
 
     if (op_class == "conv" and backend == "kernel"
             and pol.acc_dtype != torch.float32):
@@ -1038,8 +1227,9 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
 
     fn = lookup(backend, op_class, ger, not ep.is_identity)
     if fn is None and backend == "kernel":
-        # general einsum specs have no kernel (the reference sent them to
-        # xla the same way): a static route, not a failure fallback
+        # general einsum specs and the saturating forms have no kernel
+        # (the reference sent them to xla the same way): a static route by
+        # op-class, not a failure fallback
         backend = "torch"
         fn = lookup(backend, op_class, ger, not ep.is_identity)
     if fn is None:
@@ -1047,10 +1237,15 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
             f"no lowering registered for ({backend!r}, {op_class!r}, "
             f"{ger}, fused={not ep.is_identity})")
     op = Op(x=x, y=y, acc=acc, bias=bias, residual=residual, parsed=parsed,
-            spec=spec, ger=ger, pol=pol, out_dtype=out_dtype, epilogue=ep,
-            block=plan.block, neg_product=plan.neg_product,
+            spec=spec, ger=ger, pol=pol,
+            out_dtype=pol.acc_dtype if dequant is not None else out_dtype,
+            epilogue=ep, block=plan.block, neg_product=plan.neg_product,
             neg_acc=plan.neg_acc, alpha=plan.alpha, beta=plan.beta,
             z=z, valid=valid, causal=plan.causal,
             window=plan.window, q_offset=plan.q_offset,
-            q_chunk=plan.q_chunk, stride=stride, padding=plan.padding)
-    return fn(op)
+            q_chunk=plan.q_chunk, stride=stride, padding=plan.padding,
+            backend=backend)
+    out = fn(op)
+    if dequant is not None:
+        out = dequant.apply(out).to(out_dtype)
+    return out

@@ -11,12 +11,18 @@ Where Hopper forces a family to adapt (see ``adapted``):
   * F32GER is true fp32: the GEMM kernel runs fp32 FMAs, never TF32, and
     every f32 parity claim runs with ``torch.backends.cuda.matmul.allow_tf32
     = False`` (PyTorch's default; chip_smoke.py sets it explicitly).
-  * I4GER8: Hopper has no int4 MMA, so the kernel will unpack in-kernel.
-  * I16GER2: there is no int16 MMA.
-  * F64GER: no fp64 tensor-core path in the port's kernels.
+  * F64GER runs on the fp64 tensor cores (``csrc/gemm_dmma.cu``, DMMA
+    m8n8k4).
+  * I8GER4 runs on the int8 tensor cores (``csrc/gemm_imma.cu``, IMMA
+    m16n8k32, signed X times unsigned Y as the instruction defines them).
+  * I4GER8: Hopper's tensor cores do no int4 work, so the IMMA kernel
+    unpacks the nibbles to int8 while it stages each panel.
+  * I16GER2: there is no int16 MMA; the IMMA kernel splits each int16
+    into a signed high and an unsigned low byte and sums four int8
+    products, exact modulo 2^32.
 
-The integer kinds are declared here but are not lowered yet: the facility
-raises ``NotImplementedError`` for them (ROADMAP queue 2, K1c and K1f).
+Integer families accumulate in int32 and wrap modulo 2^32, as the
+reference's int32 ``dot_general`` does.
 """
 
 from __future__ import annotations

@@ -12,8 +12,15 @@ carry over.  On an H100 the budget is
   * the register file, holding the accumulator itself: each warp owns a
     (bm / warps_m, bn / warps_n) slice of it as 16x16 fp32 fragments.
 
-The GEMM has three kernels, and :func:`choose_gemm_path` picks one by
-shape:
+The GEMM has five kernels.  The integer families and F64GER each have
+their own (:func:`choose_gemm_path` sends them there by family):
+
+  * "imma" (``csrc/gemm_imma.cu``): I8GER4, I4GER8 and I16GER2 on the
+    int8 tensor cores (IMMA m16n8k32), one fixed tile a family;
+  * "dmma" (``csrc/gemm_dmma.cu``): F64GER on the fp64 tensor cores
+    (DMMA m8n8k4), one fixed tile.
+
+The 16-bit and fp32 families take one of three, picked by shape:
 
   * "stream" (``csrc/gemm_stream.cu``): M <= 64 rows (decode, the SSD's
     M = 1 products), bound by the weight's bytes; the (K, N) weight is
@@ -45,12 +52,21 @@ NUM_SMS = 132                # H100 SXM streaming multiprocessors
 # panels pad by 8 (keeps WMMA's 32-byte fragment alignment), fp32 by 4.
 _PAD16, _PAD32 = 8, 4
 
-# The tile shapes csrc/mma_gemm.cu instantiates, largest first.
+# The tile shapes csrc/mma_gemm.cu (16-bit, fp32), csrc/gemm_imma.cu
+# (integer; bk counts unpacked K, two nibbles a byte for I4GER8) and
+# csrc/gemm_dmma.cu (F64GER) instantiate, largest first.
 GEMM_TILES: dict[Ger, tuple[tuple[int, int, int], ...]] = {
     Ger.BF16GER2: ((128, 128, 32), (64, 64, 64)),
     Ger.F16GER2: ((128, 128, 32), (64, 64, 64)),
     Ger.F32GER: ((64, 64, 16),),
+    Ger.I8GER4: ((128, 128, 64),),
+    Ger.I4GER8: ((128, 128, 64),),
+    Ger.I16GER2: ((64, 128, 64),),
+    Ger.F64GER: ((64, 64, 16),),
 }
+
+# The families of csrc/gemm_imma.cu, in the order of its family codes.
+IMMA_GERS = (Ger.I8GER4, Ger.I4GER8, Ger.I16GER2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +80,19 @@ class BlockConfig:
         return (-(-n // self.bn), -(-m // self.bm), b)
 
     def smem_bytes(self, pol: precision.GerPolicy) -> int:
-        """Dynamic shared memory of one block: the panel pair, or the fp32
-        output tile that aliases it, whichever is larger."""
-        c_tile = self.bm * (self.bn + _PAD32) * 4
-        if pol.in_bytes == 2:
+        """Dynamic shared memory of one block: the panel pair, or the
+        accumulator tile that aliases it, whichever is larger."""
+        c_tile = self.bm * (self.bn + _PAD32) * pol.acc_dtype.itemsize
+        if pol.ger in IMMA_GERS:
+            # two buffers of byte planes (hi and lo for I16GER2): X rows
+            # padded by 16 bytes, Y^T rows unpadded (XOR-swizzled)
+            planes = 2 if pol.ger == Ger.I16GER2 else 1
+            panels = 2 * planes * (self.bm * (self.bk + 16)
+                                   + self.bn * self.bk)
+        elif pol.ger == Ger.F64GER:
+            panels = 2 * (self.bm * (self.bk + _PAD32)
+                          + self.bk * (self.bn + _PAD32)) * 8
+        elif pol.in_bytes == 2:
             panels = (self.bm * (self.bk + _PAD16)
                       + self.bk * (self.bn + _PAD16)) * 2
         else:  # fp32: the X panel is stored k-major
@@ -79,8 +104,8 @@ class BlockConfig:
 def tiles_for(ger: Ger) -> tuple[BlockConfig, ...]:
     if ger not in GEMM_TILES:
         raise NotImplementedError(
-            f"the GEMM kernel has no {ger.value} instantiation "
-            f"(ROADMAP queue 2, K1c/K1f)")
+            f"the GEMM kernel has no {ger.value} instantiation (an "
+            f"expansion hook: lower it through facility.contract)")
     return tuple(BlockConfig(*t) for t in GEMM_TILES[ger])
 
 
@@ -182,12 +207,20 @@ def wgmma_plan(m: int, n: int, b: int = 1) -> WgmmaConfig:
 def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
                      aligned: bool = True,
                      block: tuple[int, int, int] | None = None):
-    """("stream" | "wgmma" | "wmma", config) for one product.
+    """("stream" | "wgmma" | "wmma" | "imma" | "dmma", config) for one
+    product.
 
-    ``aligned``: both operands' bases and row pitches are 16-byte
-    multiples (TMA's rule); ``block`` an explicit ``Plan.block``, which
-    names a WMMA tile.  The weight stream takes any pitch (a scalar path
-    covers unaligned rows); the wgmma tile only aligned ones."""
+    The integer families go to the IMMA kernel and F64GER to the DMMA
+    kernel, whatever the shape, on their one compiled tile (an explicit
+    ``block`` must name it).  For the others: ``aligned``: both operands'
+    bases and row pitches are 16-byte multiples (TMA's rule); ``block`` an
+    explicit ``Plan.block``, which names a WMMA tile.  The weight stream
+    takes any pitch (a scalar path covers unaligned rows); the wgmma tile
+    only aligned ones."""
+    if ger in IMMA_GERS or ger == Ger.F64GER:
+        cfg = (check_block(block, ger) if block is not None
+               else tiles_for(ger)[0])
+        return ("imma" if ger in IMMA_GERS else "dmma"), cfg
     if block is not None:
         return "wmma", check_block(block, ger)
     if ger in (Ger.BF16GER2, Ger.F16GER2) and k >= MIN_K:

@@ -8,8 +8,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes (kernels/mma_gemm.py, kernels/mma_attention.py: DTYPE_CODES)
-enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
+// dtype codes (kernels/mma_gemm.py, kernels/mma_attention.py: DTYPE_CODES);
+// int32 and f64 only where an integer or F64GER accumulator is stored
+enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2, DT_I32 = 3, DT_F64 = 4 };
 // activation codes (kernels/epilogue.py: ACT_CODES)
 enum { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2, ACT_GELU = 3 };
 

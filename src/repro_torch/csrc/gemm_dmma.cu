@@ -1,0 +1,237 @@
+// Accumulator-resident fp64 GEMM for Hopper (sm_90a): the DMMA kernel.
+//
+// Replaces the F64GER family of the TPU kernel K1: repro/kernels/mma_gemm.py,
+// mma_gemm (kernel body _make_kernel with an f64 accumulator; on the TPU it
+// ran on the vector unit, which has no fp64 matrix path), for 2-D and
+// batched operands (batch on blockIdx.z), the accumulate forms and the
+// fused epilogue, all in fp64:
+//
+//   out = cast(residual + act(bias + alpha * ([-](X @ Y) + s * beta * C)))
+//
+// with s = -1 for the neg_acc form.  This is the paper's DGEMM case study
+// (xvf64ger).
+//
+// What bounds it on an H100: the fp64 tensor cores (67 TFLOP/s dense) for
+// large products (a DGEMM of 8192^3 needs 16.4 ms at that rate); the
+// operands' bytes (3.35 TB/s) for skinny ones.
+//
+// Design.  mma.sync.aligned.m8n8k4 with f64 operands and accumulator (the
+// only fp64 tensor-core instruction; wgmma has no fp64 form).  One block of
+// 4 warps owns one 64 x 64 output tile, each warp 32 x 32 of it as 4 x 4
+// m8n8 accumulators (32 doubles a thread), and runs the whole k-loop:
+// 16-deep stages of X (row-major) and Y (row-major; the instruction's B
+// fragment is one element a thread, so Y needs no transpose) are loaded
+// into registers before the current stage's MMAs and stored into the
+// second of two shared-memory buffers after them (one barrier a stage).
+// The row pitches (20 and 68 doubles) make every fragment read
+// conflict-free.  The deprime goes through a shared fp64 tile, so that each
+// output element is stored once, coalesced, in the requested dtype.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 64, BN = 64, BK = 16;
+constexpr int THREADS = 128;            // 4 warps, 2 x 2
+constexpr int MT = 4, NT = 4;           // m8 / n8 tiles a warp
+constexpr int AP = BK + 4;              // X panel pitch in doubles
+constexpr int BP = BN + 4;              // Y panel pitch in doubles
+constexpr int CP = BN + 4;              // deprime tile pitch
+constexpr int STAGE = BM * AP + BK * BP;   // doubles a buffer
+constexpr int X_UNITS = BM * BK / 2 / THREADS;   // double2 units a thread
+constexpr int Y_UNITS = BK * BN / 2 / THREADS;
+constexpr size_t SMEM =
+    (2 * STAGE > BM * CP ? 2 * STAGE : BM * CP) * sizeof(double);
+
+struct DmmaArgs {
+  const double* x;
+  const double* y;
+  const double* c;
+  const double* bias;
+  const double* res;
+  void* out;
+  int out_dt;
+  int M, N, K;
+  long long sxb, syb, scb, srb, sob;   // batch strides in elements
+  double alpha, beta;
+  int neg_product, neg_acc, act;
+  int vec_x, vec_y;                    // 16-byte global loads allowed
+};
+
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, "
+      "{%0,%1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// Two consecutive elements of row `row` starting at column `col` of a
+// (rows, cols) row-major matrix, zero past either edge.
+__device__ __forceinline__ double2 load2(const double* p, int rows, int cols,
+                                         int row, int col, bool vec) {
+  double2 v = make_double2(0.0, 0.0);
+  if (row >= rows || col >= cols) return v;
+  const double* q = p + (long long)row * cols + col;
+  if (vec) return *reinterpret_cast<const double2*>(q);
+  v.x = q[0];
+  if (col + 1 < cols) v.y = q[1];
+  return v;
+}
+
+__device__ __forceinline__ double act_d(double v, int act) {
+  if (act == ACT_RELU) return v > 0.0 ? v : 0.0;
+  if (act == ACT_SILU) return v / (1.0 + exp(-v));
+  if (act == ACT_GELU) return v * (0.5 * (1.0 + erf(v * 0.7071067811865476)));
+  return v;
+}
+
+__device__ __forceinline__ void store_d(void* out, int dt, long long i,
+                                        double v) {
+  if (dt == DT_F64)
+    reinterpret_cast<double*>(out)[i] = v;
+  else if (dt == DT_F32)
+    reinterpret_cast<float*>(out)[i] = (float)v;
+  else if (dt == DT_BF16)
+    reinterpret_cast<__nv_bfloat16*>(out)[i] = __double2bfloat16(v);
+  else
+    reinterpret_cast<__half*>(out)[i] = __double2half(v);
+}
+
+__global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  double* smem = reinterpret_cast<double*>(smem_raw);
+  const int bz = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int g = lane / 4, t = lane % 4;
+  const double* xb = a.x + (long long)bz * a.sxb;
+  const double* yb = a.y + (long long)bz * a.syb;
+
+  double acc[MT][NT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
+
+  double2 xs[X_UNITS], ys[Y_UNITS];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < X_UNITS; ++i) {
+      const int u = threadIdx.x + i * THREADS;   // 8 units a row
+      xs[i] = load2(xb, a.M, a.K, m0 + u / 8, k0 + 2 * (u % 8), a.vec_x);
+    }
+#pragma unroll
+    for (int i = 0; i < Y_UNITS; ++i) {
+      const int u = threadIdx.x + i * THREADS;   // 32 units a row
+      ys[i] = load2(yb, a.K, a.N, k0 + u / 32, n0 + 2 * (u % 32), a.vec_y);
+    }
+  };
+  auto store = [&](double* buf) {
+#pragma unroll
+    for (int i = 0; i < X_UNITS; ++i) {
+      const int u = threadIdx.x + i * THREADS;
+      *reinterpret_cast<double2*>(buf + (u / 8) * AP + 2 * (u % 8)) = xs[i];
+    }
+#pragma unroll
+    for (int i = 0; i < Y_UNITS; ++i) {
+      const int u = threadIdx.x + i * THREADS;
+      *reinterpret_cast<double2*>(buf + BM * AP + (u / 32) * BP +
+                                  2 * (u % 32)) = ys[i];
+    }
+  };
+
+  const int ktiles = (a.K + BK - 1) / BK;
+  load(0);
+  store(smem);
+  __syncthreads();
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const double* cur = smem + (kt & 1) * STAGE;
+    if (kt + 1 < ktiles) load((kt + 1) * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK / 4; ++kk) {
+      double af[MT], bf[NT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        af[i] = cur[(wm * 32 + i * 8 + g) * AP + kk * 4 + t];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        bf[j] = cur[BM * AP + (kk * 4 + t) * BP + wn * 32 + j * 8 + g];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) dmma(acc[i][j], af[i], bf[j]);
+    }
+    if (kt + 1 < ktiles) store(smem + ((kt + 1) & 1) * STAGE);
+    __syncthreads();
+  }
+
+  // deprime through a shared fp64 tile (aliasing the panels, all read)
+  double* cs = smem;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        cs[(wm * 32 + i * 8 + g) * CP + wn * 32 + j * 8 + 2 * t + r] =
+            acc[i][j][r];
+  __syncthreads();
+  const long long cbase = (long long)bz * a.scb, rbase = (long long)bz * a.srb;
+  const long long obase = (long long)bz * a.sob;
+  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
+    const int row = e / BN, col = e % BN;
+    const int gr = m0 + row, gc = n0 + col;
+    if (gr >= a.M || gc >= a.N) continue;
+    const long long idx = (long long)gr * a.N + gc;
+    double v = cs[row * CP + col];
+    if (a.neg_product) v = -v;
+    if (a.c) {
+      double s = a.c[cbase + idx];
+      if (a.beta != 1.0) s *= a.beta;
+      v += a.neg_acc ? -s : s;
+    }
+    if (a.alpha != 1.0) v *= a.alpha;
+    if (a.bias) v += a.bias[gc];
+    v = act_d(v, a.act);
+    if (a.res) v += a.res[rbase + idx];
+    store_d(a.out, a.out_dt, obase + idx, v);
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+}  // namespace
+
+// c, bias and res are fp64; batch strides count elements.
+extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* c,
+                                const void* bias, const void* res, void* out,
+                                int out_dt, int batch, int M, int N, int K,
+                                long long sxb, long long syb, long long scb,
+                                long long srb, long long sob, double alpha,
+                                double beta, int neg_product, int neg_acc,
+                                int act, void* stream) {
+  DmmaArgs a;
+  a.x = reinterpret_cast<const double*>(x);
+  a.y = reinterpret_cast<const double*>(y);
+  a.c = reinterpret_cast<const double*>(c);
+  a.bias = reinterpret_cast<const double*>(bias);
+  a.res = reinterpret_cast<const double*>(res);
+  a.out = out;
+  a.out_dt = out_dt;
+  a.M = M; a.N = N; a.K = K;
+  a.sxb = sxb; a.syb = syb; a.scb = scb; a.srb = srb; a.sob = sob;
+  a.alpha = alpha; a.beta = beta;
+  a.neg_product = neg_product; a.neg_acc = neg_acc; a.act = act;
+  a.vec_x = K % 2 == 0 && sxb % 2 == 0 && aligned16(x);
+  a.vec_y = N % 2 == 0 && syb % 2 == 0 && aligned16(y);
+  static bool smem_ok = false;
+  cudaError_t e = allow_smem(gemm_dmma_kernel, SMEM, &smem_ok);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
+  gemm_dmma_kernel<<<grid, THREADS, SMEM, reinterpret_cast<cudaStream_t>(
+                                              stream)>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -22,8 +22,8 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3]
              / "build" / "repro_torch_kernels")
-SOURCES = ("gemm_stream", "gemm_wgmma", "mma_gemm", "mma_attention",
-           "mma_conv")
+SOURCES = ("gemm_stream", "gemm_wgmma", "mma_gemm", "gemm_imma",
+           "gemm_dmma", "mma_attention", "mma_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,40 +1,48 @@
 """Accumulator-resident GEMM: the wrapper of the Hopper kernels and their
-plain versions (port of ``repro.kernels.mma_gemm``, TPU kernel K1a).
+plain versions (port of ``repro.kernels.mma_gemm``, TPU kernel K1).
 
-Three kernels compute it, one per regime, chosen by shape in
-``core.tiling.choose_gemm_path``: ``csrc/gemm_stream.cu`` (M <= 64: a
-split-K cp.async weight stream, bound by bytes), ``csrc/gemm_wgmma.cu``
-(larger M: a TMA + wgmma tile, bound by the tensor cores) and
-``csrc/mma_gemm.cu`` (WMMA tiles: unaligned pitches at large M, K < 16,
-F32GER, an explicit block).  Each source's head comment says which TPU
-kernel it replaces (``repro/kernels/mma_gemm.py``, ``mma_gemm``), what
-bounds it on an H100 and what its design does about that.
+Five kernels compute it, chosen in ``core.tiling.choose_gemm_path``.  The
+16-bit and fp32 families take one of three by shape:
+``csrc/gemm_stream.cu`` (M <= 64: a split-K cp.async weight stream, bound
+by bytes), ``csrc/gemm_wgmma.cu`` (larger M: a TMA + wgmma tile, bound by
+the tensor cores) and ``csrc/mma_gemm.cu`` (WMMA tiles: unaligned pitches
+at large M, K < 16, F32GER, an explicit block).  The integer families
+(I8GER4, I4GER8, I16GER2) run ``csrc/gemm_imma.cu`` on the int8 tensor
+cores and F64GER runs ``csrc/gemm_dmma.cu`` on the fp64 tensor cores.
+Each source's head comment says which TPU kernel it replaces
+(``repro/kernels/mma_gemm.py``, ``mma_gemm``), what bounds it on an H100
+and what its design does about that.
 
 ``mma_gemm`` computes
 
     C <- cast(epilogue(alpha * ([-](X @ Y) [+ beta * (+/-)C])))
 
 for x (M, K) or (B, M, K) and y (K, N) or (B, K, N) in the family's input
-dtype.  A CPU tensor goes to the plain version of the path the card would
-take: :func:`mma_gemm_splitk_plain` (fp32 partial products over the
-weight stream's K slices, summed in split order) where that path splits K,
-else :func:`mma_gemm_plain` (prime, one rank-K update, deprime).  A CUDA
-tensor launches a kernel or raises: there is no fallback.
-``mma_gemm.launches`` counts products computed on the card (one per call,
-whatever the path or split), ``mma_gemm.launches_by_path`` the same by
-path, and nothing else.
+dtype (I4GER8: both packed two nibbles a byte along K, x (M, K/2) and y
+(K/2, N)).  An integer family accumulates in int32 and wraps modulo 2**32,
+with alpha and beta truncated to integers, as the reference's int32
+accumulator does; its seed, bias and residual are cast to int32, F64GER's
+to float64, as the reference casts them to the accumulator dtype.  A CPU
+tensor goes to the plain version of the path the card would take:
+:func:`mma_gemm_splitk_plain` (fp32 partial products over the weight
+stream's K slices, summed in split order) where that path splits K, else
+:func:`mma_gemm_plain` (prime, one rank-K update, deprime).  A CUDA tensor
+launches a kernel or raises: there is no fallback.  ``mma_gemm.launches``
+counts products computed on the card (one per call, whatever the path or
+split), ``mma_gemm.launches_by_path`` the same by path, and nothing else.
 
 Gradients: where an operand requires one, ``mma_gemm`` runs as a
 ``torch.autograd.Function`` whose forward is the same dispatch and whose
 backward is more products through this wrapper (the reference has no
 backward kernel: its Pallas GEMM cannot be differentiated, and it trains
 on XLA's products): dX = alpha (+/-) dZ Y^T and dY = alpha (+/-) X^T dZ
-in the forward's family (dZ cast to its input dtype, fp32 accumulation),
-dC = alpha beta (+/-) dZ for the seed, dbias the row sum of dZ and
-dresidual = dOut.  Under a fused activation Z is not stored: one more
-product with the bias epilogue only and an fp32 store recomputes it, and
-dZ = dOut act'(Z).  The backward's operands X^T and Y^T are contiguous
-copies (the kernels read row-major operands).
+in the forward's family (dZ cast to its input dtype, accumulation in the
+family's accumulator dtype), dC = alpha beta (+/-) dZ for the seed, dbias
+the row sum of dZ and dresidual = dOut.  Under a fused activation Z is not
+stored: one more product with the bias epilogue only and an
+accumulator-dtype store recomputes it, and dZ = dOut act'(Z).  The
+backward's operands X^T and Y^T are contiguous copies (the kernels read
+row-major operands).  The integer families have no gradient (TypeError).
 """
 
 from __future__ import annotations
@@ -46,11 +54,14 @@ import torch
 from repro_torch.core import precision, tiling
 from repro_torch.kernels import _autograd, _build
 from repro_torch.kernels import epilogue as _epilogue
+from repro_torch.kernels import ref as _ref
 
 Ger = precision.Ger
 
-# dtype codes of csrc/common.cuh
+# dtype codes of csrc/common.cuh: the 16-bit/fp32 kernels' operands and
+# outputs; the IMMA and DMMA kernels also store int32 and float64
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+STORE_CODES = {**DTYPE_CODES, torch.int32: 3, torch.float64: 4}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 5 + [ctypes.c_float] * 2
@@ -64,7 +75,15 @@ _STREAM_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
 _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 3 + [ctypes.c_int] + [ctypes.c_void_p])
-PATHS = ("stream", "wgmma", "wmma")
+# csrc/gemm_imma.cu: gemm_imma_launch
+_IMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                  + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p])
+# csrc/gemm_dmma.cu: gemm_dmma_launch
+_DMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                  + [ctypes.c_longlong] * 5 + [ctypes.c_double] * 2
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+PATHS = ("stream", "wgmma", "wmma", "imma", "dmma")
 
 
 def _shapes(x, y):
@@ -84,20 +103,28 @@ def mma_gemm_plain(x, y, c=None, *, kind: Ger, neg_product: bool = False,
                    beta: float = 1.0, ep: _epilogue.Epilogue | None = None,
                    bias=None, residual=None, out_dtype=None):
     """The plain version: prime -> one rank-K update -> deprime, in the
-    family's accumulator dtype (bf16/f16 products are exact in fp32)."""
+    family's accumulator dtype (bf16/f16 products are exact in fp32;
+    integer ones exact, then wrapped to int32: ``ref.product``)."""
     pol = precision.policy(kind)
-    acc = torch.matmul(x.to(pol.acc_dtype), y.to(pol.acc_dtype))
+    acc = _ref.product(x, y, pol)
     if neg_product:
         acc = -acc
     if c is not None:
         seed = c.to(pol.acc_dtype)
         if beta != 1.0:
-            seed = seed * beta
+            seed = seed * acc_scalar(beta, pol)
         acc = acc + (-seed if neg_acc else seed)
     if alpha != 1.0:
-        acc = acc * alpha
+        acc = acc * acc_scalar(alpha, pol)
     out = _epilogue.apply(acc, ep, bias=bias, residual=residual)
     return out.to(out_dtype or pol.acc_dtype)
+
+
+def acc_scalar(v: float, pol: precision.GerPolicy):
+    """alpha or beta in the accumulator's dtype: an integer accumulator
+    truncates it toward zero (1.5 acts as 1), as the reference's
+    ``jnp.asarray(alpha, int32)`` does."""
+    return int(v) if pol.is_integer else v
 
 
 def mma_gemm_splitk_plain(x, y, c=None, *, kind: Ger,
@@ -220,11 +247,11 @@ class _MmaGemmFn(torch.autograd.Function):
                           neg_product=o["neg_product"], neg_acc=o["neg_acc"],
                           alpha=o["alpha"], beta=o["beta"],
                           ep=_epilogue.Epilogue(bias=bias is not None),
-                          bias=bias, out_dtype=torch.float32)
+                          bias=bias, out_dtype=pol.acc_dtype)
             with torch.enable_grad():
                 z.requires_grad_(True)
                 a = _epilogue.ACTIVATIONS[ctx.act](z)
-            dz, = torch.autograd.grad(a, z, dout.to(torch.float32))
+            dz, = torch.autograd.grad(a, z, dout.to(pol.acc_dtype))
         else:
             dz = dout
         grads = [None] * 5
@@ -238,10 +265,10 @@ class _MmaGemmFn(torch.autograd.Function):
                                  out_dtype=ctx.dtypes[1], **prod)
         if need[2]:
             s = o["alpha"] * o["beta"] * (-1.0 if o["neg_acc"] else 1.0)
-            grads[2] = (dz.to(torch.float32) * s).to(ctx.dtypes[2])
+            grads[2] = (dz.to(pol.acc_dtype) * s).to(ctx.dtypes[2])
         if need[3]:
             rows = tuple(range(dz.ndim - 1))
-            grads[3] = dz.to(torch.float32).sum(rows).to(ctx.dtypes[3])
+            grads[3] = dz.to(pol.acc_dtype).sum(rows).to(ctx.dtypes[3])
         if need[4]:
             grads[4] = dout.to(ctx.dtypes[4])
         return (*grads, None)
@@ -297,23 +324,77 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     if x.device.type != "cuda":
         raise ValueError(f"mma_gemm runs on cuda (or its plain version on "
                          f"cpu), not {x.device}")
-    if out_dtype not in DTYPE_CODES:
-        raise NotImplementedError(f"the GEMM kernel stores f32/bf16/f16, "
-                                  f"not {out_dtype}")
     if (b or 1) > 65535:
         raise ValueError(f"grid too large for one launch: b={b}")
     for t in (y, c, bias, residual):
         if t is not None and t.device != x.device:
             raise ValueError(f"operands on {x.device} and {t.device}")
+    if (b or 1) * m * n == 0:       # an empty grid is not a launch
+        return torch.empty(out_shape, dtype=out_dtype, device=x.device)
     x, y = x.contiguous(), y.contiguous()
+    path, cfg = tiling.choose_gemm_path(m, n, k, kind, b or 1,
+                                        _is_aligned(x, y), block)
+    if path in ("imma", "dmma"):
+        out = _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, **forms)
+    else:
+        out = _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, **forms)
+    mma_gemm.launches += 1
+    mma_gemm.launches_by_path[path] += 1
+    if mma_gemm.trace is not None:
+        mma_gemm.trace.append((b or 1, m, k, n, x.dtype, out_dtype, path))
+    return out
+
+
+def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
+                      neg_acc, alpha, beta, ep, bias, residual, out_dtype):
+    """One launch of csrc/gemm_imma.cu (the integer families) or
+    csrc/gemm_dmma.cu (F64GER).  The seed, bias and residual go to the
+    accumulator dtype first, as the reference casts them."""
+    if out_dtype not in STORE_CODES:
+        raise NotImplementedError(f"the {path} kernel stores int32/f64/f32/"
+                                  f"bf16/f16, not {out_dtype}")
+    if -(-m // cfg.bm) > 65535:
+        raise ValueError(f"grid too large for one launch: m={m}")
+    acc = pol.acc_dtype
+    c, bias, residual = (t.to(acc).contiguous() if t is not None else None
+                         for t in (c, bias, residual))
+    out = torch.empty((m, n) if b is None else (b, m, n), dtype=out_dtype,
+                      device=x.device)
+    batched = b is not None
+    strides = (m * k if batched else 0, k * n if batched else 0,
+               m * n, m * n, m * n)
+    ptrs = (x.data_ptr(), y.data_ptr(), _ptr(c), _ptr(bias), _ptr(residual),
+            out.data_ptr())
+    act = ep.activation if ep is not None else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if path == "imma":
+        lib, fn = _lib("gemm_imma", "gemm_imma_launch", _IMMA_ARGTYPES)
+        logical_k = 2 * k if pol.packed_int4 else k
+        rc = fn(*ptrs, tiling.IMMA_GERS.index(pol.ger),
+                STORE_CODES[out_dtype], b or 1, m, n, logical_k, *strides,
+                acc_scalar(alpha, pol), acc_scalar(beta, pol),
+                int(neg_product), int(neg_acc), int(act == "relu"), stream)
+    else:
+        lib, fn = _lib("gemm_dmma", "gemm_dmma_launch", _DMMA_ARGTYPES)
+        rc = fn(*ptrs, STORE_CODES[out_dtype], b or 1, m, n, k, *strides,
+                float(alpha), float(beta), int(neg_product), int(neg_acc),
+                _epilogue.ACT_CODES[act], stream)
+    _build.check(lib, rc, f"mma_gemm ({path})")
+    return out
+
+
+def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
+                      neg_acc, alpha, beta, ep, bias, residual, out_dtype):
+    """One launch of the weight stream, the wgmma tile or the WMMA tiles
+    (the bf16/f16/f32 families)."""
+    if out_dtype not in DTYPE_CODES:
+        raise NotImplementedError(f"the GEMM kernel stores f32/bf16/f16, "
+                                  f"not {out_dtype}")
     c = c.contiguous() if c is not None else None
     bias = bias.contiguous() if bias is not None else None
     residual = residual.contiguous() if residual is not None else None
-    out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
-    if out.numel() == 0:
-        return out                  # an empty grid is not a launch
-    path, cfg = tiling.choose_gemm_path(m, n, k, kind, b or 1,
-                                        _is_aligned(x, y), block)
+    out = torch.empty((m, n) if b is None else (b, m, n), dtype=out_dtype,
+                      device=x.device)
     batched = b is not None
     common = (_ptr(c), _ptr(bias), _ptr(residual), out.data_ptr())
     codes = (_code(c), _code(bias), _code(residual), DTYPE_CODES[out_dtype])
@@ -349,10 +430,6 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
                 m * k if batched else 0, k * n if batched else 0,
                 m * n, m * n, m * n, *forms, cfg.bm, cfg.bn, cfg.bk, stream)
     _build.check(lib, rc, f"mma_gemm ({path})")
-    mma_gemm.launches += 1
-    mma_gemm.launches_by_path[path] += 1
-    if mma_gemm.trace is not None:
-        mma_gemm.trace.append((b or 1, m, k, n, x.dtype, out_dtype, path))
     return out
 
 

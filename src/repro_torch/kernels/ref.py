@@ -2,8 +2,8 @@
 
 These implement the architected semantics of the paper's instructions
 (sections II-B, II-C) at matrix granularity, with no tiling — the ground
-truth the kernels are tested against.  ``pm_ger`` and ``unpack_int4``
-come with their slices (ROADMAP queue 2, K1b/K1f).
+truth the kernels are tested against.  ``pm_ger`` comes with its slice
+(ROADMAP queue 2, K1b).
 """
 
 from __future__ import annotations
@@ -13,21 +13,68 @@ import torch
 from repro_torch.core import precision
 
 
+# |sum| below 2**53: every partial sum of a float64 product of integers
+# is then an exact integer.
+_F64_EXACT = 2 ** 53
+
+
+def unpack_int4(x_packed: torch.Tensor) -> torch.Tensor:
+    """Unpack two's-complement nibbles (low nibble first) along the last
+    axis: (..., K/2) int8 -> (..., K) int8."""
+    lo = (x_packed << 4) >> 4                  # arithmetic: sign-extends
+    hi = x_packed >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(*x_packed.shape[:-1], -1)
+
+
+def _max_abs(t: torch.Tensor) -> int:
+    if t.numel() == 0:
+        return 0
+    return max(abs(int(t.max())), abs(int(t.min())))
+
+
+def int_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """X @ Y of integer operands as the reference's int32 ``dot_general``
+    computes it: exact products, the sum wrapped modulo 2**32.  On the CPU
+    in int64; CUDA has no integer matmul, so there the product runs in
+    float64, exact while K * max|x| * max|y| < 2**53 (asserted), and the
+    int64 result is wrapped to int32."""
+    if x.device.type == "cpu":
+        return torch.matmul(x.to(torch.int64), y.to(torch.int64)).to(
+            torch.int32)
+    big = x.shape[-1] * _max_abs(x) * _max_abs(y)
+    if big >= _F64_EXACT:
+        raise ValueError(f"float64 integer product not exact: K * max|x| * "
+                         f"max|y| = {big} >= 2**53")
+    return torch.matmul(x.to(torch.float64), y.to(torch.float64)).to(
+        torch.int64).to(torch.int32)
+
+
+def product(x: torch.Tensor, y: torch.Tensor,
+            pol: precision.GerPolicy) -> torch.Tensor:
+    """X @ Y of one family in its accumulator dtype, (batched) 2-D: int4
+    operands unpacked along K (x's last axis, y's second to last), integer
+    products by :func:`int_matmul`, float ones in the accumulator dtype."""
+    if pol.packed_int4:
+        x = unpack_int4(x)
+        y = unpack_int4(y.transpose(-1, -2)).transpose(-1, -2)
+    if pol.is_integer:
+        return int_matmul(x, y)
+    return torch.matmul(x.to(pol.acc_dtype), y.to(pol.acc_dtype))
+
+
 def ger(x: torch.Tensor, y: torch.Tensor, kind: precision.Ger,
         acc: torch.Tensor | None = None,
         neg_product: bool = False, neg_acc: bool = False) -> torch.Tensor:
     """Rank-k update oracle:  A <- [-] X @ Y [+/- A]   (paper eq. 1 and 2).
 
-    x: (M, K), y: (K, N) in the family's input dtype.  Returns the
-    accumulator in the family's accumulator dtype.  Products are formed
-    in the accumulator dtype: exact for bf16/f16 inputs into fp32.
+    x: (M, K), y: (K, N) in the family's input dtype (int4: packed along
+    K, x as (M, K/2) and y as (K/2, N)).  Returns the accumulator in the
+    family's accumulator dtype.  Float products are formed in the
+    accumulator dtype (exact for bf16/f16 inputs into fp32); integer ones
+    by :func:`int_matmul`, wrapping modulo 2**32.
     """
     pol = precision.policy(kind)
-    if pol.is_integer or pol.packed_int4:
-        raise NotImplementedError(
-            f"{kind.value}: the integer families are lowered with their "
-            f"slices (ROADMAP queue 2, K1c/K1f)")
-    prod = torch.matmul(x.to(pol.acc_dtype), y.to(pol.acc_dtype))
+    prod = product(x, y, pol)
     if neg_product:
         prod = -prod
     if acc is None:

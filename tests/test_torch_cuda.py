@@ -832,3 +832,174 @@ def test_moe_layer_forward_makes_no_host_sync(gen):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(out).all()) and aux.item() > 0
+
+
+# ---- the rest of K1's family table: the IMMA and DMMA kernels -----------
+
+def _ints(gen, lo, hi, *shape, dtype):
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda").to(
+        dtype)
+
+
+_INT_RANGES = {Ger.I8GER4: ((-128, 128, torch.int8), (0, 256, torch.uint8)),
+               Ger.I4GER8: ((-128, 128, torch.int8), (-128, 128, torch.int8)),
+               Ger.I16GER2: ((-32768, 32768, torch.int16),
+                             (-32768, 32768, torch.int16))}
+
+
+def _int_operands(gen, kind, lead, m, k, n):
+    (xl, xh, xd), (yl, yh, yd) = _INT_RANGES[kind]
+    kp = k // 2 if kind == Ger.I4GER8 else k
+    return (_ints(gen, xl, xh, *lead, m, kp, dtype=xd),
+            _ints(gen, yl, yh, *lead, kp, n, dtype=yd))
+
+
+_INT_CASES = {
+    "ragged": ((), (37, 100, 45), {}),
+    "aligned": ((), (256, 1024, 384), {}),
+    "batched": ((3,), (77, 200, 130), {}),
+    "forms": ((), (70, 256, 90), dict(neg_product=True, neg_acc=True,
+                                      alpha=3.7, beta=-2.5, seed=True)),
+    "epilogue": ((2,), (33, 96, 40), dict(relu=True, seed=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_INT_CASES))
+@pytest.mark.parametrize("kind", sorted(_INT_RANGES, key=str))
+def test_imma_kernel_bit_exact(gen, kind, case):
+    """The IMMA kernel against its plain version (exact products, wrapped
+    to int32) bit for bit, full-range operands included (I16GER2 wraps),
+    on the imma path, and the same bits on a second launch."""
+    lead, (m, k, n), opts = _INT_CASES[case]
+    opts = dict(opts)
+    x, y = _int_operands(gen, kind, lead, m, k, n)
+    c = (_ints(gen, -2 ** 31, 2 ** 31 - 1, *lead, m, n, dtype=torch.int32)
+         if opts.pop("seed", False) else None)
+    kw = dict(kind=kind, **opts)
+    if kw.pop("relu", False):
+        kw.update(ep=E.Epilogue(bias=True, activation="relu", residual=True),
+                  bias=_ints(gen, -1000, 1000, n, dtype=torch.int32),
+                  residual=_ints(gen, -1000, 1000, *lead, m, n,
+                                 dtype=torch.int32))
+    before = G.mma_gemm.launches_by_path["imma"]
+    got = G.mma_gemm(x, y, c, **kw)
+    assert G.mma_gemm.launches_by_path["imma"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, G.mma_gemm_plain(x, y, c, **kw))
+    assert torch.equal(G.mma_gemm(x, y, c, **kw), got)
+
+
+def test_i16ger2_kernel_wraps(gen):
+    x = torch.full((16, 64), -32768, dtype=torch.int16, device="cuda")
+    y = torch.full((64, 16), -32768, dtype=torch.int16, device="cuda")
+    got = G.mma_gemm(x, y, kind=Ger.I16GER2)
+    # 64 * 2**30 = 2**36 wraps to 0 modulo 2**32
+    assert torch.equal(got, torch.zeros_like(got))
+    y[0] = 1
+    assert torch.equal(G.mma_gemm(x, y, kind=Ger.I16GER2),
+                       G.mma_gemm_plain(x, y, kind=Ger.I16GER2))
+
+
+def test_i4ger8_matches_i8ger4_on_unpacked_operands(gen):
+    """I4GER8 on packed nibbles against I8GER4 on the same values
+    unpacked (Y's nibbles kept in 0..7 so that they are uint8 too)."""
+    from repro_torch.kernels import ref as R
+    x = _ints(gen, -128, 128, 130, 96, dtype=torch.int8)
+    lo = _ints(gen, 0, 8, 96, 150, dtype=torch.int8)
+    hi = _ints(gen, 0, 8, 96, 150, dtype=torch.int8)
+    y = lo | (hi << 4)
+    yu = R.unpack_int4(y.transpose(0, 1)).transpose(0, 1)
+    got = G.mma_gemm(x, y, kind=Ger.I4GER8)
+    want = G.mma_gemm(R.unpack_int4(x), yu.to(torch.uint8).contiguous(),
+                      kind=Ger.I8GER4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["ragged", "batched", "forms", "epilogue"])
+def test_dmma_kernel_matches_plain(gen, case):
+    """F64GER on the DMMA kernel against the float64 plain version within
+    1e-15 * K * max|x| max|y| (fp64 sums in another order)."""
+    lead, (m, k, n) = {"ragged": ((), (37, 301, 45)),
+                       "batched": ((3,), (77, 200, 130)),
+                       "forms": ((), (70, 256, 90)),
+                       "epilogue": ((2,), (65, 128, 66))}[case]
+    x = torch.randn(*lead, m, k, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    y = torch.randn(*lead, k, n, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    kw, c = dict(kind=Ger.F64GER), None
+    if case == "forms":
+        c = torch.randn(m, n, generator=gen, device="cuda",
+                        dtype=torch.float64)
+        kw.update(neg_product=True, neg_acc=True, alpha=0.5, beta=-2.0)
+    if case == "epilogue":
+        kw.update(ep=E.Epilogue(bias=True, activation="gelu", residual=True),
+                  bias=torch.randn(n, generator=gen, device="cuda",
+                                   dtype=torch.float64),
+                  residual=torch.randn(*lead, m, n, generator=gen,
+                                       device="cuda", dtype=torch.float64))
+    before = G.mma_gemm.launches_by_path["dmma"]
+    got = G.mma_gemm(x, y, c, **kw)
+    assert G.mma_gemm.launches_by_path["dmma"] == before + 1
+    want = G.mma_gemm_plain(x, y, c, **kw)
+    bound = 1e-15 * k * x.abs().max().item() * y.abs().max().item()
+    assert (got - want).abs().max().item() <= bound
+    assert torch.equal(G.mma_gemm(x, y, c, **kw), got)
+
+
+def test_new_kernels_raise_on_build_or_launch_failure(gen, monkeypatch,
+                                                      tmp_path):
+    """A kernel that does not build, or a launch the kernel refuses,
+    raises; nothing falls back to the plain version or counts a launch."""
+    from repro_torch.kernels import _build
+    x = _ints(gen, -128, 128, 8, 64, dtype=torch.int8)
+    y = _ints(gen, 0, 256, 64, 8, dtype=torch.uint8)
+    G.mma_gemm(x, y, kind=Ger.I8GER4)                    # builds, loads
+    lib, fn = G._FNS["gemm_imma"]
+    out = torch.empty((8, 8), dtype=torch.int32, device="cuda")
+    rc = fn(x.data_ptr(), y.data_ptr(), None, None, None, out.data_ptr(),
+            7, 3, 1, 8, 8, 64, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0,
+            torch.cuda.current_stream().cuda_stream)    # family 7: refused
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(lib, rc, "gemm_imma")
+    monkeypatch.setattr(G, "_FNS", {})
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc", lambda: "false")
+    launches = G.mma_gemm.launches
+    for kind, xx, yy in ((Ger.I8GER4, x, y),
+                         (Ger.F64GER, x.double(), y.double())):
+        with pytest.raises(RuntimeError, match="build failed"):
+            G.mma_gemm(xx, yy, kind=kind)
+    assert G.mma_gemm.launches == launches
+
+
+def test_family_paths_through_contract(gen):
+    """contract with the new families, qdot, dft and complex_gemm on the
+    card launch the IMMA / DMMA kernels (dft and complex_gemm: four
+    launches a call) and agree with the torch backend."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import blas3
+    G.mma_gemm.launches_by_path = dict.fromkeys(G.PATHS, 0)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        x = torch.randn(6, 256, generator=gen, device="cuda")
+        w = torch.randn(256, 96, generator=gen, device="cuda") * 0.05
+        wq, ws = quant.quantize_weight(w)
+        got = quant.qdot(x, wq, ws)
+        want = quant.qdot(x, wq, ws, backend="torch")
+        assert torch.equal(got, want)
+        assert G.mma_gemm.launches_by_path["imma"] == 1
+        xs = torch.randn(2, 64, 5, generator=gen, device="cuda",
+                         dtype=torch.float64)
+        before = G.mma_gemm.launches
+        re, im = blas3.dft(xs)
+        assert G.mma_gemm.launches == before + 4
+        assert G.mma_gemm.launches_by_path["dmma"] == 4
+        fft = torch.fft.fft(xs, dim=-2)
+        assert (re - fft.real).abs().max().item() < 1e-9
+        assert (im - fft.imag).abs().max().item() < 1e-9
+        ar, ai, br, bi = (torch.randn(40, 48, generator=gen, device="cuda")
+                          for _ in range(4))
+        before = G.mma_gemm.launches
+        blas3.complex_gemm(ar, ai, br.T.contiguous(), bi.T.contiguous())
+        assert G.mma_gemm.launches == before + 4

@@ -268,8 +268,20 @@ def test_uncompiled_block_raises():
     y = torch.zeros((16, 8), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="not a compiled"):
         tgemm.mma_gemm(x, y, block=(32, 128, 128))
+    # the integer families have compiled tiles now, and their block runs
+    assert tiling.tiles_for(tprec.Ger.I8GER4) == (
+        tiling.BlockConfig(128, 128, 64),)
+    out = tgemm.mma_gemm(torch.ones((8, 16), dtype=torch.int8),
+                         torch.ones((16, 8), dtype=torch.uint8),
+                         kind=tprec.Ger.I8GER4, block=(128, 128, 64))
+    assert out.dtype == torch.int32 and bool((out == 16).all())
+    with pytest.raises(ValueError, match="not a compiled"):
+        tgemm.mma_gemm(torch.ones((8, 16), dtype=torch.int8),
+                       torch.ones((16, 8), dtype=torch.uint8),
+                       kind=tprec.Ger.I8GER4, block=(128, 128, 32))
+    # an expansion hook has no tile of its own
     with pytest.raises(NotImplementedError):
-        tiling.tiles_for(tprec.Ger.I8GER4)
+        tiling.tiles_for(tprec.Ger.F32GER_3XBF16)
 
 
 def test_later_op_classes_raise_with_their_slice():
@@ -278,17 +290,29 @@ def test_later_op_classes_raise_with_their_slice():
     with tfac.configure(tfac.FacilityConfig(**CPU_F32)):
         with pytest.raises(NotImplementedError, match="K1b"):
             tfac.contract("mk,kn->mn", x, y, masks=(None, None, None))
-        with pytest.raises(NotImplementedError, match="C2"):
+        # the saturating forms (slice C2) are ported: they run on integer
+        # families and refuse float ones, as the reference does
+        out = tfac.contract("mk,kn->mn", x.to(torch.int16),
+                            y.to(torch.int16),
+                            plan=tfac.Plan(ger=tprec.Ger.I16GER2,
+                                           saturating=True,
+                                           out_dtype=tfac.ACC))
+        assert out.dtype == torch.int32 and out.shape == (4, 4)
+        with pytest.raises(ValueError, match="integer-only"):
             tfac.contract("mk,kn->mn", x, y, plan=tfac.Plan(saturating=True))
         # the dense conv (slice B2, K3) is ported: it runs
         assert tfac.contract("nhwc,hwio->nhwo", torch.zeros((1, 4, 4, 2)),
                              torch.zeros((2, 2, 2, 3))).shape == (1, 3, 3, 3)
-        with pytest.raises(NotImplementedError, match="C1"):
-            tfac.contract("mk,kn->mn", x.to(torch.complex64),
-                          y.to(torch.complex64))
-        with pytest.raises(NotImplementedError, match="integer"):
-            tfac.contract("mk,kn->mn", x, y,
-                          plan=tfac.Plan(ger=tprec.Ger.I8GER4))
+        # complex contractions (slice C1) are ported: they run
+        out = tfac.contract("mk,kn->mn", x.to(torch.complex64),
+                            y.to(torch.complex64))
+        assert out.dtype == torch.complex64 and out.shape == (4, 4)
+        # and so do the integer families (K1c/K1f)
+        out = tfac.contract("mk,kn->mn", x.to(torch.int8),
+                            y.to(torch.uint8),
+                            plan=tfac.Plan(ger=tprec.Ger.I8GER4,
+                                           out_dtype=tfac.ACC))
+        assert out.dtype == torch.int32 and out.shape == (4, 4)
 
 
 def test_cpu_tensors_never_run_a_cuda_facility(monkeypatch):
