@@ -96,14 +96,41 @@ Phases, each of which must pass or the script exits nonzero:
      complex ``torch.matmul`` and a float64 fft, ``blas3.trsm`` (N = 4096,
      1024 right-hand sides, relative residual) and the saturating forms
      bit for bit against the ref lowering; each timed beside its plain
-     version, a library yardstick and its bound.
+     version, a library yardstick and its bound;
+  7. prepacked serving (``core.packing``: K1d, the GEMM's packed panel
+     stream, and K3's packed filter stream), each model reused right
+     after its phase-3 run: a copy of deepseek-7b packed in place
+     (``prepack_params_for_serving``, min_size 1024) and served with
+     phase 3's settings in turn with the natural model (natural, packed,
+     packed, natural, natural, packed), every prefill and decode output (token ids and
+     logits) of the first packed serve bit for bit phase 3's, each packed
+     serve's launches by path phase 3's, and no pack, repack or demote
+     while serving (pack time, each serve's decode tok/s, 5 batch-1
+     prefills and 15 decode steps of each model in turn, host clock, and
+     one decode step profiled, printed natural beside packed);
+     deepseek-moe-16b (its expert banks as batched Y panels),
+     whisper-small (conv1_w, conv2_w) and qwen2-vl-7b (patch_w and the
+     dense stack) run one prefill and 4 decode steps on phase 3's inputs
+     before and after packing, bit for bit, with no demote; then
+     ``quant.qdot`` on X-side int8 panels at M = 4 and 1024 through the
+     entry point (bit for bit, the IMMA kernel on packed panels), and each
+     packed kernel mode (the weight stream at 4 x 4096 x 11008 and at an
+     expert bank 64 x 1 x 2048 x 1408, the wgmma tile at 1024 x 4096 x
+     11008, K3 at whisper's conv2, the IMMA kernel under qdot) bit for bit
+     against its natural launch and within tolerance of its plain
+     version, timed beside both, the library call and the bound, the
+     host time of one call, natural beside packed, of the wrapper and of
+     ``facility.contract`` at decode and prefill M, and ``qdot``'s whole
+     call packed (no W^T copy) beside natural.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
 and the convs' ``launches_by_path``; the GEMM's ``host_us`` per call and,
 with the attention kernel's and the depthwise conv's, ``run_shapes``;
 phase 6's IMMA and DMMA entries their ``shapes``, the GEMM's entry
-``phase6_shapes``, its runs on the WMMA tile or on no kernel;
+``phase6_shapes``, its runs on the WMMA tile or on no kernel; phase 7's
+packed modes their ``natural_ms`` and ``launches_by_run`` over its runs,
+the packed stream's ``host_us`` natural beside packed;
 ``max_abs_err`` covers the runs' shapes, training's included); the last
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
@@ -1184,11 +1211,13 @@ def time_run_shapes(torch, entries, failures, runs):
     del timer
 
 
-def serve(torch, failures, arch, settings, num_layers=None):
+def serve(torch, failures, arch, settings, num_layers=None, record=None):
     """Serve ``arch`` with random bf16 weights from seed 0 through
     ``serve_loop``, every kernel's launch count reset just before and read
-    just after; then the served model's prefill and decode logits on the
-    kernel backend against the eager torch backend."""
+    just after (and every step's outputs recorded into the list
+    ``record``, where one is given); then the served model's prefill and
+    decode logits on the kernel backend against the eager torch
+    backend."""
     import dataclasses
 
     from repro_torch.configs import get as get_arch
@@ -1213,7 +1242,9 @@ def serve(torch, failures, arch, settings, num_layers=None):
     want = expected_launches(cfg)
     kernels = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
-    with facility.configure(facility.FacilityConfig(device="cuda")):
+    with facility.configure(facility.FacilityConfig(device="cuda")), \
+            (recording_steps(record) if record is not None
+             else contextlib.nullcontext()):
         reset_counts(kernels)
         stats = S.serve_loop(cfg, model, **settings)
         launches = {name: fn.launches for name, fn in kernels.items()}
@@ -1619,7 +1650,7 @@ def generate(torch, failures, arch, settings):
 
     steps = (lambda: M.prefill(model, batch, cfg), decode,
              f"prefill (batch {b}), decode step (batch {b})")
-    return launches, (cfg, *steps)
+    return launches, (cfg, *steps), (model, batch, seq_len)
 
 
 # ----------------------------------------------------------------------
@@ -2297,6 +2328,518 @@ def family_runs(torch, timer, failures, by_run, worst):
     return entries, others
 
 
+# ----------------------------------------------------------------------
+# Phase 7: prepacked serving (ROADMAP slice C4: core/packing.py, K1d and
+# K3's packed filter stream)
+# ----------------------------------------------------------------------
+
+# The serving launcher's --prepack threshold.
+PREPACK_MIN = 1024
+# Decode steps of the prepacked step runs (deepseek-moe-16b, whisper-small,
+# qwen2-vl-7b), after one prefill.
+PREPACK_STEPS = 4
+# Per phase-7 run: its packed launches by path, its pack time and stats.
+PHASE7: dict[str, dict] = {}
+
+
+@contextlib.contextmanager
+def recording_steps(into):
+    """Record every prefill's last logits and every decode tick's tokens
+    and logits of ``serve_loop`` (``train.steps``' step factories) into
+    the list ``into`` while the block runs."""
+    from repro_torch.train import steps as ST
+
+    made = (ST.make_prefill_step, ST.make_serve_step)
+
+    def prefill_factory(cfg):
+        step = made[0](cfg)
+
+        def run(model, batch):
+            last, pre = step(model, batch)
+            into.append(("prefill", last.clone()))
+            return last, pre
+        return run
+
+    def serve_factory(cfg):
+        step = made[1](cfg)
+
+        def run(model, cache, tokens):
+            nxt, logits, cache = step(model, cache, tokens)
+            into.append(("decode", nxt.clone(), logits.clone()))
+            return nxt, logits, cache
+        return run
+
+    ST.make_prefill_step, ST.make_serve_step = prefill_factory, serve_factory
+    try:
+        yield into
+    finally:
+        ST.make_prefill_step, ST.make_serve_step = made
+
+
+def zero_counts(kernels):
+    """Zero every launch count, by path and on packed operands (no
+    traces: the phase-7 runs are not RECORDS)."""
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+    for fn in kernels.values():
+        fn.launches = 0
+    for name in BY_PATH:
+        kernels[name].launches_by_path = dict.fromkeys(
+            kernels[name].launches_by_path, 0)
+    G.mma_gemm.packed_launches_by_path = dict.fromkeys(G.PACKED_PATHS, 0)
+    K.mma_conv2d.packed_launches = 0
+
+
+def read_counts(kernels):
+    """A run's launches, by path, and on packed operands, just after it."""
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+    return {"launches": {k: f.launches for k, f in kernels.items()},
+            "by_path": {n: dict(kernels[n].launches_by_path)
+                        for n in BY_PATH},
+            "packed": {**{f"gemm {p}": v for p, v in
+                          G.mma_gemm.packed_launches_by_path.items()},
+                       "conv wgmma": K.mma_conv2d.packed_launches}}
+
+
+def pack_model(torch, arch, model):
+    """``prepack_params_for_serving`` in place, timed (host clock around a
+    synchronised pass); returns (stats, seconds, the counters after)."""
+    from repro_torch.core import facility, packing
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        stats = packing.prepack_params_for_serving(model,
+                                                   min_size=PREPACK_MIN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"  phase 7: {arch} packed in place in {dt:.3f} s: {stats}; "
+          f"device memory {mem0 / 2**30:.2f} -> "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return stats, dt, dict(packing.COUNTERS)
+
+
+def _relayouts(after, before):
+    """The packs, repacks, invalidations and demotes since ``before``."""
+    keys = ("pack", "repack", "invalidate", "demote")
+    return {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+
+
+def _check(failures, name, ok, what):
+    print(f"  [{'ok' if ok else 'FAIL'}] {name}: {what}")
+    if not ok:
+        failures.append(f"{name}: {what}")
+
+
+def steps_in_turn(torch, models, cfg, settings, rounds=15):
+    """Each model's batch-1 prefill and decode step (serve_steps' closures),
+    the models in turn, so that all meet the same host load: ``{(name,
+    "prefill" | "decode"): host-clock ms of its unprofiled steps}`` over
+    5 prefill rounds and ``rounds`` decode rounds, and ``{name: device
+    busy ms of one profiled decode step, or None where the profiler
+    recorded none}``."""
+    from repro_torch.core import facility
+
+    steps = {k: serve_steps(torch, m, cfg, settings)[:2]
+             for k, m in models.items()}
+    host = {}
+    dev = {}
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for which, n in ((0, 5), (1, rounds)):
+            for _ in range(n):
+                for k, fns in steps.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fns[which]()
+                    torch.cuda.synchronize()
+                    host.setdefault((k, ("prefill", "decode")[which]),
+                                    []).append(
+                        (time.perf_counter() - t0) * 1e3)
+        for k, (_, decode) in steps.items():
+            got = profile_step(torch, f"decode step ({k})", decode,
+                               sorted(host[k, "decode"])[rounds // 2])
+            dev[k] = None if got is None else got[0]
+    return host, dev
+
+
+# Serves of deepseek-7b in phase 7, natural and packed in turn (ABBA, so
+# that a drift of the host's load over the six weighs on both alike).
+PREPACK_SERVES = ("natural", "packed", "packed", "natural", "natural",
+                  "packed")
+
+
+def prepacked_serve(torch, failures, arch, settings, model, cfg, natural):
+    """deepseek-7b packed in place (a copy of phase 3's model, which stays
+    natural beside it) and served with phase 3's settings, in turn with
+    the natural model (PREPACK_SERVES): the first packed serve's tokens
+    and every logit bit for bit those of phase 3's natural run
+    (``natural``: its stats, counts and recorded steps), each packed
+    serve's launches by path phase 3's, and no pack, repack or demote
+    while serving; pack time and bytes, each serve's decode tok/s and a
+    decode step's device and host time, natural beside packed."""
+    import copy
+
+    from repro_torch.core import facility, packing
+    from repro_torch.launch import serve as S
+
+    packed = copy.deepcopy(model)
+    stats, pack_s, before = pack_model(torch, arch, packed)
+    kernels = kernel_wrappers()
+    name = f"{arch} prepacked serve"
+    tok_s = {"natural": [], "packed": []}
+    for i, which in enumerate(PREPACK_SERVES):
+        first = which == "packed" and not tok_s["packed"]
+        rec = []
+        with facility.configure(facility.FacilityConfig(device="cuda")), \
+                (recording_steps(rec) if first
+                 else contextlib.nullcontext()):
+            zero_counts(kernels)
+            out = S.serve_loop(cfg, packed if which == "packed" else model,
+                               **settings)
+            counts = read_counts(kernels)
+        tok_s[which].append(out["tokens_per_s"])
+        print(f"  phase 7: serve {i + 1} ({which}) {settings}: "
+              f"{json.dumps(out)}")
+        if which == "natural":
+            continue
+        print(f"  phase 7: launches {counts['launches']}, by path "
+              f"{counts['by_path']['mma_gemm']}, on packed panels "
+              f"{counts['packed']}")
+        if first:
+            same = (len(rec) == len(natural["record"]) and all(
+                len(a) == len(b) and a[0] == b[0]
+                and all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+                for a, b in zip(rec, natural["record"])))
+            _check(failures, name, same and out["completed"] == settings[
+                "n_requests"], f"{len(rec)} prefill/decode outputs (token "
+                f"ids and logits) bit for bit those of phase 3's natural "
+                f"run")
+            packed_counts = counts["packed"]
+        _check(failures, name, counts["launches"] == natural["launches"]
+               and counts["by_path"] == natural["by_path"],
+               f"serve {i + 1}: launches and launches by path equal "
+               f"phase 3's")
+        _check(failures, name, counts["packed"]["gemm stream"] > 0
+               and counts["packed"]["gemm wgmma"] > 0,
+               f"serve {i + 1}: decode products on packed panels on the "
+               f"weight stream, prefill products on the wgmma tile")
+    moved = _relayouts(dict(packing.COUNTERS), before)
+    _check(failures, name, not any(moved.values()),
+           f"packing counters while serving: {moved} (all 0)")
+    host, dev = steps_in_turn(
+        torch, {"natural": model, "packed": packed}, cfg, settings)
+    del packed
+    steps = {f"{k} {what}": {"median": sorted(v)[len(v) // 2],
+                             "min": min(v)}
+             for (k, what), v in host.items()}
+    print(f"  phase 7: {arch} decode tok/s by serve, in turn "
+          f"{PREPACK_SERVES}: natural {tok_s['natural']}, packed "
+          f"{tok_s['packed']} (phase 3's natural "
+          f"{natural['stats']['tokens_per_s']:.2f}); batch-1 prefill (5 "
+          f"each) and decode step (15 each), in turn, host ms: "
+          + ", ".join(f"{k} median {v['median']:.3f} min {v['min']:.3f}"
+                      for k, v in steps.items())
+          + f"; device busy of a decode step {dev['packed']} ms packed vs "
+          f"{dev['natural']} natural")
+    PHASE7[name] = {"packed": packed_counts, "pack_s": pack_s,
+                    "stats": stats, "tok_s": tok_s["packed"],
+                    "tok_s_natural": tok_s["natural"],
+                    "tok_s_phase3": natural["stats"]["tokens_per_s"],
+                    "host_ms": steps,
+                    "decode_device_ms": dev["packed"],
+                    "decode_device_ms_natural": dev["natural"]}
+
+
+def prepacked_steps(torch, failures, arch, model, cfg, batch, seq_len):
+    """One prefill and PREPACK_STEPS greedy decode steps on ``batch``
+    (phase 3's inputs) before and after packing ``model`` in place: every
+    logit bit for bit, the same launches by path, no pack, repack or
+    demote in the packed run, and the packed panels and filter streams
+    launched."""
+    from repro_torch.core import facility, packing
+    from repro_torch.models import model as M
+
+    kernels = kernel_wrappers()
+    b = batch["tokens"].shape[0]
+
+    def run():
+        with facility.configure(facility.FacilityConfig(device="cuda")):
+            zero_counts(kernels)
+            last, pre = M.prefill(model, batch, cfg)
+            if cfg.is_enc_dec or cfg.vision_prefix:
+                cache = handoff(torch, cfg, pre, b, seq_len, torch.bfloat16)
+            else:
+                cache = M.init_cache(cfg, b, seq_len, device="cuda")
+            del pre
+            outs = [last]
+            tok = last.argmax(-1, keepdim=True).to(torch.int32)
+            for _ in range(PREPACK_STEPS):
+                logits, cache = M.decode_step(model, cache, tok, cfg)
+                outs.append(logits)
+                tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            torch.cuda.synchronize()
+            return outs, read_counts(kernels)
+
+    nat, nat_counts = run()
+    stats, pack_s, before = pack_model(torch, arch, model)
+    pk, counts = run()
+    moved = _relayouts(dict(packing.COUNTERS), before)
+    name = f"{arch} prepacked prefill + {PREPACK_STEPS} decode steps"
+    print(f"  phase 7: {name}: launches {counts['launches']}, GEMM by path "
+          f"{counts['by_path']['mma_gemm']}, on packed panels "
+          f"{counts['packed']}")
+    _check(failures, name, len(nat) == len(pk) and all(
+        torch.equal(x, y) for x, y in zip(nat, pk)),
+        "prefill and decode logits bit for bit the natural run's")
+    _check(failures, name, counts["launches"] == nat_counts["launches"]
+           and counts["by_path"] == nat_counts["by_path"],
+           "launches and launches by path equal the natural run's")
+    _check(failures, name, not any(moved.values()),
+           f"packing counters in the packed run: {moved} (all 0)")
+    stems = cfg.is_enc_dec or cfg.vision_prefix
+    _check(failures, name, counts["packed"]["gemm stream"] > 0 and (
+        not stems or counts["packed"]["conv wgmma"] > 0),
+        "decode products on packed panels"
+        + (", the conv stem on K3's packed filter stream" if stems else ""))
+    PHASE7[name] = {"packed": counts["packed"], "pack_s": pack_s,
+                    "stats": stats}
+
+
+def qdot_packed_run(torch, failures):
+    """quant.qdot on a weight prepacked as X-side I8GER4 panels
+    (``prepack_params_for_serving(quantize=True)``'s form) at
+    deepseek-7b's MLP up-projection, M = 4 and 1024, through the entry
+    point: counts zeroed just before and read just after; the output bit
+    for bit the natural qdot's, no demote, the IMMA kernel on packed
+    panels.  Returns the operands for the timings."""
+    from repro_torch.core import facility, packing
+    from repro_torch.core import quant as Q
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    k, n = 4096, 11008
+    w = torch.randn(k, n, generator=g, device="cuda") * k ** -0.5
+    wq, ws = Q.quantize_weight(w)
+    lay = packing.gemm_layout(facility.Ger.I8GER4, n, k, side="x",
+                              transposed=True)
+    po = packing.pack_gemm(wq, lay, scale=ws,
+                           col_sum=wq.to(torch.int32).sum(0).float())
+    xs = {m: torch.randn(m, k, generator=g, device="cuda")
+          for m in (4, 1024)}
+    kernels = kernel_wrappers()
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        nat = {m: Q.qdot(x, wq, ws) for m, x in xs.items()}
+        before = dict(packing.COUNTERS)
+        zero_counts(kernels)
+        pk = {m: Q.qdot(x, po) for m, x in xs.items()}
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+    moved = _relayouts(dict(packing.COUNTERS), before)
+    name = "qdot prepacked (M = 4, 1024)"
+    _check(failures, name, all(torch.equal(nat[m], pk[m]) for m in xs),
+           "bit for bit the natural qdot's")
+    _check(failures, name, not any(moved.values())
+           and counts["packed"]["gemm imma"] == 2,
+           f"packed launches {counts['packed']}, packing counters {moved}")
+    PHASE7[name] = {"packed": counts["packed"]}
+    return w, wq, ws, po, xs
+
+
+def phase7_kernels(torch, timer, failures, qdot_ops):
+    """Each packed kernel mode against its natural launch (bit for bit)
+    and its plain version (``_report_close``), timed (CUDA events, L2
+    flushed) beside the natural launch, the plain version, the library
+    call and the bound; ``qdot`` timed whole, natural (its W^T copy)
+    beside packed.  Returns the ``kernels`` entries of the packed
+    modes."""
+    from repro_torch.core import facility, packing
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = facility.Ger
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    def ypack(w, batched=False):
+        k, n = w.shape[-2:]
+        return packing.pack_gemm(w, packing.gemm_layout(
+            Ger.BF16GER2, k, n, batched=batched))
+
+    rows = {}
+
+    def mode(key, label, natural, packed, plain, library, nbytes, ops,
+             peak, out_dtype):
+        want = natural()
+        got = packed()
+        torch.cuda.synchronize()
+        _check(failures, label, torch.equal(got, want),
+               "bit for bit the natural launch")
+        err = _report_close(torch, f"{label} vs plain", got.float(),
+                            plain().float(), out_dtype, failures)
+        row = {"ms": timer(packed), "natural_ms": timer(natural),
+               "plain_ms": timer(plain),
+               "library_ms": timer(library) if library else None}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, peak)
+        print(f"  time {label}: packed {row['ms']:.4f} ms, natural "
+              f"{row['natural_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"library {row['library_ms']} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.setdefault(key, {})[label] = (row, err)
+
+    kw = dict(kind=Ger.BF16GER2, out_dtype=torch.bfloat16)
+    m, k, n = SERVE["batch"], 4096, 11008
+    x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+    po = ypack(w)
+    mode("stream", f"stream packed Y {m}x{k}x{n}",
+         lambda: G.mma_gemm(x, w, **kw),
+         lambda: G.mma_gemm(x, po.data, y_layout=po.layout, **kw),
+         lambda: G.mma_gemm_plain(x, w, **kw), lambda: torch.matmul(x, w),
+         (m * k + k * n + m * n) * 2, 2 * m * n * k, "bf16", torch.bfloat16)
+    xb, wb = randn(64, 1, 2048), randn(64, 2048, 1408, scale=2048 ** -0.5)
+    pb = ypack(wb, batched=True)
+    mode("stream", "stream packed Y bank 64x1x2048x1408",
+         lambda: G.mma_gemm(xb, wb, **kw),
+         lambda: G.mma_gemm(xb, pb.data, y_layout=pb.layout, **kw),
+         lambda: G.mma_gemm_plain(xb, wb, **kw),
+         lambda: torch.matmul(xb, wb),
+         (64 * 2048 + 64 * 2048 * 1408 + 64 * 1408) * 2,
+         2 * 64 * 2048 * 1408, "bf16", torch.bfloat16)
+    del xb, wb, pb
+    xw = randn(1024, k)
+    mode("wgmma", f"wgmma packed Y 1024x{k}x{n}",
+         lambda: G.mma_gemm(xw, w, **kw),
+         lambda: G.mma_gemm(xw, po.data, y_layout=po.layout, **kw),
+         lambda: G.mma_gemm_plain(xw, w, **kw), lambda: torch.matmul(xw, w),
+         (1024 * k + k * n + 1024 * n) * 2, 2 * 1024 * n * k, "bf16",
+         torch.bfloat16)
+    # Host time of one call (enqueue only, 200 calls), natural beside
+    # packed, in turn, 7 rounds (median and min): the wrapper alone, and
+    # the whole facility.contract dispatch (admission, the normalizer,
+    # refresh, the wrapper's one path choice) at decode and prefill M.
+    calls = {}
+    for where, xx in (("decode (stream)", x), ("prefill (wgmma)", xw)):
+        calls[f"mma_gemm {where} natural"] = \
+            lambda xx=xx: G.mma_gemm(xx, w, **kw)
+        calls[f"mma_gemm {where} packed"] = \
+            lambda xx=xx: G.mma_gemm(xx, po.data, y_layout=po.layout, **kw)
+        calls[f"contract {where} natural"] = \
+            lambda xx=xx: facility.contract("mk,kn->mn", xx, w)
+        calls[f"contract {where} packed"] = \
+            lambda xx=xx: facility.contract("mk,kn->mn", xx, po)
+    host = {}
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for _ in range(7):
+            for label, fn in calls.items():
+                host.setdefault(label, []).append(host_us(torch, fn))
+    host = {label: {"median": sorted(v)[3], "min": min(v)}
+            for label, v in host.items()}
+    print("  host us per call, natural and packed in turn (median, min "
+          "of 7): " + ", ".join(f"{label} {v['median']:.1f}, "
+                                f"{v['min']:.1f}"
+                                for label, v in host.items()))
+    del x, w, po, xw, calls
+    # whisper-small's conv2 (k3 s2 over 3000 frames, SAME: 3001 padded
+    # frames), bias + gelu, bf16 out
+    img = randn(4, 1, 3001, 768)
+    wc = randn(1, 3, 768, 768, scale=(3 * 768) ** -0.5)
+    pc = packing.pack_conv(wc[0], packing.conv_layout(
+        Ger.BF16GER2, 1, 3, 768, 768, nd=1))
+    bias = randn(768, dtype=torch.float32)
+    ep = E.Epilogue(bias=True, activation="gelu")
+    ckw = dict(stride=(1, 2), ep=ep, bias=bias, out_dtype=torch.bfloat16)
+    # cuDNN as phase 2 times it: channels-last NCHW views, the bias
+    w_nchw = wc.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    x_nchw = img.permute(0, 3, 1, 2)
+    b16 = bias.to(img.dtype)
+    ow = 1500
+    mode("conv", "K3 packed filters whisper conv2 4x3001x768 k3 s2",
+         lambda: K.mma_conv2d(img, wc, **ckw),
+         lambda: K.mma_conv2d(img, pc.data, w_layout=pc.layout, **ckw),
+         lambda: K.mma_conv2d_plain(img, wc, **ckw),
+         lambda: torch.nn.functional.conv2d(x_nchw, w_nchw, b16,
+                                            stride=(1, 2)),
+         (4 * 3001 * 768 + 3 * 768 * 768 + 4 * ow * 768) * 2 + 768 * 4,
+         2 * 4 * ow * 768 * 3 * 768, "bf16", torch.bfloat16)
+    del img, wc, pc, x_nchw, w_nchw
+
+    # qdot: the whole call natural (its W^T copy) and packed (none), and
+    # the IMMA kernel alone on natural W^T and on packed panels
+    w, wq, ws, pq, xs = qdot_ops
+    qdot_rows = {}
+    for m, x in xs.items():
+        xq, _, _ = Q.quantize_act_u8(x)
+        xt = xq.t().contiguous()
+        wt = wq.t().contiguous()
+        ikw = dict(kind=Ger.I8GER4)
+
+        def whole(wgt, scale, x=x):
+            with facility.configure(facility.FacilityConfig(device="cuda")):
+                Q.qdot(x, wgt, scale)
+
+        def torch_qdot(x=x):
+            with facility.configure(facility.FacilityConfig(device="cuda")):
+                Q.qdot(x, wq, ws, backend="torch")
+
+        xb16, wb16 = x.bfloat16(), w.bfloat16()
+        mode("imma", f"IMMA packed X qdot M={m} ({m}x4096x11008)",
+             lambda: G.mma_gemm(wt, xt, **ikw),
+             lambda: G.mma_gemm(pq.data, xt, x_layout=pq.layout, **ikw),
+             lambda: G.mma_gemm_plain(wt, xt, **ikw),
+             lambda: torch.matmul(xb16, wb16),
+             m * k + k * n + 4 * m * n, 2 * m * n * k, "int8", torch.int32)
+        row = {"qdot_ms": timer(lambda: whole(pq, None)),
+               "qdot_natural_ms": timer(lambda: whole(wq, ws)),
+               "qdot_torch_ms": timer(torch_qdot),
+               "copy_w_ms": timer(lambda: wq.t().contiguous())}
+        qdot_rows[f"M={m}"] = row
+        print(f"  time qdot M={m} whole call: packed {row['qdot_ms']:.4f} "
+              f"ms (no W^T copy), natural {row['qdot_natural_ms']:.4f} ms "
+              f"(its W^T copy alone {row['copy_w_ms']:.4f} ms), torch "
+              f"backend {row['qdot_torch_ms']:.4f} ms")
+    del w, wq, pq
+
+    sources = {"stream": ("src/repro_torch/csrc/gemm_stream.cu",
+                          "src/repro/kernels/mma_gemm.py:333"),
+               "wgmma": ("src/repro_torch/csrc/gemm_wgmma.cu",
+                         "src/repro/kernels/mma_gemm.py:333"),
+               "imma": ("src/repro_torch/csrc/gemm_imma.cu",
+                        "src/repro/kernels/mma_gemm.py:333"),
+               "conv": ("src/repro_torch/csrc/mma_conv.cu",
+                        "src/repro/kernels/mma_conv.py:176")}
+    names = {"stream": "mma_gemm packed Y (stream)",
+             "wgmma": "mma_gemm packed Y (wgmma)",
+             "imma": "mma_gemm packed X (imma)",
+             "conv": "mma_conv2d packed filters (wgmma)"}
+    counter = {"stream": "gemm stream", "wgmma": "gemm wgmma",
+               "imma": "gemm imma", "conv": "conv wgmma"}
+    entries = []
+    for key, by_label in rows.items():
+        label, (row, _) = next(iter(by_label.items()))
+        e = {"name": names[key], "route": "cuda", "source": sources[key][0],
+             "replaces": sources[key][1],
+             "max_abs_err": max(err for _, err in by_label.values()),
+             **row, "shape": label,
+             "launches_by_run": {r: v["packed"][counter[key]]
+                                 for r, v in PHASE7.items()},
+             "timed": {lb: r for lb, (r, _) in by_label.items()}}
+        if key == "imma":
+            e["qdot"] = qdot_rows
+        if key == "stream":
+            e["host_us"] = host
+        e["launches"] = sum(e["launches_by_run"].values())
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched in phase 7's runs")
+        entries.append(e)
+    return entries
+
+
 
 def main() -> None:
     try:
@@ -2335,23 +2878,46 @@ def main() -> None:
                check_conv2d(torch, timer, failures)]
     del timer
 
-    print("== phase 3: serve and generate", flush=True)
+    print("== phase 3: serve and generate (and phase 7's prepacked runs "
+          "of deepseek-7b, deepseek-moe-16b, whisper-small and qwen2-vl-7b "
+          "after their natural runs)", flush=True)
     by_run = {}
     for arch, settings, layers, profile in (
             (ARCH, SERVE, NUM_LAYERS, True),
             *((a, st, None, a == "zamba2-1.2b") for a, st in SSM_RUNS),
             (*MOE_RUN, None, True)):
-        _, by_run[arch], (model, cfg) = serve(torch, failures, arch,
-                                              settings, layers)
+        record = [] if arch == ARCH else None
+        stats, by_run[arch], (model, cfg) = serve(
+            torch, failures, arch, settings, layers, record)
         if profile:
             step_breakdown(torch, cfg, *serve_steps(torch, model, cfg,
                                                     settings))
-        del model
+        if arch == ARCH:
+            prepacked_serve(torch, failures, arch, settings, model, cfg, {
+                "stats": stats, "launches": by_run[arch], "record": record,
+                "by_path": RECORDS[arch]["by_path"]})
+        elif arch == MOE_RUN[0]:
+            # phase 3's first `batch` requests' prompts, decoded on a
+            # fresh cache
+            from repro_torch.launch import serve as S
+            reqs = S._make_requests(cfg, settings["n_requests"],
+                                    settings["prompt_len"],
+                                    settings["gen_len"], 0)
+            prompts = torch.cat([torch.from_numpy(r.prompt)
+                                 for r in reqs[:settings["batch"]]])
+            prepacked_steps(torch, failures, arch, model, cfg,
+                            {"tokens": prompts.cuda()},
+                            settings["prompt_len"] + PREPACK_STEPS + 1)
+        del model, record
         torch.cuda.empty_cache()
     for arch, settings in MM_RUNS.items():
-        by_run[arch], steps = generate(torch, failures, arch, settings)
+        by_run[arch], steps, (model, batch, seq_len) = generate(
+            torch, failures, arch, settings)
         step_breakdown(torch, *steps)
+        cfg = steps[0]
         del steps
+        prepacked_steps(torch, failures, arch, model, cfg, batch, seq_len)
+        del model, batch
         torch.cuda.empty_cache()
     check_main_paths(failures)
 
@@ -2390,6 +2956,17 @@ def main() -> None:
         if e["launches"] <= 0:
             failures.append(f"{e['name']} never launched on phase 6's "
                             f"paths")
+
+    print("== phase 7: prepacked serving (core/packing.py; K1d and K3's "
+          "packed filter stream)", flush=True)
+    for name, r in PHASE7.items():
+        print(f"  {name}: packed launches {r['packed']}"
+              + (f", pack {r['pack_s']:.3f} s, {r['stats']}"
+                 if "pack_s" in r else ""))
+    timer = Timer(torch)
+    qdot_ops = qdot_packed_run(torch, failures)
+    entries += phase7_kernels(torch, timer, failures, qdot_ops)
+    del timer, qdot_ops
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:

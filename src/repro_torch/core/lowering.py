@@ -34,6 +34,16 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
 There is no guarded ladder yet (ROADMAP slice D1): a kernel that fails to
 build or launch raises, it never demotes silently to another backend.
 
+Packed operands
+---------------
+A ``core.packing.PackedOperand`` may stand in for a weight.
+``_admit_packed`` keeps it packed for the single-pass kernel gemm and
+dense conv lowerings, whose dispatch takes the path its natural operands
+would and streams its panels (or demotes it where that path reads none),
+and for the torch/ref gemm and conv lowerings, which demote it; every
+other case demotes at admission.  Each demote is counted
+(``packing.COUNTERS``), so a packed result is the natural one bit for bit.
+
 Gradients
 ---------
 Every lowering is differentiable.  The ``torch`` and ``ref`` lowerings are
@@ -74,7 +84,7 @@ import functools
 
 import torch
 
-from repro_torch.core import precision
+from repro_torch.core import packing, precision
 from repro_torch.kernels import epilogue as _epilogue_mod
 from repro_torch.kernels import mma_attention as _attn
 from repro_torch.kernels import mma_conv as _conv
@@ -483,6 +493,11 @@ class Op:
         batched = bool(p.batch)
 
         def norm(arr, labels, order, shape):
+            if packing.is_packed(arr):
+                # a prepacked operand is already in its kernel-native
+                # layout (orientation checked at admission): the
+                # normalization is exactly the relayout its pack paid once
+                return arr
             perm = tuple(labels.index(d) for d in order)
             if perm != tuple(range(len(perm))):
                 arr = arr.permute(perm)
@@ -534,7 +549,11 @@ def _normalized_operands(op: Op, b, m, n):
 def _lower_kernel_gemm(op: Op):
     """The Hopper GEMM kernel (kernels/mma_gemm.py): batch is the kernel's
     blockIdx.z — one launch per contraction — with accumulate forms, fused
-    epilogues and expansion chains threading through unchanged."""
+    epilogues and expansion chains threading through unchanged.  A packed
+    operand (one single-pass dispatch, admitted by ``_admit_packed``) goes
+    through ``packing.refresh_gemm``, and its panels go to the wrapper with
+    their layout: the wrapper takes the path its natural operands would,
+    and demotes them, counted, where that path reads none."""
     x2, y2, (b, m, n, k), assemble = op.to_batched_2d()
     acc2, res2 = _normalized_operands(op, b, m, n)
     passes = _passes(op.ger, x2, y2)
@@ -542,9 +561,10 @@ def _lower_kernel_gemm(op: Op):
     def one(kind, xi, yi, c, ep, out_dtype, *, forms=True):
         pol = precision.policy(kind)
         use_ep = not ep.is_identity
+        xi, xl = _fresh_panels(xi.to(pol.x_dtype))
+        yi, yl = _fresh_panels(yi.to(pol.y_dtype))
         return _gemm.mma_gemm(
-            xi.to(pol.x_dtype), yi.to(pol.y_dtype), c, kind=kind,
-            block=op.block,
+            xi, yi, c, kind=kind, block=op.block, x_layout=xl, y_layout=yl,
             neg_product=op.neg_product and forms,
             neg_acc=op.neg_acc and forms,
             alpha=op.alpha if forms else 1.0,
@@ -572,10 +592,20 @@ def _lower_kernel_gemm(op: Op):
     return assemble(_combine_expanded(op, prod, acc2, res2))
 
 
+def _fresh_panels(v):
+    """``(tensor, layout)``: a natural tensor with None, a packed one's
+    panels and layout (``packing.refresh_gemm``).  Which path they take,
+    and whether it reads them, the wrapper decides, once."""
+    if packing.is_packed(v):
+        return packing.refresh_gemm(v)
+    return v, None
+
+
 @register("torch", "gemm")
 def _lower_torch_gemm(op: Op):
     """Eager torch: one matmul per pass over the normalized operands, plus
-    the explicit ACC lifecycle."""
+    the explicit ACC lifecycle (packed operands demoted, counted)."""
+    op = packing.demote_op(op, "torch-gemm")
     x2, y2, (b, m, n, k), assemble = op.to_batched_2d()
     acc2, res2 = _normalized_operands(op, b, m, n)
     passes = _passes(op.ger, x2, y2)
@@ -608,7 +638,9 @@ def _lower_torch_gemm(op: Op):
 @register("ref", "gemm")
 def _lower_ref_gemm(op: Op):
     """Eager architected oracle: per-batch-element ref.ger, the ground
-    truth the other backends are tested against."""
+    truth the other backends are tested against (packed operands demoted,
+    counted)."""
+    op = packing.demote_op(op, "ref-gemm")
     x2, y2, (b, m, n, k), assemble = op.to_batched_2d()
     acc2, res2 = _normalized_operands(op, b, m, n)
     passes = _passes(op.ger, x2, y2)
@@ -776,20 +808,27 @@ def _conv_norm(op: Op):
     Returns ``(x4, w4, (sh, sw), depthwise, squeeze)``: 1-D specs gain a
     size-1 H axis (``squeeze`` strips it from the output), and the
     ``same``/``causal`` paddings become one explicit pad here so every
-    backend sees identical VALID geometry.
+    backend sees identical VALID geometry.  A prepacked filter stream
+    passes through untouched, its geometry read from its layout (a 1-D
+    layout already carries the size-1 KH axis).
     """
     nd, depthwise = _CONV_SPECS[op.spec]
     x, w = op.x, op.y
+    packed_w = packing.is_packed(w)
     if x.ndim != nd + 2 or w.ndim != nd + (1 if depthwise else 2):
         raise ValueError(f"conv spec {op.spec!r} got operands of shapes "
                          f"{tuple(x.shape)} x {tuple(w.shape)}")
     if nd == 1:
         x = x[:, None]                           # (N, 1, L, C)
-        w = w[None]                              # (1, KW, C[, F])
+        if not packed_w:
+            w = w[None]                          # (1, KW, C[, F])
         strides = (1,) + op.stride
     else:
         strides = op.stride
-    kh, kw, c = w.shape[0], w.shape[1], w.shape[2]
+    if packed_w:
+        kh, kw, c = w.layout.kh, w.layout.kw, w.layout.c
+    else:
+        kh, kw, c = w.shape[0], w.shape[1], w.shape[2]
     if x.shape[-1] != c:
         raise ValueError(f"conv channel mismatch: image {tuple(op.x.shape)} "
                          f"vs filter {tuple(op.y.shape)}")
@@ -836,7 +875,11 @@ def _lower_kernel_conv(op: Op):
     conv is bilinear, so the F32GER_3XBF16 hi/lo passes sum over one
     accumulator and the epilogue applies once on the chained product.  An
     explicit ``Plan.block`` names K3's filter tile (its N tile, as the
-    reference takes ``block[1]``) and changes no result; K4 has none."""
+    reference takes ``block[1]``) and changes no result; K4 has none.  A
+    packed filter stream (single-pass dense specs only: ``_admit_packed``)
+    goes through ``packing.refresh_conv`` to the wrapper, which takes the
+    path the natural filter would: K3's wgmma kernel streams it, the other
+    paths read no packed filters, and the wrapper demotes it, counted."""
     x4, w4, strides, depthwise, squeeze = _conv_norm(op)
     if depthwise:
         if op.block is not None:
@@ -857,9 +900,12 @@ def _lower_kernel_conv(op: Op):
     if len(passes) == 1:
         xi, wi, kind = passes[0]
         pk = precision.policy(kind)
-        out = conv(xi.to(pk.x_dtype), wi.to(pk.y_dtype), stride=strides,
-                   out_dtype=op.out_dtype, ep=op.epilogue, bias=op.bias,
-                   residual=res)
+        xi, wi = xi.to(pk.x_dtype), wi.to(pk.y_dtype)
+        kw = {}
+        if packing.is_packed(wi):
+            wi, kw["w_layout"] = packing.refresh_conv(wi)
+        out = conv(xi, wi, stride=strides, out_dtype=op.out_dtype,
+                   ep=op.epilogue, bias=op.bias, residual=res, **kw)
         return out[:, 0] if squeeze else out
     prod = None
     for xi, wi, kind in passes:
@@ -898,7 +944,8 @@ def _lower_torch_conv(op: Op):
     (:func:`torch_conv`), then the epilogue at deprime.  Per pass, the
     inputs are rounded to that pass family's operand dtype and up-cast to
     the accumulator dtype for the conv itself, as a reduced-precision pass
-    into a wide accumulator."""
+    into a wide accumulator (packed filters demoted, counted)."""
+    op = packing.demote_op(op, "torch-conv")
     x4, w4, strides, depthwise, squeeze = _conv_norm(op)
     out = None
     for xi, wi, kind in _passes(op.ger, x4, w4):
@@ -918,7 +965,8 @@ def _lower_ref_conv(op: Op):
     """The oracles: the materialized-Abar ``ref.conv2d`` (exactly the
     patch matrix a kernel avoids building) and the eager shift-and-sum
     ``ref.depthwise_conv``.  Expansion hooks chain per pass like the gemm
-    oracle."""
+    oracle (packed filters demoted, counted)."""
+    op = packing.demote_op(op, "ref-conv")
     x4, w4, strides, depthwise, squeeze = _conv_norm(op)
     acc_dtype = op.pol.acc_dtype
     out = None
@@ -1111,6 +1159,85 @@ def _check_attn(x, y, z, ger, plan, acc, dequant, masks):
     return valid
 
 
+# ----------------------------------------------------------------------
+# Packed-operand admission: which operands may stay in their prepacked
+# layout for this dispatch (core/packing.py owns the layouts; this layer
+# reads descriptor metadata and demotes the rest through packing's
+# counted demotion)
+# ----------------------------------------------------------------------
+
+def _packed_gemm_compatible(parsed, v, side: str) -> bool:
+    """A packed GEMM operand is admissible when the spec's normalization
+    of that operand is exactly the relayout its pack already paid: one
+    contract label, one free label on the packed side, at most one batch
+    label, and a label order matching the layout's orientation."""
+    lay = v.layout
+    if lay.tile != "gemm" or lay.side != side:
+        return False
+    p = parsed
+    if p is None or len(p.contract) != 1 or len(p.batch) > 1:
+        return False
+    free = p.x_free if side == "x" else p.y_free
+    if len(free) != 1 or lay.batched != bool(p.batch):
+        return False
+    labels = p.x_labels if side == "x" else p.y_labels
+    if side == "x":
+        natural = p.batch + free + p.contract
+        flipped = p.batch + p.contract + free
+    else:
+        natural = p.batch + p.contract + free
+        flipped = p.batch + free + p.contract
+    return labels == (flipped if lay.transposed else natural)
+
+
+def _admit_packed(op_class: str, backend: str, pol, parsed, spec: str,
+                  x, y, dequantized: bool):
+    """Demote the packed operands that cannot ride this dispatch packed.
+
+    Packed operands ride the single-pass kernel gemm and dense conv
+    lowerings (whose wrappers demote them, counted, where the path they
+    take reads no panels) and reach the torch/ref gemm and conv lowerings,
+    which demote them themselves; everything else -- the other op-classes,
+    expansion chains, int4 nibble families, both operands packed, a spec
+    orientation the pack did not pay -- demotes here, once, counted.  A
+    quantized operand (raw int8 panels) demotes only where the dispatch
+    applies its scale (``dequantized``: a Dequant deprime); elsewhere
+    ``packing.demote_value`` refuses it."""
+    kernel_ok = (backend == "kernel" and not pol.packed_int4
+                 and pol.ger not in _EXPANSIONS)
+    dq = {"dequantized": dequantized}
+    if op_class == "gemm" and kernel_ok:
+        if packing.is_packed(x) and packing.is_packed(y):
+            # one packed operand per dispatch: keep the weight-side y
+            x = packing.demote_value(x, "both-operands-packed", **dq)
+        if packing.is_packed(x) and not _packed_gemm_compatible(
+                parsed, x, "x"):
+            x = packing.demote_value(x, "spec-orientation", **dq)
+        if packing.is_packed(y) and not _packed_gemm_compatible(
+                parsed, y, "y"):
+            y = packing.demote_value(y, "spec-orientation", **dq)
+        return x, y
+    if op_class == "conv" and kernel_ok:
+        if packing.is_packed(x):
+            x = packing.demote_value(x, "conv-image-operand", **dq)
+        if packing.is_packed(y):
+            nd, depthwise = _CONV_SPECS[spec]
+            lay = y.layout
+            if depthwise or lay.tile != "conv" or lay.nd != nd:
+                y = packing.demote_value(y, "conv-layout-mismatch", **dq)
+        return x, y
+    if op_class in ("gemm", "conv") and backend in ("torch", "ref"):
+        if dequantized:
+            # the lowering's demote_op does not see the Dequant: demote
+            # here, for the same reason
+            why = f"{backend}-{op_class}"
+            return (packing.demote_value(x, why, **dq),
+                    packing.demote_value(y, why, **dq))
+        return x, y
+    return (packing.demote_value(x, op_class, **dq),
+            packing.demote_value(y, op_class, **dq))
+
+
 def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
             acc=None, bias=None, residual=None,
             dequant: Dequant | None = None, masks=None):
@@ -1170,7 +1297,8 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
                 "conv contractions take no accumulator seed, dequant, "
                 "saturating, or alpha/beta/neg accumulate forms — only a "
                 "fused epilogue")
-    elif x.is_complex() or y.is_complex():
+    elif any(isinstance(t, torch.Tensor) and t.is_complex()
+             for t in (x, y)):
         op_class = "complex"
         parsed = parse_spec(spec, x.ndim, y.ndim)
         if parsed is None or parsed.out_perm is not None:
@@ -1236,6 +1364,8 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
         raise NotImplementedError(
             f"no lowering registered for ({backend!r}, {op_class!r}, "
             f"{ger}, fused={not ep.is_identity})")
+    x, y = _admit_packed(op_class, backend, pol, parsed, spec, x, y,
+                         dequant is not None)
     op = Op(x=x, y=y, acc=acc, bias=bias, residual=residual, parsed=parsed,
             spec=spec, ger=ger, pol=pol,
             out_dtype=pol.acc_dtype if dequant is not None else out_dtype,

@@ -8,21 +8,19 @@ result rescaled to floating point.  Matches the signed x unsigned
 asymmetry of xvi8ger4 by biasing activations into uint8.  On the card the
 ger runs the IMMA kernel (``csrc/gemm_imma.cu``).
 
-Prepacked quantized weights (the reference's ``PackedOperand`` branch of
-:func:`qdot` and ``prepack_params_for_serving``) come with ROADMAP slice
-C4; both raise here.
+Prepacked quantized weights: :func:`qdot` takes a ``PackedOperand`` of
+X-side int8 panels (``prepack_params_for_serving(..., quantize=True)``,
+re-exported here from ``core/packing.py`` as in the reference), whose
+scales and Dequant column sums ride the descriptor and whose panels the
+IMMA kernel streams with no per-call copy of W^T.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import facility, lowering
+from repro_torch.core import facility, lowering, packing
 from repro_torch.core.precision import Ger
-
-_C4 = ("prepacked weights (PackedOperand, prepack_params_for_serving) come "
-       "with ROADMAP slice C4 (core/packing.py layouts) and are not ported "
-       "yet")
 
 
 def quantize_weight(w: torch.Tensor):
@@ -62,16 +60,32 @@ def qdot(x: torch.Tensor, wq: torch.Tensor,
     colsum(w), then per-column weight scales).
 
     The spec permutes the output, so the product the kernel sees is W^T
-    (N, K) times Xq^T (K, M): the gemm lowering copies W^T on every call
-    and makes the K-major activations N-major (chip_smoke.py times both
-    copies).  A prepacked weight comes with slice C4 (raises).
+    (N, K) times Xq^T (K, M): with a natural ``wq`` the gemm lowering
+    copies W^T on every call, and it makes the K-major activations N-major
+    (chip_smoke.py times both copies).
+
+    ``wq`` may also be a prepacked :class:`~repro_torch.core.packing.
+    PackedOperand` of X-side int8 panels: its per-column scales (unless
+    ``wscale`` is given) and Dequant column sums ride the descriptor, the
+    contract streams the panels into the IMMA kernel with no W^T copy, and
+    the int32 accumulator is the natural qdot's bit for bit.
     """
-    if not isinstance(wq, torch.Tensor):
-        raise NotImplementedError(f"qdot of a {type(wq).__name__}: {_C4}")
-    if wscale is None:
-        raise ValueError("natural-layout qdot needs explicit wscale")
+    if packing.is_packed(wq):
+        if wscale is None:
+            wscale = wq.scale
+        wsum = wq.col_sum
+        if wscale is None or wsum is None:
+            raise ValueError("packed qdot weight is missing its scale/"
+                             "col_sum metadata; pack with "
+                             "prepack_params_for_serving(quantize=True)")
+    elif not isinstance(wq, torch.Tensor):
+        raise TypeError(f"qdot takes an int8 tensor or a PackedOperand, "
+                        f"not a {type(wq).__name__}")
+    else:
+        if wscale is None:
+            raise ValueError("natural-layout qdot needs explicit wscale")
+        wsum = wq.to(torch.int32).sum(dim=0).to(torch.float32)   # (N,)
     xq, xs, xzp = quantize_act_u8(x.to(torch.float32))
-    wsum = wq.to(torch.int32).sum(dim=0).to(torch.float32)       # (N,)
     dq = lowering.Dequant(row_scale=xs, row_zp=xzp, col_sum=wsum,
                           col_scale=wscale)
     return facility.contract(
@@ -100,7 +114,8 @@ def quantize_params_for_serving(params, min_size: int = 1 << 16):
     return visit(params), saved
 
 
-def prepack_params_for_serving(*args, **kwargs):
-    """The reference's kernel-native prepack pass (``core/packing.py``);
-    comes with ROADMAP slice C4."""
-    raise NotImplementedError(_C4)
+# The generalization of the pass above (dense weights, MoE expert banks and
+# conv filter stacks in kernel-native packed layouts, optionally int8 X-side
+# tiles for the I8GER4 path) lives in core/packing.py with the layouts;
+# re-exported here, where the reference's serving callers find it.
+prepack_params_for_serving = packing.prepack_params_for_serving

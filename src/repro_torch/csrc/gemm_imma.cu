@@ -16,8 +16,8 @@
 //
 // all in int32 arithmetic that wraps modulo 2^32, as the reference's int32
 // dot_general and its int32 alpha/beta (truncated to integers by the
-// wrapper) do.  The pm* masks, prepacked panels and the ABFT sidecar (K1b,
-// K1d, K1e) are not here.
+// wrapper) do.  Prepacked X panels (K1d) are read in I8GER4; the pm*
+// masks and the ABFT sidecar (K1b, K1e) are not here.
 //
 // What bounds it on an H100: the int8 tensor cores (1979 TOP/s dense) for
 // large products; the operands' bytes (3.35 TB/s) for skinny ones.
@@ -45,6 +45,13 @@
 // of two shared-memory buffers after them (one barrier a stage).  The
 // deprime goes through a shared int32 tile, so that each output element is
 // stored once, coalesced, in the requested dtype.
+//   * Prepacked X (K1d, I8GER4: quant.qdot's signed int8 weights, spec
+//     "kn,mk->mn"): through gemm_imma_packed_launch, X arrives as
+//     core/packing.py's X-side
+//     panels, (gm, gk, 128, 64) bytes per batch element, zero-padded past
+//     M and K.  A block's 64-deep stage of its 128 rows is then one
+//     contiguous 8 KB panel, read with 16-byte loads whatever K; the
+//     staged registers are the natural launch's, so is the result.
 
 #include "common.cuh"
 
@@ -73,7 +80,10 @@ struct ImmaArgs {
   long long sxb, syb, scb, srb, sob;   // batch strides in stored elements
   int alpha, beta, neg_product, neg_acc, relu;
   int vec_x, vec_y;                    // vector global loads allowed
+  int x_packed;                        // X is (gm, gk, 128, 64) panels (I8)
 };
+
+constexpr int XP_ROWS = 128, XP_K = 64;  // a packed X panel (I8GER4)
 
 template <int FAM>
 struct Fam {
@@ -175,7 +185,18 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
     v[0] = v[1] = v[2] = v[3] = 0u;
     if constexpr (FAM == FAM_I8) {
       const int row = m0 + u / 4, k = k0 + 16 * (u % 4);
-      if (row < a.M) {
+      if (row < a.M && a.x_packed) {
+        // panel (row / 128, k / 64), zero-padded: one 16-byte load
+        const int gk = (a.K + XP_K - 1) / XP_K;
+        const uint8_t* p =
+            xb + ((long long)(row / XP_ROWS) * gk + k / XP_K) *
+                     (XP_ROWS * XP_K) +
+            (row % XP_ROWS) * XP_K + k % XP_K;
+        if (k < a.K) {
+          const uint4 q = *reinterpret_cast<const uint4*>(p);
+          v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+        }
+      } else if (row < a.M) {
         const uint8_t* p = xb + (long long)row * a.K + k;
         if (a.vec_x) {
           if (k < a.K) {
@@ -500,13 +521,13 @@ bool aligned(const void* p, int bytes) {
 // the logical depth (2 x the packed K for I4GER8); c, bias and res are
 // int32; batch strides count stored elements (bytes for int8 and packed
 // int4, int16 elements for I16GER2).
-extern "C" int gemm_imma_launch(const void* x, const void* y, const void* c,
-                                const void* bias, const void* res, void* out,
-                                int family, int out_dt, int batch, int M,
-                                int N, int K, long long sxb, long long syb,
-                                long long scb, long long srb, long long sob,
-                                int alpha, int beta, int neg_product,
-                                int neg_acc, int relu, void* stream) {
+static int imma_launch(const void* x, const void* y, const void* c,
+                       const void* bias, const void* res, void* out,
+                       int family, int out_dt, int batch, int M, int N,
+                       int K, long long sxb, long long syb, long long scb,
+                       long long srb, long long sob, int alpha, int beta,
+                       int neg_product, int neg_acc, int relu, void* stream,
+                       int x_packed) {
   ImmaArgs a;
   a.x = x; a.y = y; a.out = out;
   a.c = reinterpret_cast<const int*>(c);
@@ -517,6 +538,9 @@ extern "C" int gemm_imma_launch(const void* x, const void* y, const void* c,
   a.sxb = sxb; a.syb = syb; a.scb = scb; a.srb = srb; a.sob = sob;
   a.alpha = alpha; a.beta = beta;
   a.neg_product = neg_product; a.neg_acc = neg_acc; a.relu = relu;
+  a.x_packed = x_packed;
+  if (x_packed && (family != FAM_I8 || !aligned(x, 16) || sxb % 16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (family == FAM_I8) {
     a.vec_x = K % 16 == 0 && sxb % 16 == 0 && aligned(x, 16);
@@ -535,4 +559,29 @@ extern "C" int gemm_imma_launch(const void* x, const void* y, const void* c,
     return launch<FAM_I16>(a, batch, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The launchers, one argument list: x as natural (M, K) rows, or (I8GER4)
+// as core/packing.py's X-side panels.
+extern "C" int gemm_imma_launch(const void* x, const void* y, const void* c,
+                                const void* bias, const void* res, void* out,
+                                int family, int out_dt, int batch, int M,
+                                int N, int K, long long sxb, long long syb,
+                                long long scb, long long srb, long long sob,
+                                int alpha, int beta, int neg_product,
+                                int neg_acc, int relu, void* stream) {
+  return imma_launch(x, y, c, bias, res, out, family, out_dt, batch, M, N, K,
+                     sxb, syb, scb, srb, sob, alpha, beta, neg_product,
+                     neg_acc, relu, stream, 0);
+}
+
+extern "C" int gemm_imma_packed_launch(
+    const void* x, const void* y, const void* c, const void* bias,
+    const void* res, void* out, int family, int out_dt, int batch, int M,
+    int N, int K, long long sxb, long long syb, long long scb, long long srb,
+    long long sob, int alpha, int beta, int neg_product, int neg_acc,
+    int relu, void* stream) {
+  return imma_launch(x, y, c, bias, res, out, family, out_dt, batch, M, N, K,
+                     sxb, syb, scb, srb, sob, alpha, beta, neg_product,
+                     neg_acc, relu, stream, 1);
 }

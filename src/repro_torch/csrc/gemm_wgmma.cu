@@ -38,10 +38,19 @@
 //   * The ring's layout, the tile order, the consumers and the epilogue
 //     are wgmma_tile.cuh's, shared with K3's wgmma conv (mma_conv.cu);
 //     only the producer is this file's.
+//   * Prepacked weights (K1d: repro/kernels/mma_gemm.py's packed_spec):
+//     through gemm_wgmma_packed_launch, Y arrives as core/packing.py's
+//     Y-side panels, (gn, gk,
+//     64, 64) per batch element, zero-padded past K and N.  Its tensor map
+//     is 4-D, [64, 64, gk, gn] (5-D with the batch), box [64, 64, 1, 1] at
+//     (0, 0, k0 / 64, n0 / 64 + p): each box is one contiguous 8 KB panel,
+//     and it lands in shared memory as the same swizzled bytes as the
+//     natural 2-D box, so the consumers do not change and the result is
+//     the natural launch's bit for bit.
 
 #include "wgmma_tile.cuh"
 
-template <typename T, int BN, bool BATCHED>
+template <typename T, int BN, bool BATCHED, bool PACKED>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma,
                       const __grid_constant__ CUtensorMap tmb, GemmEpi e,
@@ -79,7 +88,19 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         unsigned char* as = smem + s * C::STAGE;
         unsigned char* bs = as + C::A_BYTES;
         const int k0 = it * WG_BK;
-        if (BATCHED) {
+        if (PACKED && BATCHED) {
+          tma_load_3d(as, &tma, &full[s], k0, m0, bz);
+#pragma unroll
+          for (int p = 0; p < BN / 64; ++p)
+            tma_load_5d(bs + p * 64 * 128, &tmb, &full[s], 0, 0, it,
+                        n0 / 64 + p, bz);
+        } else if (PACKED) {
+          tma_load_2d(as, &tma, &full[s], k0, m0);
+#pragma unroll
+          for (int p = 0; p < BN / 64; ++p)
+            tma_load_4d(bs + p * 64 * 128, &tmb, &full[s], 0, 0, it,
+                        n0 / 64 + p);
+        } else if (BATCHED) {
           tma_load_3d(as, &tma, &full[s], k0, m0, bz);
 #pragma unroll
           for (int p = 0; p < BN / 64; ++p)
@@ -99,52 +120,69 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
+template <typename T, int BN, bool BATCHED, bool PACKED>
+static int run_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
+                     const GemmEpi& e, int K, dim3 grid, cudaStream_t stream) {
+  constexpr size_t smem = WgCfg<BN>::smem;
+  static bool ok = false;
+  auto kernel = gemm_wgmma_kernel<T, BN, BATCHED, PACKED>;
+  cudaError_t err = allow_smem(kernel, smem, &ok);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, WG_THREADS, smem, stream>>>(ta, tb, e, K);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int BN>
 static int launch_wgmma(const void* x, const void* y, const GemmEpi& e, int K,
-                        int batch, bool batched, cudaStream_t stream) {
+                        int batch, bool batched, bool y_packed,
+                        cudaStream_t stream) {
   const uint64_t M = e.M, N = e.N, Kk = K, B = batch;
   CUtensorMap ta, tb;
   const uint64_t a_dims[3] = {Kk, M, B}, a_str[2] = {Kk * 2, M * Kk * 2};
-  const uint64_t b_dims[3] = {N, Kk, B}, b_str[2] = {N * 2, Kk * N * 2};
-  const uint32_t a_box[3] = {64, WG_BM, 1}, b_box[3] = {64, 64, 1};
+  const uint32_t a_box[3] = {64, WG_BM, 1};
   const int rank = batched ? 3 : 2;
   int rc = tmap_16bit(&ta, x, rank, a_dims, a_str, a_box, 128);
   if (rc) return rc;
-  rc = tmap_16bit(&tb, y, rank, b_dims, b_str, b_box, 128);
+  if (y_packed) {
+    // (B,) gn, gk, 64, 64 panels: one box a panel
+    const uint64_t gk = (Kk + 63) / 64, gn = (N + 63) / 64;
+    const uint64_t p_dims[5] = {64, 64, gk, gn, B};
+    const uint64_t p_str[4] = {64 * 2, 64 * 64 * 2, gk * 64 * 64 * 2,
+                               gn * gk * 64 * 64 * 2};
+    const uint32_t p_box[5] = {64, 64, 1, 1, 1};
+    rc = tmap_16bit(&tb, y, batched ? 5 : 4, p_dims, p_str, p_box, 128);
+  } else {
+    const uint64_t b_dims[3] = {N, Kk, B}, b_str[2] = {N * 2, Kk * N * 2};
+    const uint32_t b_box[3] = {64, 64, 1};
+    rc = tmap_16bit(&tb, y, rank, b_dims, b_str, b_box, 128);
+  }
   if (rc) return rc;
-  constexpr size_t smem = WgCfg<BN>::smem;
   const int tiles = (int)(((M + WG_BM - 1) / WG_BM) * ((N + BN - 1) / BN));
   dim3 grid(tiles, batch);
-  if (batched) {
-    static bool ok = false;
-    auto kernel = gemm_wgmma_kernel<T, BN, true>;
-    cudaError_t err = allow_smem(kernel, smem, &ok);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, WG_THREADS, smem, stream>>>(ta, tb, e, K);
-  } else {
-    static bool ok = false;
-    auto kernel = gemm_wgmma_kernel<T, BN, false>;
-    cudaError_t err = allow_smem(kernel, smem, &ok);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, WG_THREADS, smem, stream>>>(ta, tb, e, K);
-  }
-  return (int)cudaGetLastError();
+  if (y_packed)
+    return batched ? run_wgmma<T, BN, true, true>(ta, tb, e, K, grid, stream)
+                   : run_wgmma<T, BN, false, true>(ta, tb, e, K, grid, stream);
+  return batched ? run_wgmma<T, BN, true, false>(ta, tb, e, K, grid, stream)
+                 : run_wgmma<T, BN, false, false>(ta, tb, e, K, grid, stream);
 }
 
 template <typename T>
 static int launch_wgmma_t(const void* x, const void* y, const GemmEpi& e,
-                          int K, int batch, bool batched, int bn,
-                          cudaStream_t s) {
-  if (bn == 256) return launch_wgmma<T, 256>(x, y, e, K, batch, batched, s);
-  if (bn == 128) return launch_wgmma<T, 128>(x, y, e, K, batch, batched, s);
+                          int K, int batch, bool batched, bool y_packed,
+                          int bn, cudaStream_t s) {
+  if (bn == 256)
+    return launch_wgmma<T, 256>(x, y, e, K, batch, batched, y_packed, s);
+  if (bn == 128)
+    return launch_wgmma<T, 128>(x, y, e, K, batch, batched, y_packed, s);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int gemm_wgmma_launch(
+static int wgmma_launch(
     const void* x, const void* y, const void* c, const void* bias,
     const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
     int out_dt, int batch, int batched, int M, int N, int K, float alpha,
-    float beta, int neg_product, int neg_acc, int act, int bn, void* stream) {
+    float beta, int neg_product, int neg_acc, int act, int bn, void* stream,
+    int y_packed) {
   if (K % 8 || N % 8 || K < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(y) & 15))
     return (int)cudaErrorInvalidValue;  // TMA: 16-byte bases and pitches
@@ -159,8 +197,32 @@ extern "C" int gemm_wgmma_launch(
     if (reinterpret_cast<uintptr_t>(p) & 15) e.vec8 = 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (in_dt == DT_BF16)
-    return launch_wgmma_t<__nv_bfloat16>(x, y, e, K, batch, batched != 0, bn, s);
+    return launch_wgmma_t<__nv_bfloat16>(x, y, e, K, batch, batched != 0,
+                                         y_packed != 0, bn, s);
   if (in_dt == DT_F16)
-    return launch_wgmma_t<__half>(x, y, e, K, batch, batched != 0, bn, s);
+    return launch_wgmma_t<__half>(x, y, e, K, batch, batched != 0,
+                                  y_packed != 0, bn, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The launchers, one argument list: y as natural (K, N) rows, or as
+// core/packing.py's Y-side panels.
+extern "C" int gemm_wgmma_launch(
+    const void* x, const void* y, const void* c, const void* bias,
+    const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
+    int out_dt, int batch, int batched, int M, int N, int K, float alpha,
+    float beta, int neg_product, int neg_acc, int act, int bn, void* stream) {
+  return wgmma_launch(x, y, c, bias, res, out, in_dt, c_dt, bias_dt, res_dt,
+                      out_dt, batch, batched, M, N, K, alpha, beta,
+                      neg_product, neg_acc, act, bn, stream, 0);
+}
+
+extern "C" int gemm_wgmma_packed_launch(
+    const void* x, const void* y, const void* c, const void* bias,
+    const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
+    int out_dt, int batch, int batched, int M, int N, int K, float alpha,
+    float beta, int neg_product, int neg_acc, int act, int bn, void* stream) {
+  return wgmma_launch(x, y, c, bias, res, out, in_dt, c_dt, bias_dt, res_dt,
+                      out_dt, batch, batched, M, N, K, alpha, beta,
+                      neg_product, neg_acc, act, bn, stream, 1);
 }

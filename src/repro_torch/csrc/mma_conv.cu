@@ -296,6 +296,14 @@ extern "C" int mma_depthwise_conv_launch(
 //     The gather is the slower way: whisper's conv2 takes 0.069 ms with
 //     TMA and 0.125 ms recast as a 2-D conv that gathers (H100 80GB HBM3,
 //     700 W; PERF.md).
+//     Prepacked filters (K3's packed stream: repro/kernels/mma_conv.py's
+//     w_layout): through mma_conv2d_packed_launch the filter bank arrives
+//     as core/packing.py's
+//     (gf, KH, KW, C, 64) stream, zero-padded past F, read as a 3-D map
+//     [64, K, gf] with box [64, 64, 1] at (0, k0, n0 / 64 + p): each box
+//     is 64 K rows of one contiguous 64-filter slab, and lands as the same
+//     swizzled bytes as the natural (K, F) box, so the result is the
+//     natural launch's bit for bit.
 //   * conv_wmma_kernel (what wgmma does not take, or an explicit filter
 //     tile): a (64, 128) WMMA tile on tile_gemm.cuh's synchronous K loop,
 //     shared with K1's mma_gemm.cu, fed by ConvGatherA.
@@ -513,7 +521,7 @@ __device__ __forceinline__ void conv_gather_panel(unsigned char* as,
 // (cp.async.wait_group 0) and every lane has run its fence, so that the
 // gathered bytes are visible to wgmma's async proxy, lane 0 arrives on
 // full[s]: each warp keeps one step in flight, the four warps four.
-template <typename T, int BN>
+template <typename T, int BN, bool PACKED>
 __device__ __forceinline__ void conv_produce(unsigned char* smem,
                                              uint64_t* full, uint64_t* empty,
                                              const long long* rows,
@@ -532,9 +540,14 @@ __device__ __forceinline__ void conv_produce(unsigned char* smem,
       mbar_expect_tx(&full[s], Cfg::B_BYTES + (img >= 0 ? Cfg::A_BYTES : 0));
       if (img >= 0) tma_load_3d(as, tma, &full[s], k0, ow0, img);
 #pragma unroll
-      for (int p = 0; p < BN / 64; ++p)
-        tma_load_2d(as + Cfg::A_BYTES + p * 64 * 128, tmb, &full[s],
-                    n0 + 64 * p, k0);
+      for (int p = 0; p < BN / 64; ++p) {
+        if (PACKED)
+          tma_load_3d(as + Cfg::A_BYTES + p * 64 * 128, tmb, &full[s], 0, k0,
+                      n0 / 64 + p);
+        else
+          tma_load_2d(as + Cfg::A_BYTES + p * 64 * 128, tmb, &full[s],
+                      n0 + 64 * p, k0);
+      }
     }
     if (img < 0) conv_gather_panel<T>(as, rows, a, k0, lane);
     cp_async_commit();
@@ -550,7 +563,7 @@ __host__ __device__ constexpr size_t conv_wgmma_smem_bytes() {
   return WgCfg<BN>::smem + WG_BM * sizeof(long long);
 }
 
-template <typename T, int BN>
+template <typename T, int BN, bool PACKED>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap tma,
                       const __grid_constant__ CUtensorMap tmb, ConvArgs a,
@@ -584,7 +597,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   // consumers: 128 * 48 + 256 * 224 fits the 384 * 168 the block holds.
   if (threadIdx.x < 128) {
     setmaxnreg_dec<48>();
-    conv_produce<T, BN>(smem, full, empty, rows, &tma, &tmb, a,
+    conv_produce<T, BN, PACKED>(smem, full, empty, rows, &tma, &tmb, a,
                         a.a_tma && one_image ? img : -1, ow0, n0, kiters);
   } else {
     setmaxnreg_inc<224>();
@@ -594,12 +607,21 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
 template <typename T, int BN>
 static int launch_conv_wgmma(const ConvArgs& a, const GemmEpi& e,
-                             cudaStream_t s) {
-  CUtensorMap tb;  // the (K, F) row-major view of the filter bank
-  const uint64_t dims[2] = {(uint64_t)a.F, (uint64_t)a.K};
-  const uint64_t pitch[1] = {(uint64_t)a.F * 2};
-  const uint32_t box[2] = {64, 64};
-  int rc = tmap_16bit(&tb, a.w, 2, dims, pitch, box, 128);
+                             bool w_packed, cudaStream_t s) {
+  CUtensorMap tb;
+  int rc;
+  if (w_packed) {  // the (gf, K, 64) packed slabs
+    const uint64_t gf = ((uint64_t)a.F + 63) / 64;
+    const uint64_t dims[3] = {64, (uint64_t)a.K, gf};
+    const uint64_t pitch[2] = {64 * 2, (uint64_t)a.K * 64 * 2};
+    const uint32_t box[3] = {64, 64, 1};
+    rc = tmap_16bit(&tb, a.w, 3, dims, pitch, box, 128);
+  } else {  // the (K, F) row-major view of the filter bank
+    const uint64_t dims[2] = {(uint64_t)a.F, (uint64_t)a.K};
+    const uint64_t pitch[1] = {(uint64_t)a.F * 2};
+    const uint32_t box[2] = {64, 64};
+    rc = tmap_16bit(&tb, a.w, 2, dims, pitch, box, 128);
+  }
   if (rc) return rc;
   // A 1-D conv's patch rows, (K, OW, N): row ow of image n starts at
   // pixel ow * SW and runs K = KW * C elements on; rows overlap where
@@ -613,23 +635,31 @@ static int launch_conv_wgmma(const ConvArgs& a, const GemmEpi& e,
     rc = tmap_16bit(&ta, a.x, 3, adims, astr, abox, 128);
     if (rc) return rc;
   }
-  constexpr size_t smem = conv_wgmma_smem_bytes<BN>();
-  static bool ok = false;
-  auto kernel = conv_wgmma_kernel<T, BN>;
-  cudaError_t err = allow_smem(kernel, smem, &ok);
-  if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)((a.M + WG_BM - 1) / WG_BM) *
                           ((a.F + BN - 1) / BN);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)tiles, WG_THREADS, smem, s>>>(ta, tb, a, e);
+  constexpr size_t smem = conv_wgmma_smem_bytes<BN>();
+  if (w_packed) {
+    static bool ok = false;
+    auto kernel = conv_wgmma_kernel<T, BN, true>;
+    cudaError_t err = allow_smem(kernel, smem, &ok);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)tiles, WG_THREADS, smem, s>>>(ta, tb, a, e);
+  } else {
+    static bool ok = false;
+    auto kernel = conv_wgmma_kernel<T, BN, false>;
+    cudaError_t err = allow_smem(kernel, smem, &ok);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)tiles, WG_THREADS, smem, s>>>(ta, tb, a, e);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_conv_wgmma_t(const ConvArgs& a, const GemmEpi& e, int bn,
-                               cudaStream_t s) {
-  if (bn == 128) return launch_conv_wgmma<T, 128>(a, e, s);
-  if (bn == 256) return launch_conv_wgmma<T, 256>(a, e, s);
+                               bool w_packed, cudaStream_t s) {
+  if (bn == 128) return launch_conv_wgmma<T, 128>(a, e, w_packed, s);
+  if (bn == 256) return launch_conv_wgmma<T, 256>(a, e, w_packed, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -648,11 +678,11 @@ static int launch_conv(Kernel kernel, size_t smem, bool* smem_ok, int bm,
 // tile, which must be one the path is compiled for.
 enum { CONV_PATH_WMMA = 0, CONV_PATH_F32 = 1, CONV_PATH_WGMMA = 2 };
 
-extern "C" int mma_conv2d_launch(
+static int conv2d_launch(
     const void* x, const void* w, const void* bias, const void* res,
     void* out, int in_dt, int bias_dt, int res_dt, int out_dt, int N, int H,
     int W, int C, int KH, int KW, int F, int SH, int SW, int act, int path,
-    int bn, void* stream) {
+    int bn, void* stream, int w_packed) {
   if (N < 1 || C < 1 || F < 1 || KH < 1 || KW < 1 || SH < 1 || SW < 1 ||
       H < KH || W < KW)
     return (int)cudaErrorInvalidValue;
@@ -672,6 +702,12 @@ extern "C" int mma_conv2d_launch(
   const uintptr_t xb = reinterpret_cast<uintptr_t>(x);
   a.vec_a = (C % 8 == 0) && ((xb & 15) == 0);
   a.vec_b = (F % 8 == 0) && ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
+  // packed filters: 16-byte aligned 128-byte slab rows, any F; only the
+  // wgmma kernel reads them
+  if (w_packed && (path != CONV_PATH_WGMMA ||
+                   (reinterpret_cast<uintptr_t>(w) & 15)))
+    return (int)cudaErrorInvalidValue;
+  if (w_packed) a.vec_b = 1;
   // 4-byte pairs need every (j, c) run, row pitch and pixel step even
   // (core/tiling.py, conv_gather_bytes)
   a.gather = a.vec_a ? 16
@@ -696,8 +732,8 @@ extern "C" int mma_conv2d_launch(
     for (const void* p : {bias, res, (const void*)out})
       if (reinterpret_cast<uintptr_t>(p) & 15) e.vec8 = 0;
     if (in_dt == DT_BF16)
-      return launch_conv_wgmma_t<__nv_bfloat16>(a, e, bn, s);
-    return launch_conv_wgmma_t<__half>(a, e, bn, s);
+      return launch_conv_wgmma_t<__nv_bfloat16>(a, e, bn, w_packed != 0, s);
+    return launch_conv_wgmma_t<__half>(a, e, bn, w_packed != 0, s);
   }
   const int wmma_threads = CONV_WM * CONV_WN * 32;
   if (path == CONV_PATH_WMMA && in_dt == DT_BF16 && bn == CONV_BN) {
@@ -717,4 +753,26 @@ extern "C" int mma_conv2d_launch(
                        F32_BN, 256, a, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K3's launchers, one argument list: the filter bank as natural (KH, KW,
+// C, F), or as core/packing.py's (gf, KH, KW, C, 64) stream.
+extern "C" int mma_conv2d_launch(
+    const void* x, const void* w, const void* bias, const void* res,
+    void* out, int in_dt, int bias_dt, int res_dt, int out_dt, int N, int H,
+    int W, int C, int KH, int KW, int F, int SH, int SW, int act, int path,
+    int bn, void* stream) {
+  return conv2d_launch(x, w, bias, res, out, in_dt, bias_dt, res_dt, out_dt,
+                       N, H, W, C, KH, KW, F, SH, SW, act, path, bn, stream,
+                       0);
+}
+
+extern "C" int mma_conv2d_packed_launch(
+    const void* x, const void* w, const void* bias, const void* res,
+    void* out, int in_dt, int bias_dt, int res_dt, int out_dt, int N, int H,
+    int W, int C, int KH, int KW, int F, int SH, int SW, int act, int path,
+    int bn, void* stream) {
+  return conv2d_launch(x, w, bias, res, out, in_dt, bias_dt, res_dt, out_dt,
+                       N, H, W, C, KH, KW, F, SH, SW, act, path, bn, stream,
+                       1);
 }

@@ -31,8 +31,19 @@ filter tile, "f32" for F32GER), K4's
 16-byte bases, else the scalar one).  A CPU tensor goes to the plain
 version, whatever the path.  A CUDA tensor launches the chosen kernel or
 raises: there is no fallback.  Each wrapper's ``launches`` counts its
-kernel's launches, ``launches_by_path`` the same by path, and nothing
-else.
+kernel's launches, ``launches_by_path`` the same by path (and
+``mma_conv2d.packed_launches`` those on a packed filter stream), and
+nothing else.
+
+K3's packed filter stream (``core/packing.py``): ``mma_conv2d(...,
+w_layout=...)`` takes the raw ``(gf, KH, KW, C, 64)`` stream of a
+prepacked filter bank.  The call takes the path the natural filter would
+take (:func:`conv_path`, chosen once).  On the wgmma kernel it hands the
+stream's pointer to the kernel untouched; the WMMA and fp32 tiles read no
+packed filters, and the call demotes them there, counted, with the reason
+(``packing.demote_panels``).  The result is the natural launch's bit for
+bit.  On the CPU the plain version reads the
+stream as the natural filter bank (``packing.conv_panels_filter``).
 
 Gradients: where the image, the filters, the bias or the residual
 requires one, each wrapper runs as a ``torch.autograd.Function``: the
@@ -48,7 +59,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core import precision, tiling
+from repro_torch.core import packing, precision, tiling
 from repro_torch.kernels import _autograd, _build
 from repro_torch.kernels import epilogue as _epilogue
 from repro_torch.kernels import ref as _ref
@@ -109,7 +120,8 @@ def mma_depthwise_conv2d_plain(image, taps, *, stride=(1, 1),
 def _lib():
     lib = _build.load("mma_conv")
     for fn, argtypes in ((lib.mma_depthwise_conv_launch, _ARGTYPES),
-                         (lib.mma_conv2d_launch, _CONV2D_ARGTYPES)):
+                         (lib.mma_conv2d_launch, _CONV2D_ARGTYPES),
+                         (lib.mma_conv2d_packed_launch, _CONV2D_ARGTYPES)):
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -266,17 +278,23 @@ mma_depthwise_conv2d.trace = None
 # K3: the dense convolution
 # ----------------------------------------------------------------------
 
-def _dense_geometry(image, kernels, stride):
-    if kernels.ndim == 5:
-        raise NotImplementedError(
-            "a prepacked (gf, KH, KW, C, bf) filter stream is a packed "
-            "layout: prepacked filters come with ROADMAP slice C4")
-    if image.ndim != 4 or kernels.ndim != 4:
+def _dense_geometry(image, kernels, stride, w_layout=None):
+    if w_layout is not None:
+        if w_layout.tile != "conv" or kernels.ndim != 5:
+            raise ValueError(f"packed filter stream of rank {kernels.ndim} "
+                             f"does not match layout {w_layout!r}")
+        fshape = (w_layout.kh, w_layout.kw, w_layout.c, w_layout.f)
+    elif kernels.ndim == 5:
+        raise ValueError("a 5-D filter is a packed (gf, KH, KW, C, bf) "
+                         "stream: pass its w_layout")
+    else:
+        fshape = tuple(kernels.shape)
+    if image.ndim != 4 or len(fshape) != 4:
         raise ValueError(f"conv2d wants image (N, H, W, C) and filters "
                          f"(KH, KW, C, F); got {tuple(image.shape)} x "
                          f"{tuple(kernels.shape)}")
     n, h, w, c = image.shape
-    kh, kw, c2, f = kernels.shape
+    kh, kw, c2, f = fshape
     if c != c2:
         raise ValueError(f"channel mismatch {tuple(image.shape)} vs "
                          f"{tuple(kernels.shape)}")
@@ -305,7 +323,8 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
                out_dtype: torch.dtype = torch.float32,
                ep: _epilogue.Epilogue | None = None,
                bias: torch.Tensor | None = None,
-               residual: torch.Tensor | None = None) -> torch.Tensor:
+               residual: torch.Tensor | None = None,
+               w_layout: packing.ConvLayout | None = None) -> torch.Tensor:
     """VALID 2-D convolution, stride (sh, sw) (the paper's h * A).
 
     image (N, H, W, C) and filters (KH, KW, C, F) of one dtype (f32, bf16
@@ -313,34 +332,72 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
     activation and residual (N, OH, OW, F) into the single store.  ``bf``
     names the WMMA filter tile, which must be ``CONV_TILE`` of the input
     dtype; None lets ``core.tiling.choose_conv_path`` pick the kernel.  It
-    changes no result beyond the order of the fp32 sums.  Differentiable
-    where an operand requires a gradient (the module docstring says how).
+    changes no result beyond the order of the fp32 sums.  ``w_layout``
+    marks ``kernels`` as a packed filter stream (the module docstring).
+    Differentiable where an operand requires a gradient (the module
+    docstring says how), but for a packed filter stream.
     """
     opts = dict(bf=bf, stride=tuple(int(s) for s in stride),
                 out_dtype=out_dtype, ep=ep)
+    if w_layout is not None:
+        if _autograd.wants_grad(image, kernels, bias, residual):
+            raise NotImplementedError(
+                "prepacked filters serve inference: a packed conv has no "
+                "gradient")
+        return _mma_conv2d(image, kernels, bias=bias, residual=residual,
+                           w_layout=w_layout, **opts)
     if _autograd.wants_grad(image, kernels, bias, residual):
         return _ConvFn.apply(image, kernels, bias, residual, _mma_conv2d,
                              opts)
     return _mma_conv2d(image, kernels, bias=bias, residual=residual, **opts)
 
 
+def conv_path(image, kh, kw, c, f, stride, bf, w_aligned):
+    """(path, config) of K3 for this image and a (KH, KW, C, F) filter
+    bank whose base is 16-byte aligned or not (``w_aligned``): the choice
+    the natural dispatch makes, which a packed one follows."""
+    n, h, w, _ = image.shape
+    m = n * ((h - kh) // stride[0] + 1) * ((w - kw) // stride[1] + 1)
+    return tiling.choose_conv_path(
+        m, f, _GER[image.dtype], f % 8 == 0 and w_aligned,
+        tiling.conv_gather_bytes(c, kw, w, stride[1],
+                                 image.data_ptr()) > 0, bf)
+
+
 def _mma_conv2d(image, kernels, *, bf, stride, out_dtype, ep, bias,
-                residual) -> torch.Tensor:
+                residual, w_layout=None) -> torch.Tensor:
     """K3's dispatch: the plain version on a CPU tensor, the kernel on a
     CUDA tensor."""
-    n, oh, ow, f = _dense_geometry(image, kernels, stride)
+    n, oh, ow, f = _dense_geometry(image, kernels, stride, w_layout)
     if image.dtype not in _GER or kernels.dtype != image.dtype:
         raise TypeError(f"the conv kernel takes image and filters of one "
                         f"dtype among f32/bf16/f16, got {image.dtype} x "
                         f"{kernels.dtype}")
-    kh, kw, c, _ = kernels.shape
-    path, cfg = tiling.choose_conv_path(
-        n * oh * ow, f, _GER[image.dtype],
-        f % 8 == 0 and kernels.data_ptr() % 16 == 0,
-        tiling.conv_gather_bytes(c, kw, image.shape[2], stride[1],
-                                 image.data_ptr()) > 0, bf)
+    if w_layout is not None:
+        # the natural filter's path (a fresh, aligned allocation), chosen
+        # once: where it reads no packed filters they are demoted, counted
+        kh, kw, c = w_layout.kh, w_layout.kw, w_layout.c
+        path, cfg = conv_path(image, kh, kw, c, f, stride, bf, True)
+        why = packing.conv_unread(path)
+        if why is not None:
+            kernels = packing.demote_panels(kernels, w_layout, why)
+            w_layout = None
+        elif w_layout.bf != packing.CONV_BF:
+            raise ValueError(f"stale packed filter layout: bf = "
+                             f"{w_layout.bf}, the wgmma kernel reads "
+                             f"{packing.CONV_BF} — repack "
+                             f"(packing.refresh_conv)")
+        elif not kernels.is_contiguous() or kernels.data_ptr() % 16:
+            raise ValueError("a packed filter stream must be contiguous and "
+                             "16-byte aligned")
+    else:
+        kh, kw, c, _ = kernels.shape
+        path, cfg = conv_path(image, kh, kw, c, f, stride, bf,
+                              kernels.data_ptr() % 16 == 0)
     out_shape = (n, oh, ow, f)
     ep = _check_epilogue(ep, bias, residual, out_shape, f)
+    if image.device.type == "cpu" and w_layout is not None:
+        kernels = packing.conv_panels_filter(kernels, w_layout)
     if image.device.type == "cpu":
         return mma_conv2d_plain(image, kernels, stride=stride,
                                 out_dtype=out_dtype, ep=ep, bias=bias,
@@ -364,7 +421,9 @@ def _mma_conv2d(image, kernels, *, bf, stride, out_dtype, ep, bias,
     if out.numel() == 0:
         return out                  # an empty grid is not a launch
     lib = _lib()
-    rc = lib.mma_conv2d_launch(
+    launch = (lib.mma_conv2d_launch if w_layout is None
+              else lib.mma_conv2d_packed_launch)
+    rc = launch(
         image.data_ptr(), kernels.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
@@ -376,8 +435,12 @@ def _mma_conv2d(image, kernels, *, bf, stride, out_dtype, ep, bias,
     _build.check(lib, rc, f"mma_conv2d ({path})")
     mma_conv2d.launches += 1
     mma_conv2d.launches_by_path[path] += 1
+    if w_layout is not None:
+        mma_conv2d.packed_launches += 1
     return out
 
 
 mma_conv2d.launches = 0
 mma_conv2d.launches_by_path = dict.fromkeys(CONV_PATHS, 0)
+# The launches on a packed filter stream (also in launches_by_path).
+mma_conv2d.packed_launches = 0

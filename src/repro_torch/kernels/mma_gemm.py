@@ -29,7 +29,28 @@ stream's K slices, summed in split order) where that path splits K, else
 :func:`mma_gemm_plain` (prime, one rank-K update, deprime).  A CUDA tensor
 launches a kernel or raises: there is no fallback.  ``mma_gemm.launches``
 counts products computed on the card (one per call, whatever the path or
-split), ``mma_gemm.launches_by_path`` the same by path, and nothing else.
+split), ``mma_gemm.launches_by_path`` the same by path,
+``mma_gemm.packed_launches_by_path`` those of them that read packed
+panels, and nothing else.
+
+Prepacked operands (K1d, ``core/packing.py``): ``y_layout`` marks y as the
+raw Y-side panel tensor ``(gn, gk, 64, 64)`` (``(B, gn, gk, 64, 64)`` for
+an expert bank), which the weight stream and the wgmma tile read; and
+``x_layout`` marks x as the raw X-side ``(gm, gk, 128, 64)`` int8 panels,
+which the IMMA kernel reads in I8GER4.  The call takes the path its
+natural operands would take (``choose_gemm_path``, chosen once, a packed
+operand counting with its natural pitch: :func:`natural_aligned`).  Where
+that path reads the panels, it checks their panel size (a stale layout
+raises: ``packing.refresh_gemm`` repacks first) and hands their pointer to
+the kernel untouched; where it reads none (the WMMA tile, the DMMA kernel,
+I4GER8 and I16GER2, X panels on the stream or wgmma, Y panels on IMMA),
+it demotes them, counted, with the reason (``packing.demote_panels``),
+and launches as the natural call.  The panels are zero-padded past K and N, where the kernels read
+zeros anyway, so the result is the natural launch's bit for bit.  On the
+CPU the plain version of the path reads the panels as the kernel-facing
+matrix (``packing.gemm_panels_matrix``); that is not a demote.  Packed
+operands serve inference: with an operand that requires a gradient the
+call raises.
 
 Gradients: where an operand requires one, ``mma_gemm`` runs as a
 ``torch.autograd.Function`` whose forward is the same dispatch and whose
@@ -51,7 +72,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core import precision, tiling
+from repro_torch.core import packing, precision, tiling
 from repro_torch.kernels import _autograd, _build
 from repro_torch.kernels import epilogue as _epilogue
 from repro_torch.kernels import ref as _ref
@@ -84,6 +105,7 @@ _DMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 5 + [ctypes.c_double] * 2
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 PATHS = ("stream", "wgmma", "wmma", "imma", "dmma")
+PACKED_PATHS = ("stream", "wgmma", "imma")       # the paths that read panels
 
 
 def _shapes(x, y):
@@ -159,22 +181,59 @@ def mma_gemm_splitk_plain(x, y, c=None, *, kind: Ger,
 _FNS: dict[str, tuple] = {}
 
 
-def _lib(name: str, fn_name: str, argtypes):
-    """(library, launcher) of ``csrc/<name>.cu``, typed once."""
-    got = _FNS.get(name)
+def _lib(name: str, fn_name: str, argtypes, packed: bool = False):
+    """(library, launcher) of ``csrc/<name>.cu``, typed once: its
+    ``<name>_launch``, or with ``packed`` its ``<name>_packed_launch``
+    (the same arguments, the packed operand read as panels)."""
+    key = f"{name}.packed" if packed else name
+    got = _FNS.get(key)
     if got is None:
         lib = _build.load(name)
-        fn = getattr(lib, fn_name)
+        fn = getattr(lib, fn_name.replace("_launch", "_packed_launch")
+                     if packed else fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        got = _FNS[name] = (lib, fn)
+        got = _FNS[key] = (lib, fn)
     return got
 
 
-def _is_aligned(*ts) -> bool:
-    """16-byte bases and row pitches: TMA's rule for the wgmma path."""
-    return all(t.data_ptr() % 16 == 0 and (t.shape[-1] * t.element_size())
-               % 16 == 0 for t in ts)
+def natural_aligned(x, y, x_layout=None, y_layout=None) -> bool:
+    """TMA's rule for the wgmma path (16-byte bases and row pitches) on the
+    operands as the natural dispatch sees them after its ``.contiguous()``:
+    a tensor that is not contiguous would be copied into a fresh, aligned
+    allocation; a packed operand (its panels, with its layout) counts with
+    its natural kernel-facing pitch, its natural tensor being such an
+    allocation."""
+    def ok(t, lay):
+        pitch = (lay.cols if lay is not None else t.shape[-1]) \
+            * t.element_size()
+        base = (lay is not None or not t.is_contiguous()
+                or t.data_ptr() % 16 == 0)
+        return base and pitch % 16 == 0
+    return ok(x, x_layout) and ok(y, y_layout)
+
+
+def _packed_shapes(x, y, x_layout, y_layout):
+    """(b, m, n, k) of a call with packed operands, their ranks checked."""
+    def dims(t, lay, natural_rank_of):
+        if lay is None:
+            if t.ndim not in (2, 3):
+                raise ValueError(f"mma_gemm wants (M, K) x (K, N) or "
+                                 f"batched operands; got {tuple(t.shape)}")
+            return (t.shape[0] if t.ndim == 3 else None), *t.shape[-2:]
+        if lay.tile != "gemm" or t.ndim != 4 + int(lay.batched):
+            raise ValueError(f"packed operand of rank {t.ndim} does not "
+                             f"match layout {lay!r}")
+        if lay.side != natural_rank_of:
+            raise ValueError(f"a {lay.side}-side layout passed as the "
+                             f"{natural_rank_of} operand")
+        return (t.shape[0] if lay.batched else None), lay.rows, lay.cols
+    bx, m, k = dims(x, x_layout, "x")
+    by, k2, n = dims(y, y_layout, "y")
+    if k != k2 or (bx is not None and by is not None and bx != by) \
+            or (bx is None) != (by is None):
+        raise ValueError(f"shape mismatch x{(bx, m, k)} @ y{(by, k2, n)}")
+    return bx, m, n, k
 
 
 def _ptr(t):
@@ -199,19 +258,29 @@ def mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
              ep: _epilogue.Epilogue | None = None,
              bias: torch.Tensor | None = None,
              residual: torch.Tensor | None = None,
-             out_dtype: torch.dtype | None = None) -> torch.Tensor:
+             out_dtype: torch.dtype | None = None,
+             x_layout: packing.GemmLayout | None = None,
+             y_layout: packing.GemmLayout | None = None) -> torch.Tensor:
     """C <- alpha * [-](X @ Y) [+ beta * (+/-)C] with a resident accumulator.
 
     ``c`` is the optional ((B,) M, N) accumulator seed (the pp/np/pn/nn
     forms); ``ep`` fuses bias (N,), activation and residual ((B,) M, N)
     into the single store; ``block`` picks one of the compiled tiles
-    (``core.tiling.GEMM_TILES``) instead of ``choose_blocks``.  Where an
-    operand requires a gradient the call is differentiable (the module
-    docstring says how).
+    (``core.tiling.GEMM_TILES``) instead of ``choose_blocks``.
+    ``x_layout``/``y_layout`` mark x/y as raw packed panels (the module
+    docstring says which paths read them).  Where an operand requires a
+    gradient the call is differentiable (the module docstring says how).
     """
     opts = dict(kind=kind, block=block, neg_product=neg_product,
                 neg_acc=neg_acc, alpha=alpha, beta=beta, ep=ep,
                 out_dtype=out_dtype)
+    if x_layout is not None or y_layout is not None:
+        if _autograd.wants_grad(x, y, c, bias, residual):
+            raise NotImplementedError(
+                "prepacked operands serve inference: a packed product has "
+                "no gradient")
+        return _mma_gemm(x, y, c, bias=bias, residual=residual,
+                         x_layout=x_layout, y_layout=y_layout, **opts)
     if _autograd.wants_grad(x, y, c, bias, residual):
         if precision.policy(kind).is_integer:
             raise TypeError(f"{kind.value} is an integer family: its "
@@ -282,7 +351,9 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
              ep: _epilogue.Epilogue | None = None,
              bias: torch.Tensor | None = None,
              residual: torch.Tensor | None = None,
-             out_dtype: torch.dtype | None = None) -> torch.Tensor:
+             out_dtype: torch.dtype | None = None,
+             x_layout: packing.GemmLayout | None = None,
+             y_layout: packing.GemmLayout | None = None) -> torch.Tensor:
     """The dispatch of one product: the plain version on a CPU tensor, a
     kernel on a CUDA tensor."""
     pol = precision.policy(kind)
@@ -291,7 +362,14 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
             "F32GER_3XBF16 is a registered expansion hook — lower it "
             "through facility.contract (core/lowering.py), which chains "
             "three BF16GER2 kernel passes over one accumulator")
-    b, m, n, k = _shapes(x, y)
+    packed = x_layout is not None or y_layout is not None
+    if packed:
+        if pol.packed_int4:
+            raise ValueError("prepacked layouts are byte-addressable tiles; "
+                             "packed-int4 kinds keep their nibble packing")
+        b, m, n, k = _packed_shapes(x, y, x_layout, y_layout)
+    else:
+        b, m, n, k = _shapes(x, y)
     if x.dtype != pol.x_dtype or y.dtype != pol.y_dtype:
         raise TypeError(f"{kind.value} operands must arrive as "
                         f"{pol.x_dtype} x {pol.y_dtype}, got "
@@ -314,9 +392,20 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     forms = dict(neg_product=neg_product, neg_acc=neg_acc, alpha=alpha,
                  beta=beta, ep=ep, bias=bias, residual=residual,
                  out_dtype=out_dtype)
+    # the one path choice: the natural operands', which a packed call
+    # follows (its result is then the natural one bit for bit)
+    path, cfg = tiling.choose_gemm_path(
+        m, n, k, kind, b or 1, natural_aligned(x, y, x_layout, y_layout),
+        block)
+    if packed:
+        x, x_layout = _panels(path, kind, x, x_layout, "x")
+        y, y_layout = _panels(path, kind, y, y_layout, "y")
     if x.device.type == "cpu":
-        path, cfg = tiling.choose_gemm_path(m, n, k, kind, b or 1,
-                                            _is_aligned(x, y), block)
+        # the plain versions read the panels as the kernel-facing matrix
+        if x_layout is not None:
+            x = packing.gemm_panels_matrix(x, x_layout)
+        if y_layout is not None:
+            y = packing.gemm_panels_matrix(y, y_layout)
         if path == "stream" and cfg.split > 1:
             return mma_gemm_splitk_plain(x, y, c, kind=kind,
                                          k_slices=cfg.k_slices(k), **forms)
@@ -331,22 +420,48 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
             raise ValueError(f"operands on {x.device} and {t.device}")
     if (b or 1) * m * n == 0:       # an empty grid is not a launch
         return torch.empty(out_shape, dtype=out_dtype, device=x.device)
-    x, y = x.contiguous(), y.contiguous()
-    path, cfg = tiling.choose_gemm_path(m, n, k, kind, b or 1,
-                                        _is_aligned(x, y), block)
+    panels = (x_layout is not None, y_layout is not None)
+    x = x if panels[0] else x.contiguous()
+    y = y if panels[1] else y.contiguous()
     if path in ("imma", "dmma"):
-        out = _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, **forms)
+        out = _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k,
+                                x_packed=panels[0], **forms)
     else:
-        out = _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, **forms)
+        out = _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k,
+                                y_packed=panels[1], **forms)
     mma_gemm.launches += 1
     mma_gemm.launches_by_path[path] += 1
+    if panels[0] or panels[1]:
+        mma_gemm.packed_launches_by_path[path] += 1
     if mma_gemm.trace is not None:
         mma_gemm.trace.append((b or 1, m, k, n, x.dtype, out_dtype, path))
     return out
 
 
+def _panels(path, kind, t, lay, side):
+    """``(t, lay)`` where ``path`` reads ``side``'s packed panels: they must
+    be the panel size it reads, contiguous and 16-byte aligned (their
+    pointer goes to the kernel untouched).  Where it reads none, the
+    panels are demoted, counted, with the reason: ``(natural, None)``."""
+    if lay is None:
+        return t, None
+    why = packing.gemm_unread(path, kind, side)
+    if why is not None:
+        return packing.demote_panels(t, lay, why), None
+    if lay.panel_blocks != packing.PANELS[side]:
+        raise ValueError(f"stale packed layout: panels {lay.panel_blocks} "
+                         f"but the {path} path reads "
+                         f"{packing.PANELS[side]} — repack "
+                         f"(packing.refresh_gemm); never read stale panels")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError("packed panels must be contiguous and 16-byte "
+                         "aligned")
+    return t, lay
+
+
 def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
-                      neg_acc, alpha, beta, ep, bias, residual, out_dtype):
+                      neg_acc, alpha, beta, ep, bias, residual, out_dtype,
+                      x_packed=False):
     """One launch of csrc/gemm_imma.cu (the integer families) or
     csrc/gemm_dmma.cu (F64GER).  The seed, bias and residual go to the
     accumulator dtype first, as the reference casts them."""
@@ -361,14 +476,16 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
     out = torch.empty((m, n) if b is None else (b, m, n), dtype=out_dtype,
                       device=x.device)
     batched = b is not None
-    strides = (m * k if batched else 0, k * n if batched else 0,
+    x_batch = x[0].numel() if x_packed else m * k
+    strides = (x_batch if batched else 0, k * n if batched else 0,
                m * n, m * n, m * n)
     ptrs = (x.data_ptr(), y.data_ptr(), _ptr(c), _ptr(bias), _ptr(residual),
             out.data_ptr())
     act = ep.activation if ep is not None else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if path == "imma":
-        lib, fn = _lib("gemm_imma", "gemm_imma_launch", _IMMA_ARGTYPES)
+        lib, fn = _lib("gemm_imma", "gemm_imma_launch", _IMMA_ARGTYPES,
+                       x_packed)
         logical_k = 2 * k if pol.packed_int4 else k
         rc = fn(*ptrs, tiling.IMMA_GERS.index(pol.ger),
                 STORE_CODES[out_dtype], b or 1, m, n, logical_k, *strides,
@@ -384,9 +501,11 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
 
 
 def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
-                      neg_acc, alpha, beta, ep, bias, residual, out_dtype):
+                      neg_acc, alpha, beta, ep, bias, residual, out_dtype,
+                      y_packed=False):
     """One launch of the weight stream, the wgmma tile or the WMMA tiles
-    (the bf16/f16/f32 families)."""
+    (the bf16/f16/f32 families); ``y_packed``: y is Y-side panels (the
+    stream and the wgmma tile)."""
     if out_dtype not in DTYPE_CODES:
         raise NotImplementedError(f"the GEMM kernel stores f32/bf16/f16, "
                                   f"not {out_dtype}")
@@ -412,12 +531,14 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
             buf = torch.empty(parts + (b or 1) * cfg.grid(n)[0],
                               dtype=torch.float32, device=x.device)
             ws, tickets = buf.data_ptr(), buf.data_ptr() + 4 * parts
-        lib, fn = _lib("gemm_stream", "gemm_stream_launch", _STREAM_ARGTYPES)
+        lib, fn = _lib("gemm_stream", "gemm_stream_launch", _STREAM_ARGTYPES,
+                       y_packed)
         rc = fn(x.data_ptr(), y.data_ptr(), *common, ws, tickets,
                 DTYPE_CODES[x.dtype], *codes, b or 1, m, n, k, *forms,
                 cfg.bn, cfg.split, stream)
     elif path == "wgmma":
-        lib, fn = _lib("gemm_wgmma", "gemm_wgmma_launch", _WGMMA_ARGTYPES)
+        lib, fn = _lib("gemm_wgmma", "gemm_wgmma_launch", _WGMMA_ARGTYPES,
+                       y_packed)
         rc = fn(x.data_ptr(), y.data_ptr(), *common, DTYPE_CODES[x.dtype],
                 *codes, b or 1, int(batched), m, n, k, *forms, cfg.bn,
                 stream)
@@ -435,6 +556,8 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
 
 mma_gemm.launches = 0
 mma_gemm.launches_by_path = dict.fromkeys(PATHS, 0)
+# The launches on packed panels (also in launches_by_path), by path.
+mma_gemm.packed_launches_by_path = dict.fromkeys(PACKED_PATHS, 0)
 # A list to record (batch, M, K, N, dtype, out dtype, path) of each launch
 # into, or None: chip_smoke.py times the shapes a run gave the kernels.
 mma_gemm.trace = None

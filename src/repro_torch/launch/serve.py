@@ -23,9 +23,17 @@ batching at step granularity:
     reference) their scatter is skipped: the prefill's logits seed the
     slot and decode continues from the shared cache.
   * **Decode**: one greedy batched ``decode_step`` per tick over all slots.
+  * ``--prepack``: after the model is built, its weights are packed once,
+    in place, into the panels the kernels read
+    (``core.packing.prepack_params_for_serving``, ``min_size=1024``; the
+    stats are printed); every projection, MoE bank and conv stem then
+    streams its panels with no per-call relayout, and the tokens are the
+    natural run's.  The SSM archs' 2-D conv taps are packed too and
+    demoted at every depthwise call, as in the reference (ROADMAP queue
+    3): serve them unpacked.
 
-Deadlines, preemption, fault injection, ``--abft``, ``--prepack`` and
-``--fault-matrix`` come with later slices (ROADMAP slices C4, D1, D2).
+Deadlines, preemption, fault injection, ``--abft`` and ``--fault-matrix``
+come with later slices (ROADMAP slices D1, D2).
 Accounting: ``tokens_per_s`` counts live-slot decode tokens only; prefill
 tokens are reported separately.
 """
@@ -43,7 +51,7 @@ import torch
 from repro_torch.configs import ARCHS
 from repro_torch.configs import get as get_arch
 from repro_torch.configs.base import reduced as reduce_cfg
-from repro_torch.core import facility
+from repro_torch.core import facility, packing
 from repro_torch.models import model as M
 from repro_torch.runtime.kv_pages import PagePool, PagesExhausted
 from repro_torch.train import steps as S
@@ -232,6 +240,11 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=None)
+    ap.add_argument("--prepack", action="store_true",
+                    help="pack the weights once into the kernels' panel "
+                         "layouts (core/packing.py); the kernels then "
+                         "stream the packed panels with no per-call "
+                         "relayout")
     args = ap.parse_args(argv)
 
     device = facility.resolve_device(args.device)
@@ -245,6 +258,9 @@ def main(argv=None):
     model = M.init_params(cfg, seed=args.seed, device=device,
                           dtype=torch.bfloat16)
     with facility.configure(facility.FacilityConfig(device=device)):
+        if args.prepack:
+            stats = packing.prepack_params_for_serving(model, min_size=1024)
+            print(f"prepacked params: {stats}")
         out = serve_loop(cfg, model, batch=args.batch,
                          prompt_len=args.prompt_len, gen_len=args.gen,
                          n_requests=args.requests, seed=args.seed,

@@ -383,7 +383,7 @@ def test_conv2d_wrapper_checks_its_operands():
         tconv.mma_conv2d(x, w.to(torch.bfloat16))
     with pytest.raises(TypeError, match="one dtype"):
         tconv.mma_conv2d(x.double(), w.double())
-    with pytest.raises(NotImplementedError, match="C4"):
+    with pytest.raises(ValueError, match="w_layout"):
         tconv.mma_conv2d(x, torch.zeros((1, 3, 3, 4, 64)))
     with pytest.raises(ValueError, match="runs on cuda"):
         tconv.mma_conv2d(x.to("meta"), w.to("meta"))

@@ -1003,3 +1003,175 @@ def test_family_paths_through_contract(gen):
         before = G.mma_gemm.launches
         blas3.complex_gemm(ar, ai, br.T.contiguous(), bi.T.contiguous())
         assert G.mma_gemm.launches == before + 4
+
+
+# ----------------------------------------------------------------------
+# Prepacked operands (K1d, K3's packed filter stream): each packed mode
+# bit for bit against the natural launch on the same path
+# ----------------------------------------------------------------------
+
+def _packed_y(w, batched=False):
+    from repro_torch.core import packing
+    k, n = w.shape[-2:]
+    lay = packing.gemm_layout(Ger.BF16GER2, k, n, batched=batched)
+    return packing.pack_gemm(w, lay)
+
+
+def _same_path_bits(natural, packed, path):
+    before = dict(G.mma_gemm.launches_by_path)
+    want = natural()
+    got = packed()
+    torch.cuda.synchronize()
+    assert G.mma_gemm.launches_by_path[path] == before[path] + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (4, 4096, 11008),
+                                   (4, 200, 1000), (30, 1408, 2048),
+                                   (4, 2048, 102400), (16, 768, 51865)])
+def test_packed_stream_bitwise(gen, m, k, n):
+    """The weight stream on packed Y panels: split and unsplit K, BN = 64
+    and 128, K and N fringes (200 x 1000; whisper's N = 51865, which the
+    natural launch reads on its scalar path)."""
+    x = _randn(gen, m, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    po = _packed_y(w)
+    bias = _randn(gen, n, dtype=torch.float32)
+    ep = E.Epilogue(bias=True, activation="silu")
+    _same_path_bits(
+        lambda: G.mma_gemm(x, w, ep=ep, bias=bias,
+                           out_dtype=torch.bfloat16),
+        lambda: G.mma_gemm(x, po.data, ep=ep, bias=bias,
+                           out_dtype=torch.bfloat16, y_layout=po.layout),
+        "stream")
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 1408), (1, 1408, 2048),
+                                   (3, 200, 136)])
+def test_packed_stream_batched_bitwise(gen, m, k, n):
+    """deepseek-moe's expert banks at decode: b = 64 batched products on
+    packed (B, gn, gk, 64, 64) panels."""
+    x = _randn(gen, 64, m, k)
+    w = _randn(gen, 64, k, n, scale=k ** -0.5)
+    po = _packed_y(w, batched=True)
+    _same_path_bits(lambda: G.mma_gemm(x, w),
+                    lambda: G.mma_gemm(x, po.data, y_layout=po.layout),
+                    "stream")
+
+
+@pytest.mark.parametrize("b,m,k,n", [(None, 256, 4096, 4096),
+                                     (None, 1024, 4096, 11008),
+                                     (None, 300, 200, 1000),
+                                     (64, 120, 2048, 1408)])
+def test_packed_wgmma_bitwise(gen, b, m, k, n):
+    """The wgmma tile on a 4-D (5-D batched) map of packed panels: BN =
+    128 and 256, K and N fringes, the MoE banks at prefill."""
+    lead = () if b is None else (b,)
+    x = _randn(gen, *lead, m, k)
+    w = _randn(gen, *lead, k, n, scale=k ** -0.5)
+    po = _packed_y(w, batched=b is not None)
+    c = _randn(gen, *lead, m, n, dtype=torch.float32)
+    _same_path_bits(
+        lambda: G.mma_gemm(x, w, c, alpha=0.5, beta=2.0),
+        lambda: G.mma_gemm(x, po.data, c, alpha=0.5, beta=2.0,
+                           y_layout=po.layout),
+        "wgmma")
+
+
+@pytest.mark.parametrize("m", [4, 1024])
+def test_packed_imma_x_bitwise(gen, m):
+    """The IMMA kernel on packed X panels (I8GER4, qdot's orientation:
+    W^T (N, K) int8 from (gm, gk, 128, 64) panels) against the natural
+    W^T, the int32 accumulator bit for bit; and qdot through contract."""
+    from repro_torch.core import packing, quant
+    k, n = 4096, 11008
+    w = torch.randn(k, n, generator=gen, device="cuda") * 0.05
+    wq, ws = quant.quantize_weight(w)
+    lay = packing.gemm_layout(Ger.I8GER4, n, k, side="x", transposed=True)
+    po = packing.pack_gemm(wq, lay, scale=ws,
+                           col_sum=wq.to(torch.int32).sum(0).float())
+    xq = torch.randint(0, 256, (k, m), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.uint8)
+    kw = dict(kind=Ger.I8GER4)
+    _same_path_bits(lambda: G.mma_gemm(wq.T.contiguous(), xq, **kw),
+                    lambda: G.mma_gemm(po.data, xq, x_layout=po.layout, **kw),
+                    "imma")
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        packing.clear_state()
+        assert torch.equal(quant.qdot(x, wq, ws), quant.qdot(x, po))
+        assert packing.COUNTERS["demote"] == 0
+
+
+def test_packed_panels_demote_where_the_path_reads_none(gen):
+    """On the card too, panels whose path reads none (an explicit block
+    names the WMMA tile; F32GER's conv takes the fp32 tile) are demoted
+    by the wrapper, once each, counted, and launch as the natural call."""
+    from repro_torch.core import packing
+    x = _randn(gen, 100, 256)
+    w = _randn(gen, 256, 136, scale=256 ** -0.5)
+    po = _packed_y(w)
+    packing.clear_state()
+    _same_path_bits(lambda: G.mma_gemm(x, w, block=(64, 64, 64)),
+                    lambda: G.mma_gemm(x, po.data, block=(64, 64, 64),
+                                       y_layout=po.layout), "wmma")
+    img = torch.randn(1, 8, 8, 4, generator=gen, device="cuda")
+    wc = torch.randn(3, 3, 4, 72, generator=gen, device="cuda")
+    pc = packing.pack_conv(wc, packing.conv_layout(Ger.F32GER, 3, 3, 4, 72))
+    before = K.mma_conv2d.launches_by_path["f32"]
+    want = K.mma_conv2d(img, wc)
+    got = K.mma_conv2d(img, pc.data, w_layout=pc.layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.mma_conv2d.launches_by_path["f32"] == before + 2
+    assert [e["why"] for e in packing.EVENTS if e["event"] == "demote"] == [
+        "wmma-tile-reads-no-panels", "conv-f32-tile-reads-no-panels"]
+
+
+@pytest.mark.parametrize("name", ["whisper-conv2", "qwen2-vl-patch"])
+def test_packed_conv_bitwise(gen, name):
+    """K3's wgmma kernel on the packed (gf, KH, KW, C, 64) stream at the
+    stems' shapes: whisper's conv2 (k3 s2 over 3000 frames, TMA-read patch
+    rows) and qwen2-vl's 14 x 14 patch embed (gathered), bias + gelu."""
+    from repro_torch.core import packing
+    if name == "whisper-conv2":
+        x = _randn(gen, 4, 1, 3002, 768)
+        w = _randn(gen, 1, 3, 768, 768, scale=(3 * 768) ** -0.5)
+        stride, nd = (1, 2), 1
+    else:
+        x = _randn(gen, 4, 448, 448, 3)
+        w = _randn(gen, 14, 14, 3, 3584, scale=588 ** -0.5)
+        stride, nd = (14, 14), 2
+    kh, kw, c, f = w.shape
+    lay = packing.conv_layout(Ger.BF16GER2, kh, kw, c, f, nd=nd)
+    po = packing.pack_conv(w[0] if nd == 1 else w, lay)
+    bias = _randn(gen, f, dtype=torch.float32)
+    ep = E.Epilogue(bias=True, activation="gelu")
+    before = K.mma_conv2d.launches_by_path["wgmma"]
+    want = K.mma_conv2d(x, w, stride=stride, ep=ep, bias=bias,
+                        out_dtype=torch.bfloat16)
+    got = K.mma_conv2d(x, po.data, stride=stride, ep=ep, bias=bias,
+                       out_dtype=torch.bfloat16, w_layout=po.layout)
+    torch.cuda.synchronize()
+    assert K.mma_conv2d.launches_by_path["wgmma"] == before + 2
+    assert torch.equal(got, want)
+
+
+def test_reduced_prepacked_serve_matches_natural(gen):
+    """A reduced deepseek-7b served prepacked on the card: no demote, no
+    repack, and the natural run's launches by path."""
+    from repro_torch.core import packing
+    cfg = reduced(get("deepseek-7b"))
+    model = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    settings = dict(batch=2, prompt_len=16, gen_len=4, n_requests=3)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        G.mma_gemm.launches_by_path = dict.fromkeys(G.PATHS, 0)
+        nat = serve.serve_loop(cfg, model, **settings)
+        by_path = dict(G.mma_gemm.launches_by_path)
+        packing.prepack_params_for_serving(model, min_size=1024)
+        base = dict(packing.COUNTERS)
+        G.mma_gemm.launches_by_path = dict.fromkeys(G.PATHS, 0)
+        pk = serve.serve_loop(cfg, model, **settings)
+    assert dict(packing.COUNTERS) == base
+    assert G.mma_gemm.launches_by_path == by_path
+    assert nat["completed"] == pk["completed"] == 3

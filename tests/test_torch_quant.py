@@ -98,7 +98,7 @@ def test_qdot_out_dtype_and_refusals():
         assert out.dtype == torch.bfloat16
         with pytest.raises(ValueError, match="explicit wscale"):
             tquant.qdot(torch.from_numpy(x), wq)
-        with pytest.raises(NotImplementedError, match="C4"):
+        with pytest.raises(TypeError, match="PackedOperand"):
             tquant.qdot(torch.from_numpy(x), packing.STORE, ws)
         dq = tfac.Dequant(row_scale=torch.ones(4, 1),
                           row_zp=torch.zeros(4, 1), col_sum=torch.zeros(4),
@@ -115,7 +115,7 @@ def test_qdot_out_dtype_and_refusals():
             tfac.contract("mk,kn->mn", torch.zeros(4, 8),
                           torch.zeros(8, 4), dequant=dq,
                           masks=(None, None, None))
-    with pytest.raises(NotImplementedError, match="C4"):
+    with pytest.raises(TypeError, match="nn.Module"):
         tquant.prepack_params_for_serving({})
 
 
