@@ -121,7 +121,27 @@ Phases, each of which must pass or the script exits nonzero:
      version, timed beside both, the library call and the bound, the
      host time of one call, natural beside packed, of the wrapper and of
      ``facility.contract`` at decode and prefill M, and ``qdot``'s whole
-     call packed (no W^T copy) beside natural.
+     call packed (no W^T copy) beside natural;
+  8. the pm* masked forms (K1b) and the tight-parity config,
+     ``FacilityConfig(ger=F32GER, out_dtype=float32)`` (K2e: f32
+     attention on the attention kernel's fp32 tile): deepseek-7b served
+     at full width and depth through ``serve_loop`` and whisper-small
+     generating at full width and depth, each right after its phase-3 run
+     (before phase 7 packs it), and two train steps of deepseek-7b at 4
+     layers through ``launch.train.build(..., ger=F32GER,
+     out_dtype=float32)``: each run's launches held to the per-call model,
+     every GEMM on the fp32 WMMA tile and every attention on the fp32 tile
+     (tile or split-KV, counted by mode), the logits (and step-1 loss and
+     gradients) against the eager torch backend in the same config within
+     ``F32_TOL``; then masked products through ``facility.contract(masks=)``
+     and ``kernels.ops.mma_pm_dot`` at deepseek-7b's MLP shapes (and
+     F32GER, I8GER4, F64GER and a batched F32GER product with a seed),
+     launches counted by path, each held against its plain version with
+     NaN and Inf in every disabled lane (integers bit for bit) and timed
+     beside the same kernel unmasked, the unmasked default path, the plain
+     version, a ``torch.where`` + library yardstick and its bound; and the
+     fp32 tile at the F32GER runs' attention shapes beside SDPA on f32
+     inputs.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
@@ -130,7 +150,9 @@ with the attention kernel's and the depthwise conv's, ``run_shapes``;
 phase 6's IMMA and DMMA entries their ``shapes``, the GEMM's entry
 ``phase6_shapes``, its runs on the WMMA tile or on no kernel; phase 7's
 packed modes their ``natural_ms`` and ``launches_by_run`` over its runs,
-the packed stream's ``host_us`` natural beside packed;
+the packed stream's ``host_us`` natural beside packed; phase 8's masked
+entries their ``unmasked_ms``, ``default_ms`` and ``timed`` cases, its
+f32 attention entries ``launches_by_run`` over the F32GER runs;
 ``max_abs_err`` covers the runs' shapes, training's included); the last
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
@@ -1254,15 +1276,12 @@ def serve(torch, failures, arch, settings, num_layers=None, record=None):
           f" GiB; launches in the serving run: {launches}")
     print(f"  expected per prefill: {want['prefill']}; per decode step: "
           f"{want['decode']}")
-    # The counts follow from the calls: every request is one prefill, and
-    # the GEMM count then gives the number of decode steps, which must
-    # explain the other kernels' counts too.
-    pre = stats["completed"]
-    steps = (launches["mma_gemm"] - pre * want["prefill"]["mma_gemm"]) / \
-        want["decode"]["mma_gemm"]
+    # The counts follow from the calls: every request is one prefill and
+    # every step of the loop one decode step (serve_loop's own counts).
+    pre, steps = stats["completed"], stats["steps"]
     model_counts = {k: pre * want["prefill"].get(k, 0)
                     + steps * want["decode"].get(k, 0) for k in kernels}
-    print(f"  {pre} prefills + {steps:g} decode steps give {model_counts}: "
+    print(f"  {pre} prefills + {steps} decode steps give {model_counts}: "
           f"{'matches' if model_counts == launches else 'DIFFERS FROM'} the "
           f"counts")
     if model_counts != launches:
@@ -2377,8 +2396,10 @@ def recording_steps(into):
 
 
 def zero_counts(kernels):
-    """Zero every launch count, by path and on packed operands (no
-    traces: the phase-7 runs are not RECORDS)."""
+    """Zero every launch count, by path, on packed operands, with pm*
+    masks and attention's by mode (no traces: the phase-7 and phase-8
+    runs are not RECORDS)."""
+    from repro_torch.kernels import mma_attention as A
     from repro_torch.kernels import mma_conv as K
     from repro_torch.kernels import mma_gemm as G
     for fn in kernels.values():
@@ -2387,11 +2408,15 @@ def zero_counts(kernels):
         kernels[name].launches_by_path = dict.fromkeys(
             kernels[name].launches_by_path, 0)
     G.mma_gemm.packed_launches_by_path = dict.fromkeys(G.PACKED_PATHS, 0)
+    G.mma_gemm.masked_launches_by_path = dict.fromkeys(G.MASKED_PATHS, 0)
+    A.mma_flash_attention.launches_by_mode = dict.fromkeys(A.MODES, 0)
     K.mma_conv2d.packed_launches = 0
 
 
 def read_counts(kernels):
-    """A run's launches, by path, and on packed operands, just after it."""
+    """A run's launches, by path, on packed operands, with pm* masks and
+    attention's by mode, just after it."""
+    from repro_torch.kernels import mma_attention as A
     from repro_torch.kernels import mma_conv as K
     from repro_torch.kernels import mma_gemm as G
     return {"launches": {k: f.launches for k, f in kernels.items()},
@@ -2399,7 +2424,9 @@ def read_counts(kernels):
                         for n in BY_PATH},
             "packed": {**{f"gemm {p}": v for p, v in
                           G.mma_gemm.packed_launches_by_path.items()},
-                       "conv wgmma": K.mma_conv2d.packed_launches}}
+                       "conv wgmma": K.mma_conv2d.packed_launches},
+            "masked": dict(G.mma_gemm.masked_launches_by_path),
+            "attn_by_mode": dict(A.mma_flash_attention.launches_by_mode)}
 
 
 def pack_model(torch, arch, model):
@@ -2841,6 +2868,552 @@ def phase7_kernels(torch, timer, failures, qdot_ops):
 
 
 
+# ----------------------------------------------------------------------
+# Phase 8: the pm* masked forms (K1b) and the tight-parity F32GER config on
+# the card (K2e: the attention kernel's fp32 tile)
+# ----------------------------------------------------------------------
+
+# The tight-parity config's runs, FacilityConfig(ger=F32GER,
+# out_dtype=float32), each at full width: (a) deepseek-7b at full depth
+# through serve_loop and (b) whisper-small at full depth through prefill
+# and decode_step, both on phase 3's models (their bf16 weights cast per
+# call by the F32GER policy) before phase 7 packs them; (c) two train
+# steps of deepseek-7b cut to 4 layers through launch.train.build.
+F32_SERVE = dict(batch=4, prompt_len=256, gen_len=12, n_requests=2)
+F32_GEN = dict(batch=4, frames=3000, prompt_len=4, gen_len=8)
+F32_TRAIN = ("deepseek-7b", 4, dict(batch=4, seq=512, steps=2))
+# The tolerances, stated before the first run on the card: the kernel
+# backend's logits, step-1 loss and step-1 gradients (each leaf) against
+# the eager torch backend in the same config, relative L2.  Both backends
+# compute in fp32 (bf16 weights and the embedding are exact in it); their
+# sums run in other orders, about sqrt(K) * 2^-24 relative a product, and
+# the difference travels through the layers.
+F32_TOL = {"logits": 1e-4, "grads": 1e-4}
+# Per phase-8 run: its launches by kernel, path, mode and mask.
+PHASE8: dict[str, dict] = {}
+# The masked products (K1b) at deepseek-7b's MLP shapes, in its bf16
+# policy, and the other families' paths: (name, family, batch, M, K, N,
+# with a seed).  About 30% of the lanes of each mask are off.
+MASKED_CASES = (
+    ("bf16 decode MLP", "BF16GER2", None, 4, 4096, 11008, False),
+    ("bf16 prefill MLP", "BF16GER2", None, 1024, 4096, 11008, False),
+    ("F32GER", "F32GER", None, 1024, 4096, 4096, False),
+    ("F32GER batched + seed", "F32GER", 8, 256, 1024, 1024, True),
+    ("I8GER4", "I8GER4", None, 4096, 4096, 4096, False),
+    ("F64GER", "F64GER", None, 2048, 2048, 2048, False),
+)
+# K2e at the F32GER runs' attention shapes: (name, q shape, k/v shape,
+# causal).
+F32_ATTENTION = (
+    ("deepseek-7b prefill", (1, 256, 32, 128), (1, 256, 32, 128), True),
+    ("deepseek-7b logits check prefill", (4, 256, 32, 128),
+     (4, 256, 32, 128), True),
+    ("deepseek-7b train", (4, 512, 32, 128), (4, 512, 32, 128), True),
+    ("whisper-small encoder", (4, 1500, 12, 64), (4, 1500, 12, 64), False),
+    ("whisper-small cross prompt", (4, 4, 12, 64), (4, 1500, 12, 64), False),
+    ("whisper-small cross decode", (4, 1, 12, 64), (4, 1500, 12, 64), False),
+)
+
+
+def f32_config(torch, **kw):
+    from repro_torch.core import facility
+    return facility.FacilityConfig(device="cuda", ger=facility.Ger.F32GER,
+                                   out_dtype=torch.float32, **kw)
+
+
+def check_f32_counts(failures, run, counts, model_counts, modes):
+    """A phase-8 F32GER run's launches: the per-call model's counts, every
+    GEMM on the WMMA tile (F32GER's fp32 FMAs) and attention's by mode
+    (the fp32 tile, K2e)."""
+    gemm = counts["by_path"]["mma_gemm"]
+    off = {p: n for p, n in gemm.items() if p != "wmma" and n}
+    got_modes = {m: n for m, n in counts["attn_by_mode"].items() if n}
+    ok = counts["launches"] == model_counts and not off \
+        and got_modes == modes
+    print(f"  [{'ok' if ok else 'FAIL'}] phase 8: {run}: launches "
+          f"{counts['launches']} (per-call model {model_counts}); GEMM by "
+          f"path {gemm}; attention by mode {got_modes} (want {modes}); "
+          f"conv by path {counts['by_path']['mma_conv2d']}")
+    if not ok:
+        failures.append(f"{run} launches")
+    PHASE8[run] = counts
+
+
+def _check_rel(failures, run, what, got, want, tol) -> float:
+    r = _rel(got, want)
+    ok = bool(got.isfinite().all()) and r <= tol
+    print(f"  [{'ok' if ok else 'FAIL'}] phase 8: {run} {what} "
+          f"{tuple(got.shape)}: kernel vs torch backend rel L2 {r:.3e} "
+          f"(tol {tol:.0e})")
+    if not ok:
+        failures.append(f"{run} {what}")
+    return r
+
+
+def _greedy(torch, model, cfg, batch, seq_len, gen, fcfg, tokens):
+    """Prefill, the cache handoff (f32) and ``gen`` decode steps under
+    ``fcfg``: greedy where ``tokens`` is an empty list (which then records
+    them), else teacher-forced with them.  Returns the prefill's and the
+    last step's logits."""
+    from repro_torch.core import facility
+    from repro_torch.models import model as M
+
+    b = next(iter(batch.values())).shape[0]
+    with facility.configure(fcfg):
+        last, pre = M.prefill(model, batch, cfg)
+        cache = handoff(torch, cfg, pre, b, seq_len, torch.float32)
+        del pre
+        forced = bool(tokens)
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        for i in range(gen):
+            if forced:
+                tok = tokens[i]
+            else:
+                tokens.append(tok)
+            logits, cache = M.decode_step(model, cache, tok, cfg)
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    del cache
+    return last.float(), logits[:, -1].float()
+
+
+def f32_serve(torch, failures, model, cfg):
+    """(a) deepseek-7b served through serve_loop in the tight-parity
+    config, launches held to the per-call model with every GEMM on the
+    WMMA tile and every prefill attention on K2e's fp32 tile; then a
+    batch-4 prompt of 256 tokens through prefill and F32_SERVE's decode
+    steps, greedy on the kernel backend and teacher-forced with its tokens
+    on the eager torch backend: the prefill's and the last step's logits
+    within F32_TOL of each other."""
+    from repro_torch.core import facility
+    from repro_torch.launch import serve as S
+
+    kernels = kernel_wrappers()
+    want = expected_launches(cfg)
+    run = f"{cfg.name} F32GER serve"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with facility.configure(f32_config(torch)):
+        zero_counts(kernels)
+        stats = S.serve_loop(cfg, model, **F32_SERVE)
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+    print(f"  phase 8: {run} {F32_SERVE}: {json.dumps(stats)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    pre, steps = stats["completed"], stats["steps"]
+    model_counts = {k: pre * want["prefill"].get(k, 0)
+                    + steps * want["decode"].get(k, 0) for k in kernels}
+    check_f32_counts(failures, run, counts, model_counts,
+                     {"f32_tile": pre * cfg.num_layers})
+    if pre != F32_SERVE["n_requests"]:
+        failures.append(f"{run}: served {pre} of "
+                        f"{F32_SERVE['n_requests']} requests")
+    b, p, gen = (F32_SERVE[k] for k in ("batch", "prompt_len", "gen_len"))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    tokens = []
+    t0 = time.perf_counter()
+    outs = {be: _greedy(torch, model, cfg, {"tokens": prompt}, p + gen, gen,
+                        f32_config(torch, backend=be), tokens)
+            for be in ("kernel", "torch")}
+    rel = [_check_rel(failures, run, what, outs["kernel"][i],
+                      outs["torch"][i], F32_TOL["logits"])
+           for i, what in enumerate(("prefill logits",
+                                     f"decode step {gen} logits"))]
+    print(f"  phase 8: {run} logits check: batch {b} x {p} prompt, {gen} "
+          f"steps ({time.perf_counter() - t0:.1f} s)")
+    PHASE8[run]["rel_l2"] = rel
+
+
+def f32_generate(torch, failures, model, cfg):
+    """(b) whisper-small in the tight-parity config: a batch-4 prefill over
+    3000 mel frames (the encoder's attention on the fp32 tile, the
+    decoder's cross-attention on fp32 split-KV), the handoff and
+    F32_GEN's greedy decode steps (each step's cross-attention on fp32
+    split-KV), launches held to the per-call model; then the same inputs,
+    teacher-forced, on the eager torch backend: the prefill's and the
+    last step's logits within F32_TOL."""
+    b, gen = F32_GEN["batch"], F32_GEN["gen_len"]
+    batch, seq_len = mm_batch(cfg, F32_GEN, b)
+    kernels = kernel_wrappers()
+    want = expected_launches(cfg)
+    run = f"{cfg.name} F32GER generate"
+    tokens = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    got = _greedy(torch, model, cfg, batch, seq_len, gen, f32_config(torch),
+                  tokens)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    t1 = time.perf_counter()
+    model_counts = {k: want["prefill"].get(k, 0)
+                    + gen * want["decode"].get(k, 0) for k in kernels}
+    e, n = cfg.encoder_layers, cfg.num_layers
+    print(f"  phase 8: {run} {F32_GEN}: prefill + {gen} steps "
+          f"{t1 - t0:.2f} s; first request's tokens "
+          f"{torch.cat(tokens, 1)[0].tolist()}")
+    check_f32_counts(failures, run, counts, model_counts,
+                     {"f32_tile": e + n, "f32_split": n + gen * n})
+    ref = _greedy(torch, model, cfg, batch, seq_len, gen,
+                  f32_config(torch, backend="torch"), tokens)
+    PHASE8[run]["rel_l2"] = [
+        _check_rel(failures, run, what, got[i], ref[i], F32_TOL["logits"])
+        for i, what in enumerate(("prefill logits",
+                                  f"decode step {gen} logits"))]
+
+
+def f32_train(torch, failures):
+    """(c) deepseek-7b at full width cut to 4 layers, trained through
+    ``launch.train.build`` in the tight-parity config: step 1's loss and
+    every gradient leaf on the kernel backend within F32_TOL of the eager
+    torch backend's (same config, same weights), then two steps with the
+    launches held to the per-step model (every GEMM, backward included, on
+    the WMMA tile; the forward's attention on the fp32 tile) and the loss
+    finite."""
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import facility
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.train import steps as S
+
+    arch, layers, st = F32_TRAIN
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+    run = f"{arch} F32GER train ({layers} layers)"
+    t0 = time.perf_counter()
+    make_state, make_step = T.build(
+        cfg, lr=TRAIN["lr"], total_steps=st["steps"], weight_decay=0.0,
+        seed=0, device="cuda", ger=facility.Ger.F32GER,
+        out_dtype=torch.float32)
+    state, step = make_state(), make_step()
+    model = state["params"]
+    batch = pipeline.device_batch(pipeline.synthetic_batch(
+        cfg, batch=st["batch"], seq=st["seq"], step=0), "cuda")
+
+    def grads(backend):
+        with facility.configure(f32_config(torch, backend=backend)):
+            loss, _, g = S.loss_and_grads(cfg, model, batch)
+        return loss.item(), g
+
+    loss_t, want = grads("torch")
+    loss_k, got = grads("kernel")
+    rels = sorted(((_rel(got[k].float(), want[k].float()), k) for k in got),
+                  reverse=True)
+    del got, want
+    loss_rel = abs(loss_k - loss_t) / abs(loss_t)
+    ok = (loss_k == loss_k and abs(loss_k) != float("inf")
+          and loss_rel <= F32_TOL["grads"]
+          and rels[0][0] <= F32_TOL["grads"])
+    print(f"  [{'ok' if ok else 'FAIL'}] phase 8: {run} step-1 loss kernel "
+          f"{loss_k:.7f}, torch {loss_t:.7f} (rel {loss_rel:.3e}); "
+          f"{len(rels)} gradient leaves, worst rel L2 {rels[0][0]:.3e} "
+          f"(tol {F32_TOL['grads']:.0e}): "
+          + ", ".join(f"{k} {r:.3e}" for r, k in rels[:3]))
+    if not ok:
+        failures.append(f"{run} step-1 loss or gradients")
+    kernels = kernel_wrappers()
+    per_step = {k: v for k, v in expected_train_launches(cfg).items()
+                if k != "forward_gemm"}
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    losses, times = [], []
+    for _ in range(st["steps"]):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(metrics["loss"].item())
+    counts = read_counts(kernels)
+    model_counts = {k: st["steps"] * per_step.get(k, 0) for k in kernels}
+    check_f32_counts(failures, run, counts, model_counts, {
+        "f32_tile": st["steps"] * per_step.get("mma_flash_attention", 0)})
+    finite = all(x == x and abs(x) != float("inf") for x in losses)
+    print(f"  [{'ok' if finite else 'FAIL'}] phase 8: {run} losses "
+          f"{losses}, step times {[round(t, 1) for t in times]} ms, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB ({time.perf_counter() - t0:.1f} s in all)")
+    if not finite:
+        failures.append(f"{run} loss")
+    PHASE8[run]["rel_l2"] = {"loss": loss_rel, "worst_grad": rels[0][0]}
+    del state, step, model, batch
+
+
+def _lane_masks(torch, g, m, n, k):
+    return tuple(torch.rand(s, generator=g, device="cuda") > 0.3
+                 for s in (m, n, k))
+
+
+def phase8_kernels(torch, timer, failures):
+    """The masked products (K1b): a main-path run through the entry points
+    (``facility.contract(masks=)`` at each MASKED_CASES shape and
+    ``kernels.ops.mma_pm_dot`` twice: on the first case and on I4GER8
+    with a column mask), launches reset just before and read
+    just after; then each case's masked kernel held against its plain
+    version (integers bit for bit), with NaN and Inf in every disabled lane
+    of the float families, and timed beside the same kernel unmasked, the
+    unmasked default path, the plain version, the ``torch.where`` +
+    ``torch.matmul`` yardstick (``torch._int_mm`` for I8GER4) and its
+    bound; then K2e at the F32GER runs' attention shapes beside SDPA on
+    f32 inputs (TF32 off).  Returns the ``kernels`` entries."""
+    import warnings
+
+    from repro_torch.core import facility, precision, tiling
+    from repro_torch.kernels import mma_gemm as G
+    from repro_torch.kernels import ops as O
+
+    Ger = facility.Ger
+    g = torch.Generator(device="cuda").manual_seed(20)
+    operands = []
+    for name, fam, b, m, k, n, seeded in MASKED_CASES:
+        kind = Ger[fam]
+        pol = precision.policy(kind)
+        lead = (b,) if b else ()
+        if pol.is_integer:
+            x = torch.randint(-128, 128, lead + (m, k), generator=g,
+                              device="cuda").to(torch.int8)
+            y = torch.randint(0, 256, lead + (k, n), generator=g,
+                              device="cuda").to(torch.uint8)
+        else:
+            x = torch.randn(lead + (m, k), generator=g, device="cuda",
+                            dtype=torch.float64 if fam == "F64GER"
+                            else torch.float32).to(pol.x_dtype)
+            y = (torch.randn(lead + (k, n), generator=g, device="cuda",
+                             dtype=x.dtype if fam == "F64GER"
+                             else torch.float32) * k ** -0.5).to(pol.y_dtype)
+        c = (torch.randn(lead + (m, n), generator=g, device="cuda")
+             if seeded else None)
+        masks = _lane_masks(torch, g, m, n, k)
+        xm, ym, pm = masks
+        if not pol.is_integer:     # NaN and Inf where the lanes are off
+            x[..., ~xm, :] = float("nan")
+            x[..., ~pm] = float("inf")
+            y[..., ~pm, :] = float("nan")
+            y[..., ~ym] = float("-inf")
+        operands.append((name, kind, pol, b, m, k, n, x, y, c, masks))
+
+    # I4GER8, which contract refuses: a column mask alone takes the IMMA
+    # kernel's column predicate through ops.mma_pm_dot (nibbles packed
+    # two a byte along K, at I8GER4's case's 4096^3)
+    x4, y4 = (torch.randint(-128, 128, s, generator=g, device="cuda").to(
+        torch.int8) for s in ((4096, 2048), (2048, 4096)))
+    ym4 = torch.rand(4096, generator=g, device="cuda") > 0.3
+
+    # the main path: the entry points a user calls
+    kernels = kernel_wrappers()
+    outs = []
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for name, kind, pol, b, m, k, n, x, y, c, masks in operands:
+            spec = "bmk,bkn->bmn" if b else "mk,kn->mn"
+            outs.append(facility.contract(
+                spec, x, y, acc=c, masks=masks,
+                plan=facility.Plan(ger=kind, out_dtype=facility.ACC)))
+        name, kind, pol, b, m, k, n, x, y, c, masks = operands[0]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            shim = O.mma_pm_dot(x, y, kind=kind, xmask=masks[0],
+                                ymask=masks[1], pmask=masks[2])
+            i4 = O.mma_pm_dot(x4, y4, kind=Ger.I4GER8, xmask=None,
+                              ymask=ym4)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    PHASE8["masked products"] = counts
+    print(f"  phase 8: masked products through contract(masks=) and "
+          f"ops.mma_pm_dot: launches {counts['launches']}, GEMM by path "
+          f"{counts['by_path']['mma_gemm']}, masked by path "
+          f"{counts['masked']}")
+    _check(failures, "ops.mma_pm_dot", torch.equal(shim, outs[0]),
+           "bit for bit contract(masks=)")
+    _check(failures, "ops.mma_pm_dot I4GER8 column mask 4096^3",
+           torch.equal(i4, G.mma_gemm_plain(x4, y4, kind=Ger.I4GER8,
+                                            masks=(None, ym4, None)))
+           and bool((i4[:, ~ym4] == 0).all()),
+           "bit for bit the plain version, exact zeros on disabled columns")
+    del x4, y4, i4
+
+    rows = {}
+    for (name, kind, pol, b, m, k, n, x, y, c, masks), out in zip(
+            operands, outs):
+        xm, ym, pm = masks
+        path, cfg = tiling.choose_gemm_path(m, n, k, kind, b or 1, True,
+                                            None, True)
+        label = f"masked {name} {'%dx' % b if b else ''}{m}x{k}x{n} ({path})"
+        plain = G.mma_gemm_plain(x, y, c, kind=kind, masks=masks)
+        finite = pol.is_integer or bool(out.isfinite().all())
+        if pol.is_integer:
+            ok = torch.equal(out, plain)
+            _check(failures, label, ok, "bit for bit the plain version")
+            err = 0.0 if ok else float("inf")
+        elif kind == Ger.F64GER:
+            xs, ys = G.select_masks(x, y, masks)
+            tol = 1e-15 * k * xs.abs().max().item() * ys.abs().max().item()
+            err = (out - plain).abs().max().item()
+            _check(failures, label, finite and err <= tol,
+                   f"max|err| {err:.3e} (tol 1e-15*K*max|x|*max|y| "
+                   f"{tol:.3e}), finite")
+        else:
+            err = _report_close(torch, label, out.float(), plain.float(),
+                                torch.float32, failures)
+            _check(failures, label, finite, "finite (NaN/Inf lanes off)")
+        if c is None:
+            zero = bool((out[..., ~xm, :] == 0).all()) \
+                and bool((out[..., ~ym] == 0).all())
+            _check(failures, label, zero, "exact zeros on disabled rows "
+                   "and columns")
+        blk = (cfg.bm, cfg.bn, cfg.bk) if path == "wmma" else None
+        before = dict(G.mma_gemm.launches_by_path)
+        G.mma_gemm(x, y, c, kind=kind)
+        default = _path_taken(G.mma_gemm, before)
+        if pol.is_integer:
+            def library():    # s8 x s8: not the same function as s8 x u8
+                return torch._int_mm(
+                    torch.where(xm[:, None] & pm, x, 0),
+                    torch.where(pm[:, None] & ym, y, 0).to(torch.int8))
+        else:
+            def library():
+                xs = torch.where(xm[:, None] & pm, x, 0)
+                ys = torch.where(pm[:, None] & ym, y, 0)
+                z = torch.matmul(xs, ys)
+                return z if c is None else z + c
+        row = {"ms": timer(lambda: G.mma_gemm(x, y, c, kind=kind,
+                                              masks=masks)),
+               "unmasked_ms": timer(lambda: G.mma_gemm(x, y, c, kind=kind,
+                                                       block=blk)),
+               "default_ms": timer(lambda: G.mma_gemm(x, y, c, kind=kind)),
+               "default_path": default,
+               "plain_ms": timer(lambda: G.mma_gemm_plain(
+                   x, y, c, kind=kind, masks=masks)),
+               "library_ms": timer(library)}
+        # the work this run's masks leave: enabled rows, columns and ranks
+        mo, no, ko = (int(t.sum()) for t in masks)
+        bb = b or 1
+        nbytes = (bb * (mo * ko * x.element_size() + ko * no * y.element_size()
+                        + m * n * 4 * (2 if c is not None else 1))
+                  + m + n + k)
+        peak = {"BF16GER2": "bf16", "F32GER": "f32", "I8GER4": "int8",
+                "F64GER": "f64"}[kind.name]
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2 * bb * mo * no * ko, peak)
+        print(f"  time {label}: masked {row['ms']:.4f} ms, same kernel "
+              f"unmasked {row['unmasked_ms']:.4f} ms, default path "
+              f"({default}) {row['default_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, where + library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; {mo}/{m} rows, {no}/{n} columns, "
+              f"{ko}/{k} ranks on)")
+        rows.setdefault(path, {})[label] = (row, err)
+    del operands, outs
+
+    sources = {"wmma": "src/repro_torch/csrc/mma_gemm.cu, "
+                       "src/repro_torch/csrc/tile_gemm.cuh",
+               "imma": "src/repro_torch/csrc/gemm_imma.cu",
+               "dmma": "src/repro_torch/csrc/gemm_dmma.cu"}
+    entries = []
+    for path, by_label in rows.items():
+        label, (row, _) = next(iter(by_label.items()))
+        e = {"name": f"mma_gemm masked ({path})", "route": "cuda",
+             "source": sources[path],
+             "replaces": "src/repro/kernels/mma_gemm.py:121",
+             "max_abs_err": max(err for _, err in by_label.values()),
+             **row, "shape": label,
+             "launches": counts["masked"][path],
+             "timed": {lb: r for lb, (r, _) in by_label.items()}}
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched on phase 8's "
+                            f"masked run")
+        entries.append(e)
+    return entries + phase8_attention(torch, timer, failures)
+
+
+def _tf32_control(torch, label, q, k, v, got, kw, failures):
+    """The control of the f32 rounding budget: the plain version on q and
+    k rounded to TF32 (10 mantissa bits, to nearest: what a TF32
+    tensor-core product reads; ``allow_tf32`` would not do, as cuBLAS
+    keeps a one-query product off the tensor cores) must land outside
+    the tolerance that the fp32 tile met (the budget plus 2^-20 *
+    max|ref|), or the budget could not tell fp32 scores from TF32 ones.
+    Returns both max err/tol readings."""
+    from repro_torch.kernels import mma_attention as A
+
+    def tf32(t):
+        return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    want = A.flash_attention_plain(q, k, v, **kw)
+    tol = A.rounding_budget(q, k, v, **kw) + 2.0 ** -20 * want.abs().max()
+    scores = A.flash_attention_plain(tf32(q), tf32(k), v, **kw)
+    ratios = {"budget_ratio": ((got - want).abs() / tol).max().item(),
+              "tf32_budget_ratio":
+                  ((scores - want).abs() / tol).max().item()}
+    ok = ratios["tf32_budget_ratio"] > 2
+    print(f"  [{'ok' if ok else 'FAIL'}] control {label}: max err/tol, "
+          f"fp32 tile {ratios['budget_ratio']:.3f}, plain version on "
+          f"TF32-rounded q and k {ratios['tf32_budget_ratio']:.3f} (must "
+          f"exceed 2)")
+    if not ok:
+        failures.append(f"{label}: the f32 budget admits TF32 scores")
+    return ratios
+
+
+def phase8_attention(torch, timer, failures):
+    """K2e at the F32GER runs' attention shapes: each held against its
+    plain version (``check_attn_case``: the rounding budget, with no P
+    rounding in f32) and the budget's TF32 control (``_tf32_control``),
+    and timed beside the plain version and SDPA on f32 inputs (TF32 off),
+    with its bound at the fp32 peak; the entries' launches are the F32GER
+    runs' (PHASE8), by mode."""
+    from repro_torch.kernels import mma_attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, qs, ks, causal in F32_ATTENTION:
+        q, k, v = (torch.randn(s, generator=g, device="cuda")
+                   for s in (qs, ks, ks))
+        kw = dict(causal=causal)
+        n_split, _ = A.split_kv_plan(qs[2], qs[1], ks[1])
+        mode = "split" if n_split > 1 else "tile"
+        label = f"f32 {name} {qs} over {ks[1]} ({mode})"
+        err, got = check_attn_case(torch, label, q, k, v, kw, failures)
+        ratios = _tf32_control(torch, label, q, k, v, got, kw, failures)
+        del got
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row = {"ms": timer(lambda: A.mma_flash_attention(q, k, v, **kw)),
+               "plain_ms": timer(lambda: A.flash_attention_plain(
+                   q, k, v, **kw)),
+               "library_ms": timer(lambda: sdpa(qt, kt, vt,
+                                                is_causal=causal))}
+        b, sq, h, d = qs
+        pairs = A.attn_live_pairs(sq, ks[1], causal=causal)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (2 * q.numel() + k.numel() + v.numel()) * 4,
+            4 * d * pairs * h * b, "f32")
+        row.update(ratios)
+        print(f"  time attn {label}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa f32 {row['library_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.setdefault(mode, {})[label] = (row, err)
+    entries = []
+    for mode, by_label in rows.items():
+        label, (row, _) = next(iter(by_label.items()))
+        by_run = {r: c["attn_by_mode"].get(f"f32_{mode}", 0)
+                  for r, c in PHASE8.items() if "attn_by_mode" in c}
+        e = {"name": f"mma_flash_attention f32 ({mode})", "route": "cuda",
+             "source": "src/repro_torch/csrc/mma_attention.cu",
+             "replaces": "src/repro/kernels/mma_attention.py:193",
+             "max_abs_err": max(err for _, err in by_label.values()),
+             **row, "shape": label, "launches_by_run": by_run,
+             "launches": sum(by_run.values()),
+             "timed": {lb: r for lb, (r, _) in by_label.items()}}
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched on phase 8's "
+                            f"F32GER runs")
+        entries.append(e)
+    return entries
+
+
 def main() -> None:
     try:
         import torch
@@ -2878,8 +3451,9 @@ def main() -> None:
                check_conv2d(torch, timer, failures)]
     del timer
 
-    print("== phase 3: serve and generate (and phase 7's prepacked runs "
-          "of deepseek-7b, deepseek-moe-16b, whisper-small and qwen2-vl-7b "
+    print("== phase 3: serve and generate (and phase 8's F32GER runs of "
+          "deepseek-7b and whisper-small and phase 7's prepacked runs of "
+          "deepseek-7b, deepseek-moe-16b, whisper-small and qwen2-vl-7b "
           "after their natural runs)", flush=True)
     by_run = {}
     for arch, settings, layers, profile in (
@@ -2893,6 +3467,7 @@ def main() -> None:
             step_breakdown(torch, cfg, *serve_steps(torch, model, cfg,
                                                     settings))
         if arch == ARCH:
+            f32_serve(torch, failures, model, cfg)
             prepacked_serve(torch, failures, arch, settings, model, cfg, {
                 "stats": stats, "launches": by_run[arch], "record": record,
                 "by_path": RECORDS[arch]["by_path"]})
@@ -2916,6 +3491,8 @@ def main() -> None:
         step_breakdown(torch, *steps)
         cfg = steps[0]
         del steps
+        if arch == "whisper-small":
+            f32_generate(torch, failures, model, cfg)
         prepacked_steps(torch, failures, arch, model, cfg, batch, seq_len)
         del model, batch
         torch.cuda.empty_cache()
@@ -2968,6 +3545,23 @@ def main() -> None:
     entries += phase7_kernels(torch, timer, failures, qdot_ops)
     del timer, qdot_ops
 
+    phase8(torch, failures, entries)
+    finish(torch, failures, card, entries, t_start)
+
+
+def phase8(torch, failures, entries):
+    """Phase 8: the F32GER runs (a) and (b) ran after their models' phase-3
+    runs; here (c), then the masked products and K2e's timings."""
+    print("== phase 8: the pm* masked forms (K1b) and the tight-parity "
+          "F32GER config (K2e)", flush=True)
+    f32_train(torch, failures)
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    entries += phase8_kernels(torch, timer, failures)
+    del timer
+
+
+def finish(torch, failures, card, entries, t_start):
     print(f"== done in {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         fail(f"{len(failures)} check(s) failed: {failures}")

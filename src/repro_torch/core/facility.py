@@ -127,8 +127,14 @@ def contract(spec: str, x: torch.Tensor, y: torch.Tensor,
     conv, complex operands, masks, a fused epilogue or saturating forms).
     Complex operands run the ``complex`` op-class, ``plan.saturating`` the
     clamped integer forms.  ``z`` is the value operand of :data:`ATTN`,
-    where ``masks`` is the 1-tuple ``(valid,)``.  The pm* ``(xmask,
-    ymask, pmask)`` masks of the reference come with ROADMAP queue 2, K1b.
+    where ``masks`` is the 1-tuple ``(valid,)``: the (Sk,) or (B, Sk)
+    filled-KV-slot predicate.  For a gemm spec in the natural
+    ``(batch..., M, K) x (batch..., K, N)`` layout, ``masks`` is the pm*
+    3-tuple ``(xmask (M,), ymask (N,), pmask (K,))`` of bool tensors
+    (paper eq. 3; any entry may be None, and each is shared across the
+    batch axes): disabled rows of X, columns of Y and ranks contribute
+    exact zeros (the ``gemm.masked`` op-class; not with dequant or
+    I4GER8, which ``kernels.ops.mma_pm_dot`` sends to ``ref.pm_ger``).
     """
     return lowering.execute(spec, x, y, z, cfg=current(), plan=plan,
                             acc=acc, bias=bias, residual=residual,

@@ -16,6 +16,10 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
     architected oracles — ground truth).
   * ``op_class``: ``"gemm"`` (any spec that normalizes to a — possibly
     batched — 2-D GEMM; batch rides the kernel's ``blockIdx.z``),
+    ``"gemm.masked"`` (the pm* prefixed forms: a natural-layout gemm with
+    the ``(xmask, ymask, pmask)`` row/column/rank predicates, which the
+    kernels apply while staging their panels and the torch/ref lowerings
+    fold into the operands as selects),
     ``"conv"`` (the canonical NHWC conv specs, stride and valid/same/causal
     padding in the Plan), ``"attn"`` (the canonical three-operand ATTN
     spec), ``"einsum"`` (general contraction fallback, eager on every
@@ -26,8 +30,7 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
     routes pallas to xla: a fixed route, not a fallback after a failure)
     and ``"complex"`` (complex operands: four real accumulate-form gers
     through whichever backend's gemm lowering the op resolves to, the
-    kernel's included).  ``gemm.masked`` is a later slice and raises
-    ``NotImplementedError`` naming it.
+    kernel's included).
   * ``ger``/``fused``: optional specializations; lookup falls back from the
     most specific key to ``(backend, op_class, None, None)``.
 
@@ -81,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import warnings
 
 import torch
 
@@ -154,16 +158,6 @@ ATTN_Q_CHUNK = 1024
 # Families the attention lowerings accept: float operands, f32 accumulator.
 _ATTN_GERS = (Ger.F32GER, Ger.BF16GER2, Ger.F16GER2)
 
-# The ROADMAP slice that brings each op-class this port lacks.
-_LATER = {
-    "gemm.masked": "the pm* masked forms (ROADMAP queue 2, K1b)",
-}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{_LATER[what]} is not ported yet")
-
-
 # ----------------------------------------------------------------------
 # Spec parsing: einsum-like contraction specs -> GEMM structure
 # ----------------------------------------------------------------------
@@ -195,6 +189,18 @@ class ParsedSpec:
         if nat == self.out_labels:
             return None
         return tuple(nat.index(d) for d in self.out_labels)
+
+    @property
+    def is_natural_gemm(self) -> bool:
+        """True when operands and output are already in the normalized
+        (batch..., M, K) x (batch..., K, N) -> (batch..., M, N) layout
+        with single M/N/K labels -- the layout the masked op-class
+        requires so its (M,), (N,), (K,) predicates name unique axes."""
+        return (len(self.x_free) == 1 and len(self.y_free) == 1
+                and len(self.contract) == 1
+                and self.x_labels == self.batch + self.x_free + self.contract
+                and self.y_labels == self.batch + self.contract + self.y_free
+                and self.out_perm is None)
 
 
 def _expand_ellipsis(labels: str, ndim: int, spec: str) -> tuple[str, ...]:
@@ -467,6 +473,9 @@ class Op:
     padding: str = "valid"
     # the resolved backend (the complex lowering runs its gemm lowering)
     backend: str = "kernel"
+    # gemm.masked: the pm* (xmask (M,), ymask (N,), pmask (K,)) predicates,
+    # each None or a bool tensor
+    masks: tuple | None = None
 
     @property
     def fused(self) -> bool:
@@ -546,6 +555,7 @@ def _normalized_operands(op: Op, b, m, n):
 # ----------------------------------------------------------------------
 
 @register("kernel", "gemm")
+@register("kernel", "gemm.masked")
 def _lower_kernel_gemm(op: Op):
     """The Hopper GEMM kernel (kernels/mma_gemm.py): batch is the kernel's
     blockIdx.z — one launch per contraction — with accumulate forms, fused
@@ -553,7 +563,10 @@ def _lower_kernel_gemm(op: Op):
     operand (one single-pass dispatch, admitted by ``_admit_packed``) goes
     through ``packing.refresh_gemm``, and its panels go to the wrapper with
     their layout: the wrapper takes the path its natural operands would,
-    and demotes them, counted, where that path reads none."""
+    and demotes them, counted, where that path reads none.  The masked
+    op-class hands its pm* predicates to the same wrapper, which applies
+    them while the kernel stages its panels (every pass of an expansion
+    chain masked alike); the operands are never pre-masked."""
     x2, y2, (b, m, n, k), assemble = op.to_batched_2d()
     acc2, res2 = _normalized_operands(op, b, m, n)
     passes = _passes(op.ger, x2, y2)
@@ -565,7 +578,7 @@ def _lower_kernel_gemm(op: Op):
         yi, yl = _fresh_panels(yi.to(pol.y_dtype))
         return _gemm.mma_gemm(
             xi, yi, c, kind=kind, block=op.block, x_layout=xl, y_layout=yl,
-            neg_product=op.neg_product and forms,
+            masks=op.masks, neg_product=op.neg_product and forms,
             neg_acc=op.neg_acc and forms,
             alpha=op.alpha if forms else 1.0,
             beta=op.beta if forms else 1.0,
@@ -635,13 +648,26 @@ def _lower_torch_gemm(op: Op):
     return assemble(_combine_expanded(op, prod, acc2, res2))
 
 
+@register("torch", "gemm.masked")
+def _lower_torch_masked(op: Op):
+    """pm* masked forms on the eager backend: the predicates fold into the
+    operands as selects (``execute`` guarantees the natural layout, so the
+    masks name the trailing axes) and the plain gemm lowering runs."""
+    op = packing.demote_op(op, "torch-masked")
+    x2, y2 = _gemm.select_masks(op.x, op.y, op.masks)
+    return _lower_torch_gemm(dataclasses.replace(op, x=x2, y=y2, masks=None))
+
+
 @register("ref", "gemm")
+@register("ref", "gemm.masked")
 def _lower_ref_gemm(op: Op):
     """Eager architected oracle: per-batch-element ref.ger, the ground
     truth the other backends are tested against (packed operands demoted,
-    counted)."""
+    counted).  Masked ops fold their predicates into the normalized
+    operands (the pm_ger oracle's semantics, by the kernels' selects)."""
     op = packing.demote_op(op, "ref-gemm")
     x2, y2, (b, m, n, k), assemble = op.to_batched_2d()
+    x2, y2 = _gemm.select_masks(x2, y2, op.masks)
     acc2, res2 = _normalized_operands(op, b, m, n)
     passes = _passes(op.ger, x2, y2)
 
@@ -1159,6 +1185,44 @@ def _check_attn(x, y, z, ger, plan, acc, dequant, masks):
     return valid
 
 
+def _check_masks(spec, parsed, op_class, pol, x, y, masks, dequant) -> str:
+    """Validate the pm* predicates of a gemm contraction (the reference's
+    checks and messages); returns the ``gemm.masked`` op-class."""
+    if len(masks) != 3:
+        raise ValueError(
+            f"masks wants the 3-tuple (xmask, ymask, pmask) — entries "
+            f"may be None — got {len(masks)} entries")
+    if op_class != "gemm":
+        raise ValueError(
+            f"masks (pm* prefixed forms) require a gemm-class "
+            f"contraction, not {op_class!r} ({spec!r})")
+    if not parsed.is_natural_gemm:
+        raise ValueError(
+            f"masked contraction {spec!r} must already be in the "
+            f"normalized (batch..., M, K) x (batch..., K, N) layout "
+            f"so the (M,), (N,), (K,) predicates name unique axes")
+    if dequant is not None:
+        raise ValueError("masks and dequant are exclusive")
+    if pol.packed_int4:
+        raise ValueError(
+            "packed-int4 masked forms lower through the ref.pm_ger "
+            "oracle (ops.mma_pm_dot keeps that path)")
+    sizes = _sizes(parsed, x, y)
+    want = (sizes[parsed.x_free[0]], sizes[parsed.y_free[0]],
+            sizes[parsed.contract[0]])
+    for i, mask in enumerate(masks):
+        if mask is None:
+            continue
+        if tuple(mask.shape) != (want[i],):
+            raise ValueError(
+                f"mask {i} has shape {tuple(mask.shape)}; want "
+                f"({want[i]},) for spec {spec!r}")
+        if mask.device != x.device:
+            raise ValueError(f"mask {i} on {mask.device}, operands on "
+                             f"{x.device}")
+    return "gemm.masked"
+
+
 # ----------------------------------------------------------------------
 # Packed-operand admission: which operands may stay in their prepacked
 # layout for this dispatch (core/packing.py owns the layouts; this layer
@@ -1206,7 +1270,7 @@ def _admit_packed(op_class: str, backend: str, pol, parsed, spec: str,
     kernel_ok = (backend == "kernel" and not pol.packed_int4
                  and pol.ger not in _EXPANSIONS)
     dq = {"dequantized": dequantized}
-    if op_class == "gemm" and kernel_ok:
+    if op_class in ("gemm", "gemm.masked") and kernel_ok:
         if packing.is_packed(x) and packing.is_packed(y):
             # one packed operand per dispatch: keep the weight-side y
             x = packing.demote_value(x, "both-operands-packed", **dq)
@@ -1226,7 +1290,8 @@ def _admit_packed(op_class: str, backend: str, pol, parsed, spec: str,
             if depthwise or lay.tile != "conv" or lay.nd != nd:
                 y = packing.demote_value(y, "conv-layout-mismatch", **dq)
         return x, y
-    if op_class in ("gemm", "conv") and backend in ("torch", "ref"):
+    if op_class in ("gemm", "gemm.masked", "conv") \
+            and backend in ("torch", "ref"):
         if dequantized:
             # the lowering's demote_op does not see the Dequant: demote
             # here, for the same reason
@@ -1245,10 +1310,12 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
 
     This is the body of ``facility.contract``.  ``z`` is the value operand
     of the canonical ``ATTN`` spec; for attn, ``masks`` is the 1-tuple
-    ``(valid,)`` KV-slot predicate.  ``dequant`` rescales the
-    accumulator-dtype result after the lowering (the quant path), then the
-    cast to the out dtype.  Every operand must lie on the facility's
-    device: a CPU tensor never runs a CUDA-configured facility.
+    ``(valid,)`` KV-slot predicate, for a gemm the pm* 3-tuple
+    ``(xmask, ymask, pmask)`` on the natural M/N/K axes (each entry
+    optional), which routes to the ``gemm.masked`` op-class.  ``dequant``
+    rescales the accumulator-dtype result after the lowering (the quant
+    path), then the cast to the out dtype.  Every operand must lie on the
+    facility's device: a CPU tensor never runs a CUDA-configured facility.
     """
     plan = plan or Plan()
     ger = plan.ger or cfg.ger
@@ -1319,9 +1386,8 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
         op_class = "gemm.saturating" if plan.saturating else (
             "gemm" if parsed is not None else "einsum")
     if masks is not None:
-        if dequant is not None:
-            raise ValueError("masks and dequant are exclusive")
-        raise _later("gemm.masked")
+        op_class = _check_masks(spec, parsed, op_class, pol, x, y, masks,
+                                dequant)
     if op_class != "conv" and (plan.stride != 1 or plan.padding != "valid"):
         raise ValueError(
             f"stride/padding apply to the conv specs only, not {spec!r}")
@@ -1367,7 +1433,7 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
     x, y = _admit_packed(op_class, backend, pol, parsed, spec, x, y,
                          dequant is not None)
     op = Op(x=x, y=y, acc=acc, bias=bias, residual=residual, parsed=parsed,
-            spec=spec, ger=ger, pol=pol,
+            spec=spec, ger=ger, pol=pol, masks=masks,
             out_dtype=pol.acc_dtype if dequant is not None else out_dtype,
             epilogue=ep, block=plan.block, neg_product=plan.neg_product,
             neg_acc=plan.neg_acc, alpha=plan.alpha, beta=plan.beta,
@@ -1379,3 +1445,12 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
     if dequant is not None:
         out = dequant.apply(out).to(out_dtype)
     return out
+
+
+def deprecated_shim(old: str, replacement: str):
+    """Emit the facility-migration DeprecationWarning for a legacy entry
+    point (kernels/ops.py).  stacklevel=3 attributes the warning to the
+    shim's caller."""
+    warnings.warn(
+        f"{old} is deprecated; use facility.contract — e.g. {replacement}",
+        DeprecationWarning, stacklevel=3)

@@ -399,9 +399,13 @@ def conv_layout(kind: Ger, kh: int, kw: int, c: int, f: int, *,
 # Which paths read packed panels
 # ----------------------------------------------------------------------
 
-def gemm_unread(path: str, kind: Ger, side: str) -> str | None:
+def gemm_unread(path: str, kind: Ger, side: str,
+                masked: bool = False) -> str | None:
     """None where the GEMM ``path`` streams ``side``'s packed panels in
-    family ``kind``; else the reason a packed operand there is demoted."""
+    family ``kind``; else the reason a packed operand there is demoted
+    (``masked``: a pm* call, whose loaders read natural rows only)."""
+    if masked:
+        return f"{path}-masked-reads-no-panels"
     if path in ("stream", "wgmma"):
         return None if side == "y" else f"{path}-reads-no-x-panels"
     if path == "imma":

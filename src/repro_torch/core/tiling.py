@@ -206,7 +206,8 @@ def wgmma_plan(m: int, n: int, b: int = 1) -> WgmmaConfig:
 @functools.lru_cache(maxsize=4096)
 def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
                      aligned: bool = True,
-                     block: tuple[int, int, int] | None = None):
+                     block: tuple[int, int, int] | None = None,
+                     masked: bool = False):
     """("stream" | "wgmma" | "wmma" | "imma" | "dmma", config) for one
     product.
 
@@ -216,13 +217,21 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
     bases and row pitches are 16-byte multiples (TMA's rule); ``block`` an
     explicit ``Plan.block``, which names a WMMA tile.  The weight stream
     takes any pitch (a scalar path covers unaligned rows); the wgmma tile
-    only aligned ones."""
+    only aligned ones.
+
+    ``masked`` (the pm* forms, K1b) is a static route by op-class: a
+    masked 16-bit or fp32 product takes the WMMA tile
+    (``csrc/mma_gemm.cu``, whose panel loaders apply the predicates) at
+    every M, the integer families IMMA and F64GER DMMA as above.  The
+    weight stream and the wgmma tile take no predicates."""
     if ger in IMMA_GERS or ger == Ger.F64GER:
         cfg = (check_block(block, ger) if block is not None
                else tiles_for(ger)[0])
         return ("imma" if ger in IMMA_GERS else "dmma"), cfg
     if block is not None:
         return "wmma", check_block(block, ger)
+    if masked:
+        return "wmma", choose_blocks(m, n, k, ger, b)
     if ger in (Ger.BF16GER2, Ger.F16GER2) and k >= MIN_K:
         if m <= STREAM_MAX_M:
             return "stream", stream_plan(m, n, k, b)

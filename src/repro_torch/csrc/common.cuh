@@ -109,6 +109,12 @@ __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
 }
 
+// One lane of a pm* predicate (a byte mask over M, N or K): enabled where
+// the mask is null or its byte is nonzero.
+__device__ __forceinline__ bool lane_on(const uint8_t* mask, long long i) {
+  return mask == nullptr || mask[i] != 0;
+}
+
 // Give a kernel more than 48 KB of dynamic shared memory (once).
 template <typename Kernel>
 static cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {

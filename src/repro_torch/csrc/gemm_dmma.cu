@@ -8,7 +8,8 @@
 //
 //   out = cast(residual + act(bias + alpha * ([-](X @ Y) + s * beta * C)))
 //
-// with s = -1 for the neg_acc form.  This is the paper's DGEMM case study
+// with s = -1 for the neg_acc form, and the pm* prefixed masked forms (K1b:
+// row, column and rank predicates).  This is the paper's DGEMM case study
 // (xvf64ger).
 //
 // What bounds it on an H100: the fp64 tensor cores (67 TFLOP/s dense) for
@@ -26,6 +27,11 @@
 // The row pitches (20 and 68 doubles) make every fragment read
 // conflict-free.  The deprime goes through a shared fp64 tile, so that each
 // output element is stored once, coalesced, in the requested dtype.
+// Masked (K1b): the MASKED instance loads each staged pair's mask bytes
+// beside it and zeroes a disabled row or rank of X and rank or column of Y
+// when the pair goes to shared memory (after the current stage's MMAs, so
+// nothing waits on the mask loads), as load2 zero-fills the fringes: a NaN
+// there never enters a product.
 
 #include "common.cuh"
 
@@ -56,6 +62,9 @@ struct DmmaArgs {
   double alpha, beta;
   int neg_product, neg_acc, act;
   int vec_x, vec_y;                    // 16-byte global loads allowed
+  const uint8_t* xm;                   // pm* byte masks over M, N and K,
+  const uint8_t* ym;                   // each null or one byte a lane
+  const uint8_t* pm;                   // (the MASKED instance)
 };
 
 __device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
@@ -98,6 +107,28 @@ __device__ __forceinline__ void store_d(void* out, int dt, long long i,
     reinterpret_cast<__half*>(out)[i] = __double2half(v);
 }
 
+// The pm* mask bytes of a staged pair, lanes (row, col) and (row, col + 1)
+// of a matrix whose rows are masked by `rm` and columns by `cm`: byte 0 the
+// row's, bytes 1 and 2 the columns' (1 where a mask is null or the lane
+// lies past the edge, whose value load2 zero-filled).
+__device__ __forceinline__ uchar4 mask_bytes(const uint8_t* rm,
+                                            const uint8_t* cm, int rows,
+                                            int cols, int row, int col) {
+  uchar4 f = make_uchar4(1, 1, 1, 0);
+  if (rm && row < rows) f.x = rm[row];
+  if (cm && col < cols) f.y = cm[col];
+  if (cm && col + 1 < cols) f.z = cm[col + 1];
+  return f;
+}
+
+__device__ __forceinline__ double2 apply_mask(double2 v, uchar4 f) {
+  if (!f.x) return make_double2(0.0, 0.0);
+  if (!f.y) v.x = 0.0;
+  if (!f.z) v.y = 0.0;
+  return v;
+}
+
+template <bool MASKED>
 __global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   double* smem = reinterpret_cast<double*>(smem_raw);
@@ -115,29 +146,40 @@ __global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
     for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
 
   double2 xs[X_UNITS], ys[Y_UNITS];
+  uchar4 xf[X_UNITS], yf[Y_UNITS];   // the MASKED instance's mask bytes
   auto load = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < X_UNITS; ++i) {
       const int u = threadIdx.x + i * THREADS;   // 8 units a row
-      xs[i] = load2(xb, a.M, a.K, m0 + u / 8, k0 + 2 * (u % 8), a.vec_x);
+      const int row = m0 + u / 8, col = k0 + 2 * (u % 8);
+      xs[i] = load2(xb, a.M, a.K, row, col, a.vec_x);
+      if constexpr (MASKED)
+        xf[i] = mask_bytes(a.xm, a.pm, a.M, a.K, row, col);
     }
 #pragma unroll
     for (int i = 0; i < Y_UNITS; ++i) {
       const int u = threadIdx.x + i * THREADS;   // 32 units a row
-      ys[i] = load2(yb, a.K, a.N, k0 + u / 32, n0 + 2 * (u % 32), a.vec_y);
+      const int row = k0 + u / 32, col = n0 + 2 * (u % 32);
+      ys[i] = load2(yb, a.K, a.N, row, col, a.vec_y);
+      if constexpr (MASKED)
+        yf[i] = mask_bytes(a.pm, a.ym, a.K, a.N, row, col);
     }
   };
   auto store = [&](double* buf) {
 #pragma unroll
     for (int i = 0; i < X_UNITS; ++i) {
       const int u = threadIdx.x + i * THREADS;
-      *reinterpret_cast<double2*>(buf + (u / 8) * AP + 2 * (u % 8)) = xs[i];
+      double2 v = xs[i];
+      if constexpr (MASKED) v = apply_mask(v, xf[i]);
+      *reinterpret_cast<double2*>(buf + (u / 8) * AP + 2 * (u % 8)) = v;
     }
 #pragma unroll
     for (int i = 0; i < Y_UNITS; ++i) {
       const int u = threadIdx.x + i * THREADS;
+      double2 v = ys[i];
+      if constexpr (MASKED) v = apply_mask(v, yf[i]);
       *reinterpret_cast<double2*>(buf + BM * AP + (u / 32) * BP +
-                                  2 * (u % 32)) = ys[i];
+                                  2 * (u % 32)) = v;
     }
   };
 
@@ -205,8 +247,10 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// c, bias and res are fp64; batch strides count elements.
-extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* c,
+// c, bias and res are fp64; batch strides count elements; xm, ym, pm the
+// pm* byte masks over M, N and K, each null or one byte a lane.
+extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
+                                const void* ym, const void* pm, const void* c,
                                 const void* bias, const void* res, void* out,
                                 int out_dt, int batch, int M, int N, int K,
                                 long long sxb, long long syb, long long scb,
@@ -227,11 +271,15 @@ extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* c,
   a.neg_product = neg_product; a.neg_acc = neg_acc; a.act = act;
   a.vec_x = K % 2 == 0 && sxb % 2 == 0 && aligned16(x);
   a.vec_y = N % 2 == 0 && syb % 2 == 0 && aligned16(y);
-  static bool smem_ok = false;
-  cudaError_t e = allow_smem(gemm_dmma_kernel, SMEM, &smem_ok);
+  a.xm = reinterpret_cast<const uint8_t*>(xm);
+  a.ym = reinterpret_cast<const uint8_t*>(ym);
+  a.pm = reinterpret_cast<const uint8_t*>(pm);
+  const bool masked = xm || ym || pm;
+  static bool smem_ok[2] = {false, false};
+  auto kernel = masked ? gemm_dmma_kernel<true> : gemm_dmma_kernel<false>;
+  cudaError_t e = allow_smem(kernel, SMEM, &smem_ok[masked]);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  gemm_dmma_kernel<<<grid, THREADS, SMEM, reinterpret_cast<cudaStream_t>(
-                                              stream)>>>(a);
+  kernel<<<grid, THREADS, SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

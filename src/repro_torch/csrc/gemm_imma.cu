@@ -16,8 +16,11 @@
 //
 // all in int32 arithmetic that wraps modulo 2^32, as the reference's int32
 // dot_general and its int32 alpha/beta (truncated to integers by the
-// wrapper) do.  Prepacked X panels (K1d) are read in I8GER4; the pm*
-// masks and the ABFT sidecar (K1b, K1e) are not here.
+// wrapper) do.  Prepacked X panels (K1d) are read in I8GER4.  The pm*
+// prefixed masked forms (K1b) run in the MASKED instances: I8GER4 and
+// I16GER2 take row, column and rank predicates, I4GER8 a column one (its
+// row and rank predicates go through ref.pm_ger, as the reference's
+// kernel refuses them).  The ABFT sidecar (K1e) is not here.
 //
 // What bounds it on an H100: the int8 tensor cores (1979 TOP/s dense) for
 // large products; the operands' bytes (3.35 TB/s) for skinny ones.
@@ -52,6 +55,14 @@
 //     M and K.  A block's 64-deep stage of its 128 rows is then one
 //     contiguous 8 KB panel, read with 16-byte loads whatever K; the
 //     staged registers are the natural launch's, so is the result.
+//   * Masked (K1b): the MASKED instances load each unit's mask bytes (4 or
+//     16 at a time) beside its data and clear the disabled lanes of the
+//     staged registers when the stage goes to shared memory, after the
+//     current stage's MMAs, so the masks wait on no load: a disabled row
+//     or rank of X, or rank or column of Y, is staged as 0 as the fringe
+//     lanes are (for I16GER2 both bytes of an int16, so it is 0 in all
+//     four byte products).  Masked calls read natural rows, never packed
+//     panels.
 
 #include "common.cuh"
 
@@ -81,6 +92,9 @@ struct ImmaArgs {
   int alpha, beta, neg_product, neg_acc, relu;
   int vec_x, vec_y;                    // vector global loads allowed
   int x_packed;                        // X is (gm, gk, 128, 64) panels (I8)
+  const uint8_t* xm;                   // pm* byte masks over M, N and
+  const uint8_t* ym;                   // logical K, each null or one byte
+  const uint8_t* pm;                   // a lane (the MASKED instances)
 };
 
 constexpr int XP_ROWS = 128, XP_K = 64;  // a packed X panel (I8GER4)
@@ -170,9 +184,51 @@ template <int FAM>
 struct Staged {
   uint32_t x[Fam<FAM>::x_units][4];
   uint32_t y[Fam<FAM>::y_units][FAM == FAM_I16 ? 8 : 4];
+  // the MASKED instances: raw mask bytes of each unit (nonzero: enabled)
+  uint32_t xr[Fam<FAM>::x_units];                      // its row (xm)
+  uint32_t xp[Fam<FAM>::x_units][FAM == FAM_I16 ? 2 : 4];  // its ranks
+  uint32_t yp[Fam<FAM>::y_units];                      // its 4 ranks (pm)
+  uint32_t yc[Fam<FAM>::y_units];                      // its 4 columns
 };
 
-template <int FAM>
+// Bytes [i, i + 4 * W) of a byte mask as W words, loaded whole where they
+// lie inside [0, limit) (the masks are 16-byte aligned); past the limit a
+// byte reads 0 (its lanes are zero-filled anyway).  A null mask enables
+// every lane.
+template <int W>
+__device__ __forceinline__ void mask_words(uint32_t (&w)[W], const uint8_t* m,
+                                           int i, int limit) {
+  if (m == nullptr) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) w[j] = ~0u;
+  } else if (i + 4 * W <= limit) {
+    if constexpr (W == 4) {
+      const uint4 q = *reinterpret_cast<const uint4*>(m + i);
+      w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+    } else if constexpr (W == 2) {
+      const uint2 q = *reinterpret_cast<const uint2*>(m + i);
+      w[0] = q.x; w[1] = q.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(m + i);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      w[j] = 0u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (i + 4 * j + b < limit)
+          w[j] |= (uint32_t)m[i + 4 * j + b] << (8 * b);
+    }
+  }
+}
+
+// 0xff in each byte whose mask byte is nonzero.
+__device__ __forceinline__ uint32_t keep_bytes(uint32_t m) {
+  return __vcmpne4(m, 0u);
+}
+
+template <int FAM, bool MASKED>
 __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
                                            const uint8_t* xb, const uint8_t* yb,
                                            int m0, int n0, int k0) {
@@ -208,6 +264,10 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
           for (int j = 0; j < 16; ++j)
             if (k + j < a.K) v[j / 4] |= (uint32_t)p[j] << (8 * (j % 4));
         }
+      }
+      if constexpr (MASKED) {
+        st.xr[i] = (row < a.M && a.xm) ? (uint32_t)a.xm[row] : 1u;
+        mask_words<4>(st.xp[i], a.pm, k, a.K);
       }
     } else if constexpr (FAM == FAM_I4) {
       const int kp_n = a.K / 2;
@@ -253,6 +313,10 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
             if (k + j < a.K) q[j / 2] |= (uint32_t)p[j] << (16 * (j % 2));
         }
       }
+      if constexpr (MASKED) {
+        st.xr[i] = (row < a.M && a.xm) ? (uint32_t)a.xm[row] : 1u;
+        mask_words<2>(st.xp[i], a.pm, k, a.K);
+      }
       v[0] = __byte_perm(q[0], q[1], 0x7531);
       v[1] = __byte_perm(q[2], q[3], 0x7531);
       v[2] = __byte_perm(q[0], q[1], 0x6420);
@@ -264,6 +328,13 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
     const int u = tid + i * THREADS;
     const int kq = u / 32, n = n0 + 4 * (u % 32);
     uint32_t* v = st.y[i];
+    if constexpr (MASKED) {   // I4GER8 takes no rank predicate
+      uint32_t w[1] = {~0u};
+      if constexpr (FAM != FAM_I4) mask_words<1>(w, a.pm, k0 + 4 * kq, a.K);
+      st.yp[i] = w[0];
+      mask_words<1>(w, a.ym, n, a.N);
+      st.yc[i] = w[0];
+    }
     if constexpr (FAM == FAM_I8) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -327,7 +398,12 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
 
 // The staged registers into shared memory (plane p of X at p * plane_bytes,
 // Y^T after the X planes' rows).
-template <int FAM>
+// (The MASKED instances clear the disabled lanes here, on their way to
+// shared memory: an X unit's bytes by its rank bytes and its row, a Y
+// unit's 4 rows of 4 columns by their rank and column bytes.  For I16GER2
+// byte e of a plane word is element e's high or low byte, so one keep word
+// serves both planes.)
+template <int FAM, bool MASKED>
 __device__ __forceinline__ void store_stage(const Staged<FAM>& st,
                                             unsigned char* buf) {
   using F = Fam<FAM>;
@@ -335,7 +411,18 @@ __device__ __forceinline__ void store_stage(const Staged<FAM>& st,
 #pragma unroll
   for (int i = 0; i < F::x_units; ++i) {
     const int u = tid + i * THREADS;
-    const uint32_t* v = st.x[i];
+    uint32_t v[4] = {st.x[i][0], st.x[i][1], st.x[i][2], st.x[i][3]};
+    if constexpr (MASKED && FAM == FAM_I16) {
+      const uint32_t row = st.xr[i] ? ~0u : 0u;
+      const uint32_t k0 = keep_bytes(st.xp[i][0]) & row;
+      const uint32_t k1 = keep_bytes(st.xp[i][1]) & row;
+      v[0] &= k0; v[2] &= k0;
+      v[1] &= k1; v[3] &= k1;
+    } else if constexpr (MASKED && FAM == FAM_I8) {
+      const uint32_t row = st.xr[i] ? ~0u : 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] &= keep_bytes(st.xp[i][j]) & row;
+    }
     if constexpr (FAM == FAM_I16) {
       const int row = u / 8, off = row * XP + 8 * (u % 8);
       *reinterpret_cast<uint2*>(buf + off) = make_uint2(v[0], v[1]);
@@ -354,6 +441,12 @@ __device__ __forceinline__ void store_stage(const Staged<FAM>& st,
     for (int p = 0; p < F::planes; ++p) {
       uint32_t r[4] = {st.y[i][4 * p], st.y[i][4 * p + 1], st.y[i][4 * p + 2],
                        st.y[i][4 * p + 3]};
+      if constexpr (MASKED) {
+        const uint32_t cols = keep_bytes(st.yc[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          r[j] &= ((st.yp[i] >> (8 * j)) & 0xffu) ? cols : 0u;
+      }
       uint32_t w[4];
       transpose4(r, w);
       unsigned char* yt = buf + p * F::plane_bytes + F::bm * XP;
@@ -377,7 +470,7 @@ __device__ __forceinline__ void store_i(void* out, int dt, long long i, int v) {
   }
 }
 
-template <int FAM>
+template <int FAM, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1) gemm_imma_kernel(ImmaArgs a) {
   using F = Fam<FAM>;
   constexpr int MT = F::mt;
@@ -404,12 +497,13 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_imma_kernel(ImmaArgs a) {
 
   const int ktiles = (a.K + BK - 1) / BK;
   Staged<FAM> st;
-  load_stage<FAM>(st, a, xb, yb, m0, n0, 0);
-  store_stage<FAM>(st, smem);
+  load_stage<FAM, MASKED>(st, a, xb, yb, m0, n0, 0);
+  store_stage<FAM, MASKED>(st, smem);
   __syncthreads();
   for (int kt = 0; kt < ktiles; ++kt) {
     unsigned char* cur = smem + (kt & 1) * F::stage_bytes;
-    if (kt + 1 < ktiles) load_stage<FAM>(st, a, xb, yb, m0, n0, (kt + 1) * BK);
+    if (kt + 1 < ktiles)
+      load_stage<FAM, MASKED>(st, a, xb, yb, m0, n0, (kt + 1) * BK);
 #pragma unroll
     for (int ks = 0; ks < BK / 32; ++ks) {
       uint32_t af[F::planes][MT][4], bf[F::planes][NT][2];
@@ -455,7 +549,7 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_imma_kernel(ImmaArgs a) {
         }
     }
     if (kt + 1 < ktiles)
-      store_stage<FAM>(st, smem + ((kt + 1) & 1) * F::stage_bytes);
+      store_stage<FAM, MASKED>(st, smem + ((kt + 1) & 1) * F::stage_bytes);
     __syncthreads();
   }
 
@@ -499,16 +593,22 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_imma_kernel(ImmaArgs a) {
   }
 }
 
-template <int FAM>
-int launch(const ImmaArgs& a, int batch, cudaStream_t stream) {
+template <int FAM, bool MASKED>
+int launch_one(const ImmaArgs& a, int batch, cudaStream_t stream) {
   using F = Fam<FAM>;
   static bool smem_ok = false;
-  auto kernel = gemm_imma_kernel<FAM>;
+  auto kernel = gemm_imma_kernel<FAM, MASKED>;
   cudaError_t e = allow_smem(kernel, F::smem(), &smem_ok);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.N + BN - 1) / BN, (a.M + F::bm - 1) / F::bm, batch);
   kernel<<<grid, THREADS, F::smem(), stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int FAM>
+int launch(const ImmaArgs& a, int batch, cudaStream_t stream) {
+  if (a.xm || a.ym || a.pm) return launch_one<FAM, true>(a, batch, stream);
+  return launch_one<FAM, false>(a, batch, stream);
 }
 
 bool aligned(const void* p, int bytes) {
@@ -520,8 +620,11 @@ bool aligned(const void* p, int bytes) {
 // family: 0 I8GER4, 1 I4GER8, 2 I16GER2 (core/tiling.py: IMMA_GERS).  K is
 // the logical depth (2 x the packed K for I4GER8); c, bias and res are
 // int32; batch strides count stored elements (bytes for int8 and packed
-// int4, int16 elements for I16GER2).
-static int imma_launch(const void* x, const void* y, const void* c,
+// int4, int16 elements for I16GER2).  xm, ym, pm: the pm* byte masks over
+// M, N and logical K, each null or one byte a lane; not with packed X
+// panels, and I4GER8 takes ym only.
+static int imma_launch(const void* x, const void* y, const void* xm,
+                       const void* ym, const void* pm, const void* c,
                        const void* bias, const void* res, void* out,
                        int family, int out_dt, int batch, int M, int N,
                        int K, long long sxb, long long syb, long long scb,
@@ -539,8 +642,15 @@ static int imma_launch(const void* x, const void* y, const void* c,
   a.alpha = alpha; a.beta = beta;
   a.neg_product = neg_product; a.neg_acc = neg_acc; a.relu = relu;
   a.x_packed = x_packed;
+  a.xm = reinterpret_cast<const uint8_t*>(xm);
+  a.ym = reinterpret_cast<const uint8_t*>(ym);
+  a.pm = reinterpret_cast<const uint8_t*>(pm);
   if (x_packed && (family != FAM_I8 || !aligned(x, 16) || sxb % 16))
     return (int)cudaErrorInvalidValue;
+  if ((x_packed && (xm || ym || pm)) || (family == FAM_I4 && (xm || pm)))
+    return (int)cudaErrorInvalidValue;
+  for (const void* m : {xm, ym, pm})   // whole-word mask loads
+    if (m && !aligned(m, 16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (family == FAM_I8) {
     a.vec_x = K % 16 == 0 && sxb % 16 == 0 && aligned(x, 16);
@@ -563,25 +673,27 @@ static int imma_launch(const void* x, const void* y, const void* c,
 
 // The launchers, one argument list: x as natural (M, K) rows, or (I8GER4)
 // as core/packing.py's X-side panels.
-extern "C" int gemm_imma_launch(const void* x, const void* y, const void* c,
+extern "C" int gemm_imma_launch(const void* x, const void* y, const void* xm,
+                                const void* ym, const void* pm, const void* c,
                                 const void* bias, const void* res, void* out,
                                 int family, int out_dt, int batch, int M,
                                 int N, int K, long long sxb, long long syb,
                                 long long scb, long long srb, long long sob,
                                 int alpha, int beta, int neg_product,
                                 int neg_acc, int relu, void* stream) {
-  return imma_launch(x, y, c, bias, res, out, family, out_dt, batch, M, N, K,
-                     sxb, syb, scb, srb, sob, alpha, beta, neg_product,
-                     neg_acc, relu, stream, 0);
+  return imma_launch(x, y, xm, ym, pm, c, bias, res, out, family, out_dt,
+                     batch, M, N, K, sxb, syb, scb, srb, sob, alpha, beta,
+                     neg_product, neg_acc, relu, stream, 0);
 }
 
 extern "C" int gemm_imma_packed_launch(
-    const void* x, const void* y, const void* c, const void* bias,
+    const void* x, const void* y, const void* xm, const void* ym,
+    const void* pm, const void* c, const void* bias,
     const void* res, void* out, int family, int out_dt, int batch, int M,
     int N, int K, long long sxb, long long syb, long long scb, long long srb,
     long long sob, int alpha, int beta, int neg_product, int neg_acc,
     int relu, void* stream) {
-  return imma_launch(x, y, c, bias, res, out, family, out_dt, batch, M, N, K,
-                     sxb, syb, scb, srb, sob, alpha, beta, neg_product,
-                     neg_acc, relu, stream, 1);
+  return imma_launch(x, y, xm, ym, pm, c, bias, res, out, family, out_dt,
+                     batch, M, N, K, sxb, syb, scb, srb, sob, alpha, beta,
+                     neg_product, neg_acc, relu, stream, 1);
 }

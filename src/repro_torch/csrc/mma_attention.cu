@@ -6,9 +6,10 @@
 //
 //     out = cast(epilogue(softmax(Q K^T * D^-1/2 + mask) V))
 //
-// q (B, Sq, H, D), k and v (B, Sk, KVH, D), bf16 or f16, D = 32, 64 or
-// 128, fp32 online softmax.  Query head h reads KV head h / (H / KVH)
-// (GQA) without materialising the repeat.  The mask is the conjunction of
+// q (B, Sq, H, D), k and v (B, Sk, KVH, D), bf16, f16 or (K2e, the F32GER
+// policy's operands) f32, D = 32, 64 or 128, fp32 online softmax.  Query
+// head h reads KV head h / (H / KVH) (GQA) without materialising the
+// repeat.  The mask is the conjunction of
 // the causal, sliding-window, q_offset and valid-slot predicates.
 //
 // What bounds it on an H100.  Prefill past a few hundred tokens does
@@ -48,6 +49,31 @@
 //     second kernel merges the partials of each row in split order by
 //     log-sum-exp, then applies the guard, the normalisation and the
 //     epilogue once.
+//
+// The fp32 tile (K2e: f32 q, k, v, the tight-parity F32GER config).  The
+// tensor cores would round fp32 to TF32, which F32GER forbids, so it runs
+// true fp32 FMAs on the CUDA cores (67 TFLOP/s bound it past a few
+// hundred tokens, bytes for one query over a long cache), as F32GER's
+// GEMM does (mma_gemm.cu's gemm_f32_kernel).
+//   * One block of 256 threads owns (b, h, a 64-row q tile) and walks the
+//     same live KV blocks of 64 as the wgmma kernel with BQ = 64; the
+//     split-KV mode is the same, its partials merged by
+//     flash_combine_kernel.
+//   * The Q tile and a double buffer of K and V blocks sit in shared
+//     memory (row pitch D + 4 floats), filled by 16-byte cp.async (zero
+//     past Sq and Sk; GQA by the KV head index); block i + 1 loads while
+//     block i computes.
+//   * Thread (ty, tx) of a 16 x 16 grid holds a 4 x 4 micro-tile of S
+//     (rows ty + 16i, columns tx + 16j), its K reads float4s along D.
+//     The online softmax runs in the log2 domain with exp2f (no
+//     approximate ex2), its row max and sum reduced over the 16 threads
+//     of a row by shuffles; P stays fp32 (the reference rounds P to v's
+//     dtype: here f32) and goes through shared memory to O += P V, where
+//     the thread holds the same 4 rows by D/16 contiguous columns.
+//   * The masked-block guard: p = 0 while a row's max is still -inf, and
+//     a row with l = 0 stores 0 before the epilogue.
+//   * The store goes through shared memory (O, m and l over the Q tile and
+//     P's rows): one loop of paired stores and one copy of the epilogue.
 
 #include "hopper.cuh"
 
@@ -425,6 +451,288 @@ __global__ void flash_combine_kernel(AttnArgs a) {
   attn_store2(a, b, s, h, d, o0, o1, l);
 }
 
+// ---- the fp32 tile (K2e) --------------------------------------------------
+
+constexpr int F32A_BQ = 64, F32A_THREADS = 256;
+
+template <int D>
+struct F32AttnCfg {
+  static constexpr int LD = D + 4;          // Q, K and V row pitch (floats)
+  static constexpr int LDP = FA_BKV + 4;    // P row pitch
+  static constexpr int DC = D / 16;         // O columns a thread
+  static constexpr size_t smem =
+      ((size_t)F32A_BQ * LD + 4 * (size_t)FA_BKV * LD +
+       (size_t)F32A_BQ * LDP) * sizeof(float);
+};
+
+// Rows [r0, r0 + ROWS) of a (rows, D) fp32 slab whose rows lie `stride`
+// floats apart, by 16-byte cp.async into shared memory of row pitch D + 4;
+// rows at or past `limit` are zero-filled and read nothing.
+template <int D, int ROWS>
+__device__ __forceinline__ void f32_rows_async(float* dst, const float* src,
+                                               long long stride, int r0,
+                                               int limit) {
+  constexpr int LD = D + 4, CH = D / 4;
+  for (int i = threadIdx.x; i < ROWS * CH; i += F32A_THREADS) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool in = r0 + r < limit;
+    const float* from = in ? src + (long long)(r0 + r) * stride + c : src;
+    cp_async16(dst + r * LD + c, from, in);
+  }
+}
+
+__device__ __forceinline__ float row16_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row16_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32A_THREADS)
+    flash_f32_kernel(const float* q, const float* k, const float* v,
+                     AttnArgs a) {
+  using C = F32AttnCfg<D>;
+  constexpr int LD = C::LD, LDP = C::LDP, DC = C::DC;
+  extern __shared__ __align__(16) unsigned char attn_f32_smem[];
+  float* qs = reinterpret_cast<float*>(attn_f32_smem);
+  float* kvs = qs + F32A_BQ * LD;          // two buffers of (K, V) blocks
+  float* ps = kvs + 4 * FA_BKV * LD;
+
+  const int nq = gridDim.x;
+  const int qi = a.causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / a.n_split, split = blockIdx.z % a.n_split;
+  const int kvh = h / a.group;
+  const int q0 = qi * F32A_BQ;
+
+  // attn_k_bounds(qi, nk, bq=64, bk=64, ...), as the wgmma kernel
+  const int nk = (a.Sk + FA_BKV - 1) / FA_BKV;
+  int hi = nk;
+  if (a.causal) {
+    const long long t = (long long)a.q_offset + (long long)(qi + 1) * F32A_BQ;
+    hi = (int)min((long long)nk, (t + FA_BKV - 1) / FA_BKV);
+    hi = max(hi, 1);
+  }
+  int lo = 0;
+  if (a.window > 0) {
+    const long long t =
+        (long long)a.q_offset + (long long)qi * F32A_BQ - (a.window - 1);
+    lo = t > 0 ? (int)(t / FA_BKV) : 0;
+    lo = min(lo, hi - 1);
+  }
+  if (a.n_split > 1) {
+    lo += split * a.per_split;
+    hi = min(hi, lo + a.per_split);
+  }
+  const int nkb = max(hi - lo, 0);
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long qstride = (long long)a.H * D;
+  const long long kvstride = (long long)a.KVH * D;
+  const float* qb = q + ((long long)b * a.Sq * a.H + h) * D;
+  const float* kb = k + ((long long)b * a.Sk * a.KVH + kvh) * D;
+  const float* vb = v + ((long long)b * a.Sk * a.KVH + kvh) * D;
+
+  auto load_kv = [&](int i) {
+    float* ks = kvs + (i & 1) * 2 * FA_BKV * LD;
+    const int k0 = (lo + i) * FA_BKV;
+    f32_rows_async<D, FA_BKV>(ks, kb, kvstride, k0, a.Sk);
+    f32_rows_async<D, FA_BKV>(ks + FA_BKV * LD, vb, kvstride, k0, a.Sk);
+  };
+  f32_rows_async<D, F32A_BQ>(qs, qb, qstride, q0, a.Sq);
+  if (nkb > 0) load_kv(0);
+  cp_async_commit();
+
+  float o[4][DC];
+  float mrow[4], lrow[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    mrow[i] = -INFINITY;
+    lrow[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DC; ++e) o[i][e] = 0.f;
+  }
+  const int qlo = a.q_offset + q0, qhi = qlo + F32A_BQ - 1;
+
+  for (int it = 0; it < nkb; ++it) {
+    if (it + 1 < nkb) {
+      load_kv(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* ks = kvs + (it & 1) * 2 * FA_BKV * LD;
+    const float* vs = ks + FA_BKV * LD;
+
+    // S = Q K^T, a 4 x 4 micro-tile a thread
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qv[i].x, kv[j].x, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].y, kv[j].y, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].z, kv[j].z, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].w, kv[j].w, sc[i][j]);
+        }
+    }
+
+    // online softmax (log2 domain), P into shared memory, O rescaled
+    const int k0 = (lo + it) * FA_BKV;
+    const bool need_mask = k0 + FA_BKV > a.Sk || a.valid != nullptr ||
+                           (a.causal && k0 + FA_BKV - 1 > qlo) ||
+                           (a.window > 0 && qhi - k0 >= a.window);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const long long qpos = (long long)a.q_offset + q0 + r;
+      float t[4], mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        t[j] = sc[i][j] * a.scale_log2;
+        if (need_mask) {
+          const int kpos = k0 + tx + 16 * j;
+          bool live = kpos < a.Sk;
+          if (a.causal) live = live && qpos >= kpos;
+          if (a.window > 0) live = live && (qpos - kpos < a.window);
+          if (a.valid != nullptr && live)
+            live = a.valid[(long long)b * a.Sk + kpos] != 0;
+          if (!live) t[j] = -INFINITY;
+        }
+        mx = fmaxf(mx, t[j]);
+      }
+      const float m_new = fmaxf(mrow[i], row16_max(mx));
+      // masked-block guard: no live slot yet, the row contributes zeros
+      const bool dead = m_new == -INFINITY;
+      const float corr = dead ? 1.f : exp2f(mrow[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = dead ? 0.f : exp2f(t[j] - m_new);
+        ps[r * LDP + tx + 16 * j] = p;
+        psum += p;
+      }
+      lrow[i] = lrow[i] * corr + row16_sum(psum);
+      mrow[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < DC; ++e) o[i][e] *= corr;
+    }
+    __syncthreads();
+
+    // O += P V: the same 4 rows by DC contiguous columns a thread
+#pragma unroll 4
+    for (int c = 0; c < FA_BKV; ++c) {
+      float pr[4], vv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * LDP + c];
+      const float* vr = vs + c * LD + tx * DC;
+      if constexpr (DC % 4 == 0) {
+#pragma unroll
+        for (int e = 0; e < DC; e += 4) {
+          const float4 w = *reinterpret_cast<const float4*>(vr + e);
+          vv[e] = w.x; vv[e + 1] = w.y; vv[e + 2] = w.z; vv[e + 3] = w.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < DC; e += 2) {
+          const float2 w = *reinterpret_cast<const float2*>(vr + e);
+          vv[e] = w.x; vv[e + 1] = w.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < DC; ++e) o[i][e] = fmaf(pr[i], vv[e], o[i][e]);
+    }
+    __syncthreads();  // the next iteration's loads overwrite this buffer
+  }
+
+  // The store: O through shared memory (the Q tile, read by now), so the
+  // epilogue is one loop, not inlined once per register.  (With no live
+  // block the Q tile's copy is still in flight: wait for it first.)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* ot = qs;                      // (64, D + 4) floats
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DC; ++e)
+      ot[(ty + 16 * i) * LD + tx * DC + e] = o[i][e];
+  if (tx == 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ps[(ty + 16 * i) * LDP] = mrow[i];
+      ps[(ty + 16 * i) * LDP + 1] = lrow[i];
+    }
+  __syncthreads();
+#pragma unroll 1
+  for (int idx = threadIdx.x; idx < F32A_BQ * (D / 2); idx += F32A_THREADS) {
+    const int r = idx / (D / 2), d = 2 * (idx % (D / 2));
+    const int s = q0 + r;
+    if (s >= a.Sq) continue;
+    const float2 v = *reinterpret_cast<const float2*>(ot + r * LD + d);
+    const float m = ps[r * LDP], l = ps[r * LDP + 1];
+    if (a.n_split > 1) {
+      // fp32 partial of this split: unnormalised O, m (log2 domain), l
+      const long long row =
+          (((long long)b * a.H + h) * a.Sq + s) * a.n_split + split;
+      *reinterpret_cast<float2*>(a.ws_o + row * D + d) = v;
+      if (d == 0)
+        *reinterpret_cast<float2*>(a.ws_ml + row * 2) = make_float2(m, l);
+    } else {
+      attn_store2(a, b, s, h, d, v.x, v.y, l);
+    }
+  }
+}
+
+template <int D>
+static int launch_flash_f32(const void* q, const void* k, const void* v,
+                            const AttnArgs& a, cudaStream_t stream) {
+  using C = F32AttnCfg<D>;
+  static bool smem_ok = false;
+  auto kernel = flash_f32_kernel<D>;
+  cudaError_t e = allow_smem(kernel, C::smem, &smem_ok);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.Sq + F32A_BQ - 1) / F32A_BQ, a.H, a.B * a.n_split);
+  kernel<<<grid, F32A_THREADS, C::smem, stream>>>(
+      reinterpret_cast<const float*>(q), reinterpret_cast<const float*>(k),
+      reinterpret_cast<const float*>(v), a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_split == 1) return (int)e;
+  flash_combine_kernel<<<dim3(a.Sq, a.H, a.B), D / 2, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+static int launch_f32_by_depth(const void* q, const void* k, const void* v,
+                               const AttnArgs& a, int bq, cudaStream_t s) {
+  if (bq != F32A_BQ) return (int)cudaErrorInvalidValue;
+  if (a.D == 128) return launch_flash_f32<128>(q, k, v, a, s);
+  if (a.D == 64) return launch_flash_f32<64>(q, k, v, a, s);
+  if (a.D == 32) return launch_flash_f32<32>(q, k, v, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int D, int NC>
 static int launch_flash(const void* q, const void* k, const void* v,
                         const AttnArgs& a, cudaStream_t stream) {
@@ -495,5 +803,6 @@ extern "C" int mma_attention_launch(
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (in_dt == DT_BF16) return launch_by_depth<__nv_bfloat16>(q, k, v, a, bq, s);
   if (in_dt == DT_F16) return launch_by_depth<__half>(q, k, v, a, bq, s);
+  if (in_dt == DT_F32) return launch_f32_by_depth(q, k, v, a, bq, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,11 @@
 //
 //     out = cast(residual + act(bias + alpha * ([-](X @ Y) + s * beta * C)))
 //
-// with s = -1 for the neg_acc form.  The pm* masks, int8/int4/int16/f64
-// families, prepacked panels and the ABFT sidecar (K1b-f) are not here.
+// with s = -1 for the neg_acc form, and the pm* prefixed masked forms (K1b:
+// the row, column and rank predicates of repro/kernels/mma_gemm.py's
+// _make_kernel, applied to the staged panels).  The int8/int4/int16/f64
+// families (gemm_imma.cu, gemm_dmma.cu), prepacked panels and the ABFT
+// sidecar are not here.
 //
 // Which products run here.  core/tiling.py's choose_gemm_path sends M <=
 // 64 to the weight stream (gemm_stream.cu) and larger M with 16-byte
@@ -16,7 +19,8 @@
 // rest: pitches TMA cannot describe at large M (whisper's 51865-column
 // logits over a prompt), K below one MMA step (the SSD's K = 1 outer
 // product), F32GER, which stays true fp32 (never TF32), and an explicit
-// Plan.block naming one of core/tiling.py's GEMM_TILES.
+// Plan.block naming one of core/tiling.py's GEMM_TILES, and every masked
+// 16-bit or fp32 product, at any M (choose_gemm_path(masked=True)).
 //
 // What bounds it on an H100: device memory (3.35 TB/s) for skinny
 // products, the tensor cores (989 TFLOP/s bf16; 67 TFLOP/s fp32 FMAs for
@@ -33,6 +37,11 @@
 //   * deprime: the fragments go back through the shared tile, and one
 //     masked pass applies alpha and the epilogue and stores each output
 //     element exactly once, in the requested dtype.
+//   * masked (K1b): the kernels' MASKED instances stage their panels
+//     through tile_gemm.cuh's MaskedRowMajorA/B, which write a disabled
+//     row, column or rank as 0 in the branch that zero-fills the fringes
+//     (one byte a lane read from the (M,), (N,), (K,) masks, L1-cached);
+//     the unmasked instances are unchanged.
 // The update loop is tile_gemm.cuh's, shared with K3's implicit GEMM.
 // Loads are synchronous 16-byte vectors (no cp.async/TMA pipeline, no
 // wgmma): the two other kernels carry the main path's products.
@@ -52,6 +61,7 @@ struct GemmArgs {
   float alpha, beta;
   int neg_product, neg_acc, act;
   int vec_x, vec_y;  // rows 16-byte aligned: vector loads allowed
+  PmMasks mk;        // the pm* predicates (the MASKED instances)
 };
 
 // prime: the seed s * beta * C into the shared fp32 tile (zero off-matrix).
@@ -91,40 +101,64 @@ __device__ void store_tile(const float* cs, const GemmArgs& a, int bz, int m0,
 }
 
 // bf16 / f16 on the tensor cores (tile_gemm.cuh's wmma_tile).
-template <typename T, int BM, int BN, int BK, int WM, int WN>
+template <typename T, int BM, int BN, int BK, int WM, int WN, bool MASKED>
 __global__ void __launch_bounds__(WM* WN * 32)
     gemm_wmma_kernel(GemmArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);
   const int bz = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if (a.c) prime_tile<BM, BN>(cs, a, bz, m0, n0);
-  const RowMajorA<T> ld{reinterpret_cast<const T*>(a.x) + (long long)bz * a.sxb,
-                        a.M, a.K, m0, a.vec_x != 0};
-  wmma_tile<T, BM, BN, BK, WM, WN>(
-      smem, ld, reinterpret_cast<const T*>(a.y) + (long long)bz * a.syb, a.K,
-      a.N, n0, a.vec_y != 0, a.c != nullptr);
+  const T* x = reinterpret_cast<const T*>(a.x) + (long long)bz * a.sxb;
+  const T* y = reinterpret_cast<const T*>(a.y) + (long long)bz * a.syb;
+  if constexpr (MASKED) {
+    const MaskedRowMajorA<T> ld{x, a.M, a.K, m0, a.vec_x != 0, a.mk};
+    const MaskedRowMajorB<T> bl{y, a.K, a.N, n0, a.vec_y != 0, a.mk};
+    wmma_tile_ab<T, BM, BN, BK, WM, WN>(smem, ld, bl, a.K, a.c != nullptr);
+  } else {
+    const RowMajorA<T> ld{x, a.M, a.K, m0, a.vec_x != 0};
+    wmma_tile<T, BM, BN, BK, WM, WN>(smem, ld, y, a.K, a.N, n0, a.vec_y != 0,
+                                     a.c != nullptr);
+  }
   store_tile<BM, BN>(cs, a, bz, m0, n0);
 }
 
 // F32GER: true fp32 FMAs (tile_gemm.cuh's f32_tile).
+template <bool MASKED>
 __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);
   const int bz = blockIdx.z, m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * F32_BN;
   if (a.c) prime_tile<F32_BM, F32_BN>(cs, a, bz, m0, n0);
-  const RowMajorA<float> ld{
-      reinterpret_cast<const float*>(a.x) + (long long)bz * a.sxb, a.M, a.K,
-      m0, false};
-  f32_tile(smem, ld, reinterpret_cast<const float*>(a.y) + (long long)bz * a.syb,
-           a.K, a.N, n0, a.c != nullptr);
+  const float* x = reinterpret_cast<const float*>(a.x) + (long long)bz * a.sxb;
+  const float* y = reinterpret_cast<const float*>(a.y) + (long long)bz * a.syb;
+  if constexpr (MASKED) {
+    const MaskedRowMajorA<float> ld{x, a.M, a.K, m0, false, a.mk};
+    const MaskedRowMajorB<float> bl{y, a.K, a.N, n0, false, a.mk};
+    f32_tile_ab(smem, ld, bl, a.K, a.c != nullptr);
+  } else {
+    const RowMajorA<float> ld{x, a.M, a.K, m0, false};
+    f32_tile(smem, ld, y, a.K, a.N, n0, a.c != nullptr);
+  }
   store_tile<F32_BM, F32_BN>(cs, a, bz, m0, n0);
 }
 
-template <typename T, int BM, int BN, int BK, int WM, int WN>
+template <bool MASKED>
+static int launch_f32(const GemmArgs& a, int batch, cudaStream_t stream) {
+  static bool smem_ok = false;
+  constexpr size_t smem = f32_smem_bytes();
+  auto kernel = gemm_f32_kernel<MASKED>;
+  cudaError_t e = allow_smem(kernel, smem, &smem_ok);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.N + F32_BN - 1) / F32_BN, (a.M + F32_BM - 1) / F32_BM, batch);
+  kernel<<<grid, 256, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BM, int BN, int BK, int WM, int WN, bool MASKED>
 static int launch_wmma(const GemmArgs& a, int batch, cudaStream_t stream) {
   static bool smem_ok = false;
   constexpr size_t smem = wmma_smem_bytes<T, BM, BN, BK>();
-  auto kernel = gemm_wmma_kernel<T, BM, BN, BK, WM, WN>;
+  auto kernel = gemm_wmma_kernel<T, BM, BN, BK, WM, WN, MASKED>;
   cudaError_t e = allow_smem(kernel, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
@@ -132,23 +166,33 @@ static int launch_wmma(const GemmArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool MASKED>
 static int launch_16bit(const GemmArgs& a, int batch, int bm, int bn, int bk,
                         cudaStream_t stream) {
   // The tiles core/tiling.py GEMM_TILES lists for BF16GER2 / F16GER2.
   if (bm == 128 && bn == 128 && bk == 32)
-    return launch_wmma<T, 128, 128, 32, 2, 4>(a, batch, stream);
+    return launch_wmma<T, 128, 128, 32, 2, 4, MASKED>(a, batch, stream);
   if (bm == 64 && bn == 64 && bk == 64)
-    return launch_wmma<T, 64, 64, 64, 2, 2>(a, batch, stream);
+    return launch_wmma<T, 64, 64, 64, 2, 2, MASKED>(a, batch, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+static int launch_16bit_any(const GemmArgs& a, bool masked, int batch, int bm,
+                            int bn, int bk, cudaStream_t stream) {
+  return masked ? launch_16bit<T, true>(a, batch, bm, bn, bk, stream)
+                : launch_16bit<T, false>(a, batch, bm, bn, bk, stream);
 }
 
 static bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// xm, ym, pm: the pm* byte masks over M, N and K, each null or one byte a
+// lane; any non-null one selects the MASKED kernels.
 extern "C" int mma_gemm_launch(
-    const void* x, const void* y, const void* c, const void* bias,
+    const void* x, const void* y, const void* xm, const void* ym,
+    const void* pm, const void* c, const void* bias,
     const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
     int out_dt, int batch, int M, int N, int K, long long sxb, long long syb,
     long long scb, long long srb, long long sob, float alpha, float beta,
@@ -163,19 +207,22 @@ extern "C" int mma_gemm_launch(
   a.neg_product = neg_product; a.neg_acc = neg_acc; a.act = act;
   a.vec_x = (K % 8 == 0) && aligned16(x) && (sxb % 8 == 0);
   a.vec_y = (N % 8 == 0) && aligned16(y) && (syb % 8 == 0);
+  a.mk.xm = reinterpret_cast<const uint8_t*>(xm);
+  a.mk.ym = reinterpret_cast<const uint8_t*>(ym);
+  a.mk.pm = reinterpret_cast<const uint8_t*>(pm);
+  const bool masked = xm || ym || pm;
+  for (const void* m : {xm, ym, pm})   // 8-byte mask loads
+    if (m && !aligned16(m)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (in_dt == DT_BF16) return launch_16bit<__nv_bfloat16>(a, batch, bm, bn, bk, s);
-  if (in_dt == DT_F16) return launch_16bit<__half>(a, batch, bm, bn, bk, s);
+  if (in_dt == DT_BF16)
+    return launch_16bit_any<__nv_bfloat16>(a, masked, batch, bm, bn, bk, s);
+  if (in_dt == DT_F16)
+    return launch_16bit_any<__half>(a, masked, batch, bm, bn, bk, s);
   if (in_dt == DT_F32) {
     if (bm != F32_BM || bn != F32_BN || bk != F32_BK)
       return (int)cudaErrorInvalidValue;
-    static bool smem_ok = false;
-    constexpr size_t smem = f32_smem_bytes();
-    cudaError_t e = allow_smem(gemm_f32_kernel, smem, &smem_ok);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((N + F32_BN - 1) / F32_BN, (M + F32_BM - 1) / F32_BM, batch);
-    gemm_f32_kernel<<<grid, 256, smem, s>>>(a);
-    return (int)cudaGetLastError();
+    return masked ? launch_f32<true>(a, batch, s)
+                  : launch_f32<false>(a, batch, s);
   }
   return (int)cudaErrorInvalidValue;
 }

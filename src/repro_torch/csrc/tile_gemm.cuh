@@ -8,10 +8,20 @@
 //   ld.template panel_kmajor<BM, BK, LDT>(float* as, int k0)
 //       the same panel for F32GER, k-major: as[kk * LDT + r];
 //
-// each zero past the M and K fringes.  B is always a row-major (K, N)
-// matrix.  Both loops leave the fp32 tile in shared memory (row pitch
-// BN + 4, aliasing the panels) for the caller's store; with `seeded` that
-// tile holds the fp32 seed on entry.
+// each zero past the M and K fringes.  B is a row-major (K, N) matrix,
+// read through a B loader with the same two members (panel<BK, BN, LDB>
+// for the 16-bit tile, panel_f32<BK, BN, LDB> for F32GER, both row-major
+// (BK, BN) at k0): RowMajorB, or MaskedRowMajorB for the pm* forms.
+// Both loops leave the fp32 tile in shared memory (row pitch BN + 4,
+// aliasing the panels) for the caller's store; with `seeded` that tile
+// holds the fp32 seed on entry.
+//
+// The pm* predicates (K1b, paper eq. 3) are byte masks over M, N and K
+// (PmMasks; a null pointer enables every lane).  The masked loaders apply
+// them while they stage a panel: a disabled row of A, column of B or rank
+// (the k-slice of both panels) is written as 0 through the same branch
+// that zero-fills the fringes, never multiplied, so a NaN there leaves no
+// trace.  K3's loaders (mma_conv.cu) take the unmasked ones.
 #pragma once
 
 #include <mma.h>
@@ -44,6 +54,19 @@ __device__ void load_panel(T* s, const T* g, int g_rows, int g_cols, int r0,
   }
 }
 
+// The 16-bit lanes of an 8-element (16-byte) chunk selected by the mask
+// bytes [c, c + 8), read as one 8-byte word (c is a multiple of 8 and the
+// masks are 16-byte aligned): 0xffff where a byte is nonzero, else 0.
+__device__ __forceinline__ void select_chunk16(uint4& v, const uint8_t* mask,
+                                               int c) {
+  const uint2 m = *reinterpret_cast<const uint2*>(mask + c);
+  const uint32_t lo = __vcmpne4(m.x, 0u), hi = __vcmpne4(m.y, 0u);
+  v.x &= __byte_perm(lo, 0u, 0x1100);
+  v.y &= __byte_perm(lo, 0u, 0x3322);
+  v.z &= __byte_perm(hi, 0u, 0x1100);
+  v.w &= __byte_perm(hi, 0u, 0x3322);
+}
+
 // The GEMM's A: rows m0.. of a row-major (M, K) matrix.
 template <typename T>
 struct RowMajorA {
@@ -66,6 +89,135 @@ struct RowMajorA {
   }
 };
 
+// The GEMM's B: columns n0.. of a row-major (K, N) matrix.
+template <typename T>
+struct RowMajorB {
+  const T* y;
+  int K, N, n0;
+  bool vec;
+
+  template <int BK, int BN, int LDB>
+  __device__ void panel(T* bs, int k0) const {
+    load_panel<T, BK, BN, LDB>(bs, y, K, N, k0, n0, vec);
+  }
+
+  template <int BK, int BN, int LDB>
+  __device__ void panel_f32(float* bs, int k0) const {
+    for (int i = threadIdx.x; i < BK * BN; i += blockDim.x) {
+      const int kk = i / BN, cc = i % BN;
+      const int gk = k0 + kk, gc = n0 + cc;
+      bs[kk * LDB + cc] = (gk < K && gc < N) ? y[(long long)gk * N + gc] : 0.f;
+    }
+  }
+};
+
+// pm* predicates: xm over M (rows of A), ym over N (columns of B), pm over
+// K (both panels); each null or one byte a lane.
+struct PmMasks {
+  const uint8_t* xm;
+  const uint8_t* ym;
+  const uint8_t* pm;
+};
+
+// A with the row and rank predicates: a disabled row or rank is staged as
+// 0 where the fringe is.  The 16-byte vector load stays where the chunk
+// lies inside the matrix and is issued beside the mask loads (no branch
+// waits on a mask); its disabled lanes are then selected to 0.
+template <typename T>
+struct MaskedRowMajorA {
+  const T* x;
+  int M, K, m0;
+  bool vec;
+  PmMasks mk;
+
+  template <int BM, int BK, int LDA>
+  __device__ void panel(T* as, int k0) const {
+    constexpr int CH = BK / 8;
+    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
+      const int r = i / CH, c8 = (i % CH) * 8;
+      const int gr = m0 + r, gc = k0 + c8;
+      T* dst = as + r * LDA + c8;
+      const T* src = x + (long long)gr * K + gc;
+      if (gr < M && vec && gc + 8 <= K) {
+        uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+        const uint32_t row = lane_on(mk.xm, gr) ? ~0u : 0u;
+        if (mk.pm) select_chunk16(v, mk.pm, gc);
+        v.x &= row; v.y &= row; v.z &= row; v.w &= row;
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+        const bool row = gr < M && lane_on(mk.xm, gr);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (row && gc + e < K && lane_on(mk.pm, gc + e))
+            dst[e] = src[e];
+          else
+            dst[e] = zero_of<T>();
+        }
+      }
+    }
+  }
+
+  template <int BM, int BK, int LDT>
+  __device__ void panel_kmajor(float* as, int k0) const {
+    for (int i = threadIdx.x; i < BM * BK; i += blockDim.x) {
+      const int r = i / BK, kk = i % BK;
+      const int gr = m0 + r, gk = k0 + kk;
+      const bool in = gr < M && gk < K;
+      const float v = in ? x[(long long)gr * K + gk] : 0.f;
+      as[kk * LDT + r] =
+          in && lane_on(mk.xm, gr) && lane_on(mk.pm, gk) ? v : 0.f;
+    }
+  }
+};
+
+// B with the column and rank predicates, staged as MaskedRowMajorA is.
+template <typename T>
+struct MaskedRowMajorB {
+  const T* y;
+  int K, N, n0;
+  bool vec;
+  PmMasks mk;
+
+  template <int BK, int BN, int LDB>
+  __device__ void panel(T* bs, int k0) const {
+    constexpr int CH = BN / 8;
+    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
+      const int r = i / CH, c8 = (i % CH) * 8;
+      const int gk = k0 + r, gc = n0 + c8;
+      T* dst = bs + r * LDB + c8;
+      const T* src = y + (long long)gk * N + gc;
+      if (gk < K && vec && gc + 8 <= N) {
+        uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+        const uint32_t row = lane_on(mk.pm, gk) ? ~0u : 0u;
+        if (mk.ym) select_chunk16(v, mk.ym, gc);
+        v.x &= row; v.y &= row; v.z &= row; v.w &= row;
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+        const bool row = gk < K && lane_on(mk.pm, gk);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (row && gc + e < N && lane_on(mk.ym, gc + e))
+            dst[e] = src[e];
+          else
+            dst[e] = zero_of<T>();
+        }
+      }
+    }
+  }
+
+  template <int BK, int BN, int LDB>
+  __device__ void panel_f32(float* bs, int k0) const {
+    for (int i = threadIdx.x; i < BK * BN; i += blockDim.x) {
+      const int kk = i / BN, cc = i % BN;
+      const int gk = k0 + kk, gc = n0 + cc;
+      const bool in = gk < K && gc < N;
+      const float v = in ? y[(long long)gk * N + gc] : 0.f;
+      bs[kk * LDB + cc] =
+          in && lane_on(mk.pm, gk) && lane_on(mk.ym, gc) ? v : 0.f;
+    }
+  }
+};
+
 template <typename T, int BM, int BN, int BK>
 __host__ __device__ constexpr size_t wmma_smem_bytes() {
   constexpr size_t panels =
@@ -76,9 +228,10 @@ __host__ __device__ constexpr size_t wmma_smem_bytes() {
 
 // bf16 / f16 tensor-core tile: WM x WN warps, each owning a
 // (BM/WM, BN/WN) slice of the accumulator as 16x16 fp32 fragments.
-template <typename T, int BM, int BN, int BK, int WM, int WN, typename ALoader>
-__device__ void wmma_tile(unsigned char* smem, const ALoader& ld, const T* y,
-                          int K, int N, int n0, bool vec_y, bool seeded) {
+template <typename T, int BM, int BN, int BK, int WM, int WN, typename ALoader,
+          typename BLoader>
+__device__ void wmma_tile_ab(unsigned char* smem, const ALoader& ld,
+                             const BLoader& bl, int K, bool seeded) {
   namespace wmma = nvcuda::wmma;
   constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
   constexpr int TM = BM / WM, TN = BN / WN;
@@ -109,7 +262,7 @@ __device__ void wmma_tile(unsigned char* smem, const ALoader& ld, const T* y,
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     ld.template panel<BM, BK, LDA>(as, k0);
-    load_panel<T, BK, BN, LDB>(bs, y, K, N, k0, n0, vec_y);
+    bl.template panel<BK, BN, LDB>(bs, k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -139,6 +292,14 @@ __device__ void wmma_tile(unsigned char* smem, const ALoader& ld, const T* y,
   __syncthreads();
 }
 
+// The tile over a row-major B (K3's implicit GEMM, the unmasked GEMM).
+template <typename T, int BM, int BN, int BK, int WM, int WN, typename ALoader>
+__device__ void wmma_tile(unsigned char* smem, const ALoader& ld, const T* y,
+                          int K, int N, int n0, bool vec_y, bool seeded) {
+  const RowMajorB<T> bl{y, K, N, n0, vec_y};
+  wmma_tile_ab<T, BM, BN, BK, WM, WN>(smem, ld, bl, K, seeded);
+}
+
 // F32GER: true fp32 FMAs on the CUDA cores (no TF32).  256 threads, each
 // holding a 4x4 register accumulator strided over the (BM, BN) tile.
 constexpr int F32_BM = 64, F32_BN = 64, F32_BK = 16;
@@ -150,9 +311,9 @@ __host__ __device__ constexpr size_t f32_smem_bytes() {
   return panels > ctile ? panels : ctile;
 }
 
-template <typename ALoader>
-__device__ void f32_tile(unsigned char* smem, const ALoader& ld,
-                         const float* y, int K, int N, int n0, bool seeded) {
+template <typename ALoader, typename BLoader>
+__device__ void f32_tile_ab(unsigned char* smem, const ALoader& ld,
+                            const BLoader& bl, int K, bool seeded) {
   constexpr int BM = F32_BM, BN = F32_BN, BK = F32_BK;
   constexpr int LDT = BM + 4, LDB = BN + 4, LDC = BN + 4;
   float* as = reinterpret_cast<float*>(smem);  // k-major: as[kk][row]
@@ -178,11 +339,7 @@ __device__ void f32_tile(unsigned char* smem, const ALoader& ld,
 
   for (int k0 = 0; k0 < K; k0 += BK) {
     ld.template panel_kmajor<BM, BK, LDT>(as, k0);
-    for (int i = threadIdx.x; i < BK * BN; i += blockDim.x) {
-      const int kk = i / BN, cc = i % BN;
-      const int gk = k0 + kk, gc = n0 + cc;
-      bs[kk * LDB + cc] = (gk < K && gc < N) ? y[(long long)gk * N + gc] : 0.f;
-    }
+    bl.template panel_f32<BK, BN, LDB>(bs, k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
@@ -205,6 +362,12 @@ __device__ void f32_tile(unsigned char* smem, const ALoader& ld,
     for (int j = 0; j < 4; ++j)
       cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
   __syncthreads();
+}
+
+template <typename ALoader>
+__device__ void f32_tile(unsigned char* smem, const ALoader& ld,
+                         const float* y, int K, int N, int n0, bool seeded) {
+  f32_tile_ab(smem, ld, RowMajorB<float>{y, K, N, n0, false}, K, seeded);
 }
 
 // Each in-bounds element of the fp32 (BM, BN) shared tile, once:

@@ -11,7 +11,9 @@ q tile; 64 rows where the grid would not fill the card) loops over its own
 live KV blocks, with the bounds of :func:`attn_k_bounds` computed in the
 kernel, on TMA loads and wgmma; short queries split their KV blocks over
 several blocks (:func:`split_kv_plan`) and merge the partials by
-log-sum-exp.
+log-sum-exp.  f32 q, k and v (K2e: the F32GER policy's operands) run the
+kernel's fp32 tile, true fp32 FMAs on 64-row q tiles with P kept in fp32,
+in both modes (the tile and split-KV, merged alike).
 
 A CPU tensor goes to the plain version of what the card would run:
 :func:`flash_attention_splitkv_plain` (per-split partials and their
@@ -20,7 +22,9 @@ merge) where :func:`split_kv_plan` splits, else
 :func:`ref_attention` plus the epilogue).  A CUDA tensor launches the
 kernel or raises.  ``mma_flash_attention.launches`` counts attention
 calls run on the card (the split-KV merge is part of its call), and
-nothing else.
+nothing else; ``mma_flash_attention.launches_by_mode`` the same by mode:
+``tile`` and ``split`` (the 16-bit wgmma kernel), ``f32_tile`` and
+``f32_split`` (the fp32 tile, K2e).
 
 Gradients: where q, k, v, bias or the residual requires one, the call
 runs as a ``torch.autograd.Function``: the forward is the kernel (or the
@@ -45,7 +49,8 @@ NEG_INF = -1e30
 # The kernel's tiles (csrc/mma_attention.cu): 128 query rows (two consumer
 # warpgroups; 64 where the grid would not fill the card) by 64 KV rows.
 BLOCK_Q, BLOCK_Q_SHORT, BLOCK_K = 128, 64, 64
-KERNEL_DTYPES = {torch.bfloat16: 1, torch.float16: 2}
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MODES = ("tile", "split", "f32_tile", "f32_split")
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -204,14 +209,23 @@ def rounding_budget(q, k, v, *, causal: bool = True, q_offset: int = 0,
     normalised or against a split's max -- so each rounded weight is
     within u * p_i of the exact one (u = 2^-8 for bf16, 2^-11 for f16)
     and an output moves by at most 2u * sum_i p_i |v_i|: 2u times the
-    oracle on |v|, plus 2^-12 of it for the fp32 exponentials and sums,
-    times 1.13 (the largest slope of gelu and silu) under an activation.
-    A fully masked row has a budget of 0."""
-    u = 2.0 ** -8 if v.dtype == torch.bfloat16 else 2.0 ** -11
+    oracle on |v|, plus 2^-12 of it for the fp32 scores, exponentials and
+    sums in another order (a score off by D * 2^-24 * sum_d |q_d k_d| /
+    sqrt(D), below 2^-14 relative at unit inputs and D = 128).  f32
+    operands round no weight (P stays fp32), so only fp32 arithmetic in
+    another order is left: (D + 8) * 2^-24 of the oracle on |v| -- D
+    units for the scores (a sum of D products in two orders, at unit-scale
+    scores), 4 for exp2f's two ulps and 4 for the sums over the keys.
+    TF32 products (2^-11 relative a factor) or P rounded to bf16 land
+    hundreds of such units away.  Times 1.13 (the largest slope of gelu
+    and silu) under an activation.  A fully masked row has a budget of
+    0."""
+    u = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}.get(v.dtype)
+    fp32 = 2.0 ** -12 if u else (q.shape[-1] + 8) * 2.0 ** -24
     slope = 1.13 if ep is not None and ep.activation is not None else 1.0
     mean_abs = ref_attention(q, k, v.abs(), causal=causal, window=window,
                              q_offset=q_offset, valid=valid)
-    return (2 * u + 2.0 ** -12) * slope * mean_abs
+    return (2 * (u or 0.0) + fp32) * slope * mean_abs
 
 
 def _live_mask(sq, sk, k0, k1, *, causal, window, q_offset, valid, device):
@@ -408,9 +422,8 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
                          f"version on cpu), not {q.device}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in KERNEL_DTYPES:
         raise NotImplementedError(
-            f"the attention kernel takes bf16/f16 q, k, v of one dtype, "
-            f"not {q.dtype}/{k.dtype}/{v.dtype} (f32 inputs: ROADMAP "
-            f"queue 2, K2)")
+            f"the attention kernel takes f32/bf16/f16 q, k, v of one dtype, "
+            f"not {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(f"head dim {d} not compiled; have "
                                   f"{KERNEL_HEAD_DIMS}")
@@ -445,7 +458,9 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
                            device=q.device)
         ws_ml = torch.empty((b, h, sq, n_split, 2), dtype=torch.float32,
                             device=q.device)
-    bq = BLOCK_Q_SHORT if n_split > 1 else attn_block_q(b, h, sq)
+    f32 = q.dtype == torch.float32
+    # the fp32 tile has 64 query rows in both modes
+    bq = BLOCK_Q_SHORT if n_split > 1 or f32 else attn_block_q(b, h, sq)
     lib = _lib()
     rc = lib.mma_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -464,6 +479,8 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
         bq, n_split, per, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "mma_flash_attention")
     mma_flash_attention.launches += 1
+    mma_flash_attention.launches_by_mode[
+        ("f32_" if f32 else "") + ("split" if n_split > 1 else "tile")] += 1
     if mma_flash_attention.trace is not None:
         mma_flash_attention.trace.append(
             (b, sq, sk, h, kvh, d, q.dtype, bool(causal), int(q_offset),
@@ -472,6 +489,7 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
 
 
 mma_flash_attention.launches = 0
+mma_flash_attention.launches_by_mode = dict.fromkeys(MODES, 0)
 # A list to record (B, Sq, Sk, H, KVH, D, dtype, causal, q_offset, window,
 # valid given, n_split) of each launch into, or None (chip_smoke.py).
 mma_flash_attention.trace = None

@@ -31,7 +31,24 @@ launches a kernel or raises: there is no fallback.  ``mma_gemm.launches``
 counts products computed on the card (one per call, whatever the path or
 split), ``mma_gemm.launches_by_path`` the same by path,
 ``mma_gemm.packed_launches_by_path`` those of them that read packed
-panels, and nothing else.
+panels, ``mma_gemm.masked_launches_by_path`` those that applied pm*
+predicates, and nothing else.
+
+The pm* prefixed masked forms (K1b, paper eq. 3): ``masks=(xmask, ymask,
+pmask)``, bool or uint8 tensors of shapes (M,), (N,) and (K,) (logical K)
+on the operands' device, each optional and shared across the batch axis.
+A masked call takes a static route (``choose_gemm_path(masked=True)``):
+the WMMA tile for the 16-bit families and F32GER at every M, IMMA for the
+integer families, DMMA for F64GER.  Each of those kernels applies the
+predicates while it stages a panel into shared memory: a disabled row of
+X, column of Y or rank (both panels' k-slice) is written as 0 through the
+branch that zero-fills the M, N and K fringes, never multiplied, so a NaN
+there gives exact zeros; the operands in HBM are never pre-masked.  The
+plain versions select (``torch.where``) the same lanes.  I4GER8 takes a
+column mask only (its X and rank predicates go through ``ref.pm_ger``, as
+the reference's kernel refuses them), packed panels are demoted, counted
+(the masked loaders read natural rows), and a masked product has no
+gradient (NotImplementedError: nor has the reference's Pallas kernel).
 
 Prepacked operands (K1d, ``core/packing.py``): ``y_layout`` marks y as the
 raw Y-side panel tensor ``(gn, gk, 64, 64)`` (``(B, gn, gk, 64, 64)`` for
@@ -84,7 +101,8 @@ Ger = precision.Ger
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 STORE_CODES = {**DTYPE_CODES, torch.int32: 3, torch.float64: 4}
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_int] * 4
+# csrc/mma_gemm.cu: mma_gemm_launch (x, y, three masks, c, bias, res, out)
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 5 + [ctypes.c_float] * 2
              + [ctypes.c_int] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # csrc/gemm_stream.cu: gemm_stream_launch
@@ -97,15 +115,16 @@ _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 3 + [ctypes.c_int] + [ctypes.c_void_p])
 # csrc/gemm_imma.cu: gemm_imma_launch
-_IMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_IMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p])
 # csrc/gemm_dmma.cu: gemm_dmma_launch
-_DMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_DMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 5 + [ctypes.c_double] * 2
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 PATHS = ("stream", "wgmma", "wmma", "imma", "dmma")
 PACKED_PATHS = ("stream", "wgmma", "imma")       # the paths that read panels
+MASKED_PATHS = ("wmma", "imma", "dmma")          # the paths that take masks
 
 
 def _shapes(x, y):
@@ -120,14 +139,36 @@ def _shapes(x, y):
     return (x.shape[0] if x.ndim == 3 else None), m, n, k
 
 
+def select_masks(x, y, masks):
+    """x (..., M, K) and y (..., K, N) with the pm* predicates applied as
+    the kernels apply them: disabled rows of x, columns of y and ranks
+    (both operands' k-slice) selected to exact zeros, never multiplied;
+    the 1-D masks right-align over any leading batch axes (the plain
+    versions, and the torch and ref masked lowerings).  I4GER8's y is
+    masked by column only (its zero bytes unpack to zero nibbles)."""
+    if masks is None:
+        return x, y
+    xm, ym, pm = (None if t is None else t.to(torch.bool) for t in masks)
+    if xm is not None:
+        x = torch.where(xm[:, None], x, torch.zeros_like(x))
+    if pm is not None:
+        x = torch.where(pm, x, torch.zeros_like(x))
+        y = torch.where(pm[:, None], y, torch.zeros_like(y))
+    if ym is not None:
+        y = torch.where(ym, y, torch.zeros_like(y))
+    return x, y
+
+
 def mma_gemm_plain(x, y, c=None, *, kind: Ger, neg_product: bool = False,
                    neg_acc: bool = False, alpha: float = 1.0,
                    beta: float = 1.0, ep: _epilogue.Epilogue | None = None,
-                   bias=None, residual=None, out_dtype=None):
+                   bias=None, residual=None, out_dtype=None, masks=None):
     """The plain version: prime -> one rank-K update -> deprime, in the
     family's accumulator dtype (bf16/f16 products are exact in fp32;
-    integer ones exact, then wrapped to int32: ``ref.product``)."""
+    integer ones exact, then wrapped to int32: ``ref.product``), on the
+    operands with ``masks`` selected (:func:`select_masks`)."""
     pol = precision.policy(kind)
+    x, y = select_masks(x, y, masks)
     acc = _ref.product(x, y, pol)
     if neg_product:
         acc = -acc
@@ -154,12 +195,14 @@ def mma_gemm_splitk_plain(x, y, c=None, *, kind: Ger,
                           neg_product: bool = False, neg_acc: bool = False,
                           alpha: float = 1.0, beta: float = 1.0,
                           ep: _epilogue.Epilogue | None = None, bias=None,
-                          residual=None, out_dtype=None):
+                          residual=None, out_dtype=None, masks=None):
     """The weight stream's arithmetic: one fp32 partial product per K
     slice (``tiling.StreamConfig.k_slices``), the partials summed in split
     order, then the seed, alpha and the epilogue once, as the last block
-    of an N tile applies them."""
+    of an N tile applies them; ``masks`` selected as in
+    :func:`mma_gemm_plain`."""
     pol = precision.policy(kind)
+    x, y = select_masks(x, y, masks)
     acc = None
     for k0, k1 in k_slices:
         part = torch.matmul(x[..., k0:k1].to(pol.acc_dtype),
@@ -260,7 +303,8 @@ def mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
              residual: torch.Tensor | None = None,
              out_dtype: torch.dtype | None = None,
              x_layout: packing.GemmLayout | None = None,
-             y_layout: packing.GemmLayout | None = None) -> torch.Tensor:
+             y_layout: packing.GemmLayout | None = None,
+             masks: tuple | None = None) -> torch.Tensor:
     """C <- alpha * [-](X @ Y) [+ beta * (+/-)C] with a resident accumulator.
 
     ``c`` is the optional ((B,) M, N) accumulator seed (the pp/np/pn/nn
@@ -268,12 +312,23 @@ def mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     into the single store; ``block`` picks one of the compiled tiles
     (``core.tiling.GEMM_TILES``) instead of ``choose_blocks``.
     ``x_layout``/``y_layout`` mark x/y as raw packed panels (the module
-    docstring says which paths read them).  Where an operand requires a
-    gradient the call is differentiable (the module docstring says how).
+    docstring says which paths read them).  ``masks`` is the pm* 3-tuple
+    ``(xmask (M,), ymask (N,), pmask (K,))`` (the module docstring says
+    where it runs).  Where an operand requires a gradient the call is
+    differentiable (the module docstring says how), unless it is masked.
     """
     opts = dict(kind=kind, block=block, neg_product=neg_product,
                 neg_acc=neg_acc, alpha=alpha, beta=beta, ep=ep,
                 out_dtype=out_dtype)
+    if masks is not None and any(t is not None for t in masks):
+        if _autograd.wants_grad(x, y, c, bias, residual):
+            raise NotImplementedError(
+                "a masked (pm*) product has no gradient: the reference's "
+                "Pallas kernel has none either; differentiate the torch "
+                "lowering (backend='torch')")
+        return _mma_gemm(x, y, c, bias=bias, residual=residual,
+                         x_layout=x_layout, y_layout=y_layout, masks=masks,
+                         **opts)
     if x_layout is not None or y_layout is not None:
         if _autograd.wants_grad(x, y, c, bias, residual):
             raise NotImplementedError(
@@ -353,7 +408,8 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
              residual: torch.Tensor | None = None,
              out_dtype: torch.dtype | None = None,
              x_layout: packing.GemmLayout | None = None,
-             y_layout: packing.GemmLayout | None = None) -> torch.Tensor:
+             y_layout: packing.GemmLayout | None = None,
+             masks: tuple | None = None) -> torch.Tensor:
     """The dispatch of one product: the plain version on a CPU tensor, a
     kernel on a CUDA tensor."""
     pol = precision.policy(kind)
@@ -389,6 +445,7 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     if block is not None:
         block = tuple(block)
         tiling.check_block(block, kind)
+    masks = _check_masks(masks, pol, m, n, k, x.device)
     forms = dict(neg_product=neg_product, neg_acc=neg_acc, alpha=alpha,
                  beta=beta, ep=ep, bias=bias, residual=residual,
                  out_dtype=out_dtype)
@@ -396,10 +453,12 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     # follows (its result is then the natural one bit for bit)
     path, cfg = tiling.choose_gemm_path(
         m, n, k, kind, b or 1, natural_aligned(x, y, x_layout, y_layout),
-        block)
+        block, masks is not None)
     if packed:
-        x, x_layout = _panels(path, kind, x, x_layout, "x")
-        y, y_layout = _panels(path, kind, y, y_layout, "y")
+        x, x_layout = _panels(path, kind, x, x_layout, "x", masks)
+        y, y_layout = _panels(path, kind, y, y_layout, "y", masks)
+    if masks is not None:
+        forms["masks"] = masks
     if x.device.type == "cpu":
         # the plain versions read the panels as the kernel-facing matrix
         if x_layout is not None:
@@ -423,29 +482,65 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     panels = (x_layout is not None, y_layout is not None)
     x = x if panels[0] else x.contiguous()
     y = y if panels[1] else y.contiguous()
+    mptrs = (None, None, None) if masks is None else tuple(
+        _ptr(t) for t in masks)
+    forms.pop("masks", None)
     if path in ("imma", "dmma"):
         out = _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k,
-                                x_packed=panels[0], **forms)
+                                x_packed=panels[0], masks=mptrs, **forms)
     else:
         out = _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k,
-                                y_packed=panels[1], **forms)
+                                y_packed=panels[1], masks=mptrs, **forms)
     mma_gemm.launches += 1
     mma_gemm.launches_by_path[path] += 1
     if panels[0] or panels[1]:
         mma_gemm.packed_launches_by_path[path] += 1
+    if masks is not None:
+        mma_gemm.masked_launches_by_path[path] += 1
     if mma_gemm.trace is not None:
         mma_gemm.trace.append((b or 1, m, k, n, x.dtype, out_dtype, path))
     return out
 
 
-def _panels(path, kind, t, lay, side):
+def _check_masks(masks, pol, m, n, k, device):
+    """The pm* predicates as the kernels take them: None where no entry is
+    set, else a 3-tuple of None or contiguous uint8 tensors, each shape
+    checked (pmask over logical K)."""
+    if masks is None or all(t is None for t in masks):
+        return None
+    if len(masks) != 3:
+        raise ValueError(f"masks wants the 3-tuple (xmask, ymask, pmask), "
+                         f"got {len(masks)} entries")
+    xm, _, pm = masks
+    if (xm is not None or pm is not None) and pol.packed_int4:
+        raise ValueError(
+            "packed-int4 masked forms lower through the ref.pm_ger oracle "
+            "(nibble unpacking and rank predicates do not compose in the "
+            "streamed kernel)")
+    logical_k = 2 * k if pol.packed_int4 else k
+    out = []
+    for i, (t, want) in enumerate(zip(masks, (m, n, logical_k))):
+        if t is not None:
+            if tuple(t.shape) != (want,):
+                raise ValueError(f"mask {i} has shape {tuple(t.shape)}; "
+                                 f"want ({want},)")
+            if t.device != device:
+                raise ValueError(f"mask {i} on {t.device}, operands on "
+                                 f"{device}")
+            t = t.to(torch.bool).to(torch.uint8).contiguous()
+        out.append(t)
+    return tuple(out)
+
+
+def _panels(path, kind, t, lay, side, masks=None):
     """``(t, lay)`` where ``path`` reads ``side``'s packed panels: they must
     be the panel size it reads, contiguous and 16-byte aligned (their
-    pointer goes to the kernel untouched).  Where it reads none, the
-    panels are demoted, counted, with the reason: ``(natural, None)``."""
+    pointer goes to the kernel untouched).  Where it reads none (a masked
+    call's loaders read natural rows only), the panels are demoted,
+    counted, with the reason: ``(natural, None)``."""
     if lay is None:
         return t, None
-    why = packing.gemm_unread(path, kind, side)
+    why = packing.gemm_unread(path, kind, side, masked=masks is not None)
     if why is not None:
         return packing.demote_panels(t, lay, why), None
     if lay.panel_blocks != packing.PANELS[side]:
@@ -461,9 +556,10 @@ def _panels(path, kind, t, lay, side):
 
 def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
                       neg_acc, alpha, beta, ep, bias, residual, out_dtype,
-                      x_packed=False):
+                      masks, x_packed=False):
     """One launch of csrc/gemm_imma.cu (the integer families) or
-    csrc/gemm_dmma.cu (F64GER).  The seed, bias and residual go to the
+    csrc/gemm_dmma.cu (F64GER); ``masks`` the three predicate pointers
+    (None: no predicate).  The seed, bias and residual go to the
     accumulator dtype first, as the reference casts them."""
     if out_dtype not in STORE_CODES:
         raise NotImplementedError(f"the {path} kernel stores int32/f64/f32/"
@@ -479,8 +575,8 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
     x_batch = x[0].numel() if x_packed else m * k
     strides = (x_batch if batched else 0, k * n if batched else 0,
                m * n, m * n, m * n)
-    ptrs = (x.data_ptr(), y.data_ptr(), _ptr(c), _ptr(bias), _ptr(residual),
-            out.data_ptr())
+    ptrs = (x.data_ptr(), y.data_ptr(), *masks, _ptr(c), _ptr(bias),
+            _ptr(residual), out.data_ptr())
     act = ep.activation if ep is not None else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if path == "imma":
@@ -502,10 +598,11 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
 
 def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
                       neg_acc, alpha, beta, ep, bias, residual, out_dtype,
-                      y_packed=False):
+                      masks, y_packed=False):
     """One launch of the weight stream, the wgmma tile or the WMMA tiles
     (the bf16/f16/f32 families); ``y_packed``: y is Y-side panels (the
-    stream and the wgmma tile)."""
+    stream and the wgmma tile); ``masks`` the three predicate pointers,
+    which only the WMMA tiles take."""
     if out_dtype not in DTYPE_CODES:
         raise NotImplementedError(f"the GEMM kernel stores f32/bf16/f16, "
                                   f"not {out_dtype}")
@@ -546,7 +643,8 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
         if -(-m // cfg.bm) > 65535:
             raise ValueError(f"grid too large for one launch: m={m}")
         lib, fn = _lib("mma_gemm", "mma_gemm_launch", _ARGTYPES)
-        rc = fn(x.data_ptr(), y.data_ptr(), *common, DTYPE_CODES[x.dtype],
+        rc = fn(x.data_ptr(), y.data_ptr(), *masks, *common,
+                DTYPE_CODES[x.dtype],
                 *codes, b or 1, m, n, k,
                 m * k if batched else 0, k * n if batched else 0,
                 m * n, m * n, m * n, *forms, cfg.bm, cfg.bn, cfg.bk, stream)
@@ -558,6 +656,8 @@ mma_gemm.launches = 0
 mma_gemm.launches_by_path = dict.fromkeys(PATHS, 0)
 # The launches on packed panels (also in launches_by_path), by path.
 mma_gemm.packed_launches_by_path = dict.fromkeys(PACKED_PATHS, 0)
+# The launches with pm* predicates (also in launches_by_path), by path.
+mma_gemm.masked_launches_by_path = dict.fromkeys(MASKED_PATHS, 0)
 # A list to record (batch, M, K, N, dtype, out dtype, path) of each launch
 # into, or None: chip_smoke.py times the shapes a run gave the kernels.
 mma_gemm.trace = None

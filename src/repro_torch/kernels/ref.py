@@ -2,8 +2,7 @@
 
 These implement the architected semantics of the paper's instructions
 (sections II-B, II-C) at matrix granularity, with no tiling — the ground
-truth the kernels are tested against.  ``pm_ger`` comes with its slice
-(ROADMAP queue 2, K1b).
+truth the kernels are tested against.
 """
 
 from __future__ import annotations
@@ -81,6 +80,33 @@ def ger(x: torch.Tensor, y: torch.Tensor, kind: precision.Ger,
         return prod
     acc = acc.to(pol.acc_dtype)
     return prod + (-acc if neg_acc else acc)
+
+
+def pm_ger(x: torch.Tensor, y: torch.Tensor, kind: precision.Ger,
+           xmask: torch.Tensor, ymask: torch.Tensor,
+           pmask: torch.Tensor | None = None,
+           acc: torch.Tensor | None = None) -> torch.Tensor:
+    """Prefixed masked update oracle (paper eq. 3).
+
+    xmask: (M,) bool -- enabled rows of X; ymask: (N,) bool -- enabled
+    columns of Y^T; pmask: (K,) bool -- enabled partial products along the
+    rank.  Disabled lanes are multiplied out by zeros, as the reference's
+    oracle does (so a NaN in a disabled lane stays NaN here; the kernels
+    and the other lowerings select instead).  I4GER8 unpacks its nibbles,
+    then takes I8GER4's product.
+    """
+    pol = precision.policy(kind)
+    if pol.packed_int4:
+        x = unpack_int4(x)
+        y = unpack_int4(y.transpose(0, 1)).transpose(0, 1)
+        kind = precision.Ger.I8GER4
+    xm = xmask.to(x.dtype)[:, None]
+    ym = ymask.to(y.dtype)[None, :]
+    if pmask is not None:
+        xm = xm * pmask.to(x.dtype)[None, :]
+    prod = ger((x * xm).to(x.dtype), (y * ym).to(y.dtype), kind)
+    prod = prod.to(pol.acc_dtype)
+    return prod if acc is None else prod + acc.to(pol.acc_dtype)
 
 
 def gemm(x: torch.Tensor, y: torch.Tensor, kind: precision.Ger,

@@ -34,16 +34,20 @@ from repro_torch.train import steps as S
 
 def build(cfg, *, lr: float = 3e-4, total_steps: int = 1000,
           grad_accum: int = 1, compress: bool = False, seed: int = 0,
-          weight_decay: float = 0.1, device=None, backend: str = "kernel"):
+          weight_decay: float = 0.1, device=None, backend: str = "kernel",
+          ger=None, out_dtype=None):
     """Returns (make_state, make_step): the train state on ``device``
     (default: the card) and the step, which runs on that device under the
     facility's ``backend`` (the kernels; "torch" for the eager
-    yardstick)."""
+    yardstick), with its ``ger`` family and ``out_dtype`` where given
+    (the tight-parity config: ``Ger.F32GER`` and ``torch.float32``)."""
     opt_cfg = adamw.AdamWConfig(
         lr=schedule.warmup_cosine(lr, min(100, total_steps // 10 + 1),
                                   total_steps),
         weight_decay=weight_decay)
-    fac = facility.FacilityConfig(device=device, backend=backend)
+    policy = {k: v for k, v in (("ger", ger), ("out_dtype", out_dtype))
+              if v is not None}
+    fac = facility.FacilityConfig(device=device, backend=backend, **policy)
 
     def make_state():
         return S.init_train_state(cfg, seed, opt_cfg, compress=compress,

@@ -190,3 +190,123 @@ def test_split_kv_plan_reads_no_batch():
     assert tattn.split_kv_plan(2, 1, 2560) == (40, 1)
     assert tattn.split_kv_plan(12, 65, 1500)[0] == 1
     assert tattn.split_kv_plan(12, 1, 64) == (1, 1)
+
+
+# ----------------------------------------------------------------------
+# f32 q, k, v (K2e: the F32GER policy's operands) in both kernel modes
+# ----------------------------------------------------------------------
+
+F32_CASES = {
+    # tile mode (Sq > 64: no split)
+    "tile_causal": ((1, 80, 80, 2, 1), dict(causal=True)),
+    "tile_window_offset": ((1, 80, 136, 2, 2),
+                           dict(causal=True, window=40, q_offset=64)),
+    "tile_valid": ((2, 80, 80, 2, 1), dict(causal=False, valid=True)),
+    # split-KV mode (Sq <= 64 over several KV blocks)
+    "split_full": ((2, 8, 320, 2, 2), dict(causal=False)),
+    "split_causal_offset": ((1, 8, 320, 4, 2),
+                            dict(causal=True, q_offset=312)),
+    "split_valid_window": ((2, 8, 320, 2, 1),
+                           dict(causal=True, q_offset=312, window=100,
+                                valid=True)),
+}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", list(F32_CASES))
+def test_f32_plain_matches_pallas_in_both_modes(case, d):
+    """f32 operands at the kernel's head dims: the wrapper's plain version
+    of the mode the card runs (the tile, or split-KV where the plan
+    splits) against the reference's interpret-mode kernel on the same f32
+    inputs, within 1e-5 (fp32 throughout; P is not rounded); rows with no
+    valid slot exact zeros in both."""
+    (b, sq, sk, h, kvh), kw = F32_CASES[case]
+    kw = dict(kw)
+    q, k, v = _qkv(sum(map(ord, case)) + d, b, sq, sk, h, kvh, d)
+    jkw, tkw = dict(kw), dict(kw)
+    if kw.pop("valid", False):
+        valid = np.ones((b, sk), bool)
+        valid[:, : sk // 3] = False
+        valid[-1, sk // 2:] = False
+        jkw["valid"], tkw["valid"] = jnp.asarray(valid), torch.from_numpy(
+            valid)
+    n_split, _ = tattn.split_kv_plan(h, sq, sk)
+    assert (n_split > 1) == case.startswith("split")
+    want = np.asarray(jattn.mma_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        block_q=8 if sq <= 8 else 16, block_k=64 if sk % 64 == 0 else 8,
+        out_dtype=jnp.float32, interpret=True, **jkw))
+    got = tattn.mma_flash_attention(_t(q), _t(k), _t(v),
+                                    out_dtype=torch.float32, **tkw).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(got == 0, want == 0) or not np.any(want == 0)
+
+
+@pytest.mark.parametrize("batch", [4, 8])
+def test_f32_one_query_row_does_not_depend_on_the_batch(batch):
+    """The f32 split-KV arithmetic reads no batch either: row 0 at batch 1
+    equals the same row inside a batch of 4 and of 8, bit for bit."""
+    h, sk, d = 2, 2560, 64
+    q, k, v = (torch.from_numpy(a) for a in _qkv(17, batch, 1, sk, h, h, d))
+    one = tattn.mma_flash_attention(q[:1], k[:1], v[:1], causal=False,
+                                    out_dtype=torch.float32)
+    many = tattn.mma_flash_attention(q, k, v, causal=False,
+                                     out_dtype=torch.float32)
+    assert torch.equal(one[0], many[0])
+    assert tattn.split_kv_plan(h, 1, sk)[0] > 1
+
+
+def test_f32_rounding_budget_has_no_p_rounding_term():
+    """rounding_budget for f32 operands keeps only fp32 rounding (P is not
+    rounded to v's dtype): (D + 8) * 2^-24 of the oracle on |v|."""
+    q, k, v = (_t(a) for a in _qkv(18, 1, 8, 64, 2, 2, 32))
+    budget = tattn.rounding_budget(q, k, v, causal=False)
+    mean_abs = tattn.ref_attention(q, k, v.abs(), causal=False)
+    assert torch.allclose(budget, (32 + 8) * 2.0 ** -24 * mean_abs)
+    assert tattn.KERNEL_DTYPES[torch.float32] == 0
+
+
+def _tf32(t):
+    """t rounded to TF32 (10 mantissa bits, to nearest): the operands a
+    TF32 tensor-core product reads."""
+    i = t.view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16_p(q, k, v, causal):
+    """ref_attention with each normalised weight rounded to bf16."""
+    d = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+    if causal:
+        sq, sk = s.shape[-2:]
+        live = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+        s = torch.where(live, s, torch.full_like(s, tattn.NEG_INF))
+    p = torch.softmax(s, -1).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [(1, 1500, False), (8, 900, False),
+                                          (64, 64, True)])
+def test_f32_rounding_budget_separates_fp32_from_tf32_and_bf16_p(
+        sq, sk, causal, d):
+    """The f32 budget admits fp32 arithmetic in another order (the split-KV
+    plain version against the one-shot plain version) and refuses a
+    variant with TF32 scores or with P rounded to bf16: the control that
+    it would catch a kernel computing S or P below fp32."""
+    q, k, v = (_t(a) for a in _qkv(19 + d, 2, sq, sk, 2, 2, d))
+    kw = dict(causal=causal, out_dtype=torch.float32)
+    plain = tattn.flash_attention_plain(q, k, v, **kw)
+    tol = (tattn.rounding_budget(q, k, v, causal=causal)
+           + 2.0 ** -20 * plain.abs().max())
+
+    def ratio(got):
+        return ((got - plain).abs() / tol).max().item()
+
+    per = -(-sk // tattn.BLOCK_K) // 4 or 1
+    n_split = -(-(-(-sk // tattn.BLOCK_K)) // per)
+    assert ratio(tattn.flash_attention_splitkv_plain(
+        q, k, v, n_split=n_split, per=per, **kw)) <= 1
+    assert ratio(tattn.flash_attention_plain(_tf32(q), _tf32(k), v,
+                                             **kw)) > 2
+    assert ratio(_bf16_p(q, k, v, causal)) > 2

@@ -957,7 +957,8 @@ def test_new_kernels_raise_on_build_or_launch_failure(gen, monkeypatch,
     G.mma_gemm(x, y, kind=Ger.I8GER4)                    # builds, loads
     lib, fn = G._FNS["gemm_imma"]
     out = torch.empty((8, 8), dtype=torch.int32, device="cuda")
-    rc = fn(x.data_ptr(), y.data_ptr(), None, None, None, out.data_ptr(),
+    rc = fn(x.data_ptr(), y.data_ptr(), None, None, None,   # no masks
+            None, None, None, out.data_ptr(),
             7, 3, 1, 8, 8, 64, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0,
             torch.cuda.current_stream().cuda_stream)    # family 7: refused
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -1175,3 +1176,232 @@ def test_reduced_prepacked_serve_matches_natural(gen):
     assert dict(packing.COUNTERS) == base
     assert G.mma_gemm.launches_by_path == by_path
     assert nat["completed"] == pk["completed"] == 3
+
+
+# ----------------------------------------------------------------------
+# K1b: the pm* masked forms on the WMMA, IMMA and DMMA kernels
+# ----------------------------------------------------------------------
+
+_MASKED_CASES = {
+    "fringe": ((), (37, 100, 45), False),
+    "aligned": ((), (256, 1024, 384), False),
+    "decode": ((), (4, 512, 1000), False),
+    "batched_seed": ((3,), (77, 200, 130), True),
+}
+_MASKED_KINDS = {Ger.BF16GER2: "wmma", Ger.F16GER2: "wmma",
+                 Ger.F32GER: "wmma", Ger.I8GER4: "imma",
+                 Ger.I16GER2: "imma", Ger.F64GER: "dmma"}
+
+
+def _lane_masks(gen, m, n, k):
+    """Row, column and rank predicates with about 30% of the lanes off."""
+    return tuple(torch.rand(s, generator=gen, device="cuda") > 0.3
+                 for s in (m, n, k))
+
+
+@pytest.mark.parametrize("case", sorted(_MASKED_CASES))
+@pytest.mark.parametrize("kind", sorted(_MASKED_KINDS, key=str))
+def test_masked_kernel_matches_plain(gen, kind, case):
+    """Each masked kernel against its plain version (which selects the same
+    lanes), integers bit for bit; a float family's disabled rows, columns
+    and ranks hold NaN and Inf, which must leave no trace: the output is
+    finite, exactly 0 on disabled rows and columns (no seed), and the
+    caller's operands come back untouched."""
+    lead, (m, k, n), seeded = _MASKED_CASES[case]
+    pol = precision.policy(kind)
+    if pol.is_integer:
+        x, y = _int_operands(gen, kind, lead, m, k, n)
+        c = (_ints(gen, -2 ** 31, 2 ** 31 - 1, *lead, m, n, dtype=torch.int32)
+             if seeded else None)
+    else:
+        x = torch.randn(*lead, m, k, generator=gen, device="cuda").to(
+            pol.x_dtype)
+        y = (torch.randn(*lead, k, n, generator=gen, device="cuda")
+             * 0.05).to(pol.y_dtype)
+        c = (torch.randn(*lead, m, n, generator=gen, device="cuda").to(
+            pol.acc_dtype) if seeded else None)
+    xm, ym, pm = _lane_masks(gen, m, n, k)
+    if not pol.is_integer:
+        x[..., ~xm, :] = float("nan")
+        x[..., ~pm] = float("inf")
+        y[..., ~pm, :] = float("nan")
+        y[..., ~ym] = float("-inf")
+    x0, y0 = x.clone(), y.clone()
+    path = _MASKED_KINDS[kind]
+    before = (G.mma_gemm.launches_by_path[path],
+              G.mma_gemm.masked_launches_by_path[path])
+    got = G.mma_gemm(x, y, c, kind=kind, masks=(xm, ym, pm))
+    assert (G.mma_gemm.launches_by_path[path],
+            G.mma_gemm.masked_launches_by_path[path]) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = G.mma_gemm_plain(x, y, c, kind=kind, masks=(xm, ym, pm))
+    assert torch.equal(x.nan_to_num(), x0.nan_to_num())
+    assert torch.equal(y.nan_to_num(), y0.nan_to_num())
+    if pol.is_integer:
+        assert torch.equal(got, want)
+    elif kind == Ger.F64GER:
+        assert bool(torch.isfinite(got).all())
+        xs, ys = G.select_masks(x, y, (xm, ym, pm))
+        bound = 1e-15 * k * xs.abs().max().item() * ys.abs().max().item()
+        assert (got - want).abs().max().item() <= bound
+    else:
+        assert bool(torch.isfinite(got).all())
+        _assert_f32_close(got, want)
+    if not seeded:
+        assert bool((got[..., ~xm, :] == 0).all())
+        assert bool((got[..., ~ym] == 0).all())
+    assert torch.equal(G.mma_gemm(x, y, c, kind=kind, masks=(xm, ym, pm)),
+                       got)
+
+
+def test_masked_i4ger8_column_predicate(gen):
+    """I4GER8 takes a column predicate in the IMMA kernel: bit for bit its
+    plain version, and I8GER4 on the unpacked operands with the same
+    predicate."""
+    from repro_torch.kernels import ref as R
+    x = _ints(gen, -128, 128, 130, 48, dtype=torch.int8)
+    lo = _ints(gen, 0, 8, 48, 150, dtype=torch.int8)
+    hi = _ints(gen, 0, 8, 48, 150, dtype=torch.int8)
+    y = lo | (hi << 4)
+    ym = torch.rand(150, generator=gen, device="cuda") > 0.3
+    got = G.mma_gemm(x, y, kind=Ger.I4GER8, masks=(None, ym, None))
+    assert torch.equal(got, G.mma_gemm_plain(x, y, kind=Ger.I4GER8,
+                                             masks=(None, ym, None)))
+    yu = R.unpack_int4(y.transpose(0, 1)).transpose(0, 1)
+    want = G.mma_gemm(R.unpack_int4(x), yu.to(torch.uint8).contiguous(),
+                      kind=Ger.I8GER4, masks=(None, ym, None))
+    assert torch.equal(got, want)
+
+
+def test_masked_contract_on_every_backend(gen):
+    """contract(masks=) on the kernel, torch and ref backends agree on the
+    card: F32GER within the f32 tolerance, I8GER4 bit for bit."""
+    m, k, n = 100, 300, 70
+    xm, ym, pm = _lane_masks(gen, m, n, k)
+    cfg = facility.FacilityConfig(ger=Ger.F32GER, out_dtype=torch.float32)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    y = torch.randn(k, n, generator=gen, device="cuda")
+    xi, yi = _int_operands(gen, Ger.I8GER4, (), m, k, n)
+    with facility.configure(cfg):
+        outs = {b: facility.contract("mk,kn->mn", x, y, masks=(xm, ym, pm),
+                                     plan=facility.Plan(backend=b))
+                for b in ("kernel", "torch", "ref")}
+        ints = {b: facility.contract(
+            "mk,kn->mn", xi, yi, masks=(xm, ym, pm),
+            plan=facility.Plan(ger=Ger.I8GER4, backend=b,
+                               out_dtype=facility.ACC))
+            for b in ("kernel", "torch", "ref")}
+    _assert_f32_close(outs["kernel"], outs["ref"])
+    _assert_f32_close(outs["torch"], outs["ref"])
+    assert torch.equal(ints["kernel"], ints["ref"])
+    assert torch.equal(ints["torch"], ints["ref"])
+
+
+# ----------------------------------------------------------------------
+# K2e: f32 attention on the fp32 tile, both modes
+# ----------------------------------------------------------------------
+
+_F32_ATTN_CASES = {
+    "tile causal gqa": ((2, 200, 8, 2), 200, dict(causal=True)),
+    "tile window": ((1, 300, 4, 4), 300, dict(causal=True, window=90)),
+    "tile q_offset valid": ((2, 100, 4, 2), 356,
+                            dict(causal=True, q_offset=256, valid=True)),
+    "split cross": ((4, 1, 12, 12), 1500, dict(causal=False)),
+    "split decode valid": ((2, 1, 8, 2), 700,
+                           dict(causal=True, q_offset=699, valid=True)),
+    "split window": ((2, 8, 4, 4), 900,
+                     dict(causal=True, q_offset=892, window=300)),
+}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("name", sorted(_F32_ATTN_CASES))
+def test_f32_attention_matches_plain(gen, name, d):
+    """f32 q, k and v on the fp32 tile, in the mode the plan gives, within
+    each output's rounding budget (no P rounding: (D + 8) * 2^-24 of the
+    oracle on |v|) of the plain version; batch 1's first 64 slots invalid where
+    `valid` is set, and a fully masked row exactly 0."""
+    (b, sq, h, kvh), sk, kw = _F32_ATTN_CASES[name]
+    kw = dict(kw)
+    q = _randn(gen, b, sq, h, d, dtype=torch.float32)
+    k = _randn(gen, b, sk, kvh, d, dtype=torch.float32)
+    v = _randn(gen, b, sk, kvh, d, dtype=torch.float32)
+    if kw.pop("valid", False):
+        valid = torch.ones((b, sk), dtype=torch.bool, device="cuda")
+        valid[-1, :64] = False
+        valid[0] = False
+        kw["valid"] = valid
+    n_split, per = A.split_kv_plan(h, sq, sk)
+    mode = "f32_split" if n_split > 1 else "f32_tile"
+    assert mode.endswith(name.split()[0])
+    before = A.mma_flash_attention.launches_by_mode[mode]
+    got = A.mma_flash_attention(q, k, v, out_dtype=torch.float32, **kw)
+    assert A.mma_flash_attention.launches_by_mode[mode] == before + 1
+    want = A.flash_attention_plain(q, k, v, out_dtype=torch.float32, **kw)
+    _assert_attn_close(got, want, A.rounding_budget(q, k, v, **kw))
+    if n_split > 1:
+        _assert_attn_close(got, A.flash_attention_splitkv_plain(
+            q, k, v, n_split=n_split, per=per, out_dtype=torch.float32,
+            **kw), A.rounding_budget(q, k, v, **kw))
+    if "valid" in kw:
+        assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_f32_budget_refuses_tf32_scores(gen, d):
+    """The control of the f32 budget: the plain version on q and k rounded
+    to TF32 (what a TF32 tensor-core product reads) lands outside the
+    budget that the fp32 tile meets, in both modes."""
+    for (b, sq, h, kvh), sk, kw in (((2, 200, 8, 2), 200, dict(causal=True)),
+                                    ((4, 1, 12, 12), 1500,
+                                     dict(causal=False))):
+        q = _randn(gen, b, sq, h, d, dtype=torch.float32)
+        k = _randn(gen, b, sk, kvh, d, dtype=torch.float32)
+        v = _randn(gen, b, sk, kvh, d, dtype=torch.float32)
+        want = A.flash_attention_plain(q, k, v, out_dtype=torch.float32,
+                                       **kw)
+        tol = (A.rounding_budget(q, k, v, **kw)
+               + 2.0 ** -20 * want.abs().max())
+        got = A.mma_flash_attention(q, k, v, out_dtype=torch.float32, **kw)
+        assert bool(((got - want).abs() <= tol).all())
+        q32, k32 = (((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(
+            torch.float32) for t in (q, k))
+        tf32 = A.flash_attention_plain(q32, k32, v, out_dtype=torch.float32,
+                                       **kw)
+        assert ((tf32 - want).abs() / tol).max().item() > 2
+
+
+@pytest.mark.parametrize("sq", [1, 70])
+def test_f32_attention_epilogue_and_stores(gen, sq):
+    """The fused epilogue (bias + gelu + residual) on the fp32 tile, in
+    both modes, stored in f32 and bf16."""
+    q = _randn(gen, 2, sq, 8, 64, dtype=torch.float32)
+    k = _randn(gen, 2, 900, 4, 64, dtype=torch.float32)
+    v = _randn(gen, 2, 900, 4, 64, dtype=torch.float32)
+    ep = E.Epilogue(bias=True, activation="gelu", residual=True)
+    bias = _randn(gen, 64, dtype=torch.float32)
+    res = _randn(gen, 2, sq, 8, 64, dtype=torch.float32)
+    for out in (torch.float32, torch.bfloat16):
+        kw = dict(causal=False, ep=ep, bias=bias, residual=res,
+                  out_dtype=out)
+        got = A.mma_flash_attention(q, k, v, **kw)
+        want = A.flash_attention_plain(q, k, v, **kw)
+        assert got.dtype == out
+        if out == torch.float32:
+            _assert_attn_close(got, want, A.rounding_budget(
+                q, k, v, causal=False, ep=ep))
+        else:
+            _assert_store_close(got, want, out)
+
+
+def test_f32_attention_row_does_not_depend_on_the_batch(gen):
+    """One query row over 2560 positions (split-KV), f32: row 0 at batch 1
+    equals the same row inside a batch of 8, bit for bit."""
+    q = _randn(gen, 8, 1, 2, 64, dtype=torch.float32)
+    k = _randn(gen, 8, 2560, 2, 64, dtype=torch.float32)
+    v = _randn(gen, 8, 2560, 2, 64, dtype=torch.float32)
+    one = A.mma_flash_attention(q[:1], k[:1], v[:1], causal=False,
+                                out_dtype=torch.float32)
+    many = A.mma_flash_attention(q, k, v, causal=False,
+                                 out_dtype=torch.float32)
+    assert torch.equal(one[0], many[0])

@@ -288,8 +288,12 @@ def test_later_op_classes_raise_with_their_slice():
     x = torch.zeros((4, 8))
     y = torch.zeros((8, 4))
     with tfac.configure(tfac.FacilityConfig(**CPU_F32)):
-        with pytest.raises(NotImplementedError, match="K1b"):
-            tfac.contract("mk,kn->mn", x, y, masks=(None, None, None))
+        # the pm* masked forms (K1b) are ported: their op-class runs
+        rows = torch.tensor([True, False, True, True])
+        out = tfac.contract("mk,kn->mn", x + 1, y + 1,
+                            masks=(rows, None, None))
+        assert out.shape == (4, 4) and bool((out[1] == 0).all())
+        assert bool((out[0] == 8).all())
         # the saturating forms (slice C2) are ported: they run on integer
         # families and refuse float ones, as the reference does
         out = tfac.contract("mk,kn->mn", x.to(torch.int16),
