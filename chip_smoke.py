@@ -141,7 +141,36 @@ Phases, each of which must pass or the script exits nonzero:
      beside the same kernel unmasked, the unmasked default path, the plain
      version, a ``torch.where`` + library yardstick and its bound; and the
      fp32 tile at the F32GER runs' attention shapes beside SDPA on f32
-     inputs.
+     inputs;
+  9. guarded serving and ABFT (``runtime/faults.py``, the guarded kernel
+     -> torch -> ref ladder, ``core/abft.py``) and K1e, the GEMM kernels'
+     checksum sidecar, its serving runs right after deepseek-7b's phase-3
+     run, at full width and depth, each run's counts zeroed just before
+     and read just after: a guards-on serve (ABFT off) whose every prefill
+     and decode output is phase 3's bit for bit, with no guard event and
+     every contract dispatch on the kernel rung; an ABFT serve
+     (``serve_loop(..., abft=True)``, phase 3's settings) with no verdict
+     and no demotion, each prefill's logits within phase 3's logits bound
+     (relative L2) of phase 3's, the sidecar launched on the weight stream
+     and the wgmma tile and attention at the padded depth 129;
+     ``run_fault_matrix``
+     (batch 2, 8-token prompts, 6 new tokens, 4 requests): all 7
+     scenarios ok, ``sdc`` detected by a kernel-rung check that read the
+     sidecar, and recovered; decode tok/s of each beside phase 3's and
+     the matrix's wall time.  Then ABFT runs through ``facility.contract``
+     of what that serve does not reach (F32GER and an unaligned pitch on
+     the WMMA tile, a DGEMM on DMMA, whisper's conv2 with its 769th
+     checksum filter on K3's WMMA tile, attention at D + 1 in every mode),
+     each the unguarded call's (GEMMs bit for bit, the rest within 2e-2)
+     with no verdict; then each sidecar kernel at the runs' shapes (decode
+     4 x 4096 x 11008, split, and the 102400-column logits, unsplit, on
+     the weight stream; 1024 x 4096 x 11008 on the wgmma tile; F32GER and
+     an unaligned 1024 x 768 x 51865 on the WMMA tile; DGEMM 2048^3 on
+     DMMA): ``out`` bit for bit ``checksum=False``'s, the sums within
+     ABFT's tolerance of the plain version's, timed on and off beside the
+     plain version, ``torch.matmul`` and the bound; and K2 at D = 129 and
+     65 in every mode against its plain version, timed at deepseek's
+     prefill beside D = 128 and SDPA.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
@@ -153,8 +182,11 @@ packed modes their ``natural_ms`` and ``launches_by_run`` over its runs,
 the packed stream's ``host_us`` natural beside packed; phase 8's masked
 entries their ``unmasked_ms``, ``default_ms`` and ``timed`` cases, its
 f32 attention entries ``launches_by_run`` over the F32GER runs;
-``max_abs_err`` covers the runs' shapes, training's included); the last
-is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing
+``max_abs_err`` covers the runs' shapes, training's included; phase 9's
+sidecar entries their ``off_ms``, ``timed`` shapes and
+``launches_by_run`` over its runs, its padded attention entry its
+``d128_ms`` and ``launches_by_mode``); the last is ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
 """
@@ -1370,6 +1402,10 @@ def print_routing(arch, routes):
           f"f32 {share('torch', 'f32'):.6f}")
 
 
+# Each model's logits bound from its phase-3 check, by (arch, what).
+LOGIT_TOLS: dict[tuple, float] = {}
+
+
 def check_logits(torch, failures, arch, cfg, outs):
     """``outs[mode]`` = (prefill logits, decode logits) for the modes
     kernel, torch (bf16) and f32: the kernel backend's against the torch
@@ -1382,7 +1418,7 @@ def check_logits(torch, failures, arch, cfg, outs):
     for what, i in (("prefill logits", 0), ("decode logits", 1)):
         got, want = outs["kernel"][i], outs["torch"][i]
         noise = rel(want, outs["f32"][i])
-        tol = max(2e-2, 2 * noise)
+        tol = LOGIT_TOLS[arch, what] = max(2e-2, 2 * noise)
         r = rel(got, want)
         ok = (bool(torch.isfinite(got).all())
               and got.shape == (want.shape[0], cfg.vocab_size) and r < tol)
@@ -3414,6 +3450,431 @@ def phase8_attention(torch, timer, failures):
     return entries
 
 
+
+# ----------------------------------------------------------------------
+# Phase 9: guarded serving and ABFT (runtime/faults.py, the guarded
+# kernel -> torch -> ref ladder, core/abft.py) and K1e, the GEMM kernels'
+# checksum sidecar, with K2 at ABFT's depth D + 1
+# ----------------------------------------------------------------------
+
+# The fault matrix's settings (launch/serve.py's run_fault_matrix
+# defaults, the reference's), on full-width, full-depth deepseek-7b.
+MATRIX = dict(batch=2, prompt_len=8, gen_len=6, n_requests=4)
+# Per phase-9 run: its launches (by path, with the sidecar, attention by
+# mode and at a padded depth) and what it showed.
+PHASE9: dict[str, dict] = {}
+
+
+def zero_counts9(kernels):
+    """zero_counts, and the sidecar's and the padded depths' counts."""
+    from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_gemm as G
+    zero_counts(kernels)
+    G.mma_gemm.checksum_launches_by_path = dict.fromkeys(G.SIDECAR_PATHS, 0)
+    A.mma_flash_attention.padded_launches_by_mode = dict.fromkeys(A.MODES, 0)
+
+
+def read_counts9(kernels):
+    from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_gemm as G
+    return {**read_counts(kernels),
+            "sidecar": dict(G.mma_gemm.checksum_launches_by_path),
+            "padded": dict(A.mma_flash_attention.padded_launches_by_mode)}
+
+
+def _same_record(torch, rec, ref) -> bool:
+    return len(rec) == len(ref) and all(
+        len(a) == len(b) and a[0] == b[0]
+        and all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+        for a, b in zip(rec, ref))
+
+
+def guarded_serves(torch, failures, model, cfg, natural):
+    """Phase 9's serving runs of deepseek-7b at full width and depth, right
+    after its phase-3 run (``natural``: that run's stats, launches and
+    recorded steps), each with every count zeroed just before it and read
+    just after: (1) guards on, ABFT off: every prefill and decode output
+    bit for bit phase 3's, no guard event, every contract dispatch counted
+    on the kernel rung; (2) ``serve_loop(..., abft=True)``: no verdict, no
+    demotion, each prefill's logits within phase 3's logits bound of phase
+    3's (relative L2: the attn augmentation moves rounding only), the
+    GEMM sidecar launched on the weight stream and the wgmma tile and the
+    attention kernel at the padded depth 129; (3) ``run_fault_matrix``:
+    every scenario ok, ``sdc`` detected by a kernel-rung check that read
+    the sidecar, and recovered.  Decode tok/s of each beside phase 3's."""
+    from repro_torch.core import abft, facility, lowering
+    from repro_torch.launch import serve as S
+
+    kernels = kernel_wrappers()
+    runs = {}
+    for run, kw in (("guards", dict(guards=True)),
+                    ("abft", dict(guards=True, abft=True))):
+        rec = []
+        lowering.clear_guard_state()
+        lowering.DISPATCH_COUNTS.clear()
+        with facility.configure(facility.FacilityConfig(device="cuda",
+                                                        **kw)), \
+                recording_steps(rec):
+            torch.cuda.synchronize()
+            zero_counts9(kernels)
+            out = S.serve_loop(cfg, model, **SERVE)
+            counts = read_counts9(kernels)
+        rungs = {}
+        for (r, _, _), n in lowering.DISPATCH_COUNTS.items():
+            rungs[r] = rungs.get(r, 0) + n
+        out.pop("abft_verdicts")
+        print(f"  phase 9: {cfg.name} serve, {kw}: {json.dumps(out)}")
+        print(f"  phase 9: launches {counts['launches']}, GEMM by path "
+              f"{counts['by_path']['mma_gemm']}, with the sidecar "
+              f"{counts['sidecar']}, attention at a padded depth "
+              f"{counts['padded']}; dispatches by rung {rungs}")
+        name = f"{cfg.name} {run} serve"
+        _check(failures, name, out["completed"] == SERVE["n_requests"]
+               and lowering.GUARD_EVENTS == [] and set(rungs) == {"kernel"},
+               f"{out['completed']} of {SERVE['n_requests']} requests, "
+               f"{len(lowering.GUARD_EVENTS)} guard events, dispatches on "
+               f"{sorted(rungs)} (only the kernel rung)")
+        runs[run] = (out, counts, rec)
+        PHASE9[name] = {**counts, "tok_s": out["tokens_per_s"],
+                        "tok_s_phase3": natural["stats"]["tokens_per_s"]}
+    out, counts, rec = runs["guards"]
+    _check(failures, f"{cfg.name} guards serve", _same_record(
+        torch, rec, natural["record"]) and counts["launches"]
+        == natural["launches"], f"{len(rec)} prefill/decode outputs (token "
+        f"ids and logits) bit for bit phase 3's, launches phase 3's")
+    out, counts, rec = runs["abft"]
+    pre = [(a[1], b[1]) for a, b in zip(rec, natural["record"])
+           if a[0] == b[0] == "prefill"]
+    rels = [_rel(a.float(), b.float()) for a, b in pre]
+    tol = LOGIT_TOLS[cfg.name, "prefill logits"]
+    ticks = [(a[1], b[1]) for a, b in zip(rec, natural["record"])
+             if a[0] == b[0] == "decode"]
+    same = next((i for i, (a, b) in enumerate(ticks)
+                 if not torch.equal(a, b)), len(ticks))
+    _check(failures, f"{cfg.name} abft serve", out["abft_detections"] == 0
+           and len(pre) == SERVE["n_requests"] and max(rels) < tol,
+           f"{out['abft_detections']} verdicts; {len(pre)} prefills' logits "
+           f"vs phase 3's rel L2 max {max(rels):.3e} (phase 3's bound "
+           f"{tol:.3e}); the first {same} of {len(ticks)} decode ticks' "
+           f"tokens equal phase 3's")
+    _check(failures, f"{cfg.name} abft serve",
+           counts["sidecar"]["stream"] > 0 and counts["sidecar"]["wgmma"] > 0
+           and counts["padded"]["tile"] > 0,
+           "GEMM sidecar on the weight stream and the wgmma tile, attention "
+           "at the padded depth 129 on the tile")
+    PHASE9[f"{cfg.name} abft serve"].update(prefill_rel_l2=max(rels),
+                                            same_ticks=same)
+    print(f"  phase 9: decode tok/s: phase 3 "
+          f"{natural['stats']['tokens_per_s']:.2f}, guards "
+          f"{runs['guards'][0]['tokens_per_s']:.2f}, abft "
+          f"{out['tokens_per_s']:.2f}")
+
+    lowering.clear_guard_state()
+    t0 = time.perf_counter()
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        torch.cuda.synchronize()
+        zero_counts9(kernels)
+        results = S.run_fault_matrix(cfg, model, **MATRIX)
+        counts = read_counts9(kernels)
+    wall = time.perf_counter() - t0
+    for r in results:
+        print(f"  [{'ok' if r['ok'] else 'FAIL'}] phase 9: fault matrix "
+              f"{r['scenario']:16s} completed={r['completed']} "
+              f"faults={r['fired']} demotions={r['demotions']} "
+              f"abft={r['abft_detections']} nan={r['nan_steps']} "
+              f"crashes={r['step_faults']} preempt={r['preemptions']} "
+              f"requeue={r['requeues']} "
+              f"pages_hw={r['pages']['high_water_pages']} "
+              f"wall {r['wall_s']:.2f} s")
+        if not r["ok"]:
+            failures.append(f"fault matrix {r['scenario']}")
+    sdc = next(r for r in results if r["scenario"] == "sdc")
+    gemm = [v for v in sdc["abft_verdicts"] if v["op_class"] == "gemm"]
+    _check(failures, "fault matrix sdc", len(results) == 7 and gemm
+           and all(v["recovered"] and v["detail"].get("sidecar")
+                   for v in gemm),
+           f"{len(results)} scenarios; sdc's gemm verdicts "
+           f"{[(v['rung'], v['how'], v['recovered'], v['detail']) for v in gemm]}"
+           f" (recovered, detected by a check that read the sidecar)")
+    print(f"  phase 9: fault matrix {MATRIX}: {wall:.1f} s wall; launches "
+          f"{counts['launches']}, with the sidecar {counts['sidecar']}")
+    PHASE9[f"{cfg.name} fault matrix"] = {**counts, "wall_s": wall}
+    lowering.clear_guard_state()
+
+
+# ABFT runs through facility.contract (the entry point) of the products and
+# attention calls the deepseek-7b serve does not reach: (name, kind,
+# operand shapes, plan keywords).  F32GER and an unaligned pitch take the
+# WMMA tile, F64GER the DMMA kernel; the conv at whisper's conv2 shape with
+# no epilogue gets ABFT's 769th filter column (K3's WMMA tile by its
+# alignment rule); attention at D + 1 in every mode.
+ABFT_CONTRACT_RUNS = (
+    ("F32GER MLP 1024x4096x11008", "gemm", "F32GER",
+     ((1024, 4096), (4096, 11008)), {}),
+    ("bf16 logits 1024x768x51865", "gemm", "BF16GER2",
+     ((1024, 768), (768, 51865)), {}),
+    ("DGEMM 2048^3", "gemm", "F64GER", ((2048, 2048), (2048, 2048)), {}),
+    ("conv1d whisper conv2 (F 768 + 1)", "conv", "BF16GER2",
+     ((4, 3000, 768), (3, 768, 768)), dict(stride=2, padding="same")),
+    ("attn deepseek prefill D=128+1", "attn", "BF16GER2",
+     ((4, 256, 32, 128), (4, 256, 32, 128)), dict(causal=True)),
+    ("attn one query over 288 D=128+1", "attn", "BF16GER2",
+     ((4, 1, 32, 128), (4, 288, 32, 128)), dict(causal=True, q_offset=287)),
+    ("attn whisper encoder D=64+1", "attn", "BF16GER2",
+     ((4, 1500, 12, 64), (4, 1500, 12, 64)), dict(causal=False)),
+    ("attn whisper cross D=64+1", "attn", "BF16GER2",
+     ((4, 1, 12, 64), (4, 1500, 12, 64)), dict(causal=False)),
+    ("attn F32GER prefill D=128+1", "attn", "F32GER",
+     ((1, 256, 32, 128), (1, 256, 32, 128)), dict(causal=True)),
+    ("attn F32GER decode D=128+1", "attn", "F32GER",
+     ((4, 1, 32, 128), (4, 288, 32, 128)), dict(causal=True, q_offset=287)),
+)
+
+
+def abft_contract_runs(torch, failures):
+    """ABFT_CONTRACT_RUNS through ``facility.contract`` under
+    ``FacilityConfig(guards=True, abft=True)``, counts zeroed just before
+    and read just after: no verdict, no guard event, each output within
+    2e-2 of the same call unguarded (the reference's bound for the
+    augmentation; the GEMMs are the unguarded call's bit for bit), and
+    the sidecar, K3's WMMA tile and every padded attention mode
+    launched."""
+    from repro_torch.core import abft, facility, lowering
+
+    Ger = facility.Ger
+    g = torch.Generator(device="cuda").manual_seed(21)
+    kernels = kernel_wrappers()
+    operands = []
+    for name, op, fam, shapes, kw in ABFT_CONTRACT_RUNS:
+        dt = {"F32GER": torch.float32, "F64GER": torch.float64}.get(
+            fam, torch.bfloat16)
+        ts = [(torch.randn(s, generator=g, device="cuda",
+                           dtype=torch.float64 if dt == torch.float64
+                           else torch.float32)
+               * (s[-2] ** -0.5 if op != "attn" and i else 1.0)).to(dt)
+              for i, s in enumerate(shapes)]
+        if op == "attn":
+            ts.append(torch.randn(shapes[1], generator=g, device="cuda"
+                                  ).to(dt))
+        operands.append((name, op, Ger[fam], ts, kw))
+
+    def call(op, ger, ts, kw):
+        out = None if ger == Ger.BF16GER2 else (
+            torch.float64 if ger == Ger.F64GER else torch.float32)
+        plan = facility.Plan(ger=ger, out_dtype=out, **kw)
+        spec = {"gemm": "mk,kn->mn", "conv": facility.CONV1D,
+                "attn": facility.ATTN}[op]
+        return facility.contract(spec, *ts, plan=plan)
+
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        base = [call(op, ger, ts, kw) for _, op, ger, ts, kw in operands]
+    lowering.clear_guard_state()
+    torch.cuda.synchronize()
+    zero_counts9(kernels)
+    t0 = time.perf_counter()
+    with facility.configure(facility.FacilityConfig(
+            device="cuda", guards=True, abft=True)):
+        outs = [call(op, ger, ts, kw) for _, op, ger, ts, kw in operands]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts9(kernels)
+    verdicts = abft.drain_verdicts()
+    for (name, op, *_), a, b in zip(operands, outs, base):
+        r = _rel(a.float(), b.float())
+        ok = (torch.equal(a, b) if op == "gemm" else r < 2e-2) and bool(
+            torch.isfinite(a).all())
+        print(f"  [{'ok' if ok else 'FAIL'}] phase 9: abft {name}: "
+              f"{tuple(a.shape)} vs unguarded rel L2 {r:.3e}"
+              + (" (bit for bit)" if op == "gemm" else " (tol 2e-2)"))
+        if not ok:
+            failures.append(f"abft {name}")
+    _check(failures, "abft contract runs", verdicts == []
+           and lowering.GUARD_EVENTS == []
+           and counts["sidecar"]["wmma"] >= 2
+           and counts["sidecar"]["dmma"] >= 1
+           and counts["by_path"]["mma_conv2d"].get("wmma", 0) >= 1
+           and all(counts["padded"][m] > 0 for m in counts["padded"]),
+           f"{len(verdicts)} verdicts, {len(lowering.GUARD_EVENTS)} guard "
+           f"events; sidecar {counts['sidecar']}, conv by path "
+           f"{counts['by_path']['mma_conv2d']}, attention at a padded depth "
+           f"{counts['padded']} ({wall:.2f} s)")
+    PHASE9["abft contract runs"] = {**counts, "wall_s": wall}
+    del operands, outs, base
+
+
+# The sidecar's timed shapes, at the runs' products: (label, family, M,
+# K, N); "split" and "1" name the weight stream's split of K.
+SIDECAR_TIMED = (
+    ("stream", "decode 4x4096x11008 (split)", "BF16GER2", 4, 4096, 11008),
+    ("stream", "decode logits 4x4096x102400 (split 1)", "BF16GER2", 4,
+     4096, 102400),
+    ("wgmma", "prefill 1024x4096x11008", "BF16GER2", 1024, 4096, 11008),
+    ("wmma", "F32GER 1024x4096x11008", "F32GER", 1024, 4096, 11008),
+    ("wmma", "unaligned 1024x768x51865", "BF16GER2", 1024, 768, 51865),
+    ("dmma", "DGEMM 2048^3", "F64GER", 2048, 2048, 2048),
+)
+
+
+def phase9_kernels(torch, timer, failures):
+    """Each sidecar kernel at SIDECAR_TIMED: ``checksum=True`` bit for bit
+    ``checksum=False``, the sums within ABFT's tolerance of the plain
+    version's (``mma_gemm_sidecar_plain``), each timed on and off beside
+    the plain version, ``torch.matmul`` and the bound; then K2 at D + 1
+    (129 and 65) in every mode against its plain version, and timed at
+    deepseek's prefill beside the unpadded D = 128 and SDPA.  Returns the
+    ``kernels`` entries (launches: phase 9's runs')."""
+    from repro_torch.core import abft, precision, tiling
+    from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = precision.Ger
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rows = {}
+    for path, label, fam, m, k, n in SIDECAR_TIMED:
+        kind = Ger[fam]
+        pol = precision.policy(kind)
+        wide = torch.float64 if fam == "F64GER" else torch.float32
+        x = torch.randn(m, k, generator=g, device="cuda", dtype=wide).to(
+            pol.x_dtype)
+        y = (torch.randn(k, n, generator=g, device="cuda", dtype=wide)
+             * k ** -0.5).to(pol.y_dtype)
+        took, cfg = tiling.choose_gemm_path(m, n, k, kind, 1,
+                                            G.natural_aligned(x, y))
+        out, ck_col, ck_row = G.mma_gemm(x, y, kind=kind, checksum=True)
+        same = torch.equal(out, G.mma_gemm(x, y, kind=kind))
+        _, want_col, want_row = G.mma_gemm_sidecar_plain(x, y, kind=kind)
+        mag = x.double().abs() @ y.double().abs()
+        mag_col, mag_row = G.checksum_tiles(mag, *G.sidecar_tile(
+            took, cfg, m))
+        eps = torch.finfo(pol.acc_dtype).eps
+        err = max((a.double() - b.double()).abs().max().item()
+                  for a, b in ((ck_col, want_col), (ck_row, want_row)))
+        ok = same and took == path and all(bool(
+            ((a.double() - b.double()).abs()
+             <= abft.ATOL + abft.FACTOR * eps * mg).all())
+            for a, b, mg in ((ck_col, want_col, mag_col),
+                             (ck_row, want_row, mag_row)))
+        del mag, mag_col, mag_row
+        print(f"  [{'ok' if ok else 'FAIL'}] phase 9: sidecar {label} on "
+              f"{took}{f' split {cfg.split}' if took == 'stream' else ''}: "
+              f"out bit for bit {same}; sums vs plain max|err| {err:.3e} "
+              f"(tol ATOL + FACTOR*eps*|X||Y| summed alike)")
+        if not ok:
+            failures.append(f"sidecar {label}")
+        row = {name: timer(fn) for name, fn in (
+            ("ms", lambda: G.mma_gemm(x, y, kind=kind, checksum=True)),
+            ("off_ms", lambda: G.mma_gemm(x, y, kind=kind)),
+            ("plain_ms", lambda: G.mma_gemm_sidecar_plain(x, y, kind=kind)),
+            ("library_ms", lambda: torch.matmul(x, y)))}
+        acc = pol.acc_dtype.itemsize
+        ck_bytes = (ck_col.numel() + ck_row.numel()) * acc
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (m * k + k * n) * x.element_size() + m * n * acc + ck_bytes,
+            2 * m * n * k, {"BF16GER2": "bf16", "F32GER": "f32",
+                            "F64GER": "f64"}[fam])
+        print(f"  time sidecar {label}: on {row['ms']:.4f} ms, off "
+              f"{row['off_ms']:.4f} ms ({row['ms'] / row['off_ms']:.3f}x), "
+              f"plain {row['plain_ms']:.4f} ms, torch.matmul "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        rows.setdefault(path, []).append((label, row, err))
+        del x, y, out, ck_col, ck_row, want_col, want_row
+
+    # K2 at D + 1 in every mode, then timed at deepseek's prefill
+    worst = 0.0
+    cases = (("tile", torch.bfloat16, (4, 256, 32, 32), 256, True),
+             ("split", torch.bfloat16, (4, 1, 32, 32), 288, True),
+             ("f32_tile", torch.float32, (1, 256, 32, 32), 256, True),
+             ("f32_split", torch.float32, (4, 1, 32, 32), 288, True))
+    for d in (129, 65):
+        for mode, dt, (b, sq, h, kvh), sk, causal in cases:
+            q, k, v = (torch.randn(s, generator=g, device="cuda").to(dt)
+                       for s in ((b, sq, h, d), (b, sk, kvh, d),
+                                 (b, sk, kvh, d)))
+            kw = dict(causal=causal, q_offset=sk - sq,
+                      out_dtype=torch.float32)
+            before = A.mma_flash_attention.padded_launches_by_mode[mode]
+            e, _ = check_attn_case(torch, f"attention D={d} {mode} "
+                                   f"({b},{sq},{h})x{sk}", q, k, v, kw,
+                                   failures)
+            worst = max(worst, e)
+            if A.mma_flash_attention.padded_launches_by_mode[mode] \
+                    != before + 1:
+                failures.append(f"attention D={d} {mode}: not a padded "
+                                f"launch of {mode}")
+    b, s, h, d = 4, 256, 32, 129
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    q8, k8, v8 = (t[..., :128].contiguous() for t in (q, k, v))
+    att = {name: timer(fn) for name, fn in (
+        ("ms", lambda: A.mma_flash_attention(q, k, v, causal=True)),
+        ("d128_ms", lambda: A.mma_flash_attention(q8, k8, v8, causal=True)),
+        ("plain_ms", lambda: A.flash_attention_plain(q, k, v, causal=True)),
+        ("library_ms", lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True)))}
+    pairs = A.attn_live_pairs(s, s, causal=True)
+    att["bound_ms"], att["bound_by"] = bound_ms(
+        4 * b * s * h * d * 2, 4 * b * h * d * pairs, "bf16")
+    print(f"  time attention D=129 ({b},{s},{h}) causal (padded to 192): "
+          f"{att['ms']:.4f} ms, at D=128 {att['d128_ms']:.4f} ms, plain "
+          f"{att['plain_ms']:.4f} ms, SDPA {att['library_ms']:.4f} ms, "
+          f"bound {att['bound_ms']:.4f} ms ({att['bound_by']})")
+
+    launched = {"sidecar": {}, "padded": {}}
+    for r in PHASE9.values():
+        for key in launched:
+            for p, n in r.get(key, {}).items():
+                launched[key][p] = launched[key].get(p, 0) + n
+    sources = {"stream": "src/repro_torch/csrc/gemm_stream.cu",
+               "wgmma": "src/repro_torch/csrc/gemm_wgmma.cu, "
+                        "src/repro_torch/csrc/wgmma_tile.cuh",
+               "wmma": "src/repro_torch/csrc/mma_gemm.cu",
+               "dmma": "src/repro_torch/csrc/gemm_dmma.cu"}
+    entries = []
+    for path, timed in rows.items():
+        label, row, _ = timed[0]
+        e = {"name": f"mma_gemm sidecar ({path})", "route": "cuda",
+             "source": sources[path] + ", src/repro_torch/csrc/common.cuh",
+             "replaces": "src/repro/kernels/mma_gemm.py:163",
+             "max_abs_err": max(err for _, _, err in timed), **row,
+             "shape": label,
+             "launches": launched["sidecar"].get(path, 0),
+             "launches_by_run": {n: r["sidecar"][path]
+                                 for n, r in PHASE9.items()
+                                 if "sidecar" in r},
+             "timed": {lb: r for lb, r, _ in timed}}
+        entries.append(e)
+    entries.append({
+        "name": "mma_flash_attention padded depth (D + 1)", "route": "cuda",
+        "source": "src/repro_torch/csrc/mma_attention.cu, "
+                  "src/repro_torch/csrc/wgmma_ops.cuh",
+        "replaces": "src/repro/kernels/mma_attention.py:193",
+        "max_abs_err": worst, **att,
+        "shape": f"B={b} S={s} H={h} D={d} bf16 causal",
+        "launches": sum(launched["padded"].values()),
+        "launches_by_mode": launched["padded"]})
+    for e in entries:
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched in phase 9's runs")
+    return entries
+
+
+def phase9(torch, failures, entries):
+    """Phase 9: the serving runs (a) ran after deepseek-7b's phase-3 run;
+    here the ABFT contract runs, then the sidecar kernels and K2 at D + 1."""
+    print("== phase 9: guarded serving and ABFT (runtime/faults.py, the "
+          "guarded ladder, core/abft.py) and K1e, the GEMM sidecar",
+          flush=True)
+    t0 = time.perf_counter()
+    abft_contract_runs(torch, failures)
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    entries += phase9_kernels(torch, timer, failures)
+    del timer
+    print(f"  phase 9 (after the serves): {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -3452,7 +3913,8 @@ def main() -> None:
     del timer
 
     print("== phase 3: serve and generate (and phase 8's F32GER runs of "
-          "deepseek-7b and whisper-small and phase 7's prepacked runs of "
+          "deepseek-7b and whisper-small, phase 9's guarded and ABFT serves "
+          "and fault matrix of deepseek-7b, and phase 7's prepacked runs of "
           "deepseek-7b, deepseek-moe-16b, whisper-small and qwen2-vl-7b "
           "after their natural runs)", flush=True)
     by_run = {}
@@ -3467,10 +3929,16 @@ def main() -> None:
             step_breakdown(torch, cfg, *serve_steps(torch, model, cfg,
                                                     settings))
         if arch == ARCH:
+            natural = {"stats": stats, "launches": by_run[arch],
+                       "record": record, "by_path": RECORDS[arch]["by_path"]}
             f32_serve(torch, failures, model, cfg)
-            prepacked_serve(torch, failures, arch, settings, model, cfg, {
-                "stats": stats, "launches": by_run[arch], "record": record,
-                "by_path": RECORDS[arch]["by_path"]})
+            t9 = time.perf_counter()
+            guarded_serves(torch, failures, model, cfg, natural)
+            print(f"  phase 9's serving runs: {time.perf_counter() - t9:.1f}"
+                  f" s", flush=True)
+            prepacked_serve(torch, failures, arch, settings, model, cfg,
+                            natural)
+            del natural
         elif arch == MOE_RUN[0]:
             # phase 3's first `batch` requests' prompts, decoded on a
             # fresh cache
@@ -3546,6 +4014,7 @@ def main() -> None:
     del timer, qdot_ops
 
     phase8(torch, failures, entries)
+    phase9(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

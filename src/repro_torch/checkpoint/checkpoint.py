@@ -20,9 +20,13 @@ for the dict of its named parameters.  bf16 leaves are stored as a
 ``uint16`` bit view beside their dtype name (npz cannot hold bf16).
 ``restore`` writes into the tensors of a tree of the same structure, in
 place, where the reference returns new host arrays: a model's training
-state may be tens of GB and a second copy would not fit the card.  The
-reference's ``checkpoint.save`` fault point comes with the fault harness
-(ROADMAP queue 1, D1); restore onto other shardings with the mesh (E1).
+state may be tens of GB and a second copy would not fit the card.
+``_write`` consults the ``checkpoint.save`` fault point
+(``runtime/faults.py``) after the step's files are written and before the
+rename: a ``raise`` is a crash there, a ``torn`` fault truncates
+``arrays.npz`` and stops, and either way ``latest_step()`` still returns
+the last complete step.  Restore onto other shardings comes with the mesh
+(E1).
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.runtime import faults as _faults
 
 # npz cannot store bf16: store a bit view and the dtype name.
 _VIEW_AS = {"bfloat16": (np.uint16, torch.int16)}
@@ -155,6 +161,13 @@ class Checkpointer:
                     "dtypes": dtypes}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
+        # A raise here is a crash after the tmp directory exists and before
+        # the rename; a torn fault truncates arrays.npz mid-write and stops.
+        # Either way the final directory never appears.
+        fault = _faults.maybe_inject(_faults.CHECKPOINT_SAVE, step=step)
+        if fault is not None and fault.kind == _faults.TORN:
+            _faults.tear(os.path.join(tmp, "arrays.npz"))
+            return
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)

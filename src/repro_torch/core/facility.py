@@ -76,6 +76,18 @@ class FacilityConfig:
     out_dtype: torch.dtype = torch.bfloat16   # activation dtype between ops
     backend: str = "kernel"               # kernel | torch | ref
     device: object = None                 # None -> "cuda" (raises if absent)
+    # Guarded dispatch (core/lowering._guarded_dispatch): contract outputs
+    # pass a NaN/Inf detector and lowering failures demote down the
+    # kernel -> torch -> ref ladder, quarantined per (op-class, ger, spec,
+    # shapes).  Off by default: the unguarded dispatch is bit for bit the
+    # same and pays no detector sync.
+    guards: bool = False
+    # ABFT checksum verification (core/abft.py) inside guarded dispatch:
+    # finite but wrong outputs become a guard outcome too (retry once, then
+    # demote).  Needs guards=True; a separate flag because the attn/conv
+    # checks augment operands with a checksum column, which moves rounding
+    # (guards alone stay bit for bit).
+    abft: bool = False
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

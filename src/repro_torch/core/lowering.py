@@ -34,8 +34,16 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
   * ``ger``/``fused``: optional specializations; lookup falls back from the
     most specific key to ``(backend, op_class, None, None)``.
 
-There is no guarded ladder yet (ROADMAP slice D1): a kernel that fails to
-build or launch raises, it never demotes silently to another backend.
+Guarded dispatch
+----------------
+With ``FacilityConfig(guards=True)`` each contract output passes a NaN/Inf
+detector and lowering failures demote down the ladder kernel -> torch ->
+ref, quarantined per (op-class, ger, spec, shapes) (:func:`_guarded_dispatch`;
+with ``abft=True`` also checksum verification, ``core/abft.py``).  A kernel
+that fails to build or launch raises ``RuntimeError`` (``_build.check``),
+which is not one of :data:`LOWERING_ERRORS`: it raises under guards too and
+never demotes silently to another backend.  With guards off the dispatch is
+one contextvar read away from ``fn(op)``.
 
 Packed operands
 ---------------
@@ -81,19 +89,23 @@ fp32 pass into three chained bf16 passes over one accumulator.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
+import logging
 import warnings
 
 import torch
 
+from repro_torch.core import abft as _abft
 from repro_torch.core import packing, precision
 from repro_torch.kernels import epilogue as _epilogue_mod
 from repro_torch.kernels import mma_attention as _attn
 from repro_torch.kernels import mma_conv as _conv
 from repro_torch.kernels import mma_gemm as _gemm
 from repro_torch.kernels import ref as _ref
+from repro_torch.runtime import faults as _faults
 
 Ger = precision.Ger
 _acc_scalar = _gemm.acc_scalar
@@ -373,6 +385,11 @@ _EXPANSIONS: dict[Ger, tuple[Ger, object]] = {}
 
 BACKENDS = ("kernel", "torch", "ref")
 
+# Contract dispatches by (backend that ran, op-class, ger value): under
+# guards the rung that returned the output.  Reset with
+# ``DISPATCH_COUNTS.clear()``.
+DISPATCH_COUNTS: collections.Counter = collections.Counter()
+
 
 def register(backend: str, op_class: str, *, ger: Ger | None = None,
              fused: bool | None = None):
@@ -571,7 +588,7 @@ def _lower_kernel_gemm(op: Op):
     acc2, res2 = _normalized_operands(op, b, m, n)
     passes = _passes(op.ger, x2, y2)
 
-    def one(kind, xi, yi, c, ep, out_dtype, *, forms=True):
+    def one(kind, xi, yi, c, ep, out_dtype, *, forms=True, checksum=False):
         pol = precision.policy(kind)
         use_ep = not ep.is_identity
         xi, xl = _fresh_panels(xi.to(pol.x_dtype))
@@ -584,10 +601,21 @@ def _lower_kernel_gemm(op: Op):
             beta=op.beta if forms else 1.0,
             ep=ep if use_ep else None,
             bias=op.bias if use_ep else None,
-            residual=res2 if use_ep else None, out_dtype=out_dtype)
+            residual=res2 if use_ep else None, out_dtype=out_dtype,
+            checksum=checksum)
 
     if len(passes) == 1:
         xi, yi, kind = passes[0]
+        slot = _abft.capture_slot()
+        if slot is not None and op.masks is None:
+            # ABFT-verified dispatch: the kernel sums each output tile's
+            # columns and rows in its store (K1e) and the reduced vectors
+            # go to the dispatcher's capture slot: no second read of the
+            # output.
+            out, ck_col, ck_row = one(kind, xi, yi, acc2, op.epilogue,
+                                      op.out_dtype, checksum=True)
+            _abft.deposit(slot, ck_col, ck_row)
+            return assemble(out)
         return assemble(one(kind, xi, yi, acc2, op.epilogue, op.out_dtype))
 
     # Expansion chain (F32GER_3XBF16): the product accumulates across
@@ -1303,6 +1331,218 @@ def _admit_packed(op_class: str, backend: str, pol, parsed, spec: str,
             packing.demote_value(y, op_class, **dq))
 
 
+# ----------------------------------------------------------------------
+# Guarded dispatch: the kernel -> torch -> ref degradation ladder
+# ----------------------------------------------------------------------
+# Opt-in via FacilityConfig(guards=True): contract outputs pass a NaN/Inf
+# detector, and lowering failures (an unsupported shape, an injected fault)
+# demote down the ladder.  Each demotion is logged and quarantined per
+# (op-class, ger, spec, shapes), so a poisoned configuration is demoted
+# ONCE, not retried on every call.  With guards off the dispatch tail is
+# bit for bit the unguarded facility's (tests/test_torch_guards.py).
+
+LADDER = ("kernel", "torch", "ref")
+
+# Exception classes a lowering legitimately raises for an operand it cannot
+# take (narrow on purpose: programming errors such as AttributeError must
+# surface, not demote).  faults.InjectedFault is the fault harness's
+# stand-in for all of them.  RuntimeError is NOT here, unlike the
+# reference's jax runtime error: a CUDA kernel that fails to build or
+# launch raises RuntimeError (kernels/_build.check) or
+# torch.AcceleratorError, and demoting it would be the hidden fallback the
+# port forbids, so it raises under guards too.
+LOWERING_ERRORS = (ValueError, TypeError, NotImplementedError,
+                   ArithmeticError)
+
+_QUARANTINE: dict[tuple, str] = {}     # guard key -> demoted start rung
+GUARD_EVENTS: list[dict] = []          # demotion log (tests/CI assert)
+_guard_log = logging.getLogger("repro_torch.facility.guards")
+
+
+def guard_key(op_class: str, op: Op) -> tuple:
+    """Quarantine granularity: one entry per (op-class, ger, spec, operand
+    shapes), the granularity the autotune cache keys a kernel config by."""
+    return (op_class, op.ger.value, op.spec, tuple(op.x.shape),
+            tuple(op.y.shape))
+
+
+def quarantine_state() -> dict:
+    return dict(_QUARANTINE)
+
+
+def clear_guard_state() -> None:
+    _QUARANTINE.clear()
+    GUARD_EVENTS.clear()
+    _abft.clear_verdicts()
+
+
+def _output_finite(out) -> bool:
+    """The NaN/Inf detector (one device sync per guarded dispatch)."""
+    if out.is_complex():
+        return bool(torch.isfinite(torch.view_as_real(out)).all())
+    if not out.is_floating_point():
+        return True
+    return bool(torch.isfinite(out).all())
+
+
+def _record_demotion(key, frm, to, reason, op_class, spec):
+    ev = {"op_class": op_class, "spec": spec, "from": frm, "to": to,
+          "reason": reason, "key": key}
+    GUARD_EVENTS.append(ev)
+    _guard_log.warning("guard: %s %r demoted %s -> %s (%s)",
+                       op_class, spec, frm, to, reason)
+
+
+def _apply_data_fault(fault, out):
+    """Apply the data-shaped fault kinds to a lowering output."""
+    if fault is None:
+        return out
+    if fault.kind == _faults.NAN:
+        return _faults.poison(out)
+    if fault.kind == _faults.FLIP:
+        return _faults.flip(out, fault.seed)
+    return out
+
+
+def _guarded_dispatch(op: Op, op_class: str, backend: str, ger: Ger,
+                      fused: bool, abft_on: bool = False):
+    """Walk the ladder from ``backend`` (or its quarantined demotion)
+    until a rung returns a clean output.
+
+    Demotion rules, the reference's:
+      * a rung that *raises* (LOWERING_ERRORS / InjectedFault) is
+        quarantined immediately — the failure is structural;
+      * a rung whose output is non-finite is demoted *pending*: the
+        quarantine commits only if a later rung produces finite output
+        (otherwise the NaN is input-borne and no rung is at fault);
+      * the final rung's non-finite output is returned as-is, without
+        quarantine — ref is ground truth;
+      * with ABFT on (``core/abft.py``) a rung whose output fails checksum
+        verification is retried ONCE on the same rung (transient SDC
+        clears), then demoted *pending* like the non-finite case; the
+        final rung's mismatch is returned as-is with an unrecovered
+        verdict on ``abft.VERDICTS``.
+
+    A verdict's ``detail`` is the check that detected the mismatch (the
+    dispatch's first failed check, on the rung it started from, so a
+    kernel-rung detection carries ``"sidecar": True``), where the
+    reference records the last rung's (or none for a demotion).
+    """
+    key = guard_key(op_class, op)
+    start = _QUARANTINE.get(key, backend)
+    if start not in LADDER:
+        start = backend
+    attempts = [r for r in LADDER[LADDER.index(start):]
+                if lookup(r, op_class, ger, fused) is not None]
+    if not attempts:
+        raise NotImplementedError(
+            f"no lowering registered on any ladder rung for "
+            f"({op_class!r}, {ger}, fused={fused})")
+    aplan = None
+    if abft_on:
+        conv_dw = (op_class == "conv"
+                   and _CONV_SPECS.get(op.spec, (0, False))[1])
+        aplan = _abft.plan_for(op, op_class, expanded=ger in _EXPANSIONS,
+                               conv_depthwise=conv_dw)
+
+    def attempt(fn, sub):
+        """One guarded execution: inject, run (checksum-instrumented when a
+        verification plan is active), apply data-shaped faults.  Returns
+        (out, raw, cap): ``out`` the caller-visible output, ``raw`` what
+        verification checks (the augmented checksum channel intact), ``cap``
+        the kernel sidecar's capture."""
+        fault = _faults.maybe_inject(_faults.CONTRACT_DISPATCH)
+        cap = None
+        if aplan is not None and aplan.augments:
+            raw = fn(aplan.augment(sub))
+        elif aplan is not None:
+            with _abft.capture() as cap:
+                raw = fn(sub)
+        else:
+            raw = fn(sub)
+        raw = _apply_data_fault(fault, raw)
+        out = aplan.strip(raw) if aplan is not None and aplan.augments \
+            else raw
+        return out, raw, cap
+
+    last_exc = None
+    pending_nonfinite = False
+    pending_mismatch = False
+    detected = None            # the first failed check's detail
+    for i, rung in enumerate(attempts):
+        fn = lookup(rung, op_class, ger, fused)
+        sub = op if rung == op.backend \
+            else dataclasses.replace(op, backend=rung)
+        nxt = attempts[i + 1] if i + 1 < len(attempts) else None
+        try:
+            out, raw, cap = attempt(fn, sub)
+        except (_faults.InjectedFault,) + LOWERING_ERRORS as e:
+            last_exc = e
+            if nxt is None:
+                raise
+            _record_demotion(key, rung, nxt, f"{type(e).__name__}: {e}",
+                             op_class, op.spec)
+            _QUARANTINE[key] = nxt
+            continue
+        if not _output_finite(out):
+            if nxt is None:
+                # ref itself is non-finite: input-borne NaN, nobody's fault
+                DISPATCH_COUNTS[(rung, op_class, ger.value)] += 1
+                return out
+            pending_nonfinite = True
+            _record_demotion(key, rung, nxt, "non-finite output",
+                             op_class, op.spec)
+            continue
+        if aplan is not None:
+            ok, detail = aplan.check(raw, cap)
+            if not ok:
+                detected = detected or detail
+                # Retry the SAME rung once: a one-shot upset clears; the
+                # retry consults the fault plan again, so max_fires-bounded
+                # injections clear like the hardware fault they stand for.
+                retried = None
+                try:
+                    retried = attempt(fn, sub)
+                except (_faults.InjectedFault,) + LOWERING_ERRORS as e:
+                    last_exc = e
+                if retried is not None:
+                    out2, raw2, cap2 = retried
+                    if _output_finite(out2) and aplan.check(raw2, cap2)[0]:
+                        _abft.record_verdict(
+                            key=key, op_class=op_class, spec=op.spec,
+                            rung=rung, recovered=True, how="retry",
+                            detail=detected)
+                        if rung != backend and (pending_nonfinite
+                                                or pending_mismatch):
+                            _QUARANTINE[key] = rung
+                        DISPATCH_COUNTS[(rung, op_class, ger.value)] += 1
+                        return out2
+                if nxt is None:
+                    # ground truth disagrees with its own checksums: return
+                    # it, but tell the serving loop (it discards the step
+                    # and requeues the slots).
+                    _abft.record_verdict(
+                        key=key, op_class=op_class, spec=op.spec,
+                        rung=rung, recovered=False, how="exhausted",
+                        detail=detected)
+                    DISPATCH_COUNTS[(rung, op_class, ger.value)] += 1
+                    return retried[0] if retried is not None else out
+                pending_mismatch = True
+                _record_demotion(key, rung, nxt, "checksum-mismatch",
+                                 op_class, op.spec)
+                continue
+        if rung != backend and (pending_nonfinite or pending_mismatch):
+            # data-borne demotions commit only on a clean lower rung
+            _QUARANTINE[key] = rung
+        if pending_mismatch:
+            _abft.record_verdict(
+                key=key, op_class=op_class, spec=op.spec, rung=rung,
+                recovered=True, how="demote", detail=detected)
+        DISPATCH_COUNTS[(rung, op_class, ger.value)] += 1
+        return out
+    raise last_exc  # pragma: no cover — the loop returns or raises
+
+
 def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
             acc=None, bias=None, residual=None,
             dequant: Dequant | None = None, masks=None):
@@ -1441,7 +1681,15 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
             window=plan.window, q_offset=plan.q_offset,
             q_chunk=plan.q_chunk, stride=stride, padding=plan.padding,
             backend=backend)
-    out = fn(op)
+    if cfg.guards:
+        out = _guarded_dispatch(op, op_class, backend, ger, not ep.is_identity,
+                                abft_on=cfg.abft)
+    else:
+        # The unguarded path: with no fault plan installed this is ONE
+        # contextvar read away from fn(op), bit for bit.
+        DISPATCH_COUNTS[(backend, op_class, ger.value)] += 1
+        fault = _faults.maybe_inject(_faults.CONTRACT_DISPATCH)
+        out = _apply_data_fault(fault, fn(op))
     if dequant is not None:
         out = dequant.apply(out).to(out_dtype)
     return out

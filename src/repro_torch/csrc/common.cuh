@@ -115,6 +115,36 @@ __device__ __forceinline__ bool lane_on(const uint8_t* mask, long long i) {
   return mask == nullptr || mask[i] != 0;
 }
 
+// The ABFT checksum sidecar (K1e: repro/kernels/mma_gemm.py's checksum
+// outputs): the column and row sums of one finished output tile, staged in
+// shared memory as `cs` (row pitch ldc) in the accumulator dtype, over its
+// first `rows` x `cols` elements (the M/N fringe is left out).  Column c's
+// sum goes to col_out[c], row r's to row_out[r * row_stride].  Threads
+// tid = 0 .. nthr - 1 (a multiple of 32) take the columns one a thread and
+// the rows one a warp (lane-strided partial sums, then a butterfly), each
+// in a fixed order: no atomics, the same sums on every run.  The caller
+// synchronises the threads before (the tile is complete) and after (the
+// tile's memory is reused).  The loops stay rolled: unrolled, they took
+// ptxas past 400 s on the wgmma consumers (gemm_wgmma.cu, mma_conv.cu).
+template <typename Acc>
+__device__ void tile_checksums(const Acc* cs, int ldc, int rows, int cols,
+                               Acc* col_out, Acc* row_out,
+                               long long row_stride, int tid, int nthr) {
+  for (int c = tid; c < cols; c += nthr) {
+    Acc s = 0;
+    for (int r = 0; r < rows; ++r) s += cs[(long long)r * ldc + c];
+    col_out[c] = s;
+  }
+  const int lane = tid % 32;
+  for (int r = tid / 32; r < rows; r += nthr / 32) {
+    Acc s = 0;
+    for (int c = lane; c < cols; c += 32) s += cs[(long long)r * ldc + c];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) row_out[r * row_stride] = s;
+  }
+}
+
 // Give a kernel more than 48 KB of dynamic shared memory (once).
 template <typename Kernel>
 static cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {

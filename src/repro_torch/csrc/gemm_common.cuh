@@ -20,6 +20,10 @@ struct GemmEpi {
   float alpha, beta;
   int neg_product, neg_acc, act;
   int vec8;  // c, bias, res and out 16-byte aligned: 8-wide vector access
+  // The ABFT sidecar (K1e), fp32: ((B,) gm, N) per-tile column sums and
+  // ((B,) M, gn) per-tile row sums, or null (no sidecar).
+  float* ck_col = nullptr;
+  float* ck_row = nullptr;
 };
 
 // The finished value of output (bz, row, col) from its product `acc`.
@@ -33,12 +37,6 @@ __device__ __forceinline__ float gemm_finish(const GemmEpi& e, int bz, int row,
   }
   if (e.alpha != 1.f) v *= e.alpha;
   return epilogue_apply(v, e.act, e.bias, e.bias_dt, col, e.res, e.res_dt, idx);
-}
-
-__device__ __forceinline__ void gemm_store(const GemmEpi& e, int bz, int row,
-                                           int col, float acc) {
-  const long long idx = ((long long)bz * e.M + row) * e.N + col;
-  store_f(e.out, e.out_dt, idx, gemm_finish(e, bz, row, col, acc));
 }
 
 // Eight consecutive elements at idx (a multiple of 8, 16-byte aligned).
@@ -94,14 +92,19 @@ __device__ __forceinline__ void store8_f(void* p, int dt, long long idx,
 // Eight adjacent columns (col a multiple of 8) of one row, masked at the M
 // and N fringes: vector loads and one vector store where the row holds
 // all eight and every operand is aligned, else element by element.  The
-// arithmetic is gemm_finish's, in its order.
+// arithmetic is gemm_finish's, in its order.  On return v holds the
+// finished values of the lanes inside the matrix (the sidecar's input).
 __device__ __forceinline__ void gemm_store8(const GemmEpi& e, int bz, int row,
                                             int col, float (&v)[8]) {
   if (row >= e.M || col >= e.N) return;
   if (!e.vec8 || col + 8 > e.N || (e.N & 7)) {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      if (col + i < e.N) gemm_store(e, bz, row, col + i, v[i]);
+      if (col + i < e.N) {
+        v[i] = gemm_finish(e, bz, row, col + i, v[i]);
+        const long long idx = ((long long)bz * e.M + row) * e.N + col + i;
+        store_f(e.out, e.out_dt, idx, v[i]);
+      }
     return;
   }
   const long long idx = ((long long)bz * e.M + row) * e.N + col;

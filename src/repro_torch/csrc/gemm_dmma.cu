@@ -27,6 +27,11 @@
 // The row pitches (20 and 68 doubles) make every fragment read
 // conflict-free.  The deprime goes through a shared fp64 tile, so that each
 // output element is stored once, coalesced, in the requested dtype.
+// The ABFT checksum sidecar (K1e, checksum=True in
+// repro/kernels/mma_gemm.py): with ck_col / ck_row set, each finished fp64
+// value goes back over the deprime tile after its store, and the block
+// sums the tile's columns (one a thread) and rows (one a warp) in fp64, in
+// a fixed order (common.cuh's tile_checksums); the stores are untouched.
 // Masked (K1b): the MASKED instance loads each staged pair's mask bytes
 // beside it and zeroes a disabled row or rank of X and rank or column of Y
 // when the pair goes to shared memory (after the current stage's MMAs, so
@@ -65,6 +70,8 @@ struct DmmaArgs {
   const uint8_t* xm;                   // pm* byte masks over M, N and K,
   const uint8_t* ym;                   // each null or one byte a lane
   const uint8_t* pm;                   // (the MASKED instance)
+  double* ck_col;                      // ((B,) gm, N) fp64 sidecar, or null
+  double* ck_row;                      // ((B,) M, gn)
 };
 
 __device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
@@ -238,6 +245,17 @@ __global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
     v = act_d(v, a.act);
     if (a.res) v += a.res[rbase + idx];
     store_d(a.out, a.out_dt, obase + idx, v);
+    if (a.ck_col) cs[row * CP + col] = v;
+  }
+  if (a.ck_col) {
+    __syncthreads();
+    const int gm = (a.M + BM - 1) / BM, gn = (a.N + BN - 1) / BN;
+    tile_checksums<double>(cs, CP, min(BM, a.M - m0), min(BN, a.N - n0),
+                           a.ck_col + ((long long)bz * gm + m0 / BM) * a.N +
+                               n0,
+                           a.ck_row + ((long long)bz * a.M + m0) * gn +
+                               n0 / BN,
+                           gn, threadIdx.x, THREADS);
   }
 }
 
@@ -248,7 +266,9 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // c, bias and res are fp64; batch strides count elements; xm, ym, pm the
-// pm* byte masks over M, N and K, each null or one byte a lane.
+// pm* byte masks over M, N and K, each null or one byte a lane; ck_col /
+// ck_row the sidecar's ((B,) ceil(M / 64), N) and ((B,) M, ceil(N / 64))
+// fp64 outputs, or null.
 extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
                                 const void* ym, const void* pm, const void* c,
                                 const void* bias, const void* res, void* out,
@@ -256,7 +276,8 @@ extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
                                 long long sxb, long long syb, long long scb,
                                 long long srb, long long sob, double alpha,
                                 double beta, int neg_product, int neg_acc,
-                                int act, void* stream) {
+                                int act, void* ck_col, void* ck_row,
+                                void* stream) {
   DmmaArgs a;
   a.x = reinterpret_cast<const double*>(x);
   a.y = reinterpret_cast<const double*>(y);
@@ -274,6 +295,8 @@ extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
   a.xm = reinterpret_cast<const uint8_t*>(xm);
   a.ym = reinterpret_cast<const uint8_t*>(ym);
   a.pm = reinterpret_cast<const uint8_t*>(pm);
+  a.ck_col = reinterpret_cast<double*>(ck_col);
+  a.ck_row = reinterpret_cast<double*>(ck_row);
   const bool masked = xm || ym || pm;
   static bool smem_ok[2] = {false, false};
   auto kernel = masked ? gemm_dmma_kernel<true> : gemm_dmma_kernel<false>;

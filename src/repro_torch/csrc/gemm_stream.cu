@@ -38,7 +38,16 @@
 //     no call depends on another) sums them in split order -- no float
 //     atomics, so a result does not change from run to run -- and applies
 //     the seed, alpha and the fused epilogue once.  With one split the
-//     block stores straight from its registers.
+//     block stores straight from its staged tile.
+//   * The ABFT checksum sidecar (K1e: repro/kernels/mma_gemm.py's
+//     checksum=True): with ck_col / ck_row set, the block that stores an
+//     N tile -- with K split, the last to arrive, after it has reduced the
+//     partials and applied the seed and epilogue, never a partial -- writes
+//     the finished fp32 values back over its staged tile and sums the
+//     tile's M rows by column (one column a thread) and its columns by row
+//     (one row a warp) in a fixed order: ck_col (B, 1, N), ck_row (B, M,
+//     N tiles).  The stores are untouched, so the output is the same bit
+//     for bit.
 //   * Prepacked weights (K1d: repro/kernels/mma_gemm.py's packed_spec):
 //     through gemm_stream_packed_launch (w_packed) the weight arrives as
 //     core/packing.py's Y-side panels,
@@ -188,6 +197,20 @@ __device__ __forceinline__ void mma16816<__half>(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The sidecar of one (M, BN) N tile from its finished fp32 values, staged
+// in ct (row pitch BN + 4): gm = 1, gn = the grid's N tiles.
+template <int BN>
+__device__ __forceinline__ void stream_checksums(const float* ct,
+                                                 const GemmEpi& e, int bz,
+                                                 int nt, int gn) {
+  __syncthreads();  // every finished value is in ct
+  const int n0 = nt * BN;
+  tile_checksums<float>(ct, BN + 4, e.M, min(BN, e.N - n0),
+                        e.ck_col + (long long)bz * e.N + n0,
+                        e.ck_row + (long long)bz * e.M * gn + nt, gn,
+                        threadIdx.x, ST_THREADS);
+}
+
 template <typename T, int BN, int MT>
 __global__ void __launch_bounds__(ST_THREADS)
     gemm_stream_kernel(StreamArgs a) {
@@ -299,11 +322,16 @@ __global__ void __launch_bounds__(ST_THREADS)
            (q >= 2 ? 8 : 0)] = acc[f][j][q];
   __syncthreads();
 
+  const bool ck = e.ck_col != nullptr;
   if (a.split == 1) {
     for (int i = threadIdx.x; i < M * BN; i += ST_THREADS) {
       const int m = i / BN, c = i % BN;
-      if (n0 + c < N) gemm_store(e, bz, m, n0 + c, ct[m * LDC + c]);
+      if (n0 + c >= N) continue;
+      const float v = gemm_finish(e, bz, m, n0 + c, ct[m * LDC + c]);
+      store_f(e.out, e.out_dt, ((long long)bz * M + m) * N + n0 + c, v);
+      if (ck) ct[m * LDC + c] = v;
     }
+    if (ck) stream_checksums<BN>(ct, e, bz, nt, gridDim.x);
     return;
   }
   float* part = a.ws + ((long long)bz * a.split + s) * M * N;
@@ -334,8 +362,11 @@ __global__ void __launch_bounds__(ST_THREADS)
       for (int u = 0; u < 8; ++u)
         if (p0 + u < a.split) v += pv[u];
     }
-    gemm_store(e, bz, m, n, v);
+    v = gemm_finish(e, bz, m, n, v);
+    store_f(e.out, e.out_dt, ((long long)bz * M + m) * N + n, v);
+    if (ck) ct[m * LDC + i % BN] = v;
   }
+  if (ck) stream_checksums<BN>(ct, e, bz, nt, gridDim.x);
 }
 
 template <typename T, int BN, int MT>
@@ -381,7 +412,7 @@ static int stream_launch(
     const void* res, void* out, float* ws, int* tickets, int in_dt, int c_dt,
     int bias_dt, int res_dt, int out_dt, int batch, int M, int N, int K,
     float alpha, float beta, int neg_product, int neg_acc, int act, int bn,
-    int split, void* stream, int w_packed) {
+    int split, float* ck_col, float* ck_row, void* stream, int w_packed) {
   StreamArgs a;
   a.x = x; a.w = w; a.ws = ws; a.tickets = tickets;
   a.e.c = c; a.e.bias = bias; a.e.res = res; a.e.out = out;
@@ -391,6 +422,7 @@ static int stream_launch(
   a.e.alpha = alpha; a.e.beta = beta;
   a.e.neg_product = neg_product; a.e.neg_acc = neg_acc; a.e.act = act;
   a.e.vec8 = 0;  // element stores (the tile is at most 64 rows)
+  a.e.ck_col = ck_col; a.e.ck_row = ck_row;
   a.K = K;
   a.stages = (K + ST_BK - 1) / ST_BK;
   a.split = split;
@@ -407,16 +439,18 @@ static int stream_launch(
 }
 
 // The launchers, one argument list: w as natural (K, N) rows, or as
-// core/packing.py's Y-side panels.
+// core/packing.py's Y-side panels; ck_col / ck_row the sidecar's outputs,
+// (B, 1, N) and (B, M, ceil(N / bn)) fp32, or null.
 extern "C" int gemm_stream_launch(
     const void* x, const void* w, const void* c, const void* bias,
     const void* res, void* out, float* ws, int* tickets, int in_dt, int c_dt,
     int bias_dt, int res_dt, int out_dt, int batch, int M, int N, int K,
     float alpha, float beta, int neg_product, int neg_acc, int act, int bn,
-    int split, void* stream) {
+    int split, float* ck_col, float* ck_row, void* stream) {
   return stream_launch(x, w, c, bias, res, out, ws, tickets, in_dt, c_dt,
                        bias_dt, res_dt, out_dt, batch, M, N, K, alpha, beta,
-                       neg_product, neg_acc, act, bn, split, stream, 0);
+                       neg_product, neg_acc, act, bn, split, ck_col, ck_row,
+                       stream, 0);
 }
 
 extern "C" int gemm_stream_packed_launch(
@@ -424,8 +458,9 @@ extern "C" int gemm_stream_packed_launch(
     const void* res, void* out, float* ws, int* tickets, int in_dt, int c_dt,
     int bias_dt, int res_dt, int out_dt, int batch, int M, int N, int K,
     float alpha, float beta, int neg_product, int neg_acc, int act, int bn,
-    int split, void* stream) {
+    int split, float* ck_col, float* ck_row, void* stream) {
   return stream_launch(x, w, c, bias, res, out, ws, tickets, in_dt, c_dt,
                        bias_dt, res_dt, out_dt, batch, M, N, K, alpha, beta,
-                       neg_product, neg_acc, act, bn, split, stream, 1);
+                       neg_product, neg_acc, act, bn, split, ck_col, ck_row,
+                       stream, 1);
 }

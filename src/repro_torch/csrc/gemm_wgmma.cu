@@ -38,6 +38,12 @@
 //   * The ring's layout, the tile order, the consumers and the epilogue
 //     are wgmma_tile.cuh's, shared with K3's wgmma conv (mma_conv.cu);
 //     only the producer is this file's.
+//   * The ABFT checksum sidecar (K1e: repro/kernels/mma_gemm.py's
+//     checksum=True): with ck_col / ck_row set, the consumers write the
+//     finished fp32 values back over the staged tile after their 16-byte
+//     stores and sum its columns (one a thread) and rows (one a warp) in a
+//     fixed order, one write per tile column and row; the stores are
+//     untouched, so the output is the same bit for bit.
 //   * Prepacked weights (K1d: repro/kernels/mma_gemm.py's packed_spec):
 //     through gemm_wgmma_packed_launch, Y arrives as core/packing.py's
 //     Y-side panels, (gn, gk,
@@ -181,8 +187,8 @@ static int wgmma_launch(
     const void* x, const void* y, const void* c, const void* bias,
     const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
     int out_dt, int batch, int batched, int M, int N, int K, float alpha,
-    float beta, int neg_product, int neg_acc, int act, int bn, void* stream,
-    int y_packed) {
+    float beta, int neg_product, int neg_acc, int act, int bn, float* ck_col,
+    float* ck_row, void* stream, int y_packed) {
   if (K % 8 || N % 8 || K < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(y) & 15))
     return (int)cudaErrorInvalidValue;  // TMA: 16-byte bases and pitches
@@ -192,6 +198,7 @@ static int wgmma_launch(
   e.M = M; e.N = N;
   e.alpha = alpha; e.beta = beta;
   e.neg_product = neg_product; e.neg_acc = neg_acc; e.act = act;
+  e.ck_col = ck_col; e.ck_row = ck_row;
   e.vec8 = 1;
   for (const void* p : {c, bias, res, (const void*)out})
     if (reinterpret_cast<uintptr_t>(p) & 15) e.vec8 = 0;
@@ -206,23 +213,28 @@ static int wgmma_launch(
 }
 
 // The launchers, one argument list: y as natural (K, N) rows, or as
-// core/packing.py's Y-side panels.
+// core/packing.py's Y-side panels; ck_col / ck_row the sidecar's outputs,
+// ((B,) ceil(M / 128), N) and ((B,) M, ceil(N / bn)) fp32, or null.
 extern "C" int gemm_wgmma_launch(
     const void* x, const void* y, const void* c, const void* bias,
     const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
     int out_dt, int batch, int batched, int M, int N, int K, float alpha,
-    float beta, int neg_product, int neg_acc, int act, int bn, void* stream) {
+    float beta, int neg_product, int neg_acc, int act, int bn, float* ck_col,
+    float* ck_row, void* stream) {
   return wgmma_launch(x, y, c, bias, res, out, in_dt, c_dt, bias_dt, res_dt,
                       out_dt, batch, batched, M, N, K, alpha, beta,
-                      neg_product, neg_acc, act, bn, stream, 0);
+                      neg_product, neg_acc, act, bn, ck_col, ck_row, stream,
+                      0);
 }
 
 extern "C" int gemm_wgmma_packed_launch(
     const void* x, const void* y, const void* c, const void* bias,
     const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
     int out_dt, int batch, int batched, int M, int N, int K, float alpha,
-    float beta, int neg_product, int neg_acc, int act, int bn, void* stream) {
+    float beta, int neg_product, int neg_acc, int act, int bn, float* ck_col,
+    float* ck_row, void* stream) {
   return wgmma_launch(x, y, c, bias, res, out, in_dt, c_dt, bias_dt, res_dt,
                       out_dt, batch, batched, M, N, K, alpha, beta,
-                      neg_product, neg_acc, act, bn, stream, 1);
+                      neg_product, neg_acc, act, bn, ck_col, ck_row, stream,
+                      1);
 }

@@ -7,7 +7,16 @@
 //     out = cast(epilogue(softmax(Q K^T * D^-1/2 + mask) V))
 //
 // q (B, Sq, H, D), k and v (B, Sk, KVH, D), bf16, f16 or (K2e, the F32GER
-// policy's operands) f32, D = 32, 64 or 128, fp32 online softmax.  Query
+// policy's operands) f32, D = 32, 64, 128 or 192 (f32: 160 for 192), fp32
+// online softmax.  The scale comes from the caller (the wrapper passes the
+// logical depth's D^-1/2): a depth that is not compiled -- ABFT's checksum
+// column makes deepseek's 128 a 129 and whisper's 64 a 65 -- is zero-padded
+// to the next compiled one by the wrapper (kernels/mma_attention.py),
+// which leaves Q K^T unchanged, and the padded output columns are dropped.
+// 192 = 3 x 64 keeps the 128-byte swizzled boxes; it runs the 64-row tile
+// only (4 ring stages, 222,280 bytes of shared memory; 232 registers a
+// consumer thread, no spill), as the 128-row tile's 96 fp32 accumulators
+// a thread spilled; fp32's 160 holds its tile in 227,328 bytes.  Query
 // head h reads KV head h / (H / KVH) (GQA) without materialising the
 // repeat.  The mask is the conjunction of
 // the causal, sliding-window, q_offset and valid-slot predicates.
@@ -727,6 +736,7 @@ static int launch_flash_f32(const void* q, const void* k, const void* v,
 static int launch_f32_by_depth(const void* q, const void* k, const void* v,
                                const AttnArgs& a, int bq, cudaStream_t s) {
   if (bq != F32A_BQ) return (int)cudaErrorInvalidValue;
+  if (a.D == 160) return launch_flash_f32<160>(q, k, v, a, s);
   if (a.D == 128) return launch_flash_f32<128>(q, k, v, a, s);
   if (a.D == 64) return launch_flash_f32<64>(q, k, v, a, s);
   if (a.D == 32) return launch_flash_f32<32>(q, k, v, a, s);
@@ -774,6 +784,9 @@ static int launch_by_tile(const void* q, const void* k, const void* v,
 template <typename T>
 static int launch_by_depth(const void* q, const void* k, const void* v,
                            const AttnArgs& a, int bq, cudaStream_t s) {
+  if (a.D == 192)  // the 64-row tile only (the wrapper asks for no other)
+    return bq == 64 ? launch_flash<T, 192, 1>(q, k, v, a, s)
+                    : (int)cudaErrorInvalidValue;
   if (a.D == 128) return launch_by_tile<T, 128>(q, k, v, a, bq, s);
   if (a.D == 64) return launch_by_tile<T, 64>(q, k, v, a, bq, s);
   if (a.D == 32) return launch_by_tile<T, 32>(q, k, v, a, bq, s);

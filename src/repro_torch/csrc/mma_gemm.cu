@@ -2,16 +2,16 @@
 //
 // Replaces the TPU kernel K1a: repro/kernels/mma_gemm.py, mma_gemm
 // (kernel body _make_kernel), restricted to the F32GER / BF16GER2 / F16GER2
-// families, 2-D and batched operands, the accumulate forms and the fused
-// epilogue:
+// families, 2-D and batched operands, the accumulate forms, the fused
+// epilogue and the ABFT checksum sidecar:
 //
 //     out = cast(residual + act(bias + alpha * ([-](X @ Y) + s * beta * C)))
 //
 // with s = -1 for the neg_acc form, and the pm* prefixed masked forms (K1b:
 // the row, column and rank predicates of repro/kernels/mma_gemm.py's
 // _make_kernel, applied to the staged panels).  The int8/int4/int16/f64
-// families (gemm_imma.cu, gemm_dmma.cu), prepacked panels and the ABFT
-// sidecar are not here.
+// families (gemm_imma.cu, gemm_dmma.cu) and prepacked panels are not
+// here.
 //
 // Which products run here.  core/tiling.py's choose_gemm_path sends M <=
 // 64 to the weight stream (gemm_stream.cu) and larger M with 16-byte
@@ -42,6 +42,12 @@
 //     row, column or rank as 0 in the branch that zero-fills the fringes
 //     (one byte a lane read from the (M,), (N,), (K,) masks, L1-cached);
 //     the unmasked instances are unchanged.
+//   * the ABFT sidecar (K1e, checksum=True in repro/kernels/mma_gemm.py):
+//     with ck_col / ck_row set, the deprime writes each finished fp32
+//     value back over the store_matrix_sync staging, and the block sums the
+//     tile's columns (one a thread) and rows (one a warp) in a fixed order
+//     (common.cuh's tile_checksums): one write per tile column and row, no
+//     atomics; the stores are untouched.
 // The update loop is tile_gemm.cuh's, shared with K3's implicit GEMM.
 // Loads are synchronous 16-byte vectors (no cp.async/TMA pipeline, no
 // wgmma): the two other kernels carry the main path's products.
@@ -62,6 +68,8 @@ struct GemmArgs {
   int neg_product, neg_acc, act;
   int vec_x, vec_y;  // rows 16-byte aligned: vector loads allowed
   PmMasks mk;        // the pm* predicates (the MASKED instances)
+  float* ck_col;     // ((B,) gm, N) per-tile column sums, or null
+  float* ck_row;     // ((B,) M, gn) per-tile row sums, or null
 };
 
 // prime: the seed s * beta * C into the shared fp32 tile (zero off-matrix).
@@ -83,13 +91,16 @@ __device__ void prime_tile(float* cs, const GemmArgs& a, int bz, int m0,
   }
 }
 
-// deprime: alpha, epilogue, cast; every in-bounds element stored once.
+// deprime: alpha, epilogue, cast; every in-bounds element stored once;
+// with the sidecar, the finished values back over the tile and its sums.
 template <int BM, int BN>
-__device__ void store_tile(const float* cs, const GemmArgs& a, int bz, int m0,
+__device__ void store_tile(float* cs, const GemmArgs& a, int bz, int m0,
                            int n0) {
+  constexpr int LDC = BN + 4;
   const float fin = a.neg_product ? -1.f : 1.f;
   const long long rbase = (long long)bz * a.srb;
   const long long obase = (long long)bz * a.sob;
+  const bool ck = a.ck_col != nullptr;
   for_each_in_tile<BM, BN>(cs, a.M, a.N, m0, n0, [&](int gr, int gc, float v) {
     v *= fin;
     if (a.alpha != 1.f) v *= a.alpha;
@@ -97,7 +108,16 @@ __device__ void store_tile(const float* cs, const GemmArgs& a, int bz, int m0,
     v = epilogue_apply(v, a.act, a.bias, a.bias_dt, gc, a.res, a.res_dt,
                        rbase + idx);
     store_f(a.out, a.out_dt, obase + idx, v);
+    if (ck) cs[(gr - m0) * LDC + gc - n0] = v;
   });
+  if (ck) {
+    __syncthreads();
+    const int gm = (a.M + BM - 1) / BM, gn = (a.N + BN - 1) / BN;
+    tile_checksums<float>(cs, LDC, min(BM, a.M - m0), min(BN, a.N - n0),
+                          a.ck_col + ((long long)bz * gm + m0 / BM) * a.N + n0,
+                          a.ck_row + ((long long)bz * a.M + m0) * gn + n0 / BN,
+                          gn, threadIdx.x, blockDim.x);
+  }
 }
 
 // bf16 / f16 on the tensor cores (tile_gemm.cuh's wmma_tile).
@@ -189,7 +209,9 @@ static bool aligned16(const void* p) {
 }
 
 // xm, ym, pm: the pm* byte masks over M, N and K, each null or one byte a
-// lane; any non-null one selects the MASKED kernels.
+// lane; any non-null one selects the MASKED kernels.  ck_col / ck_row: the
+// sidecar's ((B,) ceil(M / bm), N) and ((B,) M, ceil(N / bn)) fp32 outputs,
+// or null.
 extern "C" int mma_gemm_launch(
     const void* x, const void* y, const void* xm, const void* ym,
     const void* pm, const void* c, const void* bias,
@@ -197,7 +219,7 @@ extern "C" int mma_gemm_launch(
     int out_dt, int batch, int M, int N, int K, long long sxb, long long syb,
     long long scb, long long srb, long long sob, float alpha, float beta,
     int neg_product, int neg_acc, int act, int bm, int bn, int bk,
-    void* stream) {
+    float* ck_col, float* ck_row, void* stream) {
   GemmArgs a;
   a.x = x; a.y = y; a.c = c; a.bias = bias; a.res = res; a.out = out;
   a.c_dt = c_dt; a.bias_dt = bias_dt; a.res_dt = res_dt; a.out_dt = out_dt;
@@ -210,6 +232,7 @@ extern "C" int mma_gemm_launch(
   a.mk.xm = reinterpret_cast<const uint8_t*>(xm);
   a.mk.ym = reinterpret_cast<const uint8_t*>(ym);
   a.mk.pm = reinterpret_cast<const uint8_t*>(pm);
+  a.ck_col = ck_col; a.ck_row = ck_row;
   const bool masked = xm || ym || pm;
   for (const void* m : {xm, ym, pm})   // 8-byte mask loads
     if (m && !aligned16(m)) return (int)cudaErrorInvalidValue;

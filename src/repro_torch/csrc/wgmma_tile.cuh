@@ -47,7 +47,10 @@ __device__ __forceinline__ void wg_tile_origin(int id, int M, int N, int& m0,
 // stage released when the group after it is issued; then the accumulators
 // go through the ring (idle once both consumers are done with it) as an
 // fp32 tile, and gemm_store8 stores eight columns a thread, each element
-// once, with the GEMM's epilogue.
+// once, with the GEMM's epilogue.  With the ABFT sidecar (e.ck_col set,
+// the GEMM only) each thread writes its finished values back over the
+// staged tile, and the two consumer warpgroups then sum the tile's columns
+// and rows before they leave (tile_checksums).
 template <typename T, int BN>
 __device__ __forceinline__ void wg_consume(unsigned char* smem, uint64_t* full,
                                            uint64_t* empty, int kiters,
@@ -102,5 +105,21 @@ __device__ __forceinline__ void wg_consume(unsigned char* smem, uint64_t* full,
     const float4 hi = *reinterpret_cast<const float4*>(ct + rr * LDC + col + 4);
     float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     gemm_store8(e, bz, m0 + c * 64 + rr, n0 + col, v);
+    if (e.ck_col) {
+      *reinterpret_cast<float4*>(ct + rr * LDC + col) =
+          make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(ct + rr * LDC + col + 4) =
+          make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+  if (e.ck_col) {
+    named_bar_sync(1, 256);  // both 64-row halves of the tile are final
+    const int gm = (e.M + WG_BM - 1) / WG_BM, gn = (e.N + BN - 1) / BN;
+    tile_checksums<float>(reinterpret_cast<const float*>(smem), LDC,
+                          min(WG_BM, e.M - m0), min(BN, e.N - n0),
+                          e.ck_col + ((long long)bz * gm + m0 / WG_BM) * e.N +
+                              n0,
+                          e.ck_row + ((long long)bz * e.M + m0) * gn + n0 / BN,
+                          gn, threadIdx.x - 128, 256);
   }
 }

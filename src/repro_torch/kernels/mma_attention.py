@@ -24,7 +24,19 @@ kernel or raises.  ``mma_flash_attention.launches`` counts attention
 calls run on the card (the split-KV merge is part of its call), and
 nothing else; ``mma_flash_attention.launches_by_mode`` the same by mode:
 ``tile`` and ``split`` (the 16-bit wgmma kernel), ``f32_tile`` and
-``f32_split`` (the fp32 tile, K2e).
+``f32_split`` (the fp32 tile, K2e); ``padded_launches_by_mode`` those of
+them whose depth was padded.
+
+Head depths: the kernel is compiled for D = 32, 64, 128 and 192 (16-bit)
+or 32, 64, 128 and 160 (fp32) (:data:`KERNEL_HEAD_DIMS`).  Any other D up
+to the largest runs every mode at the next compiled depth: the wrapper
+zero-pads q, k and v (and the epilogue's bias and residual), which leaves
+every score unchanged, passes the softmax scale of the *logical* depth D
+(never the padded one), and drops the padded output columns.  This is the
+depth ABFT's attention check gives (``core/abft.py`` adds one checksum
+column: deepseek's 128 becomes 129, run at 192; whisper's 64 becomes 65,
+run at 128), whose q the reference pre-scales by sqrt((D + 1) / D) on
+exactly that assumption.
 
 Gradients: where q, k, v, bias or the residual requires one, the call
 runs as a ``torch.autograd.Function``: the forward is the kernel (or the
@@ -51,7 +63,10 @@ NEG_INF = -1e30
 BLOCK_Q, BLOCK_Q_SHORT, BLOCK_K = 128, 64, 64
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MODES = ("tile", "split", "f32_tile", "f32_split")
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# The depths the kernel is compiled for, by operand dtype (the 16-bit
+# wgmma kernel; the fp32 tile, whose 192 would not fit shared memory).
+KERNEL_HEAD_DIMS = (32, 64, 128, 192)
+F32_HEAD_DIMS = (32, 64, 128, 160)
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_int] * 6
@@ -424,9 +439,11 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
         raise NotImplementedError(
             f"the attention kernel takes f32/bf16/f16 q, k, v of one dtype, "
             f"not {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"head dim {d} not compiled; have "
-                                  f"{KERNEL_HEAD_DIMS}")
+    depths = F32_HEAD_DIMS if q.dtype == torch.float32 else KERNEL_HEAD_DIMS
+    dp = next((c for c in depths if c >= d), None)
+    if dp is None:
+        raise NotImplementedError(f"head dim {d} is above the compiled "
+                                  f"depths {depths}")
     if out_dtype not in _OUT_CODES:
         raise NotImplementedError(f"the attention kernel stores "
                                   f"f32/bf16/f16, not {out_dtype}")
@@ -446,21 +463,28 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
     if b * n_split > 65535:
         raise ValueError(f"grid too large for one launch: b={b} x "
                          f"{n_split} splits")
+    if dp != d:
+        # zero columns past the logical depth: the scores are unchanged
+        q, k, v, bias, residual = (
+            torch.nn.functional.pad(t, (0, dp - d)) if t is not None
+            else None for t in (q, k, v, bias, residual))
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     bias = bias.contiguous() if bias is not None else None
     residual = residual.contiguous() if residual is not None else None
-    out = torch.empty((b, sq, h, d), dtype=out_dtype, device=q.device)
+    out = torch.empty((b, sq, h, dp), dtype=out_dtype, device=q.device)
     if out.numel() == 0:
-        return out                  # an empty grid is not a launch
+        return out[..., :d]         # an empty grid is not a launch
     ws_o = ws_ml = None
     if n_split > 1:
-        ws_o = torch.empty((b, h, sq, n_split, d), dtype=torch.float32,
+        ws_o = torch.empty((b, h, sq, n_split, dp), dtype=torch.float32,
                            device=q.device)
         ws_ml = torch.empty((b, h, sq, n_split, 2), dtype=torch.float32,
                             device=q.device)
     f32 = q.dtype == torch.float32
-    # the fp32 tile has 64 query rows in both modes
-    bq = BLOCK_Q_SHORT if n_split > 1 or f32 else attn_block_q(b, h, sq)
+    # the fp32 tile has 64 query rows in both modes, as has the padded
+    # depth 192 (its 128-row tile would spill its accumulators)
+    bq = (BLOCK_Q_SHORT if n_split > 1 or f32 or dp == 192
+          else attn_block_q(b, h, sq))
     lib = _lib()
     rc = lib.mma_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -473,23 +497,28 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
         KERNEL_DTYPES[q.dtype],
         _OUT_CODES[bias.dtype] if bias is not None else 0,
         _OUT_CODES[residual.dtype] if residual is not None else 0,
-        _OUT_CODES[out_dtype], b, sq, sk, h, kvh, d, int(causal),
+        _OUT_CODES[out_dtype], b, sq, sk, h, kvh, dp, int(causal),
         int(q_offset), int(window or 0), float(d ** -0.5),
         _epilogue.ACT_CODES[ep.activation if ep is not None else None],
         bq, n_split, per, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "mma_flash_attention")
+    mode = ("f32_" if f32 else "") + ("split" if n_split > 1 else "tile")
     mma_flash_attention.launches += 1
-    mma_flash_attention.launches_by_mode[
-        ("f32_" if f32 else "") + ("split" if n_split > 1 else "tile")] += 1
+    mma_flash_attention.launches_by_mode[mode] += 1
     if mma_flash_attention.trace is not None:
         mma_flash_attention.trace.append(
             (b, sq, sk, h, kvh, d, q.dtype, bool(causal), int(q_offset),
              window, valid is not None, n_split))
+    if dp != d:
+        mma_flash_attention.padded_launches_by_mode[mode] += 1
+        return out[..., :d].contiguous()
     return out
 
 
 mma_flash_attention.launches = 0
 mma_flash_attention.launches_by_mode = dict.fromkeys(MODES, 0)
+# The launches at a padded depth (also in launches_by_mode), by mode.
+mma_flash_attention.padded_launches_by_mode = dict.fromkeys(MODES, 0)
 # A list to record (B, Sq, Sk, H, KVH, D, dtype, causal, q_offset, window,
 # valid given, n_split) of each launch into, or None (chip_smoke.py).
 mma_flash_attention.trace = None

@@ -32,7 +32,27 @@ counts products computed on the card (one per call, whatever the path or
 split), ``mma_gemm.launches_by_path`` the same by path,
 ``mma_gemm.packed_launches_by_path`` those of them that read packed
 panels, ``mma_gemm.masked_launches_by_path`` those that applied pm*
-predicates, and nothing else.
+predicates, ``mma_gemm.checksum_launches_by_path`` those that took the ABFT
+sidecar, and nothing else.
+
+The ABFT checksum sidecar (K1e, ``core/abft.py``): ``checksum=True``
+returns ``(out, ck_col, ck_row)``, where ``ck_col`` ((B,) gm, N) holds each
+output tile's column sums and ``ck_row`` ((B,) M, gn) its row sums, gm x gn
+being the tile grid of the path the call took (:func:`sidecar_tile`: the
+weight stream's tile is all M rows by its bn columns, the wgmma tile 128 by
+bn, the WMMA and DMMA tiles their (bm, bn)).  Each tile is summed in the
+accumulator dtype after alpha, the seed and the epilogue and before the
+cast, its M/N fringe lanes left out, by the kernel in its store: the stream
+kernel from its staged fp32 tile (with K split, the last block of an N tile
+to arrive, after it has reduced the partials), the wgmma tile from the
+fp32 tile its epilogue stages, the WMMA/fp32 tiles from the
+``store_matrix_sync`` staging and the DMMA kernel from its fp64 deprime
+tile; each sum is one thread's or one warp's in a fixed order (no float
+atomics), so it does not change from run to run.  ``out`` is the
+``checksum=False`` output bit for bit.  The plain versions compute the
+same vectors from their finished result (:func:`checksum_tiles`).  The
+integer families (IMMA) and masked products take no sidecar: ABFT does not
+verify them (``abft.plan_for``), and they raise NotImplementedError.
 
 The pm* prefixed masked forms (K1b, paper eq. 3): ``masks=(xmask, ymask,
 pmask)``, bool or uint8 tensors of shapes (M,), (N,) and (K,) (logical K)
@@ -86,6 +106,7 @@ row-major operands).  The integer families have no gradient (TypeError).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -101,19 +122,21 @@ Ger = precision.Ger
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 STORE_CODES = {**DTYPE_CODES, torch.int32: 3, torch.float64: 4}
 
+# The last three arguments of the 16-bit/fp32 and DMMA launchers: the
+# checksum sidecar's (ck_col, ck_row) pointers (null: no sidecar), stream.
+_CK_STREAM = [ctypes.c_void_p] * 3
 # csrc/mma_gemm.cu: mma_gemm_launch (x, y, three masks, c, bias, res, out)
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 5 + [ctypes.c_float] * 2
-             + [ctypes.c_int] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_int] * 3 + _CK_STREAM)
 # csrc/gemm_stream.cu: gemm_stream_launch
 _STREAM_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                     + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                    + [ctypes.c_int] * 3 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 3 + [ctypes.c_int] * 2 + _CK_STREAM)
 # csrc/gemm_wgmma.cu: gemm_wgmma_launch
 _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 3 + [ctypes.c_int] + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_int] + _CK_STREAM)
 # csrc/gemm_imma.cu: gemm_imma_launch
 _IMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
@@ -121,10 +144,11 @@ _IMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
 # csrc/gemm_dmma.cu: gemm_dmma_launch
 _DMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 5 + [ctypes.c_double] * 2
-                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 3 + _CK_STREAM)
 PATHS = ("stream", "wgmma", "wmma", "imma", "dmma")
 PACKED_PATHS = ("stream", "wgmma", "imma")       # the paths that read panels
 MASKED_PATHS = ("wmma", "imma", "dmma")          # the paths that take masks
+SIDECAR_PATHS = ("stream", "wgmma", "wmma", "dmma")   # checksum=True (K1e)
 
 
 def _shapes(x, y):
@@ -221,6 +245,53 @@ def mma_gemm_splitk_plain(x, y, c=None, *, kind: Ger,
     return out.to(out_dtype or pol.acc_dtype)
 
 
+def sidecar_tile(path: str, cfg, m: int) -> tuple[int, int]:
+    """(rows, columns) of the output tile whose sums ``path``'s kernel
+    takes: the weight stream's one tile of all M rows by its bn columns,
+    else the path's (bm, bn)."""
+    if path == "stream":
+        return max(m, 1), cfg.bn
+    return cfg.bm, cfg.bn
+
+
+def checksum_tiles(fin: torch.Tensor, bm: int, bn: int):
+    """The sidecar of a finished accumulator-dtype result ((B,) M, N), as
+    the kernels take it: ``ck_col`` ((B,) gm, N), the column sums of each
+    bm-row band, and ``ck_row`` ((B,) M, gn), the row sums of each bn-column
+    band (the fringes past M and N padded with zeros)."""
+    m, n = fin.shape[-2:]
+    gm, gn = -(-m // bm), -(-n // bn)
+    lead = tuple(fin.shape[:-2])
+    padded = torch.nn.functional.pad(fin, (0, gn * bn - n, 0, gm * bm - m))
+    ck_col = padded.reshape(lead + (gm, bm, gn * bn)).sum(-2)[..., :n]
+    ck_row = padded.reshape(lead + (gm * bm, gn, bn)).sum(-1)[..., :m, :]
+    return ck_col, ck_row
+
+
+def _plain_of(path: str, cfg, k: int):
+    """The plain version of ``path``'s arithmetic: the weight stream's
+    split-K sum where it splits K, else prime, one update, deprime."""
+    if path == "stream" and cfg.split > 1:
+        return functools.partial(mma_gemm_splitk_plain,
+                                 k_slices=cfg.k_slices(k))
+    return mma_gemm_plain
+
+
+def mma_gemm_sidecar_plain(x, y, c=None, *, kind: Ger, **forms):
+    """``(finished, ck_col, ck_row)`` of a natural, unmasked call, on the
+    operands' own device: the plain version of the path the call takes,
+    its result in the accumulator dtype before the cast, and that result's
+    sidecar (:func:`checksum_tiles`) — what the kernels' ``checksum=True``
+    is held against on the card."""
+    b, m, n, k = _shapes(x, y)
+    path, cfg = tiling.choose_gemm_path(m, n, k, kind, b or 1,
+                                        natural_aligned(x, y))
+    fin = _plain_of(path, cfg, k)(
+        x, y, c, kind=kind,
+        **{**forms, "out_dtype": precision.policy(kind).acc_dtype})
+    return (fin, *checksum_tiles(fin, *sidecar_tile(path, cfg, m)))
+
+
 _FNS: dict[str, tuple] = {}
 
 
@@ -304,7 +375,7 @@ def mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
              out_dtype: torch.dtype | None = None,
              x_layout: packing.GemmLayout | None = None,
              y_layout: packing.GemmLayout | None = None,
-             masks: tuple | None = None) -> torch.Tensor:
+             masks: tuple | None = None, checksum: bool = False):
     """C <- alpha * [-](X @ Y) [+ beta * (+/-)C] with a resident accumulator.
 
     ``c`` is the optional ((B,) M, N) accumulator seed (the pp/np/pn/nn
@@ -316,10 +387,24 @@ def mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     ``(xmask (M,), ymask (N,), pmask (K,))`` (the module docstring says
     where it runs).  Where an operand requires a gradient the call is
     differentiable (the module docstring says how), unless it is masked.
+    ``checksum`` adds the ABFT sidecar: the call returns ``(out, ck_col,
+    ck_row)`` (the module docstring says what they hold).
     """
     opts = dict(kind=kind, block=block, neg_product=neg_product,
                 neg_acc=neg_acc, alpha=alpha, beta=beta, ep=ep,
                 out_dtype=out_dtype)
+    if checksum:
+        if masks is not None and any(t is not None for t in masks):
+            raise NotImplementedError(
+                "a masked (pm*) product takes no checksum sidecar: ABFT "
+                "does not verify the masked forms")
+        if _autograd.wants_grad(x, y, c, bias, residual):
+            raise NotImplementedError(
+                "the checksum sidecar verifies served products: a product "
+                "with a gradient takes none")
+        return _mma_gemm(x, y, c, bias=bias, residual=residual,
+                         x_layout=x_layout, y_layout=y_layout,
+                         checksum=True, **opts)
     if masks is not None and any(t is not None for t in masks):
         if _autograd.wants_grad(x, y, c, bias, residual):
             raise NotImplementedError(
@@ -409,9 +494,9 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
              out_dtype: torch.dtype | None = None,
              x_layout: packing.GemmLayout | None = None,
              y_layout: packing.GemmLayout | None = None,
-             masks: tuple | None = None) -> torch.Tensor:
+             masks: tuple | None = None, checksum: bool = False):
     """The dispatch of one product: the plain version on a CPU tensor, a
-    kernel on a CUDA tensor."""
+    kernel on a CUDA tensor; with ``checksum`` also the sidecar."""
     pol = precision.policy(kind)
     if kind == Ger.F32GER_3XBF16:
         raise ValueError(
@@ -454,6 +539,10 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     path, cfg = tiling.choose_gemm_path(
         m, n, k, kind, b or 1, natural_aligned(x, y, x_layout, y_layout),
         block, masks is not None)
+    if checksum and path not in SIDECAR_PATHS:
+        raise NotImplementedError(
+            f"the {path} kernel takes no checksum sidecar: ABFT does not "
+            f"verify integer accumulators ({kind.value})")
     if packed:
         x, x_layout = _panels(path, kind, x, x_layout, "x", masks)
         y, y_layout = _panels(path, kind, y, y_layout, "y", masks)
@@ -465,10 +554,15 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
             x = packing.gemm_panels_matrix(x, x_layout)
         if y_layout is not None:
             y = packing.gemm_panels_matrix(y, y_layout)
-        if path == "stream" and cfg.split > 1:
-            return mma_gemm_splitk_plain(x, y, c, kind=kind,
-                                         k_slices=cfg.k_slices(k), **forms)
-        return mma_gemm_plain(x, y, c, kind=kind, **forms)
+        plain = _plain_of(path, cfg, k)
+        if not checksum:
+            return plain(x, y, c, kind=kind, **forms)
+        # the finished accumulator-dtype result, then its cast: the same
+        # operations, so ``out`` is the checksum=False output bit for bit
+        fin = plain(x, y, c, kind=kind, **{**forms,
+                                           "out_dtype": pol.acc_dtype})
+        return (fin.to(out_dtype),
+                *checksum_tiles(fin, *sidecar_tile(path, cfg, m)))
     if x.device.type != "cuda":
         raise ValueError(f"mma_gemm runs on cuda (or its plain version on "
                          f"cpu), not {x.device}")
@@ -477,29 +571,45 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     for t in (y, c, bias, residual):
         if t is not None and t.device != x.device:
             raise ValueError(f"operands on {x.device} and {t.device}")
+    ck = None
+    if checksum:
+        bm, bn = sidecar_tile(path, cfg, m)
+        lead = () if b is None else (b,)
+        # every tile writes its own sums: no fill needed
+        ck = (torch.empty(lead + (-(-m // bm), n), dtype=pol.acc_dtype,
+                          device=x.device),
+              torch.empty(lead + (m, -(-n // bn)), dtype=pol.acc_dtype,
+                          device=x.device))
     if (b or 1) * m * n == 0:       # an empty grid is not a launch
-        return torch.empty(out_shape, dtype=out_dtype, device=x.device)
+        out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
+        return (out, *ck) if checksum else out
     panels = (x_layout is not None, y_layout is not None)
     x = x if panels[0] else x.contiguous()
     y = y if panels[1] else y.contiguous()
     mptrs = (None, None, None) if masks is None else tuple(
         _ptr(t) for t in masks)
     forms.pop("masks", None)
+    ck_ptrs = (None, None) if ck is None else (ck[0].data_ptr(),
+                                               ck[1].data_ptr())
     if path in ("imma", "dmma"):
         out = _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k,
-                                x_packed=panels[0], masks=mptrs, **forms)
+                                x_packed=panels[0], masks=mptrs,
+                                ck=ck_ptrs, **forms)
     else:
         out = _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k,
-                                y_packed=panels[1], masks=mptrs, **forms)
+                                y_packed=panels[1], masks=mptrs, ck=ck_ptrs,
+                                **forms)
     mma_gemm.launches += 1
     mma_gemm.launches_by_path[path] += 1
     if panels[0] or panels[1]:
         mma_gemm.packed_launches_by_path[path] += 1
     if masks is not None:
         mma_gemm.masked_launches_by_path[path] += 1
+    if checksum:
+        mma_gemm.checksum_launches_by_path[path] += 1
     if mma_gemm.trace is not None:
         mma_gemm.trace.append((b or 1, m, k, n, x.dtype, out_dtype, path))
-    return out
+    return (out, *ck) if checksum else out
 
 
 def _check_masks(masks, pol, m, n, k, device):
@@ -556,11 +666,12 @@ def _panels(path, kind, t, lay, side, masks=None):
 
 def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
                       neg_acc, alpha, beta, ep, bias, residual, out_dtype,
-                      masks, x_packed=False):
+                      masks, ck, x_packed=False):
     """One launch of csrc/gemm_imma.cu (the integer families) or
     csrc/gemm_dmma.cu (F64GER); ``masks`` the three predicate pointers
-    (None: no predicate).  The seed, bias and residual go to the
-    accumulator dtype first, as the reference casts them."""
+    (None: no predicate), ``ck`` the DMMA sidecar's two (None: none).  The
+    seed, bias and residual go to the accumulator dtype first, as the
+    reference casts them."""
     if out_dtype not in STORE_CODES:
         raise NotImplementedError(f"the {path} kernel stores int32/f64/f32/"
                                   f"bf16/f16, not {out_dtype}")
@@ -591,18 +702,19 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
         lib, fn = _lib("gemm_dmma", "gemm_dmma_launch", _DMMA_ARGTYPES)
         rc = fn(*ptrs, STORE_CODES[out_dtype], b or 1, m, n, k, *strides,
                 float(alpha), float(beta), int(neg_product), int(neg_acc),
-                _epilogue.ACT_CODES[act], stream)
+                _epilogue.ACT_CODES[act], *ck, stream)
     _build.check(lib, rc, f"mma_gemm ({path})")
     return out
 
 
 def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
                       neg_acc, alpha, beta, ep, bias, residual, out_dtype,
-                      masks, y_packed=False):
+                      masks, ck, y_packed=False):
     """One launch of the weight stream, the wgmma tile or the WMMA tiles
     (the bf16/f16/f32 families); ``y_packed``: y is Y-side panels (the
     stream and the wgmma tile); ``masks`` the three predicate pointers,
-    which only the WMMA tiles take."""
+    which only the WMMA tiles take; ``ck`` the sidecar's (ck_col, ck_row)
+    pointers (None, None: no sidecar)."""
     if out_dtype not in DTYPE_CODES:
         raise NotImplementedError(f"the GEMM kernel stores f32/bf16/f16, "
                                   f"not {out_dtype}")
@@ -632,13 +744,13 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
                        y_packed)
         rc = fn(x.data_ptr(), y.data_ptr(), *common, ws, tickets,
                 DTYPE_CODES[x.dtype], *codes, b or 1, m, n, k, *forms,
-                cfg.bn, cfg.split, stream)
+                cfg.bn, cfg.split, *ck, stream)
     elif path == "wgmma":
         lib, fn = _lib("gemm_wgmma", "gemm_wgmma_launch", _WGMMA_ARGTYPES,
                        y_packed)
         rc = fn(x.data_ptr(), y.data_ptr(), *common, DTYPE_CODES[x.dtype],
                 *codes, b or 1, int(batched), m, n, k, *forms, cfg.bn,
-                stream)
+                *ck, stream)
     else:
         if -(-m // cfg.bm) > 65535:
             raise ValueError(f"grid too large for one launch: m={m}")
@@ -647,7 +759,8 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
                 DTYPE_CODES[x.dtype],
                 *codes, b or 1, m, n, k,
                 m * k if batched else 0, k * n if batched else 0,
-                m * n, m * n, m * n, *forms, cfg.bm, cfg.bn, cfg.bk, stream)
+                m * n, m * n, m * n, *forms, cfg.bm, cfg.bn, cfg.bk, *ck,
+                stream)
     _build.check(lib, rc, f"mma_gemm ({path})")
     return out
 
@@ -658,6 +771,8 @@ mma_gemm.launches_by_path = dict.fromkeys(PATHS, 0)
 mma_gemm.packed_launches_by_path = dict.fromkeys(PACKED_PATHS, 0)
 # The launches with pm* predicates (also in launches_by_path), by path.
 mma_gemm.masked_launches_by_path = dict.fromkeys(MASKED_PATHS, 0)
+# The launches with the checksum sidecar (also in launches_by_path).
+mma_gemm.checksum_launches_by_path = dict.fromkeys(SIDECAR_PATHS, 0)
 # A list to record (batch, M, K, N, dtype, out dtype, path) of each launch
 # into, or None: chip_smoke.py times the shapes a run gave the kernels.
 mma_gemm.trace = None

@@ -12,13 +12,16 @@ Accounting is strict: ``alloc`` raises :class:`PagesExhausted` when the
 pool cannot cover the footprint (nothing is partially allocated) and
 :class:`PageAccountingError` on double admission; ``free`` raises
 :class:`PageAccountingError` for a request that holds no pages;
-``assert_quiescent`` proves the pool drained.  The reference's ``kv.alloc``
-fault-injection point comes with the fault slice (ROADMAP slice D1).
+``assert_quiescent`` proves the pool drained.  ``alloc`` consults the
+``kv.alloc`` fault-injection point (``runtime/faults.py``): a ``raise``
+there is a transient allocator failure that allocates nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.runtime import faults
 
 
 class PagesExhausted(RuntimeError):
@@ -79,6 +82,7 @@ class PagePool:
             raise PageAccountingError(
                 f"request {rid} already holds {len(self._held[rid].pages)} "
                 f"pages (double admission)")
+        faults.maybe_inject(faults.KV_ALLOC)
         need = self.pages_for(tokens)
         if need > len(self._free):
             raise PagesExhausted(

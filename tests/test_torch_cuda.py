@@ -1405,3 +1405,130 @@ def test_f32_attention_row_does_not_depend_on_the_batch(gen):
     many = A.mma_flash_attention(q, k, v, causal=False,
                                  out_dtype=torch.float32)
     assert torch.equal(one[0], many[0])
+
+
+# ----------------------------------------------------------------------
+# K1e: the ABFT checksum sidecar on the four kernels ABFT reaches
+# ----------------------------------------------------------------------
+
+# (family, x shape, y shape, the path, extra call arguments); "stream
+# split" splits K (4 x 4096 x 11008 is deepseek-7b's decode MLP up
+# projection), "stream 1" does not (a 102400-column logits row).
+_SIDECAR_CASES = {
+    "stream split": ("BF16GER2", (4, 4096), (4096, 11008), "stream", {}),
+    "stream 1": ("BF16GER2", (4, 512), (512, 102400), "stream", {}),
+    "stream bank": ("BF16GER2", (8, 3, 2048), (8, 2048, 1408), "stream",
+                    {}),
+    "stream packed": ("BF16GER2", (4, 4096), (4096, 11008), "stream",
+                      {"packed": True}),
+    "wgmma": ("BF16GER2", (1024, 4096), (4096, 11008), "wgmma", {}),
+    "wgmma ragged forms": ("BF16GER2", (300, 512), (512, 520), "wgmma",
+                           {"forms": True}),
+    "wgmma packed": ("BF16GER2", (256, 4096), (4096, 4096), "wgmma",
+                     {"packed": True}),
+    "wmma unaligned": ("BF16GER2", (300, 768), (768, 51865), "wmma", {}),
+    "wmma f32": ("F32GER", (130, 4096), (4096, 1100), "wmma",
+                 {"forms": True}),
+    "wmma batched": ("F32GER", (3, 70, 200), (3, 200, 90), "wmma", {}),
+    "dmma": ("F64GER", (200, 300), (300, 130), "dmma", {"forms": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SIDECAR_CASES))
+def test_sidecar_bit_for_bit_and_sums_match_plain(gen, case):
+    """``checksum=True``: ``out`` bit for bit the ``checksum=False``
+    launch's, and the per-tile sums within ABFT's tolerance (``ATOL +
+    FACTOR * eps(acc) * |X||Y|`` summed alike, plus the seed's, bias's and
+    residual's magnitudes) of the plain version's sums of its own finished
+    result, on the path the case names; the sidecar launch is counted."""
+    from repro_torch.core import abft, packing
+    fam, sx, sy, path, opts = _SIDECAR_CASES[case]
+    kind = Ger[fam]
+    dt = {"BF16GER2": torch.bfloat16, "F32GER": torch.float32,
+          "F64GER": torch.float64}[fam]
+    k = sx[-1]
+    x = _randn(gen, *sx, dtype=dt)
+    y = _randn(gen, *sy, dtype=dt, scale=k ** -0.5)
+    kw = dict(kind=kind)
+    c = None
+    if opts.get("forms"):
+        acc = precision.policy(kind).acc_dtype
+        n = sy[-1]
+        c = _randn(gen, *sx[:-1], n, dtype=acc)
+        kw.update(alpha=0.75, beta=-1.5, neg_acc=True,
+                  ep=E.Epilogue(bias=True, residual=True),
+                  bias=_randn(gen, n, dtype=acc),
+                  residual=_randn(gen, *sx[:-1], n, dtype=acc))
+    yk = y
+    if opts.get("packed"):
+        lay = packing.gemm_layout(kind, k, sy[-1], side="y")
+        po = packing.pack_gemm(y, lay)
+        yk, kw["y_layout"] = po.data, po.layout
+    before = dict(G.mma_gemm.checksum_launches_by_path)
+    out, ck_col, ck_row = G.mma_gemm(x, yk, c, checksum=True, **kw)
+    assert G.mma_gemm.checksum_launches_by_path[path] == before[path] + 1
+    plain_out = G.mma_gemm(x, yk, c, **kw)
+    assert torch.equal(out, plain_out)
+    kw.pop("y_layout", None)
+    fin, want_col, want_row = G.mma_gemm_sidecar_plain(x, y, c, **kw)
+    eps = torch.finfo(precision.policy(kind).acc_dtype).eps
+    mag = (x.double().abs() @ y.double().abs()) * abs(kw.get("alpha", 1.0))
+    for t, s in ((c, abs(kw.get("alpha", 1.0) * kw.get("beta", 1.0))),
+                 (kw.get("residual"), 1.0)):
+        if t is not None:
+            mag = mag + s * t.double().abs()
+    if kw.get("bias") is not None:
+        mag = mag + kw["bias"].double().abs()
+    m, n = sx[-2], sy[-1]
+    took, cfg = tiling.choose_gemm_path(m, n, k, kind,
+                                        sx[0] if len(sx) == 3 else 1,
+                                        G.natural_aligned(x, y))
+    assert took == path
+    mag_col, mag_row = G.checksum_tiles(mag, *G.sidecar_tile(path, cfg, m))
+    for got, want, mg in ((ck_col, want_col, mag_col),
+                          (ck_row, want_row, mag_row)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        err = (got.double() - want.double()).abs()
+        assert bool((err <= abft.ATOL + abft.FACTOR * eps * mg).all()), \
+            err.max()
+
+
+# ----------------------------------------------------------------------
+# K2 at ABFT's depth D + 1: padded to a compiled depth, every mode
+# ----------------------------------------------------------------------
+
+# (dtype, (b, sq, h, kvh), sk, causal, the mode the plan gives)
+_PADDED_CASES = {
+    "tile": (torch.bfloat16, (2, 256, 32, 32), 256, True, "tile"),
+    "split": (torch.bfloat16, (4, 1, 12, 12), 1500, False, "split"),
+    "f32 tile": (torch.float32, (2, 200, 8, 2), 200, True, "f32_tile"),
+    "f32 split": (torch.float32, (2, 1, 8, 2), 700, True, "f32_split"),
+}
+
+
+@pytest.mark.parametrize("d", [65, 129])
+@pytest.mark.parametrize("name", sorted(_PADDED_CASES))
+def test_attention_at_padded_depth_matches_plain(gen, name, d):
+    """D = 65 and 129 (whisper's and deepseek's head depths plus ABFT's
+    checksum column) run the kernel at 128 and 192 (fp32: 160), in every
+    mode, within each output's rounding budget of the plain version at
+    the logical depth (the softmax scale is D^-1/2 of the logical D)."""
+    dt, (b, sq, h, kvh), sk, causal, mode = _PADDED_CASES[name]
+    q = _randn(gen, b, sq, h, d, dtype=dt)
+    k = _randn(gen, b, sk, kvh, d, dtype=dt)
+    v = _randn(gen, b, sk, kvh, d, dtype=dt)
+    kw = dict(causal=causal, q_offset=sk - sq if causal else 0)
+    before = (A.mma_flash_attention.launches_by_mode[mode],
+              A.mma_flash_attention.padded_launches_by_mode[mode])
+    got = A.mma_flash_attention(q, k, v, out_dtype=torch.float32, **kw)
+    assert (A.mma_flash_attention.launches_by_mode[mode],
+            A.mma_flash_attention.padded_launches_by_mode[mode]) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (b, sq, h, d) and got.is_contiguous()
+    n_split, per = A.split_kv_plan(h, sq, sk)
+    want = (A.flash_attention_splitkv_plain(q, k, v, n_split=n_split,
+                                            per=per,
+                                            out_dtype=torch.float32, **kw)
+            if n_split > 1 else
+            A.flash_attention_plain(q, k, v, out_dtype=torch.float32, **kw))
+    _assert_attn_close(got, want, A.rounding_budget(q, k, v, **kw))
