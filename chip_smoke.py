@@ -170,7 +170,34 @@ Phases, each of which must pass or the script exits nonzero:
      ABFT's tolerance of the plain version's, timed on and off beside the
      plain version, ``torch.matmul`` and the bound; and K2 at D = 129 and
      65 in every mode against its plain version, timed at deepseek's
-     prefill beside D = 128 and SDPA.
+     prefill beside D = 128 and SDPA;
+ 10. autotuned dispatch (``core/autotune.py``, ``roofline/analysis.py``),
+     K1d on the WMMA and fp32 tiles and K3's packed filters on its WMMA
+     and fp32 tiles.  The script points ``REPRO_TORCH_AUTOTUNE_CACHE`` at
+     a fresh temporary file, so phases 1-9 dispatch on an empty cache as
+     they did before.  Its runs, each counts zeroed just before and read
+     just after: right after phase 8's F32GER serve, deepseek-7b in the
+     tight-parity config served prepacked (fp32 panels): every output bit
+     for bit that serve's, no pack, repack or demote, every GEMM on the
+     WMMA fp32 tile reading panels, decode tok/s of both; right after
+     phase 8's whisper-small generation, the same prepacked: prefill and
+     8 steps bit for bit, the stem's convs on K3's fp32 tile reading
+     packed filters; after phase 7's serves of deepseek-7b, every GEMM and
+     attention shape its serve consults tuned on the card into a cache of
+     its own (the winner beside the heuristic, both timed), then phase
+     3's serve under it, natural and a packed copy: each GEMM launch on
+     its consult's winner with no fallback, the two bit for bit, no pack,
+     repack or demote, prefill and decode logits within phase 3's bound
+     against the eager backend, decode tok/s beside phase 3's, and the
+     host us of one ``contract`` call on the empty cache beside the full
+     one.  Then every packed WMMA/fp32 mode through ``facility.contract``
+     (explicit tiles at decode 4 x 4096 x 11008 and prefill 1024 x 4096 x
+     11008, F32GER at both, the unaligned 1024 x 768 x 51865, masked bf16
+     and F32GER with NaN and Inf in disabled lanes, M/N/K fringes; K3's
+     WMMA and fp32 tiles at whisper's conv2 and qwen2-vl's patch embed):
+     packed bit for bit natural and against the plain version, the
+     sidecar on a packed WMMA launch bit for bit, timed beside the natural
+     launch, the plain version, the library call and the bound.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
@@ -185,7 +212,9 @@ f32 attention entries ``launches_by_run`` over the F32GER runs;
 ``max_abs_err`` covers the runs' shapes, training's included; phase 9's
 sidecar entries their ``off_ms``, ``timed`` shapes and
 ``launches_by_run`` over its runs, its padded attention entry its
-``d128_ms`` and ``launches_by_mode``); the last is ``{"ok": true,
+``d128_ms`` and ``launches_by_mode``; phase 10's packed WMMA/fp32
+entries their ``natural_ms``, ``timed`` cases and ``launches_by_run``
+over its runs); the last is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
@@ -195,10 +224,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -2446,7 +2478,7 @@ def zero_counts(kernels):
     G.mma_gemm.packed_launches_by_path = dict.fromkeys(G.PACKED_PATHS, 0)
     G.mma_gemm.masked_launches_by_path = dict.fromkeys(G.MASKED_PATHS, 0)
     A.mma_flash_attention.launches_by_mode = dict.fromkeys(A.MODES, 0)
-    K.mma_conv2d.packed_launches = 0
+    K.mma_conv2d.packed_launches_by_path = dict.fromkeys(K.CONV_PATHS, 0)
 
 
 def read_counts(kernels):
@@ -2460,7 +2492,8 @@ def read_counts(kernels):
                         for n in BY_PATH},
             "packed": {**{f"gemm {p}": v for p, v in
                           G.mma_gemm.packed_launches_by_path.items()},
-                       "conv wgmma": K.mma_conv2d.packed_launches},
+                       **{f"conv {p}": v for p, v in
+                          K.mma_conv2d.packed_launches_by_path.items()}},
             "masked": dict(G.mma_gemm.masked_launches_by_path),
             "attn_by_mode": dict(A.mma_flash_attention.launches_by_mode)}
 
@@ -3028,7 +3061,8 @@ def f32_serve(torch, failures, model, cfg):
     run = f"{cfg.name} F32GER serve"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with facility.configure(f32_config(torch)):
+    rec = []
+    with facility.configure(f32_config(torch)), recording_steps(rec):
         zero_counts(kernels)
         stats = S.serve_loop(cfg, model, **F32_SERVE)
         torch.cuda.synchronize()
@@ -3059,6 +3093,7 @@ def f32_serve(torch, failures, model, cfg):
     print(f"  phase 8: {run} logits check: batch {b} x {p} prompt, {gen} "
           f"steps ({time.perf_counter() - t0:.1f} s)")
     PHASE8[run]["rel_l2"] = rel
+    return {"stats": stats, "counts": counts, "record": rec}
 
 
 def f32_generate(torch, failures, model, cfg):
@@ -3875,6 +3910,617 @@ def phase9(torch, failures, entries):
     print(f"  phase 9 (after the serves): {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 10: autotuned dispatch (core/autotune.py, roofline/analysis.py),
+# K1d on the WMMA and fp32 tiles and K3's packed filters on its WMMA and
+# fp32 tiles
+# ----------------------------------------------------------------------
+
+# Per phase-10 run: its launches on packed panels by kernel entry and what
+# it showed (the GEMM's WMMA launches split by the run's family).
+PHASE10: dict[str, dict] = {}
+# The autotune cache every run of this script reads and writes: a fresh
+# temporary file (main sets REPRO_TORCH_AUTOTUNE_CACHE), empty until
+# phase 10 tunes deepseek-7b's shapes, so phases 1-9 dispatch as they did
+# before autotune.
+TUNE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
+
+
+def f32_prepacked_serve(torch, failures, model, cfg, natural):
+    """deepseek-7b in the tight-parity config (F32GER, f32) served
+    prepacked: a copy of phase 3's model packed under F32GER (its bf16
+    weights widened once to fp32 panels), served with F32_SERVE right
+    after phase 8's natural F32GER serve (``natural``: its stats, counts
+    and recorded steps): every prefill and decode output bit for bit the
+    natural serve's, no pack, repack or demote while serving, the
+    natural serve's launches by path, and every GEMM on the WMMA fp32
+    tile reading panels (K1d); decode tok/s of both."""
+    import copy
+
+    from repro_torch.core import facility, packing
+    from repro_torch.launch import serve as S
+
+    run = f"{cfg.name} F32GER prepacked serve"
+    packed = copy.deepcopy(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with facility.configure(f32_config(torch)):
+        stats = packing.prepack_params_for_serving(packed,
+                                                   min_size=PREPACK_MIN)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    kernels = kernel_wrappers()
+    before = dict(packing.COUNTERS)
+    rec = []
+    with facility.configure(f32_config(torch)), recording_steps(rec):
+        zero_counts(kernels)
+        out = S.serve_loop(cfg, packed, **F32_SERVE)
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+    moved = _relayouts(dict(packing.COUNTERS), before)
+    del packed
+    torch.cuda.empty_cache()
+    print(f"  phase 10: {run}: packed in {pack_s:.3f} s {stats}; "
+          f"{json.dumps(out)}")
+    gemm = counts["by_path"]["mma_gemm"]
+    _check(failures, run, _same_record(torch, rec, natural["record"])
+           and out["completed"] == F32_SERVE["n_requests"],
+           f"{len(rec)} prefill/decode outputs (token ids and logits) bit "
+           f"for bit phase 8's natural F32GER serve")
+    _check(failures, run, not any(moved.values()),
+           f"packing counters while serving: {moved} (all 0)")
+    _check(failures, run, counts["launches"] == natural["counts"]["launches"]
+           and counts["by_path"] == natural["counts"]["by_path"]
+           and counts["packed"]["gemm wmma"] == gemm["wmma"]
+           == counts["launches"]["mma_gemm"],
+           f"launches {counts['launches']} equal the natural serve's; "
+           f"every GEMM on the WMMA fp32 tile reading panels "
+           f"({counts['packed']['gemm wmma']} of "
+           f"{counts['launches']['mma_gemm']})")
+    print(f"  phase 10: {run}: decode tok/s {out['tokens_per_s']:.2f} "
+          f"prepacked vs {natural['stats']['tokens_per_s']:.2f} natural "
+          f"(phase 8, the same call)")
+    PHASE10[run] = {"wmma f32": counts["packed"]["gemm wmma"],
+                    "tok_s": out["tokens_per_s"],
+                    "tok_s_natural": natural["stats"]["tokens_per_s"],
+                    "pack_s": pack_s, "stats": stats}
+
+
+def f32_prepacked_generate(torch, failures, model, cfg):
+    """whisper-small in the tight-parity config, a copy packed under
+    F32GER: a prefill and F32_GEN's greedy decode steps bit for bit the
+    natural model's (tokens and logits), no pack, repack or demote, the
+    conv stem's two convs on K3's fp32 tile reading packed filters and
+    the GEMMs on the WMMA fp32 tile reading panels."""
+    import copy
+
+    from repro_torch.core import facility, packing
+
+    run = f"{cfg.name} F32GER prepacked generate"
+    b, gen = F32_GEN["batch"], F32_GEN["gen_len"]
+    batch, seq_len = mm_batch(cfg, F32_GEN, b)
+    kernels = kernel_wrappers()
+    nat_tokens, pk_tokens = [], []
+    nat = _greedy(torch, model, cfg, batch, seq_len, gen, f32_config(torch),
+                  nat_tokens)
+    packed = copy.deepcopy(model)
+    with facility.configure(f32_config(torch)):
+        stats = packing.prepack_params_for_serving(packed,
+                                                   min_size=PREPACK_MIN)
+    before = dict(packing.COUNTERS)
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    pk = _greedy(torch, packed, cfg, batch, seq_len, gen, f32_config(torch),
+                 pk_tokens)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    moved = _relayouts(dict(packing.COUNTERS), before)
+    del packed
+    print(f"  phase 10: {run}: packed {stats}; launches "
+          f"{counts['launches']}, on packed panels {counts['packed']}")
+    same = (all(torch.equal(a, c) for a, c in zip(nat, pk))
+            and all(torch.equal(a, c) for a, c in zip(nat_tokens,
+                                                       pk_tokens)))
+    _check(failures, run, same, f"prefill + {gen} decode steps: logits and "
+           f"tokens bit for bit the natural model's")
+    _check(failures, run, not any(moved.values())
+           and counts["packed"]["conv f32"] == 2
+           and counts["packed"]["gemm wmma"] > 0,
+           f"packing counters {moved} (all 0); the stem's 2 convs on the "
+           f"fp32 tile's packed filters, {counts['packed']['gemm wmma']} "
+           f"GEMMs on WMMA fp32 panels")
+    PHASE10[run] = {"wmma f32": counts["packed"]["gemm wmma"],
+                    "conv f32": counts["packed"]["conv f32"]}
+
+
+@contextlib.contextmanager
+def recording_consults(gemm, attn):
+    """Record every autotune consult of the dispatch while the block runs:
+    ``gemm`` gets ((kind, m, n, k, epilogue key, b), winner) of each GEMM
+    (``autotune.lookup``), ``attn`` ((kind, h, sq, sk, d, epilogue key),
+    winner) of each attention call (``autotune.lookup_attn``)."""
+    from repro_torch.core import autotune
+
+    lookup, lookup_attn = autotune.lookup, autotune.lookup_attn
+
+    def spy(kind, m, n, k, epilogue_key="none", backend=None, cache=None,
+            b=1):
+        won = lookup(kind, m, n, k, epilogue_key, backend, cache, b)
+        gemm.append(((kind, m, n, k, epilogue_key, b), won))
+        return won
+
+    def spy_attn(kind, h, sq, sk, d, epilogue_key="none", backend=None,
+                 cache=None):
+        won = lookup_attn(kind, h, sq, sk, d, epilogue_key, backend, cache)
+        attn.append(((kind, h, sq, sk, d, epilogue_key), won))
+        return won
+
+    autotune.lookup, autotune.lookup_attn = spy, spy_attn
+    try:
+        yield
+    finally:
+        autotune.lookup, autotune.lookup_attn = lookup, lookup_attn
+
+
+def tune_deepseek(torch, model, cfg, settings):
+    """Every distinct GEMM and attention shape of deepseek-7b's serve (a
+    batch-1 prefill of the prompt length and a decode step of the batch:
+    their autotune consults, recorded) tuned into the script's cache on
+    the card; one line a shape, the winner beside the heuristic, both
+    measured.  Returns {key: (winner, heuristic, their ms)}."""
+    from repro_torch.core import autotune, facility, tiling
+    from repro_torch.kernels import mma_attention as A
+
+    prefill, decode, _ = serve_steps(torch, model, cfg, settings)
+    gemm, attn = [], []
+    A.mma_flash_attention.trace = []
+    with facility.configure(facility.FacilityConfig(device="cuda")), \
+            recording_consults(gemm, attn):
+        prefill()
+        decode()
+    torch.cuda.synchronize()
+    launched = {(h, sq, sk, d): (b, kvh, causal, q_off)
+                for b, sq, sk, h, kvh, d, _, causal, q_off, *_ in
+                A.mma_flash_attention.trace}
+    A.mma_flash_attention.trace = None
+    out = {}
+    t0 = time.perf_counter()
+    for key in sorted({k for k, _ in gemm}, key=str):
+        kind, m, n, k, ep, b = key
+        scores = {}
+        won = autotune.autotune(kind, m, n, k, b=b, epilogue_key=ep,
+                                scores=scores)
+        heur = tiling.choose_gemm_path(m, n, k, kind, b)
+        out[key] = (won, heur, scores[won] * 1e3, scores[heur] * 1e3)
+        print(f"  phase 10: tuned {kind.value} {b}x{m}x{k}x{n} [{ep}] "
+              f"(key rows {autotune.tune_rows(kind, m)}): winner {won} "
+              f"{scores[won] * 1e3:.4f} ms, heuristic {heur} "
+              f"{scores[heur] * 1e3:.4f} ms ({len(scores)} measured)")
+    for key in sorted({k for k, _ in attn}, key=str):
+        kind, h, sq, sk, d, ep = key
+        b, kvh, causal, q_off = launched[h, sq, sk, d]
+        scores = {}
+        won = autotune.autotune_attn(kind, h, sq, sk, d, b=b, kvh=kvh,
+                                     causal=causal, q_offset=q_off,
+                                     epilogue_key=ep, scores=scores)
+        heur = A.attn_plan(b, h, sq, sk, d, kind == facility.Ger.F32GER)[:2]
+        out[key] = (won, heur, scores[won] * 1e3, scores[heur] * 1e3)
+        print(f"  phase 10: tuned attention {kind.value} ({b}, {sq}, {h}, "
+              f"{d}) over {sk} [{ep}]: winner (q tile, split) {won} "
+              f"{scores[won] * 1e3:.4f} ms, heuristic {heur} "
+              f"{scores[heur] * 1e3:.4f} ms ({len(scores)} measured)")
+    print(f"  phase 10: tuned {len(out)} shapes in "
+          f"{time.perf_counter() - t0:.1f} s into "
+          f"{autotune.default_cache().path}")
+    return out
+
+
+def tuned_serves(torch, failures, arch, settings, model, cfg, natural):
+    """deepseek-7b under the tuned cache: its shapes tuned
+    (:func:`tune_deepseek`), then served with phase 3's settings, natural
+    and a packed copy, every launch's path the winner its consult read
+    (the GEMM trace beside the consults, in order; no fallback), the
+    packed serve bit for bit the natural one with no pack, repack or
+    demote; the kernel backend's prefill (1 x the prompt length) and
+    decode (the batch) logits against the eager backend within phase 3's
+    bound; decode tok/s beside phase 3's; the host us of one contract
+    call with an empty cache beside the full one."""
+    from repro_torch.core import autotune
+
+    # phases 1-9 and the kernel checks dispatch on the script's empty
+    # cache; the tuned serves on a cache of their own
+    untuned = autotune.default_cache()
+    autotune._DEFAULT_CACHE = autotune.AutotuneCache(
+        pathlib.Path(os.environ[TUNE_ENV]).with_name("tuned.json"))
+    try:
+        _tuned_serves(torch, failures, arch, settings, model, cfg, natural,
+                      untuned)
+    finally:
+        autotune._DEFAULT_CACHE = untuned
+
+
+def _tuned_serves(torch, failures, arch, settings, model, cfg, natural,
+                  untuned):
+    import copy
+
+    from repro_torch.core import autotune, facility, packing
+    from repro_torch.kernels import mma_gemm as G
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    tuned = tune_deepseek(torch, model, cfg, settings)
+    run = f"{arch} tuned serve"
+    packed = copy.deepcopy(model)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        stats = packing.prepack_params_for_serving(packed,
+                                                   min_size=PREPACK_MIN)
+    kernels = kernel_wrappers()
+    recs, tok_s, packed_counts = {}, {}, None
+    for which, m in (("natural", model), ("packed", packed)):
+        rec, gemm, attn = [], [], []
+        before = dict(packing.COUNTERS)
+        fb = (G.mma_gemm.tuned_fallbacks,
+              kernels["mma_flash_attention"].tuned_fallbacks)
+        with facility.configure(facility.FacilityConfig(device="cuda")), \
+                recording_steps(rec), recording_consults(gemm, attn):
+            zero_counts(kernels)
+            G.mma_gemm.trace = []
+            out = S.serve_loop(cfg, m, **settings)
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+            trace, G.mma_gemm.trace = G.mma_gemm.trace, None
+        moved = _relayouts(dict(packing.COUNTERS), before)
+        fell = (G.mma_gemm.tuned_fallbacks - fb[0],
+                kernels["mma_flash_attention"].tuned_fallbacks - fb[1])
+        recs[which], tok_s[which] = rec, out["tokens_per_s"]
+        print(f"  phase 10: {run} ({which}) {settings}: {json.dumps(out)}")
+        follows = len(gemm) == len(trace) and all(
+            won is None or t[-1] == won[0]
+            for (_, won), t in zip(gemm, trace))
+        hit = sum(won is not None for _, won in gemm)
+        by_win = {}
+        for (_, won), t in zip(gemm, trace):
+            if won is not None:
+                by_win[t[-1]] = by_win.get(t[-1], 0) + 1
+        attn_hit = sum(won is not None for _, won in attn)
+        _check(failures, f"{run} ({which})", follows and fell == (0, 0)
+               and hit > 0 and attn_hit > 0,
+               f"{len(trace)} GEMM launches by path "
+               f"{counts['by_path']['mma_gemm']}, {hit} of them on a "
+               f"winner, each on its winner's path ({by_win}); "
+               f"{attn_hit} of {len(attn)} attention calls on a winner; "
+               f"fallbacks {fell}")
+        if which == "packed":
+            packed_counts = counts["packed"]
+            _check(failures, f"{run} (packed)", not any(moved.values()),
+                   f"packing counters while serving: {moved} (all 0); on "
+                   f"packed panels {counts['packed']}")
+    del packed
+    torch.cuda.empty_cache()
+    _check(failures, run, _same_record(torch, recs["packed"],
+                                       recs["natural"]),
+           f"packed serve's {len(recs['packed'])} prefill/decode outputs "
+           f"bit for bit the natural serve's under the same cache")
+    b, p = settings["batch"], settings["prompt_len"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, p), generator=g,
+                           device="cuda", dtype=torch.int32)
+    outs = {}
+    for mode in ("kernel", "torch"):
+        with facility.configure(facility.FacilityConfig(device="cuda",
+                                                        backend=mode)):
+            last, _ = M.prefill(model, {"tokens": prompt}, cfg)
+            cache = M.init_cache(cfg, b, 64, device="cuda")
+            step, _ = M.decode_step(model, cache, prompt[:, :1].expand(b, 1),
+                                    cfg)
+        outs[mode] = (last.float(), step[:, -1].float())
+    rels = []
+    for what, i in (("prefill logits", 0), ("decode logits", 1)):
+        got, want = outs["kernel"][i], outs["torch"][i]
+        r = _rel(got, want)
+        rels.append(r)
+        tol = LOGIT_TOLS[arch, what]
+        _check(failures, run, bool(got.isfinite().all()) and r < tol,
+               f"{what} {tuple(got.shape)} (prefill 1 x {p}, decode batch "
+               f"{b}) kernel vs torch backend rel L2 {r:.3e} (phase 3's "
+               f"bound {tol:.3e})")
+    # host time of one contract call, an empty cache beside the full one
+    full, empty = autotune.default_cache(), untuned
+    gw = torch.Generator(device="cuda").manual_seed(13)
+    w = (torch.randn(4096, 11008, generator=gw, device="cuda")
+         * 4096 ** -0.5).bfloat16()
+    xs = {"decode 4": torch.randn(4, 4096, generator=gw, device="cuda"
+                                  ).bfloat16(),
+          "prefill 256": torch.randn(256, 4096, generator=gw, device="cuda"
+                                     ).bfloat16()}
+    for x in xs.values():
+        autotune.autotune(facility.Ger.BF16GER2, x.shape[0], 11008, 4096)
+    host = {}
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for _ in range(7):
+            for where, x in xs.items():
+                for label, cache in (("empty", empty), ("full", full)):
+                    autotune._DEFAULT_CACHE = cache
+                    host.setdefault(f"{where} {label}", []).append(
+                        host_us(torch, lambda x=x: facility.contract(
+                            "mk,kn->mn", x, w)))
+    autotune._DEFAULT_CACHE = full
+    host = {k: {"median": sorted(v)[3], "min": min(v)}
+            for k, v in host.items()}
+    print(f"  phase 10: {run}: decode tok/s natural {tok_s['natural']:.2f}, "
+          f"packed {tok_s['packed']:.2f} under the tuned cache (phase 3's "
+          f"untuned {natural['stats']['tokens_per_s']:.2f}); host us of one "
+          f"contract call (median, min of 7; {len(full)} entries in the "
+          f"full cache): " + ", ".join(
+              f"{k} {v['median']:.1f}, {v['min']:.1f}"
+              for k, v in host.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    PHASE10[run] = {"wmma bf16": packed_counts["gemm wmma"],
+                    "tok_s": tok_s, "rel_l2": rels, "host_us": host,
+                    "tok_s_phase3": natural["stats"]["tokens_per_s"],
+                    "pack_stats": stats,
+                    "tuned": {str(k): [str(v[0]), str(v[1]), v[2], v[3]]
+                              for k, v in tuned.items()}}
+
+
+def phase10_kernels(torch, timer, failures):
+    """K1d on the WMMA and fp32 tiles and K3's packed filters on its WMMA
+    and fp32 tiles: a main-path run through ``facility.contract`` (the
+    entry point) of each mode, natural and packed, launches reset just
+    before and read just after; each packed result bit for bit the
+    natural one and held against its plain version; the sidecar on a
+    packed WMMA launch bit for bit the natural one's; the main modes timed
+    (CUDA events, L2 flushed) beside the natural launch, the plain
+    version, the library call and the bound.  Returns the ``kernels``
+    entries."""
+    from repro_torch.core import facility, packing
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = facility.Ger
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    # (label, entry, family, (M, K, N), explicit block, masked, timed)
+    cases = []
+    for tag, (m, k, n) in (("decode", (SERVE["batch"], 4096, 11008)),
+                           ("prefill", (1024, 4096, 11008))):
+        for block in ((128, 128, 32), (64, 64, 64)):
+            cases.append((f"bf16 block {block} {tag} {m}x{k}x{n}", "wmma",
+                          Ger.BF16GER2, (m, k, n), block, False, True))
+        cases.append((f"F32GER {tag} {m}x{k}x{n}", "wmma f32", Ger.F32GER,
+                      (m, k, n), None, False, True))
+    cases += [
+        ("bf16 unaligned 1024x768x51865", "wmma", Ger.BF16GER2,
+         (1024, 768, 51865), None, False, True),
+        ("bf16 masked 1024x4096x11008", "wmma", Ger.BF16GER2,
+         (1024, 4096, 11008), None, True, True),
+        ("F32GER masked 1024x4096x11008", "wmma f32", Ger.F32GER,
+         (1024, 4096, 11008), None, True, True),
+        ("bf16 fringe 1000x330x1000", "wmma", Ger.BF16GER2,
+         (1000, 330, 1000), (128, 128, 32), False, False),
+        ("F32GER fringe 1000x330x1000", "wmma f32", Ger.F32GER,
+         (1000, 330, 1000), None, False, False)]
+    ops = []
+    for label, entry, kind, (m, k, n), block, masked, timed in cases:
+        dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+        x = randn(m, k, dtype=dt)
+        w = randn(k, n, dtype=dt, scale=k ** -0.5)
+        masks = None
+        if masked:
+            masks = _lane_masks(torch, g, m, n, k)
+            x[~masks[0], :] = float("nan")
+            w[:, ~masks[1]] = float("nan")
+            w[~masks[2], :] = float("inf")
+        po = packing.pack_gemm(w, packing.gemm_layout(kind, k, n))
+        plan = facility.Plan(ger=kind, out_dtype=facility.ACC, block=block)
+        ops.append((label, entry, kind, (m, k, n), block, masks, timed, x,
+                    w, po, plan))
+    img = randn(4, 1, 3001, 768)
+    wc = randn(3, 768, 768, scale=(3 * 768) ** -0.5)
+    patch = randn(4, 448, 448, 3)
+    wp = randn(14, 14, 3, 3584, scale=588 ** -0.5)
+    convs = []
+    for kind in (Ger.BF16GER2, Ger.F32GER):
+        dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+        entry = "conv f32" if kind == Ger.F32GER else "conv wmma"
+        for label, spec, x, w, stride in (
+                ("whisper conv2 4x3001x768 k3 s2", facility.CONV1D,
+                 img[:, 0].to(dt), wc.to(dt), 2),
+                ("qwen2-vl patch 4x448x448x3 k14 s14", facility.CONV2D,
+                 patch.to(dt), wp.to(dt), (14, 14))):
+            nd = 1 if spec == facility.CONV1D else 2
+            kh, (kw, c, f) = ((1, w.shape) if nd == 1
+                              else (w.shape[0], w.shape[1:]))
+            pc = packing.pack_conv(w, packing.conv_layout(kind, kh, kw, c,
+                                                          f, nd=nd))
+            bias = randn(f, dtype=torch.float32)
+            plan = facility.Plan(
+                ger=kind, out_dtype=torch.float32, stride=stride,
+                epilogue=E.Epilogue(bias=True, activation="gelu"),
+                block=None if kind == Ger.F32GER else (64, 128, 32))
+            convs.append((f"{kind.value} {label}", entry, spec, x, w, pc,
+                          bias, plan))
+
+    # the main path: every mode natural and packed through contract
+    kernels = kernel_wrappers()
+    nat, pk = {}, {}
+    before = dict(packing.COUNTERS)
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for label, _, _, _, _, masks, _, x, w, po, plan in ops:
+            nat[label] = facility.contract("mk,kn->mn", x, w, masks=masks,
+                                           plan=plan)
+            pk[label] = facility.contract("mk,kn->mn", x, po, masks=masks,
+                                          plan=plan)
+        for label, _, spec, x, w, pc, bias, plan in convs:
+            nat[label] = facility.contract(spec, x, w, bias=bias, plan=plan)
+            pk[label] = facility.contract(spec, x, pc, bias=bias, plan=plan)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    moved = _relayouts(dict(packing.COUNTERS), before)
+    n_bf16 = sum(1 for o in ops if o[1] == "wmma")
+    run = "packed modes through contract"
+    _check(failures, run, not any(moved.values())
+           and counts["packed"]["gemm wmma"] == len(ops)
+           and counts["masked"]["wmma"] == 4
+           and counts["packed"]["conv wmma"] == 2
+           and counts["packed"]["conv f32"] == 2,
+           f"launches {counts['launches']}, GEMM by path "
+           f"{counts['by_path']['mma_gemm']}, conv by path "
+           f"{counts['by_path']['mma_conv2d']}, on packed panels "
+           f"{counts['packed']}; packing counters {moved} (all 0)")
+    PHASE10[run] = {"wmma bf16": n_bf16, "wmma f32": len(ops) - n_bf16,
+                    "conv wmma": counts["packed"]["conv wmma"],
+                    "conv f32": counts["packed"]["conv f32"]}
+
+    rows = {}
+    for label, entry, kind, (m, k, n), block, masks, timed, x, w, po, \
+            plan in ops:
+        _check(failures, f"K1d {label}", torch.equal(pk[label], nat[label])
+               and bool(torch.isfinite(pk[label]).all()),
+               "packed bit for bit the natural launch, finite")
+        gk = dict(kind=kind, block=block, masks=masks)
+        plain = lambda x=x, w=w, gk=gk: G.mma_gemm_plain(  # noqa: E731
+            x, w, kind=gk["kind"], masks=gk["masks"])
+        err = _report_close(torch, f"K1d {label} vs plain", pk[label],
+                            plain(), torch.float32, failures)
+        if not timed:
+            continue
+        xs, ws = (G.select_masks(x, w, masks) if masks is not None
+                  else (x, w))
+        row = {"ms": timer(lambda x=x, po=po, gk=gk: G.mma_gemm(
+                   x, po.data, y_layout=po.layout, **gk)),
+               "natural_ms": timer(lambda x=x, w=w, gk=gk: G.mma_gemm(
+                   x, w, **gk)),
+               "plain_ms": timer(plain),
+               "library_ms": timer(
+                   (lambda x=x, w=w, masks=masks: torch.matmul(
+                       *G.select_masks(x, w, masks)))
+                   if masks is not None else
+                   (lambda x=x, w=w: torch.matmul(x, w)))}
+        del xs, ws
+        # the bound counts the enabled lanes' work where masks are on
+        me, ne, ke = ((int(t.sum()) for t in masks) if masks is not None
+                      else (m, n, k))
+        isz = 4 if kind == Ger.F32GER else 2
+        nbytes = (me * ke + ke * ne) * isz + m * n * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2 * me * ne * ke, "f32" if kind == Ger.F32GER
+            else "bf16")
+        print(f"  time K1d {label}: packed {row['ms']:.4f} ms, natural "
+              f"{row['natural_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"library {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.setdefault(entry, {})[label] = (row, err)
+    # the sidecar on a packed WMMA launch (K1e over K1d)
+    for label, _, kind, (m, k, n), block, masks, _, x, w, po, _ in ops:
+        if masks is None and block is not None and m > 64:
+            want = G.mma_gemm(x, w, kind=kind, block=block, checksum=True)
+            got = G.mma_gemm(x, po.data, kind=kind, block=block,
+                             checksum=True, y_layout=po.layout)
+            _check(failures, f"K1d {label} checksum=True",
+                   all(torch.equal(a, c) for a, c in zip(got, want)),
+                   "out, ck_col and ck_row bit for bit the natural "
+                   "launch's")
+            break
+    for label, entry, spec, x, w, pc, bias, plan in convs:
+        _check(failures, f"K3 packed {label}",
+               torch.equal(pk[label], nat[label]),
+               "packed filters bit for bit the natural launch")
+        x4 = x[:, None] if spec == facility.CONV1D else x
+        w4 = w[None] if spec == facility.CONV1D else w
+        stride = (1, plan.stride) if spec == facility.CONV1D else plan.stride
+        ckw = dict(stride=stride, ep=plan.epilogue, bias=bias,
+                   out_dtype=torch.float32, bf=(plan.block or (0, None))[1])
+        plain = lambda x4=x4, w4=w4, ckw=ckw: K.mma_conv2d_plain(  # noqa
+            x4, w4, stride=ckw["stride"], ep=ckw["ep"], bias=ckw["bias"],
+            out_dtype=torch.float32)
+        got4 = pk[label][:, None] if spec == facility.CONV1D else pk[label]
+        err = _report_close(torch, f"K3 packed {label} vs plain", got4,
+                            plain(), torch.float32, failures)
+        layout = pc.layout
+        kh, kw, c, f = layout.kh, layout.kw, layout.c, layout.f
+        n, h, wd, _ = x4.shape
+        oh, ow = (h - kh) // stride[0] + 1, (wd - kw) // stride[1] + 1
+        w_nchw = w4.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        x_nchw = x4.permute(0, 3, 1, 2)
+        b16 = bias.to(x.dtype)
+        row = {"ms": timer(lambda x4=x4, pc=pc, ckw=ckw: K.mma_conv2d(
+                   x4, pc.data, w_layout=pc.layout, **ckw)),
+               "natural_ms": timer(lambda x4=x4, w4=w4, ckw=ckw: K.mma_conv2d(
+                   x4, w4, **ckw)),
+               "plain_ms": timer(plain),
+               "library_ms": timer(
+                   lambda x_nchw=x_nchw, w_nchw=w_nchw, b16=b16, s=stride:
+                   torch.nn.functional.conv2d(x_nchw, w_nchw, b16,
+                                              stride=s))}
+        isz = x.element_size()
+        nbytes = (x4.numel() + w4.numel()) * isz + n * oh * ow * f * 4 \
+            + f * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2 * n * oh * ow * f * kh * kw * c,
+            "f32" if x.dtype == torch.float32 else "bf16")
+        print(f"  time K3 packed {label}: packed {row['ms']:.4f} ms, "
+              f"natural {row['natural_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, cuDNN {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.setdefault(entry, {})[label] = (row, err)
+    del ops, convs, nat, pk
+
+    names = {"wmma": "mma_gemm packed Y (wmma)",
+             "wmma f32": "mma_gemm packed Y (wmma f32)",
+             "conv wmma": "mma_conv2d packed filters (wmma)",
+             "conv f32": "mma_conv2d packed filters (f32)"}
+    counter = {"wmma": "wmma bf16", "wmma f32": "wmma f32",
+               "conv wmma": "conv wmma", "conv f32": "conv f32"}
+    entries = []
+    for key, by_label in rows.items():
+        label, (row, _) = next(iter(by_label.items()))
+        conv = key.startswith("conv")
+        e = {"name": names[key], "route": "cuda",
+             "source": ("src/repro_torch/csrc/mma_conv.cu" if conv
+                        else "src/repro_torch/csrc/mma_gemm.cu"),
+             "replaces": ("src/repro/kernels/mma_conv.py:176" if conv
+                          else "src/repro/kernels/mma_gemm.py:333"),
+             "max_abs_err": max(err for _, err in by_label.values()),
+             **row, "shape": label,
+             "launches_by_run": {r: v.get(counter[key], 0)
+                                 for r, v in PHASE10.items()},
+             "timed": {lb: r for lb, (r, _) in by_label.items()}}
+        e["launches"] = sum(e["launches_by_run"].values())
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched in phase 10's runs")
+        entries.append(e)
+    return entries
+
+
+def phase10(torch, failures, entries):
+    """Phase 10: the serving runs (the F32GER prepacked serve and
+    generation, the tuned serves) ran after their models' phase-3 runs;
+    here the packed WMMA/fp32 modes through contract, checked and
+    timed."""
+    print("== phase 10: autotuned dispatch (core/autotune.py, "
+          "roofline/analysis.py), K1d on the WMMA and fp32 tiles, K3's "
+          "packed filters on its WMMA and fp32 tiles", flush=True)
+    t0 = time.perf_counter()
+    for name, r in PHASE10.items():
+        print(f"  {name}: " + json.dumps(
+            {k: v for k, v in r.items() if k not in ("tuned",)},
+            default=str))
+    timer = Timer(torch)
+    entries += phase10_kernels(torch, timer, failures)
+    del timer
+    print(f"  phase 10 (after the serves): {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -3887,6 +4533,15 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False   # F32GER is true fp32
     torch.backends.cudnn.allow_tf32 = False
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ[TUNE_ENV] = os.path.join(tune_dir, "autotune.json")
+    try:
+        run_phases(torch)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run_phases(torch) -> None:
     t_start = time.perf_counter()
     failures: list[str] = []
 
@@ -3931,13 +4586,17 @@ def main() -> None:
         if arch == ARCH:
             natural = {"stats": stats, "launches": by_run[arch],
                        "record": record, "by_path": RECORDS[arch]["by_path"]}
-            f32_serve(torch, failures, model, cfg)
+            f32_natural = f32_serve(torch, failures, model, cfg)
+            f32_prepacked_serve(torch, failures, model, cfg, f32_natural)
+            del f32_natural
             t9 = time.perf_counter()
             guarded_serves(torch, failures, model, cfg, natural)
             print(f"  phase 9's serving runs: {time.perf_counter() - t9:.1f}"
                   f" s", flush=True)
             prepacked_serve(torch, failures, arch, settings, model, cfg,
                             natural)
+            tuned_serves(torch, failures, arch, settings, model, cfg,
+                         natural)
             del natural
         elif arch == MOE_RUN[0]:
             # phase 3's first `batch` requests' prompts, decoded on a
@@ -3961,6 +4620,7 @@ def main() -> None:
         del steps
         if arch == "whisper-small":
             f32_generate(torch, failures, model, cfg)
+            f32_prepacked_generate(torch, failures, model, cfg)
         prepacked_steps(torch, failures, arch, model, cfg, batch, seq_len)
         del model, batch
         torch.cuda.empty_cache()
@@ -4015,6 +4675,7 @@ def main() -> None:
 
     phase8(torch, failures, entries)
     phase9(torch, failures, entries)
+    phase10(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

@@ -34,6 +34,17 @@ Lowerings register per ``(backend, op_class, ger, fused)`` key:
   * ``ger``/``fused``: optional specializations; lookup falls back from the
     most specific key to ``(backend, op_class, None, None)``.
 
+Autotuned dispatch
+------------------
+Every kernel-backend GEMM, dense conv and attention dispatch consults the
+autotune cache (``core/autotune.py``) for its shape, in the reference's
+order: an explicit ``Plan.block`` wins, then a cached winner
+(:func:`resolve_block`; attention: ``autotune.lookup_attn``), else the
+kernel wrapper's heuristic.  A winner names a kernel path and config; a
+call that cannot take it runs the heuristic, and the wrapper counts it.
+The conv consults the GEMM cache at (OW, F, KW*C), as the reference does,
+and applies only the winner's filter tile where K3 has it.
+
 Guarded dispatch
 ----------------
 With ``FacilityConfig(guards=True)`` each contract output passes a NaN/Inf
@@ -99,7 +110,8 @@ import warnings
 import torch
 
 from repro_torch.core import abft as _abft
-from repro_torch.core import packing, precision
+from repro_torch.core import autotune as _autotune
+from repro_torch.core import packing, precision, tiling
 from repro_torch.kernels import epilogue as _epilogue_mod
 from repro_torch.kernels import mma_attention as _attn
 from repro_torch.kernels import mma_conv as _conv
@@ -453,6 +465,27 @@ def _passes(ger: Ger, x, y):
     return hook[1](x, y)
 
 
+def rep_kind(ger: Ger) -> Ger:
+    """The family whose policy governs tiles after expansion."""
+    hook = _EXPANSIONS.get(ger)
+    return ger if hook is None else hook[0]
+
+
+def resolve_block(kind: Ger, m: int, n: int, k: int,
+                  block: tuple[int, int, int] | None,
+                  epilogue_key: str = "none", b: int = 1,
+                  device: str = "cuda"):
+    """Dispatch-time autotune-cache consult: ``(block, tuned)`` for the
+    GEMM wrapper.  An explicit ``block`` wins (``tuned`` None); then a
+    cached winner for ``device``'s backend, a (path, config) pair (batched
+    contractions consult their own (b, m, n, k) key); else (None, None):
+    the wrapper's heuristic."""
+    if block is not None:
+        return tuple(block), None
+    return None, _autotune.lookup(rep_kind(kind), m, n, k, epilogue_key,
+                                  backend=device, b=b)
+
+
 # ----------------------------------------------------------------------
 # Resolved op: everything a lowering needs
 # ----------------------------------------------------------------------
@@ -593,8 +626,11 @@ def _lower_kernel_gemm(op: Op):
         use_ep = not ep.is_identity
         xi, xl = _fresh_panels(xi.to(pol.x_dtype))
         yi, yl = _fresh_panels(yi.to(pol.y_dtype))
+        block, tuned = resolve_block(kind, m, n, k, op.block, ep.key,
+                                     b=b or 1, device=xi.device.type)
         return _gemm.mma_gemm(
-            xi, yi, c, kind=kind, block=op.block, x_layout=xl, y_layout=yl,
+            xi, yi, c, kind=kind, block=block, tuned=tuned, x_layout=xl,
+            y_layout=yl,
             masks=op.masks, neg_product=op.neg_product and forms,
             neg_acc=op.neg_acc and forms,
             alpha=op.alpha if forms else 1.0,
@@ -929,11 +965,13 @@ def _lower_kernel_conv(op: Op):
     conv is bilinear, so the F32GER_3XBF16 hi/lo passes sum over one
     accumulator and the epilogue applies once on the chained product.  An
     explicit ``Plan.block`` names K3's filter tile (its N tile, as the
-    reference takes ``block[1]``) and changes no result; K4 has none.  A
+    reference takes ``block[1]``) and changes no result; K4 has none.
+    Else the GEMM winner at (OW, F, KW*C), as the reference consults it,
+    applies its filter tile where K3 has one (``tiling.conv_tuned``).  A
     packed filter stream (single-pass dense specs only: ``_admit_packed``)
     goes through ``packing.refresh_conv`` to the wrapper, which takes the
-    path the natural filter would: K3's wgmma kernel streams it, the other
-    paths read no packed filters, and the wrapper demotes it, counted."""
+    path the natural filter would, and whose kernels read it on every
+    path."""
     x4, w4, strides, depthwise, squeeze = _conv_norm(op)
     if depthwise:
         if op.block is not None:
@@ -944,9 +982,22 @@ def _lower_kernel_conv(op: Op):
         if op.block is not None and len(op.block) != 3:
             raise ValueError(f"conv blocks are (bm, bf, bk) like the gemm's; "
                              f"got {op.block!r}")
+        if packing.is_packed(w4):
+            kh, kw, c, f = (w4.layout.kh, w4.layout.kw, w4.layout.c,
+                            w4.layout.f)
+        else:
+            kh, kw, c, f = w4.shape
+        ow = (x4.shape[2] - kw) // strides[1] + 1
+        tuned = None
+        if op.block is None:
+            _, won = resolve_block(op.ger, ow, f, kw * c, None,
+                                   op.epilogue.key,
+                                   device=x4.device.type)
+            tuned = (tiling.conv_tuned(won, rep_kind(op.ger))
+                     if won is not None else None)
         conv = functools.partial(
             _conv.mma_conv2d,
-            bf=op.block[1] if op.block is not None else None)
+            bf=op.block[1] if op.block is not None else None, tuned=tuned)
     res = op.residual
     if res is not None and squeeze:
         res = res[:, None]
@@ -1052,19 +1103,28 @@ def _lower_ref_conv(op: Op):
 def _lower_kernel_attn(op: Op):
     """The Hopper flash kernel (kernels/mma_attention.py): one block per
     (b, h, q tile), GQA by index, the causal/window bounds computed per
-    block, short queries split over KV.  The wrapper picks the tile; a
-    Plan.block names the prefill tile or nothing."""
-    if op.block is not None and tuple(op.block) != (_attn.BLOCK_Q,
-                                                    _attn.BLOCK_K):
-        raise ValueError(f"the attention kernel's tile is "
-                         f"({_attn.BLOCK_Q}, {_attn.BLOCK_K}), not "
+    block, short queries split over KV.  A Plan.block names the q tile,
+    (128, 64) or (64, 64); else a cached winner (keyed by heads, not by
+    batch: ``autotune.lookup_attn``) names the q tile and the split; else
+    the wrapper's heuristic picks them."""
+    tiles = ((_attn.BLOCK_Q, _attn.BLOCK_K), (_attn.BLOCK_Q_SHORT,
+                                              _attn.BLOCK_K))
+    if op.block is not None and tuple(op.block) not in tiles:
+        raise ValueError(f"the attention kernel's tiles are {tiles}, not "
                          f"{tuple(op.block)}")
     pol = op.pol
+    _, sq, h, d = op.x.shape
+    if op.block is not None:
+        tuned = (op.block[0], None)
+    else:
+        tuned = _autotune.lookup_attn(op.ger, h, sq, op.y.shape[1], d,
+                                      op.epilogue.key,
+                                      backend=op.x.device.type)
     return _attn.mma_flash_attention(
         op.x.to(pol.x_dtype), op.y.to(pol.x_dtype), op.z.to(pol.y_dtype),
         causal=op.causal, q_offset=op.q_offset, window=op.window,
         valid=op.valid, ep=op.epilogue, bias=op.bias, residual=op.residual,
-        out_dtype=op.out_dtype)
+        out_dtype=op.out_dtype, tuned=tuned)
 
 
 def attend_chunk(q, k, v, *, q_pos, kv_pos, causal, window, valid):

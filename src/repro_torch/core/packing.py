@@ -37,22 +37,26 @@ on the call:
 Where the port departs from the reference.  The reference derives a
 layout's block from the autotune winner at an ``m_hint`` (the serving
 batch) and, inside a jit trace, demotes a stale layout it cannot repack.
-The port has no autotune (ROADMAP slice C5) and no tracing, so:
+The port does not trace, and its winners (``core/autotune.py``) change a
+call's path, never its panel:
 
   * a layout's panel is the panel its kernels read, fixed and independent
-    of M (:data:`PANEL_BLOCK`): the Y side's (bk, bn) = (64, 64) is the
-    wgmma tile's 128-byte-swizzled B box and two of the weight stream's
-    32-row stages, so one pack serves decode and prefill; the X side's
+    of M and of the winner (:data:`PANEL_BLOCK`): the Y side's (bk, bn) =
+    (64, 64) is the wgmma tile's 128-byte-swizzled B box, two of the
+    weight stream's 32-row stages, and the panel the WMMA and fp32 tiles
+    cut their (bk, bn) stages from, so one pack serves decode, prefill and
+    every tuned path, and a tuned serve repacks nothing; the X side's
     (bm, bk) = (128, 64) is the IMMA tile's X panel (I8GER4); the conv
-    filter tile is bf = 64 (:data:`CONV_BF`), K3's wgmma B box;
+    filter tile is bf = 64 (:data:`CONV_BF`), K3's wgmma B box and half
+    its WMMA tile's 128 filters;
   * the reference's "stale under trace -> demote" branch has no
     counterpart: a stale layout is always repacked;
   * a packed dispatch takes the path its natural operands would take
     (``tiling.choose_gemm_path`` / ``choose_conv_path``, chosen once, in
-    the kernel wrapper), so its result is the natural one bit for bit;
-    where that path reads no packed panels (the WMMA tiles, the DMMA
-    kernel, I4GER8 and I16GER2, X panels on the stream or wgmma, Y panels
-    on IMMA) the wrapper demotes the operand.
+    the kernel wrapper, a tuned winner included), so its result is the
+    natural one bit for bit; where that path reads no packed panels (the
+    DMMA kernel, I4GER8 and I16GER2, X panels on the stream, wgmma or
+    WMMA tiles, Y panels on IMMA) the wrapper demotes the operand.
 """
 
 from __future__ import annotations
@@ -360,20 +364,28 @@ def repack(po: PackedOperand, layout) -> PackedOperand:
 # ----------------------------------------------------------------------
 
 
-def plan_gemm_block(kind: Ger, m: int, n: int, k: int, *,
-                    b: int = 1) -> tuple:
+def plan_gemm_block(kind: Ger, m: int, n: int, k: int, *, b: int = 1,
+                    epilogue_key: str = "none",
+                    block: tuple[int, int, int] | None = None,
+                    device: str = "cuda") -> tuple:
     """The configuration a kernel-backend GEMM at (b, m, n, k) would run,
-    as ``(path, *config)`` from ``tiling.choose_gemm_path`` (there is no
-    autotune yet, ROADMAP slice C5): the freshness key of a packed
-    constant.  ``m`` is the caller's hint for the rows the operand will
-    meet.  Operands are taken as contiguous with 16-byte pitches where K
-    and N allow it.  An expansion hook (F32GER_3XBF16) plans as the family
-    it runs on."""
-    if kind == Ger.F32GER_3XBF16:
-        kind = Ger.BF16GER2
+    as ``(path, *config)``, in the reference's order: an explicit
+    ``block`` wins, then the autotune winner (``lowering.resolve_block``),
+    else ``tiling.choose_gemm_path``'s heuristic: the freshness key of a
+    packed constant.  ``m`` is the caller's hint for the rows the operand
+    will meet, ``device`` the backend the winner is keyed by.  Operands
+    are taken as contiguous with 16-byte pitches where K and N allow it.
+    An expansion hook (F32GER_3XBF16) plans as the family it runs on.
+    The panel a packed operand holds does not follow this plan
+    (:data:`PANELS`): the plan keys a store, it never repacks."""
+    from repro_torch.core import lowering as _lowering
+    kind = _lowering.rep_kind(kind)
     pitch = precision.policy(kind).in_bytes
     aligned = (k * pitch) % 16 == 0 and (n * pitch) % 16 == 0
-    path, cfg = tiling.choose_gemm_path(m, n, k, kind, b, aligned)
+    block, tuned = _lowering.resolve_block(kind, m, n, k, block,
+                                           epilogue_key, b=b, device=device)
+    path, cfg = tiling.choose_gemm_path(m, n, k, kind, b, aligned, block,
+                                        tuned=tuned)
     return (path, *dataclasses.astuple(cfg))
 
 
@@ -382,8 +394,9 @@ def gemm_layout(kind: Ger, rows: int, cols: int, *, side: str = "y",
                 ) -> GemmLayout:
     """The kernel-native layout of a GEMM weight whose kernel-facing
     matrix is (rows, cols): (K, N) on the Y side, (M, K) on the X side.
-    Its panel is :data:`PANEL_BLOCK`'s whatever M the weight meets, so the
-    reference's ``m_hint`` and autotune key have no counterpart here."""
+    Its panel is :data:`PANEL_BLOCK`'s whatever M the weight meets and
+    whichever path a winner picks, so the reference's ``m_hint`` and
+    autotune key have no counterpart here."""
     return GemmLayout(kind=kind, block=PANEL_BLOCK, side=side, rows=rows,
                       cols=cols, transposed=transposed, batched=batched)
 
@@ -403,7 +416,12 @@ def gemm_unread(path: str, kind: Ger, side: str,
                 masked: bool = False) -> str | None:
     """None where the GEMM ``path`` streams ``side``'s packed panels in
     family ``kind``; else the reason a packed operand there is demoted
-    (``masked``: a pm* call, whose loaders read natural rows only)."""
+    (``masked``: a pm* call, whose IMMA and DMMA loaders read natural rows
+    only; the WMMA and fp32 tiles' masked loaders read Y panels).  K3
+    reads its packed filters on every path (wgmma, WMMA, fp32), so the
+    conv wrapper demotes none."""
+    if path == "wmma":
+        return None if side == "y" else "wmma-reads-no-x-panels"
     if masked:
         return f"{path}-masked-reads-no-panels"
     if path in ("stream", "wgmma"):
@@ -413,11 +431,6 @@ def gemm_unread(path: str, kind: Ger, side: str,
             return f"imma-{kind.value}-reads-no-panels"
         return None if side == "x" else "imma-reads-no-y-panels"
     return f"{path}-tile-reads-no-panels"
-
-
-def conv_unread(path: str) -> str | None:
-    """None where K3's ``path`` streams packed filters, else the reason."""
-    return None if path == "wgmma" else f"conv-{path}-tile-reads-no-panels"
 
 
 # ----------------------------------------------------------------------
@@ -432,13 +445,13 @@ def refresh_gemm(po: PackedOperand):
     and ``po`` keeps the new panels.
 
     Which path the dispatch takes, and so whether it reads these panels at
-    all, is the kernel wrapper's one decision (``kernels/mma_gemm.py``):
-    a path that reads none demotes them there, counted, with its reason.
-    The panel a reading path reads does not depend on the path or on M, so
-    this check needs neither.  There is no reference-style "stale under
-    trace" branch: the port does not trace.  Until autotune (ROADMAP C5)
-    the prepack pass writes only fresh layouts: a stale one is a weight
-    packed by hand with another block.
+    all, is the kernel wrapper's one decision (``kernels/mma_gemm.py``,
+    a tuned winner included): a path that reads none demotes them there,
+    counted, with its reason.  The panel a reading path reads does not
+    depend on the path, on M or on a winner, so this check needs none of
+    them.  There is no reference-style "stale under trace" branch: the
+    port does not trace.  The prepack pass writes only fresh layouts: a
+    stale one is a weight packed by hand with another block.
     """
     lay = po.layout
     if lay.panel_blocks == PANELS[lay.side]:
@@ -451,9 +464,8 @@ def refresh_gemm(po: PackedOperand):
 
 def refresh_conv(po: PackedOperand):
     """Conv analogue of :func:`refresh_gemm`: the filter tile
-    :data:`CONV_BF` is the one panel K3's wgmma kernel reads; the wrapper
-    (``kernels/mma_conv.py``) demotes the stream where its path reads
-    none."""
+    :data:`CONV_BF` is the one slab width K3's kernels read, on every
+    path (``kernels/mma_conv.py``)."""
     lay = po.layout
     if lay.bf == CONV_BF:
         return po.data, lay
@@ -584,14 +596,19 @@ def prepack_params_for_serving(model: torch.nn.Module, *,
 
     The rules are the reference's: ``tok`` stays natural; the conv stems'
     filters (``conv1_w``, ``conv2_w``, ``patch_w``) pack into K3's filter
-    stream, cast once to the operand dtype of the facility's family
-    (``facility.current().ger``, the family every dispatch runs) (the values the per-call
-    policy cast gives, ``models/convert.py``); the MoE banks ``w1/w2/w3``
-    under a ``moe`` module pack as batched Y panels; every other float
-    weight of >= 2 dims and >= ``min_size`` elements packs as Y panels,
-    or, with ``quantize=True`` and fp32, is int8-quantized into X-side
-    I8GER4 panels carrying ``scale`` and ``col_sum`` (``quant.qdot``'s
-    orientation).  Non-float and smaller leaves stay natural.  Note that
+    stream; the MoE banks ``w1/w2/w3`` under a ``moe`` module pack as
+    batched Y panels; every other float weight of >= 2 dims and >=
+    ``min_size`` elements packs as Y panels, or, with ``quantize=True``
+    and fp32, is int8-quantized into X-side I8GER4 panels carrying
+    ``scale`` and ``col_sum`` (``quant.qdot``'s orientation).  The conv
+    filters are cast once to the operand dtype of the facility's family
+    (``facility.current().ger``, the family every dispatch runs: the
+    values the per-call policy cast gives, ``models/convert.py``); a bf16
+    or f16 weight under an fp32 family is widened once to fp32 (exact, and
+    undone exactly by any narrower dispatch's cast), so the tight-parity
+    config (F32GER) served prepacked holds fp32 panels, which the fp32
+    WMMA tile reads with no per-call cast.  (The reference packs the leaf
+    as it is and casts per call.)  Non-float and smaller leaves stay natural.  Note that
     this includes mamba2's 2-D depthwise taps ``conv_w`` where they reach
     ``min_size``; a depthwise call demotes them, as the reference's
     admission does (ROADMAP queue 3), so no SSM arch is served prepacked.
@@ -603,11 +620,13 @@ def prepack_params_for_serving(model: torch.nn.Module, *,
     ``m_hint`` has no counterpart: the port's panels do not depend on M
     (the module docstring says why).
 
-    Returns the stats ``{category: count, "bytes": natural bytes packed}``.
-    The reference counts a stacked layer leaf once; the port's layers are
-    unstacked, so its per-category counts are the reference's times the
-    layers, and its ``bytes`` equal the reference's wherever the leaf
-    dtypes match.
+    Returns the stats ``{category: count, "bytes": natural bytes packed,
+    "panel_bytes": bytes the packed forms hold}``.  The reference counts a
+    stacked layer leaf once; the port's layers are unstacked, so its
+    per-category counts are the reference's times the layers, and its
+    ``bytes`` equal the reference's wherever the leaf dtypes match.
+    ``panel_bytes`` adds the panels' padding and the widening: a bf16
+    model prepacked under F32GER holds about twice its natural bytes.
     """
     if not isinstance(model, torch.nn.Module):
         raise TypeError(f"prepack_params_for_serving walks a port Model "
@@ -616,6 +635,12 @@ def prepack_params_for_serving(model: torch.nn.Module, *,
     kind = _facility.current().ger
     pol = precision.policy(kind)
     stats: collections.Counter = collections.Counter()
+
+    def widened(leaf):
+        # a 16-bit weight under an fp32 family: the cast is exact, and any
+        # later cast to another family's dtype gives the 16-bit values back
+        return (leaf.float() if pol.y_dtype == torch.float32
+                and leaf.dtype in (torch.bfloat16, torch.float16) else leaf)
 
     def packed_form(names, leaf):
         last = names[-1]
@@ -639,7 +664,7 @@ def prepack_params_for_serving(model: torch.nn.Module, *,
             stats["moe"] += 1
             stats["bytes"] += leaf.numel() * leaf.element_size()
             lay = gemm_layout(kind, d, f, batched=True)
-            return pack_gemm(leaf, lay)
+            return pack_gemm(widened(leaf), lay)
         if leaf.ndim < 2:
             return None
         k, n = leaf.shape[-2:]
@@ -655,7 +680,7 @@ def prepack_params_for_serving(model: torch.nn.Module, *,
             return pack_gemm(q, lay, scale=scale, col_sum=col_sum)
         stats["dense"] += 1
         stats["bytes"] += leaf.numel() * leaf.element_size()
-        return pack_gemm(leaf, gemm_layout(kind, k, n))
+        return pack_gemm(widened(leaf), gemm_layout(kind, k, n))
 
     for mod_name, module in list(model.named_modules()):
         path = mod_name.split(".") if mod_name else []
@@ -667,6 +692,9 @@ def prepack_params_for_serving(model: torch.nn.Module, *,
                 po = packed_form(path + [name], leaf.detach())
             if po is None:
                 continue
+            stats["panel_bytes"] += sum(
+                t.numel() * t.element_size()
+                for t in (po.data, po.scale, po.col_sum) if t is not None)
             del module._parameters[name]
             setattr(module, name, po)
             del leaf

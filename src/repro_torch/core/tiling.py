@@ -31,9 +31,18 @@ The 16-bit and fp32 families take one of three, picked by shape:
     pitches (K and N multiples of 8) and bases;
   * "wmma" (``csrc/mma_gemm.cu``): what the two do not take -- unaligned
     pitches at large M, K below one MMA step (the SSD's K = 1 outer
-    product), F32GER (true fp32) and an explicit ``Plan.block`` -- on the
-    fixed set of tiles in ``GEMM_TILES``; ``choose_blocks`` picks among
-    exactly those, and a block the kernel was not compiled for raises.
+    product), F32GER (true fp32), the pm* masked forms, and an explicit or
+    tuned block -- on the fixed set of tiles in ``GEMM_TILES``;
+    ``choose_blocks`` picks among exactly those, and a block the kernel
+    was not compiled for raises.
+
+A call's path is one choice (:func:`choose_gemm_path`): an explicit
+``Plan.block`` wins, then a tuned winner (``core/autotune.py``'s cache,
+consulted by ``core.lowering.resolve_block``: a (path, config) pair this
+module's kernels are compiled for), else the shape heuristic above.  A
+winner the call cannot take (a wgmma tile met by an unaligned pitch, the
+weight stream met by a masked call or by M > 64) gives way to the
+heuristic; the kernel wrapper counts it.
 """
 
 from __future__ import annotations
@@ -101,6 +110,7 @@ class BlockConfig:
         return max(c_tile, panels)
 
 
+@functools.lru_cache(maxsize=None)
 def tiles_for(ger: Ger) -> tuple[BlockConfig, ...]:
     if ger not in GEMM_TILES:
         raise NotImplementedError(
@@ -189,9 +199,19 @@ def stream_plan(m: int, n: int, k: int, b: int = 1) -> StreamConfig:
     tiles = -(-n // 64)
     stages = -(-k // STREAM_BK)
     # fp32 partials: 8 * split * M * N bytes against the weight's 2 * K * N
-    bucket = next(r for r in (8, 16, 32, STREAM_MAX_M) if m <= r)
-    most = max(1, min(stages, k // (4 * bucket)))
+    most = max(1, min(stages, k // (4 * row_bucket(m))))
     return StreamConfig(bn=64, split=max(1, min(most, -(-want // tiles))))
+
+
+def row_bucket(m: int) -> int:
+    """The weight stream's row bucket of M <= 64 (the kernel is compiled
+    for 8, 16, 32 and 64 rows): a row's sum runs in the same order for
+    every M in one bucket."""
+    return next(r for r in (8, 16, 32, STREAM_MAX_M) if m <= r)
+
+
+# The tiles csrc/gemm_wgmma.cu is compiled for.
+WGMMA_TILES = (WgmmaConfig(128, 128), WgmmaConfig(128, 256))
 
 
 def wgmma_plan(m: int, n: int, b: int = 1) -> WgmmaConfig:
@@ -207,9 +227,14 @@ def wgmma_plan(m: int, n: int, b: int = 1) -> WgmmaConfig:
 def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
                      aligned: bool = True,
                      block: tuple[int, int, int] | None = None,
-                     masked: bool = False):
+                     masked: bool = False, tuned: tuple | None = None):
     """("stream" | "wgmma" | "wmma" | "imma" | "dmma", config) for one
     product.
+
+    ``tuned`` is an autotune winner, a (path, config) pair as this
+    function returns them: it is the call's path where the call can take
+    it (:func:`takes`), else the heuristic below decides (an explicit
+    ``block`` is resolved before any winner, and wins).
 
     The integer families go to the IMMA kernel and F64GER to the DMMA
     kernel, whatever the shape, on their one compiled tile (an explicit
@@ -224,6 +249,9 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
     (``csrc/mma_gemm.cu``, whose panel loaders apply the predicates) at
     every M, the integer families IMMA and F64GER DMMA as above.  The
     weight stream and the wgmma tile take no predicates."""
+    if tuned is not None and block is None and takes(
+            tuned, m, n, k, ger, aligned, masked):
+        return tuned
     if ger in IMMA_GERS or ger == Ger.F64GER:
         cfg = (check_block(block, ger) if block is not None
                else tiles_for(ger)[0])
@@ -238,6 +266,27 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
         if aligned:
             return "wgmma", wgmma_plan(m, n, b)
     return "wmma", choose_blocks(m, n, k, ger, b)
+
+
+def takes(tuned: tuple, m: int, n: int, k: int, ger: Ger,
+          aligned: bool = True, masked: bool = False) -> bool:
+    """Whether a product can run on the winner ``tuned`` = (path,
+    config): a configuration the path's kernel is compiled for, on the
+    operands' family, pitches and predicates."""
+    path, cfg = tuned
+    if ger in IMMA_GERS or ger == Ger.F64GER:
+        return (path == ("imma" if ger in IMMA_GERS else "dmma")
+                and cfg in tiles_for(ger))
+    if path == "wmma":
+        return cfg in tiles_for(ger)
+    if masked or ger not in (Ger.BF16GER2, Ger.F16GER2) or k < MIN_K:
+        return False
+    if path == "stream":
+        return (m <= STREAM_MAX_M and isinstance(cfg, StreamConfig)
+                and cfg.bn in (64, 128)
+                and 1 <= cfg.split <= -(-k // STREAM_BK))
+    return (path == "wgmma" and m > STREAM_MAX_M and aligned
+            and cfg in WGMMA_TILES)
 
 
 def check_block(block: tuple[int, int, int], ger: Ger) -> BlockConfig:
@@ -280,7 +329,8 @@ def conv_gather_bytes(c: int, kw: int, w: int, sw: int, base: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def choose_conv_path(m: int, f: int, ger: Ger, aligned: bool = True,
-                     gathered: bool = True, bf: int | None = None):
+                     gathered: bool = True, bf: int | None = None,
+                     tuned: tuple | None = None):
     """("wgmma" | "wmma" | "f32", config) for one dense conv, the implicit
     GEMM of M = N*OH*OW output pixels by F filters.
 
@@ -291,7 +341,10 @@ def choose_conv_path(m: int, f: int, ger: Ger, aligned: bool = True,
     ``conv_gather_bytes``); its tile follows ``wgmma_plan``.  K does not
     choose: every kernel runs the whole K loop in the block.  An explicit
     filter tile ``bf`` names the WMMA tile, as an explicit block does for
-    the GEMM; it must be the compiled one (ValueError otherwise)."""
+    the GEMM; it must be the compiled one (ValueError otherwise).
+    ``tuned`` is a GEMM winner's filter tile as K3 has it
+    (:func:`conv_tuned`), taken where the conv can take it, else the
+    heuristic decides."""
     if ger not in CONV_TILES:
         raise NotImplementedError(f"the conv kernel has no {ger.value} "
                                   f"instantiation")
@@ -301,9 +354,29 @@ def choose_conv_path(m: int, f: int, ger: Ger, aligned: bool = True,
                          f"{tile.bn} in {ger.value}, not bf={bf}")
     if ger == Ger.F32GER:
         return "f32", tile
+    if bf is None and tuned is not None and (
+            tuned[0] == "wmma" or (aligned and gathered)):
+        return tuned
     if bf is None and aligned and gathered:
         return "wgmma", wgmma_plan(m, f)
     return "wmma", tile
+
+
+def conv_tuned(winner: tuple, ger: Ger) -> tuple | None:
+    """K3's counterpart of a GEMM winner at (OW, F, KW*C), as the
+    reference applies one (only the winner's N tile, the filter tile):
+    a wgmma tile where K3's wgmma kernel has its width, the WMMA filter
+    tile where the winner's N tile is K3's, else None (K3 has no such
+    tile: the heuristic runs, as with no winner).  F32GER's one fp32
+    tile takes no choice."""
+    if ger not in CONV_TILES or ger == Ger.F32GER:
+        return None
+    path, cfg = winner
+    if path == "wgmma" and cfg in WGMMA_TILES:
+        return winner
+    if path == "wmma" and cfg.bn == CONV_TILES[ger].bn:
+        return "wmma", CONV_TILES[ger]
+    return None
 
 
 @functools.lru_cache(maxsize=1024)

@@ -308,6 +308,12 @@ extern "C" int mma_depthwise_conv_launch(
 //     tile): a (64, 128) WMMA tile on tile_gemm.cuh's synchronous K loop,
 //     shared with K1's mma_gemm.cu, fed by ConvGatherA.
 //   * conv_f32_kernel (F32GER): tile_gemm.cuh's fp32 FMA tile.
+//     Both read packed filters too (their PACKED instances, through
+//     mma_conv2d_packed_launch): tile_gemm.cuh's PackedB takes the (gf, K,
+//     64) stream as 64-filter slabs of K rows, so the WMMA tile's 128
+//     filters are two slabs and the fp32 tile's 64 one, each stage row
+//     one 16-byte load, zero past K and F as the natural loader stages
+//     it: the result is the natural launch's bit for bit.
 // Each applies the epilogue once in fp32 and stores each output element
 // once, in the output dtype.
 
@@ -443,16 +449,28 @@ __host__ __device__ constexpr size_t conv_wmma_smem_bytes() {
          (size_t)(CONV_BM + CONV_BK) * sizeof(long long);
 }
 
+// The packed filter stream as tile_gemm.cuh's B: slabs of K rows of 64
+// filters.
 template <typename T>
+__device__ PackedB<T> conv_packed_b(const ConvArgs& a, int n0) {
+  return PackedB<T>{reinterpret_cast<const T*>(a.w), a.K, a.F, n0,
+                    (long long)a.K * PANEL_COLS};
+}
+
+template <typename T, bool PACKED>
 __global__ void __launch_bounds__(CONV_WM* CONV_WN * 32)
     conv_wmma_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * CONV_BM, n0 = blockIdx.y * CONV_BN;
   const ConvGatherA<T> ld = conv_gather<T, CONV_BM, CONV_BK>(
       smem, wmma_smem_bytes<T, CONV_BM, CONV_BN, CONV_BK>(), a, m0);
-  wmma_tile<T, CONV_BM, CONV_BN, CONV_BK, CONV_WM, CONV_WN>(
-      smem, ld, reinterpret_cast<const T*>(a.w), a.K, a.F, n0, a.vec_b != 0,
-      false);
+  if constexpr (PACKED)
+    wmma_tile_ab<T, CONV_BM, CONV_BN, CONV_BK, CONV_WM, CONV_WN>(
+        smem, ld, conv_packed_b<T>(a, n0), a.K, false);
+  else
+    wmma_tile<T, CONV_BM, CONV_BN, CONV_BK, CONV_WM, CONV_WN>(
+        smem, ld, reinterpret_cast<const T*>(a.w), a.K, a.F, n0,
+        a.vec_b != 0, false);
   conv_store_tile<CONV_BM, CONV_BN>(reinterpret_cast<float*>(smem), a, m0, n0);
 }
 
@@ -461,12 +479,17 @@ __host__ __device__ constexpr size_t conv_f32_smem_bytes() {
   return f32_smem_bytes() + (size_t)(F32_BM + F32_BK) * sizeof(long long);
 }
 
+template <bool PACKED>
 __global__ void __launch_bounds__(256) conv_f32_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * F32_BM, n0 = blockIdx.y * F32_BN;
   const ConvGatherA<float> ld =
       conv_gather<float, F32_BM, F32_BK>(smem, f32_smem_bytes(), a, m0);
-  f32_tile(smem, ld, reinterpret_cast<const float*>(a.w), a.K, a.F, n0, false);
+  if constexpr (PACKED)
+    f32_tile_ab(smem, ld, conv_packed_b<float>(a, n0), a.K, false);
+  else
+    f32_tile(smem, ld, reinterpret_cast<const float*>(a.w), a.K, a.F, n0,
+             false);
   conv_store_tile<F32_BM, F32_BN>(reinterpret_cast<float*>(smem), a, m0, n0);
 }
 
@@ -678,6 +701,31 @@ static int launch_conv(Kernel kernel, size_t smem, bool* smem_ok, int bm,
 // tile, which must be one the path is compiled for.
 enum { CONV_PATH_WMMA = 0, CONV_PATH_F32 = 1, CONV_PATH_WGMMA = 2 };
 
+// The WMMA and fp32 tiles, on natural or packed filters.
+template <bool PACKED>
+static int launch_conv_tile(const ConvArgs& a, int path, int in_dt, int bn,
+                            cudaStream_t s) {
+  const int wmma_threads = CONV_WM * CONV_WN * 32;
+  if (path == CONV_PATH_WMMA && in_dt == DT_BF16 && bn == CONV_BN) {
+    static bool ok = false;
+    return launch_conv(conv_wmma_kernel<__nv_bfloat16, PACKED>,
+                       conv_wmma_smem_bytes<__nv_bfloat16>(), &ok, CONV_BM,
+                       CONV_BN, wmma_threads, a, s);
+  }
+  if (path == CONV_PATH_WMMA && in_dt == DT_F16 && bn == CONV_BN) {
+    static bool ok = false;
+    return launch_conv(conv_wmma_kernel<__half, PACKED>,
+                       conv_wmma_smem_bytes<__half>(), &ok, CONV_BM, CONV_BN,
+                       wmma_threads, a, s);
+  }
+  if (path == CONV_PATH_F32 && in_dt == DT_F32 && bn == F32_BN) {
+    static bool ok = false;
+    return launch_conv(conv_f32_kernel<PACKED>, conv_f32_smem_bytes(), &ok,
+                       F32_BM, F32_BN, 256, a, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 static int conv2d_launch(
     const void* x, const void* w, const void* bias, const void* res,
     void* out, int in_dt, int bias_dt, int res_dt, int out_dt, int N, int H,
@@ -702,10 +750,8 @@ static int conv2d_launch(
   const uintptr_t xb = reinterpret_cast<uintptr_t>(x);
   a.vec_a = (C % 8 == 0) && ((xb & 15) == 0);
   a.vec_b = (F % 8 == 0) && ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
-  // packed filters: 16-byte aligned 128-byte slab rows, any F; only the
-  // wgmma kernel reads them
-  if (w_packed && (path != CONV_PATH_WGMMA ||
-                   (reinterpret_cast<uintptr_t>(w) & 15)))
+  // packed filters: 16-byte aligned slab rows of 64 filters, any F
+  if (w_packed && (reinterpret_cast<uintptr_t>(w) & 15))
     return (int)cudaErrorInvalidValue;
   if (w_packed) a.vec_b = 1;
   // 4-byte pairs need every (j, c) run, row pitch and pixel step even
@@ -735,24 +781,8 @@ static int conv2d_launch(
       return launch_conv_wgmma_t<__nv_bfloat16>(a, e, bn, w_packed != 0, s);
     return launch_conv_wgmma_t<__half>(a, e, bn, w_packed != 0, s);
   }
-  const int wmma_threads = CONV_WM * CONV_WN * 32;
-  if (path == CONV_PATH_WMMA && in_dt == DT_BF16 && bn == CONV_BN) {
-    static bool ok = false;
-    return launch_conv(conv_wmma_kernel<__nv_bfloat16>,
-                       conv_wmma_smem_bytes<__nv_bfloat16>(), &ok, CONV_BM,
-                       CONV_BN, wmma_threads, a, s);
-  }
-  if (path == CONV_PATH_WMMA && in_dt == DT_F16 && bn == CONV_BN) {
-    static bool ok = false;
-    return launch_conv(conv_wmma_kernel<__half>, conv_wmma_smem_bytes<__half>(),
-                       &ok, CONV_BM, CONV_BN, wmma_threads, a, s);
-  }
-  if (path == CONV_PATH_F32 && in_dt == DT_F32 && bn == F32_BN) {
-    static bool ok = false;
-    return launch_conv(conv_f32_kernel, conv_f32_smem_bytes(), &ok, F32_BM,
-                       F32_BN, 256, a, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return w_packed ? launch_conv_tile<true>(a, path, in_dt, bn, s)
+                  : launch_conv_tile<false>(a, path, in_dt, bn, s);
 }
 
 // K3's launchers, one argument list: the filter bank as natural (KH, KW,

@@ -8,10 +8,12 @@
 //   ld.template panel_kmajor<BM, BK, LDT>(float* as, int k0)
 //       the same panel for F32GER, k-major: as[kk * LDT + r];
 //
-// each zero past the M and K fringes.  B is a row-major (K, N) matrix,
-// read through a B loader with the same two members (panel<BK, BN, LDB>
-// for the 16-bit tile, panel_f32<BK, BN, LDB> for F32GER, both row-major
-// (BK, BN) at k0): RowMajorB, or MaskedRowMajorB for the pm* forms.
+// each zero past the M and K fringes.  B is a (K, N) matrix, read through
+// a B loader with the same two members (panel<BK, BN, LDB> for the 16-bit
+// tile, panel_f32<BK, BN, LDB> for F32GER, both row-major (BK, BN) at k0):
+// RowMajorB over natural rows, PackedB over core/packing.py's 64-column
+// panels (K1d, and K3's packed filter stream), or MaskedRowMajorB /
+// MaskedPackedB for the pm* forms.
 // Both loops leave the fp32 tile in shared memory (row pitch BN + 4,
 // aliasing the panels) for the caller's store; with `seeded` that tile
 // holds the fp32 seed on entry.
@@ -214,6 +216,116 @@ struct MaskedRowMajorB {
       const float v = in ? y[(long long)gk * N + gc] : 0.f;
       bs[kk * LDB + cc] =
           in && lane_on(mk.pm, gk) && lane_on(mk.ym, gc) ? v : 0.f;
+    }
+  }
+};
+
+// B from prepacked panels (K1d: repro/kernels/mma_gemm.py's packed_spec;
+// K3's packed filters: repro/kernels/mma_conv.py's w_layout): columns n0..
+// of a (K, N) matrix kept as 64-column slabs, slab s holding columns
+// [64 s, 64 s + 64) of rows 0.. row-major, zero-padded past N (and past K
+// where the slab runs on).  Element (k, n) sits at
+//     (n / 64) * slab + k * 64 + n % 64:
+// the GEMM's (gn, gk, 64, 64) Y panels are such slabs (slab = gk * 64 * 64:
+// the gk panels of a column block lie one after another, so their rows
+// run on), and so is K3's (gf, KH, KW, C, 64) filter stream (slab = K *
+// 64).  Each stage row of a chunk (8 16-bit or 4 fp32 values) lies in one
+// slab row, contiguous and 16-byte aligned, so it is one 16-byte load at
+// any N: whisper's 51865-column lm_head too, whose natural rows take
+// RowMajorB's scalar path.  A chunk that starts past N or a row past K
+// stages as 0, as RowMajorB's fringe does, and a chunk across N reads the
+// zero padding: the staged panel, and so the result, is the natural
+// loader's bit for bit.  The tiles read (BK, BN) stages out of the fixed
+// panels: (32, 128) is two panels' columns, half a panel deep; (64, 64)
+// exactly one panel; F32GER's (16, 64) a quarter of one.
+constexpr int PANEL_COLS = 64;
+
+template <typename T>
+struct PackedB {
+  const T* y;
+  int K, N, n0;
+  long long slab;  // elements of one 64-column slab
+
+  __device__ __forceinline__ const T* at(int k, int n) const {
+    return y + (long long)(n / PANEL_COLS) * slab + (long long)k * PANEL_COLS +
+           n % PANEL_COLS;
+  }
+
+  template <int BK, int BN, int LDB>
+  __device__ void panel(T* bs, int k0) const {
+    constexpr int CH = BN / 8;
+    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
+      const int r = i / CH, c8 = (i % CH) * 8;
+      const int gk = k0 + r, gc = n0 + c8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);  // +0.0 in bf16 and f16
+      if (gk < K && gc < N)
+        v = __ldg(reinterpret_cast<const uint4*>(at(gk, gc)));
+      *reinterpret_cast<uint4*>(bs + r * LDB + c8) = v;
+    }
+  }
+
+  template <int BK, int BN, int LDB>
+  __device__ void panel_f32(float* bs, int k0) const {
+    constexpr int CH = BN / 4;
+    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
+      const int r = i / CH, c4 = (i % CH) * 4;
+      const int gk = k0 + r, gc = n0 + c4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gk < K && gc < N)
+        v = __ldg(reinterpret_cast<const float4*>(at(gk, gc)));
+      *reinterpret_cast<float4*>(bs + r * LDB + c4) = v;
+    }
+  }
+};
+
+// Packed B with the column and rank predicates, applied as the stage goes
+// to shared memory, as MaskedRowMajorB does: a disabled rank's row is not
+// loaded, a disabled column's lanes are selected to 0 from the loaded
+// chunk (so NaN or Inf there gives exact zeros).  A chunk across N reads
+// no mask byte past N: its lanes there are 0 by the fringe rule.
+template <typename T>
+struct MaskedPackedB {
+  PackedB<T> p;
+  PmMasks mk;
+
+  template <int BK, int BN, int LDB>
+  __device__ void panel(T* bs, int k0) const {
+    constexpr int CH = BN / 8;
+    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
+      const int r = i / CH, c8 = (i % CH) * 8;
+      const int gk = k0 + r, gc = p.n0 + c8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gk < p.K && gc < p.N && lane_on(mk.pm, gk)) {
+        v = __ldg(reinterpret_cast<const uint4*>(p.at(gk, gc)));
+        if (gc + 8 <= p.N) {
+          if (mk.ym) select_chunk16(v, mk.ym, gc);
+        } else {
+          T* lanes = reinterpret_cast<T*>(&v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (gc + e >= p.N || !lane_on(mk.ym, gc + e))
+              lanes[e] = zero_of<T>();
+        }
+      }
+      *reinterpret_cast<uint4*>(bs + r * LDB + c8) = v;
+    }
+  }
+
+  template <int BK, int BN, int LDB>
+  __device__ void panel_f32(float* bs, int k0) const {
+    constexpr int CH = BN / 4;
+    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
+      const int r = i / CH, c4 = (i % CH) * 4;
+      const int gk = k0 + r, gc = p.n0 + c4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gk < p.K && gc < p.N && lane_on(mk.pm, gk)) {
+        v = __ldg(reinterpret_cast<const float4*>(p.at(gk, gc)));
+        if (gc + 0 >= p.N || !lane_on(mk.ym, gc + 0)) v.x = 0.f;
+        if (gc + 1 >= p.N || !lane_on(mk.ym, gc + 1)) v.y = 0.f;
+        if (gc + 2 >= p.N || !lane_on(mk.ym, gc + 2)) v.z = 0.f;
+        if (gc + 3 >= p.N || !lane_on(mk.ym, gc + 3)) v.w = 0.f;
+      }
+      *reinterpret_cast<float4*>(bs + r * LDB + c4) = v;
     }
   }
 };

@@ -57,6 +57,15 @@ class Epilogue:
     def is_identity(self) -> bool:
         return not (self.bias or self.activation or self.residual)
 
+    @property
+    def key(self) -> str:
+        """Autotune cache-key fragment, e.g. 'bias+gelu+residual' or
+        'none' (the reference's)."""
+        parts = ([p for p, on in (("bias", self.bias),
+                                  (self.activation, self.activation),
+                                  ("residual", self.residual)) if on])
+        return "+".join(parts) if parts else "none"
+
     def validate(self, acc_dtype, bias=None, residual=None) -> None:
         """Check operand presence and int-accumulator restrictions."""
         if self.bias != (bias is not None):

@@ -13,7 +13,10 @@ kernel, on TMA loads and wgmma; short queries split their KV blocks over
 several blocks (:func:`split_kv_plan`) and merge the partials by
 log-sum-exp.  f32 q, k and v (K2e: the F32GER policy's operands) run the
 kernel's fp32 tile, true fp32 FMAs on 64-row q tiles with P kept in fp32,
-in both modes (the tile and split-KV, merged alike).
+in both modes (the tile and split-KV, merged alike).  :func:`attn_plan`
+picks the q tile and the split: an autotune winner or an explicit tile
+where the kernel runs it (``core/autotune.py``, keyed by heads and never
+by the batch), else that heuristic.
 
 A CPU tensor goes to the plain version of what the card would run:
 :func:`flash_attention_splitkv_plain` (per-split partials and their
@@ -159,6 +162,51 @@ def split_kv_plan(h: int, sq: int, sk: int) -> tuple[int, int]:
         return 1, nk
     per = -(-nk // max(1, min(nk, 2 * NUM_SMS // h)))
     return -(-nk // per), per
+
+
+def compiled_depth(d: int, f32: bool) -> int | None:
+    """The depth a launch at head dim ``d`` runs (the next compiled one),
+    or None above the largest."""
+    depths = F32_HEAD_DIMS if f32 else KERNEL_HEAD_DIMS
+    return next((c for c in depths if c >= d), None)
+
+
+def attn_takes(tuned: tuple, sq: int, sk: int, d: int, f32: bool) -> bool:
+    """Whether the kernel runs the winner ``tuned`` = (bq, n_split) at
+    this shape: a compiled q tile (128 rows only in the 16-bit tile mode
+    below the padded depth 192), and KV split over 1 to ceil(Sk / 64)
+    blocks, more than one only for queries of at most 64 rows."""
+    bq, n = tuned
+    nk = -(-sk // BLOCK_K)
+    dp = compiled_depth(d, f32)
+    if dp is None or bq not in (BLOCK_Q, BLOCK_Q_SHORT) \
+            or not 1 <= n <= max(nk, 1):
+        return False
+    if n > 1 and sq > BLOCK_Q_SHORT:
+        return False
+    return bq == BLOCK_Q_SHORT or (n == 1 and not f32 and dp != 192)
+
+
+def attn_plan(b: int, h: int, sq: int, sk: int, d: int, f32: bool,
+              tuned: tuple | None = None) -> tuple[int, int, int]:
+    """(bq, n_split, per) of a launch: the q tile, the KV split and the KV
+    blocks a split walks.  ``tuned`` = (bq, n_split) (an autotune winner,
+    or an explicit ``Plan.block``'s tile with n_split None: the
+    heuristic's split) where the kernel takes it (:func:`attn_takes`);
+    else the heuristic: :func:`split_kv_plan`'s split, and the 64-row
+    tile where KV splits, for fp32 operands and at the padded depth 192
+    (whose 128-row tile would spill its accumulators), else
+    :func:`attn_block_q`'s.  A split count is rounded to the one its
+    per-split block count gives (ceil(nk / ceil(nk / n)))."""
+    if tuned is not None and tuned[1] is None:
+        tuned = (tuned[0], split_kv_plan(h, sq, sk)[0])
+    if tuned is not None and attn_takes(tuned, sq, sk, d, f32):
+        nk = max(1, -(-sk // BLOCK_K))
+        per = -(-nk // tuned[1])
+        return tuned[0], -(-nk // per), per
+    n_split, per = split_kv_plan(h, sq, sk)
+    short = n_split > 1 or f32 or compiled_depth(d, f32) == 192
+    return (BLOCK_Q_SHORT if short else attn_block_q(b, h, sq)), n_split, per
 
 
 # ----------------------------------------------------------------------
@@ -353,17 +401,21 @@ def mma_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ep: _epilogue.Epilogue | None = None,
                         bias: torch.Tensor | None = None,
                         residual: torch.Tensor | None = None,
-                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                        out_dtype: torch.dtype | None = None,
+                        tuned: tuple | None = None) -> torch.Tensor:
     """Fused attention over q (B, Sq, H, D) and k, v (B, Sk, KVH, D), with
     H % KVH == 0.  ``q_offset`` is the absolute position of q[0];
     ``window`` the sliding-window width (q attends k with
     ``q_pos - k_pos < window``); ``valid`` an optional (Sk,), (1, Sk) or
     (B, Sk) filled-slot predicate.  ``ep`` fuses bias (D,) / activation /
-    residual (B, Sq, H, D) into the normalised store.  Differentiable
-    where an operand requires a gradient (the module docstring says
-    how)."""
+    residual (B, Sq, H, D) into the normalised store.  ``tuned`` is an
+    autotune winner (bq, n_split), or an explicit tile (bq, None), taken
+    where the kernel runs it (:func:`attn_plan`; otherwise the heuristic
+    runs, counted in ``mma_flash_attention.tuned_fallbacks``).
+    Differentiable where an operand requires a gradient (the module
+    docstring says how)."""
     opts = dict(causal=causal, q_offset=q_offset, window=window, ep=ep,
-                out_dtype=out_dtype)
+                out_dtype=out_dtype, tuned=tuned)
     if _autograd.wants_grad(q, k, v, bias, residual):
         return _FlashAttentionFn.apply(q, k, v, valid, bias, residual, opts)
     return _mma_flash_attention(q, k, v, valid=valid, bias=bias,
@@ -404,7 +456,7 @@ class _FlashAttentionFn(torch.autograd.Function):
 
 
 def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
-                         bias, residual, out_dtype) -> torch.Tensor:
+                         bias, residual, out_dtype, tuned) -> torch.Tensor:
     """The dispatch of one attention call: the plain version on a CPU
     tensor, the kernel on a CUDA tensor."""
     b, sq, h, d = q.shape
@@ -423,7 +475,12 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
     elif bias is not None or residual is not None:
         raise ValueError("bias/residual operands need an Epilogue")
     out_dtype = out_dtype or q.dtype
-    n_split, per = split_kv_plan(h, sq, sk)
+    f32 = q.dtype == torch.float32
+    bq, n_split, per = attn_plan(b, h, sq, sk, d, f32, tuned)
+    if tuned is not None and not attn_takes(
+            (tuned[0], split_kv_plan(h, sq, sk)[0] if tuned[1] is None
+             else tuned[1]), sq, sk, d, f32):
+        mma_flash_attention.tuned_fallbacks += 1
     flags = dict(causal=causal, q_offset=q_offset, window=window,
                  valid=valid, ep=ep, bias=bias, residual=residual,
                  out_dtype=out_dtype)
@@ -439,11 +496,11 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
         raise NotImplementedError(
             f"the attention kernel takes f32/bf16/f16 q, k, v of one dtype, "
             f"not {q.dtype}/{k.dtype}/{v.dtype}")
-    depths = F32_HEAD_DIMS if q.dtype == torch.float32 else KERNEL_HEAD_DIMS
-    dp = next((c for c in depths if c >= d), None)
+    dp = compiled_depth(d, f32)
     if dp is None:
-        raise NotImplementedError(f"head dim {d} is above the compiled "
-                                  f"depths {depths}")
+        raise NotImplementedError(
+            f"head dim {d} is above the compiled depths "
+            f"{F32_HEAD_DIMS if f32 else KERNEL_HEAD_DIMS}")
     if out_dtype not in _OUT_CODES:
         raise NotImplementedError(f"the attention kernel stores "
                                   f"f32/bf16/f16, not {out_dtype}")
@@ -480,11 +537,6 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
                            device=q.device)
         ws_ml = torch.empty((b, h, sq, n_split, 2), dtype=torch.float32,
                             device=q.device)
-    f32 = q.dtype == torch.float32
-    # the fp32 tile has 64 query rows in both modes, as has the padded
-    # depth 192 (its 128-row tile would spill its accumulators)
-    bq = (BLOCK_Q_SHORT if n_split > 1 or f32 or dp == 192
-          else attn_block_q(b, h, sq))
     lib = _lib()
     rc = lib.mma_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -519,6 +571,9 @@ mma_flash_attention.launches = 0
 mma_flash_attention.launches_by_mode = dict.fromkeys(MODES, 0)
 # The launches at a padded depth (also in launches_by_mode), by mode.
 mma_flash_attention.padded_launches_by_mode = dict.fromkeys(MODES, 0)
+# The calls whose tuned tile or split the kernel could not run, so that
+# the heuristic ran (not launches: counted on the CPU too).
+mma_flash_attention.tuned_fallbacks = 0
 # A list to record (B, Sq, Sk, H, KVH, D, dtype, causal, q_offset, window,
 # valid given, n_split) of each launch into, or None (chip_smoke.py).
 mma_flash_attention.trace = None

@@ -26,24 +26,26 @@ shift-and-sum of ``ref.depthwise_conv`` plus ``epilogue.apply``.
 Each wrapper takes its kernel's path up front from ``core.tiling``: K3's
 ``choose_conv_path`` ("wgmma" for bf16/f16 filter banks TMA can read over
 images gathered in 16- or 4-byte copies, "wmma" for the rest or an explicit
-filter tile, "f32" for F32GER), K4's
+filter tile, "f32" for F32GER; a tuned winner's filter tile where the conv
+can take it, else, counted in ``mma_conv2d.tuned_fallbacks``, the
+heuristic), K4's
 ``depthwise_plan`` (the vector path where 16 bytes of channels divide C at
 16-byte bases, else the scalar one).  A CPU tensor goes to the plain
 version, whatever the path.  A CUDA tensor launches the chosen kernel or
 raises: there is no fallback.  Each wrapper's ``launches`` counts its
 kernel's launches, ``launches_by_path`` the same by path (and
-``mma_conv2d.packed_launches`` those on a packed filter stream), and
-nothing else.
+``mma_conv2d.packed_launches_by_path`` those on a packed filter stream),
+and nothing else.
 
 K3's packed filter stream (``core/packing.py``): ``mma_conv2d(...,
 w_layout=...)`` takes the raw ``(gf, KH, KW, C, 64)`` stream of a
 prepacked filter bank.  The call takes the path the natural filter would
-take (:func:`conv_path`, chosen once).  On the wgmma kernel it hands the
-stream's pointer to the kernel untouched; the WMMA and fp32 tiles read no
-packed filters, and the call demotes them there, counted, with the reason
-(``packing.demote_panels``).  The result is the natural launch's bit for
-bit.  On the CPU the plain version reads the
-stream as the natural filter bank (``packing.conv_panels_filter``).
+take (:func:`conv_path`, chosen once) and hands the stream's pointer to
+its kernel untouched: the wgmma kernel reads it through a 3-D tensor map,
+the WMMA and fp32 tiles through ``tile_gemm.cuh``'s packed loader (the
+WMMA tile's 128 filters two 64-filter slabs).  The result is the natural
+launch's bit for bit.  On the CPU the plain version reads the stream as
+the natural filter bank (``packing.conv_panels_filter``).
 
 Gradients: where the image, the filters, the bias or the residual
 requires one, each wrapper runs as a ``torch.autograd.Function``: the
@@ -324,7 +326,8 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
                ep: _epilogue.Epilogue | None = None,
                bias: torch.Tensor | None = None,
                residual: torch.Tensor | None = None,
-               w_layout: packing.ConvLayout | None = None) -> torch.Tensor:
+               w_layout: packing.ConvLayout | None = None,
+               tuned: tuple | None = None) -> torch.Tensor:
     """VALID 2-D convolution, stride (sh, sw) (the paper's h * A).
 
     image (N, H, W, C) and filters (KH, KW, C, F) of one dtype (f32, bf16
@@ -332,13 +335,15 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
     activation and residual (N, OH, OW, F) into the single store.  ``bf``
     names the WMMA filter tile, which must be ``CONV_TILE`` of the input
     dtype; None lets ``core.tiling.choose_conv_path`` pick the kernel.  It
-    changes no result beyond the order of the fp32 sums.  ``w_layout``
-    marks ``kernels`` as a packed filter stream (the module docstring).
+    changes no result beyond the order of the fp32 sums.  ``tuned`` is a
+    GEMM winner's K3 counterpart (``tiling.conv_tuned``), taken where the
+    conv can take it.  ``w_layout`` marks ``kernels`` as a packed filter
+    stream (the module docstring).
     Differentiable where an operand requires a gradient (the module
     docstring says how), but for a packed filter stream.
     """
     opts = dict(bf=bf, stride=tuple(int(s) for s in stride),
-                out_dtype=out_dtype, ep=ep)
+                out_dtype=out_dtype, ep=ep, tuned=tuned)
     if w_layout is not None:
         if _autograd.wants_grad(image, kernels, bias, residual):
             raise NotImplementedError(
@@ -352,7 +357,7 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
     return _mma_conv2d(image, kernels, bias=bias, residual=residual, **opts)
 
 
-def conv_path(image, kh, kw, c, f, stride, bf, w_aligned):
+def conv_path(image, kh, kw, c, f, stride, bf, w_aligned, tuned=None):
     """(path, config) of K3 for this image and a (KH, KW, C, F) filter
     bank whose base is 16-byte aligned or not (``w_aligned``): the choice
     the natural dispatch makes, which a packed one follows."""
@@ -361,11 +366,11 @@ def conv_path(image, kh, kw, c, f, stride, bf, w_aligned):
     return tiling.choose_conv_path(
         m, f, _GER[image.dtype], f % 8 == 0 and w_aligned,
         tiling.conv_gather_bytes(c, kw, w, stride[1],
-                                 image.data_ptr()) > 0, bf)
+                                 image.data_ptr()) > 0, bf, tuned)
 
 
 def _mma_conv2d(image, kernels, *, bf, stride, out_dtype, ep, bias,
-                residual, w_layout=None) -> torch.Tensor:
+                residual, tuned, w_layout=None) -> torch.Tensor:
     """K3's dispatch: the plain version on a CPU tensor, the kernel on a
     CUDA tensor."""
     n, oh, ow, f = _dense_geometry(image, kernels, stride, w_layout)
@@ -373,27 +378,27 @@ def _mma_conv2d(image, kernels, *, bf, stride, out_dtype, ep, bias,
         raise TypeError(f"the conv kernel takes image and filters of one "
                         f"dtype among f32/bf16/f16, got {image.dtype} x "
                         f"{kernels.dtype}")
+    if tuned is not None and bf is not None:
+        tuned = None                # an explicit filter tile wins
     if w_layout is not None:
         # the natural filter's path (a fresh, aligned allocation), chosen
-        # once: where it reads no packed filters they are demoted, counted
+        # once; every path reads the packed slabs
         kh, kw, c = w_layout.kh, w_layout.kw, w_layout.c
-        path, cfg = conv_path(image, kh, kw, c, f, stride, bf, True)
-        why = packing.conv_unread(path)
-        if why is not None:
-            kernels = packing.demote_panels(kernels, w_layout, why)
-            w_layout = None
-        elif w_layout.bf != packing.CONV_BF:
+        path, cfg = conv_path(image, kh, kw, c, f, stride, bf, True, tuned)
+        if w_layout.bf != packing.CONV_BF:
             raise ValueError(f"stale packed filter layout: bf = "
-                             f"{w_layout.bf}, the wgmma kernel reads "
+                             f"{w_layout.bf}, the kernels read "
                              f"{packing.CONV_BF} — repack "
                              f"(packing.refresh_conv)")
-        elif not kernels.is_contiguous() or kernels.data_ptr() % 16:
+        if not kernels.is_contiguous() or kernels.data_ptr() % 16:
             raise ValueError("a packed filter stream must be contiguous and "
                              "16-byte aligned")
     else:
         kh, kw, c, _ = kernels.shape
         path, cfg = conv_path(image, kh, kw, c, f, stride, bf,
-                              kernels.data_ptr() % 16 == 0)
+                              kernels.data_ptr() % 16 == 0, tuned)
+    if tuned is not None and (path, cfg) != tuned:
+        mma_conv2d.tuned_fallbacks += 1
     out_shape = (n, oh, ow, f)
     ep = _check_epilogue(ep, bias, residual, out_shape, f)
     if image.device.type == "cpu" and w_layout is not None:
@@ -436,11 +441,14 @@ def _mma_conv2d(image, kernels, *, bf, stride, out_dtype, ep, bias,
     mma_conv2d.launches += 1
     mma_conv2d.launches_by_path[path] += 1
     if w_layout is not None:
-        mma_conv2d.packed_launches += 1
+        mma_conv2d.packed_launches_by_path[path] += 1
     return out
 
 
 mma_conv2d.launches = 0
 mma_conv2d.launches_by_path = dict.fromkeys(CONV_PATHS, 0)
 # The launches on a packed filter stream (also in launches_by_path).
-mma_conv2d.packed_launches = 0
+mma_conv2d.packed_launches_by_path = dict.fromkeys(CONV_PATHS, 0)
+# The calls whose tuned filter tile the conv could not take, so that the
+# heuristic ran (not launches: counted on the CPU too).
+mma_conv2d.tuned_fallbacks = 0

@@ -1,8 +1,10 @@
 """Accumulator-resident GEMM: the wrapper of the Hopper kernels and their
 plain versions (port of ``repro.kernels.mma_gemm``, TPU kernel K1).
 
-Five kernels compute it, chosen in ``core.tiling.choose_gemm_path``.  The
-16-bit and fp32 families take one of three by shape:
+Five kernels compute it, chosen in ``core.tiling.choose_gemm_path`` (an
+explicit block, else a tuned winner the call can take, else the shape
+heuristic; ``core/autotune.py``).  The 16-bit and fp32 families take one
+of three by shape:
 ``csrc/gemm_stream.cu`` (M <= 64: a split-K cp.async weight stream, bound
 by bytes), ``csrc/gemm_wgmma.cu`` (larger M: a TMA + wgmma tile, bound by
 the tensor cores) and ``csrc/mma_gemm.cu`` (WMMA tiles: unaligned pitches
@@ -11,7 +13,12 @@ at large M, K < 16, F32GER, an explicit block).  The integer families
 cores and F64GER runs ``csrc/gemm_dmma.cu`` on the fp64 tensor cores.
 Each source's head comment says which TPU kernel it replaces
 (``repro/kernels/mma_gemm.py``, ``mma_gemm``), what bounds it on an H100
-and what its design does about that.
+and what its design does about that.  ``tuned`` hands the wrapper an
+autotune winner, a (path, config) pair (``core.lowering.resolve_block``
+reads it from the cache); where the call cannot take it (a wgmma tile met
+by an unaligned pitch, the weight stream met by a masked call) the
+heuristic runs, counted in ``mma_gemm.tuned_fallbacks``: the only silent
+path change, and never a change of kernel family.
 
 ``mma_gemm`` computes
 
@@ -66,21 +73,24 @@ branch that zero-fills the M, N and K fringes, never multiplied, so a NaN
 there gives exact zeros; the operands in HBM are never pre-masked.  The
 plain versions select (``torch.where``) the same lanes.  I4GER8 takes a
 column mask only (its X and rank predicates go through ``ref.pm_ger``, as
-the reference's kernel refuses them), packed panels are demoted, counted
-(the masked loaders read natural rows), and a masked product has no
-gradient (NotImplementedError: nor has the reference's Pallas kernel).
+the reference's kernel refuses them), packed Y panels are read by the
+WMMA and fp32 tiles' masked loaders (and demoted, counted, on IMMA and
+DMMA, whose masked loaders read natural rows), and a masked product has
+no gradient (NotImplementedError: nor has the reference's Pallas
+kernel).
 
 Prepacked operands (K1d, ``core/packing.py``): ``y_layout`` marks y as the
 raw Y-side panel tensor ``(gn, gk, 64, 64)`` (``(B, gn, gk, 64, 64)`` for
-an expert bank), which the weight stream and the wgmma tile read; and
+an expert bank), which the weight stream, the wgmma tile and the WMMA and
+fp32 tiles read (masked or not, with or without the sidecar); and
 ``x_layout`` marks x as the raw X-side ``(gm, gk, 128, 64)`` int8 panels,
 which the IMMA kernel reads in I8GER4.  The call takes the path its
 natural operands would take (``choose_gemm_path``, chosen once, a packed
 operand counting with its natural pitch: :func:`natural_aligned`).  Where
 that path reads the panels, it checks their panel size (a stale layout
 raises: ``packing.refresh_gemm`` repacks first) and hands their pointer to
-the kernel untouched; where it reads none (the WMMA tile, the DMMA kernel,
-I4GER8 and I16GER2, X panels on the stream or wgmma, Y panels on IMMA),
+the kernel untouched; where it reads none (the DMMA kernel, I4GER8 and
+I16GER2, X panels on the stream, wgmma or WMMA tiles, Y panels on IMMA),
 it demotes them, counted, with the reason (``packing.demote_panels``),
 and launches as the natural call.  The panels are zero-padded past K and N, where the kernels read
 zeros anyway, so the result is the natural launch's bit for bit.  On the
@@ -146,7 +156,7 @@ _DMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 5 + [ctypes.c_double] * 2
                   + [ctypes.c_int] * 3 + _CK_STREAM)
 PATHS = ("stream", "wgmma", "wmma", "imma", "dmma")
-PACKED_PATHS = ("stream", "wgmma", "imma")       # the paths that read panels
+PACKED_PATHS = ("stream", "wgmma", "wmma", "imma")   # paths reading panels
 MASKED_PATHS = ("wmma", "imma", "dmma")          # the paths that take masks
 SIDECAR_PATHS = ("stream", "wgmma", "wmma", "dmma")   # checksum=True (K1e)
 
@@ -375,7 +385,8 @@ def mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
              out_dtype: torch.dtype | None = None,
              x_layout: packing.GemmLayout | None = None,
              y_layout: packing.GemmLayout | None = None,
-             masks: tuple | None = None, checksum: bool = False):
+             masks: tuple | None = None, checksum: bool = False,
+             tuned: tuple | None = None):
     """C <- alpha * [-](X @ Y) [+ beta * (+/-)C] with a resident accumulator.
 
     ``c`` is the optional ((B,) M, N) accumulator seed (the pp/np/pn/nn
@@ -388,11 +399,13 @@ def mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     where it runs).  Where an operand requires a gradient the call is
     differentiable (the module docstring says how), unless it is masked.
     ``checksum`` adds the ABFT sidecar: the call returns ``(out, ck_col,
-    ck_row)`` (the module docstring says what they hold).
+    ck_row)`` (the module docstring says what they hold).  ``tuned`` is an
+    autotune winner (path, config) (the module docstring says when it
+    runs).
     """
     opts = dict(kind=kind, block=block, neg_product=neg_product,
                 neg_acc=neg_acc, alpha=alpha, beta=beta, ep=ep,
-                out_dtype=out_dtype)
+                out_dtype=out_dtype, tuned=tuned)
     if checksum:
         if masks is not None and any(t is not None for t in masks):
             raise NotImplementedError(
@@ -453,6 +466,7 @@ class _MmaGemmFn(torch.autograd.Function):
         need = ctx.needs_input_grad
         if ctx.act is not None:
             z = _mma_gemm(x, y, c, kind=o["kind"], block=o["block"],
+                          tuned=o["tuned"],
                           neg_product=o["neg_product"], neg_acc=o["neg_acc"],
                           alpha=o["alpha"], beta=o["beta"],
                           ep=_epilogue.Epilogue(bias=bias is not None),
@@ -494,7 +508,8 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
              out_dtype: torch.dtype | None = None,
              x_layout: packing.GemmLayout | None = None,
              y_layout: packing.GemmLayout | None = None,
-             masks: tuple | None = None, checksum: bool = False):
+             masks: tuple | None = None, checksum: bool = False,
+             tuned: tuple | None = None):
     """The dispatch of one product: the plain version on a CPU tensor, a
     kernel on a CUDA tensor; with ``checksum`` also the sidecar."""
     pol = precision.policy(kind)
@@ -535,10 +550,13 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
                  beta=beta, ep=ep, bias=bias, residual=residual,
                  out_dtype=out_dtype)
     # the one path choice: the natural operands', which a packed call
-    # follows (its result is then the natural one bit for bit)
+    # follows (its result is then the natural one bit for bit); a winner
+    # the call cannot take gives way to the heuristic, counted
     path, cfg = tiling.choose_gemm_path(
         m, n, k, kind, b or 1, natural_aligned(x, y, x_layout, y_layout),
-        block, masks is not None)
+        block, masks is not None, tuned if block is None else None)
+    if tuned is not None and block is None and (path, cfg) != tuned:
+        mma_gemm.tuned_fallbacks += 1
     if checksum and path not in SIDECAR_PATHS:
         raise NotImplementedError(
             f"the {path} kernel takes no checksum sidecar: ABFT does not "
@@ -711,8 +729,8 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
                       neg_acc, alpha, beta, ep, bias, residual, out_dtype,
                       masks, ck, y_packed=False):
     """One launch of the weight stream, the wgmma tile or the WMMA tiles
-    (the bf16/f16/f32 families); ``y_packed``: y is Y-side panels (the
-    stream and the wgmma tile); ``masks`` the three predicate pointers,
+    (the bf16/f16/f32 families); ``y_packed``: y is Y-side panels (every
+    one of them reads them); ``masks`` the three predicate pointers,
     which only the WMMA tiles take; ``ck`` the sidecar's (ck_col, ck_row)
     pointers (None, None: no sidecar)."""
     if out_dtype not in DTYPE_CODES:
@@ -754,7 +772,9 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
     else:
         if -(-m // cfg.bm) > 65535:
             raise ValueError(f"grid too large for one launch: m={m}")
-        lib, fn = _lib("mma_gemm", "mma_gemm_launch", _ARGTYPES)
+        # packed panels: their batch stride follows from N and K (the
+        # launcher derives it; the stride given only marks y batched)
+        lib, fn = _lib("mma_gemm", "mma_gemm_launch", _ARGTYPES, y_packed)
         rc = fn(x.data_ptr(), y.data_ptr(), *masks, *common,
                 DTYPE_CODES[x.dtype],
                 *codes, b or 1, m, n, k,
@@ -776,3 +796,6 @@ mma_gemm.checksum_launches_by_path = dict.fromkeys(SIDECAR_PATHS, 0)
 # A list to record (batch, M, K, N, dtype, out dtype, path) of each launch
 # into, or None: chip_smoke.py times the shapes a run gave the kernels.
 mma_gemm.trace = None
+# The calls whose tuned winner the call could not take, so that the
+# heuristic ran (not launches: counted on the CPU too).
+mma_gemm.tuned_fallbacks = 0

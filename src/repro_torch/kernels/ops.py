@@ -20,15 +20,17 @@ it keeps the ``ref.pm_ger`` oracle (nibble unpacking and rank predicates
 do not compose in the kernels), as the reference does for every I4GER8
 call.
 
-The reference's ``_resolve_block`` consults the autotune cache, which
-this port does not have yet: it comes with ROADMAP slice C5.
+``_resolve_block`` is the reference's dispatch-time autotune consult, kept
+for tooling: the block a GEMM at these operands' shape would run
+(explicit, else the cached winner's, else None: the heuristic), read
+through the registry's ``lowering.resolve_block``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import facility, lowering, precision
+from repro_torch.core import autotune, facility, lowering, precision
 from repro_torch.kernels import mma_gemm as _gemm
 from repro_torch.kernels import ref as _ref
 
@@ -36,6 +38,22 @@ Ger = precision.Ger
 Epilogue = facility.Epilogue
 
 _GEMM = "mk,kn->mn"
+
+
+def _resolve_block(x, y, kind: Ger, block: tuple[int, int, int] | None,
+                   epilogue_key: str = "none", backend: str = "kernel"):
+    """Dispatch-time autotune-cache consult (delegates to the registry's
+    resolver): an explicit ``block``, else the (bm, bn, bk) of the cached
+    winner for x (M, K) @ y (K, N) on their device
+    (``autotune.block_of``), else None."""
+    if block is not None or backend != "kernel":
+        return block
+    pack = 2 if precision.policy(kind).packed_int4 else 1
+    m, k = x.shape[0], x.shape[1] * pack
+    n = y.shape[1]
+    _, tuned = lowering.resolve_block(kind, m, n, k, None, epilogue_key,
+                                      device=x.device.type)
+    return autotune.block_of(tuned) if tuned is not None else None
 
 
 def _plan(kind, block, backend, out_dtype, *, epilogue=None,

@@ -13,15 +13,16 @@ Injection points (the facility's fault surface)::
     contract.dispatch   core/lowering.execute — kernel build/launch/poison
     kv.alloc            runtime/kv_pages.PagePool.alloc — transient alloc
     serve.step          launch/serve — one decode step of the serving loop
-    autotune.load       core/autotune (not ported yet) — cache reads
-    autotune.save       core/autotune (not ported yet) — torn writes
+    autotune.load       core/autotune.AutotuneCache._load — cache reads
+    autotune.save       core/autotune.AutotuneCache.put_raw — torn writes
     checkpoint.save     checkpoint.Checkpointer._write — crash mid-save
     train.step          runtime/elastic (not ported yet) — node death
     collective          the mesh's comm edges (not ported yet)
 
 All eight points are defined, so a plan written for the reference is a
-valid plan here; the port consults the four that have a call site in it
-(``contract.dispatch``, ``kv.alloc``, ``serve.step``, ``checkpoint.save``).
+valid plan here; the port consults the six that have a call site in it
+(``contract.dispatch``, ``kv.alloc``, ``serve.step``, ``autotune.load``,
+``autotune.save``, ``checkpoint.save``).
 
 Triggers (first matching rule of a spec wins):
 

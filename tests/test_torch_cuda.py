@@ -1105,9 +1105,10 @@ def test_packed_imma_x_bitwise(gen, m):
 
 
 def test_packed_panels_demote_where_the_path_reads_none(gen):
-    """On the card too, panels whose path reads none (an explicit block
-    names the WMMA tile; F32GER's conv takes the fp32 tile) are demoted
-    by the wrapper, once each, counted, and launch as the natural call."""
+    """On the card too, panels whose path reads none (F64GER's DMMA
+    kernel) are demoted by the wrapper, once, counted, and launch as the
+    natural call; an explicit block's WMMA tile and F32GER's conv on the
+    fp32 tile read theirs (K1d, K3) and demote nothing."""
     from repro_torch.core import packing
     x = _randn(gen, 100, 256)
     w = _randn(gen, 256, 136, scale=256 ** -0.5)
@@ -1116,6 +1117,11 @@ def test_packed_panels_demote_where_the_path_reads_none(gen):
     _same_path_bits(lambda: G.mma_gemm(x, w, block=(64, 64, 64)),
                     lambda: G.mma_gemm(x, po.data, block=(64, 64, 64),
                                        y_layout=po.layout), "wmma")
+    p64 = _packed_like(w.double(), Ger.F64GER)
+    _same_path_bits(lambda: G.mma_gemm(x.double(), w.double(),
+                                       kind=Ger.F64GER),
+                    lambda: G.mma_gemm(x.double(), p64.data, kind=Ger.F64GER,
+                                       y_layout=p64.layout), "dmma")
     img = torch.randn(1, 8, 8, 4, generator=gen, device="cuda")
     wc = torch.randn(3, 3, 4, 72, generator=gen, device="cuda")
     pc = packing.pack_conv(wc, packing.conv_layout(Ger.F32GER, 3, 3, 4, 72))
@@ -1126,7 +1132,7 @@ def test_packed_panels_demote_where_the_path_reads_none(gen):
     assert torch.equal(got, want)
     assert K.mma_conv2d.launches_by_path["f32"] == before + 2
     assert [e["why"] for e in packing.EVENTS if e["event"] == "demote"] == [
-        "wmma-tile-reads-no-panels", "conv-f32-tile-reads-no-panels"]
+        "dmma-tile-reads-no-panels"]
 
 
 @pytest.mark.parametrize("name", ["whisper-conv2", "qwen2-vl-patch"])
@@ -1532,3 +1538,207 @@ def test_attention_at_padded_depth_matches_plain(gen, name, d):
             if n_split > 1 else
             A.flash_attention_plain(q, k, v, out_dtype=torch.float32, **kw))
     _assert_attn_close(got, want, A.rounding_budget(q, k, v, **kw))
+
+
+# ----------------------------------------------------------------------
+# K1d on the WMMA and fp32 tiles, K3's packed filters on its WMMA and fp32
+# tiles, and autotuned dispatch
+# ----------------------------------------------------------------------
+
+def _packed_like(w, kind):
+    from repro_torch.core import packing
+    k, n = w.shape[-2:]
+    return packing.pack_gemm(w, packing.gemm_layout(
+        kind, k, n, batched=w.ndim == 3))
+
+
+# name: (family, batch, (M, K, N), explicit block)
+_WMMA_PACKED = {
+    "bf16-128": (Ger.BF16GER2, None, (256, 512, 1000), (128, 128, 32)),
+    "bf16-64-decode": (Ger.BF16GER2, None, (4, 4096, 11008), (64, 64, 64)),
+    "bf16-fringe": (Ger.BF16GER2, None, (37, 45, 100), (128, 128, 32)),
+    "bf16-batched": (Ger.BF16GER2, 3, (77, 200, 130), (64, 64, 64)),
+    "unaligned": (Ger.BF16GER2, None, (1024, 768, 51865), None),
+    "f32": (Ger.F32GER, None, (130, 96, 200), None),
+    "f32-decode": (Ger.F32GER, None, (4, 4096, 11008), None),
+    "f32-batched": (Ger.F32GER, 3, (77, 200, 130), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WMMA_PACKED))
+def test_packed_wmma_bitwise(gen, name):
+    """The WMMA and fp32 tiles on packed Y panels (K1d, PackedB): each
+    stage cut from the fixed 64 x 64 panels, with the seed, alpha/beta
+    and a fused bias + silu, bit for bit the natural launch, at aligned,
+    fringe, batched and unaligned (N = 51865) shapes."""
+    kind, b, (m, k, n), block = _WMMA_PACKED[name]
+    dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+    lead = () if b is None else (b,)
+    x = _randn(gen, *lead, m, k, dtype=dt)
+    w = _randn(gen, *lead, k, n, dtype=dt, scale=k ** -0.5)
+    c = _randn(gen, *lead, m, n, dtype=torch.float32)
+    po = _packed_like(w, kind)
+    bias = _randn(gen, n, dtype=torch.float32)
+    kw = dict(kind=kind, block=block, alpha=0.5, beta=2.0,
+              ep=E.Epilogue(bias=True, activation="silu"), bias=bias)
+    _same_path_bits(lambda: G.mma_gemm(x, w, c, **kw),
+                    lambda: G.mma_gemm(x, po.data, c, y_layout=po.layout,
+                                       **kw), "wmma")
+
+
+@pytest.mark.parametrize("kind", [Ger.BF16GER2, Ger.F32GER])
+@pytest.mark.parametrize("m", [4, 256])
+def test_packed_masked_wmma_bitwise_nan_in_disabled_lanes(gen, kind, m):
+    """MaskedPackedB: disabled columns hold NaN, disabled ranks Inf, in the
+    panels; the masked packed launch is the natural masked one bit for
+    bit and finite."""
+    from repro_torch.core import packing
+    k, n = 512, 1000
+    dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+    x = _randn(gen, m, k, dtype=dt)
+    w = _randn(gen, k, n, dtype=dt, scale=k ** -0.5)
+    masks = _lane_masks(gen, m, n, k)
+    w[:, ~masks[1]] = float("nan")
+    w[~masks[2], :] = float("inf")
+    po = _packed_like(w, kind)
+    packing.clear_state()
+    before = dict(G.mma_gemm.masked_launches_by_path)
+    want = G.mma_gemm(x, w, kind=kind, masks=masks)
+    got = G.mma_gemm(x, po.data, kind=kind, masks=masks, y_layout=po.layout)
+    torch.cuda.synchronize()
+    assert G.mma_gemm.masked_launches_by_path["wmma"] == before["wmma"] + 2
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    assert packing.COUNTERS["demote"] == 0
+
+
+@pytest.mark.parametrize("kind", [Ger.BF16GER2, Ger.F32GER])
+def test_packed_wmma_sidecar_bitwise(gen, kind):
+    """checksum=True on a packed WMMA / fp32 launch: out and both sums are
+    the natural launch's bit for bit."""
+    m, k, n = 300, 256, 1000
+    dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+    x = _randn(gen, m, k, dtype=dt)
+    w = _randn(gen, k, n, dtype=dt, scale=k ** -0.5)
+    po = _packed_like(w, kind)
+    block = (64, 64, 64) if kind == Ger.BF16GER2 else None
+    want = G.mma_gemm(x, w, kind=kind, block=block, checksum=True)
+    got = G.mma_gemm(x, po.data, kind=kind, block=block, checksum=True,
+                     y_layout=po.layout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+@pytest.mark.parametrize("kind", [Ger.BF16GER2, Ger.F32GER])
+@pytest.mark.parametrize("name", ["whisper-conv2", "qwen2-vl-patch"])
+def test_packed_conv_wmma_f32_bitwise(gen, kind, name):
+    """K3's WMMA tile (an explicit filter tile of 128: two 64-filter slabs
+    a stage) and fp32 tile on the packed stream at the stems' shapes, bias
+    + gelu: bit for bit the natural launch."""
+    from repro_torch.core import packing
+    dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+    if name == "whisper-conv2":
+        x = _randn(gen, 4, 1, 3001, 768, dtype=dt)
+        w = _randn(gen, 1, 3, 768, 768, dtype=dt, scale=(3 * 768) ** -0.5)
+        stride, nd = (1, 2), 1
+    else:
+        x = _randn(gen, 4, 448, 448, 3, dtype=dt)
+        w = _randn(gen, 14, 14, 3, 3584, dtype=dt, scale=588 ** -0.5)
+        stride, nd = (14, 14), 2
+    kh, kw, c, f = w.shape
+    po = packing.pack_conv(w[0] if nd == 1 else w, packing.conv_layout(
+        kind, kh, kw, c, f, nd=nd))
+    bias = _randn(gen, f, dtype=torch.float32)
+    path = "f32" if kind == Ger.F32GER else "wmma"
+    opts = dict(stride=stride, ep=E.Epilogue(bias=True, activation="gelu"),
+                bias=bias, out_dtype=torch.float32,
+                bf=None if kind == Ger.F32GER else 128)
+    before = (K.mma_conv2d.launches_by_path[path],
+              K.mma_conv2d.packed_launches_by_path[path])
+    want = K.mma_conv2d(x, w, **opts)
+    got = K.mma_conv2d(x, po.data, w_layout=po.layout, **opts)
+    torch.cuda.synchronize()
+    assert (K.mma_conv2d.launches_by_path[path],
+            K.mma_conv2d.packed_launches_by_path[path]) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(got, want)
+
+
+def test_packed_launch_raises_on_bad_build_or_launch(gen, monkeypatch,
+                                                     tmp_path):
+    """mma_gemm_packed_launch refuses a tile it is not built for and a
+    misaligned panel pointer (the wrapper raises through _build.check);
+    a source that does not build raises; nothing counts a launch."""
+    from repro_torch.kernels import _build
+    x = _randn(gen, 64, 128)
+    w = _randn(gen, 128, 64)
+    po = _packed_like(w, Ger.BF16GER2)
+    G.mma_gemm(x, po.data, block=(64, 64, 64), y_layout=po.layout)
+    lib, fn = G._FNS["mma_gemm.packed"]
+    out = torch.empty((64, 64), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for bm, shift in ((32, 0), (64, 2)):       # no such tile; misaligned
+        rc = fn(x.data_ptr(), po.data.data_ptr() + shift, None, None, None,
+                None, None, None, out.data_ptr(), 1, 0, 0, 0, 0, 1, 64, 64,
+                128, 0, 0, 0, 0, 0, 1.0, 1.0, 0, 0, 0, bm, 64, 64, None,
+                None, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(lib, rc, "mma_gemm (packed)")
+    monkeypatch.setattr(G, "_FNS", {})
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc", lambda: "false")
+    launches = G.mma_gemm.launches
+    with pytest.raises(RuntimeError, match="build failed"):
+        G.mma_gemm(x, po.data, block=(64, 64, 64), y_layout=po.layout)
+    assert G.mma_gemm.launches == launches
+
+
+def test_autotune_measures_on_the_card_and_dispatch_follows(gen,
+                                                             monkeypatch,
+                                                             tmp_path):
+    """autotune on the card times its candidates with CUDA events and
+    writes a "measured" entry; contract then launches the winner's path;
+    an attention search does the same for its q tile and split."""
+    import json
+
+    from repro_torch.core import autotune
+    cache = autotune.AutotuneCache(tmp_path / "at.json")
+    monkeypatch.setattr(autotune, "_DEFAULT_CACHE", cache)
+    scores = {}
+    won = autotune.autotune(Ger.BF16GER2, 4, 4096, 4096, scores=scores)
+    ent = json.loads((tmp_path / "at.json").read_text())["entries"][
+        "xvbf16ger2|8x4096x4096|none|cuda"]
+    assert ent["source"] == "measured" and ent["path"] == won[0]
+    assert scores[won] == min(scores.values()) == ent["score"]
+    assert tiling.choose_gemm_path(4, 4096, 4096, Ger.BF16GER2) in scores
+    x = _randn(gen, 4, 4096)
+    w = _randn(gen, 4096, 4096, scale=4096 ** -0.5)
+    before = dict(G.mma_gemm.launches_by_path)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        facility.contract("mk,kn->mn", x, w)
+    assert G.mma_gemm.launches_by_path[won[0]] == before[won[0]] + 1
+    got = autotune.autotune_attn(Ger.BF16GER2, 32, 256, 256, 128)
+    assert autotune.lookup_attn(Ger.BF16GER2, 32, 256, 256, 128) == got
+    assert cache.get_raw("xvbf16ger2|attn32x256x256x128|none|cuda")[
+        "source"] == "measured"
+
+
+def test_tuned_stream_split_row_does_not_depend_on_the_batch(gen,
+                                                              monkeypatch,
+                                                              tmp_path):
+    """A planted stream winner (split 16) is keyed by the row bucket: a
+    decode row at batch 1 is the same bits inside a batch of 4."""
+    from repro_torch.core import autotune
+    cache = autotune.AutotuneCache(tmp_path / "at.json")
+    monkeypatch.setattr(autotune, "_DEFAULT_CACHE", cache)
+    k, n = 4096, 4096
+    cache.put(autotune.cache_key(Ger.BF16GER2, 8, n, k, backend="cuda"),
+              ("stream", tiling.StreamConfig(64, 16)), source="measured",
+              score=0.0)
+    x = _randn(gen, 4, k)
+    w = _randn(gen, k, n, scale=k ** -0.5)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        one = facility.contract("mk,kn->mn", x[:1], w)
+        four = facility.contract("mk,kn->mn", x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], four[0])

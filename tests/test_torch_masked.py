@@ -352,10 +352,11 @@ def test_i4ger8_column_mask_on_the_wrapper():
 
 @pytest.mark.parametrize("backend", list(BACKENDS))
 def test_packed_operand_demotes_when_masked(backend):
-    """A prepacked weight under masks: the kernel wrapper demotes it,
-    counted, with its reason (the masked loaders read natural rows), the
-    torch and ref lowerings as they demote any packed operand; the result
-    is the natural masked one bit for bit."""
+    """A prepacked weight under masks: the kernel backend's WMMA tile reads
+    its panels through the masked packed loader (K1d), with no demote; the
+    torch and ref lowerings demote it, counted, with their reason, as they
+    demote any packed operand; the result is the natural masked one bit
+    for bit."""
     packing.clear_state()
     k, n = 96, 200
     x, w = _operands("BF16GER2", (4, k), (k, n), 8)
@@ -368,10 +369,12 @@ def test_packed_operand_demotes_when_masked(backend):
         before = packing.COUNTERS["demote"]
         pk = tfac.contract("mk,kn->mn", _t(x), po, masks=masks, plan=plan)
     assert torch.equal(nat, pk)
-    assert packing.COUNTERS["demote"] == before + 1
-    why = {"kernel": "wmma-masked-reads-no-panels",
-           "torch": "torch-masked", "ref": "ref-gemm"}[backend]
-    assert packing.EVENTS[-1]["why"] == why
+    if backend == "kernel":
+        assert packing.COUNTERS["demote"] == before
+    else:
+        assert packing.COUNTERS["demote"] == before + 1
+        why = {"torch": "torch-masked", "ref": "ref-gemm"}[backend]
+        assert packing.EVENTS[-1]["why"] == why
     packing.clear_state()
 
 
@@ -488,3 +491,36 @@ def test_ops_mma_conv2d(backend):
         got, tw = _warns(tops.mma_conv2d, _t(img), _t(ker), backend=backend)
     assert DeprecationWarning in tw
     _close("F32GER", got.numpy(), want)
+
+
+@pytest.mark.parametrize("fam", ["BF16GER2", "F32GER"])
+def test_packed_masked_wmma_reads_panels_nan_in_disabled_lanes(fam):
+    """K1d under the pm* masks: a packed weight whose disabled columns and
+    ranks hold NaN and Inf rides the WMMA (fp32) tile's masked packed
+    loader: no demote, the natural masked result bit for bit, finite, and
+    the reference's pallas (interpret) result within the family's
+    tolerance on the same panels' natural values."""
+    packing.clear_state()
+    m, k, n = 70, 96, 200
+    x, w = _operands(fam, (m, k), (k, n), 9)
+    masks = _masks(9, m, n, k)
+    _, ym, pm = masks
+    w = w.copy()
+    w[:, ~ym] = np.nan
+    w[~pm, :] = np.inf
+    dt = torch.bfloat16 if fam == "BF16GER2" else torch.float32
+    tw = _t(w).to(dt)
+    po = packing.pack_gemm(tw, packing.gemm_layout(tprec.Ger[fam], k, n))
+    plan = tfac.Plan(ger=tprec.Ger[fam], out_dtype=tfac.ACC)
+    tmasks = tuple(_t(mk) for mk in masks)
+    with tfac.configure(CPU):
+        nat = tfac.contract("mk,kn->mn", _t(x), tw, masks=tmasks, plan=plan)
+        before = dict(packing.COUNTERS)
+        pk = tfac.contract("mk,kn->mn", _t(x), po, masks=tmasks, plan=plan)
+    assert torch.equal(nat, pk)
+    assert bool(torch.isfinite(pk).all())
+    assert dict(packing.COUNTERS) == before
+    assert tiling.choose_gemm_path(m, n, k, tprec.Ger[fam], 1, True, None,
+                                   True)[0] == "wmma"
+    want = _ref_contract("mk,kn->mn", fam, "pallas", x, w, masks)
+    _close(fam, _np(pk), want)

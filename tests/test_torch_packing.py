@@ -51,6 +51,7 @@ from repro_torch.configs.base import reduced as treduced
 from repro_torch.core import facility as tfac
 from repro_torch.core import packing
 from repro_torch.core import quant as tquant
+from repro_torch.core import tiling
 from repro_torch.core.precision import Ger
 from repro_torch.data import pipeline as tdata
 from repro_torch.kernels import mma_gemm as tgemm
@@ -242,20 +243,27 @@ def test_packed_conv_bitwise(backend, spec, wshape, stride):
 
 
 def test_paths_without_panels_demote_once_counted():
-    """F32GER runs the WMMA tile, an explicit block names one, F32GER's
-    conv runs the fp32 tile: none reads packed panels, so each call
-    demotes once, counted, with its reason, and gives the natural bits."""
+    """F32GER runs the WMMA fp32 tile, an explicit block names a WMMA
+    tile, F32GER's conv runs the fp32 tile: each reads packed panels (K1d,
+    K3), so none demotes, and each gives the natural bits.  The DMMA
+    kernel (F64GER) reads none: its call demotes once, counted, with its
+    reason, and gives the natural bits too."""
     x = _t(_rand((100, 64), 7))
     w = _t(_rand((64, 136), 8))
     po = packing.pack_gemm(w, packing.gemm_layout(Ger.F32GER, 64, 136))
-    cases = [(tfac.Plan(ger=Ger.F32GER), "wmma-tile-reads-no-panels"),
-             (tfac.Plan(block=(64, 64, 64)), "wmma-tile-reads-no-panels")]
+    w64 = w.double()
+    po64 = packing.pack_gemm(w64, packing.gemm_layout(Ger.F64GER, 64, 136))
+    cases = [(tfac.Plan(ger=Ger.F32GER), w, po, []),
+             (tfac.Plan(block=(64, 64, 64)), w, po, []),
+             (tfac.Plan(ger=Ger.F64GER), w64, po64,
+              ["dmma-tile-reads-no-panels"])]
     with tfac.configure(CPU):
-        for plan, why in cases:
+        for plan, nat, pk, why in cases:
+            xx = x.double() if nat is w64 else x
             packing.EVENTS.clear()
-            assert torch.equal(tfac.contract("mk,kn->mn", x, w, plan=plan),
-                               tfac.contract("mk,kn->mn", x, po, plan=plan))
-            assert [e["why"] for e in packing.EVENTS] == [why]
+            assert torch.equal(tfac.contract("mk,kn->mn", xx, nat, plan=plan),
+                               tfac.contract("mk,kn->mn", xx, pk, plan=plan))
+            assert [e["why"] for e in packing.EVENTS] == why
         img = _t(_rand((1, 8, 8, 4), 9))
         wc = _t(_rand((3, 3, 4, 8), 10))
         pc = packing.pack_conv(wc, packing.conv_layout(Ger.F32GER, 3, 3, 4,
@@ -264,9 +272,8 @@ def test_paths_without_panels_demote_once_counted():
         plan = tfac.Plan(ger=Ger.F32GER)
         assert torch.equal(tfac.contract(tfac.CONV2D, img, wc, plan=plan),
                            tfac.contract(tfac.CONV2D, img, pc, plan=plan))
-        assert [e["why"] for e in packing.EVENTS] == [
-            "conv-f32-tile-reads-no-panels"]
-    assert packing.COUNTERS["demote"] == 3
+        assert [e["why"] for e in packing.EVENTS] == []
+    assert packing.COUNTERS["demote"] == 1
 
 
 def test_admission_demotes_what_cannot_ride_packed():
@@ -372,9 +379,9 @@ def test_panel_mismatch_repacks_once():
 
 def test_wrapper_refuses_stale_or_unread_panels():
     """The wrapper refuses a stale layout (it never reads stale panels);
-    on a path that reads no panels (an explicit block names the WMMA
-    tile) it does not read them either: it demotes them, counted, once,
-    and gives the natural bits."""
+    an explicit block names a WMMA tile, which reads the panels (K1d); on
+    a path that reads none (F64GER's DMMA kernel) it does not read them
+    either: it demotes them, counted, once, and gives the natural bits."""
     w = torch.ones(64, 128, dtype=torch.bfloat16)
     stale = packing.GemmLayout(kind=Ger.BF16GER2, block=(8, 128, 32),
                                side="y", rows=64, cols=128)
@@ -389,8 +396,16 @@ def test_wrapper_refuses_stale_or_unread_panels():
         tgemm.mma_gemm(x, w, block=(64, 64, 64)),
         tgemm.mma_gemm(x, fresh.data, block=(64, 64, 64),
                        y_layout=fresh.layout))
+    assert list(packing.EVENTS) == []
+    w64 = _t(_rand((64, 128), 31)).double()
+    p64 = packing.pack_gemm(w64, packing.gemm_layout(Ger.F64GER, 64, 128))
+    x64 = x.double()
+    packing.EVENTS.clear()
+    assert torch.equal(
+        tgemm.mma_gemm(x64, w64, kind=Ger.F64GER),
+        tgemm.mma_gemm(x64, p64.data, kind=Ger.F64GER, y_layout=p64.layout))
     assert [(e["event"], e["why"]) for e in packing.EVENTS] == [
-        ("demote", "wmma-tile-reads-no-panels")]
+        ("demote", "dmma-tile-reads-no-panels")]
     want = tgemm.mma_gemm(x, w)
     assert torch.equal(want, tgemm.mma_gemm(x, fresh.data,
                                             y_layout=fresh.layout))
@@ -472,7 +487,8 @@ def test_prepack_skips_tok_small_and_nonfloat():
     assert isinstance(m.ints, torch.nn.Parameter)
     assert isinstance(m.scale, torch.nn.Parameter)
     assert packing.is_packed(m.big) and "big" not in m._parameters
-    assert stats == {"dense": 1, "bytes": 128 * 512 * 4}
+    assert stats == {"dense": 1, "bytes": 128 * 512 * 4,
+                     "panel_bytes": 128 * 512 * 4}
     assert {n for n, _ in m.named_parameters()} == {"tok", "small", "ints",
                                                     "scale"}
 
@@ -486,7 +502,8 @@ def test_prepack_quantize_builds_i8ger4_tiles():
     assert po.quantized and po.dtype == torch.int8
     assert po.layout.side == "x" and po.layout.transposed
     assert po.col_sum is not None and po.shape == (128, 512)
-    assert stats == {"quantized": 1, "bytes": 128 * 512}
+    assert stats == {"quantized": 1, "bytes": 128 * 512,
+                     "panel_bytes": 128 * 512 + 512 * 4 * 2}
     assert tquant.prepack_params_for_serving is \
         packing.prepack_params_for_serving
 
@@ -534,7 +551,8 @@ def test_prepack_stats_match_reference(name):
     with tfac.configure(CPU):
         stats = packing.prepack_params_for_serving(model, min_size=1024)
     assert stats["bytes"] == jstats["bytes"]
-    assert {k: v for k, v in stats.items() if k != "bytes"} == \
+    assert {k: v for k, v in stats.items()
+            if k not in ("bytes", "panel_bytes")} == \
         _expected_port_stats(packed)
     if name != "mamba2-130m":
         assert set(jstats) - {"bytes"} >= {"dense"}
@@ -677,3 +695,155 @@ def test_serve_cli_prepack(capsys):
                        "--requests", "2"])
     assert out["completed"] == 2
     assert "prepacked params: {'dense'" in capsys.readouterr().out
+
+
+# ----------------------------------------------------------------------
+# K1d on the WMMA and fp32 tiles, K3's packed filters on its WMMA and fp32
+# tiles: the panels reach the wrapper and are read, never demoted
+# ----------------------------------------------------------------------
+
+def _spy_wrapper_layouts(monkeypatch):
+    """Record (path, y_layout given) of every GEMM the lowering hands the
+    wrapper, through the wrapper's one path choice."""
+    seen = []
+    choose = tiling.choose_gemm_path
+    wrapper = tgemm.mma_gemm
+
+    def spy_choose(*a, **kw):
+        got = choose(*a, **kw)
+        seen.append([got[0]])
+        return got
+
+    def spy_wrapper(*a, y_layout=None, **kw):
+        out = wrapper(*a, y_layout=y_layout, **kw)
+        seen[-1].append(y_layout is not None)
+        return out
+    monkeypatch.setattr(tiling, "choose_gemm_path", spy_choose)
+    monkeypatch.setattr(tgemm, "mma_gemm", spy_wrapper)
+    return seen
+
+
+_WMMA_CASES = {
+    # name: (family, (M, K, N), plan keywords)
+    "block-128": (Ger.BF16GER2, (100, 256, 384), dict(block=(128, 128, 32))),
+    "block-64": (Ger.BF16GER2, (4, 256, 384), dict(block=(64, 64, 64))),
+    "f32ger-decode": (Ger.F32GER, (4, 200, 136), {}),
+    "f32ger-prefill": (Ger.F32GER, (130, 96, 200), {}),
+    "unaligned": (Ger.BF16GER2, (100, 64, 1001), {}),
+    "fringe": (Ger.BF16GER2, (37, 45, 100), dict(block=(128, 128, 32))),
+}
+
+
+@pytest.mark.parametrize("name", list(_WMMA_CASES))
+def test_packed_wmma_and_f32_tiles_read_panels_bitwise(name, monkeypatch):
+    """An explicit block (both WMMA tiles), F32GER (the fp32 tile), an
+    unaligned pitch (N = 1001 at M > 64) and M/N/K fringes: the packed
+    dispatch takes the WMMA path with its panels un-demoted, is the
+    natural one bit for bit, and counts no demote (K1d)."""
+    kind, (m, k, n), plan_kw = _WMMA_CASES[name]
+    dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+    x = _t(_rand((m, k), 40), dt)
+    w = _t(_rand((k, n), 41), dt)
+    bias = _t(_rand((n,), 42))
+    po = packing.pack_gemm(w, packing.gemm_layout(kind, k, n))
+    plan = tfac.Plan(ger=kind, out_dtype=tfac.ACC, **plan_kw)
+    seen = _spy_wrapper_layouts(monkeypatch)
+    with tfac.configure(CPU):
+        nat = tfac.contract("mk,kn->mn", x, w, bias=bias, plan=plan)
+        pk = tfac.contract("mk,kn->mn", x, po, bias=bias, plan=plan)
+    assert seen == [["wmma", False], ["wmma", True]]
+    assert torch.equal(nat, pk)
+    assert packing.COUNTERS["demote"] == 0
+
+
+@pytest.mark.parametrize("kind", [Ger.BF16GER2, Ger.F32GER])
+def test_packed_conv_on_wmma_and_f32_tiles_bitwise(kind, monkeypatch):
+    """K3's packed (gf, KH, KW, C, 64) stream on the WMMA tile (an explicit
+    filter tile of 128: two slabs) and on the fp32 tile (F32GER): the
+    wrapper takes the path and reads the stream, no demote, the natural
+    bits; 1-D (whisper's stem form) and 2-D."""
+    seen = []
+    choose = tiling.choose_conv_path
+
+    def spy(*a, **kw):
+        got = choose(*a, **kw)
+        seen.append(got[0])
+        return got
+    monkeypatch.setattr(tiling, "choose_conv_path", spy)
+    dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
+    path = "f32" if kind == Ger.F32GER else "wmma"
+    block = None if kind == Ger.F32GER else (64, 128, 32)
+    plan = tfac.Plan(ger=kind, out_dtype=torch.float32, block=block)
+    with tfac.configure(CPU):
+        for spec, img, w, stride in (
+                (tfac.CONV1D, _t(_rand((2, 41, 24), 43), dt),
+                 _t(_rand((3, 24, 200), 44), dt) * 0.2, 2),
+                (tfac.CONV2D, _t(_rand((1, 12, 12, 3), 45), dt),
+                 _t(_rand((4, 4, 3, 72), 46), dt) * 0.2, (4, 4))):
+            nd = 1 if spec == tfac.CONV1D else 2
+            kh, (kw, c, f) = ((1, w.shape) if nd == 1
+                              else (w.shape[0], w.shape[1:]))
+            pc = packing.pack_conv(w, packing.conv_layout(kind, kh, kw, c,
+                                                          f, nd=nd))
+            p = dataclasses.replace(plan, stride=stride)
+            nat = tfac.contract(spec, img, w, plan=p)
+            pk = tfac.contract(spec, img, pc, plan=p)
+            assert torch.equal(nat, pk)
+    assert seen == [path] * 4
+    assert packing.COUNTERS["demote"] == 0
+
+
+def test_packed_f32ger_panels_match_reference_interpret_kernel():
+    """The reference's interpret-mode K1 on the same packed F32GER panels
+    (its (gn, gk, 64, 64) Y panels, the port's bit for bit) gives the
+    port's packed result within 1e-5 of max|ref| (fp32 sums in another
+    order), with the fused bias + silu epilogue."""
+    from repro.kernels import epilogue as jep
+    from repro.kernels import mma_gemm as jgemm
+    from repro_torch.kernels import epilogue as tep
+    m, k, n = 70, 200, 136
+    x, w, bias = _rand((m, k), 47), _rand((k, n), 48), _rand((n,), 49)
+    po = packing.pack_gemm(_t(w), packing.gemm_layout(Ger.F32GER, k, n))
+    jl = jpack.GemmLayout(kind=JGer.F32GER, block=(64, 64, 64), side="y",
+                          rows=k, cols=n)
+    jpo = jpack.pack_gemm(jnp.asarray(w), jl)
+    np.testing.assert_array_equal(po.data.numpy(), np.asarray(jpo.data))
+    want = jgemm.mma_gemm(jnp.asarray(x), jpo.data, kind=JGer.F32GER,
+                          block=(64, 64, 64), y_layout=jl, interpret=True,
+                          ep=jep.Epilogue(bias=True, activation="silu"),
+                          bias=jnp.asarray(bias))
+    got = tgemm.mma_gemm(_t(x), po.data, kind=Ger.F32GER, y_layout=po.layout,
+                         ep=tep.Epilogue(bias=True, activation="silu"),
+                         bias=_t(bias))
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    assert packing.COUNTERS["demote"] == 0
+
+
+def test_f32ger_prepacked_serve_matches_natural(monkeypatch):
+    """The tight-parity config (F32GER, f32) served prepacked on the CPU:
+    the bf16 weights are widened once to fp32 panels, which every GEMM
+    reads on the WMMA fp32 tile's path; every decode tick's tokens and
+    logits are the natural serve's, with no demote, pack or repack while
+    serving."""
+    tcfg = treduced(tget("deepseek-7b"))
+    settings = dict(batch=2, prompt_len=8, gen_len=4, n_requests=3)
+    f32 = tfac.FacilityConfig(device="cpu", ger=Ger.F32GER,
+                              out_dtype=torch.float32)
+    with tfac.configure(f32):
+        model = TM.init_params(tcfg, seed=0, device="cpu",
+                               dtype=torch.bfloat16)
+        nat_stats, nat = _recorded_serve(monkeypatch, tcfg, model,
+                                         **settings)
+        stats = packing.prepack_params_for_serving(model, min_size=1024)
+        po = model.layers[0].mlp.w1
+        base = dict(packing.COUNTERS)
+        pk_stats, pk = _recorded_serve(monkeypatch, tcfg, model, **settings)
+    assert packing.is_packed(po) and po.dtype == torch.float32
+    # the widened panels hold at least twice the natural bf16 bytes
+    assert stats["panel_bytes"] >= 2 * stats["bytes"] > 0
+    assert dict(packing.COUNTERS) == base, packing.EVENTS
+    assert nat_stats["completed"] == pk_stats["completed"] == 3
+    assert len(nat) == len(pk) > 0
+    for (ta, la), (tb, lb) in zip(nat, pk):
+        assert torch.equal(ta, tb) and torch.equal(la, lb)
