@@ -197,7 +197,30 @@ Phases, each of which must pass or the script exits nonzero:
      WMMA and fp32 tiles at whisper's conv2 and qwen2-vl's patch embed):
      packed bit for bit natural and against the plain version, the
      sidecar on a packed WMMA launch bit for bit, timed beside the natural
-     launch, the plain version, the library call and the bound.
+     launch, the plain version, the library call and the bound;
+ 11. the last TPU kernel forms: K1d's packed panels on every GEMM path and
+     K2d's full-grid attention.  One main-path run, counts zeroed just
+     before and read just after: every mode of ``K1D_MODES`` natural and
+     packed through ``facility.contract`` (DGEMM 2048^3 with Y, X and both
+     packed and masked on DMMA; I8GER4 4096^3 with Y and both packed,
+     masked too, and I16GER2 4096^3 with X and Y packed on IMMA; X panels
+     on the weight stream at decode 4 x 4096 x 11008, on the wgmma tile
+     at prefill 1024 x 4096 x 11008 (X and X+Y), on the WMMA tile (an
+     explicit (128, 128, 32) block and a masked call) and the fp32 tile
+     there, and the weight on the X side at 11008 x 4096 x 4), and
+     ``mma_flash_attention`` bounded and with ``bound_grid=False`` at
+     ``K2D_CASES``: packed launches by path as the modes want, every
+     full-grid launch counted, 0 packs, repacks and demotes.  Each packed
+     result bit for bit the natural one (NaN/Inf in disabled float lanes
+     giving exact zeros) and held against the plain version (integers
+     bit for bit, DGEMM within 1e-15 K max|x| max|y|); the sidecar on the
+     packed DMMA, stream and wgmma launches bit for bit; each full grid bit
+     for bit the bounded launch and within its rounding budget of the
+     plain version; every mode timed beside its natural launch (the
+     bounded one for K2d, with both step counts), the plain version, the
+     library call (``torch.matmul`` in the operands' dtype,
+     ``torch._int_mm`` s8 x s8 for the integer families, not the same
+     function; SDPA) and the bound.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
@@ -214,7 +237,11 @@ sidecar entries their ``off_ms``, ``timed`` shapes and
 ``launches_by_run`` over its runs, its padded attention entry its
 ``d128_ms`` and ``launches_by_mode``; phase 10's packed WMMA/fp32
 entries their ``natural_ms``, ``timed`` cases and ``launches_by_run``
-over its runs); the last is ``{"ok": true,
+over its runs; phase 11's packed entries, one a path, their
+``natural_ms``, ``timed`` modes and ``packed_launches_by_path``, the
+first of them the phase's packed launches by path, full-grid launches
+and demotes under ``phase11``; its full-grid attention entry its
+``bounded_ms``, step counts and ``full_grid_launches``); the last is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
@@ -4521,6 +4548,338 @@ def phase10(torch, failures, entries):
     print(f"  phase 10 (after the serves): {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 11: the last TPU kernel forms (K1d's panels on every GEMM path,
+# K2d's full-grid attention)
+# ----------------------------------------------------------------------
+
+# name: (family, packed sides, (M, K, N), explicit block, masked, the path
+# its natural operands take).  DGEMM with X, Y and both packed (masked
+# too), the integer families, X panels on the weight stream (decode), the
+# wgmma tile and the WMMA/fp32 tiles (prefill), and the weight on the X
+# side (11008 x 4096 x 4: its 8-byte N pitch sends it to the WMMA tile).
+K1D_MODES = {
+    "DGEMM 2048^3 Y packed": (("y",), (2048, 2048, 2048), "F64GER", None,
+                              False, "dmma"),
+    "DGEMM 2048^3 X packed": (("x",), (2048, 2048, 2048), "F64GER", None,
+                              False, "dmma"),
+    "DGEMM 2048^3 X+Y packed": (("x", "y"), (2048, 2048, 2048), "F64GER",
+                                None, False, "dmma"),
+    "DGEMM 2048^3 X+Y packed, masked": (("x", "y"), (2048, 2048, 2048),
+                                        "F64GER", None, True, "dmma"),
+    "I8GER4 4096^3 Y packed": (("y",), (4096, 4096, 4096), "I8GER4", None,
+                               False, "imma"),
+    "I8GER4 4096^3 X+Y packed": (("x", "y"), (4096, 4096, 4096), "I8GER4",
+                                 None, False, "imma"),
+    "I8GER4 4096^3 X+Y packed, masked": (("x", "y"), (4096, 4096, 4096),
+                                         "I8GER4", None, True, "imma"),
+    "I16GER2 4096^3 X packed": (("x",), (4096, 4096, 4096), "I16GER2", None,
+                                False, "imma"),
+    "I16GER2 4096^3 Y packed": (("y",), (4096, 4096, 4096), "I16GER2", None,
+                                False, "imma"),
+    "decode 4x4096x11008 X packed": (("x",), (4, 4096, 11008), "BF16GER2",
+                                     None, False, "stream"),
+    "prefill 1024x4096x11008 X packed": (("x",), (1024, 4096, 11008),
+                                         "BF16GER2", None, False, "wgmma"),
+    "prefill 1024x4096x11008 X+Y packed": (("x", "y"), (1024, 4096, 11008),
+                                           "BF16GER2", None, False,
+                                           "wgmma"),
+    "prefill 1024x4096x11008 X packed, block (128, 128, 32)": (
+        ("x",), (1024, 4096, 11008), "BF16GER2", (128, 128, 32), False,
+        "wmma"),
+    "prefill 1024x4096x11008 X packed, masked": (
+        ("x",), (1024, 4096, 11008), "BF16GER2", None, True, "wmma"),
+    "F32GER prefill 1024x4096x11008 X packed": (
+        ("x",), (1024, 4096, 11008), "F32GER", None, False, "wmma"),
+    "weight on X 11008x4096x4": (("x",), (11008, 4096, 4), "BF16GER2", None,
+                                 False, "wmma"),
+}
+# The kernels line's entry of each path's packed modes (the WMMA bf16 and
+# fp32 tiles are one path, counted together).
+K1D_ENTRIES = {
+    "dmma": ("mma_gemm packed X/Y (dmma)", "gemm_dmma.cu"),
+    "imma": ("mma_gemm packed X/Y (imma)", "gemm_imma.cu"),
+    "stream": ("mma_gemm packed X (stream)", "gemm_stream.cu"),
+    "wgmma": ("mma_gemm packed X (wgmma)", "gemm_wgmma.cu"),
+    "wmma": ("mma_gemm packed X (wmma, bf16 and fp32 tiles)", "mma_gemm.cu"),
+}
+# K2d: (name, q (B, S, H, D), flags): causal prefill at deepseek-7b's
+# heads, a batch of shorter causal prompts, and a sliding window.
+K2D_CASES = (("causal (1,256,32,128)", (1, 256, 32, 128),
+              dict(causal=True)),
+             ("causal (2,512,4,64)", (2, 512, 4, 64), dict(causal=True)),
+             ("window 512 (1,2048,32,128)", (1, 2048, 32, 128),
+              dict(causal=True, window=512)))
+
+
+def _k1d_operands(torch, g, kind, m, k, n):
+    """x (M, K) and y (K, N) in ``kind``'s input dtypes: full-range
+    integers, unit normals (y scaled by K^-1/2) otherwise."""
+    from repro_torch.core import precision
+    pol = precision.policy(kind)
+    if pol.is_integer:
+        return _int_operands(torch, g, kind, (), m, k, n)
+    x = torch.randn(m, k, generator=g, device="cuda", dtype=torch.float64)
+    y = torch.randn(k, n, generator=g, device="cuda",
+                    dtype=torch.float64) * k ** -0.5
+    return x.to(pol.x_dtype), y.to(pol.y_dtype)
+
+
+def phase11_kernels(torch, timer, failures):
+    """K1d on every GEMM path and K2d's full grid: a main-path run of every
+    mode (each natural and packed through ``facility.contract``, and the
+    attention cases bounded and on the full grid through
+    ``mma_flash_attention``), counts zeroed just before and read just
+    after; each packed result bit for bit the natural one and held against
+    the plain version; the sidecar on packed DMMA, stream and wgmma
+    launches bit for bit; then each mode timed (CUDA events, L2 flushed)
+    beside its natural launch, the plain version, the library call and the
+    bound.  Returns the ``kernels`` entries."""
+    from repro_torch.core import facility, packing
+    from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = facility.Ger
+    g = torch.Generator(device="cuda").manual_seed(23)
+    ops = []
+    for label, (sides, (m, k, n), fam, block, masked, path) in \
+            K1D_MODES.items():
+        kind = Ger[fam]
+        x, y = _k1d_operands(torch, g, kind, m, k, n)
+        masks = None
+        if masked:
+            masks = _lane_masks(torch, g, m, n, k)
+            if kind not in (Ger.I8GER4, Ger.I16GER2):
+                x[~masks[0], :] = float("nan")
+                y[:, ~masks[1]] = float("inf")
+                y[~masks[2], :] = float("nan")
+        px = (packing.pack_gemm(x, packing.gemm_layout(kind, m, k, side="x"))
+              if "x" in sides else x)
+        py = (packing.pack_gemm(y, packing.gemm_layout(kind, k, n))
+              if "y" in sides else y)
+        plan = facility.Plan(ger=kind, out_dtype=facility.ACC, block=block)
+        ops.append((label, path, kind, (m, k, n), block, masks, x, y, px,
+                    py, plan))
+    attn = []
+    for label, (b, s, h, d), kw in K2D_CASES:
+        q, k_, v = (torch.randn(b, s, h, d, generator=g, device="cuda"
+                                ).bfloat16() for _ in range(3))
+        attn.append((label, q, k_, v, kw))
+
+    # the main path: every mode natural and packed through contract, the
+    # attention cases bounded and full
+    kernels = kernel_wrappers()
+    nat, pk, bounded, full = {}, {}, {}, {}
+    before = dict(packing.COUNTERS)
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    A.mma_flash_attention.full_grid_launches = 0
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for label, _, _, _, _, masks, x, y, px, py, plan in ops:
+            nat[label] = facility.contract("mk,kn->mn", x, y, masks=masks,
+                                           plan=plan)
+            pk[label] = facility.contract("mk,kn->mn", px, py, masks=masks,
+                                          plan=plan)
+    for label, q, k_, v, kw in attn:
+        bounded[label] = A.mma_flash_attention(q, k_, v, **kw)
+        full[label] = A.mma_flash_attention(q, k_, v, bound_grid=False, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    full_grid = A.mma_flash_attention.full_grid_launches
+    moved = _relayouts(dict(packing.COUNTERS), before)
+    want = {}
+    for _, path, *_ in ops:
+        want[path] = want.get(path, 0) + 1
+    packed = {p: counts["packed"][f"gemm {p}"] for p in G.PACKED_PATHS}
+    _check(failures, "phase 11 main path", not any(moved.values())
+           and all(packed[p] == want.get(p, 0) for p in packed)
+           and full_grid == len(attn),
+           f"GEMM by path {counts['by_path']['mma_gemm']}, on packed panels "
+           f"{packed} (want {want}), masked {counts['masked']}, attention "
+           f"{counts['attn_by_mode']} of which full grid {full_grid}; "
+           f"packing counters {moved} (all 0)")
+    phase = dict(packed_launches_by_path=packed,
+                 full_grid_launches=full_grid, demotes=moved["demote"])
+
+    rows = {}
+    for label, path, kind, (m, k, n), block, masks, x, y, px, py, \
+            plan in ops:
+        _check(failures, f"K1d {label}", torch.equal(pk[label], nat[label])
+               and (kind in (Ger.I8GER4, Ger.I16GER2)
+                    or bool(torch.isfinite(pk[label]).all())),
+               "packed bit for bit the natural launch" + (
+                   ", finite" if kind not in (Ger.I8GER4, Ger.I16GER2)
+                   else ""))
+        gk = dict(kind=kind, block=block, masks=masks)
+        plain = lambda x=x, y=y, gk=gk: G.mma_gemm_plain(  # noqa: E731
+            x, y, kind=gk["kind"], masks=gk["masks"])
+        want_p = plain()
+        if kind in (Ger.I8GER4, Ger.I16GER2):
+            err = float((pk[label].long() - want_p.long()).abs().max())
+            _check(failures, f"K1d {label} vs plain", err == 0,
+                   "bit for bit the plain version (int32)")
+        elif kind == Ger.F64GER:
+            xs, ys = G.select_masks(x, y, masks) if masks else (x, y)
+            err = (pk[label] - want_p).abs().max().item()
+            tol = 1e-15 * k * xs.abs().max().item() * ys.abs().max().item()
+            _check(failures, f"K1d {label} vs plain", err <= tol,
+                   f"max|err| {err:.3e} (tol {tol:.3e})")
+            del xs, ys
+        else:
+            err = _report_close(torch, f"K1d {label} vs plain", pk[label],
+                                want_p, torch.float32, failures)
+        del want_p
+        lay = dict(x_layout=px.layout if px is not x else None,
+                   y_layout=py.layout if py is not y else None)
+        xd = px.data if px is not x else x
+        yd = py.data if py is not y else y
+        row = {"ms": timer(lambda xd=xd, yd=yd, gk=gk, lay=lay: G.mma_gemm(
+                   xd, yd, **gk, **lay)),
+               "natural_ms": timer(lambda x=x, y=y, gk=gk: G.mma_gemm(
+                   x, y, **gk)),
+               "plain_ms": timer(plain)}
+        if kind in (Ger.I8GER4, Ger.I16GER2):
+            s8 = torch.randint(-128, 128, (k, n), generator=g,
+                               device="cuda", dtype=torch.int8)
+            x8 = (x if kind == Ger.I8GER4 else torch.randint(
+                -128, 128, (m, k), generator=g, device="cuda",
+                dtype=torch.int8))
+            row["library_ms"] = timer(lambda x8=x8, s8=s8: torch._int_mm(
+                x8, s8))
+            row["library"] = ("torch._int_mm s8 x s8 of the shape (not the "
+                              "same function)")
+            del s8, x8
+        elif masks is not None:
+            row["library_ms"] = timer(
+                lambda x=x, y=y, masks=masks: torch.matmul(
+                    *G.select_masks(x, y, masks)))
+            row["library"] = "torch.where + torch.matmul"
+        else:
+            row["library_ms"] = timer(lambda x=x, y=y: torch.matmul(x, y))
+            row["library"] = "torch.matmul " + str(x.dtype)[6:]
+        me, ne, ke = ((int(t.sum()) for t in masks) if masks is not None
+                      else (m, n, k))
+        products = {Ger.I16GER2: 4}.get(kind, 1)
+        peak = {Ger.F64GER: "f64", Ger.I8GER4: "int8", Ger.I16GER2: "int8",
+                Ger.F32GER: "f32"}.get(kind, "bf16")
+        nbytes = (me * ke * x.element_size() + ke * ne * y.element_size()
+                  + m * n * nat[label].element_size())
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2 * me * ne * ke * products, peak)
+        print(f"  time K1d {label}: packed {row['ms']:.4f} ms, natural "
+              f"{row['natural_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"{row['library']} {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.setdefault(path, {})[label] = (row, err)
+    # the sidecar on packed launches (K1e over K1d): out and both sums bit
+    # for bit the natural launch's
+    for label, path, kind, _, block, masks, x, y, px, py, _ in ops:
+        if masks is not None or path not in ("dmma", "stream", "wgmma"):
+            continue
+        lay = dict(x_layout=px.layout if px is not x else None,
+                   y_layout=py.layout if py is not y else None)
+        want_c = G.mma_gemm(x, y, kind=kind, block=block, checksum=True)
+        got_c = G.mma_gemm(px.data if px is not x else x,
+                           py.data if py is not y else y, kind=kind,
+                           block=block, checksum=True, **lay)
+        _check(failures, f"K1d {label} checksum=True",
+               all(torch.equal(a, c) for a, c in zip(got_c, want_c)),
+               "out, ck_col and ck_row bit for bit the natural launch's")
+    del ops, nat, pk
+
+    # K2d: full against bounded, each against the plain version, timed
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn_rows, attn_err = {}, 0.0
+    for label, q, k_, v, kw in attn:
+        _check(failures, f"K2d {label}",
+               torch.equal(full[label], bounded[label]),
+               "the full grid bit for bit the bounded launch (tile mode)")
+        e, _ = check_attn_case(torch, f"K2d {label} full grid", q, k_, v,
+                               {**kw, "bound_grid": False}, failures)
+        attn_err = max(attn_err, e)
+        b, s, h, d = q.shape
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k_, v))
+        mask = None
+        if "window" in kw:
+            pos = torch.arange(s, device="cuda")
+            mask = ((pos[:, None] >= pos[None, :])
+                    & (pos[:, None] - pos[None, :] < kw["window"]))
+        row = {"ms": timer(lambda q=q, k_=k_, v=v, kw=kw:
+                           A.mma_flash_attention(q, k_, v, bound_grid=False,
+                                                 **kw), iters=5),
+               "bounded_ms": timer(lambda q=q, k_=k_, v=v, kw=kw:
+                                   A.mma_flash_attention(q, k_, v, **kw),
+                                   iters=5),
+               "plain_ms": timer(lambda q=q, k_=k_, v=v, kw=kw:
+                                 A.flash_attention_plain(q, k_, v, **kw),
+                                 iters=5),
+               "library_ms": timer(
+                   (lambda qt=qt, kt=kt, vt=vt: sdpa(qt, kt, vt,
+                                                     is_causal=True))
+                   if mask is None else
+                   (lambda qt=qt, kt=kt, vt=vt, mask=mask: sdpa(
+                       qt, kt, vt, attn_mask=mask)), iters=5)}
+        nk = -(-s // A.BLOCK_K)
+        bq = A.attn_plan(b, h, s, s, d, False)[0]
+        row["steps_full"] = -(-s // bq) * nk
+        row["steps_bounded"] = A.attn_live_steps(s, s, bq, A.BLOCK_K,
+                                                 **{k2: v2 for k2, v2
+                                                    in kw.items()})
+        pairs = A.attn_live_pairs(s, s, **kw)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            4 * b * s * h * d * 2, 4 * d * pairs * b * h, "bf16")
+        print(f"  time K2d {label}: full grid {row['ms']:.4f} ms "
+              f"({row['steps_full']} steps a (b, h)), bounded "
+              f"{row['bounded_ms']:.4f} ms ({row['steps_bounded']} steps), "
+              f"plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        attn_rows[label] = row
+    del attn, bounded, full
+
+    # each entry's launches: its path's packed launches in the run above
+    entries = []
+    for path, by_label in rows.items():
+        name, src = K1D_ENTRIES[path]
+        label, (row, _) = next(iter(by_label.items()))
+        e = {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{src}",
+             "replaces": "src/repro/kernels/mma_gemm.py:333",
+             "launches": packed[path],
+             "max_abs_err": max(err for _, err in by_label.values()),
+             **row, "shape": label,
+             "packed_launches_by_path": {path: packed[path]},
+             "timed": {lb: r for lb, (r, _) in by_label.items()}}
+        entries.append(e)
+    label, row = next(iter(attn_rows.items()))
+    entries.append({"name": "mma_flash_attention full grid",
+                    "route": "cuda",
+                    "source": "src/repro_torch/csrc/mma_attention.cu",
+                    "replaces": "src/repro/kernels/mma_attention.py:201",
+                    "launches": full_grid, "full_grid_launches": full_grid,
+                    "max_abs_err": attn_err, **row, "shape": label,
+                    "timed": attn_rows})
+    for e in entries:
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched in phase 11's run")
+    entries[0]["phase11"] = phase
+    return entries
+
+
+def phase11(torch, failures, entries):
+    """Phase 11: K1d's panels on every GEMM path and K2d's full grid,
+    through the entry points, checked and timed."""
+    print("== phase 11: K1d's panels on every GEMM path (DMMA, IMMA, X "
+          "panels on the stream, the wgmma tile and the WMMA/fp32 tiles) "
+          "and K2d's full-grid attention", flush=True)
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    entries += phase11_kernels(torch, timer, failures)
+    del timer
+    torch.cuda.empty_cache()
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -4676,6 +5035,7 @@ def run_phases(torch) -> None:
     phase8(torch, failures, entries)
     phase9(torch, failures, entries)
     phase10(torch, failures, entries)
+    phase11(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

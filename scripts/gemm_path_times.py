@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Device times of the GEMM kernels' natural launches and of the packed-Y
+launches of prepacked serving, one source tree at a time, on one card.
+
+    python scripts/gemm_path_times.py [--tree DIR]
+
+Card only (exits nonzero without CUDA).  Imports ``repro_torch`` from
+``DIR/src`` (default: this checkout) and times ``kernels.mma_gemm`` at a
+main-path shape of each of the GEMM's five kernels: the weight stream at
+decode 4 x 4096 x 11008, the wgmma tile at prefill 1024 x 4096 x 11008,
+the WMMA tile at an explicit (128, 128, 32) block there and the fp32 tile
+(F32GER) at 1024 x 4096 x 4096, the IMMA kernel at I8GER4 and I16GER2
+4096^3 (and I8GER4 masked), the DMMA kernel at DGEMM 2048^3 (and
+masked), each held to its path; then the weight as Y panels
+(``packing.pack_gemm``) where a prepacked serve reads them: the stream at
+decode, deepseek-moe-16b's expert bank 64 x 1 x 2048 x 1408 (batched
+panels) on the stream, and the wgmma tile at prefill.  Times use
+chip_smoke.py's Timer (median, L2 flushed, host work hidden); the card's
+name and power limit head the output.  To compare two trees, unpack one
+beside the other and run the script for each in turn, A B B A, in one
+session on one card: the kernels build per tree, into ``DIR/build``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+# (label, family, (B, M, K, N), explicit block, masked, Y packed, the path
+# it must take); B None: unbatched
+CASES = (
+    ("stream decode 4x4096x11008", "BF16GER2", (None, 4, 4096, 11008), None,
+     False, False, "stream"),
+    ("wgmma prefill 1024x4096x11008", "BF16GER2", (None, 1024, 4096, 11008),
+     None, False, False, "wgmma"),
+    ("wmma block (128, 128, 32) 1024x4096x11008", "BF16GER2",
+     (None, 1024, 4096, 11008), (128, 128, 32), False, False, "wmma"),
+    ("wmma f32 1024x4096x4096", "F32GER", (None, 1024, 4096, 4096), None,
+     False, False, "wmma"),
+    ("imma I8GER4 4096^3", "I8GER4", (None, 4096, 4096, 4096), None, False,
+     False, "imma"),
+    ("imma I8GER4 4096^3 masked", "I8GER4", (None, 4096, 4096, 4096), None,
+     True, False, "imma"),
+    ("imma I16GER2 4096^3", "I16GER2", (None, 4096, 4096, 4096), None,
+     False, False, "imma"),
+    ("dmma F64GER 2048^3", "F64GER", (None, 2048, 2048, 2048), None, False,
+     False, "dmma"),
+    ("dmma F64GER 2048^3 masked", "F64GER", (None, 2048, 2048, 2048), None,
+     True, False, "dmma"),
+    ("stream packed Y decode 4x4096x11008", "BF16GER2",
+     (None, 4, 4096, 11008), None, False, True, "stream"),
+    ("stream packed Y bank 64x1x2048x1408", "BF16GER2", (64, 1, 2048, 1408),
+     None, False, True, "stream"),
+    ("wgmma packed Y prefill 1024x4096x11008", "BF16GER2",
+     (None, 1024, 4096, 11008), None, False, True, "wgmma"),
+)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(ROOT))
+    args = ap.parse_args()
+    tree = pathlib.Path(args.tree).resolve()
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+
+    import chip_smoke as CS
+    if not torch.cuda.is_available():
+        sys.exit("CUDA is not available: this script runs on the card only")
+    from repro_torch.core import packing, precision
+    from repro_torch.kernels import mma_gemm as G
+    print(CS.card_line(), flush=True)
+    print(f"tree {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timer = CS.Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for label, fam, (b, m, k, n), block, masked, packed, path in CASES:
+        kind = precision.Ger[fam]
+        pol = precision.policy(kind)
+        lead = () if b is None else (b,)
+        if pol.is_integer:
+            x, y = CS._int_operands(torch, g, kind, lead, m, k, n)
+        else:
+            x = torch.randn(*lead, m, k, generator=g, device="cuda"
+                            ).to(pol.x_dtype)
+            y = (torch.randn(*lead, k, n, generator=g, device="cuda")
+                 * k ** -0.5).to(pol.y_dtype)
+        masks = CS._lane_masks(torch, g, m, n, k) if masked else None
+        kw = dict(kind=kind, block=block, masks=masks)
+        if packed:
+            po = packing.pack_gemm(y, packing.gemm_layout(
+                kind, k, n, batched=b is not None))
+            y, kw["y_layout"] = po.data, po.layout
+        counter = (G.mma_gemm.packed_launches_by_path if packed
+                   else G.mma_gemm.launches_by_path)
+        before = counter[path]
+        G.mma_gemm(x, y, **kw)
+        torch.cuda.synchronize()
+        if counter[path] != before + 1:
+            sys.exit(f"{label}: did not take the {path} path")
+        ms = timer(lambda x=x, y=y, kw=kw: G.mma_gemm(x, y, **kw))
+        print(f"  {label}: {ms:.4f} ms", flush=True)
+        del x, y, masks, kw
+
+
+if __name__ == "__main__":
+    main()

@@ -61,9 +61,9 @@ Packed operands
 A ``core.packing.PackedOperand`` may stand in for a weight.
 ``_admit_packed`` keeps it packed for the single-pass kernel gemm and
 dense conv lowerings, whose dispatch takes the path its natural operands
-would and streams its panels (or demotes it where that path reads none),
-and for the torch/ref gemm and conv lowerings, which demote it; every
-other case demotes at admission.  Each demote is counted
+would and streams its panels (every path reads them, both operands' at
+once), and for the torch/ref gemm and conv lowerings, which demote it;
+every other case demotes at admission.  Each demote is counted
 (``packing.COUNTERS``), so a packed result is the natural one bit for bit.
 
 Gradients
@@ -613,7 +613,7 @@ def _lower_kernel_gemm(op: Op):
     operand (one single-pass dispatch, admitted by ``_admit_packed``) goes
     through ``packing.refresh_gemm``, and its panels go to the wrapper with
     their layout: the wrapper takes the path its natural operands would,
-    and demotes them, counted, where that path reads none.  The masked
+    and that path reads them.  The masked
     op-class hands its pm* predicates to the same wrapper, which applies
     them while the kernel stages its panels (every pass of an expansion
     chain masked alike); the operands are never pre-masked."""
@@ -1347,10 +1347,10 @@ def _admit_packed(op_class: str, backend: str, pol, parsed, spec: str,
     """Demote the packed operands that cannot ride this dispatch packed.
 
     Packed operands ride the single-pass kernel gemm and dense conv
-    lowerings (whose wrappers demote them, counted, where the path they
-    take reads no panels) and reach the torch/ref gemm and conv lowerings,
-    which demote them themselves; everything else -- the other op-classes,
-    expansion chains, int4 nibble families, both operands packed, a spec
+    lowerings (whose every path reads them: a gemm both operands' panels
+    at once, where the reference demotes x) and reach the torch/ref gemm
+    and conv lowerings, which demote them themselves; everything else --
+    the other op-classes, expansion chains, int4 nibble families, a spec
     orientation the pack did not pay -- demotes here, once, counted.  A
     quantized operand (raw int8 panels) demotes only where the dispatch
     applies its scale (``dequantized``: a Dequant deprime); elsewhere
@@ -1359,9 +1359,6 @@ def _admit_packed(op_class: str, backend: str, pol, parsed, spec: str,
                  and pol.ger not in _EXPANSIONS)
     dq = {"dequantized": dequantized}
     if op_class in ("gemm", "gemm.masked") and kernel_ok:
-        if packing.is_packed(x) and packing.is_packed(y):
-            # one packed operand per dispatch: keep the weight-side y
-            x = packing.demote_value(x, "both-operands-packed", **dq)
         if packing.is_packed(x) and not _packed_gemm_compatible(
                 parsed, x, "x"):
             x = packing.demote_value(x, "spec-orientation", **dq)

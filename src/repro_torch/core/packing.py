@@ -22,12 +22,13 @@ on the call:
     (:data:`PANELS`, :data:`CONV_BF`); on a mismatch the operand is
     repacked on the spot, once (``COUNTERS["repack"]``, ``["invalidate"]``),
     and keeps the new panels.
-  * **Demotion**: :func:`demote_value` / :func:`demote_op` (the lowerings)
-    and :func:`demote_panels` (the kernel wrappers, where the path their
-    one path choice gives reads no panels) are the only packed -> natural
-    conversions, each counted (``COUNTERS["demote"]``), so a steady-state
-    packed loop can be held to zero of them.  A quantized operand is
-    demoted only for a dispatch that applies its scale.
+  * **Demotion**: :func:`demote_value` / :func:`demote_op` (the torch and
+    ref lowerings, and the admission of what cannot ride packed) are the
+    only packed -> natural conversions, each counted
+    (``COUNTERS["demote"]``), so a steady-state packed loop can be held to
+    zero of them.  A quantized operand is demoted only for a dispatch that
+    applies its scale.  The kernel wrappers demote nothing: every GEMM
+    path reads packed panels, and so does every conv path.
   * :func:`prepack_params_for_serving` -- the pass over a port ``Model``
     (an ``nn.Module``) that replaces dense weights, MoE expert banks and
     the conv stems' filters by packed operands in place.
@@ -43,20 +44,19 @@ call's path, never its panel:
   * a layout's panel is the panel its kernels read, fixed and independent
     of M and of the winner (:data:`PANEL_BLOCK`): the Y side's (bk, bn) =
     (64, 64) is the wgmma tile's 128-byte-swizzled B box, two of the
-    weight stream's 32-row stages, and the panel the WMMA and fp32 tiles
-    cut their (bk, bn) stages from, so one pack serves decode, prefill and
-    every tuned path, and a tuned serve repacks nothing; the X side's
-    (bm, bk) = (128, 64) is the IMMA tile's X panel (I8GER4); the conv
-    filter tile is bf = 64 (:data:`CONV_BF`), K3's wgmma B box and half
-    its WMMA tile's 128 filters;
+    weight stream's 32-row stages, and the panel the WMMA, fp32, IMMA and
+    DMMA tiles cut their (bk, bn) stages from, so one pack serves decode,
+    prefill and every tuned path, and a tuned serve repacks nothing; the X
+    side's (bm, bk) = (128, 64) is the wgmma tile's A box and the IMMA
+    tile's I8GER4 X panel, which the other paths cut their rows from; the
+    conv filter tile is bf = 64 (:data:`CONV_BF`), K3's wgmma B box and
+    half its WMMA tile's 128 filters;
   * the reference's "stale under trace -> demote" branch has no
     counterpart: a stale layout is always repacked;
   * a packed dispatch takes the path its natural operands would take
     (``tiling.choose_gemm_path`` / ``choose_conv_path``, chosen once, in
-    the kernel wrapper, a tuned winner included), so its result is the
-    natural one bit for bit; where that path reads no packed panels (the
-    DMMA kernel, I4GER8 and I16GER2, X panels on the stream, wgmma or
-    WMMA tiles, Y panels on IMMA) the wrapper demotes the operand.
+    the kernel wrapper, a tuned winner included), and that path reads the
+    panels, so its result is the natural one bit for bit.
 """
 
 from __future__ import annotations
@@ -92,8 +92,9 @@ def clear_state() -> None:
 
 
 # The panels the port's kernels read, (bm, bn, bk): Y side (bk, bn) =
-# (64, 64) (csrc/gemm_stream.cu, csrc/gemm_wgmma.cu), X side (bm, bk) =
-# (128, 64) (csrc/gemm_imma.cu); and K3's filter tile (csrc/mma_conv.cu).
+# (64, 64), X side (bm, bk) = (128, 64), on every GEMM path
+# (csrc/common.cuh's x_panel_at / y_panel_at); and K3's filter tile
+# (csrc/mma_conv.cu).
 PANEL_BLOCK = (128, 64, 64)
 CONV_BF = 64
 # The (rows, cols) of one panel by side: GemmLayout.panel_blocks of a
@@ -409,31 +410,6 @@ def conv_layout(kind: Ger, kh: int, kw: int, c: int, f: int, *,
 
 
 # ----------------------------------------------------------------------
-# Which paths read packed panels
-# ----------------------------------------------------------------------
-
-def gemm_unread(path: str, kind: Ger, side: str,
-                masked: bool = False) -> str | None:
-    """None where the GEMM ``path`` streams ``side``'s packed panels in
-    family ``kind``; else the reason a packed operand there is demoted
-    (``masked``: a pm* call, whose IMMA and DMMA loaders read natural rows
-    only; the WMMA and fp32 tiles' masked loaders read Y panels).  K3
-    reads its packed filters on every path (wgmma, WMMA, fp32), so the
-    conv wrapper demotes none."""
-    if path == "wmma":
-        return None if side == "y" else "wmma-reads-no-x-panels"
-    if masked:
-        return f"{path}-masked-reads-no-panels"
-    if path in ("stream", "wgmma"):
-        return None if side == "y" else f"{path}-reads-no-x-panels"
-    if path == "imma":
-        if kind != Ger.I8GER4:
-            return f"imma-{kind.value}-reads-no-panels"
-        return None if side == "x" else "imma-reads-no-y-panels"
-    return f"{path}-tile-reads-no-panels"
-
-
-# ----------------------------------------------------------------------
 # Dispatch-time freshness
 # ----------------------------------------------------------------------
 
@@ -444,11 +420,9 @@ def refresh_gemm(po: PackedOperand):
     operand is repacked on the spot, once (``repack``, ``invalidate``),
     and ``po`` keeps the new panels.
 
-    Which path the dispatch takes, and so whether it reads these panels at
-    all, is the kernel wrapper's one decision (``kernels/mma_gemm.py``,
-    a tuned winner included): a path that reads none demotes them there,
-    counted, with its reason.  The panel a reading path reads does not
-    depend on the path, on M or on a winner, so this check needs none of
+    Which path the dispatch takes is the kernel wrapper's one decision
+    (``kernels/mma_gemm.py``, a tuned winner included); every path reads
+    the same panel, whatever M or the winner, so this check needs none of
     them.  There is no reference-style "stale under trace" branch: the
     port does not trace.  The prepack pass writes only fresh layouts: a
     stale one is a weight packed by hand with another block.
@@ -509,17 +483,6 @@ def demote_op(op, why: str = "backend"):
         if isinstance(v, PackedOperand):
             repl[field] = demote_value(v, why)
     return dataclasses.replace(op, **repl) if repl else op
-
-
-def demote_panels(data: torch.Tensor, lay, why: str) -> torch.Tensor:
-    """The kernel wrappers' demote, counted, with its reason: raw panels
-    whose path reads none become the natural kernel-facing operand, the
-    (..., rows, cols) matrix or the (..., KH, KW, C, F) filter bank (a
-    1-D layout's KH is 1), contiguous, as the natural dispatch has it."""
-    _record("demote", why=why, tile=lay.tile)
-    if lay.tile == "conv":
-        return conv_panels_filter(data, lay).contiguous()
-    return gemm_panels_matrix(data, lay).contiguous()
 
 
 # ----------------------------------------------------------------------

@@ -115,6 +115,32 @@ __device__ __forceinline__ bool lane_on(const uint8_t* mask, long long i) {
   return mask == nullptr || mask[i] != 0;
 }
 
+// core/packing.py's GEMM panels (K1d: repro/kernels/mma_gemm.py's
+// packed_spec), one batch element's, zero-padded past the kernel-facing
+// matrix: the X side (M, K) as (gm, gk, 128, 64) panels, the Y side (K, N)
+// as (gn, gk, 64, 64); gk = ceil(K / 64).  The element offset of (m, k) and
+// of (k, n).  Eight 16-bit, four fp32 or two fp64 elements that start at a
+// multiple of their count along a panel row lie in that row, 16-byte
+// aligned.  A packed operand without a batch axis under a batched grid is
+// shared: its batch stride is 0.
+constexpr int PANEL_XR = 128, PANEL_YR = 64, PANEL_C = 64;
+
+__device__ __forceinline__ long long x_panel_at(int m, int k, int gk) {
+  return ((long long)(m / PANEL_XR) * gk + k / PANEL_C) *
+             (PANEL_XR * PANEL_C) +
+         (m % PANEL_XR) * PANEL_C + k % PANEL_C;
+}
+
+__device__ __forceinline__ long long y_panel_at(int k, int n, int gk) {
+  return ((long long)(n / PANEL_C) * gk + k / PANEL_YR) *
+             (PANEL_YR * PANEL_C) +
+         (k % PANEL_YR) * PANEL_C + n % PANEL_C;
+}
+
+// The panels a packed launcher reads (its `panels` argument): bit 0 X,
+// bit 1 Y.
+enum { PANELS_X = 1, PANELS_Y = 2 };
+
 // The ABFT checksum sidecar (K1e: repro/kernels/mma_gemm.py's checksum
 // outputs): the column and row sums of one finished output tile, staged in
 // shared memory as `cs` (row pitch ldc) in the accumulator dtype, over its

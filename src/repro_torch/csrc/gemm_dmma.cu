@@ -37,6 +37,21 @@
 // when the pair goes to shared memory (after the current stage's MMAs, so
 // nothing waits on the mask loads), as load2 zero-fills the fringes: a NaN
 // there never enters a product.
+// Prepacked operands (K1d: repro/kernels/mma_gemm.py's packed_spec):
+// with `panels` set, X arrives as core/packing.py's X-side
+// (gm, gk, 128, 64) fp64 panels and/or Y as its Y-side (gn, gk, 64, 64)
+// panels (common.cuh's x_panel_at / y_panel_at), zero-padded past M, K and
+// N.  A staged pair (two k of an X row, two n of a Y row) starts at an even
+// column of one panel row, so it is one 16-byte load whatever K and N;
+// the block's 64 rows are half an X panel, its 64 columns one Y panel, and
+// a 16-deep stage a quarter of a panel's depth.  A pair past M, K or N
+// stages as 0, as load2's fringe does, a pair across K or N reads the zero
+// padding, and the masks apply as they do to natural rows, so the staged
+// registers, and the result and the sidecar, are the natural launch's bit
+// for bit.  A packed operand without a batch axis beside a batched one is
+// shared: its batch stride is 0.  Which operands are panels is the
+// kernel's PANELS template argument (common.cuh's PANELS_X | PANELS_Y),
+// so the natural instances are unchanged.
 
 #include "common.cuh"
 
@@ -67,6 +82,7 @@ struct DmmaArgs {
   double alpha, beta;
   int neg_product, neg_acc, act;
   int vec_x, vec_y;                    // 16-byte global loads allowed
+  int x_gk, y_gk;                      // panels along K (PANELS instances)
   const uint8_t* xm;                   // pm* byte masks over M, N and K,
   const uint8_t* ym;                   // each null or one byte a lane
   const uint8_t* pm;                   // (the MASKED instance)
@@ -114,6 +130,16 @@ __device__ __forceinline__ void store_d(void* out, int dt, long long i,
     reinterpret_cast<__half*>(out)[i] = __double2half(v);
 }
 
+// The pair load2 gives, from a packed operand's panels: element (row, col)
+// of the kernel-facing (rows, cols) matrix at offset `off`, col even, one
+// 16-byte load (the pair lies in one zero-padded panel row).
+__device__ __forceinline__ double2 load2_panel(const double* p, long long off,
+                                               int rows, int cols, int row,
+                                               int col) {
+  if (row >= rows || col >= cols) return make_double2(0.0, 0.0);
+  return *reinterpret_cast<const double2*>(p + off);
+}
+
 // The pm* mask bytes of a staged pair, lanes (row, col) and (row, col + 1)
 // of a matrix whose rows are masked by `rm` and columns by `cm`: byte 0 the
 // row's, bytes 1 and 2 the columns' (1 where a mask is null or the lane
@@ -135,7 +161,7 @@ __device__ __forceinline__ double2 apply_mask(double2 v, uchar4 f) {
   return v;
 }
 
-template <bool MASKED>
+template <bool MASKED, int PANELS>
 __global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   double* smem = reinterpret_cast<double*>(smem_raw);
@@ -159,7 +185,11 @@ __global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
     for (int i = 0; i < X_UNITS; ++i) {
       const int u = threadIdx.x + i * THREADS;   // 8 units a row
       const int row = m0 + u / 8, col = k0 + 2 * (u % 8);
-      xs[i] = load2(xb, a.M, a.K, row, col, a.vec_x);
+      if constexpr ((PANELS & PANELS_X) != 0)
+        xs[i] = load2_panel(xb, x_panel_at(row, col, a.x_gk), a.M, a.K, row,
+                            col);
+      else
+        xs[i] = load2(xb, a.M, a.K, row, col, a.vec_x);
       if constexpr (MASKED)
         xf[i] = mask_bytes(a.xm, a.pm, a.M, a.K, row, col);
     }
@@ -167,7 +197,11 @@ __global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
     for (int i = 0; i < Y_UNITS; ++i) {
       const int u = threadIdx.x + i * THREADS;   // 32 units a row
       const int row = k0 + u / 32, col = n0 + 2 * (u % 32);
-      ys[i] = load2(yb, a.K, a.N, row, col, a.vec_y);
+      if constexpr ((PANELS & PANELS_Y) != 0)
+        ys[i] = load2_panel(yb, y_panel_at(row, col, a.y_gk), a.K, a.N, row,
+                            col);
+      else
+        ys[i] = load2(yb, a.K, a.N, row, col, a.vec_y);
       if constexpr (MASKED)
         yf[i] = mask_bytes(a.pm, a.ym, a.K, a.N, row, col);
     }
@@ -265,10 +299,12 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// c, bias and res are fp64; batch strides count elements; xm, ym, pm the
-// pm* byte masks over M, N and K, each null or one byte a lane; ck_col /
-// ck_row the sidecar's ((B,) ceil(M / 64), N) and ((B,) M, ceil(N / 64))
-// fp64 outputs, or null.
+// c, bias and res are fp64; batch strides count elements (0: an operand
+// shared across the batch); xm, ym, pm the pm* byte masks over M, N and K,
+// each null or one byte a lane; ck_col / ck_row the sidecar's ((B,)
+// ceil(M / 64), N) and ((B,) M, ceil(N / 64)) fp64 outputs, or null;
+// panels: which of x and y are core/packing.py's panels (PANELS_X,
+// PANELS_Y), 16-byte aligned.
 extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
                                 const void* ym, const void* pm, const void* c,
                                 const void* bias, const void* res, void* out,
@@ -277,7 +313,7 @@ extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
                                 long long srb, long long sob, double alpha,
                                 double beta, int neg_product, int neg_acc,
                                 int act, void* ck_col, void* ck_row,
-                                void* stream) {
+                                void* stream, int panels) {
   DmmaArgs a;
   a.x = reinterpret_cast<const double*>(x);
   a.y = reinterpret_cast<const double*>(y);
@@ -292,15 +328,32 @@ extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
   a.neg_product = neg_product; a.neg_acc = neg_acc; a.act = act;
   a.vec_x = K % 2 == 0 && sxb % 2 == 0 && aligned16(x);
   a.vec_y = N % 2 == 0 && syb % 2 == 0 && aligned16(y);
+  const int gk = (K + PANEL_C - 1) / PANEL_C;
+  a.x_gk = (panels & PANELS_X) ? gk : 0;
+  a.y_gk = (panels & PANELS_Y) ? gk : 0;
+  if ((a.x_gk && (!aligned16(x) || sxb % 2)) ||
+      (a.y_gk && (!aligned16(y) || syb % 2)))
+    return (int)cudaErrorInvalidValue;
   a.xm = reinterpret_cast<const uint8_t*>(xm);
   a.ym = reinterpret_cast<const uint8_t*>(ym);
   a.pm = reinterpret_cast<const uint8_t*>(pm);
   a.ck_col = reinterpret_cast<double*>(ck_col);
   a.ck_row = reinterpret_cast<double*>(ck_row);
-  const bool masked = xm || ym || pm;
-  static bool smem_ok[2] = {false, false};
-  auto kernel = masked ? gemm_dmma_kernel<true> : gemm_dmma_kernel<false>;
-  cudaError_t e = allow_smem(kernel, SMEM, &smem_ok[masked]);
+  const int which = panels | (xm || ym || pm ? 4 : 0);
+  decltype(&gemm_dmma_kernel<false, 0>) kernel;
+  switch (which) {
+    case 0: kernel = gemm_dmma_kernel<false, 0>; break;
+    case 1: kernel = gemm_dmma_kernel<false, 1>; break;
+    case 2: kernel = gemm_dmma_kernel<false, 2>; break;
+    case 3: kernel = gemm_dmma_kernel<false, 3>; break;
+    case 4: kernel = gemm_dmma_kernel<true, 0>; break;
+    case 5: kernel = gemm_dmma_kernel<true, 1>; break;
+    case 6: kernel = gemm_dmma_kernel<true, 2>; break;
+    case 7: kernel = gemm_dmma_kernel<true, 3>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  static bool smem_ok[8] = {};
+  cudaError_t e = allow_smem(kernel, SMEM, &smem_ok[which]);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
   kernel<<<grid, THREADS, SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(a);

@@ -16,7 +16,8 @@
 //
 // all in int32 arithmetic that wraps modulo 2^32, as the reference's int32
 // dot_general and its int32 alpha/beta (truncated to integers by the
-// wrapper) do.  Prepacked X panels (K1d) are read in I8GER4.  The pm*
+// wrapper) do.  Prepacked X and Y panels (K1d) are read in I8GER4 and
+// I16GER2, masked or not.  The pm*
 // prefixed masked forms (K1b) run in the MASKED instances: I8GER4 and
 // I16GER2 take row, column and rank predicates, I4GER8 a column one (its
 // row and rank predicates go through ref.pm_ger, as the reference's
@@ -48,21 +49,31 @@
 // of two shared-memory buffers after them (one barrier a stage).  The
 // deprime goes through a shared int32 tile, so that each output element is
 // stored once, coalesced, in the requested dtype.
-//   * Prepacked X (K1d, I8GER4: quant.qdot's signed int8 weights, spec
-//     "kn,mk->mn"): through gemm_imma_packed_launch, X arrives as
-//     core/packing.py's X-side
-//     panels, (gm, gk, 128, 64) bytes per batch element, zero-padded past
-//     M and K.  A block's 64-deep stage of its 128 rows is then one
-//     contiguous 8 KB panel, read with 16-byte loads whatever K; the
-//     staged registers are the natural launch's, so is the result.
+//   * Prepacked operands (K1d: repro/kernels/mma_gemm.py's packed_spec;
+//     quant.qdot's signed int8 weights are X panels, spec "kn,mk->mn"):
+//     with `panels` set, X arrives as core/packing.py's X-side
+//     (gm, gk, 128, 64) panels and/or Y as its Y-side (gn, gk, 64, 64)
+//     panels (common.cuh's x_panel_at / y_panel_at), per batch element,
+//     zero-padded past M, K and N, in I8GER4 (bytes) and I16GER2 (int16
+//     elements).  A block's 64-deep stage is one panel deep: an X unit
+//     (16 int8 or 8 int16 of a row) is one 16-byte load from a panel row
+//     (I8GER4's 128 rows are one panel, I16GER2's 64 half of one), a Y
+//     unit's row of 4 columns one 4- or 8-byte load (its 128 columns are
+//     two panels), whatever K and N.  The loaded words then take the
+//     natural path: the same transposes, the same I16GER2 byte split, the
+//     same masks; a unit past M, K or N stages as 0, one across K or N
+//     reads the zero padding.  So the staged registers, and the result,
+//     are the natural launch's bit for bit.  Which operands are panels
+//     is the kernels' PANELS template argument (common.cuh's PANELS_X |
+//     PANELS_Y), so the natural instances are unchanged.  I4GER8 keeps its nibbles:
+//     it takes no panels (the reference refuses packed int4 too).
 //   * Masked (K1b): the MASKED instances load each unit's mask bytes (4 or
 //     16 at a time) beside its data and clear the disabled lanes of the
 //     staged registers when the stage goes to shared memory, after the
 //     current stage's MMAs, so the masks wait on no load: a disabled row
 //     or rank of X, or rank or column of Y, is staged as 0 as the fringe
 //     lanes are (for I16GER2 both bytes of an int16, so it is 0 in all
-//     four byte products).  Masked calls read natural rows, never packed
-//     panels.
+//     four byte products).
 
 #include "common.cuh"
 
@@ -91,13 +102,11 @@ struct ImmaArgs {
   long long sxb, syb, scb, srb, sob;   // batch strides in stored elements
   int alpha, beta, neg_product, neg_acc, relu;
   int vec_x, vec_y;                    // vector global loads allowed
-  int x_packed;                        // X is (gm, gk, 128, 64) panels (I8)
+  int x_gk, y_gk;                      // panels along K (PANELS instances)
   const uint8_t* xm;                   // pm* byte masks over M, N and
   const uint8_t* ym;                   // logical K, each null or one byte
   const uint8_t* pm;                   // a lane (the MASKED instances)
 };
-
-constexpr int XP_ROWS = 128, XP_K = 64;  // a packed X panel (I8GER4)
 
 template <int FAM>
 struct Fam {
@@ -228,11 +237,12 @@ __device__ __forceinline__ uint32_t keep_bytes(uint32_t m) {
   return __vcmpne4(m, 0u);
 }
 
-template <int FAM, bool MASKED>
+template <int FAM, bool MASKED, int PANELS>
 __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
                                            const uint8_t* xb, const uint8_t* yb,
                                            int m0, int n0, int k0) {
   using F = Fam<FAM>;
+  constexpr bool PX = (PANELS & PANELS_X) != 0, PY = (PANELS & PANELS_Y) != 0;
   const int tid = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < F::x_units; ++i) {
@@ -241,15 +251,11 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
     v[0] = v[1] = v[2] = v[3] = 0u;
     if constexpr (FAM == FAM_I8) {
       const int row = m0 + u / 4, k = k0 + 16 * (u % 4);
-      if (row < a.M && a.x_packed) {
-        // panel (row / 128, k / 64), zero-padded: one 16-byte load
-        const int gk = (a.K + XP_K - 1) / XP_K;
-        const uint8_t* p =
-            xb + ((long long)(row / XP_ROWS) * gk + k / XP_K) *
-                     (XP_ROWS * XP_K) +
-            (row % XP_ROWS) * XP_K + k % XP_K;
-        if (k < a.K) {
-          const uint4 q = *reinterpret_cast<const uint4*>(p);
+      if constexpr (PX) {
+        // one 16-byte load from a zero-padded panel row
+        if (row < a.M && k < a.K) {
+          const uint4 q = *reinterpret_cast<const uint4*>(
+              xb + x_panel_at(row, k, a.x_gk));
           v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
         }
       } else if (row < a.M) {
@@ -299,7 +305,14 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
     } else {  // FAM_I16: 8 int16 -> 8 high bytes (v[0..1]), 8 low (v[2..3])
       const int row = m0 + u / 8, k = k0 + 8 * (u % 8);
       uint32_t q[4] = {0u, 0u, 0u, 0u};
-      if (row < a.M) {
+      if constexpr (PX) {
+        if (row < a.M && k < a.K) {   // one 16-byte load from a panel row
+          const uint4 t = *reinterpret_cast<const uint4*>(
+              reinterpret_cast<const uint16_t*>(xb) +
+              x_panel_at(row, k, a.x_gk));
+          q[0] = t.x; q[1] = t.y; q[2] = t.z; q[3] = t.w;
+        }
+      } else if (row < a.M) {
         const uint16_t* p =
             reinterpret_cast<const uint16_t*>(xb) + (long long)row * a.K + k;
         if (a.vec_x) {
@@ -340,7 +353,11 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
       for (int r = 0; r < 4; ++r) {
         const int k = k0 + 4 * kq + r;
         uint32_t w = 0u;
-        if (k < a.K && n < a.N) {
+        if constexpr (PY) {
+          if (k < a.K && n < a.N)
+            w = *reinterpret_cast<const uint32_t*>(yb +
+                                                   y_panel_at(k, n, a.y_gk));
+        } else if (k < a.K && n < a.N) {
           const uint8_t* p = yb + (long long)k * a.N + n;
           if (a.vec_y) {
             w = *reinterpret_cast<const uint32_t*>(p);
@@ -376,7 +393,14 @@ __device__ __forceinline__ void load_stage(Staged<FAM>& st, const ImmaArgs& a,
       for (int r = 0; r < 4; ++r) {
         const int k = k0 + 4 * kq + r;
         uint32_t q0 = 0u, q1 = 0u;
-        if (k < a.K && n < a.N) {
+        if constexpr (PY) {
+          if (k < a.K && n < a.N) {
+            const uint2 t = *reinterpret_cast<const uint2*>(
+                reinterpret_cast<const uint16_t*>(yb) +
+                y_panel_at(k, n, a.y_gk));
+            q0 = t.x; q1 = t.y;
+          }
+        } else if (k < a.K && n < a.N) {
           const uint16_t* p =
               reinterpret_cast<const uint16_t*>(yb) + (long long)k * a.N + n;
           if (a.vec_y) {
@@ -470,7 +494,7 @@ __device__ __forceinline__ void store_i(void* out, int dt, long long i, int v) {
   }
 }
 
-template <int FAM, bool MASKED>
+template <int FAM, bool MASKED, int PANELS>
 __global__ void __launch_bounds__(THREADS, 1) gemm_imma_kernel(ImmaArgs a) {
   using F = Fam<FAM>;
   constexpr int MT = F::mt;
@@ -497,13 +521,13 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_imma_kernel(ImmaArgs a) {
 
   const int ktiles = (a.K + BK - 1) / BK;
   Staged<FAM> st;
-  load_stage<FAM, MASKED>(st, a, xb, yb, m0, n0, 0);
+  load_stage<FAM, MASKED, PANELS>(st, a, xb, yb, m0, n0, 0);
   store_stage<FAM, MASKED>(st, smem);
   __syncthreads();
   for (int kt = 0; kt < ktiles; ++kt) {
     unsigned char* cur = smem + (kt & 1) * F::stage_bytes;
     if (kt + 1 < ktiles)
-      load_stage<FAM, MASKED>(st, a, xb, yb, m0, n0, (kt + 1) * BK);
+      load_stage<FAM, MASKED, PANELS>(st, a, xb, yb, m0, n0, (kt + 1) * BK);
 #pragma unroll
     for (int ks = 0; ks < BK / 32; ++ks) {
       uint32_t af[F::planes][MT][4], bf[F::planes][NT][2];
@@ -593,11 +617,11 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_imma_kernel(ImmaArgs a) {
   }
 }
 
-template <int FAM, bool MASKED>
+template <int FAM, bool MASKED, int PANELS>
 int launch_one(const ImmaArgs& a, int batch, cudaStream_t stream) {
   using F = Fam<FAM>;
   static bool smem_ok = false;
-  auto kernel = gemm_imma_kernel<FAM, MASKED>;
+  auto kernel = gemm_imma_kernel<FAM, MASKED, PANELS>;
   cudaError_t e = allow_smem(kernel, F::smem(), &smem_ok);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.N + BN - 1) / BN, (a.M + F::bm - 1) / F::bm, batch);
@@ -605,10 +629,25 @@ int launch_one(const ImmaArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int FAM, int PANELS>
+int launch_masked(const ImmaArgs& a, int batch, cudaStream_t stream) {
+  if (a.xm || a.ym || a.pm)
+    return launch_one<FAM, true, PANELS>(a, batch, stream);
+  return launch_one<FAM, false, PANELS>(a, batch, stream);
+}
+
+// The instance of `panels` (which operands are panels): a template
+// argument, so the natural instances are the kernels without panels.
 template <int FAM>
-int launch(const ImmaArgs& a, int batch, cudaStream_t stream) {
-  if (a.xm || a.ym || a.pm) return launch_one<FAM, true>(a, batch, stream);
-  return launch_one<FAM, false>(a, batch, stream);
+int launch(const ImmaArgs& a, int panels, int batch, cudaStream_t stream) {
+  switch (panels) {
+    case 0: return launch_masked<FAM, 0>(a, batch, stream);
+    case PANELS_X: return launch_masked<FAM, PANELS_X>(a, batch, stream);
+    case PANELS_Y: return launch_masked<FAM, PANELS_Y>(a, batch, stream);
+    case PANELS_X | PANELS_Y:
+      return launch_masked<FAM, PANELS_X | PANELS_Y>(a, batch, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 bool aligned(const void* p, int bytes) {
@@ -620,17 +659,20 @@ bool aligned(const void* p, int bytes) {
 // family: 0 I8GER4, 1 I4GER8, 2 I16GER2 (core/tiling.py: IMMA_GERS).  K is
 // the logical depth (2 x the packed K for I4GER8); c, bias and res are
 // int32; batch strides count stored elements (bytes for int8 and packed
-// int4, int16 elements for I16GER2).  xm, ym, pm: the pm* byte masks over
-// M, N and logical K, each null or one byte a lane; not with packed X
-// panels, and I4GER8 takes ym only.
-static int imma_launch(const void* x, const void* y, const void* xm,
-                       const void* ym, const void* pm, const void* c,
-                       const void* bias, const void* res, void* out,
-                       int family, int out_dt, int batch, int M, int N,
-                       int K, long long sxb, long long syb, long long scb,
-                       long long srb, long long sob, int alpha, int beta,
-                       int neg_product, int neg_acc, int relu, void* stream,
-                       int x_packed) {
+// int4, int16 elements for I16GER2; 0: an operand shared across the
+// batch).  xm, ym, pm: the pm* byte masks over M, N and logical K, each
+// null or one byte a lane; I4GER8 takes ym only.  panels: which of x and
+// y are core/packing.py's panels (PANELS_X, PANELS_Y), 16-byte aligned;
+// not in I4GER8.
+extern "C" int gemm_imma_launch(const void* x, const void* y, const void* xm,
+                                const void* ym, const void* pm, const void* c,
+                                const void* bias, const void* res, void* out,
+                                int family, int out_dt, int batch, int M,
+                                int N, int K, long long sxb, long long syb,
+                                long long scb, long long srb, long long sob,
+                                int alpha, int beta, int neg_product,
+                                int neg_acc, int relu, void* stream,
+                                int panels) {
   ImmaArgs a;
   a.x = x; a.y = y; a.out = out;
   a.c = reinterpret_cast<const int*>(c);
@@ -641,59 +683,36 @@ static int imma_launch(const void* x, const void* y, const void* xm,
   a.sxb = sxb; a.syb = syb; a.scb = scb; a.srb = srb; a.sob = sob;
   a.alpha = alpha; a.beta = beta;
   a.neg_product = neg_product; a.neg_acc = neg_acc; a.relu = relu;
-  a.x_packed = x_packed;
+  const int gk = (K + PANEL_C - 1) / PANEL_C;
+  a.x_gk = (panels & PANELS_X) ? gk : 0;
+  a.y_gk = (panels & PANELS_Y) ? gk : 0;
+  const int esz = family == FAM_I16 ? 2 : 1;
   a.xm = reinterpret_cast<const uint8_t*>(xm);
   a.ym = reinterpret_cast<const uint8_t*>(ym);
   a.pm = reinterpret_cast<const uint8_t*>(pm);
-  if (x_packed && (family != FAM_I8 || !aligned(x, 16) || sxb % 16))
+  if (panels && family == FAM_I4) return (int)cudaErrorInvalidValue;
+  if ((a.x_gk && (!aligned(x, 16) || (sxb * esz) % 16)) ||
+      (a.y_gk && (!aligned(y, 16) || (syb * esz) % 16)))
     return (int)cudaErrorInvalidValue;
-  if ((x_packed && (xm || ym || pm)) || (family == FAM_I4 && (xm || pm)))
-    return (int)cudaErrorInvalidValue;
+  if (family == FAM_I4 && (xm || pm)) return (int)cudaErrorInvalidValue;
   for (const void* m : {xm, ym, pm})   // whole-word mask loads
     if (m && !aligned(m, 16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (family == FAM_I8) {
     a.vec_x = K % 16 == 0 && sxb % 16 == 0 && aligned(x, 16);
     a.vec_y = N % 4 == 0 && syb % 4 == 0 && aligned(y, 4);
-    return launch<FAM_I8>(a, batch, s);
+    return launch<FAM_I8>(a, panels, batch, s);
   }
   if (family == FAM_I4) {
     if (K % 2) return (int)cudaErrorInvalidValue;
     a.vec_x = (K / 2) % 8 == 0 && sxb % 8 == 0 && aligned(x, 8);
     a.vec_y = N % 4 == 0 && syb % 4 == 0 && aligned(y, 4);
-    return launch<FAM_I4>(a, batch, s);
+    return launch_masked<FAM_I4, 0>(a, batch, s);
   }
   if (family == FAM_I16) {
     a.vec_x = K % 8 == 0 && sxb % 8 == 0 && aligned(x, 16);
     a.vec_y = N % 4 == 0 && syb % 4 == 0 && aligned(y, 8);
-    return launch<FAM_I16>(a, batch, s);
+    return launch<FAM_I16>(a, panels, batch, s);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// The launchers, one argument list: x as natural (M, K) rows, or (I8GER4)
-// as core/packing.py's X-side panels.
-extern "C" int gemm_imma_launch(const void* x, const void* y, const void* xm,
-                                const void* ym, const void* pm, const void* c,
-                                const void* bias, const void* res, void* out,
-                                int family, int out_dt, int batch, int M,
-                                int N, int K, long long sxb, long long syb,
-                                long long scb, long long srb, long long sob,
-                                int alpha, int beta, int neg_product,
-                                int neg_acc, int relu, void* stream) {
-  return imma_launch(x, y, xm, ym, pm, c, bias, res, out, family, out_dt,
-                     batch, M, N, K, sxb, syb, scb, srb, sob, alpha, beta,
-                     neg_product, neg_acc, relu, stream, 0);
-}
-
-extern "C" int gemm_imma_packed_launch(
-    const void* x, const void* y, const void* xm, const void* ym,
-    const void* pm, const void* c, const void* bias,
-    const void* res, void* out, int family, int out_dt, int batch, int M,
-    int N, int K, long long sxb, long long syb, long long scb, long long srb,
-    long long sob, int alpha, int beta, int neg_product, int neg_acc,
-    int relu, void* stream) {
-  return imma_launch(x, y, xm, ym, pm, c, bias, res, out, family, out_dt,
-                     batch, M, N, K, sxb, syb, scb, srb, sob, alpha, beta,
-                     neg_product, neg_acc, relu, stream, 1);
 }

@@ -48,17 +48,23 @@
 //     (one row a warp) in a fixed order: ck_col (B, 1, N), ck_row (B, M,
 //     N tiles).  The stores are untouched, so the output is the same bit
 //     for bit.
-//   * Prepacked weights (K1d: repro/kernels/mma_gemm.py's packed_spec):
-//     through gemm_stream_packed_launch (w_packed) the weight arrives as
-//     core/packing.py's Y-side panels,
-//     (gn, gk, 64, 64) per batch element, zero-padded past K and N.  A
-//     16-byte chunk at (k, n) is read from panel (n / 64, k / 64) at
-//     (k % 64) * 64 + n % 64, so a 32-row stage of a 64-column tile is 4 KB
-//     contiguous (BN = 128 reads two panels) instead of 32 rows 2 N bytes
-//     apart; the panels are always 16-byte aligned, so the chunked path
-//     serves every N.  The shared-memory stages hold the same bytes as in
-//     the natural layout, so the result is the natural launch's bit for
-//     bit.
+//   * Prepacked operands (K1d: repro/kernels/mma_gemm.py's packed_spec):
+//     with `panels` set, the weight arrives as core/packing.py's Y-side
+//     panels, (gn, gk, 64, 64) per batch element, and/or X as its X-side
+//     panels, (gm, gk, 128, 64), both zero-padded past M, K and N
+//     (common.cuh's y_panel_at / x_panel_at).  A 16-byte
+//     weight chunk at (k, n) is read from panel (n / 64, k / 64), so a
+//     32-row stage of a 64-column tile is 4 KB contiguous (BN = 128 reads
+//     two panels) instead of 32 rows 2 N bytes apart.  X's M <= 64 rows
+//     lie in one panel row block, and a 16-byte X chunk at (m, k) in one
+//     panel row, so a 32-deep stage of X is half of each of its rows'
+//     panel rows.  The panels are always 16-byte aligned, so the chunked
+//     path serves every K and N.  A chunk past M, K or N is zero-filled,
+//     one across K or N reads the zero padding: the shared-memory stages
+//     hold the natural layout's bytes, so the result (split or not, with
+//     the sidecar or not) is the natural launch's bit for bit.  A packed
+//     operand without a batch axis beside a batched one is shared: its
+//     batch stride is 0.
 
 #include "gemm_common.cuh"
 
@@ -86,66 +92,35 @@ struct StreamArgs {
   int K, split, stages;
   int vec;       // 16-byte aligned rows of X and W: cp.async
   int vec_x;     // X alone (packed weights are always chunked)
-  int w_packed;  // W is (gn, gk, 64, 64) panels per batch element
+  int w_gk, x_gk;          // panels along K (0: natural rows)
+  long long sxb, swb;      // batch strides in elements (0: shared)
 };
-
-constexpr int ST_PANEL = 64;  // rows and columns of a packed weight panel
-
-// The element offset of weight (k, n) in the (gn, gk, 64, 64) panels.
-__device__ __forceinline__ long long packed_w_at(int k, int n, int gk) {
-  return ((long long)(n / ST_PANEL) * gk + k / ST_PANEL) *
-             (ST_PANEL * ST_PANEL) +
-         (k % ST_PANEL) * ST_PANEL + n % ST_PANEL;
-}
 
 template <typename T, int BN, int MT>
 __device__ __forceinline__ void stream_load_stage(T* ws_, T* xs_,
                                                   const T* x, const T* w,
                                                   int M, int N, int K, int n0,
                                                   int k0, bool vec,
-                                                  bool vec_x, int gk_panels) {
+                                                  bool vec_x, int w_gk,
+                                                  int x_gk) {
   using L = StreamSmem<T, BN, MT>;
   constexpr int WCH = BN / 8;  // 16-byte chunks per weight row
-  if (gk_panels > 0) {
+  constexpr int XCH = ST_BK / 8;
+  if (w_gk > 0) {
     // packed panels: every chunk lies inside one zero-padded panel row
     for (int i = threadIdx.x; i < ST_BK * WCH; i += ST_THREADS) {
       const int r = i / WCH, c = (i % WCH) * 8;
       const int gk = k0 + r, gn = n0 + c;
       const bool in = gk < K && gn < N;
-      cp_async16(ws_ + r * L::LDW + c, in ? w + packed_w_at(gk, gn, gk_panels)
-                                          : w,
+      cp_async16(ws_ + r * L::LDW + c, in ? w + y_panel_at(gk, gn, w_gk) : w,
                  in);
     }
-    if (vec_x) {
-      for (int i = threadIdx.x; i < L::MP * (ST_BK / 8); i += ST_THREADS) {
-        const int r = i / (ST_BK / 8), c = (i % (ST_BK / 8)) * 8;
-        const int gk = k0 + c;
-        const bool in = r < M && gk < K;
-        cp_async16(xs_ + r * L::LDX + c, in ? x + (long long)r * K + gk : x,
-                   in);
-      }
-    } else {
-      for (int i = threadIdx.x; i < L::MP * ST_BK; i += ST_THREADS) {
-        const int r = i / ST_BK, c = i % ST_BK;
-        const int gk = k0 + c;
-        xs_[r * L::LDX + c] =
-            (r < M && gk < K) ? x[(long long)r * K + gk] : zero_of<T>();
-      }
-    }
-    return;
-  }
-  if (vec) {
+  } else if (vec) {
     for (int i = threadIdx.x; i < ST_BK * WCH; i += ST_THREADS) {
       const int r = i / WCH, c = (i % WCH) * 8;
       const int gk = k0 + r, gn = n0 + c;
       const bool in = gk < K && gn < N;
       cp_async16(ws_ + r * L::LDW + c, in ? w + (long long)gk * N + gn : w, in);
-    }
-    for (int i = threadIdx.x; i < L::MP * (ST_BK / 8); i += ST_THREADS) {
-      const int r = i / (ST_BK / 8), c = (i % (ST_BK / 8)) * 8;
-      const int gk = k0 + c;
-      const bool in = r < M && gk < K;
-      cp_async16(xs_ + r * L::LDX + c, in ? x + (long long)r * K + gk : x, in);
     }
   } else {
     // Rows that are not 16-byte aligned: element loads.  A thread owns one
@@ -163,6 +138,24 @@ __device__ __forceinline__ void stream_load_stage(T* ws_, T* xs_,
                                                  : zero_of<T>();
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) ws_[(r0 + u * RSTEP) * L::LDW + c] = v[u];
+  }
+  if (x_gk > 0) {
+    // X panels: each chunk lies inside one zero-padded panel row
+    for (int i = threadIdx.x; i < L::MP * XCH; i += ST_THREADS) {
+      const int r = i / XCH, c = (i % XCH) * 8;
+      const int gk = k0 + c;
+      const bool in = r < M && gk < K;
+      cp_async16(xs_ + r * L::LDX + c, in ? x + x_panel_at(r, gk, x_gk) : x,
+                 in);
+    }
+  } else if (w_gk > 0 ? vec_x : vec) {
+    for (int i = threadIdx.x; i < L::MP * XCH; i += ST_THREADS) {
+      const int r = i / XCH, c = (i % XCH) * 8;
+      const int gk = k0 + c;
+      const bool in = r < M && gk < K;
+      cp_async16(xs_ + r * L::LDX + c, in ? x + (long long)r * K + gk : x, in);
+    }
+  } else {
     for (int i = threadIdx.x; i < L::MP * ST_BK; i += ST_THREADS) {
       const int r = i / ST_BK, c = i % ST_BK;
       const int gk = k0 + c;
@@ -225,13 +218,8 @@ __global__ void __launch_bounds__(ST_THREADS)
   const int M = e.M, N = e.N, K = a.K;
   const int nt = blockIdx.x, s = blockIdx.y, bz = blockIdx.z;
   const int n0 = nt * BN;
-  const T* x = reinterpret_cast<const T*>(a.x) + (long long)bz * M * K;
-  const int gk_panels = a.w_packed ? (K + ST_PANEL - 1) / ST_PANEL : 0;
-  const long long w_batch =
-      a.w_packed ? (long long)((N + ST_PANEL - 1) / ST_PANEL) * gk_panels *
-                       (ST_PANEL * ST_PANEL)
-                 : (long long)K * N;
-  const T* w = reinterpret_cast<const T*>(a.w) + (long long)bz * w_batch;
+  const T* x = reinterpret_cast<const T*>(a.x) + (long long)bz * a.sxb;
+  const T* w = reinterpret_cast<const T*>(a.w) + (long long)bz * a.swb;
   const int st0 = (int)((long long)s * a.stages / a.split);
   const int st1 = (int)((long long)(s + 1) * a.stages / a.split);
   const int nst = st1 - st0;
@@ -254,7 +242,7 @@ __global__ void __launch_bounds__(ST_THREADS)
       T* st = smem + i * L::STAGE;
       stream_load_stage<T, BN, MT>(st, st + L::W_ELEMS, x, w, M, N, K, n0,
                                    (st0 + i) * ST_BK, vec, a.vec_x != 0,
-                                   gk_panels);
+                                   a.w_gk, a.x_gk);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
@@ -268,7 +256,7 @@ __global__ void __launch_bounds__(ST_THREADS)
         T* st = smem + (nxt % ST_STAGES) * L::STAGE;
         stream_load_stage<T, BN, MT>(st, st + L::W_ELEMS, x, w, M, N, K, n0,
                                      (st0 + nxt) * ST_BK, vec, a.vec_x != 0,
-                                     gk_panels);
+                                     a.w_gk, a.x_gk);
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
@@ -407,12 +395,18 @@ static bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-static int stream_launch(
+// The launcher: x and w as natural rows, or either or both as
+// core/packing.py's panels (panels: PANELS_X, PANELS_Y; 0: natural rows),
+// with each operand's batch stride in elements (0: shared across the
+// batch); ck_col / ck_row the sidecar's outputs, (B, 1, N) and (B, M,
+// ceil(N / bn)) fp32, or null.
+extern "C" int gemm_stream_launch(
     const void* x, const void* w, const void* c, const void* bias,
     const void* res, void* out, float* ws, int* tickets, int in_dt, int c_dt,
     int bias_dt, int res_dt, int out_dt, int batch, int M, int N, int K,
     float alpha, float beta, int neg_product, int neg_acc, int act, int bn,
-    int split, float* ck_col, float* ck_row, void* stream, int w_packed) {
+    int split, float* ck_col, float* ck_row, void* stream, int panels,
+    long long sxb, long long swb) {
   StreamArgs a;
   a.x = x; a.w = w; a.ws = ws; a.tickets = tickets;
   a.e.c = c; a.e.bias = bias; a.e.res = res; a.e.out = out;
@@ -430,37 +424,15 @@ static int stream_launch(
     return (int)cudaErrorInvalidValue;
   a.vec = (K % 8 == 0) && (N % 8 == 0) && aligned16(x) && aligned16(w);
   a.vec_x = (K % 8 == 0) && aligned16(x);
-  a.w_packed = w_packed;
-  if (w_packed && !aligned16(w)) return (int)cudaErrorInvalidValue;
+  const int gk = (K + PANEL_C - 1) / PANEL_C;
+  a.w_gk = (panels & PANELS_Y) ? gk : 0;
+  a.x_gk = (panels & PANELS_X) ? gk : 0;
+  a.sxb = sxb; a.swb = swb;
+  if ((a.w_gk && (!aligned16(w) || swb % 8)) ||
+      (a.x_gk && (!aligned16(x) || sxb % 8)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (in_dt == DT_BF16) return launch_stream_t<__nv_bfloat16>(a, batch, bn, s);
   if (in_dt == DT_F16) return launch_stream_t<__half>(a, batch, bn, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// The launchers, one argument list: w as natural (K, N) rows, or as
-// core/packing.py's Y-side panels; ck_col / ck_row the sidecar's outputs,
-// (B, 1, N) and (B, M, ceil(N / bn)) fp32, or null.
-extern "C" int gemm_stream_launch(
-    const void* x, const void* w, const void* c, const void* bias,
-    const void* res, void* out, float* ws, int* tickets, int in_dt, int c_dt,
-    int bias_dt, int res_dt, int out_dt, int batch, int M, int N, int K,
-    float alpha, float beta, int neg_product, int neg_acc, int act, int bn,
-    int split, float* ck_col, float* ck_row, void* stream) {
-  return stream_launch(x, w, c, bias, res, out, ws, tickets, in_dt, c_dt,
-                       bias_dt, res_dt, out_dt, batch, M, N, K, alpha, beta,
-                       neg_product, neg_acc, act, bn, split, ck_col, ck_row,
-                       stream, 0);
-}
-
-extern "C" int gemm_stream_packed_launch(
-    const void* x, const void* w, const void* c, const void* bias,
-    const void* res, void* out, float* ws, int* tickets, int in_dt, int c_dt,
-    int bias_dt, int res_dt, int out_dt, int batch, int M, int N, int K,
-    float alpha, float beta, int neg_product, int neg_acc, int act, int bn,
-    int split, float* ck_col, float* ck_row, void* stream) {
-  return stream_launch(x, w, c, bias, res, out, ws, tickets, in_dt, c_dt,
-                       bias_dt, res_dt, out_dt, batch, M, N, K, alpha, beta,
-                       neg_product, neg_acc, act, bn, split, ck_col, ck_row,
-                       stream, 1);
 }

@@ -44,23 +44,39 @@
 //     stores and sum its columns (one a thread) and rows (one a warp) in a
 //     fixed order, one write per tile column and row; the stores are
 //     untouched, so the output is the same bit for bit.
-//   * Prepacked weights (K1d: repro/kernels/mma_gemm.py's packed_spec):
-//     through gemm_wgmma_packed_launch, Y arrives as core/packing.py's
-//     Y-side panels, (gn, gk,
-//     64, 64) per batch element, zero-padded past K and N.  Its tensor map
-//     is 4-D, [64, 64, gk, gn] (5-D with the batch), box [64, 64, 1, 1] at
-//     (0, 0, k0 / 64, n0 / 64 + p): each box is one contiguous 8 KB panel,
-//     and it lands in shared memory as the same swizzled bytes as the
-//     natural 2-D box, so the consumers do not change and the result is
-//     the natural launch's bit for bit.
+//   * Prepacked operands (K1d: repro/kernels/mma_gemm.py's packed_spec):
+//     with `panels` set, Y arrives as core/packing.py's Y-side panels,
+//     (gn, gk, 64, 64) per batch element, and/or X as its X-side panels,
+//     (gm, gk, 128, 64), zero-padded past M, K and N.  Y's
+//     tensor map is 4-D, [64, 64, gk, gn] (5-D with the batch), box
+//     [64, 64, 1, 1] at (0, 0, k0 / 64, n0 / 64 + p); X's is [64, 128, gk,
+//     gm] (5-D with the batch), box [64, 128, 1, 1] at (0, 0, k0 / 64,
+//     m0 / 128), since a tile's 128 rows (WG_BM) are one X panel.  Each
+//     box is one contiguous panel (8 or 16 KB), and it lands in shared
+//     memory as the same swizzled bytes as the natural 2-D box, so the
+//     consumers do not change and the result (and the sidecar) is the
+//     natural launch's bit for bit.  A packed operand without a batch axis
+//     beside a batched one is shared: its map has no batch coordinate.
+//     How each operand is addressed (rows or panels, batched or not) is
+//     the producer's AMAP / BMAP template arguments for the natural
+//     launches and the Y-panel forms of prepacked serving (Y panels beside
+//     X rows, both batched or neither), as before X panels existed, and a
+//     runtime argument of its one thread for every form with X panels or a
+//     shared operand (MAPS_ANY).
 
 #include "wgmma_tile.cuh"
 
-template <typename T, int BN, bool BATCHED, bool PACKED>
+// How the producer addresses an operand's tensor map: natural rows (2-D,
+// or 3-D with the batch) or core/packing.py's panels (4-D, or 5-D).
+// MAPS_ANY: the operand's map is the kernel's a_map / b_map argument.
+enum { MAP_ROWS = 0, MAP_ROWS_B = 1, MAP_PANELS = 2, MAP_PANELS_B = 3,
+       MAPS_ANY = -1 };
+
+template <typename T, int BN, int AMAP, int BMAP>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma,
                       const __grid_constant__ CUtensorMap tmb, GemmEpi e,
-                      int K) {
+                      int K, int a_map, int b_map) {
   using C = WgCfg<BN>;
   constexpr int STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -87,6 +103,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     // ---- producer: one thread keeps the ring full ----
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
+      const int am = AMAP == MAPS_ANY ? a_map : AMAP;
+      const int bm = BMAP == MAPS_ANY ? b_map : BMAP;
       for (int it = 0; it < kiters; ++it) {
         const int s = it % STAGES;
         if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
@@ -94,28 +112,25 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         unsigned char* as = smem + s * C::STAGE;
         unsigned char* bs = as + C::A_BYTES;
         const int k0 = it * WG_BK;
-        if (PACKED && BATCHED) {
-          tma_load_3d(as, &tma, &full[s], k0, m0, bz);
-#pragma unroll
-          for (int p = 0; p < BN / 64; ++p)
-            tma_load_5d(bs + p * 64 * 128, &tmb, &full[s], 0, 0, it,
-                        n0 / 64 + p, bz);
-        } else if (PACKED) {
+        if (am == MAP_ROWS)
           tma_load_2d(as, &tma, &full[s], k0, m0);
-#pragma unroll
-          for (int p = 0; p < BN / 64; ++p)
-            tma_load_4d(bs + p * 64 * 128, &tmb, &full[s], 0, 0, it,
-                        n0 / 64 + p);
-        } else if (BATCHED) {
+        else if (am == MAP_ROWS_B)
           tma_load_3d(as, &tma, &full[s], k0, m0, bz);
+        else if (am == MAP_PANELS)
+          tma_load_4d(as, &tma, &full[s], 0, 0, it, m0 / WG_BM);
+        else
+          tma_load_5d(as, &tma, &full[s], 0, 0, it, m0 / WG_BM, bz);
 #pragma unroll
-          for (int p = 0; p < BN / 64; ++p)
-            tma_load_3d(bs + p * 64 * 128, &tmb, &full[s], n0 + 64 * p, k0, bz);
-        } else {
-          tma_load_2d(as, &tma, &full[s], k0, m0);
-#pragma unroll
-          for (int p = 0; p < BN / 64; ++p)
-            tma_load_2d(bs + p * 64 * 128, &tmb, &full[s], n0 + 64 * p, k0);
+        for (int p = 0; p < BN / 64; ++p) {
+          unsigned char* bp = bs + p * 64 * 128;
+          if (bm == MAP_ROWS)
+            tma_load_2d(bp, &tmb, &full[s], n0 + 64 * p, k0);
+          else if (bm == MAP_ROWS_B)
+            tma_load_3d(bp, &tmb, &full[s], n0 + 64 * p, k0, bz);
+          else if (bm == MAP_PANELS)
+            tma_load_4d(bp, &tmb, &full[s], 0, 0, it, n0 / 64 + p);
+          else
+            tma_load_5d(bp, &tmb, &full[s], 0, 0, it, n0 / 64 + p, bz);
         }
       }
     }
@@ -126,72 +141,94 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-template <typename T, int BN, bool BATCHED, bool PACKED>
-static int run_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
-                     const GemmEpi& e, int K, dim3 grid, cudaStream_t stream) {
-  constexpr size_t smem = WgCfg<BN>::smem;
-  static bool ok = false;
-  auto kernel = gemm_wgmma_kernel<T, BN, BATCHED, PACKED>;
-  cudaError_t err = allow_smem(kernel, smem, &ok);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, WG_THREADS, smem, stream>>>(ta, tb, e, K);
-  return (int)cudaGetLastError();
+// One operand's tensor map: natural rows (rows, cols) row-major, box
+// (box_rows, 64) of the 64-element column block; or core/packing.py's
+// panels (g_rows, gk, prow, 64), one box a panel.  `map` is a MAP_* code.
+static int operand_map(CUtensorMap* t, const void* p, int map, uint64_t rows,
+                       uint64_t cols, uint32_t box_rows, uint64_t prow,
+                       uint64_t g_rows, uint64_t gk, uint64_t B) {
+  if (map >= MAP_PANELS) {
+    const uint64_t dims[5] = {64, prow, gk, g_rows, B};
+    const uint64_t str[4] = {64 * 2, prow * 64 * 2, gk * prow * 64 * 2,
+                             g_rows * gk * prow * 64 * 2};
+    const uint32_t box[5] = {64, (uint32_t)prow, 1, 1, 1};
+    return tmap_16bit(t, p, map == MAP_PANELS ? 4 : 5, dims, str, box, 128);
+  }
+  const uint64_t dims[3] = {cols, rows, B}, str[2] = {cols * 2,
+                                                      rows * cols * 2};
+  const uint32_t box[3] = {64, box_rows, 1};
+  return tmap_16bit(t, p, map == MAP_ROWS ? 2 : 3, dims, str, box, 128);
 }
 
 template <typename T, int BN>
 static int launch_wgmma(const void* x, const void* y, const GemmEpi& e, int K,
-                        int batch, bool batched, bool y_packed,
-                        cudaStream_t stream) {
+                        int batch, int a_map, int b_map, cudaStream_t stream) {
   const uint64_t M = e.M, N = e.N, Kk = K, B = batch;
+  const uint64_t gk = (Kk + 63) / 64;
   CUtensorMap ta, tb;
-  const uint64_t a_dims[3] = {Kk, M, B}, a_str[2] = {Kk * 2, M * Kk * 2};
-  const uint32_t a_box[3] = {64, WG_BM, 1};
-  const int rank = batched ? 3 : 2;
-  int rc = tmap_16bit(&ta, x, rank, a_dims, a_str, a_box, 128);
+  // X (M, K): 128-row boxes, or its (gm, gk, 128, 64) panels
+  int rc = operand_map(&ta, x, a_map, M, Kk, WG_BM, WG_BM,
+                       (M + WG_BM - 1) / WG_BM, gk, B);
   if (rc) return rc;
-  if (y_packed) {
-    // (B,) gn, gk, 64, 64 panels: one box a panel
-    const uint64_t gk = (Kk + 63) / 64, gn = (N + 63) / 64;
-    const uint64_t p_dims[5] = {64, 64, gk, gn, B};
-    const uint64_t p_str[4] = {64 * 2, 64 * 64 * 2, gk * 64 * 64 * 2,
-                               gn * gk * 64 * 64 * 2};
-    const uint32_t p_box[5] = {64, 64, 1, 1, 1};
-    rc = tmap_16bit(&tb, y, batched ? 5 : 4, p_dims, p_str, p_box, 128);
-  } else {
-    const uint64_t b_dims[3] = {N, Kk, B}, b_str[2] = {N * 2, Kk * N * 2};
-    const uint32_t b_box[3] = {64, 64, 1};
-    rc = tmap_16bit(&tb, y, rank, b_dims, b_str, b_box, 128);
-  }
+  // Y (K, N): 64 x 64 boxes of its rows, or its (gn, gk, 64, 64) panels
+  rc = operand_map(&tb, y, b_map, Kk, N, 64, 64, (N + 63) / 64, gk, B);
   if (rc) return rc;
   const int tiles = (int)(((M + WG_BM - 1) / WG_BM) * ((N + BN - 1) / BN));
-  dim3 grid(tiles, batch);
-  if (y_packed)
-    return batched ? run_wgmma<T, BN, true, true>(ta, tb, e, K, grid, stream)
-                   : run_wgmma<T, BN, false, true>(ta, tb, e, K, grid, stream);
-  return batched ? run_wgmma<T, BN, true, false>(ta, tb, e, K, grid, stream)
-                 : run_wgmma<T, BN, false, false>(ta, tb, e, K, grid, stream);
+  constexpr size_t smem = WgCfg<BN>::smem;
+  // natural rows and Y panels beside X rows, both batched or neither: a
+  // producer with its maps fixed; every other form chooses at run time
+  static bool ok[5] = {};
+  int which = 4;
+  if (a_map == MAP_ROWS && (b_map == MAP_ROWS || b_map == MAP_PANELS))
+    which = b_map == MAP_ROWS ? 0 : 1;
+  else if (a_map == MAP_ROWS_B && (b_map == MAP_ROWS_B ||
+                                   b_map == MAP_PANELS_B))
+    which = b_map == MAP_ROWS_B ? 2 : 3;
+  auto kernel =
+      which == 0   ? gemm_wgmma_kernel<T, BN, MAP_ROWS, MAP_ROWS>
+      : which == 1 ? gemm_wgmma_kernel<T, BN, MAP_ROWS, MAP_PANELS>
+      : which == 2 ? gemm_wgmma_kernel<T, BN, MAP_ROWS_B, MAP_ROWS_B>
+      : which == 3 ? gemm_wgmma_kernel<T, BN, MAP_ROWS_B, MAP_PANELS_B>
+                   : gemm_wgmma_kernel<T, BN, MAPS_ANY, MAPS_ANY>;
+  cudaError_t err = allow_smem(kernel, smem, &ok[which]);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(tiles, batch), WG_THREADS, smem, stream>>>(ta, tb, e, K,
+                                                          a_map, b_map);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_wgmma_t(const void* x, const void* y, const GemmEpi& e,
-                          int K, int batch, bool batched, bool y_packed,
-                          int bn, cudaStream_t s) {
+                          int K, int batch, int a_map, int b_map, int bn,
+                          cudaStream_t s) {
   if (bn == 256)
-    return launch_wgmma<T, 256>(x, y, e, K, batch, batched, y_packed, s);
+    return launch_wgmma<T, 256>(x, y, e, K, batch, a_map, b_map, s);
   if (bn == 128)
-    return launch_wgmma<T, 128>(x, y, e, K, batch, batched, y_packed, s);
+    return launch_wgmma<T, 128>(x, y, e, K, batch, a_map, b_map, s);
   return (int)cudaErrorInvalidValue;
 }
 
-static int wgmma_launch(
+// The launcher: x and y as natural (M, K) and (K, N) rows (batched or
+// not, as `batched` says), or either or both as core/packing.py's panels
+// (panels: PANELS_X, PANELS_Y; 0: natural rows; a packed operand's batch
+// stride sxb / syb in elements, 0 where it is shared across the batch);
+// ck_col / ck_row the sidecar's outputs, ((B,) ceil(M / 128), N) and
+// ((B,) M, ceil(N / bn)) fp32, or null.
+extern "C" int gemm_wgmma_launch(
     const void* x, const void* y, const void* c, const void* bias,
     const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
     int out_dt, int batch, int batched, int M, int N, int K, float alpha,
     float beta, int neg_product, int neg_acc, int act, int bn, float* ck_col,
-    float* ck_row, void* stream, int y_packed) {
+    float* ck_row, void* stream, int panels, long long sxb, long long syb) {
   if (K % 8 || N % 8 || K < 1 || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(y) & 15))
     return (int)cudaErrorInvalidValue;  // TMA: 16-byte bases and pitches
+  // a natural operand is batched with the launch, a packed one where its
+  // batch stride is not 0 (else it is shared)
+  const int a_map = (panels & PANELS_X) ? (sxb ? MAP_PANELS_B : MAP_PANELS)
+                                        : (batched ? MAP_ROWS_B : MAP_ROWS);
+  const int b_map = (panels & PANELS_Y) ? (syb ? MAP_PANELS_B : MAP_PANELS)
+                                        : (batched ? MAP_ROWS_B : MAP_ROWS);
   GemmEpi e;
   e.c = c; e.bias = bias; e.res = res; e.out = out;
   e.c_dt = c_dt; e.bias_dt = bias_dt; e.res_dt = res_dt; e.out_dt = out_dt;
@@ -204,37 +241,9 @@ static int wgmma_launch(
     if (reinterpret_cast<uintptr_t>(p) & 15) e.vec8 = 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (in_dt == DT_BF16)
-    return launch_wgmma_t<__nv_bfloat16>(x, y, e, K, batch, batched != 0,
-                                         y_packed != 0, bn, s);
+    return launch_wgmma_t<__nv_bfloat16>(x, y, e, K, batch, a_map, b_map, bn,
+                                         s);
   if (in_dt == DT_F16)
-    return launch_wgmma_t<__half>(x, y, e, K, batch, batched != 0,
-                                  y_packed != 0, bn, s);
+    return launch_wgmma_t<__half>(x, y, e, K, batch, a_map, b_map, bn, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// The launchers, one argument list: y as natural (K, N) rows, or as
-// core/packing.py's Y-side panels; ck_col / ck_row the sidecar's outputs,
-// ((B,) ceil(M / 128), N) and ((B,) M, ceil(N / bn)) fp32, or null.
-extern "C" int gemm_wgmma_launch(
-    const void* x, const void* y, const void* c, const void* bias,
-    const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
-    int out_dt, int batch, int batched, int M, int N, int K, float alpha,
-    float beta, int neg_product, int neg_acc, int act, int bn, float* ck_col,
-    float* ck_row, void* stream) {
-  return wgmma_launch(x, y, c, bias, res, out, in_dt, c_dt, bias_dt, res_dt,
-                      out_dt, batch, batched, M, N, K, alpha, beta,
-                      neg_product, neg_acc, act, bn, ck_col, ck_row, stream,
-                      0);
-}
-
-extern "C" int gemm_wgmma_packed_launch(
-    const void* x, const void* y, const void* c, const void* bias,
-    const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
-    int out_dt, int batch, int batched, int M, int N, int K, float alpha,
-    float beta, int neg_product, int neg_acc, int act, int bn, float* ck_col,
-    float* ck_row, void* stream) {
-  return wgmma_launch(x, y, c, bias, res, out, in_dt, c_dt, bias_dt, res_dt,
-                      out_dt, batch, batched, M, N, K, alpha, beta,
-                      neg_product, neg_acc, act, bn, ck_col, ck_row, stream,
-                      1);
 }

@@ -50,6 +50,19 @@
 //     while the tensor cores finish the latter.
 //   * The masked-block guard stays: p = 0 where the running max is still
 //     -inf, and a row with l = 0 stores 0 before the epilogue.
+//   * The full grid (K2d: the reference's mma_flash_attention(bound_grid=
+//     False), its attn_grid_plan(bound=False)): with AttnArgs.bound = 0
+//     every q tile walks all nk KV blocks, lo = 0 and hi = nk, the
+//     rectangular schedule the bounded one is measured against.  A block
+//     with no live slot leaves the state untouched: its row max is -inf,
+//     so m keeps its value, the correction is exp2(0) = 1, every p is 0,
+//     l gains 0 and O gains P V = 0 exactly.  So the full grid's tile mode
+//     is the bounded launch bit for bit.  In split-KV mode the splits
+//     partition [0, nk) instead of the live range [lo, hi): bit for bit
+//     too where lo = 0 (the blocks past hi are dead, a split of them only
+//     contributes m = -inf, l = 0: weight 0), else the live blocks group
+//     otherwise and P rounds against other split maxima (within the
+//     wrapper's stated budget).
 //   * Split-KV (n_split > 1, chosen by the wrapper for Sq <= 64 from H
 //     and Sk alone, so that a row sums in one order at any batch): block
 //     (.., split) walks its share of the KV blocks and writes an fp32
@@ -108,6 +121,7 @@ struct AttnArgs {
   float scale_log2;              // D^-1/2 * log2(e)
   int act;
   int n_split, per_split;        // KV blocks per split
+  int bound;                     // 0: the full grid, every KV block (K2d)
 };
 
 template <int D, int NC>
@@ -192,17 +206,18 @@ __global__ void __launch_bounds__(FlashCfg<D, NC>::THREADS,
   const int q0 = qi * BQ;
 
   // The live KV-block range of this q tile: attn_k_bounds(qi, nk, bq=BQ,
-  // bk=64, causal, q_offset, window) in kernels/mma_attention.py; a split
-  // takes its share of it (possibly none).
+  // bk=64, causal, q_offset, window) in kernels/mma_attention.py, or with
+  // the full grid (bound = 0) all nk blocks; a split takes its share of it
+  // (possibly none).
   const int nk = (a.Sk + FA_BKV - 1) / FA_BKV;
   int hi = nk;
-  if (a.causal) {
+  if (a.bound && a.causal) {
     const long long t = (long long)a.q_offset + (long long)(qi + 1) * BQ;
     hi = (int)min((long long)nk, (t + FA_BKV - 1) / FA_BKV);
     hi = max(hi, 1);
   }
   int lo = 0;
-  if (a.window > 0) {
+  if (a.bound && a.window > 0) {
     const long long t = (long long)a.q_offset + (long long)qi * BQ - (a.window - 1);
     lo = t > 0 ? (int)(t / FA_BKV) : 0;
     lo = min(lo, hi - 1);
@@ -520,16 +535,17 @@ __global__ void __launch_bounds__(F32A_THREADS)
   const int kvh = h / a.group;
   const int q0 = qi * F32A_BQ;
 
-  // attn_k_bounds(qi, nk, bq=64, bk=64, ...), as the wgmma kernel
+  // attn_k_bounds(qi, nk, bq=64, bk=64, ...), as the wgmma kernel (the
+  // full grid, bound = 0: all nk blocks)
   const int nk = (a.Sk + FA_BKV - 1) / FA_BKV;
   int hi = nk;
-  if (a.causal) {
+  if (a.bound && a.causal) {
     const long long t = (long long)a.q_offset + (long long)(qi + 1) * F32A_BQ;
     hi = (int)min((long long)nk, (t + FA_BKV - 1) / FA_BKV);
     hi = max(hi, 1);
   }
   int lo = 0;
-  if (a.window > 0) {
+  if (a.bound && a.window > 0) {
     const long long t =
         (long long)a.q_offset + (long long)qi * F32A_BQ - (a.window - 1);
     lo = t > 0 ? (int)(t / FA_BKV) : 0;
@@ -798,7 +814,7 @@ extern "C" int mma_attention_launch(
     const void* bias, const void* res, void* out, float* ws_o, float* ws_ml,
     int in_dt, int bias_dt, int res_dt, int out_dt, int B, int Sq, int Sk,
     int H, int KVH, int D, int causal, int q_offset, int window, float scale,
-    int act, int bq, int n_split, int per_split, void* stream) {
+    int act, int bq, int n_split, int per_split, int bound, void* stream) {
   for (const void* p : {q, k, v})
     if (reinterpret_cast<uintptr_t>(p) & 15) return (int)cudaErrorInvalidValue;
   if (n_split < 1 || (n_split > 1 && (!ws_o || !ws_ml || per_split < 1)))
@@ -813,6 +829,7 @@ extern "C" int mma_attention_launch(
   a.scale_log2 = scale * 1.4426950408889634f;
   a.act = act;
   a.n_split = n_split; a.per_split = per_split;
+  a.bound = bound;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (in_dt == DT_BF16) return launch_by_depth<__nv_bfloat16>(q, k, v, a, bq, s);
   if (in_dt == DT_F16) return launch_by_depth<__half>(q, k, v, a, bq, s);

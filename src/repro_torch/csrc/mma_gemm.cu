@@ -9,8 +9,8 @@
 //
 // with s = -1 for the neg_acc form, and the pm* prefixed masked forms (K1b:
 // the row, column and rank predicates of repro/kernels/mma_gemm.py's
-// _make_kernel, applied to the staged panels) and prepacked Y panels (K1d:
-// the packed_spec of repro/kernels/mma_gemm.py).  The int8/int4/int16/f64
+// _make_kernel, applied to the staged panels) and prepacked X and Y panels
+// (K1d: the packed_spec of repro/kernels/mma_gemm.py).  The int8/int4/int16/f64
 // families are in gemm_imma.cu and gemm_dmma.cu.
 //
 // Which products run here.  core/tiling.py's choose_gemm_path sends M <=
@@ -42,13 +42,17 @@
 //     row, column or rank as 0 in the branch that zero-fills the fringes
 //     (one byte a lane read from the (M,), (N,), (K,) masks, L1-cached);
 //     the unmasked instances are unchanged.
-//   * packed Y panels (K1d): through mma_gemm_packed_launch y arrives as
-//     core/packing.py's (B?, gn, gk, 64, 64) panels, read by tile_gemm.cuh's
-//     PackedB (MaskedPackedB under pm* masks): each (bk, bn) stage comes out
-//     of the fixed 64 x 64 panels one 16-byte load a chunk, zero past K and
-//     N as the natural loader stages it, so the result is the natural
-//     launch's bit for bit; the tight-parity config served prepacked reads
-//     its fp32 panels here with no per-call relayout.
+//   * packed panels (K1d): with `panels` set, y arrives as
+//     core/packing.py's (B?, gn, gk, 64, 64) Y panels and/or x as its
+//     (B?, gm, gk, 128, 64) X panels, read by tile_gemm.cuh's PackedB and
+//     PackedA (MaskedPackedB / MaskedPackedA under pm* masks): each stage
+//     comes out of the fixed panels one 16-byte load a chunk, zero past M,
+//     K and N as the natural loaders stage it, so the result (and the
+//     sidecar) is the natural launch's bit for bit; the tight-parity config
+//     served prepacked reads its fp32 panels here with no per-call
+//     relayout.  Which operands are panels is the kernels' PANELS template
+//     argument (common.cuh's PANELS_X | PANELS_Y), so the natural
+//     instances are unchanged.
 //   * the ABFT sidecar (K1e, checksum=True in repro/kernels/mma_gemm.py):
 //     with ck_col / ck_row set, the deprime writes each finished fp32
 //     value back over the store_matrix_sync staging, and the block sums the
@@ -75,7 +79,8 @@ struct GemmArgs {
   int neg_product, neg_acc, act;
   int vec_x, vec_y;  // rows 16-byte aligned: vector loads allowed
   PmMasks mk;        // the pm* predicates (the MASKED instances)
-  long long slab;    // elements of one 64-column panel slab (PACKED)
+  long long slab;    // elements of one 64-column Y panel slab (PANELS_Y)
+  int x_gk;          // X panels along K (PANELS_X)
   float* ck_col;     // ((B,) gm, N) per-tile column sums, or null
   float* ck_row;     // ((B,) M, gn) per-tile row sums, or null
 };
@@ -128,9 +133,39 @@ __device__ void store_tile(float* cs, const GemmArgs& a, int bz, int m0,
   }
 }
 
-// bf16 / f16 on the tensor cores (tile_gemm.cuh's wmma_tile).
+// The A and B loaders of one launch (tile_gemm.cuh): natural rows or
+// packed panels, masked or not.  `vec`: 16-byte loads of natural rows.
+template <typename T, bool MASKED, bool PX>
+__device__ __forceinline__ auto a_loader(const GemmArgs& a, const T* x, int m0,
+                                         bool vec) {
+  if constexpr (PX) {
+    const PackedA<T> p{x, a.M, a.K, m0, a.x_gk};
+    if constexpr (MASKED) return MaskedPackedA<T>{p, a.mk};
+    else return p;
+  } else if constexpr (MASKED) {
+    return MaskedRowMajorA<T>{x, a.M, a.K, m0, vec, a.mk};
+  } else {
+    return RowMajorA<T>{x, a.M, a.K, m0, vec};
+  }
+}
+
+template <typename T, bool MASKED, bool PY>
+__device__ __forceinline__ auto b_loader(const GemmArgs& a, const T* y, int n0,
+                                         bool vec) {
+  if constexpr (PY) {
+    const PackedB<T> p{y, a.K, a.N, n0, a.slab};
+    if constexpr (MASKED) return MaskedPackedB<T>{p, a.mk};
+    else return p;
+  } else if constexpr (MASKED) {
+    return MaskedRowMajorB<T>{y, a.K, a.N, n0, vec, a.mk};
+  } else {
+    return RowMajorB<T>{y, a.K, a.N, n0, vec};
+  }
+}
+
+// bf16 / f16 on the tensor cores (tile_gemm.cuh's wmma_tile_ab).
 template <typename T, int BM, int BN, int BK, int WM, int WN, bool MASKED,
-          bool PACKED>
+          int PANELS>
 __global__ void __launch_bounds__(WM* WN * 32)
     gemm_wmma_kernel(GemmArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -139,30 +174,16 @@ __global__ void __launch_bounds__(WM* WN * 32)
   if (a.c) prime_tile<BM, BN>(cs, a, bz, m0, n0);
   const T* x = reinterpret_cast<const T*>(a.x) + (long long)bz * a.sxb;
   const T* y = reinterpret_cast<const T*>(a.y) + (long long)bz * a.syb;
-  if constexpr (PACKED) {
-    const PackedB<T> pb{y, a.K, a.N, n0, a.slab};
-    if constexpr (MASKED) {
-      const MaskedRowMajorA<T> ld{x, a.M, a.K, m0, a.vec_x != 0, a.mk};
-      const MaskedPackedB<T> bl{pb, a.mk};
-      wmma_tile_ab<T, BM, BN, BK, WM, WN>(smem, ld, bl, a.K, a.c != nullptr);
-    } else {
-      const RowMajorA<T> ld{x, a.M, a.K, m0, a.vec_x != 0};
-      wmma_tile_ab<T, BM, BN, BK, WM, WN>(smem, ld, pb, a.K, a.c != nullptr);
-    }
-  } else if constexpr (MASKED) {
-    const MaskedRowMajorA<T> ld{x, a.M, a.K, m0, a.vec_x != 0, a.mk};
-    const MaskedRowMajorB<T> bl{y, a.K, a.N, n0, a.vec_y != 0, a.mk};
-    wmma_tile_ab<T, BM, BN, BK, WM, WN>(smem, ld, bl, a.K, a.c != nullptr);
-  } else {
-    const RowMajorA<T> ld{x, a.M, a.K, m0, a.vec_x != 0};
-    wmma_tile<T, BM, BN, BK, WM, WN>(smem, ld, y, a.K, a.N, n0, a.vec_y != 0,
-                                     a.c != nullptr);
-  }
+  wmma_tile_ab<T, BM, BN, BK, WM, WN>(
+      smem, a_loader<T, MASKED, (PANELS & PANELS_X) != 0>(a, x, m0,
+                                                           a.vec_x != 0),
+      b_loader<T, MASKED, (PANELS & PANELS_Y) != 0>(a, y, n0, a.vec_y != 0),
+      a.K, a.c != nullptr);
   store_tile<BM, BN>(cs, a, bz, m0, n0);
 }
 
-// F32GER: true fp32 FMAs (tile_gemm.cuh's f32_tile).
-template <bool MASKED, bool PACKED>
+// F32GER: true fp32 FMAs (tile_gemm.cuh's f32_tile_ab).
+template <bool MASKED, int PANELS>
 __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);
@@ -170,32 +191,20 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs a) {
   if (a.c) prime_tile<F32_BM, F32_BN>(cs, a, bz, m0, n0);
   const float* x = reinterpret_cast<const float*>(a.x) + (long long)bz * a.sxb;
   const float* y = reinterpret_cast<const float*>(a.y) + (long long)bz * a.syb;
-  if constexpr (PACKED) {
-    const PackedB<float> pb{y, a.K, a.N, n0, a.slab};
-    if constexpr (MASKED) {
-      const MaskedRowMajorA<float> ld{x, a.M, a.K, m0, false, a.mk};
-      f32_tile_ab(smem, ld, MaskedPackedB<float>{pb, a.mk}, a.K,
-                  a.c != nullptr);
-    } else {
-      const RowMajorA<float> ld{x, a.M, a.K, m0, false};
-      f32_tile_ab(smem, ld, pb, a.K, a.c != nullptr);
-    }
-  } else if constexpr (MASKED) {
-    const MaskedRowMajorA<float> ld{x, a.M, a.K, m0, false, a.mk};
-    const MaskedRowMajorB<float> bl{y, a.K, a.N, n0, false, a.mk};
-    f32_tile_ab(smem, ld, bl, a.K, a.c != nullptr);
-  } else {
-    const RowMajorA<float> ld{x, a.M, a.K, m0, false};
-    f32_tile(smem, ld, y, a.K, a.N, n0, a.c != nullptr);
-  }
+  f32_tile_ab(smem,
+              a_loader<float, MASKED, (PANELS & PANELS_X) != 0>(a, x, m0,
+                                                                false),
+              b_loader<float, MASKED, (PANELS & PANELS_Y) != 0>(a, y, n0,
+                                                                false),
+              a.K, a.c != nullptr);
   store_tile<F32_BM, F32_BN>(cs, a, bz, m0, n0);
 }
 
-template <bool MASKED, bool PACKED>
+template <bool MASKED, int PANELS>
 static int launch_f32(const GemmArgs& a, int batch, cudaStream_t stream) {
   static bool smem_ok = false;
   constexpr size_t smem = f32_smem_bytes();
-  auto kernel = gemm_f32_kernel<MASKED, PACKED>;
+  auto kernel = gemm_f32_kernel<MASKED, PANELS>;
   cudaError_t e = allow_smem(kernel, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.N + F32_BN - 1) / F32_BN, (a.M + F32_BM - 1) / F32_BM, batch);
@@ -204,11 +213,11 @@ static int launch_f32(const GemmArgs& a, int batch, cudaStream_t stream) {
 }
 
 template <typename T, int BM, int BN, int BK, int WM, int WN, bool MASKED,
-          bool PACKED>
+          int PANELS>
 static int launch_wmma(const GemmArgs& a, int batch, cudaStream_t stream) {
   static bool smem_ok = false;
   constexpr size_t smem = wmma_smem_bytes<T, BM, BN, BK>();
-  auto kernel = gemm_wmma_kernel<T, BM, BN, BK, WM, WN, MASKED, PACKED>;
+  auto kernel = gemm_wmma_kernel<T, BM, BN, BK, WM, WN, MASKED, PANELS>;
   cudaError_t e = allow_smem(kernel, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
@@ -216,39 +225,39 @@ static int launch_wmma(const GemmArgs& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MASKED, bool PACKED>
+template <typename T, bool MASKED, int PANELS>
 static int launch_16bit(const GemmArgs& a, int batch, int bm, int bn, int bk,
                         cudaStream_t stream) {
   // The tiles core/tiling.py GEMM_TILES lists for BF16GER2 / F16GER2.
   if (bm == 128 && bn == 128 && bk == 32)
-    return launch_wmma<T, 128, 128, 32, 2, 4, MASKED, PACKED>(a, batch,
+    return launch_wmma<T, 128, 128, 32, 2, 4, MASKED, PANELS>(a, batch,
                                                               stream);
   if (bm == 64 && bn == 64 && bk == 64)
-    return launch_wmma<T, 64, 64, 64, 2, 2, MASKED, PACKED>(a, batch, stream);
+    return launch_wmma<T, 64, 64, 64, 2, 2, MASKED, PANELS>(a, batch, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, bool PACKED>
+template <typename T, int PANELS>
 static int launch_16bit_any(const GemmArgs& a, bool masked, int batch, int bm,
                             int bn, int bk, cudaStream_t stream) {
-  return masked ? launch_16bit<T, true, PACKED>(a, batch, bm, bn, bk, stream)
-                : launch_16bit<T, false, PACKED>(a, batch, bm, bn, bk,
+  return masked ? launch_16bit<T, true, PANELS>(a, batch, bm, bn, bk, stream)
+                : launch_16bit<T, false, PANELS>(a, batch, bm, bn, bk,
                                                  stream);
 }
 
-template <bool PACKED>
+template <int PANELS>
 static int launch_any(const GemmArgs& a, int in_dt, bool masked, int batch,
                       int bm, int bn, int bk, cudaStream_t s) {
   if (in_dt == DT_BF16)
-    return launch_16bit_any<__nv_bfloat16, PACKED>(a, masked, batch, bm, bn,
+    return launch_16bit_any<__nv_bfloat16, PANELS>(a, masked, batch, bm, bn,
                                                    bk, s);
   if (in_dt == DT_F16)
-    return launch_16bit_any<__half, PACKED>(a, masked, batch, bm, bn, bk, s);
+    return launch_16bit_any<__half, PANELS>(a, masked, batch, bm, bn, bk, s);
   if (in_dt == DT_F32) {
     if (bm != F32_BM || bn != F32_BN || bk != F32_BK)
       return (int)cudaErrorInvalidValue;
-    return masked ? launch_f32<true, PACKED>(a, batch, s)
-                  : launch_f32<false, PACKED>(a, batch, s);
+    return masked ? launch_f32<true, PANELS>(a, batch, s)
+                  : launch_f32<false, PANELS>(a, batch, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -257,14 +266,22 @@ static bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-static int gemm_launch(
+// The launchers, one argument list.  xm, ym, pm: the pm* byte masks over M,
+// N and K, each null or one byte a lane; any non-null one selects the
+// MASKED kernels.  ck_col / ck_row: the sidecar's ((B,) ceil(M / bm), N)
+// and ((B,) M, ceil(N / bn)) fp32 outputs, or null.  x and y: natural
+// (M, K) and (K, N) rows (panels = 0), or either or both as core/packing.py's (B?, gm, gk, 128, 64) X and (B?, gn, gk, 64,
+// 64) Y panels (panels: PANELS_X, PANELS_Y), 16-byte aligned; batch
+// strides in elements of what each pointer holds, 0 where an operand is
+// shared across the batch.
+extern "C" int mma_gemm_launch(
     const void* x, const void* y, const void* xm, const void* ym,
     const void* pm, const void* c, const void* bias,
     const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
     int out_dt, int batch, int M, int N, int K, long long sxb, long long syb,
     long long scb, long long srb, long long sob, float alpha, float beta,
     int neg_product, int neg_acc, int act, int bm, int bn, int bk,
-    float* ck_col, float* ck_row, void* stream, bool y_packed) {
+    float* ck_col, float* ck_row, void* stream, int panels) {
   GemmArgs a;
   a.x = x; a.y = y; a.c = c; a.bias = bias; a.res = res; a.out = out;
   a.c_dt = c_dt; a.bias_dt = bias_dt; a.res_dt = res_dt; a.out_dt = out_dt;
@@ -278,55 +295,27 @@ static int gemm_launch(
   a.mk.ym = reinterpret_cast<const uint8_t*>(ym);
   a.mk.pm = reinterpret_cast<const uint8_t*>(pm);
   a.ck_col = ck_col; a.ck_row = ck_row;
-  a.slab = 0;
-  if (y_packed) {
-    // (gn, gk, 64, 64) panels a batch element: a slab is one column
-    // block's gk panels; syb only says whether y is batched
-    if (!aligned16(y)) return (int)cudaErrorInvalidValue;
-    a.slab = (long long)((K + PANEL_COLS - 1) / PANEL_COLS) * PANEL_COLS *
-             PANEL_COLS;
-    a.syb = syb ? (long long)((N + PANEL_COLS - 1) / PANEL_COLS) * a.slab
-                : 0;
-  }
+  // packed panels: a Y slab is one column block's gk panels; X panels
+  // are read through x_panel_at (the batch strides are the panels')
+  const int gk = (K + PANEL_C - 1) / PANEL_C;
+  a.slab = (long long)gk * PANEL_YR * PANEL_C;
+  a.x_gk = gk;
+  if (((panels & PANELS_Y) && (!aligned16(y) || syb % 8)) ||
+      ((panels & PANELS_X) && (!aligned16(x) || sxb % 8)))
+    return (int)cudaErrorInvalidValue;
   const bool masked = xm || ym || pm;
   for (const void* m : {xm, ym, pm})   // 8-byte mask loads
     if (m && !aligned16(m)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return y_packed ? launch_any<true>(a, in_dt, masked, batch, bm, bn, bk, s)
-                  : launch_any<false>(a, in_dt, masked, batch, bm, bn, bk, s);
-}
-
-// The launchers, one argument list.  xm, ym, pm: the pm* byte masks over M,
-// N and K, each null or one byte a lane; any non-null one selects the
-// MASKED kernels.  ck_col / ck_row: the sidecar's ((B,) ceil(M / bm), N)
-// and ((B,) M, ceil(N / bn)) fp32 outputs, or null.  y: natural (K, N)
-// rows (batch stride syb), or, through mma_gemm_packed_launch,
-// core/packing.py's (B?, gn, gk, 64, 64) Y panels, 16-byte aligned (their
-// batch stride follows from N and K: syb != 0 only marks y batched).
-extern "C" int mma_gemm_launch(
-    const void* x, const void* y, const void* xm, const void* ym,
-    const void* pm, const void* c, const void* bias,
-    const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
-    int out_dt, int batch, int M, int N, int K, long long sxb, long long syb,
-    long long scb, long long srb, long long sob, float alpha, float beta,
-    int neg_product, int neg_acc, int act, int bm, int bn, int bk,
-    float* ck_col, float* ck_row, void* stream) {
-  return gemm_launch(x, y, xm, ym, pm, c, bias, res, out, in_dt, c_dt,
-                     bias_dt, res_dt, out_dt, batch, M, N, K, sxb, syb, scb,
-                     srb, sob, alpha, beta, neg_product, neg_acc, act, bm, bn,
-                     bk, ck_col, ck_row, stream, false);
-}
-
-extern "C" int mma_gemm_packed_launch(
-    const void* x, const void* y, const void* xm, const void* ym,
-    const void* pm, const void* c, const void* bias,
-    const void* res, void* out, int in_dt, int c_dt, int bias_dt, int res_dt,
-    int out_dt, int batch, int M, int N, int K, long long sxb, long long syb,
-    long long scb, long long srb, long long sob, float alpha, float beta,
-    int neg_product, int neg_acc, int act, int bm, int bn, int bk,
-    float* ck_col, float* ck_row, void* stream) {
-  return gemm_launch(x, y, xm, ym, pm, c, bias, res, out, in_dt, c_dt,
-                     bias_dt, res_dt, out_dt, batch, M, N, K, sxb, syb, scb,
-                     srb, sob, alpha, beta, neg_product, neg_acc, act, bm, bn,
-                     bk, ck_col, ck_row, stream, true);
+  switch (panels) {
+    case 0: return launch_any<0>(a, in_dt, masked, batch, bm, bn, bk, s);
+    case PANELS_X:
+      return launch_any<PANELS_X>(a, in_dt, masked, batch, bm, bn, bk, s);
+    case PANELS_Y:
+      return launch_any<PANELS_Y>(a, in_dt, masked, batch, bm, bn, bk, s);
+    case PANELS_X | PANELS_Y:
+      return launch_any<PANELS_X | PANELS_Y>(a, in_dt, masked, batch, bm, bn,
+                                             bk, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

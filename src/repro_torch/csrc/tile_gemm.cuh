@@ -8,7 +8,9 @@
 //   ld.template panel_kmajor<BM, BK, LDT>(float* as, int k0)
 //       the same panel for F32GER, k-major: as[kk * LDT + r];
 //
-// each zero past the M and K fringes.  B is a (K, N) matrix, read through
+// each zero past the M and K fringes: RowMajorA over natural rows, PackedA
+// over core/packing.py's X-side panels (K1d), MaskedRowMajorA /
+// MaskedPackedA for the pm* forms.  B is a (K, N) matrix, read through
 // a B loader with the same two members (panel<BK, BN, LDB> for the 16-bit
 // tile, panel_f32<BK, BN, LDB> for F32GER, both row-major (BK, BN) at k0):
 // RowMajorB over natural rows, PackedB over core/packing.py's 64-column
@@ -326,6 +328,113 @@ struct MaskedPackedB {
         if (gc + 3 >= p.N || !lane_on(mk.ym, gc + 3)) v.w = 0.f;
       }
       *reinterpret_cast<float4*>(bs + r * LDB + c4) = v;
+    }
+  }
+};
+
+// A from prepacked X panels (K1d: repro/kernels/mma_gemm.py's
+// packed_spec): rows m0.. of an (M, K) matrix kept as core/packing.py's
+// (gm, gk, 128, 64) panels (common.cuh's x_panel_at), zero-padded past M
+// and K.  A stage row's chunk (8 16-bit or 4 fp32 values at a k that is a
+// multiple of their count) lies in one panel row, contiguous and 16-byte
+// aligned, so it is one 16-byte load at any K: RowMajorA's natural rows
+// take its element path wherever K is not a multiple of 8.  A chunk that
+// starts past K or a row past M stages as 0, as RowMajorA's fringe does,
+// and a chunk across K reads the zero padding: the staged panel, and so
+// the result, is the natural loader's bit for bit.  The tiles' (BM, BK)
+// stages: (128, 32) is one panel's 128 rows, half its depth; (64, 64)
+// half its rows, all its depth; F32GER's k-major (64, 16) half its rows,
+// a quarter of its depth.
+template <typename T>
+struct PackedA {
+  const T* x;
+  int M, K, m0, gk;
+
+  __device__ __forceinline__ const T* at(int m, int k) const {
+    return x + x_panel_at(m, k, gk);
+  }
+
+  template <int BM, int BK, int LDA>
+  __device__ void panel(T* as, int k0) const {
+    constexpr int CH = BK / 8;
+    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
+      const int r = i / CH, c8 = (i % CH) * 8;
+      const int gr = m0 + r, gc = k0 + c8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);  // +0.0 in bf16 and f16
+      if (gr < M && gc < K)
+        v = __ldg(reinterpret_cast<const uint4*>(at(gr, gc)));
+      *reinterpret_cast<uint4*>(as + r * LDA + c8) = v;
+    }
+  }
+
+  template <int BM, int BK, int LDT>
+  __device__ void panel_kmajor(float* as, int k0) const {
+    constexpr int CH = BK / 4;
+    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
+      const int r = i / CH, c4 = (i % CH) * 4;
+      const int gr = m0 + r, gc = k0 + c4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gr < M && gc < K)
+        v = __ldg(reinterpret_cast<const float4*>(at(gr, gc)));
+      as[c4 * LDT + r] = v.x;
+      as[(c4 + 1) * LDT + r] = v.y;
+      as[(c4 + 2) * LDT + r] = v.z;
+      as[(c4 + 3) * LDT + r] = v.w;
+    }
+  }
+};
+
+// Packed A with the row and rank predicates, applied as the stage goes to
+// shared memory, as MaskedRowMajorA does: a disabled row is not loaded, a
+// disabled rank's lanes are selected to 0 from the loaded chunk (so NaN or
+// Inf there gives exact zeros).  A chunk across K reads no mask byte past
+// K: its lanes there are 0 by the fringe rule.
+template <typename T>
+struct MaskedPackedA {
+  PackedA<T> p;
+  PmMasks mk;
+
+  template <int BM, int BK, int LDA>
+  __device__ void panel(T* as, int k0) const {
+    constexpr int CH = BK / 8;
+    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
+      const int r = i / CH, c8 = (i % CH) * 8;
+      const int gr = p.m0 + r, gc = k0 + c8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < p.M && gc < p.K && lane_on(mk.xm, gr)) {
+        v = __ldg(reinterpret_cast<const uint4*>(p.at(gr, gc)));
+        if (gc + 8 <= p.K) {
+          if (mk.pm) select_chunk16(v, mk.pm, gc);
+        } else {
+          T* lanes = reinterpret_cast<T*>(&v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (gc + e >= p.K || !lane_on(mk.pm, gc + e))
+              lanes[e] = zero_of<T>();
+        }
+      }
+      *reinterpret_cast<uint4*>(as + r * LDA + c8) = v;
+    }
+  }
+
+  template <int BM, int BK, int LDT>
+  __device__ void panel_kmajor(float* as, int k0) const {
+    constexpr int CH = BK / 4;
+    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
+      const int r = i / CH, c4 = (i % CH) * 4;
+      const int gr = p.m0 + r, gc = k0 + c4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gr < p.M && gc < p.K && lane_on(mk.xm, gr)) {
+        v = __ldg(reinterpret_cast<const float4*>(p.at(gr, gc)));
+        if (gc + 0 >= p.K || !lane_on(mk.pm, gc + 0)) v.x = 0.f;
+        if (gc + 1 >= p.K || !lane_on(mk.pm, gc + 1)) v.y = 0.f;
+        if (gc + 2 >= p.K || !lane_on(mk.pm, gc + 2)) v.z = 0.f;
+        if (gc + 3 >= p.K || !lane_on(mk.pm, gc + 3)) v.w = 0.f;
+      }
+      as[c4 * LDT + r] = v.x;
+      as[(c4 + 1) * LDT + r] = v.y;
+      as[(c4 + 2) * LDT + r] = v.z;
+      as[(c4 + 3) * LDT + r] = v.w;
     }
   }
 };

@@ -28,7 +28,31 @@ calls run on the card (the split-KV merge is part of its call), and
 nothing else; ``mma_flash_attention.launches_by_mode`` the same by mode:
 ``tile`` and ``split`` (the 16-bit wgmma kernel), ``f32_tile`` and
 ``f32_split`` (the fp32 tile, K2e); ``padded_launches_by_mode`` those of
-them whose depth was padded.
+them whose depth was padded; ``full_grid_launches`` those that ran the
+full grid.
+
+The full grid (K2d: the reference's ``mma_flash_attention(bound_grid=
+False)``): ``bound_grid=False`` has every q tile walk all ceil(Sk / 64) KV
+blocks, :func:`attn_grid_plan`'s ``bound=False`` schedule, the baseline
+the bounded causal/window schedule is measured against.  A block with no
+live slot leaves the running max, sum and accumulator untouched (the
+kernel's masked-block guard), so in the tile modes the full grid is the
+bounded launch bit for bit, as the reference's test holds its two grids.
+In the split-KV modes the splits partition [0, nk) where the bounded
+launch partitions the live range [lo, hi) into the same ``per`` blocks a
+split.  Where lo = 0 (no window, or a window that reaches block 0) the
+live blocks fall into the same splits, the blocks past hi only add dead
+blocks or dead splits, so the result is again the bounded launch's bit for
+bit.  Where the window starts later the live blocks group otherwise: each
+split rounds P against its own running max and the partials merge in
+another grouping, so the two launches differ within their rounding budgets
+(each is within :func:`rounding_budget` of the oracle, so they differ by
+at most twice it), not bit for bit.  A split that holds only dead blocks
+has m = -inf and l = 0, and weighs 0 in the merge.
+:func:`flash_attention_plain` takes the flag and, running no schedule,
+ignores it; :func:`flash_attention_splitkv_plain` partitions as the
+kernel does.  No ``Plan`` field or ``contract`` option reaches it, as
+in the reference: it is an argument of the kernel API.
 
 Head depths: the kernel is compiled for D = 32, 64, 128 and 192 (16-bit)
 or 32, 64, 128 and 160 (fp32) (:data:`KERNEL_HEAD_DIMS`).  Any other D up
@@ -74,7 +98,7 @@ _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 # ----------------------------------------------------------------------
@@ -254,9 +278,12 @@ def ref_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
                           window: int | None = None, valid=None,
                           ep: _epilogue.Epilogue | None = None, bias=None,
-                          residual=None, out_dtype=None):
+                          residual=None, out_dtype=None,
+                          bound_grid: bool = True):
     """The plain version of the kernel: the oracle's two-product softmax,
-    then the epilogue on the normalised fp32 output, then the cast."""
+    then the epilogue on the normalised fp32 output, then the cast.  It
+    runs no block schedule, so ``bound_grid`` changes nothing (the kernel's
+    full grid gives its bounded result: the module docstring)."""
     out = ref_attention(q, k, v, causal=causal, window=window,
                         q_offset=q_offset, valid=valid)
     out = _epilogue.apply(out, ep, bias=bias, residual=residual)
@@ -309,9 +336,11 @@ def flash_attention_splitkv_plain(q, k, v, *, n_split: int, per: int,
                                   causal: bool = True, q_offset: int = 0,
                                   window: int | None = None, valid=None,
                                   ep: _epilogue.Epilogue | None = None,
-                                  bias=None, residual=None, out_dtype=None):
+                                  bias=None, residual=None, out_dtype=None,
+                                  bound_grid: bool = True):
     """The split-KV arithmetic of the kernel: split s covers ``per`` KV
-    blocks of 64 from the q tile's first live block; each split keeps its
+    blocks of 64 from the q tile's first live block (``bound_grid=False``,
+    the full grid: from block 0); each split keeps its
     own fp32 partial (unnormalised O with P = exp(S - m_s) rounded to v's
     dtype, its max m_s and sum l_s; a split with no live slot has
     m_s = -inf and zeros); the partials merge in split order by
@@ -327,14 +356,15 @@ def flash_attention_splitkv_plain(q, k, v, *, n_split: int, per: int,
     out = torch.cat([_splitkv_one(
         q[i:i + 1], k[i:i + 1], v[i:i + 1], n_split=n_split, per=per,
         causal=causal, q_offset=q_offset, window=window,
-        valid=None if rows is None else rows[i % rows.shape[0]][None])
+        valid=None if rows is None else rows[i % rows.shape[0]][None],
+        bound_grid=bound_grid)
         for i in range(b)])
     out = _epilogue.apply(out, ep, bias=bias, residual=residual)
     return out.to(out_dtype or q.dtype)
 
 
 def _splitkv_one(q, k, v, *, n_split, per, causal, q_offset, window,
-                 valid):
+                 valid, bound_grid):
     """One batch element's split-KV partials and their merge: the fp32
     (1, Sq, H, D) output before the epilogue."""
     _, sq, h, d = q.shape
@@ -343,11 +373,15 @@ def _splitkv_one(q, k, v, *, n_split, per, causal, q_offset, window,
     lo, hi = attn_k_bounds(0, -(-sk // BLOCK_K), bq=BLOCK_Q_SHORT,
                            bk=BLOCK_K, causal=causal, q_offset=q_offset,
                            window=window)
+    start = lo if bound_grid else 0  # where the splits' partition starts
     qf = q.float()
     parts = []
     for s in range(n_split):
-        b0 = lo + s * per
-        k0, k1 = min(sk, b0 * BLOCK_K), min(sk, min(hi, b0 + per) * BLOCK_K)
+        # a block outside [lo, hi) has no live slot and leaves a split's
+        # state untouched (the kernel's masked-block guard): left out
+        b0 = start + s * per
+        k0 = min(sk, max(b0, lo) * BLOCK_K)
+        k1 = min(sk, min(hi, b0 + per) * BLOCK_K)
         if k1 <= k0:
             parts.append((torch.full((1, h, sq, 1), NEG_INF, device=q.device),
                           torch.zeros((1, h, sq, 1), device=q.device),
@@ -402,7 +436,8 @@ def mma_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor | None = None,
                         residual: torch.Tensor | None = None,
                         out_dtype: torch.dtype | None = None,
-                        tuned: tuple | None = None) -> torch.Tensor:
+                        tuned: tuple | None = None,
+                        bound_grid: bool = True) -> torch.Tensor:
     """Fused attention over q (B, Sq, H, D) and k, v (B, Sk, KVH, D), with
     H % KVH == 0.  ``q_offset`` is the absolute position of q[0];
     ``window`` the sliding-window width (q attends k with
@@ -412,10 +447,12 @@ def mma_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     autotune winner (bq, n_split), or an explicit tile (bq, None), taken
     where the kernel runs it (:func:`attn_plan`; otherwise the heuristic
     runs, counted in ``mma_flash_attention.tuned_fallbacks``).
-    Differentiable where an operand requires a gradient (the module
-    docstring says how)."""
+    ``bound_grid=False`` runs the full grid (K2d; the module docstring
+    says what it gives).  Differentiable where an operand requires a
+    gradient (the module docstring says how; the forward takes the flag,
+    the backward's recomputation has no schedule)."""
     opts = dict(causal=causal, q_offset=q_offset, window=window, ep=ep,
-                out_dtype=out_dtype, tuned=tuned)
+                out_dtype=out_dtype, tuned=tuned, bound_grid=bound_grid)
     if _autograd.wants_grad(q, k, v, bias, residual):
         return _FlashAttentionFn.apply(q, k, v, valid, bias, residual, opts)
     return _mma_flash_attention(q, k, v, valid=valid, bias=bias,
@@ -456,7 +493,8 @@ class _FlashAttentionFn(torch.autograd.Function):
 
 
 def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
-                         bias, residual, out_dtype, tuned) -> torch.Tensor:
+                         bias, residual, out_dtype, tuned,
+                         bound_grid=True) -> torch.Tensor:
     """The dispatch of one attention call: the plain version on a CPU
     tensor, the kernel on a CUDA tensor."""
     b, sq, h, d = q.shape
@@ -483,7 +521,7 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
         mma_flash_attention.tuned_fallbacks += 1
     flags = dict(causal=causal, q_offset=q_offset, window=window,
                  valid=valid, ep=ep, bias=bias, residual=residual,
-                 out_dtype=out_dtype)
+                 out_dtype=out_dtype, bound_grid=bound_grid)
     if q.device.type == "cpu":
         if n_split > 1:
             return flash_attention_splitkv_plain(q, k, v, n_split=n_split,
@@ -552,11 +590,14 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
         _OUT_CODES[out_dtype], b, sq, sk, h, kvh, dp, int(causal),
         int(q_offset), int(window or 0), float(d ** -0.5),
         _epilogue.ACT_CODES[ep.activation if ep is not None else None],
-        bq, n_split, per, torch.cuda.current_stream(q.device).cuda_stream)
+        bq, n_split, per, int(bound_grid),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "mma_flash_attention")
     mode = ("f32_" if f32 else "") + ("split" if n_split > 1 else "tile")
     mma_flash_attention.launches += 1
     mma_flash_attention.launches_by_mode[mode] += 1
+    if not bound_grid:
+        mma_flash_attention.full_grid_launches += 1
     if mma_flash_attention.trace is not None:
         mma_flash_attention.trace.append(
             (b, sq, sk, h, kvh, d, q.dtype, bool(causal), int(q_offset),
@@ -571,6 +612,8 @@ mma_flash_attention.launches = 0
 mma_flash_attention.launches_by_mode = dict.fromkeys(MODES, 0)
 # The launches at a padded depth (also in launches_by_mode), by mode.
 mma_flash_attention.padded_launches_by_mode = dict.fromkeys(MODES, 0)
+# The launches on the full grid, bound_grid=False (also in launches).
+mma_flash_attention.full_grid_launches = 0
 # The calls whose tuned tile or split the kernel could not run, so that
 # the heuristic ran (not launches: counted on the CPU too).
 mma_flash_attention.tuned_fallbacks = 0

@@ -73,31 +73,30 @@ branch that zero-fills the M, N and K fringes, never multiplied, so a NaN
 there gives exact zeros; the operands in HBM are never pre-masked.  The
 plain versions select (``torch.where``) the same lanes.  I4GER8 takes a
 column mask only (its X and rank predicates go through ``ref.pm_ger``, as
-the reference's kernel refuses them), packed Y panels are read by the
-WMMA and fp32 tiles' masked loaders (and demoted, counted, on IMMA and
-DMMA, whose masked loaders read natural rows), and a masked product has
-no gradient (NotImplementedError: nor has the reference's Pallas
-kernel).
+the reference's kernel refuses them), packed panels are read by every
+masked loader (WMMA, fp32, IMMA and DMMA), and a masked product has no
+gradient (NotImplementedError: nor has the reference's Pallas kernel).
 
 Prepacked operands (K1d, ``core/packing.py``): ``y_layout`` marks y as the
 raw Y-side panel tensor ``(gn, gk, 64, 64)`` (``(B, gn, gk, 64, 64)`` for
-an expert bank), which the weight stream, the wgmma tile and the WMMA and
-fp32 tiles read (masked or not, with or without the sidecar); and
-``x_layout`` marks x as the raw X-side ``(gm, gk, 128, 64)`` int8 panels,
-which the IMMA kernel reads in I8GER4.  The call takes the path its
-natural operands would take (``choose_gemm_path``, chosen once, a packed
-operand counting with its natural pitch: :func:`natural_aligned`).  Where
-that path reads the panels, it checks their panel size (a stale layout
-raises: ``packing.refresh_gemm`` repacks first) and hands their pointer to
-the kernel untouched; where it reads none (the DMMA kernel, I4GER8 and
-I16GER2, X panels on the stream, wgmma or WMMA tiles, Y panels on IMMA),
-it demotes them, counted, with the reason (``packing.demote_panels``),
-and launches as the natural call.  The panels are zero-padded past K and N, where the kernels read
-zeros anyway, so the result is the natural launch's bit for bit.  On the
-CPU the plain version of the path reads the panels as the kernel-facing
-matrix (``packing.gemm_panels_matrix``); that is not a demote.  Packed
-operands serve inference: with an operand that requires a gradient the
-call raises.
+an expert bank) and ``x_layout`` marks x as the raw X-side ``(gm, gk, 128,
+64)`` panels, either or both, in every family but I4GER8 (whose nibbles
+keep their own packing, as the reference refuses packed int4).  Every
+path reads them, masked or not, with or without the sidecar: the weight
+stream, the wgmma tile, the WMMA and fp32 tiles, IMMA (I8GER4, I16GER2)
+and DMMA (F64GER).  The call takes the path its natural operands would
+take (``choose_gemm_path``, chosen once, a packed operand counting with
+its natural pitch: :func:`natural_aligned`), checks the panel size (a
+stale layout raises: ``packing.refresh_gemm`` repacks first) and hands the
+panels' pointer to the kernel untouched.  The panels are zero-padded past
+M, K and N, where the kernels read zeros anyway, so the result is the
+natural launch's bit for bit.  A packed operand without a batch axis
+beside a batched operand is shared across the batch (its batch stride is
+0), as the reference's index map ignores the batch coordinate for it; a
+natural operand must carry the batch axis of a batched call.  On the CPU
+the plain version of the path reads the panels as the kernel-facing matrix
+(``packing.gemm_panels_matrix``).  Packed operands serve inference: with
+an operand that requires a gradient the call raises.
 
 Gradients: where an operand requires one, ``mma_gemm`` runs as a
 ``torch.autograd.Function`` whose forward is the same dispatch and whose
@@ -132,31 +131,38 @@ Ger = precision.Ger
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 STORE_CODES = {**DTYPE_CODES, torch.int32: 3, torch.float64: 4}
 
-# The last three arguments of the 16-bit/fp32 and DMMA launchers: the
-# checksum sidecar's (ck_col, ck_row) pointers (null: no sidecar), stream.
+# The 16-bit/fp32 and DMMA launchers' checksum sidecar (ck_col, ck_row)
+# pointers (null: no sidecar) and stream.  Every launcher ends with
+# `panels`, which operands are packed panels (csrc/common.cuh: PANELS_X =
+# 1, PANELS_Y = 2; 0: natural rows), and the weight stream and the wgmma
+# tile then take each operand's batch stride in elements (0: shared).
 _CK_STREAM = [ctypes.c_void_p] * 3
+_PANELS_STRIDES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
 # csrc/mma_gemm.cu: mma_gemm_launch (x, y, three masks, c, bias, res, out)
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 5 + [ctypes.c_float] * 2
-             + [ctypes.c_int] * 3 + [ctypes.c_int] * 3 + _CK_STREAM)
+             + [ctypes.c_int] * 3 + [ctypes.c_int] * 3 + _CK_STREAM
+             + [ctypes.c_int])
 # csrc/gemm_stream.cu: gemm_stream_launch
 _STREAM_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                     + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                    + [ctypes.c_int] * 3 + [ctypes.c_int] * 2 + _CK_STREAM)
+                    + [ctypes.c_int] * 3 + [ctypes.c_int] * 2 + _CK_STREAM
+                    + _PANELS_STRIDES)
 # csrc/gemm_wgmma.cu: gemm_wgmma_launch
 _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 3 + [ctypes.c_int] + _CK_STREAM)
+                   + [ctypes.c_int] * 3 + [ctypes.c_int] + _CK_STREAM
+                   + _PANELS_STRIDES)
 # csrc/gemm_imma.cu: gemm_imma_launch
 _IMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
-                  + [ctypes.c_void_p])
+                  + [ctypes.c_void_p] + [ctypes.c_int])
 # csrc/gemm_dmma.cu: gemm_dmma_launch
 _DMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 5 + [ctypes.c_double] * 2
-                  + [ctypes.c_int] * 3 + _CK_STREAM)
+                  + [ctypes.c_int] * 3 + _CK_STREAM + [ctypes.c_int])
 PATHS = ("stream", "wgmma", "wmma", "imma", "dmma")
-PACKED_PATHS = ("stream", "wgmma", "wmma", "imma")   # paths reading panels
+PACKED_PATHS = PATHS                             # every path reads panels
 MASKED_PATHS = ("wmma", "imma", "dmma")          # the paths that take masks
 SIDECAR_PATHS = ("stream", "wgmma", "wmma", "dmma")   # checksum=True (K1e)
 
@@ -305,19 +311,15 @@ def mma_gemm_sidecar_plain(x, y, c=None, *, kind: Ger, **forms):
 _FNS: dict[str, tuple] = {}
 
 
-def _lib(name: str, fn_name: str, argtypes, packed: bool = False):
-    """(library, launcher) of ``csrc/<name>.cu``, typed once: its
-    ``<name>_launch``, or with ``packed`` its ``<name>_packed_launch``
-    (the same arguments, the packed operand read as panels)."""
-    key = f"{name}.packed" if packed else name
-    got = _FNS.get(key)
+def _lib(name: str, fn_name: str, argtypes):
+    """(library, launcher) of ``csrc/<name>.cu``, typed once."""
+    got = _FNS.get(name)
     if got is None:
         lib = _build.load(name)
-        fn = getattr(lib, fn_name.replace("_launch", "_packed_launch")
-                     if packed else fn_name)
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        got = _FNS[key] = (lib, fn)
+        got = _FNS[name] = (lib, fn)
     return got
 
 
@@ -338,7 +340,10 @@ def natural_aligned(x, y, x_layout=None, y_layout=None) -> bool:
 
 
 def _packed_shapes(x, y, x_layout, y_layout):
-    """(b, m, n, k) of a call with packed operands, their ranks checked."""
+    """(b, m, n, k) of a call with packed operands, their ranks checked.
+    A packed operand without a batch axis may meet a batched operand: it
+    is shared across the batch (the reference's ``batched`` rule); a
+    natural operand must then carry the batch axis."""
     def dims(t, lay, natural_rank_of):
         if lay is None:
             if t.ndim not in (2, 3):
@@ -354,10 +359,14 @@ def _packed_shapes(x, y, x_layout, y_layout):
         return (t.shape[0] if lay.batched else None), lay.rows, lay.cols
     bx, m, k = dims(x, x_layout, "x")
     by, k2, n = dims(y, y_layout, "y")
-    if k != k2 or (bx is not None and by is not None and bx != by) \
-            or (bx is None) != (by is None):
+    if k != k2 or (bx is not None and by is not None and bx != by):
         raise ValueError(f"shape mismatch x{(bx, m, k)} @ y{(by, k2, n)}")
-    return bx, m, n, k
+    b = bx if bx is not None else by
+    for side, own, lay in (("x", bx, x_layout), ("y", by, y_layout)):
+        if b is not None and own is None and lay is None:
+            raise ValueError(f"a batched operand needs a batched natural "
+                             f"{side}: got x{(bx, m, k)} @ y{(by, k2, n)}")
+    return b, m, n, k
 
 
 def _ptr(t):
@@ -562,8 +571,8 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
             f"the {path} kernel takes no checksum sidecar: ABFT does not "
             f"verify integer accumulators ({kind.value})")
     if packed:
-        x, x_layout = _panels(path, kind, x, x_layout, "x", masks)
-        y, y_layout = _panels(path, kind, y, y_layout, "y", masks)
+        _panels(path, x, x_layout, "x")
+        _panels(path, y, y_layout, "y")
     if masks is not None:
         forms["masks"] = masks
     if x.device.type == "cpu":
@@ -601,25 +610,31 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     if (b or 1) * m * n == 0:       # an empty grid is not a launch
         out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
         return (out, *ck) if checksum else out
-    panels = (x_layout is not None, y_layout is not None)
-    x = x if panels[0] else x.contiguous()
-    y = y if panels[1] else y.contiguous()
+    panels = ((1 if x_layout is not None else 0)
+              | (2 if y_layout is not None else 0))
+    x = x if x_layout is not None else x.contiguous()
+    y = y if y_layout is not None else y.contiguous()
+    # each operand's batch stride in elements: 0 where it is shared (a
+    # packed operand without the batch axis of a batched call)
+    strides = tuple(
+        t[0].numel() if b is not None and t.ndim == rank else 0
+        for t, rank in ((x, 3 if x_layout is None else 5),
+                        (y, 3 if y_layout is None else 5)))
     mptrs = (None, None, None) if masks is None else tuple(
         _ptr(t) for t in masks)
     forms.pop("masks", None)
     ck_ptrs = (None, None) if ck is None else (ck[0].data_ptr(),
                                                ck[1].data_ptr())
+    launched = dict(panels=panels, strides=strides, masks=mptrs, ck=ck_ptrs,
+                    **forms)
     if path in ("imma", "dmma"):
         out = _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k,
-                                x_packed=panels[0], masks=mptrs,
-                                ck=ck_ptrs, **forms)
+                                **launched)
     else:
-        out = _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k,
-                                y_packed=panels[1], masks=mptrs, ck=ck_ptrs,
-                                **forms)
+        out = _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, **launched)
     mma_gemm.launches += 1
     mma_gemm.launches_by_path[path] += 1
-    if panels[0] or panels[1]:
+    if panels:
         mma_gemm.packed_launches_by_path[path] += 1
     if masks is not None:
         mma_gemm.masked_launches_by_path[path] += 1
@@ -660,17 +675,12 @@ def _check_masks(masks, pol, m, n, k, device):
     return tuple(out)
 
 
-def _panels(path, kind, t, lay, side, masks=None):
-    """``(t, lay)`` where ``path`` reads ``side``'s packed panels: they must
-    be the panel size it reads, contiguous and 16-byte aligned (their
-    pointer goes to the kernel untouched).  Where it reads none (a masked
-    call's loaders read natural rows only), the panels are demoted,
-    counted, with the reason: ``(natural, None)``."""
+def _panels(path, t, lay, side):
+    """Check ``side``'s packed panels before ``path`` reads them: they must
+    be the panel size every path reads, contiguous and 16-byte aligned
+    (their pointer goes to the kernel untouched)."""
     if lay is None:
-        return t, None
-    why = packing.gemm_unread(path, kind, side, masked=masks is not None)
-    if why is not None:
-        return packing.demote_panels(t, lay, why), None
+        return
     if lay.panel_blocks != packing.PANELS[side]:
         raise ValueError(f"stale packed layout: panels {lay.panel_blocks} "
                          f"but the {path} path reads "
@@ -679,17 +689,18 @@ def _panels(path, kind, t, lay, side, masks=None):
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError("packed panels must be contiguous and 16-byte "
                          "aligned")
-    return t, lay
 
 
 def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
                       neg_acc, alpha, beta, ep, bias, residual, out_dtype,
-                      masks, ck, x_packed=False):
+                      masks, ck, panels, strides):
     """One launch of csrc/gemm_imma.cu (the integer families) or
     csrc/gemm_dmma.cu (F64GER); ``masks`` the three predicate pointers
-    (None: no predicate), ``ck`` the DMMA sidecar's two (None: none).  The
-    seed, bias and residual go to the accumulator dtype first, as the
-    reference casts them."""
+    (None: no predicate), ``ck`` the DMMA sidecar's two (None: none),
+    ``panels`` which operands are packed panels (bit 0 x, bit 1 y; 0: natural
+    rows), ``strides`` x's and y's batch strides.  The seed,
+    bias and residual go to the accumulator dtype first, as the reference
+    casts them."""
     if out_dtype not in STORE_CODES:
         raise NotImplementedError(f"the {path} kernel stores int32/f64/f32/"
                                   f"bf16/f16, not {out_dtype}")
@@ -700,38 +711,36 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
                          for t in (c, bias, residual))
     out = torch.empty((m, n) if b is None else (b, m, n), dtype=out_dtype,
                       device=x.device)
-    batched = b is not None
-    x_batch = x[0].numel() if x_packed else m * k
-    strides = (x_batch if batched else 0, k * n if batched else 0,
-               m * n, m * n, m * n)
+    strides = (*strides, m * n, m * n, m * n)
     ptrs = (x.data_ptr(), y.data_ptr(), *masks, _ptr(c), _ptr(bias),
             _ptr(residual), out.data_ptr())
     act = ep.activation if ep is not None else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if path == "imma":
-        lib, fn = _lib("gemm_imma", "gemm_imma_launch", _IMMA_ARGTYPES,
-                       x_packed)
+        lib, fn = _lib("gemm_imma", "gemm_imma_launch", _IMMA_ARGTYPES)
         logical_k = 2 * k if pol.packed_int4 else k
         rc = fn(*ptrs, tiling.IMMA_GERS.index(pol.ger),
                 STORE_CODES[out_dtype], b or 1, m, n, logical_k, *strides,
                 acc_scalar(alpha, pol), acc_scalar(beta, pol),
-                int(neg_product), int(neg_acc), int(act == "relu"), stream)
+                int(neg_product), int(neg_acc), int(act == "relu"), stream,
+                panels)
     else:
         lib, fn = _lib("gemm_dmma", "gemm_dmma_launch", _DMMA_ARGTYPES)
         rc = fn(*ptrs, STORE_CODES[out_dtype], b or 1, m, n, k, *strides,
                 float(alpha), float(beta), int(neg_product), int(neg_acc),
-                _epilogue.ACT_CODES[act], *ck, stream)
+                _epilogue.ACT_CODES[act], *ck, stream, panels)
     _build.check(lib, rc, f"mma_gemm ({path})")
     return out
 
 
 def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
                       neg_acc, alpha, beta, ep, bias, residual, out_dtype,
-                      masks, ck, y_packed=False):
+                      masks, ck, panels, strides):
     """One launch of the weight stream, the wgmma tile or the WMMA tiles
-    (the bf16/f16/f32 families); ``y_packed``: y is Y-side panels (every
-    one of them reads them); ``masks`` the three predicate pointers,
-    which only the WMMA tiles take; ``ck`` the sidecar's (ck_col, ck_row)
+    (the bf16/f16/f32 families); ``panels``: which operands are packed
+    panels (bit 0 x, bit 1 y; 0: natural rows), ``strides`` x's and
+    y's batch strides; ``masks`` the three predicate pointers, which
+    only the WMMA tiles take; ``ck`` the sidecar's (ck_col, ck_row)
     pointers (None, None: no sidecar)."""
     if out_dtype not in DTYPE_CODES:
         raise NotImplementedError(f"the GEMM kernel stores f32/bf16/f16, "
@@ -758,29 +767,23 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
             buf = torch.empty(parts + (b or 1) * cfg.grid(n)[0],
                               dtype=torch.float32, device=x.device)
             ws, tickets = buf.data_ptr(), buf.data_ptr() + 4 * parts
-        lib, fn = _lib("gemm_stream", "gemm_stream_launch", _STREAM_ARGTYPES,
-                       y_packed)
+        lib, fn = _lib("gemm_stream", "gemm_stream_launch", _STREAM_ARGTYPES)
         rc = fn(x.data_ptr(), y.data_ptr(), *common, ws, tickets,
                 DTYPE_CODES[x.dtype], *codes, b or 1, m, n, k, *forms,
-                cfg.bn, cfg.split, *ck, stream)
+                cfg.bn, cfg.split, *ck, stream, panels, *strides)
     elif path == "wgmma":
-        lib, fn = _lib("gemm_wgmma", "gemm_wgmma_launch", _WGMMA_ARGTYPES,
-                       y_packed)
+        lib, fn = _lib("gemm_wgmma", "gemm_wgmma_launch", _WGMMA_ARGTYPES)
         rc = fn(x.data_ptr(), y.data_ptr(), *common, DTYPE_CODES[x.dtype],
                 *codes, b or 1, int(batched), m, n, k, *forms, cfg.bn,
-                *ck, stream)
+                *ck, stream, panels, *strides)
     else:
         if -(-m // cfg.bm) > 65535:
             raise ValueError(f"grid too large for one launch: m={m}")
-        # packed panels: their batch stride follows from N and K (the
-        # launcher derives it; the stride given only marks y batched)
-        lib, fn = _lib("mma_gemm", "mma_gemm_launch", _ARGTYPES, y_packed)
+        lib, fn = _lib("mma_gemm", "mma_gemm_launch", _ARGTYPES)
         rc = fn(x.data_ptr(), y.data_ptr(), *masks, *common,
-                DTYPE_CODES[x.dtype],
-                *codes, b or 1, m, n, k,
-                m * k if batched else 0, k * n if batched else 0,
+                DTYPE_CODES[x.dtype], *codes, b or 1, m, n, k, *strides,
                 m * n, m * n, m * n, *forms, cfg.bm, cfg.bn, cfg.bk, *ck,
-                stream)
+                stream, panels)
     _build.check(lib, rc, f"mma_gemm ({path})")
     return out
 

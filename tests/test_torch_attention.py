@@ -310,3 +310,94 @@ def test_f32_rounding_budget_separates_fp32_from_tf32_and_bf16_p(
     assert ratio(tattn.flash_attention_plain(_tf32(q), _tf32(k), v,
                                              **kw)) > 2
     assert ratio(_bf16_p(q, k, v, causal)) > 2
+
+
+# ----------------------------------------------------------------------
+# K2d: the full rectangular grid, mma_flash_attention(bound_grid=False)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,kw", [
+    ("f32", dict(causal=True)),
+    ("f32", dict(causal=True, window=64)),
+    ("bf16", dict(causal=True)),
+], ids=["f32-causal", "f32-window", "bf16-causal"])
+def test_full_grid_matches_reference(dtype, kw):
+    """The reference's own cases (tests/test_quant_attention.py): at (1,
+    256, 2, 32) the full grid walks all 16 (q, k) block steps of 64, the
+    bounded causal one 10 (fewer under the window), and both give the
+    same output; the port's bound_grid=False matches the reference's
+    (f32 within 1e-5, bf16 within 2^-7 max|v| as test_bf16_plain_matches
+    _pallas states) and equals its own bounded call bit for bit."""
+    q, k, v = _qkv(11, 1, 256, 256, 2, 2, 32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(jattn.mma_flash_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), block_q=64, block_k=64,
+        bound_grid=False, out_dtype=jnp.float32, interpret=True, **kw))
+    tq, tk, tv = (_t(a).to(tdt) for a in (q, k, v))
+    full = tattn.mma_flash_attention(tq, tk, tv, bound_grid=False,
+                                     out_dtype=torch.float32, **kw)
+    bounded = tattn.mma_flash_attention(tq, tk, tv,
+                                        out_dtype=torch.float32, **kw)
+    assert torch.equal(full, bounded)
+    tol = 1e-5 if dtype == "f32" else 2.0 ** -7 * np.abs(v).max()
+    np.testing.assert_allclose(full.numpy(), want, rtol=tol, atol=tol)
+    steps = {bound: tattn.attn_grid_plan(256, 256, 64, 64, bound=bound,
+                                         **kw).shape[1]
+             for bound in (True, False)}
+    assert steps == {bound: jattn.attn_grid_plan(256, 256, 64, 64,
+                                                 bound=bound, **kw).shape[1]
+                     for bound in (True, False)}
+    assert steps[False] == 16
+    assert steps[True] == (10 if "window" not in kw else
+                           tattn.attn_live_steps(256, 256, 64, 64, **kw))
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True, q_offset=200),
+                                dict(causal=False, q_offset=1000,
+                                     window=300)],
+                         ids=["causal", "window"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_grid_split_kv(kw, dtype):
+    """Split-KV (Sq <= 64) on the full grid: the splits partition all
+    ceil(Sk / 64) blocks.  Causal, the live range starts at block 0, so
+    the live blocks fall into the same splits and the splits past the
+    diagonal hold only dead blocks, which weigh 0: bit for bit the bounded
+    launch.  Under a window the live range starts later, the splits group
+    it otherwise and round P against other maxima: within twice the
+    kernel's rounding budget of the bounded launch, each within the budget
+    of the oracle."""
+    q, k, v = _qkv(12, 2, 4, 1024, 4, 2, 32)
+    tq, tk, tv = (_t(a).to(dtype) for a in (q, k, v))
+    f32 = dtype == torch.float32
+    _, n_split, per = tattn.attn_plan(2, 4, 4, 1024, 32, f32)
+    assert n_split > 1
+    full = tattn.mma_flash_attention(tq, tk, tv, bound_grid=False,
+                                     out_dtype=torch.float32, **kw)
+    bounded = tattn.mma_flash_attention(tq, tk, tv,
+                                        out_dtype=torch.float32, **kw)
+    budget = tattn.rounding_budget(tq, tk, tv, **kw)
+    oracle = tattn.ref_attention(tq, tk, tv, **kw)
+    assert bool(((full - oracle).abs() <= budget).all())
+    if "window" in kw:
+        assert bool(((full - bounded).abs() <= 2 * budget).all())
+    else:
+        assert torch.equal(full, bounded)
+    assert torch.equal(full, tattn.flash_attention_splitkv_plain(
+        tq, tk, tv, n_split=n_split, per=per, bound_grid=False,
+        out_dtype=torch.float32, **kw))
+
+
+def test_full_grid_under_autograd():
+    """The autograd Function hands bound_grid to the forward (the
+    backward differentiates the torch lowering, which has no schedule):
+    the same output and gradients as the bounded call."""
+    q, k, v = _qkv(13, 1, 64, 64, 2, 2, 16)
+    grads = []
+    for bound in (True, False):
+        tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+        out = tattn.mma_flash_attention(tq, tk, tv, causal=True,
+                                        bound_grid=bound)
+        out.square().sum().backward()
+        grads.append((out.detach(), tq.grad, tk.grad, tv.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))

@@ -960,7 +960,7 @@ def test_new_kernels_raise_on_build_or_launch_failure(gen, monkeypatch,
     rc = fn(x.data_ptr(), y.data_ptr(), None, None, None,   # no masks
             None, None, None, out.data_ptr(),
             7, 3, 1, 8, 8, 64, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0,
-            torch.cuda.current_stream().cuda_stream)    # family 7: refused
+            torch.cuda.current_stream().cuda_stream, 0)  # family 7: refused
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check(lib, rc, "gemm_imma")
     monkeypatch.setattr(G, "_FNS", {})
@@ -1105,10 +1105,10 @@ def test_packed_imma_x_bitwise(gen, m):
 
 
 def test_packed_panels_demote_where_the_path_reads_none(gen):
-    """On the card too, panels whose path reads none (F64GER's DMMA
-    kernel) are demoted by the wrapper, once, counted, and launch as the
-    natural call; an explicit block's WMMA tile and F32GER's conv on the
-    fp32 tile read theirs (K1d, K3) and demote nothing."""
+    """No path demotes: an explicit block's WMMA tile, F64GER's DMMA
+    kernel (Y panels, and X and Y panels at once) and F32GER's conv on
+    the fp32 tile read their panels (K1d, K3), each a packed launch bit
+    for bit the natural one, and the wrapper demotes nothing."""
     from repro_torch.core import packing
     x = _randn(gen, 100, 256)
     w = _randn(gen, 256, 136, scale=256 ** -0.5)
@@ -1118,10 +1118,19 @@ def test_packed_panels_demote_where_the_path_reads_none(gen):
                     lambda: G.mma_gemm(x, po.data, block=(64, 64, 64),
                                        y_layout=po.layout), "wmma")
     p64 = _packed_like(w.double(), Ger.F64GER)
+    px64 = packing.pack_gemm(x.double(), packing.gemm_layout(
+        Ger.F64GER, 100, 256, side="x"))
+    packed = G.mma_gemm.packed_launches_by_path["dmma"]
     _same_path_bits(lambda: G.mma_gemm(x.double(), w.double(),
                                        kind=Ger.F64GER),
                     lambda: G.mma_gemm(x.double(), p64.data, kind=Ger.F64GER,
                                        y_layout=p64.layout), "dmma")
+    _same_path_bits(lambda: G.mma_gemm(x.double(), w.double(),
+                                       kind=Ger.F64GER),
+                    lambda: G.mma_gemm(px64.data, p64.data, kind=Ger.F64GER,
+                                       x_layout=px64.layout,
+                                       y_layout=p64.layout), "dmma")
+    assert G.mma_gemm.packed_launches_by_path["dmma"] == packed + 2
     img = torch.randn(1, 8, 8, 4, generator=gen, device="cuda")
     wc = torch.randn(3, 3, 4, 72, generator=gen, device="cuda")
     pc = packing.pack_conv(wc, packing.conv_layout(Ger.F32GER, 3, 3, 4, 72))
@@ -1131,8 +1140,8 @@ def test_packed_panels_demote_where_the_path_reads_none(gen):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert K.mma_conv2d.launches_by_path["f32"] == before + 2
-    assert [e["why"] for e in packing.EVENTS if e["event"] == "demote"] == [
-        "dmma-tile-reads-no-panels"]
+    assert [e for e in packing.EVENTS if e["event"] == "demote"] == []
+    assert packing.COUNTERS["demote"] == 0
 
 
 @pytest.mark.parametrize("name", ["whisper-conv2", "qwen2-vl-patch"])
@@ -1665,7 +1674,7 @@ def test_packed_conv_wmma_f32_bitwise(gen, kind, name):
 
 def test_packed_launch_raises_on_bad_build_or_launch(gen, monkeypatch,
                                                      tmp_path):
-    """mma_gemm_packed_launch refuses a tile it is not built for and a
+    """mma_gemm_launch with Y panels refuses a tile it is not built for and a
     misaligned panel pointer (the wrapper raises through _build.check);
     a source that does not build raises; nothing counts a launch."""
     from repro_torch.kernels import _build
@@ -1673,14 +1682,14 @@ def test_packed_launch_raises_on_bad_build_or_launch(gen, monkeypatch,
     w = _randn(gen, 128, 64)
     po = _packed_like(w, Ger.BF16GER2)
     G.mma_gemm(x, po.data, block=(64, 64, 64), y_layout=po.layout)
-    lib, fn = G._FNS["mma_gemm.packed"]
+    lib, fn = G._FNS["mma_gemm"]
     out = torch.empty((64, 64), dtype=torch.float32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     for bm, shift in ((32, 0), (64, 2)):       # no such tile; misaligned
         rc = fn(x.data_ptr(), po.data.data_ptr() + shift, None, None, None,
                 None, None, None, out.data_ptr(), 1, 0, 0, 0, 0, 1, 64, 64,
                 128, 0, 0, 0, 0, 0, 1.0, 1.0, 0, 0, 0, bm, 64, 64, None,
-                None, stream)
+                None, stream, 2)
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.check(lib, rc, "mma_gemm (packed)")
     monkeypatch.setattr(G, "_FNS", {})
@@ -1742,3 +1751,160 @@ def test_tuned_stream_split_row_does_not_depend_on_the_batch(gen,
         four = facility.contract("mk,kn->mn", x, w)
     torch.cuda.synchronize()
     assert torch.equal(one[0], four[0])
+
+
+# ----------------------------------------------------------------------
+# K1d on every path: X and Y panels on DMMA, IMMA, the weight stream, the
+# wgmma tile and the WMMA/fp32 tiles, masked, batched and shared; and
+# K2d, the attention kernel's full grid
+# ----------------------------------------------------------------------
+
+# name: (family, path, (M, K, N), explicit block)
+_K1D = {
+    "dmma": (Ger.F64GER, "dmma", (100, 136, 72), None),
+    "dmma-512": (Ger.F64GER, "dmma", (512, 512, 512), None),
+    "imma-i8": (Ger.I8GER4, "imma", (300, 200, 260), None),
+    "imma-i16": (Ger.I16GER2, "imma", (300, 200, 260), None),
+    "stream": (Ger.BF16GER2, "stream", (4, 4096, 11008), None),
+    "stream-fringe": (Ger.BF16GER2, "stream", (30, 200, 1000), None),
+    "wgmma": (Ger.BF16GER2, "wgmma", (1024, 4096, 11008), None),
+    "wgmma-fringe": (Ger.BF16GER2, "wgmma", (300, 200, 1000), None),
+    "wmma-128": (Ger.BF16GER2, "wmma", (256, 200, 1000), (128, 128, 32)),
+    "wmma-64": (Ger.BF16GER2, "wmma", (100, 136, 72), (64, 64, 64)),
+    "f32": (Ger.F32GER, "wmma", (130, 100, 200), None),
+    "stream-f16": (Ger.F16GER2, "stream", (30, 200, 1000), None),
+    "wgmma-f16": (Ger.F16GER2, "wgmma", (300, 200, 1000), None),
+    "wmma-f16": (Ger.F16GER2, "wmma", (100, 136, 72), (64, 64, 64)),
+}
+_K1D_CASES = [(name, side, form)
+              for name, (_, path, _, _) in _K1D.items()
+              for side in ("x", "y", "both")
+              for form in ("plain", "batched", "shared")
+              + (("masked",) if path in G.MASKED_PATHS else ())]
+
+
+def _family_operand(gen, kind, shape, which):
+    """A random operand in ``kind``'s input dtype: full-range integers for
+    the integer families, unit normals scaled by K^-1/2 on y otherwise."""
+    pol = precision.policy(kind)
+    dt = pol.x_dtype if which == "x" else pol.y_dtype
+    if pol.is_integer:
+        info = torch.iinfo(dt)
+        return torch.randint(info.min, info.max + 1, shape, generator=gen,
+                             device="cuda", dtype=torch.int32).to(dt)
+    scale = 1.0 if which == "x" else shape[-2] ** -0.5
+    return (torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.float64) * scale).to(dt)
+
+
+@pytest.mark.parametrize("name,side,form", _K1D_CASES)
+def test_k1d_panels_on_every_path(gen, name, side, form):
+    """Each path on packed X panels, Y panels or both: ``plain`` (with the
+    ABFT sidecar where the path has one, the sums bit for bit too),
+    ``batched`` (B = 3, batched panels), ``shared`` (the packed operand
+    without a batch axis beside a batched one: batch stride 0) and
+    ``masked`` (NaN and Inf in every disabled lane of a float family):
+    the packed launch on the path the natural call takes, bit for bit the
+    natural launch, counted as packed, with no demote."""
+    from repro_torch.core import packing
+    kind, path, (m, k, n), block = _K1D[name]
+    pol = precision.policy(kind)
+    lead = (3,) if form in ("batched", "shared") else ()
+    shared = ("x" if side == "x" else "y") if form == "shared" else None
+    x = _family_operand(gen, kind, (() if shared == "x" else lead)
+                        + (m, k), "x")
+    y = _family_operand(gen, kind, (() if shared == "y" else lead)
+                        + (k, n), "y")
+    masks = None
+    if form == "masked":
+        masks = _lane_masks(gen, m, n, k)
+        if not pol.is_integer:
+            x[~masks[0], :] = float("nan")
+            y[:, ~masks[1]] = float("inf")
+            y[~masks[2], :] = float("nan")
+    packs = {}
+    for s, t in (("x", x), ("y", y)):
+        if side in (s, "both"):
+            rows, cols = t.shape[-2:]
+            packs[s] = packing.pack_gemm(t, packing.gemm_layout(
+                kind, rows, cols, side=s, batched=t.ndim == 3))
+    nx, ny = (t.expand(lead + tuple(t.shape)).contiguous() if t.ndim == 2
+              and lead else t for t in (x, y))
+    checksum = path in G.SIDECAR_PATHS and masks is None
+    kw = dict(kind=kind, block=block, masks=masks, checksum=checksum)
+    packing.clear_state()
+    packed_before = G.mma_gemm.packed_launches_by_path[path]
+    before = dict(G.mma_gemm.launches_by_path)
+    want = G.mma_gemm(nx, ny, **kw)
+    got = G.mma_gemm(
+        packs["x"].data if "x" in packs else x,
+        packs["y"].data if "y" in packs else y,
+        x_layout=packs["x"].layout if "x" in packs else None,
+        y_layout=packs["y"].layout if "y" in packs else None, **kw)
+    torch.cuda.synchronize()
+    assert G.mma_gemm.launches_by_path[path] == before[path] + 2
+    assert G.mma_gemm.packed_launches_by_path[path] == packed_before + 1
+    assert packing.COUNTERS["demote"] == 0
+    if checksum:
+        assert all(torch.equal(a, c) for a, c in zip(got, want))
+        got = got[0]
+    else:
+        assert torch.equal(got, want)
+    if not pol.is_integer:
+        assert bool(torch.isfinite(got).all())
+
+
+# name: (dtype, (B, S, H, D), Sq, kwargs): Sq = S but for the split-KV
+# cases (one short query over a long cache)
+_K2D = {
+    "tile-causal": (torch.bfloat16, (1, 256, 32, 128), None,
+                    dict(causal=True)),
+    "tile-causal-512": (torch.bfloat16, (2, 512, 4, 64), None,
+                        dict(causal=True)),
+    "tile-window": (torch.bfloat16, (1, 512, 8, 64), None,
+                    dict(causal=True, window=128)),
+    "f32-tile-causal": (torch.float32, (1, 256, 4, 64), None,
+                        dict(causal=True)),
+    "f32-tile-window": (torch.float32, (1, 512, 4, 64), None,
+                        dict(causal=True, window=128)),
+    "split-causal": (torch.bfloat16, (1, 4096, 32, 128), 4,
+                     dict(causal=True, q_offset=1000)),
+    "split-window": (torch.bfloat16, (1, 4096, 32, 128), 4,
+                     dict(causal=True, q_offset=4092, window=1500)),
+    "f32-split-causal": (torch.float32, (1, 2048, 8, 64), 4,
+                         dict(causal=True, q_offset=500)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_K2D))
+def test_full_grid_attention(gen, name):
+    """K2d: bound_grid=False walks every KV block (counted in
+    full_grid_launches).  On the tile modes, and in split-KV mode where
+    the live range starts at block 0, it is the bounded launch bit for
+    bit (a dead block leaves the state untouched, a dead split weighs 0);
+    under a window the split-KV partials group otherwise, within twice
+    the rounding budget of the bounded launch.  Both within the budget of
+    the plain version."""
+    dt, (b, s, h, d), sq, kw = _K2D[name]
+    sq = sq or s
+    q = _randn(gen, b, sq, h, d, dtype=dt)
+    k = _randn(gen, b, s, h, d, dtype=dt)
+    v = _randn(gen, b, s, h, d, dtype=dt)
+    full_before = A.mma_flash_attention.full_grid_launches
+    bounded = A.mma_flash_attention(q, k, v, out_dtype=torch.float32, **kw)
+    full = A.mma_flash_attention(q, k, v, out_dtype=torch.float32,
+                                 bound_grid=False, **kw)
+    torch.cuda.synchronize()
+    assert A.mma_flash_attention.full_grid_launches == full_before + 1
+    budget = A.rounding_budget(q, k, v, **kw)
+    _, n_split, per = A.attn_plan(b, h, sq, s, d, dt == torch.float32)
+    if n_split > 1 and "window" in kw:
+        assert bool(((full - bounded).abs()
+                     <= 2 * budget + 2.0 ** -20).all())
+    else:
+        assert torch.equal(full, bounded)
+    plain = (A.flash_attention_splitkv_plain(
+        q, k, v, n_split=n_split, per=per, bound_grid=False,
+        out_dtype=torch.float32, **kw) if n_split > 1
+        else A.flash_attention_plain(q, k, v, out_dtype=torch.float32, **kw))
+    _assert_attn_close(full, plain, budget)

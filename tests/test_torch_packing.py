@@ -11,9 +11,10 @@ Held here:
     kernel (its plain versions on the CPU), torch and ref backends, 2-D
     products and MoE banks, the 1-D and 2-D conv specs, ``quant.qdot``;
   * the counters: a steady-state packed loop makes no pack, repack or
-    demote; a panel mismatch repacks once; the torch/ref backends, paths
-    that read no panels (F32GER's WMMA tile, an explicit block) demote
-    once a call, counted, with a reason;
+    demote; a panel mismatch repacks once; the torch/ref backends demote
+    once a call, counted, with a reason; every kernel path reads the
+    panels (F32GER's WMMA tile, an explicit block, F64GER's DMMA kernel,
+    IMMA in I16GER2), so none demotes;
   * ``prepack_params_for_serving`` on port models: its skip rules, its
     stats against the reference's on the same reduced models (the port's
     layers are unstacked: counts are the reference's times the layers,
@@ -244,26 +245,32 @@ def test_packed_conv_bitwise(backend, spec, wshape, stride):
 
 def test_paths_without_panels_demote_once_counted():
     """F32GER runs the WMMA fp32 tile, an explicit block names a WMMA
-    tile, F32GER's conv runs the fp32 tile: each reads packed panels (K1d,
-    K3), so none demotes, and each gives the natural bits.  The DMMA
-    kernel (F64GER) reads none: its call demotes once, counted, with its
-    reason, and gives the natural bits too."""
+    tile, F32GER's conv runs the fp32 tile, F64GER runs the DMMA kernel
+    and I16GER2 the IMMA kernel: each reads packed panels (K1d, K3), Y
+    side and X side alike, so none demotes, and each gives the natural
+    bits."""
     x = _t(_rand((100, 64), 7))
     w = _t(_rand((64, 136), 8))
     po = packing.pack_gemm(w, packing.gemm_layout(Ger.F32GER, 64, 136))
     w64 = w.double()
     po64 = packing.pack_gemm(w64, packing.gemm_layout(Ger.F64GER, 64, 136))
-    cases = [(tfac.Plan(ger=Ger.F32GER), w, po, []),
-             (tfac.Plan(block=(64, 64, 64)), w, po, []),
-             (tfac.Plan(ger=Ger.F64GER), w64, po64,
-              ["dmma-tile-reads-no-panels"])]
+    px64 = packing.pack_gemm(x.double(), packing.gemm_layout(
+        Ger.F64GER, 100, 64, side="x"))
+    w16 = (w * 300).to(torch.int16)
+    po16 = packing.pack_gemm(w16, packing.gemm_layout(Ger.I16GER2, 64, 136))
+    cases = [(tfac.Plan(ger=Ger.F32GER), x, w, x, po),
+             (tfac.Plan(block=(64, 64, 64)), x, w, x, po),
+             (tfac.Plan(ger=Ger.F64GER), x.double(), w64, x.double(), po64),
+             (tfac.Plan(ger=Ger.F64GER), x.double(), w64, px64, po64),
+             (tfac.Plan(ger=Ger.I16GER2, out_dtype=tfac.ACC),
+              (x * 300).to(torch.int16), w16, (x * 300).to(torch.int16),
+              po16)]
     with tfac.configure(CPU):
-        for plan, nat, pk, why in cases:
-            xx = x.double() if nat is w64 else x
+        for plan, xx, nat, px, pk in cases:
             packing.EVENTS.clear()
             assert torch.equal(tfac.contract("mk,kn->mn", xx, nat, plan=plan),
-                               tfac.contract("mk,kn->mn", xx, pk, plan=plan))
-            assert [e["why"] for e in packing.EVENTS] == why
+                               tfac.contract("mk,kn->mn", px, pk, plan=plan))
+            assert [e["why"] for e in packing.EVENTS] == []
         img = _t(_rand((1, 8, 8, 4), 9))
         wc = _t(_rand((3, 3, 4, 8), 10))
         pc = packing.pack_conv(wc, packing.conv_layout(Ger.F32GER, 3, 3, 4,
@@ -273,7 +280,7 @@ def test_paths_without_panels_demote_once_counted():
         assert torch.equal(tfac.contract(tfac.CONV2D, img, wc, plan=plan),
                            tfac.contract(tfac.CONV2D, img, pc, plan=plan))
         assert [e["why"] for e in packing.EVENTS] == []
-    assert packing.COUNTERS["demote"] == 1
+    assert packing.COUNTERS["demote"] == 0
 
 
 def test_admission_demotes_what_cannot_ride_packed():
@@ -379,9 +386,9 @@ def test_panel_mismatch_repacks_once():
 
 def test_wrapper_refuses_stale_or_unread_panels():
     """The wrapper refuses a stale layout (it never reads stale panels);
-    an explicit block names a WMMA tile, which reads the panels (K1d); on
-    a path that reads none (F64GER's DMMA kernel) it does not read them
-    either: it demotes them, counted, once, and gives the natural bits."""
+    an explicit block names a WMMA tile, which reads the panels (K1d); so
+    does F64GER's DMMA kernel, on either side or both, masked too: no
+    demote event, the natural bits."""
     w = torch.ones(64, 128, dtype=torch.bfloat16)
     stale = packing.GemmLayout(kind=Ger.BF16GER2, block=(8, 128, 32),
                                side="y", rows=64, cols=128)
@@ -400,16 +407,23 @@ def test_wrapper_refuses_stale_or_unread_panels():
     w64 = _t(_rand((64, 128), 31)).double()
     p64 = packing.pack_gemm(w64, packing.gemm_layout(Ger.F64GER, 64, 128))
     x64 = x.double()
+    px64 = packing.pack_gemm(x64, packing.gemm_layout(Ger.F64GER, 100, 64,
+                                                      side="x"))
+    masks = (torch.arange(100) % 3 > 0, torch.arange(128) % 5 > 0,
+             torch.arange(64) % 7 > 0)
     packing.EVENTS.clear()
-    assert torch.equal(
-        tgemm.mma_gemm(x64, w64, kind=Ger.F64GER),
-        tgemm.mma_gemm(x64, p64.data, kind=Ger.F64GER, y_layout=p64.layout))
-    assert [(e["event"], e["why"]) for e in packing.EVENTS] == [
-        ("demote", "dmma-tile-reads-no-panels")]
+    for mk in (None, masks):
+        want = tgemm.mma_gemm(x64, w64, kind=Ger.F64GER, masks=mk)
+        assert torch.equal(want, tgemm.mma_gemm(
+            x64, p64.data, kind=Ger.F64GER, y_layout=p64.layout, masks=mk))
+        assert torch.equal(want, tgemm.mma_gemm(
+            px64.data, p64.data, kind=Ger.F64GER, x_layout=px64.layout,
+            y_layout=p64.layout, masks=mk))
+    assert list(packing.EVENTS) == []
     want = tgemm.mma_gemm(x, w)
     assert torch.equal(want, tgemm.mma_gemm(x, fresh.data,
                                             y_layout=fresh.layout))
-    assert packing.COUNTERS["demote"] == 1
+    assert packing.COUNTERS["demote"] == 0
 
 
 def test_demote_refuses_a_quantized_operand_without_its_scale():
