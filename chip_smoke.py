@@ -130,10 +130,20 @@ Phases, each of which must pass or the script exits nonzero:
      (before phase 7 packs it), and two train steps of deepseek-7b at 4
      layers through ``launch.train.build(..., ger=F32GER,
      out_dtype=float32)``: each run's launches held to the per-call model,
-     every GEMM on the fp32 WMMA tile and every attention on the fp32 tile
-     (tile or split-KV, counted by mode), the logits (and step-1 loss and
-     gradients) against the eager torch backend in the same config within
-     ``F32_TOL``; then masked products through ``facility.contract(masks=)``
+     every GEMM on its fp32 path (the wrapper's trace: the fp32 weight
+     stream at M <= 64, the fp32 SIMT tile above, never the tensor cores)
+     and every attention on the fp32 tile (tile or split-KV, counted by
+     mode), the logits (and step-1 loss and gradients) against the eager
+     torch backend in the same config within ``F32_TOL``, and one more
+     train step profiled, split into GEMM, other device work and host;
+     then F32GER's two GEMM kernels at the runs' shapes (each row bucket,
+     deepseek-7b's decode and prefill products and logits, whisper's
+     unaligned logits, fringes, forms, a batch): each against the plain
+     version of its path with TF32 off and the TF32 control refused (the
+     plain version on TF32-rounded operands outside the tolerance), a
+     decode row bit for bit at batch 1 and 4, packed Y bit for bit,
+     timed beside the plain version, ``torch.matmul`` f32 and the bound;
+     then masked products through ``facility.contract(masks=)``
      and ``kernels.ops.mma_pm_dot`` at deepseek-7b's MLP shapes (and
      F32GER, I8GER4, F64GER and a batched F32GER product with a seed),
      launches counted by path, each held against its plain version with
@@ -178,8 +188,10 @@ Phases, each of which must pass or the script exits nonzero:
      they did before.  Its runs, each counts zeroed just before and read
      just after: right after phase 8's F32GER serve, deepseek-7b in the
      tight-parity config served prepacked (fp32 panels): every output bit
-     for bit that serve's, no pack, repack or demote, every GEMM on the
-     WMMA fp32 tile reading panels, decode tok/s of both; right after
+     for bit that serve's, no pack, repack or demote, every GEMM reading
+     panels on its fp32 path (decode's on the fp32 stream, prefill's on
+     the fp32 tile), decode tok/s of both, and one decode step profiled,
+     split into GEMM, other device work and host; right after
      phase 8's whisper-small generation, the same prepacked: prefill and
      8 steps bit for bit, the stem's convs on K3's fp32 tile reading
      packed filters; after phase 7's serves of deepseek-7b, every GEMM and
@@ -192,7 +204,8 @@ Phases, each of which must pass or the script exits nonzero:
      host us of one ``contract`` call on the empty cache beside the full
      one.  Then every packed WMMA/fp32 mode through ``facility.contract``
      (explicit tiles at decode 4 x 4096 x 11008 and prefill 1024 x 4096 x
-     11008, F32GER at both, the unaligned 1024 x 768 x 51865, masked bf16
+     11008, F32GER at both (decode on the fp32 weight stream), the
+     unaligned 1024 x 768 x 51865, masked bf16
      and F32GER with NaN and Inf in disabled lanes, M/N/K fringes; K3's
      WMMA and fp32 tiles at whisper's conv2 and qwen2-vl's patch embed):
      packed bit for bit natural and against the plain version, the
@@ -231,7 +244,9 @@ phase 6's IMMA and DMMA entries their ``shapes``, the GEMM's entry
 packed modes their ``natural_ms`` and ``launches_by_run`` over its runs,
 the packed stream's ``host_us`` natural beside packed; phase 8's masked
 entries their ``unmasked_ms``, ``default_ms`` and ``timed`` cases, its
-f32 attention entries ``launches_by_run`` over the F32GER runs;
+f32 attention entries and its F32GER GEMM entries (the fp32 stream, the
+fp32 tile: ``timed`` cases with their TF32 control readings)
+``launches_by_run`` over the F32GER runs;
 ``max_abs_err`` covers the runs' shapes, training's included; phase 9's
 sidecar entries their ``off_ms``, ``timed`` shapes and
 ``launches_by_run`` over its runs, its padded attention entry its
@@ -1570,7 +1585,8 @@ def step_breakdown(torch, cfg, prefill, decode, what):
 
 # The __global__ functions of src/repro_torch/csrc, as the profiler names
 # them.
-PORT_KERNELS = ("gemm_stream_kernel", "gemm_wgmma_kernel",
+PORT_KERNELS = ("gemm_stream_kernel", "gemm_stream_f32_kernel",
+                "gemm_wgmma_kernel",
                 "gemm_wmma_kernel", "gemm_f32_kernel", "flash_wgmma_kernel",
                 "flash_combine_kernel", "depthwise_vec_kernel",
                 "depthwise_conv_kernel", "conv_wgmma_kernel",
@@ -1614,6 +1630,47 @@ def profile_step(torch, step, fn, step_ms):
         print(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} "
               f"{key[:90]}")
     return busy, max(0.0, 1 - busy / step_ms)
+
+
+# The GEMM's kernels, as the profiler names them.
+GEMM_KERNELS = ("gemm_stream_kernel", "gemm_stream_f32_kernel",
+                "gemm_wgmma_kernel", "gemm_wmma_kernel", "gemm_f32_kernel",
+                "gemm_imma_kernel", "gemm_dmma_kernel")
+
+
+def gemm_split(torch, label, fn, step_ms):
+    """One call of ``fn`` under torch.profiler, its unprofiled host-clock
+    time ``step_ms`` split three ways: the GEMM kernels' device time
+    (GEMM_KERNELS), the rest of the device's busy time, and the host (the
+    step's time the device idles).  Returns the three in ms, or None where
+    the profiler recorded no device time."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    gemm = other = 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = max(getattr(ev, "device_time_total", 0),
+                 getattr(ev, "self_device_time_total", 0)) / 1e3
+        name = re.split(r"[<(]", ev.key)[0].split()[-1]
+        if name in GEMM_KERNELS:
+            gemm += ms
+        else:
+            other += ms
+    if gemm + other == 0:
+        print(f"  profiler: no device time recorded for the {label} (not "
+              f"measured)")
+        return None
+    host = max(0.0, step_ms - gemm - other)
+    print(f"  split {label}: {step_ms:.2f} ms (host clock) = GEMM "
+          f"{gemm:.2f} ms ({100 * gemm / step_ms:.1f}%) + other device "
+          f"{other:.2f} ms ({100 * other / step_ms:.1f}%) + host (device "
+          f"idle) {host:.2f} ms ({100 * host / step_ms:.1f}%)")
+    return {"step_ms": step_ms, "gemm_ms": gemm, "other_device_ms": other,
+            "host_ms": host}
 
 
 def mm_batch(cfg, settings, batch):
@@ -3017,19 +3074,48 @@ def f32_config(torch, **kw):
                                    out_dtype=torch.float32, **kw)
 
 
-def check_f32_counts(failures, run, counts, model_counts, modes):
-    """A phase-8 F32GER run's launches: the per-call model's counts, every
-    GEMM on the WMMA tile (F32GER's fp32 FMAs) and attention's by mode
-    (the fp32 tile, K2e)."""
+@contextlib.contextmanager
+def tracing_gemm():
+    """The GEMM wrapper's trace of (batch, M, K, N, dtype, out dtype,
+    path) a launch while the block runs (a list, yielded)."""
+    from repro_torch.kernels import mma_gemm as G
+    G.mma_gemm.trace = []
+    try:
+        yield G.mma_gemm.trace
+    finally:
+        G.mma_gemm.trace = None
+
+
+def f32_path_of(m, k) -> str:
+    """Where an unmasked F32GER product runs on the card: the fp32 weight
+    stream at M <= 64 (K of at least one MMA step), else the fp32 tile
+    (the "wmma" path's F32GER tiles)."""
+    from repro_torch.core import tiling
+    return ("stream" if m <= tiling.STREAM_MAX_M and k >= tiling.MIN_K
+            else "wmma")
+
+
+def check_f32_counts(failures, run, counts, model_counts, modes, trace):
+    """A phase-8 F32GER run's launches: the per-call model's counts, each
+    GEMM (``trace``: the wrapper's record of every launch) on its fp32
+    path, the stream at M <= 64 and the fp32 tile above (``f32_path_of``,
+    never a tensor-core path), and attention's by mode (the fp32 tile,
+    K2e)."""
     gemm = counts["by_path"]["mma_gemm"]
-    off = {p: n for p, n in gemm.items() if p != "wmma" and n}
+    off = sorted({(b, m, k, n, path) for b, m, k, n, dt, _, path in trace
+                  if path != f32_path_of(m, k) or str(dt) != "torch.float32"},
+                 key=str)
     got_modes = {m: n for m, n in counts["attn_by_mode"].items() if n}
-    ok = counts["launches"] == model_counts and not off \
-        and got_modes == modes
+    ok = (counts["launches"] == model_counts and not off
+          and len(trace) == counts["launches"]["mma_gemm"]
+          and got_modes == modes)
     print(f"  [{'ok' if ok else 'FAIL'}] phase 8: {run}: launches "
           f"{counts['launches']} (per-call model {model_counts}); GEMM by "
-          f"path {gemm}; attention by mode {got_modes} (want {modes}); "
-          f"conv by path {counts['by_path']['mma_conv2d']}")
+          f"path {gemm}, each of the {len(trace)} on its fp32 path (stream "
+          f"at M <= 64, the fp32 tile above)"
+          + (f"; off path: {off[:8]}" if off else "")
+          + f"; attention by mode {got_modes} (want {modes}); conv by path "
+          f"{counts['by_path']['mma_conv2d']}")
     if not ok:
         failures.append(f"{run} launches")
     PHASE8[run] = counts
@@ -3074,8 +3160,9 @@ def _greedy(torch, model, cfg, batch, seq_len, gen, fcfg, tokens):
 
 def f32_serve(torch, failures, model, cfg):
     """(a) deepseek-7b served through serve_loop in the tight-parity
-    config, launches held to the per-call model with every GEMM on the
-    WMMA tile and every prefill attention on K2e's fp32 tile; then a
+    config, launches held to the per-call model with every GEMM on its
+    fp32 path (decode's on the weight stream, the 256-token prefills' on
+    the fp32 tile) and every prefill attention on K2e's fp32 tile; then a
     batch-4 prompt of 256 tokens through prefill and F32_SERVE's decode
     steps, greedy on the kernel backend and teacher-forced with its tokens
     on the eager torch backend: the prefill's and the last step's logits
@@ -3089,7 +3176,8 @@ def f32_serve(torch, failures, model, cfg):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rec = []
-    with facility.configure(f32_config(torch)), recording_steps(rec):
+    with facility.configure(f32_config(torch)), recording_steps(rec), \
+            tracing_gemm() as trace:
         zero_counts(kernels)
         stats = S.serve_loop(cfg, model, **F32_SERVE)
         torch.cuda.synchronize()
@@ -3100,7 +3188,7 @@ def f32_serve(torch, failures, model, cfg):
     model_counts = {k: pre * want["prefill"].get(k, 0)
                     + steps * want["decode"].get(k, 0) for k in kernels}
     check_f32_counts(failures, run, counts, model_counts,
-                     {"f32_tile": pre * cfg.num_layers})
+                     {"f32_tile": pre * cfg.num_layers}, trace)
     if pre != F32_SERVE["n_requests"]:
         failures.append(f"{run}: served {pre} of "
                         f"{F32_SERVE['n_requests']} requests")
@@ -3128,7 +3216,9 @@ def f32_generate(torch, failures, model, cfg):
     3000 mel frames (the encoder's attention on the fp32 tile, the
     decoder's cross-attention on fp32 split-KV), the handoff and
     F32_GEN's greedy decode steps (each step's cross-attention on fp32
-    split-KV), launches held to the per-call model; then the same inputs,
+    split-KV), launches held to the per-call model, each GEMM on its fp32
+    path (the encoder's on the fp32 tile, the decoder's 16-row prefill
+    and 4-row steps on the weight stream); then the same inputs,
     teacher-forced, on the eager torch backend: the prefill's and the
     last step's logits within F32_TOL."""
     b, gen = F32_GEN["batch"], F32_GEN["gen_len"]
@@ -3139,11 +3229,12 @@ def f32_generate(torch, failures, model, cfg):
     tokens = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    zero_counts(kernels)
-    got = _greedy(torch, model, cfg, batch, seq_len, gen, f32_config(torch),
-                  tokens)
-    torch.cuda.synchronize()
-    counts = read_counts(kernels)
+    with tracing_gemm() as trace:
+        zero_counts(kernels)
+        got = _greedy(torch, model, cfg, batch, seq_len, gen,
+                      f32_config(torch), tokens)
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
     t1 = time.perf_counter()
     model_counts = {k: want["prefill"].get(k, 0)
                     + gen * want["decode"].get(k, 0) for k in kernels}
@@ -3152,7 +3243,7 @@ def f32_generate(torch, failures, model, cfg):
           f"{t1 - t0:.2f} s; first request's tokens "
           f"{torch.cat(tokens, 1)[0].tolist()}")
     check_f32_counts(failures, run, counts, model_counts,
-                     {"f32_tile": e + n, "f32_split": n + gen * n})
+                     {"f32_tile": e + n, "f32_split": n + gen * n}, trace)
     ref = _greedy(torch, model, cfg, batch, seq_len, gen,
                   f32_config(torch, backend="torch"), tokens)
     PHASE8[run]["rel_l2"] = [
@@ -3167,8 +3258,9 @@ def f32_train(torch, failures):
     every gradient leaf on the kernel backend within F32_TOL of the eager
     torch backend's (same config, same weights), then two steps with the
     launches held to the per-step model (every GEMM, backward included, on
-    the WMMA tile; the forward's attention on the fp32 tile) and the loss
-    finite."""
+    the fp32 tile: all have M > 64; the forward's attention on the fp32
+    tile) and the loss finite; then one more step profiled, its time split
+    into GEMM, other device work and host (``gemm_split``)."""
     import dataclasses
 
     from repro_torch.configs import get as get_arch
@@ -3215,18 +3307,23 @@ def f32_train(torch, failures):
     per_step = {k: v for k, v in expected_train_launches(cfg).items()
                 if k != "forward_gemm"}
     torch.cuda.synchronize()
-    zero_counts(kernels)
     losses, times = [], []
-    for _ in range(st["steps"]):
-        t1 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-        losses.append(metrics["loss"].item())
-    counts = read_counts(kernels)
+    with tracing_gemm() as trace:
+        zero_counts(kernels)
+        for _ in range(st["steps"]):
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            losses.append(metrics["loss"].item())
+        counts = read_counts(kernels)
     model_counts = {k: st["steps"] * per_step.get(k, 0) for k in kernels}
     check_f32_counts(failures, run, counts, model_counts, {
-        "f32_tile": st["steps"] * per_step.get("mma_flash_attention", 0)})
+        "f32_tile": st["steps"] * per_step.get("mma_flash_attention", 0)},
+        trace)
+    PHASE8[run]["split"] = gemm_split(
+        torch, f"{run} train step", lambda: step(state, batch),
+        sorted(times)[len(times) // 2])
     finite = all(x == x and abs(x) != float("inf") for x in losses)
     print(f"  [{'ok' if finite else 'FAIL'}] phase 8: {run} losses "
           f"{losses}, step times {[round(t, 1) for t in times]} ms, peak "
@@ -3424,6 +3521,158 @@ def phase8_kernels(torch, timer, failures):
                             f"masked run")
         entries.append(e)
     return entries + phase8_attention(torch, timer, failures)
+
+
+# F32GER's GEMM kernels at the tight-parity runs' shapes: (label, batch,
+# M, K, N, forms).  Up to M = 64 the fp32 weight stream: deepseek-7b's
+# decode MLP, projections, down projection and logits, whisper-small's
+# unaligned 51865-column logits, each row bucket, fringes with the
+# accumulate forms and an epilogue, an expert-bank-like batch; above, the
+# fp32 tile: deepseek-7b's prefill MLP and projections (128 x 128) and a
+# 256-row prefill (64 x 64).
+F32_GEMM_CASES = (
+    ("decode MLP", None, 4, 4096, 11008, False),
+    ("decode projection", None, 4, 4096, 4096, False),
+    ("decode down projection", None, 4, 11008, 4096, False),
+    ("decode logits", None, 4, 4096, 102400, False),
+    ("whisper decode logits (unaligned)", None, 4, 768, 51865, False),
+    ("bucket M=1", None, 1, 4096, 11008, False),
+    ("bucket M=16", None, 16, 4096, 11008, False),
+    ("bucket M=32", None, 32, 4096, 11008, False),
+    ("bucket M=64", None, 64, 4096, 11008, False),
+    ("fringe + forms", None, 37, 202, 1001, True),
+    ("batched bank", 8, 3, 2048, 1408, False),
+    ("prefill MLP", None, 1024, 4096, 11008, False),
+    ("prefill projection", None, 1024, 4096, 4096, False),
+    ("prefill 256 rows", None, 256, 4096, 4096, False),
+    ("tile fringe + forms", None, 1000, 330, 1000, True),
+)
+
+
+def _tf32(torch, t):
+    """t rounded to TF32 (10 mantissa bits, to nearest): what a TF32
+    tensor-core product reads."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def phase8_f32_gemm(torch, timer, failures):
+    """F32GER's GEMM kernels, the fp32 weight stream (M <= 64) and the fp32
+    tile (M > 64), at F32_GEMM_CASES: each held against the plain version
+    of its path (the stream's split-K one where it splits K; TF32 off)
+    within the fp32 tolerance, and, for each plain product (no seed or
+    epilogue), the TF32 control: the same plain version on TF32-rounded
+    operands must land outside that tolerance (max err/tol above 2), or
+    the check could not tell fp32 FMAs from a TF32 product.  A decode row is the same bits at batch 1 and batch 4.
+    Each case is timed (CUDA events, L2 flushed) beside the plain
+    version, ``torch.matmul`` on f32 (TF32 off) and its bound at the fp32
+    peak; deepseek-7b's decode MLP and prefill MLP on packed Y panels too.
+    The two entries' launches are the F32GER runs' (PHASE8), by path."""
+    from repro_torch.core import facility, packing, tiling
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = facility.Ger
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+    for name, b, m, k, n, forms in F32_GEMM_CASES:
+        lead = (b,) if b else ()
+        x = torch.randn(lead + (m, k), generator=g, device="cuda")
+        y = torch.randn(lead + (k, n), generator=g, device="cuda") * k ** -0.5
+        c = None
+        kw = dict(kind=Ger.F32GER, out_dtype=torch.float32)
+        if forms:
+            c = torch.randn(lead + (m, n), generator=g, device="cuda")
+            kw.update(neg_product=True, alpha=0.5, beta=-2.0,
+                      ep=E.Epilogue(bias=True, activation="silu"),
+                      bias=torch.randn(n, generator=g, device="cuda"))
+        aligned = G.natural_aligned(x, y)
+        path, cfg = tiling.choose_gemm_path(m, n, k, Ger.F32GER, b or 1,
+                                            aligned)
+        label = (f"F32GER {name} {'%dx' % b if b else ''}{m}x{k}x{n} "
+                 f"({path}"
+                 + (f", split {cfg.split}, bn {cfg.bn})" if path == "stream"
+                    else f", {cfg.bm}x{cfg.bn})"))
+        before = G.mma_gemm.launches_by_path[path]
+        got = G.mma_gemm(x, y, c, **kw)
+        torch.cuda.synchronize()
+        if G.mma_gemm.launches_by_path[path] != before + 1 \
+                or path != f32_path_of(m, k):
+            failures.append(f"{label}: not launched on {f32_path_of(m, k)}")
+        plain = G._plain_of(path, cfg, k)
+        want = plain(x, y, c, **kw)
+        err = _report_close(torch, label, got, want, torch.float32,
+                            failures)
+        tol = 2e-5 * want.abs() + 2e-5 * want.abs().max()
+        ratios = {"budget_ratio": ((got - want).abs() / tol).max().item()}
+        if not forms:
+            # the control holds the product alone (a seed's magnitude
+            # would widen the tolerance past the product's rounding)
+            ctrl = plain(_tf32(torch, x), _tf32(torch, y), c, **kw)
+            ratios["tf32_budget_ratio"] = ((ctrl - want).abs() / tol).max(
+            ).item()
+            ok = ratios["tf32_budget_ratio"] > 2
+            print(f"  [{'ok' if ok else 'FAIL'}] control {label}: max "
+                  f"err/tol, kernel {ratios['budget_ratio']:.3f}, plain "
+                  f"version on TF32-rounded operands "
+                  f"{ratios['tf32_budget_ratio']:.3f} (must exceed 2)")
+            if not ok:
+                failures.append(f"{label}: the f32 tolerance admits TF32")
+            del ctrl
+        del want
+        if name == "decode MLP":
+            one = G.mma_gemm(x[2:3], y, **kw)
+            _check(failures, f"{label} batch 1 vs 4",
+                   torch.equal(one, got[2:3]),
+                   "a decode row the same bits at batch 1 and batch 4")
+        kw_c = dict(kw)
+        xs, ys = x, y
+        row = {"ms": timer(lambda: G.mma_gemm(xs, ys, c, **kw_c)),
+               "plain_ms": timer(lambda: plain(xs, ys, c, **kw_c)),
+               "library_ms": timer(lambda: torch.matmul(xs, ys)),
+               "path": path, **ratios}
+        if name in ("decode MLP", "prefill MLP"):
+            po = packing.pack_gemm(y, packing.gemm_layout(Ger.F32GER, k, n))
+            packed = G.mma_gemm(x, po.data, c, y_layout=po.layout, **kw)
+            _check(failures, f"{label} packed Y", torch.equal(packed, got),
+                   "bit for bit the natural launch")
+            row["packed_ms"] = timer(lambda: G.mma_gemm(
+                xs, po.data, c, y_layout=po.layout, **kw_c))
+            del po, packed
+        bb = b or 1
+        nbytes = bb * (m * k + k * n + m * n * (2 if c is not None else 1)
+                       ) * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * bb * m * n * k,
+                                                    "f32")
+        print(f"  time {label}: kernel {row['ms']:.4f} ms"
+              + (f", packed Y {row['packed_ms']:.4f} ms"
+                 if "packed_ms" in row else "")
+              + f", plain {row['plain_ms']:.4f} ms, torch.matmul f32 "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        rows.setdefault(path, {})[label] = (row, err)
+        del x, y, c, got
+    entries = []
+    for path, name, source in (
+            ("stream", "mma_gemm f32 (stream)",
+             "src/repro_torch/csrc/gemm_stream.cu"),
+            ("wmma", "mma_gemm f32 (tile)",
+             "src/repro_torch/csrc/mma_gemm.cu, "
+             "src/repro_torch/csrc/tile_gemm.cuh")):
+        by_label = rows[path]
+        label, (row, _) = next(iter(by_label.items()))
+        by_run = {r: cnt["by_path"]["mma_gemm"][path]
+                  for r, cnt in PHASE8.items() if "F32GER" in r}
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": "src/repro/kernels/mma_gemm.py:197",
+             "max_abs_err": max(err for _, err in by_label.values()),
+             **row, "shape": label, "launches_by_run": by_run,
+             "launches": sum(by_run.values()),
+             "timed": {lb: r for lb, (r, _) in by_label.items()}}
+        if e["launches"] <= 0:
+            failures.append(f"{name} never launched on phase 8's F32GER "
+                            f"runs")
+        entries.append(e)
+    return entries
 
 
 def _tf32_control(torch, label, q, k, v, got, kw, failures):
@@ -3960,8 +4209,11 @@ def f32_prepacked_serve(torch, failures, model, cfg, natural):
     after phase 8's natural F32GER serve (``natural``: its stats, counts
     and recorded steps): every prefill and decode output bit for bit the
     natural serve's, no pack, repack or demote while serving, the
-    natural serve's launches by path, and every GEMM on the WMMA fp32
-    tile reading panels (K1d); decode tok/s of both."""
+    natural serve's launches by path, and every GEMM reading panels (K1d)
+    on its fp32 path: decode's on the weight stream, the prefills' on the
+    fp32 tile; decode tok/s of both; then one decode step of the packed
+    model profiled, its time split into GEMM, other device work and host
+    (``gemm_split``)."""
     import copy
 
     from repro_torch.core import facility, packing
@@ -3985,11 +4237,25 @@ def f32_prepacked_serve(torch, failures, model, cfg, natural):
         torch.cuda.synchronize()
         counts = read_counts(kernels)
     moved = _relayouts(dict(packing.COUNTERS), before)
-    del packed
+    prefill, decode, what = serve_steps(torch, packed, cfg, F32_SERVE)
+    with facility.configure(f32_config(torch)):
+        decode()                                   # warm
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        split = gemm_split(torch, f"{run} decode step (batch "
+                           f"{F32_SERVE['batch']})", decode,
+                           sorted(times)[len(times) // 2])
+    del packed, prefill, decode
     torch.cuda.empty_cache()
     print(f"  phase 10: {run}: packed in {pack_s:.3f} s {stats}; "
           f"{json.dumps(out)}")
     gemm = counts["by_path"]["mma_gemm"]
+    n_packed = counts["packed"]["gemm wmma"] + counts["packed"]["gemm stream"]
     _check(failures, run, _same_record(torch, rec, natural["record"])
            and out["completed"] == F32_SERVE["n_requests"],
            f"{len(rec)} prefill/decode outputs (token ids and logits) bit "
@@ -3998,19 +4264,23 @@ def f32_prepacked_serve(torch, failures, model, cfg, natural):
            f"packing counters while serving: {moved} (all 0)")
     _check(failures, run, counts["launches"] == natural["counts"]["launches"]
            and counts["by_path"] == natural["counts"]["by_path"]
-           and counts["packed"]["gemm wmma"] == gemm["wmma"]
-           == counts["launches"]["mma_gemm"],
+           and counts["packed"]["gemm wmma"] == gemm["wmma"] > 0
+           and counts["packed"]["gemm stream"] == gemm["stream"] > 0
+           and n_packed == counts["launches"]["mma_gemm"],
            f"launches {counts['launches']} equal the natural serve's; "
-           f"every GEMM on the WMMA fp32 tile reading panels "
-           f"({counts['packed']['gemm wmma']} of "
-           f"{counts['launches']['mma_gemm']})")
+           f"every GEMM reading panels ({n_packed} of "
+           f"{counts['launches']['mma_gemm']}: the fp32 stream "
+           f"{counts['packed']['gemm stream']}, the fp32 tile "
+           f"{counts['packed']['gemm wmma']})")
     print(f"  phase 10: {run}: decode tok/s {out['tokens_per_s']:.2f} "
           f"prepacked vs {natural['stats']['tokens_per_s']:.2f} natural "
           f"(phase 8, the same call)")
     PHASE10[run] = {"wmma f32": counts["packed"]["gemm wmma"],
+                    "stream f32": counts["packed"]["gemm stream"],
                     "tok_s": out["tokens_per_s"],
                     "tok_s_natural": natural["stats"]["tokens_per_s"],
-                    "pack_s": pack_s, "stats": stats}
+                    "pack_s": pack_s, "stats": stats,
+                    "decode_split": split}
 
 
 def f32_prepacked_generate(torch, failures, model, cfg):
@@ -4018,7 +4288,8 @@ def f32_prepacked_generate(torch, failures, model, cfg):
     F32GER: a prefill and F32_GEN's greedy decode steps bit for bit the
     natural model's (tokens and logits), no pack, repack or demote, the
     conv stem's two convs on K3's fp32 tile reading packed filters and
-    the GEMMs on the WMMA fp32 tile reading panels."""
+    the GEMMs reading panels on the fp32 tile (the encoder's) and the
+    fp32 weight stream (the decoder's)."""
     import copy
 
     from repro_torch.core import facility, packing
@@ -4052,11 +4323,14 @@ def f32_prepacked_generate(torch, failures, model, cfg):
            f"tokens bit for bit the natural model's")
     _check(failures, run, not any(moved.values())
            and counts["packed"]["conv f32"] == 2
-           and counts["packed"]["gemm wmma"] > 0,
+           and counts["packed"]["gemm wmma"] > 0
+           and counts["packed"]["gemm stream"] > 0,
            f"packing counters {moved} (all 0); the stem's 2 convs on the "
-           f"fp32 tile's packed filters, {counts['packed']['gemm wmma']} "
-           f"GEMMs on WMMA fp32 panels")
+           f"fp32 tile's packed filters, GEMMs on panels: "
+           f"{counts['packed']['gemm wmma']} on the fp32 tile, "
+           f"{counts['packed']['gemm stream']} on the fp32 stream")
     PHASE10[run] = {"wmma f32": counts["packed"]["gemm wmma"],
+                    "stream f32": counts["packed"]["gemm stream"],
                     "conv f32": counts["packed"]["conv f32"]}
 
 
@@ -4292,16 +4566,17 @@ def _tuned_serves(torch, failures, arch, settings, model, cfg, natural,
 
 
 def phase10_kernels(torch, timer, failures):
-    """K1d on the WMMA and fp32 tiles and K3's packed filters on its WMMA
-    and fp32 tiles: a main-path run through ``facility.contract`` (the
-    entry point) of each mode, natural and packed, launches reset just
-    before and read just after; each packed result bit for bit the
-    natural one and held against its plain version; the sidecar on a
+    """K1d on the WMMA and fp32 tiles (and F32GER decode's packed Y on
+    the fp32 weight stream) and K3's packed filters on its WMMA and fp32
+    tiles: a main-path run through ``facility.contract`` (the entry point)
+    of each mode, natural and packed, launches reset just before and read
+    just after; each packed result bit for bit the natural one and held
+    against the plain version of its path; the sidecar on a
     packed WMMA launch bit for bit the natural one's; the main modes timed
     (CUDA events, L2 flushed) beside the natural launch, the plain
     version, the library call and the bound.  Returns the ``kernels``
     entries."""
-    from repro_torch.core import facility, packing
+    from repro_torch.core import facility, packing, tiling
     from repro_torch.kernels import epilogue as E
     from repro_torch.kernels import mma_conv as K
     from repro_torch.kernels import mma_gemm as G
@@ -4320,8 +4595,9 @@ def phase10_kernels(torch, timer, failures):
         for block in ((128, 128, 32), (64, 64, 64)):
             cases.append((f"bf16 block {block} {tag} {m}x{k}x{n}", "wmma",
                           Ger.BF16GER2, (m, k, n), block, False, True))
-        cases.append((f"F32GER {tag} {m}x{k}x{n}", "wmma f32", Ger.F32GER,
-                      (m, k, n), None, False, True))
+        cases.append((f"F32GER {tag} {m}x{k}x{n}",
+                      "stream f32" if tag == "decode" else "wmma f32",
+                      Ger.F32GER, (m, k, n), None, False, True))
     cases += [
         ("bf16 unaligned 1024x768x51865", "wmma", Ger.BF16GER2,
          (1024, 768, 51865), None, False, True),
@@ -4393,9 +4669,11 @@ def phase10_kernels(torch, timer, failures):
     counts = read_counts(kernels)
     moved = _relayouts(dict(packing.COUNTERS), before)
     n_bf16 = sum(1 for o in ops if o[1] == "wmma")
+    n_stream = sum(1 for o in ops if o[1] == "stream f32")
     run = "packed modes through contract"
     _check(failures, run, not any(moved.values())
-           and counts["packed"]["gemm wmma"] == len(ops)
+           and counts["packed"]["gemm wmma"] == len(ops) - n_stream
+           and counts["packed"]["gemm stream"] == n_stream
            and counts["masked"]["wmma"] == 4
            and counts["packed"]["conv wmma"] == 2
            and counts["packed"]["conv f32"] == 2,
@@ -4403,7 +4681,8 @@ def phase10_kernels(torch, timer, failures):
            f"{counts['by_path']['mma_gemm']}, conv by path "
            f"{counts['by_path']['mma_conv2d']}, on packed panels "
            f"{counts['packed']}; packing counters {moved} (all 0)")
-    PHASE10[run] = {"wmma bf16": n_bf16, "wmma f32": len(ops) - n_bf16,
+    PHASE10[run] = {"wmma bf16": n_bf16, "stream f32": n_stream,
+                    "wmma f32": len(ops) - n_bf16 - n_stream,
                     "conv wmma": counts["packed"]["conv wmma"],
                     "conv f32": counts["packed"]["conv f32"]}
 
@@ -4414,8 +4693,10 @@ def phase10_kernels(torch, timer, failures):
                and bool(torch.isfinite(pk[label]).all()),
                "packed bit for bit the natural launch, finite")
         gk = dict(kind=kind, block=block, masks=masks)
-        plain = lambda x=x, w=w, gk=gk: G.mma_gemm_plain(  # noqa: E731
-            x, w, kind=gk["kind"], masks=gk["masks"])
+        path, cfg = tiling.choose_gemm_path(m, n, k, kind, 1, True, block,
+                                            masks is not None)
+        plain = lambda x=x, w=w, gk=gk, f=G._plain_of(  # noqa: E731
+            path, cfg, k): f(x, w, kind=gk["kind"], masks=gk["masks"])
         err = _report_close(torch, f"K1d {label} vs plain", pk[label],
                             plain(), torch.float32, failures)
         if not timed:
@@ -4504,9 +4785,11 @@ def phase10_kernels(torch, timer, failures):
 
     names = {"wmma": "mma_gemm packed Y (wmma)",
              "wmma f32": "mma_gemm packed Y (wmma f32)",
+             "stream f32": "mma_gemm packed Y (stream f32)",
              "conv wmma": "mma_conv2d packed filters (wmma)",
              "conv f32": "mma_conv2d packed filters (f32)"}
     counter = {"wmma": "wmma bf16", "wmma f32": "wmma f32",
+               "stream f32": "stream f32",
                "conv wmma": "conv wmma", "conv f32": "conv f32"}
     entries = []
     for key, by_label in rows.items():
@@ -4514,6 +4797,8 @@ def phase10_kernels(torch, timer, failures):
         conv = key.startswith("conv")
         e = {"name": names[key], "route": "cuda",
              "source": ("src/repro_torch/csrc/mma_conv.cu" if conv
+                        else "src/repro_torch/csrc/gemm_stream.cu"
+                        if key == "stream f32"
                         else "src/repro_torch/csrc/mma_gemm.cu"),
              "replaces": ("src/repro/kernels/mma_conv.py:176" if conv
                           else "src/repro/kernels/mma_gemm.py:333"),
@@ -5047,6 +5332,7 @@ def phase8(torch, failures, entries):
     f32_train(torch, failures)
     torch.cuda.empty_cache()
     timer = Timer(torch)
+    entries += phase8_f32_gemm(torch, timer, failures)
     entries += phase8_kernels(torch, timer, failures)
     del timer
 

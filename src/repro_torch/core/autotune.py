@@ -7,12 +7,13 @@ family and the card, and is cheapest to find by search, once per shape:
 
   1. *Enumerate* the candidates: exactly the compiled configurations the
      call can take (:func:`candidate_blocks`), the heuristic's pick always
-     among them.  For the 16-bit families at M <= 64, the weight stream at
-     each column tile (64, 128) and split of K on a ladder (1, 2, 4, ...,
-     32, and the heuristic's split) plus the WMMA tiles of
-     ``tiling.GEMM_TILES``; at M > 64 with 16-byte pitches, the wgmma
-     tiles (128, 128) and (128, 256) plus the WMMA tiles; F32GER, the
-     integer families and F64GER their compiled tile.  A tile the kernels
+     among them.  For the 16-bit families and F32GER at M <= 64, the
+     weight stream at each column tile (64, 128) and split of K on a
+     ladder (1, 2, 4, ..., 32, and the heuristic's split) plus the WMMA or
+     fp32 tiles of ``tiling.GEMM_TILES``; at M > 64 with 16-byte pitches,
+     the wgmma tiles (128, 128) and (128, 256) plus the WMMA tiles for
+     the 16-bit families, F32GER's two fp32 tiles; the integer families
+     and F64GER their compiled tile.  A tile the kernels
      were not built for is never a candidate, so the reference's "fails
      to lower" weeding has no counterpart, and a candidate that raises on
      the card raises (it is not skipped).
@@ -46,10 +47,10 @@ Batched shapes key as ``b<B>x<M>x<N>x<K>``; ``<backend>`` is ``cuda`` or
   * an entry names its kernel: ``path``, and the stream's ``split``
     (``block`` holds [rows, bn, 32] for the stream, [128, bn, 64] for the
     wgmma tile);
-  * the 16-bit families key M <= 64 by the weight stream's row bucket
-    (``tiling.row_bucket``: 8, 16, 32, 64), not by M, so a row's sum runs
-    in one order at batch 1 and at batch 4, as ``tiling.stream_plan``
-    keeps it;
+  * the 16-bit families and F32GER key M <= 64 by the weight stream's
+    row bucket (``tiling.row_bucket``: 8, 16, 32, 64), not by M, so a
+    row's sum runs in one order at batch 1 and at batch 4, as
+    ``tiling.stream_plan`` keeps it;
   * attention keys by heads, not by batch x heads: a winner's split must
     not depend on the batch (the split-KV fault fixed in ROADMAP queue 3).
     Like the reference's, the key holds no mask and no KV-head count, so
@@ -101,8 +102,9 @@ def _backend(backend: str | None) -> str:
 
 def tune_rows(kind: Ger, m: int) -> int:
     """The M a GEMM winner is keyed by: the weight stream's row bucket
-    where the 16-bit families may take the stream (M <= 64), else M."""
-    if kind in (Ger.BF16GER2, Ger.F16GER2) and m <= tiling.STREAM_MAX_M:
+    where the family may take the stream (bf16/f16 and F32GER at M <= 64),
+    else M."""
+    if kind in tiling.STREAM_GERS and m <= tiling.STREAM_MAX_M:
         return tiling.row_bucket(m)
     return m
 
@@ -312,13 +314,13 @@ def candidate_blocks(m: int, n: int, k: int, kind: Ger, b: int = 1,
     operands have 16-byte bases and pitches (the wgmma tile's rule)."""
     heur = tiling.choose_gemm_path(m, n, k, kind, b, aligned)
     out: list[tuple] = []
-    if kind in (Ger.BF16GER2, Ger.F16GER2) and k >= tiling.MIN_K:
+    if kind in tiling.STREAM_GERS and k >= tiling.MIN_K:
         if m <= tiling.STREAM_MAX_M:
             stages = -(-k // tiling.STREAM_BK)
             out += [("stream", tiling.StreamConfig(bn, s))
                     for bn in _STREAM_TILES for s in SPLIT_LADDER
                     if s <= stages]
-        elif aligned:
+        elif aligned and kind in tiling.WGMMA_GERS:
             out += [("wgmma", cfg) for cfg in tiling.WGMMA_TILES]
     path = heur[0] if heur[0] in ("imma", "dmma") else "wmma"
     out += [(path, cfg) for cfg in tiling.tiles_for(kind)]

@@ -25,16 +25,17 @@ The 16-bit and fp32 families take one of three, picked by shape:
   * "stream" (``csrc/gemm_stream.cu``): M <= 64 rows (decode, the SSD's
     M = 1 products), bound by the weight's bytes; the (K, N) weight is
     streamed once through a cp.async ring, split over K so that the grid
-    holds two blocks per SM (:func:`stream_plan`);
-  * "wgmma" (``csrc/gemm_wgmma.cu``): larger M (prefill), bound by the
-    tensor cores; a (128, 128 or 256) tile fed by TMA, which needs 16-byte
-    pitches (K and N multiples of 8) and bases;
+    holds two blocks per SM (:func:`stream_plan`); bf16/f16 on the tensor
+    cores, F32GER on the CUDA cores (true fp32 FMAs);
+  * "wgmma" (``csrc/gemm_wgmma.cu``): larger 16-bit M (prefill), bound by
+    the tensor cores; a (128, 128 or 256) tile fed by TMA, which needs
+    16-byte pitches (K and N multiples of 8) and bases;
   * "wmma" (``csrc/mma_gemm.cu``): what the two do not take -- unaligned
     pitches at large M, K below one MMA step (the SSD's K = 1 outer
-    product), F32GER (true fp32), the pm* masked forms, and an explicit or
-    tuned block -- on the fixed set of tiles in ``GEMM_TILES``;
-    ``choose_blocks`` picks among exactly those, and a block the kernel
-    was not compiled for raises.
+    product), F32GER at M > 64 (true fp32, a register-blocked SIMT tile),
+    the pm* masked forms, and an explicit or tuned block -- on the fixed
+    set of tiles in ``GEMM_TILES``; ``choose_blocks`` picks among exactly
+    those, and a block the kernel was not compiled for raises.
 
 A call's path is one choice (:func:`choose_gemm_path`): an explicit
 ``Plan.block`` wins, then a tuned winner (``core/autotune.py``'s cache,
@@ -67,7 +68,7 @@ _PAD16, _PAD32 = 8, 4
 GEMM_TILES: dict[Ger, tuple[tuple[int, int, int], ...]] = {
     Ger.BF16GER2: ((128, 128, 32), (64, 64, 64)),
     Ger.F16GER2: ((128, 128, 32), (64, 64, 64)),
-    Ger.F32GER: ((64, 64, 16),),
+    Ger.F32GER: ((128, 128, 16), (64, 64, 16)),
     Ger.I8GER4: ((128, 128, 64),),
     Ger.I4GER8: ((128, 128, 64),),
     Ger.I16GER2: ((64, 128, 64),),
@@ -104,9 +105,9 @@ class BlockConfig:
         elif pol.in_bytes == 2:
             panels = (self.bm * (self.bk + _PAD16)
                       + self.bk * (self.bn + _PAD16)) * 2
-        else:  # fp32: the X panel is stored k-major
-            panels = (self.bk * (self.bm + _PAD32)
-                      + self.bk * (self.bn + _PAD32)) * 4
+        else:  # fp32: two stages, the X panel stored k-major
+            panels = 2 * (self.bk * (self.bm + _PAD32)
+                          + self.bk * (self.bn + _PAD32)) * 4
         return max(c_tile, panels)
 
 
@@ -144,6 +145,10 @@ STREAM_MAX_M = 64            # the weight stream's largest compiled M
 STREAM_BK = 32               # K rows per cp.async stage (gemm_stream.cu)
 MIN_K = 16                   # one MMA step: below it the WMMA tile runs
 BLOCKS_PER_SM = 2            # the weight stream's grid target
+# The families each shape-picked kernel is compiled for: the weight stream
+# bf16/f16 (tensor cores) and F32GER (CUDA cores), the wgmma tile 16-bit.
+WGMMA_GERS = (Ger.BF16GER2, Ger.F16GER2)
+STREAM_GERS = WGMMA_GERS + (Ger.F32GER,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,27 +184,37 @@ class WgmmaConfig:
         return (-(-m // self.bm) * -(-n // self.bn), b)
 
 
-def stream_plan(m: int, n: int, k: int, b: int = 1) -> StreamConfig:
+def stream_plan(m: int, n: int, k: int, b: int = 1,
+                in_bytes: int = 2) -> StreamConfig:
     """Fill the card with at least BLOCKS_PER_SM blocks an SM and as few
     K splits as that allows (each split costs a partial's write and read,
-    which must stay below the weight's own bytes): 128-column tiles where
-    they alone fill it, else 64-column tiles with K split: within 4% of
-    the fastest tile and split that scripts/port_kernel_times.py sweeps
-    at decode's products on the H100 (PERF.md).
+    which must stay below the weight's own bytes, ``in_bytes`` an element:
+    2 for bf16/f16, 4 for F32GER, whose ceiling at a given row count is
+    twice as high): 128-column tiles where they alone fill it, else
+    64-column tiles with K split: within 4% of the fastest tile and split
+    that scripts/port_kernel_times.py sweeps at decode's products on the
+    H100 (PERF.md).
 
     The plan is one product's: a batch of products runs b times its grid.
-    M enters only through the kernel's row bucket (1-8, 9-16, 17-32,
-    33-64 rows) and b not at all, so a row's result is the same at batch
-    1 as at batch 4, in both the 2-D and the batched products (mamba2's
-    exact per-slot prefill handoff, chip_smoke.py, relies on it)."""
+    For the 16-bit families M enters only through the kernel's row bucket
+    (1-8, 9-16, 17-32, 33-64 rows) and b not at all, so a row's result is
+    the same at batch 1 as at batch 4, in both the 2-D and the batched
+    products (mamba2's exact per-slot prefill handoff, chip_smoke.py,
+    relies on it).  For F32GER M does not enter at all: its ceiling is
+    reckoned at the top bucket (64 rows), so a row is summed in one order
+    at every M <= 64 (the tight-parity config's gradient accumulation over
+    microbatches of 32 rows then matches one batch of 64 to fp32
+    rounding: tests/test_torch_train.py)."""
     del b
     want = BLOCKS_PER_SM * NUM_SMS
     if -(-n // 128) >= want:
         return StreamConfig(bn=128, split=1)
     tiles = -(-n // 64)
     stages = -(-k // STREAM_BK)
-    # fp32 partials: 8 * split * M * N bytes against the weight's 2 * K * N
-    most = max(1, min(stages, k // (4 * row_bucket(m))))
+    # fp32 partials: 8 * split * M * N bytes against the weight's
+    # in_bytes * K * N
+    rows = row_bucket(m) if in_bytes == 2 else STREAM_MAX_M
+    most = max(1, min(stages, k * in_bytes // (8 * rows)))
     return StreamConfig(bn=64, split=max(1, min(most, -(-want // tiles))))
 
 
@@ -244,6 +259,9 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
     takes any pitch (a scalar path covers unaligned rows); the wgmma tile
     only aligned ones.
 
+    F32GER takes the weight stream at M <= 64 and the fp32 tile (the
+    "wmma" path's F32GER tiles) above: it never runs on the tensor cores.
+
     ``masked`` (the pm* forms, K1b) is a static route by op-class: a
     masked 16-bit or fp32 product takes the WMMA tile
     (``csrc/mma_gemm.cu``, whose panel loaders apply the predicates) at
@@ -260,10 +278,11 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
         return "wmma", check_block(block, ger)
     if masked:
         return "wmma", choose_blocks(m, n, k, ger, b)
-    if ger in (Ger.BF16GER2, Ger.F16GER2) and k >= MIN_K:
+    if ger in STREAM_GERS and k >= MIN_K:
         if m <= STREAM_MAX_M:
-            return "stream", stream_plan(m, n, k, b)
-        if aligned:
+            return "stream", stream_plan(m, n, k, b,
+                                         precision.policy(ger).in_bytes)
+        if aligned and ger in WGMMA_GERS:
             return "wgmma", wgmma_plan(m, n, b)
     return "wmma", choose_blocks(m, n, k, ger, b)
 
@@ -279,14 +298,14 @@ def takes(tuned: tuple, m: int, n: int, k: int, ger: Ger,
                 and cfg in tiles_for(ger))
     if path == "wmma":
         return cfg in tiles_for(ger)
-    if masked or ger not in (Ger.BF16GER2, Ger.F16GER2) or k < MIN_K:
+    if masked or ger not in STREAM_GERS or k < MIN_K:
         return False
     if path == "stream":
         return (m <= STREAM_MAX_M and isinstance(cfg, StreamConfig)
                 and cfg.bn in (64, 128)
                 and 1 <= cfg.split <= -(-k // STREAM_BK))
-    return (path == "wgmma" and m > STREAM_MAX_M and aligned
-            and cfg in WGMMA_TILES)
+    return (path == "wgmma" and ger in WGMMA_GERS and m > STREAM_MAX_M
+            and aligned and cfg in WGMMA_TILES)
 
 
 def check_block(block: tuple[int, int, int], ger: Ger) -> BlockConfig:

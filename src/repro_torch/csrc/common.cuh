@@ -96,6 +96,10 @@ template <>
 __device__ __forceinline__ __half zero_of<__half>() {
   return __float2half(0.f);
 }
+template <>
+__device__ __forceinline__ float zero_of<float>() {
+  return 0.f;
+}
 
 // fp32 -> T, round to nearest even (as torch's .to(dtype))
 template <typename T>

@@ -14,13 +14,14 @@
 // families are in gemm_imma.cu and gemm_dmma.cu.
 //
 // Which products run here.  core/tiling.py's choose_gemm_path sends M <=
-// 64 to the weight stream (gemm_stream.cu) and larger M with 16-byte
-// pitches to the TMA + wgmma tile (gemm_wgmma.cu).  This kernel takes the
-// rest: pitches TMA cannot describe at large M (whisper's 51865-column
-// logits over a prompt), K below one MMA step (the SSD's K = 1 outer
-// product), F32GER, which stays true fp32 (never TF32), and an explicit
-// Plan.block naming one of core/tiling.py's GEMM_TILES, and every masked
-// 16-bit or fp32 product, at any M (choose_gemm_path(masked=True)).
+// 64 to the weight stream (gemm_stream.cu; F32GER too) and larger 16-bit
+// M with 16-byte pitches to the TMA + wgmma tile (gemm_wgmma.cu).  This
+// kernel takes the rest: pitches TMA cannot describe at large M
+// (whisper's 51865-column logits over a prompt), K below one MMA step
+// (the SSD's K = 1 outer product), F32GER at M > 64, which stays true
+// fp32 (never TF32), and an explicit Plan.block naming one of
+// core/tiling.py's GEMM_TILES, and every masked 16-bit or fp32 product,
+// at any M (choose_gemm_path(masked=True)).
 //
 // What bounds it on an H100: device memory (3.35 TB/s) for skinny
 // products, the tensor cores (989 TFLOP/s bf16; 67 TFLOP/s fp32 FMAs for
@@ -32,8 +33,9 @@
 //     tile and loaded into the warps' accumulator fragments;
 //   * update: (bm, bk) and (bk, bn) panels are staged in shared memory,
 //     zero-filled past the M, N and K fringes, and multiplied with WMMA
-//     bf16/f16 tensor-core fragments into fp32 registers; F32GER runs fp32
-//     FMAs;
+//     bf16/f16 tensor-core fragments into fp32 registers; F32GER runs
+//     tile_gemm.cuh's f32_simt_tile (128 x 128 or 64 x 64, 8 x 8 or 4 x 4
+//     fp32 FMAs a thread, two stages in flight);
 //   * deprime: the fragments go back through the shared tile, and one
 //     masked pass applies alpha and the epilogue and stores each output
 //     element exactly once, in the requested dtype.
@@ -59,9 +61,13 @@
 //     tile's columns (one a thread) and rows (one a warp) in a fixed order
 //     (common.cuh's tile_checksums): one write per tile column and row, no
 //     atomics; the stores are untouched.
-// The update loop is tile_gemm.cuh's, shared with K3's implicit GEMM.
-// Loads are synchronous 16-byte vectors (no cp.async/TMA pipeline, no
-// wgmma): the two other kernels carry the main path's products.
+// The 16-bit update loop is tile_gemm.cuh's, shared with K3's implicit
+// GEMM: synchronous 16-byte vector loads (no cp.async/TMA pipeline, no
+// wgmma), as the two other kernels carry the main path's 16-bit
+// products.  The fp32 tile carries F32GER's products at M > 64: each
+// output one fmaf chain in ascending k from the seed or zero, the chain
+// of tile_gemm.cuh's f32_tile_ab (K3's fp32 conv), so its bits do not
+// depend on the tile.
 
 #include "tile_gemm.cuh"
 
@@ -182,34 +188,50 @@ __global__ void __launch_bounds__(WM* WN * 32)
   store_tile<BM, BN>(cs, a, bz, m0, n0);
 }
 
-// F32GER: true fp32 FMAs (tile_gemm.cuh's f32_tile_ab).
-template <bool MASKED, int PANELS>
-__global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs a) {
+// F32GER: true fp32 FMAs on the CUDA cores (tile_gemm.cuh's
+// f32_simt_tile), on a (BM, BN) tile of 128 x 128 or 64 x 64, two blocks an
+// SM (the register budget of 128 a thread).
+template <bool MASKED, int PANELS, int BM, int BN>
+__global__ void __launch_bounds__(F32S_THREADS, 2)
+    gemm_f32_kernel(GemmArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);
-  const int bz = blockIdx.z, m0 = blockIdx.y * F32_BM, n0 = blockIdx.x * F32_BN;
-  if (a.c) prime_tile<F32_BM, F32_BN>(cs, a, bz, m0, n0);
+  const int bz = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if (a.c) prime_tile<BM, BN>(cs, a, bz, m0, n0);
   const float* x = reinterpret_cast<const float*>(a.x) + (long long)bz * a.sxb;
   const float* y = reinterpret_cast<const float*>(a.y) + (long long)bz * a.syb;
-  f32_tile_ab(smem,
-              a_loader<float, MASKED, (PANELS & PANELS_X) != 0>(a, x, m0,
-                                                                false),
-              b_loader<float, MASKED, (PANELS & PANELS_Y) != 0>(a, y, n0,
-                                                                false),
-              a.K, a.c != nullptr);
-  store_tile<F32_BM, F32_BN>(cs, a, bz, m0, n0);
+  f32_simt_tile<BM, BN>(
+      smem,
+      a_loader<float, MASKED, (PANELS & PANELS_X) != 0>(a, x, m0,
+                                                        a.vec_x != 0),
+      b_loader<float, MASKED, (PANELS & PANELS_Y) != 0>(a, y, n0,
+                                                        a.vec_y != 0),
+      a.K, a.c != nullptr);
+  store_tile<BM, BN>(cs, a, bz, m0, n0);
 }
 
-template <bool MASKED, int PANELS>
+template <bool MASKED, int PANELS, int BM, int BN>
 static int launch_f32(const GemmArgs& a, int batch, cudaStream_t stream) {
   static bool smem_ok = false;
-  constexpr size_t smem = f32_smem_bytes();
-  auto kernel = gemm_f32_kernel<MASKED, PANELS>;
+  constexpr size_t smem = f32_simt_smem_bytes<BM, BN>();
+  auto kernel = gemm_f32_kernel<MASKED, PANELS, BM, BN>;
   cudaError_t e = allow_smem(kernel, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.N + F32_BN - 1) / F32_BN, (a.M + F32_BM - 1) / F32_BM, batch);
-  kernel<<<grid, 256, smem, stream>>>(a);
+  dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
+  kernel<<<grid, F32S_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The tiles core/tiling.py GEMM_TILES lists for F32GER.
+template <bool MASKED, int PANELS>
+static int launch_f32_tile(const GemmArgs& a, int batch, int bm, int bn,
+                           int bk, cudaStream_t stream) {
+  if (bk != F32S_BK) return (int)cudaErrorInvalidValue;
+  if (bm == 128 && bn == 128)
+    return launch_f32<MASKED, PANELS, 128, 128>(a, batch, stream);
+  if (bm == 64 && bn == 64)
+    return launch_f32<MASKED, PANELS, 64, 64>(a, batch, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int BM, int BN, int BK, int WM, int WN, bool MASKED,
@@ -253,12 +275,9 @@ static int launch_any(const GemmArgs& a, int in_dt, bool masked, int batch,
                                                    bk, s);
   if (in_dt == DT_F16)
     return launch_16bit_any<__half, PANELS>(a, masked, batch, bm, bn, bk, s);
-  if (in_dt == DT_F32) {
-    if (bm != F32_BM || bn != F32_BN || bk != F32_BK)
-      return (int)cudaErrorInvalidValue;
-    return masked ? launch_f32<true, PANELS>(a, batch, s)
-                  : launch_f32<false, PANELS>(a, batch, s);
-  }
+  if (in_dt == DT_F32)
+    return masked ? launch_f32_tile<true, PANELS>(a, batch, bm, bn, bk, s)
+                  : launch_f32_tile<false, PANELS>(a, batch, bm, bn, bk, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -289,8 +308,10 @@ extern "C" int mma_gemm_launch(
   a.sxb = sxb; a.syb = syb; a.scb = scb; a.srb = srb; a.sob = sob;
   a.alpha = alpha; a.beta = beta;
   a.neg_product = neg_product; a.neg_acc = neg_acc; a.act = act;
-  a.vec_x = (K % 8 == 0) && aligned16(x) && (sxb % 8 == 0);
-  a.vec_y = (N % 8 == 0) && aligned16(y) && (syb % 8 == 0);
+  // elements a 16-byte load holds: 8 bf16/f16, 4 fp32
+  const int ch = in_dt == DT_F32 ? 4 : 8;
+  a.vec_x = (K % ch == 0) && aligned16(x) && (sxb % ch == 0);
+  a.vec_y = (N % ch == 0) && aligned16(y) && (syb % ch == 0);
   a.mk.xm = reinterpret_cast<const uint8_t*>(xm);
   a.mk.ym = reinterpret_cast<const uint8_t*>(ym);
   a.mk.pm = reinterpret_cast<const uint8_t*>(pm);

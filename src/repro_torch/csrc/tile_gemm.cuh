@@ -8,12 +8,18 @@
 //   ld.template panel_kmajor<BM, BK, LDT>(float* as, int k0)
 //       the same panel for F32GER, k-major: as[kk * LDT + r];
 //
+// and, for K1's fp32 SIMT tile (f32_simt_tile), one more:
+//
+//   ld.chunk4(int r, int k)
+//       the 4 fp32 values of tile row r at k .. k + 3 (k a multiple of 4);
+//
 // each zero past the M and K fringes: RowMajorA over natural rows, PackedA
 // over core/packing.py's X-side panels (K1d), MaskedRowMajorA /
 // MaskedPackedA for the pm* forms.  B is a (K, N) matrix, read through
 // a B loader with the same two members (panel<BK, BN, LDB> for the 16-bit
 // tile, panel_f32<BK, BN, LDB> for F32GER, both row-major (BK, BN) at k0):
-// RowMajorB over natural rows, PackedB over core/packing.py's 64-column
+// (and chunk4(int k, int c) for the SIMT tile: row k, tile columns c ..
+// c + 3), RowMajorB over natural rows, PackedB over core/packing.py's 64-column
 // panels (K1d, and K3's packed filter stream), or MaskedRowMajorB /
 // MaskedPackedB for the pm* forms.
 // Both loops leave the fp32 tile in shared memory (row pitch BN + 4,
@@ -71,6 +77,24 @@ __device__ __forceinline__ void select_chunk16(uint4& v, const uint8_t* mask,
   v.w &= __byte_perm(hi, 0u, 0x3322);
 }
 
+// Four fp32 values at p[0..3], each zero at or past `lim` lanes from p
+// (element loads: the row is not 16-byte aligned).
+__device__ __forceinline__ float4 load4_upto(const float* p, int lim) {
+  return make_float4(lim > 0 ? p[0] : 0.f, lim > 1 ? p[1] : 0.f,
+                     lim > 2 ? p[2] : 0.f, lim > 3 ? p[3] : 0.f);
+}
+
+// The lanes of a staged fp32 chunk at indices i .. i + 3 kept where `on`
+// says, else +0.0 (a select: NaN or Inf there leaves no trace).
+template <typename On>
+__device__ __forceinline__ float4 select4(float4 v, int i, const On& on) {
+  v.x = on(i) ? v.x : 0.f;
+  v.y = on(i + 1) ? v.y : 0.f;
+  v.z = on(i + 2) ? v.z : 0.f;
+  v.w = on(i + 3) ? v.w : 0.f;
+  return v;
+}
+
 // The GEMM's A: rows m0.. of a row-major (M, K) matrix.
 template <typename T>
 struct RowMajorA {
@@ -90,6 +114,14 @@ struct RowMajorA {
       const int gr = m0 + r, gk = k0 + kk;
       as[kk * LDT + r] = (gr < M && gk < K) ? x[(long long)gr * K + gk] : 0.f;
     }
+  }
+
+  __device__ __forceinline__ float4 chunk4(int r, int k) const {
+    const int gr = m0 + r;
+    if (gr >= M || k >= K) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* src = x + (long long)gr * K + k;
+    return vec ? __ldg(reinterpret_cast<const float4*>(src))
+               : load4_upto(src, K - k);
   }
 };
 
@@ -112,6 +144,14 @@ struct RowMajorB {
       const int gk = k0 + kk, gc = n0 + cc;
       bs[kk * LDB + cc] = (gk < K && gc < N) ? y[(long long)gk * N + gc] : 0.f;
     }
+  }
+
+  __device__ __forceinline__ float4 chunk4(int k, int c) const {
+    const int gc = n0 + c;
+    if (k >= K || gc >= N) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* src = y + (long long)k * N + gc;
+    return vec ? __ldg(reinterpret_cast<const float4*>(src))
+               : load4_upto(src, N - gc);
   }
 };
 
@@ -172,6 +212,18 @@ struct MaskedRowMajorA {
           in && lane_on(mk.xm, gr) && lane_on(mk.pm, gk) ? v : 0.f;
     }
   }
+
+  __device__ __forceinline__ float4 chunk4(int r, int k) const {
+    const int gr = m0 + r;
+    if (gr >= M || k >= K) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* src = x + (long long)gr * K + k;
+    const float4 v = vec ? __ldg(reinterpret_cast<const float4*>(src))
+                         : load4_upto(src, K - k);
+    const bool row = lane_on(mk.xm, gr);
+    return select4(v, k, [&](int gk) {
+      return row && gk < K && lane_on(mk.pm, gk);
+    });
+  }
 };
 
 // B with the column and rank predicates, staged as MaskedRowMajorA is.
@@ -220,6 +272,18 @@ struct MaskedRowMajorB {
           in && lane_on(mk.pm, gk) && lane_on(mk.ym, gc) ? v : 0.f;
     }
   }
+
+  __device__ __forceinline__ float4 chunk4(int k, int c) const {
+    const int gc = n0 + c;
+    if (k >= K || gc >= N) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* src = y + (long long)k * N + gc;
+    const float4 v = vec ? __ldg(reinterpret_cast<const float4*>(src))
+                         : load4_upto(src, N - gc);
+    const bool rank = lane_on(mk.pm, k);
+    return select4(v, gc, [&](int n) {
+      return rank && n < N && lane_on(mk.ym, n);
+    });
+  }
 };
 
 // B from prepacked panels (K1d: repro/kernels/mma_gemm.py's packed_spec;
@@ -239,7 +303,8 @@ struct MaskedRowMajorB {
 // zero padding: the staged panel, and so the result, is the natural
 // loader's bit for bit.  The tiles read (BK, BN) stages out of the fixed
 // panels: (32, 128) is two panels' columns, half a panel deep; (64, 64)
-// exactly one panel; F32GER's (16, 64) a quarter of one.
+// exactly one panel; F32GER's (16, 64) a quarter of one, (16, 128) a
+// quarter of two.
 constexpr int PANEL_COLS = 64;
 
 template <typename T>
@@ -277,6 +342,12 @@ struct PackedB {
         v = __ldg(reinterpret_cast<const float4*>(at(gk, gc)));
       *reinterpret_cast<float4*>(bs + r * LDB + c4) = v;
     }
+  }
+
+  __device__ __forceinline__ float4 chunk4(int k, int c) const {
+    const int gc = n0 + c;
+    if (k >= K || gc >= N) return make_float4(0.f, 0.f, 0.f, 0.f);
+    return __ldg(reinterpret_cast<const float4*>(at(k, gc)));
   }
 };
 
@@ -330,6 +401,16 @@ struct MaskedPackedB {
       *reinterpret_cast<float4*>(bs + r * LDB + c4) = v;
     }
   }
+
+  __device__ __forceinline__ float4 chunk4(int k, int c) const {
+    const int gc = p.n0 + c;
+    if (k >= p.K || gc >= p.N || !lane_on(mk.pm, k))
+      return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p.at(k, gc)));
+    return select4(v, gc, [&](int n) {
+      return n < p.N && lane_on(mk.ym, n);
+    });
+  }
 };
 
 // A from prepacked X panels (K1d: repro/kernels/mma_gemm.py's
@@ -344,7 +425,7 @@ struct MaskedPackedB {
 // the result, is the natural loader's bit for bit.  The tiles' (BM, BK)
 // stages: (128, 32) is one panel's 128 rows, half its depth; (64, 64)
 // half its rows, all its depth; F32GER's k-major (64, 16) half its rows,
-// a quarter of its depth.
+// a quarter of its depth, (128, 16) all its rows.
 template <typename T>
 struct PackedA {
   const T* x;
@@ -381,6 +462,12 @@ struct PackedA {
       as[(c4 + 2) * LDT + r] = v.z;
       as[(c4 + 3) * LDT + r] = v.w;
     }
+  }
+
+  __device__ __forceinline__ float4 chunk4(int r, int k) const {
+    const int gr = m0 + r;
+    if (gr >= M || k >= K) return make_float4(0.f, 0.f, 0.f, 0.f);
+    return __ldg(reinterpret_cast<const float4*>(at(gr, k)));
   }
 };
 
@@ -436,6 +523,16 @@ struct MaskedPackedA {
       as[(c4 + 2) * LDT + r] = v.z;
       as[(c4 + 3) * LDT + r] = v.w;
     }
+  }
+
+  __device__ __forceinline__ float4 chunk4(int r, int k) const {
+    const int gr = p.m0 + r;
+    if (gr >= p.M || k >= p.K || !lane_on(mk.xm, gr))
+      return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p.at(gr, k)));
+    return select4(v, k, [&](int gk) {
+      return gk < p.K && lane_on(mk.pm, gk);
+    });
   }
 };
 
@@ -522,7 +619,9 @@ __device__ void wmma_tile(unsigned char* smem, const ALoader& ld, const T* y,
 }
 
 // F32GER: true fp32 FMAs on the CUDA cores (no TF32).  256 threads, each
-// holding a 4x4 register accumulator strided over the (BM, BN) tile.
+// holding a 4x4 register accumulator strided over the (BM, BN) tile, one
+// synchronous stage a K step: K3's fp32 conv (mma_conv.cu).  K1's fp32
+// products run f32_simt_tile below.
 constexpr int F32_BM = 64, F32_BN = 64, F32_BK = 16;
 
 __host__ __device__ constexpr size_t f32_smem_bytes() {
@@ -589,6 +688,150 @@ template <typename ALoader>
 __device__ void f32_tile(unsigned char* smem, const ALoader& ld,
                          const float* y, int K, int N, int n0, bool seeded) {
   f32_tile_ab(smem, ld, RowMajorB<float>{y, K, N, n0, false}, K, seeded);
+}
+
+// K1's F32GER tile (mma_gemm.cu's gemm_f32_kernel): a register-blocked
+// SIMT GEMM on the CUDA cores, true fp32 FMAs (never TF32).  256 threads
+// as 16 x 16 (a warp 4 x 8 of them); each owns (BM / 16) x (BN / 16)
+// outputs in 4 x 4 quadrants 64 rows and 64 columns apart (8 x 8 on the
+// 128 x 128 tile, 4 x 4 on the 64 x 64 one), so that a warp's float4
+// shared loads are conflict-free:
+// per k, BM / 64 + BN / 64 LDS.128 feed (BM / 16) * (BN / 16) FMAs (4
+// feed 64 on the large tile).  Two stages of BK = 16: while the FMAs run
+// on one, the next stage's chunks are in flight into registers (16-byte
+// global loads where the rows allow, the loaders' chunk4), and go to the
+// other stage after the FMAs: X k-major (transposed on the way, the pm*
+// predicates selecting its disabled lanes to 0 there), Y row-major; one
+// __syncthreads a K step.  Each output is one fmaf chain over k = 0 ..
+// ceil(K / 16) * 16 - 1 in ascending order from the seed or +0.0 -- the
+// chain of f32_tile_ab -- so the result is the same bits at either tile
+// size and with either loader.  The fp32 tile that the panels alias
+// holds the seed on entry (`seeded`) and the accumulators on return.
+constexpr int F32S_BK = 16, F32S_THREADS = 256;
+
+template <int BM, int BN>
+__host__ __device__ constexpr size_t f32_simt_smem_bytes() {
+  constexpr size_t panels =
+      2 * ((size_t)F32S_BK * (BM + 4) + (size_t)F32S_BK * (BN + 4)) * 4;
+  constexpr size_t ctile = (size_t)BM * (BN + 4) * 4;
+  return panels > ctile ? panels : ctile;
+}
+
+template <int BM, int BN, typename ALoader, typename BLoader>
+__device__ void f32_simt_tile(unsigned char* smem, const ALoader& ld,
+                              const BLoader& bl, int K, bool seeded) {
+  constexpr int BK = F32S_BK, NT = F32S_THREADS;
+  constexpr int TM = BM / 16, TN = BN / 16;
+  constexpr int LDA = BM + 4, LDB = BN + 4, LDC = BN + 4;
+  constexpr int CA = BK / 4, CB = BN / 4;          // chunks a panel row
+  constexpr int CHA = BM * CA / NT, CHB = BK * CB / NT;
+  static_assert(TM % 4 == 0 && TN % 4 == 0 && CHA >= 1 && CHB >= 1,
+                "f32_simt_tile: 64 or 128 rows and columns");
+  float* as = reinterpret_cast<float*>(smem);  // 2 x (BK, LDA), k-major
+  float* bs = as + 2 * BK * LDA;               // 2 x (BK, LDB)
+  float* cs = reinterpret_cast<float*>(smem);  // aliases the panels
+  // a warp is 4 x 8 of the 16 x 16 threads: its float4 loads of a k row
+  // read 4 A and 8 B chunks
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tx = (warp % 2) * 8 + lane % 8, ty = (warp / 2) * 4 + lane / 8;
+
+  float acc[TM][TN];
+  if (seeded) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            cs + ((i / 4) * 64 + ty * 4 + i % 4) * LDC + q * 64 + tx * 4);
+        acc[i][q * 4] = v.x; acc[i][q * 4 + 1] = v.y;
+        acc[i][q * 4 + 2] = v.z; acc[i][q * 4 + 3] = v.w;
+      }
+    __syncthreads();  // the panels overwrite the seed tile next
+  } else {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+
+  float4 ra[CHA], rb[CHB];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int c = 0; c < CHA; ++c) {
+      const int i = threadIdx.x + c * NT;
+      ra[c] = ld.chunk4(i / CA, k0 + (i % CA) * 4);
+    }
+#pragma unroll
+    for (int c = 0; c < CHB; ++c) {
+      const int i = threadIdx.x + c * NT;
+      rb[c] = bl.chunk4(k0 + i / CB, (i % CB) * 4);
+    }
+  };
+  auto put = [&](int buf) {
+    float* a = as + buf * BK * LDA;
+    float* b = bs + buf * BK * LDB;
+#pragma unroll
+    for (int c = 0; c < CHA; ++c) {
+      const int i = threadIdx.x + c * NT;
+      const int r = i / CA, kc = (i % CA) * 4;
+      a[kc * LDA + r] = ra[c].x;
+      a[(kc + 1) * LDA + r] = ra[c].y;
+      a[(kc + 2) * LDA + r] = ra[c].z;
+      a[(kc + 3) * LDA + r] = ra[c].w;
+    }
+#pragma unroll
+    for (int c = 0; c < CHB; ++c) {
+      const int i = threadIdx.x + c * NT;
+      *reinterpret_cast<float4*>(b + (i / CB) * LDB + (i % CB) * 4) = rb[c];
+    }
+  };
+
+  const int nk = (K + BK - 1) / BK;
+  if (nk > 0) {
+    fetch(0);
+    put(0);
+  }
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    if (t + 1 < nk) fetch((t + 1) * BK);  // in flight under the FMAs
+    const float* a = as + (t & 1) * BK * LDA + ty * 4;
+    const float* b = bs + (t & 1) * BK * LDB + tx * 4;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(a + kk * LDA + q * 64);
+        av[q * 4] = v.x; av[q * 4 + 1] = v.y;
+        av[q * 4 + 2] = v.z; av[q * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(b + kk * LDB + q * 64);
+        bv[q * 4] = v.x; bv[q * 4 + 1] = v.y;
+        bv[q * 4 + 2] = v.z; bv[q * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (t + 1 < nk) put((t + 1) & 1);
+    __syncthreads();  // the next stage is staged; this one is free
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int q = 0; q < TN / 4; ++q)
+      *reinterpret_cast<float4*>(
+          cs + ((i / 4) * 64 + ty * 4 + i % 4) * LDC + q * 64 + tx * 4) =
+          make_float4(acc[i][q * 4], acc[i][q * 4 + 1], acc[i][q * 4 + 2],
+                      acc[i][q * 4 + 3]);
+  __syncthreads();
 }
 
 // Each in-bounds element of the fp32 (BM, BN) shared tile, once:

@@ -6,9 +6,10 @@ explicit block, else a tuned winner the call can take, else the shape
 heuristic; ``core/autotune.py``).  The 16-bit and fp32 families take one
 of three by shape:
 ``csrc/gemm_stream.cu`` (M <= 64: a split-K cp.async weight stream, bound
-by bytes), ``csrc/gemm_wgmma.cu`` (larger M: a TMA + wgmma tile, bound by
-the tensor cores) and ``csrc/mma_gemm.cu`` (WMMA tiles: unaligned pitches
-at large M, K < 16, F32GER, an explicit block).  The integer families
+by bytes; F32GER's on true fp32 FMAs), ``csrc/gemm_wgmma.cu`` (larger
+16-bit M: a TMA + wgmma tile, bound by the tensor cores) and
+``csrc/mma_gemm.cu`` (WMMA tiles: unaligned pitches at large M, K < 16,
+an explicit block; F32GER at M > 64 on its fp32 SIMT tiles).  The integer families
 (I8GER4, I4GER8, I16GER2) run ``csrc/gemm_imma.cu`` on the int8 tensor
 cores and F64GER runs ``csrc/gemm_dmma.cu`` on the fp64 tensor cores.
 Each source's head comment says which TPU kernel it replaces

@@ -16,9 +16,9 @@ reference's rung names (pallas -> kernel, xla -> torch).  The sidecar: the
 port's per-tile sums, reduced (``abft.deposit``), equal the reference
 kernel's reduced sidecar (interpret mode) within ABFT's own tolerance,
 ``ATOL + FACTOR * eps(acc) * |X||Y|`` summed alike, on each path's plain
-version (the weight stream split and batched, the wgmma tile, the WMMA
-tile at an unaligned pitch and in F32GER, DMMA in F64GER), fringes
-included.
+version (the weight stream split and batched, in bf16 and at F32GER
+decode, the wgmma tile, the WMMA tile at an unaligned pitch and the fp32
+tile, DMMA in F64GER), fringes included.
 """
 
 from __future__ import annotations
@@ -330,7 +330,8 @@ SIDECAR_CASES = {
     "stream batched": ("BF16GER2", (3, 7, 96), (3, 96, 130), "stream"),
     "wgmma": ("BF16GER2", (130, 64), (64, 72), "wgmma"),
     "wmma unaligned": ("BF16GER2", (100, 40), (40, 77), "wmma"),
-    "wmma f32": ("F32GER", (13, 40), (40, 11), "wmma"),
+    "wmma f32": ("F32GER", (70, 40), (40, 11), "wmma"),
+    "stream f32 decode": ("F32GER", (4, 512), (512, 300), "stream"),
     "dmma": ("F64GER", (70, 20), (20, 130), "dmma"),
 }
 
@@ -353,7 +354,8 @@ def test_sidecar_matches_reference_within_abft_tolerance(case):
                   y.shape[-1], x.shape[-1])
     took, cfg = tiling.choose_gemm_path(m, n, k, Ger[fam], b or 1,
                                         tgemm.natural_aligned(tx, ty))
-    assert took == path and (case != "stream split" or cfg.split > 1)
+    assert took == path and (not case.startswith("stream")
+                             or "batched" in case or cfg.split > 1)
     out, ck_col, ck_row = tgemm.mma_gemm(tx, ty, kind=Ger[fam],
                                          checksum=True)
     assert _bytes(out) == _bytes(tgemm.mma_gemm(tx, ty, kind=Ger[fam]))

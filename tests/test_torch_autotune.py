@@ -432,6 +432,52 @@ def test_planted_cache_keeps_a_row_independent_of_the_batch_stream(
             rows, y, kind=Ger.BF16GER2, k_slices=won[1].k_slices(k)))
 
 
+def test_f32ger_keys_decode_by_the_row_bucket_and_offers_stream_splits():
+    """F32GER takes the weight stream at M <= 64 as the 16-bit families
+    do: its winner is keyed by the row bucket, and its candidates are the
+    stream's tiles and splits beside both fp32 tiles; at M > 64 its two
+    fp32 tiles alone (no tensor-core tile)."""
+    assert [autotune.tune_rows(Ger.F32GER, m) for m in (1, 4, 16, 17, 64,
+                                                        65, 1024)] == \
+        [8, 8, 16, 32, 64, 65, 1024]
+    cands = autotune.candidate_blocks(4, 4096, 4096, Ger.F32GER)
+    streams = {cfg for path, cfg in cands if path == "stream"}
+    assert streams == {tiling.StreamConfig(bn, s) for bn in (64, 128)
+                       for s in autotune.SPLIT_LADDER} | {
+        tiling.choose_gemm_path(4, 4096, 4096, Ger.F32GER)[1]}
+    assert {cfg for path, cfg in cands if path == "wmma"} == \
+        set(tiling.tiles_for(Ger.F32GER))
+    big = autotune.candidate_blocks(1024, 4096, 4096, Ger.F32GER)
+    assert sorted(big, key=str) == sorted(
+        [("wmma", t) for t in tiling.tiles_for(Ger.F32GER)], key=str)
+    key = autotune.cache_key(Ger.F32GER, autotune.tune_rows(Ger.F32GER, 4),
+                             4096, 4096, backend="cpu")
+    assert key == "xvf32ger|8x4096x4096|none|cpu"
+
+
+def test_planted_cache_keeps_an_f32ger_row_independent_of_the_batch_stream(
+        _hermetic_cache, monkeypatch):
+    """The F32GER mirror of the stream case above: a stream winner keyed
+    by the row bucket, read at batch 1 and batch 4, runs its split at
+    both, so a decode row is summed in one order."""
+    k, n = 512, 384
+    x = _rand((4, k), 17)
+    y = _rand((k, n), 18)
+    won = ("stream", tiling.StreamConfig(64, 8))
+    _plant(_hermetic_cache, Ger.F32GER, 4, n, k, won)
+    assert autotune.tune_rows(Ger.F32GER, 1) == \
+        autotune.tune_rows(Ger.F32GER, 4) == 8
+    seen = _spy_paths(monkeypatch)
+    plan = tfac.Plan(ger=Ger.F32GER, out_dtype=torch.float32)
+    with tfac.configure(CPU):
+        one = tfac.contract("mk,kn->mn", x[:1], y, plan=plan)
+        four = tfac.contract("mk,kn->mn", x, y, plan=plan)
+    assert seen == [won, won]
+    for rows, got in ((x[:1], one), (x, four)):
+        assert torch.equal(got, tgemm.mma_gemm_splitk_plain(
+            rows, y, kind=Ger.F32GER, k_slices=won[1].k_slices(k)))
+
+
 def test_planted_cache_keeps_a_row_independent_of_the_batch_split_kv(
         _hermetic_cache, monkeypatch):
     """An attention winner is keyed by heads, not batch x heads: a

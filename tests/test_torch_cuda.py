@@ -235,6 +235,152 @@ def test_stream_rows_do_not_depend_on_the_batch(gen, n, k):
     assert torch.equal(batch[1:2], single)
 
 
+# ----------------------------------------------------------------------
+# F32GER's GEMM: the fp32 weight stream (M <= 64) and the fp32 tile
+# ----------------------------------------------------------------------
+
+def _tf32(t):
+    """t rounded to TF32 (10 mantissa bits, to nearest)."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _f32_tol(want):
+    return 2e-5 * want.abs() + 2e-5 * want.abs().max()
+
+
+def _assert_refuses_tf32(x, y, want, plain):
+    """The TF32 control: the plain version on TF32-rounded operands lands
+    outside the fp32 tolerance (max err/tol above 2) that the kernel met,
+    so the check tells fp32 FMAs from a TF32 product."""
+    ctrl = plain(_tf32(x), _tf32(y))
+    assert ((ctrl - want).abs() / _f32_tol(want)).max().item() > 2
+
+
+# name: (batch, (M, K, N), seed?, keywords): each row bucket, the M/K/N
+# fringes and an unaligned N (the scalar paths: K % 4, N % 4), logits
+# width (bn 128, one split), a batched bank, the accumulate forms and the
+# epilogues
+_F32_STREAM = {
+    "bucket-1": (None, (1, 4096, 4096), False, {}),
+    "bucket-8": (None, (4, 4096, 11008), False, {}),
+    "bucket-16": (None, (16, 768, 3072), False, {}),
+    "bucket-32": (None, (32, 1024, 1000), False, {}),
+    "bucket-64": (None, (64, 2048, 1024), False, {}),
+    "fringe-mkn": (None, (37, 202, 1001), False, {}),
+    "k-fringe": (None, (5, 999, 1000), False, {}),
+    "unaligned-n": (None, (4, 768, 51865), False, {}),
+    "logits": (None, (4, 1024, 40000), False, {}),
+    "batched": (3, (7, 200, 136), False, {}),
+    "bank": (8, (3, 2048, 1408), False, {}),
+    "forms": (None, (40, 768, 520), True,
+              dict(neg_product=True, neg_acc=True, alpha=0.5, beta=-2.0)),
+    "bias-gelu-res-bf16": (None, (16, 768, 1000), False,
+                           dict(ep=E.Epilogue(bias=True, activation="gelu",
+                                              residual=True),
+                                out_dtype=torch.bfloat16)),
+    "silu-seed-fringe": (None, (9, 130, 77), True,
+                         dict(ep=E.Epilogue(activation="silu"), beta=0.5)),
+}
+
+
+def _f32_call(gen, b, m, k, n, seeded, kw):
+    lead = () if b is None else (b,)
+    x = _randn(gen, *lead, m, k, dtype=torch.float32)
+    y = _randn(gen, *lead, k, n, dtype=torch.float32, scale=k ** -0.5)
+    c = (_randn(gen, *lead, m, n, dtype=torch.float32) if seeded else None)
+    kw = dict(kind=Ger.F32GER, **kw)
+    kw.setdefault("out_dtype", torch.float32)
+    ep = kw.get("ep")
+    if ep is not None and ep.bias:
+        kw["bias"] = _randn(gen, n, dtype=torch.float32)
+    if ep is not None and ep.residual:
+        kw["residual"] = _randn(gen, *lead, m, n, dtype=torch.float32)
+    return x, y, c, kw
+
+
+@pytest.mark.parametrize("name", sorted(_F32_STREAM))
+def test_f32_stream_matches_splitk_plain(gen, name):
+    """The fp32 weight stream (F32GER at M <= 64: true fp32 FMAs, never
+    TF32) at every form against its split-K plain version (TF32 off),
+    within the fp32 tolerance; the same call again the same bits (no float
+    atomics); on a plain product the TF32 control is refused."""
+    b, (m, k, n), seeded, kw = _F32_STREAM[name]
+    x, y, c, kw = _f32_call(gen, b, m, k, n, seeded, kw)
+    path, cfg = tiling.choose_gemm_path(m, n, k, Ger.F32GER, b or 1,
+                                        G.natural_aligned(x, y))
+    assert path == "stream"
+    before = G.mma_gemm.launches_by_path["stream"]
+    got = G.mma_gemm(x, y, c, **kw)
+    assert G.mma_gemm.launches_by_path["stream"] == before + 1
+    plain = G._plain_of(path, cfg, k)
+    want = plain(x, y, c, **kw)
+    _assert_store_close(got, want, kw["out_dtype"])
+    assert torch.equal(G.mma_gemm(x, y, c, **kw), got)
+    if c is None and "ep" not in kw:
+        _assert_refuses_tf32(x, y, want,
+                             lambda a, w: plain(a, w, None, **kw))
+
+
+@pytest.mark.parametrize("n,k", [(11008, 4096), (4096, 4096), (768, 768),
+                                 (51865, 768)])
+def test_f32_stream_rows_do_not_depend_on_the_batch(gen, n, k):
+    """A decode row of the fp32 stream is the same bits at batch 1 and
+    batch 4, and at every M up to 64 (F32GER's plan does not read M), and
+    a batched product's element the same at batch 1 and batch 4."""
+    x = _randn(gen, 64, k, dtype=torch.float32)
+    y = _randn(gen, k, n, dtype=torch.float32, scale=k ** -0.5)
+    rows = {m: G.mma_gemm(x[:m], y, kind=Ger.F32GER) for m in (1, 4, 33, 64)}
+    assert all(torch.equal(rows[m][:1], rows[1]) for m in rows)
+    assert torch.equal(rows[4][2:3], rows[64][2:3])
+    xb = _randn(gen, 4, 1, 128, dtype=torch.float32)
+    yb = _randn(gen, 4, 128, n, dtype=torch.float32, scale=0.1)
+    batch = G.mma_gemm(xb, yb, kind=Ger.F32GER)
+    single = G.mma_gemm(xb[1:2], yb[1:2], kind=Ger.F32GER)
+    assert torch.equal(batch[1:2], single)
+
+
+# name: (batch, (M, K, N), seed?, explicit block, keywords): both tiles,
+# ragged M/N/K, K % 4 (the element path of X), N % 4 (of Y), batched, the
+# forms and the epilogues, a 16-bit store
+_F32_TILE = {
+    "128": (None, (1024, 512, 2176), False, None, {}),
+    "128-explicit-ragged": (None, (300, 203, 1001), False, (128, 128, 16),
+                            {}),
+    "64": (None, (256, 1024, 1000), False, None, {}),
+    "64-ragged": (None, (1000, 330, 1000), False, None, {}),
+    "batched": (3, (130, 200, 140), False, (128, 128, 16), {}),
+    "forms": (None, (130, 4096, 1100), True, (128, 128, 16),
+              dict(neg_product=True, neg_acc=True, alpha=0.75, beta=-1.5)),
+    "bias-gelu-res-bf16": (None, (257, 384, 200), False, None,
+                           dict(ep=E.Epilogue(bias=True, activation="gelu",
+                                              residual=True),
+                                out_dtype=torch.bfloat16)),
+    "k-below-one-step": (None, (300, 3, 500), False, None, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_F32_TILE))
+def test_f32_tile_matches_plain(gen, name):
+    """The fp32 tile (F32GER at M > 64, a register-blocked SIMT tile) at
+    every form against ``mma_gemm_plain`` (TF32 off) within the fp32
+    tolerance; its two tiles the same bits (each output one fmaf chain in
+    ascending k from the seed or zero, whatever the tile); on a plain
+    product the TF32 control is refused."""
+    b, (m, k, n), seeded, block, kw = _F32_TILE[name]
+    x, y, c, kw = _f32_call(gen, b, m, k, n, seeded, kw)
+    before = G.mma_gemm.launches_by_path["wmma"]
+    got = G.mma_gemm(x, y, c, block=block, **kw)
+    assert G.mma_gemm.launches_by_path["wmma"] == before + 1
+    want = G.mma_gemm_plain(x, y, c, **kw)
+    _assert_store_close(got, want, kw["out_dtype"])
+    tiles = [G.mma_gemm(x, y, c, block=t, **kw)
+             for t in tiling.GEMM_TILES[Ger.F32GER]]
+    assert all(torch.equal(t, got) for t in tiles)
+    if c is None and "ep" not in kw and k >= 16:
+        _assert_refuses_tf32(x, y, want, lambda a, w: G.mma_gemm_plain(
+            a, w, None, **kw))
+
+
 def test_split_k_products_on_two_streams(gen):
     """Split-K products enqueued on two streams at once each get their
     own partials and tickets: both equal the same products run alone."""
@@ -1444,6 +1590,16 @@ _SIDECAR_CASES = {
     "wmma unaligned": ("BF16GER2", (300, 768), (768, 51865), "wmma", {}),
     "wmma f32": ("F32GER", (130, 4096), (4096, 1100), "wmma",
                  {"forms": True}),
+    "wmma f32 128": ("F32GER", (1024, 512), (512, 2176), "wmma",
+                     {"forms": True}),
+    "stream f32 split": ("F32GER", (4, 4096), (4096, 11008), "stream", {}),
+    "stream f32 1": ("F32GER", (4, 512), (512, 102400), "stream", {}),
+    "stream f32 forms": ("F32GER", (40, 768), (768, 520), "stream",
+                         {"forms": True}),
+    "stream f32 bank": ("F32GER", (8, 3, 2048), (8, 2048, 1408), "stream",
+                        {}),
+    "stream f32 packed": ("F32GER", (4, 4096), (4096, 4096), "stream",
+                          {"packed": True}),
     "wmma batched": ("F32GER", (3, 70, 200), (3, 200, 90), "wmma", {}),
     "dmma": ("F64GER", (200, 300), (300, 130), "dmma", {"forms": True}),
 }
@@ -1579,7 +1735,8 @@ def test_packed_wmma_bitwise(gen, name):
     """The WMMA and fp32 tiles on packed Y panels (K1d, PackedB): each
     stage cut from the fixed 64 x 64 panels, with the seed, alpha/beta
     and a fused bias + silu, bit for bit the natural launch, at aligned,
-    fringe, batched and unaligned (N = 51865) shapes."""
+    fringe, batched and unaligned (N = 51865) shapes; F32GER decode on
+    the fp32 weight stream's panels."""
     kind, b, (m, k, n), block = _WMMA_PACKED[name]
     dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
     lead = () if b is None else (b,)
@@ -1590,9 +1747,13 @@ def test_packed_wmma_bitwise(gen, name):
     bias = _randn(gen, n, dtype=torch.float32)
     kw = dict(kind=kind, block=block, alpha=0.5, beta=2.0,
               ep=E.Epilogue(bias=True, activation="silu"), bias=bias)
+    # F32GER decode ("f32-decode") takes the fp32 weight stream
+    path = tiling.choose_gemm_path(m, n, k, kind, b or 1,
+                                   G.natural_aligned(x, w), block)[0]
+    assert path == ("stream" if name == "f32-decode" else "wmma")
     _same_path_bits(lambda: G.mma_gemm(x, w, c, **kw),
                     lambda: G.mma_gemm(x, po.data, c, y_layout=po.layout,
-                                       **kw), "wmma")
+                                       **kw), path)
 
 
 @pytest.mark.parametrize("kind", [Ger.BF16GER2, Ger.F32GER])
@@ -1772,6 +1933,8 @@ _K1D = {
     "wmma-128": (Ger.BF16GER2, "wmma", (256, 200, 1000), (128, 128, 32)),
     "wmma-64": (Ger.BF16GER2, "wmma", (100, 136, 72), (64, 64, 64)),
     "f32": (Ger.F32GER, "wmma", (130, 100, 200), None),
+    "f32-128": (Ger.F32GER, "wmma", (300, 200, 1000), (128, 128, 16)),
+    "stream-f32": (Ger.F32GER, "stream", (30, 200, 1000), None),
     "stream-f16": (Ger.F16GER2, "stream", (30, 200, 1000), None),
     "wgmma-f16": (Ger.F16GER2, "wgmma", (300, 200, 1000), None),
     "wmma-f16": (Ger.F16GER2, "wmma", (100, 136, 72), (64, 64, 64)),

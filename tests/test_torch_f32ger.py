@@ -4,13 +4,16 @@ the JAX reference under ``eager_layers()``, on the CPU, with the route each
 call takes to the kernels recorded.
 
 On the card this config runs every attention call on K2e (the attention
-kernel's fp32 tile: f32 q, k and v) and every GEMM on F32GER's fp32 WMMA
-tile.  Here the wrappers run their plain versions, so the tests spy on the
-wrappers' dispatch (``_mma_flash_attention``, ``_mma_gemm``) and hold each
-call to what the card would launch: attention operands f32, the prefill in
-the tile mode and whisper's one-query decode cross-attention in the
-split-KV mode (80 encoder positions: two KV blocks); GEMM operands f32 on
-the WMMA path.  The outputs are held within 1e-4 of max|ref|, the bound of
+kernel's fp32 tile: f32 q, k and v) and every GEMM on true fp32 FMAs: the
+weight stream at M <= 64, the fp32 tile above.  Here the wrappers run
+their plain versions (the split-K one where the stream splits K), so the
+tests spy on the wrappers' dispatch (``_mma_flash_attention``,
+``_mma_gemm``) and hold each call to what the card would launch: attention
+operands f32, the prefill in the tile mode and whisper's one-query decode
+cross-attention in the split-KV mode (80 encoder positions: two KV
+blocks); GEMM operands f32 on ``choose_gemm_path``'s path, deepseek's
+(M <= 24) all on the stream, whisper's encoder (M = 160) on the fp32
+tile and its decoder on the stream.  The outputs are held within 1e-4 of max|ref|, the bound of
 tests/test_torch_model.py's f32 mode (only the bf16 embedding is rounded;
 the rest is fp32 summed in another order).
 """
@@ -87,7 +90,8 @@ def routes(monkeypatch):
         path, _ = tiling.choose_gemm_path(
             x.shape[-2], y.shape[-1], x.shape[-1], kind, b, True,
             kw.get("block"), kw.get("masks") is not None)
-        seen["gemm"].append(((x.dtype, y.dtype), kind, path))
+        seen["gemm"].append(((x.dtype, y.dtype), kind, path,
+                             x.shape[-2]))
         return gemm(x, y, c, kind=kind, **kw)
 
     monkeypatch.setattr(tattn, "_mma_flash_attention", attn_spy)
@@ -95,13 +99,17 @@ def routes(monkeypatch):
     return seen
 
 
-def _check_routes(seen, attn_modes):
+def _check_routes(seen, attn_modes, gemm_paths):
     assert seen["attn"] and seen["gemm"]
     f32 = (torch.float32,) * 3
     assert all(dt == f32 for dt, _, _ in seen["attn"])
     assert {mode for _, _, mode in seen["attn"]} == attn_modes
-    assert all(dt == f32[:2] and kind == F32 and path == "wmma"
-               for dt, kind, path in seen["gemm"])
+    assert all(dt == f32[:2] and kind == F32 for dt, kind, _, _ in
+               seen["gemm"])
+    # M <= 64 on the fp32 weight stream, above on the fp32 tile (K >= 16)
+    assert all(path == ("stream" if m <= tiling.STREAM_MAX_M else "wmma")
+               for _, _, path, m in seen["gemm"])
+    assert {path for _, _, path, _ in seen["gemm"]} == gemm_paths
 
 
 def _models(name):
@@ -115,7 +123,7 @@ def _models(name):
 def test_deepseek_prefill_and_decode(routes):
     """Reduced deepseek-7b: a 2 x 12 prefill (its causal attention in the
     tile mode) and 3 teacher-forced decode steps (eager ring attention),
-    every product an f32 GEMM on the WMMA path."""
+    every product an f32 GEMM on the fp32 weight stream."""
     jcfg, tcfg, params, model = _models("deepseek-7b")
     b, s, steps = 2, 12, 3
     tokens = np.random.default_rng(0).integers(
@@ -144,7 +152,7 @@ def test_deepseek_prefill_and_decode(routes):
     for i, what in enumerate(("k", "v")):
         _close(tcache["kv"][i].numpy(), jcache["kv"][i], f"prefill {what}")
     assert n_prefill == tcfg.num_layers
-    _check_routes(routes, {"tile"})
+    _check_routes(routes, {"tile"}, {"stream"})
 
 
 def test_whisper_prefill_and_decode(routes):
@@ -194,4 +202,4 @@ def test_whisper_prefill_and_decode(routes):
     split = [sq for _, sq, mode in routes["attn"] if mode == "split"]
     assert sorted(split) == [1] * (steps * tcfg.num_layers) \
         + [p] * tcfg.num_layers
-    _check_routes(routes, {"tile", "split"})
+    _check_routes(routes, {"tile", "split"}, {"stream", "wmma"})

@@ -738,7 +738,8 @@ def _spy_wrapper_layouts(monkeypatch):
 
 
 _WMMA_CASES = {
-    # name: (family, (M, K, N), plan keywords)
+    # name: (family, (M, K, N), plan keywords); F32GER decode takes the
+    # fp32 weight stream, which reads the same panels
     "block-128": (Ger.BF16GER2, (100, 256, 384), dict(block=(128, 128, 32))),
     "block-64": (Ger.BF16GER2, (4, 256, 384), dict(block=(64, 64, 64))),
     "f32ger-decode": (Ger.F32GER, (4, 200, 136), {}),
@@ -750,10 +751,11 @@ _WMMA_CASES = {
 
 @pytest.mark.parametrize("name", list(_WMMA_CASES))
 def test_packed_wmma_and_f32_tiles_read_panels_bitwise(name, monkeypatch):
-    """An explicit block (both WMMA tiles), F32GER (the fp32 tile), an
-    unaligned pitch (N = 1001 at M > 64) and M/N/K fringes: the packed
-    dispatch takes the WMMA path with its panels un-demoted, is the
-    natural one bit for bit, and counts no demote (K1d)."""
+    """An explicit block (both WMMA tiles), F32GER (the fp32 tile at
+    M > 64, the fp32 weight stream at decode), an unaligned pitch (N =
+    1001 at M > 64) and M/N/K fringes: the packed dispatch takes the
+    natural call's path with its panels un-demoted, is the natural one
+    bit for bit, and counts no demote (K1d)."""
     kind, (m, k, n), plan_kw = _WMMA_CASES[name]
     dt = torch.float32 if kind == Ger.F32GER else torch.bfloat16
     x = _t(_rand((m, k), 40), dt)
@@ -765,7 +767,8 @@ def test_packed_wmma_and_f32_tiles_read_panels_bitwise(name, monkeypatch):
     with tfac.configure(CPU):
         nat = tfac.contract("mk,kn->mn", x, w, bias=bias, plan=plan)
         pk = tfac.contract("mk,kn->mn", x, po, bias=bias, plan=plan)
-    assert seen == [["wmma", False], ["wmma", True]]
+    path = "stream" if name == "f32ger-decode" else "wmma"
+    assert seen == [[path, False], [path, True]]
     assert torch.equal(nat, pk)
     assert packing.COUNTERS["demote"] == 0
 

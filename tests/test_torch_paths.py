@@ -119,12 +119,108 @@ def test_what_the_new_paths_do_not_take_stays_on_wmma():
     # ... which the weight stream takes at decode M (a scalar fringe path)
     assert tiling.choose_gemm_path(16, 51865, 768, BF, 1, False)[0] == \
         "stream"
+    # F32GER decode takes the fp32 weight stream (its test below)
     assert tiling.choose_gemm_path(4, 4096, 4096, tprec.Ger.F32GER)[0] == \
-        "wmma"
+        "stream"
     for m in (4, 300):
         path, cfg = tiling.choose_gemm_path(m, 256, 512, BF, 1, True,
                                             (64, 64, 64))
         assert path == "wmma" and cfg == tiling.BlockConfig(64, 64, 64)
+
+
+F32 = tprec.Ger.F32GER
+
+
+@pytest.mark.parametrize("m", [1, 4, 9, 16, 17, 32, 33, 64])
+@pytest.mark.parametrize("k,n,aligned", [(4096, 11008, True),
+                                         (4096, 4096, True),
+                                         (4096, 102400, True),
+                                         (768, 51865, False)])
+def test_f32ger_row_buckets_take_the_fp32_stream(m, k, n, aligned):
+    """F32GER at M <= 64 (every row bucket; deepseek-7b's decode MLP,
+    projections and logits, whisper's unaligned logits) takes the weight
+    stream, on true fp32 FMAs, with its grid on two blocks an SM and each
+    split at least one stage of K; its plan does not depend on M, so a
+    row sums in one order at every M <= 64."""
+    path, cfg = tiling.choose_gemm_path(m, n, k, F32, 1, aligned)
+    assert path == "stream"
+    assert cfg.blocks(n) >= FULL_GRID
+    assert all(k1 > k0 for k0, k1 in cfg.k_slices(k))
+    assert cfg == tiling.choose_gemm_path(1, n, k, F32, 1, aligned)[1]
+    assert cfg == tiling.stream_plan(m, n, k, 1, 4)
+
+
+def test_f32ger_below_one_mma_step_and_above_64_rows_takes_the_fp32_tile():
+    # K < MIN_K: the SSD's K = 1 outer product, as in bf16
+    assert tiling.choose_gemm_path(4, 4096, 1, F32)[0] == "wmma"
+    # M > 64 never takes a tensor-core path, aligned or not
+    for aligned in (True, False):
+        path, cfg = tiling.choose_gemm_path(65, 4096, 4096, F32, 1, aligned)
+        assert path == "wmma" and cfg.bk == 16
+
+
+@pytest.mark.parametrize("m", [4, 64, 1024])
+def test_masked_f32ger_stays_on_the_fp32_tile(m):
+    """A masked F32GER product takes the fp32 tile at every M, as masked
+    bf16 takes WMMA: the weight stream takes no predicates; decode's
+    skinny grid the 64 x 64 tile, prefill's the 128 x 128 one."""
+    path, cfg = tiling.choose_gemm_path(m, 11008, 4096, F32, 1, True,
+                                        masked=True)
+    want = (128, 128, 16) if m == 1024 else (64, 64, 16)
+    assert path == "wmma" and cfg == tiling.BlockConfig(*want)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (1024, 4096, 11008, (128, 128, 16)),    # deepseek-7b prefill MLP
+    (1024, 4096, 4096, (128, 128, 16)),     # its projections: 256 blocks
+    (2048, 11008, 4096, (128, 128, 16)),    # training's down projection
+    (256, 4096, 4096, (64, 64, 16)),        # 64 blocks of 128: too few
+    (160, 768, 768, (64, 64, 16))])         # whisper's reduced encoder
+def test_f32ger_prefill_takes_the_larger_fp32_tile(m, k, n, want):
+    """The 128 x 128 fp32 tile where its grid still puts a block on every
+    SM, else the 64 x 64 one (choose_blocks' rule)."""
+    path, cfg = tiling.choose_gemm_path(m, n, k, F32)
+    assert path == "wmma" and cfg == tiling.BlockConfig(*want)
+    assert tiling.GEMM_TILES[F32][0] == (128, 128, 16)
+
+
+def test_stream_plan_fp32_split_ceiling():
+    """The partials budget (8 * split * M * N bytes of fp32 partials
+    against the weight's in_bytes * K * N) lets 4-byte weights split K
+    twice as far as 16-bit ones at a row count: at bucket 64 over K = 512
+    bf16 stops at 2 splits, F32GER at 4.  F32GER reckons it at 64 rows
+    for every M (one order a row at every M), so at M = 4 it stops at 4
+    where bf16's bucket of 8 allows the grid target's 5; where the grid
+    target binds first the two agree."""
+    assert tiling.stream_plan(64, 4096, 512) == tiling.StreamConfig(64, 2)
+    fp32 = tiling.stream_plan(64, 4096, 512, 1, 4)
+    assert fp32 == tiling.StreamConfig(64, 4)
+    assert 8 * fp32.split * 64 * 4096 <= 4 * 512 * 4096
+    assert tiling.choose_gemm_path(64, 4096, 512, F32)[1] == fp32
+    assert tiling.stream_plan(4, 4096, 512) == tiling.StreamConfig(64, 5)
+    for m in (1, 4, 16, 32):
+        assert tiling.stream_plan(m, 4096, 512, 1, 4) == fp32
+    # deepseek-7b's decode MLP: the grid target binds (2 splits of 172
+    # tiles) in both families
+    assert tiling.stream_plan(4, 11008, 4096, 1, 4) == \
+        tiling.stream_plan(4, 11008, 4096) == tiling.StreamConfig(64, 2)
+
+
+def test_takes_an_f32ger_stream_winner():
+    won = ("stream", tiling.StreamConfig(64, 16))
+    assert tiling.takes(won, 4, 4096, 4096, F32)
+    assert tiling.choose_gemm_path(4, 4096, 4096, F32, tuned=won) == won
+    # not masked, not above 64 rows, not past K's stages
+    assert not tiling.takes(won, 4, 4096, 4096, F32, masked=True)
+    assert not tiling.takes(won, 65, 4096, 4096, F32)
+    assert not tiling.takes(("stream", tiling.StreamConfig(64, 200)), 4,
+                            4096, 4096, F32)
+    # no tensor-core tile for F32GER; both fp32 tiles at any M
+    assert not tiling.takes(("wgmma", tiling.WgmmaConfig(128, 128)), 1024,
+                            4096, 4096, F32)
+    for t in tiling.tiles_for(F32):
+        assert tiling.takes(("wmma", t), 4, 4096, 4096, F32)
+        assert tiling.takes(("wmma", t), 1024, 4096, 4096, F32)
 
 
 def test_split_kv_plan_fills_the_card_at_whisper_cross_attention():
