@@ -5165,6 +5165,232 @@ def phase11(torch, failures, entries):
     print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 12: the 16-bit WMMA tile's forms at the main path's shapes.
+# (label, family, (B, M, K, N), explicit block, masked, Y packed)
+WMMA_CASES = (
+    ("bf16 block (128, 128, 32) 1024x4096x11008", "BF16GER2",
+     (None, 1024, 4096, 11008), (128, 128, 32), False, False),
+    ("bf16 block (64, 64, 64) 1024x4096x11008", "BF16GER2",
+     (None, 1024, 4096, 11008), (64, 64, 64), False, False),
+    ("bf16 unaligned 1024x768x51865", "BF16GER2", (None, 1024, 768, 51865),
+     None, False, False),
+    ("bf16 unaligned 1024x768x51865 packed Y", "BF16GER2",
+     (None, 1024, 768, 51865), None, False, True),
+    ("bf16 masked 1024x4096x11008", "BF16GER2", (None, 1024, 4096, 11008),
+     None, True, False),
+    ("f16 block (128, 128, 32) 1024x4096x11008", "F16GER2",
+     (None, 1024, 4096, 11008), (128, 128, 32), False, False),
+    ("bf16 SSD K=1 outer 4x(64x1x4096)", "BF16GER2", (4, 64, 1, 4096), None,
+     False, False),
+)
+# K3 at its WMMA filter tile: (label, image NHWC, filters HWIO, stride)
+WMMA_CONV_CASES = (
+    ("conv2 whisper 4x3001x768 k3 s2", (4, 1, 3001, 768), (1, 3, 768, 768),
+     (1, 2)),
+    ("patch embed qwen2-vl 4x448x448x3 k14 s14", (4, 448, 448, 3),
+     (14, 14, 3, 3584), (14, 14)),
+)
+# The parent kernel's times at these forms, as PERF.md section 6 records
+# them (runs Z3 and V7 there, NVIDIA H100 80GB HBM3 at 700 W): printed
+# beside this run's times for the reader, never put in the kernels line.
+WMMA_PERF_MD_PARENT_MS = {
+    WMMA_CASES[0][0]: 1.0832, WMMA_CASES[1][0]: 0.9975,
+    WMMA_CASES[2][0]: 1.2548, WMMA_CASES[3][0]: 1.1477,
+    WMMA_CASES[4][0]: 1.1953, WMMA_CONV_CASES[0][0]: 0.3349,
+    WMMA_CONV_CASES[1][0]: 0.3491}
+
+
+def _perf_md_parent(label):
+    ms = WMMA_PERF_MD_PARENT_MS.get(label)
+    return ("parent in PERF.md: not measured" if ms is None
+            else f"parent in PERF.md: {ms} ms")
+
+
+def phase12_kernels(torch, timer, failures):
+    """The redesigned 16-bit WMMA tile (K1's bf16/f16 products off the
+    stream and wgmma paths, K3's WMMA conv): a main-path run of every form
+    through ``facility.contract``, counts zeroed just before and read just
+    after; each result against its plain version, packed Y bit for bit
+    the natural launch; then each form timed (CUDA events, L2 flushed)
+    beside the plain version, the library call and the bound, with the
+    parent kernel's PERF.md time printed beside it.  Returns the two
+    ``kernels`` entries."""
+    from repro_torch.core import facility, packing, precision
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = facility.Ger
+    g = torch.Generator(device="cuda").manual_seed(25)
+    ops = []
+    for label, fam, (b, m, k, n), block, masked, packed in WMMA_CASES:
+        kind = Ger[fam]
+        dt = precision.policy(kind).x_dtype
+        lead = () if b is None else (b,)
+        x = torch.randn(*lead, m, k, generator=g, device="cuda").to(dt)
+        w = (torch.randn(*lead, k, n, generator=g, device="cuda")
+             * k ** -0.5).to(dt)
+        masks = None
+        if masked:
+            masks = _lane_masks(torch, g, m, n, k)
+            x[~masks[0], :] = float("nan")
+            w[:, ~masks[1]] = float("nan")
+            w[~masks[2], :] = float("inf")
+        po = (packing.pack_gemm(w, packing.gemm_layout(kind, k, n))
+              if packed else None)
+        plan = facility.Plan(ger=kind, out_dtype=facility.ACC, block=block)
+        ops.append((label, kind, (b, m, k, n), block, masks, x, w, po, plan))
+    convs = []
+    for label, ishape, wshape, stride in WMMA_CONV_CASES:
+        kh, kw, c, f = wshape
+        x = torch.randn(*ishape, generator=g, device="cuda").bfloat16()
+        w = (torch.randn(*wshape, generator=g, device="cuda")
+             * (kh * kw * c) ** -0.5).bfloat16()
+        bias = torch.randn(f, generator=g, device="cuda")
+        plan = facility.Plan(ger=Ger.BF16GER2, out_dtype=torch.float32,
+                             stride=stride, block=(64, 128, 32),
+                             epilogue=E.Epilogue(bias=True,
+                                                 activation="gelu"))
+        convs.append((label, x, w, bias, plan))
+
+    # the main path: every form through contract
+    kernels = kernel_wrappers()
+    outs = {}
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for label, _, _, _, masks, x, w, po, plan in ops:
+            outs[label] = facility.contract(
+                "mk,kn->mn" if x.ndim == 2 else "bmk,bkn->bmn", x,
+                w if po is None else po, masks=masks, plan=plan)
+        for label, x, w, bias, plan in convs:
+            outs[label] = facility.contract(facility.CONV2D, x, w,
+                                            bias=bias, plan=plan)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    gemm_wmma = counts["by_path"]["mma_gemm"]["wmma"]
+    conv_wmma = counts["by_path"]["mma_conv2d"]["wmma"]
+    _check(failures, "phase 12 main path",
+           gemm_wmma == len(ops) and conv_wmma == len(convs)
+           and counts["masked"]["wmma"] == sum(
+               o[4] is not None for o in ops)
+           and counts["packed"]["gemm wmma"] == sum(
+               o[7] is not None for o in ops),
+           f"GEMM by path {counts['by_path']['mma_gemm']}, conv by path "
+           f"{counts['by_path']['mma_conv2d']}, masked {counts['masked']}, "
+           f"packed {counts['packed']} (wmma: {len(ops)} products, "
+           f"{len(convs)} convs)")
+    main_wmma = sum(r["by_path"]["mma_gemm"]["wmma"]
+                    for r in RECORDS.values())
+
+    rows, errs = {}, {}
+    for label, kind, (b, m, k, n), block, masks, x, w, po, plan in ops:
+        gk = dict(kind=kind, block=block, masks=masks)
+        plain = lambda x=x, w=w, gk=gk: G.mma_gemm_plain(  # noqa: E731
+            x, w, kind=gk["kind"], masks=gk["masks"])
+        errs[label] = _report_close(torch, f"wmma {label} vs plain",
+                                    outs[label], plain(), torch.float32,
+                                    failures)
+        if po is not None:
+            _check(failures, f"wmma {label}", torch.equal(
+                outs[label], G.mma_gemm(x, w, **gk)),
+                "packed Y bit for bit the natural launch")
+        yk, lay = (w, {}) if po is None else (po.data,
+                                              {"y_layout": po.layout})
+        row = {"ms": timer(lambda x=x, yk=yk, gk=gk, lay=lay: G.mma_gemm(
+                   x, yk, **gk, **lay)),
+               "plain_ms": timer(plain),
+               "library_ms": timer(
+                   (lambda x=x, w=w, masks=masks: torch.matmul(
+                       *G.select_masks(x, w, masks)))
+                   if masks is not None else
+                   (lambda x=x, w=w: torch.matmul(x, w))),
+               "library": ("torch.where + torch.matmul" if masks is not None
+                           else "torch.matmul")}
+        me, ne, ke = ((int(t.sum()) for t in masks) if masks is not None
+                      else (m, n, k))
+        nb = b or 1
+        nbytes = nb * ((me * ke + ke * ne) * 2 + m * n * 4)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2 * nb * me * ne * ke, "bf16")
+        print(f"  time wmma {label}: {row['ms']:.4f} ms "
+              f"({_perf_md_parent(label)}), plain "
+              f"{row['plain_ms']:.4f} ms, {row['library']} "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        rows[label] = row
+    conv_rows, conv_errs = {}, {}
+    for label, x, w, bias, plan in convs:
+        ckw = dict(stride=plan.stride, ep=plan.epilogue, bias=bias,
+                   out_dtype=torch.float32)
+        plain = lambda x=x, w=w, ckw=ckw: K.mma_conv2d_plain(  # noqa: E731
+            x, w, **ckw)
+        conv_errs[label] = _report_conv(torch, f"conv wmma {label} vs plain",
+                                        outs[label], plain(), torch.float32,
+                                        failures)
+        kh, kw, c, f = w.shape
+        n, h, wd, _ = x.shape
+        oh = (h - kh) // plan.stride[0] + 1
+        ow = (wd - kw) // plan.stride[1] + 1
+        w_nchw = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        x_nchw = x.permute(0, 3, 1, 2)
+        b16 = bias.bfloat16()
+        row = {"ms": timer(lambda x=x, w=w, ckw=ckw: K.mma_conv2d(
+                   x, w, bf=128, **ckw)),
+               "plain_ms": timer(plain),
+               "library_ms": timer(
+                   lambda x_nchw=x_nchw, w_nchw=w_nchw, b16=b16,
+                   s=plan.stride: torch.nn.functional.conv2d(
+                       x_nchw, w_nchw, b16, stride=s)),
+               "library": "cuDNN conv2d (channels-last)"}
+        nbytes = (x.numel() + w.numel()) * 2 + n * oh * ow * f * 4 + f * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2 * n * oh * ow * f * kh * kw * c, "bf16")
+        print(f"  time conv wmma {label}: {row['ms']:.4f} ms "
+              f"({_perf_md_parent(label)}), plain {row['plain_ms']:.4f} ms, "
+              f"cuDNN {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        conv_rows[label] = row
+    del ops, convs, outs
+
+    label = WMMA_CASES[0][0]
+    entries = [
+        {"name": "mma_gemm 16-bit tile (wmma)", "route": "cuda",
+         "source": "src/repro_torch/csrc/tile_gemm.cuh",
+         "replaces": "src/repro/kernels/mma_gemm.py:417",
+         "launches": gemm_wmma, "main_path_launches": main_wmma,
+         "max_abs_err": max(errs.values()), **rows[label], "shape": label,
+         "timed": rows},
+        {"name": "mma_conv2d WMMA tile", "route": "cuda",
+         "source": "src/repro_torch/csrc/mma_conv.cu",
+         "replaces": "src/repro/kernels/mma_conv.py:191",
+         "launches": conv_wmma, "max_abs_err": max(conv_errs.values()),
+         **conv_rows[WMMA_CONV_CASES[0][0]],
+         "shape": WMMA_CONV_CASES[0][0], "timed": conv_rows}]
+    if main_wmma <= 0:
+        failures.append("the 16-bit WMMA tile never launched on the main "
+                        "path's runs (phases 3 and 5)")
+    for e in entries:
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched in phase 12's run")
+    return entries
+
+
+def phase12(torch, failures, entries):
+    """Phase 12: the redesigned 16-bit WMMA tile and K3's WMMA conv at the
+    forms the main path gives them, checked and timed; the parent kernel's
+    PERF.md time is printed beside each."""
+    print("== phase 12: the 16-bit WMMA tile (cp.async ring, ldmatrix, "
+          "mma.sync) and K3's WMMA conv", flush=True)
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    entries += phase12_kernels(torch, timer, failures)
+    del timer
+    torch.cuda.empty_cache()
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -5321,6 +5547,7 @@ def run_phases(torch) -> None:
     phase9(torch, failures, entries)
     phase10(torch, failures, entries)
     phase11(torch, failures, entries)
+    phase12(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

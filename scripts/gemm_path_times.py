@@ -24,6 +24,17 @@ chip_smoke.py's Timer (median, L2 flushed, host work hidden); the card's
 name and power limit head the output.  To compare two trees, unpack one
 beside the other and run the script for each in turn, A B B A, in one
 session on one card: the kernels build per tree, into ``DIR/build``.
+
+The 16-bit WMMA tile's forms follow: the (64, 64, 64) block at prefill,
+whisper-small's logits 1024 x 768 x 51865 (unaligned rows: the heuristic
+sends them to the tile), natural and on Y panels, a masked bf16 prefill,
+the SSD's K = 1 outer product, f16, X and Y panels masked over the M, N
+and K fringes, and a seeded, batched product on a shared Y with the
+checksum sidecar (its hash covers the sums too); then K3's conv at
+explicit filter tiles (``CONV_CASES``): the WMMA tile at whisper-small's
+conv2 (16-byte gathers), qwen2-vl-7b's patch embed (4-byte pairs) and a
+5-channel image (element gathers; one K step with a 1 x 3 filter, eight
+with 7 x 7), and the fp32 tile at conv2.
 """
 
 from __future__ import annotations
@@ -32,11 +43,14 @@ import argparse
 import hashlib
 import pathlib
 import sys
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# (label, family, (B, M, K, N), explicit block, masked, Y packed); B
-# None: unbatched
+# (label, family, (B, M, K, N), explicit block, masked, Y packed[,
+# forms]); B None: unbatched; forms: "x" X panels too, "seed" a C seed
+# with beta = 0.5, "shared" Y panels without the batch axis, "checksum"
+# the sidecar
 CASES = (
     ("stream decode 4x4096x11008", "BF16GER2", (None, 4, 4096, 11008), None,
      False, False),
@@ -72,7 +86,50 @@ CASES = (
      None, False, True),
     ("wgmma packed Y prefill 1024x4096x11008", "BF16GER2",
      (None, 1024, 4096, 11008), None, False, True),
+    ("wmma block (64, 64, 64) 1024x4096x11008", "BF16GER2",
+     (None, 1024, 4096, 11008), (64, 64, 64), False, False),
+    ("wmma unaligned 1024x768x51865", "BF16GER2", (None, 1024, 768, 51865),
+     None, False, False),
+    ("wmma unaligned 1024x768x51865 packed Y", "BF16GER2",
+     (None, 1024, 768, 51865), None, False, True),
+    ("wmma masked 1024x4096x11008", "BF16GER2", (None, 1024, 4096, 11008),
+     None, True, False),
+    ("wmma K=1 4x(64x1x4096)", "BF16GER2", (4, 64, 1, 4096), None, False,
+     False),
+    ("wmma f16 block (128, 128, 32) 1024x4096x11008", "F16GER2",
+     (None, 1024, 4096, 11008), (128, 128, 32), False, False),
+    ("wmma block (128, 128, 32) 1000x330x1000 X+Y packed masked",
+     "BF16GER2", (None, 1000, 330, 1000), (128, 128, 32), True, True,
+     ("x",)),
+    ("wmma block (64, 64, 64) 3x300x520x260 seeded shared Y sidecar",
+     "BF16GER2", (3, 300, 520, 260), (64, 64, 64), False, True,
+     ("seed", "shared", "checksum")),
 )
+
+# (label, image (N, H, W, C), filters (KH, KW, C, F), stride, dtype, filter
+# tile): K3 with bias + gelu at an explicit filter tile (its WMMA or fp32
+# tile)
+CONV_CASES = (
+    ("conv wmma whisper conv2 4x3001x768 k3 s2", (4, 1, 3001, 768),
+     (1, 3, 768, 768), (1, 2), "bfloat16", 128),
+    ("conv wmma qwen2-vl patch 4x448x448x3 k14 s14", (4, 448, 448, 3),
+     (14, 14, 3, 3584), (14, 14), "bfloat16", 128),
+    ("conv wmma C=5 elements 4x1x3001x5 k3", (4, 1, 3001, 5), (1, 3, 5, 768),
+     (1, 1), "bfloat16", 128),
+    ("conv wmma C=5 elements 4x64x64x5 k7", (4, 64, 64, 5), (7, 7, 5, 768),
+     (1, 1), "bfloat16", 128),
+    ("conv f32 whisper conv2 4x3001x768 k3 s2", (4, 1, 3001, 768),
+     (1, 3, 768, 768), (1, 2), "float32", 64),
+)
+
+
+def digest(*ts) -> str:
+    """The first 16 hex digits of a SHA-256 of the tensors' bytes."""
+    import torch
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main() -> None:
@@ -88,44 +145,82 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available: this script runs on the card only")
     from repro_torch.core import packing, precision
+    from repro_torch.kernels import _build
     from repro_torch.kernels import mma_gemm as G
     print(CS.card_line(), flush=True)
     print(f"tree {tree}")
+    t0 = time.perf_counter()
+    _build.build()      # every source at once, one nvcc each
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = CS.Timer(torch)
-    for i, (label, fam, (b, m, k, n), block, masked, packed) in enumerate(
-            CASES):
+    for i, (label, fam, (b, m, k, n), block, masked, packed,
+            *forms) in enumerate(CASES):
+        forms = forms[0] if forms else ()
         g = torch.Generator(device="cuda").manual_seed(11 + i)
         kind = precision.Ger[fam]
         pol = precision.policy(kind)
         lead = () if b is None else (b,)
+        ylead = () if "shared" in forms else lead
         if pol.is_integer:
             x, y = CS._int_operands(torch, g, kind, lead, m, k, n)
         else:
             x = torch.randn(*lead, m, k, generator=g, device="cuda"
                             ).to(pol.x_dtype)
-            y = (torch.randn(*lead, k, n, generator=g, device="cuda")
+            y = (torch.randn(*ylead, k, n, generator=g, device="cuda")
                  * k ** -0.5).to(pol.y_dtype)
         masks = CS._lane_masks(torch, g, m, n, k) if masked else None
         kw = dict(kind=kind, block=block, masks=masks)
+        if "seed" in forms:
+            kw.update(beta=0.5, c=torch.randn(*lead, m, n, generator=g,
+                                              device="cuda"))
+        if "checksum" in forms:
+            kw["checksum"] = True
         if packed:
             po = packing.pack_gemm(y, packing.gemm_layout(
-                kind, k, n, batched=b is not None))
+                kind, k, n, batched=len(ylead) > 0))
             y, kw["y_layout"] = po.data, po.layout
+        if "x" in forms:
+            po = packing.pack_gemm(x, packing.gemm_layout(
+                kind, m, k, side="x", batched=b is not None))
+            x, kw["x_layout"] = po.data, po.layout
+        c = kw.pop("c", None)
         before = dict(G.mma_gemm.launches_by_path)
-        out = G.mma_gemm(x, y, **kw)
+        out = G.mma_gemm(x, y, c, **kw)
         torch.cuda.synchronize()
         took = [p for p, v in G.mma_gemm.launches_by_path.items()
                 if v != before[p]]
         if len(took) != 1:
             sys.exit(f"{label}: launched on {took}, not one path")
-        digest = hashlib.sha256(
-            out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
-        ).hexdigest()[:16]
-        ms = timer(lambda x=x, y=y, kw=kw: G.mma_gemm(x, y, **kw))
-        print(f"  {label}: {ms:.4f} ms [{took[0]}] sha256 {digest}",
+        sha = digest(*(out if isinstance(out, tuple) else (out,)))
+        ms = timer(lambda x=x, y=y, c=c, kw=kw: G.mma_gemm(x, y, c, **kw))
+        print(f"  {label}: {ms:.4f} ms [{took[0]}] sha256 {sha}",
               flush=True)
-        del x, y, masks, kw, out
+        del x, y, c, masks, kw, out
+    from repro_torch.kernels import epilogue as E
+    from repro_torch.kernels import mma_conv as K
+    for i, (label, ishape, wshape, stride, dtype, bf) in enumerate(
+            CONV_CASES):
+        g = torch.Generator(device="cuda").manual_seed(101 + i)
+        dt = getattr(torch, dtype)
+        x = torch.randn(*ishape, generator=g, device="cuda").to(dt)
+        kk = wshape[0] * wshape[1] * wshape[2]
+        w = (torch.randn(*wshape, generator=g, device="cuda")
+             * kk ** -0.5).to(dt)
+        kw = dict(stride=stride, bf=bf, ep=E.Epilogue(
+            bias=True, activation="gelu"), bias=torch.randn(
+                wshape[3], generator=g, device="cuda"))
+        before = dict(K.mma_conv2d.launches_by_path)
+        out = K.mma_conv2d(x, w, **kw)
+        torch.cuda.synchronize()
+        took = [p for p, v in K.mma_conv2d.launches_by_path.items()
+                if v != before[p]]
+        if len(took) != 1:
+            sys.exit(f"{label}: launched on {took}, not one path")
+        ms = timer(lambda x=x, w=w, kw=kw: K.mma_conv2d(x, w, **kw))
+        print(f"  {label}: {ms:.4f} ms [{took[0]}] sha256 {digest(out)}",
+              flush=True)
+        del x, w, kw, out
 
 if __name__ == "__main__":
     main()

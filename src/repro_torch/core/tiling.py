@@ -59,8 +59,11 @@ SMEM_PER_BLOCK = 232_448     # bytes a block may opt in to (227 KB)
 NUM_SMS = 132                # H100 SXM streaming multiprocessors
 
 # Row padding (in elements) of the shared-memory tiles, as in csrc/: 16-bit
-# panels pad by 8 (keeps WMMA's 32-byte fragment alignment), fp32 by 4.
+# panels pad by 8 (16 bytes: conflict-free ldmatrix rows, and room for a
+# realigned row's spare word), fp32 by 4.
 _PAD16, _PAD32 = 8, 4
+# The 16-bit tile's cp.async ring (csrc/tile_gemm.cuh's TILE16_STAGES).
+TILE16_STAGES = 4
 
 # The tile shapes csrc/mma_gemm.cu (16-bit, fp32), csrc/gemm_imma.cu
 # (integer; bk counts unpacked K, two nibbles a byte for I4GER8) and
@@ -90,8 +93,10 @@ class BlockConfig:
         return (-(-n // self.bn), -(-m // self.bm), b)
 
     def smem_bytes(self, pol: precision.GerPolicy) -> int:
-        """Dynamic shared memory of one block: the panel pair, or the
-        accumulator tile that aliases it, whichever is larger."""
+        """Dynamic shared memory of one block: the panels (the 16-bit
+        tile's ring of ``TILE16_STAGES`` panel pairs, the fp32 tile's two
+        stages), or the accumulator tile that aliases them, whichever is
+        larger (csrc/tile_gemm.cuh's wmma_smem_bytes)."""
         c_tile = self.bm * (self.bn + _PAD32) * pol.acc_dtype.itemsize
         if pol.ger in IMMA_GERS:
             # two buffers of byte planes (hi and lo for I16GER2): X rows
@@ -103,8 +108,8 @@ class BlockConfig:
             panels = 2 * (self.bm * (self.bk + _PAD32)
                           + self.bk * (self.bn + _PAD32)) * 8
         elif pol.in_bytes == 2:
-            panels = (self.bm * (self.bk + _PAD16)
-                      + self.bk * (self.bn + _PAD16)) * 2
+            panels = TILE16_STAGES * (self.bm * (self.bk + _PAD16)
+                                      + self.bk * (self.bn + _PAD16)) * 2
         else:  # fp32: two stages, the X panel stored k-major
             panels = 2 * (self.bk * (self.bm + _PAD32)
                           + self.bk * (self.bn + _PAD32)) * 4
@@ -306,6 +311,17 @@ def takes(tuned: tuple, m: int, n: int, k: int, ger: Ger,
                 and 1 <= cfg.split <= -(-k // STREAM_BK))
     return (path == "wgmma" and ger in WGMMA_GERS and m > STREAM_MAX_M
             and aligned and cfg in WGMMA_TILES)
+
+
+def tile16_row_shift(base: int, pitch: int, row: int) -> int:
+    """How csrc/tile_gemm.cuh's 16-bit tile copies row ``row`` of a
+    natural operand at byte address ``base`` with a row pitch of ``pitch``
+    bytes, row by row: 0, in 16-byte cp.async copies as it lies; else the
+    16-byte aligned words that cover the row are copied whole and shifted
+    by this many bytes once they land (seven rows in eight of whisper's
+    51865-column logits, a pitch of 103730 bytes).  A pitch of a multiple
+    of 16 keeps every row at the base's shift."""
+    return (base + row * pitch) % 16
 
 
 def check_block(block: tuple[int, int, int], ger: Ger) -> BlockConfig:

@@ -37,6 +37,30 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
                : "memory");
 }
 
+// A 16-byte global stand-in for the source of a copy that reads nothing.
+static __device__ __align__(16) unsigned char cp_async_nothing[16];
+
+// cp.async of 16 (cached in L2 only) or 4 bytes into shared memory, of
+// which the first n (clamped to 0 .. the copy's size) come from src and
+// the rest are zero-filled; with n <= 0 nothing is read (src is not
+// touched: it may lie past the matrix).
+__device__ __forceinline__ void cp_async16_upto(void* dst, const void* src,
+                                                long long n) {
+  const int size = n >= 16 ? 16 : n > 0 ? (int)n : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(size ? src : (const void*)cp_async_nothing), "r"(size)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_upto(void* dst, const void* src,
+                                               long long n) {
+  const int size = n >= 4 ? 4 : n > 0 ? (int)n : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(size ? src : (const void*)cp_async_nothing), "r"(size)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -111,6 +135,50 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 template <>
 __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
+}
+
+// D += A B on the tensor cores: mma.sync m16n8k16, a 16 x 16 bf16/f16 A
+// (row-major fragments), a 16 x 8 B (column fragments), fp32 D.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&d)[4],
+                                                        const uint32_t (&a)[4],
+                                                        uint32_t b0,
+                                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 16-bit matrices from shared memory, lane l giving the address
+// of row l % 8 of matrix l / 8; .trans hands each lane its column pairs.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
 // One lane of a pm* predicate (a byte mask over M, N or K): enabled where

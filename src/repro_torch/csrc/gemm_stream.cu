@@ -234,31 +234,6 @@ __device__ __forceinline__ void stream_load_stage(T* ws_, T* xs_,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&d)[4],
-                                                        const uint32_t (&a)[4],
-                                                        uint32_t b0,
-                                                        uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(float (&d)[4],
-                                                 const uint32_t (&a)[4],
-                                                 uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The sidecar of one (M, BN) N tile from its finished fp32 values, staged
 // in ct (row pitch BN + 4): gm = 1, gn = the grid's N tiles.
 template <int BN>

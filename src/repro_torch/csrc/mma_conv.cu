@@ -305,8 +305,11 @@ extern "C" int mma_depthwise_conv_launch(
 //     swizzled bytes as the natural (K, F) box, so the result is the
 //     natural launch's bit for bit.
 //   * conv_wmma_kernel (what wgmma does not take, or an explicit filter
-//     tile): a (64, 128) WMMA tile on tile_gemm.cuh's synchronous K loop,
-//     shared with K1's mma_gemm.cu, fed by ConvGatherA.
+//     tile): a (64, 128) tile on tile_gemm.cuh's 16-bit tensor-core loop
+//     (a 4-stage cp.async ring into ldmatrix and mma.sync m16n8k16, one
+//     barrier a K step), shared with K1's mma_gemm.cu, fed by
+//     ConvGatherA's cp.async gathers (16 bytes or 4-byte pairs, as the
+//     wgmma producer's; elements where neither copy can gather).
 //   * conv_f32_kernel (F32GER): tile_gemm.cuh's fp32 FMA tile.
 //     Both read packed filters too (their PACKED instances, through
 //     mma_conv2d_packed_launch): tile_gemm.cuh's PackedB takes the (gf, K,
@@ -328,8 +331,9 @@ struct ConvArgs {
   int M, K;  // the implicit GEMM: M = N*OH*OW, K = KH*KW*C
   int act;
   int vec_a, vec_b;  // 16-byte gathers (C % 8 == 0) / rows (F % 8 == 0)
-  int gather;        // bytes per copy of the wgmma producer's A gather (16
-                     // or 4; 0: it cannot gather this image)
+  int gather;        // bytes per copy of the A gather (16 or 4; 0: the
+                     // wgmma producer cannot gather this image, the WMMA
+                     // tile gathers it element by element)
   int a_tma;         // a 1-D conv whose A rows TMA can read
 };
 
@@ -340,6 +344,24 @@ __device__ __forceinline__ long long conv_col(int k, int K, int kwc,
   if (k >= K) return -1;
   const int i = k / kwc;
   return i * wc + (k - i * kwc);
+}
+
+// conv_col of the N columns k, k + STEP, ... (STEP divides every (j, c)
+// run): one division, then each column the next of its filter row or
+// the first of the next.
+template <int N, int STEP>
+__device__ __forceinline__ void conv_cols(long long* cl, int k, int K,
+                                          int kwc, long long wc) {
+  int i = k / kwc, r = k - i * kwc;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    cl[e] = k + STEP * e < K ? i * wc + r : -1;
+    r += STEP;
+    if (r == kwc) {
+      r = 0;
+      ++i;
+    }
+  }
 }
 
 // Image offset of each tile row's pixel (n, oh, ow) at (i, j, c) = 0; -1
@@ -361,69 +383,115 @@ __device__ void conv_row_offsets(long long* rows, const ConvArgs& a, int m0) {
   }
 }
 
-// K3's A loader for tile_gemm.cuh: the panel gathered from the image.
-// rows[r] is tile row r's pixel offset (-1 past M); each K step first
-// computes its column offsets cols[kk] = i*W*C + (j*C + c) for
-// k = (i*KW + j)*C + c (-1 past K), so element (r, kk) is
-// x[rows[r] + cols[kk]].
-template <typename T>
-struct ConvGatherA {
+// The 16-bit tile's copies of K3's A panel (ConvGatherA::copies): chunk
+// j's pixel offset row[j] (-1 past M) read once a tile, the K step's
+// column offsets worked out in registers with one division (one a chunk
+// column for 16-byte gathers, one a pair for 4-byte ones, one an element
+// otherwise: every chunk of a thread lies in one column).
+template <typename T, int NT, int BM, int BK, int LDA>
+struct ConvCopies {
+  using C = Chunks<NT, BM, BK>;
   const T* x;
-  long long* rows;
-  long long* cols;
-  long long wc;  // W * C: one image row
-  int kwc, K;    // KW * C: one filter row; KH * KW * C
-  bool vec;      // C % 8 == 0: 8 columns are one contiguous 16-byte run
+  long long row[C::PER];
+  long long wc;
+  int kwc, K, gather;
 
-  template <int BK>
-  __device__ void col_offsets(int k0) const {
-    for (int kk = threadIdx.x; kk < BK; kk += blockDim.x)
-      cols[kk] = conv_col(k0 + kk, K, kwc, wc);
-    __syncthreads();
-  }
-
-  template <int BM, int BK, int LDA>
-  __device__ void panel(T* as, int k0) const {
-    col_offsets<BK>(k0);
-    if (vec) {  // K % 8 == 0: an 8-column chunk is all in range or all out
-      constexpr int CH = BK / 8;
-      for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
-        const int r = i / CH, c8 = (i % CH) * 8;
-        const long long row = rows[r], col = cols[c8];
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);  // +0.0 in bf16 and f16
-        if (row >= 0 && col >= 0)
-          v = __ldg(reinterpret_cast<const uint4*>(x + row + col));
-        *reinterpret_cast<uint4*>(as + r * LDA + c8) = v;
+  __device__ void issue(T* as, int t) {
+    const int k = t * BK + C::col();
+    if (gather == 16) {
+      const long long cl = conv_col(k, K, kwc, wc);
+#pragma unroll
+      for (int j = 0; j < C::PER; ++j) {
+        const bool in = row[j] >= 0 && cl >= 0;
+        cp_async16_upto(as + C::row(j) * LDA + C::col(), x + row[j] + cl,
+                        in ? 16 : 0);
       }
+    } else if (gather == 4) {
+      long long cl[4];
+      conv_cols<4, 2>(cl, k, K, kwc, wc);
+#pragma unroll
+      for (int j = 0; j < C::PER; ++j)
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const bool in = row[j] >= 0 && cl[p] >= 0;
+          cp_async4_upto(as + C::row(j) * LDA + C::col() + 2 * p,
+                         x + row[j] + cl[p], in ? 4 : 0);
+        }
     } else {
-      for (int i = threadIdx.x; i < BM * BK; i += blockDim.x) {
-        const int r = i / BK, kk = i % BK;
-        const long long row = rows[r], col = cols[kk];
-        as[r * LDA + kk] = (row >= 0 && col >= 0) ? x[row + col] : zero_of<T>();
-      }
+      long long cl[8];
+      conv_cols<8, 1>(cl, k, K, kwc, wc);
+#pragma unroll
+      for (int j = 0; j < C::PER; ++j)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          as[C::row(j) * LDA + C::col() + e] =
+              row[j] >= 0 && cl[e] >= 0 ? x[row[j] + cl[e]] : zero_of<T>();
     }
   }
 
+  __device__ void land(T*, int) {}
+};
+
+// K3's A loader for tile_gemm.cuh: the panel gathered from the image.
+// rows[r] is tile row r's pixel offset (-1 past M, in shared memory); the
+// offset of K column k = (i*KW + j)*C + c is conv_col's i*W*C + (j*C + c)
+// (-1 past K), computed in registers, so element (r, kk) of the K step at
+// k0 is x[rows[r] + conv_col(k0 + kk)].  The 16-bit tile's stages are
+// gathered with cp.async as the wgmma producer gathers them
+// (conv_gather_panel): 16 bytes a copy where C % 8 == 0 at a 16-byte base
+// (an 8-column chunk is then one contiguous run, all in range or all
+// out), 4-byte pairs where every (j, c) run, row pitch and pixel step is
+// even at a 4-byte base (core/tiling.py's conv_gather_bytes), else
+// element by element through registers.
+template <typename T>
+struct ConvGatherA {
+  const T* x;
+  const long long* rows;
+  long long wc;  // W * C: one image row
+  int kwc, K;    // KW * C: one filter row; KH * KW * C
+  int gather;    // bytes a copy: 16, 4, or 0 (elements)
+
+  __device__ __forceinline__ long long col(int k) const {
+    return conv_col(k, K, kwc, wc);
+  }
+
+  template <int NT, int BM, int BK, int LDA>
+  __device__ ConvCopies<T, NT, BM, BK, LDA> copies() const {
+    using C = Chunks<NT, BM, BK>;
+    ConvCopies<T, NT, BM, BK, LDA> c;
+    c.x = x;
+#pragma unroll
+    for (int j = 0; j < C::PER; ++j) c.row[j] = rows[C::row(j)];
+    c.wc = wc;
+    c.kwc = kwc;
+    c.K = K;
+    c.gather = gather;
+    return c;
+  }
+
+  // The fp32 tile's panel, k-major; a thread's elements share one K
+  // column (blockDim.x is a multiple of BK), its offset computed once.
   template <int BM, int BK, int LDT>
   __device__ void panel_kmajor(float* as, int k0) const {
-    col_offsets<BK>(k0);
-    for (int i = threadIdx.x; i < BM * BK; i += blockDim.x) {
-      const int r = i / BK, kk = i % BK;
-      const long long row = rows[r], col = cols[kk];
-      as[kk * LDT + r] = (row >= 0 && col >= 0) ? x[row + col] : 0.f;
+    const int kk = threadIdx.x % BK;
+    const long long cl = col(k0 + kk);
+    for (int r = threadIdx.x / BK; r < BM; r += blockDim.x / BK) {
+      const long long row = rows[r];
+      as[kk * LDT + r] = (row >= 0 && cl >= 0) ? x[row + cl] : 0.f;
     }
   }
 };
 
 // Row offsets for the tile, then the A loader over them; the offsets live
 // after the tile's panels in shared memory.
-template <typename T, int BM, int BK>
+template <typename T, int BM>
 __device__ ConvGatherA<T> conv_gather(unsigned char* smem, size_t panels,
                                       const ConvArgs& a, int m0) {
   long long* rows = reinterpret_cast<long long*>(smem + panels);
-  conv_row_offsets<BM>(rows, a, m0);  // read after col_offsets' barrier
-  return ConvGatherA<T>{reinterpret_cast<const T*>(a.x), rows, rows + BM,
-                        (long long)a.W * a.C, a.KW * a.C, a.K, a.vec_a != 0};
+  conv_row_offsets<BM>(rows, a, m0);
+  __syncthreads();  // every thread reads every row's offset
+  return ConvGatherA<T>{reinterpret_cast<const T*>(a.x), rows,
+                        (long long)a.W * a.C, a.KW * a.C, a.K, a.gather};
 }
 
 // Epilogue and the single store of the (BM, BN) fp32 tile.
@@ -438,7 +506,7 @@ __device__ void conv_store_tile(const float* cs, const ConvArgs& a, int m0,
 }
 
 // bf16 / f16: a (64 pixels, 128 filters) tile on 2 x 4 warps, each owning
-// a 32 x 32 slice as 2 x 2 fp32 WMMA fragments; the filter tile is the one
+// a 32 x 32 slice of m16n8 fp32 fragments; the filter tile is the one
 // kernels/mma_conv.py CONV_TILE names.
 constexpr int CONV_BM = 64, CONV_BN = 128, CONV_BK = 32, CONV_WM = 2,
               CONV_WN = 4;
@@ -446,7 +514,7 @@ constexpr int CONV_BM = 64, CONV_BN = 128, CONV_BK = 32, CONV_WM = 2,
 template <typename T>
 __host__ __device__ constexpr size_t conv_wmma_smem_bytes() {
   return wmma_smem_bytes<T, CONV_BM, CONV_BN, CONV_BK>() +
-         (size_t)(CONV_BM + CONV_BK) * sizeof(long long);
+         (size_t)CONV_BM * sizeof(long long);
 }
 
 // The packed filter stream as tile_gemm.cuh's B: slabs of K rows of 64
@@ -458,25 +526,24 @@ __device__ PackedB<T> conv_packed_b(const ConvArgs& a, int n0) {
 }
 
 template <typename T, bool PACKED>
-__global__ void __launch_bounds__(CONV_WM* CONV_WN * 32)
+__global__ void __launch_bounds__(CONV_WM* CONV_WN * 32, 2)
     conv_wmma_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * CONV_BM, n0 = blockIdx.y * CONV_BN;
-  const ConvGatherA<T> ld = conv_gather<T, CONV_BM, CONV_BK>(
+  const ConvGatherA<T> ld = conv_gather<T, CONV_BM>(
       smem, wmma_smem_bytes<T, CONV_BM, CONV_BN, CONV_BK>(), a, m0);
   if constexpr (PACKED)
     wmma_tile_ab<T, CONV_BM, CONV_BN, CONV_BK, CONV_WM, CONV_WN>(
         smem, ld, conv_packed_b<T>(a, n0), a.K, false);
   else
     wmma_tile<T, CONV_BM, CONV_BN, CONV_BK, CONV_WM, CONV_WN>(
-        smem, ld, reinterpret_cast<const T*>(a.w), a.K, a.F, n0,
-        a.vec_b != 0, false);
+        smem, ld, reinterpret_cast<const T*>(a.w), a.K, a.F, n0, false);
   conv_store_tile<CONV_BM, CONV_BN>(reinterpret_cast<float*>(smem), a, m0, n0);
 }
 
 // F32GER: true fp32 FMAs on the CUDA cores (tile_gemm.cuh's f32_tile).
 __host__ __device__ constexpr size_t conv_f32_smem_bytes() {
-  return f32_smem_bytes() + (size_t)(F32_BM + F32_BK) * sizeof(long long);
+  return f32_smem_bytes() + (size_t)F32_BM * sizeof(long long);
 }
 
 template <bool PACKED>
@@ -484,7 +551,7 @@ __global__ void __launch_bounds__(256) conv_f32_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * F32_BM, n0 = blockIdx.y * F32_BN;
   const ConvGatherA<float> ld =
-      conv_gather<float, F32_BM, F32_BK>(smem, f32_smem_bytes(), a, m0);
+      conv_gather<float, F32_BM>(smem, f32_smem_bytes(), a, m0);
   if constexpr (PACKED)
     f32_tile_ab(smem, ld, conv_packed_b<float>(a, n0), a.K, false);
   else

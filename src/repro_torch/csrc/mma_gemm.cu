@@ -32,23 +32,26 @@
 //   * prime: the seed C (neg/beta forms) is read once into a shared fp32
 //     tile and loaded into the warps' accumulator fragments;
 //   * update: (bm, bk) and (bk, bn) panels are staged in shared memory,
-//     zero-filled past the M, N and K fringes, and multiplied with WMMA
-//     bf16/f16 tensor-core fragments into fp32 registers; F32GER runs
+//     zero-filled past the M, N and K fringes, and multiplied on the
+//     bf16/f16 tensor cores into fp32 registers (tile_gemm.cuh's
+//     wmma_tile_ab: a 4-stage cp.async ring, ldmatrix and mma.sync
+//     m16n8k16, one barrier a K step); F32GER runs
 //     tile_gemm.cuh's f32_simt_tile (128 x 128 or 64 x 64, 8 x 8 or 4 x 4
 //     fp32 FMAs a thread, two stages in flight);
 //   * deprime: the fragments go back through the shared tile, and one
 //     masked pass applies alpha and the epilogue and stores each output
 //     element exactly once, in the requested dtype.
 //   * masked (K1b): the kernels' MASKED instances stage their panels
-//     through tile_gemm.cuh's MaskedRowMajorA/B, which write a disabled
-//     row, column or rank as 0 in the branch that zero-fills the fringes
-//     (one byte a lane read from the (M,), (N,), (K,) masks, L1-cached);
-//     the unmasked instances are unchanged.
+//     through tile_gemm.cuh's MaskedRowMajorA/B: a disabled row of X or
+//     rank of Y is not copied (the copy zero-fills it, as past the
+//     fringes), a disabled rank of X or column of Y is selected to 0 in
+//     the landed chunk (a thread's 8 mask bytes, read a K step ahead);
+//     the unmasked instances read no mask.
 //   * packed panels (K1d): with `panels` set, y arrives as
 //     core/packing.py's (B?, gn, gk, 64, 64) Y panels and/or x as its
 //     (B?, gm, gk, 128, 64) X panels, read by tile_gemm.cuh's PackedB and
 //     PackedA (MaskedPackedB / MaskedPackedA under pm* masks): each stage
-//     comes out of the fixed panels one 16-byte load a chunk, zero past M,
+//     comes out of the fixed panels one 16-byte copy a chunk, zero past M,
 //     K and N as the natural loaders stage it, so the result (and the
 //     sidecar) is the natural launch's bit for bit; the tight-parity config
 //     served prepacked reads its fp32 panels here with no per-call
@@ -57,14 +60,18 @@
 //     instances are unchanged.
 //   * the ABFT sidecar (K1e, checksum=True in repro/kernels/mma_gemm.py):
 //     with ck_col / ck_row set, the deprime writes each finished fp32
-//     value back over the store_matrix_sync staging, and the block sums the
+//     value back over the staged fp32 tile, and the block sums the
 //     tile's columns (one a thread) and rows (one a warp) in a fixed order
 //     (common.cuh's tile_checksums): one write per tile column and row, no
 //     atomics; the stores are untouched.
 // The 16-bit update loop is tile_gemm.cuh's, shared with K3's implicit
-// GEMM: synchronous 16-byte vector loads (no cp.async/TMA pipeline, no
-// wgmma), as the two other kernels carry the main path's 16-bit
-// products.  The fp32 tile carries F32GER's products at M > 64: each
+// GEMM: a natural row at a 16-byte offset is copied as it lies, any other
+// as the whole 16-byte words that cover it, realigned in shared memory
+// (whisper's 51865-column logits), row by row, so no pitch puts the whole
+// matrix on a slow path.  Each output is one chain of m16n8k16
+// products in ascending k from the seed or +0.0, the chain of the WMMA
+// fragments the tile used before, so its bits do not depend on the loader
+// or the staging.  The fp32 tile carries F32GER's products at M > 64: each
 // output one fmaf chain in ascending k from the seed or zero, the chain
 // of tile_gemm.cuh's f32_tile_ab (K3's fp32 conv), so its bits do not
 // depend on the tile.
@@ -83,7 +90,8 @@ struct GemmArgs {
   long long sxb, syb, scb, srb, sob;  // batch strides in elements (0: shared)
   float alpha, beta;
   int neg_product, neg_acc, act;
-  int vec_x, vec_y;  // rows 16-byte aligned: vector loads allowed
+  int vec_x, vec_y;  // fp32 rows 16-byte aligned: the F32GER tile's float4
+                     // loads (the 16-bit tile decides row by row)
   PmMasks mk;        // the pm* predicates (the MASKED instances)
   long long slab;    // elements of one 64-column Y panel slab (PANELS_Y)
   int x_gk;          // X panels along K (PANELS_X)
@@ -140,7 +148,8 @@ __device__ void store_tile(float* cs, const GemmArgs& a, int bz, int m0,
 }
 
 // The A and B loaders of one launch (tile_gemm.cuh): natural rows or
-// packed panels, masked or not.  `vec`: 16-byte loads of natural rows.
+// packed panels, masked or not.  `vec`: the F32GER tile's 16-byte loads of
+// natural rows.
 template <typename T, bool MASKED, bool PX>
 __device__ __forceinline__ auto a_loader(const GemmArgs& a, const T* x, int m0,
                                          bool vec) {
@@ -172,11 +181,15 @@ __device__ __forceinline__ auto b_loader(const GemmArgs& a, const T* y, int n0,
 // bf16 / f16 on the tensor cores (tile_gemm.cuh's wmma_tile_ab).
 template <typename T, int BM, int BN, int BK, int WM, int WN, bool MASKED,
           int PANELS>
-__global__ void __launch_bounds__(WM* WN * 32)
+__global__ void __launch_bounds__(WM* WN * 32, 2)
     gemm_wmma_kernel(GemmArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);
-  const int bz = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // the grid's M tiles of one N column run together, so that a Y panel is
+  // read from device memory about once
+  const int id = blockIdx.x + blockIdx.y * gridDim.x;
+  const int bz = blockIdx.z, m0 = (id % gridDim.y) * BM,
+            n0 = (id / gridDim.y) * BN;
   if (a.c) prime_tile<BM, BN>(cs, a, bz, m0, n0);
   const T* x = reinterpret_cast<const T*>(a.x) + (long long)bz * a.sxb;
   const T* y = reinterpret_cast<const T*>(a.y) + (long long)bz * a.syb;
@@ -308,10 +321,10 @@ extern "C" int mma_gemm_launch(
   a.sxb = sxb; a.syb = syb; a.scb = scb; a.srb = srb; a.sob = sob;
   a.alpha = alpha; a.beta = beta;
   a.neg_product = neg_product; a.neg_acc = neg_acc; a.act = act;
-  // elements a 16-byte load holds: 8 bf16/f16, 4 fp32
-  const int ch = in_dt == DT_F32 ? 4 : 8;
-  a.vec_x = (K % ch == 0) && aligned16(x) && (sxb % ch == 0);
-  a.vec_y = (N % ch == 0) && aligned16(y) && (syb % ch == 0);
+  // fp32 rows the F32GER tile reads as float4s; the 16-bit tile picks
+  // each row's copies from its address (tile_gemm.cuh's copy_chunk)
+  a.vec_x = (K % 4 == 0) && aligned16(x) && (sxb % 4 == 0);
+  a.vec_y = (N % 4 == 0) && aligned16(y) && (syb % 4 == 0);
   a.mk.xm = reinterpret_cast<const uint8_t*>(xm);
   a.mk.ym = reinterpret_cast<const uint8_t*>(ym);
   a.mk.pm = reinterpret_cast<const uint8_t*>(pm);

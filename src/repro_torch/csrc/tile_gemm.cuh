@@ -1,81 +1,47 @@
 // One (BM, BN) output tile of a GEMM-shaped product and its whole K loop,
 // shared by K1a (mma_gemm.cu) and K3's implicit GEMM (mma_conv.cu).  The
 // two differ only in where the A panel comes from, so the tile loops take
-// an A loader with two members, each called by every thread of the block:
+// an A loader and a B loader.  For the 16-bit tile (wmma_tile_ab, named
+// for its path, "wmma"), every thread calls
 //
-//   ld.template panel<BM, BK, LDA>(T* as, int k0)
-//       the (BM, BK) A panel of the K step at k0, row-major, row pitch LDA;
-//   ld.template panel_kmajor<BM, BK, LDT>(float* as, int k0)
-//       the same panel for F32GER, k-major: as[kk * LDT + r];
+//   ld.template copies<NT, BM, BK, LDA>()  /  bl.template copies<NT, BK,
+//   BN, LDB>()
+//       once a tile: this thread's copies of the row-major (BM, BK) A
+//       panel / (BK, BN) B panel, their sources worked out, whose
+//       issue(T* stage, int t) issues the cp.async copies of K step t into
+//       a ring stage and land(T* stage, int t), once they have landed,
+//       fixes them up before the block's barrier (realigns rows copied as
+//       whole words, selects the pm* lanes; mostly nothing).
 //
-// and, for K1's fp32 SIMT tile (f32_simt_tile), one more:
+// For F32GER, K1's fp32 SIMT tile (f32_simt_tile) reads
 //
-//   ld.chunk4(int r, int k)
-//       the 4 fp32 values of tile row r at k .. k + 3 (k a multiple of 4);
+//   ld.chunk4(int r, int k)  /  bl.chunk4(int k, int c)
+//       the 4 fp32 values of tile row r at k .. k + 3 (k a multiple of 4)
+//       / of row k at tile columns c .. c + 3;
 //
-// each zero past the M and K fringes: RowMajorA over natural rows, PackedA
-// over core/packing.py's X-side panels (K1d), MaskedRowMajorA /
-// MaskedPackedA for the pm* forms.  B is a (K, N) matrix, read through
-// a B loader with the same two members (panel<BK, BN, LDB> for the 16-bit
-// tile, panel_f32<BK, BN, LDB> for F32GER, both row-major (BK, BN) at k0):
-// (and chunk4(int k, int c) for the SIMT tile: row k, tile columns c ..
-// c + 3), RowMajorB over natural rows, PackedB over core/packing.py's 64-column
-// panels (K1d, and K3's packed filter stream), or MaskedRowMajorB /
-// MaskedPackedB for the pm* forms.
+// and K3's fp32 conv (f32_tile_ab) an A loader's panel_kmajor<BM, BK,
+// LDT>(float* as, int k0) (the panel k-major: as[kk * LDT + r]) and a B
+// loader's panel_f32<BK, BN, LDB>(float* bs, int k0).  Each stages zeros
+// past the M, N and K fringes: RowMajorA over natural rows, PackedA over
+// core/packing.py's X-side panels (K1d), MaskedRowMajorA / MaskedPackedA
+// for the pm* forms; B is a (K, N) matrix: RowMajorB over natural rows,
+// PackedB over core/packing.py's 64-column panels (K1d, and K3's packed
+// filter stream), or MaskedRowMajorB / MaskedPackedB.
 // Both loops leave the fp32 tile in shared memory (row pitch BN + 4,
 // aliasing the panels) for the caller's store; with `seeded` that tile
 // holds the fp32 seed on entry.
 //
 // The pm* predicates (K1b, paper eq. 3) are byte masks over M, N and K
 // (PmMasks; a null pointer enables every lane).  The masked loaders apply
-// them while they stage a panel: a disabled row of A, column of B or rank
-// (the k-slice of both panels) is written as 0 through the same branch
-// that zero-fills the fringes, never multiplied, so a NaN there leaves no
-// trace.  K3's loaders (mma_conv.cu) take the unmasked ones.
+// them to the staged panels: a disabled row of A or rank of B (a row of
+// the (K, N) panel) is not copied (the copy zero-fills it, as it does past
+// the fringes), and a disabled rank of A or column of B is selected to
+// +0.0 in land(): a NaN there leaves no trace.  The masks' bytes that a
+// K step needs are read a step ahead.  K3's loaders (mma_conv.cu) take
+// the unmasked ones.
 #pragma once
 
-#include <mma.h>
-
 #include "common.cuh"
-
-// A (ROWS, COLS) window of a row-major (g_rows, g_cols) matrix into shared
-// memory with row pitch LD, in 8-element (16-byte) chunks; zero past the
-// fringe so partial products beyond M, N or K are exact zeros.
-template <typename T, int ROWS, int COLS, int LD>
-__device__ void load_panel(T* s, const T* g, int g_rows, int g_cols, int r0,
-                           int c0, bool vec) {
-  constexpr int CH = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += blockDim.x) {
-    const int r = i / CH, c8 = (i % CH) * 8;
-    const int gr = r0 + r, gc = c0 + c8;
-    T* dst = s + r * LD + c8;
-    const T* src = g + (long long)gr * g_cols + gc;
-    if (vec && gr < g_rows && gc + 8 <= g_cols) {
-      *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        if (gr < g_rows && gc + e < g_cols)
-          dst[e] = src[e];
-        else
-          dst[e] = zero_of<T>();
-      }
-    }
-  }
-}
-
-// The 16-bit lanes of an 8-element (16-byte) chunk selected by the mask
-// bytes [c, c + 8), read as one 8-byte word (c is a multiple of 8 and the
-// masks are 16-byte aligned): 0xffff where a byte is nonzero, else 0.
-__device__ __forceinline__ void select_chunk16(uint4& v, const uint8_t* mask,
-                                               int c) {
-  const uint2 m = *reinterpret_cast<const uint2*>(mask + c);
-  const uint32_t lo = __vcmpne4(m.x, 0u), hi = __vcmpne4(m.y, 0u);
-  v.x &= __byte_perm(lo, 0u, 0x1100);
-  v.y &= __byte_perm(lo, 0u, 0x3322);
-  v.z &= __byte_perm(hi, 0u, 0x1100);
-  v.w &= __byte_perm(hi, 0u, 0x3322);
-}
 
 // Four fp32 values at p[0..3], each zero at or past `lim` lanes from p
 // (element loads: the row is not 16-byte aligned).
@@ -95,25 +61,274 @@ __device__ __forceinline__ float4 select4(float4 v, int i, const On& on) {
   return v;
 }
 
+// ---- staging 16-bit panels with cp.async ----
+//
+// A chunk is 8 elements (16 bytes) of one panel row at a column that is a
+// multiple of 8.  Thread t of the tile's NT copies chunks t, t + NT, ...
+// of each panel (Chunks): one to four, all in one column of the window,
+// and a row's chunks are one warp's.  Where each chunk comes from is
+// worked out once a tile (a loader's copies()); a K step moves every
+// source by one offset, so the step's copies cost an add, a clamp and the
+// copy.
+//
+// Natural rows: every chunk of a row lies at the row's offset in 16 bytes,
+// which picks the copy row by row (core/tiling.py's tile16_row_shift
+// mirrors the rule): at 0, one 16-byte copy a chunk; else the aligned
+// 16-byte word under the chunk's first element goes to the chunk's place
+// as it is, and the row's last chunk in the window also copies the word
+// after it into the row's 16 bytes of padding, and once they have landed,
+// land() shifts each chunk into place from its word and the next
+// (whisper's 51865-column logits: seven rows in eight).  Bytes past a
+// row's last column, and whole chunks of rows past the matrix or disabled,
+// are zero-filled by the copies themselves.
+
+template <int NT, int ROWS, int COLS>
+struct Chunks {
+  static constexpr int CH = COLS / 8, PER = ROWS * CH / NT, RSTEP = NT / CH;
+  static_assert(PER >= 1 && PER <= 4 && (ROWS * CH) % NT == 0 &&
+                    NT % CH == 0 && 32 % CH == 0,
+                "Chunks: 1-4 chunks a thread in one column, rows a warp's");
+  __device__ static int row(int j) { return threadIdx.x / CH + j * RSTEP; }
+  __device__ static int col() { return 8 * (threadIdx.x % CH); }
+  __device__ static bool last() { return threadIdx.x % CH == CH - 1; }
+};
+
+constexpr int OFF = -1024;  // a chunk's valid bytes where its row is off
+
+// The 16 bytes at byte `mis` of the 32 bytes lo:hi.
+__device__ __forceinline__ uint4 shift_bytes(uint4 lo, uint4 hi, int mis) {
+  const uint32_t u[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int j = mis >> 2;
+  uint32_t w[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    w[i] = j == 0 ? u[i] : j == 1 ? u[i + 1] : j == 2 ? u[i + 2] : u[i + 3];
+  const uint32_t sh = (mis & 3) * 8;
+  return make_uint4(__funnelshift_r(w[0], w[1], sh),
+                    __funnelshift_r(w[1], w[2], sh),
+                    __funnelshift_r(w[2], w[3], sh),
+                    __funnelshift_r(w[3], w[4], sh));
+}
+
+// A pm* mask's bytes [c, c + 8) as one 8-byte word (c is a multiple of 8
+// and the masks are 16-byte aligned); bytes at or past n read as 0 (their
+// lanes are zero already).
+__device__ __forceinline__ uint2 mask_word(const uint8_t* mask, int c, int n) {
+  if (c + 8 <= n) return *reinterpret_cast<const uint2*>(mask + c);
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (c + e < n && mask[c + e]) w[e / 4] |= 1u << (8 * (e % 4));
+  return make_uint2(w[0], w[1]);
+}
+
+// The 16-bit lanes of a chunk whose mask byte is 0, set to +0.0 (a NaN or
+// Inf there leaves no trace).
+__device__ __forceinline__ void select_chunk(uint4& v, uint2 m) {
+  const uint32_t lo = __vcmpne4(m.x, 0u), hi = __vcmpne4(m.y, 0u);
+  v.x &= __byte_perm(lo, 0u, 0x1100);
+  v.y &= __byte_perm(lo, 0u, 0x3322);
+  v.z &= __byte_perm(hi, 0u, 0x1100);
+  v.w &= __byte_perm(hi, 0u, 0x3322);
+}
+
+// Once this thread's copies of a stage have landed: with `realign`, each
+// chunk of a realigned row (its source q_j = p + j pitch off a 16-byte
+// boundary) shifted into place from its word and the next (the next one
+// is another lane's: a __syncwarp before the reads and one before the
+// writes); with a mask word, its lanes selected.
+template <typename T, typename C, int LD>
+__device__ __forceinline__ void land_chunks(T* s, const char* p,
+                                            long long pitch, bool realign,
+                                            const uint2* m) {
+  if (realign) __syncwarp();
+  uint4 v[C::PER];
+#pragma unroll
+  for (int j = 0; j < C::PER; ++j) {
+    const T* d = s + C::row(j) * LD + C::col();
+    v[j] = *reinterpret_cast<const uint4*>(d);
+    const int mis = (int)(reinterpret_cast<uintptr_t>(p + j * pitch) & 15);
+    if (realign && mis)
+      v[j] = shift_bytes(v[j], *reinterpret_cast<const uint4*>(d + 8), mis);
+    if (m) select_chunk(v[j], *m);
+  }
+  if (realign) __syncwarp();
+#pragma unroll
+  for (int j = 0; j < C::PER; ++j)
+    *reinterpret_cast<uint4*>(s + C::row(j) * LD + C::col()) = v[j];
+}
+
+// How far a K step moves a source, in bytes: natural rows and Y panels by
+// a fixed stride; X panels (core/packing.py's (gm, gk, 128, 64), element
+// (m, k) at x_panel_at) from column c8 of panel 0 to column t BK + c8.
+struct StepBytes {
+  long long bytes;
+  __device__ long long operator()(int t) const { return bytes * t; }
+};
+template <typename T, int BK>
+struct PanelStep {
+  int c8;
+  __device__ long long operator()(int t) const {
+    const int k = t * BK + c8;
+    return (long long)sizeof(T) *
+           ((long long)(k / PANEL_C) * (PANEL_XR * PANEL_C) + k % PANEL_C -
+            c8);
+  }
+};
+
+// One chunk's copies from q with `avail` bytes valid from q (clamped to
+// 0 .. 16): as it lies, or with `realign`, from the aligned word under q,
+// and where it is its row's last chunk in the window, the next word too.
+template <typename T>
+__device__ __forceinline__ void copy_from(T* dst, const char* q, int avail,
+                                          bool realign, bool last) {
+  if (!realign) {
+    cp_async16_upto(dst, q, avail);
+    return;
+  }
+  const int mis = (int)(reinterpret_cast<uintptr_t>(q) & 15);
+  cp_async16_upto(dst, q - mis, avail + mis);  // the word is allocated
+  if (mis && last) cp_async16_upto(dst + 8, q - mis + 16, avail + mis - 16);
+}
+
+// An A panel's copies, (BM, BK): its rows fixed, each K step moves the
+// window BK columns on.  Chunk j's source at step t is p + j pitch +
+// step(t) (its row RSTEP j rows below chunk 0's), `cols` - sizeof(T) BK t
+// bytes of its row valid from there where bit j of `live` is set (its row
+// lies in M and is enabled).  `pm` (or null) selects the rank predicates'
+// lanes in land(), its word for step t read a step ahead.
+template <typename T, int NT, int BM, int BK, int LDA, typename Step>
+struct ACopies {
+  using C = Chunks<NT, BM, BK>;
+  const char* p;
+  long long pitch;
+  uint32_t live;
+  int cols;
+  Step step;
+  bool realign;  // some row is off a 16-byte boundary
+  const uint8_t* pm;
+  int K;
+  uint2 ranks;  // pm's word for the next step to land
+
+  __device__ void issue(T* as, int t) {
+    const char* base = p + step(t);
+    const int avail = cols - (int)sizeof(T) * BK * t;
+#pragma unroll
+    for (int j = 0; j < C::PER; ++j)
+      copy_from(as + C::row(j) * LDA + C::col(), base + j * pitch,
+                (live >> j) & 1 ? avail : OFF, realign, C::last());
+  }
+
+  __device__ void land(T* as, int t) {
+    if (!realign && pm == nullptr) return;
+    uint2 m = ranks;
+    if (pm) {
+      const int c = t * BK + C::col();
+      if (t == 0) m = mask_word(pm, c, K);
+      ranks = mask_word(pm, c + BK, K);
+    }
+    land_chunks<T, C, LDA>(as, p, pitch, realign, pm ? &m : nullptr);
+  }
+};
+
+// A B panel's copies, (BK, BN): its columns fixed, each K step moves the
+// window BK rows on.  Chunk j's source at step t is p + j pitch + step(t),
+// `cols` bytes of its row valid from there while its row (left0 above K
+// at step 0 for chunk 0) lies above K and its rank's `pm` byte (or null)
+// is set, the bytes for step t read a step ahead; `ym` (or null) selects
+// the column predicates' lanes in land(), one word a thread.
+template <typename T, int NT, int BK, int BN, int LDB, typename Step>
+struct BCopies {
+  using C = Chunks<NT, BK, BN>;
+  const char* p;
+  long long pitch;
+  int cols, left0;
+  Step step;
+  bool realign;
+  const uint8_t* pm;
+  const uint8_t* ym;
+  uint2 word;               // ym's word for this thread's column
+  uint32_t ranks[C::PER];   // pm's bytes for the next step's rows
+
+  __device__ void issue(T* bs, int t) {
+    const char* base = p + step(t);
+#pragma unroll
+    for (int j = 0; j < C::PER; ++j) {
+      bool on = BK * t + j * C::RSTEP < left0;
+      if (pm) on = on && (t == 0 ? pm[C::row(j)] : ranks[j]) != 0;
+      copy_from(bs + C::row(j) * LDB + C::col(), base + j * pitch,
+                on ? cols : OFF, realign, C::last());
+    }
+    if (pm) {
+#pragma unroll
+      for (int j = 0; j < C::PER; ++j)
+        ranks[j] = BK * (t + 1) + j * C::RSTEP < left0
+                       ? pm[BK * (t + 1) + C::row(j)]
+                       : 0;
+    }
+  }
+
+  __device__ void land(T* bs, int) {
+    if (realign || ym)
+      land_chunks<T, C, LDB>(bs, p, pitch, realign, ym ? &word : nullptr);
+  }
+};
+
+// The copies of natural rows: A (rows m0.. of a row-major (M, K)
+// matrix, rows off where xm says) and B (columns n0.. of a row-major (K,
+// N) matrix), each with its pm* predicates.
+template <typename T, int NT, int BM, int BK, int LDA>
+__device__ ACopies<T, NT, BM, BK, LDA, StepBytes> natural_a(
+    const T* x, int M, int K, int m0, const uint8_t* xm, const uint8_t* pm) {
+  using C = Chunks<NT, BM, BK>;
+  ACopies<T, NT, BM, BK, LDA, StepBytes> a;
+  a.p = reinterpret_cast<const char*>(x + (long long)(m0 + C::row(0)) * K +
+                                      C::col());
+  a.pitch = (long long)sizeof(T) * C::RSTEP * K;
+  a.live = 0;
+#pragma unroll
+  for (int j = 0; j < C::PER; ++j) {
+    const int gr = m0 + C::row(j);
+    if (gr < M && lane_on(xm, gr)) a.live |= 1u << j;
+  }
+  a.cols = (int)sizeof(T) * (K - C::col());
+  a.step = StepBytes{(long long)sizeof(T) * BK};
+  a.realign = ((reinterpret_cast<uintptr_t>(x) | (uintptr_t)K * sizeof(T)) &
+               15) != 0;
+  a.pm = pm;
+  a.K = K;
+  return a;
+}
+
+template <typename T, int NT, int BK, int BN, int LDB>
+__device__ BCopies<T, NT, BK, BN, LDB, StepBytes> natural_b(
+    const T* y, int K, int N, int n0, const uint8_t* pm, const uint8_t* ym) {
+  using C = Chunks<NT, BK, BN>;
+  BCopies<T, NT, BK, BN, LDB, StepBytes> b;
+  const int gc = n0 + C::col();
+  b.p = reinterpret_cast<const char*>(y + (long long)C::row(0) * N + gc);
+  b.pitch = (long long)sizeof(T) * C::RSTEP * N;
+  b.cols = (int)sizeof(T) * (N - gc);
+  b.left0 = K - C::row(0);
+  b.step = StepBytes{(long long)sizeof(T) * BK * N};
+  b.realign = ((reinterpret_cast<uintptr_t>(y) | (uintptr_t)N * sizeof(T)) &
+               15) != 0;
+  b.pm = pm;
+  b.ym = ym;
+  if (ym) b.word = mask_word(ym, gc, N);
+  return b;
+}
+
 // The GEMM's A: rows m0.. of a row-major (M, K) matrix.
 template <typename T>
 struct RowMajorA {
   const T* x;
   int M, K, m0;
-  bool vec;
+  bool vec;  // fp32 rows 16-byte aligned (chunk4)
 
-  template <int BM, int BK, int LDA>
-  __device__ void panel(T* as, int k0) const {
-    load_panel<T, BM, BK, LDA>(as, x, M, K, m0, k0, vec);
-  }
-
-  template <int BM, int BK, int LDT>
-  __device__ void panel_kmajor(float* as, int k0) const {
-    for (int i = threadIdx.x; i < BM * BK; i += blockDim.x) {
-      const int r = i / BK, kk = i % BK;
-      const int gr = m0 + r, gk = k0 + kk;
-      as[kk * LDT + r] = (gr < M && gk < K) ? x[(long long)gr * K + gk] : 0.f;
-    }
+  template <int NT, int BM, int BK, int LDA>
+  __device__ auto copies() const {
+    return natural_a<T, NT, BM, BK, LDA>(x, M, K, m0, nullptr, nullptr);
   }
 
   __device__ __forceinline__ float4 chunk4(int r, int k) const {
@@ -130,11 +345,11 @@ template <typename T>
 struct RowMajorB {
   const T* y;
   int K, N, n0;
-  bool vec;
+  bool vec;  // fp32 rows 16-byte aligned (chunk4)
 
-  template <int BK, int BN, int LDB>
-  __device__ void panel(T* bs, int k0) const {
-    load_panel<T, BK, BN, LDB>(bs, y, K, N, k0, n0, vec);
+  template <int NT, int BK, int BN, int LDB>
+  __device__ auto copies() const {
+    return natural_b<T, NT, BK, BN, LDB>(y, K, N, n0, nullptr, nullptr);
   }
 
   template <int BK, int BN, int LDB>
@@ -163,10 +378,8 @@ struct PmMasks {
   const uint8_t* pm;
 };
 
-// A with the row and rank predicates: a disabled row or rank is staged as
-// 0 where the fringe is.  The 16-byte vector load stays where the chunk
-// lies inside the matrix and is issued beside the mask loads (no branch
-// waits on a mask); its disabled lanes are then selected to 0.
+// A with the row and rank predicates: a disabled row is not copied, a
+// disabled rank's lanes are selected to 0 once the stage has landed.
 template <typename T>
 struct MaskedRowMajorA {
   const T* x;
@@ -174,43 +387,9 @@ struct MaskedRowMajorA {
   bool vec;
   PmMasks mk;
 
-  template <int BM, int BK, int LDA>
-  __device__ void panel(T* as, int k0) const {
-    constexpr int CH = BK / 8;
-    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
-      const int r = i / CH, c8 = (i % CH) * 8;
-      const int gr = m0 + r, gc = k0 + c8;
-      T* dst = as + r * LDA + c8;
-      const T* src = x + (long long)gr * K + gc;
-      if (gr < M && vec && gc + 8 <= K) {
-        uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
-        const uint32_t row = lane_on(mk.xm, gr) ? ~0u : 0u;
-        if (mk.pm) select_chunk16(v, mk.pm, gc);
-        v.x &= row; v.y &= row; v.z &= row; v.w &= row;
-        *reinterpret_cast<uint4*>(dst) = v;
-      } else {
-        const bool row = gr < M && lane_on(mk.xm, gr);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if (row && gc + e < K && lane_on(mk.pm, gc + e))
-            dst[e] = src[e];
-          else
-            dst[e] = zero_of<T>();
-        }
-      }
-    }
-  }
-
-  template <int BM, int BK, int LDT>
-  __device__ void panel_kmajor(float* as, int k0) const {
-    for (int i = threadIdx.x; i < BM * BK; i += blockDim.x) {
-      const int r = i / BK, kk = i % BK;
-      const int gr = m0 + r, gk = k0 + kk;
-      const bool in = gr < M && gk < K;
-      const float v = in ? x[(long long)gr * K + gk] : 0.f;
-      as[kk * LDT + r] =
-          in && lane_on(mk.xm, gr) && lane_on(mk.pm, gk) ? v : 0.f;
-    }
+  template <int NT, int BM, int BK, int LDA>
+  __device__ auto copies() const {
+    return natural_a<T, NT, BM, BK, LDA>(x, M, K, m0, mk.xm, mk.pm);
   }
 
   __device__ __forceinline__ float4 chunk4(int r, int k) const {
@@ -226,7 +405,8 @@ struct MaskedRowMajorA {
   }
 };
 
-// B with the column and rank predicates, staged as MaskedRowMajorA is.
+// B with the rank and column predicates, staged as MaskedRowMajorA is: a
+// disabled rank (a row of B) is not copied, a disabled column selected.
 template <typename T>
 struct MaskedRowMajorB {
   const T* y;
@@ -234,43 +414,9 @@ struct MaskedRowMajorB {
   bool vec;
   PmMasks mk;
 
-  template <int BK, int BN, int LDB>
-  __device__ void panel(T* bs, int k0) const {
-    constexpr int CH = BN / 8;
-    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
-      const int r = i / CH, c8 = (i % CH) * 8;
-      const int gk = k0 + r, gc = n0 + c8;
-      T* dst = bs + r * LDB + c8;
-      const T* src = y + (long long)gk * N + gc;
-      if (gk < K && vec && gc + 8 <= N) {
-        uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
-        const uint32_t row = lane_on(mk.pm, gk) ? ~0u : 0u;
-        if (mk.ym) select_chunk16(v, mk.ym, gc);
-        v.x &= row; v.y &= row; v.z &= row; v.w &= row;
-        *reinterpret_cast<uint4*>(dst) = v;
-      } else {
-        const bool row = gk < K && lane_on(mk.pm, gk);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if (row && gc + e < N && lane_on(mk.ym, gc + e))
-            dst[e] = src[e];
-          else
-            dst[e] = zero_of<T>();
-        }
-      }
-    }
-  }
-
-  template <int BK, int BN, int LDB>
-  __device__ void panel_f32(float* bs, int k0) const {
-    for (int i = threadIdx.x; i < BK * BN; i += blockDim.x) {
-      const int kk = i / BN, cc = i % BN;
-      const int gk = k0 + kk, gc = n0 + cc;
-      const bool in = gk < K && gc < N;
-      const float v = in ? y[(long long)gk * N + gc] : 0.f;
-      bs[kk * LDB + cc] =
-          in && lane_on(mk.pm, gk) && lane_on(mk.ym, gc) ? v : 0.f;
-    }
+  template <int NT, int BK, int BN, int LDB>
+  __device__ auto copies() const {
+    return natural_b<T, NT, BK, BN, LDB>(y, K, N, n0, mk.pm, mk.ym);
   }
 
   __device__ __forceinline__ float4 chunk4(int k, int c) const {
@@ -296,15 +442,14 @@ struct MaskedRowMajorB {
 // the gk panels of a column block lie one after another, so their rows
 // run on), and so is K3's (gf, KH, KW, C, 64) filter stream (slab = K *
 // 64).  Each stage row of a chunk (8 16-bit or 4 fp32 values) lies in one
-// slab row, contiguous and 16-byte aligned, so it is one 16-byte load at
-// any N: whisper's 51865-column lm_head too, whose natural rows take
-// RowMajorB's scalar path.  A chunk that starts past N or a row past K
-// stages as 0, as RowMajorB's fringe does, and a chunk across N reads the
-// zero padding: the staged panel, and so the result, is the natural
-// loader's bit for bit.  The tiles read (BK, BN) stages out of the fixed
-// panels: (32, 128) is two panels' columns, half a panel deep; (64, 64)
-// exactly one panel; F32GER's (16, 64) a quarter of one, (16, 128) a
-// quarter of two.
+// slab row, contiguous and 16-byte aligned, so it is one 16-byte copy at
+// any N: whisper's 51865-column lm_head too, whose natural rows are
+// realigned.  A chunk that starts past N or a row past K stages as 0, as
+// RowMajorB's fringe does, and a chunk across N reads the zero padding:
+// the staged panel, and so the result, is the natural loader's bit for
+// bit.  The tiles read (BK, BN) stages out of the fixed panels: (32, 128)
+// is two panels' columns, half a panel deep; (64, 64) exactly one panel;
+// F32GER's (16, 64) a quarter of one, (16, 128) a quarter of two.
 constexpr int PANEL_COLS = 64;
 
 template <typename T>
@@ -318,17 +463,28 @@ struct PackedB {
            n % PANEL_COLS;
   }
 
-  template <int BK, int BN, int LDB>
-  __device__ void panel(T* bs, int k0) const {
-    constexpr int CH = BN / 8;
-    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
-      const int r = i / CH, c8 = (i % CH) * 8;
-      const int gk = k0 + r, gc = n0 + c8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);  // +0.0 in bf16 and f16
-      if (gk < K && gc < N)
-        v = __ldg(reinterpret_cast<const uint4*>(at(gk, gc)));
-      *reinterpret_cast<uint4*>(bs + r * LDB + c8) = v;
-    }
+  // The 16-bit tile's copies, with the rank and column predicates.
+  template <int NT, int BK, int BN, int LDB>
+  __device__ BCopies<T, NT, BK, BN, LDB, StepBytes> masked_copies(
+      const uint8_t* pm, const uint8_t* ym) const {
+    using C = Chunks<NT, BK, BN>;
+    BCopies<T, NT, BK, BN, LDB, StepBytes> b;
+    const int gc = n0 + C::col();
+    b.p = reinterpret_cast<const char*>(at(C::row(0), gc));
+    b.pitch = (long long)sizeof(T) * C::RSTEP * PANEL_COLS;
+    b.cols = (int)sizeof(T) * (N - gc);
+    b.left0 = K - C::row(0);
+    b.step = StepBytes{(long long)sizeof(T) * BK * PANEL_COLS};
+    b.realign = false;
+    b.pm = pm;
+    b.ym = ym;
+    if (ym) b.word = mask_word(ym, gc, N);
+    return b;
+  }
+
+  template <int NT, int BK, int BN, int LDB>
+  __device__ auto copies() const {
+    return masked_copies<NT, BK, BN, LDB>(nullptr, nullptr);
   }
 
   template <int BK, int BN, int LDB>
@@ -351,55 +507,19 @@ struct PackedB {
   }
 };
 
-// Packed B with the column and rank predicates, applied as the stage goes
-// to shared memory, as MaskedRowMajorB does: a disabled rank's row is not
-// loaded, a disabled column's lanes are selected to 0 from the loaded
-// chunk (so NaN or Inf there gives exact zeros).  A chunk across N reads
-// no mask byte past N: its lanes there are 0 by the fringe rule.
+// Packed B with the rank and column predicates, as MaskedRowMajorB: a
+// disabled rank's row is not copied, a disabled column's lanes are
+// selected to 0 once landed (so NaN or Inf there gives exact zeros).  A
+// chunk across N reads no mask byte past N: its lanes there are 0 by the
+// fringe rule.
 template <typename T>
 struct MaskedPackedB {
   PackedB<T> p;
   PmMasks mk;
 
-  template <int BK, int BN, int LDB>
-  __device__ void panel(T* bs, int k0) const {
-    constexpr int CH = BN / 8;
-    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
-      const int r = i / CH, c8 = (i % CH) * 8;
-      const int gk = k0 + r, gc = p.n0 + c8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gk < p.K && gc < p.N && lane_on(mk.pm, gk)) {
-        v = __ldg(reinterpret_cast<const uint4*>(p.at(gk, gc)));
-        if (gc + 8 <= p.N) {
-          if (mk.ym) select_chunk16(v, mk.ym, gc);
-        } else {
-          T* lanes = reinterpret_cast<T*>(&v);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (gc + e >= p.N || !lane_on(mk.ym, gc + e))
-              lanes[e] = zero_of<T>();
-        }
-      }
-      *reinterpret_cast<uint4*>(bs + r * LDB + c8) = v;
-    }
-  }
-
-  template <int BK, int BN, int LDB>
-  __device__ void panel_f32(float* bs, int k0) const {
-    constexpr int CH = BN / 4;
-    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
-      const int r = i / CH, c4 = (i % CH) * 4;
-      const int gk = k0 + r, gc = p.n0 + c4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gk < p.K && gc < p.N && lane_on(mk.pm, gk)) {
-        v = __ldg(reinterpret_cast<const float4*>(p.at(gk, gc)));
-        if (gc + 0 >= p.N || !lane_on(mk.ym, gc + 0)) v.x = 0.f;
-        if (gc + 1 >= p.N || !lane_on(mk.ym, gc + 1)) v.y = 0.f;
-        if (gc + 2 >= p.N || !lane_on(mk.ym, gc + 2)) v.z = 0.f;
-        if (gc + 3 >= p.N || !lane_on(mk.ym, gc + 3)) v.w = 0.f;
-      }
-      *reinterpret_cast<float4*>(bs + r * LDB + c4) = v;
-    }
+  template <int NT, int BK, int BN, int LDB>
+  __device__ auto copies() const {
+    return p.template masked_copies<NT, BK, BN, LDB>(mk.pm, mk.ym);
   }
 
   __device__ __forceinline__ float4 chunk4(int k, int c) const {
@@ -418,14 +538,13 @@ struct MaskedPackedB {
 // (gm, gk, 128, 64) panels (common.cuh's x_panel_at), zero-padded past M
 // and K.  A stage row's chunk (8 16-bit or 4 fp32 values at a k that is a
 // multiple of their count) lies in one panel row, contiguous and 16-byte
-// aligned, so it is one 16-byte load at any K: RowMajorA's natural rows
-// take its element path wherever K is not a multiple of 8.  A chunk that
-// starts past K or a row past M stages as 0, as RowMajorA's fringe does,
-// and a chunk across K reads the zero padding: the staged panel, and so
-// the result, is the natural loader's bit for bit.  The tiles' (BM, BK)
-// stages: (128, 32) is one panel's 128 rows, half its depth; (64, 64)
-// half its rows, all its depth; F32GER's k-major (64, 16) half its rows,
-// a quarter of its depth, (128, 16) all its rows.
+// aligned, so it is one 16-byte copy at any K.  A chunk that starts past
+// K or a row past M stages as 0, as RowMajorA's fringe does, and a chunk
+// across K reads the zero padding: the staged panel, and so the result,
+// is the natural loader's bit for bit.  The tiles' (BM, BK) stages:
+// (128, 32) is one panel's 128 rows, half its depth; (64, 64) half its
+// rows, all its depth; F32GER's (64 or 128 rows, 16) a quarter of its
+// depth.
 template <typename T>
 struct PackedA {
   const T* x;
@@ -435,33 +554,33 @@ struct PackedA {
     return x + x_panel_at(m, k, gk);
   }
 
-  template <int BM, int BK, int LDA>
-  __device__ void panel(T* as, int k0) const {
-    constexpr int CH = BK / 8;
-    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
-      const int r = i / CH, c8 = (i % CH) * 8;
-      const int gr = m0 + r, gc = k0 + c8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);  // +0.0 in bf16 and f16
-      if (gr < M && gc < K)
-        v = __ldg(reinterpret_cast<const uint4*>(at(gr, gc)));
-      *reinterpret_cast<uint4*>(as + r * LDA + c8) = v;
+  // The 16-bit tile's copies, with the row and rank predicates (a
+  // stage's rows lie in one 128-row panel: m0 is a multiple of BM).
+  template <int NT, int BM, int BK, int LDA>
+  __device__ ACopies<T, NT, BM, BK, LDA, PanelStep<T, BK>> masked_copies(
+      const uint8_t* xm, const uint8_t* pm) const {
+    using C = Chunks<NT, BM, BK>;
+    static_assert(PANEL_XR % BM == 0, "PackedA: a stage in one panel");
+    ACopies<T, NT, BM, BK, LDA, PanelStep<T, BK>> a;
+    a.p = reinterpret_cast<const char*>(at(m0 + C::row(0), C::col()));
+    a.pitch = (long long)sizeof(T) * C::RSTEP * PANEL_C;
+    a.live = 0;
+#pragma unroll
+    for (int j = 0; j < C::PER; ++j) {
+      const int gr = m0 + C::row(j);
+      if (gr < M && lane_on(xm, gr)) a.live |= 1u << j;
     }
+    a.cols = (int)sizeof(T) * (K - C::col());
+    a.step = PanelStep<T, BK>{C::col()};
+    a.realign = false;
+    a.pm = pm;
+    a.K = K;
+    return a;
   }
 
-  template <int BM, int BK, int LDT>
-  __device__ void panel_kmajor(float* as, int k0) const {
-    constexpr int CH = BK / 4;
-    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
-      const int r = i / CH, c4 = (i % CH) * 4;
-      const int gr = m0 + r, gc = k0 + c4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gr < M && gc < K)
-        v = __ldg(reinterpret_cast<const float4*>(at(gr, gc)));
-      as[c4 * LDT + r] = v.x;
-      as[(c4 + 1) * LDT + r] = v.y;
-      as[(c4 + 2) * LDT + r] = v.z;
-      as[(c4 + 3) * LDT + r] = v.w;
-    }
+  template <int NT, int BM, int BK, int LDA>
+  __device__ auto copies() const {
+    return masked_copies<NT, BM, BK, LDA>(nullptr, nullptr);
   }
 
   __device__ __forceinline__ float4 chunk4(int r, int k) const {
@@ -471,58 +590,18 @@ struct PackedA {
   }
 };
 
-// Packed A with the row and rank predicates, applied as the stage goes to
-// shared memory, as MaskedRowMajorA does: a disabled row is not loaded, a
-// disabled rank's lanes are selected to 0 from the loaded chunk (so NaN or
-// Inf there gives exact zeros).  A chunk across K reads no mask byte past
-// K: its lanes there are 0 by the fringe rule.
+// Packed A with the row and rank predicates, as MaskedRowMajorA: a
+// disabled row is not copied, a disabled rank's lanes are selected to 0
+// once landed (so NaN or Inf there gives exact zeros).  A chunk across K
+// reads no mask byte past K: its lanes there are 0 by the fringe rule.
 template <typename T>
 struct MaskedPackedA {
   PackedA<T> p;
   PmMasks mk;
 
-  template <int BM, int BK, int LDA>
-  __device__ void panel(T* as, int k0) const {
-    constexpr int CH = BK / 8;
-    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
-      const int r = i / CH, c8 = (i % CH) * 8;
-      const int gr = p.m0 + r, gc = k0 + c8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < p.M && gc < p.K && lane_on(mk.xm, gr)) {
-        v = __ldg(reinterpret_cast<const uint4*>(p.at(gr, gc)));
-        if (gc + 8 <= p.K) {
-          if (mk.pm) select_chunk16(v, mk.pm, gc);
-        } else {
-          T* lanes = reinterpret_cast<T*>(&v);
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (gc + e >= p.K || !lane_on(mk.pm, gc + e))
-              lanes[e] = zero_of<T>();
-        }
-      }
-      *reinterpret_cast<uint4*>(as + r * LDA + c8) = v;
-    }
-  }
-
-  template <int BM, int BK, int LDT>
-  __device__ void panel_kmajor(float* as, int k0) const {
-    constexpr int CH = BK / 4;
-    for (int i = threadIdx.x; i < BM * CH; i += blockDim.x) {
-      const int r = i / CH, c4 = (i % CH) * 4;
-      const int gr = p.m0 + r, gc = k0 + c4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gr < p.M && gc < p.K && lane_on(mk.xm, gr)) {
-        v = __ldg(reinterpret_cast<const float4*>(p.at(gr, gc)));
-        if (gc + 0 >= p.K || !lane_on(mk.pm, gc + 0)) v.x = 0.f;
-        if (gc + 1 >= p.K || !lane_on(mk.pm, gc + 1)) v.y = 0.f;
-        if (gc + 2 >= p.K || !lane_on(mk.pm, gc + 2)) v.z = 0.f;
-        if (gc + 3 >= p.K || !lane_on(mk.pm, gc + 3)) v.w = 0.f;
-      }
-      as[c4 * LDT + r] = v.x;
-      as[(c4 + 1) * LDT + r] = v.y;
-      as[(c4 + 2) * LDT + r] = v.z;
-      as[(c4 + 3) * LDT + r] = v.w;
-    }
+  template <int NT, int BM, int BK, int LDA>
+  __device__ auto copies() const {
+    return p.template masked_copies<NT, BM, BK, LDA>(mk.xm, mk.pm);
   }
 
   __device__ __forceinline__ float4 chunk4(int r, int k) const {
@@ -536,85 +615,146 @@ struct MaskedPackedA {
   }
 };
 
+// ---- the 16-bit tensor-core tile ----
+//
+// bf16 / f16 on the tensor cores: WM x WN warps, each owning a (BM / WM,
+// BN / WN) slice of the fp32 accumulator in registers as m16n8 fragments.
+// The panels come through a ring of TILE16_STAGES cp.async stages.  Each
+// K step t: wait for this thread's copies of stage t, land them (the
+// loaders' fix-ups), one __syncthreads (stage t is whole; every warp is
+// past stage t - 1, whose slot the next copies reuse), load the first
+// 16-deep slice's fragments, issue stage t + STAGES - 1, then per slice
+// ldmatrix (.trans for the row-major B panel) fragments into mma.sync
+// m16n8k16, the next slice's fragments loaded before this slice's MMAs:
+// the copies of three steps are in flight under the tensor cores.  Rows
+// are padded by 8 elements (16 bytes: the 8 row addresses of an ldmatrix
+// hit distinct banks, and a realigned row has room for its spare word).
+// Each output is one chain of m16n8k16 products over its 16-deep K slices
+// in ascending order, from the seed or +0.0, the K loop padded with zeros
+// to a whole number of BK steps.
+constexpr int TILE16_STAGES = 4;  // core/tiling.py's TILE16_STAGES
+
+// The ring, or the fp32 tile that aliases it, whichever is larger
+// (core/tiling.py's BlockConfig.smem_bytes).
 template <typename T, int BM, int BN, int BK>
 __host__ __device__ constexpr size_t wmma_smem_bytes() {
-  constexpr size_t panels =
-      ((size_t)BM * (BK + 8) + (size_t)BK * (BN + 8)) * sizeof(T);
+  constexpr size_t ring = (size_t)TILE16_STAGES *
+                          ((size_t)BM * (BK + 8) + (size_t)BK * (BN + 8)) *
+                          sizeof(T);
   constexpr size_t ctile = (size_t)BM * (BN + 4) * sizeof(float);
-  return panels > ctile ? panels : ctile;
+  return ring > ctile ? ring : ctile;
 }
 
-// bf16 / f16 tensor-core tile: WM x WN warps, each owning a
-// (BM/WM, BN/WN) slice of the accumulator as 16x16 fp32 fragments.
 template <typename T, int BM, int BN, int BK, int WM, int WN, typename ALoader,
           typename BLoader>
 __device__ void wmma_tile_ab(unsigned char* smem, const ALoader& ld,
                              const BLoader& bl, int K, bool seeded) {
-  namespace wmma = nvcuda::wmma;
+  constexpr int NT = WM * WN * 32, S = TILE16_STAGES;
   constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
-  constexpr int TM = BM / WM, TN = BN / WN;
-  constexpr int FM = TM / 16, FN = TN / 16;
-  T* as = reinterpret_cast<T*>(smem);
-  T* bs = as + BM * LDA;
-  float* cs = reinterpret_cast<float*>(smem);  // aliases the panels
-  const int warp = threadIdx.x / 32;
+  constexpr int TM = BM / WM, TN = BN / WN, FM = TM / 16, FN = TN / 8;
+  constexpr int KS = BK / 16, STAGE = BM * LDA + BK * LDB;  // elements
+  static_assert(TM % 16 == 0 && TN % 16 == 0 && BK % 16 == 0,
+                "wmma_tile_ab: 16-row, 16-column warp slices, 16-deep steps");
+  T* ring = reinterpret_cast<T*>(smem);
+  float* cs = reinterpret_cast<float*>(smem);  // aliases the ring
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / WN, wn = warp % WN;
+  // an accumulator fragment's rows g, g + 8 and columns 2q, 2q + 1
+  const int g = lane / 4, q = lane % 4;
+  const int r0 = wm * TM + g, c0 = wn * TN + 2 * q;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+  float acc[FM][FN][4];
   if (seeded) {
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(acc[i][j],
-                               cs + (wm * TM + i * 16) * LDC + wn * TN + j * 16,
-                               LDC, wmma::mem_row_major);
-    __syncthreads();  // the panels overwrite the seed tile next
+      for (int j = 0; j < FN; ++j) {
+        const float* p = cs + (r0 + 16 * i) * LDC + c0 + 8 * j;
+        acc[i][j][0] = p[0];
+        acc[i][j][1] = p[1];
+        acc[i][j][2] = p[8 * LDC];
+        acc[i][j][3] = p[8 * LDC + 1];
+      }
+    __syncthreads();  // the ring overwrites the seed tile next
   } else {
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   }
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    ld.template panel<BM, BK, LDA>(as, k0);
-    bl.template panel<BK, BN, LDB>(bs, k0);
-    __syncthreads();
+  auto ca = ld.template copies<NT, BM, BK, LDA>();
+  auto cb = bl.template copies<NT, BK, BN, LDB>();
+  const int nk = (K + BK - 1) / BK;
+  auto issue = [&](int t) {
+    T* as = ring + (t % S) * STAGE;
+    ca.issue(as, t);
+    cb.issue(as + BM * LDA, t);
+  };
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[FN];
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < nk) issue(t);
+    cp_async_commit();
+  }
+  // lane l's ldmatrix rows: A rows l % 16 at k + 8 (l / 16); B (k, n) rows
+  // k = l % 8 + 8 ((l / 8) % 2) at n + 8 (l / 16)
+  const int a_off = (wm * TM + lane % 16) * LDA + 8 * (lane / 16);
+  const int b_off = (lane % 8 + 8 * ((lane / 8) % 2)) * LDB + wn * TN +
+                    8 * (lane / 16);
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<S - 2>();
+    T* as = ring + (t % S) * STAGE;
+    T* bs = as + BM * LDA;
+    ca.land(as, t);
+    cb.land(bs, t);
+    __syncthreads();  // stage t is whole; stage t - 1's slot is free
+
+    uint32_t af[2][FM][4], bf[2][FN / 2][4];
+    auto frags = [&](int buf, int kk) {
 #pragma unroll
       for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * TM + i * 16) * LDA + kk, LDA);
+        ldmatrix_x4(af[buf][i], as + a_off + 16 * i * LDA + kk);
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * LDB + wn * TN + j * 16, LDB);
+      for (int j = 0; j < FN / 2; ++j)
+        ldmatrix_x4_trans(bf[buf][j], bs + b_off + kk * LDB + 16 * j);
+    };
+    frags(0, 0);
+    if (t + S - 1 < nk) issue(t + S - 1);
+    cp_async_commit();
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      if (s + 1 < KS) frags((s + 1) & 1, 16 * (s + 1));
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
         for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+          mma16816<T>(acc[i][j], af[s & 1][i], bf[s & 1][j / 2][2 * (j % 2)],
+                      bf[s & 1][j / 2][2 * (j % 2) + 1]);
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: the tile aliases it
 
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(cs + (wm * TM + i * 16) * LDC + wn * TN + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
+    for (int j = 0; j < FN; ++j) {
+      float* p = cs + (r0 + 16 * i) * LDC + c0 + 8 * j;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(p + 8 * LDC) =
+          make_float2(acc[i][j][2], acc[i][j][3]);
+    }
   __syncthreads();
 }
 
-// The tile over a row-major B (K3's implicit GEMM, the unmasked GEMM).
+// The tile over a row-major B (K3's implicit GEMM on natural filters).
 template <typename T, int BM, int BN, int BK, int WM, int WN, typename ALoader>
 __device__ void wmma_tile(unsigned char* smem, const ALoader& ld, const T* y,
-                          int K, int N, int n0, bool vec_y, bool seeded) {
-  const RowMajorB<T> bl{y, K, N, n0, vec_y};
+                          int K, int N, int n0, bool seeded) {
+  const RowMajorB<T> bl{y, K, N, n0, false};
   wmma_tile_ab<T, BM, BN, BK, WM, WN>(smem, ld, bl, K, seeded);
 }
 

@@ -2071,3 +2071,151 @@ def test_full_grid_attention(gen, name):
         out_dtype=torch.float32, **kw) if n_split > 1
         else A.flash_attention_plain(q, k, v, out_dtype=torch.float32, **kw))
     _assert_attn_close(full, plain, budget)
+
+
+# ----------------------------------------------------------------------
+# The 16-bit WMMA tile (tile_gemm.cuh: a cp.async ring into ldmatrix and
+# mma.sync): every form in bf16 and f16 on both compiled blocks, and K3's
+# WMMA conv at each of its gathers
+# ----------------------------------------------------------------------
+
+# name: (batch, (M, K, N), forms): "x" / "y" packed panels, "mask" (NaN and
+# Inf in the disabled lanes), "seed" (a C seed with alpha and beta),
+# "shared" (Y panels without the batch axis), "sidecar" (checksum=True).
+# Odd N and K put rows off a 16-byte boundary: the tile copies such rows
+# as whole words it realigns.
+_WMMA_FORMS = {
+    "aligned": ((), (256, 512, 384), ()),
+    "odd N": ((), (200, 96, 1001), ()),
+    "odd K": ((), (130, 333, 136), ()),
+    "K below 16": ((), (150, 5, 200), ()),
+    "fringes": ((), (1000, 330, 1000), ()),
+    "X panels": ((), (300, 330, 264), ("x",)),
+    "Y panels": ((), (300, 330, 1001), ("y",)),
+    "X and Y panels": ((), (300, 330, 1001), ("x", "y")),
+    "masked": ((), (300, 330, 1001), ("mask",)),
+    "masked panels": ((), (300, 330, 1001), ("mask", "x", "y")),
+    "seeded": ((), (300, 512, 264), ("seed",)),
+    "batched": ((3,), (130, 200, 264), ()),
+    "shared": ((3,), (130, 200, 264), ("y", "shared")),
+    "sidecar": ((), (300, 768, 1001), ("sidecar",)),
+}
+# the forms with a natural row off a 16-byte boundary (core/tiling.py's
+# tile16_row_shift): their launches take the realigning copies
+_WMMA_REALIGNED = {"odd N", "odd K", "K below 16", "fringes", "X panels",
+                   "Y panels", "X and Y panels", "masked", "masked panels",
+                   "sidecar"}
+
+
+@pytest.mark.parametrize("block", [(128, 128, 32), (64, 64, 64)])
+@pytest.mark.parametrize("kind", [Ger.BF16GER2, Ger.F16GER2])
+@pytest.mark.parametrize("form", sorted(_WMMA_FORMS))
+def test_wmma_tile_forms_match_plain(gen, form, kind, block):
+    """The 16-bit tile at an explicit block: one launch on the wmma path,
+    finite, within the f32 tolerance of the plain version (masked: NaN and
+    Inf in the disabled lanes leave no trace); on packed panels (X, Y,
+    both, masked, or Y shared across the batch) bit for bit the natural
+    launch; with the sidecar, ``out`` bit for bit and the sums within
+    ABFT's tolerance of the plain result's."""
+    from repro_torch.core import abft, packing
+    lead, (m, k, n), forms = _WMMA_FORMS[form]
+    dt = precision.policy(kind).x_dtype
+    x = _randn(gen, *lead, m, k, dtype=dt)
+    y = _randn(gen, *(() if "shared" in forms else lead), k, n, dtype=dt,
+               scale=k ** -0.5)
+    kw = dict(kind=kind, block=block, out_dtype=torch.float32)
+    c = None
+    if "seed" in forms:
+        c = _randn(gen, *lead, m, n, dtype=torch.float32)
+        kw.update(alpha=0.75, beta=-0.5)
+    if "mask" in forms:
+        masks = _lane_masks(gen, m, n, k)
+        x[..., ~masks[0], :] = float("nan")
+        x[..., ~masks[2]] = float("inf")
+        y[..., ~masks[2], :] = float("nan")
+        y[..., ~masks[1]] = float("-inf")
+        kw["masks"] = masks
+    # the natural operand of a shared Y: the same rows for every batch
+    yn = y.expand(*lead, k, n).contiguous() if "shared" in forms else y
+    realigned = any(tiling.tile16_row_shift(
+        t.data_ptr(), t.stride(-2) * t.element_size(), r)
+        for t in (x, yn) for r in range(8))
+    assert realigned == (form in _WMMA_REALIGNED)
+    before = G.mma_gemm.launches_by_path["wmma"]
+    got = G.mma_gemm(x, yn, c, **kw)
+    torch.cuda.synchronize()
+    assert G.mma_gemm.launches_by_path["wmma"] == before + 1
+    want = G.mma_gemm_plain(x, yn, c, **{key: v for key, v in kw.items()
+                                         if key != "block"})
+    assert bool(torch.isfinite(got).all())
+    _assert_f32_close(got, want)
+    if "x" in forms or "y" in forms:
+        xp, yp, lay = x, y, {}
+        if "x" in forms:
+            po = packing.pack_gemm(x, packing.gemm_layout(
+                kind, m, k, side="x", batched=bool(lead)))
+            xp, lay["x_layout"] = po.data, po.layout
+        if "y" in forms:
+            po = packing.pack_gemm(y, packing.gemm_layout(
+                kind, k, n, batched=y.ndim == 3))
+            yp, lay["y_layout"] = po.data, po.layout
+        assert torch.equal(G.mma_gemm(xp, yp, c, **kw, **lay), got)
+    if "sidecar" in forms:
+        out, ck_col, ck_row = G.mma_gemm(x, y, c, checksum=True, **kw)
+        assert torch.equal(out, got)
+        eps = torch.finfo(torch.float32).eps
+        mag = torch.matmul(x.double().abs(), y.double().abs())
+        for ck, want_ck, mag_ck in zip(
+                (ck_col, ck_row), G.checksum_tiles(want, *block[:2]),
+                G.checksum_tiles(mag, *block[:2])):
+            err = (ck.double() - want_ck.double()).abs()
+            assert bool((err <= abft.ATOL + abft.FACTOR * eps * mag_ck
+                         ).all()), err.max()
+
+
+# name: (image NHWC, filters HWIO, stride, the copy core/tiling.py's
+# conv_gather_bytes picks): whisper's conv2 cut to 301 frames, a qwen2-vl
+# patch embed on a 56 x 56 image, 5 channels whose (j, c) runs are odd
+_WMMA_CONV_GATHERS = {
+    "16-byte": ((2, 1, 301, 768), (1, 3, 768, 768), (1, 2), 16),
+    "4-byte": ((2, 56, 56, 3), (14, 14, 3, 200), (14, 14), 4),
+    "elements": ((2, 9, 11, 5), (3, 3, 5, 136), (1, 2), 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("gather", sorted(_WMMA_CONV_GATHERS))
+def test_wmma_conv_gathers_match_plain(gen, gather, dtype):
+    """K3 on the WMMA tile (the explicit filter tile 128), bias + gelu:
+    within one ulp of the 16-bit store plus 1e-5 * max|ref| of its plain
+    version, three launches the same bits, and on the packed filter
+    stream bit for bit the natural launch."""
+    from repro_torch.core import packing
+    shape, fshape, stride, copy = _WMMA_CONV_GATHERS[gather]
+    n, h, w, c = shape
+    kh, kw, _, f = fshape
+    x = _randn(gen, *shape, dtype=dtype)
+    filt = _randn(gen, *fshape, dtype=dtype, scale=(kh * kw * c) ** -0.5)
+    assert tiling.conv_gather_bytes(c, kw, w, stride[1],
+                                    x.data_ptr()) == copy
+    opts = dict(stride=stride, ep=E.Epilogue(bias=True, activation="gelu"),
+                bias=_randn(gen, f, dtype=torch.float32), out_dtype=dtype,
+                bf=128)
+    before = K.mma_conv2d.launches_by_path["wmma"]
+    outs = [K.mma_conv2d(x, filt, **opts) for _ in range(3)]
+    po = packing.pack_conv(filt, packing.conv_layout(
+        precision.Ger.BF16GER2 if dtype == torch.bfloat16
+        else precision.Ger.F16GER2, kh, kw, c, f, nd=2))
+    packed = K.mma_conv2d(x, po.data, w_layout=po.layout, **opts)
+    torch.cuda.synchronize()
+    assert K.mma_conv2d.launches_by_path["wmma"] == before + 4
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.equal(packed, outs[0])
+    want = K.mma_conv2d_plain(x, filt, **{key: v for key, v in opts.items()
+                                          if key != "bf"}).float()
+    got = outs[0].float()
+    bits = 7 if dtype == torch.bfloat16 else 10
+    tol = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(1e-30))) - bits) + 1e-5 * want.abs().max().item()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= tol).all())

@@ -302,6 +302,98 @@ def test_conv_gather_bytes_picks_the_producers_copy(geometry, want):
     assert path == ("wgmma" if want else "wmma")
 
 
+# (base, pitch, row), in bytes -> the shift csrc/tile_gemm.cuh's 16-bit
+# tile realigns that natural row by (0: copied as it lies): whisper-small's
+# logits weight (N = 51865, a 103730-byte pitch) on even and odd rows, then
+# a 16-byte pitch at three bases, K = 333 (666-byte rows) and the SSD's
+# K = 1 (2-byte rows)
+_TILE16_ROWS = [
+    ((0, 103730, 0), 0),
+    ((0, 103730, 1), 2),
+    ((0, 103730, 2), 4),
+    ((0, 103730, 3), 6),
+    ((0, 103730, 4), 8),
+    ((0, 103730, 6), 12),
+    ((0, 103730, 8), 0),
+    ((0, 103730, 767), 14),
+    ((0, 8192, 5), 0),
+    ((2, 8192, 5), 2),
+    ((4, 8192, 5), 4),
+    ((0, 666, 1), 10),
+    ((0, 666, 2), 4),
+    ((0, 2, 7), 14),
+    ((0, 2, 8), 0),
+]
+
+
+@pytest.mark.parametrize("row,want", _TILE16_ROWS)
+def test_tile16_row_shift_follows_each_rows_offset(row, want):
+    """``tile16_row_shift`` mirrors the 16-bit tile's rule, row by row (no
+    longer one rule for the whole matrix): a row at a 16-byte offset of 0
+    is copied as it lies, any other offset is the shift its whole words
+    are realigned by in shared memory."""
+    assert tiling.tile16_row_shift(*row) == want
+
+
+def test_tile16_row_shift_on_whisper_logits():
+    """Whisper-small's 768 logits rows, 8 at a time: one row copied as it
+    lies, seven realigned by 2, 4, ..., 14 bytes, wherever the weight
+    starts on a 16-byte boundary."""
+    for base in (0, 16, 4096):
+        shifts = [tiling.tile16_row_shift(base, 2 * 51865, r)
+                  for r in range(768)]
+        assert shifts.count(0) == 96
+        assert shifts[:8] == [0, 2, 4, 6, 8, 10, 12, 14]
+        assert shifts[8:16] == shifts[:8]
+
+
+@pytest.mark.parametrize("kind", [BF, tprec.Ger.F16GER2])
+def test_wmma_tile_smem_counts_the_ring(kind):
+    """``BlockConfig.smem_bytes`` of the 16-bit tiles counts what
+    csrc/tile_gemm.cuh's wmma_smem_bytes does: ``TILE16_STAGES`` panel
+    pairs with rows padded by 8 elements, or the fp32 tile (rows padded
+    by 4) that aliases the ring, whichever is larger.  Each tile fits a
+    block and two blocks an SM (228 KB, 1 KB a block reserved); K3's
+    (64, 128, 32) filter tile too."""
+    pol = tprec.policy(kind)
+    assert tiling.TILE16_STAGES >= 3
+    want = {(128, 128, 32): 4 * (128 * 40 + 32 * 136) * 2,      # 75776
+            (64, 64, 64): 4 * (64 * 72 + 64 * 72) * 2,          # 73728
+            (64, 128, 32): 4 * (64 * 40 + 32 * 136) * 2}        # 55296
+    assert want[(128, 128, 32)] > 128 * 132 * 4    # the ring > the fp32 tile
+    for cfg in (*tiling.tiles_for(kind), tiling.CONV_TILES[kind]):
+        got = cfg.smem_bytes(pol)
+        assert got == want[(cfg.bm, cfg.bn, cfg.bk)]
+        assert 2 * (got + 1024) <= 228 * 1024 and got <= tiling.SMEM_PER_BLOCK
+
+
+def test_wmma_tile_routes_are_unchanged():
+    """The products and convs the 16-bit tile takes, each on the tile it
+    took before: whisper-small's logits at prefill and train M (a pitch
+    TMA refuses), the SSD's K = 1 outer product, masked products at every
+    M, an explicit block; K3 at an explicit filter tile or an image no
+    copy of the wgmma producer gathers."""
+    big, small = tiling.BlockConfig(128, 128, 32), tiling.BlockConfig(
+        64, 64, 64)
+    for m in (4 * 4, 4 * 448):
+        want = "stream" if m <= tiling.STREAM_MAX_M else "wmma"
+        path, cfg = tiling.choose_gemm_path(m, 51865, 768, BF, 1, False)
+        assert path == want
+        if path == "wmma":
+            assert cfg == big
+    assert tiling.choose_gemm_path(64, 4096, 1, BF, 4, True) == ("wmma",
+                                                                 small)
+    assert tiling.choose_gemm_path(4, 11008, 4096, BF, 1, True, None,
+                                   True) == ("wmma", small)
+    assert tiling.choose_gemm_path(1024, 11008, 4096, BF, 1, True, None,
+                                   True) == ("wmma", big)
+    conv = tiling.CONV_TILES[BF]
+    assert tiling.choose_conv_path(6000, 768, BF, True, True,
+                                   128) == ("wmma", conv)
+    assert tiling.choose_conv_path(6000, 768, BF, True, False) == ("wmma",
+                                                                   conv)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [4224, 1792])
 def test_depthwise_plan_takes_the_vector_path_on_mamba2(dtype, c):
