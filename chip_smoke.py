@@ -234,6 +234,17 @@ Phases, each of which must pass or the script exits nonzero:
      library call (``torch.matmul`` in the operands' dtype,
      ``torch._int_mm`` s8 x s8 for the integer families, not the same
      function; SDPA) and the bound.
+ 12. the 16-bit WMMA tile's forms (``WMMA_CASES``) and K3's WMMA conv
+     (``WMMA_CONV_CASES``) through ``facility.contract``, each against its
+     plain version and timed beside the library call, the bound and the
+     parent kernel's PERF.md time;
+ 13. K2's 16-bit tile mode (``flash_tile_kernel``: persistent blocks,
+     ping-ponged consumers, 128-key steps) at the main path's prefill and
+     train shapes (``ATTN_TARGETS``) through ``facility.contract``, counts
+     zeroed just before and read just after (every launch the tile mode's),
+     each result within its rounding budget of the plain version, each
+     timed beside SDPA, the bound and the parent kernel's PERF.md time,
+     its target met or missed (reported, not failed).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
@@ -256,8 +267,11 @@ over its runs; phase 11's packed entries, one a path, their
 ``natural_ms``, ``timed`` modes and ``packed_launches_by_path``, the
 first of them the phase's packed launches by path, full-grid launches
 and demotes under ``phase11``; its full-grid attention entry its
-``bounded_ms``, step counts and ``full_grid_launches``); the last is ``{"ok": true,
-"device": {...}}``.  Imports nothing of JAX and nothing
+``bounded_ms``, step counts and ``full_grid_launches``; phase 12's two
+entries their ``timed`` forms; phase 13's tile entry its ``timed``
+shapes and ``targets_met``; the phase-2 attention entry names the tile
+kernel under ``tile_kernel``); the last is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
 """
@@ -687,6 +701,8 @@ def check_attention(torch, timer, failures):
           f"{times['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"name": "mma_flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/mma_attention.cu",
+            "tile_kernel": "flash_tile_kernel (persistent blocks, "
+                           "ping-ponged wgmma consumers, 128-key steps)",
             "replaces": "src/repro/kernels/mma_attention.py:193",
             "max_abs_err": worst, "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"(1,{p},32,128) causal bf16", **times,
@@ -1587,8 +1603,8 @@ def step_breakdown(torch, cfg, prefill, decode, what):
 # them.
 PORT_KERNELS = ("gemm_stream_kernel", "gemm_stream_f32_kernel",
                 "gemm_wgmma_kernel",
-                "gemm_wmma_kernel", "gemm_f32_kernel", "flash_wgmma_kernel",
-                "flash_combine_kernel", "depthwise_vec_kernel",
+                "gemm_wmma_kernel", "gemm_f32_kernel", "flash_tile_kernel",
+                "flash_wgmma_kernel", "flash_combine_kernel", "depthwise_vec_kernel",
                 "depthwise_conv_kernel", "conv_wgmma_kernel",
                 "conv_wmma_kernel", "conv_f32_kernel")
 
@@ -5104,10 +5120,10 @@ def phase11_kernels(torch, timer, failures):
                    if mask is None else
                    (lambda qt=qt, kt=kt, vt=vt, mask=mask: sdpa(
                        qt, kt, vt, attn_mask=mask)), iters=5)}
-        nk = -(-s // A.BLOCK_K)
-        bq = A.attn_plan(b, h, s, s, d, False)[0]
-        row["steps_full"] = -(-s // bq) * nk
-        row["steps_bounded"] = A.attn_live_steps(s, s, bq, A.BLOCK_K,
+        bq, n_split, _ = A.attn_plan(b, h, s, s, d, False)
+        step = A.kv_step(d, False, n_split)   # the keys a kernel step walks
+        row["steps_full"] = -(-s // bq) * -(-s // step)
+        row["steps_bounded"] = A.attn_live_steps(s, s, bq, step,
                                                  **{k2: v2 for k2, v2
                                                     in kw.items()})
         pairs = A.attn_live_pairs(s, s, **kw)
@@ -5391,6 +5407,151 @@ def phase12(torch, failures, entries):
     print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 13: K2's 16-bit tile mode (flash_tile_kernel: persistent blocks,
+# ping-ponged consumers, 128-key steps at D <= 128) at the main path's
+# prefill and train shapes.  (label, (B, Sq, H, D), (Sk, KVH), flags, the
+# parent kernel's time in PERF.md section 6 (NVIDIA H100 80GB HBM3 at 700
+# W: printed for the reader, never put in the kernels line), the target:
+# ("ms", t) or ("sdpa", factor of SDPA's time in the same run))
+ATTN_TARGETS = (
+    ("causal (1,4096,32,128)", (1, 4096, 32, 128), (4096, 32),
+     dict(causal=True), 0.6333, ("ms", 0.30)),
+    ("deepseek-7b train causal (4,512,32,128)", (4, 512, 32, 128),
+     (512, 32), dict(causal=True), 0.1126, ("sdpa", 1.2)),
+    ("zamba2 train causal (4,512,32,64)", (4, 512, 32, 64), (512, 32),
+     dict(causal=True), 0.0848, ("sdpa", 1.2)),
+    ("qwen2-vl prefill causal (4,1088,28,128) over (1088,4)",
+     (4, 1088, 28, 128), (1088, 4), dict(causal=True), 0.2674,
+     ("sdpa", 1.2)),
+    ("whisper encoder (4,1500,12,64)", (4, 1500, 12, 64), (1500, 12),
+     dict(causal=False), 0.2215, ("sdpa", 1.2)),
+    ("whisper cross train (4,448,12,64) over 1500", (4, 448, 12, 64),
+     (1500, 12), dict(causal=False), 0.0971, ("sdpa", 1.2)),
+    ("deepseek-7b prefill causal (1,256,32,128)", (1, 256, 32, 128),
+     (256, 32), dict(causal=True), 0.0252, ("ms", 0.018)),
+    ("window 512 (1,2048,32,128)", (1, 2048, 32, 128), (2048, 32),
+     dict(causal=True, window=512), 0.1407, ("ms", 0.08)),
+)
+
+
+def attn_sdpa(torch, q, k, v, kw):
+    """SDPA on (B, H, S, D) views of the same inputs, the KV heads
+    repeated over their GQA groups, with a boolean mask for a window:
+    the library call beside the kernel (timed only)."""
+    from repro_torch.kernels import mma_attention as A
+    group = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (
+        q, A.repeat_kv(k, group), A.repeat_kv(v, group)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if "window" not in kw:
+        return lambda: sdpa(qt, kt, vt, is_causal=kw["causal"])
+    sq, sk = q.shape[1], k.shape[1]
+    qp = torch.arange(sq, device="cuda")[:, None]
+    kp = torch.arange(sk, device="cuda")[None, :]
+    mask = qp - kp < kw["window"]
+    if kw["causal"]:
+        mask &= qp >= kp
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask)
+
+
+def attn_bound(q, k, kw) -> tuple[float, str]:
+    """The least time for one call: q, k, v read and O written once, 4 D
+    flops a live (q, k) pair a head, at the peaks of q's dtype."""
+    from repro_torch.kernels import mma_attention as A
+    b, sq, h, d = q.shape
+    pairs = A.attn_live_pairs(sq, k.shape[1], **{
+        f: kw[f] for f in ("causal", "q_offset", "window") if f in kw})
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return bound_ms(nbytes, 4 * d * pairs * b * h,
+                    "f32" if q.element_size() == 4 else "bf16")
+
+
+def phase13_kernels(torch, timer, failures):
+    """The redesigned 16-bit attention tile: each ATTN_TARGETS shape
+    through ``facility.contract`` (the model path's call), counts zeroed
+    just before and read just after (every launch the tile mode's); each
+    result against its plain version within its rounding budget; then
+    each timed (CUDA events, L2 flushed) beside SDPA, the bound and the
+    parent kernel's PERF.md time, with its target met or missed (a miss
+    is reported, not failed).  Returns the ``kernels`` entry."""
+    from repro_torch.core import facility
+    from repro_torch.kernels import mma_attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(26)
+    ops = []
+    for label, (b, sq, h, d), (sk, kvh), kw, parent, target in ATTN_TARGETS:
+        q = torch.randn(b, sq, h, d, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(b, sk, kvh, d, generator=g, device="cuda"
+                            ).bfloat16() for _ in range(2))
+        ops.append((label, q, k, v, kw, parent, target))
+
+    kernels = kernel_wrappers()
+    outs = {}
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for label, q, k, v, kw, _, _ in ops:
+            outs[label] = facility.contract(facility.ATTN, q, k, v,
+                                            plan=facility.Plan(**kw))
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    tile = counts["attn_by_mode"]["tile"]
+    _check(failures, "phase 13 main path",
+           counts["launches"]["mma_flash_attention"] == len(ops) == tile,
+           f"attention launches {counts['launches']['mma_flash_attention']}"
+           f", tile mode {tile} ({len(ops)} calls)")
+
+    rows, worst, met = {}, 0.0, {}
+    for label, q, k, v, kw, parent, (kind, goal) in ops:
+        budget = A.rounding_budget(q, k, v, **kw)
+        want = A.flash_attention_plain(q, k, v, **kw)
+        worst = max(worst, _report_attn(
+            torch, f"attn tile {label} vs plain", outs[label], want, v,
+            budget, torch.bfloat16, failures))
+        row = {"ms": timer(lambda q=q, k=k, v=v, kw=kw:
+                           A.mma_flash_attention(q, k, v, **kw)),
+               "plain_ms": timer(lambda q=q, k=k, v=v, kw=kw:
+                                 A.flash_attention_plain(q, k, v, **kw),
+                                 iters=3, warmup=1),
+               "library_ms": timer(attn_sdpa(torch, q, k, v, kw)),
+               "library": "SDPA"}
+        row["bound_ms"], row["bound_by"] = attn_bound(q, k, kw)
+        limit = goal if kind == "ms" else goal * row["library_ms"]
+        met[label] = row["ms"] <= limit
+        print(f"  time attn tile {label}: {row['ms']:.4f} ms (parent in "
+              f"PERF.md: {parent} ms), plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.2f} of "
+              f"bound; target {'met' if met[label] else 'MISSED'} "
+              f"(<= {limit:.4f} ms)")
+        rows[label] = row
+    del ops, outs
+    label = ATTN_TARGETS[0][0]
+    entry = {"name": "mma_flash_attention 16-bit tile (persistent)",
+             "route": "cuda",
+             "source": "src/repro_torch/csrc/mma_attention.cu",
+             "replaces": "src/repro/kernels/mma_attention.py:193",
+             "launches": tile, "max_abs_err": worst, **rows[label],
+             "shape": label, "timed": rows, "targets_met": met}
+    if entry["launches"] <= 0:
+        failures.append(f"{entry['name']} never launched in phase 13's run")
+    return [entry]
+
+
+def phase13(torch, failures, entries):
+    """Phase 13: K2's redesigned 16-bit tile mode at the main path's
+    prefill and train shapes, checked and timed; the parent kernel's
+    PERF.md time is printed beside each."""
+    print("== phase 13: K2's 16-bit tile (persistent, ping-ponged wgmma)",
+          flush=True)
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    entries += phase13_kernels(torch, timer, failures)
+    del timer
+    torch.cuda.empty_cache()
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -5548,6 +5709,7 @@ def run_phases(torch) -> None:
     phase10(torch, failures, entries)
     phase11(torch, failures, entries)
     phase12(torch, failures, entries)
+    phase13(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

@@ -1101,12 +1101,12 @@ def _lower_ref_conv(op: Op):
 
 @register("kernel", "attn")
 def _lower_kernel_attn(op: Op):
-    """The Hopper flash kernel (kernels/mma_attention.py): one block per
-    (b, h, q tile), GQA by index, the causal/window bounds computed per
-    block, short queries split over KV.  A Plan.block names the q tile,
-    (128, 64) or (64, 64); else a cached winner (keyed by heads, not by
-    batch: ``autotune.lookup_attn``) names the q tile and the split; else
-    the wrapper's heuristic picks them."""
+    """The Hopper flash kernel (kernels/mma_attention.py): persistent
+    blocks over the (b, h, q tile) tiles, GQA by index, the causal/window
+    bounds computed per tile, short queries split over KV.  A Plan.block
+    names the q tile, (128, 64) or (64, 64); else a cached winner (keyed
+    by heads, not by batch: ``autotune.lookup_attn``) names the q tile and
+    the split; else the wrapper's heuristic picks them."""
     tiles = ((_attn.BLOCK_Q, _attn.BLOCK_K), (_attn.BLOCK_Q_SHORT,
                                               _attn.BLOCK_K))
     if op.block is not None and tuple(op.block) not in tiles:

@@ -14,7 +14,8 @@
 // to the next compiled one by the wrapper (kernels/mma_attention.py),
 // which leaves Q K^T unchanged, and the padded output columns are dropped.
 // 192 = 3 x 64 keeps the 128-byte swizzled boxes; it runs the 64-row tile
-// only (4 ring stages, 222,280 bytes of shared memory; 232 registers a
+// only (the tile mode: steps of 64 keys, 3 ring stages, 197,760 bytes of
+// shared memory; split-KV: 4 stages, 222,280 bytes; 232 registers a
 // consumer thread, no spill), as the 128-row tile's 96 fp32 accumulators
 // a thread spilled; fp32's 160 holds its tile in 227,328 bytes.  Query
 // head h reads KV head h / (H / KVH) (GQA) without materialising the
@@ -28,49 +29,73 @@
 // positions) reads K and V once for 4 * D flops per position: bytes bound
 // it, and the card is filled only if the positions are split over blocks.
 //
-// Design.
-//   * One block owns (b, h, a 128-row q tile) -- 64 rows where the grid
-//     would not fill the card -- and walks its live KV blocks of 64 with
-//     attn_k_bounds' arithmetic (the causal bound above, the window bound
-//     below); causal grids start with the longest rows.
-//   * Warpgroup 0 is the producer: one thread loads the Q tile once and
-//     K and V blocks into a ring of up to 8 stages by TMA, from 4-D
-//     tensor maps (D, H, S, B) -- the KV head coordinate is h / group, so GQA repeats
-//     nothing, and TMA zero-fills the ragged S edge.  Boxes are 128-byte
-//     swizzled rows of 64 elements (64-byte rows for D = 32).
+// Design of the 16-bit tile mode (flash_tile_kernel, n_split = 1).
+//   * Persistent blocks: min(tiles, the blocks the card holds at once)
+//     walk a static list of (b, h, q tile) tiles -- q tiles of 128 rows
+//     (two consumer warpgroups), 64 where 128-row tiles would leave SMs
+//     idle -- listed head by head, each head's tiles the longest first when
+//     causal, so that the tiles running at once share their K and V in
+//     L2; the blocks take the list in rounds of gridDim.x, every other
+//     round backwards (a snake), which evens out their steps.  A tile's
+//     result does not depend on the block, the tile size or the batch.
+//   * Steps of 128 keys (64 at D = 192, where S and O would not fit the
+//     registers), aligned to absolute multiples of the step: the bounds
+//     are attn_k_bounds' arithmetic at bk = the step, which is its range
+//     of 64-key blocks widened to that alignment; the extra keys are
+//     masked.
+//   * Warpgroup 0 is the producer: one thread loads each tile's Q into one
+//     of two Q buffers (the next tile's lands while this one finishes) and
+//     its K and V steps into a ring of 2-3 stages by TMA, K and V on
+//     barriers of their own, from 4-D tensor maps (D, H, S, B) -- the KV
+//     head coordinate is h / group, so GQA repeats nothing, and TMA
+//     zero-fills the ragged S edge.  Boxes are 128-byte swizzled rows of
+//     64 elements (64-byte rows for D = 32).  Ring position and phases run
+//     on across tiles.
 //   * Each consumer warpgroup owns 64 query rows.  S = Q K^T runs on
 //     wgmma (both operands K-major in D); the online softmax runs in
 //     registers in the exp2 domain with the scale folded in, masking only
-//     the blocks that cross the diagonal, the window edge, the Sk fringe
-//     or a valid predicate; P is rounded to the input type (as the
+//     the steps that cross the diagonal, the window edge, the Sk fringe
+//     or a valid predicate (each row's live columns as a range; valid's
+//     bytes read once a step); P is rounded to the input type (as the
 //     reference rounds it) and fed from registers as the A operand of
 //     O += P V (V is MN-major: tnspB).  O, m and l stay in registers for
-//     the whole KV loop.  The loop is software-pipelined: S of block i is
-//     issued with O += P V of block i - 1, and block i's softmax runs
-//     while the tensor cores finish the latter.
-//   * The masked-block guard stays: p = 0 where the running max is still
-//     -inf, and a row with l = 0 stores 0 before the epilogue.
+//     the tile's KV loop, which is software-pipelined: S of step i is
+//     issued with O += P V of step i - 1, and step i's softmax runs
+//     while the tensor cores finish the latter.  The two consumers take
+//     turns to issue (named barriers: a ping-pong), so that one's softmax
+//     runs while the other's GEMMs do.
+//   * The store: without an epilogue, O is normalised and rounded to T in
+//     registers, staged in the consumer's rows of the Q buffer and written
+//     in 16-byte rows; with one (or another output type) it goes through
+//     the same rows in fp32, half the columns at a time, to one loop of
+//     attn_store2.  The buffer then goes back to the producer.
+//
+// The split-KV mode (flash_wgmma_kernel, n_split > 1, chosen by the
+// wrapper for Sq <= 64 from H and Sk alone, so that a row sums in one
+// order at any batch): one block owns (b, h, a 64-row q tile, a split),
+// walks its share of the live KV blocks of 64 with a ring of up to 8
+// stages, the consumer as above without the ping-pong, and writes an fp32
+// partial -- unnormalised O, its running max m (log2 domain) and sum l --
+// to a workspace; a second kernel (flash_combine_kernel) merges the
+// partials of each row in split order by log-sum-exp, then applies the
+// guard, the normalisation and the epilogue once.
+//
+// Both modes:
+//   * The masked-block guard: p = 0 where the running max is still -inf,
+//     and a row with l = 0 stores 0 before the epilogue.
 //   * The full grid (K2d: the reference's mma_flash_attention(bound_grid=
 //     False), its attn_grid_plan(bound=False)): with AttnArgs.bound = 0
-//     every q tile walks all nk KV blocks, lo = 0 and hi = nk, the
-//     rectangular schedule the bounded one is measured against.  A block
-//     with no live slot leaves the state untouched: its row max is -inf,
-//     so m keeps its value, the correction is exp2(0) = 1, every p is 0,
-//     l gains 0 and O gains P V = 0 exactly.  So the full grid's tile mode
-//     is the bounded launch bit for bit.  In split-KV mode the splits
-//     partition [0, nk) instead of the live range [lo, hi): bit for bit
-//     too where lo = 0 (the blocks past hi are dead, a split of them only
-//     contributes m = -inf, l = 0: weight 0), else the live blocks group
-//     otherwise and P rounds against other split maxima (within the
-//     wrapper's stated budget).
-//   * Split-KV (n_split > 1, chosen by the wrapper for Sq <= 64 from H
-//     and Sk alone, so that a row sums in one order at any batch): block
-//     (.., split) walks its share of the KV blocks and writes an fp32
-//     partial -- unnormalised O, its running max m (log2 domain) and sum
-//     l -- to a workspace; a
-//     second kernel merges the partials of each row in split order by
-//     log-sum-exp, then applies the guard, the normalisation and the
-//     epilogue once.
+//     every q tile walks all KV steps, lo = 0 and hi = nk, the rectangular
+//     schedule the bounded one is measured against.  A step with no live
+//     slot leaves the state untouched: its row max is -inf, so m keeps its
+//     value, the correction is exp2(0) = 1, every p is 0, l gains 0 and O
+//     gains P V = 0 exactly.  So the full grid's tile mode is the bounded
+//     launch bit for bit, and so are a row's results on either q tile.
+//     In split-KV mode the splits partition [0, nk) instead of the live
+//     range [lo, hi): bit for bit too where lo = 0 (the blocks past hi are
+//     dead, a split of them only contributes m = -inf, l = 0: weight 0),
+//     else the live blocks group otherwise and P rounds against other
+//     split maxima (within the wrapper's stated budget).
 //
 // The fp32 tile (K2e: f32 q, k, v, the tight-parity F32GER config).  The
 // tensor cores would round fp32 to TF32, which F32GER forbids, so it runs
@@ -78,9 +103,8 @@
 // hundred tokens, bytes for one query over a long cache), as F32GER's
 // GEMM does (mma_gemm.cu's gemm_f32_kernel).
 //   * One block of 256 threads owns (b, h, a 64-row q tile) and walks the
-//     same live KV blocks of 64 as the wgmma kernel with BQ = 64; the
-//     split-KV mode is the same, its partials merged by
-//     flash_combine_kernel.
+//     same live KV blocks of 64 as the split-KV kernel; the split-KV mode
+//     is the same, its partials merged by flash_combine_kernel.
 //   * The Q tile and a double buffer of K and V blocks sit in shared
 //     memory (row pitch D + 4 floats), filled by 16-byte cp.async (zero
 //     past Sq and Sk; GQA by the KV head index); block i + 1 loads while
@@ -143,7 +167,6 @@ struct FlashCfg {
   static constexpr int FREE = (BUDGET - Q_BYTES) / STAGE;
   static constexpr int STAGES = FREE > 8 ? 8 : FREE;
   static_assert(STAGES >= 2, "the loop holds two KV blocks at a time");
-  static_assert(Q_BYTES + STAGES * STAGE >= BQ * (D + 8) * 4, "O tile");
   static constexpr size_t smem =
       (size_t)Q_BYTES + STAGES * STAGE + 1024 + 8 * (1 + 2 * STAGES);
 };
@@ -410,45 +433,20 @@ __global__ void __launch_bounds__(FlashCfg<D, NC>::THREADS,
     }
     lrow[0] = quad_sum(lrow[0]);
     lrow[1] = quad_sum(lrow[1]);
-    if (a.n_split > 1) {
-      // fp32 partial of this split: unnormalised O, m, l
+    // fp32 partial of this split: unnormalised O, m, l
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int s = r0 + 8 * r;
-        if (s >= a.Sq) continue;
-        const long long row =
-            (((long long)b * a.H + h) * a.Sq + s) * a.n_split + split;
+    for (int r = 0; r < 2; ++r) {
+      const int s = r0 + 8 * r;
+      if (s >= a.Sq) continue;
+      const long long row =
+          (((long long)b * a.H + h) * a.Sq + s) * a.n_split + split;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(a.ws_o + row * D + 8 * j + 2 * t) =
-              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
-        if (t == 0)
-          *reinterpret_cast<float2*>(a.ws_ml + row * 2) =
-              make_float2(mrow[r], lrow[r]);
-      }
-    } else {
-      // normalised O through shared memory (Q and the ring, once every
-      // consumer is done with them): one loop of paired stores
-      named_bar_sync(1, NC * 128);
-      constexpr int LDO = D + 8;
-      float* ot = reinterpret_cast<float*>(smem) + c * 64 * LDO;
-      const int rl = r0 - q0 - c * 64;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float den = lrow[r] == 0.f ? 1.f : lrow[r];
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<float2*>(ot + (rl + 8 * r) * LDO + 8 * j + 2 * t) =
-              make_float2(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
-      }
-      named_bar_sync(2 + c, 128);
-      for (int i = wl; i < 64 * (D / 2); i += 128) {
-        const int rr = i / (D / 2), d = 2 * (i % (D / 2));
-        const int s = q0 + c * 64 + rr;
-        if (s >= a.Sq) continue;
-        const float2 v = *reinterpret_cast<const float2*>(ot + rr * LDO + d);
-        attn_store2(a, b, s, h, d, v.x, v.y, 1.f);
-      }
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(a.ws_o + row * D + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(a.ws_ml + row * 2) =
+            make_float2(mrow[r], lrow[r]);
     }
   }
 }
@@ -473,6 +471,491 @@ __global__ void flash_combine_kernel(AttnArgs a) {
     }
   }
   attn_store2(a, b, s, h, d, o0, o1, l);
+}
+
+// ---- the 16-bit tile mode (n_split == 1): persistent, ping-ponged ---------
+
+// The tile mode's shapes at depth D with NC consumer warpgroups (q tiles of
+// 64 * NC rows); tests/test_torch_attention.py mirrors them (tile_config).
+// Steps of BKV keys, aligned to absolute multiples of BKV: 128 where S
+// (m64n128, 64 fp32 a thread) fits the registers beside O, 64 at D = 192.
+// Two Q buffers (the next tile's Q lands while this one finishes) and a
+// ring of 2-3 K and V stages with their own barriers.
+template <int D, int NC>
+struct TileCfg {
+  static constexpr int BQ = 64 * NC;
+  static constexpr int BKV = D <= 128 ? 128 : 64;
+  static constexpr int SWB = D * 2 >= 128 ? 128 : D * 2;  // bytes a box row
+  static constexpr int CH = SWB / 2;                       // elements a box row
+  static constexpr int NCH = D / CH;                       // boxes across D
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;
+  static constexpr int THREADS = 128 * (NC + 1);
+  // two blocks an SM where registers and shared memory allow (the 64-row
+  // tile at D <= 64), else one
+  static constexpr int MIN_BLOCKS = (NC == 1 && D <= 64) ? 2 : 1;
+  static constexpr int BUDGET = (MIN_BLOCKS == 2 ? 110 : 225) * 1024;
+  static constexpr int FREE = (BUDGET - 2 * Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int STAGES = FREE > 3 ? 3 : FREE;
+  static_assert(STAGES >= 2, "the loop holds two steps at a time");
+  static constexpr int NBAR = 4 + 4 * STAGES;
+  static constexpr size_t smem =
+      1024 + 2 * (size_t)Q_BYTES + 2 * (size_t)STAGES * KV_BYTES + 8 * NBAR;
+};
+
+template <typename T>
+struct DtOf;
+template <>
+struct DtOf<__nv_bfloat16> {
+  static constexpr int v = DT_BF16;
+};
+template <>
+struct DtOf<__half> {
+  static constexpr int v = DT_F16;
+};
+
+// Arrive at barrier `id` without waiting (the other side bar.syncs).
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Keep a wgmma's register A operand in place until its wait.
+template <int R>
+__device__ __forceinline__ void reg_fence_u(uint32_t (&d)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+}
+
+// The launch's tiles: B * H * ceil(Sq / BQ), head by head (b slower than
+// h: neighbouring query heads share a KV head), each head's q tiles the
+// longest first when causal, so that the tiles running at once share
+// their K and V in L2.  The persistent blocks walk the list in rounds of
+// gridDim.x, every other round backwards (a snake), which evens out the
+// steps each block takes.  tile_at: the block's k-th tile, -1 past its
+// last.
+__device__ __forceinline__ int tile_at(int k, int tiles) {
+  const int base = k * (int)gridDim.x;
+  const int r = min((int)gridDim.x, tiles - base);  // tiles in round k
+  if ((int)blockIdx.x >= r) return -1;
+  return base + ((k & 1) ? r - 1 - (int)blockIdx.x : (int)blockIdx.x);
+}
+
+// Tile t's (b, h, q tile) and step range [lo, hi): attn_k_bounds(qi,
+// ceil(Sk / BKV), bq=BQ, bk=BKV, ...), which is attn_k_bounds at bk = 64
+// widened to multiples of BKV, or every step with the full grid (bound =
+// 0).
+struct TileJob {
+  int b, h, qi, lo, hi;
+};
+
+template <int BQ, int BKV>
+__device__ __forceinline__ TileJob tile_job(const AttnArgs& a, int t, int nq) {
+  TileJob j;
+  const int u = t / nq, pos = t % nq;
+  j.qi = a.causal ? nq - 1 - pos : pos;
+  j.h = u % a.H;
+  j.b = u / a.H;
+  const int nk = (a.Sk + BKV - 1) / BKV;
+  j.hi = nk;
+  if (a.bound && a.causal) {
+    const long long e = (long long)a.q_offset + (long long)(j.qi + 1) * BQ;
+    j.hi = max((int)min((long long)nk, (e + BKV - 1) / BKV), 1);
+  }
+  j.lo = 0;
+  if (a.bound && a.window > 0) {
+    const long long e =
+        (long long)a.q_offset + (long long)j.qi * BQ - (a.window - 1);
+    j.lo = min(e > 0 ? (int)(e / BKV) : 0, j.hi - 1);
+  }
+  return j;
+}
+
+// Named barriers: 1 + c is consumer c's turn to issue its GEMMs (the
+// ping-pong), 3 + c consumer c's own store.
+constexpr int TURN_BAR = 1, STORE_BAR = 3;
+
+template <typename T, int D, int NC>
+__global__ void __launch_bounds__(TileCfg<D, NC>::THREADS,
+                                  TileCfg<D, NC>::MIN_BLOCKS)
+    flash_tile_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, AttnArgs a) {
+  using C = TileCfg<D, NC>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, SWB = C::SWB, CH = C::CH,
+                NCH = C::NCH, S = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;                  // two Q buffers
+  unsigned char* ks = qs + 2 * C::Q_BYTES;   // S K stages
+  unsigned char* vs = ks + S * C::KV_BYTES;  // S V stages
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + S * C::KV_BYTES);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + S;
+  uint64_t* k_empty = v_full + S;
+  uint64_t* v_empty = k_empty + S;
+
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  const int tiles = nq * a.H * a.B;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], NC * 128);
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], NC * 128);
+      mbar_init(&v_empty[s], NC * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread walks the block's tiles, Q into the tile's
+    // buffer once its store two tiles back is done, then the K and V
+    // steps through the ring (ring position and phases run on across
+    // tiles, so the next tile's loads start while this one finishes) ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    int g = 0;  // steps issued so far
+    for (int j = 0, tt; (tt = tile_at(j, tiles)) >= 0; ++j) {
+      const TileJob tj = tile_job<BQ, BKV>(a, tt, nq);
+      const int qb = j & 1;
+      if (j >= 2) mbar_wait(&q_empty[qb], ((j >> 1) + 1) & 1);
+      unsigned char* qd = qs + qb * C::Q_BYTES;
+      mbar_expect_tx(&q_full[qb], C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        tma_load_4d(qd + c * BQ * SWB, &tq, &q_full[qb], c * CH, tj.h,
+                    tj.qi * BQ, tj.b);
+      const int kvh = tj.h / a.group;
+      for (int i = tj.lo; i < tj.hi; ++i, ++g) {
+        const int s = g % S;
+        const uint32_t before = ((g / S) + 1) & 1;  // the stage's last use
+        unsigned char* kd = ks + s * C::KV_BYTES;
+        unsigned char* vd = vs + s * C::KV_BYTES;
+        if (g >= S) mbar_wait(&k_empty[s], before);
+        mbar_expect_tx(&k_full[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load_4d(kd + c * BKV * SWB, &tk, &k_full[s], c * CH, kvh,
+                      i * BKV, tj.b);
+        if (g >= S) mbar_wait(&v_empty[s], before);
+        mbar_expect_tx(&v_full[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load_4d(vd + c * BKV * SWB, &tv, &v_full[s], c * CH, kvh,
+                      i * BKV, tj.b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows of each tile apiece ----
+  setmaxnreg_inc<C::MIN_BLOCKS == 2 ? 216 : 232>();
+  const int c = wg - 1;
+  const int wl = threadIdx.x % 128, lane = wl % 32;
+  const int gq = lane / 4, t = lane % 4;
+  const int rl = (wl / 32) * 16 + gq;  // this thread's rows rl, rl + 8
+  // no epilogue and the input's type out: O leaves as T in 16-byte rows
+  const bool direct = a.act == 0 && a.bias == nullptr && a.res == nullptr &&
+                      a.out_dt == DtOf<T>::v;
+
+  float o[D / 2];
+  float sc[BKV / 2];          // S, then P, of the step in hand
+  uint32_t pa[BKV / 16][4];   // P rounded to T: O += P V's A operand
+  float mrow[2], lrow[2];
+
+  // Ping-pong: consumer c issues its GEMMs when it holds turn 1 + c and
+  // then hands the turn over, so that one consumer's softmax runs while
+  // the other's GEMMs do.  Consumer 0 goes first; consumer 1 hands back
+  // no turn after its very last.
+  if (NC == 2 && c == 1) named_bar_arrive(TURN_BAR, 256);
+  int g = 0;  // steps consumed so far
+  for (int j = 0, tt; (tt = tile_at(j, tiles)) >= 0; ++j) {
+    const TileJob tj = tile_job<BQ, BKV>(a, tt, nq);
+    const bool last_tile = tile_at(j + 1, tiles) < 0;
+    const int qb = j & 1, n = tj.hi - tj.lo;
+    unsigned char* qd = qs + qb * C::Q_BYTES;
+    const int q0 = tj.qi * BQ + c * 64;  // this consumer's first row
+    const int qlo = a.q_offset + q0, qhi = qlo + 63;
+
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    mrow[0] = mrow[1] = REPRO_NEG_INF;
+    lrow[0] = lrow[1] = 0.f;
+
+    // Scale (log2 domain) and mask S of the step at key k0, the new
+    // running max and P in sc; the row sums of P and the correction.
+    auto softmax = [&](int k0, float (&psum)[2], float (&corr)[2]) {
+      const bool need_mask = k0 + BKV > a.Sk || a.valid != nullptr ||
+                             (a.causal && k0 + BKV - 1 > qlo) ||
+                             (a.window > 0 && qhi - k0 >= a.window);
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (need_mask) {
+        // element (jj, e) is row rl + 8 (e >> 1) and key k0 + 2t + col,
+        // col = 8 jj + (e & 1); bit 2 jj + e of `on`: the slot of col
+        // 8 jj + e is filled (valid's bytes read once a step, not once a
+        // row)
+        const int dq = qlo + rl - k0 - 2 * t, left = a.Sk - k0 - 2 * t;
+        uint32_t on = ~0u;
+        if (a.valid != nullptr) {
+          const unsigned char* vr = a.valid + (long long)tj.b * a.Sk + k0 + 2 * t;
+          on = 0u;
+#pragma unroll
+          for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (8 * jj + e < left && vr[8 * jj + e] != 0)
+                on |= 1u << (2 * jj + e);
+        }
+        // a row's live columns: [lo, hi), its window, its causal bound and
+        // the end of the sequence
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int d = dq + 8 * r;  // q - k at col 0
+          hi[r] = a.causal ? min(left, d + 1) : left;
+          lo[r] = a.window > 0 ? d - a.window + 1 : -(1 << 30);
+        }
+#pragma unroll
+        for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * jj + (e & 1), r = e >> 1;
+            const bool live = col >= lo[r] && col < hi[r] &&
+                              ((on >> (2 * jj + (e & 1))) & 1u);
+            if (!live) sc[4 * jj + e] = -INFINITY;
+            mx[r] = fmaxf(mx[r], sc[4 * jj + e]);
+          }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * jj + e]);
+      }
+      float neg_m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_blk = quad_max(mx[r]);
+        const float m_new = m_blk == -INFINITY
+                                ? mrow[r]
+                                : fmaxf(mrow[r], m_blk * a.scale_log2);
+        corr[r] = fast_exp2(mrow[r] - m_new);
+        mrow[r] = m_new;
+        // masked-block guard: no live slot yet, the row contributes zeros
+        neg_m[r] = m_new == REPRO_NEG_INF ? -INFINITY : -m_new;
+        psum[r] = 0.f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              fast_exp2(fmaf(sc[4 * jj + e], a.scale_log2, neg_m[e >> 1]));
+          sc[4 * jj + e] = p;
+          psum[e >> 1] += p;
+        }
+    };
+    // Fold a step into the state: rescale O and l, round P to T.
+    auto fold = [&](const float (&psum)[2], const float (&corr)[2]) {
+      lrow[0] = lrow[0] * corr[0] + psum[0];
+      lrow[1] = lrow[1] * corr[1] + psum[1];
+      if (corr[0] != 1.f || corr[1] != 1.f) {  // a row max moved
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          o[4 * jj] *= corr[0];
+          o[4 * jj + 1] *= corr[0];
+          o[4 * jj + 2] *= corr[1];
+          o[4 * jj + 3] *= corr[1];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pa[kk][q] = pack2<T>(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1]);
+    };
+    // S_i = Q K_i^T into sc, O += P_i V_i: issue, commit.
+    auto issue_s = [&](int i) {
+      const unsigned char* kd = ks + ((g + i) % S) * C::KV_BYTES;
+#pragma unroll
+      for (int jj = 0; jj < D / 16; ++jj) {
+        const int ch = (16 * jj) / CH, off = ((16 * jj) % CH) * 2;
+        const uint64_t dq = wgmma_desc(qd + ch * BQ * SWB + c * 64 * SWB + off,
+                                       16, 8 * SWB, SWB);
+        const uint64_t dk =
+            wgmma_desc(kd + ch * BKV * SWB + off, 16, 8 * SWB, SWB);
+        Wgmma<BKV, T>::template ss<0>(sc, dq, dk);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int i) {
+      const unsigned char* vd = vs + ((g + i) % S) * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t dv =
+            wgmma_desc(vd + kk * 16 * SWB, BKV * SWB, 8 * SWB, SWB);
+        Wgmma<D, T>::rs(o, pa[kk], dv);
+      }
+      wgmma_commit();
+    };
+    auto wait_k = [&](int i) {
+      mbar_wait(&k_full[(g + i) % S], ((g + i) / S) & 1);
+#pragma unroll
+      for (int jj = 0; jj < BKV / 2; ++jj) sc[jj] = 0.f;
+    };
+    auto wait_v = [&](int i) {
+      mbar_wait(&v_full[(g + i) % S], ((g + i) / S) & 1);
+    };
+    // the ping-pong: take this consumer's turn; hand it to the other
+    // (consumer 1 not after its very last turn)
+    auto turn = [&]() {
+      if (NC == 2) named_bar_sync(TURN_BAR + c, 256);
+    };
+    auto hand_over = [&](bool very_last) {
+      if (NC == 2 && !(c == 1 && very_last))
+        named_bar_arrive(TURN_BAR + 1 - c, 256);
+    };
+    // Turn 0 issues S_0, turn i of 1 .. n-1 S_i with P_{i-1} V_{i-1}
+    // (S_i's softmax then runs while P_{i-1} V_{i-1} and the other
+    // consumer's GEMMs keep the tensor cores busy), turn n the last P V;
+    // a tile with no step takes one empty turn.  Straight-line code
+    // between each issue and its waits keeps the wgmma pipeline
+    // asynchronous.
+    mbar_wait(&q_full[qb], (j >> 1) & 1);
+    float psum[2], corr[2];
+    if (n == 0) {
+      turn();
+      hand_over(last_tile);
+    } else {
+      wait_k(0);
+      turn();
+      reg_fence(sc);
+      wgmma_fence();
+      issue_s(0);
+      hand_over(false);
+      wgmma_wait<0>();
+      reg_fence(sc);
+      mbar_arrive(&k_empty[g % S]);
+      softmax(tj.lo * BKV, psum, corr);
+      fold(psum, corr);
+      for (int i = 1; i < n; ++i) {
+        wait_k(i);
+        wait_v(i - 1);
+        turn();
+        reg_fence(sc);
+        reg_fence(o);
+        wgmma_fence();
+        issue_s(i);
+        issue_pv(i - 1);
+        hand_over(false);
+        wgmma_wait<1>();  // S_i is done; P_{i-1} V_{i-1} may still run
+        reg_fence(sc);
+        mbar_arrive(&k_empty[(g + i) % S]);
+        softmax((tj.lo + i) * BKV, psum, corr);
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence_u(pa);
+        mbar_arrive(&v_empty[(g + i - 1) % S]);
+        fold(psum, corr);
+      }
+      wait_v(n - 1);
+      turn();
+      reg_fence(o);
+      wgmma_fence();
+      issue_pv(n - 1);
+      hand_over(last_tile);
+      wgmma_wait<0>();
+      reg_fence(o);
+      reg_fence_u(pa);
+      mbar_arrive(&v_empty[(g + n - 1) % S]);
+    }
+    g += n;
+    lrow[0] = quad_sum(lrow[0]);
+    lrow[1] = quad_sum(lrow[1]);
+
+    // The store, through this consumer's rows of the Q buffer (its GEMMs
+    // are done with them; box x of a row holds its columns [x CH, x CH +
+    // CH)), the next tile's loads running meanwhile.  A row with l = 0
+    // stores 0 (the guard).
+    unsigned char* wq = qd + c * 64 * SWB;
+    named_bar_sync(STORE_BAR + c, 128);
+    if (direct) {
+      // normalised, rounded to T, in 16-byte chunks XOR-swizzled by row
+      constexpr int CPB = SWB / 16;  // chunks a box row
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rl + 8 * r;
+        const float den = lrow[r] == 0.f ? 1.f : lrow[r];
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          const int box = jj / CPB, cb = jj % CPB;
+          *reinterpret_cast<uint32_t*>(
+              wq + box * BQ * SWB + row * SWB +
+              ((cb ^ (row & (CPB - 1))) * 16) + 4 * t) =
+              pack2<T>(o[4 * jj + 2 * r] / den, o[4 * jj + 2 * r + 1] / den);
+        }
+      }
+      named_bar_sync(STORE_BAR + c, 128);
+      T* out = reinterpret_cast<T*>(a.out);
+      for (int i = wl; i < 64 * (D / 8); i += 128) {
+        const int row = i / (D / 8), ch = i % (D / 8);
+        const int s = q0 + row;
+        if (s >= a.Sq) continue;
+        const int box = ch / CPB, cb = ch % CPB;
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            wq + box * BQ * SWB + row * SWB + ((cb ^ (row & (CPB - 1))) * 16));
+        *reinterpret_cast<uint4*>(
+            out + (((long long)tj.b * a.Sq + s) * a.H + tj.h) * D + 8 * ch) = v;
+      }
+    } else {
+      // the epilogue or another output type: normalised fp32 O in two
+      // passes of D / 2 columns, each one loop of attn_store2 pairs
+      constexpr int HALF = D / 2;
+      auto at = [&](int f) {  // float f of a pass's (64, HALF) tile
+        const int byte = 4 * f;
+        return reinterpret_cast<float*>(wq + (byte / (64 * SWB)) * BQ * SWB +
+                                        byte % (64 * SWB));
+      };
+#pragma unroll 1
+      for (int hp = 0; hp < 2; ++hp) {
+        if (hp) named_bar_sync(STORE_BAR + c, 128);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = rl + 8 * r;
+          const float den = lrow[r] == 0.f ? 1.f : lrow[r];
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            if ((8 * jj) / HALF == hp)
+              *reinterpret_cast<float2*>(
+                  at(row * HALF + 8 * jj + 2 * t - hp * HALF)) =
+                  make_float2(o[4 * jj + 2 * r] / den,
+                              o[4 * jj + 2 * r + 1] / den);
+        }
+        named_bar_sync(STORE_BAR + c, 128);
+        for (int i = wl; i < 64 * (HALF / 2); i += 128) {
+          const int row = i / (HALF / 2), d = 2 * (i % (HALF / 2));
+          const int s = q0 + row;
+          if (s >= a.Sq) continue;
+          const float2 v = *reinterpret_cast<const float2*>(at(row * HALF + d));
+          attn_store2(a, tj.b, s, tj.h, hp * HALF + d, v.x, v.y, 1.f);
+        }
+      }
+    }
+    // the buffer goes back to the producer (its TMA writes follow these
+    // generic-proxy accesses)
+    fence_proxy_async();
+    mbar_arrive(&q_empty[qb]);
+  }
 }
 
 // ---- the fp32 tile (K2e) --------------------------------------------------
@@ -759,41 +1242,89 @@ static int launch_f32_by_depth(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int D, int NC>
-static int launch_flash(const void* q, const void* k, const void* v,
-                        const AttnArgs& a, cudaStream_t stream) {
-  using C = FlashCfg<D, NC>;
+// The 4-D tensor maps (D, heads, S, B) of q, k and v, boxes of `bq` and
+// `bkv` rows of `swb`-byte swizzled rows.
+template <int D>
+static int attn_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
+                     const void* q, const void* k, const void* v,
+                     const AttnArgs& a, int bq, int bkv, int swb) {
   const uint64_t Dd = D, H = a.H, KVH = a.KVH, Sq = a.Sq, Sk = a.Sk, B = a.B;
   const uint64_t q_dims[4] = {Dd, H, Sq, B};
   const uint64_t q_str[3] = {Dd * 2, H * Dd * 2, Sq * H * Dd * 2};
   const uint64_t kv_dims[4] = {Dd, KVH, Sk, B};
   const uint64_t kv_str[3] = {Dd * 2, KVH * Dd * 2, Sk * KVH * Dd * 2};
-  const uint32_t q_box[4] = {(uint32_t)C::CH, 1, (uint32_t)C::BQ, 1};
-  const uint32_t kv_box[4] = {(uint32_t)C::CH, 1, (uint32_t)FA_BKV, 1};
+  const uint32_t ch = (uint32_t)swb / 2;
+  const uint32_t q_box[4] = {ch, 1, (uint32_t)bq, 1};
+  const uint32_t kv_box[4] = {ch, 1, (uint32_t)bkv, 1};
+  int rc = tmap_16bit(tq, q, 4, q_dims, q_str, q_box, swb);
+  if (rc) return rc;
+  rc = tmap_16bit(tk, k, 4, kv_dims, kv_str, kv_box, swb);
+  if (rc) return rc;
+  return tmap_16bit(tv, v, 4, kv_dims, kv_str, kv_box, swb);
+}
+
+// The split-KV mode: the 64-row tile, then the merge.
+template <typename T, int D>
+static int launch_split(const void* q, const void* k, const void* v,
+                        const AttnArgs& a, cudaStream_t stream) {
+  using C = FlashCfg<D, 1>;
   CUtensorMap tq, tk, tv;
-  int rc = tmap_16bit(&tq, q, 4, q_dims, q_str, q_box, C::SWB);
-  if (rc) return rc;
-  rc = tmap_16bit(&tk, k, 4, kv_dims, kv_str, kv_box, C::SWB);
-  if (rc) return rc;
-  rc = tmap_16bit(&tv, v, 4, kv_dims, kv_str, kv_box, C::SWB);
+  int rc = attn_maps<D>(&tq, &tk, &tv, q, k, v, a, C::BQ, FA_BKV, C::SWB);
   if (rc) return rc;
   static bool smem_ok = false;
-  auto kernel = flash_wgmma_kernel<T, D, NC>;
+  auto kernel = flash_wgmma_kernel<T, D, 1>;
   cudaError_t e = allow_smem(kernel, C::smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.H, a.B * a.n_split);
   kernel<<<grid, C::THREADS, C::smem, stream>>>(tq, tk, tv, a);
   e = cudaGetLastError();
-  if (e != cudaSuccess || a.n_split == 1) return (int)e;
+  if (e != cudaSuccess) return (int)e;
   flash_combine_kernel<<<dim3(a.Sq, a.H, a.B), D / 2, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The tile mode: min(tiles, the blocks the card holds at once) persistent
+// blocks.
+template <typename T, int D, int NC>
+static int launch_tile(const void* q, const void* k, const void* v,
+                       const AttnArgs& a, cudaStream_t stream) {
+  using C = TileCfg<D, NC>;
+  CUtensorMap tq, tk, tv;
+  int rc = attn_maps<D>(&tq, &tk, &tv, q, k, v, a, C::BQ, C::BKV, C::SWB);
+  if (rc) return rc;
+  static bool smem_ok = false;
+  static int resident = 0;
+  auto kernel = flash_tile_kernel<T, D, NC>;
+  cudaError_t e = allow_smem(kernel, C::smem, &smem_ok);
+  if (e != cudaSuccess) return (int)e;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
+                                                        C::THREADS, C::smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = sms * per;
+  }
+  const long long tiles = (long long)((a.Sq + C::BQ - 1) / C::BQ) * a.H * a.B;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  kernel<<<grid, C::THREADS, C::smem, stream>>>(tq, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 static int launch_by_tile(const void* q, const void* k, const void* v,
                           const AttnArgs& a, int bq, cudaStream_t s) {
-  if (bq == 128) return launch_flash<T, D, 2>(q, k, v, a, s);
-  if (bq == 64) return launch_flash<T, D, 1>(q, k, v, a, s);
+  if (a.n_split > 1)  // the 64-row tile only (the wrapper asks for no other)
+    return bq == 64 ? launch_split<T, D>(q, k, v, a, s)
+                    : (int)cudaErrorInvalidValue;
+  if constexpr (D <= 128)
+    if (bq == 128) return launch_tile<T, D, 2>(q, k, v, a, s);
+  if (bq == 64) return launch_tile<T, D, 1>(q, k, v, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -801,7 +1332,7 @@ template <typename T>
 static int launch_by_depth(const void* q, const void* k, const void* v,
                            const AttnArgs& a, int bq, cudaStream_t s) {
   if (a.D == 192)  // the 64-row tile only (the wrapper asks for no other)
-    return bq == 64 ? launch_flash<T, 192, 1>(q, k, v, a, s)
+    return bq == 64 ? launch_by_tile<T, 192>(q, k, v, a, bq, s)
                     : (int)cudaErrorInvalidValue;
   if (a.D == 128) return launch_by_tile<T, 128>(q, k, v, a, bq, s);
   if (a.D == 64) return launch_by_tile<T, 64>(q, k, v, a, bq, s);

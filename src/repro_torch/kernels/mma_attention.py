@@ -6,17 +6,27 @@ The kernel is ``csrc/mma_attention.cu``; its head comment says which TPU
 kernel it replaces (``repro/kernels/mma_attention.py``,
 ``mma_flash_attention``), what bounds it on an H100 (the bf16 tensor cores
 for prefill past a few hundred tokens, bytes for one query over a long
-cache) and what its design does about that: one block per (b, h, 128-row
-q tile; 64 rows where the grid would not fill the card) loops over its own
-live KV blocks, with the bounds of :func:`attn_k_bounds` computed in the
-kernel, on TMA loads and wgmma; short queries split their KV blocks over
-several blocks (:func:`split_kv_plan`) and merge the partials by
-log-sum-exp.  f32 q, k and v (K2e: the F32GER policy's operands) run the
-kernel's fp32 tile, true fp32 FMAs on 64-row q tiles with P kept in fp32,
-in both modes (the tile and split-KV, merged alike).  :func:`attn_plan`
-picks the q tile and the split: an autotune winner or an explicit tile
-where the kernel runs it (``core/autotune.py``, keyed by heads and never
-by the batch), else that heuristic.
+cache) and what its design does about that.  The 16-bit tile mode runs
+persistent blocks (``flash_tile_kernel``): at most as many as the card
+holds at once, walking a static list of (b, h, q tile) tiles (head by
+head, the longest first within a head when causal, in rounds of the
+block count taken alternately forwards and backwards) on TMA loads and
+wgmma, its producer loading the next tile's Q and first K/V steps while
+the consumers finish the current one, its two consumer warpgroups (the
+128-row tile; 64 rows where 128-row tiles leave SMs idle) taking turns
+on the tensor cores, and the output stored from registers through shared
+memory in 16-byte rows where there is no epilogue.  It walks steps of
+:func:`kv_step` keys (128 at D <= 128, 64 at the padded 192) aligned to
+multiples of the step: :func:`attn_k_bounds` at ``bk`` = the step, which
+is the bounds at 64 widened to that alignment.  Short queries split their
+KV blocks of 64 over several blocks (:func:`split_kv_plan`) and merge the
+partials by log-sum-exp.  f32 q, k and v (K2e: the F32GER policy's
+operands) run the kernel's fp32 tile, true fp32 FMAs on 64-row q tiles
+with P kept in fp32, in both modes (the tile and split-KV, merged
+alike).  :func:`attn_plan` picks the q tile and the split: an autotune
+winner or an explicit tile where the kernel runs it
+(``core/autotune.py``, keyed by heads and never by the batch), else that
+heuristic.
 
 A CPU tensor goes to the plain version of what the card would run:
 :func:`flash_attention_splitkv_plain` (per-split partials and their
@@ -26,18 +36,20 @@ merge) where :func:`split_kv_plan` splits, else
 kernel or raises.  ``mma_flash_attention.launches`` counts attention
 calls run on the card (the split-KV merge is part of its call), and
 nothing else; ``mma_flash_attention.launches_by_mode`` the same by mode:
-``tile`` and ``split`` (the 16-bit wgmma kernel), ``f32_tile`` and
+``tile`` and ``split`` (the 16-bit wgmma kernels), ``f32_tile`` and
 ``f32_split`` (the fp32 tile, K2e); ``padded_launches_by_mode`` those of
 them whose depth was padded; ``full_grid_launches`` those that ran the
 full grid.
 
 The full grid (K2d: the reference's ``mma_flash_attention(bound_grid=
-False)``): ``bound_grid=False`` has every q tile walk all ceil(Sk / 64) KV
-blocks, :func:`attn_grid_plan`'s ``bound=False`` schedule, the baseline
-the bounded causal/window schedule is measured against.  A block with no
-live slot leaves the running max, sum and accumulator untouched (the
-kernel's masked-block guard), so in the tile modes the full grid is the
-bounded launch bit for bit, as the reference's test holds its two grids.
+False)``): ``bound_grid=False`` has every q tile walk every step of the
+KV sequence, :func:`attn_grid_plan`'s ``bound=False`` schedule, the
+baseline the bounded causal/window schedule is measured against.  A step
+with no live slot leaves the running max, sum and accumulator untouched
+(the kernel's masked-block guard), so in the tile modes the full grid is
+the bounded launch bit for bit, as the reference's test holds its two
+grids; so is a row's result on the 64-row and the 128-row tile, at any
+batch and in any block.
 In the split-KV modes the splits partition [0, nk) where the bounded
 launch partitions the live range [lo, hi) into the same ``per`` blocks a
 split.  Where lo = 0 (no window, or a window that reaches block 0) the
@@ -86,8 +98,11 @@ from repro_torch.kernels import epilogue as _epilogue
 NEG_INF = -1e30
 
 # The kernel's tiles (csrc/mma_attention.cu): 128 query rows (two consumer
-# warpgroups; 64 where the grid would not fill the card) by 64 KV rows.
+# warpgroups; 64 where the grid would not fill the card) by 64 KV rows,
+# the schedule's unit (the 16-bit tile mode walks steps of two of them at
+# D <= 128: kv_step).
 BLOCK_Q, BLOCK_Q_SHORT, BLOCK_K = 128, 64, 64
+TILE_STEP = 128
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MODES = ("tile", "split", "f32_tile", "f32_split")
 # The depths the kernel is compiled for, by operand dtype (the 16-bit
@@ -165,6 +180,13 @@ def attn_grid_plan(sq: int, sk: int, bq: int, bk: int, *, causal: bool,
         for ki in range(lo, hi):
             rows.append((qi, ki, int(ki == lo), int(ki == hi - 1)))
     return np.asarray(rows, np.int32).T
+
+
+def kv_step(d: int, f32: bool, n_split: int) -> int:
+    """Keys a step of the kernel's KV loop at compiled depth ``d``: 128 in
+    the 16-bit tile mode at D <= 128 (S a 64 x 128 wgmma tile beside O in
+    the registers), else 64 (D = 192, split-KV, the fp32 tile)."""
+    return TILE_STEP if not f32 and n_split == 1 and d <= 128 else BLOCK_K
 
 
 def attn_block_q(b: int, h: int, sq: int) -> int:

@@ -233,7 +233,11 @@ def gemm_projected_util(m: int, n: int, k: int, cfg, pol,
 # charges only the live blocks of the bounded schedule; the memory term
 # charges K/V panel reads a live step, Q once a query block and one O
 # write, plus, with KV split over n_split blocks, the fp32 partials and
-# their (m, l) written and read back by the merge.
+# their (m, l) written and read back by the merge.  ``bk`` is the step
+# the kernel walks: the reference's 64, or the 16-bit tile mode's 128 at
+# D <= 128 (steps aligned to multiples of 128, so a diagonal or window
+# edge charges up to a step more: ``kernels.mma_attention.kv_step``), as
+# :func:`attn_projected_time` passes it.
 
 
 def attn_flops(bh: int, sq: int, sk: int, d: int, bq: int, bk: int, *,
@@ -271,7 +275,13 @@ def attn_projected_time(bh: int, sq: int, sk: int, d: int, bq: int,
                         launches: int = 0) -> float:
     """Roofline seconds of one attention launch: (bh, query block, split)
     blocks, one an SM, charged in waves as :func:`gemm_projected_time`
-    charges them; ``launches`` > 0 adds the modeled host cost a launch."""
+    charges them, over the steps the kernel walks (``bk``, the schedule's
+    block, widened to the launch's ``kv_step``); ``launches`` > 0 adds
+    the modeled host cost a launch."""
+    from repro_torch.kernels import mma_attention as _attn
+    f32 = pol.in_bytes == 4
+    bk = max(bk, _attn.kv_step(_attn.compiled_depth(d, f32) or d, f32,
+                               n_split))
     blocks = bh * -(-sq // bq) * n_split
     flops = attn_flops(bh, sq, sk, d, bq, bk, causal=causal,
                        q_offset=q_offset, window=window)

@@ -158,6 +158,154 @@ def test_kernel_tile_is_fixed():
 
 
 # ----------------------------------------------------------------------
+# The 16-bit tile mode's schedule (csrc/mma_attention.cu flash_tile_kernel)
+# mirrored in pure Python: its tile list, its configurations' shared
+# memory and its step alignment
+# ----------------------------------------------------------------------
+
+# An H100 SM's shared memory (228 KB, 1 KB of it reserved a block) and the
+# most a block may take (227 KB).
+SM_SMEM, BLOCK_SMEM_MAX, BLOCK_SMEM_RESERVED = 233472, 232448, 1024
+
+
+def tile_config(d, nc):
+    """``TileCfg<D, NC>`` of csrc/mma_attention.cu: the step, the blocks an
+    SM holds, the ring's stages and the block's shared memory (two Q
+    buffers, the K and V stages, their barriers and 1 KB of alignment
+    slack)."""
+    bq, bkv = 64 * nc, (tattn.TILE_STEP if d <= 128 else tattn.BLOCK_K)
+    q_bytes, kv_bytes = bq * d * 2, bkv * d * 2
+    min_blocks = 2 if nc == 1 and d <= 64 else 1
+    budget = (110 if min_blocks == 2 else 225) * 1024
+    stages = min(3, (budget - 2 * q_bytes) // (2 * kv_bytes))
+    smem = 1024 + 2 * q_bytes + 2 * stages * kv_bytes + 8 * (4 + 4 * stages)
+    return dict(bq=bq, bkv=bkv, min_blocks=min_blocks, stages=stages,
+                smem=smem)
+
+
+def tile_order(b, h, sq, bq, causal):
+    """The kernel's tile list (``tile_job``): head by head, b slower than h,
+    each head's q tiles the longest first when causal."""
+    nq = -(-sq // bq)
+    return [(bi, hi, nq - 1 - p if causal else p)
+            for bi in range(b) for hi in range(h) for p in range(nq)]
+
+
+def tile_walk(n_tiles, grid):
+    """The list indices each of ``grid`` persistent blocks runs
+    (``tile_at``): rounds of ``grid`` tiles, every other one backwards."""
+    walks = [[] for _ in range(grid)]
+    for base in range(0, n_tiles, grid):
+        r = min(grid, n_tiles - base)
+        for j in range(r):
+            walks[j].append(base + (r - 1 - j if (base // grid) & 1 else j))
+    return walks
+
+
+_TILE_SHAPES = [
+    # (b, h, sq, sk, bq, flags)
+    (1, 32, 4096, 4096, 128, dict(causal=True)),
+    (4, 32, 512, 512, 128, dict(causal=True)),
+    (1, 32, 256, 256, 64, dict(causal=True)),
+    (4, 28, 1088, 1088, 128, dict(causal=True)),
+    (4, 12, 1500, 1500, 128, dict(causal=False)),
+    (4, 12, 448, 1500, 64, dict(causal=False)),
+    (1, 32, 2048, 2048, 128, dict(causal=True, window=512)),
+    (2, 8, 100, 356, 64, dict(causal=True, q_offset=256)),
+    (3, 4, 300, 700, 128, dict(causal=False, window=150)),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,bq,kw", _TILE_SHAPES)
+def test_tile_order_runs_every_tile_once_longest_first(b, h, sq, sk, bq,
+                                                       kw):
+    """Every (b, h, q tile) appears once in the kernel's list and once
+    among any number of persistent blocks walking it; the list runs head
+    by head (neighbouring query heads, one GQA group, side by side),
+    each head's tiles the longest (the most steps) first when causal;
+    the snake walk spreads the steps over the blocks no worse than one
+    tile's worth past the mean."""
+    order = tile_order(b, h, sq, bq, kw["causal"])
+    nq, nk = -(-sq // bq), -(-sk // tattn.TILE_STEP)
+    assert sorted(order) == [(bi, hi, qi) for bi in range(b)
+                             for hi in range(h) for qi in range(nq)]
+    assert [t[:2] for t in order[::nq]] == [(bi, hi) for bi in range(b)
+                                             for hi in range(h)]
+    steps = [np.subtract(*tattn.attn_k_bounds(
+        qi, nk, bq=bq, bk=tattn.TILE_STEP, **kw)[::-1]) for _, _, qi in order]
+    if kw["causal"]:
+        for i in range(0, len(order), nq):
+            head = steps[i:i + nq]
+            assert all(x >= y for x, y in zip(head, head[1:]))
+    for grid in (1, 7, 132, 264, len(order) + 5):
+        walks = tile_walk(len(order), grid)
+        assert sorted(i for w in walks for i in w) == list(range(len(order)))
+        if grid <= len(order):
+            load = [sum(steps[i] for i in w) for w in walks]
+            assert max(load) <= sum(steps) / grid + max(steps)
+
+
+@pytest.mark.parametrize("d,nc", [(d, nc) for d in tattn.KERNEL_HEAD_DIMS
+                                  for nc in (1, 2) if nc == 1 or d < 192])
+def test_tile_configs_fit_shared_memory(d, nc):
+    """Each compiled configuration (the 128-row tile only below 192, as
+    attn_takes has it) fits a block's 227 KB, its resident blocks an SM's
+    228 KB with 1 KB reserved each; two or three ring stages; 128-key
+    steps at D <= 128."""
+    assert tattn.attn_takes((64 * nc, 1), 512, 512, d, False)
+    cfg = tile_config(d, nc)
+    assert cfg["smem"] <= BLOCK_SMEM_MAX
+    assert cfg["min_blocks"] * (cfg["smem"] + BLOCK_SMEM_RESERVED) \
+        <= SM_SMEM
+    assert cfg["stages"] in (2, 3)
+    assert cfg["bkv"] == (128 if d <= 128 else 64) == \
+        tattn.kv_step(d, False, 1)
+    assert cfg["bq"] == 64 * nc
+
+
+@pytest.mark.parametrize("sq,sk,kw", [
+    (256, 256, dict(causal=True)),
+    (300, 300, dict(causal=True, window=100)),
+    (100, 356, dict(causal=True, q_offset=256)),
+    (64, 1000, dict(causal=True, q_offset=936, window=70)),
+    (200, 333, dict(causal=False)),
+    (700, 700, dict(causal=False, window=150)),
+    (2048, 2048, dict(causal=True, window=512)),
+])
+@pytest.mark.parametrize("bq", [64, 128])
+def test_tile_steps_hold_the_same_live_pairs(sq, sk, kw, bq):
+    """The kernel's steps of 128 keys, attn_k_bounds at bk = 128, are
+    attn_k_bounds at 64 widened to multiples of 128, and hold the same
+    live (q, k) pairs as the 64-key blocks: every pair
+    attn_live_pairs counts, and only dead pairs besides."""
+    step, nq = tattn.TILE_STEP, -(-sq // bq)
+    live = 0
+    for qi in range(nq):
+        lo, hi = tattn.attn_k_bounds(qi, -(-sk // step), bq=bq, bk=step,
+                                     **kw)
+        lo64, hi64 = tattn.attn_k_bounds(qi, -(-sk // 64), bq=bq, bk=64,
+                                         **kw)
+        assert (lo, hi) == (lo64 * 64 // step, -(-hi64 * 64 // step))
+        rows = np.arange(qi * bq, min(sq, (qi + 1) * bq)) + kw.get(
+            "q_offset", 0)
+        for keys, span in (((lo * step, min(sk, hi * step)), "steps"),
+                           ((lo64 * 64, min(sk, hi64 * 64)), "blocks")):
+            k = np.arange(*keys)
+            m = np.ones((len(rows), len(k)), bool)
+            if kw["causal"]:
+                m &= rows[:, None] >= k[None]
+            if kw.get("window"):
+                m &= rows[:, None] - k[None] < kw["window"]
+            if span == "steps":
+                got = int(m.sum())
+            else:
+                assert int(m.sum()) == got
+        live += got
+    assert live == tattn.attn_live_pairs(sq, sk, **{
+        f: kw[f] for f in ("causal", "q_offset", "window") if f in kw})
+
+
+# ----------------------------------------------------------------------
 # Split-KV reads no batch: one query row sums in the same order at any B
 # ----------------------------------------------------------------------
 

@@ -2074,6 +2074,99 @@ def test_full_grid_attention(gen, name):
 
 
 # ----------------------------------------------------------------------
+# The 16-bit attention tile (mma_attention.cu flash_tile_kernel: persistent
+# blocks, ping-ponged consumers, 128-key steps at D <= 128): every form the
+# wrapper sends it, at every compiled depth, in bf16 and f16
+# ----------------------------------------------------------------------
+
+# form: ((B, Sq, H), (Sk, KVH), flags); D comes from the parameter
+_TILE_FORMS = {
+    "causal gqa 7, Sk 300": ((2, 300, 28), (300, 4), dict(causal=True)),
+    "window 150 gqa 16": ((1, 700, 16), (700, 1),
+                          dict(causal=True, window=150)),
+    "q_offset 256": ((2, 100, 8), (356, 8), dict(causal=True, q_offset=256)),
+    "valid, masked rows": ((2, 200, 8), (200, 2), dict(causal=True)),
+    "epilogue bias silu residual": ((2, 130, 8), (250, 8),
+                                    dict(causal=False)),
+    "persistence wraps": ((4, 1024, 16), (1024, 16), dict(causal=True)),
+    "full grid, window": ((1, 900, 4), (900, 4),
+                          dict(causal=True, window=200)),
+    "batch 1 row in batch 4": ((4, 256, 32), (256, 32), dict(causal=True)),
+}
+
+
+def _attn_store_ok(got, want, budget, out_dtype):
+    """Within the rounding budget plus 2^-20 * max|ref|, and one ulp of a
+    16-bit store at |ref|."""
+    got, want = got.float(), want.float()
+    tol = budget + 2.0 ** -20 * want.abs().max()
+    if out_dtype != torch.float32:
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - (
+                7 if out_dtype == torch.bfloat16 else 10))
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol).all()), (err / tol).max()
+
+
+@pytest.mark.parametrize("d", A.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("form", sorted(_TILE_FORMS))
+def test_attention_tile_redesign_forms(gen, form, dt, d):
+    """Each form on each compiled tile (64 and, below 192, 128 rows) held
+    to the plain version within its rounding budget, the two tiles bit for
+    bit alike (a row's arithmetic does not depend on the tile or the
+    block that runs it); fully masked rows exact zeros; the full grid bit
+    for bit the bounded launch; row 0 of batch 1 bit for bit the same row
+    inside a batch of 4 (64-row tiles at batch 1, 128 at batch 4)."""
+    (b, sq, h), (sk, kvh), kw = _TILE_FORMS[form]
+    q = _randn(gen, b, sq, h, d, dtype=dt)
+    k, v = _randn(gen, b, sk, kvh, d, dtype=dt), _randn(gen, b, sk, kvh, d,
+                                                        dtype=dt)
+    kw = dict(kw)
+    out_dtype = dt
+    if form.startswith("valid"):
+        valid = torch.ones((b, sk), dtype=torch.bool, device="cuda")
+        valid[1, :150] = False
+        valid[0, 77:93] = False
+        kw["valid"] = valid
+    if form.startswith("epilogue"):
+        kw.update(ep=E.Epilogue(bias=True, activation="silu",
+                                residual=True),
+                  bias=_randn(gen, d, dtype=torch.float32),
+                  residual=_randn(gen, b, sq, h, d, dtype=dt))
+        out_dtype = torch.float32
+    assert A.split_kv_plan(h, sq, sk)[0] == 1
+    tiles = (64,) if d == 192 else (64, 128)
+    before = dict(A.mma_flash_attention.launches_by_mode)
+    outs = [A.mma_flash_attention(q, k, v, out_dtype=out_dtype,
+                                  tuned=(bq, 1), **kw) for bq in tiles]
+    torch.cuda.synchronize()
+    assert A.mma_flash_attention.launches_by_mode["tile"] == \
+        before["tile"] + len(tiles)
+    flags = {f: kw[f] for f in ("causal", "q_offset", "window", "valid",
+                                "ep") if f in kw}
+    want = A.flash_attention_plain(q, k, v, out_dtype=torch.float32, **kw)
+    budget = A.rounding_budget(q, k, v, **flags)
+    for got in outs:
+        _attn_store_ok(got, want, budget, out_dtype)
+        assert torch.equal(got, outs[0])
+    if form.startswith("valid"):
+        assert bool((outs[0][1, :150] == 0).all())
+    if form.startswith("full grid"):
+        assert torch.equal(A.mma_flash_attention(
+            q, k, v, out_dtype=out_dtype, bound_grid=False, **kw), outs[0])
+    if form.startswith("batch"):
+        one = A.mma_flash_attention(q[:1], k[:1], v[:1], out_dtype=out_dtype,
+                                    **kw)
+        many = A.mma_flash_attention(q, k, v, out_dtype=out_dtype, **kw)
+        if d < 192:
+            assert A.attn_plan(1, h, sq, sk, d, False)[0] == 64
+            assert A.attn_plan(4, h, sq, sk, d, False)[0] == 128
+        assert torch.equal(one[0], many[0])
+
+
+# ----------------------------------------------------------------------
 # The 16-bit WMMA tile (tile_gemm.cuh: a cp.async ring into ldmatrix and
 # mma.sync): every form in bf16 and f16 on both compiled blocks, and K3's
 # WMMA conv at each of its gathers

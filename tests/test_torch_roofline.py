@@ -102,6 +102,34 @@ def test_attn_counts_match_reference(kw, sq, sk, bq, bk):
         2 * 4 * bh * sq * 3 * (d + 2)
 
 
+def test_attn_prior_counts_the_steps_the_kernel_walks():
+    """The port's own count: the 16-bit tile mode at D <= 128 walks steps
+    of 128 keys aligned to multiples of 128 (``kv_step``), so the prior
+    charges those: 6 steps a (b, h) for the 64-row tile's 4 q tiles at a
+    causal 256 (1 + 1 + 2 + 2; 10 blocks of 64), each 64 x 128 x 128
+    twice.  The fp32 tile, the padded 192 and split-KV keep 64."""
+    pol = precision.policy(Ger.BF16GER2)
+    f32 = precision.policy(Ger.F32GER)
+    bh, s, d = 32, 256, 128
+    flops = analysis.attn_flops(bh, s, s, d, 64, 128, causal=True)
+    assert flops == 4.0 * bh * 6 * 64 * 128 * d
+    nbytes = analysis.attn_traffic_bytes(bh, s, s, d, 64, 128, pol,
+                                         causal=True)
+    assert analysis.attn_projected_time(bh, s, s, d, 64, 64, pol,
+                                        causal=True) == \
+        analysis._waved_time(bh * 4, 1, flops, nbytes,
+                             analysis.peak_flops(pol), analysis.H100)
+    for p, dd, n_split in ((f32, d, 1), (pol, 192, 1), (pol, d, 2)):
+        assert analysis.attn_projected_time(bh, s, s, dd, 64, 64, p,
+                                            causal=True, n_split=n_split) == \
+            analysis._waved_time(
+                bh * 4 * n_split, 1,
+                analysis.attn_flops(bh, s, s, dd, 64, 64, causal=True),
+                analysis.attn_traffic_bytes(bh, s, s, dd, 64, 64, p,
+                                            causal=True, n_split=n_split),
+                analysis.peak_flops(p), analysis.H100)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_model_flops_for_every_arch_matches_reference(arch):
     tcfg, jcfg = tget(arch), jget(arch)
