@@ -86,17 +86,17 @@ Phases, each of which must pass or the script exits nonzero:
      full-range int32 seed, bias/relu/residual, gelu/silu for F64GER, out
      dtypes, I16GER2's wrap), integers bit for bit and F64GER within
      1e-15 * K * max|x| * max|y|; then, each run's launches reset just
-     before and read just after and held to its path, DGEMM (F64GER,
-     8192^2) and the integer families (8192^2, 4096^2) through
-     ``facility.contract``, ``quant.qdot`` at deepseek-7b's MLP shapes
-     (M = 4 and 1024, 4096 -> 11008; the two operand copies its spec
-     makes counted and timed), ``blas3.complex_gemm`` at 4096^2 in
-     complex64 and complex128 and a batched ``blas3.dft`` (N = 1024, 64 x
-     128 columns) in f32 and f64 (four GEMM launches a call), against
-     complex ``torch.matmul`` and a float64 fft, ``blas3.trsm`` (N = 4096,
-     1024 right-hand sides, relative residual) and the saturating forms
-     bit for bit against the ref lowering; each timed beside its plain
-     version, a library yardstick and its bound;
+     before and read just after and held to its path, the integer
+     families (8192^2, 4096^2) through ``facility.contract``,
+     ``quant.qdot`` at deepseek-7b's MLP shapes (M = 4 and 1024, 4096 ->
+     11008; the two operand copies its spec makes counted and timed),
+     ``blas3.complex_gemm`` at 4096^2 in complex64 and a batched
+     ``blas3.dft`` (N = 1024, 64 x 128 columns) in f32 (four GEMM
+     launches a call), against complex ``torch.matmul`` and a float64
+     fft (F64GER's DGEMM, complex128 and f64 runs are phase 14's),
+     ``blas3.trsm`` (N = 4096, 1024 right-hand sides, relative residual)
+     and the saturating forms bit for bit against the ref lowering; each
+     timed beside its plain version, a library yardstick and its bound;
   7. prepacked serving (``core.packing``: K1d, the GEMM's packed panel
      stream, and K3's packed filter stream), each model reused right
      after its phase-3 run: a copy of deepseek-7b packed in place
@@ -244,13 +244,27 @@ Phases, each of which must pass or the script exits nonzero:
      zeroed just before and read just after (every launch the tile mode's),
      each result within its rounding budget of the plain version, each
      timed beside SDPA, the bound and the parent kernel's PERF.md time,
-     its target met or missed (reported, not failed).
+     its target met or missed (reported, not failed);
+ 14. F64GER's DMMA kernel (``gemm_dmma.cu``: a 128 x 128 or 64 x 64 fp64
+     tensor-core tile on an mbarrier ``cp.async`` ring) at
+     ``DMMA_TARGETS`` through ``facility.contract`` (DGEMM 2048^3
+     natural, on X+Y panels, masked with NaN and Inf in the disabled
+     lanes and under ABFT with the sidecar; 8192^3; the batched f64
+     ``dft`` and the complex128 ``complex_gemm`` through their entry
+     points, the family table's F64GER runs; a skinny and a ragged
+     product on the 64 x 64 tile), counts
+     zeroed just before and read just after (every launch DMMA's); each
+     within 1e-15 K max|x| max|y| of the plain version, both tiles bit for
+     bit, packed bit for bit natural, the sidecar's ``out`` bit for bit
+     ``checksum=False``'s; each timed beside ``torch.matmul`` f64, the
+     bound, the parent kernel's PERF.md time and its aim (``time dmma
+     ...`` lines; an aim missed is reported, not failed).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
 and the convs' ``launches_by_path``; the GEMM's ``host_us`` per call and,
 with the attention kernel's and the depthwise conv's, ``run_shapes``;
-phase 6's IMMA and DMMA entries their ``shapes``, the GEMM's entry
+phase 6's IMMA entry its ``shapes``, the GEMM's entry
 ``phase6_shapes``, its runs on the WMMA tile or on no kernel; phase 7's
 packed modes their ``natural_ms`` and ``launches_by_run`` over its runs,
 the packed stream's ``host_us`` natural beside packed; phase 8's masked
@@ -269,7 +283,8 @@ first of them the phase's packed launches by path, full-grid launches
 and demotes under ``phase11``; its full-grid attention entry its
 ``bounded_ms``, step counts and ``full_grid_launches``; phase 12's two
 entries their ``timed`` forms; phase 13's tile entry its ``timed``
-shapes and ``targets_met``; the phase-2 attention entry names the tile
+shapes and ``targets_met``; phase 14's DMMA entry its ``timed`` targets,
+their tiles and ``aims_met``; the phase-2 attention entry names the tile
 kernel under ``tile_kernel``); the last is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
@@ -2105,23 +2120,21 @@ def train(torch, failures, arch, num_layers):
 
 # The phase's main-path runs: (run name, the kernel path each must launch,
 # its launches a call).  dft and complex_gemm are four K1 launches a call
-# (F32GER on the WMMA tile, F64GER on the DMMA kernel); trsm's panel
-# updates and the saturating forms run the torch lowering, no kernel.
+# (F32GER on the WMMA tile); trsm's panel updates and the saturating forms
+# run the torch lowering, no kernel.  F64GER's runs (DGEMM 8192^2, the
+# complex128 complex_gemm and the f64 dft) are phase 14's DMMA_TARGETS.
 FAMILY_RUNS = {
-    "dgemm F64GER 8192": ("dmma", 1),
     "I8GER4 8192": ("imma", 1),
     "I4GER8 8192": ("imma", 1), "I4GER8 4096": ("imma", 1),
     "I16GER2 8192": ("imma", 1), "I16GER2 4096": ("imma", 1),
     "qdot M=4": ("imma", 1), "qdot M=1024": ("imma", 1),
     "complex_gemm c64 4096": ("wmma", 4),
-    "complex_gemm c128 4096": ("dmma", 4),
     "dft f32 N=1024 64x128": ("wmma", 4),
-    "dft f64 N=1024 64x128": ("dmma", 4),
     "trsm f32 N=4096 R=1024": (None, 0),
     "saturating": (None, 0),
 }
 # The phase's kernel entries, by the GEMM path each reads its launches from.
-PATH_ENTRIES = {"mma_gemm.imma": "imma", "mma_gemm.dmma": "dmma"}
+PATH_ENTRIES = {"mma_gemm.imma": "imma"}
 # I16GER2's four int8 products a 16-bit product (its bound counts them).
 _PRODUCTS = {"I8GER4": 1, "I4GER8": 1, "I16GER2": 4}
 
@@ -2148,14 +2161,14 @@ def check_families(torch, failures) -> dict:
     the epilogues an integer accumulator admits, out dtypes and I16GER2's
     wrap, bit for bit; F64GER within 1e-15 * K * max|x| * max|y| (fp64
     sums in another order), its activations included.  Returns the worst
-    error by path."""
+    error of the IMMA kernel's by path."""
     from repro_torch.core import precision
     from repro_torch.kernels import epilogue as E
     from repro_torch.kernels import mma_gemm as G
 
     Ger = precision.Ger
     g = torch.Generator(device="cuda").manual_seed(6)
-    worst = {"imma": 0.0, "dmma": 0.0}
+    worst = {"imma": 0.0}
 
     def ri(lo, hi, *shape, dtype=torch.int32):
         return torch.randint(lo, hi, shape, generator=g,
@@ -2243,7 +2256,6 @@ def check_families(torch, failures) -> dict:
         if opts.get("out") == torch.float32:
             tol += 2 ** -24 * want.abs().max().item()     # one f32 rounding
         ok = err <= tol
-        worst["dmma"] = max(worst["dmma"], err)
         print(f"  [{'ok' if ok else 'FAIL'}] dmma F64GER {name} "
               f"{lead}{(m, k, n)}: max|err| {err:.3e} (tol {tol:.3e})")
         if not ok:
@@ -2262,8 +2274,8 @@ def family_runs(torch, timer, failures, by_run, worst):
     each and read just after, each held to its expected path and count,
     its result checked; then each timed (CUDA events, L2 flushed) beside
     its plain version, a library yardstick and its bound.  Returns the
-    ``kernels`` entries of the IMMA and DMMA kernels, and the timed rows
-    of the runs on the WMMA tile or on no kernel."""
+    ``kernels`` entry of the IMMA kernel, and the timed rows of the runs
+    on the WMMA tile or on no kernel."""
     from repro_torch.core import facility as F
     from repro_torch.core import quant as Q
     from repro_torch.kernels import blas3 as B3
@@ -2309,25 +2321,6 @@ def family_runs(torch, timer, failures, by_run, worst):
         print(f"  [{'ok' if ok else 'FAIL'}] {name}: {what}")
         if not ok:
             failures.append(f"{name}: {what}")
-
-    # DGEMM on F64GER (the paper's first case study), 8192^2
-    n = 8192
-    a = torch.randn(n, n, generator=g, device="cuda", dtype=torch.float64)
-    b = torch.randn(n, n, generator=g, device="cuda", dtype=torch.float64)
-    plan = F.Plan(ger=Ger.F64GER, out_dtype=F.ACC)
-    out = run("dgemm F64GER 8192",
-              lambda: F.contract("mk,kn->mn", a, b, plan=plan))
-    want = G.mma_gemm_plain(a, b, kind=Ger.F64GER)
-    err = (out - want).abs().max().item()
-    tol = 1e-15 * n * a.abs().max().item() * b.abs().max().item()
-    worst["dmma"] = max(worst["dmma"], err)
-    check("dgemm F64GER 8192", err <= tol,
-          f"max|err| {err:.3e} vs plain (tol {tol:.3e})")
-    timed("dgemm F64GER 8192", lambda: G.mma_gemm(a, b, kind=Ger.F64GER),
-          lambda: G.mma_gemm_plain(a, b, kind=Ger.F64GER),
-          lambda: torch.matmul(a, b), 3 * n * n * 8, 2 * n ** 3, "f64",
-          "torch.matmul f64")
-    del a, b, out, want
 
     # the integer families through contract at 8192^2 (and 4096^2)
     for kind, n in ((Ger.I8GER4, 8192), (Ger.I4GER8, 8192),
@@ -2393,62 +2386,48 @@ def family_runs(torch, timer, failures, by_run, worst):
               copy_x_ms=timer(lambda: xq.t().contiguous()))
     del w, wq, wt, xt, xb, wb
 
-    # complex_gemm at 4096^2: complex64 on F32GER, complex128 on F64GER
-    n = 4096
-    for kind, dt, cdt, tol in ((Ger.F32GER, torch.float32, torch.complex64,
-                                1e-5),
-                               (Ger.F64GER, torch.float64, torch.complex128,
-                                1e-12)):
-        name = f"complex_gemm c{64 if dt == torch.float32 else 128} {n}"
-        ar, ai, br, bi = (torch.randn(n, n, generator=g, device="cuda",
-                                      dtype=dt) for _ in range(4))
-        re, im = run(name, lambda: B3.complex_gemm(ar, ai, br, bi,
-                                                   kind=kind))
-        ca, cb = torch.complex(ar, ai), torch.complex(br, bi)
-        lib = torch.matmul(ca, cb)
-        rel = _rel(torch.complex(re, im), lib)
-        if kind == Ger.F64GER:
-            worst["dmma"] = max(worst["dmma"], (torch.complex(re, im) - lib)
-                                .abs().max().item())
-        check(name, rel < tol, f"relative L2 to complex torch.matmul "
-              f"{rel:.3e} (< {tol:g})")
+    # complex_gemm at 4096^2, complex64 on F32GER (complex128: phase 14)
+    n, kind = 4096, Ger.F32GER
+    name = f"complex_gemm c64 {n}"
+    ar, ai, br, bi = (torch.randn(n, n, generator=g, device="cuda")
+                      for _ in range(4))
+    re, im = run(name, lambda: B3.complex_gemm(ar, ai, br, bi, kind=kind))
+    ca, cb = torch.complex(ar, ai), torch.complex(br, bi)
+    rel = _rel(torch.complex(re, im), torch.matmul(ca, cb))
+    check(name, rel < 1e-5, f"relative L2 to complex torch.matmul {rel:.3e} "
+          f"(< 1e-05)")
 
-        def cg(backend=None):
-            with F.configure(F.FacilityConfig(device="cuda")):
-                B3.complex_gemm(ar, ai, br, bi, kind=kind, backend=backend)
+    def cg(backend=None):
+        with F.configure(F.FacilityConfig(device="cuda")):
+            B3.complex_gemm(ar, ai, br, bi, kind=kind, backend=backend)
 
-        timed(name, cg, lambda: cg("torch"), lambda: torch.matmul(ca, cb),
-              6 * n * n * dt.itemsize, 8 * n ** 3,
-              "f64" if dt == torch.float64 else "f32",
-              f"torch.matmul {cdt}")
-        del ar, ai, br, bi, re, im, ca, cb, lib
+    timed(name, cg, lambda: cg("torch"), lambda: torch.matmul(ca, cb),
+          6 * n * n * 4, 8 * n ** 3, "f32", "torch.matmul torch.complex64")
+    del ar, ai, br, bi, re, im, ca, cb
 
-    # batched dft: N = 1024, 64 stacks of 128 columns
+    # batched dft in f32 (f64: phase 14): N = 1024, 64 stacks of 128
+    # columns.  The input is real: of the four real products of a call,
+    # two multiply zeros, so the work is two, 4 N^2 64 128 flops.
     bsz, n, m = 64, 1024, 128
-    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        name = f"dft {'f32' if dt == torch.float32 else 'f64'} N={n} " \
-               f"{bsz}x{m}"
-        x = torch.randn(bsz, n, m, generator=g, device="cuda", dtype=dt)
-        re, im = run(name, lambda: B3.dft(x))
-        ref64 = torch.fft.fft(x.double(), dim=-2)
-        got = torch.complex(re.double(), im.double())
-        rel = _rel(got, ref64)
-        rel_fft = _rel(torch.fft.fft(x, dim=-2).to(torch.complex128), ref64)
-        check(name, rel < tol, f"relative L2 to a float64 fft {rel:.3e} (< "
-              f"{tol:g}; torch.fft.fft in {dt}: {rel_fft:.3e})")
+    name = f"dft f32 N={n} {bsz}x{m}"
+    x = torch.randn(bsz, n, m, generator=g, device="cuda")
+    re, im = run(name, lambda: B3.dft(x))
+    ref64 = torch.fft.fft(x.double(), dim=-2)
+    rel = _rel(torch.complex(re.double(), im.double()), ref64)
+    rel_fft = _rel(torch.fft.fft(x, dim=-2).to(torch.complex128), ref64)
+    check(name, rel < 1e-5, f"relative L2 to a float64 fft {rel:.3e} (< "
+          f"1e-05; torch.fft.fft in torch.float32: {rel_fft:.3e})")
 
-        def dft_call(backend=None):
-            with F.configure(F.FacilityConfig(device="cuda")):
-                B3.dft(x, backend=backend)
+    def dft_call(backend=None):
+        with F.configure(F.FacilityConfig(device="cuda")):
+            B3.dft(x, backend=backend)
 
-        xc = x.to(torch.complex64 if dt == torch.float32
-                  else torch.complex128)
-        timed(name, dft_call, lambda: dft_call("torch"),
-              lambda: torch.fft.fft(xc, dim=-2),
-              (2 * n * n + 3 * bsz * n * m) * dt.itemsize,
-              8 * n * n * bsz * m, "f64" if dt == torch.float64 else "f32",
-              "torch.fft.fft (not the same algorithm)")
-        del x, re, im, ref64, got, xc
+    xc = x.to(torch.complex64)
+    timed(name, dft_call, lambda: dft_call("torch"),
+          lambda: torch.fft.fft(xc, dim=-2),
+          (2 * n * n + 3 * bsz * n * m) * 4, 4 * n * n * bsz * m, "f32",
+          "torch.fft.fft (not the same algorithm)")
+    del x, re, im, ref64, xc
 
     # trsm: N = 4096, 1024 right-hand sides (panel updates on the torch
     # lowering, as the reference pins xla: no kernel launch)
@@ -2494,9 +2473,8 @@ def family_runs(torch, timer, failures, by_run, worst):
               f"outputs")
 
     entries = []
-    for ename, path, head in (("mma_gemm.imma", "imma", "I8GER4 8192"),
-                              ("mma_gemm.dmma", "dmma",
-                               "dgemm F64GER 8192")):
+    for ename, path in PATH_ENTRIES.items():
+        head = next(k for k, v in FAMILY_RUNS.items() if v[0] == path)
         row = rows[head]
         entries.append({
             "name": ename, "route": "cuda",
@@ -5552,6 +5530,287 @@ def phase13(torch, failures, entries):
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 14: F64GER's DMMA kernel (gemm_dmma.cu: 128 x 128 or 64 x 64 fp64
+# tensor-core tiles on an mbarrier cp.async ring) at the paper's DGEMM and
+# the DMMA forms.  (label, entry point, (B, M, K, N), forms, the parent
+# kernel's time in PERF.md section 6 (NVIDIA H100 80GB HBM3 at 700 W:
+# printed for the reader, never put in the kernels line; None: not there),
+# the aim: ("ms", t), ("natural", a factor of this run's natural DGEMM at
+# the shape) or None).  "gemm" runs contract("mk,kn->mn"); "dft" blas3's
+# batched dft on (B, K, N) stacks (one product of M = K rows by B N
+# columns, four launches); "complex" blas3.complex_gemm (four launches).
+DMMA_TARGETS = (
+    ("DGEMM 2048^3", "gemm", (None, 2048, 2048, 2048), (), 0.6251,
+     ("ms", 0.375)),
+    ("DGEMM 2048^3 X+Y packed", "gemm", (None, 2048, 2048, 2048),
+     ("x", "y"), 0.6965, ("natural", 1.05)),
+    ("DGEMM 2048^3 masked, NaN/Inf in disabled lanes", "gemm",
+     (None, 2048, 2048, 2048), ("mask",), 0.8090, ("ms", 0.48)),
+    ("DGEMM 2048^3 sidecar", "gemm", (None, 2048, 2048, 2048),
+     ("sidecar",), 0.6576, ("natural", 1.10)),
+    ("DGEMM 8192^3", "gemm", (None, 8192, 8192, 8192), (), 39.5792,
+     ("ms", 28.8)),
+    ("dft f64 64 x (1024 x 1024 x 128)", "dft", (64, 1024, 1024, 128), (),
+     None, None),
+    ("complex_gemm c128 4096", "complex", (None, 4096, 4096, 4096), (),
+     None, None),
+    ("skinny 4 x 4096 x 11008", "gemm", (None, 4, 4096, 11008), (), None,
+     None),
+    ("ragged 1000 x 999 x 1001", "gemm", (None, 1000, 999, 1001), (), None,
+     None),
+)
+
+
+def phase14_kernels(torch, timer, failures):
+    """The redesigned DMMA kernel: each DMMA_TARGETS call through
+    ``facility.contract`` (the sidecar's under ABFT, the dft and
+    complex_gemm through their entry points), counts zeroed just before
+    and read just after (every launch DMMA's, one packed, one masked, one
+    with the sidecar); each GEMM within 1e-15 K max|x| max|y| of its
+    plain version (the masked one on the selected operands), the same bits
+    on both compiled tiles, packed bit for bit natural, the sidecar's
+    ``out`` bit for bit ``checksum=False``'s and its sums within 1e-13 of
+    the sums of |out| of the plain version's; the dft and complex_gemm
+    against float64 ``torch.fft.fft`` / complex128 ``torch.matmul``
+    (relative L2 < 1e-12); then each timed (CUDA events, L2 flushed)
+    beside its plain version, ``torch.matmul`` f64 (``torch.where`` +
+    ``torch.matmul`` masked, ``torch.fft.fft`` for the dft), the bound and
+    the parent kernel's PERF.md time, its aim met or missed (reported,
+    not failed).  Returns the ``kernels`` entry."""
+    from repro_torch.core import abft, facility, packing, tiling
+    from repro_torch.kernels import blas3 as B3
+    from repro_torch.kernels import mma_gemm as G
+
+    Ger = facility.Ger
+    F64 = Ger.F64GER
+    g = torch.Generator(device="cuda").manual_seed(27)
+    plan = facility.Plan(ger=F64, out_dtype=facility.ACC)
+    cuda = facility.FacilityConfig(device="cuda")
+    ops = []
+    for label, call, (b, m, k, n), forms, parent, aim in DMMA_TARGETS:
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device="cuda",
+                               dtype=torch.float64)
+        if call == "dft":
+            args = (rn(b, k, n),)
+        elif call == "complex":
+            args = tuple(rn(m, k) if i < 2 else rn(k, n) for i in range(4))
+        else:
+            x, y = rn(m, k), rn(k, n) * k ** -0.5
+            masks = None
+            if "mask" in forms:
+                masks = _lane_masks(torch, g, m, n, k)
+                x[~masks[0], :] = float("nan")
+                x[:, ~masks[2]] = float("-inf")
+                y[~masks[2], :] = float("inf")
+                y[:, ~masks[1]] = float("nan")
+            px = (packing.pack_gemm(x, packing.gemm_layout(F64, m, k,
+                                                           side="x"))
+                  if "x" in forms else x)
+            py = (packing.pack_gemm(y, packing.gemm_layout(F64, k, n))
+                  if "y" in forms else y)
+            args = (x, y, px, py, masks)
+        ops.append((label, call, (b, m, k, n), forms, parent, aim, args))
+
+    def run(call, forms, args):
+        if call == "dft":
+            return B3.dft(args[0])
+        if call == "complex":
+            return B3.complex_gemm(*args, kind=F64)
+        _, _, px, py, masks = args
+        return facility.contract("mk,kn->mn", px, py, masks=masks,
+                                 plan=plan)
+
+    # the main path: every target through contract, counts zeroed just
+    # before and read just after
+    kernels = kernel_wrappers()
+    outs = {}
+    torch.cuda.synchronize()
+    zero_counts9(kernels)
+    for label, call, _, forms, _, _, args in ops:
+        config = (facility.FacilityConfig(device="cuda", guards=True,
+                                          abft=True)
+                  if "sidecar" in forms else cuda)
+        with facility.configure(config):
+            outs[label] = run(call, forms, args)
+    torch.cuda.synchronize()
+    counts = read_counts9(kernels)
+    verdicts = abft.drain_verdicts()
+    want = sum(4 if call in ("dft", "complex") else 1
+               for _, call, *_ in ops)
+    dmma = counts["by_path"]["mma_gemm"]["dmma"]
+    _check(failures, "phase 14 main path",
+           counts["launches"]["mma_gemm"] == dmma == want
+           and counts["packed"]["gemm dmma"] == 1
+           and counts["masked"]["dmma"] == 1
+           and counts["sidecar"]["dmma"] == 1 and verdicts == [],
+           f"GEMM launches {counts['launches']['mma_gemm']}, by path "
+           f"{counts['by_path']['mma_gemm']} (want {want} on dmma), packed "
+           f"{counts['packed']['gemm dmma']}, masked "
+           f"{counts['masked']['dmma']}, sidecar {counts['sidecar']['dmma']}"
+           f" (1 each), {len(verdicts)} ABFT verdicts (0)")
+
+    rows, worst, met, natural_ms = {}, 0.0, {}, {}
+    tiles = [tuple(t) for t in tiling.GEMM_TILES[F64]]
+    for label, call, (b, m, k, n), forms, parent, aim, args in ops:
+        row = {}
+        if call == "gemm":
+            x, y, px, py, masks = args
+            tile = tiling.choose_gemm_path(m, n, k, F64, 1, True, None,
+                                           masks is not None)[1]
+            row["tile"] = [tile.bm, tile.bn, tile.bk]
+            out = outs[label]
+            plain = (lambda x=x, y=y, masks=masks: G.mma_gemm_plain(
+                x, y, kind=F64, masks=masks))
+            xs, ys = G.select_masks(x, y, masks)
+            want_out = plain()
+            bound = 1e-15 * k * xs.abs().max().item() * ys.abs().max().item()
+            err = (out - want_out).abs().max().item()
+            worst = max(worst, err)
+            _check(failures, f"dmma {label}", err <= bound and bool(
+                torch.isfinite(out).all()),
+                f"max|err| {err:.3e} vs plain (tol {bound:.3e}) on the "
+                f"{tile.bm} x {tile.bn} tile")
+            same = all(torch.equal(G.mma_gemm(x, y, kind=F64, masks=masks,
+                                              block=t), out)
+                       for t in tiles)
+            _check(failures, f"dmma {label}", same,
+                   "both tiles bit for bit the contract's result")
+            if px is not x or py is not y:
+                lay = {}
+                xk, yk = px, py
+                if px is not x:
+                    xk, lay["x_layout"] = px.data, px.layout
+                if py is not y:
+                    yk, lay["y_layout"] = py.data, py.layout
+                nat = G.mma_gemm(x, y, kind=F64)
+                _check(failures, f"dmma {label}", torch.equal(out, nat),
+                       "packed bit for bit the natural launch")
+                fn = (lambda xk=xk, yk=yk, lay=lay: G.mma_gemm(
+                    xk, yk, kind=F64, **lay))
+            elif "sidecar" in forms:
+                got, ck_col, ck_row = G.mma_gemm(x, y, kind=F64,
+                                                 checksum=True)
+                fin, want_col, want_row = G.mma_gemm_sidecar_plain(
+                    x, y, kind=F64)
+                mag_col, mag_row = G.checksum_tiles(fin.abs(), tile.bm,
+                                                    tile.bn)
+                ok = (torch.equal(got, G.mma_gemm(x, y, kind=F64))
+                      and torch.equal(got, out)
+                      and bool(((ck_col - want_col).abs()
+                                <= 1e-13 * mag_col).all())
+                      and bool(((ck_row - want_row).abs()
+                                <= 1e-13 * mag_row).all()))
+                _check(failures, f"dmma {label}", ok,
+                       "out bit for bit checksum=False's and the contract's"
+                       ", sums within 1e-13 of the plain version's")
+                fn = (lambda x=x, y=y: G.mma_gemm(x, y, kind=F64,
+                                                  checksum=True))
+            else:
+                fn = (lambda x=x, y=y, masks=masks: G.mma_gemm(
+                    x, y, kind=F64, masks=masks))
+            lib = ((lambda xs=xs, ys=ys: torch.matmul(xs, ys))
+                   if masks is None else
+                   (lambda x=x, y=y, masks=masks: torch.matmul(
+                       *G.select_masks(x, y, masks))))
+            row["library"] = ("torch.where + torch.matmul f64"
+                              if masks is not None else "torch.matmul f64")
+            me, ne, ke = ((int(t.sum()) for t in masks)
+                          if masks is not None else (m, n, k))
+            nbytes, flops = (me * ke + ke * ne + m * n) * 8, 2 * me * ne * ke
+        else:
+            if call == "dft":
+                (xd,) = args
+                re, im = outs[label]
+                ref64 = torch.fft.fft(xd, dim=-2)
+                rel = _rel(torch.complex(re, im), ref64)
+                fn = (lambda xd=xd: _with(facility, cuda, B3.dft, xd))
+                plain = (lambda xd=xd: _with(facility, cuda, B3.dft, xd,
+                                             backend="torch"))
+                err = (torch.complex(re, im) - ref64).abs().max().item()
+                xc = xd.to(torch.complex128)
+                lib = (lambda xc=xc: torch.fft.fft(xc, dim=-2))
+                row["library"] = "torch.fft.fft c128 (not the same algorithm)"
+                # a real input: two of the four real products multiply
+                # zeros, so the work is two products of 2 m k (b n) flops
+                nbytes = (2 * m * k + 3 * b * k * n) * 8
+                flops = 4 * m * k * b * n
+            else:
+                ar, ai, br, bi = args
+                re, im = outs[label]
+                ca, cb = torch.complex(ar, ai), torch.complex(br, bi)
+                ref = torch.matmul(ca, cb)
+                rel = _rel(torch.complex(re, im), ref)
+                err = (torch.complex(re, im) - ref).abs().max().item()
+                del ref
+                fn = (lambda a=args: _with(facility, cuda, B3.complex_gemm,
+                                           *a, kind=F64))
+                plain = (lambda a=args: _with(
+                    facility, cuda, B3.complex_gemm, *a, kind=F64,
+                    backend="torch"))
+                lib = (lambda ca=ca, cb=cb: torch.matmul(ca, cb))
+                row["library"] = "torch.matmul c128"
+                nbytes, flops = 6 * m * k * 8, 8 * m * n * k
+            _check(failures, f"dmma {label}", rel < 1e-12,
+                   f"relative L2 to the float64 library result {rel:.3e} "
+                   f"(< 1e-12)")
+            worst = max(worst, err)
+        iters = 5 if k >= 4096 and m >= 4096 else 10
+        row["ms"] = timer(fn, iters=iters)
+        row["plain_ms"] = timer(plain, iters=iters)
+        row["library_ms"] = timer(lib, iters=iters)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, "f64")
+        if call == "gemm" and not forms:
+            natural_ms[(m, k, n)] = row["ms"]
+        text = ""
+        if aim is not None:
+            kind, goal = aim
+            limit = (goal if kind == "ms"
+                     else goal * natural_ms[(m, k, n)])
+            met[label] = row["ms"] <= limit
+            text = (f"; aim {'met' if met[label] else 'MISSED'} (<= "
+                    f"{limit:.4f} ms)")
+        where = (f" on the {row['tile'][0]} x {row['tile'][1]} tile"
+                 if "tile" in row else "")
+        print(f"  time dmma {label}: {row['ms']:.4f} ms{where} (parent in "
+              f"PERF.md: "
+              f"{'not measured' if parent is None else f'{parent} ms'}), "
+              f"plain {row['plain_ms']:.4f} ms, {row['library']} "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.2f} of "
+              f"bound{text}", flush=True)
+        rows[label] = row
+    del ops, outs
+    label = DMMA_TARGETS[0][0]
+    entry = {"name": "mma_gemm.dmma",
+             "route": "cuda", "source": "src/repro_torch/csrc/gemm_dmma.cu",
+             "replaces": "src/repro/kernels/mma_gemm.py:417",
+             "launches": dmma, "max_abs_err": worst, **rows[label],
+             "shape": label, "timed": rows, "aims_met": met}
+    if entry["launches"] <= 0:
+        failures.append(f"{entry['name']} never launched in phase 14's run")
+    return [entry]
+
+
+def _with(facility, config, fn, *args, **kw):
+    """fn(*args, **kw) under ``facility.configure(config)``."""
+    with facility.configure(config):
+        return fn(*args, **kw)
+
+
+def phase14(torch, failures, entries):
+    """Phase 14: F64GER's redesigned DMMA kernel at DMMA_TARGETS, checked
+    and timed; the parent kernel's PERF.md time is printed beside each."""
+    print("== phase 14: F64GER's DMMA kernel (128 x 128 / 64 x 64 fp64 "
+          "tensor-core tiles, mbarrier cp.async ring)", flush=True)
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    entries += phase14_kernels(torch, timer, failures)
+    del timer
+    torch.cuda.empty_cache()
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -5710,6 +5969,7 @@ def run_phases(torch) -> None:
     phase11(torch, failures, entries)
     phase12(torch, failures, entries)
     phase13(torch, failures, entries)
+    phase14(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

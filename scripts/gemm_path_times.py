@@ -34,7 +34,12 @@ checksum sidecar (its hash covers the sums too); then K3's conv at
 explicit filter tiles (``CONV_CASES``): the WMMA tile at whisper-small's
 conv2 (16-byte gathers), qwen2-vl-7b's patch embed (4-byte pairs) and a
 5-channel image (element gathers; one K step with a 1 x 3 filter, eight
-with 7 x 7), and the fp32 tile at conv2.
+with 7 x 7), and the fp32 tile at conv2.  Then the DMMA kernel's forms
+(``DMMA_CASES``, after the convs: the fp64 tensor cores warm the card):
+DGEMM 2048^3 on X+Y panels and with the sidecar, 8192^3, a skinny 4 x
+4096 x 11008 and a ragged 1000 x 999 x 1001, and blas3's complex128
+``complex_gemm`` at 4096 and batched float64 ``dft`` (``ENTRY_CASES``,
+launches by path printed beside each).
 """
 
 from __future__ import annotations
@@ -106,6 +111,30 @@ CASES = (
      ("seed", "shared", "checksum")),
 )
 
+# The DMMA kernel's forms (as CASES), timed after the convs: at 8192^3 the
+# fp64 tensor cores draw the card's power for seconds, and the case timed
+# next would start on a warmer card.
+DMMA_CASES = (
+    ("dmma F64GER 2048^3 X+Y packed", "F64GER", (None, 2048, 2048, 2048),
+     None, False, True, ("x",)),
+    ("dmma F64GER 2048^3 sidecar", "F64GER", (None, 2048, 2048, 2048), None,
+     False, False, ("checksum",)),
+    ("dmma F64GER 8192^3", "F64GER", (None, 8192, 8192, 8192), None, False,
+     False),
+    ("dmma F64GER 4x4096x11008", "F64GER", (None, 4, 4096, 11008), None,
+     False, False),
+    ("dmma F64GER 1000x999x1001", "F64GER", (None, 1000, 999, 1001), None,
+     False, False),
+)
+
+# (label, entry point, shapes): blas3's complex128 complex_gemm (four DMMA
+# launches of 4096^3) and batched float64 dft (64 stacks of 1024 x 128:
+# four launches of 1024 x 1024 x 8192) through their entry points
+ENTRY_CASES = (
+    ("dmma complex_gemm c128 4096", "complex_gemm", (4096, 4096, 4096)),
+    ("dmma dft f64 N=1024 64x128", "dft", (64, 1024, 128)),
+)
+
 # (label, image (N, H, W, C), filters (KH, KW, C, F), stride, dtype, filter
 # tile): K3 with bias + gelu at an explicit filter tile (its WMMA or fp32
 # tile)
@@ -154,8 +183,10 @@ def main() -> None:
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = CS.Timer(torch)
-    for i, (label, fam, (b, m, k, n), block, masked, packed,
-            *forms) in enumerate(CASES):
+
+    def gemm_case(i, case):
+        (label, fam, (b, m, k, n), block, masked, packed,
+         *forms) = case
         forms = forms[0] if forms else ()
         g = torch.Generator(device="cuda").manual_seed(11 + i)
         kind = precision.Ger[fam]
@@ -196,7 +227,9 @@ def main() -> None:
         ms = timer(lambda x=x, y=y, c=c, kw=kw: G.mma_gemm(x, y, c, **kw))
         print(f"  {label}: {ms:.4f} ms [{took[0]}] sha256 {sha}",
               flush=True)
-        del x, y, c, masks, kw, out
+
+    for i, case in enumerate(CASES):
+        gemm_case(i, case)
     from repro_torch.kernels import epilogue as E
     from repro_torch.kernels import mma_conv as K
     for i, (label, ishape, wshape, stride, dtype, bf) in enumerate(
@@ -221,6 +254,38 @@ def main() -> None:
         print(f"  {label}: {ms:.4f} ms [{took[0]}] sha256 {digest(out)}",
               flush=True)
         del x, w, kw, out
+    for i, case in enumerate(DMMA_CASES, len(CASES)):
+        gemm_case(i, case)
+    from repro_torch.core import facility as F
+    from repro_torch.kernels import blas3 as B3
+    cuda = F.FacilityConfig(device="cuda")
+    for i, (label, entry, shape) in enumerate(ENTRY_CASES):
+        g = torch.Generator(device="cuda").manual_seed(201 + i)
+        if entry == "complex_gemm":
+            m, k, n = shape
+            args = tuple(torch.randn(*((m, k) if j < 2 else (k, n)),
+                                     generator=g, device="cuda",
+                                     dtype=torch.float64) for j in range(4))
+
+            def call(args=args):
+                with F.configure(cuda):
+                    return B3.complex_gemm(*args, kind=precision.Ger.F64GER)
+        else:
+            args = (torch.randn(*shape, generator=g, device="cuda",
+                                dtype=torch.float64),)
+
+            def call(args=args):
+                with F.configure(cuda):
+                    return B3.dft(*args)
+        before = dict(G.mma_gemm.launches_by_path)
+        out = call()
+        torch.cuda.synchronize()
+        took = {p: v - before[p] for p, v in
+                G.mma_gemm.launches_by_path.items() if v != before[p]}
+        ms = timer(call)
+        print(f"  {label}: {ms:.4f} ms {took} sha256 {digest(*out)}",
+              flush=True)
+        del args, out
 
 if __name__ == "__main__":
     main()

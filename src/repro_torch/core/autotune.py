@@ -13,7 +13,7 @@ family and the card, and is cheapest to find by search, once per shape:
      fp32 tiles of ``tiling.GEMM_TILES``; at M > 64 with 16-byte pitches,
      the wgmma tiles (128, 128) and (128, 256) plus the WMMA tiles for
      the 16-bit families, F32GER's two fp32 tiles; the integer families
-     and F64GER their compiled tile.  A tile the kernels
+     their compiled tile, F64GER both DMMA tiles.  A tile the kernels
      were not built for is never a candidate, so the reference's "fails
      to lower" weeding has no counterpart, and a candidate that raises on
      the card raises (it is not skipped).

@@ -46,11 +46,14 @@ call's path, never its panel:
     (64, 64) is the wgmma tile's 128-byte-swizzled B box, two of the
     weight stream's 32-row stages, and the panel the WMMA, fp32, IMMA and
     DMMA tiles cut their (bk, bn) stages from, so one pack serves decode,
-    prefill and every tuned path, and a tuned serve repacks nothing; the X
-    side's (bm, bk) = (128, 64) is the wgmma tile's A box and the IMMA
-    tile's I8GER4 X panel, which the other paths cut their rows from; the
-    conv filter tile is bf = 64 (:data:`CONV_BF`), K3's wgmma B box and
-    half its WMMA tile's 128 filters;
+    prefill and every tuned path, and a tuned serve repacks nothing (the
+    128-column tiles, DMMA's large one among them, read two Y panels a
+    stage); the X side's (bm, bk) = (128, 64) is the wgmma tile's A box,
+    the IMMA tile's I8GER4 X panel and the band of DMMA's 128-row tile,
+    which the other paths cut their rows from (DMMA's 64-row tile half a
+    band; DMMA's 32- and 16-deep stages half or a quarter of a panel's
+    depth); the conv filter tile is bf = 64 (:data:`CONV_BF`), K3's wgmma
+    B box and half its WMMA tile's 128 filters;
   * the reference's "stale under trace -> demote" branch has no
     counterpart: a stale layout is always repacked;
   * a packed dispatch takes the path its natural operands would take

@@ -12,7 +12,7 @@ Where Hopper forces a family to adapt (see ``adapted``):
     every f32 parity claim runs with ``torch.backends.cuda.matmul.allow_tf32
     = False`` (PyTorch's default; chip_smoke.py sets it explicitly).
   * F64GER runs on the fp64 tensor cores (``csrc/gemm_dmma.cu``, DMMA
-    m8n8k4).
+    m16n8k8 and m16n8k4).
   * I8GER4 runs on the int8 tensor cores (``csrc/gemm_imma.cu``, IMMA
     m16n8k32, signed X times unsigned Y as the instruction defines them).
   * I4GER8: Hopper's tensor cores do no int4 work, so the IMMA kernel

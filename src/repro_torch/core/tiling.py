@@ -18,7 +18,9 @@ their own (:func:`choose_gemm_path` sends them there by family):
   * "imma" (``csrc/gemm_imma.cu``): I8GER4, I4GER8 and I16GER2 on the
     int8 tensor cores (IMMA m16n8k32), one fixed tile a family;
   * "dmma" (``csrc/gemm_dmma.cu``): F64GER on the fp64 tensor cores
-    (DMMA m8n8k4), one fixed tile.
+    (DMMA m16n8k8, m16n8k4 on X panels, from a ``DMMA_STAGES``-deep
+    cp.async ring on mbarriers), on a 128 x 128 or a 64 x 64 tile picked
+    by :func:`choose_blocks`.
 
 The 16-bit and fp32 families take one of three, picked by shape:
 
@@ -64,6 +66,8 @@ NUM_SMS = 132                # H100 SXM streaming multiprocessors
 _PAD16, _PAD32 = 8, 4
 # The 16-bit tile's cp.async ring (csrc/tile_gemm.cuh's TILE16_STAGES).
 TILE16_STAGES = 4
+# The DMMA tiles' cp.async ring (csrc/gemm_dmma.cu's DMMA_STAGES).
+DMMA_STAGES = 3
 
 # The tile shapes csrc/mma_gemm.cu (16-bit, fp32), csrc/gemm_imma.cu
 # (integer; bk counts unpacked K, two nibbles a byte for I4GER8) and
@@ -75,7 +79,7 @@ GEMM_TILES: dict[Ger, tuple[tuple[int, int, int], ...]] = {
     Ger.I8GER4: ((128, 128, 64),),
     Ger.I4GER8: ((128, 128, 64),),
     Ger.I16GER2: ((64, 128, 64),),
-    Ger.F64GER: ((64, 64, 16),),
+    Ger.F64GER: ((128, 128, 32), (64, 64, 16)),
 }
 
 # The families of csrc/gemm_imma.cu, in the order of its family codes.
@@ -94,9 +98,11 @@ class BlockConfig:
 
     def smem_bytes(self, pol: precision.GerPolicy) -> int:
         """Dynamic shared memory of one block: the panels (the 16-bit
-        tile's ring of ``TILE16_STAGES`` panel pairs, the fp32 tile's two
-        stages), or the accumulator tile that aliases them, whichever is
-        larger (csrc/tile_gemm.cuh's wmma_smem_bytes)."""
+        tile's ring of ``TILE16_STAGES`` panel pairs, the DMMA tiles' ring
+        of ``DMMA_STAGES``, the fp32 tile's two stages), or the
+        accumulator tile that aliases them, whichever is larger
+        (csrc/tile_gemm.cuh's wmma_smem_bytes, csrc/gemm_dmma.cu's
+        Tile::SMEM)."""
         c_tile = self.bm * (self.bn + _PAD32) * pol.acc_dtype.itemsize
         if pol.ger in IMMA_GERS:
             # two buffers of byte planes (hi and lo for I16GER2): X rows
@@ -104,9 +110,9 @@ class BlockConfig:
             planes = 2 if pol.ger == Ger.I16GER2 else 1
             panels = 2 * planes * (self.bm * (self.bk + 16)
                                    + self.bn * self.bk)
-        elif pol.ger == Ger.F64GER:
-            panels = 2 * (self.bm * (self.bk + _PAD32)
-                          + self.bk * (self.bn + _PAD32)) * 8
+        elif pol.ger == Ger.F64GER:   # fp64 rows padded by 4 doubles
+            panels = DMMA_STAGES * (self.bm * (self.bk + _PAD32)
+                                    + self.bk * (self.bn + _PAD32)) * 8
         elif pol.in_bytes == 2:
             panels = TILE16_STAGES * (self.bm * (self.bk + _PAD16)
                                       + self.bk * (self.bn + _PAD16)) * 2
@@ -256,9 +262,12 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
     it (:func:`takes`), else the heuristic below decides (an explicit
     ``block`` is resolved before any winner, and wins).
 
-    The integer families go to the IMMA kernel and F64GER to the DMMA
-    kernel, whatever the shape, on their one compiled tile (an explicit
-    ``block`` must name it).  For the others: ``aligned``: both operands'
+    The integer families go to the IMMA kernel, whatever the shape, on
+    their one compiled tile, and F64GER to the DMMA kernel on the tile
+    :func:`choose_blocks` picks (an explicit ``block`` must name a
+    compiled tile; both DMMA tiles sum each output in the same order, so
+    the choice never changes a bit).  For the others: ``aligned``: both
+    operands'
     bases and row pitches are 16-byte multiples (TMA's rule); ``block`` an
     explicit ``Plan.block``, which names a WMMA tile.  The weight stream
     takes any pitch (a scalar path covers unaligned rows); the wgmma tile
@@ -275,10 +284,12 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
     if tuned is not None and block is None and takes(
             tuned, m, n, k, ger, aligned, masked):
         return tuned
-    if ger in IMMA_GERS or ger == Ger.F64GER:
-        cfg = (check_block(block, ger) if block is not None
-               else tiles_for(ger)[0])
-        return ("imma" if ger in IMMA_GERS else "dmma"), cfg
+    if ger in IMMA_GERS:
+        return "imma", (check_block(block, ger) if block is not None
+                        else tiles_for(ger)[0])
+    if ger == Ger.F64GER:
+        return "dmma", (check_block(block, ger) if block is not None
+                        else choose_blocks(m, n, k, ger, b))
     if block is not None:
         return "wmma", check_block(block, ger)
     if masked:

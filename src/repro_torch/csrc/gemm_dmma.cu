@@ -13,61 +13,120 @@
 // (xvf64ger).
 //
 // What bounds it on an H100: the fp64 tensor cores (67 TFLOP/s dense) for
-// large products (a DGEMM of 8192^3 needs 16.4 ms at that rate); the
-// operands' bytes (3.35 TB/s) for skinny ones.
+// large products (a DGEMM of 8192^3 needs 16.4 ms at that rate, 2048^3
+// 0.256 ms); the operands' bytes (3.35 TB/s) for skinny ones (a 4-row
+// product reads its whole Y once).  Between the two sits the operand
+// traffic from L2: a (BM, BN) tile reads BM + BN doubles a K row for
+// 2 BM BN flops, so a 64 x 64 tile needs ~8 TB/s of L2 reads to feed the
+// tensor cores at their peak and a 128 x 128 tile half that.
 //
-// Design.  mma.sync.aligned.m8n8k4 with f64 operands and accumulator (the
-// only fp64 tensor-core instruction; wgmma has no fp64 form).  One block of
-// 4 warps owns one 64 x 64 output tile, each warp 32 x 32 of it as 4 x 4
-// m8n8 accumulators (32 doubles a thread), and runs the whole k-loop:
-// 16-deep stages of X (row-major) and Y (row-major; the instruction's B
-// fragment is one element a thread, so Y needs no transpose) are loaded
-// into registers before the current stage's MMAs and stored into the
-// second of two shared-memory buffers after them (one barrier a stage).
-// The row pitches (20 and 68 doubles) make every fragment read
-// conflict-free.  The deprime goes through a shared fp64 tile, so that each
-// output element is stored once, coalesced, in the requested dtype.
+// Design.  One block owns one (BM, BN) output tile and runs its whole K
+// loop.  Two tiles are compiled (core/tiling.py's GEMM_TILES, picked by
+// choose_blocks' wave rule): 128 x 128 with 16 warps of 32 x 32 and 32-deep K
+// steps, which halves the L2 reads of a flop against 64 x 64; and 64 x 64 with
+// 4 warps and 16-deep steps, 3 blocks an SM, which spreads skinny products over
+// more SMs.  Each warp holds its slice of the accumulator in registers as m16n8
+// fragments (32 doubles a thread; the launch bounds' cap is 128 registers in
+// the large tile, and no instance spills) and runs mma.sync.aligned.m16n8k8
+// with f64 operands and accumulator, or m16n8k4 where X arrives as panels
+// (dmma_depth). sm_90's fp64 shapes are m8n8k4 and m16n8k4, k8, k16 (wgmma has
+// no fp64 form); PERF.md says how each fared in this kernel on the card.  The
+// operands come through a ring of DMMA_STAGES cp.async stages: X's (BM, BK)
+// panel and Y's (BK, BN) panel, row-major, rows padded by 4 doubles so that
+// every fragment read (lane (g, t) at row g, column t) hits distinct banks.
+// The ring runs on mbarriers, not on block-wide barriers: full[i] completes when
+// every thread's copies into slot i have landed (cp.async.mbarrier.arrive),
+// empty[i] when every warp is done reading it.  A warp waits for its step to be
+// full, runs the step's fragments and MMAs, releases the slot, and refills the
+// slot of the step before, once every warp has released that, with the copies
+// of the step DMMA_STAGES - 1 ahead.  So the warps do not wait for one another
+// at every step: one __syncthreads a step, as in tile_gemm.cuh's 16-bit ring,
+// leaves the tensor cores idle while the slowest warp catches up
+// (PERF.md).  Copies are 16 bytes where a row and its base allow it (vec_x /
+// vec_y: even pitch, 16-byte base; panels always), else 8 bytes an element; a
+// copy's bytes past M, K or N are zero-filled by the copy.
+// Each output element is one chain of fp64 tensor-core products over its K
+// slices in ascending order from +0.0, the K loop padded with zeros to a whole
+// number of steps; the fp64 tensor cores sum k in order within an instruction,
+// so m16n8k8, m16n8k4 and two m8n8k4 give the same bits (PERF.md: the
+// outputs' hashes).  So both tiles, a batched call's slice and the 2-D call
+// give the same bits, and an autotune choice of tile never changes a result.
+// The deprime goes through a shared fp64 tile aliasing the ring, so that
+// each output element is stored once, coalesced, in the requested dtype.
 // The ABFT checksum sidecar (K1e, checksum=True in
 // repro/kernels/mma_gemm.py): with ck_col / ck_row set, each finished fp64
 // value goes back over the deprime tile after its store, and the block
 // sums the tile's columns (one a thread) and rows (one a warp) in fp64, in
 // a fixed order (common.cuh's tile_checksums); the stores are untouched.
-// Masked (K1b): the MASKED instance loads each staged pair's mask bytes
-// beside it and zeroes a disabled row or rank of X and rank or column of Y
-// when the pair goes to shared memory (after the current stage's MMAs, so
-// nothing waits on the mask loads), as load2 zero-fills the fringes: a NaN
-// there never enters a product.
+// Masked (K1b), the MASKED instances: a disabled row of X, rank of X and
+// Y and column of Y is never copied: its lanes are zero-filled by the copy
+// itself, as past M, K and N (8-byte copies where a pair's two lanes
+// differ), so a NaN or Inf there never reaches shared memory, and the
+// MMA loop is the natural one.  The predicate bytes a copy needs are read
+// as it is issued (L1-resident: K + N + M bytes).
 // Prepacked operands (K1d: repro/kernels/mma_gemm.py's packed_spec):
 // with `panels` set, X arrives as core/packing.py's X-side
 // (gm, gk, 128, 64) fp64 panels and/or Y as its Y-side (gn, gk, 64, 64)
 // panels (common.cuh's x_panel_at / y_panel_at), zero-padded past M, K and
-// N.  A staged pair (two k of an X row, two n of a Y row) starts at an even
-// column of one panel row, so it is one 16-byte load whatever K and N;
-// the block's 64 rows are half an X panel, its 64 columns one Y panel, and
-// a 16-deep stage a quarter of a panel's depth.  A pair past M, K or N
-// stages as 0, as load2's fringe does, a pair across K or N reads the zero
-// padding, and the masks apply as they do to natural rows, so the staged
-// registers, and the result and the sidecar, are the natural launch's bit
-// for bit.  A packed operand without a batch axis beside a batched one is
-// shared: its batch stride is 0.  Which operands are panels is the
-// kernel's PANELS template argument (common.cuh's PANELS_X | PANELS_Y),
-// so the natural instances are unchanged.
+// N.  A block's rows lie in one X panel band (128 rows: the whole band;
+// 64: half of it), its columns in one or two Y panels, and a K step in
+// half or a quarter of a panel's depth; every 16-byte copy (two k of an X row,
+// two n of a Y row, at an even column) lies in one zero-padded panel row.
+// A copy past M, K or N is zero-filled, as the natural copy's is, a copy
+// across K or N reads the zero padding, and the masks apply as they do to
+// natural rows, so the staged panels, and the result and the sidecar, are
+// the natural launch's bit for bit.  A packed operand without a batch axis
+// beside a batched one is shared: its batch stride is 0.  Which operands
+// are panels is the kernel's PANELS template argument (common.cuh's
+// PANELS_X | PANELS_Y), so the natural instances are unchanged.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16;
-constexpr int THREADS = 128;            // 4 warps, 2 x 2
-constexpr int MT = 4, NT = 4;           // m8 / n8 tiles a warp
-constexpr int AP = BK + 4;              // X panel pitch in doubles
-constexpr int BP = BN + 4;              // Y panel pitch in doubles
-constexpr int CP = BN + 4;              // deprime tile pitch
-constexpr int STAGE = BM * AP + BK * BP;   // doubles a buffer
-constexpr int X_UNITS = BM * BK / 2 / THREADS;   // double2 units a thread
-constexpr int Y_UNITS = BK * BN / 2 / THREADS;
-constexpr size_t SMEM =
-    (2 * STAGE > BM * CP ? 2 * STAGE : BM * CP) * sizeof(double);
+constexpr int DMMA_STAGES = 3;    // core/tiling.py's DMMA_STAGES
+constexpr int PAD = 4;            // row padding in doubles
+
+// The instruction depth of an instance: m16n8k8 (IK 8), the faster,
+// unless X arrives as panels, whose copies hold more state: there
+// m16n8k4 (IK 4, half the fragment registers), so that every instance
+// fits the 128 x 128 tile's 128-register cap with no spill.  The fp64
+// tensor cores sum k in order either way: the bits are the same.
+__host__ __device__ constexpr int dmma_depth(int panels) {
+  return (panels & PANELS_X) != 0 ? 4 : 8;
+}
+
+// One compiled tile: BM x BN outputs, K steps of BK rows, WM x WN warps,
+// MINB blocks an SM (the launch bounds' register cap).  A ring stage holds
+// X's (BM, BK) panel (pitch AP) and Y's (BK, BN) panel (pitch BP); the
+// fp64 deprime tile (pitch CP) aliases the ring (core/tiling.py's
+// BlockConfig.smem_bytes mirrors SMEM).
+template <int BM_, int BN_, int BK_, int WM_, int WN_, int MINB_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_;
+  static constexpr int WM = WM_, WN = WN_, MINB = MINB_;
+  static constexpr int NT = WM * WN * 32;
+  static constexpr int TM = BM / WM, TN = BN / WN;   // a warp's slice
+  static constexpr int MF = TM / 16, NF = TN / 8;    // its m16 / n8 tiles
+  static constexpr int AP = BK + PAD, BP = BN + PAD, CP = BN + PAD;
+  static constexpr int STAGE_BYTES = (BM * AP + BK * BP) * 8;
+  static constexpr size_t RING = (size_t)DMMA_STAGES * STAGE_BYTES;
+  static constexpr size_t CTILE = (size_t)BM * CP * 8;
+  static constexpr size_t SMEM = RING > CTILE ? RING : CTILE;
+  // this thread's copies: X in 16-byte chunks of a row (BK / 2 a row),
+  // Y likewise (BN / 2 a row)
+  static constexpr int XCH = BK / 2, YCH = BN / 2;
+  static constexpr int XPER = BM * XCH / NT, YPER = BK * YCH / NT;
+  static constexpr int XSTEP = NT / XCH, YSTEP = NT / YCH;
+  static_assert(TM % 16 == 0 && TN % 8 == 0 && BK % 8 == 0,
+                "Tile: m16n8 fragments, whole instruction steps");
+  static_assert(NT % XCH == 0 && NT % YCH == 0 && XPER >= 1 && YPER >= 1 &&
+                    BM % XSTEP == 0 && BK % YSTEP == 0,
+                "Tile: whole copies a thread, in fixed columns");
+  static_assert(STAGE_BYTES % 16 == 0, "Tile: 16-byte aligned stages");
+};
+using Large = Tile<128, 128, 32, 4, 4, 1>;   // core/tiling.py's (128, 128, 32)
+using Small = Tile<64, 64, 16, 2, 2, 3>;     // core/tiling.py's (64, 64, 16)
 
 struct DmmaArgs {
   const double* x;
@@ -81,34 +140,49 @@ struct DmmaArgs {
   long long sxb, syb, scb, srb, sob;   // batch strides in elements
   double alpha, beta;
   int neg_product, neg_acc, act;
-  int vec_x, vec_y;                    // 16-byte global loads allowed
+  int vec_x, vec_y;                    // 16-byte copies allowed
   int x_gk, y_gk;                      // panels along K (PANELS instances)
   const uint8_t* xm;                   // pm* byte masks over M, N and K,
   const uint8_t* ym;                   // each null or one byte a lane
-  const uint8_t* pm;                   // (the MASKED instance)
+  const uint8_t* pm;                   // (the MASKED instances)
   double* ck_col;                      // ((B,) gm, N) fp64 sidecar, or null
   double* ck_row;                      // ((B,) M, gn)
 };
 
-__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+// D += A B: mma.sync m16n8k{IK}, f64 operands and accumulator.  Lane
+// (g, t) = (lane / 4, lane % 4) holds A element e at row g + 8 (e % 2),
+// column t + 4 (e / 2), B element h at row t + 4 h of column g, and D at
+// row g (d0, d1) and g + 8 (d2, d3), columns 2t, 2t + 1.
+template <int IK>
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[IK / 2],
+                                     const double (&b)[IK / 4]);
+template <>
+__device__ __forceinline__ void dmma<8>(double (&d)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
   asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, "
-      "{%0,%1};\n"
-      : "+d"(d[0]), "+d"(d[1])
-      : "d"(a), "d"(b));
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+template <>
+__device__ __forceinline__ void dmma<4>(double (&d)[4], const double (&a)[2],
+                                        const double (&b)[1]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
 }
 
-// Two consecutive elements of row `row` starting at column `col` of a
-// (rows, cols) row-major matrix, zero past either edge.
-__device__ __forceinline__ double2 load2(const double* p, int rows, int cols,
-                                         int row, int col, bool vec) {
-  double2 v = make_double2(0.0, 0.0);
-  if (row >= rows || col >= cols) return v;
-  const double* q = p + (long long)row * cols + col;
-  if (vec) return *reinterpret_cast<const double2*>(q);
-  v.x = q[0];
-  if (col + 1 < cols) v.y = q[1];
-  return v;
+// cp.async of 8 bytes into shared memory, zero-filled where `in` is false
+// (nothing is read then: src may lie past the matrix).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(in ? src : (const void*)cp_async_nothing), "r"(in ? 8 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ double act_d(double v, int act) {
@@ -130,144 +204,246 @@ __device__ __forceinline__ void store_d(void* out, int dt, long long i,
     reinterpret_cast<__half*>(out)[i] = __double2half(v);
 }
 
-// The pair load2 gives, from a packed operand's panels: element (row, col)
-// of the kernel-facing (rows, cols) matrix at offset `off`, col even, one
-// 16-byte load (the pair lies in one zero-padded panel row).
-__device__ __forceinline__ double2 load2_panel(const double* p, long long off,
-                                               int rows, int cols, int row,
-                                               int col) {
-  if (row >= rows || col >= cols) return make_double2(0.0, 0.0);
-  return *reinterpret_cast<const double2*>(p + off);
+// Arrive on `bar` once this thread's cp.async copies so far have landed
+// (the arrival counts toward the barrier's expected count).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
-// The pm* mask bytes of a staged pair, lanes (row, col) and (row, col + 1)
-// of a matrix whose rows are masked by `rm` and columns by `cm`: byte 0 the
-// row's, bytes 1 and 2 the columns' (1 where a mask is null or the lane
-// lies past the edge, whose value load2 zero-filled).
-__device__ __forceinline__ uchar4 mask_bytes(const uint8_t* rm,
-                                            const uint8_t* cm, int rows,
-                                            int cols, int row, int col) {
-  uchar4 f = make_uchar4(1, 1, 1, 0);
-  if (rm && row < rows) f.x = rm[row];
-  if (cm && col < cols) f.y = cm[col];
-  if (cm && col + 1 < cols) f.z = cm[col + 1];
-  return f;
+// Two doubles at src into dst, each copied where its flag is set and
+// zero-filled where not: one 16-byte copy where the source is 16-byte
+// aligned (`wide`) and the flags allow it, else one 8-byte copy a lane.
+// The MASKED instances' copies go through it.  The others give the same
+// shared-memory contents from their own branches (a panel row's padding
+// is zero; past K or N a 16-byte copy is cut to the bytes left): routed
+// through copy_pair too, the natural 128 x 128 instance spills at its
+// 128-register cap (ptxas: 4 bytes) and the 64 x 64 one on X and Y panels
+// takes 154 registers where it takes 126.
+__device__ __forceinline__ void copy_pair(double* dst, const double* src,
+                                          bool lo, bool hi, bool wide) {
+  if (wide && (lo || !hi)) {
+    cp_async16_upto(dst, src, lo ? (hi ? 16 : 8) : 0);
+  } else {
+    cp_async8(dst, src, lo);
+    cp_async8(dst + 1, src + 1, hi);
+  }
 }
 
-__device__ __forceinline__ double2 apply_mask(double2 v, uchar4 f) {
-  if (!f.x) return make_double2(0.0, 0.0);
-  if (!f.y) v.x = 0.0;
-  if (!f.z) v.y = 0.0;
-  return v;
-}
-
-template <bool MASKED, int PANELS>
-__global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
+template <class T, bool MASKED, int PANELS>
+__global__ void __launch_bounds__(T::NT, T::MINB)
+    gemm_dmma_kernel(DmmaArgs a) {
+  constexpr int IK = dmma_depth(PANELS);
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  double* smem = reinterpret_cast<double*>(smem_raw);
-  const int bz = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
+  const int tid = threadIdx.x;
+  const int bz = blockIdx.z, m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / T::WN, wn = warp % T::WN;
   const int g = lane / 4, t = lane % 4;
   const double* xb = a.x + (long long)bz * a.sxb;
   const double* yb = a.y + (long long)bz * a.syb;
+  const int M = a.M, N = a.N, K = a.K;
 
-  double acc[MT][NT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
-
-  double2 xs[X_UNITS], ys[Y_UNITS];
-  uchar4 xf[X_UNITS], yf[Y_UNITS];   // the MASKED instance's mask bytes
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < X_UNITS; ++i) {
-      const int u = threadIdx.x + i * THREADS;   // 8 units a row
-      const int row = m0 + u / 8, col = k0 + 2 * (u % 8);
-      if constexpr ((PANELS & PANELS_X) != 0)
-        xs[i] = load2_panel(xb, x_panel_at(row, col, a.x_gk), a.M, a.K, row,
-                            col);
-      else
-        xs[i] = load2(xb, a.M, a.K, row, col, a.vec_x);
-      if constexpr (MASKED)
-        xf[i] = mask_bytes(a.xm, a.pm, a.M, a.K, row, col);
-    }
-#pragma unroll
-    for (int i = 0; i < Y_UNITS; ++i) {
-      const int u = threadIdx.x + i * THREADS;   // 32 units a row
-      const int row = k0 + u / 32, col = n0 + 2 * (u % 32);
-      if constexpr ((PANELS & PANELS_Y) != 0)
-        ys[i] = load2_panel(yb, y_panel_at(row, col, a.y_gk), a.K, a.N, row,
-                            col);
-      else
-        ys[i] = load2(yb, a.K, a.N, row, col, a.vec_y);
-      if constexpr (MASKED)
-        yf[i] = mask_bytes(a.pm, a.ym, a.K, a.N, row, col);
-    }
-  };
-  auto store = [&](double* buf) {
-#pragma unroll
-    for (int i = 0; i < X_UNITS; ++i) {
-      const int u = threadIdx.x + i * THREADS;
-      double2 v = xs[i];
-      if constexpr (MASKED) v = apply_mask(v, xf[i]);
-      *reinterpret_cast<double2*>(buf + (u / 8) * AP + 2 * (u % 8)) = v;
-    }
-#pragma unroll
-    for (int i = 0; i < Y_UNITS; ++i) {
-      const int u = threadIdx.x + i * THREADS;
-      double2 v = ys[i];
-      if constexpr (MASKED) v = apply_mask(v, yf[i]);
-      *reinterpret_cast<double2*>(buf + BM * AP + (u / 32) * BP +
-                                  2 * (u % 32)) = v;
-    }
-  };
-
-  const int ktiles = (a.K + BK - 1) / BK;
-  load(0);
-  store(smem);
-  __syncthreads();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const double* cur = smem + (kt & 1) * STAGE;
-    if (kt + 1 < ktiles) load((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK / 4; ++kk) {
-      double af[MT], bf[NT];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        af[i] = cur[(wm * 32 + i * 8 + g) * AP + kk * 4 + t];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        bf[j] = cur[BM * AP + (kk * 4 + t) * BP + wn * 32 + j * 8 + g];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) dmma(acc[i][j], af[i], bf[j]);
-    }
-    if (kt + 1 < ktiles) store(smem + ((kt + 1) & 1) * STAGE);
-    __syncthreads();
+  // this thread's copies: X column xc of rows xr + j XSTEP, Y columns
+  // yc of K rows yr + j YSTEP (fixed a tile; a K step moves them along K),
+  // each read at a base pointer, plus the step's offset, plus j strides
+  const int xc = 2 * (tid % T::XCH), xr = tid / T::XCH;
+  const int yc = 2 * (tid % T::YCH), yr = tid / T::YCH;
+  const double* xsrc;
+  const double* ysrc;
+  long long xj, yj;
+  if constexpr ((PANELS & PANELS_X) != 0) {
+    // a block's rows lie in one X panel band: rows step PANEL_C apart
+    xsrc = xb + x_panel_at(m0 + xr, xc, a.x_gk);
+    xj = (long long)T::XSTEP * PANEL_C;
+  } else {
+    xsrc = xb + (long long)(m0 + xr) * K + xc;
+    xj = (long long)T::XSTEP * K;
   }
+  if constexpr ((PANELS & PANELS_Y) != 0) {
+    // within a 64-column Y panel band, row k lies at 64 k
+    ysrc = yb + y_panel_at(yr, n0 + yc, a.y_gk);
+    yj = (long long)T::YSTEP * PANEL_C;
+  } else {
+    ysrc = yb + (long long)yr * N + n0 + yc;
+    yj = (long long)T::YSTEP * N;
+  }
+  // bit j where copy j's X row is in the matrix (and, MASKED, enabled)
+  uint32_t xrow_in = 0;
+#pragma unroll
+  for (int j = 0; j < T::XPER; ++j) {
+    const int row = m0 + xr + j * T::XSTEP;
+    bool in = row < M;
+    if constexpr (MASKED) in = in && (a.xm == nullptr || a.xm[row]);
+    xrow_in |= (uint32_t)in << j;
+  }
+  // the Y copies' two columns (fixed a tile): in the matrix and, MASKED,
+  // enabled
+  const int ncols = N - (n0 + yc);
+  bool ylo = ncols > 0, yhi = ncols > 1;
+  if constexpr (MASKED) {
+    if (a.ym) {
+      ylo = ylo && a.ym[n0 + yc];
+      yhi = yhi && a.ym[n0 + yc + 1];
+    }
+  }
+  // MASKED: where a pair's source allows one 16-byte copy
+  const bool xwide = (PANELS & PANELS_X) != 0 || a.vec_x;
+  const bool ywide = (PANELS & PANELS_Y) != 0 || a.vec_y;
 
-  // deprime through a shared fp64 tile (aliasing the panels, all read)
-  double* cs = smem;
+  auto issue = [&](int s) {   // K step s into ring slot s % DMMA_STAGES
+    unsigned char* slot = smem_raw + (s % DMMA_STAGES) * T::STAGE_BYTES;
+    double* as = reinterpret_cast<double*>(slot) + xr * T::AP + xc;
+    double* bs = reinterpret_cast<double*>(slot) + T::BM * T::AP +
+                 yr * T::BP + yc;
+    const int k0 = s * T::BK, kx = K - (k0 + xc);   // X columns left
+    const double* xs =
+        xsrc + ((PANELS & PANELS_X) != 0
+                    ? (long long)(k0 / PANEL_C) * (PANEL_XR * PANEL_C) +
+                          k0 % PANEL_C
+                    : (long long)k0);
+    const double* ys = ysrc + (long long)k0 * ((PANELS & PANELS_Y) != 0
+                                                   ? PANEL_C : N);
+    // the X copies' two ranks: in the matrix and, MASKED, enabled
+    bool xlo = kx > 0, xhi = kx > 1;
+    if constexpr (MASKED) {
+      if (a.pm) {
+        xlo = xlo && a.pm[k0 + xc];
+        xhi = xhi && a.pm[k0 + xc + 1];
+      }
+    }
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int j = 0; j < T::XPER; ++j) {
+      double* dst = as + j * T::XSTEP * T::AP;
+      const double* src = xs + j * xj;
+      const bool in = xrow_in >> j & 1u;
+      if constexpr (MASKED) {
+        copy_pair(dst, src, in && xlo, in && xhi, xwide);
+      } else if ((PANELS & PANELS_X) != 0) {
+        cp_async16_upto(dst, src, in && xlo ? 16 : 0);
+      } else if (a.vec_x) {
+        cp_async16_upto(dst, src, in ? 8LL * kx : 0);
+      } else {
+        cp_async8(dst, src, in && xlo);
+        cp_async8(dst + 1, src + 1, in && xhi);
+      }
+    }
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < T::YPER; ++j) {
+      double* dst = bs + j * T::YSTEP * T::BP;
+      const double* src = ys + j * yj;
+      const int k = k0 + yr + j * T::YSTEP;
+      bool in = k < K;
+      if constexpr (MASKED) {
+        in = in && (a.pm == nullptr || a.pm[k]);
+        copy_pair(dst, src, in && ylo, in && yhi, ywide);
+      } else if ((PANELS & PANELS_Y) != 0) {
+        cp_async16_upto(dst, src, in && ylo ? 16 : 0);
+      } else if (a.vec_y) {
+        cp_async16_upto(dst, src, in ? 8LL * ncols : 0);
+      } else {
+        cp_async8(dst, src, in && ylo);
+        cp_async8(dst + 1, src + 1, in && yhi);
+      }
+    }
+  };
+
+  // The ring's barriers: full[i] completes when every thread's copies
+  // into slot i have landed (each thread's cp.async arrival, T::NT),
+  // empty[i] when every warp is done reading it (T::NT / 32).
+  __shared__ uint64_t full[DMMA_STAGES], empty[DMMA_STAGES];
+  if (tid == 0) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        cs[(wm * 32 + i * 8 + g) * CP + wn * 32 + j * 8 + 2 * t + r] =
-            acc[i][j][r];
+    for (int i = 0; i < DMMA_STAGES; ++i) {
+      mbar_init(&full[i], T::NT);
+      mbar_init(&empty[i], T::NT / 32);
+    }
+  }
+  __syncthreads();
+
+  double acc[T::MF][T::NF][4];
+#pragma unroll
+  for (int i = 0; i < T::MF; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+
+  const int nk = (K + T::BK - 1) / T::BK;
+#pragma unroll
+  for (int s = 0; s < DMMA_STAGES - 1; ++s) {
+    if (s < nk) {
+      issue(s);
+      cp_async_arrive(&full[s]);
+    }
+  }
+  // lane (g, t)'s first fragment elements in a stage
+  const int a_off = (wm * T::TM + g) * T::AP + t;
+  const int b_off = t * T::BP + wn * T::TN + g;
+  for (int s = 0; s < nk; ++s) {
+    const int i_s = s % DMMA_STAGES;
+    mbar_wait(&full[i_s], (s / DMMA_STAGES) & 1);   // step s has landed
+    const unsigned char* slot = smem_raw + i_s * T::STAGE_BYTES;
+    const double* as = reinterpret_cast<const double*>(slot);
+    const double* bs = as + T::BM * T::AP;
+#pragma unroll
+    for (int kk = 0; kk < T::BK / IK; ++kk) {
+      constexpr int AE = IK / 2, BE = IK / 4;   // fragment doubles a lane
+      double bf[T::NF][BE];
+#pragma unroll
+      for (int j = 0; j < T::NF; ++j)
+#pragma unroll
+        for (int h = 0; h < BE; ++h)
+          bf[j][h] = bs[b_off + (kk * IK + 4 * h) * T::BP + 8 * j];
+#pragma unroll
+      for (int i = 0; i < T::MF; ++i) {
+        double af[AE];
+#pragma unroll
+        for (int e = 0; e < AE; ++e)
+          af[e] = as[a_off + (16 * i + 8 * (e % 2)) * T::AP + kk * IK +
+                     4 * (e / 2)];
+#pragma unroll
+        for (int j = 0; j < T::NF; ++j) dmma<IK>(acc[i][j], af, bf[j]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[i_s]);   // this warp is done with it
+    // step s + DMMA_STAGES - 1 into the slot step s - 1 held, once every
+    // warp is done with step s - 1
+    const int nx = s + DMMA_STAGES - 1;
+    if (nx < nk) {
+      if (nx >= DMMA_STAGES)
+        mbar_wait(&empty[nx % DMMA_STAGES], (nx / DMMA_STAGES - 1) & 1);
+      issue(nx);
+      cp_async_arrive(&full[nx % DMMA_STAGES]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the ring: the tile aliases it
+
+  // deprime through the shared fp64 tile
+  double* cs = reinterpret_cast<double*>(smem_raw);
+#pragma unroll
+  for (int i = 0; i < T::MF; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NF; ++j) {
+      double* p = cs + (wm * T::TM + 16 * i + g) * T::CP + wn * T::TN +
+                  8 * j + 2 * t;
+      *reinterpret_cast<double2*>(p) = make_double2(acc[i][j][0],
+                                                    acc[i][j][1]);
+      *reinterpret_cast<double2*>(p + 8 * T::CP) =
+          make_double2(acc[i][j][2], acc[i][j][3]);
+    }
   __syncthreads();
   const long long cbase = (long long)bz * a.scb, rbase = (long long)bz * a.srb;
   const long long obase = (long long)bz * a.sob;
-  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-    const int row = e / BN, col = e % BN;
+  for (int e = tid; e < T::BM * T::BN; e += T::NT) {
+    const int row = e / T::BN, col = e % T::BN;
     const int gr = m0 + row, gc = n0 + col;
-    if (gr >= a.M || gc >= a.N) continue;
-    const long long idx = (long long)gr * a.N + gc;
-    double v = cs[row * CP + col];
+    if (gr >= M || gc >= N) continue;
+    const long long idx = (long long)gr * N + gc;
+    double v = cs[row * T::CP + col];
     if (a.neg_product) v = -v;
     if (a.c) {
       double s = a.c[cbase + idx];
@@ -279,17 +455,17 @@ __global__ void __launch_bounds__(THREADS) gemm_dmma_kernel(DmmaArgs a) {
     v = act_d(v, a.act);
     if (a.res) v += a.res[rbase + idx];
     store_d(a.out, a.out_dt, obase + idx, v);
-    if (a.ck_col) cs[row * CP + col] = v;
+    if (a.ck_col) cs[row * T::CP + col] = v;
   }
   if (a.ck_col) {
     __syncthreads();
-    const int gm = (a.M + BM - 1) / BM, gn = (a.N + BN - 1) / BN;
-    tile_checksums<double>(cs, CP, min(BM, a.M - m0), min(BN, a.N - n0),
-                           a.ck_col + ((long long)bz * gm + m0 / BM) * a.N +
+    const int gm = (M + T::BM - 1) / T::BM, gn = (N + T::BN - 1) / T::BN;
+    tile_checksums<double>(cs, T::CP, min(T::BM, M - m0), min(T::BN, N - n0),
+                           a.ck_col + ((long long)bz * gm + m0 / T::BM) * N +
                                n0,
-                           a.ck_row + ((long long)bz * a.M + m0) * gn +
-                               n0 / BN,
-                           gn, threadIdx.x, THREADS);
+                           a.ck_row + ((long long)bz * M + m0) * gn +
+                               n0 / T::BN,
+                           gn, tid, T::NT);
   }
 }
 
@@ -297,14 +473,38 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// One launch on tile T: `which` = panels | 4 for the MASKED instances.
+template <class T>
+int launch_tile(const DmmaArgs& a, int which, int batch, cudaStream_t st) {
+  decltype(&gemm_dmma_kernel<T, false, 0>) kernel;
+  switch (which) {
+    case 0: kernel = gemm_dmma_kernel<T, false, 0>; break;
+    case 1: kernel = gemm_dmma_kernel<T, false, 1>; break;
+    case 2: kernel = gemm_dmma_kernel<T, false, 2>; break;
+    case 3: kernel = gemm_dmma_kernel<T, false, 3>; break;
+    case 4: kernel = gemm_dmma_kernel<T, true, 0>; break;
+    case 5: kernel = gemm_dmma_kernel<T, true, 1>; break;
+    case 6: kernel = gemm_dmma_kernel<T, true, 2>; break;
+    case 7: kernel = gemm_dmma_kernel<T, true, 3>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  static bool smem_ok[8] = {};
+  cudaError_t e = allow_smem(kernel, T::SMEM, &smem_ok[which]);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.N + T::BN - 1) / T::BN, (a.M + T::BM - 1) / T::BM, batch);
+  kernel<<<grid, T::NT, T::SMEM, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // c, bias and res are fp64; batch strides count elements (0: an operand
 // shared across the batch); xm, ym, pm the pm* byte masks over M, N and K,
-// each null or one byte a lane; ck_col / ck_row the sidecar's ((B,)
-// ceil(M / 64), N) and ((B,) M, ceil(N / 64)) fp64 outputs, or null;
-// panels: which of x and y are core/packing.py's panels (PANELS_X,
-// PANELS_Y), 16-byte aligned.
+// each null or one byte a lane; (bm, bn, bk) one of
+// the compiled tiles (core/tiling.py's GEMM_TILES); ck_col / ck_row the
+// sidecar's ((B,) ceil(M / bm), N) and ((B,) M, ceil(N / bn)) fp64
+// outputs, or null; panels: which of x and y are core/packing.py's panels
+// (PANELS_X, PANELS_Y), 16-byte aligned.
 extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
                                 const void* ym, const void* pm, const void* c,
                                 const void* bias, const void* res, void* out,
@@ -312,8 +512,8 @@ extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
                                 long long sxb, long long syb, long long scb,
                                 long long srb, long long sob, double alpha,
                                 double beta, int neg_product, int neg_acc,
-                                int act, void* ck_col, void* ck_row,
-                                void* stream, int panels) {
+                                int act, int bm, int bn, int bk, void* ck_col,
+                                void* ck_row, void* stream, int panels) {
   DmmaArgs a;
   a.x = reinterpret_cast<const double*>(x);
   a.y = reinterpret_cast<const double*>(y);
@@ -332,7 +532,7 @@ extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
   a.x_gk = (panels & PANELS_X) ? gk : 0;
   a.y_gk = (panels & PANELS_Y) ? gk : 0;
   if ((a.x_gk && (!aligned16(x) || sxb % 2)) ||
-      (a.y_gk && (!aligned16(y) || syb % 2)))
+      (a.y_gk && (!aligned16(y) || syb % 2)) || panels < 0 || panels > 3)
     return (int)cudaErrorInvalidValue;
   a.xm = reinterpret_cast<const uint8_t*>(xm);
   a.ym = reinterpret_cast<const uint8_t*>(ym);
@@ -340,22 +540,10 @@ extern "C" int gemm_dmma_launch(const void* x, const void* y, const void* xm,
   a.ck_col = reinterpret_cast<double*>(ck_col);
   a.ck_row = reinterpret_cast<double*>(ck_row);
   const int which = panels | (xm || ym || pm ? 4 : 0);
-  decltype(&gemm_dmma_kernel<false, 0>) kernel;
-  switch (which) {
-    case 0: kernel = gemm_dmma_kernel<false, 0>; break;
-    case 1: kernel = gemm_dmma_kernel<false, 1>; break;
-    case 2: kernel = gemm_dmma_kernel<false, 2>; break;
-    case 3: kernel = gemm_dmma_kernel<false, 3>; break;
-    case 4: kernel = gemm_dmma_kernel<true, 0>; break;
-    case 5: kernel = gemm_dmma_kernel<true, 1>; break;
-    case 6: kernel = gemm_dmma_kernel<true, 2>; break;
-    case 7: kernel = gemm_dmma_kernel<true, 3>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  static bool smem_ok[8] = {};
-  cudaError_t e = allow_smem(kernel, SMEM, &smem_ok[which]);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
-  kernel<<<grid, THREADS, SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (bm == Large::BM && bn == Large::BN && bk == Large::BK)
+    return launch_tile<Large>(a, which, batch, st);
+  if (bm == Small::BM && bn == Small::BN && bk == Small::BK)
+    return launch_tile<Small>(a, which, batch, st);
+  return (int)cudaErrorInvalidValue;
 }

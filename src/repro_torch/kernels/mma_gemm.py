@@ -158,10 +158,12 @@ _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 _IMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
                   + [ctypes.c_void_p] + [ctypes.c_int])
-# csrc/gemm_dmma.cu: gemm_dmma_launch
+# csrc/gemm_dmma.cu: gemm_dmma_launch (its tile's bm, bn, bk before the
+# sidecar)
 _DMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 5 + [ctypes.c_double] * 2
-                  + [ctypes.c_int] * 3 + _CK_STREAM + [ctypes.c_int])
+                  + [ctypes.c_int] * 3 + [ctypes.c_int] * 3 + _CK_STREAM
+                  + [ctypes.c_int])
 PATHS = ("stream", "wgmma", "wmma", "imma", "dmma")
 PACKED_PATHS = PATHS                             # every path reads panels
 MASKED_PATHS = ("wmma", "imma", "dmma")          # the paths that take masks
@@ -729,7 +731,8 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
         lib, fn = _lib("gemm_dmma", "gemm_dmma_launch", _DMMA_ARGTYPES)
         rc = fn(*ptrs, STORE_CODES[out_dtype], b or 1, m, n, k, *strides,
                 float(alpha), float(beta), int(neg_product), int(neg_acc),
-                _epilogue.ACT_CODES[act], *ck, stream, panels)
+                _epilogue.ACT_CODES[act], cfg.bm, cfg.bn, cfg.bk, *ck,
+                stream, panels)
     _build.check(lib, rc, f"mma_gemm ({path})")
     return out
 

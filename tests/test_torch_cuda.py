@@ -2312,3 +2312,123 @@ def test_wmma_conv_gathers_match_plain(gen, gather, dtype):
         want.abs().clamp_min(1e-30))) - bits) + 1e-5 * want.abs().max().item()
     assert bool(torch.isfinite(got).all())
     assert bool(((got - want).abs() <= tol).all())
+
+
+# ----------------------------------------------------------------------
+# F64GER's DMMA kernel (gemm_dmma.cu: a cp.async ring on mbarriers into
+# mma.sync m16n8k8 f64 on a 128 x 128 or a 64 x 64 tile): every form on
+# both tiles
+# ----------------------------------------------------------------------
+
+# name: (batch, (M, K, N), forms): "x" / "y" packed panels, "mask" (NaN
+# and Inf in the disabled lanes), "seed" (a C seed with alpha, beta and
+# both negations), "ep" (bias + gelu + residual), "shared" (Y panels
+# without the batch axis), "sidecar" (checksum=True), an out dtype.  M =
+# 129, N = 130 and K = 17 put a fringe past each tile; odd K and N take
+# the 8-byte copies.
+_DMMA_FORMS = {
+    "natural": ((), (300, 512, 264), ()),
+    "fringes": ((), (129, 17, 130), ()),
+    "batched": ((3,), (129, 200, 130), ()),
+    "shared": ((3,), (129, 200, 130), ("y", "shared")),
+    "forms": ((), (200, 256, 136), ("seed",)),
+    "epilogue": ((2,), (130, 128, 200), ("ep",)),
+    "out f32": ((), (200, 300, 264), (torch.float32,)),
+    "out bf16": ((), (200, 300, 264), (torch.bfloat16,)),
+    "out f16": ((), (200, 300, 264), (torch.float16,)),
+    "odd K": ((), (200, 301, 136), ()),
+    "odd N": ((), (200, 256, 259), ()),
+    "X panels": ((), (300, 330, 264), ("x",)),
+    "Y panels": ((), (300, 330, 259), ("y",)),
+    "X and Y panels": ((), (300, 331, 259), ("x", "y")),
+    "masked": ((), (300, 330, 259), ("mask",)),
+    "masked panels": ((), (300, 330, 259), ("mask", "x", "y")),
+    "sidecar": ((), (300, 512, 259), ("sidecar",)),
+    "sidecar packed": ((2,), (129, 200, 130), ("sidecar", "x", "y")),
+}
+
+
+@pytest.mark.parametrize("block", [(128, 128, 32), (64, 64, 16)])
+@pytest.mark.parametrize("form", sorted(_DMMA_FORMS))
+def test_dmma_redesign_forms(gen, form, block):
+    """The DMMA kernel at an explicit tile: one launch on the dmma path,
+    within 1e-15 K max|x| max|y| of the float64 plain version (plus one
+    rounding of a narrower store); the other tile, a batched call's
+    slices and packed operands bit for bit the same; NaN and Inf in
+    disabled lanes leave no trace (the same bits as zeros there); with the
+    sidecar, ``out`` bit for bit ``checksum=False``'s and the sums within
+    ABFT's tolerance of the plain result's."""
+    from repro_torch.core import abft, packing
+    lead, (m, k, n), forms = _DMMA_FORMS[form]
+    f64 = dict(device="cuda", dtype=torch.float64)
+    x = torch.randn(*lead, m, k, generator=gen, **f64)
+    y = torch.randn(*(() if "shared" in forms else lead), k, n,
+                    generator=gen, **f64)
+    out_dtype = next((f for f in forms if isinstance(f, torch.dtype)),
+                     torch.float64)
+    kw = dict(kind=Ger.F64GER, block=block, out_dtype=out_dtype)
+    c = None
+    if "seed" in forms:
+        c = torch.randn(*lead, m, n, generator=gen, **f64)
+        kw.update(alpha=0.75, beta=-0.5, neg_product=True, neg_acc=True)
+    if "ep" in forms:
+        kw.update(ep=E.Epilogue(bias=True, activation="gelu", residual=True),
+                  bias=torch.randn(n, generator=gen, **f64),
+                  residual=torch.randn(*lead, m, n, generator=gen, **f64))
+    bound = 1e-15 * k * x.abs().max().item() * y.abs().max().item()
+    if "mask" in forms:
+        masks = _lane_masks(gen, m, n, k)
+        x[..., ~masks[0], :] = float("nan")
+        x[..., ~masks[2]] = float("-inf")
+        y[..., ~masks[2], :] = float("inf")
+        y[..., ~masks[1]] = float("nan")
+        zx, zy = G.select_masks(x, y, masks)
+        kw["masks"] = masks
+    yn = y.expand(*lead, k, n).contiguous() if "shared" in forms else y
+    before = G.mma_gemm.launches_by_path["dmma"]
+    got = G.mma_gemm(x, yn, c, **kw)
+    torch.cuda.synchronize()
+    assert G.mma_gemm.launches_by_path["dmma"] == before + 1
+    want = G.mma_gemm_plain(x, yn, c, **{key: v for key, v in kw.items()
+                                         if key != "block"})
+    assert bool(torch.isfinite(got).all())
+    err = (got.double() - want.double()).abs()
+    tol = bound + torch.finfo(out_dtype).eps * want.double().abs()
+    assert bool((err <= tol).all()), err.max().item()
+    other = (64, 64, 16) if block[0] == 128 else (128, 128, 32)
+    assert torch.equal(G.mma_gemm(x, yn, c, **{**kw, "block": other}), got)
+    assert torch.equal(G.mma_gemm(x, yn, c, **kw), got)
+    if "mask" in forms:
+        zyn = zy.expand(*lead, k, n).contiguous() if "shared" in forms else zy
+        assert torch.equal(G.mma_gemm(zx, zyn, c, **kw), got)
+    if lead:
+        for i in range(lead[0]):
+            one = {**kw}
+            if "residual" in one:
+                one["residual"] = one["residual"][i]
+            assert torch.equal(G.mma_gemm(
+                x[i], yn[i], None if c is None else c[i], **one), got[i])
+    lay, xp, yp = {}, x, y
+    if "x" in forms:
+        po = packing.pack_gemm(x, packing.gemm_layout(
+            Ger.F64GER, m, k, side="x", batched=bool(lead)))
+        xp, lay["x_layout"] = po.data, po.layout
+    if "y" in forms:
+        po = packing.pack_gemm(y, packing.gemm_layout(
+            Ger.F64GER, k, n, batched=y.ndim == 3))
+        yp, lay["y_layout"] = po.data, po.layout
+    if lay:
+        assert torch.equal(G.mma_gemm(xp, yp, c, **kw, **lay), got)
+    if "sidecar" in forms:
+        out, ck_col, ck_row = G.mma_gemm(xp, yp, c, checksum=True, **kw,
+                                         **lay)
+        assert torch.equal(out, got)
+        eps = torch.finfo(torch.float64).eps
+        mag = torch.matmul(x.abs(), yn.abs())
+        for ck, want_ck, mag_ck in zip(
+                (ck_col, ck_row), G.checksum_tiles(want, *block[:2]),
+                G.checksum_tiles(mag, *block[:2])):
+            assert ck.dtype == torch.float64
+            err = (ck - want_ck).abs()
+            assert bool((err <= abft.ATOL + abft.FACTOR * eps * mag_ck
+                         ).all()), err.max().item()
