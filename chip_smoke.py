@@ -54,7 +54,9 @@ Phases, each of which must pass or the script exits nonzero:
      depthwise conv K4's vector path;
   4. the runs' shapes: each distinct GEMM, attention and depthwise conv
      shape of the runs held against its plain version and timed (kernel,
-     path, torch.matmul, SDPA or cuDNN, bound);
+     path, torch.matmul, SDPA or cuDNN, bound; the split-KV decode
+     kernel's whisper shapes also with the parent kernel's PERF.md time
+     and its aim, ``SPLIT_AIMS``);
   5. train, through ``repro_torch.launch.train.build`` with random fp32
      weights from seed 0 and the default BF16GER2 facility: deepseek-7b at
      full width with its depth cut to 4 layers (fp32 parameters, gradients
@@ -149,9 +151,12 @@ Phases, each of which must pass or the script exits nonzero:
      launches counted by path, each held against its plain version with
      NaN and Inf in every disabled lane (integers bit for bit) and timed
      beside the same kernel unmasked, the unmasked default path, the plain
-     version, a ``torch.where`` + library yardstick and its bound; and the
-     fp32 tile at the F32GER runs' attention shapes beside SDPA on f32
-     inputs;
+     version, a ``torch.where`` + library yardstick and its bound; and K2e
+     (the fp32 tile and the decode kernel on f32 operands) at the F32GER
+     runs' attention shapes (``F32_ATTENTION``) with the TF32 control, a
+     split row at batch 1 bit for bit the same row in the batch, timed
+     beside SDPA on f32 inputs, the bound, the parent kernel's PERF.md
+     time and its aim (a miss is reported, not failed);
   9. guarded serving and ABFT (``runtime/faults.py``, the guarded kernel
      -> torch -> ref ladder, ``core/abft.py``) and K1e, the GEMM kernels'
      checksum sidecar, its serving runs right after deepseek-7b's phase-3
@@ -284,8 +289,8 @@ and demotes under ``phase11``; its full-grid attention entry its
 ``bounded_ms``, step counts and ``full_grid_launches``; phase 12's two
 entries their ``timed`` forms; phase 13's tile entry its ``timed``
 shapes and ``targets_met``; phase 14's DMMA entry its ``timed`` targets,
-their tiles and ``aims_met``; the phase-2 attention entry names the tile
-kernel under ``tile_kernel``); the last is ``{"ok": true, "device":
+their tiles and ``aims_met``; the phase-2 attention entry names
+the tile kernel under ``tile_kernel``); the last is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
 is absent or where ``src/repro_torch`` is not beside this file.
@@ -657,12 +662,20 @@ def check_attention(torch, timer, failures):
          dict(causal=False)),
         (f"zamba2 shared block causal (1,{p},32,64)", (1, p, 32, 64),
          (1, p, 32, 64), dict(causal=True)),
+        ("decode GQA 32/8 over 4096 (4,1,32,128)", (4, 1, 32, 128),
+         (4, 4096, 8, 128), dict(causal=True, q_offset=4095)),
     ] + [(name, qs, ks, kw) for name, qs, ks, kw in MM_ATTENTION]
     worst = 0.0
     for name, qs, ks, kw in cases:
         q, k, v = randn(*qs), randn(*ks), randn(*ks)
-        e, _ = check_attn_case(torch, f"attn {name}", q, k, v, kw, failures)
+        e, got = check_attn_case(torch, f"attn {name}", q, k, v, kw,
+                                 failures)
         worst = max(worst, e)
+        if A.split_kv_plan(qs[2], qs[1], ks[1])[0] > 1 and qs[0] > 1:
+            one = A.mma_flash_attention(q[:1], k[:1], v[:1], **kw)
+            _check(failures, f"attn {name} split row at batch 1",
+                   torch.equal(one[0], got[0]),
+                   "bit for bit the same row in the batch")
     # valid slots, with fully-masked rows (rows 0-2 see only invalid keys)
     q, k, v = randn(2, 70, 8, 128), randn(2, 70, 2, 128), randn(2, 70, 2, 128)
     valid = torch.ones((2, 70), dtype=torch.bool, device="cuda")
@@ -1211,6 +1224,17 @@ def check_main_paths(failures):
             failures.append(f"{arch} products off their path: {bad}")
 
 
+# The split-KV decode kernel (flash_decode_kernel) at whisper-small's bf16
+# generation shapes: (B, Sq, H, D, Sk) -> (the parent kernel's time in
+# PERF.md (NVIDIA H100 80GB HBM3 at 700 W: printed for the reader, never
+# put in the kernels line), the aim: ("ms", t) or ("sdpa", a factor of
+# SDPA's time in the same run)).
+SPLIT_AIMS = {
+    (4, 1, 12, 64, 1500): (0.0310, ("sdpa", 1.0)),
+    (4, 4, 12, 64, 1500): (0.0313, ("ms", 0.0313)),
+}
+
+
 def time_run_shapes(torch, entries, failures, runs):
     """Each distinct GEMM, attention and depthwise conv shape that the runs
     ``runs`` (keys of RECORDS) gave the kernels: the kernel held against
@@ -1313,9 +1337,19 @@ def time_run_shapes(torch, entries, failures, runs):
         attn_out[key] = dict(path="split-kv" if ns > 1 else "tile", ms=t,
                              library_ms=tl, bound_ms=bb, bound_by=by,
                              runs=archs)
+        goal = ""
+        aim = SPLIT_AIMS.get((b, sq, h, d, sk)) if dt != torch.float32 \
+            else None
+        if aim is not None:
+            parent, (how, x) = aim
+            limit = x if how == "ms" else x * tl
+            attn_out[key]["aim_met"] = t <= limit
+            goal = (f"; parent in PERF.md {parent} ms, aim "
+                    f"{'met' if t <= limit else 'MISSED'} "
+                    f"(<= {limit:.4f} ms)")
         print(f"  time attn {key} [{attn_out[key]['path']}] "
               f"({', '.join(archs)}): kernel {t:.4f} ms, sdpa {tl:.4f} ms, "
-              f"bound {bb:.4f} ms ({by}), {bb / t:.2f} of bound")
+              f"bound {bb:.4f} ms ({by}), {bb / t:.2f} of bound{goal}")
     dw_out = done["mma_depthwise_conv2d"]
     for shape, archs in sorted(shapes["dw"].items(), key=str):
         (n, h, w, c), (kh, kw_), stride, dt, od, act, has_b, has_r, path = \
@@ -1619,7 +1653,8 @@ def step_breakdown(torch, cfg, prefill, decode, what):
 PORT_KERNELS = ("gemm_stream_kernel", "gemm_stream_f32_kernel",
                 "gemm_wgmma_kernel",
                 "gemm_wmma_kernel", "gemm_f32_kernel", "flash_tile_kernel",
-                "flash_wgmma_kernel", "flash_combine_kernel", "depthwise_vec_kernel",
+                "flash_decode_kernel", "flash_f32_tile_kernel",
+                "depthwise_vec_kernel",
                 "depthwise_conv_kernel", "conv_wgmma_kernel",
                 "conv_wmma_kernel", "conv_f32_kernel")
 
@@ -3050,15 +3085,22 @@ MASKED_CASES = (
     ("F64GER", "F64GER", None, 2048, 2048, 2048, False),
 )
 # K2e at the F32GER runs' attention shapes: (name, q shape, k/v shape,
-# causal).
+# causal, the parent kernel's time in PERF.md section 6 (NVIDIA H100 80GB
+# HBM3 at 700 W: printed for the reader, never put in the kernels line;
+# None: not there), the aim in ms or None).
 F32_ATTENTION = (
-    ("deepseek-7b prefill", (1, 256, 32, 128), (1, 256, 32, 128), True),
+    ("deepseek-7b prefill", (1, 256, 32, 128), (1, 256, 32, 128), True,
+     0.0575, 0.034),
     ("deepseek-7b logits check prefill", (4, 256, 32, 128),
-     (4, 256, 32, 128), True),
-    ("deepseek-7b train", (4, 512, 32, 128), (4, 512, 32, 128), True),
-    ("whisper-small encoder", (4, 1500, 12, 64), (4, 1500, 12, 64), False),
-    ("whisper-small cross prompt", (4, 4, 12, 64), (4, 1500, 12, 64), False),
-    ("whisper-small cross decode", (4, 1, 12, 64), (4, 1500, 12, 64), False),
+     (4, 256, 32, 128), True, None, None),
+    ("deepseek-7b train", (4, 512, 32, 128), (4, 512, 32, 128), True,
+     0.4907, 0.28),
+    ("whisper-small encoder", (4, 1500, 12, 64), (4, 1500, 12, 64), False,
+     1.0741, 0.85),
+    ("whisper-small cross prompt", (4, 4, 12, 64), (4, 1500, 12, 64), False,
+     None, None),
+    ("whisper-small cross decode", (4, 1, 12, 64), (4, 1500, 12, 64), False,
+     0.0676, 0.0676),
 )
 
 
@@ -3701,16 +3743,18 @@ def _tf32_control(torch, label, q, k, v, got, kw, failures):
 def phase8_attention(torch, timer, failures):
     """K2e at the F32GER runs' attention shapes: each held against its
     plain version (``check_attn_case``: the rounding budget, with no P
-    rounding in f32) and the budget's TF32 control (``_tf32_control``),
-    and timed beside the plain version and SDPA on f32 inputs (TF32 off),
-    with its bound at the fp32 peak; the entries' launches are the F32GER
-    runs' (PHASE8), by mode."""
+    rounding in f32) and the budget's TF32 control (``_tf32_control``), a
+    split row at batch 1 bit for bit the same row in the batch, and timed
+    beside the plain version and SDPA on f32 inputs (TF32 off), with its
+    bound at the fp32 peak, the parent kernel's PERF.md time and its aim
+    (a miss is reported, not failed); the entries' launches are the
+    F32GER runs' (PHASE8), by mode."""
     from repro_torch.kernels import mma_attention as A
 
     g = torch.Generator(device="cuda").manual_seed(21)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, qs, ks, causal in F32_ATTENTION:
+    for name, qs, ks, causal, parent, aim in F32_ATTENTION:
         q, k, v = (torch.randn(s, generator=g, device="cuda")
                    for s in (qs, ks, ks))
         kw = dict(causal=causal)
@@ -3719,6 +3763,11 @@ def phase8_attention(torch, timer, failures):
         label = f"f32 {name} {qs} over {ks[1]} ({mode})"
         err, got = check_attn_case(torch, label, q, k, v, kw, failures)
         ratios = _tf32_control(torch, label, q, k, v, got, kw, failures)
+        if mode == "split":
+            one = A.mma_flash_attention(q[:1], k[:1], v[:1], **kw)
+            _check(failures, f"{label} row at batch 1",
+                   torch.equal(one[0], got[0]),
+                   "bit for bit the same row in the batch")
         del got
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {"ms": timer(lambda: A.mma_flash_attention(q, k, v, **kw)),
@@ -3732,9 +3781,17 @@ def phase8_attention(torch, timer, failures):
             (2 * q.numel() + k.numel() + v.numel()) * 4,
             4 * d * pairs * h * b, "f32")
         row.update(ratios)
-        print(f"  time attn {label}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, sdpa f32 {row['library_ms']:.4f} "
-              f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        goal = ""
+        if aim is not None:
+            row["aim_met"] = row["ms"] <= aim
+            goal = (f"; aim {'met' if row['aim_met'] else 'MISSED'} "
+                    f"(<= {aim:.4f} ms)")
+        print(f"  time attn {label}: kernel {row['ms']:.4f} ms (parent in "
+              f"PERF.md: {parent if parent is not None else 'none'} ms), "
+              f"plain {row['plain_ms']:.4f} ms, sdpa f32 "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.2f} of "
+              f"bound{goal}")
         rows.setdefault(mode, {})[label] = (row, err)
     entries = []
     for mode, by_label in rows.items():
@@ -5414,19 +5471,22 @@ ATTN_TARGETS = (
 
 def attn_sdpa(torch, q, k, v, kw):
     """SDPA on (B, H, S, D) views of the same inputs, the KV heads
-    repeated over their GQA groups, with a boolean mask for a window:
-    the library call beside the kernel (timed only)."""
+    repeated over their GQA groups, with a boolean mask for a window or a
+    q_offset (SDPA's own causal mask aligns query 0 with key 0): the
+    library call beside the kernel (timed only)."""
     from repro_torch.kernels import mma_attention as A
     group = q.shape[2] // k.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in (
         q, A.repeat_kv(k, group), A.repeat_kv(v, group)))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if "window" not in kw:
+    if "window" not in kw and not kw.get("q_offset"):
         return lambda: sdpa(qt, kt, vt, is_causal=kw["causal"])
     sq, sk = q.shape[1], k.shape[1]
-    qp = torch.arange(sq, device="cuda")[:, None]
+    qp = torch.arange(sq, device="cuda")[:, None] + kw.get("q_offset", 0)
     kp = torch.arange(sk, device="cuda")[None, :]
-    mask = qp - kp < kw["window"]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device="cuda")
+    if "window" in kw:
+        mask &= qp - kp < kw["window"]
     if kw["causal"]:
         mask &= qp >= kp
     return lambda: sdpa(qt, kt, vt, attn_mask=mask)

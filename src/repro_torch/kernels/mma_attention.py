@@ -18,15 +18,25 @@ on the tensor cores, and the output stored from registers through shared
 memory in 16-byte rows where there is no epilogue.  It walks steps of
 :func:`kv_step` keys (128 at D <= 128, 64 at the padded 192) aligned to
 multiples of the step: :func:`attn_k_bounds` at ``bk`` = the step, which
-is the bounds at 64 widened to that alignment.  Short queries split their
-KV blocks of 64 over several blocks (:func:`split_kv_plan`) and merge the
-partials by log-sum-exp.  f32 q, k and v (K2e: the F32GER policy's
-operands) run the kernel's fp32 tile, true fp32 FMAs on 64-row q tiles
-with P kept in fp32, in both modes (the tile and split-KV, merged
-alike).  :func:`attn_plan` picks the q tile and the split: an autotune
-winner or an explicit tile where the kernel runs it
-(``core/autotune.py``, keyed by heads and never by the batch), else that
-heuristic.
+is the bounds at 64 widened to that alignment.  Short queries (Sq <= 64)
+split their KV blocks of 64 over several blocks of one launch
+(:func:`split_kv_plan`; ``flash_decode_kernel``, every input type): four
+warps a block stream the split's blocks through a ``cp.async`` ring,
+16-row slices on ``mma.sync`` (fp32: the same fragments on true fp32
+FMAs), the warps of one slice splitting each block's keys; their partials
+merge inside the block in warp order, and the splits' partials merge by
+log-sum-exp in split order in the same launch: the (at most
+:data:`DECODE_CLUSTER_MAX`) splits of a (b, h) are one thread-block
+cluster, whose first block merges them through shared memory.  f32 q, k
+and v (K2e: the F32GER policy's operands) in the tile mode run the fp32
+tile (``flash_f32_tile_kernel``): true fp32 FMAs, eight warps of 16 query
+rows (the 128-row tile) or 8 (the 64-row tile, where 128-row tiles leave
+SMs idle) walking steps of :func:`kv_step` keys (64; 32 at depth 160),
+S in 8 x 4 (128-row tile) or 4 x 4 register tiles a lane, P kept in
+fp32.  :func:`attn_plan` picks the q tile
+and the split: an autotune winner or an explicit tile where the kernel
+runs it (``core/autotune.py``, keyed by heads and never by the batch),
+else that heuristic.
 
 A CPU tensor goes to the plain version of what the card would run:
 :func:`flash_attention_splitkv_plain` (per-split partials and their
@@ -34,10 +44,11 @@ merge) where :func:`split_kv_plan` splits, else
 :func:`flash_attention_plain` (the two-product softmax of
 :func:`ref_attention` plus the epilogue).  A CUDA tensor launches the
 kernel or raises.  ``mma_flash_attention.launches`` counts attention
-calls run on the card (the split-KV merge is part of its call), and
+calls run on the card (the split-KV merge is part of its launch), and
 nothing else; ``mma_flash_attention.launches_by_mode`` the same by mode:
-``tile`` and ``split`` (the 16-bit wgmma kernels), ``f32_tile`` and
-``f32_split`` (the fp32 tile, K2e); ``padded_launches_by_mode`` those of
+``tile`` (the 16-bit wgmma tile), ``split`` (the decode kernel on 16-bit
+operands), ``f32_tile`` (the fp32 tile, K2e) and ``f32_split`` (the
+decode kernel on fp32 operands); ``padded_launches_by_mode`` those of
 them whose depth was padded; ``full_grid_launches`` those that ran the
 full grid.
 
@@ -98,11 +109,17 @@ from repro_torch.kernels import epilogue as _epilogue
 NEG_INF = -1e30
 
 # The kernel's tiles (csrc/mma_attention.cu): 128 query rows (two consumer
-# warpgroups; 64 where the grid would not fill the card) by 64 KV rows,
-# the schedule's unit (the 16-bit tile mode walks steps of two of them at
-# D <= 128: kv_step).
+# warpgroups, or eight fp32 warps of 16; 64 where the grid would not fill
+# the card, and the split-KV kernel's one q tile) by 64 KV rows, the
+# schedule's unit (the 16-bit tile mode walks steps of two of them at
+# D <= 128, the fp32 tile steps of one, half of one at its depth 160:
+# kv_step).
 BLOCK_Q, BLOCK_Q_SHORT, BLOCK_K = 128, 64, 64
-TILE_STEP = 128
+TILE_STEP, F32_STEP, F32_STEP_160 = 128, 64, 32
+# The fewest KV blocks of 64 a split walks (split_kv_plan), and the most
+# splits of a (b, h), which merge as one thread-block cluster
+# (csrc/mma_attention.cu's DEC_CLUSTER_MAX, the portable cluster size).
+SPLIT_MIN_BLOCKS, DECODE_CLUSTER_MAX = 6, 8
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MODES = ("tile", "split", "f32_tile", "f32_split")
 # The depths the kernel is compiled for, by operand dtype (the 16-bit
@@ -111,7 +128,7 @@ KERNEL_HEAD_DIMS = (32, 64, 128, 192)
 F32_HEAD_DIMS = (32, 64, 128, 160)
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
@@ -185,28 +202,46 @@ def attn_grid_plan(sq: int, sk: int, bq: int, bk: int, *, causal: bool,
 def kv_step(d: int, f32: bool, n_split: int) -> int:
     """Keys a step of the kernel's KV loop at compiled depth ``d``: 128 in
     the 16-bit tile mode at D <= 128 (S a 64 x 128 wgmma tile beside O in
-    the registers), else 64 (D = 192, split-KV, the fp32 tile)."""
-    return TILE_STEP if not f32 and n_split == 1 and d <= 128 else BLOCK_K
+    the registers), 64 on the fp32 tile (32 at its depth 160, whose 64-key
+    steps would not fit shared memory), else 64 (D = 192, split-KV)."""
+    if n_split > 1:
+        return BLOCK_K
+    if f32:
+        return F32_STEP if d <= 128 else F32_STEP_160
+    return TILE_STEP if d <= 128 else BLOCK_K
 
 
-def attn_block_q(b: int, h: int, sq: int) -> int:
-    """The q tile: 128 rows, or 64 where 128-row tiles leave SMs idle."""
+def attn_block_q(b: int, h: int, sq: int, d: int, f32: bool) -> int:
+    """The q tile: 128 rows, or 64 where 128-row tiles leave SMs idle.
+    The fp32 tile below its compiled depth 128 always takes 64 rows: there
+    the 64-row tile holds two blocks an SM, the 128-row one a single block
+    of 8 warps (the 64-row tile was the faster at whisper's encoder)."""
+    if f32 and compiled_depth(d, True) < 128:
+        return BLOCK_Q_SHORT
     return BLOCK_Q if -(-sq // BLOCK_Q) * b * h >= NUM_SMS else BLOCK_Q_SHORT
 
 
 def split_kv_plan(h: int, sq: int, sk: int) -> tuple[int, int]:
     """(n_split, KV blocks per split) of a launch.  Queries of at most 64
     rows (one q tile) split their KV blocks so that one batch element's
-    (h, split) blocks fill the card in one wave of two blocks per SM; each
-    split walks ``per`` consecutive blocks of the tile's live range.
-    Otherwise (1, all blocks).  The plan does not read the batch: a query
-    row is summed in the same order at any B (a larger batch runs more
-    waves), as the reference's kernel schedules each (b, h, q-block)
-    alike."""
+    (h, split) blocks would fill the card twice over, but each split walks
+    at least :data:`SPLIT_MIN_BLOCKS` blocks (384 keys), or half the
+    blocks where there are fewer than twice that: a block's fixed costs
+    (its Q, the ring's first round trip, the partial it writes and the
+    merge's read of it) are paid over a few blocks' bytes, which the
+    decode kernel's ring keeps in flight.  A (b, h) takes at most
+    :data:`DECODE_CLUSTER_MAX` splits (the cluster that merges them),
+    longer ones past that.  Each split walks ``per`` consecutive blocks
+    of the tile's live range.  Otherwise (1, all
+    blocks).  The plan does not read the batch: a query row is summed in
+    the same order at any B (a larger batch runs more blocks), as the
+    reference's kernel schedules each (b, h, q-block) alike."""
     nk = -(-sk // BLOCK_K)
     if sq > BLOCK_Q_SHORT or nk < 2:
         return 1, nk
-    per = -(-nk // max(1, min(nk, 2 * NUM_SMS // h)))
+    per = max(min(SPLIT_MIN_BLOCKS, -(-nk // 2)),
+              -(-nk // max(1, 2 * NUM_SMS // h)),
+              -(-nk // DECODE_CLUSTER_MAX))
     return -(-nk // per), per
 
 
@@ -219,18 +254,20 @@ def compiled_depth(d: int, f32: bool) -> int | None:
 
 def attn_takes(tuned: tuple, sq: int, sk: int, d: int, f32: bool) -> bool:
     """Whether the kernel runs the winner ``tuned`` = (bq, n_split) at
-    this shape: a compiled q tile (128 rows only in the 16-bit tile mode
-    below the padded depth 192), and KV split over 1 to ceil(Sk / 64)
-    blocks, more than one only for queries of at most 64 rows."""
+    this shape: a compiled q tile (128 rows only in the tile modes, and
+    not at the 16-bit padded depth 192), and KV split over 1 to
+    ceil(Sk / 64) blocks and at most :data:`DECODE_CLUSTER_MAX` splits,
+    more than one only for queries of at most 64 rows (the split-KV
+    kernel's one 64-row q tile)."""
     bq, n = tuned
     nk = -(-sk // BLOCK_K)
     dp = compiled_depth(d, f32)
     if dp is None or bq not in (BLOCK_Q, BLOCK_Q_SHORT) \
-            or not 1 <= n <= max(nk, 1):
+            or not 1 <= n <= min(max(nk, 1), DECODE_CLUSTER_MAX):
         return False
     if n > 1 and sq > BLOCK_Q_SHORT:
         return False
-    return bq == BLOCK_Q_SHORT or (n == 1 and not f32 and dp != 192)
+    return bq == BLOCK_Q_SHORT or (n == 1 and (f32 or dp != 192))
 
 
 def attn_plan(b: int, h: int, sq: int, sk: int, d: int, f32: bool,
@@ -240,10 +277,11 @@ def attn_plan(b: int, h: int, sq: int, sk: int, d: int, f32: bool,
     or an explicit ``Plan.block``'s tile with n_split None: the
     heuristic's split) where the kernel takes it (:func:`attn_takes`);
     else the heuristic: :func:`split_kv_plan`'s split, and the 64-row
-    tile where KV splits, for fp32 operands and at the padded depth 192
-    (whose 128-row tile would spill its accumulators), else
-    :func:`attn_block_q`'s.  A split count is rounded to the one its
-    per-split block count gives (ceil(nk / ceil(nk / n)))."""
+    tile where KV splits and at the 16-bit padded depth 192 (whose 128-row
+    tile would spill its accumulators), else :func:`attn_block_q`'s (the
+    fp32 tile's rows sum alike on both tiles, so its choice by batch moves
+    no bit).  A split count is rounded to the one its per-split block
+    count gives (ceil(nk / ceil(nk / n)))."""
     if tuned is not None and tuned[1] is None:
         tuned = (tuned[0], split_kv_plan(h, sq, sk)[0])
     if tuned is not None and attn_takes(tuned, sq, sk, d, f32):
@@ -251,8 +289,9 @@ def attn_plan(b: int, h: int, sq: int, sk: int, d: int, f32: bool,
         per = -(-nk // tuned[1])
         return tuned[0], -(-nk // per), per
     n_split, per = split_kv_plan(h, sq, sk)
-    short = n_split > 1 or f32 or compiled_depth(d, f32) == 192
-    return (BLOCK_Q_SHORT if short else attn_block_q(b, h, sq)), n_split, per
+    short = n_split > 1 or (not f32 and compiled_depth(d, f32) == 192)
+    return (BLOCK_Q_SHORT if short else attn_block_q(b, h, sq, d, f32),
+            n_split, per)
 
 
 # ----------------------------------------------------------------------
@@ -591,22 +630,13 @@ def _mma_flash_attention(q, k, v, *, causal, q_offset, window, valid, ep,
     out = torch.empty((b, sq, h, dp), dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out[..., :d]         # an empty grid is not a launch
-    ws_o = ws_ml = None
-    if n_split > 1:
-        ws_o = torch.empty((b, h, sq, n_split, dp), dtype=torch.float32,
-                           device=q.device)
-        ws_ml = torch.empty((b, h, sq, n_split, 2), dtype=torch.float32,
-                            device=q.device)
     lib = _lib()
     rc = lib.mma_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         valid.data_ptr() if valid is not None else None,
         bias.data_ptr() if bias is not None else None,
         residual.data_ptr() if residual is not None else None,
-        out.data_ptr(),
-        ws_o.data_ptr() if ws_o is not None else None,
-        ws_ml.data_ptr() if ws_ml is not None else None,
-        KERNEL_DTYPES[q.dtype],
+        out.data_ptr(), KERNEL_DTYPES[q.dtype],
         _OUT_CODES[bias.dtype] if bias is not None else 0,
         _OUT_CODES[residual.dtype] if residual is not None else 0,
         _OUT_CODES[out_dtype], b, sq, sk, h, kvh, dp, int(causal),

@@ -311,8 +311,8 @@ def test_tile_steps_hold_the_same_live_pairs(sq, sk, kw, bq):
 
 @pytest.mark.parametrize("batch", [4, 8])
 def test_one_query_row_does_not_depend_on_the_batch(batch):
-    """At Sq = 1, H = 2 over 2560 positions the plan splits KV (40 splits
-    of one block).  Row 0's output from ``mma_flash_attention`` on the CPU
+    """At Sq = 1, H = 2 over 2560 positions the plan splits KV (7 splits
+    of 6 blocks).  Row 0's output from ``mma_flash_attention`` on the CPU
     (the split-KV plain version, the card's arithmetic) at batch 1 equals
     the same row inside a batch of 4 and of 8, bit for bit: the plan, and
     so the order of each row's sums, does not depend on B."""
@@ -334,8 +334,8 @@ def test_split_kv_plan_reads_no_batch():
     import inspect
     assert list(inspect.signature(tattn.split_kv_plan).parameters) == \
         ["h", "sq", "sk"]
-    assert tattn.split_kv_plan(12, 1, 1500) == (12, 2)
-    assert tattn.split_kv_plan(2, 1, 2560) == (40, 1)
+    assert tattn.split_kv_plan(12, 1, 1500) == (4, 6)
+    assert tattn.split_kv_plan(2, 1, 2560) == (7, 6)
     assert tattn.split_kv_plan(12, 65, 1500)[0] == 1
     assert tattn.split_kv_plan(12, 1, 64) == (1, 1)
 
@@ -549,3 +549,233 @@ def test_full_grid_under_autograd():
         out.square().sum().backward()
         grads.append((out.detach(), tq.grad, tk.grad, tv.grad))
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# ----------------------------------------------------------------------
+# The split-KV decode kernel and the fp32 tile (csrc/mma_attention.cu
+# flash_decode_kernel, flash_f32_tile_kernel) mirrored in pure Python:
+# their shared memory, the split plan's partition and the fp32 tile's
+# 32-key steps; the plain versions of both modes at the plan's edges
+# ----------------------------------------------------------------------
+
+# Shared memory each of two resident blocks may take (the SM's 228 KB
+# less 1 KB reserved a block).
+SMEM_TWO_A_SM = 115712
+
+
+def decode_config(d, itemsize):
+    """``DecodeCfg<T, D>``: four warps over one 64-row q tile; K and V
+    rows padded by 16 bytes; fp32 Q staged in shared memory; a ring of
+    2-3 stages of one 64-key block, as deep as two blocks an SM allow,
+    else one block an SM; the four warps' (16, D + 2) fp32 partials and
+    the split's (up to 64, D + 2) alias the ring after the loop."""
+    f32 = itemsize == 4
+    ldk = d + 4 if f32 else d + 8
+    q_bytes = 4 * 64 * (d + 4) if f32 else 0
+    stage = 2 * 64 * ldk * itemsize
+    fit2 = int((SMEM_TWO_A_SM - q_bytes) / stage)   # C++ truncation
+    min_blocks = 2 if fit2 >= 2 else 1
+    fit = fit2 if min_blocks == 2 else int((BLOCK_SMEM_MAX - q_bytes)
+                                           / stage)
+    stages = min(3, fit)
+    return dict(stages=stages, min_blocks=min_blocks,
+                smem=q_bytes + stages * stage, ring=stages * stage,
+                partials=2 * 64 * (d + 2) * 4)
+
+
+def f32_tile_config(d, rw):
+    """``F32TileCfg<D, RW>``: eight warps of ``rw`` query rows, steps of
+    ``kv_step`` keys (64; 32 at D = 160); S's lane grid: step / 4 lanes
+    across the keys (4 keys a lane), the rest across the warp's rows; the
+    Q tile (rows unpadded), each warp's (step, rw) P and rw corrections,
+    and a ring of 2-3 K and V steps (K rows D + 4 floats, V rows D), as
+    deep as two blocks an SM allow, else one block an SM."""
+    step = tattn.kv_step(d, True, 1)
+    bq, kg = 8 * rw, step // 4
+    stage = 4 * step * (2 * d + 4)
+    base = 4 * (bq * d + 8 * step * rw + 8 * rw)
+    fit2 = int((SMEM_TWO_A_SM - base) / stage)
+    min_blocks = 2 if fit2 >= 2 else 1
+    fit = fit2 if min_blocks == 2 else int((BLOCK_SMEM_MAX - base) / stage)
+    stages = min(3, fit)
+    return dict(bq=bq, stages=stages, min_blocks=min_blocks,
+                smem=base + stages * stage, step=step,
+                s_tile=(rw // (32 // kg), 4))
+
+
+@pytest.mark.parametrize("d,itemsize", [(d, 2) for d in
+                                        tattn.KERNEL_HEAD_DIMS]
+                         + [(d, 4) for d in tattn.F32_HEAD_DIMS])
+def test_decode_configs_fit_shared_memory(d, itemsize):
+    """Each compiled decode configuration fits a block's 227 KB, its
+    resident blocks an SM's 228 KB with 1 KB reserved each; two or three
+    stages; the warps' and the split's partials fit in the ring they
+    alias.  16-bit
+    operands at D <= 128 and fp32 at D <= 64 run two blocks an SM."""
+    cfg = decode_config(d, itemsize)
+    assert cfg["stages"] in (2, 3)
+    assert cfg["smem"] <= BLOCK_SMEM_MAX
+    assert cfg["min_blocks"] * (cfg["smem"] + BLOCK_SMEM_RESERVED) \
+        <= SM_SMEM
+    assert cfg["partials"] <= cfg["ring"]
+    assert cfg["min_blocks"] == (2 if d <= (128 if itemsize == 2 else 64)
+                                 or (itemsize == 2 and d == 192) else 1)
+
+
+@pytest.mark.parametrize("d,rw", [(d, rw) for d in tattn.F32_HEAD_DIMS
+                                  for rw in (8, 16)])
+def test_f32_tile_configs_fit_shared_memory(d, rw):
+    """Each fp32 tile (128 rows: rw = 16; 64 rows: rw = 8) fits a block's
+    227 KB and its resident blocks an SM's 228 KB; two or three stages,
+    two blocks an SM where a 128-register thread fits them; S's lane tile
+    is 8 x 4 on the 128-row tile at D <= 128 (64-key steps), 4 x 4 on its
+    64-row tile; the wrapper runs both tiles at every fp32 depth, in the
+    tile mode only (split-KV runs the decode kernel)."""
+    cfg = f32_tile_config(d, rw)
+    assert cfg["smem"] <= BLOCK_SMEM_MAX
+    assert cfg["min_blocks"] * (cfg["smem"] + BLOCK_SMEM_RESERVED) \
+        <= SM_SMEM
+    assert cfg["stages"] in (2, 3)
+    assert cfg["step"] == (64 if d <= 128 else 32)
+    if d <= 128:
+        assert cfg["s_tile"] == ((8, 4) if rw == 16 else (4, 4))
+    if d == 128:
+        assert cfg["min_blocks"] == 1
+    # the 128-row tile where its tiles fill the card, at depths 128 and
+    # 160 (below, the 64-row tile holds two blocks an SM)
+    assert tattn.attn_block_q(4, 32, 512, d, True) == (128 if d >= 128
+                                                        else 64)
+    assert tattn.attn_block_q(1, 32, 256, d, True) == 64
+    assert tattn.attn_takes((cfg["bq"], 1), 512, 512, d, True)
+    assert not tattn.attn_takes((128, 2), 1, 1500, d, True)
+
+
+@pytest.mark.parametrize("sq,sk,kw", [
+    (256, 256, dict(causal=True)),
+    (300, 300, dict(causal=True, window=100)),
+    (100, 356, dict(causal=True, q_offset=256)),
+    (200, 333, dict(causal=False)),
+    (512, 512, dict(causal=True)),
+])
+@pytest.mark.parametrize("bq", [64, 128])
+def test_f32_steps_hold_the_same_live_pairs(sq, sk, kw, bq):
+    """The fp32 tile's steps of 32 keys (its depth 160), attn_k_bounds at
+    bk = 32, cover the tile's live range of 64-key blocks (its steps at
+    D <= 128): every live (q, k) pair of a tile lies in its steps, none
+    past them, and the steps are no more than the 64-key blocks'."""
+    assert tattn.kv_step(128, True, 1) == tattn.BLOCK_K
+    step, nq = tattn.kv_step(160, True, 1), -(-sq // bq)
+    for qi in range(nq):
+        lo, hi = tattn.attn_k_bounds(qi, -(-sk // step), bq=bq, bk=step,
+                                     **kw)
+        lo64, hi64 = tattn.attn_k_bounds(qi, -(-sk // 64), bq=bq, bk=64,
+                                         **kw)
+        assert lo64 * 64 <= lo * step and hi * step <= hi64 * 64
+        rows = np.arange(qi * bq, min(sq, (qi + 1) * bq)) + kw.get(
+            "q_offset", 0)
+        k = np.arange(sk)
+        m = np.ones((len(rows), sk), bool)
+        if kw["causal"]:
+            m &= rows[:, None] >= k[None]
+        if kw.get("window"):
+            m &= rows[:, None] - k[None] < kw["window"]
+        inside = (k >= lo * step) & (k < hi * step)
+        assert not m[:, ~inside].any()
+
+
+_SPLIT_PLANS = [(12, 1, 1500), (12, 4, 1500), (32, 1, 4096), (2, 1, 2560),
+                (8, 64, 700), (4, 20, 272), (33, 1, 1500), (1, 1, 65),
+                (40, 2, 300), (12, 1, 64)]
+
+
+@pytest.mark.parametrize("h,sq,sk", _SPLIT_PLANS)
+def test_split_plan_puts_every_key_in_one_split(h, sq, sk):
+    """split_kv_plan's splits partition the KV blocks: each of the
+    ceil(Sk / 64) blocks (each key) lies in exactly one split, no split is
+    empty, each walks at least SPLIT_MIN_BLOCKS blocks (or half of them
+    where there are fewer than twice that), and a query of at most 64
+    rows over two or more blocks splits."""
+    n_split, per = tattn.split_kv_plan(h, sq, sk)
+    nk = -(-sk // tattn.BLOCK_K)
+    owner = [s for s in range(n_split) for _ in range(per)][:nk]
+    assert len(owner) == nk
+    assert sorted(set(owner)) == list(range(n_split))
+    keys = np.repeat(owner, tattn.BLOCK_K)[:sk]
+    assert len(keys) == sk and np.all(np.diff(keys) >= 0)
+    if n_split > 1:
+        assert sq <= tattn.BLOCK_Q_SHORT
+        assert per >= min(tattn.SPLIT_MIN_BLOCKS, -(-nk // 2))
+    else:
+        assert per == nk and (sq > tattn.BLOCK_Q_SHORT or nk < 2)
+    assert tattn.attn_plan(3, h, sq, sk, 64, False)[1:] == (n_split, per)
+    assert tattn.attn_plan(7, h, sq, sk, 64, True)[1:] == (n_split, per)
+
+
+# (name, (B, Sq, Sk, H, KVH), flags): the edges of the split plan and of
+# the fp32 tile's
+_EDGE_CASES = {
+    "split Sq=1 Sk=600": ((2, 1, 600, 4, 4), dict(causal=False)),
+    "split Sq=4 gqa 4": ((2, 4, 520, 8, 2), dict(causal=False)),
+    "split Sq=64 causal q_offset": ((1, 64, 400, 4, 4),
+                                    dict(causal=True, q_offset=336)),
+    "split Sq=20 window q_offset": ((1, 20, 700, 4, 1),
+                                    dict(causal=True, q_offset=680,
+                                         window=250)),
+    "split Sq=1 valid": ((2, 1, 344, 4, 2), dict(causal=False, valid=True)),
+    "tile Sq=100 gqa 4 valid": ((2, 100, 100, 8, 2),
+                                dict(causal=True, valid=True)),
+    "tile window q_offset": ((1, 72, 200, 4, 4),
+                             dict(causal=True, q_offset=128, window=50)),
+}
+
+
+def _divisor(n, most):
+    """The largest power of two up to ``most`` that divides ``n`` (the
+    reference's blocks must divide S)."""
+    b = most
+    while n % b:
+        b //= 2
+    return b
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("case", list(_EDGE_CASES))
+def test_plain_versions_match_pallas_at_the_plan_edges(case, dtype):
+    """The plain version of the mode the card runs (split-KV where the
+    plan splits, else the tile) against the reference's interpret-mode
+    kernel on the same inputs, bf16 and f32, at D = 32: each output within
+    twice the rounding budget (both round P against running or split
+    maxima: each within the budget of the exact result); rows with no
+    valid slot exact zeros in both."""
+    (b, sq, sk, h, kvh), kw = _EDGE_CASES[case]
+    kw = dict(kw)
+    d = 32
+    q, k, v = _qkv(sum(map(ord, case)), b, sq, sk, h, kvh, d)
+    jkw, tkw = dict(kw), dict(kw)
+    if kw.pop("valid", False):
+        valid = np.ones((b, sk), bool)
+        valid[0] = False
+        valid[-1, 70:200] = False
+        jkw["valid"], tkw["valid"] = jnp.asarray(valid), torch.from_numpy(
+            valid)
+    n_split, per = tattn.split_kv_plan(h, sq, sk)
+    assert (n_split > 1) == case.startswith("split")
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(jattn.mma_flash_attention(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)),
+        block_q=_divisor(sq, 16), block_k=_divisor(sk, 64),
+        out_dtype=jnp.float32, interpret=True, **jkw))
+    tq, tk, tv = (_t(a).to(tdt) for a in (q, k, v))
+    got = tattn.mma_flash_attention(tq, tk, tv, out_dtype=torch.float32,
+                                    **tkw)
+    if n_split > 1:
+        assert torch.equal(got, tattn.flash_attention_splitkv_plain(
+            tq, tk, tv, n_split=n_split, per=per, out_dtype=torch.float32,
+            **tkw))
+    flags = {f: tkw[f] for f in ("causal", "q_offset", "window", "valid")
+             if f in tkw}
+    budget = tattn.rounding_budget(tq, tk, tv, **flags).numpy()
+    assert np.all(np.abs(got.numpy() - want) <= 2 * budget + 1e-6)
+    if "valid" in kw or "valid" in tkw:
+        assert np.all(got[0].numpy() == 0) and np.all(want[0] == 0)

@@ -535,23 +535,31 @@ def test_attention_winner_serves_every_mask_at_a_shape(_hermetic_cache,
 
 
 def test_attention_winner_explicit_block_and_fallback(_hermetic_cache):
-    """A 128-row winner for fp32 q/k/v is not a tile the fp32 kernel runs:
-    lookup reads it as a miss; an explicit (64, 64) Plan.block is taken;
-    a tile the call cannot run falls back, counted."""
-    h, sq, sk, d = 2, 128, 128, 32
+    """A 128-row winner for a call that splits KV is not a tile the kernel
+    runs (the split-KV kernel has one 64-row q tile): lookup reads it as a
+    miss; at a prefill shape the fp32 tile runs both tiles, so a 128-row
+    winner is taken there; an explicit (64, 64) Plan.block is taken; a
+    128-row block on a call that splits falls back, counted."""
+    h, sq, sk, d = 2, 1, 640, 32
     key = autotune.attn_cache_key(Ger.F32GER, h, sq, sk, d, backend="cpu")
     _hermetic_cache.put_raw(key, [128, 64], source="prior", score=0.0,
-                            split=1)
+                            split=2)
     assert autotune.lookup_attn(Ger.F32GER, h, sq, sk, d,
                                 backend="cpu") is None
+    key = autotune.attn_cache_key(Ger.F32GER, h, 128, 128, d, backend="cpu")
+    _hermetic_cache.put_raw(key, [128, 64], source="prior", score=0.0,
+                            split=1)
+    assert autotune.lookup_attn(Ger.F32GER, h, 128, 128, d,
+                                backend="cpu") == (128, 1)
     assert tattn.attn_plan(1, h, sq, sk, d, False, (64, None))[0] == 64
     q = _rand((1, sq, h, d), 17)
+    kv = _rand((1, sk, h, d), 18)
     before = tattn.mma_flash_attention.tuned_fallbacks
     with tfac.configure(CPU):
-        tfac.contract(tfac.ATTN, q, q, q, plan=tfac.Plan(
+        tfac.contract(tfac.ATTN, q, kv, kv, plan=tfac.Plan(
             ger=Ger.F32GER, out_dtype=torch.float32, block=(64, 64)))
         assert tattn.mma_flash_attention.tuned_fallbacks == before
-        tfac.contract(tfac.ATTN, q, q, q, plan=tfac.Plan(
+        tfac.contract(tfac.ATTN, q, kv, kv, plan=tfac.Plan(
             ger=Ger.F32GER, out_dtype=torch.float32, block=(128, 64)))
     assert tattn.mma_flash_attention.tuned_fallbacks == before + 1
 

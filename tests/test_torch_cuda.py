@@ -2432,3 +2432,189 @@ def test_dmma_redesign_forms(gen, form, block):
             err = (ck - want_ck).abs()
             assert bool((err <= abft.ATOL + abft.FACTOR * eps * mag_ck
                          ).all()), err.max().item()
+
+
+# ----------------------------------------------------------------------
+# The split-KV decode kernel (mma_attention.cu flash_decode_kernel: four
+# warps a (b, h, split), 16-row mma.sync slices or fp32 FMAs on the same
+# fragments, the splits merged as one cluster) and the fp32 tile
+# (flash_f32_tile_kernel: eight warps of 16 or 8 rows, 64-key steps, 32
+# at depth 160):
+# every form the wrapper sends them, at every compiled depth
+# ----------------------------------------------------------------------
+
+# form: ((B, Sq, H, KVH), Sk, flags); D and the dtype come from the
+# parameters.  "valid": batch 0 has no valid slot, batch 1 loses its
+# second and third KV blocks.
+_DECODE_FORMS = {
+    "cross Sq=1 Sk=1500": ((4, 1, 12, 12), 1500, dict(causal=False)),
+    "gqa 4 Sq=4 causal q_offset": ((2, 4, 8, 2), 700,
+                                   dict(causal=True, q_offset=696)),
+    "Sq=20 window q_offset": ((2, 20, 4, 4), 900,
+                              dict(causal=True, q_offset=880, window=300)),
+    "Sq=64 Sk=333": ((1, 64, 4, 1), 333, dict(causal=False)),
+    "valid, masked rows": ((2, 1, 8, 2), 700, dict(causal=False)),
+    "epilogue bias silu residual": ((2, 2, 8, 4), 900, dict(causal=False)),
+    "full grid causal": ((2, 4, 4, 4), 1024,
+                         dict(causal=True, q_offset=200)),
+    "8 splits, the cluster's most": ((2, 1, 2, 2), 4096,
+                                     dict(causal=False)),
+}
+_DECODE_TYPES = ([(torch.bfloat16, d) for d in A.KERNEL_HEAD_DIMS]
+                 + [(torch.float16, d) for d in A.KERNEL_HEAD_DIMS]
+                 + [(torch.float32, d) for d in A.F32_HEAD_DIMS])
+
+
+@pytest.mark.parametrize("dt,d", _DECODE_TYPES,
+                         ids=[f"{str(t)[6:]}-{d}" for t, d in _DECODE_TYPES])
+@pytest.mark.parametrize("form", sorted(_DECODE_FORMS))
+def test_decode_kernel_forms(gen, form, dt, d):
+    """Each split-KV form on the decode kernel (the splits merged as one
+    cluster, at most 8 of them), counted in its mode,
+    within its rounding budget of the plain version and of the split-KV
+    plain version (P rounded per warp against its running max, the splits
+    merged in order); fully masked rows exact zeros; the full grid bit for
+    bit the bounded launch; row 0 of batch 1 bit for bit the same row in
+    the batch; two launches the same bits (the merge's order is
+    fixed)."""
+    (b, sq, h, kvh), sk, kw = _DECODE_FORMS[form]
+    q = _randn(gen, b, sq, h, d, dtype=dt)
+    k, v = _randn(gen, b, sk, kvh, d, dtype=dt), _randn(gen, b, sk, kvh, d,
+                                                        dtype=dt)
+    kw = dict(kw)
+    out_dtype = torch.float32
+    if form.startswith("valid"):
+        valid = torch.ones((b, sk), dtype=torch.bool, device="cuda")
+        valid[0] = False
+        valid[1, 64:192] = False
+        kw["valid"] = valid
+    if form.startswith("epilogue"):
+        kw.update(ep=E.Epilogue(bias=True, activation="silu",
+                                residual=True),
+                  bias=_randn(gen, d, dtype=torch.float32),
+                  residual=_randn(gen, b, sq, h, d, dtype=dt))
+        out_dtype = dt
+    n_split, per = A.split_kv_plan(h, sq, sk)
+    assert n_split > 1
+    # at most 8 splits, one cluster; a long cache takes longer splits
+    assert n_split <= A.DECODE_CLUSTER_MAX
+    if form.startswith("8 splits"):
+        assert n_split == A.DECODE_CLUSTER_MAX
+        assert per > A.SPLIT_MIN_BLOCKS
+    mode = ("f32_" if dt == torch.float32 else "") + "split"
+    before = A.mma_flash_attention.launches_by_mode[mode]
+    got = A.mma_flash_attention(q, k, v, out_dtype=out_dtype, **kw)
+    again = A.mma_flash_attention(q, k, v, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    assert A.mma_flash_attention.launches_by_mode[mode] == before + 2
+    assert torch.equal(got, again)
+    flags = {f: kw[f] for f in ("causal", "q_offset", "window", "valid",
+                                "ep") if f in kw}
+    budget = A.rounding_budget(q, k, v, **flags)
+    _attn_store_ok(got, A.flash_attention_plain(
+        q, k, v, out_dtype=torch.float32, **kw), budget, out_dtype)
+    _attn_store_ok(got, A.flash_attention_splitkv_plain(
+        q, k, v, n_split=n_split, per=per, out_dtype=torch.float32, **kw),
+        budget, out_dtype)
+    if form.startswith("valid"):
+        assert bool((got[0] == 0).all())
+    if form.startswith("full grid"):
+        assert torch.equal(A.mma_flash_attention(
+            q, k, v, out_dtype=out_dtype, bound_grid=False, **kw), got)
+    one = A.mma_flash_attention(
+        q[:1], k[:1], v[:1], out_dtype=out_dtype,
+        **{f: (x[:1] if torch.is_tensor(x) and x.dim() > 1 else x)
+           for f, x in kw.items()})
+    assert torch.equal(one[0], got[0])
+
+
+# form: ((B, Sq, H), (Sk, KVH), flags) on the fp32 tile
+_F32_TILE_FORMS = {
+    "causal gqa 4, Sk 300": ((2, 300, 8), (300, 2), dict(causal=True)),
+    "window 90": ((1, 300, 4), (300, 4), dict(causal=True, window=90)),
+    "q_offset 256": ((2, 100, 8), (356, 8), dict(causal=True, q_offset=256)),
+    "valid, masked rows": ((2, 200, 8), (200, 2), dict(causal=True)),
+    "epilogue bias gelu residual": ((2, 130, 8), (250, 8),
+                                    dict(causal=False)),
+    "full grid, window": ((1, 500, 4), (500, 4),
+                          dict(causal=True, window=200)),
+    "batch 1 row in batch 4": ((4, 256, 32), (256, 32), dict(causal=True)),
+}
+
+
+@pytest.mark.parametrize("d", A.F32_HEAD_DIMS)
+@pytest.mark.parametrize("form", sorted(_F32_TILE_FORMS))
+def test_f32_tile_redesign_forms(gen, form, d):
+    """Each form on both fp32 tiles (128 rows: eight warps of 16; 64 rows:
+    eight of 8) within the f32 budget of the plain version (no P
+    rounding), the two tiles bit for bit alike (a row's sums do not depend
+    on the tile); fully masked rows exact zeros; the full grid bit for bit
+    the bounded launch; row 0 of batch 1 bit for bit the same row in a
+    batch of 4 (the 64-row tile at batch 1, the 128-row one at batch 4
+    at depths 128 and 160)."""
+    (b, sq, h), (sk, kvh), kw = _F32_TILE_FORMS[form]
+    f32 = torch.float32
+    q = _randn(gen, b, sq, h, d, dtype=f32)
+    k, v = _randn(gen, b, sk, kvh, d, dtype=f32), _randn(gen, b, sk, kvh, d,
+                                                         dtype=f32)
+    kw = dict(kw)
+    out_dtype = f32
+    if form.startswith("valid"):
+        valid = torch.ones((b, sk), dtype=torch.bool, device="cuda")
+        valid[1, :150] = False
+        valid[0, 77:93] = False
+        kw["valid"] = valid
+    if form.startswith("epilogue"):
+        kw.update(ep=E.Epilogue(bias=True, activation="gelu",
+                                residual=True),
+                  bias=_randn(gen, d, dtype=f32),
+                  residual=_randn(gen, b, sq, h, d, dtype=f32))
+    assert A.split_kv_plan(h, sq, sk)[0] == 1
+    before = A.mma_flash_attention.launches_by_mode["f32_tile"]
+    outs = [A.mma_flash_attention(q, k, v, out_dtype=out_dtype,
+                                  tuned=(bq, 1), **kw) for bq in (64, 128)]
+    torch.cuda.synchronize()
+    assert A.mma_flash_attention.launches_by_mode["f32_tile"] == before + 2
+    flags = {f: kw[f] for f in ("causal", "q_offset", "window", "valid",
+                                "ep") if f in kw}
+    want = A.flash_attention_plain(q, k, v, out_dtype=f32, **kw)
+    budget = A.rounding_budget(q, k, v, **flags)
+    for got in outs:
+        _attn_store_ok(got, want, budget, out_dtype)
+    assert torch.equal(outs[0], outs[1])
+    if form.startswith("valid"):
+        assert bool((outs[0][1, :150] == 0).all())
+    if form.startswith("full grid"):
+        assert torch.equal(A.mma_flash_attention(
+            q, k, v, out_dtype=out_dtype, bound_grid=False, **kw), outs[0])
+    if form.startswith("batch"):
+        assert A.attn_plan(1, h, sq, sk, d, True)[0] == 64
+        assert A.attn_plan(4, h, sq, sk, d, True)[0] == (
+            128 if d >= 128 else 64)
+        one = A.mma_flash_attention(q[:1], k[:1], v[:1], out_dtype=f32, **kw)
+        many = A.mma_flash_attention(q, k, v, out_dtype=f32, **kw)
+        assert torch.equal(one[0], many[0])
+
+
+@pytest.mark.parametrize("d", A.F32_HEAD_DIMS)
+def test_f32_redesign_refuses_tf32(gen, d):
+    """The f32 budget's TF32 control on the redesigned kernels, at every
+    fp32 depth: the fp32 tile (both tiles) and the decode kernel meet the
+    budget, and the plain version on q and k rounded to TF32 lands more
+    than twice outside it."""
+    f32 = torch.float32
+    for (b, sq, h, kvh), sk, kw, tiles in (
+            ((2, 256, 8, 2), 256, dict(causal=True), ((64, 1), (128, 1))),
+            ((4, 1, 12, 12), 1500, dict(causal=False), (None,))):
+        q = _randn(gen, b, sq, h, d, dtype=f32)
+        k = _randn(gen, b, sk, kvh, d, dtype=f32)
+        v = _randn(gen, b, sk, kvh, d, dtype=f32)
+        want = A.flash_attention_plain(q, k, v, out_dtype=f32, **kw)
+        tol = A.rounding_budget(q, k, v, **kw) + 2.0 ** -20 * want.abs().max()
+        for tuned in tiles:
+            got = A.mma_flash_attention(q, k, v, out_dtype=f32, tuned=tuned,
+                                        **kw)
+            assert bool(((got - want).abs() <= tol).all())
+        q32, k32 = (_tf32(t) for t in (q, k))
+        tf32 = A.flash_attention_plain(q32, k32, v, out_dtype=f32, **kw)
+        assert ((tf32 - want).abs() / tol).max().item() > 2

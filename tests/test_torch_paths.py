@@ -228,14 +228,21 @@ def test_split_kv_plan_fills_the_card_at_whisper_cross_attention():
     n_split, per = tattn.split_kv_plan(h, 1, sk)
     nk = -(-sk // tattn.BLOCK_K)
     assert n_split * per >= nk and (n_split - 1) * per < nk
-    # one batch element's (h, split) blocks fill the card in one wave
-    assert tiling.NUM_SMS <= h * n_split <= FULL_GRID
+    # splits of at least SPLIT_MIN_BLOCKS blocks: whisper's batch of 4
+    # puts its (b, h, split) blocks on the card in one wave
+    assert per >= tattn.SPLIT_MIN_BLOCKS and n_split > 1
+    assert 4 * h * n_split <= FULL_GRID
     # prefill shapes do not split
     assert tattn.split_kv_plan(32, 256, 256) == (1, 4)
     assert tattn.split_kv_plan(12, 1500, 1500)[0] == 1
-    # the plan reads no batch: more heads than SMs still split, over as
-    # many blocks as one batch element's grid needs (two blocks an SM)
-    assert tattn.split_kv_plan(33, 1, 1500) == (8, 3)
+    # the plan reads no batch: more heads than SMs still split, into
+    # splits of at least SPLIT_MIN_BLOCKS blocks
+    assert tattn.split_kv_plan(33, 1, 1500) == (4, 6)
+    # many blocks: at most DECODE_CLUSTER_MAX splits (one cluster merges
+    # them), each longer
+    n_split, per = tattn.split_kv_plan(8, 1, 64 * 1024)
+    assert n_split == tattn.DECODE_CLUSTER_MAX and per == 1024 // 8
+    assert 8 * n_split <= 2 * tiling.NUM_SMS
 
 
 # ----------------------------------------------------------------------
@@ -582,15 +589,15 @@ def test_splitkv_plain_matches_reference(name, shape, kw, dtype):
 
 def test_splitkv_plain_masked_splits_and_rows_are_exact_zeros():
     """Batch 0 has no valid slot at all (its rows must be exact zeros);
-    batch 1's first two KV blocks are invalid, so whole splits carry no
-    live slot and must drop out of the merge."""
+    batch 1's first split's KV blocks are invalid, so a whole split
+    carries no live slot and must drop out of the merge."""
     b, sq, sk, h, kvh, d = 2, 1, 600, 6, 3, 32
     q, k, v = _attn_inputs(5, b, sq, sk, h, kvh, d)
+    n_split, per = tattn.split_kv_plan(h, sq, sk)
+    assert n_split > 1
     valid = np.ones((b, sk), bool)
     valid[0] = False
-    valid[1, :128] = False
-    n_split, per = tattn.split_kv_plan(h, sq, sk)
-    assert n_split > 1 and per * tattn.BLOCK_K <= 128
+    valid[1, :per * tattn.BLOCK_K] = False
     want = np.asarray(jattn.ref_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
         valid=jnp.asarray(valid)), np.float32)
