@@ -264,6 +264,15 @@ Phases, each of which must pass or the script exits nonzero:
      ``checksum=False``'s; each timed beside ``torch.matmul`` f64, the
      bound, the parent kernel's PERF.md time and its aim (``time dmma
      ...`` lines; an aim missed is reported, not failed).
+ 15. K1's wgmma tile at ``WGMMA_TARGETS`` (deepseek-7b's M = 256
+     prefill products, 1024 x 4096 x 11008 natural, on X panels and with
+     the sidecar, whisper-small's encoder, deepseek-7b's train forward
+     and dW, f16, packed Y; bf16 out) and K3's fp32 conv at
+     ``CONV_F32_TARGETS`` through the kernel wrappers, counts zeroed just
+     before and read just after; each against its plain version, the
+     same bits twice and the parent's output hash, timed beside
+     ``torch.matmul`` / cuDNN, the bound, the parent's time and its aim
+     (``time wgmma ...``, ``time conv ...``).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
@@ -5871,6 +5880,335 @@ def phase14(torch, failures, entries):
     print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 15: K1's wgmma tile (gemm_wgmma.cu, wgmma_tile.cuh) on the plan
+# that fills the card at prefill, and K3's fp32 conv on the two-stage fp32
+# SIMT tile.  (label, (B, M, K, N), forms, the parent kernel's time
+# (PERF.md section 6: the mean of the parent's two runs in X17,
+# scripts/gemm_path_times.py's A B B A with bf16 out, NVIDIA H100 80GB
+# HBM3 at 700 W: printed for the reader, never put in the kernels line),
+# the aim: ("ms", t), ("library", f): at most f times torch.matmul in this
+# run, or None).  Forms: "x" / "y" X / Y as
+# core/packing.py's panels (prepacked serving), "checksum" the ABFT
+# sidecar, "f16" F16GER2.
+WGMMA_TARGETS = (
+    ("deepseek-7b prefill q/k/v/o 256x4096x4096", (None, 256, 4096, 4096),
+     (), 0.0337, ("library", 1.0)),
+    ("deepseek-7b prefill gate/up 256x4096x11008",
+     (None, 256, 4096, 11008), (), 0.0668, ("library", 1.0)),
+    ("deepseek-7b prefill down 256x11008x4096", (None, 256, 11008, 4096),
+     (), 0.0713, ("library", 1.0)),
+    ("prefill 1024x4096x11008", (None, 1024, 4096, 11008), (), 0.1777,
+     ("ms", 0.1431)),
+    ("prefill 1024x4096x11008 packed X", (None, 1024, 4096, 11008),
+     ("x",), 0.1902, ("ms", 0.1400)),
+    ("whisper encoder 6000x768x768", (None, 6000, 768, 768), (), 0.0290,
+     ("ms", 0.0290)),
+    ("whisper encoder 6000x768x3072", (None, 6000, 768, 3072), (), 0.0720,
+     ("ms", 0.0720)),
+    ("deepseek-7b train forward 2048x4096x4096", (None, 2048, 4096, 4096),
+     (), 0.1205, ("ms", 0.1205)),
+    ("deepseek-7b train dW 4096x2048x4096", (None, 4096, 2048, 4096), (),
+     0.1139, ("ms", 0.1139)),
+    ("prefill 1024x4096x11008 sidecar", (None, 1024, 4096, 11008),
+     ("checksum",), 0.2130, None),
+    ("f16 prefill 256x4096x11008", (None, 256, 4096, 11008), ("f16",),
+     0.0680, ("library", 1.0)),
+    ("deepseek-7b prefill q/k/v/o 256x4096x4096 packed Y",
+     (None, 256, 4096, 4096), ("y",), 0.0339, None),
+    ("deepseek-7b prefill down 256x11008x4096 packed Y",
+     (None, 256, 11008, 4096), ("y",), 0.0716, None),
+)
+# K3 at the path choose_conv_path picks: (label, image NHWC, filters HWIO,
+# stride, dtype, packed filters, parent ms as above, aim as above but
+# ("ms", t) only); bias + gelu, out in the input dtype.
+CONV_F32_TARGETS = (
+    ("f32 whisper conv2 4x3001x768 k3 s2", (4, 1, 3001, 768),
+     (1, 3, 768, 768), (1, 2), "float32", False, 1.3266, ("ms", 0.75)),
+    ("f32 whisper conv2 4x3001x768 k3 s2 packed", (4, 1, 3001, 768),
+     (1, 3, 768, 768), (1, 2), "float32", True, 1.1046, ("ms", 0.75)),
+    ("f32 qwen2-vl patch 4x448x448x3 k14 s14", (4, 448, 448, 3),
+     (14, 14, 3, 3584), (14, 14), "float32", False, 0.9695,
+     ("ms", 0.9775)),
+    ("f32 qwen2-vl patch 4x448x448x3 k14 s14 packed", (4, 448, 448, 3),
+     (14, 14, 3, 3584), (14, 14), "float32", True, 0.8325, ("ms", 0.8542)),
+    ("f32 whisper conv1 4x3002x80 k3", (4, 1, 3002, 80), (1, 3, 80, 768),
+     (1, 1), "float32", False, 0.2772, None),
+    ("bf16 whisper conv2 4x3001x768 k3 s2 (wgmma)", (4, 1, 3001, 768),
+     (1, 3, 768, 768), (1, 2), "bfloat16", False, 0.0725,
+     ("ms", 0.0651)),
+)
+
+
+# The output hashes of WGMMA_TARGETS and CONV_F32_TARGETS at the parent
+# (cc186cf), from scripts/gemm_path_times.py (the first 16 hex digits of
+# a SHA-256 of the output's bytes; the sidecar's of its ``out`` alone):
+# every launch keeps them (the k order and the epilogue's arithmetic do
+# not depend on the tile).  WGMMA_TARGETS' hashes are of bf16 outputs.
+PHASE15_PARENT_SHA = {
+    "deepseek-7b prefill q/k/v/o 256x4096x4096": "9679284878210c15",
+    "deepseek-7b prefill gate/up 256x4096x11008": "a27e6df382b234c0",
+    "deepseek-7b prefill down 256x11008x4096": "c9921281e4e9dab6",
+    "prefill 1024x4096x11008": "5acfc27dffc8d05d",
+    "prefill 1024x4096x11008 packed X": "73b53fd4ba0bbae5",
+    "whisper encoder 6000x768x768": "b3a36e0c0591e7eb",
+    "whisper encoder 6000x768x3072": "1b3e1210dae576ab",
+    "deepseek-7b train forward 2048x4096x4096": "665aa01b9701df5c",
+    "deepseek-7b train dW 4096x2048x4096": "1e355e4ce932f00d",
+    "prefill 1024x4096x11008 sidecar": "75490e309726f4a8",
+    "f16 prefill 256x4096x11008": "6c98d7084b0f3210",
+    "deepseek-7b prefill q/k/v/o 256x4096x4096 packed Y": "66e26cb14b8428d8",
+    "deepseek-7b prefill down 256x11008x4096 packed Y": "4040faad5acd74bd",
+    "f32 whisper conv2 4x3001x768 k3 s2": "c90e5afdc292e902",
+    "f32 whisper conv2 4x3001x768 k3 s2 packed": "d31ba7a0214a32cd",
+    "f32 qwen2-vl patch 4x448x448x3 k14 s14": "ca26505d29df56c6",
+    "f32 qwen2-vl patch 4x448x448x3 k14 s14 packed": "872c250a66136dfd",
+    "f32 whisper conv1 4x3002x80 k3": "83d8a58aae33ea91",
+    "bf16 whisper conv2 4x3001x768 k3 s2 (wgmma)": "ea70b7939e570df0",
+}
+
+
+def sha16(torch, *ts) -> str:
+    """The first 16 hex digits of a SHA-256 of the tensors' bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def wgmma_target_operands(torch, i):
+    """WGMMA_TARGETS[i]'s operands from seed 301 + i: (x, y, the X the
+    kernel reads (its panels with "x"), mma_gemm's keywords, the Y the
+    kernel reads (its panels with "y"))."""
+    from repro_torch.core import packing, precision
+    _, (b, m, k, n), forms, _, _ = WGMMA_TARGETS[i]
+    g = torch.Generator(device="cuda").manual_seed(301 + i)
+    kind = (precision.Ger.F16GER2 if "f16" in forms
+            else precision.Ger.BF16GER2)
+    dt = precision.policy(kind).x_dtype
+    lead = () if b is None else (b,)
+    x = torch.randn(*lead, m, k, generator=g, device="cuda").to(dt)
+    y = (torch.randn(*lead, k, n, generator=g, device="cuda")
+         * k ** -0.5).to(dt)
+    # bf16 out: FacilityConfig's default, as prefill and training store
+    kw = dict(kind=kind, checksum="checksum" in forms,
+              out_dtype=torch.bfloat16)
+    xk = x
+    if "x" in forms:
+        po = packing.pack_gemm(x, packing.gemm_layout(
+            kind, m, k, side="x", batched=b is not None))
+        xk, kw["x_layout"] = po.data, po.layout
+    if "y" in forms:
+        po = packing.pack_gemm(y, packing.gemm_layout(
+            kind, k, n, batched=b is not None))
+        kw["y_layout"] = po.layout
+        return x, y, xk, kw, po.data
+    return x, y, xk, kw, y
+
+
+def conv_target_operands(torch, i):
+    """CONV_F32_TARGETS[i]'s operands from seed 401 + i: (image, filters,
+    the filters the kernel reads (the packed stream where the target is
+    packed), bias, mma_conv2d's keywords: bias + gelu, out in the input
+    dtype)."""
+    from repro_torch.core import packing, precision
+    from repro_torch.kernels import epilogue as E
+    _, ishape, wshape, stride, dtype, packed, _, _ = CONV_F32_TARGETS[i]
+    g = torch.Generator(device="cuda").manual_seed(401 + i)
+    dt = getattr(torch, dtype)
+    x = torch.randn(*ishape, generator=g, device="cuda").to(dt)
+    kh, kw_, c, f = wshape
+    w = (torch.randn(*wshape, generator=g, device="cuda")
+         * (kh * kw_ * c) ** -0.5).to(dt)
+    bias = torch.randn(f, generator=g, device="cuda")
+    ckw = dict(stride=stride, out_dtype=dt, bias=bias,
+               ep=E.Epilogue(bias=True, activation="gelu"))
+    wk = w
+    if packed:
+        kind = (precision.Ger.F32GER if dt == torch.float32
+                else precision.Ger.BF16GER2)
+        pc = packing.pack_conv(w, packing.conv_layout(kind, kh, kw_, c, f))
+        wk, ckw["w_layout"] = pc.data, pc.layout
+    return x, w, wk, ckw
+
+
+def phase15_kernels(torch, timer, failures):
+    """K1's wgmma tile on its prefill plan and K3's fp32 conv on the fp32
+    SIMT tile:
+    every WGMMA_TARGETS and CONV_F32_TARGETS call through the kernel
+    wrappers, counts zeroed just before and read just after (each GEMM on
+    the wgmma path, each f32 conv on the fp32 tile, the bf16 conv on K3's
+    wgmma kernel); each within its tolerance of its plain version, the
+    same bits on a second launch and the parent's output hash; then each
+    timed (CUDA events, L2 flushed) beside its plain version, the library
+    call (``torch.matmul``; cuDNN conv2d, channels-last, TF32 off), the
+    bound and the parent kernel's PERF.md time, its aim met or missed
+    (reported, not failed).  Returns the ``kernels`` entries."""
+    from repro_torch.core import tiling
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+
+    gemms = [wgmma_target_operands(torch, i)
+             for i in range(len(WGMMA_TARGETS))]
+    convs = [conv_target_operands(torch, i)
+             for i in range(len(CONV_F32_TARGETS))]
+    kernels = kernel_wrappers()
+    torch.cuda.synchronize()
+    zero_counts9(kernels)
+    outs = [G.mma_gemm(xk, yk, **kw) for _, _, xk, kw, yk in gemms]
+    couts = [K.mma_conv2d(x, wk, **ckw) for x, _, wk, ckw in convs]
+    torch.cuda.synchronize()
+    counts = read_counts9(kernels)
+    f32_want = sum(t[4] == "float32" for t in CONV_F32_TARGETS)
+    by_gemm, by_conv = (counts["by_path"]["mma_gemm"],
+                        counts["by_path"]["mma_conv2d"])
+    _check(failures, "phase 15 main path",
+           counts["launches"]["mma_gemm"] == by_gemm["wgmma"]
+           == len(gemms)
+           and counts["launches"]["mma_conv2d"] == len(convs)
+           and by_conv["f32"] == f32_want
+           and by_conv["wgmma"] == len(convs) - f32_want,
+           f"GEMM launches {counts['launches']['mma_gemm']}, by path "
+           f"{by_gemm} (want {len(gemms)} on wgmma); conv launches by path "
+           f"{by_conv} (want {f32_want} f32, {len(convs) - f32_want} "
+           f"wgmma)")
+
+    def hash_check(label, sha):
+        parent = PHASE15_PARENT_SHA[label]
+        same = sha == parent
+        _check(failures, f"phase 15 {label}", same,
+               f"output sha256 {sha} against the parent's {parent}")
+        return same
+
+    def aim_text(aim, ms, lib_ms):
+        if aim is None:
+            return None, ""
+        kind, goal = aim
+        limit = goal if kind == "ms" else goal * lib_ms
+        return ms <= limit, (f"; aim {'met' if ms <= limit else 'MISSED'} "
+                             f"(<= {limit:.4f} ms)")
+
+    rows, worst, met = {}, 0.0, {}
+    for (label, (b, m, k, n), forms, parent, aim), (x, y, xk, kw, yk), \
+            got in zip(WGMMA_TARGETS, gemms, outs):
+        out = got[0] if kw["checksum"] else got
+        want = G.mma_gemm_plain(x, y, kind=kw["kind"])
+        worst = max(worst, _report_close(
+            torch, f"wgmma {label} vs plain", out, want, out.dtype,
+            failures))
+        again = G.mma_gemm(xk, yk, **kw)
+        again = again[0] if kw["checksum"] else again
+        _check(failures, f"phase 15 {label}", torch.equal(again, out),
+               "two launches the same bits")
+        if kw["checksum"] or xk is not x or yk is not y:
+            _check(failures, f"phase 15 {label}", torch.equal(
+                out, G.mma_gemm(x, y, kind=kw["kind"],
+                                out_dtype=kw["out_dtype"])),
+                "out bit for bit the natural launch without the sidecar")
+        cfg = tiling.choose_gemm_path(m, n, k, kw["kind"], b or 1)[1]
+        sha = sha16(torch, out)
+        same = hash_check(label, sha)
+        row = {"ms": timer(lambda xk=xk, yk=yk, kw=kw: G.mma_gemm(
+                   xk, yk, **kw)),
+               "plain_ms": timer(lambda x=x, y=y, kind=kw["kind"]:
+                                 G.mma_gemm_plain(x, y, kind=kind), iters=3,
+                                 warmup=1),
+               "library_ms": timer(lambda x=x, y=y: torch.matmul(x, y)),
+               "library": "torch.matmul",
+               "tile": [cfg.bm, cfg.bn],
+               "sha256": sha, "parent_sha": same}
+        bb = (b or 1)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (m * k + k * n + m * n) * 2 * bb, 2 * m * n * k * bb, "bf16")
+        met[label], text = aim_text(aim, row["ms"], row["library_ms"])
+        print(f"  time wgmma {label}: {row['ms']:.4f} ms on the 128 x "
+              f"{cfg.bn} tile (parent in PERF.md: "
+              f"{'not measured' if parent is None else f'{parent} ms'}), "
+              f"plain {row['plain_ms']:.4f} ms, torch.matmul "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.2f} of "
+              f"bound{text}", flush=True)
+        rows[label] = row
+    crows, cworst, cmet = {}, 0.0, {}
+    for (label, ishape, wshape, stride, dtype, packed, parent, aim), \
+            (x, w, wk, ckw), got in zip(CONV_F32_TARGETS, convs, couts):
+        pkw = {key: v for key, v in ckw.items() if key != "w_layout"}
+        want = K.mma_conv2d_plain(x, w, **pkw)
+        cworst = max(cworst, _report_close(
+            torch, f"conv {label} vs plain", got.float(), want.float(),
+            got.dtype, failures))
+        _check(failures, f"phase 15 {label}", torch.equal(
+            K.mma_conv2d(x, wk, **ckw), got), "two launches the same bits")
+        sha = sha16(torch, got)
+        same = hash_check(label, sha)
+        n_, h, w_, c = ishape
+        kh, kw_, _, f = wshape
+        mm = n_ * ((h - kh) // stride[0] + 1) * ((w_ - kw_) // stride[1]
+                                                 + 1)
+        path, cfg = K.conv_path(x, kh, kw_, c, f, stride, None, True)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = ckw["bias"].to(x.dtype)
+        row = {"ms": timer(lambda x=x, wk=wk, ckw=ckw: K.mma_conv2d(
+                   x, wk, **ckw), iters=5),
+               "plain_ms": timer(lambda x=x, w=w, pkw=pkw:
+                                 K.mma_conv2d_plain(x, w, **pkw), iters=3,
+                                 warmup=1),
+               "library_ms": timer(lambda: torch.nn.functional.conv2d(
+                   xc, wc, bc, stride=stride), iters=5),
+               "library": "cuDNN conv2d (channels-last, TF32 off)",
+               "path": path, "tile": [cfg.bm, cfg.bn], "sha256": sha,
+               "parent_sha": same}
+        esz = x.element_size()
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (x.numel() + w.numel() + mm * f) * esz + f * 4,
+            2 * mm * kh * kw_ * c * f,
+            "f32" if dtype == "float32" else "bf16")
+        cmet[label], text = aim_text(aim, row["ms"], row["library_ms"])
+        print(f"  time conv {label}: {row['ms']:.4f} ms on {path} "
+              f"{cfg.bm} x {cfg.bn} (parent in PERF.md: "
+              f"{'not measured' if parent is None else f'{parent} ms'}), "
+              f"plain {row['plain_ms']:.4f} ms, cuDNN "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.2f} of "
+              f"bound{text}", flush=True)
+        crows[label] = row
+        del xc, wc
+    del gemms, convs, outs, couts
+    glabel, clabel = WGMMA_TARGETS[0][0], CONV_F32_TARGETS[0][0]
+    entries = [
+        {"name": "mma_gemm wgmma tile (prefill plan)", "route": "cuda",
+         "source": "src/repro_torch/csrc/gemm_wgmma.cu",
+         "replaces": "src/repro/kernels/mma_gemm.py:417",
+         "launches": by_gemm["wgmma"], "max_abs_err": worst,
+         **rows[glabel], "shape": glabel, "timed": rows, "aims_met": met},
+        {"name": "mma_conv2d fp32 SIMT tile", "route": "cuda",
+         "source": "src/repro_torch/csrc/mma_conv.cu",
+         "replaces": "src/repro/kernels/mma_conv.py:191",
+         "launches": by_conv["f32"], "max_abs_err": cworst,
+         **crows[clabel], "shape": clabel, "timed": crows,
+         "aims_met": cmet}]
+    for e in entries:
+        if e["launches"] <= 0:
+            failures.append(f"{e['name']} never launched in phase 15's run")
+    return entries
+
+
+def phase15(torch, failures, entries):
+    """Phase 15: K1's wgmma tile on its prefill plan and K3's fp32 conv on
+    the fp32 SIMT tile at the main path's shapes, checked, hashed against
+    the parent and timed."""
+    print("== phase 15: K1's wgmma tile on its prefill plan and K3's fp32 "
+          "conv on the fp32 SIMT tile", flush=True)
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    entries += phase15_kernels(torch, timer, failures)
+    del timer
+    torch.cuda.empty_cache()
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -6030,6 +6368,7 @@ def run_phases(torch) -> None:
     phase12(torch, failures, entries)
     phase13(torch, failures, entries)
     phase14(torch, failures, entries)
+    phase15(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

@@ -40,6 +40,24 @@ DGEMM 2048^3 on X+Y panels and with the sidecar, 8192^3, a skinny 4 x
 4096 x 11008 and a ragged 1000 x 999 x 1001, and blas3's complex128
 ``complex_gemm`` at 4096 and batched float64 ``dft`` (``ENTRY_CASES``,
 launches by path printed beside each).
+
+Then chip_smoke.py's phase-15 targets: ``WGMMA_TARGETS`` (the wgmma tile
+at deepseek-7b's M = 256 prefill shapes, 1024 x 4096 x 11008 natural, on
+X panels and with the sidecar, whisper-small's encoder, deepseek-7b's
+train forward and its dW product, f16, packed Y; bf16 out, as the main
+path stores) and ``CONV_F32_TARGETS`` (K3 in
+f32 at whisper-small's conv1 and conv2 and qwen2-vl-7b's patch embed,
+natural and packed, and the bf16 conv2 on the wgmma kernel), each at the
+path and tile the tree's dispatch picks: time, the tile printed, the
+output hash, the library call (``torch.matmul``; cuDNN
+``conv2d``, channels-last, TF32 off) and the bound; ptxas' registers of
+the fp32 conv's instances head the output.  ``--only targets``
+runs these alone; ``--tiles`` times each wgmma target at every tile the
+tree's wgmma kernel is compiled for too (a planted winner: the output
+hash must not change) and each fp32 conv target at both fp32 tiles (an
+explicit filter tile); ``--prefill`` then profiles deepseek-7b's prefill (1 x
+256, full width and depth, random bf16 weights from seed 0) three times
+and prints its device busy time (median) and the wgmma kernel's share.
 """
 
 from __future__ import annotations
@@ -164,8 +182,11 @@ def digest(*ts) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
-    args = ap.parse_args()
-    tree = pathlib.Path(args.tree).resolve()
+    ap.add_argument("--only", choices=("all", "targets"), default="all")
+    ap.add_argument("--prefill", action="store_true")
+    ap.add_argument("--tiles", action="store_true")
+    opts = ap.parse_args()
+    tree = pathlib.Path(opts.tree).resolve()
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(tree / "src"))
     import torch
@@ -179,9 +200,19 @@ def main() -> None:
     print(CS.card_line(), flush=True)
     print(f"tree {tree}")
     t0 = time.perf_counter()
-    _build.build()      # every source at once, one nvcc each
+    logs = _build.build()      # every source at once, one nvcc each
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        fn = ""
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("for", 1)[1].strip()
+            if "spill" in line and " 0 bytes spill stores" not in line:
+                print(f"    {name}: {fn}: {line.strip()}")
+            if "registers" in line and "conv_f32_kernel" in fn:
+                print(f"    {name}: {fn}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     timer = CS.Timer(torch)
 
     def gemm_case(i, case):
@@ -228,10 +259,15 @@ def main() -> None:
         print(f"  {label}: {ms:.4f} ms [{took[0]}] sha256 {sha}",
               flush=True)
 
-    for i, case in enumerate(CASES):
-        gemm_case(i, case)
     from repro_torch.kernels import epilogue as E
     from repro_torch.kernels import mma_conv as K
+    if opts.only == "targets":
+        targets(torch, CS, timer, opts.tiles)
+        if opts.prefill:
+            prefill_busy(torch, CS)
+        return
+    for i, case in enumerate(CASES):
+        gemm_case(i, case)
     for i, (label, ishape, wshape, stride, dtype, bf) in enumerate(
             CONV_CASES):
         g = torch.Generator(device="cuda").manual_seed(101 + i)
@@ -286,6 +322,126 @@ def main() -> None:
         print(f"  {label}: {ms:.4f} ms {took} sha256 {digest(*out)}",
               flush=True)
         del args, out
+    targets(torch, CS, timer, opts.tiles)
+    if opts.prefill:
+        prefill_busy(torch, CS)
+
+
+def targets(torch, CS, timer, every_tile=False) -> None:
+    """chip_smoke.py's WGMMA_TARGETS and CONV_F32_TARGETS at the tree's
+    own dispatch: time, path and tile, output hash (the sidecar's of its
+    ``out`` too), library time, bound."""
+    from repro_torch.core import tiling
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+    for i, (label, (b, m, k, n), forms, _, _) in enumerate(
+            CS.WGMMA_TARGETS):
+        x, y, xk, kw, yk = CS.wgmma_target_operands(torch, i)
+        before = dict(G.mma_gemm.launches_by_path)
+        out = G.mma_gemm(xk, yk, **kw)
+        torch.cuda.synchronize()
+        took = [p for p, v in G.mma_gemm.launches_by_path.items()
+                if v != before[p]]
+        plan = tiling.choose_gemm_path(m, n, k, kw["kind"], b or 1)
+        sha = digest(*(out if isinstance(out, tuple) else (out,)))
+        if isinstance(out, tuple):
+            sha += f" (out {digest(out[0])})"
+        ms = timer(lambda xk=xk, yk=yk, kw=kw: G.mma_gemm(xk, yk, **kw))
+        lib = timer(lambda x=x, y=y: torch.matmul(x, y))
+        bb, by = CS.bound_ms((m * k + k * n + m * n) * 2 * (b or 1),
+                             2 * m * n * k * (b or 1), "bf16")
+        print(f"  target {label}: {ms:.4f} ms {took} {plan[1]} sha256 "
+              f"{sha}; torch.matmul {lib:.4f} ms; bound {bb:.4f} ms ({by})",
+              flush=True)
+        for cfg in (tiling.WGMMA_TILES if every_tile else ()):
+            tkw = dict(kw, tuned=("wgmma", cfg))
+            got = G.mma_gemm(xk, yk, **tkw)
+            sha_t = digest(*(got if isinstance(got, tuple) else (got,)))
+            ms_t = timer(lambda xk=xk, yk=yk, tkw=tkw: G.mma_gemm(xk, yk,
+                                                                 **tkw))
+            print(f"    tile {cfg}: {ms_t:.4f} ms sha256 {sha_t}", flush=True)
+            del got
+        del x, y, xk, yk, out
+    for i, (label, ishape, wshape, stride, dtype, packed, _, _) in \
+            enumerate(CS.CONV_F32_TARGETS):
+        x, w, wk, ckw = CS.conv_target_operands(torch, i)
+        kh, kw_, c, f = wshape
+        before = dict(K.mma_conv2d.launches_by_path)
+        out = K.mma_conv2d(x, wk, **ckw)
+        torch.cuda.synchronize()
+        took = [p for p, v in K.mma_conv2d.launches_by_path.items()
+                if v != before[p]]
+        plan = K.conv_path(x, kh, kw_, c, f, stride, None, True)
+        sha = digest(out)
+        ms = timer(lambda x=x, wk=wk, ckw=ckw: K.mma_conv2d(x, wk, **ckw),
+                   iters=5)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = ckw["bias"].to(x.dtype)
+        lib = timer(lambda: torch.nn.functional.conv2d(
+            xc, wc, bc, stride=stride), iters=5)
+        n_, h, w_, _ = ishape
+        mm = n_ * ((h - kh) // stride[0] + 1) * ((w_ - kw_) // stride[1] + 1)
+        esz = x.element_size()
+        bb, by = CS.bound_ms((x.numel() + w.numel() + mm * f) * esz + f * 4,
+                             2 * mm * kh * kw_ * c * f,
+                             "f32" if dtype == "float32" else "bf16")
+        print(f"  target conv {label}: {ms:.4f} ms {took} {plan[1]} sha256 "
+              f"{sha}; cuDNN {lib:.4f} ms; bound {bb:.4f} ms ({by})",
+              flush=True)
+        for cfg in (tiling.CONV_TILES[tiling.Ger.F32GER]
+                    if every_tile and dtype == "float32" else ()):
+            tkw = dict(ckw, bf=cfg.bn)
+            got = K.mma_conv2d(x, wk, **tkw)
+            ms_t = timer(lambda x=x, wk=wk, tkw=tkw: K.mma_conv2d(x, wk,
+                                                                  **tkw),
+                         iters=5)
+            print(f"    tile {cfg}: {ms_t:.4f} ms sha256 {digest(got)}",
+                  flush=True)
+            del got
+        del x, w, wk, out, xc, wc
+
+
+def prefill_busy(torch, CS) -> None:
+    """deepseek-7b's prefill (1 x 256 tokens; full width and depth, random
+    bf16 weights from seed 0) profiled three times: device busy time and
+    the wgmma GEMM kernel's share (medians)."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.core import facility
+    from repro_torch.models import model as M
+    cfg = get_arch(CS.ARCH)
+    model = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    prefill, _, what = CS.serve_steps(torch, model, cfg, CS.SERVE)
+    act = torch.profiler.ProfilerActivity
+    busy, wg = [], []
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        for _ in range(2):
+            prefill()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as p:
+                prefill()
+                torch.cuda.synchronize()
+            tot = w = 0.0
+            for ev in p.key_averages():
+                if getattr(ev, "device_type", None) != \
+                        torch.autograd.DeviceType.CUDA:
+                    continue
+                us = max(getattr(ev, "device_time_total", 0),
+                         getattr(ev, "self_device_time_total", 0))
+                tot += us
+                if "gemm_wgmma_kernel" in ev.key:
+                    w += us
+            busy.append(tot / 1e3)
+            wg.append(w / 1e3)
+    busy.sort()
+    wg.sort()
+    print(f"  prefill {cfg.name} {what.split(',')[0]}: device busy "
+          f"{busy[1]:.4f} ms (of {busy}), gemm_wgmma_kernel {wg[1]:.4f} ms",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

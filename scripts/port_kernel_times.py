@@ -107,7 +107,8 @@ def sweep_conv(timer, g) -> None:
         try:
             for path, cfg in (("wgmma", tiling.WgmmaConfig(128, 128)),
                               ("wgmma", tiling.WgmmaConfig(128, 256)),
-                              ("wmma", tiling.CONV_TILES[tiling.Ger.BF16GER2])):
+                              ("wmma", tiling.CONV_TILES[
+                                  tiling.Ger.BF16GER2][0])):
                 tiling.choose_conv_path = lambda *_, p=path, cfg=cfg: (p, cfg)
                 label = f"{path} {cfg.bm}x{cfg.bn}"
                 CS._report_conv(torch, f"conv2d {name} [{label}]",

@@ -30,8 +30,9 @@ The 16-bit and fp32 families take one of three, picked by shape:
     holds two blocks per SM (:func:`stream_plan`); bf16/f16 on the tensor
     cores, F32GER on the CUDA cores (true fp32 FMAs);
   * "wgmma" (``csrc/gemm_wgmma.cu``): larger 16-bit M (prefill), bound by
-    the tensor cores; a (128, 128 or 256) tile fed by TMA, which needs
-    16-byte pitches (K and N multiples of 8) and bases;
+    the tensor cores; a (128, 64 / 128 / 192 / 256) tile a block, fed by
+    TMA, the width :func:`wgmma_plan`'s; TMA needs 16-byte pitches (K and
+    N multiples of 8) and bases;
   * "wmma" (``csrc/mma_gemm.cu``): what the two do not take -- unaligned
     pitches at large M, K below one MMA step (the SSD's K = 1 outer
     product), F32GER at M > 64 (true fp32, a register-blocked SIMT tile),
@@ -187,12 +188,29 @@ class StreamConfig:
 
 @dataclasses.dataclass(frozen=True)
 class WgmmaConfig:
-    """A TMA + wgmma launch: (128, bn) output tiles."""
+    """A TMA + wgmma launch: (128, bn) output tiles, one block each."""
     bm: int
     bn: int
 
     def grid(self, m: int, n: int, b: int = 1) -> tuple[int, int]:
         return (-(-m // self.bm) * -(-n // self.bn), b)
+
+    def tiles(self, m: int, n: int, b: int = 1) -> int:
+        gx, gy = self.grid(m, n, b)
+        return gx * gy
+
+    def waves(self, m: int, n: int, b: int = 1) -> int:
+        """Rounds of the grid on the card: one block an SM (a block's
+        ring takes an SM's shared memory)."""
+        return -(-self.tiles(m, n, b) // NUM_SMS)
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block of csrc/gemm_wgmma.cu
+        (wgmma_tile.cuh's WgCfg::smem): the ring of ``wgmma_stages``
+        stages, 1 KB of alignment slack, a full and an empty mbarrier a
+        stage."""
+        stages = wgmma_stages(self.bn)
+        return stages * wgmma_stage_bytes(self.bn) + 1024 + 2 * stages * 8
 
 
 def stream_plan(m: int, n: int, k: int, b: int = 1,
@@ -236,17 +254,64 @@ def row_bucket(m: int) -> int:
     return next(r for r in (8, 16, 32, STREAM_MAX_M) if m <= r)
 
 
-# The tiles csrc/gemm_wgmma.cu is compiled for.
-WGMMA_TILES = (WgmmaConfig(128, 128), WgmmaConfig(128, 256))
+WGMMA_BK = 64                 # K step of the wgmma tile
+WGMMA_MAX_STAGES = 8          # csrc/wgmma_tile.cuh's WG_MAX_STAGES
 
 
-def wgmma_plan(m: int, n: int, b: int = 1) -> WgmmaConfig:
-    """The 256-column tile reuses each X box twice as often; it is taken
-    where its grid runs three or more waves on the card, so that the last,
-    partial wave costs little; else the 128-column tile."""
+def wgmma_stage_bytes(bn: int) -> int:
+    """A ring stage: a (128 x 64) X box and a (64 x bn) Y box, 16-bit."""
+    return (128 * WGMMA_BK + WGMMA_BK * bn) * 2
+
+
+def wgmma_stages(bn: int) -> int:
+    """The wgmma ring's depth (wgmma_tile.cuh's WgCfg::STAGES): as many
+    stages as a block's shared memory holds beside 1 KB of alignment
+    slack, 1 KB of K3's row offsets and 16 bytes of mbarriers a stage, at
+    most ``WGMMA_MAX_STAGES``."""
+    fit = (SMEM_PER_BLOCK - 2048) // (wgmma_stage_bytes(bn) + 16)
+    return min(fit, WGMMA_MAX_STAGES)
+
+
+# The tiles csrc/gemm_wgmma.cu is compiled for, widest first, and those
+# K3's wgmma conv (csrc/mma_conv.cu) is compiled for.
+WGMMA_TILES = tuple(WgmmaConfig(128, bn) for bn in (256, 192, 128, 64))
+CONV_WGMMA_TILES = (WgmmaConfig(128, 128), WgmmaConfig(128, 256))
+
+
+# The wgmma plan's cost model, from scripts/gemm_path_times.py --tiles on
+# the H100 (PERF.md, run X17): a wave of tiles costs its columns times
+# WGMMA_COLUMN_COST, relative to the 256-column tile's (the narrower
+# tiles issue smaller wgmmas a K step and read each X box more often; a
+# wave's time over its columns, at 1024 x 4096 x 11008, 2048 x 4096 x
+# 4096, 4096 x 2048 x 4096 and 6000 x 768 x 3072, came out 1.02-1.08 at
+# 192 columns, 1.20-1.25 at 128 and 1.66-1.94 at 64: the means).
+WGMMA_COLUMN_COST = {256: 1.0, 192: 1.05, 128: 1.2, 64: 1.8}
+
+
+def wgmma_plan(m: int, n: int, k: int, b: int = 1) -> WgmmaConfig:
+    """The tile whose grid costs least by the model above: waves x bn x
+    WGMMA_COLUMN_COST; the widest among equals.  K does not shape the
+    grid (every tile walks all of it).  At deepseek-7b's prefill (M =
+    256) the 128-column tile left 68 of 132 SMs idle at N = 4096: the
+    64-column tile puts 128 tiles on the card there, and at N = 11008
+    the 192-column tile 116 (one wave, where 128 columns took two).  A
+    pure function of (m, n, k, b)."""
+    del k
+
+    def cost(c: WgmmaConfig) -> tuple:
+        return (c.waves(m, n, b) * c.bn * WGMMA_COLUMN_COST[c.bn], -c.bn)
+
+    return min(WGMMA_TILES, key=cost)
+
+
+def conv_wgmma_plan(m: int, f: int) -> WgmmaConfig:
+    """K3's wgmma conv (one block a tile): the 256-column tile reuses
+    each image box twice as often; it is taken where its grid runs three
+    or more waves on the card, so that the last, partial wave costs
+    little; else the 128-column tile."""
     wide = WgmmaConfig(128, 256)
-    gx, gy = wide.grid(m, n, b)
-    return wide if gx * gy >= 3 * NUM_SMS else WgmmaConfig(128, 128)
+    return (wide if wide.tiles(m, f) >= 3 * NUM_SMS
+            else WgmmaConfig(128, 128))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -299,7 +364,7 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
             return "stream", stream_plan(m, n, k, b,
                                          precision.policy(ger).in_bytes)
         if aligned and ger in WGMMA_GERS:
-            return "wgmma", wgmma_plan(m, n, b)
+            return "wgmma", wgmma_plan(m, n, k, b)
     return "wmma", choose_blocks(m, n, k, ger, b)
 
 
@@ -349,13 +414,50 @@ def check_block(block: tuple[int, int, int], ger: Ger) -> BlockConfig:
 # The convolutions (csrc/mma_conv.cu): K3's path, K4's launch plan
 # ----------------------------------------------------------------------
 
-# The tiles K3's WMMA and F32GER kernels are compiled for, (bm, bf, bk);
-# an explicit Plan.block names one by its filter tile bf.
-CONV_TILES: dict[Ger, BlockConfig] = {
-    Ger.BF16GER2: BlockConfig(64, 128, 32),
-    Ger.F16GER2: BlockConfig(64, 128, 32),
-    Ger.F32GER: BlockConfig(64, 64, 16),
+# The tiles K3's WMMA and F32GER kernels are compiled for, (bm, bf, bk),
+# largest first; an explicit Plan.block names one by its filter tile bf.
+# F32GER's are K1's fp32 SIMT tiles (csrc/tile_gemm.cuh's f32_simt_tile).
+CONV_TILES: dict[Ger, tuple[BlockConfig, ...]] = {
+    Ger.BF16GER2: (BlockConfig(64, 128, 32),),
+    Ger.F16GER2: (BlockConfig(64, 128, 32),),
+    Ger.F32GER: tuple(BlockConfig(*t) for t in GEMM_TILES[Ger.F32GER]),
 }
+
+
+# K3's fp32 tiles on the H100: the blocks an SM holds (ptxas: the 128 x
+# 128 tile's 128 registers a thread allow two, the 64 x 64 tile's 77-79
+# three) and each tile's output rate an SM relative to the large tile's
+# (the small one streams twice the panel bytes an output): the mean of
+# its fits to scripts/gemm_path_times.py --tiles at whisper-small's conv1
+# and conv2 (natural and packed) and qwen2-vl-7b's patch embed, 0.60 to
+# 0.75 (PERF.md, run X17).  Any value in that range picks the faster
+# tile at all three.
+F32_CONV_BLOCKS = {128: 2, 64: 3}
+F32_CONV_RATE = {128: 1.0, 64: 0.68}
+
+
+def f32_conv_tile(m: int, f: int) -> BlockConfig:
+    """F32GER's conv tile for an M x F implicit GEMM, wave by wave: the
+    tile whose grid costs least in waves (``F32_CONV_BLOCKS`` blocks on
+    each SM) x the outputs a wave puts on an SM / its rate; the larger
+    among equals.  Whisper-small's conv2 (M = 6000, F = 768) runs 282
+    large tiles, two waves of which the second is 7% full: there the
+    small tile's three waves cost less."""
+    def cost(c: BlockConfig) -> tuple:
+        per = F32_CONV_BLOCKS[c.bm]
+        gx, gy, _ = c.grid(m, f, 1)
+        waves = -(-(gx * gy) // (NUM_SMS * per))
+        return waves * per * c.bm * c.bn / F32_CONV_RATE[c.bm], -c.bm
+
+    return min(CONV_TILES[Ger.F32GER], key=cost)
+
+
+def conv_smem_bytes(cfg: BlockConfig, pol: precision.GerPolicy) -> int:
+    """Dynamic shared memory of one block of K3's WMMA or fp32 tile: the
+    GEMM tile's (:meth:`BlockConfig.smem_bytes`) and the tile rows' pixel
+    offsets after it, 8 bytes a row (csrc/mma_conv.cu's
+    conv_wmma_smem_bytes, conv_f32_smem_bytes)."""
+    return cfg.smem_bytes(pol) + cfg.bm * 8
 
 
 def conv_gather_bytes(c: int, kw: int, w: int, sw: int, base: int) -> int:
@@ -380,32 +482,37 @@ def choose_conv_path(m: int, f: int, ger: Ger, aligned: bool = True,
     """("wgmma" | "wmma" | "f32", config) for one dense conv, the implicit
     GEMM of M = N*OH*OW output pixels by F filters.
 
-    F32GER stays on true fp32 FMAs (never TF32).  bf16/f16 take the
+    F32GER stays on true fp32 FMAs (never TF32), on the fp32 SIMT tile
+    :func:`f32_conv_tile` picks (both tiles sum each output in the same
+    order).  bf16/f16 take the
     wgmma kernel where TMA can read the (K, F) filter view (``aligned``:
     F % 8 == 0 and a 16-byte filter base) and its producer can gather the
     image panel in 16- or 4-byte copies (``gathered``: see
-    ``conv_gather_bytes``); its tile follows ``wgmma_plan``.  K does not
-    choose: every kernel runs the whole K loop in the block.  An explicit
-    filter tile ``bf`` names the WMMA tile, as an explicit block does for
-    the GEMM; it must be the compiled one (ValueError otherwise).
+    ``conv_gather_bytes``); its tile follows ``conv_wgmma_plan``.  K does
+    not choose: every kernel runs the whole K loop in the block.  An explicit
+    filter tile ``bf`` names the WMMA tile (F32GER: the fp32 tile), as an
+    explicit block does for the GEMM; it must be a compiled one
+    (ValueError otherwise).
     ``tuned`` is a GEMM winner's filter tile as K3 has it
     (:func:`conv_tuned`), taken where the conv can take it, else the
     heuristic decides."""
     if ger not in CONV_TILES:
         raise NotImplementedError(f"the conv kernel has no {ger.value} "
                                   f"instantiation")
-    tile = CONV_TILES[ger]
-    if bf is not None and bf != tile.bn:
-        raise ValueError(f"the conv kernel is compiled for the filter tile "
-                         f"{tile.bn} in {ger.value}, not bf={bf}")
+    tiles = CONV_TILES[ger]
+    if bf is not None and bf not in [t.bn for t in tiles]:
+        raise ValueError(f"the conv kernel is compiled for the filter "
+                         f"tiles {[t.bn for t in tiles]} in {ger.value}, "
+                         f"not bf={bf}")
     if ger == Ger.F32GER:
-        return "f32", tile
+        return "f32", (next(t for t in tiles if t.bn == bf) if bf
+                       else f32_conv_tile(m, f))
     if bf is None and tuned is not None and (
             tuned[0] == "wmma" or (aligned and gathered)):
         return tuned
     if bf is None and aligned and gathered:
-        return "wgmma", wgmma_plan(m, f)
-    return "wmma", tile
+        return "wgmma", conv_wgmma_plan(m, f)
+    return "wmma", tiles[0]
 
 
 def conv_tuned(winner: tuple, ger: Ger) -> tuple | None:
@@ -413,15 +520,15 @@ def conv_tuned(winner: tuple, ger: Ger) -> tuple | None:
     reference applies one (only the winner's N tile, the filter tile):
     a wgmma tile where K3's wgmma kernel has its width, the WMMA filter
     tile where the winner's N tile is K3's, else None (K3 has no such
-    tile: the heuristic runs, as with no winner).  F32GER's one fp32
-    tile takes no choice."""
+    tile: the heuristic runs, as with no winner).  F32GER's fp32 tile
+    follows the shape rule alone."""
     if ger not in CONV_TILES or ger == Ger.F32GER:
         return None
     path, cfg = winner
-    if path == "wgmma" and cfg in WGMMA_TILES:
+    if path == "wgmma" and cfg in CONV_WGMMA_TILES:
         return winner
-    if path == "wmma" and cfg.bn == CONV_TILES[ger].bn:
-        return "wmma", CONV_TILES[ger]
+    if path == "wmma" and cfg.bn == CONV_TILES[ger][0].bn:
+        return "wmma", CONV_TILES[ger][0]
     return None
 
 

@@ -13,16 +13,24 @@
 // What bounds it on an H100.  At these M every weight byte meets hundreds
 // of rows: the bound is the bf16 tensor cores (989 TFLOP/s dense), which
 // only wgmma reaches; the old WMMA tile reached 87 TFLOP/s at M = 4352.
+// At deepseek-7b's serving prefill (M = 256) it is the weight's bytes,
+// and the grid decides how much of the card reads them: 128-column tiles
+// left 68 of 132 SMs idle at N = 4096.
 //
 // Design.
-//   * One block owns a (128, BN) output tile, BN = 128 or 256, and walks
-//     K in steps of 64.  Tiles are rastered in groups of 8 tile rows so
-//     that the blocks on the card at one time share their Y panels in L2.
+//   * One block owns a (128, BN) output tile, BN = 64, 128, 192 or 256
+//     (core/tiling.py's wgmma_plan: the narrow tiles fill the card at M =
+//     256), and walks K in steps of 64.  Tiles are rastered in groups of
+//     8 tile rows so that the blocks on the card at one time share their
+//     Y panels in L2.  Persistent blocks that overlap a tile's epilogue
+//     with the next tile's loads were built and timed on the H100 against
+//     this grid (PERF.md): they won at no timed shape.
 //   * Warp specialisation: warpgroup 0 is the producer (one thread issues
 //     every TMA load; setmaxnreg gives its registers away); warpgroups 1
 //     and 2 are consumers, each owning 64 rows of the tile as m64nBNk16
 //     wgmma accumulators in registers (setmaxnreg 232).
-//   * A ring of 4 (BN = 256) or 6 (BN = 128) stages in shared memory, each
+//   * A ring of 8 (BN = 64), 7 (128), 5 (192) or 4 (256) stages in
+//     shared memory (wgmma_tile.cuh's WgCfg), each
 //     a (128 x 64) X box (K-major) and BN / 64 (64 x 64) Y boxes (Y is
 //     row-major: MN-major for wgmma, tnspB), all 128-byte swizzled, with a
 //     full and an empty mbarrier per stage.  Consumers keep one wgmma
@@ -203,8 +211,12 @@ static int launch_wgmma_t(const void* x, const void* y, const GemmEpi& e,
                           cudaStream_t s) {
   if (bn == 256)
     return launch_wgmma<T, 256>(x, y, e, K, batch, a_map, b_map, s);
+  if (bn == 192)
+    return launch_wgmma<T, 192>(x, y, e, K, batch, a_map, b_map, s);
   if (bn == 128)
     return launch_wgmma<T, 128>(x, y, e, K, batch, a_map, b_map, s);
+  if (bn == 64)
+    return launch_wgmma<T, 64>(x, y, e, K, batch, a_map, b_map, s);
   return (int)cudaErrorInvalidValue;
 }
 

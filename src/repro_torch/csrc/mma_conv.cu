@@ -310,13 +310,22 @@ extern "C" int mma_depthwise_conv_launch(
 //     barrier a K step), shared with K1's mma_gemm.cu, fed by
 //     ConvGatherA's cp.async gathers (16 bytes or 4-byte pairs, as the
 //     wgmma producer's; elements where neither copy can gather).
-//   * conv_f32_kernel (F32GER): tile_gemm.cuh's fp32 FMA tile.
+//   * conv_f32_kernel (F32GER): tile_gemm.cuh's fp32 SIMT tile
+//     (f32_simt_tile, K1's F32GER tile: 128 x 128 or 64 x 64, picked
+//     wave by wave by core/tiling.py's f32_conv_tile on M = N*OH*OW by
+//     F; 8 x 8
+//     or 4 x 4 fp32 FMAs a thread, two stages, the next one's chunks in
+//     flight under the FMAs), fed by ConvGatherA::chunk4: 16-byte loads
+//     where C % 4 == 0 at a 16-byte base (whisper's stems), else four
+//     element loads (qwen2-vl's C = 3).  Each output is one fmaf chain in
+//     ascending k from +0.0, as before this tile, so either tile gives
+//     the same bits.
 //     Both read packed filters too (their PACKED instances, through
 //     mma_conv2d_packed_launch): tile_gemm.cuh's PackedB takes the (gf, K,
 //     64) stream as 64-filter slabs of K rows, so the WMMA tile's 128
-//     filters are two slabs and the fp32 tile's 64 one, each stage row
-//     one 16-byte load, zero past K and F as the natural loader stages
-//     it: the result is the natural launch's bit for bit.
+//     filters are two slabs and the fp32 tile's 128 or 64 two or one,
+//     each chunk one 16-byte load, zero past K and F as the natural
+//     loader stages it: the result is the natural launch's bit for bit.
 // Each applies the epilogue once in fp32 and stores each output element
 // once, in the output dtype.
 
@@ -330,7 +339,8 @@ struct ConvArgs {
   int N, H, W, C, KH, KW, F, SH, SW, OH, OW;
   int M, K;  // the implicit GEMM: M = N*OH*OW, K = KH*KW*C
   int act;
-  int vec_a, vec_b;  // 16-byte gathers (C % 8 == 0) / rows (F % 8 == 0)
+  int vec_a, vec_b;  // 16-byte gathers (16 bytes of channels divide C) /
+                     // filter rows (16 bytes of filters divide F)
   int gather;        // bytes per copy of the A gather (16 or 4; 0: the
                      // wgmma producer cannot gather this image, the WMMA
                      // tile gathers it element by element)
@@ -469,16 +479,29 @@ struct ConvGatherA {
     return c;
   }
 
-  // The fp32 tile's panel, k-major; a thread's elements share one K
-  // column (blockDim.x is a multiple of BK), its offset computed once.
-  template <int BM, int BK, int LDT>
-  __device__ void panel_kmajor(float* as, int k0) const {
-    const int kk = threadIdx.x % BK;
-    const long long cl = col(k0 + kk);
-    for (int r = threadIdx.x / BK; r < BM; r += blockDim.x / BK) {
-      const long long row = rows[r];
-      as[kk * LDT + r] = (row >= 0 && cl >= 0) ? x[row + cl] : 0.f;
+  // The fp32 SIMT tile's chunk (T = float): the four image values of tile
+  // row r at K columns k .. k + 3 (k a multiple of 4), zero past M and K.
+  // With 16-byte gathers (C % 4 == 0 at a 16-byte base) the four lie in
+  // one pixel's channel run at a 16-byte address, all in K or all past
+  // it: one load.  Else four element loads, each the next column of its
+  // filter row or the first of the next (one division, as conv_cols).
+  __device__ __forceinline__ float4 chunk4(int r, int k) const {
+    const long long row = rows[r];
+    if (row < 0 || k >= K) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* p = x + row;
+    int i = k / kwc, j = k - i * kwc;
+    if (gather == 16)
+      return __ldg(reinterpret_cast<const float4*>(p + i * wc + j));
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = k + e < K ? __ldg(p + i * wc + j) : 0.f;
+      if (++j == kwc) {
+        j = 0;
+        ++i;
+      }
     }
+    return make_float4(v[0], v[1], v[2], v[3]);
   }
 };
 
@@ -541,23 +564,30 @@ __global__ void __launch_bounds__(CONV_WM* CONV_WN * 32, 2)
   conv_store_tile<CONV_BM, CONV_BN>(reinterpret_cast<float*>(smem), a, m0, n0);
 }
 
-// F32GER: true fp32 FMAs on the CUDA cores (tile_gemm.cuh's f32_tile).
+// F32GER: true fp32 FMAs on the CUDA cores (tile_gemm.cuh's f32_simt_tile),
+// a (BM, BN) tile of 128 x 128 or 64 x 64, two blocks an SM (128
+// registers a thread), as K1's gemm_f32_kernel.
+template <int BM, int BN>
 __host__ __device__ constexpr size_t conv_f32_smem_bytes() {
-  return f32_smem_bytes() + (size_t)F32_BM * sizeof(long long);
+  return f32_simt_smem_bytes<BM, BN>() + (size_t)BM * sizeof(long long);
 }
 
-template <bool PACKED>
-__global__ void __launch_bounds__(256) conv_f32_kernel(ConvArgs a) {
+template <bool PACKED, int BM, int BN>
+__global__ void __launch_bounds__(F32S_THREADS, 2)
+    conv_f32_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int m0 = blockIdx.x * F32_BM, n0 = blockIdx.y * F32_BN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const ConvGatherA<float> ld =
-      conv_gather<float, F32_BM>(smem, f32_smem_bytes(), a, m0);
+      conv_gather<float, BM>(smem, f32_simt_smem_bytes<BM, BN>(), a, m0);
   if constexpr (PACKED)
-    f32_tile_ab(smem, ld, conv_packed_b<float>(a, n0), a.K, false);
+    f32_simt_tile<BM, BN>(smem, ld, conv_packed_b<float>(a, n0), a.K, false);
   else
-    f32_tile(smem, ld, reinterpret_cast<const float*>(a.w), a.K, a.F, n0,
-             false);
-  conv_store_tile<F32_BM, F32_BN>(reinterpret_cast<float*>(smem), a, m0, n0);
+    f32_simt_tile<BM, BN>(
+        smem, ld,
+        RowMajorB<float>{reinterpret_cast<const float*>(a.w), a.K, a.F, n0,
+                         a.vec_b != 0},
+        a.K, false);
+  conv_store_tile<BM, BN>(reinterpret_cast<float*>(smem), a, m0, n0);
 }
 
 // ---- the wgmma kernel ----
@@ -619,7 +649,7 @@ __device__ __forceinline__ void conv_produce(unsigned char* smem,
                                              const CUtensorMap* tmb,
                                              const ConvArgs& a, int img,
                                              int ow0, int n0, int kiters) {
-  using Cfg = WgCfg<BN>;
+  using Cfg = WgCfg<BN, WG_CONV_STAGES>;
   constexpr int STAGES = Cfg::STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int it = warp; it < kiters; it += 4) {
@@ -650,7 +680,7 @@ __device__ __forceinline__ void conv_produce(unsigned char* smem,
 
 template <int BN>
 __host__ __device__ constexpr size_t conv_wgmma_smem_bytes() {
-  return WgCfg<BN>::smem + WG_BM * sizeof(long long);
+  return WgCfg<BN, WG_CONV_STAGES>::smem + WG_BM * sizeof(long long);
 }
 
 template <typename T, int BN, bool PACKED>
@@ -658,7 +688,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap tma,
                       const __grid_constant__ CUtensorMap tmb, ConvArgs a,
                       GemmEpi e) {
-  using Cfg = WgCfg<BN>;
+  using Cfg = WgCfg<BN, WG_CONV_STAGES>;
   constexpr int STAGES = Cfg::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -691,7 +721,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                         a.a_tma && one_image ? img : -1, ow0, n0, kiters);
   } else {
     setmaxnreg_inc<224>();
-    wg_consume<T, BN>(smem, full, empty, kiters, e, 0, m0, n0);
+    wg_consume<T, BN, Cfg>(smem, full, empty, kiters, e, 0, m0, n0);
   }
 }
 
@@ -785,10 +815,18 @@ static int launch_conv_tile(const ConvArgs& a, int path, int in_dt, int bn,
                        conv_wmma_smem_bytes<__half>(), &ok, CONV_BM, CONV_BN,
                        wmma_threads, a, s);
   }
-  if (path == CONV_PATH_F32 && in_dt == DT_F32 && bn == F32_BN) {
+  // the fp32 tiles of core/tiling.py's GEMM_TILES[F32GER], by filter tile
+  if (path == CONV_PATH_F32 && in_dt == DT_F32 && bn == 128) {
     static bool ok = false;
-    return launch_conv(conv_f32_kernel<PACKED>, conv_f32_smem_bytes(), &ok,
-                       F32_BM, F32_BN, 256, a, s);
+    return launch_conv(conv_f32_kernel<PACKED, 128, 128>,
+                       conv_f32_smem_bytes<128, 128>(), &ok, 128, 128,
+                       F32S_THREADS, a, s);
+  }
+  if (path == CONV_PATH_F32 && in_dt == DT_F32 && bn == 64) {
+    static bool ok = false;
+    return launch_conv(conv_f32_kernel<PACKED, 64, 64>,
+                       conv_f32_smem_bytes<64, 64>(), &ok, 64, 64,
+                       F32S_THREADS, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -815,8 +853,9 @@ static int conv2d_launch(
   a.K = (int)k;
   a.act = act;
   const uintptr_t xb = reinterpret_cast<uintptr_t>(x);
-  a.vec_a = (C % 8 == 0) && ((xb & 15) == 0);
-  a.vec_b = (F % 8 == 0) && ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
+  const int vec = in_dt == DT_F32 ? 4 : 8;  // elements in 16 bytes
+  a.vec_a = (C % vec == 0) && ((xb & 15) == 0);
+  a.vec_b = (F % vec == 0) && ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
   // packed filters: 16-byte aligned slab rows of 64 filters, any F
   if (w_packed && (reinterpret_cast<uintptr_t>(w) & 15))
     return (int)cudaErrorInvalidValue;

@@ -73,8 +73,8 @@
 // fragments the tile used before, so its bits do not depend on the loader
 // or the staging.  The fp32 tile carries F32GER's products at M > 64: each
 // output one fmaf chain in ascending k from the seed or zero, the chain
-// of tile_gemm.cuh's f32_tile_ab (K3's fp32 conv), so its bits do not
-// depend on the tile.
+// K3's fp32 conv takes on the same tile (tile_gemm.cuh's f32_simt_tile),
+// so its bits do not depend on the tile.
 
 #include "tile_gemm.cuh"
 

@@ -13,21 +13,19 @@
 //       fixes them up before the block's barrier (realigns rows copied as
 //       whole words, selects the pm* lanes; mostly nothing).
 //
-// For F32GER, K1's fp32 SIMT tile (f32_simt_tile) reads
+// For F32GER, the fp32 SIMT tile (f32_simt_tile: K1's fp32 products and
+// K3's fp32 conv) reads
 //
 //   ld.chunk4(int r, int k)  /  bl.chunk4(int k, int c)
 //       the 4 fp32 values of tile row r at k .. k + 3 (k a multiple of 4)
-//       / of row k at tile columns c .. c + 3;
+//       / of row k at tile columns c .. c + 3.
 //
-// and K3's fp32 conv (f32_tile_ab) an A loader's panel_kmajor<BM, BK,
-// LDT>(float* as, int k0) (the panel k-major: as[kk * LDT + r]) and a B
-// loader's panel_f32<BK, BN, LDB>(float* bs, int k0).  Each stages zeros
-// past the M, N and K fringes: RowMajorA over natural rows, PackedA over
+// Each stages zeros past the M, N and K fringes: RowMajorA over natural rows, PackedA over
 // core/packing.py's X-side panels (K1d), MaskedRowMajorA / MaskedPackedA
 // for the pm* forms; B is a (K, N) matrix: RowMajorB over natural rows,
 // PackedB over core/packing.py's 64-column panels (K1d, and K3's packed
 // filter stream), or MaskedRowMajorB / MaskedPackedB.
-// Both loops leave the fp32 tile in shared memory (row pitch BN + 4,
+// Both tiles leave the fp32 tile in shared memory (row pitch BN + 4,
 // aliasing the panels) for the caller's store; with `seeded` that tile
 // holds the fp32 seed on entry.
 //
@@ -352,15 +350,6 @@ struct RowMajorB {
     return natural_b<T, NT, BK, BN, LDB>(y, K, N, n0, nullptr, nullptr);
   }
 
-  template <int BK, int BN, int LDB>
-  __device__ void panel_f32(float* bs, int k0) const {
-    for (int i = threadIdx.x; i < BK * BN; i += blockDim.x) {
-      const int kk = i / BN, cc = i % BN;
-      const int gk = k0 + kk, gc = n0 + cc;
-      bs[kk * LDB + cc] = (gk < K && gc < N) ? y[(long long)gk * N + gc] : 0.f;
-    }
-  }
-
   __device__ __forceinline__ float4 chunk4(int k, int c) const {
     const int gc = n0 + c;
     if (k >= K || gc >= N) return make_float4(0.f, 0.f, 0.f, 0.f);
@@ -485,19 +474,6 @@ struct PackedB {
   template <int NT, int BK, int BN, int LDB>
   __device__ auto copies() const {
     return masked_copies<NT, BK, BN, LDB>(nullptr, nullptr);
-  }
-
-  template <int BK, int BN, int LDB>
-  __device__ void panel_f32(float* bs, int k0) const {
-    constexpr int CH = BN / 4;
-    for (int i = threadIdx.x; i < BK * CH; i += blockDim.x) {
-      const int r = i / CH, c4 = (i % CH) * 4;
-      const int gk = k0 + r, gc = n0 + c4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gk < K && gc < N)
-        v = __ldg(reinterpret_cast<const float4*>(at(gk, gc)));
-      *reinterpret_cast<float4*>(bs + r * LDB + c4) = v;
-    }
   }
 
   __device__ __forceinline__ float4 chunk4(int k, int c) const {
@@ -758,80 +734,9 @@ __device__ void wmma_tile(unsigned char* smem, const ALoader& ld, const T* y,
   wmma_tile_ab<T, BM, BN, BK, WM, WN>(smem, ld, bl, K, seeded);
 }
 
-// F32GER: true fp32 FMAs on the CUDA cores (no TF32).  256 threads, each
-// holding a 4x4 register accumulator strided over the (BM, BN) tile, one
-// synchronous stage a K step: K3's fp32 conv (mma_conv.cu).  K1's fp32
-// products run f32_simt_tile below.
-constexpr int F32_BM = 64, F32_BN = 64, F32_BK = 16;
-
-__host__ __device__ constexpr size_t f32_smem_bytes() {
-  constexpr size_t panels =
-      ((size_t)F32_BK * (F32_BM + 4) + (size_t)F32_BK * (F32_BN + 4)) * 4;
-  constexpr size_t ctile = (size_t)F32_BM * (F32_BN + 4) * 4;
-  return panels > ctile ? panels : ctile;
-}
-
-template <typename ALoader, typename BLoader>
-__device__ void f32_tile_ab(unsigned char* smem, const ALoader& ld,
-                            const BLoader& bl, int K, bool seeded) {
-  constexpr int BM = F32_BM, BN = F32_BN, BK = F32_BK;
-  constexpr int LDT = BM + 4, LDB = BN + 4, LDC = BN + 4;
-  float* as = reinterpret_cast<float*>(smem);  // k-major: as[kk][row]
-  float* bs = as + BK * LDT;
-  float* cs = reinterpret_cast<float*>(smem);  // aliases the panels
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  float acc[4][4];
-  if (seeded) {
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = cs[(ty + 16 * i) * LDC + tx + 16 * j];
-    __syncthreads();
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    ld.template panel_kmajor<BM, BK, LDT>(as, k0);
-    bl.template panel_f32<BK, BN, LDB>(bs, k0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk * LDT + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kk * LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  __syncthreads();
-}
-
-template <typename ALoader>
-__device__ void f32_tile(unsigned char* smem, const ALoader& ld,
-                         const float* y, int K, int N, int n0, bool seeded) {
-  f32_tile_ab(smem, ld, RowMajorB<float>{y, K, N, n0, false}, K, seeded);
-}
-
-// K1's F32GER tile (mma_gemm.cu's gemm_f32_kernel): a register-blocked
-// SIMT GEMM on the CUDA cores, true fp32 FMAs (never TF32).  256 threads
+// F32GER's tile (mma_gemm.cu's gemm_f32_kernel, K3's conv_f32_kernel in
+// mma_conv.cu): a register-blocked SIMT GEMM on the CUDA cores, true fp32
+// FMAs (never TF32).  256 threads
 // as 16 x 16 (a warp 4 x 8 of them); each owns (BM / 16) x (BN / 16)
 // outputs in 4 x 4 quadrants 64 rows and 64 columns apart (8 x 8 on the
 // 128 x 128 tile, 4 x 4 on the 64 x 64 one), so that a warp's float4
@@ -843,9 +748,9 @@ __device__ void f32_tile(unsigned char* smem, const ALoader& ld,
 // other stage after the FMAs: X k-major (transposed on the way, the pm*
 // predicates selecting its disabled lanes to 0 there), Y row-major; one
 // __syncthreads a K step.  Each output is one fmaf chain over k = 0 ..
-// ceil(K / 16) * 16 - 1 in ascending order from the seed or +0.0 -- the
-// chain of f32_tile_ab -- so the result is the same bits at either tile
-// size and with either loader.  The fp32 tile that the panels alias
+// ceil(K / 16) * 16 - 1 in ascending order from the seed or +0.0 (the
+// chain of the one-stage 64 x 64 tile that ran before it), so the result
+// is the same bits at either tile size and with any loader.  The fp32 tile that the panels alias
 // holds the seed on entry (`seeded`) and the accumulators on return.
 constexpr int F32S_BK = 16, F32S_THREADS = 256;
 

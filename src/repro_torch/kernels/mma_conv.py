@@ -83,10 +83,11 @@ _GER = {torch.bfloat16: precision.Ger.BF16GER2,
 CONV_PATHS = {"wmma": 0, "f32": 1, "wgmma": 2}
 DEPTHWISE_PATHS = ("vector", "scalar")
 
-# The filter tile (bf, K3's N tile) an explicit Plan.block may name, by
-# input dtype: the WMMA (F32GER) tile; the F fringe of a narrower or
-# ragged filter bank is masked.
-CONV_TILE = {dt: tiling.CONV_TILES[g].bn for dt, g in _GER.items()}
+# The filter tiles (bf, K3's N tile) an explicit Plan.block may name, by
+# input dtype: the WMMA tile (F32GER: the fp32 tiles); the F fringe of a
+# narrower or ragged filter bank is masked.
+CONV_TILE = {dt: tuple(t.bn for t in tiling.CONV_TILES[g])
+             for dt, g in _GER.items()}
 
 
 def _geometry(image, taps, stride):
@@ -333,9 +334,9 @@ def mma_conv2d(image: torch.Tensor, kernels: torch.Tensor, *,
     image (N, H, W, C) and filters (KH, KW, C, F) of one dtype (f32, bf16
     or f16) -> (N, OH, OW, F) in ``out_dtype``; ``ep`` fuses bias (F,),
     activation and residual (N, OH, OW, F) into the single store.  ``bf``
-    names the WMMA filter tile, which must be ``CONV_TILE`` of the input
-    dtype; None lets ``core.tiling.choose_conv_path`` pick the kernel.  It
-    changes no result beyond the order of the fp32 sums.  ``tuned`` is a
+    names the WMMA filter tile, which must be one of ``CONV_TILE`` of the
+    input dtype; None lets ``core.tiling.choose_conv_path`` pick the
+    kernel.  It changes no result beyond the order of the fp32 sums.  ``tuned`` is a
     GEMM winner's K3 counterpart (``tiling.conv_tuned``), taken where the
     conv can take it.  ``w_layout`` marks ``kernels`` as a packed filter
     stream (the module docstring).

@@ -144,6 +144,28 @@ def test_autotuned_is_cached_and_round_trips(tmp_path):
     assert ent["split"] == won[1].split
 
 
+def test_narrow_wgmma_winner_round_trips(tmp_path):
+    """A winner on a 64-column wgmma tile reads back as the same
+    configuration; every compiled wgmma tile is a candidate of an aligned
+    prefill product, batched or not; K3's wgmma conv takes only the
+    tiles it is compiled for."""
+    cache = autotune.AutotuneCache(tmp_path / "at.json")
+    won = ("wgmma", tiling.WgmmaConfig(128, 64))
+    key = _plant(cache, Ger.BF16GER2, 256, 4096, 11008, won)
+    ent = json.loads((tmp_path / "at.json").read_text())["entries"][key]
+    assert ent["path"] == "wgmma" and ent["block"] == [128, 64, 64]
+    assert "split" not in ent
+    fresh = autotune.AutotuneCache(tmp_path / "at.json")
+    assert autotune.lookup(Ger.BF16GER2, 256, 4096, 11008, backend="cpu",
+                           cache=fresh) == won
+    for b in (1, 2):
+        got = autotune.candidate_blocks(256, 4096, 11008, Ger.BF16GER2, b=b)
+        assert {c for p, c in got if p == "wgmma"} == set(tiling.WGMMA_TILES)
+    for cfg in tiling.WGMMA_TILES:
+        want = ("wgmma", cfg) if cfg in tiling.CONV_WGMMA_TILES else None
+        assert tiling.conv_tuned(("wgmma", cfg), Ger.BF16GER2) == want
+
+
 def test_cache_miss_returns_none(tmp_path):
     cache = autotune.AutotuneCache(tmp_path / "empty.json")
     assert autotune.lookup(Ger.BF16GER2, 64, 64, 64, cache=cache) is None

@@ -353,12 +353,14 @@ def test_conv_plan_block_names_the_filter_tile():
         with pytest.raises(ValueError, match="bm, bf, bk"):
             tfac.contract(tfac.CONV1D, x, w, plan=tfac.Plan(block=(64, 64)))
     with tfac.configure(tfac.FacilityConfig(**CPU_F32)):
-        assert torch.equal(tfac.contract(
-            tfac.CONV1D, x, w, plan=tfac.Plan(block=(64, 64, 16))),
-            tfac.contract(tfac.CONV1D, x, w))
+        # F32GER's two fp32 tiles (filter tiles 64 and 128), no other
+        for blk in ((64, 64, 16), (128, 128, 16)):
+            assert torch.equal(tfac.contract(
+                tfac.CONV1D, x, w, plan=tfac.Plan(block=blk)),
+                tfac.contract(tfac.CONV1D, x, w))
         with pytest.raises(ValueError, match="filter tile"):
             tfac.contract(tfac.CONV1D, x, w,
-                          plan=tfac.Plan(block=(64, 128, 32)))
+                          plan=tfac.Plan(block=(64, 256, 32)))
 
 
 def test_conv2d_wrapper_checks_its_operands():

@@ -562,7 +562,7 @@ def test_conv2d_kernel_refuses_strided_operands(gen):
     with pytest.raises(ValueError, match="contiguous"):
         K.mma_conv2d(x, w.transpose(0, 1))
     with pytest.raises(ValueError, match="filter tile"):
-        K.mma_conv2d(x.float(), w.float(), bf=128)
+        K.mma_conv2d(x.float(), w.float(), bf=256)
 
 
 # (image NHWC, filters HWIO, stride, dtype, epilogue, out dtype, path):
@@ -2618,3 +2618,196 @@ def test_f32_redesign_refuses_tf32(gen, d):
         q32, k32 = (_tf32(t) for t in (q, k))
         tf32 = A.flash_attention_plain(q32, k32, v, out_dtype=f32, **kw)
         assert ((tf32 - want).abs() / tol).max().item() > 2
+
+
+# ----------------------------------------------------------------------
+# K1's wgmma tile (gemm_wgmma.cu: a (128, 64 / 128 / 192 / 256) tile a
+# block, the width core/tiling.py's wgmma_plan picks): every form at
+# every compiled tile
+# ----------------------------------------------------------------------
+
+# name: (batch, (M, K, N), forms): "x" / "y" packed panels, "shared" (Y
+# panels without the batch axis), "seed" (a C seed with alpha, beta and
+# both negations), "ep" (bias + gelu + residual), "bf16 out", "sidecar"
+# (checksum=True).  M = 1100 and N = 2104 put more tiles than SMs on the
+# card at every tile width; K and N multiples of 8 (TMA's rule), neither
+# of the tile's steps.
+_WGMMA_FORMS = {
+    "natural": ((), (300, 512, 264), ()),
+    "many tiles": ((), (1100, 256, 2104), ()),
+    "fringes": ((), (1000, 328, 1000), ()),
+    "X panels": ((), (300, 328, 264), ("x",)),
+    "Y panels": ((), (300, 328, 1000), ("y",)),
+    "X and Y panels": ((), (300, 328, 1000), ("x", "y")),
+    "seeded": ((), (300, 512, 264), ("seed",)),
+    "epilogue": ((), (300, 512, 264), ("ep",)),
+    "bf16 out": ((), (1100, 256, 2104), ("ep", "bf16 out")),
+    "batched": ((3,), (130, 200, 264), ()),
+    "batched panels": ((3,), (130, 200, 264), ("x", "y")),
+    "shared": ((3,), (130, 200, 264), ("y", "shared")),
+    "moe banks": ((16,), (96, 512, 1408), ("y",)),
+    "ssd chunks": ((8,), (256, 64, 256), ()),
+    "sidecar": ((), (300, 768, 1000), ("sidecar",)),
+}
+
+
+_WGMMA_FORM_CFGS = [(form, cfg) for form in sorted(_WGMMA_FORMS)
+                    for cfg in tiling.WGMMA_TILES]
+
+
+@pytest.mark.parametrize("kind", [Ger.BF16GER2, Ger.F16GER2])
+@pytest.mark.parametrize("form,cfg", _WGMMA_FORM_CFGS)
+def test_wgmma_tile_forms_match_plain(gen, form, cfg, kind):
+    """The wgmma tile at each compiled width (a planted winner): one
+    launch on the wgmma path, finite, within the f32 tolerance of the
+    plain version (a 16-bit store within one ulp of it), bit for bit the
+    launch on the heuristic's plan (the k order and the epilogue do not
+    depend on the tile); on packed panels bit for bit the natural launch;
+    with the sidecar, ``out`` bit for bit and the sums within ABFT's
+    tolerance of the plain result's."""
+    from repro_torch.core import abft, packing
+    lead, (m, k, n), forms = _WGMMA_FORMS[form]
+    bn = cfg.bn
+    dt = precision.policy(kind).x_dtype
+    x = _randn(gen, *lead, m, k, dtype=dt)
+    y = _randn(gen, *(() if "shared" in forms else lead), k, n, dtype=dt,
+               scale=k ** -0.5)
+    yn = y.expand(*lead, k, n).contiguous() if "shared" in forms else y
+    out_dtype = torch.bfloat16 if "bf16 out" in forms else torch.float32
+    kw = dict(kind=kind, out_dtype=out_dtype)
+    c = None
+    if "seed" in forms:
+        c = _randn(gen, *lead, m, n, dtype=torch.float32)
+        kw.update(alpha=0.75, beta=-0.5, neg_product=True, neg_acc=True)
+    if "ep" in forms:
+        kw.update(ep=E.Epilogue(bias=True, activation="gelu", residual=True),
+                  bias=_randn(gen, n, dtype=torch.float32),
+                  residual=_randn(gen, *lead, m, n, dtype=out_dtype))
+    tuned = ("wgmma", cfg)
+    assert tiling.takes(tuned, m, n, k, kind)
+    before = G.mma_gemm.launches_by_path["wgmma"]
+    got = G.mma_gemm(x, yn, c, tuned=tuned, **kw)
+    again = G.mma_gemm(x, yn, c, **kw)
+    torch.cuda.synchronize()
+    assert G.mma_gemm.launches_by_path["wgmma"] == before + 2
+    assert torch.equal(got, again)
+    want = G.mma_gemm_plain(x, yn, c, **kw)
+    assert bool(torch.isfinite(got).all())
+    if out_dtype == torch.float32:
+        _assert_f32_close(got, want)
+    else:
+        _assert_store_close(got, want.float(), out_dtype)
+    if "x" in forms or "y" in forms:
+        xp, yp, lay = x, y, {}
+        if "x" in forms:
+            po = packing.pack_gemm(x, packing.gemm_layout(
+                kind, m, k, side="x", batched=bool(lead)))
+            xp, lay["x_layout"] = po.data, po.layout
+        if "y" in forms:
+            po = packing.pack_gemm(y, packing.gemm_layout(
+                kind, k, n, batched=y.ndim == 3))
+            yp, lay["y_layout"] = po.data, po.layout
+        assert torch.equal(G.mma_gemm(xp, yp, c, tuned=tuned, **kw, **lay),
+                           got)
+    if "sidecar" in forms:
+        out, ck_col, ck_row = G.mma_gemm(x, y, c, checksum=True,
+                                         tuned=tuned, **kw)
+        assert torch.equal(out, got)
+        eps = torch.finfo(torch.float32).eps
+        mag = torch.matmul(x.double().abs(), y.double().abs())
+        for ck, want_ck, mag_ck in zip(
+                (ck_col, ck_row), G.checksum_tiles(want, 128, bn),
+                G.checksum_tiles(mag, 128, bn)):
+            err = (ck.double() - want_ck.double()).abs()
+            assert bool((err <= abft.ATOL + abft.FACTOR * eps * mag_ck
+                         ).all()), err.max()
+
+
+# ----------------------------------------------------------------------
+# K3's fp32 conv on the fp32 SIMT tile (mma_conv.cu's conv_f32_kernel on
+# tile_gemm.cuh's f32_simt_tile, ConvGatherA::chunk4)
+# ----------------------------------------------------------------------
+
+def _fma_chain(a, b):
+    """(M, K) @ (K, N) as one fp32 fmaf chain an output, k ascending from
+    +0.0: each step's exact a*b + acc (TwoSum in float64) rounded once to
+    fp32, a double rounding that lands on an fp32 midpoint broken by the
+    sum's error."""
+    f64 = torch.float64
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
+                      device=a.device)
+    for kk in range(a.shape[1]):
+        p = a[:, kk:kk + 1].to(f64) * b[kk:kk + 1, :].to(f64)   # exact
+        c = acc.to(f64)
+        s = p + c
+        bb = s - p
+        err = (p - (s - bb)) + (c - bb)
+        r = s.to(torch.float32)
+        d = s - r.to(f64)
+        hi = torch.nextafter(r, torch.full_like(r, float("inf")))
+        lo = torch.nextafter(r, torch.full_like(r, float("-inf")))
+        up = (d == (hi.to(f64) - r.to(f64)) / 2) & (err > 0)
+        down = (d == (lo.to(f64) - r.to(f64)) / 2) & (err < 0)
+        acc = torch.where(up, hi, torch.where(down, lo, r))
+    return acc
+
+
+# name: (image NHWC, filters HWIO, stride, misaligned image base): C = 3
+# (qwen2-vl's patch embed: element loads), C = 80 (whisper's conv1: 16-byte
+# loads; off a 16-byte base: element loads) and C = 768 (whisper's conv2);
+# M, F and K past each tile's edge
+_F32_CONV_FORMS = {
+    "C=3 patch": ((2, 42, 56, 3), (14, 14, 3, 200), (14, 14), False),
+    "C=80 conv1": ((1, 1, 70, 80), (1, 3, 80, 130), (1, 1), False),
+    "C=80 unaligned": ((1, 1, 70, 80), (1, 3, 80, 130), (1, 1), True),
+    "C=768 conv2": ((1, 1, 101, 768), (1, 3, 768, 72), (1, 2), False),
+    "C=5 2-D": ((2, 9, 11, 5), (3, 3, 5, 136), (1, 2), False),
+}
+
+
+@pytest.mark.parametrize("form", sorted(_F32_CONV_FORMS))
+def test_f32_conv_simt_tile_bit_for_bit(gen, form):
+    """The fp32 conv on both fp32 tiles and on the packed filter stream:
+    bit for bit ref.conv2d's patch product summed as one fmaf chain an
+    output in ascending k (the chain the parent kernel took), the three
+    launches alike; with bias + gelu + residual within the f32 tolerance
+    of the plain version."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import ref
+    shape, fshape, stride, misaligned = _F32_CONV_FORMS[form]
+    f32 = torch.float32
+    n, h, w, c = shape
+    kh, kw, _, f = fshape
+    if misaligned:
+        buf = _randn(gen, n * h * w * c + 1, dtype=f32)
+        x = buf[1:].view(shape)
+    else:
+        x = _randn(gen, *shape, dtype=f32)
+    filt = _randn(gen, *fshape, dtype=f32, scale=(kh * kw * c) ** -0.5)
+    assert (tiling.conv_gather_bytes(c, kw, w, stride[1], x.data_ptr())
+            == 16) == (c % 8 == 0 and not misaligned)
+    before = K.mma_conv2d.launches_by_path["f32"]
+    outs = [K.mma_conv2d(x, filt, stride=stride, out_dtype=f32, bf=bf)
+            for bf in (128, 64)]
+    po = packing.pack_conv(filt, packing.conv_layout(Ger.F32GER, kh, kw, c,
+                                                     f, nd=2))
+    outs.append(K.mma_conv2d(x, po.data, w_layout=po.layout, stride=stride,
+                             out_dtype=f32))
+    torch.cuda.synchronize()
+    assert K.mma_conv2d.launches_by_path["f32"] == before + 3
+    oh, ow = (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
+    patches = [x[:, i:i + (oh - 1) * stride[0] + 1:stride[0],
+                 j:j + (ow - 1) * stride[1] + 1:stride[1], :]
+               for i in range(kh) for j in range(kw)]
+    abar = torch.cat(patches, dim=-1).reshape(n * oh * ow, kh * kw * c)
+    want = _fma_chain(abar, filt.reshape(kh * kw * c, f)).reshape(
+        n, oh, ow, f)
+    for got in outs:
+        assert torch.equal(got, want)
+    _assert_f32_close(want, ref.conv2d(x, filt, stride))
+    ep = dict(ep=E.Epilogue(bias=True, activation="gelu", residual=True),
+              bias=_randn(gen, f, dtype=f32),
+              residual=_randn(gen, n, oh, ow, f, dtype=f32))
+    got = K.mma_conv2d(x, filt, stride=stride, out_dtype=f32, **ep)
+    _assert_f32_close(got, K.mma_conv2d_plain(x, filt, stride=stride,
+                                              out_dtype=f32, **ep))

@@ -109,7 +109,62 @@ def test_ssd_decode_products_take_the_weight_stream(arch, heads, state):
     (6000, 768, 768), (6000, 768, 3072), (6000, 3072, 768)])  # whisper enc
 def test_prefill_products_take_the_wgmma_tile(m, k, n):
     path, cfg = tiling.choose_gemm_path(m, n, k, BF, 1, True)
-    assert path == "wgmma" and cfg.bm == 128 and cfg.bn in (128, 256)
+    assert path == "wgmma" and cfg in tiling.WGMMA_TILES
+    assert cfg == tiling.wgmma_plan(m, n, k)
+
+
+@pytest.mark.parametrize("k,n,want", [
+    (4096, 4096, tiling.WgmmaConfig(128, 64)),          # q, k, v, o
+    (4096, 11008, tiling.WgmmaConfig(128, 192)),        # gate, up
+    (11008, 4096, tiling.WgmmaConfig(128, 64)),         # down
+])
+def test_wgmma_plan_fills_the_card_at_deepseek_prefill(k, n, want):
+    """deepseek-7b's prefill products at M = 256: the plan puts a tile on
+    at least 7/8 of the card's SMs in one wave (the 128-column tile left
+    68 of 132 idle at N = 4096), and it is a pure function of (m, n, k,
+    b): the same answer on every call, the batch counted as more tiles."""
+    m = 256
+    cfg = tiling.wgmma_plan(m, n, k)
+    assert cfg == want == tiling.choose_gemm_path(m, n, k, BF, 1, True)[1]
+    assert 7 * tiling.NUM_SMS <= 8 * cfg.tiles(m, n) <= 8 * tiling.NUM_SMS
+    assert cfg.waves(m, n) == 1
+    if n == 4096:   # the parent's 128-column plan: 64 tiles
+        assert tiling.WgmmaConfig(128, 128).tiles(m, n) == 64
+    assert tiling.wgmma_plan(m, n, k) == cfg
+    # K does not shape the grid; a batch adds tiles
+    assert tiling.wgmma_plan(m, n, 2 * k) == cfg
+    two = tiling.wgmma_plan(m, n, k, 2)
+    assert two.tiles(m, n, 2) == 2 * two.tiles(m, n)
+
+
+@pytest.mark.parametrize("m,k,n,bn", [
+    (1024, 4096, 11008, 256), (2048, 4096, 4096, 256),
+    (4096, 2048, 4096, 256), (6000, 768, 3072, 192), (6000, 768, 768, 192),
+    (256, 4096, 102400, 256)])
+def test_wgmma_plan_keeps_wide_tiles_where_they_fill_the_card(m, k, n, bn):
+    """Prefill and train products that fill the card several times over
+    stay on wide tiles."""
+    assert tiling.wgmma_plan(m, n, k) == tiling.WgmmaConfig(128, bn)
+
+
+def test_wgmma_configs_fit_a_block():
+    """Every compiled wgmma tile's shared memory, as csrc/wgmma_tile.cuh's
+    WgCfg reckons it: the ring (4 stages of a 16 KB X box and a 64 x bn Y
+    box at bn = 256, 5 at 192, 7 at 128, 8 at 64), 1 KB of alignment slack
+    and two mbarriers a stage, within 232,448 bytes with K3's 1 KB of
+    row offsets beside it; the ring holds the epilogue's staged fp32
+    tile; and K3's wgmma conv tiles are among them."""
+    ring = {256: 4 * 49152, 192: 5 * 40960, 128: 7 * 32768, 64: 8 * 24576}
+    for cfg in tiling.WGMMA_TILES:
+        stages = tiling.wgmma_stages(cfg.bn)
+        got = cfg.smem_bytes()
+        assert got == ring[cfg.bn] + 1024 + 16 * stages
+        assert got + 128 * 8 <= tiling.SMEM_PER_BLOCK
+        # one stage more would not fit, or the ring is at its most
+        assert got + 128 * 8 + tiling.wgmma_stage_bytes(cfg.bn) + 16 > \
+            tiling.SMEM_PER_BLOCK or stages == tiling.WGMMA_MAX_STAGES
+        assert ring[cfg.bn] >= 128 * (cfg.bn + 8) * 4
+    assert set(tiling.CONV_WGMMA_TILES) <= set(tiling.WGMMA_TILES)
 
 
 def test_what_the_new_paths_do_not_take_stays_on_wmma():
@@ -259,7 +314,7 @@ _STEMS = {"whisper conv1": (4 * 3000, 768),
 def test_conv_stems_take_the_wgmma_kernel(stem):
     m, f = _STEMS[stem]
     path, cfg = tiling.choose_conv_path(m, f, BF, True)
-    assert path == "wgmma" and cfg == tiling.wgmma_plan(m, f)
+    assert path == "wgmma" and cfg == tiling.conv_wgmma_plan(m, f)
     # 256-wide tiles only where the grid runs three waves: the patch embed
     assert cfg.bn == (256 if stem == "qwen2-vl patch embed" else 128)
     assert tiling.choose_conv_path(m, f, tprec.Ger.F16GER2, True)[0] == \
@@ -272,16 +327,63 @@ def test_conv_paths_the_wgmma_kernel_does_not_take():
     for aligned in (True, False):
         assert tiling.choose_conv_path(m, f, tprec.Ger.F32GER,
                                        aligned) == \
-            ("f32", tiling.CONV_TILES[tprec.Ger.F32GER])
+            ("f32", tiling.BlockConfig(64, 64, 16))
     # an explicit filter tile names the WMMA tile, as a block does the GEMM's
     assert tiling.choose_conv_path(m, f, BF, True, True, 128) == \
-        ("wmma", tiling.CONV_TILES[BF])
+        ("wmma", tiling.CONV_TILES[BF][0])
     # a bank TMA cannot read (F % 8 != 0, or an unaligned base)
     assert tiling.choose_conv_path(m, 100, BF, False)[0] == "wmma"
     # an image the producer gathers in neither 16- nor 4-byte copies
     assert tiling.choose_conv_path(m, f, BF, True, False)[0] == "wmma"
     with pytest.raises(ValueError, match="filter tile"):
         tiling.choose_conv_path(m, f, BF, True, True, 64)
+
+
+@pytest.mark.parametrize("m,f,want", [
+    (4 * 1500, 768, 64),           # whisper conv2: 282 large tiles
+    (4 * 3000, 768, 128),          # whisper conv1: 564
+    (4 * 32 * 32, 3584, 128),      # qwen2-vl's patch embed: 896
+    (2 * 149, 144, 64),            # a short grid: 3 x 2 large tiles
+    (128, 1024, 64),               # 8 large tiles, 32 small
+])
+def test_f32_conv_takes_the_fp32_simt_tile_by_the_wave_rule(m, f, want):
+    """F32GER's conv runs K1's fp32 SIMT tiles, wave by wave
+    (tiling.f32_conv_tile): 128 x 128 where its waves of two blocks an SM
+    are full enough (conv1, the patch embed), else 64 x 64 (whisper's
+    conv2, whose second wave of large tiles is 7% full, and short grids);
+    an explicit filter tile names either, and no other."""
+    F32 = tprec.Ger.F32GER
+    path, cfg = tiling.choose_conv_path(m, f, F32)
+    assert path == "f32" and (cfg.bm, cfg.bn, cfg.bk) == (want, want, 16)
+    assert cfg == tiling.f32_conv_tile(m, f)
+    gx, gy, _ = tiling.BlockConfig(128, 128, 16).grid(m, f)
+    if m == 4 * 1500:
+        assert gx * gy - 2 * tiling.NUM_SMS == 18
+    assert tiling.CONV_TILES[F32] == tiling.tiles_for(F32)
+    for bf in (128, 64):
+        assert tiling.choose_conv_path(m, f, F32, True, True, bf) == \
+            ("f32", tiling.BlockConfig(bf, bf, 16))
+    for bf in (32, 256):
+        with pytest.raises(ValueError, match="filter tiles"):
+            tiling.choose_conv_path(m, f, F32, True, True, bf)
+
+
+@pytest.mark.parametrize("kind", [BF, tprec.Ger.F16GER2,
+                                  tprec.Ger.F32GER])
+def test_conv_tiles_fit_a_block(kind):
+    """K3's compiled WMMA and fp32 tiles with the rows' pixel offsets
+    (csrc/mma_conv.cu's conv_wmma_smem_bytes / conv_f32_smem_bytes): the
+    fp32 tiles' two stages or their fp32 tile, whichever is larger, and
+    8 bytes a row, within 232,448 bytes and two blocks an SM."""
+    pol = tprec.policy(kind)
+    want = {(64, 128, 32): 4 * (64 * 40 + 32 * 136) * 2 + 64 * 8,
+            (128, 128, 16): 128 * 132 * 4 + 128 * 8,         # 68608
+            (64, 64, 16): 2 * (16 * 68 + 16 * 68) * 4 + 64 * 8}
+    for cfg in tiling.CONV_TILES[kind]:
+        got = tiling.conv_smem_bytes(cfg, pol)
+        assert got == want[(cfg.bm, cfg.bn, cfg.bk)]
+        assert got <= tiling.SMEM_PER_BLOCK
+        assert 2 * (got + 1024) <= 228 * 1024
 
 
 # (C, KW, W, SW, image base) -> the widest copy that gathers K3's image
@@ -368,7 +470,7 @@ def test_wmma_tile_smem_counts_the_ring(kind):
             (64, 64, 64): 4 * (64 * 72 + 64 * 72) * 2,          # 73728
             (64, 128, 32): 4 * (64 * 40 + 32 * 136) * 2}        # 55296
     assert want[(128, 128, 32)] > 128 * 132 * 4    # the ring > the fp32 tile
-    for cfg in (*tiling.tiles_for(kind), tiling.CONV_TILES[kind]):
+    for cfg in (*tiling.tiles_for(kind), *tiling.CONV_TILES[kind]):
         got = cfg.smem_bytes(pol)
         assert got == want[(cfg.bm, cfg.bn, cfg.bk)]
         assert 2 * (got + 1024) <= 228 * 1024 and got <= tiling.SMEM_PER_BLOCK
@@ -394,7 +496,7 @@ def test_wmma_tile_routes_are_unchanged():
                                    True) == ("wmma", small)
     assert tiling.choose_gemm_path(1024, 11008, 4096, BF, 1, True, None,
                                    True) == ("wmma", big)
-    conv = tiling.CONV_TILES[BF]
+    conv = tiling.CONV_TILES[BF][0]
     assert tiling.choose_conv_path(6000, 768, BF, True, True,
                                    128) == ("wmma", conv)
     assert tiling.choose_conv_path(6000, 768, BF, True, False) == ("wmma",
