@@ -272,7 +272,27 @@ Phases, each of which must pass or the script exits nonzero:
      before and read just after; each against its plain version, the
      same bits twice and the parent's output hash, timed beside
      ``torch.matmul`` / cuDNN, the bound, the parent's time and its aim
-     (``time wgmma ...``, ``time conv ...``).
+     (``time wgmma ...``, ``time conv ...``; K3's bf16 conv targets on
+     its wgmma kernel at the wave plan's tile, whisper's conv2 held to
+     cuDNN in the same run);
+ 16. the 16-bit weight stream (``gemm_stream.cu``'s TMA kernel, or its
+     cp.async kernel where TMA cannot read a row) at ``STREAM_TARGETS``
+     (deepseek-7b's decode products and logits, deepseek-moe-16b's expert
+     banks at decode and at a prefill's cap of 30, the row buckets 16/32/
+     64, whisper's decoder MLP and unaligned logits, mamba2's in_proj, the
+     SSD's batched M = 1 product, packed X and Y, a shared Y, the sidecar,
+     f16) through the kernel wrapper, counts zeroed just before and read
+     just after (every launch on the stream); each against its split-K
+     plain version, the same bits twice, packed bit for bit natural, its
+     hash against the parent's (``PHASE16_PARENT_SHA``), each b = 64 bank
+     bit for bit its 64 experts run one at a time; timed beside
+     ``torch.matmul``, the bound, the parent's PERF.md time and its aim
+     (``time stream ...``).
+
+Phase 1 also launches one instance above 48 KB of shared memory of each
+library on a fresh ``threading.Thread`` after the main thread has
+launched it (a failure fails the run); phase 3 prints deepseek-moe-16b's
+decode step's expert-bank device time (``bank_time``).
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
@@ -298,7 +318,8 @@ and demotes under ``phase11``; its full-grid attention entry its
 ``bounded_ms``, step counts and ``full_grid_launches``; phase 12's two
 entries their ``timed`` forms; phase 13's tile entry its ``timed``
 shapes and ``targets_met``; phase 14's DMMA entry its ``timed`` targets,
-their tiles and ``aims_met``; the phase-2 attention entry names
+their tiles and ``aims_met``; phase 16's stream entry its ``timed``
+targets, their plans and ``aims_met``; the phase-2 attention entry names
 the tile kernel under ``tile_kernel``); the last is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX and nothing
 of the JAX package.  Exits nonzero, printing no result, where CUDA
@@ -1659,7 +1680,8 @@ def step_breakdown(torch, cfg, prefill, decode, what):
 
 # The __global__ functions of src/repro_torch/csrc, as the profiler names
 # them.
-PORT_KERNELS = ("gemm_stream_kernel", "gemm_stream_f32_kernel",
+PORT_KERNELS = ("gemm_stream_tma_kernel", "gemm_stream_kernel",
+                "gemm_stream_f32_kernel",
                 "gemm_wgmma_kernel",
                 "gemm_wmma_kernel", "gemm_f32_kernel", "flash_tile_kernel",
                 "flash_decode_kernel", "flash_f32_tile_kernel",
@@ -1707,8 +1729,48 @@ def profile_step(torch, step, fn, step_ms):
     return busy, max(0.0, 1 - busy / step_ms)
 
 
+def bank_time(torch, cfg, decode):
+    """One decode step of a MoE model under torch.profiler: the expert
+    banks' device time -- the GEMM kernels whose launch had the experts
+    on its batch axis, matched in launch order to ``mma_gemm.trace`` (one
+    stream: kernels run in the order they were launched) -- beside the
+    step's device busy time."""
+    from repro_torch.core import facility
+    from repro_torch.kernels import mma_gemm as G
+    act = torch.profiler.ProfilerActivity
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        decode()
+        torch.cuda.synchronize()
+        G.mma_gemm.trace = []
+        try:
+            with torch.profiler.profile(activities=[act.CPU,
+                                                    act.CUDA]) as prof:
+                decode()
+                torch.cuda.synchronize()
+            trace = G.mma_gemm.trace
+        finally:
+            G.mma_gemm.trace = None
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [ev for ev in prof.events() if ev.device_type == cuda]
+    gemm = sorted((ev for ev in kern
+                   if re.split(r"[<(]", ev.name)[0].split()[-1]
+                   in GEMM_KERNELS), key=lambda ev: ev.time_range.start)
+    busy = sum(ev.time_range.elapsed_us() for ev in kern) / 1e3
+    if len(gemm) != len(trace) or not gemm:
+        print(f"  {cfg.name} decode step banks: not measured ({len(gemm)} "
+              f"GEMM kernel events for {len(trace)} launches)")
+        return None
+    banks = [ev.time_range.elapsed_us() / 1e3 for ev, rec in zip(gemm, trace)
+             if rec[0] == cfg.num_experts]
+    print(f"  {cfg.name} decode step: the expert banks' device time "
+          f"{sum(banks):.2f} ms in {len(banks)} launches, of {busy:.2f} ms "
+          f"device busy (profiled)", flush=True)
+    return sum(banks)
+
+
 # The GEMM's kernels, as the profiler names them.
-GEMM_KERNELS = ("gemm_stream_kernel", "gemm_stream_f32_kernel",
+GEMM_KERNELS = ("gemm_stream_tma_kernel", "gemm_stream_kernel",
+                "gemm_stream_f32_kernel",
                 "gemm_wgmma_kernel", "gemm_wmma_kernel", "gemm_f32_kernel",
                 "gemm_imma_kernel", "gemm_dmma_kernel")
 
@@ -5919,8 +5981,10 @@ WGMMA_TARGETS = (
      (None, 256, 11008, 4096), ("y",), 0.0716, None),
 )
 # K3 at the path choose_conv_path picks: (label, image NHWC, filters HWIO,
-# stride, dtype, packed filters, parent ms as above, aim as above but
-# ("ms", t) only); bias + gelu, out in the input dtype.
+# stride, dtype, packed filters, parent ms as above (the bf16 targets':
+# ac76357's, the mean of its two runs in run Q7), aim: ("ms", t),
+# ("library", f) times cuDNN in this run, ("parent", f) times the parent
+# ms); bias + gelu, out in the input dtype.
 CONV_F32_TARGETS = (
     ("f32 whisper conv2 4x3001x768 k3 s2", (4, 1, 3001, 768),
      (1, 3, 768, 768), (1, 2), "float32", False, 1.3266, ("ms", 0.75)),
@@ -5934,13 +5998,22 @@ CONV_F32_TARGETS = (
     ("f32 whisper conv1 4x3002x80 k3", (4, 1, 3002, 80), (1, 3, 80, 768),
      (1, 1), "float32", False, 0.2772, None),
     ("bf16 whisper conv2 4x3001x768 k3 s2 (wgmma)", (4, 1, 3001, 768),
-     (1, 3, 768, 768), (1, 2), "bfloat16", False, 0.0725,
-     ("ms", 0.0651)),
+     (1, 3, 768, 768), (1, 2), "bfloat16", False, 0.0729,
+     ("library", 1.0)),
+    ("bf16 whisper conv2 4x3001x768 k3 s2 packed (wgmma)",
+     (4, 1, 3001, 768), (1, 3, 768, 768), (1, 2), "bfloat16", True, 0.0737,
+     ("parent", 1.02)),
+    ("bf16 whisper conv1 4x3002x80 k3 (wgmma)", (4, 1, 3002, 80),
+     (1, 3, 80, 768), (1, 1), "bfloat16", False, 0.0655, ("parent", 1.02)),
+    ("bf16 qwen2-vl patch 4x448x448x3 k14 s14 (wgmma)", (4, 448, 448, 3),
+     (14, 14, 3, 3584), (14, 14), "bfloat16", False, 0.1901,
+     ("parent", 1.02)),
 )
 
 
 # The output hashes of WGMMA_TARGETS and CONV_F32_TARGETS at the parent
-# (cc186cf), from scripts/gemm_path_times.py (the first 16 hex digits of
+# (cc186cf; the three bf16 conv targets after conv2's at ac76357, which
+# gives every earlier target the same hash), from scripts/gemm_path_times.py (the first 16 hex digits of
 # a SHA-256 of the output's bytes; the sidecar's of its ``out`` alone):
 # every launch keeps them (the k order and the epilogue's arithmetic do
 # not depend on the tile).  WGMMA_TARGETS' hashes are of bf16 outputs.
@@ -5964,6 +6037,9 @@ PHASE15_PARENT_SHA = {
     "f32 qwen2-vl patch 4x448x448x3 k14 s14 packed": "872c250a66136dfd",
     "f32 whisper conv1 4x3002x80 k3": "83d8a58aae33ea91",
     "bf16 whisper conv2 4x3001x768 k3 s2 (wgmma)": "ea70b7939e570df0",
+    "bf16 whisper conv2 4x3001x768 k3 s2 packed (wgmma)": "1251b6b01514cb38",
+    "bf16 whisper conv1 4x3002x80 k3 (wgmma)": "9e89038f2518026d",
+    "bf16 qwen2-vl patch 4x448x448x3 k14 s14 (wgmma)": "0490752b576df30e",
 }
 
 
@@ -6080,14 +6156,6 @@ def phase15_kernels(torch, timer, failures):
                f"output sha256 {sha} against the parent's {parent}")
         return same
 
-    def aim_text(aim, ms, lib_ms):
-        if aim is None:
-            return None, ""
-        kind, goal = aim
-        limit = goal if kind == "ms" else goal * lib_ms
-        return ms <= limit, (f"; aim {'met' if ms <= limit else 'MISSED'} "
-                             f"(<= {limit:.4f} ms)")
-
     rows, worst, met = {}, 0.0, {}
     for (label, (b, m, k, n), forms, parent, aim), (x, y, xk, kw, yk), \
             got in zip(WGMMA_TARGETS, gemms, outs):
@@ -6120,7 +6188,8 @@ def phase15_kernels(torch, timer, failures):
         bb = (b or 1)
         row["bound_ms"], row["bound_by"] = bound_ms(
             (m * k + k * n + m * n) * 2 * bb, 2 * m * n * k * bb, "bf16")
-        met[label], text = aim_text(aim, row["ms"], row["library_ms"])
+        met[label], text = aim_text(aim, row["ms"], row["library_ms"],
+                                    parent)
         print(f"  time wgmma {label}: {row['ms']:.4f} ms on the 128 x "
               f"{cfg.bn} tile (parent in PERF.md: "
               f"{'not measured' if parent is None else f'{parent} ms'}), "
@@ -6165,7 +6234,8 @@ def phase15_kernels(torch, timer, failures):
             (x.numel() + w.numel() + mm * f) * esz + f * 4,
             2 * mm * kh * kw_ * c * f,
             "f32" if dtype == "float32" else "bf16")
-        cmet[label], text = aim_text(aim, row["ms"], row["library_ms"])
+        cmet[label], text = aim_text(aim, row["ms"], row["library_ms"],
+                                     parent)
         print(f"  time conv {label}: {row['ms']:.4f} ms on {path} "
               f"{cfg.bm} x {cfg.bn} (parent in PERF.md: "
               f"{'not measured' if parent is None else f'{parent} ms'}), "
@@ -6209,6 +6279,303 @@ def phase15(torch, failures, entries):
     print(f"  phase 15: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 16: the 16-bit weight stream (gemm_stream.cu's TMA kernel; the
+# cp.async kernel where TMA cannot read a row) at the main path's decode
+# shapes.  (label, (B, M, K, N), forms, the parent kernel's time (ac76357,
+# PERF.md section 6: the mean of its two runs in run Q7's A B B A,
+# scripts/gemm_path_times.py --only stream, bf16 out, NVIDIA H100 80GB
+# HBM3 at 700 W: printed for the reader, never put in the kernels line),
+# the aim: ("library", f): at most f times torch.matmul in this run;
+# ("parent", f): at most f times the parent's time; None).  Forms: "x" /
+# "y" X / Y as core/packing.py's panels, "shared" Y without the batch
+# axis (stride 0), "checksum" the ABFT sidecar, "f16" F16GER2.
+STREAM_TARGETS = (
+    ("deepseek-7b decode gate/up 4x4096x11008", (None, 4, 4096, 11008), (),
+     0.0549, ("library", 1.0)),
+    ("deepseek-7b decode q/k/v/o 4x4096x4096", (None, 4, 4096, 4096), (),
+     0.0294, ("parent", 1.02)),
+    ("deepseek-7b decode down 4x11008x4096", (None, 4, 11008, 4096), (),
+     0.0539, ("parent", 1.02)),
+    ("deepseek-7b logits 4x4096x102400", (None, 4, 4096, 102400), (), 0.2992,
+     ("parent", 1.02)),
+    ("deepseek-moe-16b bank decode w1 64x1x2048x1408",
+     (64, 1, 2048, 1408), (), 0.1726, ("library", 1.0)),
+    ("deepseek-moe-16b bank decode w2 64x1x1408x2048",
+     (64, 1, 1408, 2048), (), 0.1761, ("library", 1.0)),
+    ("deepseek-moe-16b bank prefill w1 64x30x2048x1408",
+     (64, 30, 2048, 1408), (), 0.3521, ("library", 1.0)),
+    ("deepseek-moe-16b bank prefill w2 64x30x1408x2048",
+     (64, 30, 1408, 2048), (), 0.3892, ("library", 1.0)),
+    ("bucket 16 16x4096x11008", (None, 16, 4096, 11008), (), 0.0599,
+     ("parent", 1.02)),
+    ("bucket 32 32x4096x11008", (None, 32, 4096, 11008), (), 0.0704,
+     ("parent", 1.02)),
+    ("bucket 64 64x4096x11008", (None, 64, 4096, 11008), (), 0.1186,
+     ("parent", 1.02)),
+    ("whisper decoder MLP 4x768x3072", (None, 4, 768, 3072), (), 0.0142,
+     ("parent", 1.02)),
+    ("whisper logits 4x768x51865 (unaligned)", (None, 4, 768, 51865), (),
+     0.1187, ("parent", 1.02)),
+    ("mamba2 in_proj 4x768x3352", (None, 4, 768, 3352), (), 0.0146,
+     ("parent", 1.02)),
+    ("SSD batched M=1 4x1x128x1536", (4, 1, 128, 1536), (), 0.0116,
+     ("parent", 1.02)),
+    ("decode 4x4096x11008 packed Y", (None, 4, 4096, 11008), ("y",), 0.054,
+     ("parent", 1.02)),
+    ("decode 4x4096x11008 packed X+Y", (None, 4, 4096, 11008), ("x", "y"),
+     0.0541, ("parent", 1.02)),
+    ("bank decode w1 64x1x2048x1408 packed Y", (64, 1, 2048, 1408), ("y",),
+     0.1711, ("parent", 1.02)),
+    ("3x4x4096x4096 shared packed Y", (3, 4, 4096, 4096), ("y", "shared"),
+     0.0508, ("parent", 1.02)),
+    ("decode 4x4096x11008 sidecar", (None, 4, 4096, 11008), ("checksum",),
+     0.0553, ("parent", 1.02)),
+    ("f16 decode 4x4096x11008", (None, 4, 4096, 11008), ("f16",), 0.0542,
+     ("parent", 1.02)),
+)
+
+# The output hashes of STREAM_TARGETS at the parent (ac76357), from
+# scripts/gemm_path_times.py --only stream (as PHASE15_PARENT_SHA; the
+# sidecar's of its ``out`` alone).
+PHASE16_PARENT_SHA = {
+    "deepseek-7b decode gate/up 4x4096x11008": "4dfbdf876ddf8b67",
+    "deepseek-7b decode q/k/v/o 4x4096x4096": "cb67288b2498df41",
+    "deepseek-7b decode down 4x11008x4096": "e99eaae121b38f65",
+    "deepseek-7b logits 4x4096x102400": "f5affbfd81d0465e",
+    "deepseek-moe-16b bank decode w1 64x1x2048x1408": "af286ecb7693fbe3",
+    "deepseek-moe-16b bank decode w2 64x1x1408x2048": "89e0606233f100c8",
+    "deepseek-moe-16b bank prefill w1 64x30x2048x1408": "bfde502305ce0838",
+    "deepseek-moe-16b bank prefill w2 64x30x1408x2048": "affff97ed751e0b6",
+    "bucket 16 16x4096x11008": "feeb69b83f2afe5d",
+    "bucket 32 32x4096x11008": "c55169b57b3b71ba",
+    "bucket 64 64x4096x11008": "a5eda889c99f1d6e",
+    "whisper decoder MLP 4x768x3072": "08462caa56d512ee",
+    "whisper logits 4x768x51865 (unaligned)": "11f718a066ca1433",
+    "mamba2 in_proj 4x768x3352": "1b65be5453091f22",
+    "SSD batched M=1 4x1x128x1536": "76eb28f693d86964",
+    "decode 4x4096x11008 packed Y": "b0b67e5ec65918ac",
+    "decode 4x4096x11008 packed X+Y": "189fa261e17d3b82",
+    "bank decode w1 64x1x2048x1408 packed Y": "f2aa8cebd12df640",
+    "3x4x4096x4096 shared packed Y": "838fb6c3e93a630b",
+    "decode 4x4096x11008 sidecar": "4c7fe93db12f2e35",
+    "f16 decode 4x4096x11008": "a60e19277852f0a3",
+}
+
+
+def stream_target_operands(torch, i):
+    """STREAM_TARGETS[i]'s operands from seed 501 + i: (x, y, the X the
+    kernel reads, mma_gemm's keywords, the Y the kernel reads), as
+    wgmma_target_operands; a "shared" Y has no batch axis."""
+    from repro_torch.core import packing, precision
+    _, (b, m, k, n), forms, _, _ = STREAM_TARGETS[i]
+    g = torch.Generator(device="cuda").manual_seed(501 + i)
+    kind = (precision.Ger.F16GER2 if "f16" in forms
+            else precision.Ger.BF16GER2)
+    dt = precision.policy(kind).x_dtype
+    lead = () if b is None else (b,)
+    ylead = () if "shared" in forms else lead
+    x = torch.randn(*lead, m, k, generator=g, device="cuda").to(dt)
+    y = (torch.randn(*ylead, k, n, generator=g, device="cuda")
+         * k ** -0.5).to(dt)
+    # bf16 out: FacilityConfig's default, as decode stores
+    kw = dict(kind=kind, checksum="checksum" in forms,
+              out_dtype=torch.bfloat16)
+    xk, yk = x, y
+    if "x" in forms:
+        po = packing.pack_gemm(x, packing.gemm_layout(
+            kind, m, k, side="x", batched=b is not None))
+        xk, kw["x_layout"] = po.data, po.layout
+    if "y" in forms:
+        po = packing.pack_gemm(y, packing.gemm_layout(
+            kind, k, n, batched=len(ylead) > 0))
+        yk, kw["y_layout"] = po.data, po.layout
+    if "shared" in forms:
+        y = y.expand(b, k, n)
+    return x, y, xk, kw, yk
+
+
+def aim_text(aim, ms, lib_ms, parent_ms):
+    """(met, text) of an aim: ("ms", t), ("library", f) times
+    ``lib_ms``, ("parent", f) times ``parent_ms``; None where there is
+    none (or no parent time to hold it to)."""
+    if aim is None:
+        return None, ""
+    kind, goal = aim
+    limit = {"ms": goal, "library": goal * lib_ms,
+             "parent": goal * (parent_ms or 0)}[kind]
+    if kind == "parent" and parent_ms is None:
+        return None, "; aim: no parent time"
+    return ms <= limit, (f"; aim {'met' if ms <= limit else 'MISSED'} "
+                         f"(<= {limit:.4f} ms)")
+
+
+def phase16_kernels(torch, timer, failures):
+    """The 16-bit weight stream at STREAM_TARGETS through the kernel
+    wrapper: counts zeroed just before and read just after (each on the
+    stream path); each within its tolerance of its split-K plain version,
+    the same bits twice, packed and shared forms bit for bit the natural
+    launch, its hash against the parent's; each batch of 64 expert banks
+    bit for bit its experts run one at a time (b = 1: K split over blocks
+    with partials, where the bank folds the split in registers); then
+    timed beside the plain version, ``torch.matmul``, the bound and the
+    parent's PERF.md time, its aim met or missed (reported, not failed).
+    Returns the ``kernels`` entry."""
+    from repro_torch.core import tiling
+    from repro_torch.kernels import mma_gemm as G
+
+    ops = [stream_target_operands(torch, i)
+           for i in range(len(STREAM_TARGETS))]
+    kernels = kernel_wrappers()
+    torch.cuda.synchronize()
+    zero_counts9(kernels)
+    outs = [G.mma_gemm(xk, yk, **kw) for _, _, xk, kw, yk in ops]
+    torch.cuda.synchronize()
+    counts = read_counts9(kernels)
+    by_gemm = counts["by_path"]["mma_gemm"]
+    _check(failures, "phase 16 main path",
+           counts["launches"]["mma_gemm"] == by_gemm["stream"] == len(ops),
+           f"GEMM launches {counts['launches']['mma_gemm']}, by path "
+           f"{by_gemm} (want {len(ops)} on the stream)")
+    rows, worst, met = {}, 0.0, {}
+    for (label, (b, m, k, n), forms, parent, aim), (x, y, xk, kw, yk), \
+            got in zip(STREAM_TARGETS, ops, outs):
+        out = got[0] if kw["checksum"] else got
+        cfg = tiling.choose_gemm_path(m, n, k, kw["kind"], b or 1)[1]
+        plain = G._plain_of("stream", cfg, k)
+        want = plain(x, y, kind=kw["kind"], out_dtype=torch.bfloat16)
+        worst = max(worst, _report_close(
+            torch, f"stream {label} vs split-K plain", out.float(),
+            want.float(), torch.bfloat16, failures))
+        again = G.mma_gemm(xk, yk, **kw)
+        again = again[0] if kw["checksum"] else again
+        _check(failures, f"phase 16 {label}", torch.equal(again, out),
+               "two launches the same bits")
+        if forms and forms != ("f16",):
+            _check(failures, f"phase 16 {label}", torch.equal(
+                out, G.mma_gemm(x, y, kind=kw["kind"],
+                                out_dtype=torch.bfloat16)),
+                "bit for bit the natural launch without the sidecar")
+        if b == 64:
+            one = torch.stack([G.mma_gemm(x[e], y[e], kind=kw["kind"],
+                                          out_dtype=torch.bfloat16)
+                               for e in range(b)])
+            _check(failures, f"phase 16 {label}", torch.equal(one, out),
+                   f"the bank bit for bit its experts one at a time (the "
+                   f"bank: {cfg.units(n, b)[0][3] - cfg.units(n, b)[0][2]} "
+                   f"slices a unit of {cfg.split}; one expert: "
+                   f"{cfg.run(n)} a unit)")
+        sha = sha16(torch, out)
+        parent_sha = PHASE16_PARENT_SHA.get(label)
+        same = sha == parent_sha
+        _check(failures, f"phase 16 {label}", same,
+               f"output sha256 {sha} against the parent's {parent_sha}")
+        row = {"ms": timer(lambda xk=xk, yk=yk, kw=kw: G.mma_gemm(
+                   xk, yk, **kw)),
+               "plain_ms": timer(lambda x=x, y=y, kind=kw["kind"]:
+                                 plain(x, y, kind=kind), iters=3, warmup=1),
+               "library_ms": timer(lambda x=x, y=y: torch.matmul(x, y)),
+               "library": "torch.matmul",
+               "plan": [cfg.bn, cfg.split, cfg.run(n, b or 1)],
+               "sha256": sha, "parent_sha": same}
+        bb = b or 1
+        ybytes = k * n * 2 * (1 if "shared" in forms else bb)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (m * k + m * n) * 2 * bb + ybytes, 2 * m * n * k * bb, "bf16")
+        met[label], text = aim_text(aim, row["ms"], row["library_ms"],
+                                    parent)
+        print(f"  time stream {label}: {row['ms']:.4f} ms (bn {cfg.bn}, "
+              f"split {cfg.split}, {cfg.run(n, bb)} a unit; parent in "
+              f"PERF.md: {'not measured' if parent is None else f'{parent} ms'}"
+              f"), plain {row['plain_ms']:.4f} ms, torch.matmul "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.2f} of "
+              f"bound{text}", flush=True)
+        rows[label] = row
+    del ops, outs
+    label = STREAM_TARGETS[0][0]
+    entry = {"name": "mma_gemm weight stream (TMA, work units)",
+             "route": "cuda", "source": "src/repro_torch/csrc/gemm_stream.cu",
+             "replaces": "src/repro/kernels/mma_gemm.py:417",
+             "launches": by_gemm["stream"], "max_abs_err": worst,
+             **rows[label], "shape": label, "timed": rows, "aims_met": met}
+    if entry["launches"] <= 0:
+        failures.append(f"{entry['name']} never launched in phase 16's run")
+    return [entry]
+
+
+def phase16(torch, failures, entries):
+    """Phase 16: the 16-bit weight stream at the main path's decode
+    shapes, checked, hashed against the parent and timed."""
+    print("== phase 16: the 16-bit weight stream (TMA producer, work "
+          "units sized to the card)", flush=True)
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    entries += phase16_kernels(torch, timer, failures)
+    del timer
+    torch.cuda.empty_cache()
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+
+
+def thread_launches(torch, failures):
+    """A first launch on a fresh host thread, for each library: one
+    instance above 48 KB of dynamic shared memory, launched on the main
+    thread, then on a new ``threading.Thread`` (its first launch there),
+    bit for bit the main thread's (ROADMAP queue 3: a process-wide
+    "attribute set" flag failed such a launch)."""
+    import threading
+
+    from repro_torch.core import precision
+    from repro_torch.kernels import mma_attention as A
+    from repro_torch.kernels import mma_conv as K
+    from repro_torch.kernels import mma_gemm as G
+    Ger = precision.Ger
+    g = torch.Generator(device="cuda").manual_seed(601)
+
+    def rnd(*shape, dt=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    ints = torch.randint(-300, 300, (256, 512), generator=g, device="cuda",
+                         dtype=torch.int16)
+    xs, ys = (rnd(4, 4096), rnd(256, 1024)), (rnd(4096, 4096),
+                                              rnd(1024, 1024))
+    f64 = torch.randn(512, 512, generator=g, device="cuda",
+                      dtype=torch.float64)
+    q, kv = rnd(1, 512, 8, 128), rnd(1, 512, 8, 128)
+    img, filt = rnd(4, 1, 3001, 768), rnd(1, 3, 768, 768)
+    calls = {
+        "gemm_stream": lambda: G.mma_gemm(xs[0], ys[0]),
+        "gemm_wgmma": lambda: G.mma_gemm(xs[1], ys[1]),
+        "mma_gemm": lambda: G.mma_gemm(xs[1], ys[1], block=(128, 128, 32)),
+        "gemm_imma": lambda: G.mma_gemm(ints, ints.t().contiguous(),
+                                        kind=Ger.I16GER2),
+        "gemm_dmma": lambda: G.mma_gemm(f64, f64, kind=Ger.F64GER),
+        "mma_attention": lambda: A.mma_flash_attention(q, kv, kv,
+                                                       causal=True),
+        "mma_conv": lambda: K.mma_conv2d(img, filt),
+    }
+    for lib, call in calls.items():
+        main = call()
+        torch.cuda.synchronize()
+        got, errs = [], []
+
+        def run(call=call):
+            try:
+                got.append(call())
+                torch.cuda.synchronize()
+            except RuntimeError as e:   # a failed launch raises
+                errs.append(str(e))
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        ok = not errs and len(got) == 1 and torch.equal(got[0], main)
+        print(f"  [{'ok' if ok else 'FAIL'}] {lib}: a first launch on a "
+              f"fresh thread, after the main thread's"
+              + (f": {errs[0]}" if errs else ""), flush=True)
+        if not ok:
+            failures.append(f"{lib}: first launch on a fresh thread")
+
+
 def main() -> None:
     try:
         import torch
@@ -6246,6 +6613,7 @@ def run_phases(torch) -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+    thread_launches(torch, failures)
 
     print("== phase 2: kernels against their plain versions", flush=True)
     timer = Timer(torch)
@@ -6269,8 +6637,11 @@ def run_phases(torch) -> None:
         stats, by_run[arch], (model, cfg) = serve(
             torch, failures, arch, settings, layers, record)
         if profile:
-            step_breakdown(torch, cfg, *serve_steps(torch, model, cfg,
-                                                    settings))
+            steps = serve_steps(torch, model, cfg, settings)
+            step_breakdown(torch, cfg, *steps)
+            if arch == MOE_RUN[0]:
+                bank_time(torch, cfg, steps[1])
+            del steps
         if arch == ARCH:
             natural = {"stats": stats, "launches": by_run[arch],
                        "record": record, "by_path": RECORDS[arch]["by_path"]}
@@ -6369,6 +6740,7 @@ def run_phases(torch) -> None:
     phase13(torch, failures, entries)
     phase14(torch, failures, entries)
     phase15(torch, failures, entries)
+    phase16(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

@@ -54,10 +54,19 @@ output hash, the library call (``torch.matmul``; cuDNN
 the fp32 conv's instances head the output.  ``--only targets``
 runs these alone; ``--tiles`` times each wgmma target at every tile the
 tree's wgmma kernel is compiled for too (a planted winner: the output
-hash must not change) and each fp32 conv target at both fp32 tiles (an
-explicit filter tile); ``--prefill`` then profiles deepseek-7b's prefill (1 x
+hash must not change), each bf16 conv target at every tile K3's wgmma
+kernel is compiled for (a planted winner too) and each fp32 conv target at
+both fp32 tiles (an explicit filter tile); ``--prefill`` then profiles deepseek-7b's prefill (1 x
 256, full width and depth, random bf16 weights from seed 0) three times
 and prints its device busy time (median) and the wgmma kernel's share.
+
+chip_smoke.py's phase-16 targets, ``STREAM_TARGETS`` (the 16-bit weight
+stream at deepseek-7b's decode products and logits, deepseek-moe-16b's
+expert banks at decode and at a prefill's cap of 30, the row buckets,
+whisper-small's decoder and unaligned logits, mamba2's in_proj and the
+SSD's batched M = 1 product, packed X and Y, a shared Y, the sidecar,
+f16), run first in a full run; ``--only stream`` runs them alone: time,
+path and plan, output hash, ``torch.matmul``, bound.
 """
 
 from __future__ import annotations
@@ -182,7 +191,8 @@ def digest(*ts) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
-    ap.add_argument("--only", choices=("all", "targets"), default="all")
+    ap.add_argument("--only", choices=("all", "targets", "stream"),
+                    default="all")
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--tiles", action="store_true")
     opts = ap.parse_args()
@@ -261,6 +271,9 @@ def main() -> None:
 
     from repro_torch.kernels import epilogue as E
     from repro_torch.kernels import mma_conv as K
+    if opts.only == "stream":
+        stream_targets(torch, CS, timer)
+        return
     if opts.only == "targets":
         targets(torch, CS, timer, opts.tiles)
         if opts.prefill:
@@ -322,9 +335,38 @@ def main() -> None:
         print(f"  {label}: {ms:.4f} ms {took} sha256 {digest(*out)}",
               flush=True)
         del args, out
+    stream_targets(torch, CS, timer)
     targets(torch, CS, timer, opts.tiles)
     if opts.prefill:
         prefill_busy(torch, CS)
+
+
+def stream_targets(torch, CS, timer) -> None:
+    """chip_smoke.py's STREAM_TARGETS (phase 16) at the tree's own
+    dispatch: time, path and plan, the output hash (the sidecar's
+    ``out``'s alone), ``torch.matmul`` and the bound."""
+    from repro_torch.core import tiling
+    from repro_torch.kernels import mma_gemm as G
+    for i, (label, (b, m, k, n), forms, _, _) in enumerate(
+            CS.STREAM_TARGETS):
+        x, y, xk, kw, yk = CS.stream_target_operands(torch, i)
+        before = dict(G.mma_gemm.launches_by_path)
+        out = G.mma_gemm(xk, yk, **kw)
+        torch.cuda.synchronize()
+        took = [p for p, v in G.mma_gemm.launches_by_path.items()
+                if v != before[p]]
+        plan = tiling.choose_gemm_path(m, n, k, kw["kind"], b or 1)
+        sha = digest(out[0] if isinstance(out, tuple) else out)
+        ms = timer(lambda xk=xk, yk=yk, kw=kw: G.mma_gemm(xk, yk, **kw))
+        lib = timer(lambda x=x, y=y: torch.matmul(x, y))
+        bb = b or 1
+        ybytes = k * n * 2 * (1 if "shared" in forms else bb)
+        bound, by = CS.bound_ms((m * k + m * n) * 2 * bb + ybytes,
+                                2 * m * n * k * bb, "bf16")
+        print(f"  stream {label}: {ms:.4f} ms {took} {plan[1]} sha256 "
+              f"{sha}; torch.matmul {lib:.4f} ms; bound {bound:.4f} ms "
+              f"({by})", flush=True)
+        del x, y, xk, yk, out
 
 
 def targets(torch, CS, timer, every_tile=False) -> None:
@@ -390,6 +432,16 @@ def targets(torch, CS, timer, every_tile=False) -> None:
         print(f"  target conv {label}: {ms:.4f} ms {took} {plan[1]} sha256 "
               f"{sha}; cuDNN {lib:.4f} ms; bound {bb:.4f} ms ({by})",
               flush=True)
+        for cfg in (tiling.CONV_WGMMA_TILES
+                    if every_tile and dtype != "float32" else ()):
+            tkw = dict(ckw, tuned=("wgmma", cfg))
+            got = K.mma_conv2d(x, wk, **tkw)
+            ms_t = timer(lambda x=x, wk=wk, tkw=tkw: K.mma_conv2d(x, wk,
+                                                                  **tkw),
+                         iters=5)
+            print(f"    tile {cfg}: {ms_t:.4f} ms sha256 {digest(got)}",
+                  flush=True)
+            del got
         for cfg in (tiling.CONV_TILES[tiling.Ger.F32GER]
                     if every_tile and dtype == "float32" else ()):
             tkw = dict(ckw, bf=cfg.bn)

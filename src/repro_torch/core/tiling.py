@@ -25,10 +25,12 @@ their own (:func:`choose_gemm_path` sends them there by family):
 The 16-bit and fp32 families take one of three, picked by shape:
 
   * "stream" (``csrc/gemm_stream.cu``): M <= 64 rows (decode, the SSD's
-    M = 1 products), bound by the weight's bytes; the (K, N) weight is
-    streamed once through a cp.async ring, split over K so that the grid
-    holds two blocks per SM (:func:`stream_plan`); bf16/f16 on the tensor
-    cores, F32GER on the CUDA cores (true fp32 FMAs);
+    M = 1 products, the MoE expert banks), bound by the weight's bytes;
+    the (K, N) weight is streamed once, split over K so that a single
+    product holds two blocks per SM (:func:`stream_plan`); bf16/f16 on
+    the tensor cores behind a TMA producer, in work units sized to the
+    card whatever the batch (:meth:`StreamConfig.run`), F32GER on the
+    CUDA cores (true fp32 FMAs);
   * "wgmma" (``csrc/gemm_wgmma.cu``): larger 16-bit M (prefill), bound by
     the tensor cores; a (128, 64 / 128 / 192 / 256) tile a block, fed by
     TMA, the width :func:`wgmma_plan`'s; TMA needs 16-byte pitches (K and
@@ -165,18 +167,23 @@ STREAM_GERS = WGMMA_GERS + (Ger.F32GER,)
 
 @dataclasses.dataclass(frozen=True)
 class StreamConfig:
-    """A weight-stream launch: BN weight columns a block, K split over
-    ``split`` blocks (split s owns stages [s*S/split, (s+1)*S/split) of
-    the S = ceil(K / STREAM_BK) stages)."""
+    """A weight-stream product: BN weight columns a tile, K cut into
+    ``split`` slices (slice s owns stages [s*S/split, (s+1)*S/split) of
+    the S = ceil(K / STREAM_BK) stages).  The slices fix the sums' order,
+    and so every bit; which block runs which slice does not
+    (:meth:`run`)."""
     bn: int
     split: int
 
     def grid(self, n: int, b: int = 1) -> tuple[int, int, int]:
+        """(N tiles, split, batch): the slices of every tile, the
+        cp.async kernel's grid (one block a slice)."""
         return (-(-n // self.bn), self.split, b)
 
     def blocks(self, n: int, b: int = 1) -> int:
-        gx, gy, gz = self.grid(n, b)
-        return gx * gy * gz
+        """The TMA kernel's work units (its grid, where the card holds
+        them all at once)."""
+        return b * -(-n // self.bn) * -(-self.split // self.run(n, b))
 
     def k_slices(self, k: int) -> list[tuple[int, int]]:
         """The [k0, k1) rows of each split, in split order."""
@@ -184,6 +191,30 @@ class StreamConfig:
         cuts = [s * stages // self.split for s in range(self.split + 1)]
         return [(min(k, a * STREAM_BK), min(k, c * STREAM_BK))
                 for a, c in zip(cuts, cuts[1:])]
+
+    def run(self, n: int, b: int = 1) -> int:
+        """Slices a work unit of csrc/gemm_stream.cu's TMA kernel: every
+        slice of a tile (the unit folds them in registers and writes no
+        partial) where b products' tiles alone put BLOCKS_PER_SM units on
+        every SM, else the tile's slices cut into as few runs as fill the
+        card (one slice a unit at batch 1, the split's own target)."""
+        tiles = b * -(-n // self.bn)
+        runs = min(self.split, max(1, -(-BLOCKS_PER_SM * NUM_SMS // tiles)))
+        return -(-self.split // runs)
+
+    def units(self, n: int, b: int = 1) -> list[tuple[int, int, int, int]]:
+        """(product, N tile, first slice, end slice) of each work unit, in
+        the kernel's unit order (csrc/gemm_stream.cu's stream_unit)."""
+        run, tiles = self.run(n, b), -(-n // self.bn)
+        runs = -(-self.split // run)
+        return [(u // runs // tiles, u // runs % tiles, u % runs * run,
+                 min(self.split, u % runs * run + run))
+                for u in range(b * tiles * runs)]
+
+    def partials(self, n: int, b: int = 1) -> bool:
+        """Whether the TMA kernel writes split-K partials: where a tile's
+        slices span units."""
+        return self.run(n, b) < self.split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,9 +255,14 @@ def stream_plan(m: int, n: int, k: int, b: int = 1,
     that scripts/port_kernel_times.py sweeps at decode's products on the
     H100 (PERF.md).
 
-    The plan is one product's: a batch of products runs b times its grid.
+    The split is one product's: b does not enter it, and a batch of
+    products fills the card through the units of :meth:`StreamConfig.run`
+    instead (the split they fold in registers gives the same bits); b
+    only widens a 16-bit tile where its 128-column tiles alone fill the
+    card, which moves no bit either (a column's sum does not see the
+    tile).
     For the 16-bit families M enters only through the kernel's row bucket
-    (1-8, 9-16, 17-32, 33-64 rows) and b not at all, so a row's result is
+    (1-8, 9-16, 17-32, 33-64 rows) and b not in the split, so a row's result is
     the same at batch 1 as at batch 4, in both the 2-D and the batched
     products (mamba2's exact per-slot prefill handoff, chip_smoke.py,
     relies on it).  For F32GER M does not enter at all: its ceiling is
@@ -234,10 +270,16 @@ def stream_plan(m: int, n: int, k: int, b: int = 1,
     at every M <= 64 (the tight-parity config's gradient accumulation over
     microbatches of 32 rows then matches one batch of 64 to fp32
     rounding: tests/test_torch_train.py)."""
-    del b
     want = BLOCKS_PER_SM * NUM_SMS
     if -(-n // 128) >= want:
         return StreamConfig(bn=128, split=1)
+    if b > 1 and in_bytes == 2 and b * -(-n // 128) >= want:
+        # a 16-bit batch whose 128-column tiles fill the card alone (the
+        # expert banks): one product's split, on the wider tile (the same
+        # k slices, so the same bits; half the units, each streaming
+        # whole 256-byte runs of a weight row)
+        return StreamConfig(bn=128, split=stream_plan(m, n, k, 1,
+                                                      in_bytes).split)
     tiles = -(-n // 64)
     stages = -(-k // STREAM_BK)
     # fp32 partials: 8 * split * M * N bytes against the weight's
@@ -245,6 +287,48 @@ def stream_plan(m: int, n: int, k: int, b: int = 1,
     rows = row_bucket(m) if in_bytes == 2 else STREAM_MAX_M
     most = max(1, min(stages, k * in_bytes // (8 * rows)))
     return StreamConfig(bn=64, split=max(1, min(most, -(-want // tiles))))
+
+
+# csrc/gemm_stream.cu's TMA kernel (StreamTmaCfg): blocks an SM by tile
+# and row bucket (what the instance's registers allow at 160 threads), and
+# a ring that fills the rest of a block's share of the SM's shared memory
+# (SM_SMEM, less 2 KB of reserve and slack, the fp32 tile and the
+# barriers), at most STREAM_TMA_MAX_STAGES stages; a stage is BN / 64 (32
+# x 64) weight boxes and a (rows x 32) X box, in 1 KB units (the 128-byte
+# swizzle's alignment).
+SM_SMEM = 233_472
+STREAM_TMA_MAX_STAGES = 16
+
+
+def stream_tma_blocks_per_sm(bn: int, rows: int) -> int:
+    """Blocks an SM runs of the TMA stream's (bn, row bucket) instance
+    (StreamTmaCfg::OCC)."""
+    if bn == 64 and rows == 8:
+        return 4
+    return 2 if bn == 128 and rows == 64 else 3
+
+
+def stream_tma_stage_bytes(bn: int, rows: int) -> int:
+    """A stage of the TMA stream's ring at row bucket ``rows``."""
+    return -(-(bn // 64 * STREAM_BK * 128 + rows * STREAM_BK * 2) // 1024) \
+        * 1024
+
+
+def stream_tma_stages(bn: int, rows: int) -> int:
+    """The TMA stream's ring depth (StreamTmaCfg::STAGES)."""
+    share = SM_SMEM // stream_tma_blocks_per_sm(bn, rows)
+    fit = (share - 2048 - rows * (bn + _PAD32) * 4
+           - 2 * STREAM_TMA_MAX_STAGES * 8) // stream_tma_stage_bytes(bn, rows)
+    return min(STREAM_TMA_MAX_STAGES, fit)
+
+
+def stream_tma_smem_bytes(bn: int, rows: int) -> int:
+    """Dynamic shared memory of a TMA stream block (StreamTmaCfg::smem):
+    the ring, the (rows, bn + 4) fp32 tile, a full and an empty mbarrier
+    a stage, 1 KB of alignment slack."""
+    stages = stream_tma_stages(bn, rows)
+    return (stages * stream_tma_stage_bytes(bn, rows)
+            + rows * (bn + _PAD32) * 4 + 2 * stages * 8 + 1024)
 
 
 def row_bucket(m: int) -> int:
@@ -272,10 +356,10 @@ def wgmma_stages(bn: int) -> int:
     return min(fit, WGMMA_MAX_STAGES)
 
 
-# The tiles csrc/gemm_wgmma.cu is compiled for, widest first, and those
-# K3's wgmma conv (csrc/mma_conv.cu) is compiled for.
+# The tiles csrc/gemm_wgmma.cu is compiled for, widest first; K3's wgmma
+# conv (csrc/mma_conv.cu's launch_conv_wgmma_t) is compiled for the same.
 WGMMA_TILES = tuple(WgmmaConfig(128, bn) for bn in (256, 192, 128, 64))
-CONV_WGMMA_TILES = (WgmmaConfig(128, 128), WgmmaConfig(128, 256))
+CONV_WGMMA_TILES = WGMMA_TILES
 
 
 # The wgmma plan's cost model, from scripts/gemm_path_times.py --tiles on
@@ -304,14 +388,28 @@ def wgmma_plan(m: int, n: int, k: int, b: int = 1) -> WgmmaConfig:
     return min(WGMMA_TILES, key=cost)
 
 
+# K3's wgmma conv's cost model: a wave of tiles costs its columns times
+# CONV_WGMMA_COLUMN_COST, relative to the 256-column tile's, fitted to
+# scripts/gemm_path_times.py --tiles at whisper-small's conv1 and conv2
+# and qwen2-vl-7b's patch embed on the H100 (PERF.md, run Q1: a wave's
+# time over its columns came out 1.12-1.53 at 128 columns, 1.13-1.33 at
+# 192 -- whose 5-stage ring starves the conv's producer at conv2 -- and
+# 1.49-2.66 at 64).  These values pick the fastest tile at all three.
+CONV_WGMMA_COLUMN_COST = {256: 1.0, 192: 1.25, 128: 1.2, 64: 1.8}
+
+
 def conv_wgmma_plan(m: int, f: int) -> WgmmaConfig:
-    """K3's wgmma conv (one block a tile): the 256-column tile reuses
-    each image box twice as often; it is taken where its grid runs three
-    or more waves on the card, so that the last, partial wave costs
-    little; else the 128-column tile."""
-    wide = WgmmaConfig(128, 256)
-    return (wide if wide.tiles(m, f) >= 3 * NUM_SMS
-            else WgmmaConfig(128, 128))
+    """K3's wgmma conv (one block a tile), planned by waves as
+    :func:`wgmma_plan` plans K1's tile: the tile whose grid costs least
+    in waves x bn x ``CONV_WGMMA_COLUMN_COST``; the widest among equals.
+    At whisper-small's conv2 (M = 6000, F = 768) that is still the
+    128-column tile (282 tiles, 2.14 waves), at conv1 the 192-column one
+    (376 tiles, 2.85 waves), at qwen2-vl-7b's patch embed the 256-column
+    one (448 tiles, 3.4 waves)."""
+    def cost(c: WgmmaConfig) -> tuple:
+        return (c.waves(m, f) * c.bn * CONV_WGMMA_COLUMN_COST[c.bn], -c.bn)
+
+    return min(CONV_WGMMA_TILES, key=cost)
 
 
 @functools.lru_cache(maxsize=4096)

@@ -223,15 +223,50 @@ static EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+typedef CUresult (*CtxGetCurrentFn)(CUcontext*);
+
+// The encoder needs a context current on the calling host thread (else
+// CUDA_ERROR_INVALID_CONTEXT).  A fresh thread has none until a runtime
+// call binds one, and PyTorch binds none where the thread's device is
+// already the one it asks for: on the H100 the autograd engine's worker
+// thread (and a fresh threading.Thread) encoded a launcher's maps before
+// any call had bound the primary context, and the launch failed with
+// cudaErrorInvalidValue (ROADMAP queue 3).  Bind the current device's
+// primary context where none is current.  Returns 0 or a cudaError_t.
+static int bind_context() {
+  static const CtxGetCurrentFn get = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuCtxGetCurrent", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuCtxGetCurrent", &p, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<CtxGetCurrentFn>(p)
+               : nullptr;
+  }();
+  if (get == nullptr) return (int)cudaErrorNotSupported;
+  CUcontext ctx = nullptr;
+  if (get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  return (int)e;
+}
+
 // A tiled tensor map of a 16-bit tensor of `rank` dims (innermost first),
 // `strides` the byte pitches of dims 1..; encoded on every call (an
-// encode costs no host time that a launch's measurement can see: PERF.md).
-// Returns 0 or a cudaError_t.
+// encode costs no host time that a launch's measurement can see: PERF.md),
+// with a context bound first (bind_context).  Returns 0 or a cudaError_t.
 static int tmap_16bit(CUtensorMap* out, const void* base, int rank,
                       const uint64_t* dims, const uint64_t* strides,
                       const uint32_t* box, int swizzle_bytes) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const int bound = bind_context();
+  if (bound) return bound;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle sw =
       swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;

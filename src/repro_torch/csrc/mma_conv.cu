@@ -272,8 +272,12 @@ extern "C" int mma_depthwise_conv_launch(
 // the image.  core/tiling.py's choose_conv_path picks one of three kernels:
 //   * conv_wgmma_kernel (bf16/f16, F % 8 == 0, 16-byte filter base, an
 //     image gathered in 16- or 4-byte copies: every stem of the main
-//     path).  wgmma_tile.cuh's (128, BN) tile, BN = 128
-//     or 256, with its consumers and staged epilogue; only the producer
+//     path).  wgmma_tile.cuh's (128, BN) tile, BN = 64,
+//     128, 192 or 256 as K1's (core/tiling.py's conv_wgmma_plan: the
+//     waves its grid runs), on K1's ring (8, 7, 5 or 4 stages beside
+//     the 1 KB of row offsets), with its consumers and staged epilogue;
+//     k order and epilogue do not depend on the tile, so neither does a
+//     bit of the output; only the producer
 //     warpgroup is K3's own.  Its 4 warps take the K steps in turn.  For
 //     its step a warp loads the B panel as TMA boxes of the (K, F) filter
 //     view (zero past K and F).  The A panel comes one of two ways, in
@@ -649,7 +653,7 @@ __device__ __forceinline__ void conv_produce(unsigned char* smem,
                                              const CUtensorMap* tmb,
                                              const ConvArgs& a, int img,
                                              int ow0, int n0, int kiters) {
-  using Cfg = WgCfg<BN, WG_CONV_STAGES>;
+  using Cfg = WgCfg<BN>;
   constexpr int STAGES = Cfg::STAGES;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int it = warp; it < kiters; it += 4) {
@@ -680,7 +684,7 @@ __device__ __forceinline__ void conv_produce(unsigned char* smem,
 
 template <int BN>
 __host__ __device__ constexpr size_t conv_wgmma_smem_bytes() {
-  return WgCfg<BN, WG_CONV_STAGES>::smem + WG_BM * sizeof(long long);
+  return WgCfg<BN>::smem + WG_BM * sizeof(long long);
 }
 
 template <typename T, int BN, bool PACKED>
@@ -688,7 +692,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap tma,
                       const __grid_constant__ CUtensorMap tmb, ConvArgs a,
                       GemmEpi e) {
-  using Cfg = WgCfg<BN, WG_CONV_STAGES>;
+  using Cfg = WgCfg<BN>;
   constexpr int STAGES = Cfg::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -775,10 +779,14 @@ static int launch_conv_wgmma(const ConvArgs& a, const GemmEpi& e,
   return (int)cudaGetLastError();
 }
 
+// The filter tiles K3's wgmma kernel is compiled for: K1's
+// (core/tiling.py's CONV_WGMMA_TILES, planned by conv_wgmma_plan).
 template <typename T>
 static int launch_conv_wgmma_t(const ConvArgs& a, const GemmEpi& e, int bn,
                                bool w_packed, cudaStream_t s) {
+  if (bn == 64) return launch_conv_wgmma<T, 64>(a, e, w_packed, s);
   if (bn == 128) return launch_conv_wgmma<T, 128>(a, e, w_packed, s);
+  if (bn == 192) return launch_conv_wgmma<T, 192>(a, e, w_packed, s);
   if (bn == 256) return launch_conv_wgmma<T, 256>(a, e, w_packed, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,23 +18,23 @@
 
 constexpr int WG_BM = 128, WG_BK = 64, WG_THREADS = 384, WG_GROUP_M = 8;
 constexpr int WG_SMEM_MAX = 232448;  // a block's shared memory (opt-in)
-// The GEMM's deepest ring, and K3's conv's (whose depth the conv kept
-// when the GEMM's grew: 7 stages at BN = 128 measured 1% slower there).
-constexpr int WG_MAX_STAGES = 8, WG_CONV_STAGES = 6;
+// The deepest ring, the GEMM's and K3's conv's.
+constexpr int WG_MAX_STAGES = 8;
 
 // The ring: as many stages as a block's shared memory holds beside 1 KB
 // of alignment slack, 1 KB of K3's row offsets and two mbarriers a stage,
-// at most MAX: for the GEMM 8 at BN = 64, 7 at 128, 5 at 192, 4 at 256
-// (core/tiling.py's wgmma_stages).  The ring also holds the fp32 tile
-// the epilogue stages through it.  At deepseek-7b's M = 256 prefill, on
-// BN = 64, 8 stages beat 6 by 5-8% (PERF.md, X17).
-template <int BN, int MAX = WG_MAX_STAGES>
+// at most WG_MAX_STAGES: 8 at BN = 64, 7 at 128, 5 at 192, 4 at 256, for
+// the GEMM and K3's conv alike (core/tiling.py's wgmma_stages).  The ring
+// also holds the fp32 tile the epilogue stages through it.  At
+// deepseek-7b's M = 256 prefill, on BN = 64, 8 stages beat 6 by 5-8%
+// (PERF.md, X17).
+template <int BN>
 struct WgCfg {
   static constexpr int A_BYTES = WG_BM * WG_BK * 2;  // 16 KB
   static constexpr int B_BYTES = WG_BK * BN * 2;     // 8 to 32 KB
   static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr int FIT = (WG_SMEM_MAX - 2048) / (STAGE + 16);
-  static constexpr int STAGES = FIT < MAX ? FIT : MAX;
+  static constexpr int STAGES = FIT < WG_MAX_STAGES ? FIT : WG_MAX_STAGES;
   static_assert(STAGES * STAGE >= WG_BM * (BN + 8) * 4, "epilogue tile");
   static constexpr size_t smem = (size_t)STAGES * STAGE + 1024 + 2 * STAGES * 8;
 };

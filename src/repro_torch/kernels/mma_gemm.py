@@ -5,8 +5,10 @@ Five kernels compute it, chosen in ``core.tiling.choose_gemm_path`` (an
 explicit block, else a tuned winner the call can take, else the shape
 heuristic; ``core/autotune.py``).  The 16-bit and fp32 families take one
 of three by shape:
-``csrc/gemm_stream.cu`` (M <= 64: a split-K cp.async weight stream, bound
-by bytes; F32GER's on true fp32 FMAs), ``csrc/gemm_wgmma.cu`` (larger
+``csrc/gemm_stream.cu`` (M <= 64: a split-K weight stream, bound by
+bytes: bf16/f16 on a TMA producer in work units sized to the card, rows
+TMA cannot read on a cp.async ring; F32GER's on true fp32 FMAs),
+``csrc/gemm_wgmma.cu`` (larger
 16-bit M: a TMA + wgmma tile, bound by the tensor cores) and
 ``csrc/mma_gemm.cu`` (WMMA tiles: unaligned pitches at large M, K < 16,
 an explicit block; F32GER at M > 64 on its fp32 SIMT tiles).  The integer families
@@ -147,7 +149,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_int] * 4
 # csrc/gemm_stream.cu: gemm_stream_launch
 _STREAM_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                     + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                    + [ctypes.c_int] * 3 + [ctypes.c_int] * 2 + _CK_STREAM
+                    + [ctypes.c_int] * 3 + [ctypes.c_int] * 3 + _CK_STREAM
                     + _PANELS_STRIDES)
 # csrc/gemm_wgmma.cu: gemm_wgmma_launch
 _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
@@ -761,20 +763,24 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
              _epilogue.ACT_CODES[ep.activation if ep is not None else None])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if path == "stream":
-        ws = tickets = None
+        # the (B, split, M, N) fp32 partials, from the stream-ordered
+        # caching allocator, where the kernel writes them (split K on the
+        # cp.async kernels, slices spanning units on the TMA one), and the
+        # stream's zeroed tickets, one a (batch, N tile)
+        run = cfg.run(n, b or 1)
+        tma = x.dtype != torch.float32 and stream_tma_reads(
+            x, y, k, n, panels, strides)
+        parts = tickets = None
+        if (run < cfg.split) if tma else cfg.split > 1:
+            parts = torch.empty((b or 1) * cfg.split * m * n,
+                                dtype=torch.float32, device=x.device)
         if cfg.split > 1:
-            # One allocation per call, from the stream-ordered caching
-            # allocator: the (B, split, M, N) fp32 partials, then one int32
-            # ticket per (batch, N tile), which the launcher zeroes on the
-            # stream before the kernel.
-            parts = (b or 1) * cfg.split * m * n
-            buf = torch.empty(parts + (b or 1) * cfg.grid(n)[0],
-                              dtype=torch.float32, device=x.device)
-            ws, tickets = buf.data_ptr(), buf.data_ptr() + 4 * parts
+            tickets = _stream_tickets(x.device, (b or 1) * cfg.grid(n)[0])
         lib, fn = _lib("gemm_stream", "gemm_stream_launch", _STREAM_ARGTYPES)
-        rc = fn(x.data_ptr(), y.data_ptr(), *common, ws, tickets,
+        rc = fn(x.data_ptr(), y.data_ptr(), *common, _ptr(parts),
+                _ptr(tickets),
                 DTYPE_CODES[x.dtype], *codes, b or 1, m, n, k, *forms,
-                cfg.bn, cfg.split, *ck, stream, panels, *strides)
+                cfg.bn, cfg.split, run, *ck, stream, panels, *strides)
     elif path == "wgmma":
         lib, fn = _lib("gemm_wgmma", "gemm_wgmma_launch", _WGMMA_ARGTYPES)
         rc = fn(x.data_ptr(), y.data_ptr(), *common, DTYPE_CODES[x.dtype],
@@ -790,6 +796,37 @@ def _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, *, neg_product,
                 stream, panels)
     _build.check(lib, rc, f"mma_gemm ({path})")
     return out
+
+
+def stream_tma_reads(x, y, k: int, n: int, panels: int, strides) -> bool:
+    """Whether csrc/gemm_stream.cu's TMA kernel reads a 16-bit product's
+    operands (as its launcher decides): each as packed panels, or as
+    natural rows with a 16-byte base and pitch (X's K, the weight's N)
+    and batch stride; else the cp.async kernel runs."""
+    x_ok = bool(panels & 1) or (k % 8 == 0 and x.data_ptr() % 16 == 0
+                                and strides[0] % 8 == 0)
+    y_ok = bool(panels & 2) or (n % 8 == 0 and y.data_ptr() % 16 == 0
+                                and strides[1] % 8 == 0)
+    return x_ok and y_ok
+
+
+# The weight stream's tickets, one zeroed int32 buffer a (device, CUDA
+# stream): the block that finishes a tile sets its ticket back to 0, so a
+# buffer stays zeroed between the launches on its stream, which the
+# stream orders, and no launch needs a memset first.
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _stream_tickets(device, count: int) -> torch.Tensor:
+    """The current stream's ticket buffer, at least ``count`` long (grown
+    as a fresh zeroed buffer: the old one goes back to the stream's own
+    pool, after the launches before it)."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < count:
+        buf = _TICKETS[key] = torch.zeros(max(count, 4096),
+                                          dtype=torch.int32, device=device)
+    return buf
 
 
 mma_gemm.launches = 0

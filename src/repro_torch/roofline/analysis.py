@@ -19,8 +19,10 @@ way.  These are the constants PERF.md's bounds use.
 The traffic model is per path (``core/tiling.py``'s kernels):
 
   * the weight stream (:class:`tiling.StreamConfig`) reads X and the
-    weight once, and with K split over ``split`` blocks writes and reads
-    back its fp32 partials (``tiling.stream_plan``'s docstring);
+    weight once, and writes and reads back fp32 partials only where a
+    tile's K slices span blocks: the 16-bit TMA kernel's units that do not
+    fold every slice (:meth:`tiling.StreamConfig.partials`), F32GER's
+    kernel wherever K is split (``tiling.stream_plan``'s docstring);
   * the tiles (WMMA, fp32, IMMA, DMMA: :class:`tiling.BlockConfig`; the
     wgmma tile: :class:`tiling.WgmmaConfig`, K steps of 64) read each X
     panel once per N tile and each Y panel once per M tile, and write C
@@ -156,12 +158,14 @@ def gemm_traffic_bytes(m: int, n: int, k: int, cfg, pol, b: int = 1) -> int:
 
     The tiles: each X panel is read once per N tile, each Y panel once per
     M tile, C written once (the reference's count).  The weight stream: X
-    and the weight read once, C written once, and with K split the fp32
-    partials written and read back once each.  A batched launch repeats
-    the per-element traffic ``b`` times."""
+    and the weight read once, C written once, and where a tile's slices
+    span blocks (:func:`stream_partials`) the fp32 partials written and
+    read back once each.  A batched launch repeats the per-element
+    traffic ``b`` times."""
     acc = pol.acc_dtype.itemsize
     if isinstance(cfg, tiling.StreamConfig):
-        parts = 2 * 4 * b * cfg.split * m * n if cfg.split > 1 else 0
+        parts = (2 * 4 * b * cfg.split * m * n
+                 if stream_partials(n, cfg, pol, b) else 0)
         return (b * (m * k + k * n) * pol.in_bytes + parts
                 + b * m * n * acc)
     bm, bn, bk = _tile(cfg)
@@ -172,10 +176,22 @@ def gemm_traffic_bytes(m: int, n: int, k: int, cfg, pol, b: int = 1) -> int:
     return x_reads + y_reads + c_write
 
 
-def gemm_blocks(m: int, n: int, k: int, cfg, b: int = 1) -> int:
-    """Thread blocks of one launch on ``cfg``'s path."""
+def stream_partials(n: int, cfg, pol, b: int = 1) -> bool:
+    """Whether a weight-stream launch writes split-K partials: the 16-bit
+    TMA kernel where a tile's slices span units, F32GER's kernel (one
+    block a slice) wherever K is split."""
+    return cfg.partials(n, b) if pol.in_bytes == 2 else cfg.split > 1
+
+
+def gemm_blocks(m: int, n: int, k: int, cfg, b: int = 1,
+                pol=None) -> int:
+    """Thread blocks of one launch on ``cfg``'s path: the weight stream's
+    work units (16-bit), or one block a slice (F32GER, ``pol``)."""
     del k
     if isinstance(cfg, tiling.StreamConfig):
+        if pol is not None and pol.in_bytes == 4:
+            gx, gy, gz = cfg.grid(n, b)
+            return gx * gy * gz
         return cfg.blocks(n, b)
     bm, bn, _ = _tile(cfg)
     return b * -(-m // bm) * -(-n // bn)
@@ -209,7 +225,7 @@ def gemm_projected_time(m: int, n: int, k: int, cfg, pol,
         bm, bn, bk = _tile(cfg)
         flops = (2.0 * b * -(-m // bm) * bm * -(-n // bn) * bn
                  * -(-k // bk) * bk)
-    t = _waved_time(gemm_blocks(m, n, k, cfg, b), occ, flops,
+    t = _waved_time(gemm_blocks(m, n, k, cfg, b, pol), occ, flops,
                     gemm_traffic_bytes(m, n, k, cfg, pol, b),
                     peak_flops(pol), hw)
     return t + launches * LAUNCH_OVERHEAD_S

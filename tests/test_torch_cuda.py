@@ -2811,3 +2811,210 @@ def test_f32_conv_simt_tile_bit_for_bit(gen, form):
     got = K.mma_conv2d(x, filt, stride=stride, out_dtype=f32, **ep)
     _assert_f32_close(got, K.mma_conv2d_plain(x, filt, stride=stride,
                                               out_dtype=f32, **ep))
+
+
+# ----------------------------------------------------------------------
+# The 16-bit weight stream on Hopper: a TMA producer, work units sized to
+# the card (csrc/gemm_stream.cu's gemm_stream_tma_kernel)
+# ----------------------------------------------------------------------
+
+# form: (batch, (M, K, N), forms): each row bucket; natural, X and Y
+# panels, a shared Y; the sidecar; an unaligned N (the cp.async kernel);
+# the seed and epilogue; f16; a batch of banks whose units fold every
+# slice (no partial) and a batch whose units span slices
+_STREAM_FORMS = {
+    "bucket 8": (None, (4, 1024, 2048), ()),
+    "bucket 16": (None, (13, 1024, 2048), ()),
+    "bucket 32": (None, (30, 1024, 1408), ()),
+    "bucket 64": (None, (64, 768, 2048), ()),
+    "one split, bn 128": (None, (4, 256, 40000), ()),
+    "K fringe": (None, (5, 1000, 1032), ()),
+    "X panels": (None, (4, 1024, 2048), ("x",)),
+    "Y panels": (None, (4, 1024, 2048), ("y",)),
+    "X and Y panels": (None, (30, 1000, 1032), ("x", "y")),
+    "shared Y panels": (3, (4, 1024, 2048), ("y", "shared")),
+    "sidecar": (None, (4, 1024, 2048), ("sidecar",)),
+    "unaligned N": (None, (4, 768, 5187), ()),
+    "seed and epilogue": (None, (7, 512, 1032), ("seed", "ep")),
+    "f16": (None, (4, 1024, 2048), ("f16",)),
+    "banks cap 1": (64, (1, 512, 1408), ()),
+    "banks cap 30 panels": (64, (30, 1408, 512), ("y",)),
+    "batch spanning slices": (4, (2, 2048, 1408), ()),
+}
+
+
+@pytest.mark.parametrize("form", sorted(_STREAM_FORMS))
+def test_stream_redesign_forms(gen, form):
+    """Each form on the stream path: within the 16-bit store's tolerance
+    of the split-K plain version (the plan's K slices), the same bits on a
+    second launch, packed and shared forms bit for bit the natural launch,
+    the sidecar's ``out`` bit for bit the launch without it; a batch bit
+    for bit its products run one at a time (b = 1: the slices on blocks of
+    their own, with partials)."""
+    from repro_torch.core import packing
+    b, (m, k, n), forms = _STREAM_FORMS[form]
+    kind = Ger.F16GER2 if "f16" in forms else Ger.BF16GER2
+    dt = precision.policy(kind).x_dtype
+    lead = () if b is None else (b,)
+    x = _randn(gen, *lead, m, k, dtype=dt)
+    y = _randn(gen, *(() if "shared" in forms else lead), k, n, dtype=dt,
+               scale=k ** -0.5)
+    yn = y.expand(*lead, k, n).contiguous() if "shared" in forms else y
+    out_dtype = torch.float16 if "f16" in forms else torch.bfloat16
+    kw = dict(kind=kind, out_dtype=out_dtype)
+    c = None
+    if "seed" in forms:
+        c = _randn(gen, *lead, m, n, dtype=torch.float32)
+        kw.update(alpha=0.75, beta=-0.5, neg_acc=True)
+    if "ep" in forms:
+        kw.update(ep=E.Epilogue(bias=True, activation="silu", residual=True),
+                  bias=_randn(gen, n, dtype=torch.float32),
+                  residual=_randn(gen, *lead, m, n, dtype=out_dtype))
+    cfg = tiling.choose_gemm_path(m, n, k, kind, b or 1)[1]
+    before = G.mma_gemm.launches_by_path["stream"]
+    got = G.mma_gemm(x, yn, c, **kw)
+    again = G.mma_gemm(x, yn, c, **kw)
+    torch.cuda.synchronize()
+    assert G.mma_gemm.launches_by_path["stream"] == before + 2
+    assert torch.equal(got, again)
+    want = G.mma_gemm_splitk_plain(x, yn, c, k_slices=cfg.k_slices(k), **kw)
+    assert bool(torch.isfinite(got).all())
+    _assert_store_close(got, want.float(), out_dtype)
+    if "x" in forms or "y" in forms:
+        pkw = dict(kw)
+        xk, yk = x, y
+        if "x" in forms:
+            po = packing.pack_gemm(x, packing.gemm_layout(
+                kind, m, k, side="x", batched=b is not None))
+            xk, pkw["x_layout"] = po.data, po.layout
+        if "y" in forms:
+            po = packing.pack_gemm(y, packing.gemm_layout(
+                kind, k, n, batched=b is not None and "shared" not in forms))
+            yk, pkw["y_layout"] = po.data, po.layout
+        assert torch.equal(G.mma_gemm(xk, yk, c, **pkw), got)
+    if "sidecar" in forms:
+        # the sums within ABFT's tolerance of the plain result's, as in
+        # test_sidecar_bit_for_bit_and_sums_match_plain
+        from repro_torch.core import abft
+        out, ck_col, ck_row = G.mma_gemm(x, yn, c, checksum=True, **kw)
+        assert torch.equal(out, got)
+        _, col, row = G.mma_gemm_sidecar_plain(
+            x, yn, c, **{key: v for key, v in kw.items()
+                         if key != "out_dtype"})
+        mag = x.double().abs() @ yn.double().abs()
+        eps = torch.finfo(torch.float32).eps
+        for have, want_s, mg in zip((ck_col, ck_row), (col, row),
+                                    G.checksum_tiles(mag, m, cfg.bn)):
+            err = (have.double() - want_s.double()).abs()
+            assert bool((err <= abft.ATOL + abft.FACTOR * eps * mg).all())
+    if b is not None:
+        one = torch.stack([G.mma_gemm(x[i], yn[i], None if c is None
+                                      else c[i], **kw) for i in range(b)])
+        assert torch.equal(one, got)
+
+
+def test_stream_banks_fold_every_slice_and_one_expert_splits():
+    """The plan behind the bank form above: deepseek-moe-16b's banks at b
+    = 64 fold all of a tile's slices in one unit (no partials), and a
+    single expert at b = 1 spreads the same slices over units of one."""
+    for m, k, n in ((1, 2048, 1408), (30, 2048, 1408), (1, 1408, 2048),
+                    (30, 1408, 2048)):
+        cfg = tiling.choose_gemm_path(m, n, k, Ger.BF16GER2, 64)[1]
+        assert cfg.split > 1 and not cfg.partials(n, 64)
+        assert cfg.run(n) == 1 and cfg.partials(n)
+
+
+def _conv_target(gen, name):
+    shapes = {"whisper conv1": ((2, 1, 1002, 80), (1, 3, 80, 768), (1, 1)),
+              "whisper conv2": ((2, 1, 1001, 768), (1, 3, 768, 768),
+                                (1, 2)),
+              "qwen2-vl patch": ((1, 224, 224, 3), (14, 14, 3, 1280),
+                                 (14, 14))}
+    ishape, wshape, stride = shapes[name]
+    x = _randn(gen, *ishape)
+    kh, kw, c, f = wshape
+    w = _randn(gen, *wshape, scale=(kh * kw * c) ** -0.5)
+    return x, w, stride
+
+
+@pytest.mark.parametrize("cfg", tiling.CONV_WGMMA_TILES,
+                         ids=lambda c: f"bn{c.bn}")
+@pytest.mark.parametrize("name", ["whisper conv1", "whisper conv2",
+                                  "qwen2-vl patch"])
+def test_conv_wgmma_every_tile_bit_for_bit(gen, name, cfg):
+    """K3's wgmma conv at each compiled filter tile (a planted winner):
+    one launch on the wgmma path, bit for bit the launch on the plan's
+    tile (k order and epilogue do not depend on the tile), within one bf16
+    ulp of the plain version, and on packed filters bit for bit natural."""
+    from repro_torch.core import packing
+    x, w, stride = _conv_target(gen, name)
+    kh, kw, c, f = w.shape
+    ep = dict(ep=E.Epilogue(bias=True, activation="gelu"),
+              bias=_randn(gen, f, dtype=torch.float32),
+              out_dtype=torch.bfloat16, stride=stride)
+    before = K.mma_conv2d.launches_by_path["wgmma"]
+    planned = K.mma_conv2d(x, w, **ep)
+    got = K.mma_conv2d(x, w, tuned=("wgmma", cfg), **ep)
+    pc = packing.pack_conv(w, packing.conv_layout(Ger.BF16GER2, kh, kw, c,
+                                                  f))
+    packed = K.mma_conv2d(x, pc.data, w_layout=pc.layout,
+                          tuned=("wgmma", cfg), **ep)
+    torch.cuda.synchronize()
+    assert K.mma_conv2d.launches_by_path["wgmma"] == before + 3
+    assert torch.equal(got, planned) and torch.equal(packed, got)
+    _assert_store_close(got, K.mma_conv2d_plain(x, w, **ep).float(),
+                        torch.bfloat16)
+
+
+def _thread_calls(gen):
+    """(library, call) pairs: each library's launch of an instance above
+    48 KB of dynamic shared memory."""
+    ints = torch.randint(-300, 300, (256, 512), generator=gen,
+                         device="cuda", dtype=torch.int16)
+    f64 = torch.randn(512, 512, generator=gen, device="cuda",
+                      dtype=torch.float64)
+    xs, ys = (_randn(gen, 4, 4096), _randn(gen, 256, 1024)), (
+        _randn(gen, 4096, 4096, scale=1 / 64), _randn(gen, 1024, 1024,
+                                                      scale=1 / 32))
+    q, kv = _randn(gen, 1, 512, 8, 128), _randn(gen, 1, 512, 8, 128)
+    img, filt = _randn(gen, 2, 1, 1001, 768), _randn(gen, 1, 3, 768, 768,
+                                                     scale=0.02)
+    return {
+        "gemm_stream": lambda: G.mma_gemm(xs[0], ys[0]),
+        "gemm_wgmma": lambda: G.mma_gemm(xs[1], ys[1]),
+        "mma_gemm": lambda: G.mma_gemm(xs[1], ys[1], block=(128, 128, 32)),
+        "gemm_imma": lambda: G.mma_gemm(ints, ints.t().contiguous(),
+                                        kind=Ger.I16GER2),
+        "gemm_dmma": lambda: G.mma_gemm(f64, f64, kind=Ger.F64GER),
+        "mma_attention": lambda: A.mma_flash_attention(q, kv, kv,
+                                                       causal=True),
+        "mma_conv": lambda: K.mma_conv2d(img, filt),
+    }
+
+
+@pytest.mark.parametrize("lib", ["gemm_stream", "gemm_wgmma", "mma_gemm",
+                                 "gemm_imma", "gemm_dmma", "mma_attention",
+                                 "mma_conv"])
+def test_first_launch_on_a_fresh_thread(gen, lib):
+    """ROADMAP queue 3: each library's instance above 48 KB of shared
+    memory, launched on the main thread, then for the first time on a
+    fresh host thread (as the autograd engine's): it launches, and gives
+    the main thread's bits."""
+    import threading
+    call = _thread_calls(gen)[lib]
+    main = call()
+    torch.cuda.synchronize()
+    got, errs = [], []
+
+    def run():
+        try:
+            got.append(call())
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            errs.append(str(e))
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errs, errs
+    assert torch.equal(got[0], main)

@@ -64,7 +64,11 @@ def test_wgmma_tile_counts_as_its_k_step_tile():
 
 def test_stream_traffic_reads_the_weight_once_plus_partials():
     """The port's own count: X and W once, C once, and 8 bytes a partial
-    element a split (written, then read by the reduction)."""
+    element a split (written, then read by the reduction) where a tile's
+    slices span blocks: at b = 2 over 64 tiles (units of 2 slices), not
+    at deepseek-moe-16b's b = 64 bank, whose units fold every slice;
+    F32GER's kernel splits one block a slice, so it writes them there
+    too."""
     pol = precision.policy(Ger.BF16GER2)
     m, n, k = 4, 4096, 11008
     one = analysis.gemm_traffic_bytes(m, n, k, tiling.StreamConfig(64, 1),
@@ -73,6 +77,14 @@ def test_stream_traffic_reads_the_weight_once_plus_partials():
     five = analysis.gemm_traffic_bytes(m, n, k, tiling.StreamConfig(64, 5),
                                        pol, b=2)
     assert five == 2 * one + 2 * 4 * 2 * 5 * m * n
+    m, n, k = 1, 1408, 2048
+    bank = tiling.stream_plan(m, n, k)
+    assert bank.split == 12 and not bank.partials(n, 64)
+    assert analysis.gemm_traffic_bytes(m, n, k, bank, pol, b=64) == \
+        64 * ((m * k + k * n) * 2 + m * n * 4)
+    f32 = precision.policy(Ger.F32GER)
+    assert analysis.gemm_traffic_bytes(m, n, k, bank, f32, b=64) == \
+        64 * ((m * k + k * n) * 4 + m * n * 4 + 2 * 4 * 12 * m * n)
 
 
 _ATTN = [dict(causal=True), dict(causal=False),
