@@ -98,7 +98,16 @@ Phases, each of which must pass or the script exits nonzero:
      fft (F64GER's DGEMM, complex128 and f64 runs are phase 14's),
      ``blas3.trsm`` (N = 4096, 1024 right-hand sides, relative residual)
      and the saturating forms bit for bit against the ref lowering; each
-     timed beside its plain version, a library yardstick and its bound;
+     timed beside its plain version, a library yardstick and its bound
+     (the integer runs' IMMA launches held to their form: the wgmma tile,
+     and I8GER4's weight stream at qdot's M = 4); then ``IMMA_TARGETS``
+     through the kernel wrapper: the integer families at 8192^3 and
+     4096^3, the packed and masked 4096^3 forms and the kernel at qdot's
+     decode (M = 1-64, natural and on X panels), each on the form
+     ``tiling.imma_plan`` picks, bit for bit its plain version and the
+     mma.sync kernel (an explicit block), timed beside that kernel,
+     ``torch._int_mm`` (B row-major and column-major), the bound, the
+     parent's PERF.md time and its aim, met or missed;
   7. prepacked serving (``core.packing``: K1d, the GEMM's packed panel
      stream, and K3's packed filter stream), each model reused right
      after its phase-3 run: a copy of deepseek-7b packed in place
@@ -298,7 +307,9 @@ The line before the last is ``{"kernels": [...]}`` (one entry per kernel,
 ``launches`` summed over the runs and ``launches_by_run``; the GEMM's
 and the convs' ``launches_by_path``; the GEMM's ``host_us`` per call and,
 with the attention kernel's and the depthwise conv's, ``run_shapes``;
-phase 6's IMMA entry its ``shapes``, the GEMM's entry
+phase 6's IMMA entries (``mma_gemm.imma``, the wgmma tile, and
+``mma_gemm.imma_stream``, the weight stream; the mma.sync kernel is phase 8's
+``mma_gemm masked (imma)``) their ``shapes`` and ``targets``, the GEMM's entry
 ``phase6_shapes``, its runs on the WMMA tile or on no kernel; phase 7's
 packed modes their ``natural_ms`` and ``launches_by_run`` over its runs,
 the packed stream's ``host_us`` natural beside packed; phase 8's masked
@@ -2239,8 +2250,20 @@ FAMILY_RUNS = {
     "trsm f32 N=4096 R=1024": (None, 0),
     "saturating": (None, 0),
 }
-# The phase's kernel entries, by the GEMM path each reads its launches from.
-PATH_ENTRIES = {"mma_gemm.imma": "imma"}
+# The IMMA kernel's form each integer run must take (tiling.imma_plan):
+# the wgmma tile for every product TMA can read, I8GER4's weight stream at
+# qdot's decode (the kernel's N = 4 activation columns).
+FAMILY_FORMS = {"I8GER4 8192": "tile", "I4GER8 8192": "tile",
+                "I4GER8 4096": "tile", "I16GER2 8192": "tile",
+                "I16GER2 4096": "tile", "qdot M=4": "stream",
+                "qdot M=1024": "tile"}
+# The phase's kernel entries: (the GEMM path, the IMMA form) each reads its
+# launches from.  The mma.sync kernel is the masked form's entry
+# (phase 8: "mma_gemm masked (imma)").
+PATH_ENTRIES = {"mma_gemm.imma": ("imma", "tile"),
+                "mma_gemm.imma_stream": ("imma", "stream")}
+# Per phase-6 run: the IMMA kernel's launches by form.
+FORMS: dict[str, dict] = {}
 # I16GER2's four int8 products a 16-bit product (its bound counts them).
 _PRODUCTS = {"I8GER4": 1, "I4GER8": 1, "I16GER2": 4}
 
@@ -2394,20 +2417,28 @@ def family_runs(torch, timer, failures, by_run, worst):
 
     def run(name, fn):
         reset_counts(kernels)
+        G.mma_gemm.imma_launches_by_form = dict.fromkeys(
+            G.mma_gemm.imma_launches_by_form, 0)
         with F.configure(F.FacilityConfig(device="cuda")):
             out = fn()
         torch.cuda.synchronize()
         by_run[name] = {k: f.launches for k, f in kernels.items()}
         take_records(name, kernels)
+        FORMS[name] = dict(G.mma_gemm.imma_launches_by_form)
         path, want = FAMILY_RUNS[name]
         got = RECORDS[name]["by_path"]["mma_gemm"]
+        form = FAMILY_FORMS.get(name)
         ok = (sum(got.values()) == want
-              and (path is None or got[path] == want))
+              and (path is None or got[path] == want)
+              and (form is None or FORMS[name][form] == want))
         print(f"  [{'ok' if ok else 'FAIL'}] {name}: GEMM launches by path "
-              f"{ {p: v for p, v in got.items() if v} } (want {want} on "
-              f"{path})")
+              f"{ {p: v for p, v in got.items() if v} }"
+              + (f", IMMA by form { {f: v for f, v in FORMS[name].items() if v} }"
+                 if form else "")
+              + f" (want {want} on {path}{f' {form}' if form else ''})")
         if not ok:
-            failures.append(f"{name}: launches {got}, want {want} on {path}")
+            failures.append(f"{name}: launches {got}, want {want} on {path}"
+                            f"{f' {form}' if form else ''}")
         return out
 
     def timed(name, kernel, plain, library, nbytes, ops, peak, lib_name,
@@ -2579,24 +2610,198 @@ def family_runs(torch, timer, failures, by_run, worst):
               f"outputs")
 
     entries = []
-    for ename, path in PATH_ENTRIES.items():
-        head = next(k for k, v in FAMILY_RUNS.items() if v[0] == path)
+    for ename, (path, form) in PATH_ENTRIES.items():
+        head = next(k for k, v in FAMILY_FORMS.items() if v == form)
         row = rows[head]
         entries.append({
             "name": ename, "route": "cuda",
             "source": f"src/repro_torch/csrc/gemm_{path}.cu",
             "replaces": "src/repro/kernels/mma_gemm.py:197",
+            "form": form,
             "max_abs_err": worst[path], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": row["library"], "shape": head,
             "shapes": {k: v for k, v in rows.items()
-                       if FAMILY_RUNS[k][0] == path}})
+                       if FAMILY_FORMS.get(k) == form}})
     # the runs on the WMMA tile (F32GER) and on no kernel, for the GEMM's
     # entry
     others = {k: v for k, v in rows.items()
               if FAMILY_RUNS[k][0] in (None, "wmma")}
     return entries, others
+
+
+# The IMMA kernel's forms at their aims' shapes: (label, family, (B, M, K,
+# N) with K logical, forms, the parent kernel's PERF.md time (N1, Y5, S1;
+# None: not measured), aim).  forms: "x"/"y" packed panels, "masked" the
+# pm* lanes (the mma.sync kernel), "qdot" the kernel at qdot's decode (X the
+# (11008, 4096) int8 weight W^T, Y the (4096, M) uint8 activations).
+# aim: ("ms", t), or ("natural", f): within f of the same shape's natural
+# launch in this run.
+IMMA_TARGETS = (
+    ("I8GER4 8192^3", "I8GER4", (None, 8192, 8192, 8192), (), 5.3170,
+     ("ms", 1.11)),
+    ("I8GER4 4096^3", "I8GER4", (None, 4096, 4096, 4096), (), 0.6598,
+     ("ms", 0.139)),
+    ("I4GER8 8192^3", "I4GER8", (None, 8192, 8192, 8192), (), 5.7177,
+     ("ms", 1.11)),
+    ("I4GER8 4096^3", "I4GER8", (None, 4096, 4096, 4096), (), 0.6975,
+     ("ms", 0.139)),
+    ("I16GER2 8192^3", "I16GER2", (None, 8192, 8192, 8192), (), 24.6750,
+     ("ms", 4.44)),
+    ("I16GER2 4096^3", "I16GER2", (None, 4096, 4096, 4096), (), 3.2880,
+     ("ms", 0.556)),
+    ("I8GER4 4096^3 Y packed", "I8GER4", (None, 4096, 4096, 4096), ("y",),
+     0.6344, ("natural", 1.05)),
+    ("I8GER4 4096^3 X+Y packed", "I8GER4", (None, 4096, 4096, 4096),
+     ("x", "y"), 0.6308, ("natural", 1.05)),
+    ("I8GER4 4096^3 X+Y packed masked", "I8GER4", (None, 4096, 4096, 4096),
+     ("x", "y", "masked"), 0.8478, None),
+    ("I16GER2 4096^3 X+Y packed", "I16GER2", (None, 4096, 4096, 4096),
+     ("x", "y"), None, ("natural", 1.05)),
+    ("qdot kernel M=4 4096->11008", "I8GER4", (None, 11008, 4096, 4),
+     ("qdot",), 0.0956, ("ms", 0.027)),
+    ("qdot kernel M=4 4096->11008 packed X", "I8GER4",
+     (None, 11008, 4096, 4), ("qdot", "x"), 0.0889, ("ms", 0.027)),
+    ("qdot kernel M=1 4096->11008", "I8GER4", (None, 11008, 4096, 1),
+     ("qdot",), None, None),
+    ("qdot kernel M=16 4096->11008", "I8GER4", (None, 11008, 4096, 16),
+     ("qdot",), None, None),
+    ("qdot kernel M=32 4096->11008", "I8GER4", (None, 11008, 4096, 32),
+     ("qdot",), None, None),
+    ("qdot kernel M=64 4096->11008", "I8GER4", (None, 11008, 4096, 64),
+     ("qdot",), None, None),
+)
+
+
+def imma_target_operands(torch, i):
+    """IMMA_TARGETS[i]'s operands from seed 601 + i: (x, y, the X the
+    kernel reads, mma_gemm's keywords, the Y the kernel reads), full-range
+    integers."""
+    from repro_torch.core import packing, precision
+    _, fam, (b, m, k, n), forms, _, _ = IMMA_TARGETS[i]
+    g = torch.Generator(device="cuda").manual_seed(601 + i)
+    kind = precision.Ger[fam]
+    lead = () if b is None else (b,)
+    x, y = _int_operands(torch, g, kind, lead, m, k, n)
+    kw = dict(kind=kind)
+    if "masked" in forms:
+        kw["masks"] = _lane_masks(torch, g, m, n, k)
+    xk, yk = x, y
+    if "x" in forms:     # qdot's packed W: the X panels of W^T, from W
+        w = x.t().contiguous() if "qdot" in forms else x
+        po = packing.pack_gemm(w, packing.gemm_layout(
+            kind, m, k, side="x", transposed="qdot" in forms))
+        xk, kw["x_layout"] = po.data, po.layout
+    if "y" in forms:
+        po = packing.pack_gemm(y, packing.gemm_layout(kind, k, n))
+        yk, kw["y_layout"] = po.data, po.layout
+    return x, y, xk, kw, yk
+
+
+def imma_targets(torch, timer, failures, entries):
+    """Phase 6's IMMA_TARGETS through the kernel wrapper: each on the form
+    tiling.imma_plan picks, bit for bit the plain version and the
+    mma.sync kernel (the form it replaced: an explicit block), the same
+    bits twice; timed beside that kernel, ``torch._int_mm`` s8 x s8 at the
+    unpacked shape (B row-major, and B column-major: cuBLASLt's int8
+    layout; not the same function), the bound, the parent's PERF.md time
+    and its aim, met or missed (reported, not failed).  The rows go into
+    the phase's entries of each form."""
+    from repro_torch.core import precision, tiling
+    from repro_torch.kernels import mma_gemm as G
+
+    rows, natural = {}, {}
+    for i, (label, fam, (b, m, k, n), forms, parent, aim) in enumerate(
+            IMMA_TARGETS):
+        x, y, xk, kw, yk = imma_target_operands(torch, i)
+        kind = kw["kind"]
+        G.mma_gemm.imma_launches_by_form = dict.fromkeys(tiling.IMMA_FORMS,
+                                                         0)
+        out = G.mma_gemm(xk, yk, **kw)
+        torch.cuda.synchronize()
+        form = [f for f, v in G.mma_gemm.imma_launches_by_form.items() if v]
+        form = form[0] if len(form) == 1 else str(form)
+        want = "mma" if "masked" in forms else (
+            "stream" if "qdot" in forms and n <= 64 else "tile")
+        _check(failures, f"imma {label}", form == want,
+               f"on the {form} form (want {want})")
+        masks = kw.get("masks")
+        _check(failures, f"imma {label}", torch.equal(
+            out, G.mma_gemm_plain(x, y, kind=kind, masks=masks)),
+            "bit for bit the plain version")
+        old_kw = dict(kw, block=tiling.GEMM_TILES[kind][0])
+        old = G.mma_gemm(xk, yk, **old_kw)
+        _check(failures, f"imma {label}", torch.equal(out, old),
+               "bit for bit the mma.sync kernel (explicit block)")
+        _check(failures, f"imma {label}",
+               torch.equal(G.mma_gemm(xk, yk, **kw), out),
+               "two launches the same bits")
+        del old
+        pol = precision.policy(kind)
+        s8 = torch.randint(-128, 128, (k, n), device="cuda",
+                           dtype=torch.int8)
+        a8 = torch.randint(-128, 128, (m, k), device="cuda",
+                           dtype=torch.int8)
+        s8t = s8.t().contiguous().t()          # column-major B
+        ms = timer(lambda xk=xk, yk=yk, kw=kw: G.mma_gemm(xk, yk, **kw))
+        row = {"ms": ms, "form": form,
+               "replaced_ms": timer(lambda xk=xk, yk=yk, kw=old_kw:
+                                    G.mma_gemm(xk, yk, **kw)),
+               "parent_ms": parent}
+        if m % 8 == 0 and n % 8 == 0 and k % 8 == 0 and m >= 17:
+            row["library_ms"] = timer(lambda: torch._int_mm(a8, s8))
+            row["int_mm_col_major_ms"] = timer(
+                lambda: torch._int_mm(a8, s8t))
+        else:
+            row["library_ms"] = None
+        row["library"] = "torch._int_mm s8 x s8 (not the same function)"
+        del s8, a8, s8t
+        products = 4 if fam == "I16GER2" else 1
+        in_bytes = sum(t.numel() * t.element_size() for t in (x, y))
+        if masks is not None:
+            mo, no, ko = (int(t.sum()) for t in masks)
+            in_bytes = (mo * ko * x.element_size() + ko * no
+                        * y.element_size())
+            ops = 2 * mo * no * ko
+        else:
+            ops = 2 * m * n * k * products
+        row["bound_ms"], row["bound_by"] = bound_ms(in_bytes + 4 * m * n,
+                                                    ops, "int8")
+        if not forms:
+            natural[(fam, m, k, n)] = ms
+        nat = natural.get((fam, m, k, n))
+        met = None
+        if aim is not None:
+            goal = aim[1] if aim[0] == "ms" else aim[1] * (nat or 0)
+            met = ms <= goal if (aim[0] == "ms" or nat) else None
+            row["aim_ms"] = goal
+        row["aim_met"] = met
+        # the plan the natural operands take (a packed call follows it)
+        row["plan"] = str(tiling.choose_gemm_path(
+            m, n, x.shape[-1], kind, b or 1, G.natural_aligned(x, y), None,
+            masks is not None, None, G.tma_aligned(x))[1])
+        rows[label] = row
+        print(f"  time imma {label}: {ms:.4f} ms on the {form} form "
+              f"({row['plan']}), "
+              f"the mma.sync kernel {row['replaced_ms']:.4f} ms (parent in "
+              f"PERF.md: {'not measured' if parent is None else f'{parent} ms'}"
+              f"), torch._int_mm "
+              + (f"{row['library_ms']:.4f} ms (B column-major "
+                 f"{row['int_mm_col_major_ms']:.4f} ms)"
+                 if row["library_ms"] is not None else "n/a")
+              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{row['bound_ms'] / ms:.2f} of bound"
+              + ("" if aim is None else
+                 f"; aim {'met' if met else 'MISSED' if met is not None else 'n/a'}"
+                 f" (<= {row['aim_ms']:.4f} ms)"), flush=True)
+        del x, y, xk, yk, out
+        torch.cuda.empty_cache()
+    for e in entries:
+        if e["name"] in PATH_ENTRIES:
+            form = PATH_ENTRIES[e["name"]][1]
+            e["targets"] = {lb: r for lb, r in rows.items()
+                            if r["form"] == form}
 
 
 # ----------------------------------------------------------------------
@@ -3565,7 +3770,9 @@ def phase8_kernels(torch, timer, failures):
                 and bool((out[..., ~ym] == 0).all())
             _check(failures, label, zero, "exact zeros on disabled rows "
                    "and columns")
-        blk = (cfg.bm, cfg.bn, cfg.bk) if path == "wmma" else None
+        # the same kernel unmasked: the masked route's tile as an explicit
+        # block (IMMA: the mma.sync kernel, which an unmasked call leaves)
+        blk = (cfg.bm, cfg.bn, cfg.bk) if path in ("wmma", "imma") else None
         before = dict(G.mma_gemm.launches_by_path)
         G.mma_gemm(x, y, c, kind=kind)
         default = _path_taken(G.mma_gemm, before)
@@ -6703,12 +6910,13 @@ def run_phases(torch) -> None:
     timer = Timer(torch)
     worst = check_families(torch, failures)
     new, others = family_runs(torch, timer, failures, by_run, worst)
+    imma_targets(torch, timer, failures, new)
     entries += new
     entries[0]["phase6_shapes"] = others
     del timer
     for e in entries:
         e["launches_by_run"] = {
-            a: (RECORDS[a]["by_path"]["mma_gemm"][PATH_ENTRIES[e["name"]]]
+            a: (FORMS.get(a, {}).get(PATH_ENTRIES[e["name"]][1], 0)
                 if e["name"] in PATH_ENTRIES else n[e["name"]])
             for a, n in by_run.items()}
         e["launches"] = sum(e["launches_by_run"].values())

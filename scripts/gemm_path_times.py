@@ -60,6 +60,17 @@ both fp32 tiles (an explicit filter tile); ``--prefill`` then profiles deepseek-
 256, full width and depth, random bf16 weights from seed 0) three times
 and prints its device busy time (median) and the wgmma kernel's share.
 
+``--only imma`` runs chip_smoke.py's phase-6 ``IMMA_TARGETS`` alone (the
+integer families at 8192^3 and 4096^3, the packed and masked 4096^3
+forms, the kernel at ``qdot``'s decode M = 1-64, natural and on X panels):
+time, path and IMMA form, output hash and each device kernel's time a
+launch (``torch.profiler``, L2 warm: the wgmma tile's pre-pass and tile
+apart); then ``torch._int_mm`` s8 x s8 at 8192^3 and 4096^3 with B
+row-major and column-major, each beside the names of the device kernels
+it launched; with ``--tiles`` each wgmma-tile target at every width the
+tree's IMMA tile is compiled for too, and each weight-stream target at a
+ladder of splits (planted winners).
+
 chip_smoke.py's phase-16 targets, ``STREAM_TARGETS`` (the 16-bit weight
 stream at deepseek-7b's decode products and logits, deepseek-moe-16b's
 expert banks at decode and at a prefill's cap of 30, the row buckets,
@@ -191,7 +202,7 @@ def digest(*ts) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
-    ap.add_argument("--only", choices=("all", "targets", "stream"),
+    ap.add_argument("--only", choices=("all", "targets", "stream", "imma"),
                     default="all")
     ap.add_argument("--prefill", action="store_true")
     ap.add_argument("--tiles", action="store_true")
@@ -273,6 +284,9 @@ def main() -> None:
     from repro_torch.kernels import mma_conv as K
     if opts.only == "stream":
         stream_targets(torch, CS, timer)
+        return
+    if opts.only == "imma":
+        imma_targets(torch, CS, timer, opts.tiles)
         return
     if opts.only == "targets":
         targets(torch, CS, timer, opts.tiles)
@@ -367,6 +381,94 @@ def stream_targets(torch, CS, timer) -> None:
               f"{sha}; torch.matmul {lib:.4f} ms; bound {bound:.4f} ms "
               f"({by})", flush=True)
         del x, y, xk, yk, out
+
+
+def imma_targets(torch, CS, timer, every_tile=False) -> None:
+    """chip_smoke.py's IMMA_TARGETS (phase 6) at the tree's own dispatch:
+    time, path (and IMMA form where the tree counts forms), output hash;
+    then ``torch._int_mm`` at 8192^3 and 4096^3, B row-major and
+    column-major, with the device kernels it launched."""
+    from repro_torch.core import tiling
+    from repro_torch.kernels import mma_gemm as G
+    forms = getattr(G.mma_gemm, "imma_launches_by_form", None)
+    for i, (label, fam, (b, m, k, n), _, _, _) in enumerate(
+            CS.IMMA_TARGETS):
+        x, y, xk, kw, yk = CS.imma_target_operands(torch, i)
+        before = dict(G.mma_gemm.launches_by_path)
+        f_before = dict(forms) if forms is not None else {}
+        out = G.mma_gemm(xk, yk, **kw)
+        torch.cuda.synchronize()
+        took = [p for p, v in G.mma_gemm.launches_by_path.items()
+                if v != before[p]]
+        if forms is not None:
+            took += [f for f, v in G.mma_gemm.imma_launches_by_form.items()
+                     if v != f_before[f]]
+        ms = timer(lambda xk=xk, yk=yk, kw=kw: G.mma_gemm(xk, yk, **kw))
+        print(f"  imma {label}: {ms:.4f} ms {took} sha256 {digest(out)}; "
+              f"device us a launch by kernel "
+              f"{kernel_times(torch, lambda: G.mma_gemm(xk, yk, **kw))}",
+              flush=True)
+        if every_tile and forms is not None and "tile" in took:
+            for w in tiling.IMMA_TILE_WIDTHS[kw["kind"]]:
+                won = ("imma", tiling.ImmaTileConfig(w))
+                got = G.mma_gemm(xk, yk, tuned=won, **kw)
+                ms = timer(lambda xk=xk, yk=yk, kw=kw, won=won:
+                           G.mma_gemm(xk, yk, tuned=won, **kw))
+                print(f"    tile BN {w}: {ms:.4f} ms sha256 {digest(got)}",
+                      flush=True)
+        if every_tile and forms is not None and "stream" in took:
+            plan = tiling.choose_gemm_path(
+                m, n, x.shape[-1], kw["kind"], 1, G.natural_aligned(x, y),
+                x_aligned=G.tma_aligned(x))[1]
+            for split in (1, 2, 3, 4, 6, 8, 16, 32):
+                won = ("imma", tiling.ImmaStreamConfig(plan.bn, split))
+                if not tiling.takes(won, m, n, x.shape[-1], kw["kind"], False,
+                                    x_aligned=True):
+                    continue
+                got = G.mma_gemm(xk, yk, tuned=won, **kw)
+                ms = timer(lambda xk=xk, yk=yk, kw=kw, won=won:
+                           G.mma_gemm(xk, yk, tuned=won, **kw))
+                print(f"    stream split {split}: {ms:.4f} ms sha256 "
+                      f"{digest(got)}", flush=True)
+        del x, y, xk, yk, out
+        torch.cuda.empty_cache()
+    for n in (8192, 4096):
+        a = torch.randint(-128, 128, (n, n), device="cuda", dtype=torch.int8)
+        bm = torch.randint(-128, 128, (n, n), device="cuda",
+                           dtype=torch.int8)
+        for name, bb in (("B row-major", bm),
+                         ("B column-major", bm.t().contiguous().t())):
+            ms = timer(lambda bb=bb: torch._int_mm(a, bb))
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                torch._int_mm(a, bb)
+                torch.cuda.synchronize()
+            names = sorted({e.name for e in prof.events()
+                            if e.device_type.name == "CUDA"})
+            print(f"  torch._int_mm {n}^3 {name}: {ms:.4f} ms; kernels "
+                  f"{names}", flush=True)
+        del a, bm
+
+
+def kernel_times(torch, fn, launches: int = 5) -> dict:
+    """{device kernel: mean us a call} over ``launches`` calls of ``fn``,
+    from ``torch.profiler`` (back to back: the L2 stays warm)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            name = name.split("::")[-1]
+            out[name] = round(out.get(name, 0.0)
+                              + e.device_time_total / launches, 1)
+    return out
 
 
 def targets(torch, CS, timer, every_tile=False) -> None:

@@ -127,14 +127,16 @@ def block_of(winner: tuple) -> tuple[int, int, int]:
         return tiling.STREAM_MAX_M, cfg.bn, tiling.STREAM_BK
     if path == "wgmma":
         return cfg.bm, cfg.bn, _roofline.WG_BK
-    return cfg.bm, cfg.bn, cfg.bk
+    return cfg.bm, cfg.bn, cfg.bk   # IMMA's forms carry their own
 
 
 def _entry_of(winner: tuple) -> tuple[list[int], dict]:
     """(block, extra fields) of a winner's cache entry."""
     path, cfg = winner
     fields = {"path": path}
-    if path == "stream":
+    if path == "imma":
+        fields["form"] = tiling.imma_form(cfg)
+    if path == "stream" or isinstance(cfg, tiling.ImmaStreamConfig):
         fields["split"] = cfg.split
     return list(block_of(winner)), fields
 
@@ -154,6 +156,13 @@ def _winner_of(ent: dict | None) -> tuple | None:
                 if isinstance(split, int) else None)
     if path == "wgmma":
         return "wgmma", tiling.WgmmaConfig(blk[0], blk[1])
+    if path == "imma" and ent.get("form") == "tile":
+        return "imma", tiling.ImmaTileConfig(blk[1], blk[0], blk[2])
+    if path == "imma" and ent.get("form") == "stream":
+        split = ent.get("split")
+        return (("imma", tiling.ImmaStreamConfig(blk[1], split, blk[0],
+                                                 blk[2]))
+                if isinstance(split, int) else None)
     if path in ("wmma", "imma", "dmma"):
         return path, tiling.BlockConfig(*blk)
     return None
@@ -311,8 +320,15 @@ def candidate_blocks(m: int, n: int, k: int, kind: Ger, b: int = 1,
     every compiled configuration of the paths the call can take (module
     docstring), the heuristic's pick among them (so the tuned winner is
     never ranked below it under the shared prior).  ``aligned``: both
-    operands have 16-byte bases and pitches (the wgmma tile's rule)."""
+    operands have 16-byte bases and pitches (the wgmma tile's rule).  The
+    integer families' candidates are the IMMA kernel's compiled
+    configurations (``tiling.imma_configs``): each wgmma tile width, the
+    weight stream's plan and the mma.sync kernel's tile."""
     heur = tiling.choose_gemm_path(m, n, k, kind, b, aligned)
+    if kind in tiling.IMMA_GERS:
+        out = [("imma", c) for c in tiling.imma_configs(m, n, k, kind, b,
+                                                        aligned)]
+        return out if heur in out else out + [heur]
     out: list[tuple] = []
     if kind in tiling.STREAM_GERS and k >= tiling.MIN_K:
         if m <= tiling.STREAM_MAX_M:
@@ -322,7 +338,7 @@ def candidate_blocks(m: int, n: int, k: int, kind: Ger, b: int = 1,
                     if s <= stages]
         elif aligned and kind in tiling.WGMMA_GERS:
             out += [("wgmma", cfg) for cfg in tiling.WGMMA_TILES]
-    path = heur[0] if heur[0] in ("imma", "dmma") else "wmma"
+    path = "dmma" if heur[0] == "dmma" else "wmma"
     out += [(path, cfg) for cfg in tiling.tiles_for(kind)]
     if heur not in out:
         out.append(heur)

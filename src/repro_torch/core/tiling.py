@@ -16,7 +16,12 @@ The GEMM has five kernels.  The integer families and F64GER each have
 their own (:func:`choose_gemm_path` sends them there by family):
 
   * "imma" (``csrc/gemm_imma.cu``): I8GER4, I4GER8 and I16GER2 on the
-    int8 tensor cores (IMMA m16n8k32), one fixed tile a family;
+    int8 tensor cores, in one of three forms :func:`imma_plan` picks: the
+    wgmma tile (:class:`ImmaTileConfig`) for every unmasked product TMA
+    can read, I8GER4's weight stream (:class:`ImmaStreamConfig`) for
+    ``quant.qdot``'s decode (N <= 64 columns, X the weight), and the
+    mma.sync kernel (its one ``GEMM_TILES`` tile a family) for the
+    masked forms, pitches TMA cannot read and an explicit block;
   * "dmma" (``csrc/gemm_dmma.cu``): F64GER on the fp64 tensor cores
     (DMMA m16n8k8, m16n8k4 on X panels, from a ``DMMA_STAGES``-deep
     cp.async ring on mbarriers), on a 128 x 128 or a 64 x 64 tile picked
@@ -149,6 +154,221 @@ def choose_blocks(m: int, n: int, k: int, ger: Ger, b: int = 1) -> BlockConfig:
         if gx * gy * gz >= NUM_SMS:
             return cfg
     return tiles[-1]
+
+
+# ----------------------------------------------------------------------
+# The integer families' forms (csrc/gemm_imma.cu)
+# ----------------------------------------------------------------------
+
+# The wgmma tile (form A): 128 rows, 128 logical k a stage, BN columns;
+# the widths it is compiled for, widest first (I16GER2's three s32
+# accumulators a column bound it: at 96 and 128 columns ptxas spilled
+# 584 and 968 bytes within the launch's 168 registers, and the tile ran
+# 1.7-4.4x slower than at 64: PERF.md).
+IMMA_TILE_BM, IMMA_TILE_BK = 128, 128
+IMMA_TILE_WIDTHS = {Ger.I8GER4: (256, 128), Ger.I4GER8: (256, 128),
+                    Ger.I16GER2: (64,)}
+# csrc/gemm_imma.cu's TaCfg: a block's shared memory less 2 KB of slack
+# and barriers, at most IMMA_TILE_MAX_STAGES stages; the pre-pass's planes
+# have a K pitch of a multiple of IMMA_TILE_KPAD bytes.
+IMMA_TILE_BUDGET = SMEM_PER_BLOCK - 2048
+IMMA_TILE_MAX_STAGES = 8
+IMMA_TILE_KPAD = 64
+# A wave of tiles costs its columns times this, relative to the widest
+# tile's (the narrow tile reads each X stage twice as often).
+IMMA_COLUMN_COST = {256: 1.0, 128: 1.15, 64: 1.3}
+# I8GER4's weight stream (form B): 128 weight rows a block, 128 k a stage
+# on a ring of IMMA_STREAM_STAGES, N <= 64 columns padded to a compiled
+# width, the K-major Y slice at most IMMA_STREAM_YT bytes, staged through
+# IMMA_STREAM_RAW bytes of Y's rows; as many blocks an SM as shared memory
+# holds, at most IMMA_STREAM_OCC (its launch bounds: ptxas gives each
+# instance 48-58 registers a thread).
+IMMA_STREAM_BM, IMMA_STREAM_BK = 128, 128
+IMMA_STREAM_WIDTHS = (8, 16, 32, 64)
+IMMA_STREAM_STAGES = 3
+IMMA_STREAM_YT = 65536
+IMMA_STREAM_RAW = 8192
+IMMA_STREAM_OCC = 3
+# The split's cost model (fitted to scripts on the H100, PERF.md): a
+# block's fixed cost in stages of its stream (the ring's first fill and
+# the deprime) besides its Y columns' bytes, and the stages an SM keeps in
+# flight to draw its share of the card's bandwidth (fewer: a slower SM).
+IMMA_STREAM_FIXED = 2
+IMMA_STREAM_INFLIGHT = 9
+# The forms, as csrc/gemm_imma.cu's launcher codes them.
+IMMA_FORMS = ("mma", "tile", "stream")
+
+
+@dataclasses.dataclass(frozen=True)
+class ImmaTileConfig:
+    """Form A: (128, bn) output tiles, one block each, K in stages of 128
+    (logical) k, over the planes its pre-pass writes."""
+    bn: int
+    bm: int = IMMA_TILE_BM
+    bk: int = IMMA_TILE_BK
+
+    def tiles(self, m: int, n: int, b: int = 1) -> int:
+        return b * -(-m // self.bm) * -(-n // self.bn)
+
+    def waves(self, m: int, n: int, b: int = 1) -> int:
+        """Rounds of the grid on the card: one block an SM."""
+        return -(-self.tiles(m, n, b) // NUM_SMS)
+
+    def stage_bytes(self, ger: Ger) -> int:
+        """A ring stage: each byte plane's (128 x 128) X box and (bn x
+        128) Y^T box (two planes for I16GER2)."""
+        planes = 2 if ger == Ger.I16GER2 else 1
+        return planes * (self.bm + self.bn) * self.bk
+
+    def stages(self, ger: Ger) -> int:
+        """The ring's depth (TaCfg::STAGES)."""
+        return min(IMMA_TILE_MAX_STAGES,
+                   IMMA_TILE_BUDGET // self.stage_bytes(ger))
+
+    def smem_bytes(self, ger: Ger) -> int:
+        """Dynamic shared memory of one block (TaCfg::smem): the ring, 1 KB
+        of alignment slack, a full and an empty barrier a stage."""
+        stages = self.stages(ger)
+        return stages * self.stage_bytes(ger) + 1024 + 2 * stages * 8
+
+    def prep_bytes(self, ger: Ger, m: int, n: int, k: int, bx: int = 1,
+                   by: int = 1) -> tuple[int, int]:
+        """The pre-pass's workspace: X's planes (none for I8GER4, whose X
+        the tile reads as it lies) and Y^T's, (B, planes, rows, kp) bytes;
+        ``k`` logical, ``bx`` / ``by`` the batch where the operand is
+        batched, else 1."""
+        kp = -(-k // IMMA_TILE_KPAD) * IMMA_TILE_KPAD
+        planes = 2 if ger == Ger.I16GER2 else 1
+        xb = 0 if ger == Ger.I8GER4 else bx * planes * m * kp
+        return xb, by * planes * n * kp
+
+
+@dataclasses.dataclass(frozen=True)
+class ImmaStreamConfig:
+    """Form B: 128 weight rows a block, bn (>= N) columns, K cut into
+    ``split`` slices of whole 64-k stages (slice s owns stages
+    [s*S/split, (s+1)*S/split)); the slices' int32 partials add exactly,
+    so the split moves no bit."""
+    bn: int
+    split: int
+    bm: int = IMMA_STREAM_BM
+    bk: int = IMMA_STREAM_BK
+
+    def blocks(self, m: int, b: int = 1) -> int:
+        return b * -(-m // self.bm) * self.split
+
+    def slice_stages(self, k: int) -> int:
+        """The longest slice's stages (its Y columns' shared memory)."""
+        return -(-(-(-k // self.bk)) // self.split)
+
+    def smem_bytes(self, k: int) -> int:
+        """Dynamic shared memory of one block (tb_smem): 1 KB of slack,
+        the ring, the slice's K-major Y columns, the raw block of Y's rows
+        and the barriers."""
+        return (1024 + IMMA_STREAM_STAGES * self.bm * self.bk
+                + self.bn * self.bk * self.slice_stages(k) + IMMA_STREAM_RAW
+                + 2 * IMMA_STREAM_STAGES * 8)
+
+    def blocks_per_sm(self, k: int) -> int:
+        """Blocks an SM runs: what shared memory holds (1 KB reserved a
+        block), at most IMMA_STREAM_OCC."""
+        return max(1, min(IMMA_STREAM_OCC,
+                          SM_SMEM // (self.smem_bytes(k) + 1024)))
+
+
+def imma_form(cfg) -> str:
+    """The form a configuration runs: "tile", "stream" or "mma"."""
+    if isinstance(cfg, ImmaTileConfig):
+        return "tile"
+    return "stream" if isinstance(cfg, ImmaStreamConfig) else "mma"
+
+
+def imma_stream_plan(m: int, n: int, k: int, b: int = 1) -> ImmaStreamConfig:
+    """The weight stream's width (the narrowest compiled one >= N) and
+    split: of the splits that keep a slice's Y columns within
+    IMMA_STREAM_YT bytes, the one whose grid costs least, in stages of
+    the stream: the busiest SM's blocks, each its slice, its Y columns and
+    IMMA_STREAM_FIXED stages, slowed where the SM holds fewer than
+    IMMA_STREAM_INFLIGHT stages in flight, plus the int32 partials
+    (written and read back, in L2: a quarter of a stage's cost a stage's
+    bytes); the fewest slices among equals."""
+    bn = next(w for w in IMMA_STREAM_WIDTHS if n <= w)
+    stages = -(-k // IMMA_STREAM_BK)
+    tiles = b * -(-m // IMMA_STREAM_BM)
+    fit = -(-stages // (IMMA_STREAM_YT // (bn * IMMA_STREAM_BK)))
+    stage = IMMA_STREAM_BM * IMMA_STREAM_BK
+
+    def cost(split: int) -> tuple:
+        cfg = ImmaStreamConfig(bn, split)
+        per_sm = -(-tiles * split // NUM_SMS)
+        live = min(cfg.blocks_per_sm(k), per_sm)
+        slow = max(1.0, IMMA_STREAM_INFLIGHT / (live * IMMA_STREAM_STAGES))
+        block = (cfg.slice_stages(k) + IMMA_STREAM_FIXED
+                 + bn * IMMA_STREAM_BK * cfg.slice_stages(k) / stage)
+        parts = (2 * 4 * split * b * m * n / NUM_SMS / stage / 4
+                 if split > 1 else 0.0)
+        return per_sm * block * slow + parts, split
+
+    return ImmaStreamConfig(bn, min(range(fit, stages + 1), key=cost))
+
+
+def imma_plan(m: int, n: int, k: int, ger: Ger, b: int = 1,
+              aligned: bool = True, masked: bool = False,
+              x_aligned: bool | None = None):
+    """The form of an integer product, by op-class and shape, never as a
+    retry: the mma.sync kernel's tile (a ``BlockConfig``) for the masked
+    forms and pitches TMA cannot read; I8GER4's weight stream where N <=
+    64 and X (the weight) is TMA-read (``x_aligned``, else ``aligned``);
+    else the wgmma tile whose grid costs least in waves x bn x
+    ``IMMA_COLUMN_COST``, the widest among equals.  ``aligned``: both
+    operands' bases and row pitches are 16-byte multiples."""
+    x_ok = aligned if x_aligned is None else x_aligned
+    if not masked:
+        if ger == Ger.I8GER4 and n <= IMMA_STREAM_WIDTHS[-1] and x_ok:
+            return imma_stream_plan(m, n, k, b)
+        if aligned:
+            def cost(c: ImmaTileConfig) -> tuple:
+                return (c.waves(m, n, b) * c.bn * IMMA_COLUMN_COST[c.bn],
+                        -c.bn)
+            return min((ImmaTileConfig(w) for w in IMMA_TILE_WIDTHS[ger]),
+                       key=cost)
+    return tiles_for(ger)[0]
+
+
+def imma_takes(cfg, m: int, n: int, k: int, ger: Ger, aligned: bool = True,
+               masked: bool = False, x_aligned: bool | None = None) -> bool:
+    """Whether a product can run on the IMMA configuration ``cfg``: the
+    mma.sync kernel's tile always; the wgmma tile at a compiled width,
+    unmasked, TMA-read; the weight stream in I8GER4, unmasked, X TMA-read,
+    N within its width and its split within K's stages and shared
+    memory."""
+    x_ok = aligned if x_aligned is None else x_aligned
+    if isinstance(cfg, ImmaTileConfig):
+        return (not masked and aligned and cfg.bn in IMMA_TILE_WIDTHS[ger]
+                and cfg == ImmaTileConfig(cfg.bn))
+    if isinstance(cfg, ImmaStreamConfig):
+        return (not masked and x_ok and ger == Ger.I8GER4
+                and cfg.bn in IMMA_STREAM_WIDTHS and n <= cfg.bn
+                and cfg == ImmaStreamConfig(cfg.bn, cfg.split)
+                and 1 <= cfg.split <= -(-k // IMMA_STREAM_BK)
+                and cfg.bn * IMMA_STREAM_BK * cfg.slice_stages(k)
+                <= IMMA_STREAM_YT)
+    return cfg in tiles_for(ger)
+
+
+def imma_configs(m: int, n: int, k: int, ger: Ger, b: int = 1,
+                 aligned: bool = True, x_aligned: bool | None = None
+                 ) -> list:
+    """The compiled IMMA configurations an unmasked product can take: each
+    wgmma tile width (TMA-read operands), the weight stream's plan
+    (I8GER4 at N <= 64, X TMA-read) and the mma.sync kernel's tile."""
+    x_ok = aligned if x_aligned is None else x_aligned
+    out: list = []
+    if aligned:
+        out += [ImmaTileConfig(w) for w in IMMA_TILE_WIDTHS[ger]]
+    if ger == Ger.I8GER4 and n <= IMMA_STREAM_WIDTHS[-1] and x_ok:
+        out.append(imma_stream_plan(m, n, k, b))
+    return out + list(tiles_for(ger))
 
 
 # ----------------------------------------------------------------------
@@ -416,7 +636,8 @@ def conv_wgmma_plan(m: int, f: int) -> WgmmaConfig:
 def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
                      aligned: bool = True,
                      block: tuple[int, int, int] | None = None,
-                     masked: bool = False, tuned: tuple | None = None):
+                     masked: bool = False, tuned: tuple | None = None,
+                     x_aligned: bool | None = None):
     """("stream" | "wgmma" | "wmma" | "imma" | "dmma", config) for one
     product.
 
@@ -425,8 +646,11 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
     it (:func:`takes`), else the heuristic below decides (an explicit
     ``block`` is resolved before any winner, and wins).
 
-    The integer families go to the IMMA kernel, whatever the shape, on
-    their one compiled tile, and F64GER to the DMMA kernel on the tile
+    The integer families go to the IMMA kernel in the form
+    :func:`imma_plan` picks (``x_aligned``: X alone is TMA-read, which
+    I8GER4's weight stream needs; None: as ``aligned``), or on the
+    mma.sync kernel's tile an explicit ``block`` names, and F64GER to the
+    DMMA kernel on the tile
     :func:`choose_blocks` picks (an explicit ``block`` must name a
     compiled tile; both DMMA tiles sum each output in the same order, so
     the choice never changes a bit).  For the others: ``aligned``: both
@@ -445,11 +669,12 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
     every M, the integer families IMMA and F64GER DMMA as above.  The
     weight stream and the wgmma tile take no predicates."""
     if tuned is not None and block is None and takes(
-            tuned, m, n, k, ger, aligned, masked):
+            tuned, m, n, k, ger, aligned, masked, x_aligned):
         return tuned
     if ger in IMMA_GERS:
         return "imma", (check_block(block, ger) if block is not None
-                        else tiles_for(ger)[0])
+                        else imma_plan(m, n, k, ger, b, aligned, masked,
+                                       x_aligned))
     if ger == Ger.F64GER:
         return "dmma", (check_block(block, ger) if block is not None
                         else choose_blocks(m, n, k, ger, b))
@@ -467,14 +692,17 @@ def choose_gemm_path(m: int, n: int, k: int, ger: Ger, b: int = 1,
 
 
 def takes(tuned: tuple, m: int, n: int, k: int, ger: Ger,
-          aligned: bool = True, masked: bool = False) -> bool:
+          aligned: bool = True, masked: bool = False,
+          x_aligned: bool | None = None) -> bool:
     """Whether a product can run on the winner ``tuned`` = (path,
     config): a configuration the path's kernel is compiled for, on the
     operands' family, pitches and predicates."""
     path, cfg = tuned
-    if ger in IMMA_GERS or ger == Ger.F64GER:
-        return (path == ("imma" if ger in IMMA_GERS else "dmma")
-                and cfg in tiles_for(ger))
+    if ger in IMMA_GERS:
+        return path == "imma" and imma_takes(cfg, m, n, k, ger, aligned,
+                                             masked, x_aligned)
+    if ger == Ger.F64GER:
+        return path == "dmma" and cfg in tiles_for(ger)
     if path == "wmma":
         return cfg in tiles_for(ger)
     if masked or ger not in STREAM_GERS or k < MIN_K:

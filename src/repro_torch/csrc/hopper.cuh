@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the TMA + wgmma
-// GEMM (gemm_wgmma.cu), the flash attention (mma_attention.cu) and K3's
-// wgmma conv (mma_conv.cu):
+// GEMM (gemm_wgmma.cu), the flash attention (mma_attention.cu), K3's
+// wgmma conv (mma_conv.cu) and the integer GEMM's wgmma forms
+// (gemm_imma.cu):
 // mbarriers, TMA tensor loads, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, and the host-side tensor-map encoder
 // (cuTensorMapEncodeTiled through the runtime's driver entry point, so no
@@ -155,6 +156,11 @@ __device__ __forceinline__ void reg_fence(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void reg_fence(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Barrier `id` (1..15) over `count` threads (a multiple of 32): the
 // consumer warpgroups among themselves, without the producer.
@@ -256,12 +262,15 @@ static int bind_context() {
   return (int)e;
 }
 
-// A tiled tensor map of a 16-bit tensor of `rank` dims (innermost first),
-// `strides` the byte pitches of dims 1..; encoded on every call (an
-// encode costs no host time that a launch's measurement can see: PERF.md),
-// with a context bound first (bind_context).  Returns 0 or a cudaError_t.
-static int tmap_16bit(CUtensorMap* out, const void* base, int rank,
-                      const uint64_t* dims, const uint64_t* strides,
+// A tiled tensor map of a tensor of `rank` dims (innermost first) whose
+// elements are `elem_bytes` wide (1: 8-bit integers, 2: 16-bit values),
+// `strides` the byte pitches of dims 1..; `swizzle_bytes` 128, 64 or 0 (no
+// swizzle: the box lands densely, innermost dim first).  Encoded on every
+// call (an encode costs no host time that a launch's measurement can see:
+// PERF.md), with a context bound first (bind_context).  Returns 0 or a
+// cudaError_t.
+static int tmap_tiled(CUtensorMap* out, const void* base, int elem_bytes,
+                      int rank, const uint64_t* dims, const uint64_t* strides,
                       const uint32_t* box, int swizzle_bytes) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
@@ -269,13 +278,26 @@ static int tmap_16bit(CUtensorMap* out, const void* base, int rank,
   if (bound) return bound;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle sw =
-      swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  // The element type only sets the width here: bf16 and f16 move alike.
-  CUresult r = fn(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                  const_cast<void*>(base), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+      swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_NONE;
+  // The element type only sets the width here: bf16, f16 and int16 move
+  // alike, as do int8 and uint8.
+  const CUtensorMapDataType dt = elem_bytes == 1
+                                     ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult r = fn(out, dt, rank, const_cast<void*>(base), dims, strides, box,
+                  elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// A tiled tensor map of a 16-bit tensor (tmap_tiled), swizzled 128 or 64.
+static int tmap_16bit(CUtensorMap* out, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides,
+                      const uint32_t* box, int swizzle_bytes) {
+  return tmap_tiled(out, base, 2, rank, dims, strides, box,
+                    swizzle_bytes == 128 ? 128 : 64);
 }

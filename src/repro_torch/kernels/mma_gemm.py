@@ -13,7 +13,10 @@ TMA cannot read on a cp.async ring; F32GER's on true fp32 FMAs),
 ``csrc/mma_gemm.cu`` (WMMA tiles: unaligned pitches at large M, K < 16,
 an explicit block; F32GER at M > 64 on its fp32 SIMT tiles).  The integer families
 (I8GER4, I4GER8, I16GER2) run ``csrc/gemm_imma.cu`` on the int8 tensor
-cores and F64GER runs ``csrc/gemm_dmma.cu`` on the fp64 tensor cores.
+cores, in the form ``tiling.imma_plan`` picks (the wgmma tile, I8GER4's
+weight stream at N <= 64, or the mma.sync kernel for masked products and
+pitches TMA cannot read), and F64GER runs ``csrc/gemm_dmma.cu`` on the
+fp64 tensor cores.
 Each source's head comment says which TPU kernel it replaces
 (``repro/kernels/mma_gemm.py``, ``mma_gemm``), what bounds it on an H100
 and what its design does about that.  ``tuned`` hands the wrapper an
@@ -156,10 +159,12 @@ _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 3 + [ctypes.c_int] + _CK_STREAM
                    + _PANELS_STRIDES)
-# csrc/gemm_imma.cu: gemm_imma_launch
+# csrc/gemm_imma.cu: gemm_imma_launch (after `panels` the plan: its form,
+# width and split, and the weight stream's partials and tickets)
 _IMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 5
-                  + [ctypes.c_void_p] + [ctypes.c_int])
+                  + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p] * 2)
 # csrc/gemm_dmma.cu: gemm_dmma_launch (its tile's bm, bn, bk before the
 # sidecar)
 _DMMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
@@ -335,13 +340,16 @@ def natural_aligned(x, y, x_layout=None, y_layout=None) -> bool:
     allocation; a packed operand (its panels, with its layout) counts with
     its natural kernel-facing pitch, its natural tensor being such an
     allocation."""
-    def ok(t, lay):
-        pitch = (lay.cols if lay is not None else t.shape[-1]) \
-            * t.element_size()
-        base = (lay is not None or not t.is_contiguous()
-                or t.data_ptr() % 16 == 0)
-        return base and pitch % 16 == 0
-    return ok(x, x_layout) and ok(y, y_layout)
+    return tma_aligned(x, x_layout) and tma_aligned(y, y_layout)
+
+
+def tma_aligned(t, lay=None) -> bool:
+    """:func:`natural_aligned`'s rule for one operand (IMMA's weight
+    stream reads X alone by TMA)."""
+    pitch = (lay.cols if lay is not None else t.shape[-1]) * t.element_size()
+    base = (lay is not None or not t.is_contiguous()
+            or t.data_ptr() % 16 == 0)
+    return base and pitch % 16 == 0
 
 
 def _packed_shapes(x, y, x_layout, y_layout):
@@ -568,7 +576,8 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
     # the call cannot take gives way to the heuristic, counted
     path, cfg = tiling.choose_gemm_path(
         m, n, k, kind, b or 1, natural_aligned(x, y, x_layout, y_layout),
-        block, masks is not None, tuned if block is None else None)
+        block, masks is not None, tuned if block is None else None,
+        tma_aligned(x, x_layout) if kind in tiling.IMMA_GERS else None)
     if tuned is not None and block is None and (path, cfg) != tuned:
         mma_gemm.tuned_fallbacks += 1
     if checksum and path not in SIDECAR_PATHS:
@@ -639,6 +648,8 @@ def _mma_gemm(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor | None = None,
         out = _launch_16bit_f32(path, cfg, x, y, c, b, m, n, k, **launched)
     mma_gemm.launches += 1
     mma_gemm.launches_by_path[path] += 1
+    if path == "imma":
+        mma_gemm.imma_launches_by_form[tiling.imma_form(cfg)] += 1
     if panels:
         mma_gemm.packed_launches_by_path[path] += 1
     if masks is not None:
@@ -709,7 +720,8 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
     if out_dtype not in STORE_CODES:
         raise NotImplementedError(f"the {path} kernel stores int32/f64/f32/"
                                   f"bf16/f16, not {out_dtype}")
-    if -(-m // cfg.bm) > 65535:
+    form = tiling.imma_form(cfg) if path == "imma" else "mma"
+    if form == "mma" and -(-m // cfg.bm) > 65535:
         raise ValueError(f"grid too large for one launch: m={m}")
     acc = pol.acc_dtype
     c, bias, residual = (t.to(acc).contiguous() if t is not None else None
@@ -722,13 +734,31 @@ def _launch_imma_dmma(path, cfg, x, y, c, pol, b, m, n, k, *, neg_product,
     act = ep.activation if ep is not None else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if path == "imma":
-        lib, fn = _lib("gemm_imma", "gemm_imma_launch", _IMMA_ARGTYPES)
+        # the plan: the form, its width and split, and its workspace (from
+        # the stream-ordered caching allocator): the wgmma tile's pre-pass
+        # planes, or the weight stream's int32 partials and the stream's
+        # zeroed tickets, one a (batch, 128-row tile), where it splits K
         logical_k = 2 * k if pol.packed_int4 else k
+        split = cfg.split if form == "stream" else 1
+        work = work2 = None
+        if form == "tile":
+            xb, yb = cfg.prep_bytes(pol.ger, m, n, logical_k,
+                                    (b or 1) if strides[0] else 1,
+                                    (b or 1) if strides[1] else 1)
+            work = torch.empty(xb, dtype=torch.uint8,
+                               device=x.device) if xb else None
+            work2 = torch.empty(yb, dtype=torch.uint8, device=x.device)
+        elif split > 1:
+            work = torch.empty((b or 1) * split * m * n, dtype=torch.int32,
+                               device=x.device)
+            work2 = _stream_tickets(x.device, (b or 1) * -(-m // cfg.bm))
+        lib, fn = _lib("gemm_imma", "gemm_imma_launch", _IMMA_ARGTYPES)
         rc = fn(*ptrs, tiling.IMMA_GERS.index(pol.ger),
                 STORE_CODES[out_dtype], b or 1, m, n, logical_k, *strides,
                 acc_scalar(alpha, pol), acc_scalar(beta, pol),
                 int(neg_product), int(neg_acc), int(act == "relu"), stream,
-                panels)
+                panels, tiling.IMMA_FORMS.index(form), cfg.bn, split,
+                _ptr(work), _ptr(work2))
     else:
         lib, fn = _lib("gemm_dmma", "gemm_dmma_launch", _DMMA_ARGTYPES)
         rc = fn(*ptrs, STORE_CODES[out_dtype], b or 1, m, n, k, *strides,
@@ -810,7 +840,7 @@ def stream_tma_reads(x, y, k: int, n: int, panels: int, strides) -> bool:
     return x_ok and y_ok
 
 
-# The weight stream's tickets, one zeroed int32 buffer a (device, CUDA
+# The weight streams' tickets, one zeroed int32 buffer a (device, CUDA
 # stream): the block that finishes a tile sets its ticket back to 0, so a
 # buffer stays zeroed between the launches on its stream, which the
 # stream orders, and no launch needs a memset first.
@@ -837,6 +867,9 @@ mma_gemm.packed_launches_by_path = dict.fromkeys(PACKED_PATHS, 0)
 mma_gemm.masked_launches_by_path = dict.fromkeys(MASKED_PATHS, 0)
 # The launches with the checksum sidecar (also in launches_by_path).
 mma_gemm.checksum_launches_by_path = dict.fromkeys(SIDECAR_PATHS, 0)
+# The IMMA kernel's launches (also in launches_by_path) by form: the wgmma
+# tile, I8GER4's weight stream, the mma.sync kernel (tiling.IMMA_FORMS).
+mma_gemm.imma_launches_by_form = dict.fromkeys(tiling.IMMA_FORMS, 0)
 # A list to record (batch, M, K, N, dtype, out dtype, path) of each launch
 # into, or None: chip_smoke.py times the shapes a run gave the kernels.
 mma_gemm.trace = None

@@ -23,8 +23,10 @@ The traffic model is per path (``core/tiling.py``'s kernels):
     tile's K slices span blocks: the 16-bit TMA kernel's units that do not
     fold every slice (:meth:`tiling.StreamConfig.partials`), F32GER's
     kernel wherever K is split (``tiling.stream_plan``'s docstring);
-  * the tiles (WMMA, fp32, IMMA, DMMA: :class:`tiling.BlockConfig`; the
-    wgmma tile: :class:`tiling.WgmmaConfig`, K steps of 64) read each X
+  * the tiles (WMMA, fp32, IMMA's mma.sync kernel, DMMA:
+    :class:`tiling.BlockConfig`; the wgmma tile: :class:`tiling.WgmmaConfig`,
+    K steps of 64; IMMA's wgmma tile: :class:`tiling.ImmaTileConfig`, K
+    steps of 128) read each X
     panel once per N tile and each Y panel once per M tile, and write C
     once: the reference's count for the same block, bit for bit
     (``tests/test_torch_roofline.py``).
@@ -61,7 +63,11 @@ PEAK_FLOPS = {Ger.BF16GER2: 989e12, Ger.F16GER2: 989e12,
               Ger.I16GER2: 1979e12}
 
 # Int8 tensor-core products a family's product costs: I16GER2 runs four
-# (gemm_imma.cu's byte planes).
+# (gemm_imma.cu's byte planes, in each of its forms).  The IMMA kernel's
+# forms are priced as their shapes say: the wgmma tile
+# (tiling.ImmaTileConfig) and the mma.sync kernel's tile as tiles, one
+# block an SM; I8GER4's weight stream (tiling.ImmaStreamConfig) by its
+# weight's bytes at the blocks an SM its shared memory allows.
 _PRODUCTS = {Ger.I16GER2: 4}
 
 # Modeled host time a kernel launch costs the caller: the port's wrapper
@@ -163,6 +169,13 @@ def gemm_traffic_bytes(m: int, n: int, k: int, cfg, pol, b: int = 1) -> int:
     read back once each.  A batched launch repeats the per-element
     traffic ``b`` times."""
     acc = pol.acc_dtype.itemsize
+    if isinstance(cfg, tiling.ImmaStreamConfig):
+        # IMMA's weight stream: the weight once, the activations once a
+        # 128-row tile, the int32 partials written and read back where K
+        # is split
+        parts = 2 * 4 * b * cfg.split * m * n if cfg.split > 1 else 0
+        return (b * (m * k + -(-m // cfg.bm) * k * n) * pol.in_bytes
+                + parts + b * m * n * acc)
     if isinstance(cfg, tiling.StreamConfig):
         parts = (2 * 4 * b * cfg.split * m * n
                  if stream_partials(n, cfg, pol, b) else 0)
@@ -188,6 +201,8 @@ def gemm_blocks(m: int, n: int, k: int, cfg, b: int = 1,
     """Thread blocks of one launch on ``cfg``'s path: the weight stream's
     work units (16-bit), or one block a slice (F32GER, ``pol``)."""
     del k
+    if isinstance(cfg, tiling.ImmaStreamConfig):
+        return cfg.blocks(m, b)
     if isinstance(cfg, tiling.StreamConfig):
         if pol is not None and pol.in_bytes == 4:
             gx, gy, gz = cfg.grid(n, b)
@@ -221,6 +236,10 @@ def gemm_projected_time(m: int, n: int, k: int, cfg, pol,
     if isinstance(cfg, tiling.StreamConfig):
         flops = 2.0 * b * max(m, 1) * n * k
         occ = tiling.BLOCKS_PER_SM
+    elif isinstance(cfg, tiling.ImmaStreamConfig):
+        # the padded columns' products; the blocks an SM holds
+        flops = 2.0 * b * -(-m // cfg.bm) * cfg.bm * cfg.bn * k
+        occ = cfg.blocks_per_sm(k)
     else:
         bm, bn, bk = _tile(cfg)
         flops = (2.0 * b * -(-m // bm) * bm * -(-n // bn) * bn

@@ -106,6 +106,8 @@ def test_candidates_are_compiled_configurations(kind, m, n, k):
             assert 1 <= cfg.split <= -(-k // tiling.STREAM_BK)
         elif path == "wgmma":
             assert cfg in tiling.WGMMA_TILES
+        elif path == "imma":
+            assert cfg in tiling.imma_configs(m, n, k, kind)
         else:
             assert cfg in tiling.tiles_for(kind)
 

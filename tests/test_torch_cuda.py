@@ -1106,7 +1106,8 @@ def test_new_kernels_raise_on_build_or_launch_failure(gen, monkeypatch,
     rc = fn(x.data_ptr(), y.data_ptr(), None, None, None,   # no masks
             None, None, None, out.data_ptr(),
             7, 3, 1, 8, 8, 64, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0,
-            torch.cuda.current_stream().cuda_stream, 0)  # family 7: refused
+            torch.cuda.current_stream().cuda_stream, 0,
+            0, 128, 1, None, None)                       # family 7: refused
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check(lib, rc, "gemm_imma")
     monkeypatch.setattr(G, "_FNS", {})
@@ -1150,6 +1151,137 @@ def test_family_paths_through_contract(gen):
         before = G.mma_gemm.launches
         blas3.complex_gemm(ar, ai, br.T.contiguous(), bi.T.contiguous())
         assert G.mma_gemm.launches == before + 4
+
+
+# ---- the IMMA kernel's forms: the wgmma tile, I8GER4's weight stream
+# and the mma.sync kernel, each bit for bit the plain version and the
+# others ------------------------------------------------------------------
+
+# (lead, (M, K logical, N), options, the form the plan must pick)
+_IMMA_FORM_CASES = {
+    "square": ((), (512, 1024, 512), {}, "tile"),
+    "fringe": ((), (300, 400, 272), {}, "tile"),
+    "k-fringe": ((), (130, 144, 144), {}, "tile"),
+    "k-stage": ((), (256, 128, 256), {}, "tile"),
+    "batched": ((3,), (200, 256, 160), {}, "tile"),
+    "forms": ((), (256, 512, 384), dict(neg_product=True, neg_acc=True,
+                                         alpha=3.7, beta=-2.5, seed=True),
+              "tile"),
+    "epilogue": ((2,), (129, 256, 256), dict(relu=True, seed=True), "tile"),
+    "out-f32": ((), (256, 256, 256), dict(out=torch.float32), "tile"),
+    "out-bf16": ((), (256, 256, 256), dict(out=torch.bfloat16), "tile"),
+    "out-f16": ((), (256, 256, 256), dict(out=torch.float16), "tile"),
+    "out-f64": ((), (256, 256, 256), dict(out=torch.float64), "tile"),
+    "narrow-n": ((), (300, 512, 48), {}, "stream"),
+    "decode": ((), (1100, 4096, 4), {}, "stream"),
+    "decode-forms": ((), (300, 1024, 64), dict(neg_product=True, alpha=2,
+                                               seed=True, relu=True),
+                     "stream"),
+    "decode-batched": ((2,), (260, 512, 16), {}, "stream"),
+    "unaligned": ((), (100, 200, 100), {}, "mma"),
+}
+
+
+def _imma_form_args(gen, kind, lead, m, k, n, opts):
+    opts = dict(opts)
+    c = (_ints(gen, -2 ** 31, 2 ** 31 - 1, *lead, m, n, dtype=torch.int32)
+         if opts.pop("seed", False) else None)
+    kw = dict(kind=kind, out_dtype=opts.pop("out", None), **opts)
+    if kw.pop("relu", False):
+        kw.update(ep=E.Epilogue(bias=True, activation="relu", residual=True),
+                  bias=_ints(gen, -1000, 1000, n, dtype=torch.int32),
+                  residual=_ints(gen, -1000, 1000, *lead, m, n,
+                                 dtype=torch.int32))
+    return c, kw
+
+
+@pytest.mark.parametrize("case", sorted(_IMMA_FORM_CASES))
+@pytest.mark.parametrize("kind", sorted(_INT_RANGES, key=str))
+def test_imma_redesign_forms(gen, kind, case):
+    """Each form the plan picks (the wgmma tile, I8GER4's weight stream,
+    the mma.sync kernel for pitches TMA cannot read) against the plain
+    version and the mma.sync kernel's launch (an explicit block), bit for
+    bit, full-range operands (I16GER2 wraps), the same bits twice."""
+    lead, (m, k, n), opts, form = _IMMA_FORM_CASES[case]
+    if kind == Ger.I16GER2 and case == "unaligned":
+        k = 202     # an int16 pitch of 404 bytes
+    x, y = _int_operands(gen, kind, lead, m, k, n)
+    c, kw = _imma_form_args(gen, kind, lead, m, k, n, opts)
+    plan = tiling.imma_form(tiling.choose_gemm_path(
+        m, n, x.shape[-1], kind, lead[0] if lead else 1,
+        G.natural_aligned(x, y), x_aligned=G.tma_aligned(x))[1])
+    if kind == Ger.I8GER4:      # the cases' forms are I8GER4's
+        assert plan == form
+    form = plan
+    G.mma_gemm.imma_launches_by_form = dict.fromkeys(tiling.IMMA_FORMS, 0)
+    got = G.mma_gemm(x, y, c, **kw)
+    torch.cuda.synchronize()
+    assert G.mma_gemm.imma_launches_by_form[form] == 1, \
+        G.mma_gemm.imma_launches_by_form
+    assert torch.equal(got, G.mma_gemm_plain(x, y, c, **kw))
+    old = G.mma_gemm(x, y, c, block=tiling.GEMM_TILES[kind][0], **kw)
+    assert G.mma_gemm.imma_launches_by_form["mma"] == 1 + (form == "mma")
+    assert torch.equal(got, old)
+    assert torch.equal(G.mma_gemm(x, y, c, **kw), got)
+
+
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_imma_stream_qdot(gen, m):
+    """qdot's decode on I8GER4's weight stream: the kernel on natural W^T
+    and on X panels bit for bit the plain version and the mma.sync
+    kernel, and qdot through contract bit for bit the torch backend."""
+    from repro_torch.core import packing, quant
+    k, n = 4096, 11008
+    w = torch.randn(k, n, generator=gen, device="cuda") * 0.05
+    wq, ws = quant.quantize_weight(w)
+    lay = packing.gemm_layout(Ger.I8GER4, n, k, side="x", transposed=True)
+    po = packing.pack_gemm(wq, lay, scale=ws,
+                           col_sum=wq.to(torch.int32).sum(0).float())
+    xq = torch.randint(0, 256, (k, m), generator=gen, device="cuda",
+                       dtype=torch.int32).to(torch.uint8)
+    wt = wq.T.contiguous()
+    G.mma_gemm.imma_launches_by_form = dict.fromkeys(tiling.IMMA_FORMS, 0)
+    got = G.mma_gemm(wt, xq, kind=Ger.I8GER4)
+    packed = G.mma_gemm(po.data, xq, x_layout=po.layout, kind=Ger.I8GER4)
+    assert G.mma_gemm.imma_launches_by_form["stream"] == 2
+    assert torch.equal(got, G.mma_gemm_plain(wt, xq, kind=Ger.I8GER4))
+    assert torch.equal(packed, got)
+    assert torch.equal(got, G.mma_gemm(wt, xq, kind=Ger.I8GER4,
+                                       block=(128, 128, 64)))
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    with facility.configure(facility.FacilityConfig(device="cuda")):
+        assert torch.equal(quant.qdot(x, wq, ws),
+                           quant.qdot(x, wq, ws, backend="torch"))
+        assert torch.equal(quant.qdot(x, po), quant.qdot(x, wq, ws))
+
+
+@pytest.mark.parametrize("panels", ["x", "y", "xy", "xy-shared"])
+@pytest.mark.parametrize("kind", [Ger.I8GER4, Ger.I16GER2])
+def test_imma_tile_panels(gen, kind, panels):
+    """The wgmma tile on X and/or Y panels (K1d), batched and shared, bit
+    for bit its natural launch and the plain version; K = 144 leaves an
+    odd panel count, so the last stage's second panel lies past gk."""
+    from repro_torch.core import packing
+    b, m, k, n = 2, 300, 144, 272
+    x, y = _int_operands(gen, kind, (b,), m, k, n)
+    kw = dict(kind=kind)
+    xl = yl = None
+    xa, ya = x, y
+    if "x" in panels:
+        xl = packing.gemm_layout(kind, m, k, side="x", batched=True)
+        xa = packing.pack_gemm(x, xl).data
+    if "y" in panels:
+        shared = panels.endswith("shared")
+        yw = y[0] if shared else y
+        yl = packing.gemm_layout(kind, k, n, batched=not shared)
+        ya = packing.pack_gemm(yw, yl).data
+        if shared:
+            y = y[:1].expand(b, k, n).contiguous()
+    G.mma_gemm.imma_launches_by_form = dict.fromkeys(tiling.IMMA_FORMS, 0)
+    got = G.mma_gemm(xa, ya, x_layout=xl, y_layout=yl, **kw)
+    assert G.mma_gemm.imma_launches_by_form["tile"] == 1
+    assert torch.equal(got, G.mma_gemm(x, y, **kw))
+    assert torch.equal(got, G.mma_gemm_plain(x, y, **kw))
 
 
 # ----------------------------------------------------------------------

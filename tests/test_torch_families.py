@@ -243,8 +243,14 @@ def test_paths_and_tiles(fam):
     ger = tprec.Ger[fam]
     path, cfg = tiling.choose_gemm_path(4, 4096, 4096, ger)
     assert path == ("dmma" if fam == "F64GER" else "imma")
-    assert cfg in tiling.tiles_for(ger)
-    assert cfg.smem_bytes(tprec.policy(ger)) <= tiling.SMEM_PER_BLOCK
+    if fam == "F64GER":
+        assert cfg in tiling.tiles_for(ger)
+        assert cfg.smem_bytes(tprec.policy(ger)) <= tiling.SMEM_PER_BLOCK
+    else:   # the IMMA kernel's wgmma tile, by tiling.imma_plan
+        assert cfg == tiling.imma_plan(4, 4096, 4096, ger)
+        assert cfg.smem_bytes(ger) <= tiling.SMEM_PER_BLOCK
+    for tile in tiling.tiles_for(ger):
+        assert tile.smem_bytes(tprec.policy(ger)) <= tiling.SMEM_PER_BLOCK
     # an explicit block names the compiled tile; another raises
     assert tiling.choose_gemm_path(4, 64, 64, ger,
                                    block=tuple(tiling.GEMM_TILES[ger][0]))[0] \
