@@ -296,7 +296,30 @@ Phases, each of which must pass or the script exits nonzero:
      hash against the parent's (``PHASE16_PARENT_SHA``), each b = 64 bank
      bit for bit its 64 experts run one at a time; timed beside
      ``torch.matmul``, the bound, the parent's PERF.md time and its aim
-     (``time stream ...``).
+     (``time stream ...``);
+ 17. elastic training (``runtime/elastic.py``): mamba2-130m at full width
+     and depth (24 layers, d_model 768, fp32 parameters) through
+     ``launch.train.build`` and ``ElasticTrainer`` on phase 5's batch (4 x
+     512 tokens, lr 3e-5), step-addressable batches from seed 0 through
+     ``data.pipeline.Prefetcher``, checkpoints in a temporary directory:
+     ``run(10)``, a checkpoint every 4 steps, under a ``FaultPlan`` of a
+     ``train.step`` raise at step 5, a 2 s ``train.step`` latency at step 9
+     (the watchdog at patience 1) and a ``checkpoint.save`` raise at step
+     10 (the final sync save): 2 restarts, the steps run 0-4, 4-9, 8-9,
+     step 9 a straggler (any other flagged step printed with its time),
+     ``latest_step()`` 10, every loss finite; then the same 10 steps with
+     no fault into another directory; each run's counts zeroed just
+     before and read just after and held to ``expected_train_launches``
+     times the steps it ran; each step's loss and every leaf of the final
+     state of the faulted run bit for bit the clean run's (or within 1e-4,
+     said so); the faulted run's peak device memory at most half the
+     state above the clean run's (a restart frees the failed attempt's
+     state before building the next); each save's, snapshot's and
+     restore's seconds and GiB/s, the host-clock step time (the sync on
+     the loss); then, as in phase 5,
+     each new GEMM and depthwise conv shape of the two runs held against
+     its plain version and timed; the runs' launches are added to the
+     GEMM's and the depthwise conv's entries.
 
 Phase 1 also launches one instance above 48 KB of shared memory of each
 library on a fresh ``threading.Thread`` after the main thread has
@@ -6723,6 +6746,247 @@ def phase16(torch, failures, entries):
     print(f"  phase 16: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 17: elastic training (runtime/elastic.py) at mamba2-130m's full
+# width and depth
+# ----------------------------------------------------------------------
+
+# mamba2-130m, the training launcher's default arch (24 layers, d_model
+# 768, 0.168 B fp32 parameters), through launch.train.build and
+# ElasticTrainer on phase 5's batch (4 x 512 tokens, lr 3e-5) with
+# step-addressable batches from seed 0: run(10), a checkpoint every 4 steps,
+# under a node death at step 5 (restart from step 4), a 2 s straggler at
+# step 9 (the watchdog at patience 1) and a crash in the final sync save
+# at step 10 (restart from step 8); then the same 10 steps with no fault.
+ELASTIC = dict(arch="mamba2-130m", steps=10, ckpt_every=4, fail_at=5,
+               slow_at=9, slow_s=2.0, crash_save_at=10)
+ELASTIC_SEEN = [0, 1, 2, 3, 4] + [4, 5, 6, 7, 8, 9] + [8, 9]
+
+
+def elastic_run(torch, cfg, run, plan):
+    """One ``ElasticTrainer.run`` of ``ELASTIC`` into a fresh temporary
+    directory, every kernel's launches reset just before it and read just
+    after; returns (the trainer's output, the checkpoint directory's
+    latest step, the launches, each step's (step, loss, host seconds), the
+    checkpoint I/O as (what, step, seconds), the state's GiB, the run's
+    seconds, the run's peak device memory in GiB above what was allocated
+    before it)."""
+    import threading
+
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.runtime import elastic as EL
+
+    io = []
+
+    class Timed(C.Checkpointer):
+        """The port's Checkpointer with each save's, snapshot's and
+        restore's seconds recorded (the async write on its thread)."""
+
+        def save_async(self, step, tree):
+            t0 = time.perf_counter()
+            super().save_async(step, tree)
+            io.append(("async snapshot", step, time.perf_counter() - t0))
+
+        def _write(self, step, paths, host_leaves):
+            what = ("sync save" if threading.current_thread()
+                    is threading.main_thread() else "async write")
+            t0, done = time.perf_counter(), False
+            try:
+                super()._write(step, paths, host_leaves)
+                done = True
+            finally:
+                io.append((what if done else what + " (crashed)", step,
+                           time.perf_counter() - t0))
+
+        def restore(self, step, like):
+            t0 = time.perf_counter()
+            out = super().restore(step, like)
+            torch.cuda.synchronize()
+            io.append(("restore", step, time.perf_counter() - t0))
+            return out
+
+    make_state, make_step = T.build(cfg, lr=TRAIN["lr"],
+                                    total_steps=ELASTIC["steps"], seed=0,
+                                    device="cuda")
+    steps = []
+
+    def batches(start):
+        return pipeline.Prefetcher(cfg, batch=TRAIN["batch"],
+                                   seq=TRAIN["seq"], device="cuda",
+                                   start_step=start, seed=0)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as d:
+        trainer = EL.ElasticTrainer(
+            make_step=make_step, make_state=make_state, batches=batches,
+            checkpointer=Timed(d),
+            cfg=EL.ElasticConfig(ckpt_every=ELASTIC["ckpt_every"],
+                                 straggler_patience=1),
+            faults=plan,
+            on_step=lambda step, loss, dt: steps.append((step, loss, dt)))
+        kernels = kernel_wrappers()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        out = trainer.run(ELASTIC["steps"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        take_records(run, kernels)
+        latest = trainer.ckpt.latest_step()
+        gib = sum(t.numel() * t.element_size()
+                  for _, t in C._flatten(out["state"])) / 2**30
+    return out, latest, launches, steps, io, gib, wall, peak
+
+
+def elastic_report(failures, run, cfg, out, latest, launches, steps, io,
+                   gib, wall, peak, plan=None):
+    """Print one elastic run and hold its launches to the per-call model
+    times the steps that ran; with ``plan`` (the faulted run), also its
+    restarts, the steps it ran, its stragglers and its latest step."""
+    import math
+    seen = [m["step"] for m in out["metrics"]]
+    per_step = {k: v for k, v in expected_train_launches(cfg).items()
+                if k != "forward_gemm"}
+    model_counts = {k: len(seen) * per_step.get(k, 0) for k in launches}
+    ok_counts = model_counts == launches and all(
+        launches[k] > 0 for k, n in per_step.items() if n)
+    dts = [dt for _, _, dt in steps]
+    med = sorted(dts)[len(dts) // 2]
+    print(f"  {run}: {wall:.1f} s, steps run {seen}, restarts "
+          f"{out['restarts']}, stragglers {out['stragglers']}, latest step "
+          f"{latest}; step time {med * 1e3:.2f} ms (host clock, median of "
+          f"{len(dts)}, the sync on the loss; "
+          f"{[round(dt * 1e3, 1) for dt in dts]} ms); peak device memory "
+          f"{peak:.2f} GiB above what was allocated before the run")
+    for what, step, sec in io:
+        print(f"    {what} of step {step}: {sec:.3f} s, {gib:.2f} GiB, "
+              f"{gib / sec:.2f} GiB/s")
+    print(f"  [{'ok' if ok_counts else 'FAIL'}] {run}: launches {launches}; "
+          f"{len(seen)} steps x {per_step} give {model_counts}; GEMM by path "
+          f"{RECORDS[run]['by_path']['mma_gemm']}, depthwise conv by path "
+          f"{RECORDS[run]['by_path']['mma_depthwise_conv2d']}")
+    if not ok_counts:
+        failures.append(f"{run} launch counts {launches} differ from the "
+                        f"per-call model {model_counts}")
+    finite = all(math.isfinite(m["loss"]) for m in out["metrics"])
+    print(f"  [{'ok' if finite else 'FAIL'}] {run}: every loss finite "
+          f"({[round(m['loss'], 4) for m in out['metrics']]})")
+    if not finite:
+        failures.append(f"{run}: a loss not finite")
+    if plan is None:
+        return
+    by_step = {}
+    for step, _, dt in steps:
+        by_step.setdefault(step, []).append(dt)
+    others = [(s, [round(t, 3) for t in by_step[s]])
+              for s in out["stragglers"] if s != ELASTIC["slow_at"]]
+    checks = (
+        ("restarts == 2", out["restarts"] == 2),
+        (f"steps run {ELASTIC_SEEN} (resumed from 4 and 8, never from 0)",
+         seen == ELASTIC_SEEN),
+        (f"{ELASTIC['slow_at']} in stragglers",
+         ELASTIC["slow_at"] in out["stragglers"]),
+        (f"latest_step() == {ELASTIC['steps']}", latest == ELASTIC["steps"]),
+        ("fault events", [(f.point, f.step) for f in plan.events] == [
+            ("train.step", ELASTIC["fail_at"]),
+            ("train.step", ELASTIC["slow_at"]),
+            ("checkpoint.save", ELASTIC["crash_save_at"])]))
+    for what, ok in checks:
+        print(f"  [{'ok' if ok else 'FAIL'}] {run}: {what}")
+        if not ok:
+            failures.append(f"{run}: {what}")
+    if others:
+        print(f"  {run}: other steps flagged, with their seconds: {others}")
+
+
+def phase17(torch, failures, entries):
+    """Phase 17: elastic training (``runtime/elastic.py``) of mamba2-130m
+    at full width and depth under three faults, then the same steps
+    clean: the same losses and final state, bit for bit (or within 1e-4,
+    said so); the runs' shapes held and timed as phase 5's."""
+    from repro_torch.configs import get as get_arch
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.runtime import faults as F
+
+    print("== phase 17: elastic training (runtime/elastic.py) at "
+          "mamba2-130m's full width and depth", flush=True)
+    t_phase = time.perf_counter()
+    cfg = get_arch(ELASTIC["arch"])
+    tmp = tempfile.gettempdir()
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}; batch {TRAIN['batch']} x {TRAIN['seq']}, "
+          f"lr {TRAIN['lr']}, {ELASTIC['steps']} steps, a checkpoint every "
+          f"{ELASTIC['ckpt_every']} into {tmp} "
+          f"({shutil.disk_usage(tmp).free / 2**30:.0f} GiB free)",
+          flush=True)
+    plan = F.FaultPlan([
+        F.FaultSpec(point=F.TRAIN_STEP, kind=F.RAISE,
+                    at_steps=(ELASTIC["fail_at"],)),
+        F.FaultSpec(point=F.TRAIN_STEP, kind=F.LATENCY,
+                    at_steps=(ELASTIC["slow_at"],),
+                    latency_s=ELASTIC["slow_s"]),
+        F.FaultSpec(point=F.CHECKPOINT_SAVE, kind=F.RAISE,
+                    at_steps=(ELASTIC["crash_save_at"],))])
+    runs = {}
+    for run, p in ((f"{cfg.name} elastic", plan),
+                   (f"{cfg.name} elastic clean", None)):
+        runs[run] = elastic_run(torch, cfg, run, p)
+        elastic_report(failures, run, cfg, *runs[run], plan=p)
+        torch.cuda.empty_cache()
+    (fault_run, (faulted, *_)), (clean_run, (clean, *_)) = runs.items()
+    launches = {run: res[2] for run, res in runs.items()}
+    # A restart that kept the failed attempt's state while make_state()
+    # built the next would raise the faulted run's peak by the state's size.
+    gib, peak_f, peak_c = (runs[fault_run][5], runs[fault_run][7],
+                           runs[clean_run][7])
+    ok = peak_f <= peak_c + gib / 2
+    print(f"  [{'ok' if ok else 'FAIL'}] {fault_run}: peak device memory "
+          f"{peak_f:.2f} GiB against the clean run's {peak_c:.2f} GiB (at "
+          f"most half the {gib:.2f} GiB state more)")
+    if not ok:
+        failures.append(f"{fault_run}: a restart raised the peak memory")
+    want = {m["step"]: m["loss"] for m in clean["metrics"]}
+    loss_diffs = [abs(m["loss"] - want[m["step"]]) / abs(want[m["step"]])
+                  for m in faulted["metrics"]]
+    a, b = C._flatten(faulted["state"]), C._flatten(clean["state"])
+    same_paths = [p for p, _ in a] == [p for p, _ in b]
+    leaf_diffs = [((x.double() - y.double()).norm()
+                   / y.double().norm().clamp_min(1e-30)).item()
+                  for (_, x), (_, y) in zip(a, b)]
+    bitwise = (same_paths and max(loss_diffs) == 0
+               and all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b)))
+    close = same_paths and max(loss_diffs + leaf_diffs) <= 1e-4
+    print(f"  [{'ok' if close else 'FAIL'}] {fault_run} against "
+          f"{clean_run}: each step's loss and every one of {len(a)} leaves "
+          f"of the final state "
+          + ("bit for bit" if bitwise else
+             f"NOT bit for bit: worst loss {max(loss_diffs):.3e}, worst leaf "
+             f"rel L2 {max(leaf_diffs):.3e} (tol 1e-4)"))
+    if not close:
+        failures.append(f"{fault_run}: losses or final state differ from "
+                        f"the clean run")
+    del runs, faulted, clean, a, b
+    torch.cuda.empty_cache()
+    print("== phase 17: the elastic runs' GEMM and depthwise conv shapes, "
+          "checked and timed", flush=True)
+    time_run_shapes(torch, entries, failures, [fault_run, clean_run])
+    for e in entries:
+        if e["name"] not in ("mma_gemm", "mma_depthwise_conv2d"):
+            continue
+        for run in (fault_run, clean_run):
+            e["launches_by_run"][run] = launches[run][e["name"]]
+            e["launches"] += launches[run][e["name"]]
+            for path, k in RECORDS[run]["by_path"][e["name"]].items():
+                e["launches_by_path"][path] = (
+                    e["launches_by_path"].get(path, 0) + k)
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
 def thread_launches(torch, failures):
     """A first launch on a fresh host thread, for each library: one
     instance above 48 KB of dynamic shared memory, launched on the main
@@ -6949,6 +7213,7 @@ def run_phases(torch) -> None:
     phase14(torch, failures, entries)
     phase15(torch, failures, entries)
     phase16(torch, failures, entries)
+    phase17(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

@@ -8,19 +8,23 @@
 Runs on the card (``--device cuda``, the default; it raises where CUDA is
 absent) with random fp32 weights drawn from seed 0, through the
 facility's kernel backend; ``--device cpu`` runs the kernels' plain
-versions.  One device, no mesh (ROADMAP queue 1, E1), and a plain loop in
-place of the reference's ``ElasticTrainer`` (D3, which brings resume and
-restart): it checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``
-when one is given, and prints the reference's
-``steps= first_loss= last_loss= wall=`` line.
+versions.  One device, no mesh (ROADMAP queue 1, E1).  As the
+reference's, every run goes through ``runtime.elastic.ElasticTrainer``: it
+checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``, restarts from
+the latest complete step after an injected failure, and a second run on
+the same ``--ckpt-dir`` resumes from that directory's latest step.  Where
+the reference defaults ``--ckpt-dir`` to ``/tmp/repro_ckpt``, the port's
+default is a temporary directory removed at exit, so a plain run never
+resumes from a stale one.  The last line is the reference's
+``steps= first_loss= last_loss= wall= restarts=``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import tempfile
 import time
-
-import torch
 
 from repro_torch.checkpoint.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS
@@ -29,6 +33,7 @@ from repro_torch.configs.base import reduced as reduce_cfg
 from repro_torch.core import facility
 from repro_torch.data import pipeline
 from repro_torch.optim import adamw, schedule
+from repro_torch.runtime.elastic import ElasticConfig, ElasticTrainer
 from repro_torch.train import steps as S
 
 
@@ -76,7 +81,9 @@ def main():
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoint directory (none: no checkpoints)")
+                    help="checkpoint directory, resumed from where it holds "
+                         "a step (default: a temporary directory removed at "
+                         "exit)")
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -89,27 +96,26 @@ def main():
         cfg, lr=args.lr, total_steps=args.steps,
         grad_accum=args.grad_accum, compress=args.compress,
         device=args.device)
-    state, step = make_state(), make_step()
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
-    batches = pipeline.Prefetcher(cfg, batch=args.batch, seq=args.seq,
-                                  device=facility.resolve_device(args.device))
-    losses = []
-    t0 = time.time()
-    try:
-        for _ in range(args.steps):
-            i, batch = next(batches)
-            state, metrics = step(state, batch)
-            losses.append(metrics["loss"])
-            if ckpt is not None and (i + 1) % args.ckpt_every == 0:
-                ckpt.save_async(i + 1, state)
-        if ckpt is not None:
-            ckpt.wait()
-    finally:
-        batches.close()
-    losses = torch.stack(losses).tolist()
-    dt = time.time() - t0
-    print(f"steps={len(losses)} first_loss={losses[0]:.4f} "
-          f"last_loss={losses[-1]:.4f} wall={dt:.1f}s")
+    device = facility.resolve_device(args.device)
+
+    def batches(start_step):
+        return pipeline.Prefetcher(cfg, batch=args.batch, seq=args.seq,
+                                   device=device, start_step=start_step)
+
+    with contextlib.ExitStack() as stack:
+        ckpt_dir = args.ckpt_dir or stack.enter_context(
+            tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_"))
+        trainer = ElasticTrainer(
+            make_step=make_step, make_state=make_state, batches=batches,
+            checkpointer=Checkpointer(ckpt_dir),
+            cfg=ElasticConfig(ckpt_every=args.ckpt_every))
+        t0 = time.time()
+        out = trainer.run(args.steps)
+        dt = time.time() - t0
+    losses = [m["loss"] for m in out["metrics"]] or [float("nan")]
+    print(f"steps={len(out['metrics'])} first_loss={losses[0]:.4f} "
+          f"last_loss={losses[-1]:.4f} wall={dt:.1f}s "
+          f"restarts={out['restarts']}")
 
 
 if __name__ == "__main__":

@@ -16,13 +16,14 @@ Injection points (the facility's fault surface)::
     autotune.load       core/autotune.AutotuneCache._load — cache reads
     autotune.save       core/autotune.AutotuneCache.put_raw — torn writes
     checkpoint.save     checkpoint.Checkpointer._write — crash mid-save
-    train.step          runtime/elastic (not ported yet) — node death
+    train.step          runtime/elastic.ElasticTrainer — node death
     collective          the mesh's comm edges (not ported yet)
 
 All eight points are defined, so a plan written for the reference is a
-valid plan here; the port consults the six that have a call site in it
+valid plan here; the port consults the seven that have a call site in it
 (``contract.dispatch``, ``kv.alloc``, ``serve.step``, ``autotune.load``,
-``autotune.save``, ``checkpoint.save``).
+``autotune.save``, ``checkpoint.save``, ``train.step``); ``collective``
+waits for the mesh (ROADMAP queue 1, E1).
 
 Triggers (first matching rule of a spec wins):
 

@@ -54,6 +54,8 @@ def test_serve_imports_with_jax_and_reference_blocked():
             "import repro_torch.core.packing\n"
             "import repro_torch.kernels.blas3\n"
             "import repro_torch.kernels.ops\n"
+            "import repro_torch.runtime.elastic\n"
+            "import repro_torch.launch.train\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

@@ -597,7 +597,31 @@ def test_train_launcher_on_the_cpu(tmp_path):
     fields = dict(f.split("=") for f in line.split())
     assert fields["steps"] == "4"
     assert float(fields["last_loss"]) < float(fields["first_loss"])
+    assert fields["restarts"] == "0"
     assert TCK.Checkpointer(str(tmp_path)).latest_step() == 4
+
+
+def test_train_launcher_resumes_from_its_checkpoint_dir(tmp_path):
+    """The launcher runs under ``ElasticTrainer``: a second process on the
+    same ``--ckpt-dir`` starts at that directory's latest step."""
+    def run(steps):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+             "--device", "cpu", "--steps", str(steps), "--batch", "2",
+             "--seq", "32", "--ckpt-dir", str(tmp_path), "--ckpt-every",
+             "2"], capture_output=True, text=True, timeout=300, check=True)
+        line = out.stdout.strip().splitlines()[-1]
+        return dict(f.split("=") for f in line.split())
+
+    ck = TCK.Checkpointer(str(tmp_path))
+    first = run(2)
+    assert (first["steps"], first["restarts"]) == ("2", "0")
+    assert ck.latest_step() == 2
+    second = run(4)
+    # steps 2 and 3 only: resumed from step 2, not from 0
+    assert (second["steps"], second["restarts"]) == ("2", "0")
+    assert ck.latest_step() == 4
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2", "step_4"]
 
 
 def test_train_defaults_run_on_the_card_or_raise():
