@@ -320,6 +320,32 @@ Phases, each of which must pass or the script exits nonzero:
      each new GEMM and depthwise conv shape of the two runs held against
      its plain version and timed; the runs' launches are added to the
      GEMM's and the depthwise conv's entries.
+ 18. the mesh (``parallel/api.py``, ``core/lowering.py``'s per-shard
+     dispatch): 4 spawned ranks that all bind cuda:0 over gloo (NCCL
+     refuses two ranks on one GPU: the compute is the card's, the
+     collectives gloo's through host memory), a 2 x 2 (data, model) mesh;
+     every kernel library built before the spawn.  First: gloo takes
+     CUDA tensors for the four c10d collectives ``parallel/api.py``
+     calls.  (a) deepseek-7b's prefill products
+     (``MESH_GEMMS``), causal GQA attention (1, 256, 32, 128), a
+     sequence-parallel causal case, whisper's conv2 and zamba2's
+     depthwise conv through ``contract`` under the mesh's rules, each
+     output's sha256 on every rank equal to the parent's unsharded call,
+     the ``collective`` probe fired; an indivisible product and
+     ``Plan(mesh=False)`` fire nothing and equal it too.  (b)
+     deepseek-moe-16b at 3 layers, phase 3's first 4 prompts, forward with
+     ``EXCHANGE_DISPATCH`` over 2- and 4-way expert axes, logits bit for
+     bit the parent's, the banks on the stream or wgmma kernels.  (c)
+     deepseek-7b at 4 layers, one step through ``launch.train.build
+     (mesh=)`` (TP + FSDP) on 4 x 256 tokens: loss within 1e-3 and every
+     parameter within rtol/atol 2e-3 of the parent's step; each rank's
+     peak memory beside its share of the state.  (d) mamba2-130m at full
+     width and depth under ``ElasticTrainer(state_shardings=)`` on 4 x
+     64 tokens: 6 steps
+     with a ``collective`` raise in step 3 (one restart), each loss the
+     clean run's bit for bit or within 1e-4, said so.  Launches by path
+     and collective bytes per rank; the runs' launches go to the
+     entries' ``launches_by_run``.
 
 Phase 1 also launches one instance above 48 KB of shared memory of each
 library on a fresh ``threading.Thread`` after the main thread has
@@ -2136,8 +2162,9 @@ def train(torch, failures, arch, num_layers):
     lr = TRAIN_LR.get(arch, TRAIN["lr"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    make_state, make_step = T.build(cfg, lr=lr, total_steps=steps,
-                                    weight_decay=0.0, seed=0, device="cuda")
+    make_state, make_step, _ = T.build(cfg, lr=lr, total_steps=steps,
+                                       weight_decay=0.0, seed=0,
+                                       device="cuda")
     state, step = make_state(), make_step()
     model = state["params"]
     nparam = sum(t.numel() for t in model.parameters())
@@ -2228,9 +2255,9 @@ def train(torch, failures, arch, num_layers):
     torch.cuda.empty_cache()
     # The same steps from the same weights on the eager torch backend: each
     # step's loss within 2e-2 relative, as step 1's is held.
-    make_state, make_step = T.build(cfg, lr=lr, total_steps=steps,
-                                    weight_decay=0.0, seed=0, device="cuda",
-                                    backend="torch")
+    make_state, make_step, _ = T.build(cfg, lr=lr, total_steps=steps,
+                                       weight_decay=0.0, seed=0,
+                                       device="cuda", backend="torch")
     state, step = make_state(), make_step()
     eager = []
     for _ in range(steps):
@@ -3608,7 +3635,7 @@ def f32_train(torch, failures):
     cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
     run = f"{arch} F32GER train ({layers} layers)"
     t0 = time.perf_counter()
-    make_state, make_step = T.build(
+    make_state, make_step, _ = T.build(
         cfg, lr=TRAIN["lr"], total_steps=st["steps"], weight_decay=0.0,
         seed=0, device="cuda", ger=facility.Ger.F32GER,
         out_dtype=torch.float32)
@@ -6800,16 +6827,16 @@ def elastic_run(torch, cfg, run, plan):
                 io.append((what if done else what + " (crashed)", step,
                            time.perf_counter() - t0))
 
-        def restore(self, step, like):
+        def restore(self, step, like, shardings=None):
             t0 = time.perf_counter()
-            out = super().restore(step, like)
+            out = super().restore(step, like, shardings)
             torch.cuda.synchronize()
             io.append(("restore", step, time.perf_counter() - t0))
             return out
 
-    make_state, make_step = T.build(cfg, lr=TRAIN["lr"],
-                                    total_steps=ELASTIC["steps"], seed=0,
-                                    device="cuda")
+    make_state, make_step, _ = T.build(cfg, lr=TRAIN["lr"],
+                                       total_steps=ELASTIC["steps"], seed=0,
+                                       device="cuda")
     steps = []
 
     def batches(start):
@@ -6985,6 +7012,475 @@ def phase17(torch, failures, entries):
                 e["launches_by_path"][path] = (
                     e["launches_by_path"].get(path, 0) + k)
     print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------------
+# Phase 18: the mesh (parallel/api.py, core/lowering.py's per-shard
+# dispatch).  One card, so the mesh is MESH["world"] processes that all
+# bind cuda:0 over gloo (NCCL refuses two ranks on one GPU): the compute is
+# the card's, the collectives are gloo's through host memory.
+# ----------------------------------------------------------------------
+
+MESH = dict(world=4, shape=(2, 2), axes=("data", "model"), timeout_s=240,
+            join_s=600)
+# (a): deepseek-7b's prefill products (M, K, N, bias + residual), causal
+# GQA attention, a sequence-parallel case, whisper's conv2, zamba2's
+# depthwise conv, an indivisible product and Plan(mesh=False)
+MESH_GEMMS = ((256, 4096, 4096, False), (256, 4096, 11008, False),
+              (256, 11008, 4096, True))
+# (b): deepseek-moe-16b at 3 layers, phase 3's first 4 prompts
+MESH_MOE = dict(arch="deepseek-moe-16b", layers=3, prompts=4,
+                expert_meshes=((2, 2), (1, 4)))
+# (c): deepseek-7b at 4 layers, one step; 256-token rows (phase 5's 512
+# halved to keep four ranks' activations beside the parent's context)
+MESH_TRAIN = dict(arch="deepseek-7b", layers=4, batch=4, seq=256)
+# (d): mamba2-130m at full width and depth, 6 steps, a collective raise
+# in step 3, on 4 x 64 tokens (its time is mostly gloo's host-path
+# gathers of the state at each checkpoint and of the FSDP weights)
+MESH_ELASTIC = dict(arch="mamba2-130m", steps=6, fail_step=3, ckpt_every=2,
+                    batch=4, seq=64)
+
+
+def mesh_cases(torch):
+    """(a)'s contractions: [(name, fn() -> output, sharded?)], operands
+    from seed 1801 on the card (the same in every process)."""
+    from repro_torch.core import facility as F
+    g = torch.Generator(device="cuda").manual_seed(1801)
+
+    def rnd(*shape, dt=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(dt)
+
+    cases = []
+    for m, k, n, fused in MESH_GEMMS:
+        x, y = rnd(m, k), rnd(k, n, scale=k ** -0.5)
+        kw = dict(bias=rnd(n), residual=rnd(m, n)) if fused else {}
+        cases.append((f"gemm {m}x{k}x{n}" + (" +bias+res" if fused else ""),
+                      lambda x=x, y=y, kw=kw: F.contract("mk,kn->mn", x, y,
+                                                         **kw), True))
+    q, kv = rnd(1, 256, 32, 128), rnd(1, 256, 32, 128)
+    cases.append(("attn causal (1, 256, 32, 128) kv 32",
+                  lambda: F.contract(F.ATTN, q, kv, kv,
+                                     plan=F.Plan(causal=True)), True))
+    qs, ks = rnd(2, 256, 6, 128), rnd(2, 256, 3, 128)
+    cases.append(("attn causal seq-parallel (2, 256, 6, 128) kv 3",
+                  lambda: F.contract(F.ATTN, qs, ks, ks,
+                                     plan=F.Plan(causal=True)), True))
+    img, filt, b = rnd(4, 3001, 768), rnd(3, 768, 768, scale=0.02), \
+        rnd(768)
+    gelu = F.Epilogue(bias=True, activation="gelu")
+    cases.append(("conv2 (4, 3001, 768) k3 s2 +bias+gelu",
+                  lambda: F.contract(F.CONV1D, img, filt, bias=b,
+                                     plan=F.Plan(stride=2, padding="same",
+                                                 epilogue=gelu)), True))
+    dimg, taps, db = rnd(4, 259, 4224), rnd(4, 4224, dt=torch.float32), \
+        rnd(4224, dt=torch.float32)
+    silu = F.Epilogue(bias=True, activation="silu")
+    cases.append(("depthwise (4, 1, 259, 4224) +bias+silu",
+                  lambda: F.contract(F.CONV1D_DEPTHWISE, dimg, taps,
+                                     bias=db, plan=F.Plan(
+                                         ger=F.Ger.F32GER, padding="valid",
+                                         epilogue=silu,
+                                         out_dtype=torch.bfloat16)), True))
+    xo, yo = rnd(7, 4096), rnd(4096, 13)
+    cases.append(("gemm 7x4096x13 (indivisible)",
+                  lambda: F.contract("mk,kn->mn", xo, yo), False))
+    x0, y0 = rnd(256, 4096), rnd(4096, 4096, scale=4096 ** -0.5)
+    cases.append(("gemm 256x4096x4096 Plan(mesh=False)",
+                  lambda: F.contract("mk,kn->mn", x0, y0,
+                                     plan=F.Plan(mesh=False)), False))
+    return cases
+
+
+def _moe_forward(torch, model, cfg, tokens):
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        logits, _, _ = M.forward(model, {"tokens": tokens}, cfg)
+    return logits
+
+
+def _moe_setup(torch):
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_arch(MESH_MOE["arch"]),
+                              num_layers=MESH_MOE["layers"])
+    settings = dict(MOE_RUN[1])
+    reqs = S._make_requests(cfg, settings["n_requests"],
+                            settings["prompt_len"], settings["gen_len"], 0)
+    tokens = torch.cat([torch.from_numpy(r.prompt) for r in
+                        reqs[:MESH_MOE["prompts"]]]).cuda()
+    model = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    return cfg, model, tokens
+
+
+def _train_setup(torch, mesh=None):
+    import dataclasses
+
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    cfg = dataclasses.replace(get_arch(MESH_TRAIN["arch"]),
+                              num_layers=MESH_TRAIN["layers"])
+    batch = pipeline.device_batch(pipeline.synthetic_batch(
+        cfg, batch=MESH_TRAIN["batch"], seq=MESH_TRAIN["seq"], step=0),
+        "cuda")
+    mk, mstep, shardings = T.build(cfg, lr=TRAIN["lr"],
+                                   total_steps=TRAIN["steps"],
+                                   weight_decay=0.0, seed=0, device="cuda",
+                                   mesh=mesh)
+    return cfg, batch, mk, mstep, shardings
+
+
+def mesh_single(torch, tmp):
+    """The parent's unsharded runs on the card: (a)'s hashes, (b)'s
+    logits hash and (c)'s step, its parameters written to ``tmp`` leaf by
+    leaf for rank 0 to hold its mesh step's against."""
+    out = {"a": {name: sha16(torch, fn()) for name, fn, _ in
+                 mesh_cases(torch)}}
+    cfg, model, tokens = _moe_setup(torch)
+    out["b"] = sha16(torch, _moe_forward(torch, model, cfg, tokens))
+    del model
+    torch.cuda.empty_cache()
+    cfg, batch, mk, mstep, _ = _train_setup(torch)
+    state = mk()
+    _, m = mstep()(state, batch)
+    out["c_loss"] = float(m["loss"])
+    os.makedirs(os.path.join(tmp, "c_ref"), exist_ok=True)
+    for name, p in state["params"].named_parameters():
+        torch.save(p.detach().cpu(), os.path.join(tmp, "c_ref",
+                                                  name + ".pt"))
+    del state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gloo_cuda(torch, mesh):
+    """Which c10d collectives gloo takes on CUDA tensors, on the mesh's
+    groups (``parallel/api.py`` calls these four; a refused one fails
+    the phase)."""
+    import torch.distributed as dist
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    ops = {
+        "all_gather_into_tensor": lambda g: dist.all_gather_into_tensor(
+            torch.empty(16, device="cuda"), x, group=g),
+        "reduce_scatter_tensor": lambda g: dist.reduce_scatter_tensor(
+            torch.empty(4, device="cuda"), x, group=g),
+        "all_to_all_single": lambda g: dist.all_to_all_single(
+            torch.empty_like(x), x, group=g),
+        "all_reduce": lambda g: dist.all_reduce(x.clone(), group=g)}
+    got = {}
+    for op, fn in ops.items():
+        try:
+            for ax in MESH["axes"]:
+                fn(mesh.get_group(ax))
+            torch.cuda.synchronize()
+            got[op] = "cuda"
+        except RuntimeError as e:       # gloo refuses a CUDA tensor
+            got[op] = f"refused ({str(e)[:80]})"
+    return got
+
+
+def mesh_rank(torch, rank, tmp):
+    """One rank's phase 18: every check's result, hashed or compared here
+    (rank 0 compares (c) against the parent's files)."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.configs import get as get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as T
+    from repro_torch.models import moe as MOE
+    from repro_torch.parallel import api as par
+    from repro_torch.runtime import faults as Fl
+    from repro_torch.runtime.elastic import ElasticConfig, ElasticTrainer
+
+    mesh = init_device_mesh("cuda", MESH["shape"], mesh_dim_names=MESH["axes"])
+    rules = par.default_rules(mesh)
+    kernels = kernel_wrappers()
+    res = {"gloo_cuda": _gloo_cuda(torch, mesh), "a": {}, "b": {},
+           "launches": {}}
+
+    def probe():
+        return Fl.FaultPlan([Fl.FaultSpec(Fl.COLLECTIVE, kind=Fl.LATENCY,
+                                          latency_s=0.0, every=1,
+                                          max_fires=None)])
+
+    def counted(run, fn):
+        zero_counts(kernels)
+        out = fn()
+        torch.cuda.synchronize()
+        c = read_counts(kernels)
+        res["launches"][run] = {"launches": c["launches"],
+                                "by_path": c["by_path"]}
+        return out
+
+    t0 = time.perf_counter()
+    for name, fn, _ in mesh_cases(torch):
+        p = probe()
+        with par.use_rules(rules), Fl.install(p):
+            out = counted(f"phase18 {name}", fn)
+        res["a"][name] = (sha16(torch, out), len(p.fired(Fl.COLLECTIVE)))
+    res["a_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg, model, tokens = _moe_setup(torch)
+    for shape in MESH_MOE["expert_meshes"]:
+        m = (mesh if tuple(shape) == tuple(MESH["shape"]) else
+             init_device_mesh("cuda", shape, mesh_dim_names=MESH["axes"]))
+        p = probe()
+        before = par.COLLECTIVE_BYTES["all_to_all_single"]
+        try:
+            MOE.EXCHANGE_DISPATCH = True
+            with par.use_rules(par.default_rules(m)), Fl.install(p):
+                logits = counted(f"phase18 moe {shape[0]}x{shape[1]}",
+                                 lambda: _moe_forward(torch, model, cfg,
+                                                      tokens))
+        finally:
+            MOE.EXCHANGE_DISPATCH = False
+        res["b"][f"{shape[0]}x{shape[1]}"] = (
+            sha16(torch, logits), len(p.fired(Fl.COLLECTIVE)),
+            par.COLLECTIVE_BYTES["all_to_all_single"] - before)
+        del logits
+    del model
+    torch.cuda.empty_cache()
+    res["b_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, batch, mk, mstep, shardings = _train_setup(torch, mesh)
+    state = mk()
+    share = sum(par.local(t).numel() * par.local(t).element_size()
+                for t in list(state["params"].parameters())
+                + list(state["opt"]["m"].values())
+                + list(state["opt"]["v"].values()))
+    whole = sum(t.numel() * t.element_size() * 3
+                for t in state["params"].parameters())
+    _, met = counted("phase18 train", lambda: mstep()(state, batch))
+    res["c"] = {"loss": float(met["loss"]), "share_gib": share / 2**30,
+                "whole_gib": whole / 2**30,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    worst, leaves = 0.0, 0
+    with torch.no_grad():
+        for name, p in state["params"].named_parameters():
+            full = par.full(p)
+            if rank == 0:
+                ref = torch.load(os.path.join(tmp, "c_ref", name + ".pt")
+                                 ).cuda()
+                worst = max(worst, ((full - ref).abs()
+                                    - 2e-3 * ref.abs()).max().item())
+                leaves += 1
+            del full
+    res["c"].update(worst=worst, leaves=leaves)
+    del state, met, mk, mstep
+    torch.cuda.empty_cache()
+    res["c_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ecfg = get_arch(MESH_ELASTIC["arch"])
+    emk, estep, eshard = T.build(ecfg, lr=TRAIN["lr"],
+                                 total_steps=MESH_ELASTIC["steps"],
+                                 seed=0, device="cuda", mesh=mesh)
+
+    def trainer(tag, plan):
+        return ElasticTrainer(
+            make_step=estep, make_state=emk,
+            batches=lambda s: pipeline.Prefetcher(
+                ecfg, batch=MESH_ELASTIC["batch"], seq=MESH_ELASTIC["seq"],
+                device="cuda", start_step=s),
+            checkpointer=Checkpointer(os.path.join(tmp, tag)),
+            cfg=ElasticConfig(ckpt_every=MESH_ELASTIC["ckpt_every"]),
+            state_shardings=eshard, faults=plan)
+
+    count = probe()
+    clean = counted("phase18 elastic clean",
+                    lambda: trainer("d_clean", count).run(
+                        MESH_ELASTIC["steps"]))
+    visits = len(count.fired(Fl.COLLECTIVE)) // MESH_ELASTIC["steps"]
+    plan = Fl.FaultPlan([Fl.FaultSpec(
+        Fl.COLLECTIVE, kind=Fl.RAISE,
+        every=MESH_ELASTIC["fail_step"] * visits + 1, max_fires=1)])
+    failed = counted("phase18 elastic",
+                     lambda: trainer("d_fail", plan).run(
+                         MESH_ELASTIC["steps"]))
+    res["d"] = {"clean": [m["loss"] for m in clean["metrics"]],
+                "failed": {m["step"]: m["loss"] for m in failed["metrics"]},
+                "restarts": failed["restarts"],
+                "clean_restarts": clean["restarts"], "visits": visits,
+                "fired": [f.kind for f in plan.fired()]}
+    del clean, failed
+    res["d_s"] = time.perf_counter() - t0
+    res["bytes"] = dict(par.COLLECTIVE_BYTES)
+    return res
+
+
+def _mesh_child(rank, port, tmp, queue):
+    """A phase-18 rank: binds the card (a rank that cannot fails the
+    run), joins the gloo world and returns its results on ``queue``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}",
+            world_size=MESH["world"], rank=rank,
+            timeout=datetime.timedelta(seconds=MESH["timeout_s"]))
+        out.update(mesh_rank(torch, rank, tmp))
+    except BaseException:   # repro: allow(overbroad-except)
+        # reported to the parent, which fails the phase
+        out["error"] = traceback.format_exc()[-3000:]
+    queue.put(out)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def phase18(torch, failures, entries):
+    """Phase 18: the mesh.  The parent runs (a)-(c) unsharded, then
+    ``MESH["world"]`` spawned ranks run them on the 2 x 2 mesh (and (b)
+    on a 1 x 4 mesh, (d) only there); every kernel library is built before
+    the spawn."""
+    import queue as queues
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import _build
+
+    print("== phase 18: the mesh (parallel/api.py, the per-shard contract "
+          "dispatch): 4 gloo ranks on cuda:0, a 2 x 2 (data, model) mesh",
+          flush=True)
+    t_phase = time.perf_counter()
+    _build.build()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        single = mesh_single(torch, tmp)
+        print(f"  unsharded runs in the parent: {time.perf_counter() - t0:.1f}"
+              f" s; (c) loss {single['c_loss']:.6f}", flush=True)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=_mesh_child, args=(r, port, tmp, queue))
+                 for r in range(MESH["world"])]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        ranks = {}
+        deadline = time.time() + MESH["join_s"]
+        while len(ranks) < len(procs) and time.time() < deadline:
+            try:
+                r = queue.get(timeout=5)
+                ranks[r["rank"]] = r
+            except queues.Empty:
+                # poll until the deadline, or until every rank is gone
+                if not any(p.is_alive() for p in procs):
+                    break
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        print(f"  ranks ran in {time.perf_counter() - t0:.1f} s", flush=True)
+        mesh_report(failures, entries, single, ranks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def mesh_report(failures, entries, single, ranks):
+    def check(ok, what):
+        print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
+        if not ok:
+            failures.append(f"phase 18: {what}")
+
+    for r in range(MESH["world"]):
+        if r not in ranks or "error" in ranks[r]:
+            check(False, f"rank {r}: "
+                  + (ranks[r]["error"] if r in ranks else "no result"))
+    if failures and any("rank" in f and "phase 18" in f for f in failures):
+        return
+    r0 = ranks[0]
+    check(set(r0["gloo_cuda"].values()) == {"cuda"},
+          f"gloo takes CUDA tensors for {r0['gloo_cuda']}")
+    # (a)
+    for name, want_sha in single["a"].items():
+        shas = {ranks[r]["a"][name][0] for r in ranks}
+        fired = ranks[0]["a"][name][1]
+        want_fire = not ("indivisible" in name or "mesh=False" in name)
+        check(shas == {want_sha} and (fired > 0) == want_fire,
+              f"(a) {name}: sha256 {sorted(shas)} on the ranks against "
+              f"{want_sha} unsharded, collective fired {fired}")
+    # (b)
+    for shape, _ in ranks[0]["b"].items():
+        shas = {ranks[r]["b"][shape][0] for r in ranks}
+        fired, moved = ranks[0]["b"][shape][1], ranks[0]["b"][shape][2]
+        check(shas == {single["b"]} and fired > 0 and moved > 0,
+              f"(b) deepseek-moe-16b ({MESH_MOE['layers']} layers) forward "
+              f"with EXCHANGE_DISPATCH on a {shape} mesh: logits sha256 "
+              f"{sorted(shas)} against {single['b']} single-process; "
+              f"collective fired {fired}, all_to_all_single {moved} bytes")
+        paths = ranks[0]["launches"][f"phase18 moe {shape}"]["by_path"][
+            "mma_gemm"]
+        check(paths.get("stream", 0) + paths.get("wgmma", 0) > 0,
+              f"(b) {shape}: GEMM launches by path on rank 0 {paths}")
+    # (c)
+    c = [ranks[r]["c"] for r in sorted(ranks)]
+    dl = max(abs(x["loss"] - single["c_loss"]) for x in c)
+    check(dl < 1e-3 and c[0]["worst"] <= 2e-3 and c[0]["leaves"] > 0,
+          f"(c) deepseek-7b ({MESH_TRAIN['layers']} layers) train step on "
+          f"the 2 x 2 mesh (TP + FSDP, launch.train.build(mesh=)): loss "
+          f"{c[0]['loss']:.6f} against {single['c_loss']:.6f} single-process"
+          f" (|d| {dl:.2e} < 1e-3), {c[0]['leaves']} parameters within "
+          f"rtol/atol 2e-3 (worst excess {c[0]['worst']:.2e})")
+    for r, x in enumerate(c):
+        print(f"  (c) rank {r}: peak device memory {x['peak_gib']:.2f} GiB,"
+              f" its share of the state {x['share_gib']:.2f} GiB of "
+              f"{x['whole_gib']:.2f} GiB (params + moments)")
+    # (d)
+    d = ranks[0]["d"]
+    same = [d["failed"].get(i) for i in range(MESH_ELASTIC["steps"])] \
+        == d["clean"]
+    close = all(abs(d["failed"][i] - v) <= 1e-4 * abs(v)
+                for i, v in enumerate(d["clean"]))
+    check(d["restarts"] == 1 and d["clean_restarts"] == 0 and close,
+          f"(d) mamba2-130m elastic on the mesh: {d['restarts']} restart "
+          f"(a collective raise in step {MESH_ELASTIC['fail_step']}, "
+          f"{d['visits']} per-shard dispatches a step), each loss "
+          + ("bit for bit the clean run's" if same
+             else "within 1e-4 of the clean run's, NOT bit for bit"))
+    for r in sorted(ranks):
+        x = ranks[r]
+        print(f"  rank {r}: collective bytes sent {x['bytes']}; (a) "
+              f"{x['a_s']:.1f} s, (b) "
+              f"{x['b_s']:.1f} s, (c) {x['c_s']:.1f} s, (d) {x['d_s']:.1f} s")
+    for run in r0["launches"]:
+        for r in sorted(ranks):
+            c = ranks[r]["launches"][run]
+            paths = {k: {p: n for p, n in v.items() if n}
+                     for k, v in c["by_path"].items()}
+            print(f"  {run}: rank {r} launches "
+                  f"{ {k: n for k, n in c['launches'].items() if n} }, "
+                  f"by path {paths}")
+    for e in entries:
+        if e["name"] not in ("mma_gemm", "mma_flash_attention",
+                             "mma_depthwise_conv2d", "mma_conv2d"):
+            continue
+        for run in r0["launches"]:
+            n = sum(ranks[r]["launches"][run]["launches"][e["name"]]
+                    for r in ranks)
+            if n:
+                e["launches_by_run"][run] = n
+                e["launches"] += n
 
 
 def thread_launches(torch, failures):
@@ -7214,6 +7710,7 @@ def run_phases(torch) -> None:
     phase15(torch, failures, entries)
     phase16(torch, failures, entries)
     phase17(torch, failures, entries)
+    phase18(torch, failures, entries)
     finish(torch, failures, card, entries, t_start)
 
 

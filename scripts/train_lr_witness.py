@@ -74,9 +74,9 @@ def card(lrs, archs) -> None:
         batch = pipeline.device_batch(pipeline.synthetic_batch(
             cfg, batch=4, seq=seq, step=0), "cuda")
         for lr in lrs:
-            make_state, make_step = T.build(cfg, lr=lr, total_steps=STEPS,
-                                            weight_decay=0.0, seed=0,
-                                            device="cuda")
+            make_state, make_step, _ = T.build(cfg, lr=lr, total_steps=STEPS,
+                                               weight_decay=0.0, seed=0,
+                                               device="cuda")
             state, step = make_state(), make_step()
             losses = []
             for _ in range(STEPS):

@@ -25,8 +25,14 @@ state may be tens of GB and a second copy would not fit the card.
 (``runtime/faults.py``) after the step's files are written and before the
 rename: a ``raise`` is a crash there, a ``torn`` fault truncates
 ``arrays.npz`` and stops, and either way ``latest_step()`` still returns
-the last complete step.  Restore onto other shardings comes with the mesh
-(E1).
+the last complete step.
+
+On a mesh (``parallel.api``), a sharded leaf (a ``DTensor``) is saved as
+one global host array: every rank gathers it (a collective, so every rank
+calls ``save``), rank 0 writes, and ``wait()`` ends on a barrier, so every
+rank sees the same ``latest_step()``.  Only rank 0 consults the
+``checkpoint.save`` fault point.  ``restore(step, like, shardings)`` lays
+each global array onto its sharding: a rank keeps its slice of it.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.parallel import api as _par
 from repro_torch.runtime import faults as _faults
 
 # npz cannot store bf16: store a bit view and the dtype name.
@@ -74,6 +81,9 @@ def _to_host(leaf, copy: bool) -> tuple[np.ndarray, str]:
     an array of its own even where the leaf already lies on the host
     (where it would otherwise share the leaf's storage)."""
     if isinstance(leaf, torch.Tensor):
+        if _par.is_dtensor(leaf):
+            with torch.no_grad():
+                leaf = _par.full(leaf)
         t = leaf.detach().to("cpu", copy=copy)
         name = str(t.dtype).removeprefix("torch.")
         if name in _VIEW_AS:
@@ -109,10 +119,13 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def wait(self):
-        """Join the async writer; raise what it raised."""
+        """Join the async writer; raise what it raised.  On a mesh, every
+        rank then meets the writer at a barrier."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _par.world_size() > 1:
+            _par.barrier()
         if self._err:
             err, self._err = self._err[0], []
             raise err
@@ -122,8 +135,12 @@ class Checkpointer:
         """Synchronous save, one leaf in host memory at a time."""
         self.wait()
         flat = _flatten(tree)
-        self._write(step, [p for p, _ in flat],
-                    (_to_host(leaf, copy=False) for _, leaf in flat))
+        host = (_to_host(leaf, copy=False) for _, leaf in flat)
+        if not _par.is_writer():
+            for _ in host:      # the gathers are collectives: take part
+                pass
+            return
+        self._write(step, [p for p, _ in flat], host)
 
     def save_async(self, step: int, tree: Any):
         self.wait()
@@ -131,6 +148,8 @@ class Checkpointer:
         # in place, host tensors included.
         flat = _flatten(tree)
         host = [_to_host(leaf, copy=True) for _, leaf in flat]
+        if not _par.is_writer():
+            return
 
         def work():
             try:
@@ -178,14 +197,20 @@ class Checkpointer:
             shutil.rmtree(os.path.join(self.dir, f"step_{s}"))
 
     # ------------------------------------------------------------------
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """Write checkpoint ``step`` into the leaves of ``like`` (a tree
         of the saved structure, shapes and dtypes), in place, one leaf at
-        a time; returns ``like``."""
+        a time; returns ``like``.  ``shardings``: a tree of
+        ``parallel.api.Sharding`` matched to ``like``'s leaves by path
+        (a leaf it does not name keeps its own layout): each global
+        array is laid onto its sharding, the leaf (a DTensor laid out so)
+        taking this rank's slice."""
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        leaves = [leaf for _, leaf in _flatten(like)]
+        flat = _flatten(like)
+        leaves = [leaf for _, leaf in flat]
+        where = dict(_flatten(shardings)) if shardings is not None else {}
         if len(leaves) != len(manifest["dtypes"]):
             raise ValueError(f"checkpoint has {len(manifest['dtypes'])} "
                              f"leaves, expected {len(leaves)}")
@@ -193,6 +218,11 @@ class Checkpointer:
                 torch.no_grad():
             for i, leaf in enumerate(leaves):
                 got = _from_host(z[str(i)], manifest["dtypes"][i])
+                sh = where.get(flat[i][0])
+                if isinstance(leaf, torch.Tensor) and (
+                        sh is not None or _par.is_dtensor(leaf)):
+                    _lay(manifest["paths"][i], got, leaf, sh)
+                    continue
                 if isinstance(leaf, torch.Tensor):
                     if got.dtype != leaf.dtype or got.shape != leaf.shape:
                         raise ValueError(
@@ -203,3 +233,28 @@ class Checkpointer:
                 else:
                     np.copyto(leaf, got.numpy())
         return like
+
+
+def _lay(path: str, got: torch.Tensor, leaf, sharding) -> None:
+    """Write the global array ``got`` into ``leaf`` at ``sharding`` (the
+    leaf's own layout where None): this rank's slice of it."""
+    spec = sharding.spec if sharding is not None else _par.spec_of(leaf)
+    own = _par.spec_of(leaf) if _par.is_dtensor(leaf) else None
+    if own is not None and tuple(own) != tuple(
+            a if a != () else None for a in spec):
+        raise ValueError(f"{path}: the tree's leaf is laid out {own}, the "
+                         f"sharding asks {spec}")
+    if own is None and any(a is not None for a in spec):
+        raise ValueError(f"{path}: a plain leaf cannot take the sharded "
+                         f"layout {spec}; build the tree on the mesh")
+    if got.dtype != leaf.dtype or tuple(got.shape) != tuple(leaf.shape):
+        raise ValueError(
+            f"{path}: checkpoint holds {got.dtype} {tuple(got.shape)}, the "
+            f"tree {leaf.dtype} {tuple(leaf.shape)}")
+    if own is None:
+        leaf.copy_(got)
+        return
+    mesh = leaf.device_mesh
+    part = _par.convert(got, mesh, [None] * mesh.ndim,
+                        _par._states(own, mesh))
+    _par.local(leaf).copy_(part)

@@ -102,6 +102,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import dataclasses
 import functools
 import logging
@@ -117,6 +118,7 @@ from repro_torch.kernels import mma_attention as _attn
 from repro_torch.kernels import mma_conv as _conv
 from repro_torch.kernels import mma_gemm as _gemm
 from repro_torch.kernels import ref as _ref
+from repro_torch.parallel import api as _par
 from repro_torch.runtime import faults as _faults
 
 Ger = precision.Ger
@@ -158,6 +160,12 @@ class Plan:
     window: int | None = None         # sliding window: q_pos - k_pos < window
     q_offset: int = 0                 # absolute position of q[0]
     q_chunk: int = 0                  # torch lowering's q-chunk (0 = default)
+    # Mesh binding for the shard-aware dispatch: None -> the ambient
+    # parallel.api rules (model code stays annotation-only); False ->
+    # single-device lowering even under an active mesh (e.g. contracts
+    # issued inside an expert exchange's per-shard body); a DeviceMesh or
+    # parallel.api.ShardingRules binds explicitly.
+    mesh: object = None
 
 
 # Conv specs: convolutions are not two-operand einsums (the sliding window
@@ -526,6 +534,10 @@ class Op:
     # gemm.masked: the pm* (xmask (M,), ymask (N,), pmask (K,)) predicates,
     # each None or a bool tensor
     masks: tuple | None = None
+    # the kernel plan a mesh dispatch resolved at the global shape and
+    # pins for every shard: gemm {pass family: (path, config)}, attn
+    # (bq, n_split), dense conv (path, config)
+    pinned: object = None
 
     @property
     def fused(self) -> bool:
@@ -626,8 +638,15 @@ def _lower_kernel_gemm(op: Op):
         use_ep = not ep.is_identity
         xi, xl = _fresh_panels(xi.to(pol.x_dtype))
         yi, yl = _fresh_panels(yi.to(pol.y_dtype))
-        block, tuned = resolve_block(kind, m, n, k, op.block, ep.key,
-                                     b=b or 1, device=xi.device.type)
+        if op.pinned is not None:
+            block, tuned = None, op.pinned[kind]
+        else:
+            block, tuned = resolve_block(kind, m, n, k, op.block, ep.key,
+                                         b=b or 1, device=xi.device.type)
+            scale = _GLOBAL_BATCH.get()
+            if scale > 1 and b is not None and block is None:
+                tuned = _batch_plan(kind, xi, yi, xl, yl, b * scale, m, n,
+                                    k, ep.key, op.masks is not None)
         return _gemm.mma_gemm(
             xi, yi, c, kind=kind, block=block, tuned=tuned, x_layout=xl,
             y_layout=yl,
@@ -667,6 +686,32 @@ def _lower_kernel_gemm(op: Op):
     for xi, yi, kind in passes:
         prod = one(kind, xi, yi, prod, identity_ep, None, forms=False)
     return assemble(_combine_expanded(op, prod, acc2, res2))
+
+
+_GLOBAL_BATCH = contextvars.ContextVar("repro_torch_global_batch",
+                                       default=1)
+
+
+@contextlib.contextmanager
+def global_batch(factor: int):
+    """Batched GEMMs inside plan their kernel as if their batch were
+    ``factor`` times larger: a shard of a bank runs the whole bank's plan
+    (``parallel.api.expert_exchange``'s per-shard body)."""
+    token = _GLOBAL_BATCH.set(factor)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH.reset(token)
+
+
+def _batch_plan(kind, x, y, xl, yl, b, m, n, k, ep_key, masked):
+    """(path, config) the wrapper would choose for this product at batch
+    ``b``: pinned as the call's ``tuned``."""
+    _, won = resolve_block(kind, m, n, k, None, ep_key, b=b,
+                           device=x.device.type)
+    return tiling.choose_gemm_path(
+        m, n, k, kind, b, _gemm.natural_aligned(x, y, xl, yl), None, masked,
+        won, _gemm.tma_aligned(x, xl) if kind in tiling.IMMA_GERS else None)
 
 
 def _fresh_panels(v):
@@ -988,8 +1033,8 @@ def _lower_kernel_conv(op: Op):
         else:
             kh, kw, c, f = w4.shape
         ow = (x4.shape[2] - kw) // strides[1] + 1
-        tuned = None
-        if op.block is None:
+        tuned = op.pinned
+        if op.block is None and tuned is None:
             _, won = resolve_block(op.ger, ow, f, kw * c, None,
                                    op.epilogue.key,
                                    device=x4.device.type)
@@ -1114,7 +1159,9 @@ def _lower_kernel_attn(op: Op):
                          f"{tuple(op.block)}")
     pol = op.pol
     _, sq, h, d = op.x.shape
-    if op.block is not None:
+    if op.pinned is not None:
+        tuned = op.pinned
+    elif op.block is not None:
         tuned = (op.block[0], None)
     else:
         tuned = _autotune.lookup_attn(op.ger, h, sq, op.y.shape[1], d,
@@ -1462,7 +1509,7 @@ def _apply_data_fault(fault, out):
 
 
 def _guarded_dispatch(op: Op, op_class: str, backend: str, ger: Ger,
-                      fused: bool, abft_on: bool = False):
+                      fused: bool, abft_on: bool = False, wrap=None):
     """Walk the ladder from ``backend`` (or its quarantined demotion)
     until a rung returns a clean output.
 
@@ -1484,6 +1531,8 @@ def _guarded_dispatch(op: Op, op_class: str, backend: str, ger: Ger,
     dispatch's first failed check, on the rung it started from, so a
     kernel-rung detection carries ``"sidecar": True``), where the
     reference records the last rung's (or none for a demotion).
+    ``wrap`` (a mesh dispatch's :func:`_shard_wrap`) runs each rung per
+    shard: demotions and checksum verdicts stay whole-dispatch decisions.
     """
     key = guard_key(op_class, op)
     start = _QUARANTINE.get(key, backend)
@@ -1509,14 +1558,15 @@ def _guarded_dispatch(op: Op, op_class: str, backend: str, ger: Ger,
         verification checks (the augmented checksum channel intact), ``cap``
         the kernel sidecar's capture."""
         fault = _faults.maybe_inject(_faults.CONTRACT_DISPATCH)
+        runner = wrap(fn) if wrap is not None else fn
         cap = None
         if aplan is not None and aplan.augments:
-            raw = fn(aplan.augment(sub))
+            raw = runner(aplan.augment(sub))
         elif aplan is not None:
             with _abft.capture() as cap:
-                raw = fn(sub)
+                raw = runner(sub)
         else:
-            raw = fn(sub)
+            raw = runner(sub)
         raw = _apply_data_fault(fault, raw)
         out = aplan.strip(raw) if aplan is not None and aplan.augments \
             else raw
@@ -1598,6 +1648,321 @@ def _guarded_dispatch(op: Op, op_class: str, backend: str, ger: Ger,
         DISPATCH_COUNTS[(rung, op_class, ger.value)] += 1
         return out
     raise last_exc  # pragma: no cover — the loop returns or raises
+
+
+# ----------------------------------------------------------------------
+# Shard-aware dispatch: the mesh path.  When a mesh binding resolves
+# (Plan.mesh or the ambient parallel.api rules), the kernel gemm/conv/attn
+# lowerings run PER SHARD: output-disjoint labels (batch, M, N, heads, Sq)
+# map onto mesh axes, every shard keeps the FULL contraction extent, and
+# everything that picks the arithmetic (the GEMM path and its config: the
+# stream's K partition, the wgmma tile, the IMMA form; the attention tile
+# and KV split; the conv path; an autotune winner) is resolved once at the
+# global shape and pinned for every shard, so each shard runs exactly the
+# sums the single-device dispatch would: the sharded output is the
+# single-device output bit for bit.  The guarded ladder and ABFT wrap the
+# per-shard run from outside, with the kernel sidecar's capture masked
+# inside it (abft.suppress), so the global checksums carry verification.
+# ----------------------------------------------------------------------
+
+_SHARD_OPERANDS = ("x", "y", "z", "acc", "bias", "residual", "valid")
+
+
+def _shard_rules(plan: Plan):
+    """Resolve ``Plan.mesh`` to the active ShardingRules, or None when
+    this dispatch stays single-device (no binding, ``mesh=False``, or a
+    rules object with no mesh behind it)."""
+    b = plan.mesh
+    if b is False:
+        return None
+    if b is None:
+        r = _par.current()
+        return r if (r.enabled and r.mesh is not None) else None
+    if isinstance(b, _par.ShardingRules):
+        return b if b.mesh is not None else None
+    return _par.default_rules(b)
+
+
+@dataclasses.dataclass(frozen=True)
+class _ShardPlan:
+    """How one dispatch maps onto the mesh: a spec per operand present
+    (by ``_SHARD_OPERANDS`` name), the output's spec, the plan pinned at
+    the global shape, and for causal/window sequence-parallel attention
+    the mesh axes whose flattened index gives the rank's ``q_offset``."""
+
+    specs: dict
+    out_spec: tuple
+    pinned: object = None
+    seq_axes: tuple = ()
+    seq_local: int = 0
+
+
+def _local_shape(shape, spec, rules) -> tuple:
+    return tuple(n // rules.axis_extent(ax) if ax is not None else n
+                 for n, ax in zip(shape, spec))
+
+
+def _plan_gemm_shards(op: Op, rules) -> _ShardPlan | None:
+    """Bind gemm labels to mesh axes: batch labels ride the data axes
+    (any packed operand vetoes: its panels cannot be sliced), M rows take
+    the data axes otherwise, N columns take the TP axis when the y side is
+    natural.  Contraction labels are never sharded: every shard reduces
+    the full K.  The path is resolved at the global (b, m, n, k) and must
+    be one each shard's product can take, else the dispatch stays
+    single-device."""
+    p = op.parsed
+    sizes = _sizes(p, op.x, op.y)
+    x_packed = packing.is_packed(op.x)
+    y_packed = packing.is_packed(op.y)
+    dp = rules.rules.get("batch")
+    tp = rules.rules.get("mlp") or rules.rules.get("heads")
+    assign: dict = {}
+    used: list = []
+
+    def bind(labels, ax, veto) -> bool:
+        if ax is None or veto or not labels:
+            return False
+        e = rules.axis_extent(ax)
+        if e <= 1 or any(a in used for a in _par.flat_axes(ax)):
+            return False
+        for d in labels:
+            if sizes[d] % e == 0:
+                assign[d] = ax
+                used.extend(_par.flat_axes(ax))
+                return True
+        return False
+
+    if not bind(p.batch, dp, x_packed or y_packed):
+        bind(p.x_free, dp, x_packed)
+    # bias is flat over the normalized N: its contiguous shard chunks line
+    # up with output columns only when the OUTERMOST y_free label is the
+    # sharded one.
+    bind(p.y_free[:1] if op.bias is not None else p.y_free, tp, y_packed)
+    if not assign:
+        return None
+
+    def spec_for(labels):
+        return tuple(assign.get(d) for d in labels)
+
+    specs = {"x": () if x_packed else spec_for(p.x_labels),
+             "y": () if y_packed else spec_for(p.y_labels)}
+    out_spec = spec_for(p.out_labels)
+    if op.acc is not None:
+        specs["acc"] = out_spec
+    if op.residual is not None:
+        specs["residual"] = out_spec
+    if op.bias is not None:
+        specs["bias"] = (assign.get(p.y_free[0]),)
+
+    dims = {}
+    for side, labels in (("b", p.batch), ("m", p.x_free),
+                         ("n", p.y_free), ("k", p.contract)):
+        dims[side] = (_prod(sizes[d] for d in labels),
+                      _prod(sizes[d] // rules.axis_extent(assign.get(d))
+                            for d in labels))
+    (b, bl), (m, ml), (n, nl), (k, _) = (dims[c] for c in "bmnk")
+    batched = bool(p.batch)
+    pinned = None
+    if op.backend == "kernel":
+        pinned = {}
+        kind = rep_kind(op.ger)
+        ib = torch.tensor([], dtype=precision.policy(kind).x_dtype
+                          ).element_size()
+
+        def base_ok(t, dtype):
+            # the dispatch's operand as the wrapper sees it: a cast or a
+            # gathered DTensor is a fresh allocation, a view keeps its base
+            return (_par.is_dtensor(t) or t.dtype != dtype
+                    or not t.is_contiguous() or t.data_ptr() % 16 == 0)
+
+        pol = precision.policy(kind)
+        x_ok = (k * ib) % 16 == 0 and base_ok(op.x, pol.x_dtype)
+        aligned = (x_ok and (n * ib) % 16 == 0
+                   and base_ok(op.y, pol.y_dtype)
+                   and not (x_packed or y_packed))
+        block, tuned = resolve_block(kind, m, n, k, op.block,
+                                     op.epilogue.key,
+                                     b=b if batched else 1,
+                                     device=op.x.device.type)
+        pin = tiling.choose_gemm_path(m, n, k, kind, b if batched else 1,
+                                      aligned, block, False, tuned, x_ok)
+        # each shard must run the global plan: its rows stay aligned where
+        # the global rows are (a sliced-out shard is a fresh copy), its
+        # column pitch is its own
+        local_aligned = aligned and (nl * ib) % 16 == 0
+        if not tiling.takes(pin, ml, nl, k, kind, local_aligned, False,
+                            x_ok):
+            return None
+        pinned[kind] = pin
+    return _ShardPlan(specs=specs, out_spec=out_spec, pinned=pinned)
+
+
+def _plan_conv_shards(op: Op, rules) -> _ShardPlan | None:
+    """Conv shards the image batch N over the data axes; filters and bias
+    stay resident (replicated).  The dense conv's path is resolved at the
+    global image and pinned; the depthwise plan does not read N."""
+    dp = rules.rules.get("batch")
+    e = rules.axis_extent(dp)
+    n = op.x.shape[0]
+    if e <= 1 or n % e:
+        return None
+    img = (dp,) + (None,) * (op.x.ndim - 1)
+    specs = {"x": img, "y": ()}
+    if op.bias is not None:
+        specs["bias"] = ()
+    if op.residual is not None:
+        specs["residual"] = img
+    pinned = None
+    nd, depthwise = _CONV_SPECS[op.spec]
+    if op.backend == "kernel" and not depthwise and op.block is None:
+        x4, w4, strides, _, _ = _conv_norm(op)
+        pk = precision.policy(op.ger)
+        if op.ger in _EXPANSIONS:
+            return _ShardPlan(specs=specs, out_spec=img)
+        if packing.is_packed(w4):
+            kh, kw, c, f = (w4.layout.kh, w4.layout.kw, w4.layout.c,
+                            w4.layout.f)
+        else:
+            kh, kw, c, f = w4.shape
+        ow = (x4.shape[2] - kw) // strides[1] + 1
+        _, won = resolve_block(op.ger, ow, f, kw * c, None, op.epilogue.key,
+                               device=x4.device.type)
+        tuned = (tiling.conv_tuned(won, rep_kind(op.ger))
+                 if won is not None else None)
+        pinned = _conv.conv_path(x4.to(pk.x_dtype), kh, kw, c, f, strides,
+                                 None, f % 8 == 0, tuned)
+    return _ShardPlan(specs=specs, out_spec=img, pinned=pinned)
+
+
+def _plan_attn_shards(op: Op, rules) -> _ShardPlan | None:
+    """Attn shards B over the data axes and heads over TP, but only when
+    BOTH q heads and kv heads divide (each shard keeps the full GQA group
+    ratio); otherwise Sq goes sequence-parallel over the seq rules entry,
+    with K/V resident.  A causal/window sequence shard runs at its own
+    ``q_offset``: the rank's index along those axes times its rows.  The
+    (q tile, KV split) plan is resolved at the global shape and pinned."""
+    b, sq, h, d = op.x.shape
+    kvh = op.y.shape[2]
+    sk = op.y.shape[1]
+    dp = rules.rules.get("batch")
+    hp = rules.rules.get("heads")
+    sqp = rules.rules.get("seq")
+    q = [None, None, None, None]
+    kv = [None, None, None, None]
+    used: list = []
+    seq_axes: tuple = ()
+    seq_local = 0
+
+    def free(ax) -> bool:
+        return (ax is not None and rules.axis_extent(ax) > 1
+                and not any(a in used for a in _par.flat_axes(ax)))
+
+    if free(dp) and b % rules.axis_extent(dp) == 0:
+        q[0] = kv[0] = dp
+        used.extend(_par.flat_axes(dp))
+    if free(hp) and h % rules.axis_extent(hp) == 0 \
+            and kvh % rules.axis_extent(hp) == 0:
+        q[2] = kv[2] = hp
+        used.extend(_par.flat_axes(hp))
+    elif free(sqp) and sq % rules.axis_extent(sqp) == 0:
+        q[1] = sqp
+        used.extend(_par.flat_axes(sqp))
+        if op.causal or op.window is not None:
+            seq_axes, seq_local = _par.flat_axes(sqp), sq // rules.axis_extent(sqp)
+    if all(a is None for a in q):
+        return None
+    specs = {"x": tuple(q), "y": tuple(kv), "z": tuple(kv)}
+    if op.residual is not None:
+        specs["residual"] = tuple(q)
+    if op.bias is not None:
+        specs["bias"] = ()
+    if op.valid is not None:
+        specs["valid"] = ((dp, None) if q[0] is not None
+                          and op.valid.ndim == 2 and op.valid.shape[0] == b
+                          else ())
+    pinned = None
+    if op.backend == "kernel":
+        f32 = op.pol.x_dtype == torch.float32
+        if op.block is not None:
+            tuned = (op.block[0], None)
+        else:
+            tuned = _autotune.lookup_attn(op.ger, h, sq, sk, d,
+                                          op.epilogue.key,
+                                          backend=op.x.device.type)
+        bq, n_split, _ = _attn.attn_plan(b, h, sq, sk, d, f32, tuned)
+        pinned = (bq, n_split)
+        lq = _local_shape(op.x.shape, q, rules)[1]
+        if not _attn.attn_takes(pinned, lq, sk, d, f32):
+            return None
+    return _ShardPlan(specs=specs, out_spec=tuple(q), pinned=pinned,
+                      seq_axes=seq_axes, seq_local=seq_local)
+
+
+def _shard_plan(op: Op, op_class: str, rules) -> _ShardPlan | None:
+    if op_class == "gemm":
+        return _plan_gemm_shards(op, rules)
+    if op_class == "conv":
+        return _plan_conv_shards(op, rules)
+    if op_class == "attn":
+        return _plan_attn_shards(op, rules)
+    return None
+
+
+def _shard_wrap(op_class: str, rules):
+    """``fn -> per-shard fn``: the mesh path's one wrapper (``shard_map``'s
+    counterpart).
+
+    ``run(sub)`` plans the op it is given (the guarded ladder may hand it
+    another rung's op, or an ABFT-augmented one; an op with no plan runs
+    whole), slices every operand to this rank's shard
+    (``parallel.api.enter``: a DTensor operand, a sharded parameter, is
+    gathered or sliced to the plan's spec, its gradient reduced back),
+    runs ``fn`` on the local op with the pinned plan and, for a
+    sequence-parallel causal/window attention, this rank's ``q_offset``,
+    and gathers the output (``parallel.api.leave``; a DTensor when the
+    first operand was one).  The ``collective`` fault point fires once a
+    sharded dispatch."""
+    mesh = rules.mesh
+    names = list(_par.axis_sizes(mesh))
+
+    def wrap(fn):
+        def run(sub: Op):
+            sp = _shard_plan(sub, op_class, rules)
+            if sp is None:
+                return fn(sub)
+            _faults.maybe_inject(_faults.COLLECTIVE)
+            out_axes = {a for ax in sp.out_spec if ax is not None
+                        for a in _par.flat_axes(ax)}
+            kw = {}
+            for name, spec in sp.specs.items():
+                v = getattr(sub, name)
+                if v is None:
+                    continue
+                if packing.is_packed(v):
+                    kw[name] = v
+                    continue
+                spec = spec or (None,) * v.ndim
+                own = {a for ax in spec if ax is not None
+                       for a in _par.flat_axes(ax)}
+                partial = frozenset(names.index(a) for a in out_axes - own)
+                kw[name] = _par.enter(v, spec, mesh, partial)
+            q_offset = sub.q_offset
+            if sp.seq_axes:
+                idx = 0
+                coord = mesh.get_coordinate()
+                for a in sp.seq_axes:
+                    i = names.index(a)
+                    idx = idx * tuple(mesh.shape)[i] + coord[i]
+                q_offset += idx * sp.seq_local
+            inner = dataclasses.replace(
+                sub, pinned=sp.pinned if sub.backend == "kernel" else None,
+                q_offset=q_offset, **kw)
+            with _abft.suppress():
+                out = fn(inner)
+            return _par.leave(out, sp.out_spec, mesh,
+                              as_dtensor=_par.is_dtensor(sub.x))
+        return run
+    return wrap
 
 
 def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
@@ -1738,15 +2103,30 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
             window=plan.window, q_offset=plan.q_offset,
             q_chunk=plan.q_chunk, stride=stride, padding=plan.padding,
             backend=backend)
+    wrap = None
+    if backend == "kernel" and op_class in ("gemm", "conv", "attn"):
+        srules = _shard_rules(plan)
+        if srules is not None and _shard_plan(op, op_class, srules):
+            wrap = _shard_wrap(op_class, srules)
+    dt_mesh = x.device_mesh if _par.is_dtensor(x) else None
+    if wrap is None and any(_par.is_dtensor(getattr(op, n))
+                            for n in _SHARD_OPERANDS):
+        # no per-shard plan for this dispatch: it runs on the global value
+        op = dataclasses.replace(op, **{
+            n: _par.full(getattr(op, n)) for n in _SHARD_OPERANDS
+            if _par.is_dtensor(getattr(op, n))})
     if cfg.guards:
         out = _guarded_dispatch(op, op_class, backend, ger, not ep.is_identity,
-                                abft_on=cfg.abft)
+                                abft_on=cfg.abft, wrap=wrap)
     else:
         # The unguarded path: with no fault plan installed this is ONE
         # contextvar read away from fn(op), bit for bit.
         DISPATCH_COUNTS[(backend, op_class, ger.value)] += 1
         fault = _faults.maybe_inject(_faults.CONTRACT_DISPATCH)
-        out = _apply_data_fault(fault, fn(op))
+        out = _apply_data_fault(fault, wrap(fn)(op) if wrap is not None
+                                else fn(op))
+    if wrap is None and dt_mesh is not None:
+        out = _par.leave(out, (None,) * out.ndim, dt_mesh, as_dtensor=True)
     if dequant is not None:
         out = dequant.apply(out).to(out_dtype)
     return out

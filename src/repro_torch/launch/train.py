@@ -8,7 +8,8 @@
 Runs on the card (``--device cuda``, the default; it raises where CUDA is
 absent) with random fp32 weights drawn from seed 0, through the
 facility's kernel backend; ``--device cpu`` runs the kernels' plain
-versions.  One device, no mesh (ROADMAP queue 1, E1).  As the
+versions.  ``build(cfg, mesh=...)`` runs the step on a mesh, as the
+reference's does (``parallel.api``; each rank one process).  As the
 reference's, every run goes through ``runtime.elastic.ElasticTrainer``: it
 checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``, restarts from
 the latest complete step after an injected failure, and a second run on
@@ -33,19 +34,26 @@ from repro_torch.configs.base import reduced as reduce_cfg
 from repro_torch.core import facility
 from repro_torch.data import pipeline
 from repro_torch.optim import adamw, schedule
+from repro_torch.parallel import api as par
 from repro_torch.runtime.elastic import ElasticConfig, ElasticTrainer
 from repro_torch.train import steps as S
 
 
-def build(cfg, *, lr: float = 3e-4, total_steps: int = 1000,
+def build(cfg, *, mesh=None, lr: float = 3e-4, total_steps: int = 1000,
           grad_accum: int = 1, compress: bool = False, seed: int = 0,
           weight_decay: float = 0.1, device=None, backend: str = "kernel",
           ger=None, out_dtype=None):
-    """Returns (make_state, make_step): the train state on ``device``
-    (default: the card) and the step, which runs on that device under the
-    facility's ``backend`` (the kernels; "torch" for the eager
-    yardstick), with its ``ger`` family and ``out_dtype`` where given
-    (the tight-parity config: ``Ger.F32GER`` and ``torch.float32``)."""
+    """Returns (make_state, make_step, state_shardings): the train state
+    on ``device`` (default: the card) and the step, which runs on that
+    device under the facility's ``backend`` (the kernels; "torch" for the
+    eager yardstick), with its ``ger`` family and ``out_dtype`` where
+    given (the tight-parity config: ``Ger.F32GER`` and ``torch.float32``).
+
+    ``mesh`` (a ``DeviceMesh`` over the world the caller started): the
+    state is built one model piece at a time onto the mesh at
+    ``param_spec``'s TP + FSDP specs (no rank holds the whole state),
+    ``state_shardings`` is that layout (None without a mesh), and the step
+    runs under the mesh's rules: every contraction per shard."""
     opt_cfg = adamw.AdamWConfig(
         lr=schedule.warmup_cosine(lr, min(100, total_steps // 10 + 1),
                                   total_steps),
@@ -53,21 +61,25 @@ def build(cfg, *, lr: float = 3e-4, total_steps: int = 1000,
     policy = {k: v for k, v in (("ger", ger), ("out_dtype", out_dtype))
               if v is not None}
     fac = facility.FacilityConfig(device=device, backend=backend, **policy)
+    rules = par.default_rules(mesh) if mesh is not None else par.current()
+    sharded = rules if mesh is not None else None
 
     def make_state():
         return S.init_train_state(cfg, seed, opt_cfg, compress=compress,
-                                  device=fac.device)
+                                  device=fac.device, rules=sharded)
 
     step = S.make_train_step(cfg, opt_cfg, grad_accum=grad_accum,
                              compress=compress)
 
     def make_step():
         def run(state, batch):
-            with facility.configure(fac):
+            with facility.configure(fac), par.use_rules(rules):
                 return step(state, batch)
         return run
 
-    return make_state, make_step
+    shardings = (S.state_shardings(cfg, rules, compress=compress)
+                 if mesh is not None else None)
+    return make_state, make_step, shardings
 
 
 def main():
@@ -92,7 +104,7 @@ def main():
     if args.reduced:
         cfg = reduce_cfg(cfg)
 
-    make_state, make_step = build(
+    make_state, make_step, _ = build(
         cfg, lr=args.lr, total_steps=args.steps,
         grad_accum=args.grad_accum, compress=args.compress,
         device=args.device)

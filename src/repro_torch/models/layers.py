@@ -1,6 +1,12 @@
 """Transformer building blocks, all matrix math routed via the MMA facility
 (port of ``repro.models.layers``).
 
+Activations carry the reference's logical-axis annotations
+(``parallel.api.shard``), and the parameter modules their axes trees
+(``norm_axes`` ... ``embed_axes``); a parameter used outside a contraction
+is read through ``parallel.api.full`` (a sharded DTensor leaf's global
+value, a plain tensor as it is).
+
 Parameters live in ``nn.Module``s, with weights in the reference's (in, out)
 layout, used through ``contract(DOT, ...)``; every function takes
 (module, inputs) and returns outputs, like the reference's functions on
@@ -17,6 +23,8 @@ from torch import nn
 
 from repro_torch.core import facility, precision
 from repro_torch.core.facility import DOT, Epilogue, Plan
+from repro_torch.parallel import api as par
+from repro_torch.parallel.api import shard
 
 # Max query rows whose attention scores are live at once on the
 # ring-buffer path (as the reference's Q_CHUNK).
@@ -68,6 +76,33 @@ class Embed(nn.Module):
         self.unembed = _param(unembed) if unembed is not None else None
 
 
+def norm_axes(cfg, d=None):
+    p = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        p["bias"] = ("embed",)
+    return p
+
+
+def attention_axes(cfg):
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+
+
+def mlp_axes(cfg, gated=None):
+    gated = cfg.gated_mlp if gated is None else gated
+    p = {"w1": ("embed", "mlp"), "w2": ("mlp", "embed")}
+    if gated:
+        p["w3"] = ("embed", "mlp")
+    return p
+
+
+def embed_axes(cfg):
+    p = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("embed", "vocab")
+    return p
+
+
 def init_norm(cfg, d=None, *, device) -> Norm:
     d = d or cfg.d_model
     bias = (torch.zeros((d,), dtype=torch.float32, device=device)
@@ -113,10 +148,10 @@ def apply_norm(p: Norm, x: torch.Tensor, cfg) -> torch.Tensor:
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
         out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        out = out * p.scale + p.bias
+        out = out * par.full(p.scale) + par.full(p.bias)
     else:
         var = (xf * xf).mean(-1, keepdim=True)
-        out = xf * torch.rsqrt(var + cfg.norm_eps) * p.scale
+        out = xf * torch.rsqrt(var + cfg.norm_eps) * par.full(p.scale)
     return out.to(x.dtype)
 
 
@@ -232,6 +267,11 @@ def apply_attention(p: Attention, x, cfg, *, cos_sin=None, kv=None,
         q = apply_rope(q, qcos, qsin)
         if kv is None:                  # fresh keys need rotating
             k = apply_rope(k, kcos, ksin)
+    q = shard(q, "batch", None, "heads", None)
+    # decode caches shard the KV sequence (flash-decode); fresh keys in
+    # training shard heads instead: 'model' can only appear once
+    k = shard(k, "batch", "seq_kv" if kv is not None else None,
+              None if kv is not None else "kv_heads", None)
     causal = cfg.causal if causal is None else causal
     out = sdpa(q, k, v, causal=causal, window=window, q_offset=q_offset,
                kv_positions=kv_positions, valid=valid)
@@ -250,6 +290,7 @@ def apply_mlp(p: MLP, x, cfg, residual=None):
     the w2 GEMM's."""
     h = facility.contract(DOT, x, p.w1,
                           plan=Plan(epilogue=Epilogue(activation=cfg.act)))
+    h = shard(h, "batch", None, "mlp")
     if cfg.gated_mlp:
         h = h * facility.contract(DOT, x, p.w3)
     return facility.contract(DOT, h, p.w2, residual=residual)
@@ -262,10 +303,10 @@ def apply_mlp(p: MLP, x, cfg, residual=None):
 def embed_tokens(p: Embed, tokens, cfg, dtype=torch.bfloat16):
     # Index first, then cast: the same values as the reference's
     # cast-then-index, without a pass over the whole table per call.
-    return p.tok[tokens].to(dtype)
+    return par.full(p.tok)[tokens].to(dtype)
 
 
 def logits(p: Embed, x, cfg):
-    w = p.tok.T if cfg.tie_embeddings else p.unembed
+    w = par.full(p.tok).T if cfg.tie_embeddings else p.unembed
     return facility.contract(DOT, x, w.to(x.dtype),
                              plan=Plan(out_dtype=torch.float32))

@@ -21,6 +21,8 @@ from repro_torch.core import facility
 from repro_torch.core.facility import DOT, Epilogue, Plan
 from repro_torch.core.precision import Ger
 from repro_torch.models import layers as L
+from repro_torch.parallel import api as par
+from repro_torch.parallel.api import shard
 
 
 def dims(cfg):
@@ -28,6 +30,13 @@ def dims(cfg):
     nheads = d_in // cfg.ssm_headdim
     conv_dim = d_in + 2 * cfg.ssm_state
     return d_in, nheads, conv_dim
+
+
+def mamba2_axes(cfg):
+    return {"in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"),
+            "conv_b": ("mlp",), "A_log": ("ssm_heads",),
+            "D": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "norm_scale": ("mlp",), "out_proj": ("mlp", "embed")}
 
 
 class Mamba2(nn.Module):
@@ -180,16 +189,18 @@ def apply_mamba2(p: Mamba2, x, cfg, state=None):
     n = cfg.ssm_state
     proj = facility.contract(DOT, x, p.in_proj)
     z, xbc, dt_raw = _split_proj(proj, cfg)
-    dt = torch.nn.functional.softplus(dt_raw.float() + p.dt_bias)
-    A = -torch.exp(p.A_log)
+    dt = torch.nn.functional.softplus(dt_raw.float() + par.full(p.dt_bias))
+    A = -torch.exp(par.full(p.A_log))
+    D = par.full(p.D)
 
     if state is None:
         xbc_raw = xbc
         xbc, _ = _causal_conv(xbc, p.conv_w, p.conv_b)
         xs, B, C = torch.split(xbc, [d_in, n, n], dim=-1)
         xh = xs.reshape(b, l, nheads, cfg.ssm_headdim)
+        xh = shard(xh, "batch", None, "ssm_heads", None)
         chunk = min(cfg.ssm_chunk, l)     # short-sequence prefill
-        y, final = ssd_chunked(xh, dt, A, B, C, p.D, chunk,
+        y, final = ssd_chunked(xh, dt, A, B, C, D, chunk,
                                return_state=True)
         # prefill -> decode handoff: final SSM state + conv tail
         w = cfg.ssm_conv_width
@@ -208,7 +219,7 @@ def apply_mamba2(p: Mamba2, x, cfg, state=None):
             plan=Plan(out_dtype=torch.float32))
         sstate = state["ssm"] * dA[..., None, None] + upd
         y = facility.contract("bn,bhnp->bhp", C[:, 0], sstate.to(x.dtype))
-        y = y.float() + xh[:, 0].float() * p.D[:, None]
+        y = y.float() + xh[:, 0].float() * D[:, None]
         y = y[:, None].to(x.dtype)
         new_state = {"ssm": sstate, "conv": conv_state}
 
@@ -217,7 +228,7 @@ def apply_mamba2(p: Mamba2, x, cfg, state=None):
     g = y * torch.nn.functional.silu(z.float()).to(y.dtype)
     gf = g.float()
     g = (gf * torch.rsqrt((gf * gf).mean(-1, keepdim=True) + cfg.norm_eps)
-         * p.norm_scale).to(x.dtype)
+         * par.full(p.norm_scale)).to(x.dtype)
     return facility.contract(DOT, g, p.out_proj), new_state
 
 

@@ -33,6 +33,8 @@ from repro_torch.core import facility
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.parallel import api as par
+from repro_torch.parallel.api import shard
 
 # family -> the kind of its main layer stack, as the reference's _main_kind
 _KINDS = {"dense": "dense", "moe": "moe", "ssm": "ssm", "hybrid": "hybrid",
@@ -150,28 +152,145 @@ class Model(nn.Module):
 # Parameters
 # ======================================================================
 
+def _layer_axes(cfg, kind: str):
+    if kind in ("ssm", "hybrid"):
+        return {"norm": L.norm_axes(cfg), "mamba": M2.mamba2_axes(cfg)}
+    p = {"attn_norm": L.norm_axes(cfg), "attn": L.attention_axes(cfg),
+         "mlp_norm": L.norm_axes(cfg)}
+    if kind == "moe":
+        p["moe"] = MOE.moe_axes(cfg)
+    elif kind in ("dense", "encoder"):
+        p["mlp"] = L.mlp_axes(cfg)
+    if kind == "cross":
+        p["mlp"] = L.mlp_axes(cfg)
+        p["cross_norm"] = L.norm_axes(cfg)
+        p["cross"] = L.attention_axes(cfg)
+    return p
+
+
+def _map_axes(fn, tree):
+    if par.is_axes(tree):
+        return fn(tree)
+    return {k: _map_axes(fn, v) for k, v in tree.items()}
+
+
+def _stack_axes(cfg, kind):
+    """Prefix every leaf's axes with the stacked layer axis."""
+    return _map_axes(lambda ax: ("layers",) + ax, _layer_axes(cfg, kind))
+
+
+def param_axes(cfg):
+    """The logical axes of every parameter, as the reference's tree: a
+    layer stack's leaves carry the leading ``"layers"`` axis of the
+    reference's stacked arrays (the port's ``nn.ModuleList`` keeps one
+    module a layer; :func:`named_param_axes` gives each its own axes)."""
+    kind = check_family(cfg)
+    p = {
+        "embed": L.embed_axes(cfg),
+        "layers": _stack_axes(cfg, kind),
+        "final_norm": L.norm_axes(cfg),
+    }
+    if cfg.first_dense_layers:
+        p["first_dense"] = _stack_axes(cfg, "dense")
+    if cfg.shared_attn_every:
+        p["shared_attn"] = {
+            "in_proj": ("embed", None),
+            "attn_norm": L.norm_axes(cfg), "attn": L.attention_axes(cfg),
+            "mlp_norm": L.norm_axes(cfg), "mlp": L.mlp_axes(cfg),
+        }
+    if cfg.is_enc_dec:
+        p["encoder"] = {"layers": _stack_axes(cfg, "encoder"),
+                        "norm": L.norm_axes(cfg)}
+        if not cfg.frontend_stub:
+            p["encoder"]["frontend"] = {
+                "conv1_w": (None, None, "embed"), "conv1_b": ("embed",),
+                "conv2_w": (None, None, "embed"), "conv2_b": ("embed",),
+            }
+    if cfg.vision_prefix:
+        p["vision_proj"] = ("embed", None)
+        if not cfg.frontend_stub and cfg.patch_size:
+            p["vision_patch"] = {"patch_w": (None, None, None, "embed"),
+                                 "patch_b": ("embed",)}
+    return p
+
+
+_STACKS = ("layers", "first_dense")
+
+
+def axes_of(tree, name: str):
+    """The axes of the parameter ``name`` (a dotted ``named_parameters``
+    name) in :func:`param_axes`'s tree: layer indices drop out, and a
+    stacked leaf loses its leading ``"layers"`` axis."""
+    node, stacked = tree, False
+    for part in name.split("."):
+        if part.isdigit():
+            continue
+        stacked = stacked or part in _STACKS
+        node = node[part]
+    return node[1:] if stacked else node
+
+
+def named_param_axes(cfg, model: nn.Module) -> dict:
+    """{parameter name: its logical axes} for the port's module tree."""
+    tree = param_axes(cfg)
+    return {k: axes_of(tree, k) for k, _ in model.named_parameters()}
+
+
+def place(module: nn.Module, axes, rules, prefix: str = "") -> nn.Module:
+    """Replace ``module``'s parameters, in place and one at a time, by
+    their shards on ``rules.mesh`` at :func:`parallel.api.param_spec`'s
+    specs (``axes``: :func:`param_axes`'s tree, ``prefix`` the module's
+    dotted name in it).  Each rank keeps its slice of the global value."""
+    for name, p in list(module.named_parameters()):
+        full = f"{prefix}.{name}" if prefix else name
+        spec = par.param_spec(tuple(p.shape), axes_of(axes, full), rules)
+        owner = module.get_submodule(name.rpartition(".")[0])
+        leaf = name.rpartition(".")[2]
+        setattr(owner, leaf, nn.Parameter(
+            par.distribute(p.detach(), spec, rules.mesh),
+            requires_grad=p.requires_grad))
+        del p
+    return module
+
+
 def init_params(cfg, *, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> Model:
+                dtype: torch.dtype = torch.float32, rules=None) -> Model:
     """Random weights drawn from a seeded ``torch.Generator`` on ``device``
     (default: the card; raises when CUDA is absent).  ``dtype`` is the
     storage dtype of the projection weights (bf16 at rest for serving);
     norm scales, the SSM's 1-D parameters, its conv taps and the conv
     stems' filters and biases stay fp32.  The values are not the
     reference's: torch cannot reproduce ``jax.random`` streams (tests carry
-    the reference's weights over through ``models.convert``)."""
+    the reference's weights over through ``models.convert``).
+
+    ``rules`` (a ``parallel.api.ShardingRules`` with a mesh): each piece
+    (the embedding, each block, each stem) is laid onto the mesh as soon
+    as it is drawn, so a rank holds at most one piece's global value
+    beside its shards.  Every rank draws the same stream and keeps its
+    slices: the shards hold the single-process model's values.  On the
+    meta device nothing is drawn: the shapes alone."""
     kind = check_family(cfg)
     device = facility.resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     kw = dict(device=device, dtype=dtype)
-    embed = L.init_embed(gen, cfg, **kw)
+    axes = param_axes(cfg)
 
-    def dense_block(cross: bool = False) -> DenseBlock:
+    def placed(module, prefix):
+        if rules is None or rules.mesh is None:
+            return module
+        return place(module, axes, rules, prefix)
+
+    embed = placed(L.init_embed(gen, cfg, **kw), "embed")
+
+    def dense_block(cross: bool = False,
+                    prefix: str = "layers") -> DenseBlock:
         extra = ((L.init_norm(cfg, device=device),
                   L.init_attention(gen, cfg, **kw)) if cross else ())
-        return DenseBlock(L.init_norm(cfg, device=device),
-                          L.init_attention(gen, cfg, **kw),
-                          L.init_norm(cfg, device=device),
-                          L.init_mlp(gen, cfg, **kw), *extra)
+        return placed(DenseBlock(L.init_norm(cfg, device=device),
+                                 L.init_attention(gen, cfg, **kw),
+                                 L.init_norm(cfg, device=device),
+                                 L.init_mlp(gen, cfg, **kw), *extra), prefix)
 
     def conv_init(shape):
         """Normal(0, 1/fan_in) fp32 filters, fan_in = all but the last."""
@@ -186,46 +305,64 @@ def init_params(cfg, *, seed: int = 0, device=None,
         return torch.zeros((d,), dtype=torch.float32, device=device)
 
     n_main = cfg.num_layers - cfg.first_dense_layers
-    first_dense = [dense_block() for _ in range(cfg.first_dense_layers)]
+    first_dense = [dense_block(prefix="first_dense")
+                   for _ in range(cfg.first_dense_layers)]
     if kind in ("dense", "cross"):
         layers = [dense_block(kind == "cross") for _ in range(n_main)]
     elif kind == "moe":
-        layers = [MoEBlock(L.init_norm(cfg, device=device),
-                           L.init_attention(gen, cfg, **kw),
-                           L.init_norm(cfg, device=device),
-                           MOE.init_moe(gen, cfg, **kw))
+        layers = [placed(MoEBlock(L.init_norm(cfg, device=device),
+                                  L.init_attention(gen, cfg, **kw),
+                                  L.init_norm(cfg, device=device),
+                                  MOE.init_moe(gen, cfg, **kw)), "layers")
                   for _ in range(n_main)]
     else:
-        layers = [SSMBlock(L.init_norm(cfg, device=device),
-                           M2.init_mamba2(gen, cfg, **kw))
+        layers = [placed(SSMBlock(L.init_norm(cfg, device=device),
+                                  M2.init_mamba2(gen, cfg, **kw)), "layers")
                   for _ in range(cfg.num_layers)]
     shared = None
     if cfg.shared_attn_every:
-        shared = SharedAttn(
+        shared = placed(SharedAttn(
             L._dense_init(gen, (2 * cfg.d_model, cfg.d_model), **kw),
             L.init_norm(cfg, device=device), L.init_attention(gen, cfg, **kw),
-            L.init_norm(cfg, device=device), L.init_mlp(gen, cfg, **kw))
+            L.init_norm(cfg, device=device), L.init_mlp(gen, cfg, **kw)),
+            "shared_attn")
     d = cfg.d_model
     encoder = vision_proj = vision_patch = None
     if cfg.is_enc_dec:
         frontend = None
         if not cfg.frontend_stub:
-            frontend = Frontend(conv_init((3, cfg.n_mels, d)), zeros(d),
-                                conv_init((3, d, d)), zeros(d))
-        encoder = Encoder([dense_block() for _ in range(cfg.encoder_layers)],
-                          L.init_norm(cfg, device=device), frontend)
+            frontend = placed(Frontend(conv_init((3, cfg.n_mels, d)),
+                                       zeros(d), conv_init((3, d, d)),
+                                       zeros(d)), "encoder.frontend")
+        encoder = Encoder([dense_block(prefix="encoder.layers")
+                           for _ in range(cfg.encoder_layers)],
+                          placed(L.init_norm(cfg, device=device),
+                                 "encoder.norm"), frontend)
     if cfg.vision_prefix:
         vision_proj = L._dense_init(gen, (d, d), **kw)
         if not cfg.frontend_stub and cfg.patch_size:
             ps, c = cfg.patch_size, cfg.image_channels
-            vision_patch = VisionPatch(conv_init((ps, ps, c, d)), zeros(d))
-    return Model(embed, layers, L.init_norm(cfg, device=device), shared,
-                 encoder, vision_proj, vision_patch, first_dense)
+            vision_patch = placed(VisionPatch(conv_init((ps, ps, c, d)),
+                                              zeros(d)), "vision_patch")
+    model = Model(embed, layers, placed(L.init_norm(cfg, device=device),
+                                        "final_norm"), shared,
+                  encoder, vision_proj, vision_patch, first_dense)
+    if vision_proj is not None and rules is not None \
+            and rules.mesh is not None:
+        model.vision_proj = nn.Parameter(par.distribute(
+            vision_proj, par.param_spec(tuple(vision_proj.shape),
+                                        axes["vision_proj"], rules),
+            rules.mesh), requires_grad=False)
+    return model
 
 
 # ======================================================================
 # Blocks
 # ======================================================================
+
+def _residual_shard(h):
+    return shard(h, "batch", "seq", None)
+
 
 def _apply_dense_block(bp: DenseBlock | MoEBlock, h, cfg, *, cos_sin,
                        causal=None, cross_x=None, kv=None, window=None,
@@ -236,28 +373,30 @@ def _apply_dense_block(bp: DenseBlock | MoEBlock, h, cfg, *, cos_sin,
     or None, self (k, v), cross (k, v) or None)."""
     hn = L.apply_norm(bp.attn_norm, h, cfg)
     # Residual adds ride the output-projection / w2 GEMM epilogues.
-    h, kv_out = L.apply_attention(
+    a, kv_out = L.apply_attention(
         bp.attn, hn, cfg, cos_sin=cos_sin, kv=kv, causal=causal,
         window=window, q_offset=q_offset, kv_positions=kv_positions,
         valid=valid, residual=h)
+    h = _residual_shard(a)
     cross_kv = None
     if cross_x is not None and getattr(bp, "cross", None) is not None:
         hn = L.apply_norm(bp.cross_norm, h, cfg)
-        h, cross_kv = L.apply_attention(bp.cross, hn, cfg, causal=False,
-                                        cross_x=cross_x, residual=h)
+        ca, cross_kv = L.apply_attention(bp.cross, hn, cfg, causal=False,
+                                         cross_x=cross_x, residual=h)
+        h = _residual_shard(ca)
     hn = L.apply_norm(bp.mlp_norm, h, cfg)
     if isinstance(bp, MoEBlock):
         # the MoE output is added eagerly, as in the reference
         m, aux = MOE.apply_moe(bp.moe, hn, cfg)
-        return h + m, aux, kv_out, cross_kv
-    h = L.apply_mlp(bp.mlp, hn, cfg, residual=h)
+        return _residual_shard(h + m), aux, kv_out, cross_kv
+    h = _residual_shard(L.apply_mlp(bp.mlp, hn, cfg, residual=h))
     return h, None, kv_out, cross_kv
 
 
 def _apply_ssm_block(bp: SSMBlock, h, cfg, state=None):
     hn = L.apply_norm(bp.norm, h, cfg)
     out, new_state = M2.apply_mamba2(bp.mamba, hn, cfg, state=state)
-    return h + out, new_state
+    return _residual_shard(h + out), new_state
 
 
 def _apply_shared_attn(sp: SharedAttn, h, emb0, cfg, *, cos_sin, ring=None,
@@ -279,7 +418,7 @@ def _apply_shared_attn(sp: SharedAttn, h, emb0, cfg, *, cos_sin, ring=None,
                              **attn_kw)
     hin = hin + a
     m = L.apply_mlp(sp.mlp, L.apply_norm(sp.mlp_norm, hin, cfg), cfg)
-    return h + hin + m
+    return _residual_shard(h + hin + m)
 
 
 def _groups(cfg):
@@ -348,7 +487,7 @@ def _embed_inputs(model: Model, batch, cfg):
         positions = batch["positions"]
     else:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    return h, positions
+    return _residual_shard(h), positions
 
 
 def _run_encoder(model: Model, frames, cfg):
@@ -358,7 +497,7 @@ def _run_encoder(model: Model, frames, cfg):
     ``cfg.frontend_stub``; then the non-causal blocks and the norm."""
     enc = model.encoder
     if cfg.frontend_stub:
-        h = frames.to(torch.bfloat16)
+        h = _residual_shard(frames.to(torch.bfloat16))
     else:
         fe = enc.frontend
         gelu = facility.Epilogue(bias=True, activation="gelu")
@@ -368,6 +507,7 @@ def _run_encoder(model: Model, frames, cfg):
         h = facility.contract(
             facility.CONV1D, h, fe.conv2_w, bias=fe.conv2_b,
             plan=facility.Plan(stride=2, padding="same", epilogue=gelu))
+        h = _residual_shard(h)
     b, s, _ = h.shape
     pos = torch.arange(s, device=h.device)[None].expand(b, s)
     cos_sin = _cos_sin_for(cfg, pos)
@@ -430,6 +570,7 @@ def forward(model: Model, batch, cfg, *, collect_cache: bool = False):
                                    cos_sin=cos_sin)
     h = L.apply_norm(model.final_norm, h, cfg)
     logits = L.logits(model.embed, h, cfg)
+    logits = shard(logits, "batch", None, "vocab")
     return logits, aux_total, (cache if collect_cache else None)
 
 
@@ -565,6 +706,7 @@ def decode_step(model: Model, cache, tokens, cfg):
     cur = cache["cur"]
     b = tokens.shape[0]
     h = L.embed_tokens(model.embed, tokens, cfg)
+    h = shard(h, "batch", None, None)
     emb0 = h
     new_cache = dict(cache, cur=cur + 1)
     if kind == "ssm":

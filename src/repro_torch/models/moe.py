@@ -41,10 +41,15 @@ drops".  The reference's default scatter dispatch writes every dropped
 pair's zeros to slot 0 (``dest = where(keep, ..., 0)``), which overwrites
 the token held in expert 0's first slot whenever a choice drops
 (ROADMAP queue 3, reference caveats; pinned in tests/test_torch_moe.py).
-The port keeps neither switch: ``GATHER_DISPATCH`` chooses between two
-XLA-SPMD lowerings of one function, and ``EXCHANGE_DISPATCH`` (the
-expert-parallel all-to-all, ``par.expert_exchange``) comes with the mesh
-(ROADMAP queue 1, E1).
+The port keeps no ``GATHER_DISPATCH`` switch (it chooses between two
+XLA-SPMD lowerings of one function).  ``EXCHANGE_DISPATCH`` is the
+reference's: under a mesh whose expert axis divides E and the capacity,
+the expert banks run through ``parallel.api.expert_exchange``, one
+all-to-all out to the expert-parallel ranks (each runs its experts' banks
+on every peer's slots) and one back.  The exchange is a pure permutation
+of slots and the banks' kernel plan is resolved at the global bank
+(``lowering.global_batch``), so the result is the gather dispatch's bit
+for bit.
 """
 
 from __future__ import annotations
@@ -55,6 +60,30 @@ from torch import nn
 from repro_torch.core import facility
 from repro_torch.core.facility import DOT, Epilogue, Plan
 from repro_torch.models import layers as L
+from repro_torch.parallel import api as par
+from repro_torch.parallel.api import shard
+
+# Expert-bank placement.  False = annotation-only: the dispatch buffer is
+# annotated with the expert axis and the banks go through the mesh
+# dispatch like any product.  True = the explicit exchange
+# (``parallel.api.expert_exchange``): ONE all-to-all out to the
+# expert-parallel ranks and one back, the comm pattern a multi-pod EP
+# deployment schedules by hand.  Either setting gives the same bits.
+EXCHANGE_DISPATCH = False
+
+
+def moe_axes(cfg):
+    # 'experts' takes the model axis when E divides it (EP, deepseek-moe
+    # 64/16); otherwise param_spec falls through to 'mlp' -> model, i.e.
+    # Megatron-style TP inside each expert (mixtral 8 experts on 16-way
+    # model).
+    p = {"router": ("embed", None),
+         "w1": ("experts", "embed", "mlp"),
+         "w3": ("experts", "embed", "mlp"),
+         "w2": ("experts", "mlp", "embed")}
+    if cfg.num_shared_experts:
+        p["shared"] = L.mlp_axes(cfg)
+    return p
 
 
 class MoE(nn.Module):
@@ -139,14 +168,35 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg):
     keep, dest = slots(topi, e, cap)
     xrep = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
     xe = xf.new_zeros((e * cap + 1, d)).index_put((dest,), xrep)
-    xe = xe[:-1].reshape(e, cap, d)
+    xe = shard(xe[:-1].reshape(e, cap, d), "experts", None, None)
 
     # ---- expert banks: batched products, experts on the batch axis ----
-    h = facility.contract("ecd,edf->ecf", xe, p.w1,
-                          plan=Plan(epilogue=Epilogue(activation=cfg.act)))
-    if cfg.gated_mlp:
-        h = h * facility.contract("ecd,edf->ecf", xe, p.w3)
-    ye = facility.contract("ecf,efd->ecd", h, p.w2)
+    if EXCHANGE_DISPATCH:
+        # the exchange's per-shard body: its contracts pin mesh=False (the
+        # slab is already a shard) and it makes no shard() annotations
+        def expert_ffn(slab, ws):
+            h1 = facility.contract(
+                "ecd,edf->ecf", slab, ws["w1"],
+                plan=Plan(mesh=False, epilogue=Epilogue(activation=cfg.act)))
+            if cfg.gated_mlp:
+                h1 = h1 * facility.contract("ecd,edf->ecf", slab, ws["w3"],
+                                            plan=Plan(mesh=False))
+            return facility.contract("ecf,efd->ecd", h1, ws["w2"],
+                                     plan=Plan(mesh=False))
+
+        weights = {"w1": p.w1, "w2": p.w2}
+        if cfg.gated_mlp:
+            weights["w3"] = p.w3
+        ye = par.expert_exchange(xe, weights, expert_ffn)
+    else:
+        h = facility.contract(
+            "ecd,edf->ecf", xe, p.w1,
+            plan=Plan(epilogue=Epilogue(activation=cfg.act)))
+        h = shard(h, "experts", None, "mlp")   # EP, or TP inside experts
+        if cfg.gated_mlp:
+            h = h * facility.contract("ecd,edf->ecf", xe, p.w3)
+        ye = facility.contract("ecf,efd->ecd", h, p.w2)
+        ye = shard(ye, "experts", None, None)
 
     # ---- combine: gather, weight, sum the k choices in fp32 ----
     ye = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])

@@ -6,6 +6,10 @@ step is a device tensor, so a train step reads no number back to the
 host.  Unlike the reference, which returns new arrays, ``apply_updates``
 writes the parameters and both moments in place: the training state of a
 7B-class model is tens of GB, and a second copy would not fit the card.
+
+Sharded leaves (``DTensor``s on a mesh, ``parallel.api``) are updated on
+their local shards, and the global norm sums each rank's local squares
+(divided by how many ranks hold each element) over the world.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from repro_torch.parallel import api as par
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,16 +39,22 @@ def init_state(params: dict[str, torch.Tensor]) -> dict:
     parameter's dtype and on its device."""
     device = next(iter(params.values())).device
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "m": {k: torch.zeros_like(p) for k, p in params.items()},
-            "v": {k: torch.zeros_like(p) for k, p in params.items()}}
+            "m": {k: par.zeros_like(p) for k, p in params.items()},
+            "v": {k: par.zeros_like(p) for k, p in params.items()}}
 
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of every element's square, in fp32."""
     total = None
+    sharded = False
     for g in tree.values():
-        sq = torch.sum(torch.square(g.to(torch.float32)))
+        sq = torch.sum(torch.square(par.local(g).to(torch.float32)))
+        if par.is_dtensor(g):
+            sharded = True
+            sq = sq / par.replication(g)
         total = sq if total is None else total + sq
+    if sharded:
+        total = par.all_reduce_world(total)
     return torch.sqrt(total)
 
 
@@ -62,8 +74,9 @@ def apply_updates(params: dict[str, torch.Tensor],
     c1 = 1 - torch.pow(cfg.b1, t)
     c2 = 1 - torch.pow(cfg.b2, t)
     for name, p in params.items():
-        g = grads[name].to(torch.float32) * scale
-        m, v = state["m"][name], state["v"][name]
+        g = par.local(grads[name]).to(torch.float32) * scale
+        m, v = par.local(state["m"][name]), par.local(state["v"][name])
+        p = par.local(p)
         m1 = cfg.b1 * m + (1 - cfg.b1) * g
         v1 = cfg.b2 * v + (1 - cfg.b2) * g * g
         delta = (m1 / c1) / (torch.sqrt(v1 / c2) + cfg.eps)

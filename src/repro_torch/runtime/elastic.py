@@ -36,9 +36,13 @@ Where the port differs:
     and two states at once would double the card's peak memory), and the
     iterator from ``batches(start)`` is closed on every way out of an
     attempt (a ``Prefetcher`` runs a thread).
-  * ``state_shardings``: the port's ``Checkpointer.restore`` writes onto
-    the devices of the tree it is given, and there is no mesh yet (ROADMAP
-    queue 1, E1): any value but ``None`` raises ``NotImplementedError``.
+  * ``state_shardings`` (``launch.train.build(mesh=...)``'s third value,
+    a tree of ``parallel.api.Sharding``): a restart restores the latest
+    step onto them, into the fresh ``make_state()`` built on the mesh (the
+    port's restore writes in place).  Every rank runs the trainer; the
+    ``collective`` fault point fires on every rank at the same dispatch,
+    so all restart together, and the checkpointer's ``wait()`` barrier
+    gives them the same latest step.
 """
 
 from __future__ import annotations
@@ -92,10 +96,6 @@ class ElasticTrainer:
                  state_shardings: Any = None,
                  faults: _faults.FaultPlan | None = None,
                  on_step: Callable | None = None):
-        if state_shardings is not None:
-            raise NotImplementedError(
-                "state_shardings: restore onto other shardings comes with "
-                "the mesh (ROADMAP queue 1, E1)")
         # on_step(step, loss, dt_s): host-side live-progress hook, fired
         # after each step's loss is read (it must not mutate training
         # state).
@@ -130,7 +130,8 @@ class ElasticTrainer:
         latest = self.ckpt.latest_step()
         state = self.make_state()
         if latest is not None:
-            return self.ckpt.restore(latest, state), latest
+            return self.ckpt.restore(latest, state,
+                                     self.state_shardings), latest
         return state, 0
 
     # ------------------------------------------------------------------

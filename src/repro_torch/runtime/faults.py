@@ -17,13 +17,11 @@ Injection points (the facility's fault surface)::
     autotune.save       core/autotune.AutotuneCache.put_raw — torn writes
     checkpoint.save     checkpoint.Checkpointer._write — crash mid-save
     train.step          runtime/elastic.ElasticTrainer — node death
-    collective          the mesh's comm edges (not ported yet)
+    collective          core/lowering._shard_wrap (each per-shard dispatch)
+                        and parallel/api.expert_exchange (each exchange)
 
-All eight points are defined, so a plan written for the reference is a
-valid plan here; the port consults the seven that have a call site in it
-(``contract.dispatch``, ``kv.alloc``, ``serve.step``, ``autotune.load``,
-``autotune.save``, ``checkpoint.save``, ``train.step``); ``collective``
-waits for the mesh (ROADMAP queue 1, E1).
+All eight points are defined and every one has a call site, so a plan
+written for the reference runs here as there.
 
 Triggers (first matching rule of a spec wins):
 

@@ -10,8 +10,10 @@ The train state is ``{"params": model, "opt": {"step", "m", "v"[,
 parameters require gradients, the optimizer's trees are dicts of tensors
 keyed by parameter name.  A step updates the state in place (the
 optimizer writes the parameters and moments; see ``optim.adamw``) and
-returns it.  ``train_state_axes`` (the sharding axes of this tree) comes
-with the mesh (ROADMAP queue 1, E1).
+returns it.  ``train_state_axes`` gives the logical axes of this tree, as
+the reference's (the parameters' and each moment's are
+``models.model.param_axes``), and ``state_shardings`` lays a
+``parallel.api`` spec on each of the port's leaves.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, compression
+from repro_torch.parallel import api as par
 
 
 def train_state_from(model: M.Model, opt_cfg: adamw.AdamWConfig, *,
@@ -48,12 +51,50 @@ def train_state_from(model: M.Model, opt_cfg: adamw.AdamWConfig, *,
 
 def init_train_state(cfg, seed: int, opt_cfg: adamw.AdamWConfig, *,
                      compress: bool = False, bf16_params: bool = False,
-                     device=None) -> dict:
+                     device=None, rules=None) -> dict:
     """Random fp32 weights from ``seed`` on ``device`` (default: the
-    card), in a train state (:func:`train_state_from`)."""
-    return train_state_from(M.init_params(cfg, seed=seed, device=device),
+    card), in a train state (:func:`train_state_from`).  ``rules`` (with
+    a mesh): every leaf is built onto the mesh, one model piece at a time
+    (``models.model.init_params``), and the moments as shards of their
+    own."""
+    return train_state_from(M.init_params(cfg, seed=seed, device=device,
+                                          rules=rules),
                             opt_cfg, compress=compress,
                             bf16_params=bf16_params)
+
+
+def train_state_axes(cfg, compress: bool = False,
+                     bf16_params: bool = False):
+    """Logical axes tree matching the reference's ``init_train_state``
+    output (its parameter trees are ``models.model.param_axes``)."""
+    pax = M.param_axes(cfg)
+    state = {"params": pax, "opt": {"step": (), "m": pax, "v": pax}}
+    if bf16_params:
+        state["opt"]["master"] = pax
+    if compress:
+        state["residual"] = pax
+    return state
+
+
+def state_shardings(cfg, rules, *, compress: bool = False,
+                    bf16_params: bool = False) -> dict:
+    """The port's train state tree (:func:`init_train_state`'s, keyed by
+    parameter name) with a ``parallel.api.Sharding`` at every leaf: each
+    parameter and its moments at ``param_spec(shape, its axes)``, the step
+    replicated.  Read off a model built on the meta device: no weights."""
+    model = M.init_params(cfg, device="meta")
+    axes = M.named_param_axes(cfg, model)
+    per = {k: par.Sharding(rules.mesh, par.param_spec(tuple(p.shape),
+                                                      axes[k], rules))
+           for k, p in model.named_parameters()}
+    out = {"params": per,
+           "opt": {"step": par.Sharding(rules.mesh, ()), "m": per,
+                   "v": per}}
+    if bf16_params:
+        out["opt"]["master"] = per
+    if compress:
+        out["residual"] = per
+    return out
 
 
 def _bf16_view(model: M.Model) -> M.Model:
@@ -101,7 +142,7 @@ def loss_and_grads(cfg, model: M.Model, batch: dict, *,
     loss, metrics = M.loss_fn(view, batch, cfg)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
     dtypes = {k: p.dtype for k, p in model.named_parameters()}
-    grads = {k: (torch.zeros_like(p) if g is None else g).to(dtypes[k])
+    grads = {k: (par.zeros_like(p) if g is None else g).to(dtypes[k])
              for k, p, g in zip(names, leaves, got)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)

@@ -17,7 +17,8 @@
     (``test_train_step_matches_reference``'s bound).
   * The port's own rules: only ``InjectedFault`` restarts; the failed
     attempt's state is garbage before ``make_state()`` runs again; the
-    ``batches`` iterator is closed on restart; ``state_shardings`` raises.
+    ``batches`` iterator is closed on restart; ``state_shardings`` is
+    restored onto.
 """
 
 from __future__ import annotations
@@ -453,13 +454,24 @@ def test_batches_iterator_is_closed_on_restart(tmp_path):
     assert not any(pf._t.is_alive() for pf in made)
 
 
-def test_state_shardings_are_refused_until_the_mesh():
-    mk = dict(make_step=lambda: None, make_state=lambda: None,
-              batches=lambda start: iter(()),
-              checkpointer=Checkpointer.__new__(Checkpointer))
-    assert ElasticTrainer(**mk, state_shardings=None).state_shardings is None
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ElasticTrainer(**mk, state_shardings={"params": "replicated"})
+def test_state_shardings_restore_onto_the_layout(tmp_path):
+    """``state_shardings`` is taken and a restart restores onto it: here
+    the replicated layout of one process (the mesh's runs are
+    tests/test_torch_parallel.py's ``elastic`` case)."""
+    from repro_torch.parallel import api as tpar
+    mesh = tpar.AbstractMesh((1,), ("data",))
+
+    def shardings(state):
+        return {"params": {k: tpar.Sharding(mesh, (None,) * p.ndim)
+                           for k, p in state["params"].named_parameters()}}
+
+    ref = _mini_trainer(tmp_path / "a").run(6)
+    tr = _mini_trainer(tmp_path / "b", fail_at=(3,))
+    tr.state_shardings = shardings(tr.make_state())
+    out = tr.run(6)
+    assert out["restarts"] == 1
+    assert [m["loss"] for m in out["metrics"]][-3:] == \
+        [m["loss"] for m in ref["metrics"]][-3:]
 
 
 def test_straggler_raises_when_asked(tmp_path):
