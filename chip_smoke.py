@@ -337,13 +337,15 @@ Phases, each of which must pass or the script exits nonzero:
      ``EXCHANGE_DISPATCH`` over 2- and 4-way expert axes, logits bit for
      bit the parent's, the banks on the stream or wgmma kernels.  (c)
      deepseek-7b at 4 layers, one step through ``launch.train.build
-     (mesh=)`` (TP + FSDP) on 4 x 256 tokens: loss within 1e-3 and every
-     parameter within rtol/atol 2e-3 of the parent's step; each rank's
-     peak memory beside its share of the state.  (d) mamba2-130m at full
-     width and depth under ``ElasticTrainer(state_shardings=)`` on 4 x
-     64 tokens: 6 steps
-     with a ``collective`` raise in step 3 (one restart), each loss the
-     clean run's bit for bit or within 1e-4, said so.  Launches by path
+     (mesh=)`` (TP + FSDP) on 4 x 512 tokens: loss within 1e-3 and every
+     parameter within rtol/atol 2e-3 of the parent's step, each leaf's
+     first moment within ``MESH_MOMENT_TOL`` and the gradient norm
+     within ``MESH_NORM_TOL``, and the same step with the data axis's
+     gradient sum skipped failing those two; each rank's peak memory
+     beside its share of the state.  (d) mamba2-130m at full width and
+     depth under ``ElasticTrainer(state_shardings=)`` on 4 x 512 tokens:
+     6 steps with a ``collective`` raise in step 3 (one restart), each
+     loss the clean run's bit for bit or within 1e-4, said so.  Launches by path
      and collective bytes per rank; the runs' launches go to the
      entries' ``launches_by_run``.
 
@@ -7031,14 +7033,20 @@ MESH_GEMMS = ((256, 4096, 4096, False), (256, 4096, 11008, False),
 # (b): deepseek-moe-16b at 3 layers, phase 3's first 4 prompts
 MESH_MOE = dict(arch="deepseek-moe-16b", layers=3, prompts=4,
                 expert_meshes=((2, 2), (1, 4)))
-# (c): deepseek-7b at 4 layers, one step; 256-token rows (phase 5's 512
-# halved to keep four ranks' activations beside the parent's context)
-MESH_TRAIN = dict(arch="deepseek-7b", layers=4, batch=4, seq=256)
+# (c): deepseek-7b at 4 layers, one step on phase 5's 4 x 512 tokens.
+# What the step computed before Adam normalised it is held against one
+# process: each leaf's first moment (1 - b1) g within MESH_MOMENT_TOL of
+# its scale and the world's gradient norm within MESH_NORM_TOL relative
+# (the CPU's sound readings 1.2e-2 and 5.2e-5, its planted faults >= 1.0
+# and >= 5.8e-2: tests/torch_mesh_cases.py), and the same step with the
+# data axis's gradient sum skipped must fail them.
+MESH_TRAIN = dict(arch="deepseek-7b", layers=4, batch=4, seq=512)
+MESH_MOMENT_TOL, MESH_NORM_TOL = 5e-2, 1e-3
 # (d): mamba2-130m at full width and depth, 6 steps, a collective raise
-# in step 3, on 4 x 64 tokens (its time is mostly gloo's host-path
-# gathers of the state at each checkpoint and of the FSDP weights)
+# in step 3, on phase 17's 4 x 512 tokens (two of its 256-token SSD
+# chunks a row)
 MESH_ELASTIC = dict(arch="mamba2-130m", steps=6, fail_step=3, ckpt_every=2,
-                    batch=4, seq=64)
+                    batch=4, seq=512)
 
 
 def mesh_cases(torch):
@@ -7136,8 +7144,8 @@ def _train_setup(torch, mesh=None):
 
 def mesh_single(torch, tmp):
     """The parent's unsharded runs on the card: (a)'s hashes, (b)'s
-    logits hash and (c)'s step, its parameters written to ``tmp`` leaf by
-    leaf for rank 0 to hold its mesh step's against."""
+    logits hash and (c)'s step, its parameters and first moments written
+    to ``tmp`` leaf by leaf for rank 0 to hold its mesh step's against."""
     out = {"a": {name: sha16(torch, fn()) for name, fn, _ in
                  mesh_cases(torch)}}
     cfg, model, tokens = _moe_setup(torch)
@@ -7146,12 +7154,14 @@ def mesh_single(torch, tmp):
     torch.cuda.empty_cache()
     cfg, batch, mk, mstep, _ = _train_setup(torch)
     state = mk()
-    _, m = mstep()(state, batch)
+    m = mstep()(state, batch)[1]
     out["c_loss"] = float(m["loss"])
+    out["c_grad_norm"] = float(m["grad_norm"])
     os.makedirs(os.path.join(tmp, "c_ref"), exist_ok=True)
     for name, p in state["params"].named_parameters():
-        torch.save(p.detach().cpu(), os.path.join(tmp, "c_ref",
-                                                  name + ".pt"))
+        for tag, t in (("p", p), ("m", state["opt"]["m"][name])):
+            torch.save(t.detach().cpu(), os.path.join(
+                tmp, "c_ref", f"{tag}.{name}.pt"))
     del state, m
     torch.cuda.empty_cache()
     return out
@@ -7259,22 +7269,19 @@ def mesh_rank(torch, rank, tmp):
                 + list(state["opt"]["v"].values()))
     whole = sum(t.numel() * t.element_size() * 3
                 for t in state["params"].parameters())
-    _, met = counted("phase18 train", lambda: mstep()(state, batch))
+    # [1]: the step returns the state it updated, which must not outlive
+    # ``state`` (the planted step below builds a second one)
+    met = counted("phase18 train", lambda: mstep()(state, batch))[1]
     res["c"] = {"loss": float(met["loss"]), "share_gib": share / 2**30,
                 "whole_gib": whole / 2**30,
-                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    worst, leaves = 0.0, 0
-    with torch.no_grad():
-        for name, p in state["params"].named_parameters():
-            full = par.full(p)
-            if rank == 0:
-                ref = torch.load(os.path.join(tmp, "c_ref", name + ".pt")
-                                 ).cuda()
-                worst = max(worst, ((full - ref).abs()
-                                    - 2e-3 * ref.abs()).max().item())
-                leaves += 1
-            del full
-    res["c"].update(worst=worst, leaves=leaves)
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "sound": step_readings(torch, state, met, rank, tmp, True)}
+    del state, met
+    torch.cuda.empty_cache()
+    state = mk()
+    with skipped_data_sum(mesh):
+        met = mstep()(state, batch)[1]
+    res["c"]["skip"] = step_readings(torch, state, met, rank, tmp, False)
     del state, met, mk, mstep
     torch.cuda.empty_cache()
     res["c_s"] = time.perf_counter() - t0
@@ -7315,6 +7322,56 @@ def mesh_rank(torch, rank, tmp):
     res["d_s"] = time.perf_counter() - t0
     res["bytes"] = dict(par.COLLECTIVE_BYTES)
     return res
+
+
+def step_readings(torch, state, met, rank, tmp, params: bool) -> dict:
+    """(c)'s readings of a mesh step against the parent's (rank 0 reads
+    them; every rank takes part in the gathers): the worst leaf's first
+    moment error over its scale, the gradient norm, and with ``params``
+    the worst parameter's excess over rtol/atol 2e-3."""
+    from repro_torch.parallel import api as par
+    out = {"moment": 0.0, "param": 0.0, "leaves": 0,
+           "grad_norm": float(met["grad_norm"])}
+
+    def ref(tag, name):
+        return torch.load(os.path.join(tmp, "c_ref", f"{tag}.{name}.pt")
+                          ).cuda()
+
+    with torch.no_grad():
+        for name, p in state["params"].named_parameters():
+            m = par.full(state["opt"]["m"][name])
+            full = par.full(p) if params else None
+            if rank == 0:
+                want = ref("m", name)
+                out["moment"] = max(out["moment"], (
+                    (m - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30)).item())
+                if params:
+                    want = ref("p", name)
+                    out["param"] = max(out["param"], (
+                        (full - want).abs() - 2e-3 * want.abs()
+                    ).max().item())
+                out["leaves"] += 1
+            del m, full
+    return out
+
+
+@contextlib.contextmanager
+def skipped_data_sum(mesh):
+    """A fault planted in a mesh step: the data axis's gradient sums (the
+    FSDP reduce-scatter and the all-reduce of ``parallel.api``'s operand
+    backward) leave each rank's partial unsummed."""
+    from repro_torch.parallel import api as par
+    data = MESH["axes"].index("data")
+    rs, ar = par._reduce_scatter, par._all_reduce
+    par._reduce_scatter = lambda x, m, axis, dim: (
+        par._slice(x, m, axis, dim) if axis == data else rs(x, m, axis, dim))
+    par._all_reduce = lambda x, m, axis: (
+        x.clone() if axis == data else ar(x, m, axis))
+    try:
+        yield
+    finally:
+        par._reduce_scatter, par._all_reduce = rs, ar
 
 
 def _mesh_child(rank, port, tmp, queue):
@@ -7363,6 +7420,7 @@ def phase18(torch, failures, entries):
     try:
         t0 = time.perf_counter()
         single = mesh_single(torch, tmp)
+        torch.cuda.empty_cache()    # the card's memory to the ranks
         print(f"  unsharded runs in the parent: {time.perf_counter() - t0:.1f}"
               f" s; (c) loss {single['c_loss']:.6f}", flush=True)
         with socket.socket() as s:
@@ -7436,12 +7494,27 @@ def mesh_report(failures, entries, single, ranks):
     # (c)
     c = [ranks[r]["c"] for r in sorted(ranks)]
     dl = max(abs(x["loss"] - single["c_loss"]) for x in c)
-    check(dl < 1e-3 and c[0]["worst"] <= 2e-3 and c[0]["leaves"] > 0,
+    gn = single["c_grad_norm"]
+
+    def holds(r):
+        return (r["moment"] <= MESH_MOMENT_TOL
+                and abs(r["grad_norm"] - gn) <= MESH_NORM_TOL * gn)
+
+    sound, skip = c[0]["sound"], c[0]["skip"]
+    check(dl < 1e-3 and sound["param"] <= 2e-3 and sound["leaves"] > 0
+          and holds(sound) and not holds(skip),
           f"(c) deepseek-7b ({MESH_TRAIN['layers']} layers) train step on "
-          f"the 2 x 2 mesh (TP + FSDP, launch.train.build(mesh=)): loss "
+          f"the 2 x 2 mesh (TP + FSDP, launch.train.build(mesh=)), "
+          f"{MESH_TRAIN['batch']} x {MESH_TRAIN['seq']} tokens: loss "
           f"{c[0]['loss']:.6f} against {single['c_loss']:.6f} single-process"
-          f" (|d| {dl:.2e} < 1e-3), {c[0]['leaves']} parameters within "
-          f"rtol/atol 2e-3 (worst excess {c[0]['worst']:.2e})")
+          f" (|d| {dl:.2e} < 1e-3), {sound['leaves']} parameters within "
+          f"rtol/atol 2e-3 (worst excess {sound['param']:.2e}); first "
+          f"moments within {MESH_MOMENT_TOL:g} of each leaf's scale (worst "
+          f"{sound['moment']:.3e}), gradient norm {sound['grad_norm']:.6f} "
+          f"against {gn:.6f} (rel {abs(sound['grad_norm'] - gn) / gn:.3e}"
+          f" <= {MESH_NORM_TOL:g}); the data axis's gradient sum skipped "
+          f"fails them (worst moment {skip['moment']:.3e}, gradient norm "
+          f"rel {abs(skip['grad_norm'] - gn) / gn:.3e})")
     for r, x in enumerate(c):
         print(f"  (c) rank {r}: peak device memory {x['peak_gib']:.2f} GiB,"
               f" its share of the state {x['share_gib']:.2f} GiB of "

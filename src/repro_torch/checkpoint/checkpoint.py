@@ -29,9 +29,10 @@ the last complete step.
 
 On a mesh (``parallel.api``), a sharded leaf (a ``DTensor``) is saved as
 one global host array: every rank gathers it (a collective, so every rank
-calls ``save``), rank 0 writes, and ``wait()`` ends on a barrier, so every
-rank sees the same ``latest_step()``.  Only rank 0 consults the
-``checkpoint.save`` fault point.  ``restore(step, like, shardings)`` lays
+calls ``save``), rank 0 copies it to the host and writes, the others drop
+it, and ``wait()`` ends on a barrier, so every rank sees the same
+``latest_step()``.  Only rank 0 consults the ``checkpoint.save`` fault
+point.  ``restore(step, like, shardings)`` lays
 each global array onto its sharding: a rank keeps its slice of it.
 """
 
@@ -94,6 +95,16 @@ def _to_host(leaf, copy: bool) -> tuple[np.ndarray, str]:
     return a, a.dtype.name
 
 
+def _take_part(flat) -> None:
+    """A rank that does not write: take part in each sharded leaf's
+    gather (a collective) and drop the result, so no rank but the writer
+    holds a host copy of the state."""
+    with torch.no_grad():
+        for _, leaf in flat:
+            if _par.is_dtensor(leaf):
+                _par.full(leaf)
+
+
 def _from_host(a: np.ndarray, name: str) -> torch.Tensor:
     if name in _VIEW_AS:
         _, torch_view = _VIEW_AS[name]
@@ -135,21 +146,21 @@ class Checkpointer:
         """Synchronous save, one leaf in host memory at a time."""
         self.wait()
         flat = _flatten(tree)
-        host = (_to_host(leaf, copy=False) for _, leaf in flat)
         if not _par.is_writer():
-            for _ in host:      # the gathers are collectives: take part
-                pass
+            _take_part(flat)
             return
-        self._write(step, [p for p, _ in flat], host)
+        self._write(step, [p for p, _ in flat],
+                    (_to_host(leaf, copy=False) for _, leaf in flat))
 
     def save_async(self, step: int, tree: Any):
         self.wait()
         # Snapshot to host memory NOW: the next step updates the tensors
         # in place, host tensors included.
         flat = _flatten(tree)
-        host = [_to_host(leaf, copy=True) for _, leaf in flat]
         if not _par.is_writer():
+            _take_part(flat)
             return
+        host = [_to_host(leaf, copy=True) for _, leaf in flat]
 
         def work():
             try:

@@ -102,7 +102,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import contextvars
 import dataclasses
 import functools
 import logging
@@ -162,9 +161,10 @@ class Plan:
     q_chunk: int = 0                  # torch lowering's q-chunk (0 = default)
     # Mesh binding for the shard-aware dispatch: None -> the ambient
     # parallel.api rules (model code stays annotation-only); False ->
-    # single-device lowering even under an active mesh (e.g. contracts
-    # issued inside an expert exchange's per-shard body); a DeviceMesh or
-    # parallel.api.ShardingRules binds explicitly.
+    # single-device lowering even under an active mesh; a DeviceMesh or
+    # parallel.api.ShardingRules binds explicitly; a parallel.api.BankShard
+    # runs single-device on the plan of a batch BankShard.factor times
+    # larger (contracts issued inside an expert exchange's per-shard body).
     mesh: object = None
 
 
@@ -643,10 +643,6 @@ def _lower_kernel_gemm(op: Op):
         else:
             block, tuned = resolve_block(kind, m, n, k, op.block, ep.key,
                                          b=b or 1, device=xi.device.type)
-            scale = _GLOBAL_BATCH.get()
-            if scale > 1 and b is not None and block is None:
-                tuned = _batch_plan(kind, xi, yi, xl, yl, b * scale, m, n,
-                                    k, ep.key, op.masks is not None)
         return _gemm.mma_gemm(
             xi, yi, c, kind=kind, block=block, tuned=tuned, x_layout=xl,
             y_layout=yl,
@@ -686,32 +682,6 @@ def _lower_kernel_gemm(op: Op):
     for xi, yi, kind in passes:
         prod = one(kind, xi, yi, prod, identity_ep, None, forms=False)
     return assemble(_combine_expanded(op, prod, acc2, res2))
-
-
-_GLOBAL_BATCH = contextvars.ContextVar("repro_torch_global_batch",
-                                       default=1)
-
-
-@contextlib.contextmanager
-def global_batch(factor: int):
-    """Batched GEMMs inside plan their kernel as if their batch were
-    ``factor`` times larger: a shard of a bank runs the whole bank's plan
-    (``parallel.api.expert_exchange``'s per-shard body)."""
-    token = _GLOBAL_BATCH.set(factor)
-    try:
-        yield
-    finally:
-        _GLOBAL_BATCH.reset(token)
-
-
-def _batch_plan(kind, x, y, xl, yl, b, m, n, k, ep_key, masked):
-    """(path, config) the wrapper would choose for this product at batch
-    ``b``: pinned as the call's ``tuned``."""
-    _, won = resolve_block(kind, m, n, k, None, ep_key, b=b,
-                           device=x.device.type)
-    return tiling.choose_gemm_path(
-        m, n, k, kind, b, _gemm.natural_aligned(x, y, xl, yl), None, masked,
-        won, _gemm.tma_aligned(x, xl) if kind in tiling.IMMA_GERS else None)
 
 
 def _fresh_panels(v):
@@ -1673,7 +1643,7 @@ def _shard_rules(plan: Plan):
     this dispatch stays single-device (no binding, ``mesh=False``, or a
     rules object with no mesh behind it)."""
     b = plan.mesh
-    if b is False:
+    if b is False or isinstance(b, _par.BankShard):
         return None
     if b is None:
         r = _par.current()
@@ -1700,6 +1670,50 @@ class _ShardPlan:
 def _local_shape(shape, spec, rules) -> tuple:
     return tuple(n // rules.axis_extent(ax) if ax is not None else n
                  for n, ax in zip(shape, spec))
+
+
+def _gemm_extent(op: Op, assign=None, rules=None) -> tuple:
+    """(b, m, n, k) of a gemm ``op`` (b None when unbatched); with a
+    label -> mesh axis ``assign``, one shard's."""
+    p = op.parsed
+    sizes = _sizes(p, op.x, op.y)
+    ext = [_prod(sizes[d] // (rules.axis_extent(assign.get(d))
+                              if assign else 1) for d in labels)
+           for labels in (p.batch, p.x_free, p.y_free, p.contract)]
+    return (ext[0] if p.batch else None, *ext[1:])
+
+
+def _pin_gemm(op: Op, b, m, n, k, ml=None, nl=None):
+    """``{kind: (path, config)}``: the GEMM path and config the wrapper
+    would choose for the kernel gemm ``op`` at the global product (b, m,
+    n, k), pinned as every shard's ``tuned`` (the mesh's shards, the
+    exchange's banks); None when a shard of ``ml`` x ``nl`` cannot take
+    it."""
+    kind = rep_kind(op.ger)
+    pol = precision.policy(kind)
+    ib = pol.x_dtype.itemsize
+
+    def base_ok(t, dtype):
+        # the dispatch's operand as the wrapper sees it: a cast or a
+        # gathered DTensor is a fresh allocation, a view keeps its base
+        return (_par.is_dtensor(t) or t.dtype != dtype
+                or not t.is_contiguous() or t.data_ptr() % 16 == 0)
+
+    x_ok = (k * ib) % 16 == 0 and base_ok(op.x, pol.x_dtype)
+    aligned = (x_ok and (n * ib) % 16 == 0 and base_ok(op.y, pol.y_dtype)
+               and not (packing.is_packed(op.x) or packing.is_packed(op.y)))
+    block, tuned = resolve_block(kind, m, n, k, op.block, op.epilogue.key,
+                                 b=b or 1, device=op.x.device.type)
+    pin = tiling.choose_gemm_path(m, n, k, kind, b or 1, aligned, block,
+                                  False, tuned, x_ok)
+    # each shard must run the global plan: its rows stay aligned where the
+    # global rows are (a sliced-out shard is a fresh copy), its column
+    # pitch is its own
+    ml, nl = ml or m, nl or n
+    if not tiling.takes(pin, ml, nl, k, kind, aligned and (nl * ib) % 16
+                        == 0, False, x_ok):
+        return None
+    return {kind: pin}
 
 
 def _plan_gemm_shards(op: Op, rules) -> _ShardPlan | None:
@@ -1754,46 +1768,13 @@ def _plan_gemm_shards(op: Op, rules) -> _ShardPlan | None:
     if op.bias is not None:
         specs["bias"] = (assign.get(p.y_free[0]),)
 
-    dims = {}
-    for side, labels in (("b", p.batch), ("m", p.x_free),
-                         ("n", p.y_free), ("k", p.contract)):
-        dims[side] = (_prod(sizes[d] for d in labels),
-                      _prod(sizes[d] // rules.axis_extent(assign.get(d))
-                            for d in labels))
-    (b, bl), (m, ml), (n, nl), (k, _) = (dims[c] for c in "bmnk")
-    batched = bool(p.batch)
     pinned = None
     if op.backend == "kernel":
-        pinned = {}
-        kind = rep_kind(op.ger)
-        ib = torch.tensor([], dtype=precision.policy(kind).x_dtype
-                          ).element_size()
-
-        def base_ok(t, dtype):
-            # the dispatch's operand as the wrapper sees it: a cast or a
-            # gathered DTensor is a fresh allocation, a view keeps its base
-            return (_par.is_dtensor(t) or t.dtype != dtype
-                    or not t.is_contiguous() or t.data_ptr() % 16 == 0)
-
-        pol = precision.policy(kind)
-        x_ok = (k * ib) % 16 == 0 and base_ok(op.x, pol.x_dtype)
-        aligned = (x_ok and (n * ib) % 16 == 0
-                   and base_ok(op.y, pol.y_dtype)
-                   and not (x_packed or y_packed))
-        block, tuned = resolve_block(kind, m, n, k, op.block,
-                                     op.epilogue.key,
-                                     b=b if batched else 1,
-                                     device=op.x.device.type)
-        pin = tiling.choose_gemm_path(m, n, k, kind, b if batched else 1,
-                                      aligned, block, False, tuned, x_ok)
-        # each shard must run the global plan: its rows stay aligned where
-        # the global rows are (a sliced-out shard is a fresh copy), its
-        # column pitch is its own
-        local_aligned = aligned and (nl * ib) % 16 == 0
-        if not tiling.takes(pin, ml, nl, k, kind, local_aligned, False,
-                            x_ok):
+        (b, m, n, k), (_, ml, nl, _) = (
+            _gemm_extent(op), _gemm_extent(op, assign, rules))
+        pinned = _pin_gemm(op, b, m, n, k, ml, nl)
+        if pinned is None:
             return None
-        pinned[kind] = pin
     return _ShardPlan(specs=specs, out_spec=out_spec, pinned=pinned)
 
 
@@ -1908,26 +1889,27 @@ def _shard_plan(op: Op, op_class: str, rules) -> _ShardPlan | None:
     return None
 
 
-def _shard_wrap(op_class: str, rules):
+def _shard_wrap(op_class: str, rules, op0: Op, sp0: _ShardPlan):
     """``fn -> per-shard fn``: the mesh path's one wrapper (``shard_map``'s
     counterpart).
 
-    ``run(sub)`` plans the op it is given (the guarded ladder may hand it
-    another rung's op, or an ABFT-augmented one; an op with no plan runs
-    whole), slices every operand to this rank's shard
+    ``run(sub)`` takes ``sp0``, the plan :func:`execute` made, for the op
+    it was made for (``op0``) and plans any other op it is given (the
+    guarded ladder may hand it another rung's op, or an ABFT-augmented
+    one; an op with no plan runs whole), slices every operand to this
+    rank's shard
     (``parallel.api.enter``: a DTensor operand, a sharded parameter, is
     gathered or sliced to the plan's spec, its gradient reduced back),
     runs ``fn`` on the local op with the pinned plan and, for a
     sequence-parallel causal/window attention, this rank's ``q_offset``,
-    and gathers the output (``parallel.api.leave``; a DTensor when the
-    first operand was one).  The ``collective`` fault point fires once a
-    sharded dispatch."""
+    and gathers the output (``parallel.api.leave``).  The ``collective``
+    fault point fires once a sharded dispatch."""
     mesh = rules.mesh
     names = list(_par.axis_sizes(mesh))
 
     def wrap(fn):
         def run(sub: Op):
-            sp = _shard_plan(sub, op_class, rules)
+            sp = sp0 if sub is op0 else _shard_plan(sub, op_class, rules)
             if sp is None:
                 return fn(sub)
             _faults.maybe_inject(_faults.COLLECTIVE)
@@ -1959,10 +1941,32 @@ def _shard_wrap(op_class: str, rules):
                 q_offset=q_offset, **kw)
             with _abft.suppress():
                 out = fn(inner)
-            return _par.leave(out, sp.out_spec, mesh,
-                              as_dtensor=_par.is_dtensor(sub.x))
+            return _par.leave(out, sp.out_spec, mesh)
         return run
     return wrap
+
+
+def _mesh_dispatch(op: Op, op_class: str, plan: Plan):
+    """``(op, wrap)`` for a dispatch in a process with a torch.distributed
+    world: a kernel gemm/conv/attn whose binding resolves to a mesh and
+    plans onto it runs per shard (``wrap``, :func:`_shard_wrap`); an
+    exchange's bank (``parallel.api.BankShard``) is pinned to the whole
+    bank's plan; any other dispatch with a DTensor operand (a sharded
+    parameter) runs on its global value."""
+    if op.backend == "kernel" and op_class in ("gemm", "conv", "attn"):
+        srules = _shard_rules(plan)
+        sp = _shard_plan(op, op_class, srules) if srules is not None \
+            else None
+        if sp is not None:
+            return op, _shard_wrap(op_class, srules, op, sp)
+        if op_class == "gemm" and isinstance(plan.mesh, _par.BankShard):
+            b, m, n, k = _gemm_extent(op)
+            if b is not None:
+                op = dataclasses.replace(op, pinned=_pin_gemm(
+                    op, b * plan.mesh.factor, m, n, k))
+    held = {n: _par.full(getattr(op, n)) for n in _SHARD_OPERANDS
+            if _par.is_dtensor(getattr(op, n))}
+    return (dataclasses.replace(op, **held) if held else op), None
 
 
 def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
@@ -2103,18 +2107,10 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
             window=plan.window, q_offset=plan.q_offset,
             q_chunk=plan.q_chunk, stride=stride, padding=plan.padding,
             backend=backend)
-    wrap = None
-    if backend == "kernel" and op_class in ("gemm", "conv", "attn"):
-        srules = _shard_rules(plan)
-        if srules is not None and _shard_plan(op, op_class, srules):
-            wrap = _shard_wrap(op_class, srules)
-    dt_mesh = x.device_mesh if _par.is_dtensor(x) else None
-    if wrap is None and any(_par.is_dtensor(getattr(op, n))
-                            for n in _SHARD_OPERANDS):
-        # no per-shard plan for this dispatch: it runs on the global value
-        op = dataclasses.replace(op, **{
-            n: _par.full(getattr(op, n)) for n in _SHARD_OPERANDS
-            if _par.is_dtensor(getattr(op, n))})
+    # with no torch.distributed world there is no mesh and no DTensor:
+    # one call, and the single-device dispatch goes on
+    op, wrap = _mesh_dispatch(op, op_class, plan) if _par.active() \
+        else (op, None)
     if cfg.guards:
         out = _guarded_dispatch(op, op_class, backend, ger, not ep.is_identity,
                                 abft_on=cfg.abft, wrap=wrap)
@@ -2125,8 +2121,6 @@ def execute(spec: str, x, y, z=None, *, cfg, plan: Plan | None = None,
         fault = _faults.maybe_inject(_faults.CONTRACT_DISPATCH)
         out = _apply_data_fault(fault, wrap(fn)(op) if wrap is not None
                                 else fn(op))
-    if wrap is None and dt_mesh is not None:
-        out = _par.leave(out, (None,) * out.ndim, dt_mesh, as_dtensor=True)
     if dequant is not None:
         out = dequant.apply(out).to(out_dtype)
     return out

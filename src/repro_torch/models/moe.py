@@ -48,8 +48,8 @@ the expert banks run through ``parallel.api.expert_exchange``, one
 all-to-all out to the expert-parallel ranks (each runs its experts' banks
 on every peer's slots) and one back.  The exchange is a pure permutation
 of slots and the banks' kernel plan is resolved at the global bank
-(``lowering.global_batch``), so the result is the gather dispatch's bit
-for bit.
+(the ``parallel.api.BankShard`` binding), so the result is the gather
+dispatch's bit for bit.
 """
 
 from __future__ import annotations
@@ -172,17 +172,18 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg):
 
     # ---- expert banks: batched products, experts on the batch axis ----
     if EXCHANGE_DISPATCH:
-        # the exchange's per-shard body: its contracts pin mesh=False (the
-        # slab is already a shard) and it makes no shard() annotations
-        def expert_ffn(slab, ws):
+        # the exchange's per-shard body: its contracts bind the binding
+        # the exchange gives (the slab is already a shard) and it makes no
+        # shard() annotations
+        def expert_ffn(slab, ws, mesh):
             h1 = facility.contract(
                 "ecd,edf->ecf", slab, ws["w1"],
-                plan=Plan(mesh=False, epilogue=Epilogue(activation=cfg.act)))
+                plan=Plan(mesh=mesh, epilogue=Epilogue(activation=cfg.act)))
             if cfg.gated_mlp:
                 h1 = h1 * facility.contract("ecd,edf->ecf", slab, ws["w3"],
-                                            plan=Plan(mesh=False))
+                                            plan=Plan(mesh=mesh))
             return facility.contract("ecf,efd->ecd", h1, ws["w2"],
-                                     plan=Plan(mesh=False))
+                                     plan=Plan(mesh=mesh))
 
         weights = {"w1": p.w1, "w2": p.w2}
         if cfg.gated_mlp:

@@ -253,7 +253,16 @@ def spec_of(t) -> tuple | None:
                  for e in out)
 
 
+def active() -> bool:
+    """Whether a mesh can exist in this process: a ``torch.distributed``
+    world is up (every DeviceMesh, so every DTensor, lives in one).  The
+    single-device dispatch asks this first and skips every mesh check."""
+    return dist.is_initialized()
+
+
 def is_dtensor(t) -> bool:
+    if not dist.is_initialized():
+        return False
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
 
@@ -379,19 +388,6 @@ class _Leave(torch.autograd.Function):
             None, None
 
 
-class _Wrap(torch.autograd.Function):
-    """A local shard to the DTensor it is a shard of."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, pl):
-        from torch.distributed.tensor import DTensor
-        return DTensor.from_local(x, mesh, pl, run_check=False)
-
-    @staticmethod
-    def backward(ctx, g):
-        return local(g), None, None
-
-
 def enter(t, spec, mesh, partial=frozenset()):
     """``t``'s local shard at ``spec`` (differentiable).  ``t`` is a plain
     tensor holding the global value, or a DTensor on ``mesh``."""
@@ -405,11 +401,9 @@ def enter(t, spec, mesh, partial=frozenset()):
     return _Enter.apply(t, mesh, src, dst, frozenset(partial))
 
 
-def leave(x, spec, mesh, *, as_dtensor: bool = False):
-    """A local output shard at ``spec`` back to the global value: a plain
-    replicated tensor, or with ``as_dtensor`` the DTensor of the shards."""
-    if as_dtensor:
-        return _Wrap.apply(x, mesh, placements(spec, mesh))
+def leave(x, spec, mesh):
+    """A local output shard at ``spec`` back to the global value, a plain
+    tensor replicated on every rank (differentiable)."""
     return _Leave.apply(x, mesh, _states(spec, mesh))
 
 
@@ -484,24 +478,17 @@ class Sharding:
 def shard(x, *logical_axes):
     """Annotate an activation with logical axes (no-op without a mesh).
 
-    Under a mesh the rank is checked; a DTensor is laid out at
-    :func:`activation_spec`'s placements.  A plain tensor holds the global
-    value on every rank and stays as it is: the per-shard work of the
-    port's mesh is the contraction's (``core.lowering``), whose dispatch
-    slices its operands itself.  :func:`distribute` makes a DTensor of a
-    plain tensor where a caller wants one.
+    Under a mesh the rank is checked and the value goes on as it is.  The
+    port's activations hold the global value on every rank: the per-shard
+    work of its mesh is the contraction's (``core.lowering``), whose
+    dispatch lays each operand out at its own plan's spec, so no layout is
+    carried between contractions (ROADMAP queue 3).
     """
     r = current()
-    if not r.enabled or r.mesh is None:
-        return x
-    if len(logical_axes) != x.ndim:
+    if r.enabled and r.mesh is not None and len(logical_axes) != x.ndim:
         raise ValueError(
             f"shard() got {len(logical_axes)} axes for rank-{x.ndim} value")
-    if not is_dtensor(x):
-        return x
-    spec = activation_spec(tuple(x.shape), logical_axes, r)
-    mesh = x.device_mesh
-    return leave(enter(x, spec, mesh), spec, mesh, as_dtensor=True)
+    return x
 
 
 # ----------------------------------------------------------------------
@@ -536,6 +523,17 @@ def _all_to_all(x, mesh, axis, split, concat):
     return torch.cat(out.chunk(n, 0), dim=concat)
 
 
+@dataclasses.dataclass(frozen=True)
+class BankShard:
+    """A ``Plan.mesh`` binding for a contract on one rank's shard of a
+    batched product ``factor`` times larger (the exchange's per-shard
+    banks): it runs on this rank alone, on the kernel plan resolved at
+    the whole batch (``core.lowering``), as a mesh dispatch's shards
+    do."""
+
+    factor: int
+
+
 def expert_exchange(buf, params, fn):
     """All-to-all expert dispatch: exchange a slot-sharded ``(E, C, ...)``
     dispatch buffer against the expert axis, run ``fn`` on each shard's
@@ -544,17 +542,19 @@ def expert_exchange(buf, params, fn):
     ``buf`` holds the global buffer on every rank; rank r of the expert
     axis keeps its slots ``[r*C/P, (r+1)*C/P)`` (tokens live where they
     were routed from).  One all-to-all gives each rank ``(E/P, C, ...)``,
-    every peer's slots for its experts, and ``fn(slab, local params)``
-    runs the per-shard batched expert products on its experts' weights
-    (``params``: a dict of per-expert tensors, experts leading, plain or
-    DTensor).  The result goes back by the inverse all-to-all and is
-    gathered over the slots, so the global result is exactly the
-    unsharded ``fn(buf, params)``: the exchange is a pure permutation of
-    slots.
+    every peer's slots for its experts, and ``fn(slab, local params,
+    binding)`` runs the per-shard batched expert products on its experts'
+    weights (``params``: a dict of per-expert tensors, experts leading,
+    plain or DTensor).  The result goes back by the inverse all-to-all and
+    is gathered over the slots, so the global result is exactly the
+    unsharded ``fn(buf, params, False)``: the exchange is a pure
+    permutation of slots.
 
-    Degrades to a plain ``fn(buf, params)`` call when no expert-parallel
-    axis is active or E/C do not divide it: the caller never branches.
-    ``fn``'s contracts must bind ``Plan(mesh=False)``.
+    Degrades to a plain ``fn(buf, params, False)`` call when no
+    expert-parallel axis is active or E/C do not divide it: the caller
+    never branches.  ``fn``'s contracts bind ``Plan(mesh=binding)``: False
+    (single-device) or a :class:`BankShard` (the slab's plan is the whole
+    bank's, so each shard sums as the unsharded bank does).
     """
     r = current()
     ax = r.rules.get("experts") if r.enabled and r.mesh is not None \
@@ -562,7 +562,7 @@ def expert_exchange(buf, params, fn):
     p = r.axis_extent(ax)
     e, c = buf.shape[0], buf.shape[1]
     if p <= 1 or e % p or c % p:
-        return fn(buf, params)
+        return fn(buf, params, False)
     from repro_torch.runtime import faults as _faults
     _faults.maybe_inject(_faults.COLLECTIVE)
     if len(flat_axes(ax)) != 1:
@@ -576,8 +576,6 @@ def expert_exchange(buf, params, fn):
     b = _AllToAll.apply(b, mesh, a, 0, 1)
     ps = {k: enter(v, (ax,) + (None,) * (v.ndim - 1), mesh)
           for k, v in params.items()}
-    from repro_torch.core import lowering
-    with lowering.global_batch(p):
-        out = fn(b, ps)
+    out = fn(b, ps, BankShard(p))
     out = _AllToAll.apply(out, mesh, a, 1, 0)
     return leave(out, slot_spec, mesh)

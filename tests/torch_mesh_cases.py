@@ -12,6 +12,7 @@ and the launcher on the mesh.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -386,12 +387,73 @@ def _full_params(model):
                 for k, p in model.named_parameters()}
 
 
+def _moments(state) -> dict:
+    """The optimizer's first and second moments after a step, as global
+    values by parameter name: ``m`` = (1 - b1) g and ``v`` = (1 - b2) g^2
+    (g clipped by the world's gradient norm), what the step computed
+    before Adam normalised it."""
+    from repro_torch.parallel import api as par
+    with torch.no_grad():
+        return {w: {k: par.full(t).detach().clone()
+                    for k, t in state["opt"][w].items()} for w in "mv"}
+
+
+def moment_error(ref: dict, got: dict) -> float:
+    """The worst leaf's max |got - ref| over its max |ref|, over m and v."""
+    return max(((got[w][k] - ref[w][k]).abs().max()
+                / ref[w][k].abs().max().clamp_min(1e-30)).item()
+               for w in "mv" for k in ref[w])
+
+
+# A sound mesh step's readings: each leaf's moments within 5e-2 of its
+# scale, the gradient norm within 1e-3 relative.  The BF16GER2 backward
+# products round each shard's partial sums (the data axis's gradient sum,
+# the model axis's dX) to their output before the sum, so a sound step
+# reads up to 1.2e-2 and 5.2e-5 against one process, and 1.2e-2 and 8e-6
+# against the reference's mesh step; a skipped or doubled data-axis sum,
+# or an unchanged state, reads >= 1.0 and >= 5.8e-2.
+MOMENT_TOL, NORM_TOL = 5e-2, 1e-3
+
+
+@contextlib.contextmanager
+def planted(fault: str, mesh):
+    """A fault planted in the data axis's gradient sums (the FSDP
+    reduce-scatter and the all-reduce of ``parallel.api._Enter``'s
+    backward): ``skip`` leaves each rank's partial unsummed, ``double``
+    doubles the sum."""
+    from repro_torch.parallel import api as par
+    data = list(par.axis_sizes(mesh)).index("data")
+    rs, ar = par._reduce_scatter, par._all_reduce
+
+    def reduce_scatter(x, m, axis, dim):
+        if axis != data:
+            return rs(x, m, axis, dim)
+        return (par._slice(x, m, axis, dim) if fault == "skip"
+                else 2 * rs(x, m, axis, dim))
+
+    def all_reduce(x, m, axis):
+        if axis != data:
+            return ar(x, m, axis)
+        return x.clone() if fault == "skip" else 2 * ar(x, m, axis)
+
+    par._reduce_scatter, par._all_reduce = reduce_scatter, all_reduce
+    try:
+        yield
+    finally:
+        par._reduce_scatter, par._all_reduce = rs, ar
+
+
 def train_step(ctx):
     """One train step of reduced deepseek-7b (the reference's weights) on
     the 2 x 2 mesh with param_spec's TP + FSDP layout, against the same
     step in one process: the loss within 1e-3 and every parameter within
-    rtol/atol 2e-3 (the reference's test_parallel.py tolerances: the
-    data-parallel gradient sum is not bitwise)."""
+    rtol/atol 2e-3 (the reference's test_parallel.py tolerances), and what
+    the step computed before Adam normalised it, which those cannot see
+    (Adam's first step moves a parameter by lr whatever its gradient):
+    each leaf's moments within MOMENT_TOL and the world's gradient norm
+    within NORM_TOL.  The same readings must fail on a step whose data
+    axis skips or doubles its gradient sum, and on a state the step left
+    unchanged."""
     from repro_torch.models import convert
     from repro_torch.models import model as M
     from repro_torch.parallel import api as par
@@ -403,24 +465,52 @@ def train_step(ctx):
         convert.params_from_numpy(tree, cfg, device="cpu"), opt)
     _, m1 = step(single, batch)
     p1 = _full_params(single["params"])
+    mo1, gn1 = _moments(single), m1["grad_norm"].item()
 
-    model = M.place(convert.params_from_numpy(tree, cfg, device="cpu"),
-                    M.param_axes(cfg), ctx.rules)
-    sharded = S.train_state_from(model, opt)
+    def sharded_step(fault=None):
+        model = M.place(convert.params_from_numpy(tree, cfg, device="cpu"),
+                        M.param_axes(cfg), ctx.rules)
+        state = S.train_state_from(model, opt)
+        with par.use_rules(ctx.rules), (
+                planted(fault, ctx.mesh) if fault else
+                contextlib.nullcontext()):
+            _, met = step(state, batch)
+        return state, met
+
+    sharded, m2 = sharded_step()
+    model = sharded["params"]
     n_local = sum(par.local(p).numel() for p in model.parameters())
     n_all = sum(p.numel() for p in model.parameters())
-    with par.use_rules(ctx.rules):
-        _, m2 = step(sharded, batch)
-    p2 = _full_params(sharded["params"])
+    p2, mo2 = _full_params(model), _moments(sharded)
     ctx.arrays["train:loss"] = np.float32(m2["loss"].item())
+    ctx.arrays["train:grad_norm"] = np.float32(m2["grad_norm"].item())
     for k, v in p2.items():
         ctx.save(f"train:{k}", v)
+        ctx.save(f"train:m:{k}", mo2["m"][k])
     dl = abs(m1["loss"].item() - m2["loss"].item())
     worst = max(((p1[k] - p2[k]).abs() - 2e-3 * p1[k].abs()).max().item()
                 for k in p1)
-    ok = dl < 1e-3 and worst <= 2e-3 and n_local < n_all
+    readings = {"sound": (moment_error(mo1, mo2),
+                          abs(m2["grad_norm"].item() - gn1) / gn1)}
+    for fault in ("skip", "double"):
+        st, met = sharded_step(fault)
+        readings[fault] = (moment_error(mo1, _moments(st)),
+                           abs(met["grad_norm"].item() - gn1) / gn1)
+    fresh = S.train_state_from(M.place(
+        convert.params_from_numpy(tree, cfg, device="cpu"),
+        M.param_axes(cfg), ctx.rules), opt)
+    readings["unchanged"] = (moment_error(mo1, _moments(fresh)), None)
+
+    def holds(r):
+        return r[0] <= MOMENT_TOL and r[1] is not None and r[1] <= NORM_TOL
+
+    ok = (dl < 1e-3 and worst <= 2e-3 and n_local < n_all
+          and holds(readings["sound"])
+          and not any(holds(r) for f, r in readings.items()
+                      if f != "sound"))
     return ok, (f"loss {m1['loss'].item()} vs {m2['loss'].item()} "
-                f"worst={worst} local {n_local} of {n_all}")
+                f"worst={worst} local {n_local} of {n_all}; (moment error,"
+                f" grad-norm error) {readings}")
 
 
 def launcher(ctx):
@@ -459,8 +549,9 @@ def launcher(ctx):
 def checkpoint_restore(ctx):
     """A mesh state saved as global arrays, restored onto the same
     shardings and onto a single-process state: every leaf's global value
-    comes back."""
-    from repro_torch.checkpoint.checkpoint import Checkpointer
+    comes back.  Only the writer (rank 0) copies leaves to the host, in
+    ``save`` and in ``save_async``."""
+    from repro_torch.checkpoint import checkpoint as C
     from repro_torch.configs import get
     from repro_torch.configs.base import reduced
     from repro_torch.launch import train as T
@@ -468,9 +559,21 @@ def checkpoint_restore(ctx):
     mk, _, shardings = T.build(cfg, device="cpu", mesh=ctx.mesh, seed=3)
     state = mk()
     want = _full_params(state["params"])
-    ck = Checkpointer(os.path.join(ctx.tmp, "ckpt_restore"))
-    ck.save(7, state)
-    ck.wait()
+    ck = C.Checkpointer(os.path.join(ctx.tmp, "ckpt_restore"))
+    copies, to_host = [], C._to_host
+    C._to_host = lambda leaf, copy: copies.append(1) or to_host(leaf, copy)
+    try:
+        ck.save_async(6, state)
+        ck.save(7, state)
+        ck.wait()
+    finally:
+        C._to_host = to_host
+    n_leaves = len(C._flatten(state))
+    # every rank's count, held where rank 0 reports
+    bad = torch.tensor([int(len(copies) != (2 * n_leaves if ctx.rank == 0
+                                            else 0))])
+    torch.distributed.all_reduce(bad)
+    host_ok = bad.item() == 0
     mk0, _, _ = T.build(cfg, device="cpu", mesh=ctx.mesh, seed=5)
     other = ck.restore(7, mk0(), shardings)
     got = _full_params(other["params"])
@@ -478,10 +581,11 @@ def checkpoint_restore(ctx):
     plain = ck.restore(7, plain_mk())
     got_plain = {k: p.detach() for k, p in
                  plain["params"].named_parameters()}
-    ok = all(torch.equal(want[k], got[k]) and torch.equal(want[k],
-                                                          got_plain[k])
-             for k in want)
-    return ok, f"latest={ck.latest_step()}"
+    ok = host_ok and all(torch.equal(want[k], got[k])
+                         and torch.equal(want[k], got_plain[k])
+                         for k in want)
+    return ok, (f"latest={ck.latest_step()} host copies on rank "
+                f"{ctx.rank}: {len(copies)} of {n_leaves} leaves x 2")
 
 
 def elastic(ctx):
